@@ -1,0 +1,109 @@
+"""End-to-end GSASR assembly: encoder -> Fea2GS -> rasterizer (counterpart
+of `gsasr_tpu/model.py`, paper EDSR-GSASR inference).
+
+Single-image inference: reflect-pad the LR image to a denominator
+multiple, encode, decode, render each image at floor(scale * padded size),
+crop to floor(scale * size).
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Optional
+
+import numpy as np
+import torch
+
+from gsasr_torch import resolve_device
+from gsasr_torch.models import EDSRNOUP, Fea2GS
+from gsasr_torch.models.init import init_weights
+from gsasr_torch.rendering import render_gaussians
+
+DENOMINATORS = {"edsr": 12, "rdn": 12, "swinir": 24, "hat": 16}
+
+
+def _reflect_index(n: int, total: int, device) -> torch.Tensor:
+    """Source indices of a reflect pad of an n-long axis to `total`,
+    repeating the reflection when the pad exceeds n - 1 (as numpy and
+    jnp.pad do; torch's reflect pad refuses that case)."""
+    i = torch.arange(total, device=device)
+    if n == 1:
+        return torch.zeros_like(i)
+    period = 2 * (n - 1)
+    j = i % period
+    return torch.where(j < n, j, period - j)
+
+
+def pad_to_denominator(img, denom: int):
+    """Reflect-pad (B, H, W, C) so H and W are multiples of denom.
+    Returns (padded, (h, w))."""
+    b, h, w, c = img.shape
+    ph = (denom - h % denom) % denom
+    pw = (denom - w % denom) % denom
+    if ph:
+        img = img[:, _reflect_index(h, h + ph, img.device)]
+    if pw:
+        img = img[:, :, _reflect_index(w, w + pw, img.device)]
+    return img, (h, w)
+
+
+def make_models(encoder: str = "edsr", version: str = "paper", *,
+                generator: Optional[torch.Generator] = None, device=None):
+    """Build (encoder, decoder) with seeded reference initializers, in eval
+    mode on `device` (default: the CUDA card)."""
+    dev = resolve_device(device)
+    if encoder != "edsr":
+        raise NotImplementedError(f"encoder '{encoder}' is not ported yet")
+    if version != "paper":
+        raise NotImplementedError(f"version '{version}' is not ported yet")
+    if generator is None:
+        generator = torch.Generator().manual_seed(0)
+    # Module constructors draw PyTorch's default init from the global RNG;
+    # fork it so building a model leaves that state alone. All kept values
+    # come from `generator`.
+    with torch.random.fork_rng(devices=[]):
+        enc = EDSRNOUP()
+        dec = Fea2GS()
+    init_weights(enc, generator)
+    init_weights(dec, generator)
+    return enc.to(dev).eval(), dec.to(dev).eval()
+
+
+def _lat_hw(dec, ph: int, pw: int):
+    """Decoder-lattice dims for a (ph, pw) input."""
+    f = (math.isqrt(dec.num_gs_seed) / dec.window_size
+         * dec.shuffle_scale1 * dec.shuffle_scale2)
+    lh, lw = int(round(ph * f)), int(round(pw * f))
+    return (lh, lw) if lh > 0 and lw > 0 else None
+
+
+@torch.no_grad()
+def sr_forward(enc, dec, lq, scale: float, *, denominator: int = 12,
+               dmax: float = 0.1, device=None):
+    """Full-image SR forward of one batch at one scale.
+
+    lq: (B, H, W, 3) in [0, 1] (tensor or array), moved to `device`
+    (default: the CUDA card), where enc and dec must already be. Renders
+    with the tile rasterizer and a fixed dmax. Returns
+    (B, floor(scale * H), floor(scale * W), 3)."""
+    dev = resolve_device(device)
+    for mod in (enc, dec):
+        p = next(mod.parameters())
+        if p.device.type != dev.type:
+            raise ValueError(f"{type(mod).__name__} is on {p.device}, "
+                             f"the forward runs on {dev}")
+    lq = torch.as_tensor(np.asarray(lq) if not torch.is_tensor(lq) else lq,
+                         dtype=torch.float32).to(dev)
+    b, h, w, _ = lq.shape
+    sr_size = (math.floor(h * scale), math.floor(w * scale))
+    padded, _ = pad_to_denominator(lq, denominator)
+    ph, pw = padded.shape[1], padded.shape[2]
+    pad_sr = (math.floor(ph * scale), math.floor(pw * scale))
+    feat = enc(padded)
+    gs = dec(feat, torch.full((b,), scale, dtype=torch.float32, device=dev))
+    lat = _lat_hw(dec, ph, pw)
+    img = torch.stack([render_gaussians(pad_sr, gs[i], scale,
+                                        dmax_mode="fix", dmax=dmax,
+                                        lat_hw=lat, device=dev)
+                       for i in range(b)])
+    return img.permute(0, 2, 3, 1)[:, :sr_size[0], :sr_size[1], :]

@@ -1,0 +1,149 @@
+"""Build and load the port's CUDA kernels.
+
+Each `csrc/<name>.cu` compiles on first use into its own shared library
+with a plain C interface (nvcc, sm_90a), written to
+`build/gsasr_torch_kernels/` at the root of the checkout and keyed by a hash
+of the sources and flags, then loaded with ctypes. Each library exports one
+entry point of the same name, whose C signature `SIGNATURES` declares: it
+takes its pointers and the CUDA stream as `void*` and returns
+`cudaGetLastError()` after its launches; `launch` raises when that is not 0.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+from pathlib import Path
+
+import torch
+
+SRC_DIR = Path(__file__).resolve().parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "gsasr_torch_kernels"
+NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+
+# Argument kinds of each entry point before its trailing stream:
+# p = device pointer (a tensor, or None for null), i = int, f = float.
+SIGNATURES = {
+    "raster_fwd": "ppppiiii",
+    "ln_mlp": "ppppppppppiiii",
+    "ln_attn": "ppppppppppppppppiiiiif",
+}
+_CTYPES = {"p": ctypes.c_void_p, "i": ctypes.c_int, "f": ctypes.c_float}
+
+_libs: dict = {}
+_lock = threading.Lock()
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
+    path = os.path.join(home, "bin", "nvcc")
+    if not os.path.exists(path):
+        raise RuntimeError("nvcc not found: the kernels build only where "
+                           "the CUDA toolkit is installed")
+    return path
+
+
+def _lib_path(name: str) -> Path:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    h.update((SRC_DIR / f"{name}.cu").read_bytes())
+    for hdr in sorted(SRC_DIR.glob("*.cuh")):
+        h.update(hdr.read_bytes())
+    return BUILD_DIR / f"{name}-{h.hexdigest()[:16]}.so"
+
+
+def _start(name: str):
+    """Start nvcc for one source unless its library is already built.
+    Returns (path, None or (process, tmp library, tmp log)). Each process
+    writes its own tmp files, so builds of one source in two processes do
+    not mix their output."""
+    path = _lib_path(name)
+    if path.exists():
+        return path, None
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = path.with_name(f"{path.stem}.{os.getpid()}.tmp.so")
+    tmp_log = tmp.with_suffix(".log")
+    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(SRC_DIR / f"{name}.cu")]
+    fh = open(tmp_log, "w")
+    try:
+        proc = subprocess.Popen(cmd, stdout=fh, stderr=subprocess.STDOUT)
+    finally:
+        fh.close()
+    return path, (proc, tmp, tmp_log)
+
+
+def _finish(name: str, path: Path, job) -> None:
+    if job is None:
+        return
+    proc, tmp, tmp_log = job
+    if proc.wait() != 0:
+        raise RuntimeError(f"nvcc failed for {name}.cu:\n{tmp_log.read_text()}")
+    os.replace(tmp_log, path.with_suffix(".log"))
+    os.replace(tmp, path)
+
+
+def build(names) -> None:
+    """Compile the named sources in parallel (one nvcc each) and load them."""
+    with _lock:
+        todo = [n for n in names if n not in _libs]
+        jobs = [(n, *_start(n)) for n in todo]
+        for n, path, job in jobs:
+            _finish(n, path, job)
+        for n, path, _ in jobs:
+            lib = ctypes.CDLL(str(path))
+            fn = getattr(lib, n)
+            fn.argtypes = [_CTYPES[k] for k in SIGNATURES[n]] + [ctypes.c_void_p]
+            fn.restype = ctypes.c_int
+            _libs[n] = fn
+
+
+def ptxas_report(name: str) -> str:
+    """The compiler's register/shared-memory report of a built source, or
+    "" when its log is gone."""
+    log = _lib_path(name).with_suffix(".log")
+    return log.read_text() if log.exists() else ""
+
+
+def launch(name: str, *args) -> None:
+    """Call entry point `name` on the current stream with `args`, which
+    follow `SIGNATURES[name]`: tensors (device pointers) or None for p, ints
+    for i, floats for f."""
+    sig = SIGNATURES[name]
+    if len(args) != len(sig):
+        raise TypeError(f"{name} takes {len(sig)} arguments, got {len(args)}")
+    cargs = []
+    for kind, a in zip(sig, args):
+        if kind == "p" and (a is None or isinstance(a, torch.Tensor)):
+            cargs.append(None if a is None else a.data_ptr())
+        elif kind == "i" and isinstance(a, int) and not isinstance(a, bool):
+            cargs.append(a)
+        elif kind == "f" and isinstance(a, float):
+            cargs.append(a)
+        else:
+            raise TypeError(f"{name}: argument {len(cargs)} is {type(a)}, "
+                            f"expected kind '{kind}'")
+    if name not in _libs:
+        build([name])
+    err = _libs[name](*cargs, torch.cuda.current_stream().cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"{name} launch failed: cudaError {err}")
+
+
+def check_tensor(t: torch.Tensor, name: str, dtype=torch.float32) -> None:
+    """Raise on what the kernels do not take: another dtype, a tensor that
+    autograd would need a gradient for (the kernels are forward-only), or
+    one off the card."""
+    if t.dtype != dtype:
+        raise TypeError(f"{name}: expected {dtype}, got {t.dtype}")
+    if t.requires_grad and torch.is_grad_enabled():
+        raise NotImplementedError(
+            f"{name} requires grad; the CUDA kernels are forward-only")
+    if not t.is_cuda:
+        raise ValueError(f"{name} must lie on the CUDA device")
