@@ -4,10 +4,11 @@
   python3 chip_smoke.py [--json PATH]
 
 1. Prints the card (nvidia-smi name and power limit), the torch and CUDA
-   versions, and builds kernels R, M and A from gsasr_torch/ops/csrc.
-2. Kernel phase (TF32 off): each kernel against its plain PyTorch version at
-   the main path's shapes, with its median time, the plain version's time
-   and its lower bound on this card.
+   versions, and builds kernels R, M, A, W, WB and RB from
+   gsasr_torch/ops/csrc, one nvcc each, in parallel.
+2. Kernel phase (TF32 off): R, M and A against their plain PyTorch versions
+   at the inference path's shapes, with their median times, the plain
+   versions' times and their lower bounds on this card.
 3. Path phase: make_models("edsr", "paper") with seeded weights, then
    sr_forward on 180x180 x4 (the main shape), 173x151 x3.3 and a batch of
    two 96x96 x2, checking shapes, finiteness and the kernel launch counts.
@@ -15,6 +16,15 @@
 5. End-to-end timing of the main shape with PyTorch's default TF32
    settings, its encoder/decoder/render split, peak memory and the sigma
    percentiles of the rendered Gaussians.
+6. Training kernel phase (TF32 off): W, WB and RB against their plain
+   versions at the paper training step's shapes (256 windows of 144 tokens;
+   the 3072x192 slot canvas of 16 samples), WB and RB twice for bitwise
+   repeatability, with times, bounds and the SDPA yardstick for W and WB.
+7. Training phase: Trainer.step on the paper EDSR-GSASR at full width and
+   depth with configs/train_edsr_paper.yml's recipe, 16 samples of 48x48,
+   2 warm-up and 5 timed steps: launch counts per step, finite losses,
+   moved parameters and EMA, step time and its split, peak memory.
+8. One tiny training step on the card against the same step on the CPU.
 
 Any failed phase raises and the exit code is not 0. The line before the
 last is {"kernels": [...]}; the last is
@@ -26,6 +36,7 @@ from __future__ import annotations
 
 import argparse
 import copy
+import gc
 import json
 import math
 import os
@@ -57,6 +68,34 @@ CARD_CPU_ATOL = 1e-3
 # image size) and of R per image.
 M_PER_FORWARD = 83
 A_PER_FORWARD = 38
+# configs/train_edsr_paper.yml as gsasr_torch.config.build_train_config
+# reads it, written out because the card has no PyYAML
+# (tests/test_torch_trainer.py holds them equal to the file), and its
+# dataset block: 16 samples of 48x48 LR, scales in [1, 4], gt = round(s 48).
+PAPER_TRAIN = dict(lr=2e-4, betas=(0.9, 0.99),
+                   milestones=(250000, 400000, 450000, 475000), gamma=0.5,
+                   total_iter=500000, warmup_iter=2000, ema_decay=0.999,
+                   clip_grad_norm=None, accumulation_steps=1,
+                   default_step_size=1.2, dmax=0.5, dmax_mode="fix",
+                   if_dmax=True, canvas_hw=(192, 192), ssim_weight=0.0,
+                   seed=0, fused_decoder=False)
+PAPER_BATCH = 16
+PAPER_LR_SIZE = 48
+PAPER_SCALES = (1, 4)
+# FP32 operations per (pixel, Gaussian) pair inside a cull box in kernel RB
+# (box test, offsets and products, quadratic form, exp argument, three
+# color FMAs, g . col and at, five moment FMAs).
+RB_OPS_PER_PAIR = 35
+# Gradient tolerance, kernel vs plain and card vs CPU: |d| <= GRAD_TOL *
+# max|ref| (per output and column) + GRAD_TOL * |ref|. Moment sums over
+# thousands of pixels and sums over 256 windows cancel, so an entry's error
+# scales with its column's largest entry.
+GRAD_TOL = 1e-4
+# Launches per paper training step: W and WB once per window attention
+# (2 cross + 36 self), R and RB once for the slot canvas.
+TRAIN_COUNTS = {"R": 1, "M": 0, "A": 0, "W": 38, "WB": 38, "RB": 1}
+TRAIN_WARMUP = 2
+TRAIN_STEPS = 5
 
 
 def _nvidia_smi() -> str:
@@ -108,6 +147,36 @@ def _compare(out, ref, name):
     return mx
 
 
+def _grad_err(out, ref, per_column: bool = True, floor: float = 0.0):
+    """Largest |out - ref| and whether every entry is inside GRAD_TOL
+    (per column of the last axis, or of the whole tensor) plus `floor`."""
+    r = ref.reshape(-1, ref.shape[-1]) if ref.dim() else ref.reshape(1, 1)
+    o = out.reshape(r.shape)
+    scale = r.abs().amax(dim=0) if per_column else r.abs().max()
+    err = (o - r).abs()
+    ok = bool((err <= GRAD_TOL * scale + GRAD_TOL * r.abs() + floor).all())
+    return float(err.max()), ok and bool(torch.isfinite(o).all())
+
+
+def _compare_grad(out, ref, name):
+    mx, ok = _grad_err(out, ref)
+    print(f"  {name}: max|d| {mx:.3e} (tol {GRAD_TOL} max|ref col| + "
+          f"{GRAD_TOL}|ref|, max|ref| {float(ref.abs().max()):.3e})",
+          flush=True)
+    if not ok:
+        raise AssertionError(f"{name}: kernel disagrees with its plain version")
+    return mx
+
+
+def _repeatable(fn, name):
+    """Two launches of a kernel give the same bits."""
+    a, b = fn(), fn()
+    if not all(x is None and y is None or torch.equal(x, y)
+               for x, y in zip(a, b)):
+        raise AssertionError(f"{name}: two launches differ")
+    print(f"  {name}: two launches bitwise equal", flush=True)
+
+
 def _bound_ms(flops: float, nbytes: float):
     t_ops, t_bytes = flops / PEAK_FP32, nbytes / PEAK_HBM
     return (max(t_ops, t_bytes) * 1e3,
@@ -118,7 +187,8 @@ def _bound_ms(flops: float, nbytes: float):
 def kernel_phase(enc, dec, dev):
     """Each kernel against its plain version at the main path's shapes."""
     from gsasr_torch.model import _lat_hw, pad_to_denominator
-    from gsasr_torch.models.fea2gs_fast import _attn, _mlp, _seq_mlp
+    from gsasr_torch.models.fea2gs_fast import (_attn, _mlp, _seq_mlp,
+                                                fea2gs_apply_fused)
     from gsasr_torch.ops import fused_layers as fl
     from gsasr_torch.ops import rasterizer as rz
     from gsasr_torch.rendering import raster_inputs
@@ -190,7 +260,8 @@ def kernel_phase(enc, dec, dev):
     lq = torch.rand(1, 180, 180, 3, generator=g).to(dev)
     padded, _ = pad_to_denominator(lq, 12)
     with torch.no_grad():
-        gs = dec(enc(padded), torch.full((1,), 4.0, device=dev))[0]
+        gs = fea2gs_apply_fused(dec, enc(padded),
+                                torch.full((1,), 4.0, device=dev))[0]
     sr = (720, 720)
     geom, colors, bbox = raster_inputs(sr, gs, 4.0, dmax_mode="fix",
                                        dmax=0.1, lat_hw=_lat_hw(dec, 180, 180))
@@ -253,7 +324,8 @@ def path_phase(enc, dec, dev, kernels):
               f"{float(out.max()):.4f}]", flush=True)
         if tuple(out.shape) != want or not torch.isfinite(out).all():
             raise AssertionError(f"bad output {tuple(out.shape)} for {want}")
-        if counts != {"R": b, "M": M_PER_FORWARD, "A": A_PER_FORWARD}:
+        if counts != {"R": b, "M": M_PER_FORWARD, "A": A_PER_FORWARD,
+                      "W": 0, "WB": 0, "RB": 0}:
             raise AssertionError(f"launch counts {counts}")
         runs.append(dict(request=[b, h, w], scale=scale, shape=list(out.shape),
                          launches=counts))
@@ -283,6 +355,7 @@ def card_vs_cpu(enc, dec, dev):
 def e2e_phase(enc, dec, dev):
     """Main-shape latency with PyTorch's default TF32 settings."""
     from gsasr_torch.model import _lat_hw, pad_to_denominator, sr_forward
+    from gsasr_torch.models.fea2gs_fast import fea2gs_apply_fused
     from gsasr_torch.rendering import prepare_kernel_inputs, render_gaussians
 
     torch.backends.cuda.matmul.allow_tf32 = False  # PyTorch default
@@ -294,9 +367,9 @@ def e2e_phase(enc, dec, dev):
     scales = torch.full((1,), 4.0, device=dev)
     with torch.no_grad():
         feat = enc(padded)
-        gs = dec(feat, scales)
+        gs = fea2gs_apply_fused(dec, feat, scales)
         enc_ms = _host_ms(lambda: enc(padded), 9)
-        dec_ms = _host_ms(lambda: dec(feat, scales), 9)
+        dec_ms = _host_ms(lambda: fea2gs_apply_fused(dec, feat, scales), 9)
     lat = _lat_hw(dec, 180, 180)
     ren_ms = _host_ms(lambda: render_gaussians((720, 720), gs[0], 4.0,
                                                dmax_mode="fix", dmax=0.1,
@@ -323,6 +396,310 @@ def e2e_phase(enc, dec, dev):
     return res
 
 
+def paper_batch(b: int, seed: int):
+    """A synthetic batch of the paper recipe: b samples of 48x48 LR, scales
+    uniform in [1, 4], gt_h = gt_w = round(scale * 48), random gt on the
+    192x192 canvas; numpy from a seed."""
+    rng = np.random.default_rng(seed)
+    hmax = PAPER_TRAIN["canvas_hw"][0]
+    scales = rng.uniform(*PAPER_SCALES, b).astype(np.float32)
+    gt = np.round(scales * PAPER_LR_SIZE).astype(np.int32)
+    return {"lq": rng.random((b, PAPER_LR_SIZE, PAPER_LR_SIZE, 3),
+                             dtype=np.float32),
+            "gt": rng.random((b, hmax, hmax, 3), dtype=np.float32),
+            "scale": scales, "gt_h": gt, "gt_w": gt}
+
+
+def _sdpa_ms(q, k, v, bias, g, nh, scale):
+    """Yardsticks for W and WB: one scaled_dot_product_attention call on
+    (B, nh, T, hd) views of the packed operands with the bias as a float
+    attn_mask, and its backward through torch.autograd.grad. Returns
+    (fwd ms, bwd ms or None, why None)."""
+    import torch.nn.functional as F
+
+    b, tq, c = q.shape
+    heads = lambda x: x.view(b, x.shape[1], nh, c // nh).transpose(1, 2)  # noqa: E731
+    qh, kh, vh, gh = heads(q), heads(k), heads(v), heads(g)
+    mask = bias[None]
+    fwd = _time_ms(lambda: F.scaled_dot_product_attention(
+        qh, kh, vh, attn_mask=mask, scale=scale), 10)
+    leaves = [x.detach().requires_grad_() for x in (qh, kh, vh, mask)]
+    try:
+        with torch.enable_grad():
+            out = F.scaled_dot_product_attention(*leaves[:3],
+                                                 attn_mask=leaves[3],
+                                                 scale=scale)
+            bwd = _time_ms(lambda: torch.autograd.grad(
+                out, leaves, gh, retain_graph=True), 10)
+        return fwd, bwd, None
+    except RuntimeError as e:
+        return fwd, None, f"SDPA gives the mask no gradient: {e}"
+
+
+@torch.no_grad()
+def train_kernel_phase(enc, dec, dev):
+    """W, WB and RB against their plain versions at the training step's
+    shapes, twice each for WB and RB to show the bits repeat."""
+    from gsasr_torch.models.fea2gs_fast import fea2gs_apply_fused
+    from gsasr_torch.ops import attention as ta
+    from gsasr_torch.ops import rasterizer as rz
+    from gsasr_torch.rendering import training_batch_geometry
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    gen = torch.Generator().manual_seed(5)
+    rnd = lambda *s: torch.randn(*s, generator=gen).to(dev)  # noqa: E731
+    b = PAPER_BATCH * (PAPER_LR_SIZE // dec.window_size) ** 2
+    t, c, nh = dec.num_gs_seed, dec.channel, dec.num_heads
+    hd = c // nh
+    scale = hd ** -0.5
+    cross = dec.window_crossattn_blocks[0].blocks[0].window_cross_attn
+    self_ = dec.gs_selfattn_blocks[0].blocks[0].gs_self_attn
+    results = {"W": [], "WB": []}
+    for name, tk, bias, per_step in (
+            ("cross", dec.window_size ** 2, cross.bias().contiguous(), 2),
+            ("self", t, self_.bias().contiguous(), 36)):
+        q, k, v, g = rnd(b, t, c), rnd(b, tk, c), rnd(b, tk, c), rnd(b, t, c)
+        fargs = (q, k, v, bias, scale, nh)
+        err = _compare(ta.window_attention_packed_fwd(*fargs),
+                       ta.window_attention_packed_plain(*fargs), f"W {name}")
+        ms = _time_ms(lambda: ta.window_attention_packed_fwd(*fargs), 20)
+        plain = _time_ms(lambda: ta.window_attention_packed_plain(*fargs), 10)
+        lib_f, lib_b, why = _sdpa_ms(q, k, v, bias, g, nh, scale)
+        bound, by = _bound_ms(4.0 * b * nh * t * tk * hd,
+                              4 * (2 * b * t * c + 2 * b * tk * c
+                                   + nh * t * tk))
+        results["W"].append(dict(case=name, per_step=per_step,
+                                 max_abs_err=err, ms=ms, plain_ms=plain,
+                                 bound_ms=bound, bound_by=by,
+                                 library_ms=lib_f))
+        bargs = (q, k, v, bias, g, scale, nh)
+        outs = ta.window_attention_packed_bwd(*bargs)
+        refs = ta.window_attention_packed_bwd_plain(*bargs)
+        err = max(_compare_grad(o, r, f"WB {name} {n}") for o, r, n in zip(
+            outs, refs, ("dq", "dk", "dv", "dbias")))
+        _repeatable(lambda: ta.window_attention_packed_bwd(*bargs),
+                    f"WB {name}")
+        ms = _time_ms(lambda: ta.window_attention_packed_bwd(*bargs), 10)
+        plain = _time_ms(lambda: ta.window_attention_packed_bwd_plain(
+            *bargs), 5)
+        if why:
+            print(f"  WB {name} library: null ({why})", flush=True)
+        # five products: the recomputed scores, dp, dv, dq and dk
+        bound, by = _bound_ms(10.0 * b * nh * t * tk * hd,
+                              4 * (3 * b * t * c + 4 * b * tk * c
+                                   + 2 * nh * t * tk))
+        results["WB"].append(dict(case=name, per_step=per_step,
+                                  max_abs_err=err, ms=ms, plain_ms=plain,
+                                  bound_ms=bound, bound_by=by,
+                                  library_ms=lib_b, library_null_reason=why))
+
+    # -- RB on the slot canvas of the seeded decoder's Gaussians -------------
+    cfg = PAPER_TRAIN
+    batch = paper_batch(PAPER_BATCH, seed=6)
+    lq = torch.from_numpy(batch["lq"]).to(dev)
+    sc = torch.from_numpy(batch["scale"]).to(dev)
+    gt_h = torch.from_numpy(batch["gt_h"]).to(dev)
+    gs = fea2gs_apply_fused(dec, enc(lq), sc)
+    geoms, colors = training_batch_geometry(
+        gs, sc, gt_h, gt_h, cfg["canvas_hw"],
+        default_step_size=cfg["default_step_size"], if_dmax=cfg["if_dmax"],
+        dmax_mode=cfg["dmax_mode"], dmax=cfg["dmax"])
+    h, w = PAPER_BATCH * cfg["canvas_hw"][0], cfg["canvas_hw"][1]
+    geom, col, bbox = rz.chunk_geometry(geoms.reshape(-1, rz.GEOM_COLS),
+                                        colors.reshape(-1, 3), (h, w))
+    g = rnd(h, w, 3)
+    outs = rz.raster_bwd(geom, col, bbox, g, h, w)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    refs = rz.raster_bwd_plain(geom, col, bbox, g, h, w)
+    torch.cuda.synchronize()
+    plain = (time.perf_counter() - t0) * 1e3
+    err = max(_compare_grad(o, r, f"RB {n}") for o, r, n in zip(
+        outs, refs, ("dgeom", "dcol")))
+    if not bool((outs[0][:, 5:] == 0).all()):
+        raise AssertionError("RB: cull-box columns got a gradient")
+    _repeatable(lambda: rz.raster_bwd(geom, col, bbox, g, h, w), "RB")
+    ms = _time_ms(lambda: rz.raster_bwd(geom, col, bbox, g, h, w), 10)
+    nx = (torch.clamp(torch.floor(geom[:, 6]), max=w - 1)
+          - torch.clamp(torch.ceil(geom[:, 5]), min=0) + 1).clamp(min=0)
+    ny = (torch.clamp(torch.floor(geom[:, 8]), max=h - 1)
+          - torch.clamp(torch.ceil(geom[:, 7]), min=0) + 1).clamp(min=0)
+    pairs = float((nx.double() * ny.double()).sum())
+    t_ops = pairs * RB_OPS_PER_PAIR / PEAK_FP32
+    t_sfu = pairs / PEAK_SFU
+    t_bytes = 4 * (2 * geom.numel() + 2 * col.numel() + h * w * 3) / PEAK_HBM
+    results["RB"] = [dict(case=f"{h}x{w}", per_step=1, max_abs_err=err,
+                          ms=ms, plain_ms=plain,
+                          bound_ms=max(t_ops, t_sfu, t_bytes) * 1e3,
+                          bound_by="bytes" if t_bytes > max(t_ops, t_sfu)
+                          else "operations", library_ms=None,
+                          library_null_reason="no PyTorch call computes it",
+                          box_pairs=pairs, gaussians=int(geom.shape[0]),
+                          chunks=int(bbox.shape[1]))]
+    for k in ("W", "WB", "RB"):
+        for r in results[k]:
+            lib = "null" if r["library_ms"] is None else \
+                f"{r['library_ms']:.4f}"
+            print(f"  {k} {r['case']}: {r['ms']:.4f} ms (plain "
+                  f"{r['plain_ms']:.4f}, bound {r['bound_ms']:.4f} by "
+                  f"{r['bound_by']}, library {lib}) x{r['per_step']} per "
+                  f"step", flush=True)
+    return results
+
+
+def _train_run(dev, kernels, b: int):
+    from gsasr_torch.model import make_models
+    from gsasr_torch.train import TrainConfig, Trainer
+
+    enc, dec = make_models("edsr", "paper",
+                           generator=torch.Generator().manual_seed(0))
+    tr = Trainer(enc, dec, TrainConfig(**PAPER_TRAIN))
+    start = [p.detach().clone() for p in tr.params_g + tr.params_d]
+    start_ema = [p.detach().clone() for p in
+                 list(tr.ema_g.parameters()) + list(tr.ema_d.parameters())]
+    batches = [paper_batch(b, seed=10 + i)
+               for i in range(TRAIN_WARMUP + TRAIN_STEPS)]
+    steps, grads_ms, apply_ms, losses, counts = [], [], [], [], []
+    for i, batch in enumerate(batches):
+        if i == len(batches) - 1:
+            torch.cuda.reset_peak_memory_stats()
+        _reset(kernels)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = tr.grads(batch)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        m = tr.apply(*out)
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        c = _counts(kernels)
+        loss = float(m["loss"])
+        print(f"  step {i}: loss {loss:.6f}, {(t2 - t0) * 1e3:.1f} ms, "
+              f"launches {c}", flush=True)
+        if c != TRAIN_COUNTS:
+            raise AssertionError(f"training launch counts {c}")
+        if not math.isfinite(loss):
+            raise AssertionError(f"step {i}: loss {loss}")
+        losses.append(loss)
+        counts.append(c)
+        if i >= TRAIN_WARMUP:
+            steps.append((t2 - t0) * 1e3)
+            grads_ms.append((t1 - t0) * 1e3)
+            apply_ms.append((t2 - t1) * 1e3)
+    peak = torch.cuda.max_memory_allocated()
+    fwd = _host_ms(lambda: tr.loss_fn(tr.to_device(batches[0])), 3,
+                   warmup=1)
+    moved = any(not torch.equal(a, p) for a, p in
+                zip(start, tr.params_g + tr.params_d))
+    ema_moved = any(not torch.equal(a, p) for a, p in zip(
+        start_ema, list(tr.ema_g.parameters()) + list(tr.ema_d.parameters())))
+    if not (moved and ema_moved):
+        raise AssertionError(f"parameters moved {moved}, EMA moved "
+                             f"{ema_moved}")
+    med = lambda x: float(np.median(x))  # noqa: E731
+    res = dict(batch=b, step_ms_median=med(steps), step_ms=steps,
+               forward_ms=med(fwd), backward_ms=med(grads_ms) - med(fwd),
+               grads_ms=med(grads_ms), optimizer_ema_ms=med(apply_ms),
+               peak_mem_bytes=int(peak), losses=losses, launches=counts[-1],
+               tf32={"cudnn": True, "matmul": False})
+    print(f"  training step, batch {b}: median {res['step_ms_median']:.1f} "
+          f"ms over {len(steps)} steps (forward {res['forward_ms']:.1f}, "
+          f"backward {res['backward_ms']:.1f}, optimizer+EMA "
+          f"{res['optimizer_ema_ms']:.1f}); peak {peak / 2**30:.2f} GiB; "
+          f"TF32 cudnn on, matmul off (PyTorch defaults)", flush=True)
+    return res
+
+
+def train_phase(dev, kernels):
+    """Full-width paper training steps; halves the batch only if it does
+    not fit the card, and says so."""
+    torch.backends.cuda.matmul.allow_tf32 = False  # PyTorch default
+    torch.backends.cudnn.allow_tf32 = True         # PyTorch default
+    b = PAPER_BATCH
+    while True:
+        try:
+            return _train_run(dev, kernels, b)
+        except torch.cuda.OutOfMemoryError:
+            if b == 1:
+                raise
+        gc.collect()
+        torch.cuda.empty_cache()
+        print(f"  batch {b} does not fit the card: halved to {b // 2}",
+              flush=True)
+        b //= 2
+
+
+def train_card_vs_cpu(dev):
+    """One tiny training step (tests/test_trainer.py's networks, batch 2)
+    from the same weights on the card and on the CPU."""
+    from gsasr_torch.models import EDSRNOUP, Fea2GS
+    from gsasr_torch.models.init import init_weights
+    from gsasr_torch.train import TrainConfig, Trainer
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    gen = torch.Generator().manual_seed(7)
+    enc = init_weights(EDSRNOUP(num_feat=16, num_block=1), gen)
+    dec = init_weights(Fea2GS(inchannel=16, channel=12, num_heads=6,
+                              num_crossattn_blocks=1, num_crossattn_layers=2,
+                              num_selfattn_blocks=1, num_selfattn_layers=2,
+                              num_gs_seed=16, window_size=4), gen)
+    cfg = TrainConfig(canvas_hw=(32, 32), warmup_iter=2, milestones=(100,))
+    rng = np.random.default_rng(8)
+    scales = (2.0 + 2.0 * rng.random(2)).astype(np.float32)
+    gt = np.round(scales * 8).astype(np.int32)
+    batch = {"lq": rng.random((2, 8, 8, 3), dtype=np.float32),
+             "gt": rng.random((2, 32, 32, 3), dtype=np.float32),
+             "scale": scales, "gt_h": gt, "gt_w": gt}
+    card = Trainer(copy.deepcopy(enc), copy.deepcopy(dec), cfg)
+    cpu = Trainer(enc, dec, cfg, device="cpu")
+    out_card, out_cpu = card.grads(batch), cpu.grads(batch)
+    l_card, l_cpu = float(out_card[0]), float(out_cpu[0])
+    rel = abs(l_card - l_cpu) / abs(l_cpu)
+    g_card = [g.cpu() for g in out_card[2] + out_card[3]]
+    g_cpu = out_cpu[2] + out_cpu[3]
+    # floor: the k biases' true gradient is 0 (softmax ignores a per-query
+    # constant); both sides give float32 noise around it
+    floor = 1e-7 * max(float(g.abs().max()) for g in g_cpu)
+    names = [n for n, _ in card.enc.named_parameters()] + \
+        [n for n, _ in card.dec.named_parameters()]
+    worst, bad = 0.0, []
+    for n, a, r in zip(names, g_card, g_cpu):
+        mx, ok = _grad_err(a, r, per_column=False, floor=floor)
+        worst = max(worst, mx)
+        if not ok:
+            bad.append(n)
+    card.apply(*out_card)
+    cpu.apply(*out_cpu)
+    print(f"  tiny training step card vs CPU: loss {l_card:.7f} vs "
+          f"{l_cpu:.7f} (rel {rel:.2e}, tol 1e-4); gradients max|d| "
+          f"{worst:.3e} over {len(names)} tensors (tol {GRAD_TOL} max|ref| "
+          f"+ {GRAD_TOL}|ref| + {floor:.1e})", flush=True)
+    if not rel <= 1e-4 or bad:
+        raise AssertionError(f"training step: card and CPU disagree {bad}")
+    return dict(loss_card=l_card, loss_cpu=l_cpu, loss_rel=rel,
+                grad_max_abs_err=worst, tensors=len(names))
+
+
+def _kernel_entry(name, src, rep, also, rows, launches, path):
+    """One entry of the {"kernels": [...]} line: each time a mean over its
+    cases weighted by their launches on the path."""
+    wt = [r.get("per_image", r.get("per_step")) for r in rows]
+    mean = lambda key: (None if any(r[key] is None for r in rows) else  # noqa: E731
+                        sum(r[key] * n for r, n in zip(rows, wt)) / sum(wt))
+    entry = {"name": name, "route": "cuda", "source": src, "replaces": rep,
+             "launches": launches,
+             "max_abs_err": max(r["max_abs_err"] for r in rows),
+             "ms": mean("ms"), "plain_ms": mean("plain_ms"),
+             "bound_ms": mean("bound_ms"), "bound_by": rows[0]["bound_by"],
+             "library_ms": mean("library_ms") if "library_ms" in rows[0]
+             else None, "path": path}
+    if also:
+        entry["also_replaces"] = also
+    return entry
+
+
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--json", help="write the details to this file")
@@ -332,8 +709,10 @@ def main() -> int:
         return 2
     from gsasr_torch.model import make_models
     from gsasr_torch.ops import _build
+    from gsasr_torch.ops.attention import (window_attention_packed_bwd,
+                                           window_attention_packed_fwd)
     from gsasr_torch.ops.fused_layers import ln_attn_proj, ln_mlp_residual
-    from gsasr_torch.ops.rasterizer import raster_fwd
+    from gsasr_torch.ops.rasterizer import raster_bwd, raster_fwd
 
     t_start = time.perf_counter()
     card = _nvidia_smi()
@@ -343,7 +722,8 @@ def main() -> int:
           f"{torch.cuda.get_device_name(0)} x{torch.cuda.device_count()}",
           flush=True)
     t0 = time.perf_counter()
-    names = ["raster_fwd", "ln_mlp", "ln_attn"]
+    names = ["raster_fwd", "ln_mlp", "ln_attn", "window_attn_fwd",
+             "window_attn_bwd", "raster_bwd"]
     _build.build(names)
     build_s = time.perf_counter() - t0
     print(f"built {names} in {build_s:.1f} s", flush=True)
@@ -353,7 +733,9 @@ def main() -> int:
             if "registers" in line or "spill" in line:
                 print(f"  {n}: {line.strip()}", flush=True)
 
-    kernels = {"R": raster_fwd, "M": ln_mlp_residual, "A": ln_attn_proj}
+    kernels = {"R": raster_fwd, "M": ln_mlp_residual, "A": ln_attn_proj,
+               "W": window_attention_packed_fwd,
+               "WB": window_attention_packed_bwd, "RB": raster_bwd}
     enc, dec = make_models("edsr", "paper",
                            generator=torch.Generator().manual_seed(0))
 
@@ -365,41 +747,45 @@ def main() -> int:
     cvc = card_vs_cpu(enc, dec, dev)
     print("end to end", flush=True)
     e2e = e2e_phase(enc, dec, dev)
+    print("training kernel phase", flush=True)
+    kres.update(train_kernel_phase(enc, dec, dev))
+    del enc, dec
+    gc.collect()
+    torch.cuda.empty_cache()
+    print("training phase", flush=True)
+    train = train_phase(dev, kernels)
+    print("training card vs CPU", flush=True)
+    tcvc = train_card_vs_cpu(dev)
 
-    main_counts = runs[0]["launches"]
+    infer, step = runs[0]["launches"], train["launches"]
     meta = {
-        "R": ("gsasr_torch/ops/csrc/raster_fwd.cu",
+        "R": ("raster_fwd", "gsasr_torch/ops/csrc/raster_fwd.cu",
               "gsasr_tpu/ops/rasterizer.py:334",
               ["gsasr_tpu/ops/rasterizer.py:254",
-               "gsasr_tpu/ops/rasterizer.py:126"]),
-        "M": ("gsasr_torch/ops/csrc/ln_mlp.cu",
-              "gsasr_tpu/ops/fused_layers.py:122", []),
-        "A": ("gsasr_torch/ops/csrc/ln_attn.cu",
-              "gsasr_tpu/ops/fused_layers.py:336", []),
+               "gsasr_tpu/ops/rasterizer.py:126"], infer, "sr_forward"),
+        "M": ("ln_mlp", "gsasr_torch/ops/csrc/ln_mlp.cu",
+              "gsasr_tpu/ops/fused_layers.py:122", [], infer, "sr_forward"),
+        "A": ("ln_attn", "gsasr_torch/ops/csrc/ln_attn.cu",
+              "gsasr_tpu/ops/fused_layers.py:336", [], infer, "sr_forward"),
+        "W": ("window_attn_fwd", "gsasr_torch/ops/csrc/window_attn_fwd.cu",
+              "gsasr_tpu/ops/attention.py:338", [], step, "Trainer.step"),
+        "WB": ("window_attn_bwd", "gsasr_torch/ops/csrc/window_attn_bwd.cu",
+               "gsasr_tpu/ops/attention.py:397", [], step, "Trainer.step"),
+        "RB": ("raster_bwd", "gsasr_torch/ops/csrc/raster_bwd.cu",
+               "gsasr_tpu/ops/rasterizer.py:232",
+               ["gsasr_tpu/ops/rasterizer.py:166",
+                "gsasr_tpu/ops/rasterizer.py:308"], step, "Trainer.step"),
     }
-    line = []
-    for k, (src, rep, also) in meta.items():
-        rows = kres[k]
-        n = sum(r["per_image"] for r in rows)
-        mean = lambda key: sum(r[key] * r["per_image"] for r in rows) / n  # noqa: E731
-        entry = {"name": {"R": "raster_fwd", "M": "ln_mlp",
-                          "A": "ln_attn"}[k],
-                 "route": "cuda", "source": src, "replaces": rep,
-                 "launches": main_counts[k],
-                 "max_abs_err": max(r["max_abs_err"] for r in rows),
-                 "ms": mean("ms"), "plain_ms": mean("plain_ms"),
-                 "bound_ms": mean("bound_ms"),
-                 "bound_by": rows[0]["bound_by"], "library_ms": None}
-        if also:
-            entry["also_replaces"] = also
-        line.append(entry)
+    line = [_kernel_entry(name, src, rep, also, kres[k], counts[k], path)
+            for k, (name, src, rep, also, counts, path) in meta.items()]
     if args.json:
         os.makedirs(os.path.dirname(os.path.abspath(args.json)), exist_ok=True)
         with open(args.json, "w") as f:
             json.dump(dict(card=card, torch=torch.__version__,
                            cuda=torch.version.cuda, build_s=build_s,
                            ptxas=ptxas, kernels=kres, paths=runs,
-                           card_vs_cpu=cvc, e2e=e2e,
+                           card_vs_cpu=cvc, e2e=e2e, train=train,
+                           train_card_vs_cpu=tcvc,
                            total_s=time.perf_counter() - t_start), f, indent=1)
     print(f"total {time.perf_counter() - t_start:.1f} s", flush=True)
     print(f"card: {card}", flush=True)

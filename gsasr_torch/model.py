@@ -2,8 +2,8 @@
 of `gsasr_tpu/model.py`, paper EDSR-GSASR inference).
 
 Single-image inference: reflect-pad the LR image to a denominator
-multiple, encode, decode, render each image at floor(scale * padded size),
-crop to floor(scale * size).
+multiple, encode, decode on the fused path (kernels M and A), render each
+image at floor(scale * padded size), crop to floor(scale * size).
 """
 
 from __future__ import annotations
@@ -16,6 +16,7 @@ import torch
 
 from gsasr_torch import resolve_device
 from gsasr_torch.models import EDSRNOUP, Fea2GS
+from gsasr_torch.models.fea2gs_fast import fea2gs_apply_fused
 from gsasr_torch.models.init import init_weights
 from gsasr_torch.rendering import render_gaussians
 
@@ -100,7 +101,9 @@ def sr_forward(enc, dec, lq, scale: float, *, denominator: int = 12,
     ph, pw = padded.shape[1], padded.shape[2]
     pad_sr = (math.floor(ph * scale), math.floor(pw * scale))
     feat = enc(padded)
-    gs = dec(feat, torch.full((b,), scale, dtype=torch.float32, device=dev))
+    gs = fea2gs_apply_fused(dec, feat, torch.full((b,), scale,
+                                                  dtype=torch.float32,
+                                                  device=dev))
     lat = _lat_hw(dec, ph, pw)
     img = torch.stack([render_gaussians(pad_sr, gs[i], scale,
                                         dmax_mode="fix", dmax=dmax,

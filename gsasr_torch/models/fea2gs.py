@@ -5,7 +5,11 @@ The modules hold the parameters under the reference PyTorch `state_dict`
 keys (the ones `gsasr_tpu/utils/torch_convert.py` reads), so a reference
 checkpoint loads natively. Their `relative_position_index` buffers equal the
 index functions below, which makes the converter's bias-table remap the
-identity. The forward pass is the fused path of `fea2gs_fast.py`.
+identity. `Fea2GS.forward` is the differentiable module path of
+`gsasr_tpu/models/fea2gs.py::Fea2GS.__call__`: LayerNorms, linears and
+convolutions are PyTorch ops and every window attention goes through
+`window_attention_packed` (kernels W and WB on the card). Inference takes
+the fused path of `fea2gs_fast.py` instead, as the JAX package does.
 """
 
 from __future__ import annotations
@@ -16,7 +20,8 @@ import numpy as np
 import torch
 from torch import nn
 
-from gsasr_torch.models.common import MLP, LayerNorm
+from gsasr_torch.models.common import MLP, LayerNorm, pixel_shuffle
+from gsasr_torch.ops.attention import window_attention_packed
 
 
 def cross_attn_rel_pos_index(gs_sqrt: int, window_size: int) -> np.ndarray:
@@ -47,6 +52,20 @@ def window_partition(x, ws: int):
     b, h, w, c = x.shape
     x = x.reshape(b, h // ws, ws, w // ws, ws, c).permute(0, 1, 3, 2, 4, 5)
     return x.reshape(b * (h // ws) * (w // ws), ws * ws, c)
+
+
+def to_lattice(gs, b: int, h_count: int, w_count: int, nsq: int):
+    """(B * h_count * w_count, nsq*nsq, C) windows -> the full seed lattice
+    (B, h_count*nsq, w_count*nsq, C); `window_partition(., nsq)` inverts
+    it."""
+    ch = gs.shape[-1]
+    full = gs.reshape(b, h_count, w_count, nsq, nsq, ch)
+    return full.permute(0, 1, 3, 2, 4, 5).reshape(b, h_count * nsq,
+                                                  w_count * nsq, ch)
+
+
+def conv_nhwc(conv, x):
+    return conv(x.permute(0, 3, 1, 2)).permute(0, 2, 3, 1)
 
 
 def reference_points(h: int, w: int, dtype=torch.float32, device=None):
@@ -98,25 +117,49 @@ class _WindowAttnParams(nn.Module):
         b = self.relative_position_bias_table[idx.reshape(-1)]
         return b.reshape(*idx.shape, self.num_heads).permute(2, 0, 1)
 
+    def attend(self, x, src):
+        """proj(MHA(q = x, k = v = src, + bias)) on packed (B_, T, C)."""
+        out = window_attention_packed(
+            self.qhead(x), self.khead(src), self.vhead(src), self.bias(),
+            num_heads=self.num_heads)
+        return self.proj(out)
+
 
 class WindowCrossAttn(_WindowAttnParams):
+    """Q = Gaussian seeds, K/V = feature window, rectified rel-pos bias."""
+
     def __init__(self, dim, num_heads, window_size, num_gs_seed):
         gs_sqrt = math.isqrt(num_gs_seed)
         super().__init__(dim, num_heads,
                          (2 * max(gs_sqrt, window_size) - 1) ** 2,
                          cross_attn_rel_pos_index(gs_sqrt, window_size))
 
+    def forward(self, gs, feat):
+        return self.attend(gs, feat)
+
 
 class GSSelfAttn(_WindowAttnParams):
+    """Windowed self-attention over the seed lattice, Swin rel-pos bias."""
+
     def __init__(self, dim, num_heads, num_gs_seed_sqrt):
         super().__init__(dim, num_heads, (2 * num_gs_seed_sqrt - 1) ** 2,
                          self_attn_rel_pos_index(num_gs_seed_sqrt))
 
+    def forward(self, gs):
+        return self.attend(gs, gs)
+
 
 class WindowCrossAttnLayer(nn.Module):
-    def __init__(self, dim, num_heads, window_size, num_gs_seed):
+    """scale-inject -> FFN -> (shifted) window cross-attention -> FFN, all
+    pre-norm residual. norm1 is dead in the reference topology: its output
+    is overwritten, so its parameters get a zero gradient."""
+
+    def __init__(self, dim, num_heads, window_size, num_gs_seed,
+                 shift_size: int = 0):
         super().__init__()
-        self.norm1 = LayerNorm(dim)  # dead in the reference topology
+        self.window_size = window_size
+        self.shift_size = shift_size
+        self.norm1 = LayerNorm(dim)
         self.norm2 = LayerNorm(dim)
         self.norm3 = LayerNorm(dim)
         self.norm4 = LayerNorm(dim)
@@ -126,18 +169,56 @@ class WindowCrossAttnLayer(nn.Module):
         self.mlp_crossattn_scale = MLP(dim, dim, dim)
         self.mlp_crossattn_feature = MLP(dim, dim, dim)
 
+    def forward(self, x, query_pos, feat, scale_embedding):
+        """x: (B_, T, C); query_pos: (T, C); feat: (B, H, W, C) before
+        windowing; scale_embedding: (B_, C)."""
+        x = x + self.gs_cross_attn_scale(scale_embedding)[:, None, :]
+        x = x + self.mlp_crossattn_scale(self.norm2(x))
+        s = self.shift_size
+        if s > 0:
+            feat = torch.roll(feat, (-s, -s), dims=(1, 2))
+        x = x + self.window_cross_attn(self.norm3(x) + query_pos,
+                                       window_partition(feat,
+                                                        self.window_size))
+        return x + self.mlp_crossattn_feature(self.norm4(x))
+
 
 class GSSelfAttnLayer(nn.Module):
-    def __init__(self, dim, num_heads, num_gs_seed_sqrt):
+    """scale-inject -> FFN -> (lattice-shifted) windowed self-attention ->
+    FFN. norm3 is dead in the reference topology (zero gradient). Shifted
+    layers roll the whole seed lattice across window boundaries and roll
+    the attention output back."""
+
+    def __init__(self, dim, num_heads, num_gs_seed_sqrt, shift_size: int = 0):
         super().__init__()
+        self.num_gs_seed_sqrt = num_gs_seed_sqrt
+        self.shift_size = shift_size
         self.norm1 = LayerNorm(dim)
         self.norm2 = LayerNorm(dim)
-        self.norm3 = LayerNorm(dim)  # dead in the reference topology
+        self.norm3 = LayerNorm(dim)
         self.norm4 = LayerNorm(dim)
         self.gs_cross_attn_scale = ScaleInject(dim)
         self.gs_self_attn = GSSelfAttn(dim, num_heads, num_gs_seed_sqrt)
         self.mlp_selfattn = MLP(dim, dim, dim)
         self.mlp_crossattn = MLP(dim, dim, dim)
+
+    def forward(self, gs, h_count: int, w_count: int, scale_embedding):
+        gs = gs + self.gs_cross_attn_scale(scale_embedding)[:, None, :]
+        gs = gs + self.mlp_crossattn(self.norm4(gs))
+        a = self.norm1(gs)
+        s, nsq = self.shift_size, self.num_gs_seed_sqrt
+        b = gs.shape[0] // (h_count * w_count)
+        if s > 0:
+            a = window_partition(torch.roll(to_lattice(a, b, h_count, w_count,
+                                                       nsq),
+                                            (-s, -s), dims=(1, 2)), nsq)
+        a = self.gs_self_attn(a)
+        if s > 0:
+            a = window_partition(torch.roll(to_lattice(a, b, h_count, w_count,
+                                                       nsq),
+                                            (s, s), dims=(1, 2)), nsq)
+        gs = a + gs
+        return gs + self.mlp_selfattn(self.norm2(gs))
 
 
 class _Block(nn.Module):
@@ -149,6 +230,12 @@ class _Block(nn.Module):
         self.blocks = nn.ModuleList(layers)
         self.mlp = nn.Sequential(nn.Linear(dim, dim), nn.ReLU(),
                                  nn.Linear(dim, dim))
+
+    def forward(self, x, *layer_args):
+        y = self.norm(x)
+        for layer in self.blocks:
+            y = layer(y, *layer_args)
+        return x + self.mlp(y)
 
 
 def _head(dim: int, out: int) -> nn.Sequential:
@@ -184,13 +271,15 @@ class Fea2GS(nn.Module):
             nn.Conv2d(inchannel, ch, 3, padding=1), nn.ReLU(),
             nn.Conv2d(ch, ch, 3, padding=1))
         self.window_crossattn_blocks = nn.ModuleList(
-            _Block(ch, [WindowCrossAttnLayer(ch, num_heads, window_size,
-                                             num_gs_seed)
-                        for _ in range(num_crossattn_layers)])
+            _Block(ch, [WindowCrossAttnLayer(
+                ch, num_heads, window_size, num_gs_seed,
+                shift_size=0 if i % 2 == 0 else window_size // 2)
+                for i in range(num_crossattn_layers)])
             for _ in range(num_crossattn_blocks))
         self.gs_selfattn_blocks = nn.ModuleList(
-            _Block(ch, [GSSelfAttnLayer(ch, num_heads, nsq)
-                        for _ in range(num_selfattn_layers)])
+            _Block(ch, [GSSelfAttnLayer(
+                ch, num_heads, nsq, shift_size=0 if i % 2 == 0 else nsq // 2)
+                for i in range(num_selfattn_layers)])
             for _ in range(num_selfattn_blocks))
         self.scale_mlp = nn.Sequential(nn.Linear(1, 4 * ch), nn.ReLU(),
                                        nn.Linear(4 * ch, ch))
@@ -207,5 +296,44 @@ class Fea2GS(nn.Module):
         self.mlp_block_mean = _head(ch, 2 * guf)
 
     def forward(self, srcs, scale):
-        from gsasr_torch.models.fea2gs_fast import fea2gs_apply_fused
-        return fea2gs_apply_fused(self, srcs, scale)
+        """(B, h, w, inchannel) features, (B,) scales -> (B, N, 9)."""
+        b, h, w, _ = srcs.shape
+        ws = self.window_size
+        h_count, w_count = h // ws, w // ws
+        nwin = h_count * w_count
+        query = self.gs_embedding[None].expand(b * nwin, -1, -1)
+        se = self.scale_mlp((1.0 / scale)[:, None])
+        scale_embedding = se.repeat_interleave(nwin, dim=0)  # (B_, C)
+        feat = conv_nhwc(self.img_feat_proj, srcs)
+        for blk in self.window_crossattn_blocks:
+            query = blk(query, self.pos_embedding, feat, scale_embedding)
+        resi = query
+        for blk in self.gs_selfattn_blocks:
+            query = blk(query, h_count, w_count, scale_embedding)
+        return decode_lattice(self, query + resi, b, h_count, w_count)
+
+
+def decode_lattice(m, query, b: int, h_count: int, w_count: int):
+    """Decoder tail shared by the module and fused paths: seed windows ->
+    full lattice -> UPNet (conv + pixel shuffle, twice) -> the five head
+    MLPs -> means normalized by the lattice size plus the pixel-center
+    grid. Returns (B, N, 9)."""
+    nsq = math.isqrt(m.num_gs_seed)
+    query = to_lattice(query, b, h_count, w_count, nsq)
+    query = pixel_shuffle(conv_nhwc(m.UPNet[0], query), m.shuffle_scale1)
+    query = pixel_shuffle(conv_nhwc(m.UPNet[2], query), m.shuffle_scale2)
+
+    guf = int(m.gs_up_factor)
+    q_sigma = m.mlp_block_sigma(query).reshape(b, -1, 2 * guf)
+    q_rho = m.mlp_block_rho(query).reshape(b, -1, guf)
+    q_alpha = m.mlp_block_alpha(query).reshape(b, -1, guf)
+    q_rgb = m.mlp_block_rgb(query).reshape(b, -1, 3 * guf)
+    q_mean = m.mlp_block_mean(query).reshape(b, -1, 2 * guf)
+
+    lat_h = nsq * h_count * m.shuffle_scale1 * m.shuffle_scale2
+    lat_w = nsq * w_count * m.shuffle_scale1 * m.shuffle_scale2
+    q_mean = q_mean / torch.tensor([[lat_w, lat_h]], dtype=q_mean.dtype,
+                                   device=q_mean.device)
+    q_mean = q_mean + reference_points(lat_h, lat_w, q_mean.dtype,
+                                       q_mean.device)[None]
+    return torch.cat([q_sigma, q_rho, q_alpha, q_rgb, q_mean], dim=-1)

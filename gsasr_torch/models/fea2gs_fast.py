@@ -16,8 +16,8 @@ import math
 import torch
 import torch.nn.functional as F
 
-from gsasr_torch.models.common import pixel_shuffle
-from gsasr_torch.models.fea2gs import reference_points, window_partition
+from gsasr_torch.models.fea2gs import (conv_nhwc, decode_lattice, to_lattice,
+                                       window_partition)
 from gsasr_torch.ops.fused_layers import ln_attn_proj, ln_mlp_residual
 
 
@@ -41,16 +41,6 @@ def _ln(norm):
     return dict(ln_w=norm.weight, ln_b=norm.bias)
 
 
-def _to_lattice(gs, b, h_count, w_count, nsq, ch):
-    full = gs.reshape(b, h_count, w_count, nsq, nsq, ch)
-    return full.permute(0, 1, 3, 2, 4, 5).reshape(b, h_count * nsq,
-                                                  w_count * nsq, ch)
-
-
-def _conv_nhwc(conv, x):
-    return conv(x.permute(0, 3, 1, 2)).permute(0, 2, 3, 1)
-
-
 @torch.no_grad()
 def fea2gs_apply_fused(m, srcs, scale):
     """(B, h, w, inchannel) features, (B,) scales -> (B, N, 9)."""
@@ -66,7 +56,7 @@ def fea2gs_apply_fused(m, srcs, scale):
     query_pos = m.pos_embedding
     se = m.scale_mlp((1.0 / scale)[:, None])
     scale_embedding = se.repeat_interleave(nwin, dim=0)  # (B_, C)
-    feat = m.img_feat_proj(srcs.permute(0, 3, 1, 2)).permute(0, 2, 3, 1)
+    feat = conv_nhwc(m.img_feat_proj, srcs)
 
     for blk in m.window_crossattn_blocks:
         resi_block = query
@@ -101,10 +91,10 @@ def fea2gs_apply_fused(m, srcs, scale):
             kw = dict(bias=attn.bias(), num_heads=nh, **_attn(attn),
                       **_ln(lyr.norm1))
             if shift > 0:
-                full = _to_lattice(x, b, h_count, w_count, nsq, ch)
+                full = to_lattice(x, b, h_count, w_count, nsq)
                 full = torch.roll(full, (-shift, -shift), dims=(1, 2))
                 a = ln_attn_proj(window_partition(full, nsq), **kw)
-                full = _to_lattice(a, b, h_count, w_count, nsq, ch)
+                full = to_lattice(a, b, h_count, w_count, nsq)
                 full = torch.roll(full, (shift, shift), dims=(1, 2))
                 a = window_partition(full, nsq)
             else:
@@ -112,25 +102,4 @@ def fea2gs_apply_fused(m, srcs, scale):
             x = x + a
             x = ln_mlp_residual(x, **_mlp(lyr.mlp_selfattn), **_ln(lyr.norm2))
         query = ln_mlp_residual(x, resi=resi_block, **_seq_mlp(blk.mlp))
-    query = query + resi_outer
-
-    query = _to_lattice(query, b, h_count, w_count, nsq, ch)
-    query = _conv_nhwc(m.UPNet[0], query)
-    query = pixel_shuffle(query, m.shuffle_scale1)
-    query = _conv_nhwc(m.UPNet[2], query)
-    query = pixel_shuffle(query, m.shuffle_scale2)
-
-    guf = int(m.gs_up_factor)
-    q_sigma = m.mlp_block_sigma(query).reshape(b, -1, 2 * guf)
-    q_rho = m.mlp_block_rho(query).reshape(b, -1, guf)
-    q_alpha = m.mlp_block_alpha(query).reshape(b, -1, guf)
-    q_rgb = m.mlp_block_rgb(query).reshape(b, -1, 3 * guf)
-    q_mean = m.mlp_block_mean(query).reshape(b, -1, 2 * guf)
-
-    lat_h = nsq * h_count * m.shuffle_scale1 * m.shuffle_scale2
-    lat_w = nsq * w_count * m.shuffle_scale1 * m.shuffle_scale2
-    q_mean = q_mean / torch.tensor([[lat_w, lat_h]], dtype=q_mean.dtype,
-                                   device=q_mean.device)
-    q_mean = q_mean + reference_points(lat_h, lat_w, q_mean.dtype,
-                                       q_mean.device)[None]
-    return torch.cat([q_sigma, q_rho, q_alpha, q_rgb, q_mean], dim=-1)
+    return decode_lattice(m, query + resi_outer, b, h_count, w_count)

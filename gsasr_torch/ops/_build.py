@@ -32,6 +32,9 @@ SIGNATURES = {
     "raster_fwd": "ppppiiii",
     "ln_mlp": "ppppppppppiiii",
     "ln_attn": "ppppppppppppppppiiiiif",
+    "window_attn_fwd": "pppppiiiiif",
+    "window_attn_bwd": "ppppppppppiiiiif",
+    "raster_bwd": "ppppppiiii",
 }
 _CTYPES = {"p": ctypes.c_void_p, "i": ctypes.c_int, "f": ctypes.c_float}
 
@@ -138,12 +141,12 @@ def launch(name: str, *args) -> None:
 
 def check_tensor(t: torch.Tensor, name: str, dtype=torch.float32) -> None:
     """Raise on what the kernels do not take: another dtype, a tensor that
-    autograd would need a gradient for (the kernels are forward-only), or
-    one off the card."""
+    autograd would need a gradient for (a kernel differentiates only inside
+    its autograd Function, where grad mode is off), or one off the card."""
     if t.dtype != dtype:
         raise TypeError(f"{name}: expected {dtype}, got {t.dtype}")
     if t.requires_grad and torch.is_grad_enabled():
         raise NotImplementedError(
-            f"{name} requires grad; the CUDA kernels are forward-only")
+            f"{name} requires grad; this kernel has no backward")
     if not t.is_cuda:
         raise ValueError(f"{name} must lie on the CUDA device")

@@ -1,5 +1,7 @@
 """Rendering orchestration: raw decoder outputs -> rendered SR image
-(counterpart of `gsasr_tpu/rendering.py`, inference side).
+(counterpart of `gsasr_tpu/rendering.py`): single images for inference and
+slot-stacked training batches on one canvas, differentiable in the decoder
+outputs.
 
 - activations: sigma = 0.99999 * sigmoid(p) + 1e-6, rho = 0.999999 * tanh(p),
   colors = sigmoid(rgb) * sigmoid(alpha), coords = 2 * p - 1;
@@ -21,7 +23,8 @@ import numpy as np
 import torch
 
 from gsasr_torch import resolve_device
-from gsasr_torch.ops.rasterizer import (chunk_geometry, pack_geometry,
+from gsasr_torch.ops.rasterizer import (GEOM_COLS, chunk_geometry,
+                                         gs_render_px, pack_geometry,
                                          raster_fwd)
 from gsasr_torch.ops.reference import gs_render_reference
 
@@ -69,7 +72,8 @@ def gs_activations(gs_parameters):
 
 def to_kernel_units(sigma_x, sigma_y, rho, coords, sr_size, step_size):
     """Physical units -> rasterizer units, with the x/y swap and the
-    align-corners remap of centers."""
+    align-corners remap of centers. sr_size and step_size are numbers, or
+    tensors with one value per Gaussian (a slot-stacked training batch)."""
     sr_h, sr_w = sr_size
     ksig_x = sigma_y / step_size * 2.0 / (sr_w - 1)
     ksig_y = sigma_x / step_size * 2.0 / (sr_h - 1)
@@ -157,3 +161,64 @@ def render_gaussians(sr_size: Sequence[int], gs_parameters, scale, *,
         img = gs_render_reference(sigmas, kcoords, colors, sr_size,
                                   final_dmax)
     return img.permute(2, 0, 1)
+
+
+def training_batch_geometry(gs_parameters, scales, gt_h, gt_w, canvas_hw, *,
+                            default_step_size: float = DEFAULT_STEP_SIZE,
+                            if_dmax: bool = True, dmax_mode: str = "fix",
+                            dmax: float = 25.0):
+    """Slot-stacked pixel-unit geometry for a training batch.
+
+    Sample i renders into rows [i*Hmax, i*Hmax + gt_h[i]) and columns
+    [0, gt_w[i]) of one (B*Hmax, Wmax) canvas: its effective size
+    (gt_h[i], gt_w[i]) is folded into the pixel-unit parameters and its
+    cull boxes are clamped to that region, so nothing bleeds between
+    samples and pixels beyond the size stay zero.
+
+    gs_parameters (B, N, 9) raw decoder outputs; scales, gt_h, gt_w (B,)
+    tensors. Returns (geoms (B, N, 16), colors (B, N, 3))."""
+    b, n, _ = gs_parameters.shape
+    hmax = int(canvas_hw[0])
+    dev = gs_parameters.device
+    g = gs_parameters.to(torch.float32).reshape(b * n, 9)
+
+    def rows(x):  # (B,) per-sample value -> (B*N,) per-Gaussian
+        x = torch.as_tensor(x, device=dev).to(torch.float32)
+        return x[:, None].expand(b, n).reshape(-1)
+
+    h_f, w_f = rows(gt_h), rows(gt_w)
+    step_size = default_step_size / rows(scales)
+    sigma_x, sigma_y, rho, coords, colors = gs_activations(g)
+    sigmas, kcoords = to_kernel_units(sigma_x, sigma_y, rho, coords,
+                                      (h_f, w_f), step_size)
+    if not if_dmax:
+        d = 100.0
+    elif dmax_mode == "dynamic":
+        d = (dmax + 2.0) / torch.minimum(h_f, w_f)
+    else:
+        d = dmax
+    lo = rows(torch.arange(b, device=dev)) * hmax
+    hi = lo + torch.clamp(h_f, 0.0, float(hmax)) - 1.0
+    geom = pack_geometry(sigmas, kcoords, (h_f, w_f), d, y_offset=lo,
+                         y_slot=(lo, hi), x_slot=(0.0, w_f - 1.0))
+    return geom.reshape(b, n, GEOM_COLS), colors.reshape(b, n, 3)
+
+
+def render_training_batch(gs_parameters, scales, gt_h, gt_w, canvas_hw, *,
+                          default_step_size: float = DEFAULT_STEP_SIZE,
+                          if_dmax: bool = True, dmax_mode: str = "fix",
+                          dmax: float = 25.0):
+    """Render a training batch on one slot-stacked (B*Hmax, Wmax) canvas
+    (see `training_batch_geometry`), differentiable in gs_parameters.
+
+    Returns (B, Hmax, Wmax, 3) float32; rows and columns beyond
+    (gt_h[i], gt_w[i]) are 0."""
+    b, n, _ = gs_parameters.shape
+    hmax, wmax = int(canvas_hw[0]), int(canvas_hw[1])
+    geoms, colors = training_batch_geometry(
+        gs_parameters, scales, gt_h, gt_w, canvas_hw,
+        default_step_size=default_step_size, if_dmax=if_dmax,
+        dmax_mode=dmax_mode, dmax=dmax)
+    canvas = gs_render_px(geoms.reshape(b * n, GEOM_COLS),
+                          colors.reshape(b * n, 3), (b * hmax, wmax))
+    return canvas.reshape(b, hmax, wmax, 3)

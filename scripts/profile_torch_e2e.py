@@ -1,16 +1,21 @@
 #!/usr/bin/env python3
-"""Where the time of one gsasr_torch image goes, on one CUDA card.
+"""Where the time of one gsasr_torch image or training step goes, on one
+CUDA card.
 
-  python3 scripts/profile_torch_e2e.py [--iters 3] [--json PATH]
+  python3 scripts/profile_torch_e2e.py [--train] [--iters 3] [--json PATH]
 
 Builds the paper EDSR-GSASR with seeded weights, warms up, then traces
-`sr_forward` on a 180x180 x4 image with torch.profiler. Prints the device
-time per image grouped by kernel family (the port's kernels R, M and A,
-cuDNN convolutions, cuBLAS products, PyTorch's ReLU, the rest), the top
-kernels by device time, and the device busy share: the summed kernel time
-over the host-clock time of the traced iterations (one stream, so kernels
-do not overlap). The card's name and power limit head the output.
---json PATH also writes the same there.
+with torch.profiler either `sr_forward` on a 180x180 x4 image or, with
+--train, `Trainer.step` of configs/train_edsr_paper.yml's recipe on
+chip_smoke.py's synthetic batch of 16 samples of 48x48. Prints the device
+time per image (or step) grouped by kernel family (the port's kernels,
+cuDNN convolutions, cuBLAS products, PyTorch's ReLU, foreach updates,
+index gathers and scatters, the rest), the top kernels by device time, and
+the device busy share: the summed kernel time over the host-clock time of
+the traced iterations (one stream, so kernels do not overlap). With
+--train it also prints the host time of the gradient and update halves of
+the step. The card's name and power limit head the output. --json PATH
+also writes the same there.
 """
 
 from __future__ import annotations
@@ -24,12 +29,15 @@ import time
 from pathlib import Path
 
 import torch
-from torch.profiler import ProfilerActivity, profile
+from torch.profiler import ProfilerActivity, profile, record_function
 
 sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
 
 FAMILIES = (
     ("R raster_fwd", ("raster_fwd_kernel",)),
+    ("RB raster_bwd", ("raster_bwd_kernel",)),
+    ("W window_attn_fwd", ("window_attn_fwd_kernel",)),
+    ("WB window_attn_bwd", ("window_attn_bwd_kernel", "dbias_sum_kernel")),
     ("M ln_mlp", ("ln_mlp_kernel",)),
     ("A ln_attn heads", ("attn_heads_kernel",)),
     ("A ln_attn out-proj", ("out_proj_kernel",)),
@@ -37,6 +45,8 @@ FAMILIES = (
     ("cuDNN convolutions", ("fprop", "conv", "cudnn", "winograd")),
     ("cuBLAS products", ("gemm", "gemv", "cutlass")),
     ("ReLU (clamp)", ("clamp",)),
+    ("foreach (Adam, EMA, zeros)", ("foreach", "multi_tensor")),
+    ("index gather/scatter", ("index", "scatter", "gather")),
 )
 
 
@@ -50,6 +60,8 @@ def _family(name: str) -> str:
 
 def main() -> int:
     ap = argparse.ArgumentParser()
+    ap.add_argument("--train", action="store_true",
+                    help="trace Trainer.step instead of sr_forward")
     ap.add_argument("--iters", type=int, default=3)
     ap.add_argument("--json", help="write the results to this file")
     args = ap.parse_args()
@@ -60,21 +72,47 @@ def main() -> int:
 
     enc, dec = make_models("edsr", "paper",
                            generator=torch.Generator().manual_seed(0))
-    lq = torch.rand(1, 180, 180, 3,
-                    generator=torch.Generator().manual_seed(4)).cuda()
-    for _ in range(2):
-        sr_forward(enc, dec, lq, 4.0)
+    if args.train:
+        from chip_smoke import PAPER_BATCH, PAPER_TRAIN, paper_batch
+        from gsasr_torch.train import TrainConfig, Trainer
+
+        tr = Trainer(enc, dec, TrainConfig(**PAPER_TRAIN))
+        batches = [paper_batch(PAPER_BATCH, seed=20 + i)
+                   for i in range(args.iters + 2)]
+
+        def run(i):
+            with record_function("grads"):
+                out = tr.grads(batches[i])
+            with record_function("optimizer+EMA"):
+                tr.apply(*out)
+    else:
+        lq = torch.rand(1, 180, 180, 3,
+                        generator=torch.Generator().manual_seed(4)).cuda()
+
+        def run(i):
+            sr_forward(enc, dec, lq, 4.0)
+    for i in range(2):
+        run(i)
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        for _ in range(args.iters):
-            sr_forward(enc, dec, lq, 4.0)
+        for i in range(args.iters):
+            run(2 + i)
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
-    kernels = [e for e in prof.key_averages()
+    # kernels only: record_function ranges (ours, and Optimizer.step's)
+    # also carry device time, the span of the kernels inside them
+    events = prof.key_averages()
+    kernels = [e for e in events
                if e.device_type == torch.autograd.DeviceType.CUDA
-               and e.self_device_time_total > 0]
+               and e.self_device_time_total > 0
+               and not getattr(e, "is_user_annotation", False)]
+    ranges = {}
+    for e in events:
+        if getattr(e, "is_user_annotation", False) and \
+                e.device_type == torch.autograd.DeviceType.CPU:
+            ranges[e.key] = e.cpu_time_total / 1e3 / args.iters
     fam_ms: dict = {}
     for e in kernels:
         f = _family(e.key)
@@ -85,22 +123,26 @@ def main() -> int:
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                            "--format=csv,noheader"], capture_output=True,
                           text=True, timeout=60, check=True).stdout.strip()
+    unit = "step" if args.train else "image"
     res = dict(
-        card=card, iters=per,
+        card=card, iters=per, unit=unit,
         wall_ms_per_image=wall_ms / per,
         device_busy_ms_per_image=busy_ms / per,
         device_busy_share=busy_ms / wall_ms,
         families_ms_per_image={k: v / per for k, v in sorted(
             fam_ms.items(), key=lambda kv: -kv[1])},
+        host_ranges_ms=ranges,
         top_kernels=[dict(name=e.key[:120], calls_per_image=e.count / per,
                           ms_per_image=e.self_device_time_total / 1e3 / per)
                      for e in top])
-    print(f"{res['card']}: {res['wall_ms_per_image']:.3f} ms per image "
+    print(f"{res['card']}: {res['wall_ms_per_image']:.3f} ms per {unit} "
           f"(profiled), device busy {res['device_busy_ms_per_image']:.3f} ms "
           f"= {100 * res['device_busy_share']:.1f}%")
+    for k, v in res["host_ranges_ms"].items():
+        print(f"  host {k}: {v:.3f} ms per step")
     for k, v in res["families_ms_per_image"].items():
         print(f"  {v:9.3f} ms  {k}")
-    print("top kernels (ms per image, calls per image):")
+    print(f"top kernels (ms per {unit}, calls per {unit}):")
     for t in res["top_kernels"]:
         print(f"  {t['ms_per_image']:9.3f}  {t['calls_per_image']:6.1f}  "
               f"{t['name']}")

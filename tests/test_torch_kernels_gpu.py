@@ -76,3 +76,74 @@ def test_ln_attn_matches_plain(cuda, cross):
     torch.testing.assert_close(tf.ln_attn_proj(x, **kw),
                                tf.ln_attn_proj_plain(x, **kw),
                                rtol=1e-4, atol=1e-4)
+
+
+def _attn_inputs(cuda, b, tq, tk, c, nh, bias=True, seed=2):
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    r = lambda *s: torch.randn(*s, generator=g).to(cuda)  # noqa: E731
+    return (r(b, tq, c), r(b, tk, c), r(b, tk, c),
+            0.5 * r(nh, tq, tk) if bias else None, r(b, tq, c))
+
+
+# (windows, Tq, Tk, C, heads, bias): the paper decoder's shape with a prime
+# window count, Tq != Tk, no bias, and a head width below 32
+ATTN_CASES = [(37, 144, 144, 180, 6, True), (11, 64, 144, 180, 6, True),
+              (13, 144, 100, 180, 6, False), (7, 49, 49, 96, 4, True)]
+
+
+@pytest.mark.parametrize("b,tq,tk,c,nh,bias", ATTN_CASES)
+def test_window_attn_fwd_matches_plain(cuda, b, tq, tk, c, nh, bias):
+    from gsasr_torch.ops import attention as ta
+
+    q, k, v, bs, _ = _attn_inputs(cuda, b, tq, tk, c, nh, bias)
+    scale = (c // nh) ** -0.5
+    torch.testing.assert_close(
+        ta.window_attention_packed_fwd(q, k, v, bs, scale, nh),
+        ta.window_attention_packed_plain(q, k, v, bs, scale, nh),
+        rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.parametrize("b,tq,tk,c,nh,bias", ATTN_CASES)
+def test_window_attn_bwd_matches_plain_and_repeats(cuda, b, tq, tk, c, nh,
+                                                   bias):
+    from gsasr_torch.ops import attention as ta
+
+    q, k, v, bs, g = _attn_inputs(cuda, b, tq, tk, c, nh, bias)
+    scale = (c // nh) ** -0.5
+    out = ta.window_attention_packed_bwd(q, k, v, bs, g, scale, nh)
+    again = ta.window_attention_packed_bwd(q, k, v, bs, g, scale, nh)
+    ref = ta.window_attention_packed_bwd_plain(q, k, v, bs, g, scale, nh)
+    assert (out[3] is None) == (not bias)
+    for o, a, r in zip(out, again, ref):
+        if r is None:
+            continue
+        assert torch.equal(o, a)  # bitwise repeatable: no atomics
+        # per-output scale: dbias sums b windows of ds
+        tol = 1e-4 * float(r.abs().max())
+        torch.testing.assert_close(o, r, rtol=1e-4, atol=tol)
+
+
+def test_raster_bwd_matches_plain_and_repeats(cuda):
+    from gsasr_torch.ops import rasterizer as tr
+
+    rng = np.random.default_rng(3)
+    s, h, w = 5000, 3 * 64, 96
+    sig = rng.random((s, 3), dtype=np.float32)
+    sig[:, :2] = 0.04 * sig[:, :2] + 2e-3
+    sig[:, 2] = 1.9 * sig[:, 2] - 0.95
+    co = (2.2 * rng.random((s, 2)) - 1.1).astype(np.float32)
+    geom = tr.pack_geometry(torch.from_numpy(sig).to(cuda),
+                            torch.from_numpy(co).to(cuda), (h, w), 0.25)
+    col = torch.from_numpy(rng.random((s, 3), dtype=np.float32)).to(cuda)
+    geom, col, bbox = tr.chunk_geometry(geom, col, (h, w))
+    g = torch.from_numpy(rng.standard_normal((h, w, 3)).astype(
+        np.float32)).to(cuda)
+    out = tr.raster_bwd(geom, col, bbox, g, h, w)
+    again = tr.raster_bwd(geom, col, bbox, g, h, w)
+    ref = tr.raster_bwd_plain(geom, col, bbox, g, h, w)
+    for o, a, r in zip(out, again, ref):
+        assert torch.equal(o, a)  # bitwise repeatable: no atomics
+        # moment sums over many pixels cancel: scale by each column's max
+        tol = 1e-4 * r.abs().amax(dim=0) + 1e-4 * r.abs()
+        assert bool(((o - r).abs() <= tol).all())
+    assert torch.all(out[0][:, 5:] == 0)

@@ -237,3 +237,93 @@ def test_make_models_seeded_and_shaped():
     assert w.abs().max() <= bound and w.abs().max() > 0.9 * bound
     with pytest.raises(NotImplementedError):
         make_models("swinir", "paper", device="cpu")
+
+
+# two layers per block, so the odd layers' feature and lattice rolls run
+TINY_DEC2 = dict(TINY_DEC, num_crossattn_layers=2, num_selfattn_layers=2)
+
+
+@pytest.mark.parametrize("dec_kw,b,hw", [(TINY_DEC2, 1, (4, 8)),
+                                         (FULL_DEC, 1, (12, 24))],
+                         ids=["tiny", "full_width"])
+def test_module_decoder_matches_jax_forward_and_grads(dec_kw, b, hw):
+    """Fea2GS.forward is the differentiable module path: its output and
+    every parameter gradient match JAX's Fea2GS.apply and jax.grad (K11 and
+    K12 in interpret mode). The JAX gradient tree converts with
+    params_from_jax as it is, since it has the parameters' structure; the
+    dead LayerNorms and ScaleInject's q/k thirds get zero on both sides."""
+    _, jdec, ep, dp, _, dec = _pair(TINY_ENC, dec_kw, seed=3)
+    rng = np.random.default_rng(4)
+    srcs = rng.random((b, *hw, dec_kw.get("inchannel", 64)), dtype=np.float32)
+    scale = rng.uniform(1.5, 4.0, (b,)).astype(np.float32)
+    nsq = math.isqrt(dec.num_gs_seed)
+    n = (hw[0] // dec.window_size * 4 * nsq) * (hw[1] // dec.window_size * 4
+                                                 * nsq)
+    weight = rng.standard_normal((b, n, 9)).astype(np.float32)
+
+    def jloss(p):
+        out = jdec.apply({"params": p}, jnp.asarray(srcs), jnp.asarray(scale))
+        return jnp.sum(out * weight), out
+
+    (_, jout), jgrad = jax.jit(jax.value_and_grad(jloss, has_aux=True))(dp)
+    out = dec(torch.from_numpy(srcs), torch.from_numpy(scale))
+    assert out.grad_fn is not None
+    # 2e-4, as the fused decoder's test: float32 sums in another order
+    # through up to 17 residual sub-layers
+    np.testing.assert_allclose(out.detach().numpy(), np.asarray(jout),
+                               rtol=2e-4, atol=2e-4)
+    dec.zero_grad(set_to_none=True)
+    (out * torch.from_numpy(weight)).sum().backward()
+    want = params_from_jax(ep, jgrad)[1]
+    for name, p in dec.named_parameters():
+        got = (p.grad if p.grad is not None else torch.zeros_like(p)).numpy()
+        ref = want[name].numpy()
+        if dec_kw is TINY_DEC2:
+            # 1e-4 of the tensor's largest entry: sums over windows and
+            # heads in another order (each side is within 2e-5 of a
+            # float64 run of the port)
+            np.testing.assert_allclose(got, ref, rtol=1e-4,
+                                       atol=1e-4 * np.abs(ref).max() + 1e-7,
+                                       err_msg=name)
+        else:
+            # Relative Frobenius 1e-2 (measured up to 3.4e-3): at this size
+            # a few of the heads' 20 M ReLU inputs lie within float32 noise
+            # of zero and switch differently, each moving one row of a
+            # weight gradient. 1e-6 absolute: the k biases' true gradient
+            # is 0 (softmax ignores a per-query constant).
+            assert np.linalg.norm(got - ref) <= (
+                1e-2 * np.linalg.norm(ref) + 1e-6), name
+
+
+def test_module_path_equals_fused_path(tiny):
+    """dec(...) (module path) and fea2gs_apply_fused give the same
+    Gaussians; only the module path carries a graph."""
+    from gsasr_torch.models.fea2gs_fast import fea2gs_apply_fused
+
+    *_, dec = _pair(TINY_ENC, TINY_DEC2, seed=6)
+    rng = np.random.default_rng(7)
+    srcs = torch.from_numpy(rng.random((2, 8, 12, 8), dtype=np.float32))
+    scale = torch.tensor([2.0, 3.5])
+    out = dec(srcs, scale)
+    ref = fea2gs_apply_fused(dec, srcs, scale)
+    assert out.grad_fn is not None and ref.grad_fn is None
+    # 1e-5: the same float32 sub-layers, composed in another order
+    np.testing.assert_allclose(out.detach().numpy(), ref.numpy(), rtol=1e-5,
+                               atol=1e-5)
+
+
+def test_sr_forward_takes_the_fused_decoder(tiny, monkeypatch):
+    """Inference stays on the fused path (kernels M and A on the card),
+    never on the module path (kernels W and WB)."""
+    import gsasr_torch.model as tm
+
+    *_, enc, dec = tiny
+    calls = []
+    fused = tm.fea2gs_apply_fused
+    monkeypatch.setattr(tm, "fea2gs_apply_fused",
+                        lambda *a: calls.append(1) or fused(*a))
+    monkeypatch.setattr(type(dec), "forward", lambda *a: pytest.fail(
+        "sr_forward ran the module decoder"))
+    tm.sr_forward(enc, dec, torch.rand(1, 8, 8, 3), 2.0, denominator=4,
+                  device="cpu")
+    assert calls == [1]

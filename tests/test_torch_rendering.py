@@ -1,7 +1,9 @@
 """gsasr_torch rendering orchestration against gsasr_tpu on the CPU:
-activations, kernel units, dmax, the static lattice permutation and
-render_gaussians with the same static_perm and lat_hw."""
+activations, kernel units, dmax, the static lattice permutation,
+render_gaussians with the same static_perm and lat_hw, and the slot-stacked
+training render, forward and gradients."""
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -93,3 +95,62 @@ def test_render_gaussians_dense_path_matches_jax(rng):
                                  dmax_mode="dynamic", dmax=25,
                                  use_kernel=False, device="cpu").numpy()
     np.testing.assert_allclose(out, ref, rtol=1e-5, atol=1e-5)
+
+
+def _training_batch(rng, b=3, n=400, canvas=(40, 48)):
+    g = (0.5 * rng.standard_normal((b, n, 9))).astype(np.float32)
+    scales = np.asarray([2.0, 3.1, 4.0][:b], np.float32)
+    gt_h = np.asarray([40, 31, 17][:b], np.int32)   # mixed sizes per sample
+    gt_w = np.asarray([48, 23, 40][:b], np.int32)
+    weight = rng.random((b, *canvas, 3), dtype=np.float32)
+    return g, scales, gt_h, gt_w, weight
+
+
+@pytest.mark.parametrize("dmax_mode,dmax,if_dmax", [
+    ("fix", 0.5, True), ("dynamic", 25.0, True), ("fix", 0.5, False)])
+def test_training_batch_geometry_matches_jax(rng, dmax_mode, dmax, if_dmax):
+    g, scales, gt_h, gt_w, _ = _training_batch(rng)
+    kw = dict(dmax_mode=dmax_mode, dmax=dmax, if_dmax=if_dmax)
+    jg, jc, _ = jrend.training_batch_geometry(
+        jnp.asarray(g), jnp.asarray(scales), jnp.asarray(gt_h),
+        jnp.asarray(gt_w), (40, 48), **kw)
+    tg, tc = trend.training_batch_geometry(
+        torch.from_numpy(g), torch.from_numpy(scales),
+        torch.from_numpy(gt_h), torch.from_numpy(gt_w), (40, 48), **kw)
+    # 1e-5: the same float32 formulas, with XLA's and torch's own rounding
+    # of the sigmoid and tanh
+    np.testing.assert_allclose(tg.numpy(), np.asarray(jg), rtol=1e-5,
+                               atol=1e-5)
+    np.testing.assert_allclose(tc.numpy(), np.asarray(jc), rtol=1e-6,
+                               atol=1e-6)
+
+
+def test_render_training_batch_matches_jax(rng):
+    """Forward and gradients in the raw decoder outputs, with mixed
+    (gt_h, gt_w) per sample; pixels beyond each sample's size stay 0."""
+    g, scales, gt_h, gt_w, weight = _training_batch(rng)
+    args = (jnp.asarray(scales), jnp.asarray(gt_h), jnp.asarray(gt_w))
+
+    def jloss(p):
+        out = jrend.render_training_batch(p, *args, (40, 48), dmax=0.5)
+        return jnp.sum(out * weight), out
+
+    (_, jout), jgrad = jax.value_and_grad(jloss, has_aux=True)(
+        jnp.asarray(g))
+    p = torch.from_numpy(g).requires_grad_()
+    out = trend.render_training_batch(
+        p, torch.from_numpy(scales), torch.from_numpy(gt_h),
+        torch.from_numpy(gt_w), (40, 48), dmax=0.5)
+    (out * torch.from_numpy(weight)).sum().backward()
+    assert out.shape == (3, 40, 48, 3)
+    # 1e-5: the same Gaussians summed in another order
+    np.testing.assert_allclose(out.detach().numpy(), np.asarray(jout),
+                               rtol=1e-5, atol=1e-5)
+    for i in range(3):
+        assert torch.all(out[i, gt_h[i]:] == 0)
+        assert torch.all(out[i, :, gt_w[i]:] == 0)
+    ref = np.asarray(jgrad)
+    # per-column scale: the moment sums behind each parameter cancel
+    tol = 1e-4 * np.abs(ref).max(axis=(0, 1)) + 1e-4 * np.abs(ref)
+    assert (np.abs(p.grad.numpy() - ref) <= tol).all(), \
+        float(np.abs(p.grad.numpy() - ref).max())
