@@ -4,7 +4,7 @@
   python3 chip_smoke.py [--json PATH]
 
 1. Prints the card (nvidia-smi name and power limit), the torch and CUDA
-   versions, and builds kernels R, M, A, W, WB and RB from
+   versions, and builds kernels R, M, A, W, WB, RB, MB, AB and T from
    gsasr_torch/ops/csrc, one nvcc each, in parallel.
 2. Kernel phase (TF32 off): R, M and A against their plain PyTorch versions
    at the inference path's shapes, with their median times, the plain
@@ -20,11 +20,18 @@
    versions at the paper training step's shapes (256 windows of 144 tokens;
    the 3072x192 slot canvas of 16 samples), WB and RB twice for bitwise
    repeatability, with times, bounds and the SDPA yardstick for W and WB.
-7. Training phase: Trainer.step on the paper EDSR-GSASR at full width and
+7. Fused training kernel phase (TF32 off): MB and AB against their plain
+   versions at the training step's shapes, for each option set the fused
+   decoder uses, and T (the bias-table gradient) for both tables; each
+   twice for bitwise repeatability, with times and bounds.
+8. Training phase: Trainer.step on the paper EDSR-GSASR at full width and
    depth with configs/train_edsr_paper.yml's recipe, 16 samples of 48x48,
-   2 warm-up and 5 timed steps: launch counts per step, finite losses,
-   moved parameters and EMA, step time and its split, peak memory.
-8. One tiny training step on the card against the same step on the CPU.
+   2 warm-up and 5 timed steps, first on the module decoder, then with
+   fused_decoder=True: launch counts per step, finite losses, moved
+   parameters and EMA, step time and its split, peak memory, and a report
+   of whether two gradients of one batch from one state are the same bits.
+9. One tiny training step on the card against the same step on the CPU,
+   module and fused decoder.
 
 Any failed phase raises and the exit code is not 0. The line before the
 last is {"kernels": [...]}; the last is
@@ -92,8 +99,14 @@ RB_OPS_PER_PAIR = 35
 # scales with its column's largest entry.
 GRAD_TOL = 1e-4
 # Launches per paper training step: W and WB once per window attention
-# (2 cross + 36 self), R and RB once for the slot canvas.
-TRAIN_COUNTS = {"R": 1, "M": 0, "A": 0, "W": 38, "WB": 38, "RB": 1}
+# (2 cross + 36 self), R and RB once for the slot canvas, T once per
+# attention's bias table; with fused_decoder=True, M and MB once per MLP
+# chain (38 inject, 38 feature/self FFNs, 7 block tails) and A and AB once
+# per attention instead of W and WB.
+TRAIN_COUNTS = {"R": 1, "M": 0, "A": 0, "W": 38, "WB": 38, "RB": 1, "MB": 0,
+                "AB": 0, "T": 38}
+FUSED_TRAIN_COUNTS = {"R": 1, "M": 83, "A": 38, "W": 0, "WB": 0, "RB": 1,
+                      "MB": 83, "AB": 38, "T": 38}
 TRAIN_WARMUP = 2
 TRAIN_STEPS = 5
 
@@ -166,6 +179,31 @@ def _compare_grad(out, ref, name):
     if not ok:
         raise AssertionError(f"{name}: kernel disagrees with its plain version")
     return mx
+
+
+def _compare_grads(outs, refs, names, label, floor_of=None):
+    """_compare_grad over a kernel's outputs: a matrix per column, a vector
+    over the whole vector. `floor_of` maps an output whose true value is 0
+    (float32 noise on both sides) to the output whose largest entry, times
+    GRAD_TOL, is its floor. Returns the largest |out - ref|."""
+    worst = 0.0
+    for o, r, n in zip(outs, refs, names):
+        if r is None:
+            if o is not None:
+                raise AssertionError(f"{label} {n}: output without reference")
+            continue
+        floor = 0.0
+        if floor_of and n in floor_of:
+            floor = GRAD_TOL * float(
+                refs[names.index(floor_of[n])].abs().max())
+        mx, ok = _grad_err(o, r, per_column=r.dim() >= 2, floor=floor)
+        print(f"  {label} {n}: max|d| {mx:.3e} (max|ref| "
+              f"{float(r.abs().max()):.3e})", flush=True)
+        if not ok:
+            raise AssertionError(f"{label} {n}: kernel disagrees with its "
+                                 "plain version")
+        worst = max(worst, mx)
+    return worst
 
 
 def _repeatable(fn, name):
@@ -325,7 +363,7 @@ def path_phase(enc, dec, dev, kernels):
         if tuple(out.shape) != want or not torch.isfinite(out).all():
             raise AssertionError(f"bad output {tuple(out.shape)} for {want}")
         if counts != {"R": b, "M": M_PER_FORWARD, "A": A_PER_FORWARD,
-                      "W": 0, "WB": 0, "RB": 0}:
+                      "W": 0, "WB": 0, "RB": 0, "MB": 0, "AB": 0, "T": 0}:
             raise AssertionError(f"launch counts {counts}")
         runs.append(dict(request=[b, h, w], scale=scale, shape=list(out.shape),
                          launches=counts))
@@ -548,13 +586,129 @@ def train_kernel_phase(enc, dec, dev):
     return results
 
 
-def _train_run(dev, kernels, b: int):
+@torch.no_grad()
+def fused_kernel_phase(dec, dev):
+    """MB and AB against their plain versions at the fused training step's
+    shapes, for each option set the fused decoder uses, and T for both bias
+    tables; twice each to show the bits repeat."""
+    from gsasr_torch.models.fea2gs_fast import _attn, _ln, _mlp, _seq_mlp
+    from gsasr_torch.ops import bias_table as bt
+    from gsasr_torch.ops import fused_layers as fl
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    gen = torch.Generator().manual_seed(9)
+    rnd = lambda *s: torch.randn(*s, generator=gen).to(dev)  # noqa: E731
+    b = PAPER_BATCH * (PAPER_LR_SIZE // dec.window_size) ** 2
+    t, c, nh = dec.num_gs_seed, dec.channel, dec.num_heads
+    m = b * t
+    x, g = rnd(b, t, c), rnd(b, t, c)
+    blk = dec.gs_selfattn_blocks[0]
+    lyr = blk.blocks[0]
+    cl = dec.window_crossattn_blocks[0].blocks[0]
+    null = "no PyTorch call computes it"
+    results = {"MB": [], "AB": [], "T": []}
+
+    # -- MB: (LN, inj, base x+inj), (LN, base x), (no LN, resi) ---------------
+    names = ("dx", "dresi", "dinj", "dln_w", "dln_b", "dw1", "db1", "dw2",
+             "db2")
+    for name, kw, per_step in (
+            ("ln_inj", dict(inj=rnd(b, c), **_mlp(lyr.mlp_crossattn),
+                            **_ln(lyr.norm4)), 38),
+            ("ln", dict(**_mlp(lyr.mlp_selfattn), **_ln(lyr.norm2)), 38),
+            ("resi", dict(resi=rnd(b, t, c), **_seq_mlp(blk.mlp)), 7)):
+        err = _compare_grads(fl.ln_mlp_residual_bwd(x, g, **kw),
+                             fl.ln_mlp_residual_bwd_plain(x, g, **kw), names,
+                             f"MB {name}")
+        _repeatable(lambda: fl.ln_mlp_residual_bwd(x, g, **kw), f"MB {name}")
+        ms = _time_ms(lambda: fl.ln_mlp_residual_bwd(x, g, **kw), 10)
+        plain = _time_ms(lambda: fl.ln_mlp_residual_bwd_plain(x, g, **kw),
+                         10)
+        hid = kw["w1"].shape[0]
+        # five products: the recomputed fc1, dw2, dz1, dw1 and dh; bytes: x,
+        # g, dx, the weights and their gradients, the vectors
+        nbytes = 4 * (3 * m * c + 4 * c * hid + 2 * hid + 2 * c
+                      + (2 * b * c if "inj" in kw else 0)
+                      + (4 * c if "ln_w" in kw else 0))
+        bound, by = _bound_ms(10.0 * m * c * hid, nbytes)
+        results["MB"].append(dict(case=name, per_step=per_step,
+                                  max_abs_err=err, ms=ms, plain_ms=plain,
+                                  bound_ms=bound, bound_by=by,
+                                  library_ms=None, library_null_reason=null))
+
+    # -- AB: cross-attention (pos, kv, bias), self-attention (bias) ----------
+    names = ("dx", "dpos", "dkv", "dln_w", "dln_b", "dwq", "dbq", "dwk",
+             "dbk", "dwv", "dbv", "dwo", "dbo", "dbias")
+    for name, kw, per_step in (
+            ("cross_pos_kv_bias",
+             dict(pos=dec.pos_embedding, kv=rnd(b, t, c),
+                  bias=cl.window_cross_attn.bias(),
+                  **_attn(cl.window_cross_attn), **_ln(cl.norm3)), 2),
+            ("self_bias", dict(bias=lyr.gs_self_attn.bias(),
+                               **_attn(lyr.gs_self_attn), **_ln(lyr.norm1)),
+             36)):
+        # dbk's true value is 0 (softmax ignores a per-query constant)
+        err = _compare_grads(
+            fl.ln_attn_proj_bwd(x, g, num_heads=nh, **kw),
+            fl.ln_attn_proj_bwd_plain(x, g, num_heads=nh, **kw), names,
+            f"AB {name}", floor_of={"dbk": "dwk"})
+        _repeatable(lambda: fl.ln_attn_proj_bwd(x, g, num_heads=nh, **kw),
+                    f"AB {name}")
+        ms = _time_ms(lambda: fl.ln_attn_proj_bwd(x, g, num_heads=nh, **kw),
+                      10)
+        plain = _time_ms(lambda: fl.ln_attn_proj_bwd_plain(
+            x, g, num_heads=nh, **kw), 5)
+        # eleven products of 2 T C^2 (q, k, v; dwo, datt, dwq, dwk, dwv,
+        # dxq, two for dsrc) and six of 2 T^2 C (scores, p v, dp, dv, dq,
+        # dk) per window; bytes: x, g, dx (kv, dkv, pos, dpos), the bias and
+        # dbias, the weights and their gradients, the vectors
+        cross = "kv" in kw
+        flops = 2.0 * b * (11 * t * c * c + 6 * t * t * c)
+        nbytes = 4 * (3 * m * c + (2 * m * c + 2 * t * c if cross else 0)
+                      + 2 * nh * t * t + 8 * c * c + 11 * c)
+        bound, by = _bound_ms(flops, nbytes)
+        results["AB"].append(dict(case=name, per_step=per_step,
+                                  max_abs_err=err, ms=ms, plain_ms=plain,
+                                  bound_ms=bound, bound_by=by,
+                                  library_ms=None, library_null_reason=null))
+
+    # -- T: the bias-table gradients of both attentions ----------------------
+    for name, attn, per_step in (("cross", cl.window_cross_attn, 2),
+                                 ("self", lyr.gs_self_attn, 36)):
+        inv = attn.relative_position_inverse
+        gb = rnd(nh, *attn.relative_position_index.shape)
+        err = _compare_grads([bt.bias_table_bwd(gb, inv)],
+                             [bt.bias_table_bwd_plain(gb, inv)], ["dtable"],
+                             f"T {name}")
+        _repeatable(lambda: (bt.bias_table_bwd(gb, inv),), f"T {name}")
+        ms = _time_ms(lambda: bt.bias_table_bwd(gb, inv), 20)
+        plain = _time_ms(lambda: bt.bias_table_bwd_plain(gb, inv), 20)
+        rows = inv.shape[0]
+        bound, by = _bound_ms(float(gb.numel()),
+                              4 * (gb.numel() + inv.numel() + rows * nh))
+        results["T"].append(dict(case=name, per_step=per_step,
+                                 max_abs_err=err, ms=ms, plain_ms=plain,
+                                 bound_ms=bound, bound_by=by,
+                                 library_ms=None, library_null_reason=null))
+    for k, rows in results.items():
+        for r in rows:
+            print(f"  {k} {r['case']}: {r['ms']:.4f} ms (plain "
+                  f"{r['plain_ms']:.4f}, bound {r['bound_ms']:.4f} by "
+                  f"{r['bound_by']}, library null) x{r['per_step']} per step",
+                  flush=True)
+    return results
+
+
+def _train_run(dev, kernels, b: int, fused: bool):
     from gsasr_torch.model import make_models
     from gsasr_torch.train import TrainConfig, Trainer
 
     enc, dec = make_models("edsr", "paper",
                            generator=torch.Generator().manual_seed(0))
-    tr = Trainer(enc, dec, TrainConfig(**PAPER_TRAIN))
+    tr = Trainer(enc, dec, TrainConfig(**dict(PAPER_TRAIN,
+                                              fused_decoder=fused)))
+    want = FUSED_TRAIN_COUNTS if fused else TRAIN_COUNTS
+    label = "fused" if fused else "module"
     start = [p.detach().clone() for p in tr.params_g + tr.params_d]
     start_ema = [p.detach().clone() for p in
                  list(tr.ema_g.parameters()) + list(tr.ema_d.parameters())]
@@ -575,9 +729,9 @@ def _train_run(dev, kernels, b: int):
         t2 = time.perf_counter()
         c = _counts(kernels)
         loss = float(m["loss"])
-        print(f"  step {i}: loss {loss:.6f}, {(t2 - t0) * 1e3:.1f} ms, "
-              f"launches {c}", flush=True)
-        if c != TRAIN_COUNTS:
+        print(f"  {label} step {i}: loss {loss:.6f}, {(t2 - t0) * 1e3:.1f} ms,"
+              f" launches {c}", flush=True)
+        if c != want:
             raise AssertionError(f"training launch counts {c}")
         if not math.isfinite(loss):
             raise AssertionError(f"step {i}: loss {loss}")
@@ -597,13 +751,15 @@ def _train_run(dev, kernels, b: int):
     if not (moved and ema_moved):
         raise AssertionError(f"parameters moved {moved}, EMA moved "
                              f"{ema_moved}")
+    repeat = _repeat_report(tr, batches[-1], label)
     med = lambda x: float(np.median(x))  # noqa: E731
-    res = dict(batch=b, step_ms_median=med(steps), step_ms=steps,
+    res = dict(decoder=label, batch=b, step_ms_median=med(steps),
+               step_ms=steps,
                forward_ms=med(fwd), backward_ms=med(grads_ms) - med(fwd),
                grads_ms=med(grads_ms), optimizer_ema_ms=med(apply_ms),
                peak_mem_bytes=int(peak), losses=losses, launches=counts[-1],
-               tf32={"cudnn": True, "matmul": False})
-    print(f"  training step, batch {b}: median {res['step_ms_median']:.1f} "
+               repeat=repeat, tf32={"cudnn": True, "matmul": False})
+    print(f"  {label} training step, batch {b}: median {res['step_ms_median']:.1f} "
           f"ms over {len(steps)} steps (forward {res['forward_ms']:.1f}, "
           f"backward {res['backward_ms']:.1f}, optimizer+EMA "
           f"{res['optimizer_ema_ms']:.1f}); peak {peak / 2**30:.2f} GiB; "
@@ -611,15 +767,37 @@ def _train_run(dev, kernels, b: int):
     return res
 
 
-def train_phase(dev, kernels):
-    """Full-width paper training steps; halves the batch only if it does
-    not fit the card, and says so."""
+def _repeat_report(tr, batch, label):
+    """Whether two gradients of one batch from one state are the same bits,
+    and which tensors differ. A report, not asserted: besides the port's
+    kernels (all deterministic), cuDNN's convolution backward may choose
+    algorithms that add in no fixed order."""
+    a, b = tr.grads(batch), tr.grads(batch)
+    names = ([f"enc.{n}" for n, _ in tr.enc.named_parameters()]
+             + [f"dec.{n}" for n, _ in tr.dec.named_parameters()])
+    diff = [n for n, x, y in zip(names, a[2] + a[3], b[2] + b[3])
+            if not torch.equal(x, y)]
+    same_loss = bool(torch.equal(a[0], b[0]))
+    shown = ", ".join(diff[:60]) + (f" and {len(diff) - 60} more (all in "
+                                    "--json)" if len(diff) > 60 else "")
+    print(f"  {label} repeatability: two gradients of one batch from one "
+          f"state are {'the same bits' if not diff else 'not the same bits'}"
+          f"; loss {'equal' if same_loss else 'differs'}; {len(diff)} of "
+          f"{len(names)} tensors differ" + (f": {shown}" if diff else ""),
+          flush=True)
+    return dict(same_bits=not diff, loss_equal=same_loss, differ=diff,
+                tensors=len(names))
+
+
+def train_phase(dev, kernels, fused: bool):
+    """Full-width paper training steps on the module or the fused decoder;
+    halves the batch only if it does not fit the card, and says so."""
     torch.backends.cuda.matmul.allow_tf32 = False  # PyTorch default
     torch.backends.cudnn.allow_tf32 = True         # PyTorch default
     b = PAPER_BATCH
     while True:
         try:
-            return _train_run(dev, kernels, b)
+            return _train_run(dev, kernels, b, fused)
         except torch.cuda.OutOfMemoryError:
             if b == 1:
                 raise
@@ -630,9 +808,10 @@ def train_phase(dev, kernels):
         b //= 2
 
 
-def train_card_vs_cpu(dev):
+def train_card_vs_cpu(dev, fused: bool):
     """One tiny training step (tests/test_trainer.py's networks, batch 2)
-    from the same weights on the card and on the CPU."""
+    from the same weights on the card and on the CPU, on the module or the
+    fused decoder."""
     from gsasr_torch.models import EDSRNOUP, Fea2GS
     from gsasr_torch.models.init import init_weights
     from gsasr_torch.train import TrainConfig, Trainer
@@ -645,7 +824,8 @@ def train_card_vs_cpu(dev):
                               num_crossattn_blocks=1, num_crossattn_layers=2,
                               num_selfattn_blocks=1, num_selfattn_layers=2,
                               num_gs_seed=16, window_size=4), gen)
-    cfg = TrainConfig(canvas_hw=(32, 32), warmup_iter=2, milestones=(100,))
+    cfg = TrainConfig(canvas_hw=(32, 32), warmup_iter=2, milestones=(100,),
+                      fused_decoder=fused)
     rng = np.random.default_rng(8)
     scales = (2.0 + 2.0 * rng.random(2)).astype(np.float32)
     gt = np.round(scales * 8).astype(np.int32)
@@ -672,14 +852,15 @@ def train_card_vs_cpu(dev):
             bad.append(n)
     card.apply(*out_card)
     cpu.apply(*out_cpu)
-    print(f"  tiny training step card vs CPU: loss {l_card:.7f} vs "
+    print(f"  tiny {'fused' if fused else 'module'} training step card vs "
+          f"CPU: loss {l_card:.7f} vs "
           f"{l_cpu:.7f} (rel {rel:.2e}, tol 1e-4); gradients max|d| "
           f"{worst:.3e} over {len(names)} tensors (tol {GRAD_TOL} max|ref| "
           f"+ {GRAD_TOL}|ref| + {floor:.1e})", flush=True)
     if not rel <= 1e-4 or bad:
         raise AssertionError(f"training step: card and CPU disagree {bad}")
-    return dict(loss_card=l_card, loss_cpu=l_cpu, loss_rel=rel,
-                grad_max_abs_err=worst, tensors=len(names))
+    return dict(fused_decoder=fused, loss_card=l_card, loss_cpu=l_cpu,
+                loss_rel=rel, grad_max_abs_err=worst, tensors=len(names))
 
 
 def _kernel_entry(name, src, rep, also, rows, launches, path):
@@ -711,7 +892,10 @@ def main() -> int:
     from gsasr_torch.ops import _build
     from gsasr_torch.ops.attention import (window_attention_packed_bwd,
                                            window_attention_packed_fwd)
-    from gsasr_torch.ops.fused_layers import ln_attn_proj, ln_mlp_residual
+    from gsasr_torch.ops.bias_table import bias_table_bwd
+    from gsasr_torch.ops.fused_layers import (ln_attn_proj, ln_attn_proj_bwd,
+                                              ln_mlp_residual,
+                                              ln_mlp_residual_bwd)
     from gsasr_torch.ops.rasterizer import raster_bwd, raster_fwd
 
     t_start = time.perf_counter()
@@ -722,8 +906,7 @@ def main() -> int:
           f"{torch.cuda.get_device_name(0)} x{torch.cuda.device_count()}",
           flush=True)
     t0 = time.perf_counter()
-    names = ["raster_fwd", "ln_mlp", "ln_attn", "window_attn_fwd",
-             "window_attn_bwd", "raster_bwd"]
+    names = list(_build.SIGNATURES)
     _build.build(names)
     build_s = time.perf_counter() - t0
     print(f"built {names} in {build_s:.1f} s", flush=True)
@@ -735,7 +918,9 @@ def main() -> int:
 
     kernels = {"R": raster_fwd, "M": ln_mlp_residual, "A": ln_attn_proj,
                "W": window_attention_packed_fwd,
-               "WB": window_attention_packed_bwd, "RB": raster_bwd}
+               "WB": window_attention_packed_bwd, "RB": raster_bwd,
+               "MB": ln_mlp_residual_bwd, "AB": ln_attn_proj_bwd,
+               "T": bias_table_bwd}
     enc, dec = make_models("edsr", "paper",
                            generator=torch.Generator().manual_seed(0))
 
@@ -749,15 +934,25 @@ def main() -> int:
     e2e = e2e_phase(enc, dec, dev)
     print("training kernel phase", flush=True)
     kres.update(train_kernel_phase(enc, dec, dev))
+    print("fused training kernel phase", flush=True)
+    kres.update(fused_kernel_phase(dec, dev))
     del enc, dec
     gc.collect()
     torch.cuda.empty_cache()
     print("training phase", flush=True)
-    train = train_phase(dev, kernels)
+    train = train_phase(dev, kernels, fused=False)
+    gc.collect()
+    torch.cuda.empty_cache()
+    ftrain = train_phase(dev, kernels, fused=True)
+    print(f"  fused vs module step median, batch {ftrain['batch']}: "
+          f"{ftrain['step_ms_median']:.1f} vs {train['step_ms_median']:.1f} "
+          f"ms; peak {ftrain['peak_mem_bytes'] / 2**30:.2f} vs "
+          f"{train['peak_mem_bytes'] / 2**30:.2f} GiB", flush=True)
     print("training card vs CPU", flush=True)
-    tcvc = train_card_vs_cpu(dev)
+    tcvc = [train_card_vs_cpu(dev, fused) for fused in (False, True)]
 
     infer, step = runs[0]["launches"], train["launches"]
+    fstep = ftrain["launches"]
     meta = {
         "R": ("raster_fwd", "gsasr_torch/ops/csrc/raster_fwd.cu",
               "gsasr_tpu/ops/rasterizer.py:334",
@@ -775,6 +970,12 @@ def main() -> int:
                "gsasr_tpu/ops/rasterizer.py:232",
                ["gsasr_tpu/ops/rasterizer.py:166",
                 "gsasr_tpu/ops/rasterizer.py:308"], step, "Trainer.step"),
+        "MB": ("ln_mlp_bwd", "gsasr_torch/ops/csrc/ln_mlp_bwd.cu",
+               "gsasr_tpu/ops/fused_layers.py:146", [], fstep,
+               "Trainer.step(fused_decoder=True)"),
+        "AB": ("ln_attn_bwd", "gsasr_torch/ops/csrc/ln_attn_bwd.cu",
+               "gsasr_tpu/ops/fused_layers.py:381", [], fstep,
+               "Trainer.step(fused_decoder=True)"),
     }
     line = [_kernel_entry(name, src, rep, also, kres[k], counts[k], path)
             for k, (name, src, rep, also, counts, path) in meta.items()]
@@ -785,7 +986,7 @@ def main() -> int:
                            cuda=torch.version.cuda, build_s=build_s,
                            ptxas=ptxas, kernels=kres, paths=runs,
                            card_vs_cpu=cvc, e2e=e2e, train=train,
-                           train_card_vs_cpu=tcvc,
+                           train_fused=ftrain, train_card_vs_cpu=tcvc,
                            total_s=time.perf_counter() - t_start), f, indent=1)
     print(f"total {time.perf_counter() - t_start:.1f} s", flush=True)
     print(f"card: {card}", flush=True)

@@ -9,7 +9,8 @@ identity. `Fea2GS.forward` is the differentiable module path of
 `gsasr_tpu/models/fea2gs.py::Fea2GS.__call__`: LayerNorms, linears and
 convolutions are PyTorch ops and every window attention goes through
 `window_attention_packed` (kernels W and WB on the card). Inference takes
-the fused path of `fea2gs_fast.py` instead, as the JAX package does.
+the fused path of `fea2gs_fast.py` instead, as the JAX package does, and so
+does training with `fused_decoder=True`.
 """
 
 from __future__ import annotations
@@ -22,6 +23,7 @@ from torch import nn
 
 from gsasr_torch.models.common import MLP, LayerNorm, pixel_shuffle
 from gsasr_torch.ops.attention import window_attention_packed
+from gsasr_torch.ops.bias_table import inverse_index, relative_position_bias
 
 
 def cross_attn_rel_pos_index(gs_sqrt: int, window_size: int) -> np.ndarray:
@@ -106,16 +108,23 @@ class _WindowAttnParams(nn.Module):
             torch.empty(table_rows, num_heads))
         self.register_buffer("relative_position_index",
                              torch.from_numpy(index.astype(np.int64)))
+        # the index's rows listed per table row, for the ordered gradient
+        # sum (not in the state_dict: it follows from the index)
+        self.register_buffer("relative_position_inverse",
+                             torch.from_numpy(inverse_index(index,
+                                                            table_rows)),
+                             persistent=False)
         self.qhead = nn.Linear(dim, dim)
         self.khead = nn.Linear(dim, dim)
         self.vhead = nn.Linear(dim, dim)
         self.proj = nn.Linear(dim, dim)
 
     def bias(self):
-        """(num_heads, Tq, Tk) bias gathered from the table."""
-        idx = self.relative_position_index
-        b = self.relative_position_bias_table[idx.reshape(-1)]
-        return b.reshape(*idx.shape, self.num_heads).permute(2, 0, 1)
+        """(num_heads, Tq, Tk) bias gathered from the table; its gradient
+        is summed in a fixed order (kernel T on the card)."""
+        return relative_position_bias(self.relative_position_bias_table,
+                                      self.relative_position_index,
+                                      self.relative_position_inverse)
 
     def attend(self, x, src):
         """proj(MHA(q = x, k = v = src, + bias)) on packed (B_, T, C)."""
@@ -303,7 +312,10 @@ class Fea2GS(nn.Module):
         nwin = h_count * w_count
         query = self.gs_embedding[None].expand(b * nwin, -1, -1)
         se = self.scale_mlp((1.0 / scale)[:, None])
-        scale_embedding = se.repeat_interleave(nwin, dim=0)  # (B_, C)
+        # (B_, C); a plain sum backward, where repeat_interleave's is an
+        # index-add (atomics on the card)
+        scale_embedding = se[:, None].expand(b, nwin, self.channel).reshape(
+            b * nwin, self.channel)
         feat = conv_nhwc(self.img_feat_proj, srcs)
         for blk in self.window_crossattn_blocks:
             query = blk(query, self.pos_embedding, feat, scale_embedding)

@@ -1,12 +1,14 @@
-"""Fused inference path of the paper Fea2GS decoder (counterpart of
-`gsasr_tpu/models/fea2gs_fast.py`), in float32.
+"""Fused path of the paper Fea2GS decoder (counterpart of
+`gsasr_tpu/models/fea2gs_fast.py`), in float32: inference, and training
+with `TrainConfig(fused_decoder=True)`.
 
 Every [scale-inject -> FFN], [pre-norm attention -> proj] and block-tail
 chain is one call of `ln_mlp_residual` or `ln_attn_proj` (kernels M and A
-on the card). Shifted self-attention layers roll the lattice, run the
-uniform kernel, un-roll its output and then add the residual, which is
-exact because LN commutes with the roll. Convolutions, the scale MLP and
-the heads are plain PyTorch ops.
+on the card forward, MB and AB backward). Shifted self-attention layers
+roll the lattice, run the uniform kernel, un-roll its output and then add
+the residual, which is exact because LN commutes with the roll.
+Convolutions, the scale MLP and the heads are plain PyTorch ops. The
+function is differentiable; inference calls it under `torch.no_grad()`.
 """
 
 from __future__ import annotations
@@ -41,7 +43,6 @@ def _ln(norm):
     return dict(ln_w=norm.weight, ln_b=norm.bias)
 
 
-@torch.no_grad()
 def fea2gs_apply_fused(m, srcs, scale):
     """(B, h, w, inchannel) features, (B,) scales -> (B, N, 9)."""
     b, h, w, _ = srcs.shape
@@ -55,7 +56,9 @@ def fea2gs_apply_fused(m, srcs, scale):
     query = m.gs_embedding[None].expand(b * nwin, -1, -1).contiguous()
     query_pos = m.pos_embedding
     se = m.scale_mlp((1.0 / scale)[:, None])
-    scale_embedding = se.repeat_interleave(nwin, dim=0)  # (B_, C)
+    # (B_, C); a plain sum backward, where repeat_interleave's is an
+    # index-add (atomics on the card)
+    scale_embedding = se[:, None].expand(b, nwin, ch).reshape(b * nwin, ch)
     feat = conv_nhwc(m.img_feat_proj, srcs)
 
     for blk in m.window_crossattn_blocks:

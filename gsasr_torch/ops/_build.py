@@ -35,6 +35,9 @@ SIGNATURES = {
     "window_attn_fwd": "pppppiiiiif",
     "window_attn_bwd": "ppppppppppiiiiif",
     "raster_bwd": "ppppppiiii",
+    "ln_mlp_bwd": "p" * 16 + "iiiiii",
+    "ln_attn_bwd": "p" * 28 + "iiiiiif",
+    "bias_table_bwd": "pppiiii",
 }
 _CTYPES = {"p": ctypes.c_void_p, "i": ctypes.c_int, "f": ctypes.c_float}
 

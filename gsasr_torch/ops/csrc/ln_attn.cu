@@ -54,7 +54,8 @@ struct Phase1Layout {
     ldx = C | 1;
     ldw = C | 1;
     ldq = hd | 1;
-    x_floats = T * ldx;
+    // the x rows, later the warps' probability rows (kQRows x T each)
+    x_floats = T * ldx > kWarps * kQRows * T ? T * ldx : kWarps * kQRows * T;
     w_floats = hd * ldw;
     q_floats = T * ldq;
   }
@@ -278,8 +279,6 @@ extern "C" int ln_attn(const float* x, const float* pos, const float* kv,
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const Phase1Layout L(std::max(Tq, Tk), C, C / nh);
-  if (static_cast<size_t>(L.x_floats) < static_cast<size_t>(kWarps) * kQRows * Tk)
-    return static_cast<int>(cudaErrorInvalidValue);
   cudaError_t err = cudaFuncSetAttribute(
       attn_heads_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(L.bytes()));

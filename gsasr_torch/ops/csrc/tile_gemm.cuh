@@ -1,6 +1,7 @@
-// Shared pieces of the decoder-layer kernels (ln_mlp.cu, ln_attn.cu): warp
-// reductions, the f32 LayerNorm of one row per warp, and a 64-row FP32 tile
-// product against a weight streamed through shared memory.
+// Shared pieces of the decoder-layer kernels (ln_mlp.cu, ln_attn.cu and
+// their backward kernels through fused_bwd.cuh): warp reductions, the f32
+// LayerNorm of one row per warp, and a 64-row FP32 tile product against a
+// weight streamed through shared memory.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -77,29 +78,42 @@ __device__ __forceinline__ void load_row_ln(const float* __restrict__ xr,
 
 // acc[i][j] = sum_k As[(rg + 8 i) * lda + k] * W[(cg + 32 j) * K + k] for
 // the block's 64 rows of As (shared memory) and the N <= kMaxN rows of the
-// row-major (N, K) weight W (global). The weight passes through Ws in slabs
-// of kBK columns, transposed so that a warp reads 32 consecutive columns.
+// row-major (N, K) weight W (global). With kTransW, W is the row-major
+// (K, N) matrix instead and the product is As W. The weight passes through
+// Ws in slabs of kBK columns, transposed so that a warp reads 32
+// consecutive columns. zero = false adds to acc instead of overwriting it.
 // Accumulators of columns >= N are left unspecified. Starts and ends with a
 // barrier, so As may be written just before and reused just after.
+template <bool kTransW = false>
 __device__ __forceinline__ void gemm_rows(const float* As, int lda,
                                           const float* __restrict__ W, int N,
                                           int K, float* Ws,
-                                          float acc[kRowsPer][kMaxColsPer]) {
+                                          float acc[kRowsPer][kMaxColsPer],
+                                          bool zero = true) {
   const int tid = threadIdx.x;
   const int rg = tid >> 5;
   const int cg = tid & 31;
+  if (zero) {
 #pragma unroll
-  for (int i = 0; i < kRowsPer; ++i)
+    for (int i = 0; i < kRowsPer; ++i)
 #pragma unroll
-    for (int j = 0; j < kMaxColsPer; ++j) acc[i][j] = 0.f;
+      for (int j = 0; j < kMaxColsPer; ++j) acc[i][j] = 0.f;
+  }
 
   for (int k0 = 0; k0 < K; k0 += kBK) {
     const int kb = min(kBK, K - k0);
     __syncthreads();
     for (int e = tid; e < N * kBK; e += kThreads) {
-      const int n = e / kBK;
-      const int kk = e - n * kBK;
-      Ws[kk * kLdw + n] = kk < kb ? W[static_cast<size_t>(n) * K + k0 + kk] : 0.f;
+      if (kTransW) {
+        const int kk = e / N;
+        const int n = e - kk * N;
+        Ws[kk * kLdw + n] =
+            kk < kb ? W[static_cast<size_t>(k0 + kk) * N + n] : 0.f;
+      } else {
+        const int n = e / kBK;
+        const int kk = e - n * kBK;
+        Ws[kk * kLdw + n] = kk < kb ? W[static_cast<size_t>(n) * K + k0 + kk] : 0.f;
+      }
     }
     __syncthreads();
     for (int kk = 0; kk < kb; ++kk) {

@@ -1,15 +1,17 @@
 """GSASR trainer on one device (counterpart of `gsasr_tpu/train/trainer.py`).
 
-One step: encoder -> module-path decoder -> slot-stacked canvas render ->
-masked L1 (+ SSIM) -> gradients -> per-network clip by norm -> Adam
-(0.9/0.99, eps 1e-8) under the multistep warm-up schedule -> EMA (0.999)
-of both networks. `accumulation_steps` = k averages k micro-step gradients
-(a running mean, as optax.MultiSteps) and updates every k-th call; the EMA
-moves on every call.
+One step: encoder -> decoder -> slot-stacked canvas render -> masked L1
+(+ SSIM) -> gradients -> per-network clip by norm -> Adam (0.9/0.99, eps
+1e-8) under the multistep warm-up schedule -> EMA (0.999) of both networks.
+`accumulation_steps` = k averages k micro-step gradients (a running mean,
+as optax.MultiSteps) and updates every k-th call; the EMA moves on every
+call.
 
-On the card the step runs kernels W and WB (38 each per step for the
-paper decoder), R and RB (1 each); M and A (the fused inference kernels)
-are not on this path.
+The decoder runs its module path by default and its fused path with
+`fused_decoder=True`, as the JAX Trainer's `_dec_apply` does. Per step of
+the paper decoder on the card: module path 38 W and 38 WB; fused path 83 M
+and 38 A forward, 83 MB and 38 AB backward; either way 1 R, 1 RB and 38 T
+(the bias-table gradients).
 """
 
 from __future__ import annotations
@@ -21,6 +23,7 @@ from typing import Optional, Tuple
 import torch
 
 from gsasr_torch import resolve_device
+from gsasr_torch.models.fea2gs_fast import fea2gs_apply_fused
 from gsasr_torch.rendering import render_training_batch
 from gsasr_torch.train.losses import masked_l1, size_mask, ssim
 from gsasr_torch.train.schedules import multistep_warmup_schedule
@@ -49,7 +52,9 @@ class TrainConfig:
     ssim_weight: float = 0.0
     # seed of stochastic layers (droppath); the ported encoders have none
     seed: int = 0
-    # decoder loss forward through the fused layer kernels (K9/K10)
+    # the decoder through the fused layer kernels (M and A forward, MB and
+    # AB backward) instead of the module path (W and WB); the module path
+    # stays the default until a step-time A/B on the card picks a winner
     fused_decoder: bool = False
 
 
@@ -78,10 +83,6 @@ class Trainer:
 
     def __init__(self, enc, dec, config: TrainConfig = TrainConfig(),
                  device=None, mesh=None):
-        if config.fused_decoder:
-            raise NotImplementedError(
-                "fused_decoder=True needs the fused backward kernels K9 and "
-                "K10, which come in a later slice")
         if mesh is not None:
             raise NotImplementedError(
                 "meshes (data and band axes) come with the multi-GPU slice")
@@ -111,7 +112,10 @@ class Trainer:
         autograd graph kept."""
         cfg = self.cfg
         feat = self.enc(batch["lq"])
-        gs = self.dec(feat, batch["scale"])
+        if cfg.fused_decoder:
+            gs = fea2gs_apply_fused(self.dec, feat, batch["scale"])
+        else:
+            gs = self.dec(feat, batch["scale"])
         out = render_training_batch(
             gs, batch["scale"], batch["gt_h"], batch["gt_w"], cfg.canvas_hw,
             default_step_size=cfg.default_step_size, if_dmax=cfg.if_dmax,

@@ -2,12 +2,14 @@
 """Where the time of one gsasr_torch image or training step goes, on one
 CUDA card.
 
-  python3 scripts/profile_torch_e2e.py [--train] [--iters 3] [--json PATH]
+  python3 scripts/profile_torch_e2e.py [--train [--fused]] [--iters 3]
+                                       [--json PATH]
 
 Builds the paper EDSR-GSASR with seeded weights, warms up, then traces
 with torch.profiler either `sr_forward` on a 180x180 x4 image or, with
 --train, `Trainer.step` of configs/train_edsr_paper.yml's recipe on
-chip_smoke.py's synthetic batch of 16 samples of 48x48. Prints the device
+chip_smoke.py's synthetic batch of 16 samples of 48x48 (with --fused, on
+the fused decoder: fused_decoder=True). Prints the device
 time per image (or step) grouped by kernel family (the port's kernels,
 cuDNN convolutions, cuBLAS products, PyTorch's ReLU, foreach updates,
 index gathers and scatters, the rest), the top kernels by device time, and
@@ -37,10 +39,19 @@ FAMILIES = (
     ("R raster_fwd", ("raster_fwd_kernel",)),
     ("RB raster_bwd", ("raster_bwd_kernel",)),
     ("W window_attn_fwd", ("window_attn_fwd_kernel",)),
-    ("WB window_attn_bwd", ("window_attn_bwd_kernel", "dbias_sum_kernel")),
+    # AB runs WB's device code for its attention backward
+    ("WB window_attn_bwd, AB attention", ("window_attn_bwd_kernel",
+                                          "dbias_sum_kernel")),
     ("M ln_mlp", ("ln_mlp_kernel",)),
     ("A ln_attn heads", ("attn_heads_kernel",)),
     ("A ln_attn out-proj", ("out_proj_kernel",)),
+    ("MB, AB tile products", ("linear_rows_kernel",)),
+    ("MB, AB weight gradients", ("wgrad_partial_kernel",
+                                 "wgrad_reduce_kernel")),
+    ("MB, AB LN rows and ordered sums", ("ln_rows_kernel",
+                                         "ln_bwd_rows_kernel",
+                                         "sum_terms_kernel")),
+    ("T bias_table_bwd", ("bias_table_bwd_kernel",)),
     # before the products: cuDNN's implicit-GEMM kernels also say "gemm"
     ("cuDNN convolutions", ("fprop", "conv", "cudnn", "winograd")),
     ("cuBLAS products", ("gemm", "gemv", "cutlass")),
@@ -62,6 +73,8 @@ def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--train", action="store_true",
                     help="trace Trainer.step instead of sr_forward")
+    ap.add_argument("--fused", action="store_true",
+                    help="with --train: the fused decoder")
     ap.add_argument("--iters", type=int, default=3)
     ap.add_argument("--json", help="write the results to this file")
     args = ap.parse_args()
@@ -76,7 +89,8 @@ def main() -> int:
         from chip_smoke import PAPER_BATCH, PAPER_TRAIN, paper_batch
         from gsasr_torch.train import TrainConfig, Trainer
 
-        tr = Trainer(enc, dec, TrainConfig(**PAPER_TRAIN))
+        tr = Trainer(enc, dec, TrainConfig(**dict(
+            PAPER_TRAIN, fused_decoder=args.fused)))
         batches = [paper_batch(PAPER_BATCH, seed=20 + i)
                    for i in range(args.iters + 2)]
 

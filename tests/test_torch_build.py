@@ -77,3 +77,29 @@ def test_build_log_lands_beside_library(monkeypatch, tmp_path):
     assert sorted(p.name for p in path.parent.iterdir()) == \
         sorted([path.name, path.with_suffix(".log").name])
     assert _build._start("raster_fwd") == (path, None)
+
+
+def test_backward_wrappers_check_before_launch():
+    """MB's, AB's and T's wrappers refuse inconsistent shapes and tensors
+    off the card before any launch (meta tensors stand in for CUDA ones)."""
+    from gsasr_torch.ops import bias_table, fused_layers
+
+    meta = lambda *s: torch.empty(*s, device="meta")  # noqa: E731
+    x = meta(2, 16, 24)
+    mlp = dict(w1=meta(20, 24), b1=meta(20), w2=meta(24, 20), b2=meta(24))
+    with pytest.raises(ValueError, match="inconsistent"):
+        fused_layers.ln_mlp_residual_bwd(x, x, **dict(mlp, w2=meta(20, 24)))
+    with pytest.raises(ValueError, match="must match"):
+        fused_layers.ln_mlp_residual_bwd(x, meta(2, 16, 20), **mlp)
+    with pytest.raises(ValueError, match="CUDA"):
+        fused_layers.ln_mlp_residual_bwd(x, x, **mlp)
+    attn = {k: meta(24, 24) if k[0] == "w" else meta(24)
+            for k in ("wq", "bq", "wk", "bk", "wv", "bv", "wo", "bo")}
+    attn.update(ln_w=meta(24), ln_b=meta(24), num_heads=4)
+    with pytest.raises(ValueError, match="inconsistent"):
+        fused_layers.ln_attn_proj_bwd(x, x, bias=meta(4, 16, 15), **attn)
+    with pytest.raises(ValueError, match="CUDA"):
+        fused_layers.ln_attn_proj_bwd(x, x, bias=meta(4, 16, 16), **attn)
+    with pytest.raises(ValueError, match="CUDA"):
+        bias_table.bias_table_bwd(meta(4, 16, 16),
+                                  torch.zeros(9, 3, dtype=torch.int32))

@@ -147,3 +147,108 @@ def test_raster_bwd_matches_plain_and_repeats(cuda):
         tol = 1e-4 * r.abs().amax(dim=0) + 1e-4 * r.abs()
         assert bool(((o - r).abs() <= tol).all())
     assert torch.all(out[0][:, 5:] == 0)
+
+
+def _assert_grad_close(out, ref, scale=None):
+    """|out - ref| <= 1e-4 (the column's largest |ref|, a vector's largest,
+    or `scale`) + 1e-4 |ref|: sums over 36,864 rows and over windows
+    cancel, so an entry's error follows its column's scale."""
+    r = ref.reshape(-1, ref.shape[-1]) if ref.dim() >= 2 else ref.reshape(1, -1)
+    if scale is None:
+        scale = r.abs().amax(dim=0) if ref.dim() >= 2 else r.abs().max()
+    err = (out.reshape(r.shape) - r).abs()
+    assert bool((err <= 1e-4 * scale + 1e-4 * r.abs()).all()), float(err.max())
+
+
+def _fused_inputs(cuda, seed):
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    return lambda *s: torch.randn(*s, generator=g).to(cuda)  # noqa: E731
+
+
+@pytest.mark.parametrize("opts", ["ln_inj", "ln", "resi"])
+def test_ln_mlp_bwd_matches_plain_and_repeats(cuda, opts):
+    from gsasr_torch.ops import fused_layers as tf
+
+    r = _fused_inputs(cuda, 4)
+    b, t, c = 7, 144, 180
+    kw = dict(w1=r(c, c) / 14, b1=r(c), w2=r(c, c) / 14, b2=r(c))
+    if opts != "resi":
+        kw.update(ln_w=1 + 0.1 * r(c), ln_b=0.1 * r(c))
+    if opts == "ln_inj":
+        kw.update(inj=r(b, c))
+    if opts == "resi":
+        kw.update(resi=r(b, t, c))
+    x, g = r(b, t, c), r(b, t, c)
+    out = tf.ln_mlp_residual_bwd(x, g, **kw)
+    again = tf.ln_mlp_residual_bwd(x, g, **kw)
+    ref = tf.ln_mlp_residual_bwd_plain(x, g, **kw)
+    for o, a, rf in zip(out, again, ref):
+        assert (o is None) == (rf is None)
+        if rf is not None:
+            assert torch.equal(o, a)  # bitwise repeatable: no atomics
+            _assert_grad_close(o, rf)
+
+
+@pytest.mark.parametrize("cross", [True, False])
+def test_ln_attn_bwd_matches_plain_and_repeats(cuda, cross):
+    from gsasr_torch.ops import fused_layers as tf
+
+    r = _fused_inputs(cuda, 5)
+    b, t, c, nh = 5, 144, 180, 6
+    kw = {k: r(c, c) / 14 if k[0] == "w" else r(c)
+          for k in ("wq", "bq", "wk", "bk", "wv", "bv", "wo", "bo")}
+    kw.update(ln_w=1 + 0.1 * r(c), ln_b=0.1 * r(c), num_heads=nh,
+              bias=0.5 * r(nh, t, t))
+    if cross:
+        kw.update(pos=r(t, c), kv=r(b, t, c))
+    x, g = r(b, t, c), r(b, t, c)
+    out = tf.ln_attn_proj_bwd(x, g, **kw)
+    again = tf.ln_attn_proj_bwd(x, g, **kw)
+    ref = tf.ln_attn_proj_bwd_plain(x, g, **kw)
+    for i, (o, a, rf) in enumerate(zip(out, again, ref)):
+        assert (o is None) == (rf is None)
+        if rf is not None:
+            assert torch.equal(o, a)  # bitwise repeatable: no atomics
+            # dbk (index 8): its true value is 0, so both sides are
+            # float32 noise, held to dwk's scale
+            _assert_grad_close(o, rf, ref[7].abs().max() if i == 8 else None)
+
+
+def test_fused_layers_backward_through_autograd(cuda):
+    """On the card, ln_mlp_residual and ln_attn_proj differentiate through
+    kernels MB and AB: one launch each per backward, none under no_grad."""
+    from gsasr_torch.ops import fused_layers as tf
+
+    r = _fused_inputs(cuda, 6)
+    b, t, c, nh = 3, 144, 180, 6
+    x = r(b, t, c).requires_grad_()
+    mlp = dict(w1=r(c, c) / 14, b1=r(c), w2=r(c, c) / 14, b2=r(c),
+               ln_w=1 + 0.1 * r(c), ln_b=0.1 * r(c))
+    attn = {k: r(c, c) / 14 if k[0] == "w" else r(c)
+            for k in ("wq", "bq", "wk", "bk", "wv", "bv", "wo", "bo")}
+    attn.update(ln_w=1 + 0.1 * r(c), ln_b=0.1 * r(c), num_heads=nh,
+                bias=0.5 * r(nh, t, t))
+    n_mb, n_ab = tf.ln_mlp_residual_bwd.launches, tf.ln_attn_proj_bwd.launches
+    with torch.no_grad():
+        tf.ln_attn_proj(tf.ln_mlp_residual(x, **mlp), **attn)
+    y = tf.ln_attn_proj(tf.ln_mlp_residual(x, **mlp), **attn)
+    (dx,) = torch.autograd.grad(y.square().sum(), x)
+    torch.cuda.synchronize()
+    assert tf.ln_mlp_residual_bwd.launches == n_mb + 1
+    assert tf.ln_attn_proj_bwd.launches == n_ab + 1
+    assert bool(torch.isfinite(dx).all())
+
+
+def test_bias_table_bwd_matches_plain_and_repeats(cuda):
+    from gsasr_torch.models.fea2gs import self_attn_rel_pos_index
+    from gsasr_torch.ops import bias_table as bt
+
+    index = self_attn_rel_pos_index(12)
+    inv = torch.from_numpy(bt.inverse_index(index, 23 ** 2)).to(cuda)
+    g = _fused_inputs(cuda, 7)(6, 144, 144)
+    out = bt.bias_table_bwd(g, inv)
+    again = bt.bias_table_bwd(g, inv)
+    assert torch.equal(out, again)  # bitwise repeatable: no atomics
+    # up to 144 entries a row summed in another order
+    _assert_grad_close(out, bt.bias_table_bwd_plain(g, inv),
+                       out.abs().max())

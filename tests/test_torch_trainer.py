@@ -1,9 +1,10 @@
 """gsasr_torch training step against gsasr_tpu on the CPU: losses and the
 schedule, one step's loss and gradients against
 jax.value_and_grad(Trainer._loss_fn), and whole Trainer.steps (Adam, clip,
-EMA, accumulation, SSIM, sparse supervision) against the JAX Trainer from
-the same weights; the options that are not ported raise; and chip_smoke.py's
-training constants equal configs/train_edsr_paper.yml."""
+EMA, accumulation, SSIM, sparse supervision, the fused decoder) against the
+JAX Trainer from the same weights; the fused step against the module step;
+the options that are not ported raise; and chip_smoke.py's training
+constants equal configs/train_edsr_paper.yml."""
 
 import copy
 import importlib.util
@@ -265,13 +266,51 @@ def test_update_ignores_gradient_strides():
         assert torch.equal(a, b)
 
 
+# -- the fused decoder path -------------------------------------------------
+
+
+def test_fused_step_matches_jax_trainer():
+    """One step with fused_decoder=True (kernels M and A forward, MB and AB
+    backward on the card; their plain versions here) against the JAX
+    Trainer with the same option (K7-K10 in interpret mode) from the same
+    weights."""
+    cfg = dict(STEP_CFG, fused_decoder=True)
+    tr, state, jm, tm, start = _run_both(cfg, [_batch(10)])
+    assert set(tm[0]) == set(jm[0])
+    for k in jm[0]:
+        # 1e-5 relative for the losses; 1e-4 for the gradient norms, sums
+        # over every parameter, as in the module-path steps
+        rtol = 1e-5 if k in ("loss", "l_pix") else 1e-4
+        np.testing.assert_allclose(tm[0][k], jm[0][k], rtol=rtol, err_msg=k)
+    sched = multistep_warmup_schedule(2e-4, (100,), 0.5, 2)
+    _assert_params_close(tr, state, sched(0))
+    _assert_ema_close(tr, state, start)
+
+
+def test_fused_step_matches_module_step():
+    """The port's fused step against its module step from the same weights
+    and batch, at tests/test_trainer.py's fused-vs-module tolerance: the
+    same loss (1e-5 relative) and updated parameters within 5e-3."""
+    enc, dec, _ = _nets(11)
+    batch = _batch(12)
+    res = []
+    for fused in (False, True):
+        tr = Trainer(copy.deepcopy(enc), copy.deepcopy(dec),
+                     TrainConfig(**CFG, fused_decoder=fused), device="cpu")
+        loss = float(tr.step(batch)["loss"])
+        res.append((loss, [p.detach().numpy().copy()
+                           for p in tr.params_g + tr.params_d]))
+    (l_mod, p_mod), (l_fused, p_fused) = res
+    np.testing.assert_allclose(l_fused, l_mod, rtol=1e-5)
+    for a, b in zip(p_fused, p_mod):
+        np.testing.assert_allclose(a, b, rtol=5e-3, atol=5e-3)
+
+
 # -- what is not ported raises -----------------------------------------------
 
 
 def test_unported_options_raise(monkeypatch):
     enc, dec, _ = _nets(0)
-    with pytest.raises(NotImplementedError, match="K9"):
-        Trainer(enc, dec, TrainConfig(fused_decoder=True), device="cpu")
     with pytest.raises(NotImplementedError, match="multi-GPU"):
         Trainer(enc, dec, TrainConfig(), device="cpu", mesh=object())
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
