@@ -32,6 +32,16 @@
    of whether two gradients of one batch from one state are the same bits.
 9. One tiny training step on the card against the same step on the CPU,
    module and fused decoder.
+10. Enhanced kernel phase (TF32 off): M in its zero_base and bf16 forms, A
+   in its RoPE (fp32 and bf16) and paper bf16 forms, against their plain
+   versions at the Enhanced shapes (225 windows x 144 tokens x 192
+   channels, 6 heads), with times and bounds.
+11. Enhanced path phase: make_models("edsr", "enhanced"), then sr_forward
+   (bf16 trunk, fp32 heads) on the three requests of phase 3, with the
+   same launch counts.
+12. One 48x48 x4 Enhanced request on the card against the CPU, with the
+   trunk in fp32 and in bf16.
+13. Enhanced end-to-end timing of the main shape, bf16 and fp32 trunk.
 
 Any failed phase raises and the exit code is not 0. The line before the
 last is {"kernels": [...]}; the last is
@@ -53,11 +63,15 @@ import time
 
 import numpy as np
 import torch
+from torch.utils._python_dispatch import TorchDispatchMode
+from torch.utils.flop_counter import flop_registry
 
 # Peaks of one H100 SXM (NVIDIA data sheet, at the 700 W limit): FP32
 # outside the tensor cores and HBM3 bandwidth. The SFU rate is 16 special
 # function results per SM per clock x 132 SMs x 1.98 GHz boost.
 PEAK_FP32 = 67e12
+PEAK_TF32 = 495e12  # dense tensor cores
+PEAK_BF16 = 989e12  # dense tensor cores
 PEAK_HBM = 3.35e12
 PEAK_SFU = 16 * 132 * 1.98e9
 # FP32 operations per (pixel, Gaussian) pair inside a cull box in kernel R
@@ -68,9 +82,19 @@ RASTER_OPS_PER_PAIR = 24
 # depth 144-180 and Gaussian contributions in another order.
 KERNEL_ATOL = 1e-4
 KERNEL_RTOL = 1e-4
+# bf16 forms of M and A against their plain versions on the card: both
+# round at the same points but sum their f32 products in another order, so
+# a rounded intermediate may move by one bf16 step (2^-8 relative):
+# |out - ref| <= BF16_RTOL |ref| + BF16_ATOL max|ref|.
+BF16_RTOL = 2 ** -7
+BF16_ATOL = 2 ** -8
 # Card vs CPU on the whole path: two conv libraries and two summation
 # orders through 38 attention and 83 MLP sub-layers, on images of order 5.
 CARD_CPU_ATOL = 1e-3
+# The same with a bf16 trunk: a one-step rounding difference of a trunk
+# value (2^-8 relative) reaches the image through the Gaussians; 7.6e-4
+# measured on an H100.
+CARD_CPU_ATOL_BF16 = 5e-3
 # Launches per sr_forward of the paper decoder (independent of batch and
 # image size) and of R per image.
 M_PER_FORWARD = 83
@@ -215,8 +239,75 @@ def _repeatable(fn, name):
     print(f"  {name}: two launches bitwise equal", flush=True)
 
 
-def _bound_ms(flops: float, nbytes: float):
-    t_ops, t_bytes = flops / PEAK_FP32, nbytes / PEAK_HBM
+def _compare_bf16(out, ref, name):
+    o, r = out.float(), ref.float()
+    err = (o - r).abs()
+    scale = float(r.abs().max())
+    ok = bool((err <= BF16_RTOL * r.abs() + BF16_ATOL * scale).all())
+    mx = float(err.max())
+    print(f"  {name}: max|d| {mx:.3e} (tol 2^-7|ref| + 2^-8 max|ref|, "
+          f"max|ref| {scale:.3f})", flush=True)
+    if out.dtype != torch.bfloat16 or not ok or not torch.isfinite(o).all():
+        raise AssertionError(f"{name}: kernel disagrees with its plain version")
+    return mx
+
+
+class _OpFlops(TorchDispatchMode):
+    """Operations of the products and convolutions PyTorch runs inside the
+    mode (torch's own flop registry), by kind and operand type."""
+
+    def __init__(self):
+        super().__init__()
+        self.flops = {}
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        kwargs = kwargs or {}
+        out = func(*args, **kwargs)
+        count = flop_registry.get(func._overloadpacket)
+        if count is not None:
+            kind = "conv" if "conv" in func._overloadpacket.__name__ else "mm"
+            key = (kind, args[0].dtype)
+            self.flops[key] = self.flops.get(key, 0) + count(
+                *args, **kwargs, out_val=out)
+        return out
+
+
+def _e2e_bound_ms(enc, dec, lq, dt):
+    """Least time of one sr_forward's arithmetic: the PyTorch products
+    (full fp32 or bf16) and convolutions (TF32 by cuDNN's default, or bf16)
+    over their peaks, plus kernels M and A (their operations at their
+    type's peak: 4 rows C^2 and 2 B (2 Tq C^2 + 2 Tk C^2 + 2 Tq Tk C) per
+    launch). The raster and the glue's bytes are not counted."""
+    from gsasr_torch.model import sr_forward
+
+    mode = _OpFlops()
+    with mode:
+        sr_forward(enc, dec, lq, 4.0, trunk_dtype=dt)
+    peak = {("mm", torch.float32): PEAK_FP32,
+            ("conv", torch.float32): PEAK_TF32,
+            ("mm", torch.bfloat16): PEAK_BF16,
+            ("conv", torch.bfloat16): PEAK_BF16}
+    ms = sum(f / peak[k] for k, f in mode.flops.items()) * 1e3
+    b, h, w, _ = lq.shape
+    ws, c, t = dec.window_size, dec.channel, dec.num_gs_seed
+    win = b * -(-h // ws) * -(-w // ws)
+    cross = sum(len(blk.blocks) for blk in dec.window_crossattn_blocks)
+    self_ = sum(len(blk.blocks) for blk in dec.gs_selfattn_blocks)
+    mlps = 2 * (cross + self_) + len(dec.window_crossattn_blocks) + len(
+        dec.gs_selfattn_blocks)
+    kflops = (mlps * 4.0 * win * t * c * c
+              + cross * 2.0 * win * (2 * t * c * c + 2 * ws * ws * c * c
+                                     + 2 * t * ws * ws * c)
+              + self_ * 2.0 * win * (4 * t * c * c + 2 * t * t * c))
+    kpeak = PEAK_BF16 if dt == torch.bfloat16 else PEAK_FP32
+    flops = {f"{k[0]}_{str(k[1]).replace('torch.', '')}": f
+             for k, f in mode.flops.items()}
+    flops["kernels_M_A"] = kflops
+    return ms + kflops / kpeak * 1e3, flops
+
+
+def _bound_ms(flops: float, nbytes: float, peak: float = PEAK_FP32):
+    t_ops, t_bytes = flops / peak, nbytes / PEAK_HBM
     return (max(t_ops, t_bytes) * 1e3,
             "operations" if t_ops >= t_bytes else "bytes")
 
@@ -332,6 +423,104 @@ def kernel_phase(enc, dec, dev):
     return results
 
 
+@torch.no_grad()
+def enhanced_kernel_phase(dec, dev):
+    """M's zero_base and bf16 forms and A's RoPE and bf16 forms against their
+    plain versions at the Enhanced path's shapes, with the decoder's weights
+    and RoPE tables. per_image: launches per image on the Enhanced main path
+    (bf16 trunk); fp32 rows run 0 times there (the fp32 trunk's weights)."""
+    from gsasr_torch.models.fea2gs_fast import _attn, _ln, _mlp, _seq_mlp
+    from gsasr_torch.models.fea2gs_rope_fast import rope_tables
+    from gsasr_torch.ops import fused_layers as fl
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    g = torch.Generator().manual_seed(11)
+    rnd = lambda *s: torch.randn(*s, generator=g).to(dev)  # noqa: E731
+    b, t, c, nh = 225, 144, dec.channel, dec.num_heads
+    ws = dec.window_size
+    f32, bf16 = torch.float32, torch.bfloat16
+    x = rnd(b, t, c)
+    blk = dec.gs_selfattn_blocks[0]
+    lyr = blk.blocks[0]
+    cl = dec.window_crossattn_blocks[0].blocks[0]
+    scale_emb = dec.scale_mlp(torch.full((1, 1), 0.25, device=dev))
+    inj = lyr.gs_cross_attn_scale(scale_emb).expand(b, c).contiguous()
+    results = {"M": [], "A": []}
+
+    def row(kind, name, dt, per_image, out, ref, flops, nbytes, fn, plain,
+            reps):
+        err = (_compare_bf16(out, ref, f"{kind} {name}") if dt == bf16
+               else _compare(out, ref, f"{kind} {name}"))
+        ms = _time_ms(fn, reps)
+        plain_ms = _time_ms(plain, reps)
+        bound, by = _bound_ms(flops, nbytes,
+                              PEAK_BF16 if dt == bf16 else PEAK_FP32)
+        results[kind].append(dict(
+            case=name, dtype=str(dt).replace("torch.", ""),
+            per_image=per_image, max_abs_err=err,
+            max_ref=float(ref.float().abs().max()), ms=ms, plain_ms=plain_ms,
+            bound_ms=bound, bound_by=by, library_ms=None))
+
+    # -- M: the block tails (zero_base) in both types, the inject and FFN
+    # chains in bf16
+    for name, dt, per_image, kw in (
+            ("zero_base", f32, 0, dict(zero_base=True, **_seq_mlp(blk.mlp))),
+            ("zero_base", bf16, 7, dict(zero_base=True, **_seq_mlp(blk.mlp))),
+            ("ln_inj", bf16, 38, dict(inj=inj.to(bf16), **_ln(lyr.norm4),
+                                      **_mlp(lyr.mlp_crossattn))),
+            ("ln", bf16, 38, dict(**_ln(lyr.norm2),
+                                  **_mlp(lyr.mlp_selfattn)))):
+        xd = x.to(dt)
+        act = 2 if dt == bf16 else 4
+        nbytes = (act * (2 * b * t * c + (b * c if "inj" in kw else 0))
+                  + 4 * (2 * c * c + 2 * c + (2 * c if "ln_w" in kw else 0)))
+        row("M", name, dt, per_image, fl.ln_mlp_residual(xd, **kw),
+            fl.ln_mlp_residual_plain(xd, **kw), 4.0 * b * t * c * c, nbytes,
+            lambda: fl.ln_mlp_residual(xd, **kw),
+            lambda: fl.ln_mlp_residual_plain(xd, **kw), 20)
+
+    # -- A: RoPE cross-attention (pos, kv) and self-attention in both types,
+    # and the paper's bias form in bf16
+    nsq = math.isqrt(t)
+    cc, sc = rope_tables(cl.window_cross_attn.rope_freqs, max(nsq, ws),
+                         max(t, ws * ws))
+    cs, ss = rope_tables(lyr.gs_self_attn.rope_freqs, nsq, t)
+    kv = rnd(b, ws * ws, c)
+    cross = dict(pos=dec.pos_embedding, rope_cos_q=cc[:t], rope_sin_q=sc[:t],
+                 rope_cos_k=cc[:ws * ws], rope_sin_k=sc[:ws * ws],
+                 **_attn(cl.window_cross_attn), **_ln(cl.norm3))
+    self_ = dict(rope_cos_q=cs, rope_sin_q=ss, rope_cos_k=cs, rope_sin_k=ss,
+                 **_attn(lyr.gs_self_attn), **_ln(lyr.norm1))
+    bias = dict(bias=0.02 * rnd(nh, t, t), **_attn(lyr.gs_self_attn),
+                **_ln(lyr.norm1))
+    for name, dt, per_image, kw in (
+            ("rope_cross", f32, 0, cross), ("rope_self", f32, 0, self_),
+            ("rope_cross", bf16, 2, cross), ("rope_self", bf16, 36, self_),
+            ("bias_self", bf16, 0, bias)):
+        kw = dict(kw, num_heads=nh)
+        if "pos" in kw:
+            kw.update(pos=kw["pos"].to(dt), kv=kv.to(dt))
+        xd = x.to(dt)
+        act = 2 if dt == bf16 else 4
+        flops = 2.0 * b * (4 * t * c * c + 2 * t * t * c)
+        nbytes = (act * (b * t * c * (3 if "kv" in kw else 2)
+                         + (t * c if "pos" in kw else 0))
+                  + 4 * (4 * c * c + 6 * c + (nh * t * t if "bias" in kw
+                                              else 4 * t * c)))
+        row("A", name, dt, per_image, fl.ln_attn_proj(xd, **kw),
+            fl.ln_attn_proj_plain(xd, **kw), flops, nbytes,
+            lambda: fl.ln_attn_proj(xd, **kw),
+            lambda: fl.ln_attn_proj_plain(xd, **kw), 10)
+    for k, rows in results.items():
+        for r in rows:
+            print(f"  {k} {r['case']} {r['dtype']}: {r['ms']:.4f} ms (plain "
+                  f"{r['plain_ms']:.4f}, bound {r['bound_ms']:.4f} by "
+                  f"{r['bound_by']}) x{r['per_image']} per Enhanced image",
+                  flush=True)
+    return results
+
+
 def _counts(kernels):
     return {k: f.launches for k, f in kernels.items()}
 
@@ -341,9 +530,9 @@ def _reset(kernels):
         f.launches = 0
 
 
-def path_phase(enc, dec, dev, kernels):
-    """sr_forward on the user-facing requests; counts each kernel's launches
-    from zero for each request."""
+def path_phase(enc, dec, dev, kernels, label="paper"):
+    """sr_forward on the user-facing requests (the decoder's default trunk
+    type); counts each kernel's launches from zero for each request."""
     from gsasr_torch.model import sr_forward
 
     g = torch.Generator().manual_seed(2)
@@ -357,7 +546,7 @@ def path_phase(enc, dec, dev, kernels):
         torch.cuda.synchronize()
         counts = _counts(kernels)
         want = (b, math.floor(h * scale), math.floor(w * scale), 3)
-        print(f"  sr_forward {b}x{h}x{w} x{scale}: {tuple(out.shape)}, "
+        print(f"  {label} sr_forward {b}x{h}x{w} x{scale}: {tuple(out.shape)}, "
               f"launches {counts}, range [{float(out.min()):.4f}, "
               f"{float(out.max()):.4f}]", flush=True)
         if tuple(out.shape) != want or not torch.isfinite(out).all():
@@ -371,64 +560,81 @@ def path_phase(enc, dec, dev, kernels):
 
 
 @torch.no_grad()
-def card_vs_cpu(enc, dec, dev):
+def card_vs_cpu(enc, dec, dev, trunk_dtype=torch.float32, tol=CARD_CPU_ATOL,
+                label="paper"):
     from gsasr_torch.model import sr_forward
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     lq = torch.rand(1, 48, 48, 3, generator=torch.Generator().manual_seed(3))
-    out = sr_forward(enc, dec, lq, 4.0).cpu()
+    out = sr_forward(enc, dec, lq, 4.0, trunk_dtype=trunk_dtype).cpu()
     ref = sr_forward(copy.deepcopy(enc).cpu(), copy.deepcopy(dec).cpu(), lq,
-                     4.0, device="cpu")
+                     4.0, device="cpu", trunk_dtype=trunk_dtype)
     err = float((out - ref).abs().max())
-    print(f"  48x48 x4 card vs CPU: max|d| {err:.3e} (tol {CARD_CPU_ATOL}, "
-          f"max|ref| {float(ref.abs().max()):.3f})", flush=True)
-    if not err <= CARD_CPU_ATOL:
+    trunk = str(trunk_dtype).replace("torch.", "")
+    print(f"  {label} 48x48 x4 card vs CPU, {trunk} trunk: max|d| {err:.3e} "
+          f"(tol {tol}, max|ref| {float(ref.abs().max()):.3f})", flush=True)
+    if not err <= tol:
         raise AssertionError("card and CPU disagree")
-    return dict(max_abs_err=err, max_ref=float(ref.abs().max()),
-                tol=CARD_CPU_ATOL)
+    return dict(decoder=label, trunk=trunk, max_abs_err=err,
+                max_ref=float(ref.abs().max()), tol=tol)
 
 
 @torch.no_grad()
-def e2e_phase(enc, dec, dev):
-    """Main-shape latency with PyTorch's default TF32 settings."""
-    from gsasr_torch.model import _lat_hw, pad_to_denominator, sr_forward
+def e2e_phase(enc, dec, dev, trunk_dtype=None, label="paper"):
+    """Main-shape latency with PyTorch's default TF32 settings, the decoder
+    trunk in `trunk_dtype` (default: the family's)."""
+    from gsasr_torch.model import (_lat_hw, fused_dtype, pad_to_denominator,
+                                   sr_forward)
+    from gsasr_torch.models import Fea2GSRopeAMP
     from gsasr_torch.models.fea2gs_fast import fea2gs_apply_fused
+    from gsasr_torch.models.fea2gs_rope_fast import fea2gs_rope_apply_fused
     from gsasr_torch.rendering import prepare_kernel_inputs, render_gaussians
 
     torch.backends.cuda.matmul.allow_tf32 = False  # PyTorch default
     torch.backends.cudnn.allow_tf32 = True         # PyTorch default
+    dt = fused_dtype(dec) if trunk_dtype is None else trunk_dtype
+    fused = (fea2gs_rope_apply_fused if isinstance(dec, Fea2GSRopeAMP)
+             else fea2gs_apply_fused)
+    fdt = None if dt == torch.float32 else dt
     lq = torch.rand(1, 180, 180, 3,
                     generator=torch.Generator().manual_seed(4)).to(dev)
-    e2e = _host_ms(lambda: sr_forward(enc, dec, lq, 4.0), 9, warmup=2)
+    e2e = _host_ms(lambda: sr_forward(enc, dec, lq, 4.0, trunk_dtype=dt), 9,
+                   warmup=2)
     padded, _ = pad_to_denominator(lq, 12)
     scales = torch.full((1,), 4.0, device=dev)
     with torch.no_grad():
         feat = enc(padded)
-        gs = fea2gs_apply_fused(dec, feat, scales)
+        gs = fused(dec, feat, scales, fdt)
         enc_ms = _host_ms(lambda: enc(padded), 9)
-        dec_ms = _host_ms(lambda: fea2gs_apply_fused(dec, feat, scales), 9)
+        dec_ms = _host_ms(lambda: fused(dec, feat, scales, fdt), 9)
     lat = _lat_hw(dec, 180, 180)
     ren_ms = _host_ms(lambda: render_gaussians((720, 720), gs[0], 4.0,
                                                dmax_mode="fix", dmax=0.1,
                                                lat_hw=lat), 9)
     torch.cuda.reset_peak_memory_stats()
-    sr_forward(enc, dec, lq, 4.0)
+    sr_forward(enc, dec, lq, 4.0, trunk_dtype=dt)
     torch.cuda.synchronize()
     peak = torch.cuda.max_memory_allocated()
+    bound, flops = _e2e_bound_ms(enc, dec, lq, dt)
     sig = prepare_kernel_inputs((720, 720), gs[0], 4.0, dmax_mode="fix",
                                 dmax=0.1)[0][:, :2]
     s_px = (sig * torch.tensor([719 / 2.0, 719 / 2.0], device=dev)).cpu()
     p50, p90 = (float(np.percentile(s_px.numpy(), p)) for p in (50, 90))
-    res = dict(e2e_ms_median=float(np.median(e2e)), e2e_ms=e2e,
+    trunk = str(dt).replace("torch.", "")
+    res = dict(decoder=label, trunk=trunk,
+               e2e_ms_median=float(np.median(e2e)), e2e_ms=e2e,
                encoder_ms=float(np.median(enc_ms)),
                decoder_ms=float(np.median(dec_ms)),
                render_ms=float(np.median(ren_ms)), peak_mem_bytes=int(peak),
+               bound_ms=bound, flops=flops,
                sigma_px_p50=p50, sigma_px_p90=p90,
                tf32={"cudnn": True, "matmul": False})
-    print(f"  e2e 180x180 -> 720x720 x4: median {res['e2e_ms_median']:.3f} ms "
+    print(f"  {label} e2e 180x180 -> 720x720 x4, {trunk} trunk: median "
+          f"{res['e2e_ms_median']:.3f} ms "
           f"over {len(e2e)} runs (encoder {res['encoder_ms']:.3f}, decoder "
-          f"{res['decoder_ms']:.3f}, render {res['render_ms']:.3f}); peak "
+          f"{res['decoder_ms']:.3f}, render {res['render_ms']:.3f}; bound "
+          f"{bound:.3f}); peak "
           f"{peak / 2**20:.1f} MiB; sigma px p50 {p50:.4f} p90 {p90:.4f}; "
           f"TF32 cudnn on, matmul off (PyTorch defaults)", flush=True)
     return res
@@ -932,6 +1138,21 @@ def main() -> int:
     cvc = card_vs_cpu(enc, dec, dev)
     print("end to end", flush=True)
     e2e = e2e_phase(enc, dec, dev)
+
+    enc_e, dec_e = make_models("edsr", "enhanced",
+                               generator=torch.Generator().manual_seed(0))
+    print("Enhanced kernel phase", flush=True)
+    ekres = enhanced_kernel_phase(dec_e, dev)
+    print("Enhanced path phase", flush=True)
+    eruns = path_phase(enc_e, dec_e, dev, kernels, label="Enhanced")
+    print("Enhanced card vs CPU", flush=True)
+    ecvc = [card_vs_cpu(enc_e, dec_e, dev, dt, tol, label="Enhanced")
+            for dt, tol in ((torch.float32, CARD_CPU_ATOL),
+                            (torch.bfloat16, CARD_CPU_ATOL_BF16))]
+    print("Enhanced end to end", flush=True)
+    ee2e = [e2e_phase(enc_e, dec_e, dev, dt, label="Enhanced")
+            for dt in (torch.bfloat16, torch.float32)]
+    del enc_e, dec_e
     print("training kernel phase", flush=True)
     kres.update(train_kernel_phase(enc, dec, dev))
     print("fused training kernel phase", flush=True)
@@ -952,16 +1173,30 @@ def main() -> int:
     tcvc = [train_card_vs_cpu(dev, fused) for fused in (False, True)]
 
     infer, step = runs[0]["launches"], train["launches"]
-    fstep = ftrain["launches"]
+    fstep, einfer = ftrain["launches"], eruns[0]["launches"]
+    enhanced = "sr_forward (Enhanced, bf16 trunk)"
+    # M and A: the Enhanced path's forms and launches; every form of both
+    # decoders under "forms", with its launches per image on its decoder's
+    # default path
+    for k in ("M", "A"):
+        for r in kres[k]:
+            r.update(dtype="float32", decoder="paper")
+        for r in ekres[k]:
+            r["decoder"] = "Enhanced"
+    forms = {k: kres[k] + ekres[k] for k in ("M", "A")}
+    main_rows = {k: [r for r in ekres[k] if r["per_image"]]
+                 for k in ("M", "A")}
+    kres.update({f"{k}_paper": kres[k] for k in ("M", "A")})
+    kres.update(main_rows)
     meta = {
         "R": ("raster_fwd", "gsasr_torch/ops/csrc/raster_fwd.cu",
               "gsasr_tpu/ops/rasterizer.py:334",
               ["gsasr_tpu/ops/rasterizer.py:254",
                "gsasr_tpu/ops/rasterizer.py:126"], infer, "sr_forward"),
         "M": ("ln_mlp", "gsasr_torch/ops/csrc/ln_mlp.cu",
-              "gsasr_tpu/ops/fused_layers.py:122", [], infer, "sr_forward"),
+              "gsasr_tpu/ops/fused_layers.py:122", [], einfer, enhanced),
         "A": ("ln_attn", "gsasr_torch/ops/csrc/ln_attn.cu",
-              "gsasr_tpu/ops/fused_layers.py:336", [], infer, "sr_forward"),
+              "gsasr_tpu/ops/fused_layers.py:336", [], einfer, enhanced),
         "W": ("window_attn_fwd", "gsasr_torch/ops/csrc/window_attn_fwd.cu",
               "gsasr_tpu/ops/attention.py:338", [], step, "Trainer.step"),
         "WB": ("window_attn_bwd", "gsasr_torch/ops/csrc/window_attn_bwd.cu",
@@ -976,16 +1211,30 @@ def main() -> int:
         "AB": ("ln_attn_bwd", "gsasr_torch/ops/csrc/ln_attn_bwd.cu",
                "gsasr_tpu/ops/fused_layers.py:381", [], fstep,
                "Trainer.step(fused_decoder=True)"),
+        "T": ("bias_table_bwd", "gsasr_torch/ops/csrc/bias_table_bwd.cu",
+              "no Pallas kernel: the gradient of the bias-table gather "
+              "(gsasr_tpu/models/fea2gs.py:142,173) is XLA's", [], step,
+              "Trainer.step"),
     }
     line = [_kernel_entry(name, src, rep, also, kres[k], counts[k], path)
             for k, (name, src, rep, also, counts, path) in meta.items()]
+    for e in line:
+        if e["name"] in ("ln_mlp", "ln_attn"):
+            k = "M" if e["name"] == "ln_mlp" else "A"
+            e["forms"] = [
+                {key: r[key] for key in ("decoder", "case", "dtype",
+                                         "per_image", "max_abs_err", "ms",
+                                         "plain_ms", "bound_ms", "bound_by")}
+                for r in forms[k]]
     if args.json:
         os.makedirs(os.path.dirname(os.path.abspath(args.json)), exist_ok=True)
         with open(args.json, "w") as f:
             json.dump(dict(card=card, torch=torch.__version__,
                            cuda=torch.version.cuda, build_s=build_s,
                            ptxas=ptxas, kernels=kres, paths=runs,
-                           card_vs_cpu=cvc, e2e=e2e, train=train,
+                           card_vs_cpu=cvc, e2e=e2e,
+                           enhanced=dict(paths=eruns, card_vs_cpu=ecvc,
+                                         e2e=ee2e), train=train,
                            train_fused=ftrain, train_card_vs_cpu=tcvc,
                            total_s=time.perf_counter() - t_start), f, indent=1)
     print(f"total {time.perf_counter() - t_start:.1f} s", flush=True)

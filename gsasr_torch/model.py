@@ -1,9 +1,11 @@
-"""End-to-end GSASR assembly: encoder -> Fea2GS -> rasterizer (counterpart
-of `gsasr_tpu/model.py`, paper EDSR-GSASR inference).
+"""End-to-end GSASR assembly: encoder -> decoder -> rasterizer (counterpart
+of `gsasr_tpu/model.py`: EDSR-GSASR inference with the paper Fea2GS or the
+Enhanced Fea2GSRopeAMP decoder).
 
 Single-image inference: reflect-pad the LR image to a denominator
-multiple, encode, decode on the fused path (kernels M and A), render each
-image at floor(scale * padded size), crop to floor(scale * size).
+multiple, encode, decode on the fused path (kernels M and A; the Enhanced
+trunk in bf16 by default), render each image at floor(scale * padded
+size), crop to floor(scale * size).
 """
 
 from __future__ import annotations
@@ -15,8 +17,9 @@ import numpy as np
 import torch
 
 from gsasr_torch import resolve_device
-from gsasr_torch.models import EDSRNOUP, Fea2GS
+from gsasr_torch.models import EDSRNOUP, Fea2GS, Fea2GSRopeAMP
 from gsasr_torch.models.fea2gs_fast import fea2gs_apply_fused
+from gsasr_torch.models.fea2gs_rope_fast import fea2gs_rope_apply_fused
 from gsasr_torch.models.init import init_weights
 from gsasr_torch.rendering import render_gaussians
 
@@ -51,12 +54,13 @@ def pad_to_denominator(img, denom: int):
 def make_models(encoder: str = "edsr", version: str = "paper", *,
                 generator: Optional[torch.Generator] = None, device=None):
     """Build (encoder, decoder) with seeded reference initializers, in eval
-    mode on `device` (default: the CUDA card)."""
+    mode on `device` (default: the CUDA card). version: 'paper' (Fea2GS) or
+    'enhanced' / 'ultra' (Fea2GSRopeAMP with the encoder's settings)."""
     dev = resolve_device(device)
     if encoder != "edsr":
         raise NotImplementedError(f"encoder '{encoder}' is not ported yet")
-    if version != "paper":
-        raise NotImplementedError(f"version '{version}' is not ported yet")
+    if version not in ("paper", "enhanced", "ultra"):
+        raise NotImplementedError(f"version '{version}'")
     if generator is None:
         generator = torch.Generator().manual_seed(0)
     # Module constructors draw PyTorch's default init from the global RNG;
@@ -64,7 +68,9 @@ def make_models(encoder: str = "edsr", version: str = "paper", *,
     # come from `generator`.
     with torch.random.fork_rng(devices=[]):
         enc = EDSRNOUP()
-        dec = Fea2GS()
+        # EDSR's Enhanced/Ultra decoder takes the defaults
+        # (`gsasr_tpu/model.py`'s enhanced_cfg)
+        dec = Fea2GS() if version == "paper" else Fea2GSRopeAMP()
     init_weights(enc, generator)
     init_weights(dec, generator)
     return enc.to(dev).eval(), dec.to(dev).eval()
@@ -78,13 +84,24 @@ def _lat_hw(dec, ph: int, pw: int):
     return (lh, lw) if lh > 0 and lw > 0 else None
 
 
+def fused_dtype(dec):
+    """The decoder trunk's default type: bf16 for the Enhanced family (the
+    reference's AMP semantics), fp32 for the paper one (its evaluation
+    protocol); `gsasr_tpu/model.py::_fused_dtype` without its environment
+    override."""
+    return torch.bfloat16 if isinstance(dec, Fea2GSRopeAMP) else \
+        torch.float32
+
+
 @torch.no_grad()
 def sr_forward(enc, dec, lq, scale: float, *, denominator: int = 12,
-               dmax: float = 0.1, device=None):
+               dmax: float = 0.1, device=None, trunk_dtype=None):
     """Full-image SR forward of one batch at one scale.
 
     lq: (B, H, W, 3) in [0, 1] (tensor or array), moved to `device`
-    (default: the CUDA card), where enc and dec must already be. Renders
+    (default: the CUDA card), where enc and dec must already be. The
+    decoder runs on its fused path with its trunk in `trunk_dtype`
+    (torch.float32 or torch.bfloat16; default `fused_dtype(dec)`). Renders
     with the tile rasterizer and a fixed dmax. Returns
     (B, floor(scale * H), floor(scale * W), 3)."""
     dev = resolve_device(device)
@@ -101,9 +118,11 @@ def sr_forward(enc, dec, lq, scale: float, *, denominator: int = 12,
     ph, pw = padded.shape[1], padded.shape[2]
     pad_sr = (math.floor(ph * scale), math.floor(pw * scale))
     feat = enc(padded)
-    gs = fea2gs_apply_fused(dec, feat, torch.full((b,), scale,
-                                                  dtype=torch.float32,
-                                                  device=dev))
+    scales = torch.full((b,), scale, dtype=torch.float32, device=dev)
+    dt = fused_dtype(dec) if trunk_dtype is None else trunk_dtype
+    fused = (fea2gs_rope_apply_fused if isinstance(dec, Fea2GSRopeAMP)
+             else fea2gs_apply_fused)
+    gs = fused(dec, feat, scales, None if dt == torch.float32 else dt)
     lat = _lat_hw(dec, ph, pw)
     img = torch.stack([render_gaussians(pad_sr, gs[i], scale,
                                         dmax_mode="fix", dmax=dmax,

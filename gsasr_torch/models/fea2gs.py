@@ -161,10 +161,11 @@ class GSSelfAttn(_WindowAttnParams):
 class WindowCrossAttnLayer(nn.Module):
     """scale-inject -> FFN -> (shifted) window cross-attention -> FFN, all
     pre-norm residual. norm1 is dead in the reference topology: its output
-    is overwritten, so its parameters get a zero gradient."""
+    is overwritten, so its parameters get a zero gradient. `attn` replaces
+    the rel-pos-bias attention (the Enhanced family's RoPE attention)."""
 
     def __init__(self, dim, num_heads, window_size, num_gs_seed,
-                 shift_size: int = 0):
+                 shift_size: int = 0, attn: nn.Module = None):
         super().__init__()
         self.window_size = window_size
         self.shift_size = shift_size
@@ -173,8 +174,8 @@ class WindowCrossAttnLayer(nn.Module):
         self.norm3 = LayerNorm(dim)
         self.norm4 = LayerNorm(dim)
         self.gs_cross_attn_scale = ScaleInject(dim)
-        self.window_cross_attn = WindowCrossAttn(dim, num_heads, window_size,
-                                                 num_gs_seed)
+        self.window_cross_attn = attn if attn is not None else \
+            WindowCrossAttn(dim, num_heads, window_size, num_gs_seed)
         self.mlp_crossattn_scale = MLP(dim, dim, dim)
         self.mlp_crossattn_feature = MLP(dim, dim, dim)
 
@@ -196,9 +197,11 @@ class GSSelfAttnLayer(nn.Module):
     """scale-inject -> FFN -> (lattice-shifted) windowed self-attention ->
     FFN. norm3 is dead in the reference topology (zero gradient). Shifted
     layers roll the whole seed lattice across window boundaries and roll
-    the attention output back."""
+    the attention output back. `attn` replaces the rel-pos-bias attention
+    (the Enhanced family's RoPE attention)."""
 
-    def __init__(self, dim, num_heads, num_gs_seed_sqrt, shift_size: int = 0):
+    def __init__(self, dim, num_heads, num_gs_seed_sqrt, shift_size: int = 0,
+                 attn: nn.Module = None):
         super().__init__()
         self.num_gs_seed_sqrt = num_gs_seed_sqrt
         self.shift_size = shift_size
@@ -207,7 +210,8 @@ class GSSelfAttnLayer(nn.Module):
         self.norm3 = LayerNorm(dim)
         self.norm4 = LayerNorm(dim)
         self.gs_cross_attn_scale = ScaleInject(dim)
-        self.gs_self_attn = GSSelfAttn(dim, num_heads, num_gs_seed_sqrt)
+        self.gs_self_attn = attn if attn is not None else \
+            GSSelfAttn(dim, num_heads, num_gs_seed_sqrt)
         self.mlp_selfattn = MLP(dim, dim, dim)
         self.mlp_crossattn = MLP(dim, dim, dim)
 
@@ -254,6 +258,46 @@ def _head(dim: int, out: int) -> nn.Sequential:
                          nn.Linear(4 * dim, out))
 
 
+def _add_front(m, inchannel: int, channel: int, num_heads: int,
+               num_gs_seed: int, gs_up_factor: float, window_size: int,
+               shuffle_scale1: int, shuffle_scale2: int) -> None:
+    """A decoder's sizes, seed and position embeddings and feature
+    projection, registered before its blocks (the order `init_weights`
+    draws in)."""
+    ch = channel
+    m.channel = ch
+    m.num_heads = num_heads
+    m.num_gs_seed = num_gs_seed
+    m.gs_up_factor = gs_up_factor
+    m.window_size = window_size
+    m.shuffle_scale1 = shuffle_scale1
+    m.shuffle_scale2 = shuffle_scale2
+    m.gs_embedding = nn.Parameter(torch.empty(num_gs_seed, ch))
+    m.pos_embedding = nn.Parameter(torch.empty(num_gs_seed, ch))
+    m.img_feat_proj = nn.Sequential(
+        nn.Conv2d(inchannel, ch, 3, padding=1), nn.ReLU(),
+        nn.Conv2d(ch, ch, 3, padding=1))
+
+
+def _add_tail(m) -> None:
+    """A decoder's scale MLP, UPNet and the five head MLPs, registered after
+    its blocks."""
+    ch = m.channel
+    m.scale_mlp = nn.Sequential(nn.Linear(1, 4 * ch), nn.ReLU(),
+                                nn.Linear(4 * ch, ch))
+    m.UPNet = nn.Sequential(
+        nn.Conv2d(ch, ch * m.shuffle_scale1 ** 2, 3, padding=1),
+        nn.PixelShuffle(m.shuffle_scale1),
+        nn.Conv2d(ch, ch * m.shuffle_scale2 ** 2, 3, padding=1),
+        nn.PixelShuffle(m.shuffle_scale2))
+    guf = int(m.gs_up_factor)
+    m.mlp_block_sigma = _head(ch, 2 * guf)
+    m.mlp_block_rho = _head(ch, guf)
+    m.mlp_block_alpha = _head(ch, guf)
+    m.mlp_block_rgb = _head(ch, 3 * guf)
+    m.mlp_block_mean = _head(ch, 2 * guf)
+
+
 class Fea2GS(nn.Module):
     """Paper decoder: (B, h, w, inchannel) NHWC features with h, w divisible
     by window_size, and (B,) scales -> (B, N, 9) raw Gaussian parameters."""
@@ -267,18 +311,8 @@ class Fea2GS(nn.Module):
         super().__init__()
         ch = channel
         nsq = math.isqrt(num_gs_seed)
-        self.channel = ch
-        self.num_heads = num_heads
-        self.num_gs_seed = num_gs_seed
-        self.gs_up_factor = gs_up_factor
-        self.window_size = window_size
-        self.shuffle_scale1 = shuffle_scale1
-        self.shuffle_scale2 = shuffle_scale2
-        self.gs_embedding = nn.Parameter(torch.empty(num_gs_seed, ch))
-        self.pos_embedding = nn.Parameter(torch.empty(num_gs_seed, ch))
-        self.img_feat_proj = nn.Sequential(
-            nn.Conv2d(inchannel, ch, 3, padding=1), nn.ReLU(),
-            nn.Conv2d(ch, ch, 3, padding=1))
+        _add_front(self, inchannel, ch, num_heads, num_gs_seed, gs_up_factor,
+                   window_size, shuffle_scale1, shuffle_scale2)
         self.window_crossattn_blocks = nn.ModuleList(
             _Block(ch, [WindowCrossAttnLayer(
                 ch, num_heads, window_size, num_gs_seed,
@@ -290,19 +324,7 @@ class Fea2GS(nn.Module):
                 ch, num_heads, nsq, shift_size=0 if i % 2 == 0 else nsq // 2)
                 for i in range(num_selfattn_layers)])
             for _ in range(num_selfattn_blocks))
-        self.scale_mlp = nn.Sequential(nn.Linear(1, 4 * ch), nn.ReLU(),
-                                       nn.Linear(4 * ch, ch))
-        self.UPNet = nn.Sequential(
-            nn.Conv2d(ch, ch * shuffle_scale1 ** 2, 3, padding=1),
-            nn.PixelShuffle(shuffle_scale1),
-            nn.Conv2d(ch, ch * shuffle_scale2 ** 2, 3, padding=1),
-            nn.PixelShuffle(shuffle_scale2))
-        guf = int(gs_up_factor)
-        self.mlp_block_sigma = _head(ch, 2 * guf)
-        self.mlp_block_rho = _head(ch, guf)
-        self.mlp_block_alpha = _head(ch, guf)
-        self.mlp_block_rgb = _head(ch, 3 * guf)
-        self.mlp_block_mean = _head(ch, 2 * guf)
+        _add_tail(self)
 
     def forward(self, srcs, scale):
         """(B, h, w, inchannel) features, (B,) scales -> (B, N, 9)."""
@@ -327,11 +349,17 @@ class Fea2GS(nn.Module):
 
 def decode_lattice(m, query, b: int, h_count: int, w_count: int):
     """Decoder tail shared by the module and fused paths: seed windows ->
-    full lattice -> UPNet (conv + pixel shuffle, twice) -> the five head
-    MLPs -> means normalized by the lattice size plus the pixel-center
-    grid. Returns (B, N, 9)."""
+    full lattice -> `decode_full_lattice`. Returns (B, N, 9)."""
     nsq = math.isqrt(m.num_gs_seed)
-    query = to_lattice(query, b, h_count, w_count, nsq)
+    return decode_full_lattice(m, to_lattice(query, b, h_count, w_count, nsq),
+                               b, h_count, w_count)
+
+
+def decode_full_lattice(m, query, b: int, h_count: int, w_count: int):
+    """(B, h_count*nsq, w_count*nsq, C) lattice -> UPNet (conv + pixel
+    shuffle, twice) -> the five head MLPs -> means normalized by the lattice
+    size plus the pixel-center grid. Returns (B, N, 9)."""
+    nsq = math.isqrt(m.num_gs_seed)
     query = pixel_shuffle(conv_nhwc(m.UPNet[0], query), m.shuffle_scale1)
     query = pixel_shuffle(conv_nhwc(m.UPNet[2], query), m.shuffle_scale2)
 

@@ -1,6 +1,6 @@
 """Fused path of the paper Fea2GS decoder (counterpart of
-`gsasr_tpu/models/fea2gs_fast.py`), in float32: inference, and training
-with `TrainConfig(fused_decoder=True)`.
+`gsasr_tpu/models/fea2gs_fast.py`): inference, and training with
+`TrainConfig(fused_decoder=True)` in float32.
 
 Every [scale-inject -> FFN], [pre-norm attention -> proj] and block-tail
 chain is one call of `ln_mlp_residual` or `ln_attn_proj` (kernels M and A
@@ -8,7 +8,9 @@ on the card forward, MB and AB backward). Shifted self-attention layers
 roll the lattice, run the uniform kernel, un-roll its output and then add
 the residual, which is exact because LN commutes with the roll.
 Convolutions, the scale MLP and the heads are plain PyTorch ops. The
-function is differentiable; inference calls it under `torch.no_grad()`.
+float32 function is differentiable; inference calls it under
+`torch.no_grad()`. dtype=torch.bfloat16 runs the trunk (the layer stack)
+in bf16 and UPNet and the heads in fp32, as the JAX fast path does.
 """
 
 from __future__ import annotations
@@ -43,8 +45,17 @@ def _ln(norm):
     return dict(ln_w=norm.weight, ln_b=norm.bias)
 
 
-def fea2gs_apply_fused(m, srcs, scale):
-    """(B, h, w, inchannel) features, (B,) scales -> (B, N, 9)."""
+def _ln_plain(norm, x):
+    """LayerNorm in f32, its result in x's type."""
+    return F.layer_norm(x.float(), (x.shape[-1],), norm.weight, norm.bias,
+                        1e-5).to(x.dtype)
+
+
+def fea2gs_apply_fused(m, srcs, scale, dtype=None):
+    """(B, h, w, inchannel) features, (B,) scales -> (B, N, 9) float32.
+
+    dtype=None runs fp32 end to end; dtype=torch.bfloat16 a bf16 trunk (the
+    scale embedding and inject stay f32) with fp32 UPNet and heads."""
     b, h, w, _ = srcs.shape
     ws = m.window_size
     ch = m.channel
@@ -60,10 +71,12 @@ def fea2gs_apply_fused(m, srcs, scale):
     # index-add (atomics on the card)
     scale_embedding = se[:, None].expand(b, nwin, ch).reshape(b * nwin, ch)
     feat = conv_nhwc(m.img_feat_proj, srcs)
+    if dtype is not None:
+        query, feat = query.to(dtype), feat.to(dtype)
 
     for blk in m.window_crossattn_blocks:
         resi_block = query
-        x = F.layer_norm(query, (ch,), blk.norm.weight, blk.norm.bias, 1e-5)
+        x = _ln_plain(blk.norm, query)
         for li, lyr in enumerate(blk.blocks):
             shift = 0 if li % 2 == 0 else ws // 2
             inj = lyr.gs_cross_attn_scale(scale_embedding)
@@ -84,7 +97,7 @@ def fea2gs_apply_fused(m, srcs, scale):
     resi_outer = query
     for blk in m.gs_selfattn_blocks:
         resi_block = query
-        x = F.layer_norm(query, (ch,), blk.norm.weight, blk.norm.bias, 1e-5)
+        x = _ln_plain(blk.norm, query)
         for li, lyr in enumerate(blk.blocks):
             shift = 0 if li % 2 == 0 else nsq // 2
             inj = lyr.gs_cross_attn_scale(scale_embedding)
@@ -105,4 +118,5 @@ def fea2gs_apply_fused(m, srcs, scale):
             x = x + a
             x = ln_mlp_residual(x, **_mlp(lyr.mlp_selfattn), **_ln(lyr.norm2))
         query = ln_mlp_residual(x, resi=resi_block, **_seq_mlp(blk.mlp))
-    return decode_lattice(m, query + resi_outer, b, h_count, w_count)
+    return decode_lattice(m, (query + resi_outer).float(), b, h_count,
+                          w_count)

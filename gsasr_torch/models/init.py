@@ -1,11 +1,13 @@
 """Seeded initialization with the reference's PyTorch initializers
-(counterpart of `gsasr_tpu/models/init.py` for EDSR and the paper Fea2GS).
+(counterpart of `gsasr_tpu/models/init.py` for EDSR, the paper Fea2GS and
+the Enhanced Fea2GSRopeAMP).
 
 - nn.Linear / nn.Conv2d: weight and bias ~ U(+-1/sqrt(fan_in));
 - ScaleInject (the reference's nn.MultiheadAttention): in_proj_weight ~
   xavier_uniform over the stacked (3E, E) matrix = U(+-sqrt(1.5/E)),
   in_proj_bias and out_proj.bias 0, out_proj.weight the Linear default;
 - relative position bias tables ~ trunc_normal(std 0.02);
+- RoPE frequencies as `rope_freqs_init` draws them (one angle per head);
 - gs/pos embeddings ~ N(0, 1); LayerNorm 1 / 0.
 
 Every draw comes from the given generator, in `named_modules` order.
@@ -19,6 +21,8 @@ import torch
 from torch import nn
 
 from gsasr_torch.models.fea2gs import Fea2GS, ScaleInject, _WindowAttnParams
+from gsasr_torch.models.fea2gs_rope import (Fea2GSRopeAMP, _RopeAttn,
+                                            rope_freqs_init)
 
 
 def _uniform_(t, bound, g):
@@ -45,7 +49,11 @@ def init_weights(model: nn.Module, generator: torch.Generator) -> nn.Module:
         elif isinstance(mod, _WindowAttnParams):
             nn.init.trunc_normal_(mod.relative_position_bias_table, std=0.02,
                                   generator=g)
-        elif isinstance(mod, Fea2GS):
+        elif isinstance(mod, _RopeAttn):
+            nh, hdh = mod.rope_freqs.shape[1:]
+            mod.rope_freqs.copy_(rope_freqs_init(2 * hdh, nh, mod.rope_theta,
+                                                 generator=g))
+        elif isinstance(mod, (Fea2GS, Fea2GSRopeAMP)):
             nn.init.normal_(mod.gs_embedding, generator=g)
             nn.init.normal_(mod.pos_embedding, generator=g)
     for mod in model.modules():

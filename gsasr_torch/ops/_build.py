@@ -30,8 +30,8 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 # p = device pointer (a tensor, or None for null), i = int, f = float.
 SIGNATURES = {
     "raster_fwd": "ppppiiii",
-    "ln_mlp": "ppppppppppiiii",
-    "ln_attn": "ppppppppppppppppiiiiif",
+    "ln_mlp": "p" * 10 + "iiiiii",
+    "ln_attn": "p" * 20 + "iiiiii" + "f",
     "window_attn_fwd": "pppppiiiiif",
     "window_attn_bwd": "ppppppppppiiiiif",
     "raster_bwd": "ppppppiiii",
@@ -143,9 +143,11 @@ def launch(name: str, *args) -> None:
 
 
 def check_tensor(t: torch.Tensor, name: str, dtype=torch.float32) -> None:
-    """Raise on what the kernels do not take: another dtype, a tensor that
-    autograd would need a gradient for (a kernel differentiates only inside
-    its autograd Function, where grad mode is off), or one off the card."""
+    """Raise on what the kernels do not take: another dtype than `dtype`
+    (float32, or bfloat16 for the activations of kernels M and A), a
+    tensor that autograd would need a gradient for (a kernel differentiates
+    only inside its autograd Function, where grad mode is off), or one off
+    the card."""
     if t.dtype != dtype:
         raise TypeError(f"{name}: expected {dtype}, got {t.dtype}")
     if t.requires_grad and torch.is_grad_enabled():

@@ -1,18 +1,25 @@
 // Kernel A: fused pre-norm multi-head attention with its out-projection.
 //
-// Replaces _k_ln_attn of gsasr_tpu/ops/fused_layers.py (ln_attn_proj) in
-// its paper form (no RoPE):
+// Replaces _k_ln_attn of gsasr_tpu/ops/fused_layers.py (ln_attn_proj):
 //
 //   xq  = LN(x) (+ pos)                       LN statistics in f32
 //   src = kv (cross-attention, un-normed) | xq (self-attention)
-//   att_h = softmax(q_h k_h^T * scale + bias[h]) v_h,
-//           q = xq Wq^T + bq, k = src Wk^T + bk, v = src Wv^T + bv
+//   q = rope?(xq Wq^T + bq), k = rope?(src Wk^T + bk), v = src Wv^T + bv
+//   att_h = softmax(q_h k_h^T * scale + bias[h]) v_h
 //   out = att Wo^T + bo
 //
+// rope (the Enhanced family) rotates each (even, odd) column pair in f32,
+// x * cos + (-odd, even) * sin, with pair-duplicated (T, C) tables. x, pos,
+// kv and out are float or bfloat16; in bfloat16 the kernel rounds where
+// _k_ln_attn rounds: xq, the weights as they are staged, q and k after the
+// rotation, v, the probabilities, att and the result. Scores, softmax and
+// sums stay f32.
+//
 // What bounds it on an H100: the products, 2 * windows * (4 T C^2 + 2 T^2 C)
-// FP32 operations (11.8 GFLOP at 225 windows x 144 tokens x 180 channels)
-// against 67 TFLOP/s; the exps (28 M) and the bytes (3 row tensors, 70 MB)
-// take far less.
+// FP32 operations (11.8 GFLOP at 225 windows x 144 tokens x 180 channels,
+// 13.4 at 192) against 67 TFLOP/s; the exps (28 M) and the bytes (3 row
+// tensors, 70 MB in float32) take far less. The bfloat16 forms run the same
+// f32 FMAs; against the bf16 tensor-core peak their bound is the bytes.
 //
 // Design. One window's f32 working set (LN rows, q, k, v: 4 x 104 KB, plus
 // one head's 144x144 scores) does not fit a block's 227 KB of shared memory,
@@ -23,8 +30,11 @@
 // keys l + 32 m), takes the softmax with warp reductions and multiplies by v
 // through a per-warp row of probabilities. Each head writes its own columns
 // of the attention output, so heads are summed by the out-projection and not
-// by atomics. Phase 2, the out-projection, is the 64-row FP32 tile product
-// of tile_gemm.cuh over the attention rows, plus the bias.
+// by atomics. RoPE and the bfloat16 rounding of q, k and v are one pass
+// over the head's columns between the projections and the softmax: with an
+// even head width no pair straddles two heads. Phase 2, the
+// out-projection, is the 64-row FP32 tile product of tile_gemm.cuh over the
+// attention rows, plus the bias.
 
 #include <cuda_runtime.h>
 
@@ -65,7 +75,9 @@ struct Phase1Layout {
 };
 
 // dst[t * ldq + n] = sum_c xs[t * ldx + c] * W[(n0 + n) * C + c] + b[n0 + n]
-// for t < T, n < hd. The head's weight rows are staged in ws first.
+// for t < T, n < hd. The head's weight rows are staged in ws first, rounded
+// to bf16 with kRoundW.
+template <bool kRoundW>
 __device__ void project_head(const float* xs, int ldx, int T,
                              const float* __restrict__ W,
                              const float* __restrict__ b, int n0, int hd,
@@ -75,7 +87,8 @@ __device__ void project_head(const float* xs, int ldx, int T,
   for (int e = tid; e < hd * C; e += kThreads) {
     const int n = e / C;
     const int c = e - n * C;
-    ws[n * ldw + c] = W[static_cast<size_t>(n0 + n) * C + c];
+    const float w = W[static_cast<size_t>(n0 + n) * C + c];
+    ws[n * ldw + c] = kRoundW ? rnd<__nv_bfloat16>(w) : w;
   }
   __syncthreads();
   const int rg = tid / kPColGroups;
@@ -115,15 +128,36 @@ __device__ void project_head(const float* xs, int ldx, int T,
   }
 }
 
+// p[0], p[1] := the pair rotated by the table entries c and s (when c is
+// given), then rounded to Act. The products and the sum round one by one,
+// as x * cos + shuffle(x) * sin does, with no contraction into an FMA.
+template <typename Act>
+__device__ __forceinline__ void rotate_pair(float* p, const float* c,
+                                            const float* s) {
+  float a = p[0], b = p[1];
+  if (c) {
+    const float ra = __fadd_rn(__fmul_rn(a, c[0]), __fmul_rn(-b, s[0]));
+    b = __fadd_rn(__fmul_rn(b, c[1]), __fmul_rn(a, s[1]));
+    a = ra;
+  }
+  p[0] = rnd<Act>(a);
+  p[1] = rnd<Act>(b);
+}
+
+template <typename Act>
 __global__ void __launch_bounds__(kThreads)
-attn_heads_kernel(const float* __restrict__ x, const float* __restrict__ pos,
-                  const float* __restrict__ kv, const float* __restrict__ ln_w,
+attn_heads_kernel(const Act* __restrict__ x, const Act* __restrict__ pos,
+                  const Act* __restrict__ kv, const float* __restrict__ ln_w,
                   const float* __restrict__ ln_b, const float* __restrict__ wq,
                   const float* __restrict__ bq, const float* __restrict__ wk,
                   const float* __restrict__ bk, const float* __restrict__ wv,
                   const float* __restrict__ bv, const float* __restrict__ bias,
-                  float* __restrict__ att, int Tq, int Tk, int C, int nh,
-                  float scale) {
+                  const float* __restrict__ cos_q,
+                  const float* __restrict__ sin_q,
+                  const float* __restrict__ cos_k,
+                  const float* __restrict__ sin_k, float* __restrict__ att,
+                  int Tq, int Tk, int C, int nh, float scale) {
+  constexpr bool kBf16 = sizeof(Act) == 2;
   extern __shared__ float smem[];
   const int hd = C / nh;
   const int T = max(Tq, Tk);
@@ -148,22 +182,45 @@ attn_heads_kernel(const float* __restrict__ x, const float* __restrict__ pos,
     for (int q = 0; q < kLnPer; ++q) {
       const int c = lane + 32 * q;
       if (c < C)
-        xs[r * L.ldx + c] = pos ? v[q] + pos[static_cast<size_t>(r) * C + c] : v[q];
+        xs[r * L.ldx + c] = rnd<Act>(
+            pos ? v[q] + to_f32(pos[static_cast<size_t>(r) * C + c]) : v[q]);
     }
   }
-  project_head(xs, L.ldx, Tq, wq, bq, n0, hd, C, ws, L.ldw, qs, L.ldq);
+  project_head<kBf16>(xs, L.ldx, Tq, wq, bq, n0, hd, C, ws, L.ldw, qs, L.ldq);
 
   if (kv) {
     __syncthreads();
     for (int e = threadIdx.x; e < Tk * C; e += kThreads) {
       const int r = e / C;
       const int c = e - r * C;
-      xs[r * L.ldx + c] = kv[static_cast<size_t>(win) * Tk * C + e];
+      xs[r * L.ldx + c] = to_f32(kv[static_cast<size_t>(win) * Tk * C + e]);
     }
   }
-  project_head(xs, L.ldx, Tk, wk, bk, n0, hd, C, ws, L.ldw, ks, L.ldq);
-  project_head(xs, L.ldx, Tk, wv, bv, n0, hd, C, ws, L.ldw, vs, L.ldq);
+  project_head<kBf16>(xs, L.ldx, Tk, wk, bk, n0, hd, C, ws, L.ldw, ks, L.ldq);
+  project_head<kBf16>(xs, L.ldx, Tk, wv, bv, n0, hd, C, ws, L.ldw, vs, L.ldq);
   __syncthreads();
+
+  // RoPE on q and k in f32 (rows 0..T-1, columns n0..n0+hd of the tables),
+  // then q, k and v rounded to the activation type; one thread per pair
+  if (cos_q || kBf16) {
+    const int pairs = hd / 2;
+    for (int e = threadIdx.x; e < T * pairs; e += kThreads) {
+      const int t = e / pairs;
+      const int n = 2 * (e - t * pairs);
+      if (t < Tq) {
+        const size_t o = static_cast<size_t>(t) * C + n0 + n;
+        rotate_pair<Act>(qs + t * L.ldq + n, cos_q ? cos_q + o : nullptr,
+                         cos_q ? sin_q + o : nullptr);
+      }
+      if (t < Tk) {
+        const size_t o = static_cast<size_t>(t) * C + n0 + n;
+        rotate_pair<Act>(ks + t * L.ldq + n, cos_k ? cos_k + o : nullptr,
+                         cos_k ? sin_k + o : nullptr);
+        rotate_pair<Act>(vs + t * L.ldq + n, nullptr, nullptr);
+      }
+    }
+    __syncthreads();
+  }
 
   // Softmax rows; the per-warp probability rows reuse the x buffer.
   float* prow = xs + warp * kQRows * Tk;
@@ -213,7 +270,7 @@ attn_heads_kernel(const float* __restrict__ x, const float* __restrict__ pos,
 #pragma unroll
       for (int m = 0; m < kKeysPer; ++m) {
         const int j = lane + 32 * m;
-        if (j < Tk) prow[r * Tk + j] = s[r][m] / sum;
+        if (j < Tk) prow[r * Tk + j] = rnd<Act>(s[r][m] / sum);
       }
     }
     __syncwarp();
@@ -227,16 +284,18 @@ attn_heads_kernel(const float* __restrict__ x, const float* __restrict__ pos,
 #pragma unroll
       for (int r = 0; r < kQRows; ++r) {
         if (i0 + r < Tq)
-          att[(static_cast<size_t>(win) * Tq + i0 + r) * C + n0 + lane] = o[r];
+          att[(static_cast<size_t>(win) * Tq + i0 + r) * C + n0 + lane] =
+              rnd<Act>(o[r]);
       }
     }
     __syncwarp();
   }
 }
 
+template <typename Act>
 __global__ void __launch_bounds__(kThreads)
 out_proj_kernel(const float* __restrict__ att, const float* __restrict__ wo,
-                const float* __restrict__ bo, float* __restrict__ out, int M,
+                const float* __restrict__ bo, Act* __restrict__ out, int M,
                 int C) {
   extern __shared__ float smem[];
   float* as = smem;
@@ -247,7 +306,7 @@ out_proj_kernel(const float* __restrict__ att, const float* __restrict__ wo,
     as[e] = g < M ? att[static_cast<size_t>(row0) * C + e] : 0.f;
   }
   float acc[kRowsPer][kMaxColsPer];
-  gemm_rows(as, C, wo, C, C, ws, acc);
+  gemm_rows<false, sizeof(Act) == 2>(as, C, wo, C, C, ws, acc);
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
 #pragma unroll
@@ -257,44 +316,70 @@ out_proj_kernel(const float* __restrict__ att, const float* __restrict__ wo,
 #pragma unroll
     for (int i = 0; i < kRowsPer; ++i) {
       const int g = row0 + warp + kWarps * i;
-      if (g < M) out[static_cast<size_t>(g) * C + n] = acc[i][j] + bo[n];
+      if (g < M)
+        out[static_cast<size_t>(g) * C + n] = from_f32<Act>(acc[i][j] + bo[n]);
     }
   }
 }
 
-}  // namespace
-
-// x, out, att (B, Tq, C); kv (B, Tk, C) or null (self-attention, Tk == Tq);
-// pos (Tq, C) or null; bias (nh, Tq, Tk) or null; weights (C, C) row-major
-// as nn.Linear stores them; att is scratch the caller allocates.
-extern "C" int ln_attn(const float* x, const float* pos, const float* kv,
-                       const float* ln_w, const float* ln_b, const float* wq,
-                       const float* bq, const float* wk, const float* bk,
-                       const float* wv, const float* bv, const float* wo,
-                       const float* bo, const float* bias, float* att,
-                       float* out, int B, int Tq, int Tk, int C, int nh,
-                       float scale, void* stream) {
-  if (B < 1 || nh < 1 || C % nh != 0 || C / nh > kMaxHd || C > kMaxN ||
-      C > 32 * kLnPer || Tq > kMaxT || Tk > kMaxT || (!kv && Tk != Tq))
-    return static_cast<int>(cudaErrorInvalidValue);
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
+template <typename Act>
+int launch(const void* x, const void* pos, const void* kv, const float* ln_w,
+           const float* ln_b, const float* wq, const float* bq,
+           const float* wk, const float* bk, const float* wv, const float* bv,
+           const float* wo, const float* bo, const float* bias,
+           const float* cos_q, const float* sin_q, const float* cos_k,
+           const float* sin_k, float* att, void* out, int B, int Tq, int Tk,
+           int C, int nh, float scale, cudaStream_t st) {
   const Phase1Layout L(std::max(Tq, Tk), C, C / nh);
   cudaError_t err = cudaFuncSetAttribute(
-      attn_heads_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      attn_heads_kernel<Act>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(L.bytes()));
   if (err != cudaSuccess) return static_cast<int>(err);
-  attn_heads_kernel<<<dim3(nh, B), kThreads, L.bytes(), st>>>(
-      x, pos, kv, ln_w, ln_b, wq, bq, wk, bk, wv, bv, bias, att, Tq, Tk, C, nh,
-      scale);
+  attn_heads_kernel<Act><<<dim3(nh, B), kThreads, L.bytes(), st>>>(
+      static_cast<const Act*>(x), static_cast<const Act*>(pos),
+      static_cast<const Act*>(kv), ln_w, ln_b, wq, bq, wk, bk, wv, bv, bias,
+      cos_q, sin_q, cos_k, sin_k, att, Tq, Tk, C, nh, scale);
   err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
   const size_t smem2 = sizeof(float) * (kBM * C + kWsFloats);
-  err = cudaFuncSetAttribute(out_proj_kernel,
+  err = cudaFuncSetAttribute(out_proj_kernel<Act>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
                              static_cast<int>(smem2));
   if (err != cudaSuccess) return static_cast<int>(err);
   const int M = B * Tq;
-  out_proj_kernel<<<(M + kBM - 1) / kBM, kThreads, smem2, st>>>(att, wo, bo,
-                                                                 out, M, C);
+  out_proj_kernel<Act><<<(M + kBM - 1) / kBM, kThreads, smem2, st>>>(
+      att, wo, bo, static_cast<Act*>(out), M, C);
   return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
+// x, out (B, Tq, C) and kv (B, Tk, C) or null (self-attention, Tk == Tq),
+// pos (Tq, C) or null: float, or bfloat16 when bf16 is set. bias (nh, Tq,
+// Tk) or null; cos_q, sin_q (Tq, C) and cos_k, sin_k (Tk, C), all four or
+// none, pair-duplicated; weights (C, C) row-major as nn.Linear stores them:
+// float. att (B, Tq, C) float is scratch the caller allocates.
+extern "C" int ln_attn(const void* x, const void* pos, const void* kv,
+                       const float* ln_w, const float* ln_b, const float* wq,
+                       const float* bq, const float* wk, const float* bk,
+                       const float* wv, const float* bv, const float* wo,
+                       const float* bo, const float* bias, const float* cos_q,
+                       const float* sin_q, const float* cos_k,
+                       const float* sin_k, float* att, void* out, int B,
+                       int Tq, int Tk, int C, int nh, int bf16, float scale,
+                       void* stream) {
+  const bool rope = cos_q != nullptr;
+  if (B < 1 || nh < 1 || C % nh != 0 || C / nh > kMaxHd || C > kMaxN ||
+      C > 32 * kLnPer || Tq > kMaxT || Tk > kMaxT || (!kv && Tk != Tq) ||
+      rope != (sin_q != nullptr) || rope != (cos_k != nullptr) ||
+      rope != (sin_k != nullptr) || ((rope || bf16) && (C / nh) % 2 != 0))
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  return bf16 ? launch<__nv_bfloat16>(x, pos, kv, ln_w, ln_b, wq, bq, wk, bk,
+                                      wv, bv, wo, bo, bias, cos_q, sin_q,
+                                      cos_k, sin_k, att, out, B, Tq, Tk, C,
+                                      nh, scale, st)
+              : launch<float>(x, pos, kv, ln_w, ln_b, wq, bq, wk, bk, wv, bv,
+                              wo, bo, bias, cos_q, sin_q, cos_k, sin_k, att,
+                              out, B, Tq, Tk, C, nh, scale, st);
 }

@@ -1,12 +1,38 @@
 // Shared pieces of the decoder-layer kernels (ln_mlp.cu, ln_attn.cu and
 // their backward kernels through fused_bwd.cuh): warp reductions, the f32
-// LayerNorm of one row per warp, and a 64-row FP32 tile product against a
-// weight streamed through shared memory.
+// LayerNorm of one row per warp, a 64-row FP32 tile product against a
+// weight streamed through shared memory, and the activation types.
 #pragma once
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 namespace gsasr {
+
+// Activations are stored as float or, in the bfloat16 forms of M and A, as
+// __nv_bfloat16; either widens to f32 on load. rnd<Act> rounds an f32
+// value to Act and back (the identity for float): the casts of the Pallas
+// kernels before a product or a store. A product of two bf16 values is
+// exact in f32, so f32 FMAs of rounded operands are bf16 products with f32
+// accumulation.
+__device__ __forceinline__ float to_f32(float v) { return v; }
+__device__ __forceinline__ float to_f32(__nv_bfloat16 v) {
+  return __bfloat162float(v);
+}
+template <typename Act>
+__device__ __forceinline__ Act from_f32(float v);
+template <>
+__device__ __forceinline__ float from_f32<float>(float v) {
+  return v;
+}
+template <>
+__device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float v) {
+  return __float2bfloat16_rn(v);
+}
+template <typename Act>
+__device__ __forceinline__ float rnd(float v) {
+  return to_f32(from_f32<Act>(v));
+}
 
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
@@ -39,7 +65,8 @@ __device__ __forceinline__ float warp_max(float v) {
 // Loads row `row` of x (+ inj_row when given) into v[] and, when ln_w is
 // given, normalizes it in f32 (two-pass mean and variance) and applies the
 // affine. Lane l holds columns l + 32 q. Called by a whole warp.
-__device__ __forceinline__ void load_row_ln(const float* __restrict__ xr,
+template <typename Act>
+__device__ __forceinline__ void load_row_ln(const Act* __restrict__ xr,
                                             const float* __restrict__ inj_row,
                                             const float* __restrict__ ln_w,
                                             const float* __restrict__ ln_b,
@@ -51,7 +78,7 @@ __device__ __forceinline__ void load_row_ln(const float* __restrict__ xr,
     const int c = lane + 32 * q;
     v[q] = 0.f;
     if (c < C) {
-      v[q] = xr[c];
+      v[q] = to_f32(xr[c]);
       if (inj_row) v[q] += inj_row[c];
       s += v[q];
     }
@@ -82,9 +109,10 @@ __device__ __forceinline__ void load_row_ln(const float* __restrict__ xr,
 // (K, N) matrix instead and the product is As W. The weight passes through
 // Ws in slabs of kBK columns, transposed so that a warp reads 32
 // consecutive columns. zero = false adds to acc instead of overwriting it.
-// Accumulators of columns >= N are left unspecified. Starts and ends with a
-// barrier, so As may be written just before and reused just after.
-template <bool kTransW = false>
+// With kRoundW the weight is rounded to bf16 as it is staged. Accumulators
+// of columns >= N are left unspecified. Starts and ends with a barrier, so
+// As may be written just before and reused just after.
+template <bool kTransW = false, bool kRoundW = false>
 __device__ __forceinline__ void gemm_rows(const float* As, int lda,
                                           const float* __restrict__ W, int N,
                                           int K, float* Ws,
@@ -104,16 +132,18 @@ __device__ __forceinline__ void gemm_rows(const float* As, int lda,
     const int kb = min(kBK, K - k0);
     __syncthreads();
     for (int e = tid; e < N * kBK; e += kThreads) {
+      int kk, n;
+      float w = 0.f;
       if (kTransW) {
-        const int kk = e / N;
-        const int n = e - kk * N;
-        Ws[kk * kLdw + n] =
-            kk < kb ? W[static_cast<size_t>(k0 + kk) * N + n] : 0.f;
+        kk = e / N;
+        n = e - kk * N;
+        if (kk < kb) w = W[static_cast<size_t>(k0 + kk) * N + n];
       } else {
-        const int n = e / kBK;
-        const int kk = e - n * kBK;
-        Ws[kk * kLdw + n] = kk < kb ? W[static_cast<size_t>(n) * K + k0 + kk] : 0.f;
+        n = e / kBK;
+        kk = e - n * kBK;
+        if (kk < kb) w = W[static_cast<size_t>(n) * K + k0 + kk];
       }
+      Ws[kk * kLdw + n] = kRoundW ? rnd<__nv_bfloat16>(w) : w;
     }
     __syncthreads();
     for (int kk = 0; kk < kb; ++kk) {

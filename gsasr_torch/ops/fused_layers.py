@@ -1,19 +1,28 @@
-"""Fused decoder-layer kernels (counterpart of `gsasr_tpu/ops/fused_layers.py`,
-paper options), forward and backward.
+"""Fused decoder-layer kernels (counterpart of `gsasr_tpu/ops/fused_layers.py`),
+forward and backward.
 
-- `ln_mlp_residual`: out = (resi | x+inj) + fc2(relu(fc1(LN?(x + inj?))))
+- `ln_mlp_residual`: out = (0 | resi | x+inj) + fc2(relu(fc1(LN?(x + inj?))))
   -> kernel M (`csrc/ln_mlp.cu`) forward, kernel MB (`csrc/ln_mlp_bwd.cu`)
   backward.
-- `ln_attn_proj`: out = proj(MHA(LN(x) (+pos) -> q; kv | LN(x) -> k, v;
-  + bias[h])) -> kernel A (`csrc/ln_attn.cu`) forward, kernel AB
+- `ln_attn_proj`: out = proj(MHA(rope?(LN(x) (+pos) -> q; kv | LN(x) -> k,
+  v); + bias[h])) -> kernel A (`csrc/ln_attn.cu`) forward, kernel AB
   (`csrc/ln_attn_bwd.cu`) backward.
 
-Both are differentiable in every tensor argument: an autograd Function
-saves only the inputs, and the backward kernel recomputes the forward, as
-the JAX package's custom VJPs do. Weights are in nn.Linear layout, (out,
-in). CPU tensors take the plain PyTorch version beside each wrapper; CUDA
-tensors launch the kernel. LN statistics and the softmax are f32; eps is
-1e-5.
+Activations (x, inj, resi, pos, kv and the output) are float32 or
+bfloat16; weights, biases, the bias table and the RoPE tables float32. In
+bfloat16 the functions round where the Pallas kernels round: the LN output
+(+pos), the weights as they are used, the ReLU output, q, k (after the f32
+RoPE) and v, the probabilities, the attention output and the result. Every
+product takes rounded operands and sums in f32; LN statistics, the softmax
+and RoPE are f32; eps is 1e-5.
+
+The float32 forms without RoPE or zero_base are differentiable in every
+tensor argument: an autograd Function saves only the inputs, and the
+backward kernel recomputes the forward, as the JAX package's custom VJPs
+do. The backward of the bfloat16, RoPE and zero_base forms is not ported
+and raises. Weights are in nn.Linear layout, (out, in). CPU tensors take
+the plain PyTorch version beside each wrapper; CUDA tensors launch the
+kernel.
 """
 
 from __future__ import annotations
@@ -65,14 +74,37 @@ def _work(floats: int, like: torch.Tensor) -> torch.Tensor:
     return torch.empty(floats, dtype=torch.float32, device=like.device)
 
 
+def _rnd(t, dtype):
+    """t (f32) rounded to the activation type and held in f32: the cast a
+    Pallas kernel makes before a product or a store."""
+    return t if dtype == torch.float32 else t.to(dtype).float()
+
+
+def rope_shuffle(x):
+    """(even, odd) -> (-odd, even) over each lane pair of the last axis."""
+    pairs = x.unflatten(-1, (-1, 2))
+    return torch.stack([-pairs[..., 1], pairs[..., 0]], dim=-1).flatten(-2)
+
+
+def rope_rotate(x, cos, sin):
+    """Pair rotation of packed (..., T, C) operands by pair-duplicated (T, C)
+    tables, in f32."""
+    return x * cos + rope_shuffle(x) * sin
+
+
 def ln_mlp_residual_plain(x, *, w1, b1, w2, b2, ln_w=None, ln_b=None,
-                          inj=None, resi=None):
+                          inj=None, resi=None, zero_base: bool = False):
     """Plain PyTorch version of kernel M."""
-    t = x + inj[:, None, :] if inj is not None else x
-    h = _ln(t, ln_w, ln_b) if ln_w is not None else t
-    z = torch.relu(h @ w1.t() + b1)
-    z = z @ w2.t() + b2
-    return (resi if resi is not None else t) + z
+    dt = x.dtype
+    t = x.float()
+    if inj is not None:
+        t = t + inj.float()[:, None, :]
+    h = _rnd(_ln(t, ln_w, ln_b) if ln_w is not None else t, dt)
+    z = _rnd(torch.relu(h @ _rnd(w1, dt).t() + b1), dt)
+    z = z @ _rnd(w2, dt).t() + b2
+    if zero_base:
+        return z.to(dt)
+    return ((resi.float() if resi is not None else t) + z).to(dt)
 
 
 def ln_mlp_residual_bwd_plain(x, g, *, w1, b1, w2, b2, ln_w=None,
@@ -113,28 +145,43 @@ def _check_mlp(x, w1, w2, ln_w, ln_b, inj, resi):
         raise ValueError("ln_mlp_residual: inconsistent shapes or options")
 
 
-def _contig(**kw):
-    """The tensors given, checked for the kernels and made contiguous."""
+# activation types the kernels store; weights, biases and tables are f32
+_ACT_TYPES = (torch.float32, torch.bfloat16)
+
+
+def _contig(act=(), **kw):
+    """The tensors given, checked for the kernels and made contiguous: those
+    named in `act` in the activation type of x (kw["x"]), the rest f32."""
+    dt = kw["x"].dtype
+    if dt not in _ACT_TYPES:
+        raise TypeError(f"x: expected one of {_ACT_TYPES}, got {dt}")
     for name, t in kw.items():
         if t is not None:
-            _build.check_tensor(t, name)
+            _build.check_tensor(t, name,
+                                dt if name == "x" or name in act
+                                else torch.float32)
     return {k: (v.contiguous() if v is not None else None)
             for k, v in kw.items()}
 
 
-def _ln_mlp_fwd(x, *, w1, b1, w2, b2, ln_w, ln_b, inj, resi):
+def _ln_mlp_fwd(x, *, w1, b1, w2, b2, ln_w, ln_b, inj, resi, zero_base):
     """Kernel M on CUDA tensors, its plain version on CPU tensors."""
     kw = dict(w1=w1, b1=b1, w2=w2, b2=b2, ln_w=ln_w, ln_b=ln_b, inj=inj,
               resi=resi)
     if x.device.type == "cpu":
-        return ln_mlp_residual_plain(x, **kw)
+        return ln_mlp_residual_plain(x, zero_base=zero_base, **kw)
     _check_mlp(x, w1, w2, ln_w, ln_b, inj, resi)
-    a = _contig(x=x, **kw)
+    # the kernel reads inj in f32: a bf16 inj converts exactly, and an f32
+    # one next to bf16 rows stays unrounded, as in the Pallas kernel
+    if inj is not None:
+        kw["inj"] = inj.float()
+    a = _contig(act=("resi",), x=x, **kw)
     b, t, c = x.shape
     out = torch.empty_like(a["x"])
     _build.launch("ln_mlp", a["x"], a["inj"], a["resi"], a["ln_w"],
                   a["ln_b"], a["w1"], a["b1"], a["w2"], a["b2"], out, b * t, t,
-                  c, w1.shape[0])
+                  c, w1.shape[0], int(zero_base),
+                  int(x.dtype == torch.bfloat16))
     ln_mlp_residual.launches += 1
     return out
 
@@ -151,6 +198,7 @@ def ln_mlp_residual_bwd(x, g, *, w1, b1, w2, b2, ln_w=None, ln_b=None,
     _check_mlp(x, w1, w2, ln_w, ln_b, inj, resi)
     if g.shape != x.shape:
         raise ValueError(f"g {tuple(g.shape)} must match x {tuple(x.shape)}")
+    _backward_f32(x)
     a = _contig(x=x, g=g, w1=w1, b1=b1, w2=w2, ln_w=ln_w, ln_b=ln_b, inj=inj)
     b, t, c = x.shape
     hid = w1.shape[0]
@@ -178,35 +226,47 @@ def ln_mlp_residual_bwd(x, g, *, w1, b1, w2, b2, ln_w=None, ln_b=None,
 ln_mlp_residual_bwd.launches = 0
 
 
+def _backward_f32(x):
+    if x.dtype != torch.float32:
+        raise NotImplementedError(
+            "the backward of the bfloat16 forms is not ported")
+
+
 class _LnMlp(torch.autograd.Function):
     """Forward M, backward MB (the custom VJP `_ln_mlp_core` of the JAX
-    package): saves the inputs only."""
+    package): saves the inputs only. The backward of the zero_base and
+    bfloat16 forms raises."""
 
     @staticmethod
-    def forward(ctx, x, w1, b1, w2, b2, ln_w, ln_b, inj, resi):
+    def forward(ctx, x, w1, b1, w2, b2, ln_w, ln_b, inj, resi, zero_base):
         ctx.save_for_backward(x, w1, b1, w2, b2, ln_w, ln_b, inj, resi)
+        ctx.zero_base = zero_base
         return _ln_mlp_fwd(x, w1=w1, b1=b1, w2=w2, b2=b2, ln_w=ln_w,
-                           ln_b=ln_b, inj=inj, resi=resi)
+                           ln_b=ln_b, inj=inj, resi=resi, zero_base=zero_base)
 
     @staticmethod
     def backward(ctx, g):
         x, w1, b1, w2, b2, ln_w, ln_b, inj, resi = ctx.saved_tensors
+        if ctx.zero_base:
+            raise NotImplementedError(
+                "the backward of zero_base is not ported")
+        _backward_f32(x)
         dx, dresi, dinj, dlnw, dlnb, dw1, db1, dw2, db2 = ln_mlp_residual_bwd(
             x, g, w1=w1, b1=b1, w2=w2, b2=b2, ln_w=ln_w, ln_b=ln_b, inj=inj,
             resi=resi)
-        return dx, dw1, db1, dw2, db2, dlnw, dlnb, dinj, dresi
+        return dx, dw1, db1, dw2, db2, dlnw, dlnb, dinj, dresi, None
 
 
 def ln_mlp_residual(x, *, w1, b1, w2, b2, ln_w=None, ln_b=None, inj=None,
                     resi=None, zero_base: bool = False):
-    """out = (resi | x+inj) + fc2(relu(fc1(LN?(x + inj?)))).
+    """out = (0 | resi | x+inj) + fc2(relu(fc1(LN?(x + inj?)))).
 
-    x, resi: (B, T, C); inj: (B, C) broadcast over T; w1 (hid, C), w2
-    (C, hid). float32. Differentiable in every tensor argument (kernel MB
-    on the card)."""
-    if zero_base:
-        raise NotImplementedError("zero_base comes with the Enhanced family")
-    return _LnMlp.apply(x, w1, b1, w2, b2, ln_w, ln_b, inj, resi)
+    x, resi: (B, T, C) float32 or bfloat16, resi in x's type; inj: (B, C)
+    broadcast over T, either type (summed in f32, unrounded); w1 (hid, C),
+    w2 (C, hid) float32. zero_base=True returns the bare MLP output (the
+    Enhanced block tails). The float32 forms without zero_base are
+    differentiable in every tensor argument (kernel MB on the card)."""
+    return _LnMlp.apply(x, w1, b1, w2, b2, ln_w, ln_b, inj, resi, zero_base)
 
 
 ln_mlp_residual.launches = 0
@@ -214,28 +274,36 @@ ln_mlp_residual.launches = 0
 
 def ln_attn_proj_plain(x, *, wq, bq, wk, bk, wv, bv, wo, bo, ln_w, ln_b,
                        num_heads: int, bias=None, pos=None, kv=None,
-                       scale=None):
+                       scale=None, rope_cos_q=None, rope_sin_q=None,
+                       rope_cos_k=None, rope_sin_k=None):
     """Plain PyTorch version of kernel A."""
+    dt = x.dtype
     b, tq, c = x.shape
     hd = c // num_heads
     if scale is None:
         scale = hd ** -0.5
-    xq = _ln(x, ln_w, ln_b)
+    xq = _ln(x.float(), ln_w, ln_b)
     if pos is not None:
-        xq = xq + pos
-    src = kv if kv is not None else xq
+        xq = xq + _rnd(pos.float(), dt)
+    xq = _rnd(xq, dt)
+    src = kv.float() if kv is not None else xq
     tk = src.shape[1]
-    q = (xq @ wq.t() + bq).reshape(b, tq, num_heads, hd).transpose(1, 2)
-    k = (src @ wk.t() + bk).reshape(b, tk, num_heads, hd).transpose(1, 2)
-    v = (src @ wv.t() + bv).reshape(b, tk, num_heads, hd).transpose(1, 2)
+    q = xq @ _rnd(wq, dt).t() + bq
+    k = src @ _rnd(wk, dt).t() + bk
+    v = src @ _rnd(wv, dt).t() + bv
+    if rope_cos_q is not None:
+        q = rope_rotate(q, rope_cos_q, rope_sin_q)
+        k = rope_rotate(k, rope_cos_k, rope_sin_k)
+    q, k, v = (_rnd(t, dt).reshape(b, -1, num_heads, hd).transpose(1, 2)
+               for t in (q, k, v))
     s = (q @ k.transpose(-1, -2)) * scale
     if bias is not None:
         s = s + bias
     s = s - s.amax(dim=-1, keepdim=True)
     e = torch.exp(s)
-    p = e / e.sum(dim=-1, keepdim=True)
-    att = (p @ v).transpose(1, 2).reshape(b, tq, c)
-    return att @ wo.t() + bo
+    p = _rnd(e / e.sum(dim=-1, keepdim=True), dt)
+    att = _rnd((p @ v).transpose(1, 2).reshape(b, tq, c), dt)
+    return (att @ _rnd(wo, dt).t() + bo).to(dt)
 
 
 def ln_attn_proj_bwd_plain(x, g, *, wq, bq, wk, bk, wv, bv, wo, bo, ln_w,
@@ -272,13 +340,19 @@ def ln_attn_proj_bwd_plain(x, g, *, wq, bq, wk, bk, wv, bv, wo, bo, ln_w,
             _wgrad(dv, src), dv.flatten(0, -2).sum(0), dwo, dbo, dbias)
 
 
-def _check_attn(x, num_heads, ws, bias, pos, kv):
+_ROPE = ("rope_cos_q", "rope_sin_q", "rope_cos_k", "rope_sin_k")
+
+
+def _check_attn(x, num_heads, ws, bias, pos, kv, rope=(None,) * 4):
     b, tq, c = x.shape
     tk = kv.shape[1] if kv is not None else tq
     if (any(w.shape != (c, c) for w in ws)
             or (kv is not None and kv.shape != (b, tk, c))
             or (pos is not None and pos.shape != (tq, c))
-            or (bias is not None and bias.shape != (num_heads, tq, tk))):
+            or (bias is not None and bias.shape != (num_heads, tq, tk))
+            or len({r is None for r in rope}) != 1
+            or (rope[0] is not None
+                and [r.shape for r in rope] != [(tq, c)] * 2 + [(tk, c)] * 2)):
         raise ValueError("ln_attn_proj: inconsistent shapes")
     return b, tq, tk, c
 
@@ -289,14 +363,20 @@ def _ln_attn_fwd(x, *, num_heads, scale, **kw):
         return ln_attn_proj_plain(x, num_heads=num_heads, scale=scale, **kw)
     b, tq, tk, c = _check_attn(x, num_heads, (kw["wq"], kw["wk"], kw["wv"],
                                               kw["wo"]),
-                               kw["bias"], kw["pos"], kw["kv"])
-    a = _contig(x=x, **kw)
-    att = torch.empty_like(a["x"])
+                               kw["bias"], kw["pos"], kw["kv"],
+                               [kw[r] for r in _ROPE])
+    # pos is rounded to the activation type, as the Pallas wrapper casts it
+    if kw["pos"] is not None:
+        kw["pos"] = kw["pos"].to(x.dtype)
+    a = _contig(act=("pos", "kv"), x=x, **kw)
+    # the heads' output, rounded to the activation type but held in f32
+    att = torch.empty(a["x"].shape, dtype=torch.float32, device=x.device)
     out = torch.empty_like(a["x"])
     _build.launch("ln_attn", a["x"], a["pos"], a["kv"], a["ln_w"],
                   a["ln_b"], a["wq"], a["bq"], a["wk"], a["bk"], a["wv"],
-                  a["bv"], a["wo"], a["bo"], a["bias"], att, out, b, tq, tk,
-                  c, num_heads, float(scale))
+                  a["bv"], a["wo"], a["bo"], a["bias"],
+                  *(a[r] for r in _ROPE), att, out, b, tq, tk, c, num_heads,
+                  int(x.dtype == torch.bfloat16), float(scale))
     ln_attn_proj.launches += 1
     return out
 
@@ -317,6 +397,7 @@ def ln_attn_proj_bwd(x, g, *, wq, bq, wk, bk, wv, bv, wo, bo, ln_w, ln_b,
     b, tq, tk, c = _check_attn(x, num_heads, (wq, wk, wv, wo), bias, pos, kv)
     if g.shape != x.shape:
         raise ValueError(f"g {tuple(g.shape)} must match x {tuple(x.shape)}")
+    _backward_f32(x)
     a = _contig(x=x, g=g, **kw)
     f32 = dict(dtype=torch.float32, device=x.device)
     dx = torch.empty((b, tq, c), **f32)
@@ -346,48 +427,61 @@ ln_attn_proj_bwd.launches = 0
 
 class _LnAttn(torch.autograd.Function):
     """Forward A, backward AB (the custom VJP `_ln_attn_core` of the JAX
-    package): saves the inputs only."""
+    package): saves the inputs only. The backward of the RoPE and bfloat16
+    forms raises: AB has no RoPE-table gradients yet."""
 
     @staticmethod
     def forward(ctx, x, wq, bq, wk, bk, wv, bv, wo, bo, ln_w, ln_b, bias,
-                pos, kv, num_heads, scale):
+                pos, kv, cos_q, sin_q, cos_k, sin_k, num_heads, scale):
         ctx.save_for_backward(x, wq, bq, wk, bk, wv, bv, wo, bo, ln_w, ln_b,
                               bias, pos, kv)
         ctx.num_heads, ctx.scale = num_heads, scale
+        ctx.rope = cos_q is not None
         return _ln_attn_fwd(x, wq=wq, bq=bq, wk=wk, bk=bk, wv=wv, bv=bv,
                             wo=wo, bo=bo, ln_w=ln_w, ln_b=ln_b, bias=bias,
-                            pos=pos, kv=kv, num_heads=num_heads, scale=scale)
+                            pos=pos, kv=kv, rope_cos_q=cos_q,
+                            rope_sin_q=sin_q, rope_cos_k=cos_k,
+                            rope_sin_k=sin_k, num_heads=num_heads,
+                            scale=scale)
 
     @staticmethod
     def backward(ctx, g):
         (x, wq, bq, wk, bk, wv, bv, wo, bo, ln_w, ln_b, bias, pos,
          kv) = ctx.saved_tensors
+        if ctx.rope:
+            raise NotImplementedError(
+                "the backward of the RoPE form (K10's table gradients) is "
+                "not ported")
+        _backward_f32(x)
         (dx, dpos, dkv, dlnw, dlnb, dwq, dbq, dwk, dbk, dwv, dbv, dwo, dbo,
          dbias) = ln_attn_proj_bwd(
             x, g, wq=wq, bq=bq, wk=wk, bk=bk, wv=wv, bv=bv, wo=wo, bo=bo,
             ln_w=ln_w, ln_b=ln_b, num_heads=ctx.num_heads, bias=bias,
             pos=pos, kv=kv, scale=ctx.scale)
         return (dx, dwq, dbq, dwk, dbk, dwv, dbv, dwo, dbo, dlnw, dlnb, dbias,
-                dpos, dkv, None, None)
+                dpos, dkv, None, None, None, None, None, None)
 
 
 def ln_attn_proj(x, *, wq, bq, wk, bk, wv, bv, wo, bo, ln_w, ln_b,
                  num_heads: int, bias=None, pos=None, kv=None, scale=None,
                  rope_cos_q=None, rope_sin_q=None, rope_cos_k=None,
                  rope_sin_k=None):
-    """out = proj(MHA(LN(x) (+pos), kv | self, +bias)); residual outside.
+    """out = proj(MHA(rope?(LN(x) (+pos)), kv | self, +bias)); residual
+    outside.
 
-    x: (B, Tq, C); kv: (B, Tk, C) un-normed cross-attention source or None
-    for self-attention; pos: (Tq, C) added after the LN; bias:
-    (num_heads, Tq, Tk). float32. Differentiable in every tensor argument
-    (kernel AB on the card)."""
-    if any(r is not None for r in (rope_cos_q, rope_sin_q, rope_cos_k,
-                                   rope_sin_k)):
-        raise NotImplementedError("RoPE comes with the Enhanced family")
+    x: (B, Tq, C) float32 or bfloat16; kv: (B, Tk, C) un-normed
+    cross-attention source in x's type, or None for self-attention; pos:
+    (Tq, C) added after the LN, rounded to x's type; bias: (num_heads, Tq,
+    Tk) float32; rope_{cos,sin}_q (Tq, C) and rope_{cos,sin}_k (Tk, C):
+    pair-duplicated float32 rotation tables applied to the projected q and k
+    in f32 (the Enhanced family), all four or none. The float32 form
+    without RoPE is differentiable in every tensor argument (kernel AB on
+    the card)."""
     if scale is None:
         scale = (x.shape[-1] // num_heads) ** -0.5
     return _LnAttn.apply(x, wq, bq, wk, bk, wv, bv, wo, bo, ln_w, ln_b, bias,
-                         pos, kv, num_heads, float(scale))
+                         pos, kv, rope_cos_q, rope_sin_q, rope_cos_k,
+                         rope_sin_k, num_heads, float(scale))
 
 
 ln_attn_proj.launches = 0

@@ -1,5 +1,6 @@
 """JAX parameter trees -> the port's state_dicts: the inverse of
-`gsasr_tpu/utils/torch_convert.py`'s `convert_edsr` and `convert_fea2gs`.
+`gsasr_tpu/utils/torch_convert.py`'s `convert_edsr`, `convert_fea2gs` and
+`convert_fea2gs_rope`.
 
 Trees are nested dicts of arrays. Conv kernels (kH, kW, I, O) become
 weights (O, I, kH, kW); dense kernels (I, O) become (O, I); LayerNorm
@@ -55,6 +56,12 @@ def _attn(sd, key, p):
         _dense(sd, f"{key}.{name}", p[name])
 
 
+def _rope_attn(sd, key, p):
+    sd[f"{key}.rope_freqs"] = _t(p["rope_freqs"])
+    for name in ("qhead", "khead", "vhead", "proj"):
+        _dense(sd, f"{key}.{name}", p[name])
+
+
 def _count(tree, prefix):
     return sum(1 for k in tree if k.startswith(prefix))
 
@@ -70,10 +77,16 @@ def _edsr(p) -> Dict[str, torch.Tensor]:
 
 
 def _fea2gs(p) -> Dict[str, torch.Tensor]:
+    """A paper Fea2GS tree, or an Enhanced Fea2GSRopeAMP one (told apart by
+    its `conv_final`): RoPE attentions instead of bias tables, and a conv
+    at the end of every block."""
+    rope = "conv_final" in p
     sd: Dict[str, torch.Tensor] = {
         "gs_embedding": _t(p["gs_embedding"]),
         "pos_embedding": _t(p["pos_embedding"]),
     }
+    if rope:
+        _conv(sd, "conv_final", p["conv_final"])
     _conv(sd, "img_feat_proj.0", p["img_feat_proj_0"])
     _conv(sd, "img_feat_proj.2", p["img_feat_proj_2"])
     _dense(sd, "scale_mlp.0", p["scale_mlp_0"])
@@ -95,6 +108,8 @@ def _fea2gs(p) -> Dict[str, torch.Tensor]:
             _ln(sd, f"{bk}.norm", bp["norm"])
             _dense(sd, f"{bk}.mlp.0", bp["mlp_0"])
             _dense(sd, f"{bk}.mlp.2", bp["mlp_2"])
+            if rope:
+                _conv(sd, f"{bk}.conv", bp["conv"])
             for j in range(_count(bp, "blocks_")):
                 lp = bp[f"blocks_{j}"]
                 lk = f"{bk}.blocks.{j}"
@@ -102,17 +117,18 @@ def _fea2gs(p) -> Dict[str, torch.Tensor]:
                     _ln(sd, f"{lk}.{n}", lp[n])
                 _scale_inject(sd, f"{lk}.gs_cross_attn_scale",
                               lp["gs_cross_attn_scale"])
-                _attn(sd, f"{lk}.{attn_name}", lp[attn_name])
+                (_rope_attn if rope else _attn)(sd, f"{lk}.{attn_name}",
+                                                lp[attn_name])
                 for n in mlps:
                     _mlp(sd, f"{lk}.{n}", lp[n])
     return sd
 
 
 def params_from_jax(enc_params, dec_params):
-    """(EDSR params, paper Fea2GS params) -> (encoder state_dict, decoder
-    state_dict) with the reference keys. The decoder's
-    relative_position_index buffers are not parameters and are left to the
-    module (see `load_params`)."""
+    """(EDSR params, paper Fea2GS or Enhanced Fea2GSRopeAMP params) ->
+    (encoder state_dict, decoder state_dict) with the reference keys. The
+    paper decoder's relative_position_index buffers are not parameters and
+    are left to the module (see `load_params`)."""
     return _edsr(enc_params), _fea2gs(dec_params)
 
 

@@ -2,10 +2,13 @@
 """Where the time of one gsasr_torch image or training step goes, on one
 CUDA card.
 
-  python3 scripts/profile_torch_e2e.py [--train [--fused]] [--iters 3]
-                                       [--json PATH]
+  python3 scripts/profile_torch_e2e.py [--enhanced [--fp32-trunk] |
+                                        --train [--fused]]
+                                       [--iters 3] [--json PATH]
 
-Builds the paper EDSR-GSASR with seeded weights, warms up, then traces
+Builds the paper EDSR-GSASR (with --enhanced the Enhanced one, whose
+decoder trunk runs in bf16, or in fp32 with --fp32-trunk) with seeded
+weights, warms up, then traces
 with torch.profiler either `sr_forward` on a 180x180 x4 image or, with
 --train, `Trainer.step` of configs/train_edsr_paper.yml's recipe on
 chip_smoke.py's synthetic batch of 16 samples of 48x48 (with --fused, on
@@ -75,6 +78,10 @@ def main() -> int:
                     help="trace Trainer.step instead of sr_forward")
     ap.add_argument("--fused", action="store_true",
                     help="with --train: the fused decoder")
+    ap.add_argument("--enhanced", action="store_true",
+                    help="trace sr_forward of the Enhanced EDSR-GSASR")
+    ap.add_argument("--fp32-trunk", action="store_true",
+                    help="with --enhanced: the decoder trunk in fp32")
     ap.add_argument("--iters", type=int, default=3)
     ap.add_argument("--json", help="write the results to this file")
     args = ap.parse_args()
@@ -83,7 +90,10 @@ def main() -> int:
         return 2
     from gsasr_torch.model import make_models, sr_forward
 
-    enc, dec = make_models("edsr", "paper",
+    if args.enhanced and args.train:
+        ap.error("--enhanced traces inference only")
+    trunk = torch.float32 if args.fp32_trunk else None
+    enc, dec = make_models("edsr", "enhanced" if args.enhanced else "paper",
                            generator=torch.Generator().manual_seed(0))
     if args.train:
         from chip_smoke import PAPER_BATCH, PAPER_TRAIN, paper_batch
@@ -104,7 +114,7 @@ def main() -> int:
                         generator=torch.Generator().manual_seed(4)).cuda()
 
         def run(i):
-            sr_forward(enc, dec, lq, 4.0)
+            sr_forward(enc, dec, lq, 4.0, trunk_dtype=trunk)
     for i in range(2):
         run(i)
     torch.cuda.synchronize()
@@ -140,6 +150,8 @@ def main() -> int:
     unit = "step" if args.train else "image"
     res = dict(
         card=card, iters=per, unit=unit,
+        decoder=("paper" if not args.enhanced else "Enhanced, fp32 trunk"
+                 if args.fp32_trunk else "Enhanced, bf16 trunk"),
         wall_ms_per_image=wall_ms / per,
         device_busy_ms_per_image=busy_ms / per,
         device_busy_share=busy_ms / wall_ms,
@@ -149,7 +161,8 @@ def main() -> int:
         top_kernels=[dict(name=e.key[:120], calls_per_image=e.count / per,
                           ms_per_image=e.self_device_time_total / 1e3 / per)
                      for e in top])
-    print(f"{res['card']}: {res['wall_ms_per_image']:.3f} ms per {unit} "
+    print(f"{res['card']}, {res['decoder']}: "
+          f"{res['wall_ms_per_image']:.3f} ms per {unit} "
           f"(profiled), device busy {res['device_busy_ms_per_image']:.3f} ms "
           f"= {100 * res['device_busy_share']:.1f}%")
     for k, v in res["host_ranges_ms"].items():

@@ -88,11 +88,27 @@ def test_ln_attn_proj_matches_jax(shape, opts):
 
 
 def test_unported_options_raise():
-    x = torch.zeros(1, 4, 8)
-    w, bb = torch.zeros(8, 8), torch.zeros(8)
-    with pytest.raises(NotImplementedError):
-        tf.ln_mlp_residual(x, w1=w, b1=bb, w2=w, b2=bb, zero_base=True)
-    with pytest.raises(NotImplementedError):
-        tf.ln_attn_proj(x, wq=w, bq=bb, wk=w, bk=bb, wv=w, bv=bb, wo=w,
-                        bo=bb, ln_w=bb, ln_b=bb, num_heads=2,
-                        rope_cos_q=torch.zeros(4, 8))
+    """zero_base, RoPE and bf16 activations run forward (the Enhanced
+    family) with gradients on; their backward (K10's table gradients, MB
+    and AB in bf16) is not ported and raises when a gradient is asked for,
+    rather than returning one that ignores them. The fp32 paper forms
+    still differentiate."""
+    g = torch.Generator().manual_seed(0)
+    r = lambda *s: torch.randn(*s, generator=g)  # noqa: E731
+    x = r(2, 4, 8).requires_grad_()
+    mlp = dict(w1=r(8, 8), b1=r(8), w2=r(8, 8), b2=r(8))
+    attn = {k: r(8, 8) if k[0] == "w" else r(8)
+            for k in ("wq", "bq", "wk", "bk", "wv", "bv", "wo", "bo")}
+    attn.update(ln_w=r(8), ln_b=r(8), num_heads=2)
+    rope = {k: r(4, 8) for k in ("rope_cos_q", "rope_sin_q", "rope_cos_k",
+                                 "rope_sin_k")}
+    for y in (tf.ln_mlp_residual(x, zero_base=True, **mlp),
+              tf.ln_mlp_residual(x.bfloat16(), **mlp),
+              tf.ln_attn_proj(x, **attn, **rope),
+              tf.ln_attn_proj(x.bfloat16(), **attn)):
+        assert y.shape == x.shape and y.grad_fn is not None
+        with pytest.raises(NotImplementedError):
+            y.float().sum().backward()
+    (tf.ln_mlp_residual(x, **mlp).sum()
+     + tf.ln_attn_proj(x, **attn).sum()).backward()
+    assert x.grad is not None and bool(torch.isfinite(x.grad).all())

@@ -78,6 +78,81 @@ def test_ln_attn_matches_plain(cuda, cross):
                                rtol=1e-4, atol=1e-4)
 
 
+def _assert_bf16_close(out, ref):
+    """bf16 forms: both sides round at the same places but sum their f32
+    products in another order, which can move a rounded intermediate by one
+    bf16 step: |out - ref| <= 2^-7 |ref| + 2^-8 max|ref|."""
+    assert out.dtype == ref.dtype == torch.bfloat16
+    o, r = out.float(), ref.float()
+    err = (o - r).abs()
+    tol = 2 ** -7 * r.abs() + 2 ** -8 * float(r.abs().max())
+    assert bool((err <= tol).all()), float(err.max())
+
+
+@pytest.mark.parametrize("opts,bf16", [("zero_base", False),
+                                       ("zero_base", True), ("ln_inj", True),
+                                       ("ln", True), ("resi", True)])
+def test_ln_mlp_enhanced_forms_match_plain(cuda, opts, bf16):
+    """M's Enhanced forms at 192 channels: the bare MLP of the block tails,
+    and bf16 activations (the inject and FFN chains, the paper tail)."""
+    from gsasr_torch.ops import fused_layers as tf
+
+    g = torch.Generator(device="cpu").manual_seed(8)
+    b, t, c = 7, 144, 192
+    r = lambda *s: torch.randn(*s, generator=g).to(cuda)  # noqa: E731
+    dt = torch.bfloat16 if bf16 else torch.float32
+    kw = dict(w1=r(c, c) / 14, b1=r(c), w2=r(c, c) / 14, b2=r(c))
+    if opts in ("ln_inj", "ln"):
+        kw.update(ln_w=1 + 0.1 * r(c), ln_b=0.1 * r(c))
+    if opts == "ln_inj":
+        kw.update(inj=r(b, c).to(dt))
+    if opts == "resi":
+        kw.update(resi=r(b, t, c).to(dt))
+    if opts == "zero_base":
+        kw.update(zero_base=True)
+    x = r(b, t, c).to(dt)
+    out, ref = tf.ln_mlp_residual(x, **kw), tf.ln_mlp_residual_plain(x, **kw)
+    if bf16:
+        _assert_bf16_close(out, ref)
+    else:
+        torch.testing.assert_close(out, ref, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.parametrize("opts,bf16", [("rope_cross", False),
+                                       ("rope_self", False),
+                                       ("rope_cross", True),
+                                       ("rope_self", True),
+                                       ("bias_self", True)])
+def test_ln_attn_enhanced_forms_match_plain(cuda, opts, bf16):
+    """A's Enhanced forms at 192 channels and 6 heads of 32: RoPE on q and k
+    (cross-attention with pos and kv, and self-attention), in both types,
+    and the paper's bias form in bf16."""
+    from gsasr_torch.models.fea2gs_rope_fast import rope_tables
+    from gsasr_torch.ops import fused_layers as tf
+
+    g = torch.Generator(device="cpu").manual_seed(9)
+    b, t, c, nh = 5, 144, 192, 6
+    r = lambda *s: torch.randn(*s, generator=g).to(cuda)  # noqa: E731
+    dt = torch.bfloat16 if bf16 else torch.float32
+    kw = {k: r(c, c) / 14 if k[0] == "w" else r(c)
+          for k in ("wq", "bq", "wk", "bk", "wv", "bv", "wo", "bo")}
+    kw.update(ln_w=1 + 0.1 * r(c), ln_b=0.1 * r(c), num_heads=nh)
+    if opts.endswith("cross"):
+        kw.update(pos=r(t, c).to(dt), kv=r(b, t, c).to(dt))
+    if opts.startswith("rope"):
+        cos, sin = rope_tables(0.5 * r(2, nh, c // nh // 2), 12, t)
+        kw.update(rope_cos_q=cos, rope_sin_q=sin, rope_cos_k=cos,
+                  rope_sin_k=sin)
+    else:
+        kw.update(bias=0.5 * r(nh, t, t))
+    x = r(b, t, c).to(dt)
+    out, ref = tf.ln_attn_proj(x, **kw), tf.ln_attn_proj_plain(x, **kw)
+    if bf16:
+        _assert_bf16_close(out, ref)
+    else:
+        torch.testing.assert_close(out, ref, rtol=1e-4, atol=1e-4)
+
+
 def _attn_inputs(cuda, b, tq, tk, c, nh, bias=True, seed=2):
     g = torch.Generator(device="cpu").manual_seed(seed)
     r = lambda *s: torch.randn(*s, generator=g).to(cuda)  # noqa: E731
