@@ -42,6 +42,21 @@
 12. One 48x48 x4 Enhanced request on the card against the CPU, with the
    trunk in fp32 and in bf16.
 13. Enhanced end-to-end timing of the main shape, bf16 and fp32 trunk.
+14. SwinIR kernel phase (TF32 off): WM and WMB (the masked forms of W and
+   WB) against their plain versions at SwinIR's inference shape (576
+   windows x 64 tokens x 180 channels, 6 heads, the SW-MSA mask of a
+   192x192 map) and training shape (16 x 36 windows, period 36), WMB twice
+   for bitwise repeatability; W and WB at T = 64; times, bounds and the
+   SDPA yardstick with the bias and mask as a float mask.
+15. SwinIR path phase: make_models("swinir", "paper"), sr_forward with
+   denominator 24 on the three requests of phase 3 (18 W and 18 WM more per
+   forward than EDSR), a 48x48 request on the card against the CPU, and
+   the 180x180 x4 end-to-end timing.
+16. SwinIR training: Trainer.step of configs/train_swinir_paper.yml's
+   recipe (DropPath 0.1) at batch 16 on the module decoder, as phase 8
+   (W 56, WB 56, WM 18, WMB 18, R 1, RB 1, T 74 per step), and a tiny step
+   (drop_path_rate 0) on the card against the CPU.
+17. RDN: path phase and end-to-end timing of make_models("rdn", "paper").
 
 Any failed phase raises and the exit code is not 0. The line before the
 last is {"kernels": [...]}; the last is
@@ -128,9 +143,17 @@ GRAD_TOL = 1e-4
 # chain (38 inject, 38 feature/self FFNs, 7 block tails) and A and AB once
 # per attention instead of W and WB.
 TRAIN_COUNTS = {"R": 1, "M": 0, "A": 0, "W": 38, "WB": 38, "RB": 1, "MB": 0,
-                "AB": 0, "T": 38}
+                "AB": 0, "T": 38, "WM": 0, "WMB": 0}
 FUSED_TRAIN_COUNTS = {"R": 1, "M": 83, "A": 38, "W": 0, "WB": 0, "RB": 1,
-                      "MB": 83, "AB": 38, "T": 38}
+                      "MB": 83, "AB": 38, "T": 38, "WM": 0, "WMB": 0}
+# SwinIR (6 RSTBs of 6 blocks, window 8, shift 4 on odd blocks): per
+# forward 18 W (unshifted blocks) and 18 WM (shifted), per step their
+# backward too, and 36 more T (its bias tables). configs/
+# train_swinir_paper.yml's recipe is PAPER_TRAIN (tests/test_torch_swinir.py
+# holds it equal); sr_forward pads to 24.
+SWINIR_DENOMINATOR = 24
+SWINIR_PER_FORWARD = {"W": 18, "WM": 18}
+SWINIR_TRAIN_COUNTS = dict(TRAIN_COUNTS, W=56, WB=56, WM=18, WMB=18, T=74)
 TRAIN_WARMUP = 2
 TRAIN_STEPS = 5
 
@@ -272,23 +295,27 @@ class _OpFlops(TorchDispatchMode):
         return out
 
 
-def _e2e_bound_ms(enc, dec, lq, dt):
+def _e2e_bound_ms(enc, dec, lq, dt, denominator=12):
     """Least time of one sr_forward's arithmetic: the PyTorch products
     (full fp32 or bf16) and convolutions (TF32 by cuDNN's default, or bf16)
     over their peaks, plus kernels M and A (their operations at their
     type's peak: 4 rows C^2 and 2 B (2 Tq C^2 + 2 Tk C^2 + 2 Tq Tk C) per
-    launch). The raster and the glue's bytes are not counted."""
-    from gsasr_torch.model import sr_forward
+    launch) and a SwinIR encoder's W and WM (4 B T^2 C each, FP32). The
+    raster and the glue's bytes are not counted."""
+    from gsasr_torch.model import pad_to_denominator, sr_forward
+    from gsasr_torch.models import SwinIRNOUP
 
     mode = _OpFlops()
     with mode:
-        sr_forward(enc, dec, lq, 4.0, trunk_dtype=dt)
+        sr_forward(enc, dec, lq, 4.0, trunk_dtype=dt,
+                   denominator=denominator)
     peak = {("mm", torch.float32): PEAK_FP32,
             ("conv", torch.float32): PEAK_TF32,
             ("mm", torch.bfloat16): PEAK_BF16,
             ("conv", torch.bfloat16): PEAK_BF16}
     ms = sum(f / peak[k] for k, f in mode.flops.items()) * 1e3
-    b, h, w, _ = lq.shape
+    padded, _ = pad_to_denominator(lq, denominator)
+    b, h, w, _ = padded.shape
     ws, c, t = dec.window_size, dec.channel, dec.num_gs_seed
     win = b * -(-h // ws) * -(-w // ws)
     cross = sum(len(blk.blocks) for blk in dec.window_crossattn_blocks)
@@ -303,7 +330,16 @@ def _e2e_bound_ms(enc, dec, lq, dt):
     flops = {f"{k[0]}_{str(k[1]).replace('torch.', '')}": f
              for k, f in mode.flops.items()}
     flops["kernels_M_A"] = kflops
-    return ms + kflops / kpeak * 1e3, flops
+    ms += kflops / kpeak * 1e3
+    if isinstance(enc, SwinIRNOUP):
+        ew = enc.window_size
+        blocks = sum(len(layer.residual_group["blocks"])
+                     for layer in enc.layers)
+        ec = enc.conv_first.out_channels
+        flops["kernels_W_WM"] = (blocks * 4.0 * b * (h // ew) * (w // ew)
+                                 * ew ** 4 * ec)
+        ms += flops["kernels_W_WM"] / PEAK_FP32 * 1e3
+    return ms, flops
 
 
 def _bound_ms(flops: float, nbytes: float, peak: float = PEAK_FP32):
@@ -530,9 +566,12 @@ def _reset(kernels):
         f.launches = 0
 
 
-def path_phase(enc, dec, dev, kernels, label="paper"):
+def path_phase(enc, dec, dev, kernels, label="paper", denominator=12,
+               extra=None):
     """sr_forward on the user-facing requests (the decoder's default trunk
-    type); counts each kernel's launches from zero for each request."""
+    type); counts each kernel's launches from zero for each request. Per
+    forward: 1 R per image, M and A as the paper decoder launches them, and
+    `extra` (the encoder's kernels)."""
     from gsasr_torch.model import sr_forward
 
     g = torch.Generator().manual_seed(2)
@@ -542,7 +581,7 @@ def path_phase(enc, dec, dev, kernels, label="paper"):
     for (b, h, w), scale in requests:
         lq = torch.rand(b, h, w, 3, generator=g)
         _reset(kernels)
-        out = sr_forward(enc, dec, lq, scale)
+        out = sr_forward(enc, dec, lq, scale, denominator=denominator)
         torch.cuda.synchronize()
         counts = _counts(kernels)
         want = (b, math.floor(h * scale), math.floor(w * scale), 3)
@@ -551,8 +590,10 @@ def path_phase(enc, dec, dev, kernels, label="paper"):
               f"{float(out.max()):.4f}]", flush=True)
         if tuple(out.shape) != want or not torch.isfinite(out).all():
             raise AssertionError(f"bad output {tuple(out.shape)} for {want}")
-        if counts != {"R": b, "M": M_PER_FORWARD, "A": A_PER_FORWARD,
-                      "W": 0, "WB": 0, "RB": 0, "MB": 0, "AB": 0, "T": 0}:
+        want_counts = {k: 0 for k in kernels}
+        want_counts.update(R=b, M=M_PER_FORWARD, A=A_PER_FORWARD,
+                           **(extra or {}))
+        if counts != want_counts:
             raise AssertionError(f"launch counts {counts}")
         runs.append(dict(request=[b, h, w], scale=scale, shape=list(out.shape),
                          launches=counts))
@@ -561,15 +602,17 @@ def path_phase(enc, dec, dev, kernels, label="paper"):
 
 @torch.no_grad()
 def card_vs_cpu(enc, dec, dev, trunk_dtype=torch.float32, tol=CARD_CPU_ATOL,
-                label="paper"):
+                label="paper", denominator=12):
     from gsasr_torch.model import sr_forward
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     lq = torch.rand(1, 48, 48, 3, generator=torch.Generator().manual_seed(3))
-    out = sr_forward(enc, dec, lq, 4.0, trunk_dtype=trunk_dtype).cpu()
+    out = sr_forward(enc, dec, lq, 4.0, trunk_dtype=trunk_dtype,
+                     denominator=denominator).cpu()
     ref = sr_forward(copy.deepcopy(enc).cpu(), copy.deepcopy(dec).cpu(), lq,
-                     4.0, device="cpu", trunk_dtype=trunk_dtype)
+                     4.0, device="cpu", trunk_dtype=trunk_dtype,
+                     denominator=denominator)
     err = float((out - ref).abs().max())
     trunk = str(trunk_dtype).replace("torch.", "")
     print(f"  {label} 48x48 x4 card vs CPU, {trunk} trunk: max|d| {err:.3e} "
@@ -581,9 +624,11 @@ def card_vs_cpu(enc, dec, dev, trunk_dtype=torch.float32, tol=CARD_CPU_ATOL,
 
 
 @torch.no_grad()
-def e2e_phase(enc, dec, dev, trunk_dtype=None, label="paper"):
+def e2e_phase(enc, dec, dev, trunk_dtype=None, label="paper",
+              denominator=12):
     """Main-shape latency with PyTorch's default TF32 settings, the decoder
-    trunk in `trunk_dtype` (default: the family's)."""
+    trunk in `trunk_dtype` (default: the family's); the split renders the
+    padded map (768x768 for SwinIR's 192x192) as sr_forward does."""
     from gsasr_torch.model import (_lat_hw, fused_dtype, pad_to_denominator,
                                    sr_forward)
     from gsasr_torch.models import Fea2GSRopeAMP
@@ -599,27 +644,30 @@ def e2e_phase(enc, dec, dev, trunk_dtype=None, label="paper"):
     fdt = None if dt == torch.float32 else dt
     lq = torch.rand(1, 180, 180, 3,
                     generator=torch.Generator().manual_seed(4)).to(dev)
-    e2e = _host_ms(lambda: sr_forward(enc, dec, lq, 4.0, trunk_dtype=dt), 9,
-                   warmup=2)
-    padded, _ = pad_to_denominator(lq, 12)
+    e2e = _host_ms(lambda: sr_forward(enc, dec, lq, 4.0, trunk_dtype=dt,
+                                      denominator=denominator), 9, warmup=2)
+    padded, _ = pad_to_denominator(lq, denominator)
+    ph, pw = padded.shape[1:3]
     scales = torch.full((1,), 4.0, device=dev)
     with torch.no_grad():
         feat = enc(padded)
         gs = fused(dec, feat, scales, fdt)
         enc_ms = _host_ms(lambda: enc(padded), 9)
         dec_ms = _host_ms(lambda: fused(dec, feat, scales, fdt), 9)
-    lat = _lat_hw(dec, 180, 180)
-    ren_ms = _host_ms(lambda: render_gaussians((720, 720), gs[0], 4.0,
+    lat = _lat_hw(dec, ph, pw)
+    sr = (4 * ph, 4 * pw)
+    ren_ms = _host_ms(lambda: render_gaussians(sr, gs[0], 4.0,
                                                dmax_mode="fix", dmax=0.1,
                                                lat_hw=lat), 9)
     torch.cuda.reset_peak_memory_stats()
-    sr_forward(enc, dec, lq, 4.0, trunk_dtype=dt)
+    sr_forward(enc, dec, lq, 4.0, trunk_dtype=dt, denominator=denominator)
     torch.cuda.synchronize()
     peak = torch.cuda.max_memory_allocated()
-    bound, flops = _e2e_bound_ms(enc, dec, lq, dt)
-    sig = prepare_kernel_inputs((720, 720), gs[0], 4.0, dmax_mode="fix",
+    bound, flops = _e2e_bound_ms(enc, dec, lq, dt, denominator)
+    sig = prepare_kernel_inputs(sr, gs[0], 4.0, dmax_mode="fix",
                                 dmax=0.1)[0][:, :2]
-    s_px = (sig * torch.tensor([719 / 2.0, 719 / 2.0], device=dev)).cpu()
+    s_px = (sig * torch.tensor([(sr[1] - 1) / 2.0, (sr[0] - 1) / 2.0],
+                               device=dev)).cpu()
     p50, p90 = (float(np.percentile(s_px.numpy(), p)) for p in (50, 90))
     trunk = str(dt).replace("torch.", "")
     res = dict(decoder=label, trunk=trunk,
@@ -654,17 +702,17 @@ def paper_batch(b: int, seed: int):
             "scale": scales, "gt_h": gt, "gt_w": gt}
 
 
-def _sdpa_ms(q, k, v, bias, g, nh, scale):
-    """Yardsticks for W and WB: one scaled_dot_product_attention call on
-    (B, nh, T, hd) views of the packed operands with the bias as a float
-    attn_mask, and its backward through torch.autograd.grad. Returns
-    (fwd ms, bwd ms or None, why None)."""
+def _sdpa_ms(q, k, v, mask, g, nh, scale):
+    """Yardsticks for W and WB (WM and WMB): one
+    scaled_dot_product_attention call on (B, nh, T, hd) views of the packed
+    operands with a float attn_mask (the bias as (1, nh, Tq, Tk), or bias
+    and window mask summed to (B, nh, Tq, Tk)), and its backward through
+    torch.autograd.grad. Returns (fwd ms, bwd ms or None, why None)."""
     import torch.nn.functional as F
 
     b, tq, c = q.shape
     heads = lambda x: x.view(b, x.shape[1], nh, c // nh).transpose(1, 2)  # noqa: E731
     qh, kh, vh, gh = heads(q), heads(k), heads(v), heads(g)
-    mask = bias[None]
     fwd = _time_ms(lambda: F.scaled_dot_product_attention(
         qh, kh, vh, attn_mask=mask, scale=scale), 10)
     leaves = [x.detach().requires_grad_() for x in (qh, kh, vh, mask)]
@@ -709,7 +757,7 @@ def train_kernel_phase(enc, dec, dev):
                        ta.window_attention_packed_plain(*fargs), f"W {name}")
         ms = _time_ms(lambda: ta.window_attention_packed_fwd(*fargs), 20)
         plain = _time_ms(lambda: ta.window_attention_packed_plain(*fargs), 10)
-        lib_f, lib_b, why = _sdpa_ms(q, k, v, bias, g, nh, scale)
+        lib_f, lib_b, why = _sdpa_ms(q, k, v, bias[None], g, nh, scale)
         bound, by = _bound_ms(4.0 * b * nh * t * tk * hd,
                               4 * (2 * b * t * c + 2 * b * tk * c
                                    + nh * t * tk))
@@ -905,16 +953,119 @@ def fused_kernel_phase(dec, dev):
     return results
 
 
-def _train_run(dev, kernels, b: int, fused: bool):
+@torch.no_grad()
+def swinir_kernel_phase(enc, dev):
+    """WM and WMB against their plain versions at SwinIR's inference shape
+    (one 192x192 map: 576 windows, each its own mask class) and training
+    shape (16 samples of 48x48: 576 windows, mask period 36), WMB twice to
+    show the bits repeat; W and WB at T = 64 beside them. The bias is the
+    encoder's first shifted block's table."""
+    from gsasr_torch.models.swinir import swin_attn_mask
+    from gsasr_torch.ops import attention as ta
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    gen = torch.Generator().manual_seed(12)
+    rnd = lambda *s: torch.randn(*s, generator=gen).to(dev)  # noqa: E731
+    attn = enc.layers[0].residual_group["blocks"][1].attn
+    nh, c, ws = attn.num_heads, attn.proj.in_features, enc.window_size
+    t, hd = ws * ws, c // attn.num_heads
+    scale = hd ** -0.5
+    bias = attn.relative_position_bias_table[
+        attn.relative_position_index].permute(2, 0, 1).contiguous()
+    results = {"WM": [], "WMB": [], "W": [], "WB": []}
+    lr = PAPER_LR_SIZE
+    for name, mask, b, per in (
+            ("inference 192x192", swin_attn_mask(192, 192, ws, ws // 2, dev),
+             (192 // ws) ** 2, dict(per_image=18)),
+            ("training 16x48x48", swin_attn_mask(lr, lr, ws, ws // 2, dev),
+             PAPER_BATCH * (lr // ws) ** 2, dict(per_step=18))):
+        nw = mask.shape[0]
+        q, k, v, g = (rnd(b, t, c) for _ in range(4))
+        full = (bias[None] + mask.repeat(b // nw, 1, 1)[:, None]).contiguous()
+        fargs = (q, k, v, bias, mask, scale, nh)
+        err = _compare(ta.window_attention_packed_masked_fwd(*fargs),
+                       ta.window_attention_packed_plain(
+                           q, k, v, bias, scale, nh, mask), f"WM {name}")
+        ms = _time_ms(lambda: ta.window_attention_packed_masked_fwd(*fargs),
+                      20)
+        plain = _time_ms(lambda: ta.window_attention_packed_plain(
+            q, k, v, bias, scale, nh, mask), 10)
+        lib_f, lib_b, why = _sdpa_ms(q, k, v, full, g, nh, scale)
+        act = 4 * b * t * c
+        bound, by = _bound_ms(4.0 * b * nh * t * t * hd,
+                              4 * act + 4 * (nh + nw) * t * t)
+        results["WM"].append(dict(case=name, nW=nw, windows=b,
+                                  max_abs_err=err, ms=ms, plain_ms=plain,
+                                  bound_ms=bound, bound_by=by,
+                                  library_ms=lib_f, **per))
+        bargs = (q, k, v, bias, mask, g, scale, nh)
+        outs = ta.window_attention_packed_masked_bwd(*bargs)
+        refs = ta.window_attention_packed_bwd_plain(q, k, v, bias, g, scale,
+                                                    nh, mask)
+        err = _compare_grads(outs, refs, ("dq", "dk", "dv", "dbias"),
+                             f"WMB {name}")
+        _repeatable(lambda: ta.window_attention_packed_masked_bwd(*bargs),
+                    f"WMB {name}")
+        ms = _time_ms(lambda: ta.window_attention_packed_masked_bwd(*bargs),
+                      10)
+        plain = _time_ms(lambda: ta.window_attention_packed_bwd_plain(
+            q, k, v, bias, g, scale, nh, mask), 5)
+        if why:
+            print(f"  WMB {name} library: null ({why})", flush=True)
+        # five products; bytes: q, g, dq, k, v, dk, dv, bias, dbias, mask
+        bound, by = _bound_ms(10.0 * b * nh * t * t * hd,
+                              7 * act + 4 * (2 * nh + nw) * t * t)
+        results["WMB"].append(dict(
+            case=name, nW=nw, windows=b, max_abs_err=err, ms=ms,
+            plain_ms=plain, bound_ms=bound, bound_by=by, library_ms=lib_b,
+            library_null_reason=why,
+            **({"per_step": 0} if "per_image" in per else per)))
+    # W and WB at SwinIR's T = 64 (its unshifted blocks), 576 windows
+    fargs = (q, k, v, bias, scale, nh)
+    err = _compare(ta.window_attention_packed_fwd(*fargs),
+                   ta.window_attention_packed_plain(*fargs), "W T=64")
+    ms = _time_ms(lambda: ta.window_attention_packed_fwd(*fargs), 20)
+    plain = _time_ms(lambda: ta.window_attention_packed_plain(*fargs), 10)
+    lib_f, lib_b, why = _sdpa_ms(q, k, v, bias[None], g, nh, scale)
+    bound, by = _bound_ms(4.0 * b * nh * t * t * hd, 4 * act + 4 * nh * t * t)
+    results["W"].append(dict(case="swinir T=64", per_image=18, per_step=18,
+                             max_abs_err=err, ms=ms, plain_ms=plain,
+                             bound_ms=bound, bound_by=by, library_ms=lib_f))
+    bargs = (q, k, v, bias, g, scale, nh)
+    err = _compare_grads(ta.window_attention_packed_bwd(*bargs),
+                         ta.window_attention_packed_bwd_plain(*bargs),
+                         ("dq", "dk", "dv", "dbias"), "WB T=64")
+    ms = _time_ms(lambda: ta.window_attention_packed_bwd(*bargs), 10)
+    plain = _time_ms(lambda: ta.window_attention_packed_bwd_plain(*bargs), 5)
+    bound, by = _bound_ms(10.0 * b * nh * t * t * hd,
+                          7 * act + 8 * nh * t * t)
+    results["WB"].append(dict(case="swinir T=64", per_step=18,
+                              max_abs_err=err, ms=ms, plain_ms=plain,
+                              bound_ms=bound, bound_by=by, library_ms=lib_b,
+                              library_null_reason=why))
+    for k, rows in results.items():
+        for r in rows:
+            lib = "null" if r["library_ms"] is None else \
+                f"{r['library_ms']:.4f}"
+            print(f"  {k} {r['case']}: {r['ms']:.4f} ms (plain "
+                  f"{r['plain_ms']:.4f}, bound {r['bound_ms']:.4f} by "
+                  f"{r['bound_by']}, library {lib})", flush=True)
+    return results
+
+
+def _train_run(dev, kernels, b: int, fused: bool, encoder: str):
     from gsasr_torch.model import make_models
     from gsasr_torch.train import TrainConfig, Trainer
 
-    enc, dec = make_models("edsr", "paper",
+    enc, dec = make_models(encoder, "paper",
                            generator=torch.Generator().manual_seed(0))
     tr = Trainer(enc, dec, TrainConfig(**dict(PAPER_TRAIN,
                                               fused_decoder=fused)))
-    want = FUSED_TRAIN_COUNTS if fused else TRAIN_COUNTS
-    label = "fused" if fused else "module"
+    want = (FUSED_TRAIN_COUNTS if fused else
+            SWINIR_TRAIN_COUNTS if encoder == "swinir" else TRAIN_COUNTS)
+    label = ("fused" if fused else "module") + (
+        "" if encoder == "edsr" else f" {encoder}")
     start = [p.detach().clone() for p in tr.params_g + tr.params_d]
     start_ema = [p.detach().clone() for p in
                  list(tr.ema_g.parameters()) + list(tr.ema_d.parameters())]
@@ -959,7 +1110,8 @@ def _train_run(dev, kernels, b: int, fused: bool):
                              f"{ema_moved}")
     repeat = _repeat_report(tr, batches[-1], label)
     med = lambda x: float(np.median(x))  # noqa: E731
-    res = dict(decoder=label, batch=b, step_ms_median=med(steps),
+    res = dict(decoder=label, encoder=encoder, batch=b,
+               step_ms_median=med(steps),
                step_ms=steps,
                forward_ms=med(fwd), backward_ms=med(grads_ms) - med(fwd),
                grads_ms=med(grads_ms), optimizer_ema_ms=med(apply_ms),
@@ -995,15 +1147,16 @@ def _repeat_report(tr, batch, label):
                 tensors=len(names))
 
 
-def train_phase(dev, kernels, fused: bool):
-    """Full-width paper training steps on the module or the fused decoder;
-    halves the batch only if it does not fit the card, and says so."""
+def train_phase(dev, kernels, fused: bool, encoder: str = "edsr"):
+    """Full-width paper training steps of `encoder` on the module or the
+    fused decoder; halves the batch only if it does not fit the card, and
+    says so."""
     torch.backends.cuda.matmul.allow_tf32 = False  # PyTorch default
     torch.backends.cudnn.allow_tf32 = True         # PyTorch default
     b = PAPER_BATCH
     while True:
         try:
-            return _train_run(dev, kernels, b, fused)
+            return _train_run(dev, kernels, b, fused, encoder)
         except torch.cuda.OutOfMemoryError:
             if b == 1:
                 raise
@@ -1014,18 +1167,24 @@ def train_phase(dev, kernels, fused: bool):
         b //= 2
 
 
-def train_card_vs_cpu(dev, fused: bool):
-    """One tiny training step (tests/test_trainer.py's networks, batch 2)
-    from the same weights on the card and on the CPU, on the module or the
-    fused decoder."""
-    from gsasr_torch.models import EDSRNOUP, Fea2GS
+def train_card_vs_cpu(dev, fused: bool, encoder: str = "edsr"):
+    """One tiny training step (tests/test_trainer.py's networks, batch 2;
+    or a tiny SwinIR with window 4, so its second block shifts, and no
+    DropPath) from the same weights on the card and on the CPU, on the
+    module or the fused decoder."""
+    from gsasr_torch.models import EDSRNOUP, Fea2GS, SwinIRNOUP
     from gsasr_torch.models.init import init_weights
     from gsasr_torch.train import TrainConfig, Trainer
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     gen = torch.Generator().manual_seed(7)
-    enc = init_weights(EDSRNOUP(num_feat=16, num_block=1), gen)
+    if encoder == "swinir":
+        enc = init_weights(SwinIRNOUP(embed_dim=24, depths=(2,),
+                                      num_heads=(6,), window_size=4,
+                                      num_feat=16, drop_path_rate=0.0), gen)
+    else:
+        enc = init_weights(EDSRNOUP(num_feat=16, num_block=1), gen)
     dec = init_weights(Fea2GS(inchannel=16, channel=12, num_heads=6,
                               num_crossattn_blocks=1, num_crossattn_layers=2,
                               num_selfattn_blocks=1, num_selfattn_layers=2,
@@ -1058,20 +1217,32 @@ def train_card_vs_cpu(dev, fused: bool):
             bad.append(n)
     card.apply(*out_card)
     cpu.apply(*out_cpu)
-    print(f"  tiny {'fused' if fused else 'module'} training step card vs "
-          f"CPU: loss {l_card:.7f} vs "
+    print(f"  tiny {'fused' if fused else 'module'} {encoder} training step "
+          f"card vs CPU: loss {l_card:.7f} vs "
           f"{l_cpu:.7f} (rel {rel:.2e}, tol 1e-4); gradients max|d| "
           f"{worst:.3e} over {len(names)} tensors (tol {GRAD_TOL} max|ref| "
           f"+ {GRAD_TOL}|ref| + {floor:.1e})", flush=True)
     if not rel <= 1e-4 or bad:
         raise AssertionError(f"training step: card and CPU disagree {bad}")
-    return dict(fused_decoder=fused, loss_card=l_card, loss_cpu=l_cpu,
+    return dict(fused_decoder=fused, encoder=encoder, loss_card=l_card,
+                loss_cpu=l_cpu,
                 loss_rel=rel, grad_max_abs_err=worst, tensors=len(names))
 
 
-def _kernel_entry(name, src, rep, also, rows, launches, path):
-    """One entry of the {"kernels": [...]} line: each time a mean over its
-    cases weighted by their launches on the path."""
+FORM_KEYS = ("decoder", "case", "dtype", "nW", "windows", "per_image",
+             "per_step", "max_abs_err", "ms", "plain_ms", "bound_ms",
+             "bound_by", "library_ms")
+
+
+def _on_path(rows, per):
+    """The rows with launches (`per`: per_image or per_step) on a path."""
+    return [r for r in rows if r.get(per)]
+
+
+def _kernel_entry(name, src, rep, also, launches, path, rows, forms=None):
+    """One entry of the {"kernels": [...]} line: each time a mean over
+    `rows` weighted by their launches on the path; `forms`, where given,
+    listed with their own numbers."""
     wt = [r.get("per_image", r.get("per_step")) for r in rows]
     mean = lambda key: (None if any(r[key] is None for r in rows) else  # noqa: E731
                         sum(r[key] * n for r, n in zip(rows, wt)) / sum(wt))
@@ -1084,6 +1255,9 @@ def _kernel_entry(name, src, rep, also, rows, launches, path):
              else None, "path": path}
     if also:
         entry["also_replaces"] = also
+    if forms:
+        entry["forms"] = [{k: r[k] for k in FORM_KEYS if k in r}
+                          for r in forms]
     return entry
 
 
@@ -1096,8 +1270,9 @@ def main() -> int:
         return 2
     from gsasr_torch.model import make_models
     from gsasr_torch.ops import _build
-    from gsasr_torch.ops.attention import (window_attention_packed_bwd,
-                                           window_attention_packed_fwd)
+    from gsasr_torch.ops.attention import (
+        window_attention_packed_bwd, window_attention_packed_fwd,
+        window_attention_packed_masked_bwd, window_attention_packed_masked_fwd)
     from gsasr_torch.ops.bias_table import bias_table_bwd
     from gsasr_torch.ops.fused_layers import (ln_attn_proj, ln_attn_proj_bwd,
                                               ln_mlp_residual,
@@ -1116,8 +1291,9 @@ def main() -> int:
     _build.build(names)
     build_s = time.perf_counter() - t0
     print(f"built {names} in {build_s:.1f} s", flush=True)
-    ptxas = {n: _build.ptxas_report(n) for n in names}
-    for n in names:
+    srcs = list(dict.fromkeys(_build.source_of(n) for n in names))
+    ptxas = {n: _build.ptxas_report(n) for n in srcs}
+    for n in srcs:
         for line in ptxas[n].splitlines():
             if "registers" in line or "spill" in line:
                 print(f"  {n}: {line.strip()}", flush=True)
@@ -1126,7 +1302,8 @@ def main() -> int:
                "W": window_attention_packed_fwd,
                "WB": window_attention_packed_bwd, "RB": raster_bwd,
                "MB": ln_mlp_residual_bwd, "AB": ln_attn_proj_bwd,
-               "T": bias_table_bwd}
+               "T": bias_table_bwd, "WM": window_attention_packed_masked_fwd,
+               "WMB": window_attention_packed_masked_bwd}
     enc, dec = make_models("edsr", "paper",
                            generator=torch.Generator().manual_seed(0))
 
@@ -1171,61 +1348,101 @@ def main() -> int:
           f"{train['peak_mem_bytes'] / 2**30:.2f} GiB", flush=True)
     print("training card vs CPU", flush=True)
     tcvc = [train_card_vs_cpu(dev, fused) for fused in (False, True)]
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    enc_s, dec_s = make_models("swinir", "paper",
+                               generator=torch.Generator().manual_seed(0))
+    print("SwinIR kernel phase", flush=True)
+    sres = swinir_kernel_phase(enc_s, dev)
+    print("SwinIR path phase", flush=True)
+    sruns = path_phase(enc_s, dec_s, dev, kernels, label="SwinIR",
+                       denominator=SWINIR_DENOMINATOR,
+                       extra=SWINIR_PER_FORWARD)
+    print("SwinIR card vs CPU", flush=True)
+    scvc = card_vs_cpu(enc_s, dec_s, dev, label="SwinIR",
+                       denominator=SWINIR_DENOMINATOR)
+    print("SwinIR end to end", flush=True)
+    se2e = e2e_phase(enc_s, dec_s, dev, label="SwinIR",
+                     denominator=SWINIR_DENOMINATOR)
+    del enc_s, dec_s
+    gc.collect()
+    torch.cuda.empty_cache()
+    print("SwinIR training phase", flush=True)
+    strain = train_phase(dev, kernels, fused=False, encoder="swinir")
+    print("SwinIR training card vs CPU", flush=True)
+    stcvc = train_card_vs_cpu(dev, False, encoder="swinir")
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    enc_r, dec_r = make_models("rdn", "paper",
+                               generator=torch.Generator().manual_seed(0))
+    print("RDN path phase", flush=True)
+    rruns = path_phase(enc_r, dec_r, dev, kernels, label="RDN")
+    print("RDN end to end", flush=True)
+    re2e = e2e_phase(enc_r, dec_r, dev, label="RDN")
+    del enc_r, dec_r
 
     infer, step = runs[0]["launches"], train["launches"]
+    sinfer, sstep = sruns[0]["launches"], strain["launches"]
     fstep, einfer = ftrain["launches"], eruns[0]["launches"]
     enhanced = "sr_forward (Enhanced, bf16 trunk)"
-    # M and A: the Enhanced path's forms and launches; every form of both
-    # decoders under "forms", with its launches per image on its decoder's
-    # default path
     for k in ("M", "A"):
         for r in kres[k]:
             r.update(dtype="float32", decoder="paper")
         for r in ekres[k]:
             r["decoder"] = "Enhanced"
-    forms = {k: kres[k] + ekres[k] for k in ("M", "A")}
-    main_rows = {k: [r for r in ekres[k] if r["per_image"]]
-                 for k in ("M", "A")}
-    kres.update({f"{k}_paper": kres[k] for k in ("M", "A")})
-    kres.update(main_rows)
+    # Each kernel: (name, source, replaces, also replaces, launch counts,
+    # path, the rows timed on that path, the rows of its other forms and
+    # shapes or None). A row's per_image / per_step is its launches on the
+    # path of its own run; rows with none are left out of the mean.
     meta = {
         "R": ("raster_fwd", "gsasr_torch/ops/csrc/raster_fwd.cu",
               "gsasr_tpu/ops/rasterizer.py:334",
               ["gsasr_tpu/ops/rasterizer.py:254",
-               "gsasr_tpu/ops/rasterizer.py:126"], infer, "sr_forward"),
+               "gsasr_tpu/ops/rasterizer.py:126"], infer, "sr_forward",
+              kres["R"], None),
         "M": ("ln_mlp", "gsasr_torch/ops/csrc/ln_mlp.cu",
-              "gsasr_tpu/ops/fused_layers.py:122", [], einfer, enhanced),
+              "gsasr_tpu/ops/fused_layers.py:122", [], einfer, enhanced,
+              _on_path(ekres["M"], "per_image"), kres["M"] + ekres["M"]),
         "A": ("ln_attn", "gsasr_torch/ops/csrc/ln_attn.cu",
-              "gsasr_tpu/ops/fused_layers.py:336", [], einfer, enhanced),
+              "gsasr_tpu/ops/fused_layers.py:336", [], einfer, enhanced,
+              _on_path(ekres["A"], "per_image"), kres["A"] + ekres["A"]),
         "W": ("window_attn_fwd", "gsasr_torch/ops/csrc/window_attn_fwd.cu",
-              "gsasr_tpu/ops/attention.py:338", [], step, "Trainer.step"),
+              "gsasr_tpu/ops/attention.py:338", [], step, "Trainer.step",
+              kres["W"], sres["W"]),
         "WB": ("window_attn_bwd", "gsasr_torch/ops/csrc/window_attn_bwd.cu",
-               "gsasr_tpu/ops/attention.py:397", [], step, "Trainer.step"),
+               "gsasr_tpu/ops/attention.py:397", [], step, "Trainer.step",
+               kres["WB"], sres["WB"]),
         "RB": ("raster_bwd", "gsasr_torch/ops/csrc/raster_bwd.cu",
                "gsasr_tpu/ops/rasterizer.py:232",
                ["gsasr_tpu/ops/rasterizer.py:166",
-                "gsasr_tpu/ops/rasterizer.py:308"], step, "Trainer.step"),
+                "gsasr_tpu/ops/rasterizer.py:308"], step, "Trainer.step",
+               kres["RB"], None),
         "MB": ("ln_mlp_bwd", "gsasr_torch/ops/csrc/ln_mlp_bwd.cu",
                "gsasr_tpu/ops/fused_layers.py:146", [], fstep,
-               "Trainer.step(fused_decoder=True)"),
+               "Trainer.step(fused_decoder=True)", kres["MB"], None),
         "AB": ("ln_attn_bwd", "gsasr_torch/ops/csrc/ln_attn_bwd.cu",
                "gsasr_tpu/ops/fused_layers.py:381", [], fstep,
-               "Trainer.step(fused_decoder=True)"),
+               "Trainer.step(fused_decoder=True)", kres["AB"], None),
         "T": ("bias_table_bwd", "gsasr_torch/ops/csrc/bias_table_bwd.cu",
               "no Pallas kernel: the gradient of the bias-table gather "
               "(gsasr_tpu/models/fea2gs.py:142,173) is XLA's", [], step,
-              "Trainer.step"),
+              "Trainer.step", kres["T"], None),
+        "WM": ("window_attn_fwd_masked",
+               "gsasr_torch/ops/csrc/window_attn_fwd.cu",
+               "gsasr_tpu/ops/attention.py:553", [], sinfer,
+               "sr_forward (SwinIR)", _on_path(sres["WM"], "per_image"),
+               sres["WM"]),
+        "WMB": ("window_attn_bwd_masked",
+                "gsasr_torch/ops/csrc/window_attn_bwd.cu",
+                "gsasr_tpu/ops/attention.py:661", [], sstep,
+                "Trainer.step (SwinIR)", _on_path(sres["WMB"], "per_step"),
+                sres["WMB"]),
     }
-    line = [_kernel_entry(name, src, rep, also, kres[k], counts[k], path)
-            for k, (name, src, rep, also, counts, path) in meta.items()]
-    for e in line:
-        if e["name"] in ("ln_mlp", "ln_attn"):
-            k = "M" if e["name"] == "ln_mlp" else "A"
-            e["forms"] = [
-                {key: r[key] for key in ("decoder", "case", "dtype",
-                                         "per_image", "max_abs_err", "ms",
-                                         "plain_ms", "bound_ms", "bound_by")}
-                for r in forms[k]]
+    line = [_kernel_entry(name, src, rep, also, counts[k], path, rows, forms)
+            for k, (name, src, rep, also, counts, path, rows, forms)
+            in meta.items()]
     if args.json:
         os.makedirs(os.path.dirname(os.path.abspath(args.json)), exist_ok=True)
         with open(args.json, "w") as f:
@@ -1233,9 +1450,15 @@ def main() -> int:
                            cuda=torch.version.cuda, build_s=build_s,
                            ptxas=ptxas, kernels=kres, paths=runs,
                            card_vs_cpu=cvc, e2e=e2e,
-                           enhanced=dict(paths=eruns, card_vs_cpu=ecvc,
-                                         e2e=ee2e), train=train,
-                           train_fused=ftrain, train_card_vs_cpu=tcvc,
+                           enhanced=dict(kernels=ekres, paths=eruns,
+                                         card_vs_cpu=ecvc, e2e=ee2e),
+                           train=train, train_fused=ftrain,
+                           train_card_vs_cpu=tcvc,
+                           swinir=dict(kernels=sres, paths=sruns,
+                                       card_vs_cpu=scvc, e2e=se2e,
+                                       train=strain,
+                                       train_card_vs_cpu=stcvc),
+                           rdn=dict(paths=rruns, e2e=re2e),
                            total_s=time.perf_counter() - t_start), f, indent=1)
     print(f"total {time.perf_counter() - t_start:.1f} s", flush=True)
     print(f"card: {card}", flush=True)

@@ -14,7 +14,7 @@ from typing import Any, Dict, List, Optional
 
 import torch
 
-from gsasr_torch.models import EDSRNOUP, Fea2GS
+from gsasr_torch.models import EDSRNOUP, RDNNOUP, Fea2GS, SwinIRNOUP
 from gsasr_torch.models.init import init_weights
 from gsasr_torch.train.trainer import TrainConfig
 
@@ -46,7 +46,11 @@ _STRUCTURAL = {"upscale", "upsampler", "img_size", "img_range", "in_chans",
                "no_upsampling", "resi_connection", "kSize", "r", "n_colors",
                "num_in_ch", "num_out_ch", "scale", "patch_size", "ape",
                "patch_norm"}
-_ENCODERS = {"EDSRNOUP": EDSRNOUP, "EDSR": EDSRNOUP}
+_ENCODERS = {"EDSRNOUP": EDSRNOUP, "EDSR": EDSRNOUP,
+             "RDNNOUP": RDNNOUP, "RDN": RDNNOUP,
+             "SwinIRNOUP": SwinIRNOUP, "SWINNOUP": SwinIRNOUP}
+# reference yaml names -> constructor arguments
+_RENAME = {"G0": "g0", "RDNconfig": "config"}
 _DECODERS = {"Fea2GS": Fea2GS}
 
 
@@ -57,6 +61,7 @@ def _adapt(kwargs, cls):
     fields = set(inspect.signature(cls.__init__).parameters) - {"self"}
     out = {}
     for k, v in kwargs.items():
+        k = _RENAME.get(k, k)
         if k in fields:
             out[k] = tuple(v) if isinstance(v, list) else v
         elif k not in _STRUCTURAL:
@@ -69,8 +74,8 @@ def build_networks(opt: Dict[str, Any],
                    generator: Optional[torch.Generator] = None):
     """network_g / network_fea2gs -> (encoder, decoder) on the CPU, every
     weight drawn with the reference initializers from `generator` (default:
-    seeded with the options' manual_seed). Only the float32 EDSR encoder
-    and the paper Fea2GS decoder are ported."""
+    seeded with the options' manual_seed). The float32 EDSR, RDN and
+    SwinIR encoders and the paper Fea2GS decoder are ported."""
     default = "bfloat16" if "AMP" in str(opt.get("model_type", "")) else \
         "float32"
     model_dtype = str(opt.get("model_dtype", default)).lower()

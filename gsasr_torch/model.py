@@ -1,9 +1,10 @@
 """End-to-end GSASR assembly: encoder -> decoder -> rasterizer (counterpart
 of `gsasr_tpu/model.py`: EDSR-GSASR inference with the paper Fea2GS or the
-Enhanced Fea2GSRopeAMP decoder).
+Enhanced Fea2GSRopeAMP decoder; RDN- and SwinIR-GSASR with the paper one).
 
 Single-image inference: reflect-pad the LR image to a denominator
-multiple, encode, decode on the fused path (kernels M and A; the Enhanced
+multiple (`DENOMINATORS`: 24 for SwinIR, whose windows of 8 must tile the
+map), encode, decode on the fused path (kernels M and A; the Enhanced
 trunk in bf16 by default), render each image at floor(scale * padded
 size), crop to floor(scale * size).
 """
@@ -17,7 +18,8 @@ import numpy as np
 import torch
 
 from gsasr_torch import resolve_device
-from gsasr_torch.models import EDSRNOUP, Fea2GS, Fea2GSRopeAMP
+from gsasr_torch.models import (EDSRNOUP, RDNNOUP, Fea2GS, Fea2GSRopeAMP,
+                                SwinIRNOUP)
 from gsasr_torch.models.fea2gs_fast import fea2gs_apply_fused
 from gsasr_torch.models.fea2gs_rope_fast import fea2gs_rope_apply_fused
 from gsasr_torch.models.init import init_weights
@@ -54,20 +56,30 @@ def pad_to_denominator(img, denom: int):
 def make_models(encoder: str = "edsr", version: str = "paper", *,
                 generator: Optional[torch.Generator] = None, device=None):
     """Build (encoder, decoder) with seeded reference initializers, in eval
-    mode on `device` (default: the CUDA card). version: 'paper' (Fea2GS) or
-    'enhanced' / 'ultra' (Fea2GSRopeAMP with the encoder's settings)."""
+    mode on `device` (default: the CUDA card). encoder: 'edsr', 'rdn' or
+    'swinir'; version: 'paper' (Fea2GS) or, for EDSR, 'enhanced' / 'ultra'
+    (Fea2GSRopeAMP with EDSR's settings). Callers pad with
+    `DENOMINATORS[encoder]` (`sr_forward(..., denominator=...)`)."""
     dev = resolve_device(device)
-    if encoder != "edsr":
-        raise NotImplementedError(f"encoder '{encoder}' is not ported yet")
+    encoders = {"edsr": EDSRNOUP, "rdn": RDNNOUP, "swinir": SwinIRNOUP}
+    if encoder not in encoders:
+        raise NotImplementedError(
+            f"encoder '{encoder}': HAT's window-16 attentions (T = 256, "
+            "OCAB's 256 x 576) need redesigned kernels W, WB, WM and WMB")
     if version not in ("paper", "enhanced", "ultra"):
         raise NotImplementedError(f"version '{version}'")
+    if version != "paper" and encoder != "edsr":
+        raise NotImplementedError(
+            f"{encoder} {version}: the Enhanced decoders of other encoders "
+            "than EDSR come with the window-16 slice (SwinIR's has 256 seeds "
+            "in windows of 16, which need a redesigned kernel A)")
     if generator is None:
         generator = torch.Generator().manual_seed(0)
     # Module constructors draw PyTorch's default init from the global RNG;
     # fork it so building a model leaves that state alone. All kept values
     # come from `generator`.
     with torch.random.fork_rng(devices=[]):
-        enc = EDSRNOUP()
+        enc = encoders[encoder]()
         # EDSR's Enhanced/Ultra decoder takes the defaults
         # (`gsasr_tpu/model.py`'s enhanced_cfg)
         dec = Fea2GS() if version == "paper" else Fea2GSRopeAMP()

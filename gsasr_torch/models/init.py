@@ -1,8 +1,10 @@
 """Seeded initialization with the reference's PyTorch initializers
-(counterpart of `gsasr_tpu/models/init.py` for EDSR, the paper Fea2GS and
-the Enhanced Fea2GSRopeAMP).
+(counterpart of `gsasr_tpu/models/init.py` for EDSR, RDN, SwinIR, the
+paper Fea2GS and the Enhanced Fea2GSRopeAMP).
 
 - nn.Linear / nn.Conv2d: weight and bias ~ U(+-1/sqrt(fan_in));
+- SwinIR's `_init_weights` (`utils/swinir.py:940-947`): its nn.Linear
+  weights ~ trunc_normal(std 0.02), biases 0; convs keep the default;
 - ScaleInject (the reference's nn.MultiheadAttention): in_proj_weight ~
   xavier_uniform over the stacked (3E, E) matrix = U(+-sqrt(1.5/E)),
   in_proj_bias and out_proj.bias 0, out_proj.weight the Linear default;
@@ -23,6 +25,7 @@ from torch import nn
 from gsasr_torch.models.fea2gs import Fea2GS, ScaleInject, _WindowAttnParams
 from gsasr_torch.models.fea2gs_rope import (Fea2GSRopeAMP, _RopeAttn,
                                             rope_freqs_init)
+from gsasr_torch.models.swinir import SwinIRNOUP, WindowAttention
 
 
 def _uniform_(t, bound, g):
@@ -33,8 +36,12 @@ def _uniform_(t, bound, g):
 def init_weights(model: nn.Module, generator: torch.Generator) -> nn.Module:
     """Redraw every parameter of `model` in place; returns `model`."""
     g = generator
+    swinlike = isinstance(model, SwinIRNOUP)
     for mod in model.modules():
-        if isinstance(mod, (nn.Linear, nn.Conv2d)):
+        if swinlike and isinstance(mod, nn.Linear):
+            nn.init.trunc_normal_(mod.weight, std=0.02, generator=g)
+            mod.bias.zero_()
+        elif isinstance(mod, (nn.Linear, nn.Conv2d)):
             fan_in = mod.weight[0].numel()
             _uniform_(mod.weight, 1.0 / math.sqrt(fan_in), g)
             if mod.bias is not None:
@@ -46,7 +53,7 @@ def init_weights(model: nn.Module, generator: torch.Generator) -> nn.Module:
             dim = mod.in_proj_weight.shape[1]
             _uniform_(mod.in_proj_weight, math.sqrt(1.5 / dim), g)
             mod.in_proj_bias.zero_()
-        elif isinstance(mod, _WindowAttnParams):
+        elif isinstance(mod, (_WindowAttnParams, WindowAttention)):
             nn.init.trunc_normal_(mod.relative_position_bias_table, std=0.02,
                                   generator=g)
         elif isinstance(mod, _RopeAttn):

@@ -3,10 +3,12 @@
 Each `csrc/<name>.cu` compiles on first use into its own shared library
 with a plain C interface (nvcc, sm_90a), written to
 `build/gsasr_torch_kernels/` at the root of the checkout and keyed by a hash
-of the sources and flags, then loaded with ctypes. Each library exports one
-entry point of the same name, whose C signature `SIGNATURES` declares: it
-takes its pointers and the CUDA stream as `void*` and returns
-`cudaGetLastError()` after its launches; `launch` raises when that is not 0.
+of the sources and flags, then loaded with ctypes. Each library exports an
+entry point of the same name and, where `SOURCES` says so, others (the
+masked forms of W and WB are instantiations of the same kernels). Each
+entry point's C signature is declared in `SIGNATURES`: it takes its
+pointers and the CUDA stream as `void*` and returns `cudaGetLastError()`
+after its launches; `launch` raises when that is not 0.
 """
 
 from __future__ import annotations
@@ -34,11 +36,16 @@ SIGNATURES = {
     "ln_attn": "p" * 20 + "iiiiii" + "f",
     "window_attn_fwd": "pppppiiiiif",
     "window_attn_bwd": "ppppppppppiiiiif",
+    "window_attn_fwd_masked": "ppppppiiiiiif",
+    "window_attn_bwd_masked": "p" * 11 + "iiiiiif",
     "raster_bwd": "ppppppiiii",
     "ln_mlp_bwd": "p" * 16 + "iiiiii",
     "ln_attn_bwd": "p" * 28 + "iiiiiif",
     "bias_table_bwd": "pppiiii",
 }
+# Entry points compiled from another entry point's source.
+SOURCES = {"window_attn_fwd_masked": "window_attn_fwd",
+           "window_attn_bwd_masked": "window_attn_bwd"}
 _CTYPES = {"p": ctypes.c_void_p, "i": ctypes.c_int, "f": ctypes.c_float}
 
 _libs: dict = {}
@@ -55,6 +62,11 @@ def _nvcc() -> str:
         raise RuntimeError("nvcc not found: the kernels build only where "
                            "the CUDA toolkit is installed")
     return path
+
+
+def source_of(name: str) -> str:
+    """The `csrc/<source>.cu` whose library exports entry point `name`."""
+    return SOURCES.get(name, name)
 
 
 def _lib_path(name: str) -> Path:
@@ -96,14 +108,17 @@ def _finish(name: str, path: Path, job) -> None:
 
 
 def build(names) -> None:
-    """Compile the named sources in parallel (one nvcc each) and load them."""
+    """Compile the sources of the named entry points in parallel (one nvcc
+    each) and load the entry points."""
     with _lock:
         todo = [n for n in names if n not in _libs]
-        jobs = [(n, *_start(n)) for n in todo]
-        for n, path, job in jobs:
-            _finish(n, path, job)
-        for n, path, _ in jobs:
-            lib = ctypes.CDLL(str(path))
+        srcs = list(dict.fromkeys(source_of(n) for n in todo))
+        jobs = [(s, *_start(s)) for s in srcs]
+        for s, path, job in jobs:
+            _finish(s, path, job)
+        paths = {s: path for s, path, _ in jobs}
+        for n in todo:
+            lib = ctypes.CDLL(str(paths[source_of(n)]))
             fn = getattr(lib, n)
             fn.argtypes = [_CTYPES[k] for k in SIGNATURES[n]] + [ctypes.c_void_p]
             fn.restype = ctypes.c_int
@@ -111,9 +126,9 @@ def build(names) -> None:
 
 
 def ptxas_report(name: str) -> str:
-    """The compiler's register/shared-memory report of a built source, or
-    "" when its log is gone."""
-    log = _lib_path(name).with_suffix(".log")
+    """The compiler's register/shared-memory report of a built source (or
+    of an entry point's source), or "" when its log is gone."""
+    log = _lib_path(source_of(name)).with_suffix(".log")
     return log.read_text() if log.exists() else ""
 
 

@@ -1,7 +1,8 @@
 // Shared pieces of the window-attention kernels (window_attn_fwd.cu,
-// window_attn_bwd.cu): their limits, the shared-memory layout of one head's
-// operands, staging a head from the packed layout, and the softmax
-// numerators of one score row held by a warp.
+// window_attn_bwd.cu, in their plain and masked forms): their limits, the
+// shared-memory layout of one head's operands, staging a head from the
+// packed layout, and the softmax numerators of one score row held by a
+// warp.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -27,6 +28,14 @@ struct HeadLayout {
       : ld(hd | 1), q_floats(Tq * (hd | 1)), kv_floats(Tk * (hd | 1)) {}
 };
 
+// The (Tq, Tk) mask of window `win`: window win of a (B, ...) batch takes
+// class win % nW of the (nW, Tq, Tk) mask (the Swin SW-MSA convention).
+__device__ __forceinline__ const float* window_mask(const float* mask,
+                                                   int win, int nW, int Tq,
+                                                   int Tk) {
+  return mask + static_cast<size_t>(win % nW) * Tq * Tk;
+}
+
 // dst[r * ld + d] = src[(row0 + r) * C + n0 + d] for r < rows, d < hd.
 __device__ __forceinline__ void stage_head(const float* __restrict__ src,
                                            size_t row0, int rows, int C,
@@ -40,12 +49,15 @@ __device__ __forceinline__ void stage_head(const float* __restrict__ src,
 }
 
 // Turns one row of raw scores s (this lane's keys) into the softmax's
-// numerators, exp(s * scale + bias_row[j] - row max), and returns their sum
-// over the row; the caller divides by it. Entries of keys j >= Tk are left
-// as they are. Called by a whole warp.
+// numerators, exp(s * scale + bias_row[j] (+ mask_row[j]) - row max), and
+// returns their sum over the row; the caller divides by it. The mask is a
+// compile-time form (kMask), so the unmasked kernels compile as without it.
+// Entries of keys j >= Tk are left as they are. Called by a whole warp.
+template <bool kMask = false>
 __device__ __forceinline__ float softmax_exp_row(float (&s)[kKeysPer],
                                                  const float* bias_row,
-                                                 int Tk, float scale) {
+                                                 int Tk, float scale,
+                                                 const float* mask_row = nullptr) {
   const int lane = threadIdx.x & 31;
   float mx = -INFINITY;
 #pragma unroll
@@ -54,6 +66,7 @@ __device__ __forceinline__ float softmax_exp_row(float (&s)[kKeysPer],
     if (j < Tk) {
       s[m] = s[m] * scale;
       if (bias_row) s[m] += bias_row[j];
+      if constexpr (kMask) s[m] += mask_row[j];
       mx = fmaxf(mx, s[m]);
     }
   }

@@ -1,5 +1,6 @@
-// The device code of kernel WB (window_attn_bwd.cu), shared with kernel AB
-// (ln_attn_bwd.cu), which also needs the recomputed attention output.
+// The device code of kernel WB and its masked form WMB (window_attn_bwd.cu),
+// shared with kernel AB (ln_attn_bwd.cu), which also needs the recomputed
+// attention output.
 //
 // One 256-thread block per (window, head) stages q_h, k_h, v_h and g_h
 // (T x hd each) in shared memory. Pass 1: each warp takes four query rows,
@@ -14,7 +15,10 @@
 // (window, head). dbias is a sum over windows, and blocks run in no order,
 // so a second launch sums ds_w over the windows in ascending order, one
 // thread per (h, i, j): no float atomics, and the result is the same bits
-// from run to run.
+// from run to run. With kMask (WMB) the recomputed scores take the window
+// class's mask rows, mask[w % nW], after the bias, as the forward does; the
+// mask is a constant and gets no gradient. The flag is a template
+// parameter, so WB and AB compile as without it.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -33,6 +37,7 @@ using gsasr::kWarps;
 using gsasr::softmax_exp_row;
 using gsasr::stage_head;
 using gsasr::warp_sum;
+using gsasr::window_mask;
 
 // Head-product micro-tile: 32 output-row groups x 8 head-column groups.
 constexpr int kRowGroups = 32;
@@ -96,7 +101,7 @@ __device__ void head_product(const float* A, int lda, const float* X, int ldx,
   }
 }
 
-template <bool kAtt>
+template <bool kAtt, bool kMask>
 __global__ void __launch_bounds__(kThreads)
 window_attn_bwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
                        const float* __restrict__ v,
@@ -104,7 +109,8 @@ window_attn_bwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
                        const float* __restrict__ g, float* __restrict__ dq,
                        float* __restrict__ dk, float* __restrict__ dv,
                        float* __restrict__ ds_w, float* __restrict__ att,
-                       int Tq, int Tk, int C, int nh, float scale) {
+                       int Tq, int Tk, int C, int nh, float scale,
+                       const float* __restrict__ mask, int nW) {
   extern __shared__ float smem[];
   const int hd = C / nh;
   const Layout L(Tq, Tk, hd);
@@ -131,6 +137,7 @@ window_attn_bwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
 
   // Pass 1: p, ds and dq, four query rows per warp.
   const float* hbias = bias ? bias + static_cast<size_t>(head) * Tq * Tk : nullptr;
+  const float* wmask = kMask ? window_mask(mask, win, nW, Tq, Tk) : nullptr;
   for (int i0 = warp * kQRows; i0 < Tq; i0 += kWarps * kQRows) {
     float s[kQRows][kKeysPer], dp[kQRows][kKeysPer];
 #pragma unroll
@@ -160,9 +167,9 @@ window_attn_bwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
 #pragma unroll
     for (int r = 0; r < kQRows; ++r) {
       const int i = min(i0 + r, Tq - 1);
-      const float sum = softmax_exp_row(
+      const float sum = softmax_exp_row<kMask>(
           s[r], hbias ? hbias + static_cast<size_t>(i) * Tk : nullptr, Tk,
-          scale);
+          scale, kMask ? wmask + static_cast<size_t>(i) * Tk : nullptr);
       float rs = 0.f;
 #pragma unroll
       for (int m = 0; m < kKeysPer; ++m) {
@@ -232,26 +239,28 @@ dbias_sum_kernel(const float* __restrict__ ds_w, float* __restrict__ dbias,
   dbias[e] = acc;
 }
 
-// The launches of kernel WB (with kAtt, also att (B, Tq, C)). Arguments as
-// window_attn_bwd in window_attn_bwd.cu.
-template <bool kAtt>
+// The launches of kernel WB (with kAtt, also att (B, Tq, C); with kMask,
+// kernel WMB: mask (nW, Tq, Tk), B a multiple of nW). Arguments as
+// window_attn_bwd and window_attn_bwd_masked in window_attn_bwd.cu.
+template <bool kAtt, bool kMask = false>
 cudaError_t launch_window_attn_bwd(const float* q, const float* k,
                                    const float* v, const float* bias,
                                    const float* g, float* dq, float* dk,
                                    float* dv, float* ds_w, float* dbias,
                                    float* att, int B, int Tq, int Tk, int C,
-                                   int nh, float scale, cudaStream_t st) {
+                                   int nh, float scale, cudaStream_t st,
+                                   const float* mask = nullptr, int nW = 1) {
   if (B < 1 || Tq < 1 || Tk < 1 || nh < 1 || C % nh != 0 || C / nh > kMaxHd ||
-      Tq > kMaxT || Tk > kMaxT)
+      Tq > kMaxT || Tk > kMaxT || nW < 1 || B % nW != 0)
     return cudaErrorInvalidValue;
   const Layout L(Tq, Tk, C / nh);
   const size_t smem = L.bytes(Tk);
   cudaError_t err = cudaFuncSetAttribute(
-      window_attn_bwd_kernel<kAtt>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem));
+      window_attn_bwd_kernel<kAtt, kMask>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
   if (err != cudaSuccess) return err;
-  window_attn_bwd_kernel<kAtt><<<dim3(nh, B), kThreads, smem, st>>>(
-      q, k, v, bias, g, dq, dk, dv, ds_w, att, Tq, Tk, C, nh, scale);
+  window_attn_bwd_kernel<kAtt, kMask><<<dim3(nh, B), kThreads, smem, st>>>(
+      q, k, v, bias, g, dq, dk, dv, ds_w, att, Tq, Tk, C, nh, scale, mask, nW);
   err = cudaGetLastError();
   if (err != cudaSuccess || !dbias) return err;
   const int n = nh * Tq * Tk;

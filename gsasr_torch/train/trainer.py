@@ -11,7 +11,11 @@ The decoder runs its module path by default and its fused path with
 `fused_decoder=True`, as the JAX Trainer's `_dec_apply` does. Per step of
 the paper decoder on the card: module path 38 W and 38 WB; fused path 83 M
 and 38 A forward, 83 MB and 38 AB backward; either way 1 R, 1 RB and 38 T
-(the bias-table gradients).
+(the bias-table gradients). A SwinIR encoder adds 18 W, 18 WB, 18 WM, 18
+WMB and 36 T per step (its unshifted and shifted blocks and their bias
+tables), and its DropPath masks come from a generator on the trainer's
+device seeded from (config.seed, step), so one state and batch give one
+gradient.
 """
 
 from __future__ import annotations
@@ -20,6 +24,7 @@ import copy
 import dataclasses
 from typing import Optional, Tuple
 
+import numpy as np
 import torch
 
 from gsasr_torch import resolve_device
@@ -50,7 +55,8 @@ class TrainConfig:
     canvas_hw: Tuple[int, int] = (192, 192)
     # l_total = L1 + ssim_weight * (1 - SSIM); 0 disables it
     ssim_weight: float = 0.0
-    # seed of stochastic layers (droppath); the ported encoders have none
+    # seed of the encoder's stochastic depth (SwinIR's DropPath): each
+    # step's masks come from (seed, step)
     seed: int = 0
     # the decoder through the fused layer kernels (M and A forward, MB and
     # AB backward) instead of the module path (W and WB); the module path
@@ -111,7 +117,10 @@ class Trainer:
         """(loss, metrics) of one batch on the current weights, with the
         autograd graph kept."""
         cfg = self.cfg
-        feat = self.enc(batch["lq"])
+        if getattr(self.enc, "drop_path_rate", 0.0) > 0.0:
+            feat = self.enc(batch["lq"], generator=self.droppath_generator())
+        else:
+            feat = self.enc(batch["lq"])
         if cfg.fused_decoder:
             gs = fea2gs_apply_fused(self.dec, feat, batch["scale"])
         else:
@@ -145,6 +154,15 @@ class Trainer:
         den = wmask.sum(dim=(1, 2, 3)) * smap.shape[-1]
         l_ssim = cfg.ssim_weight * (num / den.clamp(min=1.0)).mean()
         return l_pix + l_ssim, {"l_pix": l_pix, "l_ssim": l_ssim}
+
+    def droppath_generator(self) -> torch.Generator:
+        """The generator of this step's DropPath masks, on the trainer's
+        device, seeded from (config.seed, step): deterministic in (seed,
+        step) as the JAX Trainer's fold_in stream is, though not the same
+        bits."""
+        seed = np.random.SeedSequence(
+            (17, self.cfg.seed, self.step_count)).generate_state(1, np.uint64)
+        return torch.Generator(device=self.device).manual_seed(int(seed[0]))
 
     def grads(self, batch):
         """(loss, metrics, grads_g, grads_d) of one batch, moved to the

@@ -1,6 +1,6 @@
 """JAX parameter trees -> the port's state_dicts: the inverse of
-`gsasr_tpu/utils/torch_convert.py`'s `convert_edsr`, `convert_fea2gs` and
-`convert_fea2gs_rope`.
+`gsasr_tpu/utils/torch_convert.py`'s `convert_edsr`, `convert_rdn`,
+`convert_swinir`, `convert_fea2gs` and `convert_fea2gs_rope`.
 
 Trees are nested dicts of arrays. Conv kernels (kH, kW, I, O) become
 weights (O, I, kH, kW); dense kernels (I, O) become (O, I); LayerNorm
@@ -76,6 +76,52 @@ def _edsr(p) -> Dict[str, torch.Tensor]:
     return sd
 
 
+def _rdn(p) -> Dict[str, torch.Tensor]:
+    sd: Dict[str, torch.Tensor] = {}
+    for key, name in (("SFENet1", "sfenet1"), ("SFENet2", "sfenet2"),
+                      ("GFF.0", "gff_0"), ("GFF.1", "gff_1")):
+        _conv(sd, key, p[name])
+    for i in range(_count(p, "rdb_")):
+        bp = p[f"rdb_{i}"]
+        for c in range(_count(bp, "conv_")):
+            _conv(sd, f"RDBs.{i}.convs.{c}.conv.0", bp[f"conv_{c}"])
+        _conv(sd, f"RDBs.{i}.LFF", bp["lff"])
+    return sd
+
+
+def _swinir(p) -> Dict[str, torch.Tensor]:
+    sd: Dict[str, torch.Tensor] = {}
+    _conv(sd, "conv_first", p["conv_first"])
+    _ln(sd, "patch_embed.norm", p["patch_embed_norm"])
+    for i in range(_count(p, "layer_")):
+        lp = p[f"layer_{i}"]
+        for j in range(_count(lp, "block_")):
+            bp = lp[f"block_{j}"]
+            bk = f"layers.{i}.residual_group.blocks.{j}"
+            _ln(sd, f"{bk}.norm1", bp["norm1"])
+            _ln(sd, f"{bk}.norm2", bp["norm2"])
+            sd[f"{bk}.attn.relative_position_bias_table"] = _t(
+                bp["attn"]["relative_position_bias_table"])
+            _dense(sd, f"{bk}.attn.qkv", bp["attn"]["qkv"])
+            _dense(sd, f"{bk}.attn.proj", bp["attn"]["proj"])
+            _dense(sd, f"{bk}.mlp.fc1", bp["mlp_fc1"])
+            _dense(sd, f"{bk}.mlp.fc2", bp["mlp_fc2"])
+        _conv(sd, f"layers.{i}.conv", lp["conv"])
+    _ln(sd, "norm", p["norm"])
+    _conv(sd, "conv_after_body", p["conv_after_body"])
+    _conv(sd, "conv_before_upsample.0", p["conv_before_upsample_0"])
+    return sd
+
+
+def _encoder(p) -> Dict[str, torch.Tensor]:
+    """An EDSR, RDN or SwinIR tree, told apart by its keys."""
+    if "patch_embed_norm" in p:
+        return _swinir(p)
+    if "sfenet1" in p:
+        return _rdn(p)
+    return _edsr(p)
+
+
 def _fea2gs(p) -> Dict[str, torch.Tensor]:
     """A paper Fea2GS tree, or an Enhanced Fea2GSRopeAMP one (told apart by
     its `conv_final`): RoPE attentions instead of bias tables, and a conv
@@ -125,11 +171,11 @@ def _fea2gs(p) -> Dict[str, torch.Tensor]:
 
 
 def params_from_jax(enc_params, dec_params):
-    """(EDSR params, paper Fea2GS or Enhanced Fea2GSRopeAMP params) ->
-    (encoder state_dict, decoder state_dict) with the reference keys. The
-    paper decoder's relative_position_index buffers are not parameters and
-    are left to the module (see `load_params`)."""
-    return _edsr(enc_params), _fea2gs(dec_params)
+    """(EDSR, RDN or SwinIR params; paper Fea2GS or Enhanced Fea2GSRopeAMP
+    params) -> (encoder state_dict, decoder state_dict) with the reference
+    keys. The relative_position_index buffers (paper decoder, SwinIR) are
+    not parameters and are left to the module (see `load_params`)."""
+    return _encoder(enc_params), _fea2gs(dec_params)
 
 
 def load_params(module: torch.nn.Module, state_dict) -> torch.nn.Module:

@@ -2,15 +2,17 @@
 """Where the time of one gsasr_torch image or training step goes, on one
 CUDA card.
 
-  python3 scripts/profile_torch_e2e.py [--enhanced [--fp32-trunk] |
+  python3 scripts/profile_torch_e2e.py [--encoder edsr|swinir|rdn]
+                                       [--enhanced [--fp32-trunk] |
                                         --train [--fused]]
                                        [--iters 3] [--json PATH]
 
-Builds the paper EDSR-GSASR (with --enhanced the Enhanced one, whose
-decoder trunk runs in bf16, or in fp32 with --fp32-trunk) with seeded
-weights, warms up, then traces
-with torch.profiler either `sr_forward` on a 180x180 x4 image or, with
---train, `Trainer.step` of configs/train_edsr_paper.yml's recipe on
+Builds the paper EDSR-GSASR (--encoder swinir or rdn: SwinIR- or
+RDN-GSASR; with --enhanced the Enhanced EDSR-GSASR, whose decoder trunk
+runs in bf16, or in fp32 with --fp32-trunk) with seeded weights, warms up,
+then traces with torch.profiler either `sr_forward` on a 180x180 x4 image
+(padded to the encoder's denominator: 192x192 for SwinIR) or, with
+--train, `Trainer.step` of configs/train_<encoder>_paper.yml's recipe on
 chip_smoke.py's synthetic batch of 16 samples of 48x48 (with --fused, on
 the fused decoder: fused_decoder=True). Prints the device
 time per image (or step) grouped by kernel family (the port's kernels,
@@ -41,7 +43,10 @@ sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
 FAMILIES = (
     ("R raster_fwd", ("raster_fwd_kernel",)),
     ("RB raster_bwd", ("raster_bwd_kernel",)),
+    # the masked forms (WM, WMB) are instantiations with kMask = true
+    ("WM window_attn_fwd masked", ("window_attn_fwd_kernel<true>",)),
     ("W window_attn_fwd", ("window_attn_fwd_kernel",)),
+    ("WMB window_attn_bwd masked", ("window_attn_bwd_kernel<false, true>",)),
     # AB runs WB's device code for its attention backward
     ("WB window_attn_bwd, AB attention", ("window_attn_bwd_kernel",
                                           "dbias_sum_kernel")),
@@ -78,6 +83,9 @@ def main() -> int:
                     help="trace Trainer.step instead of sr_forward")
     ap.add_argument("--fused", action="store_true",
                     help="with --train: the fused decoder")
+    ap.add_argument("--encoder", default="edsr",
+                    choices=("edsr", "swinir", "rdn"),
+                    help="the paper GSASR of this encoder")
     ap.add_argument("--enhanced", action="store_true",
                     help="trace sr_forward of the Enhanced EDSR-GSASR")
     ap.add_argument("--fp32-trunk", action="store_true",
@@ -88,12 +96,13 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("profile_torch_e2e: no CUDA card", file=sys.stderr)
         return 2
-    from gsasr_torch.model import make_models, sr_forward
+    from gsasr_torch.model import DENOMINATORS, make_models, sr_forward
 
-    if args.enhanced and args.train:
-        ap.error("--enhanced traces inference only")
+    if args.enhanced and (args.train or args.encoder != "edsr"):
+        ap.error("--enhanced traces EDSR inference only")
     trunk = torch.float32 if args.fp32_trunk else None
-    enc, dec = make_models("edsr", "enhanced" if args.enhanced else "paper",
+    enc, dec = make_models(args.encoder,
+                           "enhanced" if args.enhanced else "paper",
                            generator=torch.Generator().manual_seed(0))
     if args.train:
         from chip_smoke import PAPER_BATCH, PAPER_TRAIN, paper_batch
@@ -114,7 +123,8 @@ def main() -> int:
                         generator=torch.Generator().manual_seed(4)).cuda()
 
         def run(i):
-            sr_forward(enc, dec, lq, 4.0, trunk_dtype=trunk)
+            sr_forward(enc, dec, lq, 4.0, trunk_dtype=trunk,
+                       denominator=DENOMINATORS[args.encoder])
     for i in range(2):
         run(i)
     torch.cuda.synchronize()
@@ -150,6 +160,7 @@ def main() -> int:
     unit = "step" if args.train else "image"
     res = dict(
         card=card, iters=per, unit=unit,
+        encoder=args.encoder,
         decoder=("paper" if not args.enhanced else "Enhanced, fp32 trunk"
                  if args.fp32_trunk else "Enhanced, bf16 trunk"),
         wall_ms_per_image=wall_ms / per,
@@ -161,7 +172,7 @@ def main() -> int:
         top_kernels=[dict(name=e.key[:120], calls_per_image=e.count / per,
                           ms_per_image=e.self_device_time_total / 1e3 / per)
                      for e in top])
-    print(f"{res['card']}, {res['decoder']}: "
+    print(f"{res['card']}, {res['encoder']}, {res['decoder']}: "
           f"{res['wall_ms_per_image']:.3f} ms per {unit} "
           f"(profiled), device busy {res['device_busy_ms_per_image']:.3f} ms "
           f"= {100 * res['device_busy_share']:.1f}%")

@@ -3,6 +3,7 @@ the declared signatures against the C entry points in the sources, and the
 argument and tensor checks the wrappers make before any launch."""
 
 import re
+from pathlib import Path
 
 import pytest
 import torch
@@ -13,10 +14,12 @@ _KIND = (("void* stream", "s"), ("*", "p"), ("int ", "i"), ("float ", "f"))
 
 
 def _c_signature(name):
-    """Argument kinds of `extern "C" int name(...)` in csrc/name.cu."""
-    src = (_build.SRC_DIR / f"{name}.cu").read_text()
+    """Argument kinds of `extern "C" int name(...)` in the entry point's
+    source, csrc/<source_of(name)>.cu."""
+    src_name = _build.source_of(name)
+    src = (_build.SRC_DIR / f"{src_name}.cu").read_text()
     m = re.search(r'extern "C" int ' + name + r"\(([^)]*)\)", src)
-    assert m, f"no C entry point {name} in {name}.cu"
+    assert m, f"no C entry point {name} in {src_name}.cu"
     kinds = []
     for param in " ".join(m.group(1).split()).split(","):
         param = param.strip() if "stream" in param else param.strip() + " "
@@ -30,8 +33,18 @@ def test_signature_matches_source(name):
 
 
 def test_every_source_is_declared():
+    """Each source exports its own entry point; the masked forms of W and
+    WB (WM, WMB) live in W's and WB's sources."""
     assert sorted(p.stem for p in _build.SRC_DIR.glob("*.cu")) == \
-        sorted(_build.SIGNATURES)
+        sorted({_build.source_of(n) for n in _build.SIGNATURES})
+    assert {_build.source_of(n) for n in _build.SOURCES} <= \
+        set(_build.SIGNATURES)
+    for src in _build.SRC_DIR.glob("*.cu"):
+        declared = {n for n in _build.SIGNATURES
+                    if _build.source_of(n) == src.stem}
+        exported = set(re.findall(r'extern "C" int (\w+)\(',
+                                  src.read_text()))
+        assert exported == declared, src.name
 
 
 @pytest.mark.parametrize("args", [
@@ -103,3 +116,34 @@ def test_backward_wrappers_check_before_launch():
     with pytest.raises(ValueError, match="CUDA"):
         bias_table.bias_table_bwd(meta(4, 16, 16),
                                   torch.zeros(9, 3, dtype=torch.int32))
+
+
+def test_build_compiles_each_source_once(monkeypatch, tmp_path):
+    """W and WM (and WB and WMB) come from one nvcc run of their source,
+    and each entry point is loaded from that source's library."""
+    import types
+
+    started = []
+
+    def start(src):
+        started.append(src)
+        return tmp_path / f"{src}.so", None
+
+    loaded = []
+
+    def cdll(path):
+        loaded.append(path)
+        return types.SimpleNamespace(
+            **{n: types.SimpleNamespace() for n in _build.SIGNATURES})
+
+    monkeypatch.setattr(_build, "_libs", {})
+    monkeypatch.setattr(_build, "_start", start)
+    monkeypatch.setattr(_build.ctypes, "CDLL", cdll)
+    names = ["window_attn_fwd", "window_attn_fwd_masked",
+             "window_attn_bwd_masked", "window_attn_bwd"]
+    _build.build(names)
+    assert started == ["window_attn_fwd", "window_attn_bwd"]
+    assert [Path(p).name for p in loaded] == [
+        "window_attn_fwd.so", "window_attn_fwd.so", "window_attn_bwd.so",
+        "window_attn_bwd.so"]
+    assert sorted(_build._libs) == sorted(names)

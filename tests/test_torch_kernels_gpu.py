@@ -198,6 +198,90 @@ def test_window_attn_bwd_matches_plain_and_repeats(cuda, b, tq, tk, c, nh,
         torch.testing.assert_close(o, r, rtol=1e-4, atol=tol)
 
 
+# (windows, mask period nW, T, C, heads, bias): SwinIR's inference shape
+# (one 192x192 image: 576 window classes) cut to 72 windows, its training
+# shape (36 classes repeated), a prime period with r = 3, no bias
+MASKED_CASES = [(72, 72, 64, 180, 6, True), (144, 36, 64, 180, 6, True),
+                (39, 13, 64, 180, 6, True), (24, 8, 64, 96, 4, False)]
+
+
+def _swin_mask(cuda, nw, t, seed=4):
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    return torch.where(torch.rand(nw, t, t, generator=g) < 0.4, -100.0,
+                       0.0).to(cuda)
+
+
+@pytest.mark.parametrize("b,nw,t,c,nh,bias", MASKED_CASES)
+def test_window_attn_masked_matches_plain_and_repeats(cuda, b, nw, t, c, nh,
+                                                      bias):
+    """WM and WMB against their plain versions; WMB twice, bitwise."""
+    from gsasr_torch.ops import attention as ta
+
+    q, k, v, bs, g = _attn_inputs(cuda, b, t, t, c, nh, bias)
+    mask = _swin_mask(cuda, nw, t)
+    scale = (c // nh) ** -0.5
+    torch.testing.assert_close(
+        ta.window_attention_packed_masked_fwd(q, k, v, bs, mask, scale, nh),
+        ta.window_attention_packed_plain(q, k, v, bs, scale, nh, mask),
+        rtol=1e-4, atol=1e-4)
+    out = ta.window_attention_packed_masked_bwd(q, k, v, bs, mask, g, scale,
+                                                nh)
+    again = ta.window_attention_packed_masked_bwd(q, k, v, bs, mask, g,
+                                                  scale, nh)
+    ref = ta.window_attention_packed_bwd_plain(q, k, v, bs, g, scale, nh,
+                                               mask)
+    assert (out[3] is None) == (not bias)
+    for o, a, r in zip(out, again, ref):
+        if r is None:
+            continue
+        assert torch.equal(o, a)
+        tol = 1e-4 * float(r.abs().max())
+        torch.testing.assert_close(o, r, rtol=1e-4, atol=tol)
+
+
+def test_window_attn_masked_refuses_bad_period(cuda):
+    """No fallback on the card: a period that does not divide the window
+    count, or T above the kernels' limit, raises before any launch."""
+    from gsasr_torch.ops import attention as ta
+
+    q, k, v, bs, g = _attn_inputs(cuda, 10, 64, 64, 180, 6)
+    n = ta.window_attention_packed_masked_fwd.launches
+    with pytest.raises(ValueError, match="multiple"):
+        ta.window_attention_packed_masked_fwd(q, k, v, bs,
+                                              _swin_mask(cuda, 4, 64), 0.2, 6)
+    big = torch.zeros(2, 169, 180, device=cuda)
+    with pytest.raises(ValueError, match="T <="):
+        ta.window_attention_packed_masked_bwd(
+            big, big, big, None, torch.zeros(1, 169, 169, device=cuda), big,
+            0.2, 6)
+    assert ta.window_attention_packed_masked_fwd.launches == n
+
+
+def test_swinir_block_through_autograd(cuda):
+    """A shifted SwinIR block on the card (WM forward, WMB backward, T for
+    its bias table) against the same block on the CPU."""
+    import copy
+
+    from gsasr_torch.models.init import init_weights
+    from gsasr_torch.models.swinir import SwinIRNOUP
+
+    torch.backends.cudnn.allow_tf32 = False
+    m = init_weights(SwinIRNOUP(embed_dim=60, depths=(2,), num_heads=(6,),
+                                drop_path_rate=0.0),
+                     torch.Generator().manual_seed(5))
+    x = torch.rand(2, 24, 16, 3, generator=torch.Generator().manual_seed(6))
+    outs = []
+    for dev in ("cpu", cuda):
+        mm = copy.deepcopy(m).to(dev)
+        y = mm(x.to(dev))
+        y.square().sum().backward()
+        outs.append([y.detach().cpu()] + [p.grad.cpu()
+                                         for p in mm.parameters()])
+    for a, r in zip(*outs):
+        tol = 1e-4 * float(r.abs().max())
+        torch.testing.assert_close(a, r, rtol=1e-4, atol=tol)
+
+
 def test_raster_bwd_matches_plain_and_repeats(cuda):
     from gsasr_torch.ops import rasterizer as tr
 

@@ -237,7 +237,7 @@ def test_make_models_seeded_and_shaped():
     w = dec.gs_selfattn_blocks[0].blocks[0].mlp_selfattn.fc1.weight
     assert w.abs().max() <= bound and w.abs().max() > 0.9 * bound
     with pytest.raises(NotImplementedError):
-        make_models("swinir", "paper", device="cpu")
+        make_models("hat", "paper", device="cpu")
 
 
 # two layers per block, so the odd layers' feature and lattice rolls run
