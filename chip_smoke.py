@@ -57,6 +57,23 @@
    (W 56, WB 56, WM 18, WMB 18, R 1, RB 1, T 74 per step), and a tiny step
    (drop_path_rate 0) on the card against the CPU.
 17. RDN: path phase and end-to-end timing of make_models("rdn", "paper").
+18. Enhanced training kernel phase (TF32 off): W-bf16 and WB-bf16 (the
+   bfloat16 forms of W and WB) against their plain versions at the
+   Enhanced training shape (256 windows x 144 tokens x 192 channels, 6
+   heads of 32, no bias) and at an odd shape (Tq 144, Tk 100, a bias),
+   WB-bf16 twice for bitwise repeatability; times, bounds and the SDPA
+   yardstick in bf16.
+19. Enhanced training: Trainer.step of configs/train_edsr_amp.yml's recipe
+   (the networks as build_networks builds them: bf16 compute on fp32
+   parameters, the module decoder) at batch 16, as phase 8 (W-bf16 38,
+   WB-bf16 38, R 1, RB 1 per step, nothing else), and a tiny bf16 step on
+   the card against the CPU.
+20. RDN-Enhanced: path phase and end-to-end timing of make_models("rdn",
+   "enhanced") (two cross-attention blocks: 88 M and 40 A per forward).
+
+Every training phase also times Trainer.grads, which runs with cuDNN's
+deterministic algorithms, against the same forward and backward under
+PyTorch's default cuDNN flags, in turns (the cost of determinism).
 
 Any failed phase raises and the exit code is not 0. The line before the
 last is {"kernels": [...]}; the last is
@@ -143,9 +160,11 @@ GRAD_TOL = 1e-4
 # chain (38 inject, 38 feature/self FFNs, 7 block tails) and A and AB once
 # per attention instead of W and WB.
 TRAIN_COUNTS = {"R": 1, "M": 0, "A": 0, "W": 38, "WB": 38, "RB": 1, "MB": 0,
-                "AB": 0, "T": 38, "WM": 0, "WMB": 0}
+                "AB": 0, "T": 38, "WM": 0, "WMB": 0, "W-bf16": 0,
+                "WB-bf16": 0}
 FUSED_TRAIN_COUNTS = {"R": 1, "M": 83, "A": 38, "W": 0, "WB": 0, "RB": 1,
-                      "MB": 83, "AB": 38, "T": 38, "WM": 0, "WMB": 0}
+                      "MB": 83, "AB": 38, "T": 38, "WM": 0, "WMB": 0,
+                      "W-bf16": 0, "WB-bf16": 0}
 # SwinIR (6 RSTBs of 6 blocks, window 8, shift 4 on odd blocks): per
 # forward 18 W (unshifted blocks) and 18 WM (shifted), per step their
 # backward too, and 36 more T (its bias tables). configs/
@@ -154,6 +173,23 @@ FUSED_TRAIN_COUNTS = {"R": 1, "M": 83, "A": 38, "W": 0, "WB": 0, "RB": 1,
 SWINIR_DENOMINATOR = 24
 SWINIR_PER_FORWARD = {"W": 18, "WM": 18}
 SWINIR_TRAIN_COUNTS = dict(TRAIN_COUNTS, W=56, WB=56, WM=18, WMB=18, T=74)
+# configs/train_edsr_amp.yml (the Enhanced EDSR recipe, GSASRAMPModel:
+# bf16 compute on fp32 parameters, no clip) as build_train_config reads it:
+# the paper recipe's numbers (tests/test_torch_enhanced_train.py holds them
+# equal); its dataset block rounds gt up (round_mode: ceil).
+ENHANCED_TRAIN = dict(PAPER_TRAIN)
+# Launches per Enhanced step at the bf16 recipe: W-bf16 and WB-bf16 once
+# per attention (2 cross + 36 self), R and RB once; RoPE has no bias
+# table, so no T.
+ENHANCED_TRAIN_COUNTS = dict({k: 0 for k in TRAIN_COUNTS}, R=1, RB=1,
+                             **{"W-bf16": 38, "WB-bf16": 38})
+# RDN's Enhanced decoder (two cross-attention blocks of two layers): per
+# forward 8 + 2 + 72 + 6 M and 4 + 36 A.
+RDN_ENHANCED_PER_FORWARD = {"M": 88, "A": 40}
+# A tiny bf16 step, card against CPU: tests/test_torch_enhanced_train.py's
+# bf16 depth of its decoder (DEC_DEPTH); each network's gradient within
+# relative L2 2^-8 times it (the encoder three convs deeper).
+ENHANCED_TINY_DEPTH = 17
 TRAIN_WARMUP = 2
 TRAIN_STEPS = 5
 
@@ -571,7 +607,7 @@ def path_phase(enc, dec, dev, kernels, label="paper", denominator=12,
     """sr_forward on the user-facing requests (the decoder's default trunk
     type); counts each kernel's launches from zero for each request. Per
     forward: 1 R per image, M and A as the paper decoder launches them, and
-    `extra` (the encoder's kernels)."""
+    `extra` (the encoder's kernels, or another decoder's M and A counts)."""
     from gsasr_torch.model import sr_forward
 
     g = torch.Generator().manual_seed(2)
@@ -591,8 +627,8 @@ def path_phase(enc, dec, dev, kernels, label="paper", denominator=12,
         if tuple(out.shape) != want or not torch.isfinite(out).all():
             raise AssertionError(f"bad output {tuple(out.shape)} for {want}")
         want_counts = {k: 0 for k in kernels}
-        want_counts.update(R=b, M=M_PER_FORWARD, A=A_PER_FORWARD,
-                           **(extra or {}))
+        want_counts.update(R=b, M=M_PER_FORWARD, A=A_PER_FORWARD)
+        want_counts.update(extra or {})
         if counts != want_counts:
             raise AssertionError(f"launch counts {counts}")
         runs.append(dict(request=[b, h, w], scale=scale, shape=list(out.shape),
@@ -688,14 +724,16 @@ def e2e_phase(enc, dec, dev, trunk_dtype=None, label="paper",
     return res
 
 
-def paper_batch(b: int, seed: int):
+def paper_batch(b: int, seed: int, ceil: bool = False):
     """A synthetic batch of the paper recipe: b samples of 48x48 LR, scales
-    uniform in [1, 4], gt_h = gt_w = round(scale * 48), random gt on the
-    192x192 canvas; numpy from a seed."""
+    uniform in [1, 4], gt_h = gt_w = round(scale * 48) (ceil with `ceil`,
+    the Enhanced recipe's round_mode), random gt on the 192x192 canvas;
+    numpy from a seed."""
     rng = np.random.default_rng(seed)
     hmax = PAPER_TRAIN["canvas_hw"][0]
     scales = rng.uniform(*PAPER_SCALES, b).astype(np.float32)
-    gt = np.round(scales * PAPER_LR_SIZE).astype(np.int32)
+    gt = (np.ceil if ceil else np.round)(scales * PAPER_LR_SIZE).astype(
+        np.int32)
     return {"lq": rng.random((b, PAPER_LR_SIZE, PAPER_LR_SIZE, 3),
                              dtype=np.float32),
             "gt": rng.random((b, hmax, hmax, 3), dtype=np.float32),
@@ -703,11 +741,12 @@ def paper_batch(b: int, seed: int):
 
 
 def _sdpa_ms(q, k, v, mask, g, nh, scale):
-    """Yardsticks for W and WB (WM and WMB): one
+    """Yardsticks for W and WB (WM and WMB, W-bf16 and WB-bf16): one
     scaled_dot_product_attention call on (B, nh, T, hd) views of the packed
     operands with a float attn_mask (the bias as (1, nh, Tq, Tk), or bias
-    and window mask summed to (B, nh, Tq, Tk)), and its backward through
-    torch.autograd.grad. Returns (fwd ms, bwd ms or None, why None)."""
+    and window mask summed to (B, nh, Tq, Tk); none without a bias), and
+    its backward through torch.autograd.grad. Returns (fwd ms, bwd ms or
+    None, why None)."""
     import torch.nn.functional as F
 
     b, tq, c = q.shape
@@ -715,12 +754,13 @@ def _sdpa_ms(q, k, v, mask, g, nh, scale):
     qh, kh, vh, gh = heads(q), heads(k), heads(v), heads(g)
     fwd = _time_ms(lambda: F.scaled_dot_product_attention(
         qh, kh, vh, attn_mask=mask, scale=scale), 10)
-    leaves = [x.detach().requires_grad_() for x in (qh, kh, vh, mask)]
+    leaves = [x.detach().requires_grad_() for x in (qh, kh, vh, mask)
+              if x is not None]
     try:
         with torch.enable_grad():
-            out = F.scaled_dot_product_attention(*leaves[:3],
-                                                 attn_mask=leaves[3],
-                                                 scale=scale)
+            out = F.scaled_dot_product_attention(
+                *leaves[:3], attn_mask=None if mask is None else leaves[3],
+                scale=scale)
             bwd = _time_ms(lambda: torch.autograd.grad(
                 out, leaves, gh, retain_graph=True), 10)
         return fwd, bwd, None
@@ -1054,22 +1094,152 @@ def swinir_kernel_phase(enc, dev):
     return results
 
 
-def _train_run(dev, kernels, b: int, fused: bool, encoder: str):
+@torch.no_grad()
+def enhanced_train_kernel_phase(dec, dev):
+    """W-bf16 and WB-bf16 against their plain versions at the Enhanced
+    training step's shape (16 samples of 48x48: 256 windows of 144 tokens,
+    192 channels, 6 heads of 32, no bias: the RoPE attentions, 38 of each
+    per step) and at an odd shape (Tq 144 against Tk 100, with a bias, as
+    the paper's bf16 module path would take it), WB-bf16 twice to show the
+    bits repeat; times, bounds (bf16 bytes, bf16 tensor-core peak) and
+    SDPA in bf16 as the yardstick."""
+    from gsasr_torch.ops import attention as ta
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    gen = torch.Generator().manual_seed(13)
+    bf16 = torch.bfloat16
+    rnd = lambda *s: torch.randn(*s, generator=gen).to(dev)  # noqa: E731
+    t, c, nh = dec.num_gs_seed, dec.channel, dec.num_heads
+    hd = c // nh
+    scale = hd ** -0.5
+    b = PAPER_BATCH * (PAPER_LR_SIZE // dec.window_size) ** 2
+    results = {"W-bf16": [], "WB-bf16": []}
+    for name, bw, tk, bias, per_step in (
+            ("training", b, dec.window_size ** 2, None, 38),
+            ("odd: Tk 100, bias", 64, 100, 0.5 * rnd(nh, t, 100), 0)):
+        q, g = rnd(bw, t, c).to(bf16), rnd(bw, t, c).to(bf16)
+        k, v = rnd(bw, tk, c).to(bf16), rnd(bw, tk, c).to(bf16)
+        nbias = 0 if bias is None else 4 * nh * t * tk
+        fargs = (q, k, v, bias, scale, nh)
+        err = _compare_bf16(ta.window_attention_packed_bf16_fwd(*fargs),
+                            ta.window_attention_packed_plain(*fargs),
+                            f"W-bf16 {name}")
+        ms = _time_ms(lambda: ta.window_attention_packed_bf16_fwd(*fargs), 20)
+        plain = _time_ms(lambda: ta.window_attention_packed_plain(*fargs), 10)
+        lib_f, lib_b, why = _sdpa_ms(
+            q, k, v, None if bias is None else bias.to(bf16)[None], g, nh,
+            scale)
+        # bytes: q, k, v, out in bf16 (and the f32 bias)
+        bound, by = _bound_ms(4.0 * bw * nh * t * tk * hd,
+                              2 * (2 * bw * t * c + 2 * bw * tk * c) + nbias,
+                              PEAK_BF16)
+        results["W-bf16"].append(dict(
+            case=name, dtype="bfloat16", windows=bw, per_step=per_step,
+            max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=bound,
+            bound_by=by, library_ms=lib_f))
+        bargs = (q, k, v, bias, g, scale, nh)
+        outs = ta.window_attention_packed_bf16_bwd(*bargs)
+        refs = ta.window_attention_packed_bwd_plain(*bargs)
+        err = max(_compare_bf16(o, r, f"WB-bf16 {name} {n}")
+                  for o, r, n in zip(outs[:3], refs[:3], ("dq", "dk", "dv")))
+        if bias is not None:
+            err = max(err, _compare_grad(outs[3], refs[3],
+                                         f"WB-bf16 {name} dbias"))
+        _repeatable(lambda: ta.window_attention_packed_bf16_bwd(*bargs),
+                    f"WB-bf16 {name}")
+        ms = _time_ms(lambda: ta.window_attention_packed_bf16_bwd(*bargs), 10)
+        plain = _time_ms(lambda: ta.window_attention_packed_bwd_plain(
+            *bargs), 5)
+        if why:
+            print(f"  WB-bf16 {name} library: null ({why})", flush=True)
+        # five products; bytes: q, g, dq, k, v, dk, dv in bf16 (and the f32
+        # bias and dbias)
+        bound, by = _bound_ms(10.0 * bw * nh * t * tk * hd,
+                              2 * (3 * bw * t * c + 4 * bw * tk * c)
+                              + 2 * nbias, PEAK_BF16)
+        results["WB-bf16"].append(dict(
+            case=name, dtype="bfloat16", windows=bw, per_step=per_step,
+            max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=bound,
+            bound_by=by, library_ms=lib_b, library_null_reason=why))
+    for k, rows in results.items():
+        for r in rows:
+            lib = "null" if r["library_ms"] is None else \
+                f"{r['library_ms']:.4f}"
+            print(f"  {k} {r['case']}: {r['ms']:.4f} ms (plain "
+                  f"{r['plain_ms']:.4f}, bound {r['bound_ms']:.4f} by "
+                  f"{r['bound_by']}, SDPA bf16 {lib}) x{r['per_step']} per "
+                  f"Enhanced step", flush=True)
+    return results
+
+
+def enhanced_networks(encoder: str = "edsr"):
+    """The Enhanced recipe's networks as gsasr_torch.config.build_networks
+    builds them from configs/train_<encoder>_amp.yml (written out: the card
+    has no PyYAML; tests/test_torch_enhanced_train.py holds them equal):
+    EDSR or RDN and Fea2GSRopeAMP (RDN's with two cross-attention blocks),
+    bf16 compute on fp32 parameters, every weight from a generator seeded
+    with the recipe's manual_seed 0. On the CPU, in training mode."""
+    from gsasr_torch.models import EDSRNOUP, RDNNOUP, Fea2GSRopeAMP
+    from gsasr_torch.models.init import init_weights
+
+    bf16 = torch.bfloat16
+    g = torch.Generator().manual_seed(0)
+    with torch.random.fork_rng(devices=[]):
+        enc = (EDSRNOUP if encoder == "edsr" else RDNNOUP)(dtype=bf16)
+        dec = Fea2GSRopeAMP(num_crossattn_blocks=2 if encoder == "rdn" else 1,
+                            dtype=bf16)
+    return init_weights(enc, g), init_weights(dec, g)
+
+
+def _determinism_cost(tr, batch):
+    """Host ms of Trainer.grads (cuDNN's deterministic algorithms) against
+    the same forward and backward under the process's cuDNN flags
+    (PyTorch's defaults: not deterministic), three each, in turns."""
+    def pinned():
+        tr.grads(batch)
+
+    def default():
+        loss, _ = tr.loss_fn(tr.to_device(batch))
+        torch.autograd.grad(loss, tr.params_g + tr.params_d,
+                            allow_unused=True)
+
+    times = {"deterministic": [], "default": []}
+    for key in ("deterministic", "default", "default", "deterministic",
+                "deterministic", "default"):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        (pinned if key == "deterministic" else default)()
+        torch.cuda.synchronize()
+        times[key].append((time.perf_counter() - t0) * 1e3)
+    med = {k: float(np.median(v)) for k, v in times.items()}
+    return dict(grads_ms=times, grads_ms_median=med,
+                cost_ms=med["deterministic"] - med["default"])
+
+
+def _train_run(dev, kernels, b: int, fused: bool, encoder: str,
+               enhanced: bool = False):
     from gsasr_torch.model import make_models
     from gsasr_torch.train import TrainConfig, Trainer
 
-    enc, dec = make_models(encoder, "paper",
-                           generator=torch.Generator().manual_seed(0))
-    tr = Trainer(enc, dec, TrainConfig(**dict(PAPER_TRAIN,
-                                              fused_decoder=fused)))
-    want = (FUSED_TRAIN_COUNTS if fused else
+    if enhanced:
+        enc, dec = enhanced_networks(encoder)
+        cfg = ENHANCED_TRAIN
+    else:
+        enc, dec = make_models(encoder, "paper",
+                               generator=torch.Generator().manual_seed(0))
+        cfg = PAPER_TRAIN
+    tr = Trainer(enc, dec, TrainConfig(**dict(cfg, fused_decoder=fused)))
+    want = (ENHANCED_TRAIN_COUNTS if enhanced else
+            FUSED_TRAIN_COUNTS if fused else
             SWINIR_TRAIN_COUNTS if encoder == "swinir" else TRAIN_COUNTS)
-    label = ("fused" if fused else "module") + (
+    label = ("Enhanced bf16 " if enhanced else "") + (
+        "fused" if fused else "module") + (
         "" if encoder == "edsr" else f" {encoder}")
     start = [p.detach().clone() for p in tr.params_g + tr.params_d]
     start_ema = [p.detach().clone() for p in
                  list(tr.ema_g.parameters()) + list(tr.ema_d.parameters())]
-    batches = [paper_batch(b, seed=10 + i)
+    batches = [paper_batch(b, seed=10 + i, ceil=enhanced)
                for i in range(TRAIN_WARMUP + TRAIN_STEPS)]
     steps, grads_ms, apply_ms, losses, counts = [], [], [], [], []
     for i, batch in enumerate(batches):
@@ -1109,6 +1279,11 @@ def _train_run(dev, kernels, b: int, fused: bool, encoder: str):
         raise AssertionError(f"parameters moved {moved}, EMA moved "
                              f"{ema_moved}")
     repeat = _repeat_report(tr, batches[-1], label)
+    det = _determinism_cost(tr, batches[-1])
+    print(f"  {label} cost of cuDNN determinism: Trainer.grads median "
+          f"{det['grads_ms_median']['deterministic']:.1f} ms against "
+          f"{det['grads_ms_median']['default']:.1f} ms under the default "
+          f"flags ({det['cost_ms']:+.1f} ms)", flush=True)
     med = lambda x: float(np.median(x))  # noqa: E731
     res = dict(decoder=label, encoder=encoder, batch=b,
                step_ms_median=med(steps),
@@ -1116,7 +1291,8 @@ def _train_run(dev, kernels, b: int, fused: bool, encoder: str):
                forward_ms=med(fwd), backward_ms=med(grads_ms) - med(fwd),
                grads_ms=med(grads_ms), optimizer_ema_ms=med(apply_ms),
                peak_mem_bytes=int(peak), losses=losses, launches=counts[-1],
-               repeat=repeat, tf32={"cudnn": True, "matmul": False})
+               repeat=repeat, determinism=det,
+               tf32={"cudnn": True, "matmul": False})
     print(f"  {label} training step, batch {b}: median {res['step_ms_median']:.1f} "
           f"ms over {len(steps)} steps (forward {res['forward_ms']:.1f}, "
           f"backward {res['backward_ms']:.1f}, optimizer+EMA "
@@ -1147,16 +1323,18 @@ def _repeat_report(tr, batch, label):
                 tensors=len(names))
 
 
-def train_phase(dev, kernels, fused: bool, encoder: str = "edsr"):
-    """Full-width paper training steps of `encoder` on the module or the
-    fused decoder; halves the batch only if it does not fit the card, and
+def train_phase(dev, kernels, fused: bool, encoder: str = "edsr",
+                enhanced: bool = False):
+    """Full-width training steps of `encoder` at the paper recipe on the
+    module or the fused decoder, or at the Enhanced bf16 recipe
+    (`enhanced`); halves the batch only if it does not fit the card, and
     says so."""
     torch.backends.cuda.matmul.allow_tf32 = False  # PyTorch default
     torch.backends.cudnn.allow_tf32 = True         # PyTorch default
     b = PAPER_BATCH
     while True:
         try:
-            return _train_run(dev, kernels, b, fused, encoder)
+            return _train_run(dev, kernels, b, fused, encoder, enhanced)
         except torch.cuda.OutOfMemoryError:
             if b == 1:
                 raise
@@ -1229,6 +1407,59 @@ def train_card_vs_cpu(dev, fused: bool, encoder: str = "edsr"):
                 loss_rel=rel, grad_max_abs_err=worst, tensors=len(names))
 
 
+def enhanced_train_card_vs_cpu(dev):
+    """One tiny step of the bf16 recipe (tests/test_trainer.py's bf16
+    networks: EDSR 16 x 1, Fea2GSRopeAMP 24 channels, one layer per block;
+    batch 2) from the same weights on the card and on the CPU: loss within
+    2^-8 relative, each network's gradient within relative L2 2^-8 times its
+    bf16 depth (two libraries round the same bf16 values, summed in
+    another order, one step apart now and then)."""
+    from gsasr_torch.models import EDSRNOUP, Fea2GSRopeAMP
+    from gsasr_torch.models.init import init_weights
+    from gsasr_torch.train import TrainConfig, Trainer
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    bf16 = torch.bfloat16
+    gen = torch.Generator().manual_seed(17)
+    enc = init_weights(EDSRNOUP(num_feat=16, num_block=1, dtype=bf16), gen)
+    dec = init_weights(Fea2GSRopeAMP(inchannel=16, channel=24, num_heads=6,
+                                     num_crossattn_blocks=1,
+                                     num_crossattn_layers=1,
+                                     num_selfattn_blocks=1,
+                                     num_selfattn_layers=1, num_gs_seed=16,
+                                     window_size=4, dtype=bf16), gen)
+    cfg = TrainConfig(canvas_hw=(32, 32), warmup_iter=-1, milestones=(100,),
+                      clip_grad_norm=None)
+    rng = np.random.default_rng(18)
+    scales = (2.0 + 2.0 * rng.random(2)).astype(np.float32)
+    gt = np.ceil(scales * 8).astype(np.int32)
+    batch = {"lq": rng.random((2, 8, 8, 3), dtype=np.float32),
+             "gt": rng.random((2, 32, 32, 3), dtype=np.float32),
+             "scale": scales, "gt_h": gt, "gt_w": gt}
+    card = Trainer(copy.deepcopy(enc), copy.deepcopy(dec), cfg)
+    cpu = Trainer(enc, dec, cfg, device="cpu")
+    out_card, out_cpu = card.grads(batch), cpu.grads(batch)
+    l_card, l_cpu = float(out_card[0]), float(out_cpu[0])
+    rel = abs(l_card - l_cpu) / abs(l_cpu)
+    dist = []
+    for i, depth in ((2, ENHANCED_TINY_DEPTH + 3), (3, ENHANCED_TINY_DEPTH)):
+        num = sum(float(((a.cpu().double() - r.double()) ** 2).sum())
+                  for a, r in zip(out_card[i], out_cpu[i]))
+        den = sum(float((r.double() ** 2).sum()) for r in out_cpu[i])
+        dist.append((math.sqrt(num / den), 2.0 ** -8 * depth))
+    card.apply(*out_card)
+    cpu.apply(*out_cpu)
+    print(f"  tiny Enhanced bf16 training step card vs CPU: loss "
+          f"{l_card:.7f} vs {l_cpu:.7f} (rel {rel:.2e}, tol {2.0 ** -8:.2e});"
+          f" gradient rel L2 encoder {dist[0][0]:.2e} (tol {dist[0][1]:.2e}),"
+          f" decoder {dist[1][0]:.2e} (tol {dist[1][1]:.2e})", flush=True)
+    if not rel <= 2.0 ** -8 or any(not d <= t for d, t in dist):
+        raise AssertionError("Enhanced bf16 step: card and CPU disagree")
+    return dict(loss_card=l_card, loss_cpu=l_cpu, loss_rel=rel,
+                grad_rel_l2_enc=dist[0][0], grad_rel_l2_dec=dist[1][0])
+
+
 FORM_KEYS = ("decoder", "case", "dtype", "nW", "windows", "per_image",
              "per_step", "max_abs_err", "ms", "plain_ms", "bound_ms",
              "bound_by", "library_ms")
@@ -1271,6 +1502,7 @@ def main() -> int:
     from gsasr_torch.model import make_models
     from gsasr_torch.ops import _build
     from gsasr_torch.ops.attention import (
+        window_attention_packed_bf16_bwd, window_attention_packed_bf16_fwd,
         window_attention_packed_bwd, window_attention_packed_fwd,
         window_attention_packed_masked_bwd, window_attention_packed_masked_fwd)
     from gsasr_torch.ops.bias_table import bias_table_bwd
@@ -1303,7 +1535,9 @@ def main() -> int:
                "WB": window_attention_packed_bwd, "RB": raster_bwd,
                "MB": ln_mlp_residual_bwd, "AB": ln_attn_proj_bwd,
                "T": bias_table_bwd, "WM": window_attention_packed_masked_fwd,
-               "WMB": window_attention_packed_masked_bwd}
+               "WMB": window_attention_packed_masked_bwd,
+               "W-bf16": window_attention_packed_bf16_fwd,
+               "WB-bf16": window_attention_packed_bf16_bwd}
     enc, dec = make_models("edsr", "paper",
                            generator=torch.Generator().manual_seed(0))
 
@@ -1382,10 +1616,40 @@ def main() -> int:
     print("RDN end to end", flush=True)
     re2e = e2e_phase(enc_r, dec_r, dev, label="RDN")
     del enc_r, dec_r
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    enc_e, dec_e = enhanced_networks("edsr")
+    print("Enhanced training kernel phase", flush=True)
+    etres = enhanced_train_kernel_phase(dec_e.to(dev), dev)
+    del enc_e, dec_e
+    gc.collect()
+    torch.cuda.empty_cache()
+    print("Enhanced training phase", flush=True)
+    etrain = train_phase(dev, kernels, fused=False, enhanced=True)
+    print("Enhanced training card vs CPU", flush=True)
+    etcvc = enhanced_train_card_vs_cpu(dev)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    enc_re, dec_re = make_models("rdn", "enhanced",
+                                 generator=torch.Generator().manual_seed(0))
+    print("RDN-Enhanced path phase", flush=True)
+    rerun = path_phase(enc_re, dec_re, dev, kernels, label="RDN-Enhanced",
+                       extra=RDN_ENHANCED_PER_FORWARD)
+    print("RDN-Enhanced end to end", flush=True)
+    ree2e = e2e_phase(enc_re, dec_re, dev, label="RDN-Enhanced")
+    del enc_re, dec_re
+    for r in (train, ftrain, strain, etrain):
+        same = "the same" if r["repeat"]["same_bits"] else "NOT the same"
+        print(f"  {r['decoder']} step: repeatability {same} bits; cost of "
+              f"cuDNN determinism {r['determinism']['cost_ms']:+.1f} ms on "
+              f"Trainer.grads", flush=True)
 
     infer, step = runs[0]["launches"], train["launches"]
     sinfer, sstep = sruns[0]["launches"], strain["launches"]
     fstep, einfer = ftrain["launches"], eruns[0]["launches"]
+    estep = etrain["launches"]
     enhanced = "sr_forward (Enhanced, bf16 trunk)"
     for k in ("M", "A"):
         for r in kres[k]:
@@ -1439,6 +1703,17 @@ def main() -> int:
                 "gsasr_tpu/ops/attention.py:661", [], sstep,
                 "Trainer.step (SwinIR)", _on_path(sres["WMB"], "per_step"),
                 sres["WMB"]),
+        "W-bf16": ("window_attn_fwd_bf16",
+                   "gsasr_torch/ops/csrc/window_attn_fwd.cu",
+                   "gsasr_tpu/ops/attention.py:338", [], estep,
+                   "Trainer.step (Enhanced, bf16 recipe)",
+                   _on_path(etres["W-bf16"], "per_step"), etres["W-bf16"]),
+        "WB-bf16": ("window_attn_bwd_bf16",
+                    "gsasr_torch/ops/csrc/window_attn_bwd.cu",
+                    "gsasr_tpu/ops/attention.py:397", [], estep,
+                    "Trainer.step (Enhanced, bf16 recipe)",
+                    _on_path(etres["WB-bf16"], "per_step"),
+                    etres["WB-bf16"]),
     }
     line = [_kernel_entry(name, src, rep, also, counts[k], path, rows, forms)
             for k, (name, src, rep, also, counts, path, rows, forms)
@@ -1459,6 +1734,9 @@ def main() -> int:
                                        train=strain,
                                        train_card_vs_cpu=stcvc),
                            rdn=dict(paths=rruns, e2e=re2e),
+                           enhanced_train=dict(kernels=etres, train=etrain,
+                                               card_vs_cpu=etcvc),
+                           rdn_enhanced=dict(paths=rerun, e2e=ree2e),
                            total_s=time.perf_counter() - t_start), f, indent=1)
     print(f"total {time.perf_counter() - t_start:.1f} s", flush=True)
     print(f"card: {card}", flush=True)

@@ -14,7 +14,8 @@ from typing import Any, Dict, List, Optional
 
 import torch
 
-from gsasr_torch.models import EDSRNOUP, RDNNOUP, Fea2GS, SwinIRNOUP
+from gsasr_torch.models import (EDSRNOUP, RDNNOUP, Fea2GS, Fea2GSRopeAMP,
+                                SwinIRNOUP)
 from gsasr_torch.models.init import init_weights
 from gsasr_torch.train.trainer import TrainConfig
 
@@ -51,7 +52,10 @@ _ENCODERS = {"EDSRNOUP": EDSRNOUP, "EDSR": EDSRNOUP,
              "SwinIRNOUP": SwinIRNOUP, "SWINNOUP": SwinIRNOUP}
 # reference yaml names -> constructor arguments
 _RENAME = {"G0": "g0", "RDNconfig": "config"}
-_DECODERS = {"Fea2GS": Fea2GS}
+_DECODERS = {"Fea2GS": Fea2GS, "Fea2GS_ROPE_AMP": Fea2GSRopeAMP,
+             "Fea2GSRopeAMP": Fea2GSRopeAMP}
+_DTYPES = {"float32": torch.float32, "fp32": torch.float32,
+           "bfloat16": torch.bfloat16, "bf16": torch.bfloat16}
 
 
 def _adapt(kwargs, cls):
@@ -74,14 +78,18 @@ def build_networks(opt: Dict[str, Any],
                    generator: Optional[torch.Generator] = None):
     """network_g / network_fea2gs -> (encoder, decoder) on the CPU, every
     weight drawn with the reference initializers from `generator` (default:
-    seeded with the options' manual_seed). The float32 EDSR, RDN and
-    SwinIR encoders and the paper Fea2GS decoder are ported."""
+    seeded with the options' manual_seed). The EDSR, RDN and SwinIR
+    encoders and both decoders are ported in float32; `model_dtype:
+    bfloat16` (the default of `model_type: GSASRAMPModel`, as in the JAX
+    package) builds EDSR or RDN with the Enhanced decoder in bf16 compute
+    on float32 parameters."""
     default = "bfloat16" if "AMP" in str(opt.get("model_type", "")) else \
         "float32"
     model_dtype = str(opt.get("model_dtype", default)).lower()
-    if model_dtype not in ("float32", "fp32"):
-        raise NotImplementedError(f"model_dtype {model_dtype!r}: the bf16 "
-                                  "family is not ported yet")
+    if model_dtype not in _DTYPES:
+        raise NotImplementedError(
+            f"model_dtype {model_dtype!r} (expected one of {sorted(_DTYPES)})")
+    dtype = _DTYPES[model_dtype]
     g = dict(opt["network_g"])
     enc_cls = _ENCODERS.get(g.pop("type"))
     d = dict(opt["network_fea2gs"])
@@ -90,6 +98,19 @@ def build_networks(opt: Dict[str, Any],
         raise NotImplementedError(
             f"{opt['network_g']['type']} / {opt['network_fea2gs']['type']}: "
             f"only {sorted(_ENCODERS)} / {sorted(_DECODERS)} are ported yet")
+    if dtype == torch.bfloat16:
+        if dec_cls is Fea2GS:
+            raise NotImplementedError(
+                "the paper Fea2GS in bfloat16 (train_edsr_paper_bf16_r3.yml) "
+                "is not ported yet: its module path needs a test of W-bf16 "
+                "and WB-bf16 with the bias table against JAX")
+        if enc_cls is SwinIRNOUP:
+            raise NotImplementedError(
+                "SwinIR in bfloat16 is not ported yet: it needs bfloat16 "
+                "forms of the masked kernels WM and WMB, and its recipe's "
+                "decoder (train_swinir_amp.yml) windows of 16, which W and "
+                "A do not take")
+        g["dtype"] = d["dtype"] = dtype
     if generator is None:
         generator = torch.Generator().manual_seed(
             int(opt.get("manual_seed", 0)))

@@ -57,8 +57,9 @@ def make_models(encoder: str = "edsr", version: str = "paper", *,
                 generator: Optional[torch.Generator] = None, device=None):
     """Build (encoder, decoder) with seeded reference initializers, in eval
     mode on `device` (default: the CUDA card). encoder: 'edsr', 'rdn' or
-    'swinir'; version: 'paper' (Fea2GS) or, for EDSR, 'enhanced' / 'ultra'
-    (Fea2GSRopeAMP with EDSR's settings). Callers pad with
+    'swinir'; version: 'paper' (Fea2GS) or, for EDSR and RDN, 'enhanced' /
+    'ultra' (Fea2GSRopeAMP with the encoder's settings, `gsasr_tpu/model.py`'s
+    enhanced_cfg: RDN's has two cross-attention blocks). Callers pad with
     `DENOMINATORS[encoder]` (`sr_forward(..., denominator=...)`)."""
     dev = resolve_device(device)
     encoders = {"edsr": EDSRNOUP, "rdn": RDNNOUP, "swinir": SwinIRNOUP}
@@ -68,11 +69,11 @@ def make_models(encoder: str = "edsr", version: str = "paper", *,
             "OCAB's 256 x 576) need redesigned kernels W, WB, WM and WMB")
     if version not in ("paper", "enhanced", "ultra"):
         raise NotImplementedError(f"version '{version}'")
-    if version != "paper" and encoder != "edsr":
+    if version != "paper" and encoder == "swinir":
         raise NotImplementedError(
-            f"{encoder} {version}: the Enhanced decoders of other encoders "
-            "than EDSR come with the window-16 slice (SwinIR's has 256 seeds "
-            "in windows of 16, which need a redesigned kernel A)")
+            f"{encoder} {version}: SwinIR's Enhanced decoder comes with the "
+            "window-16 slice (256 seeds in windows of 16, which need a "
+            "redesigned kernel A)")
     if generator is None:
         generator = torch.Generator().manual_seed(0)
     # Module constructors draw PyTorch's default init from the global RNG;
@@ -80,9 +81,10 @@ def make_models(encoder: str = "edsr", version: str = "paper", *,
     # come from `generator`.
     with torch.random.fork_rng(devices=[]):
         enc = encoders[encoder]()
-        # EDSR's Enhanced/Ultra decoder takes the defaults
-        # (`gsasr_tpu/model.py`'s enhanced_cfg)
-        dec = Fea2GS() if version == "paper" else Fea2GSRopeAMP()
+        # `gsasr_tpu/model.py`'s enhanced_cfg: EDSR's Enhanced/Ultra decoder
+        # takes the defaults, RDN's two cross-attention blocks
+        dec = Fea2GS() if version == "paper" else Fea2GSRopeAMP(
+            num_crossattn_blocks=2 if encoder == "rdn" else 1)
     init_weights(enc, generator)
     init_weights(dec, generator)
     return enc.to(dev).eval(), dec.to(dev).eval()

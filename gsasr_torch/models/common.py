@@ -1,9 +1,94 @@
-"""Shared model building blocks (counterpart of `gsasr_tpu/models/common.py`)."""
+"""Shared model building blocks (counterpart of `gsasr_tpu/models/common.py`).
+
+Linear, Conv2d and LayerNorm take a compute `dtype` with flax's `dtype=`
+semantics, not `torch.autocast`'s: parameters stay float32 (Adam and the
+EMA run on them), and each call casts at use. In float32 (the default)
+they are nn.Linear, nn.Conv2d and nn.LayerNorm themselves, the same bits,
+after casting a narrower input up (flax promotes it). In bfloat16 a Linear
+or Conv2d casts its input, weight and bias to bfloat16, rounds the product
+to bfloat16 and adds the bias in bfloat16 (flax's dot_general or
+conv_general_dilated, then `y += bias`); a LayerNorm takes its statistics
+and normalises in float32 with the float32 scale and bias and rounds the
+result once. Their `state_dict` keys are those of the torch modules.
+"""
 
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
 from torch import nn
+
+_F32 = torch.float32
+
+
+def linear(x, weight, bias, dtype=_F32):
+    """`nn.Dense(dtype=dtype)` on (out, in) weights."""
+    x = x.to(dtype)
+    if dtype == _F32:
+        return F.linear(x, weight, bias)
+    y = F.linear(x, weight.to(dtype))
+    return y if bias is None else y + bias.to(dtype)
+
+
+def conv2d(x, conv, dtype=_F32):
+    """`nn.Conv(dtype=dtype)` with `conv`'s weights on NCHW x."""
+    x = x.to(dtype)
+    if dtype == _F32:
+        return F.conv2d(x, conv.weight, conv.bias, conv.stride, conv.padding)
+    y = F.conv2d(x, conv.weight.to(dtype), None, conv.stride, conv.padding)
+    return y + conv.bias.to(dtype)[:, None, None]
+
+
+class Linear(nn.Linear):
+    """nn.Linear computing in `dtype` (see the module docstring)."""
+
+    def __init__(self, in_features: int, out_features: int,
+                 dtype=_F32):
+        super().__init__(in_features, out_features)
+        self.compute_dtype = dtype
+
+    def forward(self, x):
+        return linear(x, self.weight, self.bias, self.compute_dtype)
+
+
+class Conv2d(nn.Conv2d):
+    """nn.Conv2d (NCHW, stride 1) computing in `dtype`."""
+
+    def __init__(self, in_channels: int, out_channels: int, kernel_size: int,
+                 padding: int = 0, dtype=_F32):
+        super().__init__(in_channels, out_channels, kernel_size,
+                         padding=padding)
+        self.compute_dtype = dtype
+
+    def forward(self, x):
+        return conv2d(x, self, self.compute_dtype)
+
+
+class LayerNorm(nn.LayerNorm):
+    """LayerNorm with the reference's eps of 1e-5, its result in `dtype`."""
+
+    def __init__(self, dim: int, dtype=_F32):
+        super().__init__(dim, eps=1e-5)
+        self.compute_dtype = dtype
+
+    def forward(self, x):
+        if x.dtype == _F32 and self.compute_dtype == _F32:
+            return super().forward(x)
+        return F.layer_norm(x.float(), self.normalized_shape, self.weight,
+                            self.bias, self.eps).to(self.compute_dtype)
+
+
+def seq_apply(seq, x, dtype=_F32):
+    """An nn.Sequential of Linears, Conv2ds and activations applied in
+    `dtype`, whatever dtype its layers were built with."""
+    for layer in seq:
+        if isinstance(layer, nn.Linear):
+            x = linear(x, layer.weight, layer.bias, dtype)
+        elif isinstance(layer, nn.Conv2d):
+            x = conv2d(x, layer, dtype)
+        else:
+            x = layer(x)
+    return x
 
 
 def pixel_shuffle(x, factor: int):
@@ -17,21 +102,17 @@ def pixel_shuffle(x, factor: int):
 
 class MLP(nn.Module):
     """fc1 -> act -> fc2 (reference `utils/fea2gs.py:102-113`; SwinIR's Mlp
-    with act=F.gelu)."""
+    with act=F.gelu), in `dtype`."""
 
-    def __init__(self, in_dim: int, hidden: int, out: int, act=torch.relu):
+    def __init__(self, in_dim: int, hidden: int, out: int, act=torch.relu,
+                 dtype=_F32):
         super().__init__()
         self.act = act
-        self.fc1 = nn.Linear(in_dim, hidden)
-        self.fc2 = nn.Linear(hidden, out)
+        self.fc1 = Linear(in_dim, hidden, dtype)
+        self.fc2 = Linear(hidden, out, dtype)
 
     def forward(self, x):
         return self.fc2(self.act(self.fc1(x)))
-
-
-def LayerNorm(dim: int) -> nn.LayerNorm:
-    """LayerNorm with the reference's eps of 1e-5."""
-    return nn.LayerNorm(dim, eps=1e-5)
 
 
 class DropPath(nn.Module):

@@ -10,7 +10,9 @@ identity. `Fea2GS.forward` is the differentiable module path of
 convolutions are PyTorch ops and every window attention goes through
 `window_attention_packed` (kernels W and WB on the card). Inference takes
 the fused path of `fea2gs_fast.py` instead, as the JAX package does, and so
-does training with `fused_decoder=True`.
+does training with `fused_decoder=True`. The layer classes take a compute
+`dtype` (flax's `dtype=`, see `common.py`), which the Enhanced decoder's
+bf16 module path passes; the paper decoder is float32.
 """
 
 from __future__ import annotations
@@ -21,9 +23,12 @@ import numpy as np
 import torch
 from torch import nn
 
-from gsasr_torch.models.common import MLP, LayerNorm, pixel_shuffle
+from gsasr_torch.models.common import (MLP, Conv2d, LayerNorm, Linear,
+                                       conv2d, linear, pixel_shuffle,
+                                       seq_apply)
 from gsasr_torch.ops.attention import window_attention_packed
-from gsasr_torch.ops.bias_table import inverse_index, relative_position_bias
+from gsasr_torch.ops.bias_table import (register_bias_index,
+                                        relative_position_bias)
 
 
 def cross_attn_rel_pos_index(gs_sqrt: int, window_size: int) -> np.ndarray:
@@ -66,8 +71,12 @@ def to_lattice(gs, b: int, h_count: int, w_count: int, nsq: int):
                                                   w_count * nsq, ch)
 
 
-def conv_nhwc(conv, x):
-    return conv(x.permute(0, 3, 1, 2)).permute(0, 2, 3, 1)
+def conv_nhwc(conv, x, dtype=None):
+    """`conv` (a module, or a Conv2d computed in `dtype` when given) on NHWC
+    x."""
+    x = x.permute(0, 3, 1, 2)
+    y = conv(x) if dtype is None else conv2d(x, conv, dtype)
+    return y.permute(0, 2, 3, 1)
 
 
 def reference_points(h: int, w: int, dtype=torch.float32, device=None):
@@ -82,19 +91,22 @@ def reference_points(h: int, w: int, dtype=torch.float32, device=None):
 class ScaleInject(nn.Module):
     """The reference's nn.MultiheadAttention over identical scale tokens.
     Its output is out_proj(v_proj(scale)); only the V third of in_proj and
-    out_proj are live, the q/k thirds are kept for the checkpoint."""
+    out_proj are live, the q/k thirds are kept for the checkpoint. Computes
+    in `dtype`, or in the `dtype` a call passes (the fused paths' f32)."""
 
-    def __init__(self, dim: int):
+    def __init__(self, dim: int, dtype=torch.float32):
         super().__init__()
+        self.dtype = dtype
         self.in_proj_weight = nn.Parameter(torch.empty(3 * dim, dim))
         self.in_proj_bias = nn.Parameter(torch.empty(3 * dim))
         self.out_proj = nn.Linear(dim, dim)
 
-    def forward(self, scale_embedding):
+    def forward(self, scale_embedding, dtype=None):
+        dt = self.dtype if dtype is None else dtype
         c = self.out_proj.in_features
-        v = nn.functional.linear(scale_embedding, self.in_proj_weight[2 * c:],
-                                 self.in_proj_bias[2 * c:])
-        return self.out_proj(v)
+        v = linear(scale_embedding, self.in_proj_weight[2 * c:],
+                   self.in_proj_bias[2 * c:], dt)
+        return linear(v, self.out_proj.weight, self.out_proj.bias, dt)
 
 
 class _WindowAttnParams(nn.Module):
@@ -106,18 +118,13 @@ class _WindowAttnParams(nn.Module):
         self.num_heads = num_heads
         self.relative_position_bias_table = nn.Parameter(
             torch.empty(table_rows, num_heads))
-        self.register_buffer("relative_position_index",
-                             torch.from_numpy(index.astype(np.int64)))
-        # the index's rows listed per table row, for the ordered gradient
-        # sum (not in the state_dict: it follows from the index)
-        self.register_buffer("relative_position_inverse",
-                             torch.from_numpy(inverse_index(index,
-                                                            table_rows)),
-                             persistent=False)
-        self.qhead = nn.Linear(dim, dim)
-        self.khead = nn.Linear(dim, dim)
-        self.vhead = nn.Linear(dim, dim)
-        self.proj = nn.Linear(dim, dim)
+        # the index, and its rows listed per table row for the ordered
+        # gradient sum, rebuilt when a state_dict loads an index
+        register_bias_index(self, index, table_rows)
+        self.qhead = Linear(dim, dim)
+        self.khead = Linear(dim, dim)
+        self.vhead = Linear(dim, dim)
+        self.proj = Linear(dim, dim)
 
     def bias(self):
         """(num_heads, Tq, Tk) bias gathered from the table; its gradient
@@ -162,22 +169,24 @@ class WindowCrossAttnLayer(nn.Module):
     """scale-inject -> FFN -> (shifted) window cross-attention -> FFN, all
     pre-norm residual. norm1 is dead in the reference topology: its output
     is overwritten, so its parameters get a zero gradient. `attn` replaces
-    the rel-pos-bias attention (the Enhanced family's RoPE attention)."""
+    the rel-pos-bias attention (the Enhanced family's RoPE attention);
+    norms, inject and MLPs compute in `dtype`."""
 
     def __init__(self, dim, num_heads, window_size, num_gs_seed,
-                 shift_size: int = 0, attn: nn.Module = None):
+                 shift_size: int = 0, attn: nn.Module = None,
+                 dtype=torch.float32):
         super().__init__()
         self.window_size = window_size
         self.shift_size = shift_size
-        self.norm1 = LayerNorm(dim)
-        self.norm2 = LayerNorm(dim)
-        self.norm3 = LayerNorm(dim)
-        self.norm4 = LayerNorm(dim)
-        self.gs_cross_attn_scale = ScaleInject(dim)
+        self.norm1 = LayerNorm(dim, dtype)
+        self.norm2 = LayerNorm(dim, dtype)
+        self.norm3 = LayerNorm(dim, dtype)
+        self.norm4 = LayerNorm(dim, dtype)
+        self.gs_cross_attn_scale = ScaleInject(dim, dtype)
         self.window_cross_attn = attn if attn is not None else \
             WindowCrossAttn(dim, num_heads, window_size, num_gs_seed)
-        self.mlp_crossattn_scale = MLP(dim, dim, dim)
-        self.mlp_crossattn_feature = MLP(dim, dim, dim)
+        self.mlp_crossattn_scale = MLP(dim, dim, dim, dtype=dtype)
+        self.mlp_crossattn_feature = MLP(dim, dim, dim, dtype=dtype)
 
     def forward(self, x, query_pos, feat, scale_embedding):
         """x: (B_, T, C); query_pos: (T, C); feat: (B, H, W, C) before
@@ -198,22 +207,23 @@ class GSSelfAttnLayer(nn.Module):
     FFN. norm3 is dead in the reference topology (zero gradient). Shifted
     layers roll the whole seed lattice across window boundaries and roll
     the attention output back. `attn` replaces the rel-pos-bias attention
-    (the Enhanced family's RoPE attention)."""
+    (the Enhanced family's RoPE attention); norms, inject and MLPs compute
+    in `dtype`."""
 
     def __init__(self, dim, num_heads, num_gs_seed_sqrt, shift_size: int = 0,
-                 attn: nn.Module = None):
+                 attn: nn.Module = None, dtype=torch.float32):
         super().__init__()
         self.num_gs_seed_sqrt = num_gs_seed_sqrt
         self.shift_size = shift_size
-        self.norm1 = LayerNorm(dim)
-        self.norm2 = LayerNorm(dim)
-        self.norm3 = LayerNorm(dim)
-        self.norm4 = LayerNorm(dim)
-        self.gs_cross_attn_scale = ScaleInject(dim)
+        self.norm1 = LayerNorm(dim, dtype)
+        self.norm2 = LayerNorm(dim, dtype)
+        self.norm3 = LayerNorm(dim, dtype)
+        self.norm4 = LayerNorm(dim, dtype)
+        self.gs_cross_attn_scale = ScaleInject(dim, dtype)
         self.gs_self_attn = attn if attn is not None else \
             GSSelfAttn(dim, num_heads, num_gs_seed_sqrt)
-        self.mlp_selfattn = MLP(dim, dim, dim)
-        self.mlp_crossattn = MLP(dim, dim, dim)
+        self.mlp_selfattn = MLP(dim, dim, dim, dtype=dtype)
+        self.mlp_crossattn = MLP(dim, dim, dim, dtype=dtype)
 
     def forward(self, gs, h_count: int, w_count: int, scale_embedding):
         gs = gs + self.gs_cross_attn_scale(scale_embedding)[:, None, :]
@@ -235,14 +245,15 @@ class GSSelfAttnLayer(nn.Module):
 
 
 class _Block(nn.Module):
-    """norm -> layers -> mlp (Linear, ReLU, Linear) -> + residual."""
+    """norm -> layers -> mlp (Linear, ReLU, Linear) -> + residual; norm and
+    mlp in `dtype`."""
 
-    def __init__(self, dim, layers):
+    def __init__(self, dim, layers, dtype=torch.float32):
         super().__init__()
-        self.norm = LayerNorm(dim)
+        self.norm = LayerNorm(dim, dtype)
         self.blocks = nn.ModuleList(layers)
-        self.mlp = nn.Sequential(nn.Linear(dim, dim), nn.ReLU(),
-                                 nn.Linear(dim, dim))
+        self.mlp = nn.Sequential(Linear(dim, dim, dtype), nn.ReLU(),
+                                 Linear(dim, dim, dtype))
 
     def forward(self, x, *layer_args):
         y = self.norm(x)
@@ -251,20 +262,22 @@ class _Block(nn.Module):
         return x + self.mlp(y)
 
 
-def _head(dim: int, out: int) -> nn.Sequential:
+def _head(dim: int, out: int, dtype) -> nn.Sequential:
     """ch -> ch -> 4ch -> out head MLP."""
-    return nn.Sequential(nn.Linear(dim, dim), nn.ReLU(),
-                         nn.Linear(dim, 4 * dim), nn.ReLU(),
-                         nn.Linear(4 * dim, out))
+    return nn.Sequential(Linear(dim, dim, dtype), nn.ReLU(),
+                         Linear(dim, 4 * dim, dtype), nn.ReLU(),
+                         Linear(4 * dim, out, dtype))
 
 
 def _add_front(m, inchannel: int, channel: int, num_heads: int,
                num_gs_seed: int, gs_up_factor: float, window_size: int,
-               shuffle_scale1: int, shuffle_scale2: int) -> None:
-    """A decoder's sizes, seed and position embeddings and feature
-    projection, registered before its blocks (the order `init_weights`
-    draws in)."""
+               shuffle_scale1: int, shuffle_scale2: int,
+               dtype=torch.float32) -> None:
+    """A decoder's sizes, compute type, seed and position embeddings and
+    feature projection, registered before its blocks (the order
+    `init_weights` draws in)."""
     ch = channel
+    m.dtype = dtype
     m.channel = ch
     m.num_heads = num_heads
     m.num_gs_seed = num_gs_seed
@@ -275,27 +288,28 @@ def _add_front(m, inchannel: int, channel: int, num_heads: int,
     m.gs_embedding = nn.Parameter(torch.empty(num_gs_seed, ch))
     m.pos_embedding = nn.Parameter(torch.empty(num_gs_seed, ch))
     m.img_feat_proj = nn.Sequential(
-        nn.Conv2d(inchannel, ch, 3, padding=1), nn.ReLU(),
-        nn.Conv2d(ch, ch, 3, padding=1))
+        Conv2d(inchannel, ch, 3, padding=1, dtype=dtype), nn.ReLU(),
+        Conv2d(ch, ch, 3, padding=1, dtype=dtype))
 
 
-def _add_tail(m) -> None:
-    """A decoder's scale MLP, UPNet and the five head MLPs, registered after
-    its blocks."""
-    ch = m.channel
-    m.scale_mlp = nn.Sequential(nn.Linear(1, 4 * ch), nn.ReLU(),
-                                nn.Linear(4 * ch, ch))
+def _add_tail(m, head_dtype=torch.float32) -> None:
+    """A decoder's scale MLP and UPNet (in its compute type) and the five
+    head MLPs (in `head_dtype`), registered after its blocks."""
+    ch, dt = m.channel, m.dtype
+    m.head_dtype = head_dtype
+    m.scale_mlp = nn.Sequential(Linear(1, 4 * ch, dt), nn.ReLU(),
+                                Linear(4 * ch, ch, dt))
     m.UPNet = nn.Sequential(
-        nn.Conv2d(ch, ch * m.shuffle_scale1 ** 2, 3, padding=1),
+        Conv2d(ch, ch * m.shuffle_scale1 ** 2, 3, padding=1, dtype=dt),
         nn.PixelShuffle(m.shuffle_scale1),
-        nn.Conv2d(ch, ch * m.shuffle_scale2 ** 2, 3, padding=1),
+        Conv2d(ch, ch * m.shuffle_scale2 ** 2, 3, padding=1, dtype=dt),
         nn.PixelShuffle(m.shuffle_scale2))
     guf = int(m.gs_up_factor)
-    m.mlp_block_sigma = _head(ch, 2 * guf)
-    m.mlp_block_rho = _head(ch, guf)
-    m.mlp_block_alpha = _head(ch, guf)
-    m.mlp_block_rgb = _head(ch, 3 * guf)
-    m.mlp_block_mean = _head(ch, 2 * guf)
+    m.mlp_block_sigma = _head(ch, 2 * guf, head_dtype)
+    m.mlp_block_rho = _head(ch, guf, head_dtype)
+    m.mlp_block_alpha = _head(ch, guf, head_dtype)
+    m.mlp_block_rgb = _head(ch, 3 * guf, head_dtype)
+    m.mlp_block_mean = _head(ch, 2 * guf, head_dtype)
 
 
 class Fea2GS(nn.Module):
@@ -355,25 +369,35 @@ def decode_lattice(m, query, b: int, h_count: int, w_count: int):
                                b, h_count, w_count)
 
 
-def decode_full_lattice(m, query, b: int, h_count: int, w_count: int):
+def decode_full_lattice(m, query, b: int, h_count: int, w_count: int,
+                        dtype=torch.float32, head_dtype=torch.float32):
     """(B, h_count*nsq, w_count*nsq, C) lattice -> UPNet (conv + pixel
-    shuffle, twice) -> the five head MLPs -> means normalized by the lattice
-    size plus the pixel-center grid. Returns (B, N, 9)."""
+    shuffle, twice, in `dtype`) -> the five head MLPs (in `head_dtype`) ->
+    means normalized by the lattice size plus the pixel-center grid, in
+    float32. Returns (B, N, 9) float32. The fused paths take the defaults,
+    float32 whatever the module was built with; the module path passes its
+    own types."""
     nsq = math.isqrt(m.num_gs_seed)
-    query = pixel_shuffle(conv_nhwc(m.UPNet[0], query), m.shuffle_scale1)
-    query = pixel_shuffle(conv_nhwc(m.UPNet[2], query), m.shuffle_scale2)
+    query = pixel_shuffle(conv_nhwc(m.UPNet[0], query, dtype),
+                          m.shuffle_scale1)
+    query = pixel_shuffle(conv_nhwc(m.UPNet[2], query, dtype),
+                          m.shuffle_scale2)
 
     guf = int(m.gs_up_factor)
-    q_sigma = m.mlp_block_sigma(query).reshape(b, -1, 2 * guf)
-    q_rho = m.mlp_block_rho(query).reshape(b, -1, guf)
-    q_alpha = m.mlp_block_alpha(query).reshape(b, -1, guf)
-    q_rgb = m.mlp_block_rgb(query).reshape(b, -1, 3 * guf)
-    q_mean = m.mlp_block_mean(query).reshape(b, -1, 2 * guf)
+
+    def head(seq, n):
+        return seq_apply(seq, query, head_dtype).reshape(b, -1, n).float()
+
+    q_sigma = head(m.mlp_block_sigma, 2 * guf)
+    q_rho = head(m.mlp_block_rho, guf)
+    q_alpha = head(m.mlp_block_alpha, guf)
+    q_rgb = head(m.mlp_block_rgb, 3 * guf)
+    q_mean = head(m.mlp_block_mean, 2 * guf)
 
     lat_h = nsq * h_count * m.shuffle_scale1 * m.shuffle_scale2
     lat_w = nsq * w_count * m.shuffle_scale1 * m.shuffle_scale2
-    q_mean = q_mean / torch.tensor([[lat_w, lat_h]], dtype=q_mean.dtype,
+    q_mean = q_mean / torch.tensor([[lat_w, lat_h]], dtype=torch.float32,
                                    device=q_mean.device)
-    q_mean = q_mean + reference_points(lat_h, lat_w, q_mean.dtype,
+    q_mean = q_mean + reference_points(lat_h, lat_w, torch.float32,
                                        q_mean.device)[None]
     return torch.cat([q_sigma, q_rho, q_alpha, q_rgb, q_mean], dim=-1)

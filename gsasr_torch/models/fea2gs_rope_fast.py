@@ -9,7 +9,8 @@ frequencies. The 3x3 lattice convolutions (block tails and conv_final), the
 scale MLP, UPNet and the heads are PyTorch ops.
 
 dtype=torch.bfloat16 runs the trunk in bf16 and UPNet and the heads in
-fp32, the reference's AMP semantics for this family. The function rounds
+fp32, the reference's AMP semantics for this family, whatever compute type
+the module was built with. The function rounds
 where the JAX fast path rounds: the scale MLP and the inject round their
 results (f32 products of rounded inputs), convolutions run in the trunk
 type, residual adds are bf16 adds, the block norms are f32 LayerNorms with
@@ -85,7 +86,7 @@ def fea2gs_rope_apply_fused(m, srcs, scale, dtype=None):
     se32 = scale_embedding.float()
 
     def inject(lyr):
-        return lyr.gs_cross_attn_scale(se32).to(dt)
+        return lyr.gs_cross_attn_scale(se32, torch.float32).to(dt)
 
     def tail(blk, x, resi):
         z = ln_mlp_residual(x, zero_base=True, **_seq_mlp(blk.mlp))

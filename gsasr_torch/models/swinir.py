@@ -29,7 +29,8 @@ from gsasr_torch.models.common import MLP, DropPath, LayerNorm
 from gsasr_torch.models.fea2gs import (conv_nhwc, self_attn_rel_pos_index,
                                        to_lattice, window_partition)
 from gsasr_torch.ops.attention import window_attention_packed
-from gsasr_torch.ops.bias_table import inverse_index, relative_position_bias
+from gsasr_torch.ops.bias_table import (register_bias_index,
+                                        relative_position_bias)
 
 
 @functools.lru_cache(maxsize=16)
@@ -58,11 +59,7 @@ class WindowAttention(nn.Module):
         index = self_attn_rel_pos_index(window_size)
         self.relative_position_bias_table = nn.Parameter(
             torch.empty(rows, num_heads))
-        self.register_buffer("relative_position_index",
-                             torch.from_numpy(index.astype(np.int64)))
-        self.register_buffer("relative_position_inverse",
-                             torch.from_numpy(inverse_index(index, rows)),
-                             persistent=False)
+        register_bias_index(self, index, rows)
         self.qkv = nn.Linear(dim, 3 * dim)
         self.proj = nn.Linear(dim, dim)
 

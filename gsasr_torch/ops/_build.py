@@ -5,7 +5,8 @@ with a plain C interface (nvcc, sm_90a), written to
 `build/gsasr_torch_kernels/` at the root of the checkout and keyed by a hash
 of the sources and flags, then loaded with ctypes. Each library exports an
 entry point of the same name and, where `SOURCES` says so, others (the
-masked forms of W and WB are instantiations of the same kernels). Each
+masked and bfloat16 forms of W and WB are instantiations of the same
+kernels). Each
 entry point's C signature is declared in `SIGNATURES`: it takes its
 pointers and the CUDA stream as `void*` and returns `cudaGetLastError()`
 after its launches; `launch` raises when that is not 0.
@@ -38,6 +39,8 @@ SIGNATURES = {
     "window_attn_bwd": "ppppppppppiiiiif",
     "window_attn_fwd_masked": "ppppppiiiiiif",
     "window_attn_bwd_masked": "p" * 11 + "iiiiiif",
+    "window_attn_fwd_bf16": "pppppiiiiif",
+    "window_attn_bwd_bf16": "ppppppppppiiiiif",
     "raster_bwd": "ppppppiiii",
     "ln_mlp_bwd": "p" * 16 + "iiiiii",
     "ln_attn_bwd": "p" * 28 + "iiiiiif",
@@ -45,7 +48,9 @@ SIGNATURES = {
 }
 # Entry points compiled from another entry point's source.
 SOURCES = {"window_attn_fwd_masked": "window_attn_fwd",
-           "window_attn_bwd_masked": "window_attn_bwd"}
+           "window_attn_bwd_masked": "window_attn_bwd",
+           "window_attn_fwd_bf16": "window_attn_fwd",
+           "window_attn_bwd_bf16": "window_attn_bwd"}
 _CTYPES = {"p": ctypes.c_void_p, "i": ctypes.c_int, "f": ctypes.c_float}
 
 _libs: dict = {}
@@ -159,7 +164,8 @@ def launch(name: str, *args) -> None:
 
 def check_tensor(t: torch.Tensor, name: str, dtype=torch.float32) -> None:
     """Raise on what the kernels do not take: another dtype than `dtype`
-    (float32, or bfloat16 for the activations of kernels M and A), a
+    (float32, or bfloat16 for the activations of kernels M and A and the
+    operands of W-bf16 and WB-bf16), a
     tensor that autograd would need a gradient for (a kernel differentiates
     only inside its autograd Function, where grad mode is off), or one off
     the card."""

@@ -12,9 +12,15 @@ Operands keep the projections' packed (B, T, C) layout: head h is columns
 Without a mask the forward is kernel W (`csrc/window_attn_fwd.cu`) and the
 backward kernel WB (`csrc/window_attn_bwd.cu`); with the (nW, Tq, Tk)
 additive mask of Swin's shifted windows they are kernels WM and WMB, the
-masked forms of the same sources. Each pair sits inside one autograd
-Function; the mask is a constant and gets no gradient. CPU tensors take
-the plain versions beside the wrappers.
+masked forms of the same sources. With bfloat16 q, k, v (the Enhanced
+decoder's bf16 module path) they are W-bf16 and WB-bf16, the bfloat16
+forms of W and WB, which round where the Pallas bodies round: scores and
+softmax in f32, p rounded to bfloat16 before the PV product, out in
+bfloat16; in the backward p is recomputed in f32 and not rounded, and dq,
+dk, dv come out in bfloat16 while dbias stays f32. The masked forms take
+float32 only. Each pair sits inside one autograd Function; the mask is a
+constant and gets no gradient. CPU tensors take the plain versions beside
+the wrappers.
 """
 
 from __future__ import annotations
@@ -56,33 +62,52 @@ def _merge(x):
     return x.transpose(1, 2).reshape(b, t, nh * hd)
 
 
+def _wide(*xs):
+    """The operands widened to at least float32 (bfloat16 exactly; float32
+    and float64 as they are), where the products accumulate."""
+    acc = torch.promote_types(xs[0].dtype, torch.float32)
+    return [x.to(acc) for x in xs]
+
+
 def window_attention_packed_plain(q, k, v, bias, scale: float,
                                   num_heads: int, mask=None):
-    """Plain PyTorch version of kernel W (kernel WM with `mask`):
-    (B, Tq, C)."""
-    p = _probs(q, k, bias, scale, num_heads, mask)
-    return _merge(p @ _heads(v, num_heads))
+    """Plain PyTorch version of kernel W (WM with `mask`, W-bf16 with
+    bfloat16 operands): (B, Tq, C) in q's type; p is rounded to v's type
+    before the PV product."""
+    qw, kw, vw = _wide(q, k, v)
+    p = _probs(qw, kw, bias, scale, num_heads, mask)
+    out = _merge(p.to(v.dtype).to(vw.dtype) @ _heads(vw, num_heads))
+    return out.to(q.dtype)
 
 
 def window_attention_packed_bwd_plain(q, k, v, bias, g, scale: float,
                                       num_heads: int, mask=None):
-    """Plain PyTorch version of kernel WB (kernel WMB with `mask`): (dq, dk,
-    dv, dbias), the attention VJP with the softmax recomputed. dbias sums
-    the windows and is None when bias is None."""
-    p = _probs(q, k, bias, scale, num_heads, mask)
-    gh = _heads(g, num_heads)
+    """Plain PyTorch version of kernel WB (WMB with `mask`, WB-bf16 with
+    bfloat16 operands): (dq, dk, dv, dbias), the attention VJP with the
+    softmax recomputed, unrounded. dq, dk, dv come out in the operands'
+    type; dbias sums the windows in f32 (or wider) and is None when bias is
+    None."""
+    qw, kw, vw, gw = _wide(q, k, v, g)
+    p = _probs(qw, kw, bias, scale, num_heads, mask)
+    gh = _heads(gw, num_heads)
     dv = p.transpose(-1, -2) @ gh
-    dp = gh @ _heads(v, num_heads).transpose(-1, -2)
+    dp = gh @ _heads(vw, num_heads).transpose(-1, -2)
     ds = p * (dp - (dp * p).sum(dim=-1, keepdim=True))
-    dq = (ds @ _heads(k, num_heads)) * scale
-    dk = (ds.transpose(-1, -2) @ _heads(q, num_heads)) * scale
+    dq = (ds @ _heads(kw, num_heads)) * scale
+    dk = (ds.transpose(-1, -2) @ _heads(qw, num_heads)) * scale
     dbias = None if bias is None else ds.sum(dim=0)
-    return _merge(dq), _merge(dk), _merge(dv), dbias
+    return (_merge(dq).to(q.dtype), _merge(dk).to(k.dtype),
+            _merge(dv).to(v.dtype), dbias)
 
 
 def _check_mask(q, k, mask):
     """A window mask is (nW, Tq, Tk) and its period divides the window
-    count, as the JAX package requires."""
+    count, as the JAX package requires; the masked forms take float32
+    operands only."""
+    if q.dtype == torch.bfloat16:
+        raise NotImplementedError(
+            "masked window attention in bfloat16: kernels WM and WMB take "
+            "float32 only (their bf16 forms come with SwinIR's bf16 slice)")
     b, tq = q.shape[:2]
     if mask.dim() != 3 or mask.shape[1:] != (tq, k.shape[1]):
         raise ValueError(f"window mask {tuple(mask.shape)} is not (nW, "
@@ -92,14 +117,16 @@ def _check_mask(q, k, mask):
                          f"{mask.shape[0]}")
 
 
-def _check(q, k, v, bias, num_heads: int, extra=(), mask=None):
+def _check(q, k, v, bias, num_heads: int, dtype, extra=(), mask=None):
+    """q, k, v (and `extra`) of `dtype` (float32, or bfloat16 for W-bf16 and
+    WB-bf16); bias and mask float32."""
     b, tq, c = q.shape
     tk = k.shape[1]
     if mask is not None:
         _check_mask(q, k, mask)
         _build.check_tensor(mask, "mask")
     for t, name in ((q, "q"), (k, "k"), (v, "v"), *extra):
-        _build.check_tensor(t, name)
+        _build.check_tensor(t, name, dtype)
     if bias is not None:
         _build.check_tensor(bias, "bias")
     if (k.shape != (b, tk, c) or v.shape != k.shape or c % num_heads
@@ -111,34 +138,43 @@ def _check(q, k, v, bias, num_heads: int, extra=(), mask=None):
             f"{_MAX_T}, head width <= {_MAX_HD} and bias (nh, Tq, Tk)")
 
 
-def _fwd(q, k, v, bias, mask, scale: float, num_heads: int):
-    """Launch kernel W, or WM when `mask` is given; returns out."""
-    _check(q, k, v, bias, num_heads, mask=mask)
+# Entry points of the unmasked forms by operand type.
+_FWD = {torch.float32: "window_attn_fwd",
+        torch.bfloat16: "window_attn_fwd_bf16"}
+_BWD = {torch.float32: "window_attn_bwd",
+        torch.bfloat16: "window_attn_bwd_bf16"}
+
+
+def _fwd(q, k, v, bias, mask, scale: float, num_heads: int, dtype):
+    """Launch kernel W (W-bf16 for bfloat16 `dtype`), or WM when `mask` is
+    given; returns out."""
+    _check(q, k, v, bias, num_heads, dtype, mask=mask)
     b, tq, c = q.shape
-    out = torch.empty((b, tq, c), dtype=torch.float32, device=q.device)
+    out = torch.empty((b, tq, c), dtype=dtype, device=q.device)
     ops = (q.contiguous(), k.contiguous(), v.contiguous(),
            None if bias is None else bias.contiguous())
     dims = (b, tq, k.shape[1], c, num_heads)
     if mask is None:
-        _build.launch("window_attn_fwd", *ops, out, *dims, float(scale))
+        _build.launch(_FWD[dtype], *ops, out, *dims, float(scale))
     else:
         _build.launch("window_attn_fwd_masked", *ops, mask.contiguous(), out,
                       *dims, mask.shape[0], float(scale))
     return out
 
 
-def _bwd(q, k, v, bias, mask, g, scale: float, num_heads: int):
-    """Launch kernel WB, or WMB when `mask` is given; returns (dq, dk, dv,
-    dbias or None)."""
-    _check(q, k, v, bias, num_heads, extra=((g, "g"),), mask=mask)
+def _bwd(q, k, v, bias, mask, g, scale: float, num_heads: int, dtype):
+    """Launch kernel WB (WB-bf16 for bfloat16 `dtype`), or WMB when `mask`
+    is given; returns (dq, dk, dv, dbias or None)."""
+    _check(q, k, v, bias, num_heads, dtype, extra=((g, "g"),), mask=mask)
     b, tq, c = q.shape
     tk = k.shape[1]
     if g.shape != q.shape:
         raise ValueError(f"g {tuple(g.shape)} must match q {tuple(q.shape)}")
     dq = torch.empty_like(q, memory_format=torch.contiguous_format)
-    dk = torch.empty((b, tk, c), dtype=torch.float32, device=q.device)
+    dk = torch.empty((b, tk, c), dtype=dtype, device=q.device)
     dv = torch.empty_like(dk)
-    # per-window ds (B, nh, Tq, Tk): dk's operand, and dbias's partial sums
+    # per-window ds (B, nh, Tq, Tk), f32 whatever the operand type: dk's
+    # operand, and dbias's partial sums
     ds = torch.empty((b, num_heads, tq, tk), dtype=torch.float32,
                      device=q.device)
     dbias = (None if bias is None else
@@ -148,7 +184,7 @@ def _bwd(q, k, v, bias, mask, g, scale: float, num_heads: int):
            None if bias is None else bias.contiguous())
     outs = (g.contiguous(), dq, dk, dv, ds, dbias, b, tq, tk, c, num_heads)
     if mask is None:
-        _build.launch("window_attn_bwd", *ops, *outs, float(scale))
+        _build.launch(_BWD[dtype], *ops, *outs, float(scale))
     else:
         _build.launch("window_attn_bwd_masked", *ops, mask.contiguous(),
                       *outs, mask.shape[0], float(scale))
@@ -156,11 +192,11 @@ def _bwd(q, k, v, bias, mask, g, scale: float, num_heads: int):
 
 
 def window_attention_packed_fwd(q, k, v, bias, scale: float, num_heads: int):
-    """Forward of the packed attention: kernel W on CUDA tensors, the plain
-    version on CPU tensors."""
+    """Forward of the packed attention in float32: kernel W on CUDA tensors,
+    the plain version on CPU tensors."""
     if q.device.type == "cpu":
         return window_attention_packed_plain(q, k, v, bias, scale, num_heads)
-    out = _fwd(q, k, v, bias, None, scale, num_heads)
+    out = _fwd(q, k, v, bias, None, scale, num_heads, torch.float32)
     window_attention_packed_fwd.launches += 1
     return out
 
@@ -170,17 +206,49 @@ window_attention_packed_fwd.launches = 0
 
 def window_attention_packed_bwd(q, k, v, bias, g, scale: float,
                                 num_heads: int):
-    """Backward of the packed attention: kernel WB on CUDA tensors, the plain
-    version on CPU tensors. Returns (dq, dk, dv, dbias or None)."""
+    """Backward of the packed attention in float32: kernel WB on CUDA
+    tensors, the plain version on CPU tensors. Returns (dq, dk, dv, dbias or
+    None)."""
     if q.device.type == "cpu":
         return window_attention_packed_bwd_plain(q, k, v, bias, g, scale,
                                                  num_heads)
-    out = _bwd(q, k, v, bias, None, g, scale, num_heads)
+    out = _bwd(q, k, v, bias, None, g, scale, num_heads, torch.float32)
     window_attention_packed_bwd.launches += 1
     return out
 
 
 window_attention_packed_bwd.launches = 0
+
+
+def window_attention_packed_bf16_fwd(q, k, v, bias, scale: float,
+                                     num_heads: int):
+    """Forward of the packed attention with bfloat16 q, k, v (bias float32
+    or None): kernel W-bf16 on CUDA tensors, the plain version on CPU
+    tensors. Returns bfloat16."""
+    if q.device.type == "cpu":
+        return window_attention_packed_plain(q, k, v, bias, scale, num_heads)
+    out = _fwd(q, k, v, bias, None, scale, num_heads, torch.bfloat16)
+    window_attention_packed_bf16_fwd.launches += 1
+    return out
+
+
+window_attention_packed_bf16_fwd.launches = 0
+
+
+def window_attention_packed_bf16_bwd(q, k, v, bias, g, scale: float,
+                                     num_heads: int):
+    """Backward of the packed attention with bfloat16 q, k, v and g: kernel
+    WB-bf16 on CUDA tensors, the plain version on CPU tensors. Returns (dq,
+    dk, dv in bfloat16, dbias float32 or None)."""
+    if q.device.type == "cpu":
+        return window_attention_packed_bwd_plain(q, k, v, bias, g, scale,
+                                                 num_heads)
+    out = _bwd(q, k, v, bias, None, g, scale, num_heads, torch.bfloat16)
+    window_attention_packed_bf16_bwd.launches += 1
+    return out
+
+
+window_attention_packed_bf16_bwd.launches = 0
 
 
 def window_attention_packed_masked_fwd(q, k, v, bias, mask, scale: float,
@@ -191,7 +259,7 @@ def window_attention_packed_masked_fwd(q, k, v, bias, mask, scale: float,
         _check_mask(q, k, mask)
         return window_attention_packed_plain(q, k, v, bias, scale, num_heads,
                                              mask)
-    out = _fwd(q, k, v, bias, mask, scale, num_heads)
+    out = _fwd(q, k, v, bias, mask, scale, num_heads, torch.float32)
     window_attention_packed_masked_fwd.launches += 1
     return out
 
@@ -207,7 +275,7 @@ def window_attention_packed_masked_bwd(q, k, v, bias, mask, g, scale: float,
         _check_mask(q, k, mask)
         return window_attention_packed_bwd_plain(q, k, v, bias, g, scale,
                                                  num_heads, mask)
-    out = _bwd(q, k, v, bias, mask, g, scale, num_heads)
+    out = _bwd(q, k, v, bias, mask, g, scale, num_heads, torch.float32)
     window_attention_packed_masked_bwd.launches += 1
     return out
 
@@ -216,27 +284,30 @@ window_attention_packed_masked_bwd.launches = 0
 
 
 class _PackedWindowAttention(torch.autograd.Function):
-    """Forward W and backward WB, or WM and WMB with a mask (the custom VJPs
-    of `_packed_window_attention` and `_masked_packed_window_attention` in
-    the JAX package). The mask gets no gradient where JAX returns zeros for
-    it."""
+    """Forward W and backward WB (W-bf16 and WB-bf16 for bfloat16 operands),
+    or WM and WMB with a mask (the custom VJPs of `_packed_window_attention`
+    and `_masked_packed_window_attention` in the JAX package). The mask gets
+    no gradient where JAX returns zeros for it."""
 
     @staticmethod
     def forward(ctx, q, k, v, bias, mask, scale, num_heads):
         ctx.save_for_backward(q, k, v, bias, mask)
         ctx.scale, ctx.num_heads = scale, num_heads
-        if mask is None:
-            return window_attention_packed_fwd(q, k, v, bias, scale,
-                                               num_heads)
-        return window_attention_packed_masked_fwd(q, k, v, bias, mask, scale,
-                                                  num_heads)
+        if mask is not None:
+            return window_attention_packed_masked_fwd(q, k, v, bias, mask,
+                                                      scale, num_heads)
+        fwd = (window_attention_packed_bf16_fwd
+               if q.dtype == torch.bfloat16 else window_attention_packed_fwd)
+        return fwd(q, k, v, bias, scale, num_heads)
 
     @staticmethod
     def backward(ctx, g):
         q, k, v, bias, mask = ctx.saved_tensors
         if mask is None:
-            grads = window_attention_packed_bwd(q, k, v, bias, g, ctx.scale,
-                                                ctx.num_heads)
+            bwd = (window_attention_packed_bf16_bwd
+                   if q.dtype == torch.bfloat16
+                   else window_attention_packed_bwd)
+            grads = bwd(q, k, v, bias, g, ctx.scale, ctx.num_heads)
         else:
             grads = window_attention_packed_masked_bwd(
                 q, k, v, bias, mask, g, ctx.scale, ctx.num_heads)
@@ -249,9 +320,11 @@ def window_attention_packed(q, k, v, bias: Optional[torch.Tensor] = None, *,
     """Multi-head window attention on packed operands, differentiable in q,
     k, v and bias.
 
-    q: (B, Tq, C); k, v: (B, Tk, C); bias: (num_heads, Tq, Tk) or None;
-    window_mask: (nW, Tq, Tk) or None, added to window w's scores as
-    window_mask[w % nW] (B must be a multiple of nW). Returns (B, Tq, C)."""
+    q: (B, Tq, C); k, v: (B, Tk, C), all float32 or all bfloat16; bias:
+    (num_heads, Tq, Tk) float32 or None; window_mask: (nW, Tq, Tk) or None
+    (float32 operands only), added to window w's scores as
+    window_mask[w % nW] (B must be a multiple of nW). Returns (B, Tq, C) in
+    q's type."""
     if scale is None:
         scale = (q.shape[-1] // num_heads) ** -0.5
     return _PackedWindowAttention.apply(q, k, v, bias, window_mask,

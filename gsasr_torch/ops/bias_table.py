@@ -69,6 +69,29 @@ class _BiasGather(torch.autograd.Function):
         return bias_table_bwd(g, inverse), None, None
 
 
+def register_bias_index(module, index: np.ndarray, rows: int) -> None:
+    """Give `module`, which holds a `relative_position_bias_table` of `rows`
+    rows, its `relative_position_index` buffer (in the state_dict) and the
+    index's `relative_position_inverse` (not in it: it follows from the
+    index), and rebuild the inverse whenever a state_dict loads an index:
+    a reference checkpoint brings its own (`torch_convert.py` builds the
+    cross-attention index in set order), and the forward gathers through
+    it, so its table gradient must sum over it too."""
+    module.register_buffer("relative_position_index",
+                           torch.from_numpy(index.astype(np.int64)))
+    module.register_buffer("relative_position_inverse",
+                           torch.from_numpy(inverse_index(index, rows)),
+                           persistent=False)
+    module.register_load_state_dict_post_hook(_rebuild_inverse)
+
+
+def _rebuild_inverse(module, incompatible_keys) -> None:
+    index = module.relative_position_index
+    module.relative_position_inverse = torch.from_numpy(inverse_index(
+        index.cpu().numpy(), module.relative_position_bias_table.shape[0])
+    ).to(index.device)
+
+
 def relative_position_bias(table, index, inverse):
     """(num_heads, Tq, Tk) bias from table (rows, num_heads), index (Tq, Tk)
     int64 and `inverse_index(index, rows)` as an int32 tensor;

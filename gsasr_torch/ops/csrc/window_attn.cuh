@@ -1,8 +1,8 @@
 // Shared pieces of the window-attention kernels (window_attn_fwd.cu,
-// window_attn_bwd.cu, in their plain and masked forms): their limits, the
-// shared-memory layout of one head's operands, staging a head from the
-// packed layout, and the softmax numerators of one score row held by a
-// warp.
+// window_attn_bwd.cu, in their plain, masked and bfloat16 forms): their
+// limits, the shared-memory layout of one head's operands, staging a head
+// from the packed layout (float or bfloat16 operands, widened to f32 tiles),
+// and the softmax numerators of one score row held by a warp.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -36,15 +36,17 @@ __device__ __forceinline__ const float* window_mask(const float* mask,
   return mask + static_cast<size_t>(win % nW) * Tq * Tk;
 }
 
-// dst[r * ld + d] = src[(row0 + r) * C + n0 + d] for r < rows, d < hd.
-__device__ __forceinline__ void stage_head(const float* __restrict__ src,
+// dst[r * ld + d] = src[(row0 + r) * C + n0 + d] for r < rows, d < hd,
+// widened to f32 (exact for bfloat16, the identity for float).
+template <typename T>
+__device__ __forceinline__ void stage_head(const T* __restrict__ src,
                                            size_t row0, int rows, int C,
                                            int n0, int hd, float* dst,
                                            int ld) {
   for (int e = threadIdx.x; e < rows * hd; e += kThreads) {
     const int r = e / hd;
     const int d = e - r * hd;
-    dst[r * ld + d] = src[(row0 + r) * C + n0 + d];
+    dst[r * ld + d] = to_f32(src[(row0 + r) * C + n0 + d]);
   }
 }
 

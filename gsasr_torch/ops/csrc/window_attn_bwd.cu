@@ -1,11 +1,13 @@
-// Kernel WB: packed multi-head window attention, backward; and kernel WMB,
-// its masked form.
+// Kernel WB: packed multi-head window attention, backward; kernel WMB, its
+// masked form; and kernel WB-bf16, its form with bfloat16 operands.
 //
 // WB replaces _attn_kernel_packed_bwd of gsasr_tpu/ops/attention.py
 // (reached from _attention_packed_pallas_bwd, the custom VJP of
 // window_attention_packed); WMB replaces _attn_kernel_packed_masked_bwd
 // (reached from _attention_packed_pallas_masked_bwd, the VJP with a
-// window_mask). Per window w and head h, with the softmax recomputed from
+// window_mask); WB-bf16 replaces _attn_kernel_packed_bwd with bfloat16
+// operands (the Enhanced decoder's bf16 module path). Per window w and
+// head h, with the softmax recomputed from
 // q, k, bias (and mask[w % nW]) as kernels W and WM compute it:
 //
 //   dv = p^T g_h          dp = g_h v_h^T      ds = p (dp - rowsum(dp p))
@@ -18,15 +20,22 @@
 // (q, k, v, g, dq, dk, dv: 186 MB) take about 40% as long at 3.35 TB/s.
 // WMB at a Swin shape (576 windows x 6 heads x 64 x 64 x 30) does 4.2
 // GFLOP against 195 MB (with the mask and dbias): operations and bytes
-// take about as long.
+// take about as long. WB-bf16 at the Enhanced training shape (256 windows
+// x 6 heads x 144 x 144 x 32) does 10.2 GFLOP, 0.010 ms at the bf16
+// tensor-core peak, against 99 MB (bf16 q, k, v, g, dq, dk, dv): 0.030 ms,
+// bound by bytes; it runs WB's f32 FMAs on the CUDA cores.
 //
 // Design: the device code lives in window_attn_bwd.cuh, which kernel AB
 // shares. One block per (window, head) recomputes p in shared memory and
 // forms dq, dk and dv; dbias, a sum over windows, is summed by a second
 // launch in ascending window order: no float atomics, and the result is
 // the same bits from run to run. The mask gets no gradient (a constant at
-// every call site; the JAX VJP returns zeros for it).
+// every call site; the JAX VJP returns zeros for it). In bfloat16 p, dp
+// and ds are f32 and p is not rounded (the Pallas body's f32 dots); dq, dk
+// and dv are rounded once as they are stored; the ds_w scratch and dbias
+// are f32.
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include "window_attn_bwd.cuh"
@@ -56,4 +65,19 @@ extern "C" int window_attn_bwd_masked(const float* q, const float* k,
   return static_cast<int>(launch_window_attn_bwd<false, true>(
       q, k, v, bias, g, dq, dk, dv, ds_w, dbias, nullptr, B, Tq, Tk, C, nh,
       scale, static_cast<cudaStream_t>(stream), mask, nW));
+}
+
+// Kernel WB-bf16: as window_attn_bwd with q, k, v, g, dq, dk and dv
+// bfloat16; bias (nh, Tq, Tk), ds_w and dbias float32.
+extern "C" int window_attn_bwd_bf16(const __nv_bfloat16* q,
+                                    const __nv_bfloat16* k,
+                                    const __nv_bfloat16* v, const float* bias,
+                                    const __nv_bfloat16* g, __nv_bfloat16* dq,
+                                    __nv_bfloat16* dk, __nv_bfloat16* dv,
+                                    float* ds_w, float* dbias, int B, int Tq,
+                                    int Tk, int C, int nh, float scale,
+                                    void* stream) {
+  return static_cast<int>(launch_window_attn_bwd<false, false, __nv_bfloat16>(
+      q, k, v, bias, g, dq, dk, dv, ds_w, dbias, nullptr, B, Tq, Tk, C, nh,
+      scale, static_cast<cudaStream_t>(stream)));
 }

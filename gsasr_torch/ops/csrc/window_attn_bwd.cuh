@@ -1,6 +1,6 @@
-// The device code of kernel WB and its masked form WMB (window_attn_bwd.cu),
-// shared with kernel AB (ln_attn_bwd.cu), which also needs the recomputed
-// attention output.
+// The device code of kernel WB, its masked form WMB and its bfloat16 form
+// WB-bf16 (window_attn_bwd.cu), shared with kernel AB (ln_attn_bwd.cu),
+// which also needs the recomputed attention output.
 //
 // One 256-thread block per (window, head) stages q_h, k_h, v_h and g_h
 // (T x hd each) in shared memory. Pass 1: each warp takes four query rows,
@@ -18,7 +18,12 @@
 // from run to run. With kMask (WMB) the recomputed scores take the window
 // class's mask rows, mask[w % nW], after the bias, as the forward does; the
 // mask is a constant and gets no gradient. The flag is a template
-// parameter, so WB and AB compile as without it.
+// parameter, so WB and AB compile as without it. With T = __nv_bfloat16
+// (WB-bf16) q, k, v and g are bfloat16, widened to the f32 tiles as they
+// are staged; p is recomputed in f32 and not rounded, dp, ds and the
+// products run in f32 from the bf16 operands (the Pallas body's f32 dots),
+// ds_w stays f32, and dq, dk and dv are rounded to bfloat16 once, as they
+// are stored. dbias stays f32.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -27,6 +32,7 @@
 
 namespace {
 
+using gsasr::from_f32;
 using gsasr::HeadLayout;
 using gsasr::kKeysPer;
 using gsasr::kMaxHd;
@@ -60,11 +66,11 @@ struct Layout : HeadLayout {
 // out[(row0 + o) * C + n0 + d] = mul * sum_i A(i, o) * X[i * ldx + d] for
 // o < n_out, d < hd, summing i < n_sum in ascending order, where A(i, o) is
 // A[i * lda + o] (A^T X, the column product) or, with kRows, A[o * lda + i]
-// (A X, the row product).
-template <bool kRows>
+// (A X, the row product); stored rounded to TO.
+template <bool kRows, typename TO>
 __device__ void head_product(const float* A, int lda, const float* X, int ldx,
                              int n_sum, int n_out, int hd, float mul,
-                             float* __restrict__ out, size_t row0, int C,
+                             TO* __restrict__ out, size_t row0, int C,
                              int n0) {
   const int rg = threadIdx.x / kColGroups;
   const int cg = threadIdx.x % kColGroups;
@@ -96,18 +102,18 @@ __device__ void head_product(const float* A, int lda, const float* X, int ldx,
 #pragma unroll
     for (int b = 0; b < kColsPer; ++b) {
       const int d = cg + kColGroups * b;
-      if (d < hd) out[(row0 + o) * C + n0 + d] = acc[a][b] * mul;
+      if (d < hd) out[(row0 + o) * C + n0 + d] = from_f32<TO>(acc[a][b] * mul);
     }
   }
 }
 
-template <bool kAtt, bool kMask>
+template <bool kAtt, bool kMask, typename T>
 __global__ void __launch_bounds__(kThreads)
-window_attn_bwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                       const float* __restrict__ v,
+window_attn_bwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                       const T* __restrict__ v,
                        const float* __restrict__ bias,
-                       const float* __restrict__ g, float* __restrict__ dq,
-                       float* __restrict__ dk, float* __restrict__ dv,
+                       const T* __restrict__ g, T* __restrict__ dq,
+                       T* __restrict__ dk, T* __restrict__ dv,
                        float* __restrict__ ds_w, float* __restrict__ att,
                        int Tq, int Tk, int C, int nh, float scale,
                        const float* __restrict__ mask, int nW) {
@@ -204,7 +210,8 @@ window_attn_bwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
       }
 #pragma unroll
       for (int r = 0; r < kQRows; ++r) {
-        if (i0 + r < Tq) dq[(qrow0 + i0 + r) * C + n0 + lane] = acc[r] * scale;
+        if (i0 + r < Tq)
+          dq[(qrow0 + i0 + r) * C + n0 + lane] = from_f32<T>(acc[r] * scale);
       }
     }
     __syncwarp();
@@ -240,13 +247,13 @@ dbias_sum_kernel(const float* __restrict__ ds_w, float* __restrict__ dbias,
 }
 
 // The launches of kernel WB (with kAtt, also att (B, Tq, C); with kMask,
-// kernel WMB: mask (nW, Tq, Tk), B a multiple of nW). Arguments as
-// window_attn_bwd and window_attn_bwd_masked in window_attn_bwd.cu.
-template <bool kAtt, bool kMask = false>
-cudaError_t launch_window_attn_bwd(const float* q, const float* k,
-                                   const float* v, const float* bias,
-                                   const float* g, float* dq, float* dk,
-                                   float* dv, float* ds_w, float* dbias,
+// kernel WMB: mask (nW, Tq, Tk), B a multiple of nW; with T bfloat16,
+// WB-bf16). Arguments as window_attn_bwd, window_attn_bwd_masked and
+// window_attn_bwd_bf16 in window_attn_bwd.cu.
+template <bool kAtt, bool kMask = false, typename T = float>
+cudaError_t launch_window_attn_bwd(const T* q, const T* k, const T* v,
+                                   const float* bias, const T* g, T* dq,
+                                   T* dk, T* dv, float* ds_w, float* dbias,
                                    float* att, int B, int Tq, int Tk, int C,
                                    int nh, float scale, cudaStream_t st,
                                    const float* mask = nullptr, int nW = 1) {
@@ -256,10 +263,10 @@ cudaError_t launch_window_attn_bwd(const float* q, const float* k,
   const Layout L(Tq, Tk, C / nh);
   const size_t smem = L.bytes(Tk);
   cudaError_t err = cudaFuncSetAttribute(
-      window_attn_bwd_kernel<kAtt, kMask>,
+      window_attn_bwd_kernel<kAtt, kMask, T>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
   if (err != cudaSuccess) return err;
-  window_attn_bwd_kernel<kAtt, kMask><<<dim3(nh, B), kThreads, smem, st>>>(
+  window_attn_bwd_kernel<kAtt, kMask, T><<<dim3(nh, B), kThreads, smem, st>>>(
       q, k, v, bias, g, dq, dk, dv, ds_w, att, Tq, Tk, C, nh, scale, mask, nW);
   err = cudaGetLastError();
   if (err != cudaSuccess || !dbias) return err;

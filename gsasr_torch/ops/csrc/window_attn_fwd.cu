@@ -1,9 +1,11 @@
 // Kernel W: packed multi-head window attention, forward; with kMask, kernel
-// WM, its masked form.
+// WM, its masked form; with bfloat16 operands, kernel W-bf16.
 //
 // W replaces _attn_kernel_packed of gsasr_tpu/ops/attention.py (reached
 // from _attention_packed_pallas, the forward of window_attention_packed
-// without a mask); WM replaces _attn_kernel_packed_masked (reached from
+// without a mask) with float32 operands, and W-bf16 the same body with
+// bfloat16 operands (the Enhanced decoder's bf16 module path, through
+// _sdpa_packed); WM replaces _attn_kernel_packed_masked (reached from
 // _attention_packed_pallas_masked, the forward with a window_mask). Per
 // window w and head h, on the packed (B, T, C) layout where head h is
 // columns [h*hd, (h+1)*hd):
@@ -12,31 +14,45 @@
 //   p = softmax(s) with the row max subtracted
 //   out[w, :, h*hd:(h+1)*hd] = p v_h
 //
+// In bfloat16 the scores, the row max and the softmax are f32 (products
+// of bf16 values are exact in f32), p is rounded to bfloat16 once, to the
+// nearest even, before the PV product (`p.astype(v.dtype)` of the Pallas
+// body), the product accumulates in f32 and out is rounded to bfloat16.
+//
 // What bounds it on an H100: the two products, 4 * B * nh * Tq * Tk * hd
 // FP32 operations (3.8 GFLOP at 256 windows x 6 heads x 144 x 144 x 30)
 // against 67 TFLOP/s; the bytes (q, k, v and out, 106 MB) take less than
 // half as long at 3.35 TB/s, and the exps (32 M) far less. WM at a Swin
 // shape (576 windows x 6 heads x 64 x 64 x 30) does 1.7 GFLOP on 106 MB
-// plus the 9.4 MB mask, so it is bound by bytes.
+// plus the 9.4 MB mask, so it is bound by bytes. W-bf16 at the Enhanced
+// training shape (256 windows x 6 heads x 144 x 144 x 32) does 4.1 GFLOP,
+// 0.004 ms at the bf16 tensor-core peak, on 57 MB of bf16 q, k, v and out,
+// 0.017 ms: bound by bytes. It runs the same f32 FMAs on the CUDA cores as
+// W, so its time is W's less the halved loads.
 //
 // Design. One 256-thread block per (window, head), so heads are sliced by
 // column offset straight from the packed layout and no head transpose is
 // written to memory. The block stages its q_h, k_h and v_h (Tq, Tk x hd,
-// rows padded to an odd stride) in shared memory, about 54 KB at T = 144.
+// rows padded to an odd stride) in shared memory as f32 (bfloat16 widened
+// as it is staged), about 54 KB at T = 144.
 // Each warp takes four query rows at a time and holds their scores in
 // registers (lane l owns keys l + 32 m, so Tk <= 160), takes the softmax
 // with warp reductions, writes the probabilities to a per-warp row buffer
-// and multiplies them by v_h with lane d owning output column d. Each
-// (window, head) writes only its own columns, so no atomics are needed and
-// the result is deterministic. WM reads its window class's mask rows from
-// device memory beside the bias rows (the six heads of a window read the
-// same rows, which stay in L2); the JAX kernel's padding of the window-class
-// period is not needed, since a block takes one window, not a block of
-// them. The mask is a template flag of the body that W and WM share; they
-// are two kernels, each with its own launch bounds, so W compiles as
-// without the mask.
+// (rounded to the operand type) and multiplies them by v_h with lane d
+// owning output column d. Each (window, head) writes only its own columns,
+// so no atomics are needed and the result is deterministic. WM reads its
+// window class's mask rows from device memory beside the bias rows (the
+// six heads of a window read the same rows, which stay in L2); the JAX
+// kernel's padding of the window-class period is not needed, since a block
+// takes one window, not a block of them. The mask and the operand type are
+// template parameters of the body that W, W-bf16 and WM share; they are
+// three kernels, each with its own launch bounds, so W compiles as without
+// the mask or the rounding.
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
+
+#include <type_traits>
 
 #include "window_attn.cuh"
 
@@ -49,6 +65,8 @@ using gsasr::kMaxT;
 using gsasr::kQRows;
 using gsasr::kThreads;
 using gsasr::kWarps;
+using gsasr::from_f32;
+using gsasr::rnd;
 using gsasr::softmax_exp_row;
 using gsasr::stage_head;
 using gsasr::window_mask;
@@ -59,14 +77,13 @@ __host__ __device__ size_t smem_bytes(const HeadLayout& L, int Tk) {
          (L.q_floats + 2 * L.kv_floats + static_cast<size_t>(kWarps) * kQRows * Tk);
 }
 
-// The body of W (kMask false) and WM (kMask true), one block per (head,
-// window).
-template <bool kMask>
+// The body of W (kMask false, T float), W-bf16 (T __nv_bfloat16) and WM
+// (kMask true, T float), one block per (head, window).
+template <bool kMask, typename T>
 __device__ __forceinline__ void window_attn_fwd_body(
-    const float* __restrict__ q, const float* __restrict__ k,
-    const float* __restrict__ v, const float* __restrict__ bias,
-    const float* __restrict__ mask, float* __restrict__ out, int Tq, int Tk,
-    int C, int nh, int nW, float scale) {
+    const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
+    const float* __restrict__ bias, const float* __restrict__ mask,
+    T* __restrict__ out, int Tq, int Tk, int C, int nh, int nW, float scale) {
   extern __shared__ float smem[];
   const int hd = C / nh;
   const HeadLayout L(Tq, Tk, hd);
@@ -113,7 +130,7 @@ __device__ __forceinline__ void window_attn_fwd_body(
 #pragma unroll
       for (int m = 0; m < kKeysPer; ++m) {
         const int j = lane + 32 * m;
-        if (j < Tk) prow[r * Tk + j] = s[r][m] / sum;
+        if (j < Tk) prow[r * Tk + j] = rnd<T>(s[r][m] / sum);
       }
     }
     __syncwarp();
@@ -127,7 +144,8 @@ __device__ __forceinline__ void window_attn_fwd_body(
 #pragma unroll
       for (int r = 0; r < kQRows; ++r) {
         if (i0 + r < Tq)
-          out[(static_cast<size_t>(win) * Tq + i0 + r) * C + n0 + lane] = o[r];
+          out[(static_cast<size_t>(win) * Tq + i0 + r) * C + n0 + lane] =
+              from_f32<T>(o[r]);
       }
     }
     __syncwarp();
@@ -140,8 +158,20 @@ window_attn_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
                        const float* __restrict__ bias,
                        const float* __restrict__ mask, float* __restrict__ out,
                        int Tq, int Tk, int C, int nh, int nW, float scale) {
-  window_attn_fwd_body<false>(q, k, v, bias, mask, out, Tq, Tk, C, nh, nW,
-                              scale);
+  window_attn_fwd_body<false, float>(q, k, v, bias, mask, out, Tq, Tk, C,
+                                     nh, nW, scale);
+}
+
+__global__ void __launch_bounds__(kThreads)
+window_attn_fwd_bf16_kernel(const __nv_bfloat16* __restrict__ q,
+                            const __nv_bfloat16* __restrict__ k,
+                            const __nv_bfloat16* __restrict__ v,
+                            const float* __restrict__ bias,
+                            const float* __restrict__ mask,
+                            __nv_bfloat16* __restrict__ out, int Tq, int Tk,
+                            int C, int nh, int nW, float scale) {
+  window_attn_fwd_body<false, __nv_bfloat16>(q, k, v, bias, mask, out, Tq, Tk,
+                                             C, nh, nW, scale);
 }
 
 // WM is held to four blocks per SM (64 registers): left free, the
@@ -155,21 +185,30 @@ window_attn_fwd_masked_kernel(const float* __restrict__ q,
                               const float* __restrict__ mask,
                               float* __restrict__ out, int Tq, int Tk, int C,
                               int nh, int nW, float scale) {
-  window_attn_fwd_body<true>(q, k, v, bias, mask, out, Tq, Tk, C, nh, nW,
-                             scale);
+  window_attn_fwd_body<true, float>(q, k, v, bias, mask, out, Tq, Tk, C, nh,
+                                    nW, scale);
 }
 
-template <bool kMask>
-cudaError_t launch_fwd(const float* q, const float* k, const float* v,
-                       const float* bias, const float* mask, float* out, int B,
-                       int Tq, int Tk, int C, int nh, int nW, float scale,
-                       cudaStream_t st) {
+// The kernel of a form: WM (float only), W or W-bf16.
+template <bool kMask, typename T>
+constexpr auto fwd_kernel() {
+  if constexpr (kMask)
+    return window_attn_fwd_masked_kernel;
+  else if constexpr (std::is_same_v<T, float>)
+    return window_attn_fwd_kernel;
+  else
+    return window_attn_fwd_bf16_kernel;
+}
+
+template <bool kMask, typename T>
+cudaError_t launch_fwd(const T* q, const T* k, const T* v, const float* bias,
+                       const float* mask, T* out, int B, int Tq, int Tk, int C,
+                       int nh, int nW, float scale, cudaStream_t st) {
   if (B < 1 || Tq < 1 || Tk < 1 || nh < 1 || C % nh != 0 || C / nh > kMaxHd ||
       Tq > kMaxT || Tk > kMaxT || nW < 1 || B % nW != 0)
     return cudaErrorInvalidValue;
   const size_t smem = smem_bytes(HeadLayout(Tq, Tk, C / nh), Tk);
-  const auto kernel = kMask ? window_attn_fwd_masked_kernel
-                            : window_attn_fwd_kernel;
+  const auto kernel = fwd_kernel<kMask, T>();
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
@@ -187,7 +226,19 @@ extern "C" int window_attn_fwd(const float* q, const float* k, const float* v,
                                const float* bias, float* out, int B, int Tq,
                                int Tk, int C, int nh, float scale,
                                void* stream) {
-  return static_cast<int>(launch_fwd<false>(
+  return static_cast<int>(launch_fwd<false, float>(
+      q, k, v, bias, nullptr, out, B, Tq, Tk, C, nh, 1, scale,
+      static_cast<cudaStream_t>(stream)));
+}
+
+// Kernel W-bf16: as window_attn_fwd with q, k, v and out bfloat16; bias
+// (nh, Tq, Tk) float32 or null.
+extern "C" int window_attn_fwd_bf16(const __nv_bfloat16* q,
+                                    const __nv_bfloat16* k,
+                                    const __nv_bfloat16* v, const float* bias,
+                                    __nv_bfloat16* out, int B, int Tq, int Tk,
+                                    int C, int nh, float scale, void* stream) {
+  return static_cast<int>(launch_fwd<false, __nv_bfloat16>(
       q, k, v, bias, nullptr, out, B, Tq, Tk, C, nh, 1, scale,
       static_cast<cudaStream_t>(stream)));
 }
@@ -199,7 +250,7 @@ extern "C" int window_attn_fwd_masked(const float* q, const float* k,
                                       const float* mask, float* out, int B,
                                       int Tq, int Tk, int C, int nh, int nW,
                                       float scale, void* stream) {
-  return static_cast<int>(launch_fwd<true>(
+  return static_cast<int>(launch_fwd<true, float>(
       q, k, v, bias, mask, out, B, Tq, Tk, C, nh, nW, scale,
       static_cast<cudaStream_t>(stream)));
 }

@@ -7,21 +7,27 @@ One step: encoder -> decoder -> slot-stacked canvas render -> masked L1
 as optax.MultiSteps) and updates every k-th call; the EMA moves on every
 call.
 
-The decoder runs its module path by default and its fused path with
-`fused_decoder=True`, as the JAX Trainer's `_dec_apply` does. Per step of
-the paper decoder on the card: module path 38 W and 38 WB; fused path 83 M
-and 38 A forward, 83 MB and 38 AB backward; either way 1 R, 1 RB and 38 T
-(the bias-table gradients). A SwinIR encoder adds 18 W, 18 WB, 18 WM, 18
-WMB and 36 T per step (its unshifted and shifted blocks and their bias
-tables), and its DropPath masks come from a generator on the trainer's
-device seeded from (config.seed, step), so one state and batch give one
-gradient.
+The decoder runs its module path by default (`dec(feat, scale)`, for the
+paper Fea2GS and the Enhanced Fea2GSRopeAMP in the module's compute type)
+and, for the paper decoder, its fused path with `fused_decoder=True`, as the
+JAX Trainer's `_dec_apply` does. Per step of the paper decoder on the card:
+module path 38 W and 38 WB; fused path 83 M and 38 A forward, 83 MB and 38
+AB backward; either way 1 R, 1 RB and 38 T (the bias-table gradients). A
+SwinIR encoder adds 18 W, 18 WB, 18 WM, 18 WMB and 36 T per step (its
+unshifted and shifted blocks and their bias tables), and its DropPath masks
+come from a generator on the trainer's device seeded from (config.seed,
+step). The Enhanced decoder at the bf16 recipe launches 38 W-bf16 and 38
+WB-bf16, 1 R and 1 RB per step, and no T (RoPE has no bias table). No
+GradScaler: bf16 keeps float32's exponent range, and the JAX Trainer uses
+none. The forward and backward run with cuDNN's deterministic algorithms,
+so one state and batch give one gradient, the same bits, as JAX's do.
 """
 
 from __future__ import annotations
 
 import copy
 import dataclasses
+import inspect
 from typing import Optional, Tuple
 
 import numpy as np
@@ -29,6 +35,7 @@ import torch
 
 from gsasr_torch import resolve_device
 from gsasr_torch.models.fea2gs_fast import fea2gs_apply_fused
+from gsasr_torch.models.fea2gs_rope import Fea2GSRopeAMP
 from gsasr_torch.rendering import render_training_batch
 from gsasr_torch.train.losses import masked_l1, size_mask, ssim
 from gsasr_torch.train.schedules import multistep_warmup_schedule
@@ -74,6 +81,20 @@ def _global_norm(grads):
     return torch.linalg.vector_norm(torch.stack(torch._foreach_norm(grads)))
 
 
+def deterministic_cudnn():
+    """`torch.backends.cudnn.flags` with deterministic=True and every other
+    flag as it stands: `flags()` resets each argument it is not given
+    (enabled to False among them), so enabled, benchmark and allow_tf32 are
+    passed as they are, and the rest of its arguments as None, which leaves
+    them alone."""
+    cudnn = torch.backends.cudnn
+    keep = dict(enabled=cudnn.enabled, benchmark=cudnn.benchmark,
+                allow_tf32=cudnn.allow_tf32, deterministic=True)
+    rest = {k: None for k in inspect.signature(cudnn.flags).parameters
+            if k not in keep}
+    return cudnn.flags(**keep, **rest)
+
+
 class Trainer:
     """`metrics = trainer.step(batch)` on `enc` and `dec` in place.
 
@@ -92,6 +113,13 @@ class Trainer:
         if mesh is not None:
             raise NotImplementedError(
                 "meshes (data and band axes) come with the multi-GPU slice")
+        if config.fused_decoder and isinstance(dec, Fea2GSRopeAMP):
+            raise NotImplementedError(
+                "fused_decoder=True with the Enhanced decoder needs the "
+                "backward of kernel A's RoPE form (K10's RoPE-table "
+                "gradients) and the bf16 and zero_base forms of MB and AB "
+                "(K9/K10), which are not ported yet; its module path "
+                "(fused_decoder=False, the recipes' default) trains")
         self.device = resolve_device(device)
         self.cfg = config
         self.enc = enc.to(self.device).train()
@@ -166,11 +194,13 @@ class Trainer:
 
     def grads(self, batch):
         """(loss, metrics, grads_g, grads_d) of one batch, moved to the
-        device first; unused parameters (the dead LayerNorms, ScaleInject's
-        q/k thirds) get zero gradients."""
-        loss, metrics = self.loss_fn(self.to_device(batch))
+        device first, with cuDNN's deterministic algorithms; unused
+        parameters (the dead LayerNorms, ScaleInject's q/k thirds) get zero
+        gradients."""
         params = self.params_g + self.params_d
-        grads = torch.autograd.grad(loss, params, allow_unused=True)
+        with deterministic_cudnn():
+            loss, metrics = self.loss_fn(self.to_device(batch))
+            grads = torch.autograd.grad(loss, params, allow_unused=True)
         grads = [torch.zeros_like(p) if g is None else g
                  for p, g in zip(params, grads)]
         n = len(self.params_g)

@@ -4,7 +4,7 @@ CUDA card.
 
   python3 scripts/profile_torch_e2e.py [--encoder edsr|swinir|rdn]
                                        [--enhanced [--fp32-trunk] |
-                                        --train [--fused]]
+                                        --train [--fused | --enhanced]]
                                        [--iters 3] [--json PATH]
 
 Builds the paper EDSR-GSASR (--encoder swinir or rdn: SwinIR- or
@@ -14,7 +14,10 @@ then traces with torch.profiler either `sr_forward` on a 180x180 x4 image
 (padded to the encoder's denominator: 192x192 for SwinIR) or, with
 --train, `Trainer.step` of configs/train_<encoder>_paper.yml's recipe on
 chip_smoke.py's synthetic batch of 16 samples of 48x48 (with --fused, on
-the fused decoder: fused_decoder=True). Prints the device
+the fused decoder: fused_decoder=True; with --enhanced, the Enhanced
+EDSR-GSASR at configs/train_edsr_amp.yml's bf16 recipe on its module
+decoder, the networks as chip_smoke.enhanced_networks builds them). Prints
+the device
 time per image (or step) grouped by kernel family (the port's kernels,
 cuDNN convolutions, cuBLAS products, PyTorch's ReLU, foreach updates,
 index gathers and scatters, the rest), the top kernels by device time, and
@@ -43,10 +46,14 @@ sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
 FAMILIES = (
     ("R raster_fwd", ("raster_fwd_kernel",)),
     ("RB raster_bwd", ("raster_bwd_kernel",)),
-    # the masked forms (WM, WMB) are instantiations with kMask = true
-    ("WM window_attn_fwd masked", ("window_attn_fwd_kernel<true>",)),
+    # WM and W-bf16 are kernels of their own over W's body; WMB and
+    # WB-bf16 instantiations of WB's kernel (kMask true; T bfloat16)
+    ("WM window_attn_fwd masked", ("window_attn_fwd_masked_kernel",)),
+    ("W-bf16 window_attn_fwd bf16", ("window_attn_fwd_bf16_kernel",)),
     ("W window_attn_fwd", ("window_attn_fwd_kernel",)),
-    ("WMB window_attn_bwd masked", ("window_attn_bwd_kernel<false, true>",)),
+    ("WMB window_attn_bwd masked", ("window_attn_bwd_kernel<false, true",)),
+    ("WB-bf16 window_attn_bwd bf16", ("window_attn_bwd_kernel<false, false, "
+                                      "__nv_bfloat16",)),
     # AB runs WB's device code for its attention backward
     ("WB window_attn_bwd, AB attention", ("window_attn_bwd_kernel",
                                           "dbias_sum_kernel")),
@@ -87,7 +94,8 @@ def main() -> int:
                     choices=("edsr", "swinir", "rdn"),
                     help="the paper GSASR of this encoder")
     ap.add_argument("--enhanced", action="store_true",
-                    help="trace sr_forward of the Enhanced EDSR-GSASR")
+                    help="trace sr_forward of the Enhanced EDSR-GSASR (with "
+                    "--train: its step at the bf16 recipe)")
     ap.add_argument("--fp32-trunk", action="store_true",
                     help="with --enhanced: the decoder trunk in fp32")
     ap.add_argument("--iters", type=int, default=3)
@@ -98,19 +106,26 @@ def main() -> int:
         return 2
     from gsasr_torch.model import DENOMINATORS, make_models, sr_forward
 
-    if args.enhanced and (args.train or args.encoder != "edsr"):
-        ap.error("--enhanced traces EDSR inference only")
+    if args.enhanced and (args.encoder != "edsr" or args.fused or
+                          args.train and args.fp32_trunk):
+        ap.error("--enhanced traces EDSR, the step on its module decoder")
     trunk = torch.float32 if args.fp32_trunk else None
-    enc, dec = make_models(args.encoder,
-                           "enhanced" if args.enhanced else "paper",
-                           generator=torch.Generator().manual_seed(0))
+    if args.train and args.enhanced:
+        from chip_smoke import enhanced_networks
+        enc, dec = enhanced_networks()
+    else:
+        enc, dec = make_models(args.encoder,
+                               "enhanced" if args.enhanced else "paper",
+                               generator=torch.Generator().manual_seed(0))
     if args.train:
-        from chip_smoke import PAPER_BATCH, PAPER_TRAIN, paper_batch
+        from chip_smoke import (ENHANCED_TRAIN, PAPER_BATCH, PAPER_TRAIN,
+                                paper_batch)
         from gsasr_torch.train import TrainConfig, Trainer
 
         tr = Trainer(enc, dec, TrainConfig(**dict(
-            PAPER_TRAIN, fused_decoder=args.fused)))
-        batches = [paper_batch(PAPER_BATCH, seed=20 + i)
+            ENHANCED_TRAIN if args.enhanced else PAPER_TRAIN,
+            fused_decoder=args.fused)))
+        batches = [paper_batch(PAPER_BATCH, seed=20 + i, ceil=args.enhanced)
                    for i in range(args.iters + 2)]
 
         def run(i):
@@ -162,7 +177,8 @@ def main() -> int:
         card=card, iters=per, unit=unit,
         encoder=args.encoder,
         decoder=("paper" if not args.enhanced else "Enhanced, fp32 trunk"
-                 if args.fp32_trunk else "Enhanced, bf16 trunk"),
+                 if args.fp32_trunk else "Enhanced, bf16 recipe (module)"
+                 if args.train else "Enhanced, bf16 trunk"),
         wall_ms_per_image=wall_ms / per,
         device_busy_ms_per_image=busy_ms / per,
         device_busy_share=busy_ms / wall_ms,

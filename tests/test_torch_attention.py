@@ -2,8 +2,9 @@
 forward (Pallas K11, or K13 with a window mask, in interpret mode) and
 jax.grad through its custom VJP (K12 or K13b in interpret mode) against the
 port's autograd Function, which runs the plain versions of kernels W and
-WB (WM and WMB with a mask) on CPU tensors; and the plain backward against
-torch.autograd of the plain forward."""
+WB (WM and WMB with a mask; W-bf16 and WB-bf16 with bfloat16 operands) on
+CPU tensors; and the plain backward against torch.autograd of the plain
+forward."""
 
 import jax
 import jax.numpy as jnp
@@ -174,3 +175,115 @@ def test_default_scale_and_launch_count_on_cpu():
                                      window_mask=mask)
     assert torch.equal(out, ref)
     assert ta.window_attention_packed_masked_fwd.launches == m
+
+
+# bfloat16 operands (the Enhanced decoder's bf16 module path): a bias and
+# Tq != Tk both ways, and no bias (the RoPE attentions)
+BF16_CASES = [(7, 16, 16, 12, 3, True), (5, 16, 9, 12, 3, True),
+              (3, 9, 25, 8, 2, True), (11, 16, 16, 12, 6, False)]
+
+
+def _within_a_bf16_step(a, ref):
+    """|a - ref| <= one bf16 step of ref + 2^-16 max|ref|. The floor is for
+    entries where an f32 sum cancels far below the tensor's scale: its f32
+    rounding in another order (2^-24 of the terms) then spans more than one
+    step of the small result."""
+    a, ref = a.float(), ref.float()
+    _, e = torch.frexp(ref)
+    step = torch.ldexp(torch.ones_like(ref), e - 8)
+    return bool(((a - ref).abs()
+                 <= step + 2.0 ** -16 * ref.abs().max()).all())
+
+
+@pytest.mark.parametrize("b,tq,tk,c,nh,bias", BF16_CASES)
+def test_bf16_matches_jax_forward_and_grad(b, tq, tk, c, nh, bias):
+    """W-bf16 and WB-bf16's plain versions against K11 and K12 with bf16
+    operands in interpret mode, forward and VJP through
+    window_attention_packed, with bf16 q, k, v and g and an f32 bias. Both
+    round p to bf16 once before the PV product and round out, dq, dk and dv
+    once from f32 sums taken in another order, so each bf16 output is equal
+    or one bf16 step apart (`_within_a_bf16_step`; all but a few of ~30,000
+    here are bit-equal); dbias is f32, summed over the windows in another
+    order (1e-5)."""
+    q, k, v, bs, g = _inputs(b, tq, tk, c, nh, bias, seed=7)
+    jbf = jnp.bfloat16
+    args = [jnp.asarray(x).astype(jbf) for x in (q, k, v)]
+    args += [jnp.asarray(bs)] if bias else []
+    gj = jnp.asarray(g).astype(jbf)
+
+    def jfwd(*a):
+        return jattn(*a[:3], a[3] if bias else None, num_heads=nh)
+
+    jout, vjp = jax.vjp(jfwd, *args)
+    jgrads = vjp(gj)
+    tens = [torch.from_numpy(np.asarray(x.astype(jnp.float32))).to(
+        torch.bfloat16).requires_grad_() for x in args[:3]]
+    tens += [torch.from_numpy(bs).requires_grad_()] if bias else []
+    out = ta.window_attention_packed(*tens[:3], tens[3] if bias else None,
+                                     num_heads=nh)
+    out.backward(torch.from_numpy(np.asarray(gj.astype(jnp.float32))).to(
+        torch.bfloat16))
+    assert out.dtype == torch.bfloat16
+
+    def tbf(x):
+        return torch.from_numpy(np.asarray(x.astype(jnp.float32))).to(
+            torch.bfloat16)
+
+    assert _within_a_bf16_step(out.detach(), tbf(jout))
+    for t, jg, name in zip(tens, jgrads, "qkv"):
+        assert t.grad.dtype == torch.bfloat16
+        assert _within_a_bf16_step(t.grad, tbf(jg)), name
+    if bias:
+        assert tens[3].grad.dtype == torch.float32
+        np.testing.assert_allclose(tens[3].grad.numpy(),
+                                   np.asarray(jgrads[3]), rtol=1e-5,
+                                   atol=1e-5)
+
+
+def test_bf16_plain_rounds_where_the_pallas_bodies_round():
+    """The plain bf16 forward rounds p to bf16 once and then out (the same
+    function in float32 from the same bf16 values, with p rounded by hand,
+    is the same bits); the backward does not round p, and only its outputs
+    are bf16 (float64 from the same values, rounded once, within a step)."""
+    b, tq, tk, c, nh = 5, 16, 9, 12, 3
+    q, k, v, bs, g = (None if a is None else torch.from_numpy(a)
+                      for a in _inputs(b, tq, tk, c, nh, True, seed=8))
+    qb, kb, vb, gb = (x.to(torch.bfloat16) for x in (q, k, v, g))
+    out = ta.window_attention_packed_plain(qb, kb, vb, bs, 0.3, nh)
+    p = ta._probs(qb.float(), kb.float(), bs, 0.3, nh)
+    want = ta._merge(p.to(torch.bfloat16).float()
+                     @ ta._heads(vb.float(), nh)).to(torch.bfloat16)
+    assert out.dtype == torch.bfloat16 and torch.equal(out, want)
+    got = ta.window_attention_packed_bwd_plain(qb, kb, vb, bs, gb, 0.3, nh)
+    ref = ta.window_attention_packed_bwd_plain(
+        qb.double(), kb.double(), vb.double(), bs.double(), gb.double(), 0.3,
+        nh)
+    for a, r in zip(got[:3], ref[:3]):
+        assert a.dtype == torch.bfloat16
+        assert _within_a_bf16_step(a, r.to(torch.bfloat16))
+    assert got[3].dtype == torch.float32
+    np.testing.assert_allclose(got[3].numpy(), ref[3].numpy(), rtol=1e-5,
+                               atol=1e-6)
+
+
+def test_bf16_forms_raise_where_not_ported():
+    """A masked bf16 call raises on the CPU as on the card (WM and WMB take
+    float32 only); the float32 entry points refuse bf16 operands and the
+    bf16 ones float32, before any launch (meta tensors stand in for CUDA
+    ones); CPU tensors never count a launch."""
+    x = torch.zeros(6, 4, 6, dtype=torch.bfloat16)
+    with pytest.raises(NotImplementedError, match="WM and WMB"):
+        ta.window_attention_packed(x, x, x, num_heads=2,
+                                   window_mask=torch.zeros(3, 4, 4))
+    for dt, fn in ((torch.bfloat16, ta.window_attention_packed_fwd),
+                   (torch.float32, ta.window_attention_packed_bf16_fwd)):
+        meta = torch.empty(6, 4, 6, device="meta", dtype=dt)
+        with pytest.raises(TypeError):
+            fn(meta, meta, meta, None, 0.5, 2)
+    n = ta.window_attention_packed_bf16_fwd.launches
+    m = ta.window_attention_packed_bf16_bwd.launches
+    y = ta.window_attention_packed(x.requires_grad_(), x, x, num_heads=2)
+    y.sum().backward()
+    assert ta.window_attention_packed_bf16_fwd.launches == n
+    assert ta.window_attention_packed_bf16_bwd.launches == m
+

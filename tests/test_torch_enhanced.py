@@ -237,7 +237,8 @@ def test_enhanced_entry_points_raise_without_gpu(monkeypatch):
 def test_make_models_enhanced_seeded_and_shaped():
     """make_models("edsr", "enhanced" | "ultra") builds the Enhanced
     decoder at its published widths, every weight drawn from the generator;
-    other encoders still raise."""
+    RDN's takes two cross-attention blocks (`gsasr_tpu/model.py`'s
+    enhanced_cfg); SwinIR's still raises."""
     from gsasr_torch.model import make_models
 
     _, dec = make_models("edsr", "enhanced", device="cpu",
@@ -261,5 +262,9 @@ def test_make_models_enhanced_seeded_and_shaped():
     want = 1 / 10 ** (torch.arange(0, 32, 4) / 32.0)
     torch.testing.assert_close(mag, want.repeat(2).expand(6, 16),
                                rtol=1e-5, atol=1e-6)
+    _, rdec = make_models("rdn", "enhanced", device="cpu")
+    assert isinstance(rdec, Fea2GSRopeAMP)
+    assert len(rdec.window_crossattn_blocks) == 2
+    assert len(rdec.gs_selfattn_blocks) == 6
     with pytest.raises(NotImplementedError):
-        make_models("rdn", "enhanced", device="cpu")
+        make_models("swinir", "enhanced", device="cpu")

@@ -411,3 +411,82 @@ def test_bias_table_bwd_matches_plain_and_repeats(cuda):
     # up to 144 entries a row summed in another order
     _assert_grad_close(out, bt.bias_table_bwd_plain(g, inv),
                        out.abs().max())
+
+
+# (windows, Tq, Tk, C, heads, bias) for W-bf16 and WB-bf16: the Enhanced
+# module path's shape (6 heads of 32, no bias), Tq != Tk with a bias (the
+# paper's bf16 module path), and a head width below 32
+BF16_ATTN_CASES = [(37, 144, 144, 192, 6, False), (11, 64, 144, 192, 6, True),
+                   (13, 144, 100, 180, 6, True), (7, 49, 49, 96, 4, False)]
+
+
+@pytest.mark.parametrize("b,tq,tk,c,nh,bias", BF16_ATTN_CASES)
+def test_window_attn_bf16_matches_plain_and_repeats(cuda, b, tq, tk, c, nh,
+                                                    bias):
+    """W-bf16 and WB-bf16 against their plain versions: bf16 out, dq, dk and
+    dv within one bf16 step (`_assert_bf16_close`), dbias in f32; WB-bf16
+    twice, bitwise; the float32 kernels untouched (no launch)."""
+    from gsasr_torch.ops import attention as ta
+
+    q, k, v, bs, g = _attn_inputs(cuda, b, tq, tk, c, nh, bias, seed=10)
+    q, k, v, g = (x.to(torch.bfloat16) for x in (q, k, v, g))
+    scale = (c // nh) ** -0.5
+    n = (ta.window_attention_packed_fwd.launches,
+         ta.window_attention_packed_bwd.launches)
+    _assert_bf16_close(
+        ta.window_attention_packed_bf16_fwd(q, k, v, bs, scale, nh),
+        ta.window_attention_packed_plain(q, k, v, bs, scale, nh))
+    out = ta.window_attention_packed_bf16_bwd(q, k, v, bs, g, scale, nh)
+    again = ta.window_attention_packed_bf16_bwd(q, k, v, bs, g, scale, nh)
+    ref = ta.window_attention_packed_bwd_plain(q, k, v, bs, g, scale, nh)
+    assert (out[3] is None) == (not bias)
+    for o, a, r in zip(out[:3], again[:3], ref[:3]):
+        assert torch.equal(o, a)
+        _assert_bf16_close(o, r)
+    if bias:
+        assert torch.equal(out[3], again[3]) and out[3].dtype == torch.float32
+        torch.testing.assert_close(out[3], ref[3], rtol=1e-4,
+                                   atol=1e-4 * float(ref[3].abs().max()))
+    assert (ta.window_attention_packed_fwd.launches,
+            ta.window_attention_packed_bwd.launches) == n
+
+
+def test_enhanced_bf16_module_step_through_autograd(cuda):
+    """A tiny bf16 Enhanced decoder's module path on the card (W-bf16
+    forward, WB-bf16 backward, one each per attention) against the same
+    module on the CPU: outputs and every parameter's gradient within the
+    bf16 trunk's one-step differences carried through its sub-layers
+    (2^-8 x 17 of each tensor's largest entry)."""
+    import copy
+
+    from gsasr_torch.models import Fea2GSRopeAMP
+    from gsasr_torch.models.init import init_weights
+    from gsasr_torch.ops import attention as ta
+
+    torch.backends.cudnn.allow_tf32 = False
+    m = init_weights(Fea2GSRopeAMP(inchannel=16, channel=24, num_heads=6,
+                                   num_crossattn_blocks=1,
+                                   num_crossattn_layers=1,
+                                   num_selfattn_blocks=1,
+                                   num_selfattn_layers=2, num_gs_seed=16,
+                                   window_size=4, dtype=torch.bfloat16),
+                     torch.Generator().manual_seed(11))
+    x = torch.rand(2, 8, 12, 16, generator=torch.Generator().manual_seed(12))
+    s = torch.tensor([2.5, 3.5])
+    outs = []
+    n = (ta.window_attention_packed_bf16_fwd.launches,
+         ta.window_attention_packed_bf16_bwd.launches)
+    for dev in ("cpu", cuda):
+        mm = copy.deepcopy(m).to(dev)
+        y = mm(x.to(dev).to(torch.bfloat16), s.to(dev))
+        y.square().sum().backward()
+        # the dead LayerNorms get no gradient
+        outs.append([y.detach().cpu()] + [p.grad.cpu()
+                                         for p in mm.parameters()
+                                         if p.grad is not None])
+    torch.cuda.synchronize()
+    assert (ta.window_attention_packed_bf16_fwd.launches - n[0],
+            ta.window_attention_packed_bf16_bwd.launches - n[1]) == (3, 3)
+    for a, r in zip(*outs):
+        tol = 2 ** -8 * 17 * float(r.abs().max())
+        torch.testing.assert_close(a, r, rtol=0, atol=tol)

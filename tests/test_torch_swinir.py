@@ -260,7 +260,7 @@ def test_make_models_swinir_and_rdn_seeded_and_shaped():
     assert len(rdn.RDBs) == 16 and len(rdn.RDBs[0].convs) == 8
     assert rdn.RDBs[15].LFF.weight.shape == (64, 576, 1, 1)
     for enc_name, version in (("hat", "paper"), ("swinir", "enhanced"),
-                              ("rdn", "ultra")):
+                              ("swinir", "ultra")):
         with pytest.raises(NotImplementedError, match="window-16"):
             make_models(enc_name, version, device="cpu")
 
