@@ -4,8 +4,9 @@
   python3 chip_smoke.py [--json PATH]
 
 1. Prints the card (nvidia-smi name and power limit), the torch and CUDA
-   versions, and builds kernels R, M, A, W, WB, RB, MB, AB and T from
-   gsasr_torch/ops/csrc, one nvcc each, in parallel.
+   versions, and builds kernels R, M, A, W, WB, RB, MB, AB and T (and
+   their forms) from gsasr_torch/ops/csrc, one nvcc per source, in
+   parallel.
 2. Kernel phase (TF32 off): R, M and A against their plain PyTorch versions
    at the inference path's shapes, with their median times, the plain
    versions' times and their lower bounds on this card.
@@ -70,6 +71,20 @@
    the card against the CPU.
 20. RDN-Enhanced: path phase and end-to-end timing of make_models("rdn",
    "enhanced") (two cross-attention blocks: 88 M and 40 A per forward).
+21. SwinIR-Enhanced: path phase and end-to-end timing of
+   make_models("swinir", "enhanced") with denominator 16 (18 W, 18 WM, 96
+   M and 44 A-long per forward: its decoder takes 256 seeds in windows of
+   16).
+22. Ultra kernel phase (TF32 off): the window-16 forms W-long (a HAB's
+   144 windows x 256 x 256 and an OCAB's 256 x 576, fp32; and
+   W-long-bf16) and A-long (RoPE cross- and self-attention at T = 256,
+   bf16 and fp32) against their plain versions, each twice for bitwise
+   repeatability, with times, bounds and SDPA as W-long's yardstick.
+23. HAT-L Ultra: make_models("hat", "ultra"), sr_forward with denominator
+   16 on the three requests of phase 3 (84 W-long, 64 A-long, 140 M, no
+   A, per forward), a 48x48 request on the card against the CPU (bf16
+   trunk), and the 180x180 x4 end-to-end timing with its split, peak
+   memory and bound.
 
 Every training phase also times Trainer.grads, which runs with cuDNN's
 deterministic algorithms, against the same forward and backward under
@@ -161,10 +176,11 @@ GRAD_TOL = 1e-4
 # per attention instead of W and WB.
 TRAIN_COUNTS = {"R": 1, "M": 0, "A": 0, "W": 38, "WB": 38, "RB": 1, "MB": 0,
                 "AB": 0, "T": 38, "WM": 0, "WMB": 0, "W-bf16": 0,
-                "WB-bf16": 0}
+                "WB-bf16": 0, "W-long": 0, "W-long-bf16": 0, "A-long": 0}
 FUSED_TRAIN_COUNTS = {"R": 1, "M": 83, "A": 38, "W": 0, "WB": 0, "RB": 1,
                       "MB": 83, "AB": 38, "T": 38, "WM": 0, "WMB": 0,
-                      "W-bf16": 0, "WB-bf16": 0}
+                      "W-bf16": 0, "WB-bf16": 0, "W-long": 0,
+                      "W-long-bf16": 0, "A-long": 0}
 # SwinIR (6 RSTBs of 6 blocks, window 8, shift 4 on odd blocks): per
 # forward 18 W (unshifted blocks) and 18 WM (shifted), per step their
 # backward too, and 36 more T (its bias tables). configs/
@@ -190,6 +206,19 @@ RDN_ENHANCED_PER_FORWARD = {"M": 88, "A": 40}
 # bf16 depth of its decoder (DEC_DEPTH); each network's gradient within
 # relative L2 2^-8 times it (the encoder three convs deeper).
 ENHANCED_TINY_DEPTH = 17
+# HAT-L Ultra (make_models("hat", "ultra"), sr_forward pads to 16): per
+# forward W-long once per HAB (12 RHAGs of 6, T = 256) and OCAB (12, 256 x
+# 576); the decoder's 4 cross-attention blocks of 4 layers and 8
+# self-attention blocks of 6, all at T = 256: A-long 16 + 48, M 4 (2 x 4 +
+# 1) + 8 (2 x 6 + 1) = 140, no A.
+ULTRA_DENOMINATOR = 16
+ULTRA_PER_FORWARD = {"M": 140, "A": 0, "W-long": 84, "A-long": 64}
+# SwinIR-Enhanced (make_models("swinir", "enhanced"), padded to 16): SwinIR's
+# 18 W and 18 WM at T = 64, and a decoder of 2 cross-attention blocks of 4
+# layers and 6 self-attention blocks of 6 at T = 256: A-long 8 + 36, M 2 (2
+# x 4 + 1) + 6 (2 x 6 + 1) = 96.
+SWINIR_ENHANCED_PER_FORWARD = {"W": 18, "WM": 18, "M": 96, "A": 0,
+                               "A-long": 44}
 TRAIN_WARMUP = 2
 TRAIN_STEPS = 5
 
@@ -336,10 +365,12 @@ def _e2e_bound_ms(enc, dec, lq, dt, denominator=12):
     (full fp32 or bf16) and convolutions (TF32 by cuDNN's default, or bf16)
     over their peaks, plus kernels M and A (their operations at their
     type's peak: 4 rows C^2 and 2 B (2 Tq C^2 + 2 Tk C^2 + 2 Tq Tk C) per
-    launch) and a SwinIR encoder's W and WM (4 B T^2 C each, FP32). The
+    launch, at the decoder's T whether A or A-long runs), a SwinIR
+    encoder's W and WM (4 B T^2 C each, FP32) and a HAT encoder's W-long
+    (4 B Tq Tk C: T^2 in each HAB, ws^2 ows^2 in each OCAB, FP32). The
     raster and the glue's bytes are not counted."""
     from gsasr_torch.model import pad_to_denominator, sr_forward
-    from gsasr_torch.models import SwinIRNOUP
+    from gsasr_torch.models import HATNOUP, SwinIRNOUP
 
     mode = _OpFlops()
     with mode:
@@ -375,6 +406,16 @@ def _e2e_bound_ms(enc, dec, lq, dt, denominator=12):
         flops["kernels_W_WM"] = (blocks * 4.0 * b * (h // ew) * (w // ew)
                                  * ew ** 4 * ec)
         ms += flops["kernels_W_WM"] / PEAK_FP32 * 1e3
+    if isinstance(enc, HATNOUP):
+        ew = enc.window_size
+        ows = enc.layers[0].residual_group["overlap_attn"].overlap_win_size
+        habs = sum(len(layer.residual_group["blocks"])
+                   for layer in enc.layers)
+        ec = enc.conv_first.out_channels
+        flops["kernels_W_long"] = (4.0 * b * (h // ew) * (w // ew) * ew ** 2
+                                   * ec * (habs * ew ** 2
+                                           + len(enc.layers) * ows ** 2))
+        ms += flops["kernels_W_long"] / PEAK_FP32 * 1e3
     return ms, flops
 
 
@@ -1460,6 +1501,105 @@ def enhanced_train_card_vs_cpu(dev):
                 grad_rel_l2_enc=dist[0][0], grad_rel_l2_dec=dist[1][0])
 
 
+@torch.no_grad()
+def ultra_kernel_phase(dec, dev):
+    """The window-16 forms against their plain versions at the HAT-L Ultra
+    path's shapes (one 192x192 padded map: 144 windows): W-long at a HAB's
+    256 x 256 and an OCAB's 256 x 576 (6 heads of 32, no bias) and
+    W-long-bf16 at 256 x 256, with SDPA in the kernel's type as the
+    yardstick; A-long in the decoder's RoPE cross- and self-attention forms
+    at T = 256, bf16 (the path's trunk) and fp32, with the Ultra decoder's
+    weights and tables. W-long and A-long twice each for bitwise
+    repeatability. per_image: launches per Ultra image."""
+    from gsasr_torch.models.fea2gs_fast import _attn, _ln
+    from gsasr_torch.models.fea2gs_rope_fast import rope_tables
+    from gsasr_torch.ops import attention as ta
+    from gsasr_torch.ops import fused_layers as fl
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    gen = torch.Generator().manual_seed(14)
+    rnd = lambda *s: torch.randn(*s, generator=gen).to(dev)  # noqa: E731
+    f32, bf16 = torch.float32, torch.bfloat16
+    ws, c, nh = dec.window_size, dec.channel, dec.num_heads
+    t, hd = ws * ws, c // nh
+    b = (192 // ws) ** 2
+    scale = hd ** -0.5
+    results = {"W-long": [], "W-long-bf16": [], "A-long": []}
+    for name, key, tk, dt, per_image in (
+            ("HAB 256x256", "W-long", t, f32, 72),
+            ("OCAB 256x576", "W-long", (ws + ws // 2) ** 2, f32, 12),
+            ("HAB 256x256", "W-long-bf16", t, bf16, 0)):
+        q, g = rnd(b, t, c).to(dt), rnd(b, t, c).to(dt)
+        k, v = rnd(b, tk, c).to(dt), rnd(b, tk, c).to(dt)
+        fwd = (ta.window_attention_packed_long_bf16_fwd if dt == bf16
+               else ta.window_attention_packed_long_fwd)
+        fargs = (q, k, v, None, scale, nh)
+        out = fwd(*fargs)
+        ref = ta.window_attention_packed_plain(*fargs)
+        err = (_compare_bf16(out, ref, f"{key} {name}") if dt == bf16
+               else _compare(out, ref, f"{key} {name}"))
+        _repeatable(lambda: (fwd(*fargs),), f"{key} {name}")
+        ms = _time_ms(lambda: fwd(*fargs), 10)
+        plain = _time_ms(lambda: ta.window_attention_packed_plain(*fargs), 5)
+        lib_f, _, _ = _sdpa_ms(q, k, v, None, g, nh, scale)
+        act = 2 if dt == bf16 else 4
+        bound, by = _bound_ms(4.0 * b * nh * t * tk * hd,
+                              act * (2 * b * t * c + 2 * b * tk * c),
+                              PEAK_BF16 if dt == bf16 else PEAK_FP32)
+        results[key].append(dict(
+            case=name, dtype=str(dt).replace("torch.", ""), windows=b,
+            per_image=per_image, max_abs_err=err, ms=ms, plain_ms=plain,
+            bound_ms=bound, bound_by=by, library_ms=lib_f))
+
+    x = rnd(b, t, c)
+    lyr = dec.gs_selfattn_blocks[0].blocks[0]
+    cl = dec.window_crossattn_blocks[0].blocks[0]
+    cc, sc = rope_tables(cl.window_cross_attn.rope_freqs, ws, t)
+    cs, ss = rope_tables(lyr.gs_self_attn.rope_freqs, ws, t)
+    kv = rnd(b, t, c)
+    cross = dict(pos=dec.pos_embedding, rope_cos_q=cc, rope_sin_q=sc,
+                 rope_cos_k=cc, rope_sin_k=sc,
+                 **_attn(cl.window_cross_attn), **_ln(cl.norm3))
+    self_ = dict(rope_cos_q=cs, rope_sin_q=ss, rope_cos_k=cs, rope_sin_k=ss,
+                 **_attn(lyr.gs_self_attn), **_ln(lyr.norm1))
+    for name, dt, per_image, kw in (
+            ("rope_cross", bf16, 16, cross), ("rope_self", bf16, 48, self_),
+            ("rope_cross", f32, 0, cross), ("rope_self", f32, 0, self_)):
+        kw = dict(kw, num_heads=nh, scale=scale)
+        if "pos" in kw:
+            kw.update(pos=kw["pos"].to(dt), kv=kv.to(dt))
+        xd = x.to(dt)
+        out = fl.ln_attn_proj_long(xd, **kw)
+        ref = fl.ln_attn_proj_plain(xd, **kw)
+        err = (_compare_bf16(out, ref, f"A-long {name} {dt}") if dt == bf16
+               else _compare(out, ref, f"A-long {name} {dt}"))
+        _repeatable(lambda: (fl.ln_attn_proj_long(xd, **kw),),
+                    f"A-long {name} {dt}")
+        ms = _time_ms(lambda: fl.ln_attn_proj_long(xd, **kw), 10)
+        plain = _time_ms(lambda: fl.ln_attn_proj_plain(xd, **kw), 5)
+        act = 2 if dt == bf16 else 4
+        flops = 2.0 * b * (4 * t * c * c + 2 * t * t * c)
+        nbytes = (act * (b * t * c * (3 if "kv" in kw else 2)
+                         + (t * c if "pos" in kw else 0))
+                  + 4 * (4 * c * c + 6 * c + 4 * t * c))
+        bound, by = _bound_ms(flops, nbytes,
+                              PEAK_BF16 if dt == bf16 else PEAK_FP32)
+        results["A-long"].append(dict(
+            case=name, dtype=str(dt).replace("torch.", ""), windows=b,
+            per_image=per_image, max_abs_err=err, ms=ms, plain_ms=plain,
+            bound_ms=bound, bound_by=by, library_ms=None))
+    for k, rows in results.items():
+        for r in rows:
+            lib = "null" if r["library_ms"] is None else \
+                f"{r['library_ms']:.4f}"
+            print(f"  {k} {r['case']} {r['dtype']}: {r['ms']:.4f} ms (plain "
+                  f"{r['plain_ms']:.4f}, bound {r['bound_ms']:.4f} by "
+                  f"{r['bound_by']}, SDPA {lib}) x{r['per_image']} per Ultra "
+                  "image", flush=True)
+    return results
+
+
 FORM_KEYS = ("decoder", "case", "dtype", "nW", "windows", "per_image",
              "per_step", "max_abs_err", "ms", "plain_ms", "bound_ms",
              "bound_by", "library_ms")
@@ -1504,9 +1644,12 @@ def main() -> int:
     from gsasr_torch.ops.attention import (
         window_attention_packed_bf16_bwd, window_attention_packed_bf16_fwd,
         window_attention_packed_bwd, window_attention_packed_fwd,
-        window_attention_packed_masked_bwd, window_attention_packed_masked_fwd)
+        window_attention_packed_long_bf16_fwd,
+        window_attention_packed_long_fwd, window_attention_packed_masked_bwd,
+        window_attention_packed_masked_fwd)
     from gsasr_torch.ops.bias_table import bias_table_bwd
     from gsasr_torch.ops.fused_layers import (ln_attn_proj, ln_attn_proj_bwd,
+                                              ln_attn_proj_long,
                                               ln_mlp_residual,
                                               ln_mlp_residual_bwd)
     from gsasr_torch.ops.rasterizer import raster_bwd, raster_fwd
@@ -1537,7 +1680,10 @@ def main() -> int:
                "T": bias_table_bwd, "WM": window_attention_packed_masked_fwd,
                "WMB": window_attention_packed_masked_bwd,
                "W-bf16": window_attention_packed_bf16_fwd,
-               "WB-bf16": window_attention_packed_bf16_bwd}
+               "WB-bf16": window_attention_packed_bf16_bwd,
+               "W-long": window_attention_packed_long_fwd,
+               "W-long-bf16": window_attention_packed_long_bf16_fwd,
+               "A-long": ln_attn_proj_long}
     enc, dec = make_models("edsr", "paper",
                            generator=torch.Generator().manual_seed(0))
 
@@ -1640,6 +1786,37 @@ def main() -> int:
     print("RDN-Enhanced end to end", flush=True)
     ree2e = e2e_phase(enc_re, dec_re, dev, label="RDN-Enhanced")
     del enc_re, dec_re
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    enc_se, dec_se = make_models("swinir", "enhanced",
+                                 generator=torch.Generator().manual_seed(0))
+    print("SwinIR-Enhanced path phase", flush=True)
+    seruns = path_phase(enc_se, dec_se, dev, kernels,
+                        label="SwinIR-Enhanced", denominator=ULTRA_DENOMINATOR,
+                        extra=SWINIR_ENHANCED_PER_FORWARD)
+    print("SwinIR-Enhanced end to end", flush=True)
+    see2e = e2e_phase(enc_se, dec_se, dev, label="SwinIR-Enhanced",
+                      denominator=ULTRA_DENOMINATOR)
+    del enc_se, dec_se
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    enc_u, dec_u = make_models("hat", "ultra",
+                               generator=torch.Generator().manual_seed(0))
+    print("Ultra kernel phase", flush=True)
+    ures = ultra_kernel_phase(dec_u, dev)
+    print("Ultra path phase", flush=True)
+    uruns = path_phase(enc_u, dec_u, dev, kernels, label="HAT-L Ultra",
+                       denominator=ULTRA_DENOMINATOR,
+                       extra=ULTRA_PER_FORWARD)
+    print("Ultra card vs CPU", flush=True)
+    ucvc = card_vs_cpu(enc_u, dec_u, dev, torch.bfloat16, CARD_CPU_ATOL_BF16,
+                       label="HAT-L Ultra", denominator=ULTRA_DENOMINATOR)
+    print("Ultra end to end", flush=True)
+    ue2e = e2e_phase(enc_u, dec_u, dev, label="HAT-L Ultra",
+                     denominator=ULTRA_DENOMINATOR)
+    del enc_u, dec_u
     for r in (train, ftrain, strain, etrain):
         same = "the same" if r["repeat"]["same_bits"] else "NOT the same"
         print(f"  {r['decoder']} step: repeatability {same} bits; cost of "
@@ -1649,7 +1826,7 @@ def main() -> int:
     infer, step = runs[0]["launches"], train["launches"]
     sinfer, sstep = sruns[0]["launches"], strain["launches"]
     fstep, einfer = ftrain["launches"], eruns[0]["launches"]
-    estep = etrain["launches"]
+    estep, uinfer = etrain["launches"], uruns[0]["launches"]
     enhanced = "sr_forward (Enhanced, bf16 trunk)"
     for k in ("M", "A"):
         for r in kres[k]:
@@ -1714,6 +1891,15 @@ def main() -> int:
                     "Trainer.step (Enhanced, bf16 recipe)",
                     _on_path(etres["WB-bf16"], "per_step"),
                     etres["WB-bf16"]),
+        "W-long": ("window_attn_fwd_long",
+                   "gsasr_torch/ops/csrc/window_attn_fwd.cu",
+                   "gsasr_tpu/ops/attention.py:338", [], uinfer,
+                   "sr_forward (HAT-L Ultra)", ures["W-long"],
+                   ures["W-long"] + ures["W-long-bf16"]),
+        "A-long": ("ln_attn_long", "gsasr_torch/ops/csrc/ln_attn.cu",
+                   "gsasr_tpu/ops/fused_layers.py:336", [], uinfer,
+                   "sr_forward (HAT-L Ultra, bf16 trunk)",
+                   _on_path(ures["A-long"], "per_image"), ures["A-long"]),
     }
     line = [_kernel_entry(name, src, rep, also, counts[k], path, rows, forms)
             for k, (name, src, rep, also, counts, path, rows, forms)
@@ -1737,6 +1923,9 @@ def main() -> int:
                            enhanced_train=dict(kernels=etres, train=etrain,
                                                card_vs_cpu=etcvc),
                            rdn_enhanced=dict(paths=rerun, e2e=ree2e),
+                           swinir_enhanced=dict(paths=seruns, e2e=see2e),
+                           ultra=dict(kernels=ures, paths=uruns,
+                                      card_vs_cpu=ucvc, e2e=ue2e),
                            total_s=time.perf_counter() - t_start), f, indent=1)
     print(f"total {time.perf_counter() - t_start:.1f} s", flush=True)
     print(f"card: {card}", flush=True)

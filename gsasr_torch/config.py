@@ -50,6 +50,17 @@ _STRUCTURAL = {"upscale", "upsampler", "img_size", "img_range", "in_chans",
 _ENCODERS = {"EDSRNOUP": EDSRNOUP, "EDSR": EDSRNOUP,
              "RDNNOUP": RDNNOUP, "RDN": RDNNOUP,
              "SwinIRNOUP": SwinIRNOUP, "SWINNOUP": SwinIRNOUP}
+# Encoders the JAX package trains that the port does not yet, and why.
+_UNPORTED_ENCODERS = {
+    "HATNOUP_ROPE_AMP": (
+        "HAT-L training (train_hatl_ultra.yml) is not ported yet: it needs "
+        "the backward of window attention at window 16 (WB at T = 256 and "
+        "OCAB's 256 x 576) and a bf16 HAT encoder; HAT-L inference is "
+        "make_models('hat', 'ultra')"),
+    "HATNOUP": (
+        "the paper HAT (hat_paper.py: relative-position bias, SW-MSA masks "
+        "at T = 256) is not ported yet: it needs WM and WMB at window 16"),
+}
 # reference yaml names -> constructor arguments
 _RENAME = {"G0": "g0", "RDNconfig": "config"}
 _DECODERS = {"Fea2GS": Fea2GS, "Fea2GS_ROPE_AMP": Fea2GSRopeAMP,
@@ -91,6 +102,8 @@ def build_networks(opt: Dict[str, Any],
             f"model_dtype {model_dtype!r} (expected one of {sorted(_DTYPES)})")
     dtype = _DTYPES[model_dtype]
     g = dict(opt["network_g"])
+    if g["type"] in _UNPORTED_ENCODERS:
+        raise NotImplementedError(_UNPORTED_ENCODERS[g["type"]])
     enc_cls = _ENCODERS.get(g.pop("type"))
     d = dict(opt["network_fea2gs"])
     dec_cls = _DECODERS.get(d.pop("type"))
@@ -108,8 +121,8 @@ def build_networks(opt: Dict[str, Any],
             raise NotImplementedError(
                 "SwinIR in bfloat16 is not ported yet: it needs bfloat16 "
                 "forms of the masked kernels WM and WMB, and its recipe's "
-                "decoder (train_swinir_amp.yml) windows of 16, which W and "
-                "A do not take")
+                "decoder (train_swinir_amp.yml, windows of 16) the backward "
+                "of window attention at T = 256 (WB's window-16 form)")
         g["dtype"] = d["dtype"] = dtype
     if generator is None:
         generator = torch.Generator().manual_seed(

@@ -1,10 +1,12 @@
 """End-to-end GSASR assembly: encoder -> decoder -> rasterizer (counterpart
-of `gsasr_tpu/model.py`: EDSR-GSASR inference with the paper Fea2GS or the
-Enhanced Fea2GSRopeAMP decoder; RDN- and SwinIR-GSASR with the paper one).
+of `gsasr_tpu/model.py`: the EDSR, RDN, SwinIR and HAT-L encoders with the
+paper Fea2GS or the Enhanced Fea2GSRopeAMP decoder; HAT-L with the
+Enhanced one is the Ultra model).
 
 Single-image inference: reflect-pad the LR image to a denominator
-multiple (`DENOMINATORS`: 24 for SwinIR, whose windows of 8 must tile the
-map), encode, decode on the fused path (kernels M and A; the Enhanced
+multiple (`DENOMINATORS`: 24 for paper SwinIR, whose windows of 8 must
+tile its decoder's windows of 12; 16 for HAT-L and the window-16 Enhanced
+decoders), encode, decode on the fused path (kernels M and A; the Enhanced
 trunk in bf16 by default), render each image at floor(scale * padded
 size), crop to floor(scale * size).
 """
@@ -18,14 +20,28 @@ import numpy as np
 import torch
 
 from gsasr_torch import resolve_device
-from gsasr_torch.models import (EDSRNOUP, RDNNOUP, Fea2GS, Fea2GSRopeAMP,
-                                SwinIRNOUP)
+from gsasr_torch.models import (EDSRNOUP, HATNOUP, RDNNOUP, Fea2GS,
+                                Fea2GSRopeAMP, SwinIRNOUP)
 from gsasr_torch.models.fea2gs_fast import fea2gs_apply_fused
 from gsasr_torch.models.fea2gs_rope_fast import fea2gs_rope_apply_fused
 from gsasr_torch.models.init import init_weights
 from gsasr_torch.rendering import render_gaussians
 
 DENOMINATORS = {"edsr": 12, "rdn": 12, "swinir": 24, "hat": 16}
+_ENCODERS = {"edsr": EDSRNOUP, "rdn": RDNNOUP, "swinir": SwinIRNOUP,
+             "hat": HATNOUP}
+# The Enhanced (and Ultra) decoder of each encoder, `gsasr_tpu/model.py`'s
+# enhanced_cfg: SwinIR's and HAT-L's take 256 seeds in windows of 16
+# (`cli/infer.py` pads them to 16), HAT-L's is the Ultra model's.
+ENHANCED_CFG = {
+    "edsr": {},
+    "rdn": dict(num_crossattn_blocks=2),
+    "swinir": dict(num_crossattn_blocks=2, num_crossattn_layers=4,
+                   num_gs_seed=256, window_size=16),
+    "hat": dict(channel=192, num_crossattn_blocks=4, num_crossattn_layers=4,
+                num_selfattn_blocks=8, num_selfattn_layers=6,
+                num_gs_seed=256, window_size=16),
+}
 
 
 def _reflect_index(n: int, total: int, device) -> torch.Tensor:
@@ -56,35 +72,26 @@ def pad_to_denominator(img, denom: int):
 def make_models(encoder: str = "edsr", version: str = "paper", *,
                 generator: Optional[torch.Generator] = None, device=None):
     """Build (encoder, decoder) with seeded reference initializers, in eval
-    mode on `device` (default: the CUDA card). encoder: 'edsr', 'rdn' or
-    'swinir'; version: 'paper' (Fea2GS) or, for EDSR and RDN, 'enhanced' /
-    'ultra' (Fea2GSRopeAMP with the encoder's settings, `gsasr_tpu/model.py`'s
-    enhanced_cfg: RDN's has two cross-attention blocks). Callers pad with
-    `DENOMINATORS[encoder]` (`sr_forward(..., denominator=...)`)."""
+    mode on `device` (default: the CUDA card). encoder: 'edsr', 'rdn',
+    'swinir' or 'hat' (HAT-L, fp32); version: 'paper' (Fea2GS) or
+    'enhanced' / 'ultra' (Fea2GSRopeAMP with the encoder's settings,
+    `ENHANCED_CFG`; HAT-L's is the Ultra model). Callers pad with
+    `DENOMINATORS[encoder]` (`sr_forward(..., denominator=...)`), 16 for
+    the window-16 decoders of SwinIR and HAT-L."""
     dev = resolve_device(device)
-    encoders = {"edsr": EDSRNOUP, "rdn": RDNNOUP, "swinir": SwinIRNOUP}
-    if encoder not in encoders:
-        raise NotImplementedError(
-            f"encoder '{encoder}': HAT's window-16 attentions (T = 256, "
-            "OCAB's 256 x 576) need redesigned kernels W, WB, WM and WMB")
+    if encoder not in _ENCODERS:
+        raise NotImplementedError(f"encoder '{encoder}'")
     if version not in ("paper", "enhanced", "ultra"):
         raise NotImplementedError(f"version '{version}'")
-    if version != "paper" and encoder == "swinir":
-        raise NotImplementedError(
-            f"{encoder} {version}: SwinIR's Enhanced decoder comes with the "
-            "window-16 slice (256 seeds in windows of 16, which need a "
-            "redesigned kernel A)")
     if generator is None:
         generator = torch.Generator().manual_seed(0)
     # Module constructors draw PyTorch's default init from the global RNG;
     # fork it so building a model leaves that state alone. All kept values
     # come from `generator`.
     with torch.random.fork_rng(devices=[]):
-        enc = encoders[encoder]()
-        # `gsasr_tpu/model.py`'s enhanced_cfg: EDSR's Enhanced/Ultra decoder
-        # takes the defaults, RDN's two cross-attention blocks
+        enc = _ENCODERS[encoder]()
         dec = Fea2GS() if version == "paper" else Fea2GSRopeAMP(
-            num_crossattn_blocks=2 if encoder == "rdn" else 1)
+            **ENHANCED_CFG[encoder])
     init_weights(enc, generator)
     init_weights(dec, generator)
     return enc.to(dev).eval(), dec.to(dev).eval()

@@ -1,15 +1,17 @@
 """Seeded initialization with the reference's PyTorch initializers
-(counterpart of `gsasr_tpu/models/init.py` for EDSR, RDN, SwinIR, the
-paper Fea2GS and the Enhanced Fea2GSRopeAMP).
+(counterpart of `gsasr_tpu/models/init.py` for EDSR, RDN, SwinIR, HAT-L,
+the paper Fea2GS and the Enhanced Fea2GSRopeAMP).
 
 - nn.Linear / nn.Conv2d: weight and bias ~ U(+-1/sqrt(fan_in));
-- SwinIR's `_init_weights` (`utils/swinir.py:940-947`): its nn.Linear
-  weights ~ trunc_normal(std 0.02), biases 0; convs keep the default;
+- SwinIR's and HAT's `_init_weights` (`utils/swinir.py:940-947`,
+  `utils/hatropeamp.py:1025-1032`): their nn.Linear weights ~
+  trunc_normal(std 0.02), biases 0; convs keep the default;
 - ScaleInject (the reference's nn.MultiheadAttention): in_proj_weight ~
   xavier_uniform over the stacked (3E, E) matrix = U(+-sqrt(1.5/E)),
   in_proj_bias and out_proj.bias 0, out_proj.weight the Linear default;
 - relative position bias tables ~ trunc_normal(std 0.02);
-- RoPE frequencies as `rope_freqs_init` draws them (one angle per head);
+- RoPE frequencies as `rope_freqs_init` draws them (one angle per head),
+  the decoder's and HAT's window and overlapping attentions';
 - gs/pos embeddings ~ N(0, 1); LayerNorm 1 / 0.
 
 Every draw comes from the given generator, in `named_modules` order.
@@ -25,6 +27,7 @@ from torch import nn
 from gsasr_torch.models.fea2gs import Fea2GS, ScaleInject, _WindowAttnParams
 from gsasr_torch.models.fea2gs_rope import (Fea2GSRopeAMP, _RopeAttn,
                                             rope_freqs_init)
+from gsasr_torch.models.hat import HATNOUP, OCAB, HATWindowAttention
 from gsasr_torch.models.swinir import SwinIRNOUP, WindowAttention
 
 
@@ -36,7 +39,7 @@ def _uniform_(t, bound, g):
 def init_weights(model: nn.Module, generator: torch.Generator) -> nn.Module:
     """Redraw every parameter of `model` in place; returns `model`."""
     g = generator
-    swinlike = isinstance(model, SwinIRNOUP)
+    swinlike = isinstance(model, (SwinIRNOUP, HATNOUP))
     for mod in model.modules():
         if swinlike and isinstance(mod, nn.Linear):
             nn.init.trunc_normal_(mod.weight, std=0.02, generator=g)
@@ -56,7 +59,7 @@ def init_weights(model: nn.Module, generator: torch.Generator) -> nn.Module:
         elif isinstance(mod, (_WindowAttnParams, WindowAttention)):
             nn.init.trunc_normal_(mod.relative_position_bias_table, std=0.02,
                                   generator=g)
-        elif isinstance(mod, _RopeAttn):
+        elif isinstance(mod, (_RopeAttn, HATWindowAttention, OCAB)):
             nh, hdh = mod.rope_freqs.shape[1:]
             mod.rope_freqs.copy_(rope_freqs_init(2 * hdh, nh, mod.rope_theta,
                                                  generator=g))

@@ -18,9 +18,12 @@ forms of W and WB, which round where the Pallas bodies round: scores and
 softmax in f32, p rounded to bfloat16 before the PV product, out in
 bfloat16; in the backward p is recomputed in f32 and not rounded, and dq,
 dk, dv come out in bfloat16 while dbias stays f32. The masked forms take
-float32 only. Each pair sits inside one autograd Function; the mask is a
-constant and gets no gradient. CPU tensors take the plain versions beside
-the wrappers.
+float32 only. Windows of more than `_MAX_T` tokens (HAT's 256, OCAB's
+256 x 576) take W-long and W-long-bf16, the window-16 forms of W, which
+walk the keys in tiles; their backward (WB at window 16) is not ported,
+and the autograd Function raises rather than take the plain version. Each
+pair sits inside one autograd Function; the mask is a constant and gets no
+gradient. CPU tensors take the plain versions beside the wrappers.
 """
 
 from __future__ import annotations
@@ -117,9 +120,15 @@ def _check_mask(q, k, mask):
                          f"{mask.shape[0]}")
 
 
-def _check(q, k, v, bias, num_heads: int, dtype, extra=(), mask=None):
+def _long(q, k) -> bool:
+    """Windows too long for W's body: W-long's."""
+    return max(q.shape[1], k.shape[1]) > _MAX_T
+
+
+def _check(q, k, v, bias, num_heads: int, dtype, extra=(), mask=None,
+           max_t=_MAX_T):
     """q, k, v (and `extra`) of `dtype` (float32, or bfloat16 for W-bf16 and
-    WB-bf16); bias and mask float32."""
+    WB-bf16); bias and mask float32; Tq, Tk <= max_t (None: any, W-long)."""
     b, tq, c = q.shape
     tk = k.shape[1]
     if mask is not None:
@@ -130,17 +139,21 @@ def _check(q, k, v, bias, num_heads: int, dtype, extra=(), mask=None):
     if bias is not None:
         _build.check_tensor(bias, "bias")
     if (k.shape != (b, tk, c) or v.shape != k.shape or c % num_heads
-            or c // num_heads > _MAX_HD or tq > _MAX_T or tk > _MAX_T
+            or c // num_heads > _MAX_HD
+            or (max_t is not None and max(tq, tk) > max_t)
             or (bias is not None and bias.shape != (num_heads, tq, tk))):
         raise ValueError(
             f"window attention: q {tuple(q.shape)}, k {tuple(k.shape)}, v "
             f"{tuple(v.shape)}, {num_heads} heads: the kernels take T <= "
-            f"{_MAX_T}, head width <= {_MAX_HD} and bias (nh, Tq, Tk)")
+            f"{max_t or 'any'}, head width <= {_MAX_HD} and bias (nh, Tq, "
+            "Tk)")
 
 
 # Entry points of the unmasked forms by operand type.
 _FWD = {torch.float32: "window_attn_fwd",
         torch.bfloat16: "window_attn_fwd_bf16"}
+_FWD_LONG = {torch.float32: "window_attn_fwd_long",
+             torch.bfloat16: "window_attn_fwd_long_bf16"}
 _BWD = {torch.float32: "window_attn_bwd",
         torch.bfloat16: "window_attn_bwd_bf16"}
 
@@ -159,6 +172,18 @@ def _fwd(q, k, v, bias, mask, scale: float, num_heads: int, dtype):
     else:
         _build.launch("window_attn_fwd_masked", *ops, mask.contiguous(), out,
                       *dims, mask.shape[0], float(scale))
+    return out
+
+
+def _fwd_long(q, k, v, bias, scale: float, num_heads: int, dtype):
+    """Launch kernel W-long (W-long-bf16 for bfloat16 `dtype`); returns
+    out."""
+    _check(q, k, v, bias, num_heads, dtype, max_t=None)
+    b, tq, c = q.shape
+    out = torch.empty((b, tq, c), dtype=dtype, device=q.device)
+    _build.launch(_FWD_LONG[dtype], q.contiguous(), k.contiguous(),
+                  v.contiguous(), None if bias is None else bias.contiguous(),
+                  out, b, tq, k.shape[1], c, num_heads, float(scale))
     return out
 
 
@@ -251,6 +276,35 @@ def window_attention_packed_bf16_bwd(q, k, v, bias, g, scale: float,
 window_attention_packed_bf16_bwd.launches = 0
 
 
+def window_attention_packed_long_fwd(q, k, v, bias, scale: float,
+                                     num_heads: int):
+    """Forward of the packed attention in float32 for any Tq and Tk: kernel
+    W-long on CUDA tensors, the plain version on CPU tensors."""
+    if q.device.type == "cpu":
+        return window_attention_packed_plain(q, k, v, bias, scale, num_heads)
+    out = _fwd_long(q, k, v, bias, scale, num_heads, torch.float32)
+    window_attention_packed_long_fwd.launches += 1
+    return out
+
+
+window_attention_packed_long_fwd.launches = 0
+
+
+def window_attention_packed_long_bf16_fwd(q, k, v, bias, scale: float,
+                                          num_heads: int):
+    """Forward of the packed attention with bfloat16 q, k, v for any Tq and
+    Tk: kernel W-long-bf16 on CUDA tensors, the plain version on CPU
+    tensors."""
+    if q.device.type == "cpu":
+        return window_attention_packed_plain(q, k, v, bias, scale, num_heads)
+    out = _fwd_long(q, k, v, bias, scale, num_heads, torch.bfloat16)
+    window_attention_packed_long_bf16_fwd.launches += 1
+    return out
+
+
+window_attention_packed_long_bf16_fwd.launches = 0
+
+
 def window_attention_packed_masked_fwd(q, k, v, bias, mask, scale: float,
                                        num_heads: int):
     """Forward of the masked attention: kernel WM on CUDA tensors, the plain
@@ -286,8 +340,10 @@ window_attention_packed_masked_bwd.launches = 0
 class _PackedWindowAttention(torch.autograd.Function):
     """Forward W and backward WB (W-bf16 and WB-bf16 for bfloat16 operands),
     or WM and WMB with a mask (the custom VJPs of `_packed_window_attention`
-    and `_masked_packed_window_attention` in the JAX package). The mask gets
-    no gradient where JAX returns zeros for it."""
+    and `_masked_packed_window_attention` in the JAX package); windows of
+    more than `_MAX_T` tokens take W-long (W-long-bf16) forward, and their
+    backward raises. The mask gets no gradient where JAX returns zeros for
+    it."""
 
     @staticmethod
     def forward(ctx, q, k, v, bias, mask, scale, num_heads):
@@ -296,13 +352,23 @@ class _PackedWindowAttention(torch.autograd.Function):
         if mask is not None:
             return window_attention_packed_masked_fwd(q, k, v, bias, mask,
                                                       scale, num_heads)
-        fwd = (window_attention_packed_bf16_fwd
-               if q.dtype == torch.bfloat16 else window_attention_packed_fwd)
+        bf16 = q.dtype == torch.bfloat16
+        if _long(q, k):
+            fwd = (window_attention_packed_long_bf16_fwd if bf16
+                   else window_attention_packed_long_fwd)
+        else:
+            fwd = (window_attention_packed_bf16_fwd if bf16
+                   else window_attention_packed_fwd)
         return fwd(q, k, v, bias, scale, num_heads)
 
     @staticmethod
     def backward(ctx, g):
         q, k, v, bias, mask = ctx.saved_tensors
+        if _long(q, k):
+            raise NotImplementedError(
+                f"the backward of window attention at Tq {q.shape[1]}, Tk "
+                f"{k.shape[1]} (> {_MAX_T}) needs WB's window-16 form, which "
+                "is not ported: HAT training waits for it")
         if mask is None:
             bwd = (window_attention_packed_bf16_bwd
                    if q.dtype == torch.bfloat16

@@ -35,6 +35,23 @@
 // even head width no pair straddles two heads. Phase 2, the
 // out-projection, is the 64-row FP32 tile product of tile_gemm.cuh over the
 // attention rows, plus the bias.
+//
+// A-long, the form for windows of more than 160 tokens (the Ultra and
+// SwinIR-Enhanced decoders' 256 seeds and 256 keys in windows of 16): at T
+// = 256 one (window, head)'s LN rows, weight rows and q, k, v would take
+// 323 KB of shared memory, so phase 1 splits in two launches. (1a) One
+// block per 64 rows normalizes them (+ pos) and forms q, or k and v, for
+// all heads at once with the tile product, adds the bias, rotates q and k
+// (RoPE, the pair partner from the neighbouring lane) and rounds q, k, v to
+// the activation type into scratch. (1b) The attention of each (window,
+// head) is the window-16 body of W (window_attn_long.cuh) on that scratch:
+// p is rounded before the PV product and att as it is stored. Phase 2 is
+// the out-projection above, reading att in the activation type. The
+// rounding points are those of _k_ln_attn. Bound at 144 windows, T = 256,
+// C = 192: 2 * windows * (4 T C^2 + 2 T^2 C) = 18.1 GFLOP, 0.27 ms at the
+// FP32 peak; in bf16 the bytes (x, kv, out) take longer than the products
+// at the tensor-core peak. A-long runs f32 FMAs on the CUDA cores, and its
+// attention recomputes the scores (half again the T^2 products).
 
 #include <cuda_runtime.h>
 
@@ -42,6 +59,7 @@
 #include <cmath>
 
 #include "tile_gemm.cuh"
+#include "window_attn_long.cuh"
 
 namespace {
 
@@ -292,9 +310,10 @@ attn_heads_kernel(const Act* __restrict__ x, const Act* __restrict__ pos,
   }
 }
 
-template <typename Act>
+// att is float (A) or the activation type (A-long).
+template <typename Act, typename Att = float>
 __global__ void __launch_bounds__(kThreads)
-out_proj_kernel(const float* __restrict__ att, const float* __restrict__ wo,
+out_proj_kernel(const Att* __restrict__ att, const float* __restrict__ wo,
                 const float* __restrict__ bo, Act* __restrict__ out, int M,
                 int C) {
   extern __shared__ float smem[];
@@ -303,7 +322,7 @@ out_proj_kernel(const float* __restrict__ att, const float* __restrict__ wo,
   const int row0 = blockIdx.x * kBM;
   for (int e = threadIdx.x; e < kBM * C; e += kThreads) {
     const int g = row0 + e / C;
-    as[e] = g < M ? att[static_cast<size_t>(row0) * C + e] : 0.f;
+    as[e] = g < M ? to_f32(att[static_cast<size_t>(row0) * C + e]) : 0.f;
   }
   float acc[kRowsPer][kMaxColsPer];
   gemm_rows<false, sizeof(Act) == 2>(as, C, wo, C, C, ws, acc);
@@ -320,6 +339,155 @@ out_proj_kernel(const float* __restrict__ att, const float* __restrict__ wo,
         out[static_cast<size_t>(g) * C + n] = from_f32<Act>(acc[i][j] + bo[n]);
     }
   }
+}
+
+// dst[g, n] = acc + b[n] for the block's rows g = row0 + warp + 8 i < M (the
+// tile product's layout), rotated by the (T, C) tables ct, st at token
+// g % T when given, rounded to Act. The pair partner n ^ 1 of column n
+// lives in lane ^ 1 of the same warp.
+template <typename Act>
+__device__ __forceinline__ void store_proj(
+    const float (&acc)[kRowsPer][kMaxColsPer], const float* __restrict__ b,
+    const float* __restrict__ ct, const float* __restrict__ st,
+    Act* __restrict__ dst, int row0, int M, int T, int C) {
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+#pragma unroll
+  for (int i = 0; i < kRowsPer; ++i) {
+    const int g = row0 + warp + kWarps * i;
+#pragma unroll
+    for (int j = 0; j < kMaxColsPer; ++j) {
+      const int n = lane + 32 * j;
+      float val = n < C ? acc[i][j] + b[n] : 0.f;
+      const float other = __shfl_xor_sync(0xffffffffu, val, 1);
+      if (n >= C || g >= M) continue;
+      if (ct) {
+        const size_t o = static_cast<size_t>(g % T) * C + n;
+        val = (n & 1) ? __fadd_rn(__fmul_rn(val, ct[o]),
+                                  __fmul_rn(other, st[o]))
+                      : __fadd_rn(__fmul_rn(val, ct[o]),
+                                  __fmul_rn(-other, st[o]));
+      }
+      dst[static_cast<size_t>(g) * C + n] = from_f32<Act>(val);
+    }
+  }
+}
+
+// A-long phase 1a: blockIdx.y 0 forms q from 64 rows of LN(x) (+ pos);
+// blockIdx.y 1 forms k and v from 64 rows of kv (cross-attention) or of
+// LN(x) (+ pos) (self-attention). Each projection adds its bias, rotates
+// q and k by the (T, C) tables at the row's token (in f32 with no
+// contraction, as rotate_pair) and rounds to Act as it stores.
+template <typename Act>
+__global__ void __launch_bounds__(kThreads)
+ln_qkv_kernel(const Act* __restrict__ x, const Act* __restrict__ pos,
+              const Act* __restrict__ kv, const float* __restrict__ ln_w,
+              const float* __restrict__ ln_b, const float* __restrict__ wq,
+              const float* __restrict__ bq, const float* __restrict__ wk,
+              const float* __restrict__ bk, const float* __restrict__ wv,
+              const float* __restrict__ bv, const float* __restrict__ cos_q,
+              const float* __restrict__ sin_q,
+              const float* __restrict__ cos_k,
+              const float* __restrict__ sin_k, Act* __restrict__ qo,
+              Act* __restrict__ ko, Act* __restrict__ vo, int B, int Tq,
+              int Tk, int C) {
+  constexpr bool kBf16 = sizeof(Act) == 2;
+  extern __shared__ float smem[];
+  float* as = smem;
+  float* ws = as + kBM * C;
+  const bool is_q = blockIdx.y == 0;
+  const int T = is_q ? Tq : Tk;
+  const int M = B * T;
+  const int row0 = blockIdx.x * kBM;
+  if (row0 >= M) return;  // the whole block: no barrier is skipped
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+
+  if (is_q || !kv) {
+    for (int r = warp; r < kBM; r += kWarps) {
+      const int g = row0 + r;
+      float v[kLnPer];
+      if (g < M)
+        load_row_ln(x + static_cast<size_t>(g) * C, nullptr, ln_w, ln_b, C,
+                    v);
+#pragma unroll
+      for (int q = 0; q < kLnPer; ++q) {
+        const int c = lane + 32 * q;
+        if (c >= C) continue;
+        as[r * C + c] =
+            g < M ? rnd<Act>(pos ? v[q] + to_f32(pos[static_cast<size_t>(
+                                                      g % Tq) * C + c])
+                                 : v[q])
+                  : 0.f;
+      }
+    }
+  } else {
+    for (int e = threadIdx.x; e < kBM * C; e += kThreads) {
+      const int g = row0 + e / C;
+      as[e] = g < M ? to_f32(kv[static_cast<size_t>(row0) * C + e]) : 0.f;
+    }
+  }
+
+  float acc[kRowsPer][kMaxColsPer];
+  if (is_q) {
+    gemm_rows<false, kBf16>(as, C, wq, C, C, ws, acc);
+    store_proj(acc, bq, cos_q, sin_q, qo, row0, M, T, C);
+  } else {
+    gemm_rows<false, kBf16>(as, C, wk, C, C, ws, acc);
+    store_proj(acc, bk, cos_k, sin_k, ko, row0, M, T, C);
+    gemm_rows<false, kBf16>(as, C, wv, C, C, ws, acc);
+    store_proj(acc, bv, nullptr, nullptr, vo, row0, M, T, C);
+  }
+}
+
+// A-long phase 1b: the window-16 attention body on the scratch q, k, v.
+template <typename Act>
+__global__ void __launch_bounds__(kThreads)
+attn_long_kernel(const Act* __restrict__ q, const Act* __restrict__ k,
+                 const Act* __restrict__ v, const float* __restrict__ bias,
+                 Act* __restrict__ att, int Tq, int Tk, int C, int nh,
+                 float scale) {
+  window_attn_fwd_long_body<Act>(q, k, v, bias, att, Tq, Tk, C, nh, scale);
+}
+
+template <typename Act>
+int launch_long(const Act* x, const Act* pos, const Act* kv,
+                const float* ln_w, const float* ln_b, const float* wq,
+                const float* bq, const float* wk, const float* bk,
+                const float* wv, const float* bv, const float* wo,
+                const float* bo, const float* bias, const float* cos_q,
+                const float* sin_q, const float* cos_k, const float* sin_k,
+                Act* qs, Act* ks, Act* vs, Act* att, Act* out, int B, int Tq,
+                int Tk, int C, int nh, float scale, cudaStream_t st) {
+  const size_t smem1 = sizeof(float) * (kBM * C + kWsFloats);
+  cudaError_t err = cudaFuncSetAttribute(
+      ln_qkv_kernel<Act>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(smem1));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int tiles = (B * std::max(Tq, Tk) + kBM - 1) / kBM;
+  ln_qkv_kernel<Act><<<dim3(tiles, 2), kThreads, smem1, st>>>(
+      x, pos, kv, ln_w, ln_b, wq, bq, wk, bk, wv, bv, cos_q, sin_q, cos_k,
+      sin_k, qs, ks, vs, B, Tq, Tk, C);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const size_t smem2 = long_smem_bytes(C / nh);
+  err = cudaFuncSetAttribute(attn_long_kernel<Act>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             static_cast<int>(smem2));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  attn_long_kernel<Act><<<long_grid(nh, B, Tq), kThreads, smem2, st>>>(
+      qs, ks, vs, bias, att, Tq, Tk, C, nh, scale);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const size_t smem3 = sizeof(float) * (kBM * C + kWsFloats);
+  err = cudaFuncSetAttribute(out_proj_kernel<Act, Act>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             static_cast<int>(smem3));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int M = B * Tq;
+  out_proj_kernel<Act, Act><<<(M + kBM - 1) / kBM, kThreads, smem3, st>>>(
+      att, wo, bo, out, M, C);
+  return static_cast<int>(cudaGetLastError());
 }
 
 template <typename Act>
@@ -382,4 +550,44 @@ extern "C" int ln_attn(const void* x, const void* pos, const void* kv,
               : launch<float>(x, pos, kv, ln_w, ln_b, wq, bq, wk, bk, wv, bv,
                               wo, bo, bias, cos_q, sin_q, cos_k, sin_k, att,
                               out, B, Tq, Tk, C, nh, scale, st);
+}
+
+// Kernel A-long: as ln_attn for windows of any Tq and Tk (the window-16
+// form), with x, pos, kv and out of the activation type; qs (B, Tq, C), ks
+// and vs (B, Tk, C) and att (B, Tq, C), of the activation type too, are
+// scratch the caller allocates.
+extern "C" int ln_attn_long(const void* x, const void* pos, const void* kv,
+                            const float* ln_w, const float* ln_b,
+                            const float* wq, const float* bq, const float* wk,
+                            const float* bk, const float* wv, const float* bv,
+                            const float* wo, const float* bo,
+                            const float* bias, const float* cos_q,
+                            const float* sin_q, const float* cos_k,
+                            const float* sin_k, void* qs, void* ks, void* vs,
+                            void* att, void* out, int B, int Tq, int Tk,
+                            int C, int nh, int bf16, float scale,
+                            void* stream) {
+  const bool rope = cos_q != nullptr;
+  if (!long_shape_ok(B, Tq, Tk, C, nh) || C > kMaxN || C > 32 * kLnPer ||
+      (!kv && Tk != Tq) || rope != (sin_q != nullptr) ||
+      rope != (cos_k != nullptr) || rope != (sin_k != nullptr) ||
+      ((rope || bf16) && (C / nh) % 2 != 0))
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (bf16) {
+    using T = __nv_bfloat16;
+    return launch_long<T>(
+        static_cast<const T*>(x), static_cast<const T*>(pos),
+        static_cast<const T*>(kv), ln_w, ln_b, wq, bq, wk, bk, wv, bv, wo, bo,
+        bias, cos_q, sin_q, cos_k, sin_k, static_cast<T*>(qs),
+        static_cast<T*>(ks), static_cast<T*>(vs), static_cast<T*>(att),
+        static_cast<T*>(out), B, Tq, Tk, C, nh, scale, st);
+  }
+  return launch_long<float>(
+      static_cast<const float*>(x), static_cast<const float*>(pos),
+      static_cast<const float*>(kv), ln_w, ln_b, wq, bq, wk, bk, wv, bv, wo,
+      bo, bias, cos_q, sin_q, cos_k, sin_k, static_cast<float*>(qs),
+      static_cast<float*>(ks), static_cast<float*>(vs),
+      static_cast<float*>(att), static_cast<float*>(out), B, Tq, Tk, C, nh,
+      scale, st);
 }

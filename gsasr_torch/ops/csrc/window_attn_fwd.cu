@@ -48,6 +48,15 @@
 // template parameters of the body that W, W-bf16 and WM share; they are
 // three kernels, each with its own launch bounds, so W compiles as without
 // the mask or the rounding.
+//
+// W-long and W-long-bf16 are the window-16 form (HAT's 144 windows x 6
+// heads x 256 x 256, and OCAB's 256 queries x 576 keys, head width 32,
+// no bias), for any Tq and Tk: the body of window_attn_long.cuh, which
+// walks the keys in tiles in two passes and recomputes the scores in the
+// second, three products of 2 * B * nh * Tq * Tk * hd operations each
+// where the bound counts two: 7.2 GFLOP (HAB) and 16.3 GFLOP (OCAB)
+// against 67 TFLOP/s, 0.108 and 0.243 ms, over 113 and 193 MB of q, k, v
+// and out at 3.35 TB/s, 0.034 and 0.058 ms. Bound by operations.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -55,6 +64,7 @@
 #include <type_traits>
 
 #include "window_attn.cuh"
+#include "window_attn_long.cuh"
 
 namespace {
 
@@ -218,6 +228,34 @@ cudaError_t launch_fwd(const T* q, const T* k, const T* v, const float* bias,
   return cudaGetLastError();
 }
 
+// W-long (T float) and W-long-bf16 (T __nv_bfloat16).
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+window_attn_fwd_long_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                            const T* __restrict__ v,
+                            const float* __restrict__ bias,
+                            T* __restrict__ out, int Tq, int Tk, int C, int nh,
+                            float scale) {
+  gsasr::window_attn_fwd_long_body<T>(q, k, v, bias, out, Tq, Tk, C, nh,
+                                      scale);
+}
+
+template <typename T>
+cudaError_t launch_fwd_long(const T* q, const T* k, const T* v,
+                            const float* bias, T* out, int B, int Tq, int Tk,
+                            int C, int nh, float scale, cudaStream_t st) {
+  if (!gsasr::long_shape_ok(B, Tq, Tk, C, nh)) return cudaErrorInvalidValue;
+  const size_t smem = gsasr::long_smem_bytes(C / nh);
+  cudaError_t err = cudaFuncSetAttribute(
+      window_attn_fwd_long_kernel<T>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+  if (err != cudaSuccess) return err;
+  window_attn_fwd_long_kernel<T><<<gsasr::long_grid(nh, B, Tq), kThreads,
+                                   smem, st>>>(q, k, v, bias, out, Tq, Tk, C,
+                                               nh, scale);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 // q, out (B, Tq, C); k, v (B, Tk, C); bias (nh, Tq, Tk) or null; all float32,
@@ -252,5 +290,28 @@ extern "C" int window_attn_fwd_masked(const float* q, const float* k,
                                       float scale, void* stream) {
   return static_cast<int>(launch_fwd<true, float>(
       q, k, v, bias, mask, out, B, Tq, Tk, C, nh, nW, scale,
+      static_cast<cudaStream_t>(stream)));
+}
+
+// Kernel W-long: as window_attn_fwd for any Tq and Tk (the window-16 form).
+extern "C" int window_attn_fwd_long(const float* q, const float* k,
+                                    const float* v, const float* bias,
+                                    float* out, int B, int Tq, int Tk, int C,
+                                    int nh, float scale, void* stream) {
+  return static_cast<int>(launch_fwd_long<float>(
+      q, k, v, bias, out, B, Tq, Tk, C, nh, scale,
+      static_cast<cudaStream_t>(stream)));
+}
+
+// Kernel W-long-bf16: as window_attn_fwd_bf16 for any Tq and Tk.
+extern "C" int window_attn_fwd_long_bf16(const __nv_bfloat16* q,
+                                         const __nv_bfloat16* k,
+                                         const __nv_bfloat16* v,
+                                         const float* bias,
+                                         __nv_bfloat16* out, int B, int Tq,
+                                         int Tk, int C, int nh, float scale,
+                                         void* stream) {
+  return static_cast<int>(launch_fwd_long<__nv_bfloat16>(
+      q, k, v, bias, out, B, Tq, Tk, C, nh, scale,
       static_cast<cudaStream_t>(stream)));
 }

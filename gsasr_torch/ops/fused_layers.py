@@ -6,7 +6,9 @@ forward and backward.
   backward.
 - `ln_attn_proj`: out = proj(MHA(rope?(LN(x) (+pos) -> q; kv | LN(x) -> k,
   v); + bias[h])) -> kernel A (`csrc/ln_attn.cu`) forward, kernel AB
-  (`csrc/ln_attn_bwd.cu`) backward.
+  (`csrc/ln_attn_bwd.cu`) backward; windows of more than 160 tokens (the
+  decoders' windows of 16) take A-long, the window-16 form of A, forward
+  only.
 
 Activations (x, inj, resi, pos, kv and the output) are float32 or
 bfloat16; weights, biases, the bias table and the RoPE tables float32. In
@@ -34,6 +36,12 @@ from gsasr_torch.ops.attention import (_heads, _merge, _probs,
                                        window_attention_packed_bwd_plain)
 
 _EPS = 1e-5
+# Kernel A's limits: kMaxT and kMaxHd of csrc/ln_attn.cu (longer windows
+# take A-long; a lane holds one head column) and kMaxN = 32 kLnPer of
+# csrc/tile_gemm.cuh (the width of the row tile products and LN rows).
+_A_MAX_T = 160
+_A_MAX_HD = 32
+_A_MAX_C = 192
 # kMaxGroups of csrc/fused_bwd.cuh: the weight-gradient row groups
 _MAX_GROUPS = 128
 # row tile of csrc/tile_gemm.cuh (kBM)
@@ -357,18 +365,75 @@ def _check_attn(x, num_heads, ws, bias, pos, kv, rope=(None,) * 4):
     return b, tq, tk, c
 
 
-def _ln_attn_fwd(x, *, num_heads, scale, **kw):
-    """Kernel A on CUDA tensors, its plain version on CPU tensors."""
-    if x.device.type == "cpu":
-        return ln_attn_proj_plain(x, num_heads=num_heads, scale=scale, **kw)
+def _a_long(x, kv) -> bool:
+    """Windows too long for A: A-long's."""
+    return max(x.shape[1], kv.shape[1] if kv is not None else 0) > _A_MAX_T
+
+
+def _check_attn_kernel(x, num_heads, rope: bool):
+    """Raise on what kernels A and A-long refuse: head widths above 32 or
+    channels above 192, and an odd head width with RoPE or bfloat16 (a
+    rotated pair must not straddle two heads)."""
+    c = x.shape[-1]
+    hd = c // num_heads
+    if (c % num_heads or hd > _A_MAX_HD or c > _A_MAX_C
+            or ((rope or x.dtype == torch.bfloat16) and hd % 2)):
+        raise ValueError(
+            f"ln_attn_proj: {c} channels in {num_heads} heads; kernel A "
+            f"takes C <= {_A_MAX_C}, head width <= {_A_MAX_HD}, and an even "
+            "head width with RoPE or bfloat16")
+
+
+def _ln_attn_args(x, num_heads, kw):
+    """Checked, contiguous kernel arguments of A and A-long: (b, tq, tk, c,
+    the tensors by name)."""
     b, tq, tk, c = _check_attn(x, num_heads, (kw["wq"], kw["wk"], kw["wv"],
                                               kw["wo"]),
                                kw["bias"], kw["pos"], kw["kv"],
                                [kw[r] for r in _ROPE])
+    _check_attn_kernel(x, num_heads, kw["rope_cos_q"] is not None)
     # pos is rounded to the activation type, as the Pallas wrapper casts it
     if kw["pos"] is not None:
-        kw["pos"] = kw["pos"].to(x.dtype)
-    a = _contig(act=("pos", "kv"), x=x, **kw)
+        kw = dict(kw, pos=kw["pos"].to(x.dtype))
+    return b, tq, tk, c, _contig(act=("pos", "kv"), x=x, **kw)
+
+
+def ln_attn_proj_long(x, *, num_heads, scale=None, **kw):
+    """The forward of `ln_attn_proj` for windows of any length: kernel
+    A-long on CUDA tensors, the plain version on CPU tensors. `kw`: the
+    tensor arguments of `ln_attn_proj` by name."""
+    if scale is None:
+        scale = (x.shape[-1] // num_heads) ** -0.5
+    kw = {**dict.fromkeys(("bias", "pos", "kv") + _ROPE), **kw}
+    if x.device.type == "cpu":
+        return ln_attn_proj_plain(x, num_heads=num_heads, scale=scale, **kw)
+    b, tq, tk, c, a = _ln_attn_args(x, num_heads, kw)
+    # q, k, v after RoPE and att, in the activation type
+    qs = torch.empty_like(a["x"])
+    ks = torch.empty((b, tk, c), dtype=x.dtype, device=x.device)
+    vs = torch.empty_like(ks)
+    att = torch.empty_like(qs)
+    out = torch.empty_like(qs)
+    _build.launch("ln_attn_long", a["x"], a["pos"], a["kv"], a["ln_w"],
+                  a["ln_b"], a["wq"], a["bq"], a["wk"], a["bk"], a["wv"],
+                  a["bv"], a["wo"], a["bo"], a["bias"],
+                  *(a[r] for r in _ROPE), qs, ks, vs, att, out, b, tq, tk, c,
+                  num_heads, int(x.dtype == torch.bfloat16), float(scale))
+    ln_attn_proj_long.launches += 1
+    return out
+
+
+ln_attn_proj_long.launches = 0
+
+
+def _ln_attn_fwd(x, *, num_heads, scale, **kw):
+    """Kernel A (A-long for windows of more than 160 tokens) on CUDA
+    tensors, its plain version on CPU tensors."""
+    if x.device.type == "cpu":
+        return ln_attn_proj_plain(x, num_heads=num_heads, scale=scale, **kw)
+    if _a_long(x, kw["kv"]):
+        return ln_attn_proj_long(x, num_heads=num_heads, scale=scale, **kw)
+    b, tq, tk, c, a = _ln_attn_args(x, num_heads, kw)
     # the heads' output, rounded to the activation type but held in f32
     att = torch.empty(a["x"].shape, dtype=torch.float32, device=x.device)
     out = torch.empty_like(a["x"])
@@ -448,6 +513,10 @@ class _LnAttn(torch.autograd.Function):
     def backward(ctx, g):
         (x, wq, bq, wk, bk, wv, bv, wo, bo, ln_w, ln_b, bias, pos,
          kv) = ctx.saved_tensors
+        if _a_long(x, kv):
+            raise NotImplementedError(
+                f"the backward of A at windows of more than {_A_MAX_T} "
+                "tokens needs AB's window-16 form, which is not ported")
         if ctx.rope:
             raise NotImplementedError(
                 "the backward of the RoPE form (K10's table gradients) is "

@@ -1,6 +1,6 @@
 """JAX parameter trees -> the port's state_dicts: the inverse of
 `gsasr_tpu/utils/torch_convert.py`'s `convert_edsr`, `convert_rdn`,
-`convert_swinir`, `convert_fea2gs` and `convert_fea2gs_rope`.
+`convert_swinir`, `convert_hat`, `convert_fea2gs` and `convert_fea2gs_rope`.
 
 Trees are nested dicts of arrays. Conv kernels (kH, kW, I, O) become
 weights (O, I, kH, kW); dense kernels (I, O) become (O, I); LayerNorm
@@ -113,10 +113,64 @@ def _swinir(p) -> Dict[str, torch.Tensor]:
     return sd
 
 
+def hat_cab(sd, key, p):
+    """HAT's CAB (`conv_block`): the reference's `cab` Sequential."""
+    _conv(sd, f"{key}.cab.0", p["conv1"])
+    _conv(sd, f"{key}.cab.2", p["conv2"])
+    _conv(sd, f"{key}.cab.3.attention.1", p["ca"]["fc1"])
+    _conv(sd, f"{key}.cab.3.attention.3", p["ca"]["fc2"])
+
+
+def hat_window_attn(sd, key, p):
+    sd[f"{key}.rope_freqs"] = _t(p["rope_freqs"])
+    _dense(sd, f"{key}.qkv", p["qkv"])
+    _dense(sd, f"{key}.proj", p["proj"])
+
+
+def hat_hab(sd, key, p):
+    """A Hybrid Attention Block."""
+    _ln(sd, f"{key}.norm1", p["norm1"])
+    _ln(sd, f"{key}.norm2", p["norm2"])
+    hat_window_attn(sd, f"{key}.attn", p["attn"])
+    hat_cab(sd, f"{key}.conv_block", p["conv_block"])
+    _dense(sd, f"{key}.mlp.fc1", p["mlp_fc1"])
+    _dense(sd, f"{key}.mlp.fc2", p["mlp_fc2"])
+
+
+def hat_ocab(sd, key, p):
+    """An overlapping cross-attention block."""
+    _ln(sd, f"{key}.norm1", p["norm1"])
+    _ln(sd, f"{key}.norm2", p["norm2"])
+    hat_window_attn(sd, key, p)
+    _dense(sd, f"{key}.mlp.fc1", p["mlp_fc1"])
+    _dense(sd, f"{key}.mlp.fc2", p["mlp_fc2"])
+
+
+def hat_rhag(sd, key, p):
+    """A Residual Hybrid Attention Group."""
+    for j in range(_count(p, "block_")):
+        hat_hab(sd, f"{key}.residual_group.blocks.{j}", p[f"block_{j}"])
+    hat_ocab(sd, f"{key}.residual_group.overlap_attn", p["overlap_attn"])
+    _conv(sd, f"{key}.conv", p["conv"])
+
+
+def _hat(p) -> Dict[str, torch.Tensor]:
+    sd: Dict[str, torch.Tensor] = {}
+    _conv(sd, "conv_first", p["conv_first"])
+    _ln(sd, "patch_embed.norm", p["patch_embed_norm"])
+    for i in range(_count(p, "layer_")):
+        hat_rhag(sd, f"layers.{i}", p[f"layer_{i}"])
+    _ln(sd, "norm", p["norm"])
+    _conv(sd, "conv_after_body", p["conv_after_body"])
+    _conv(sd, "conv_before_upsample.0", p["conv_before_upsample_0"])
+    return sd
+
+
 def _encoder(p) -> Dict[str, torch.Tensor]:
-    """An EDSR, RDN or SwinIR tree, told apart by its keys."""
+    """An EDSR, RDN, SwinIR or HAT tree, told apart by its keys (HAT's
+    groups end in an overlapping cross-attention block)."""
     if "patch_embed_norm" in p:
-        return _swinir(p)
+        return _hat(p) if "overlap_attn" in p["layer_0"] else _swinir(p)
     if "sfenet1" in p:
         return _rdn(p)
     return _edsr(p)
@@ -171,10 +225,12 @@ def _fea2gs(p) -> Dict[str, torch.Tensor]:
 
 
 def params_from_jax(enc_params, dec_params):
-    """(EDSR, RDN or SwinIR params; paper Fea2GS or Enhanced Fea2GSRopeAMP
-    params) -> (encoder state_dict, decoder state_dict) with the reference
-    keys. The relative_position_index buffers (paper decoder, SwinIR) are
-    not parameters and are left to the module (see `load_params`)."""
+    """(EDSR, RDN, SwinIR or HAT params; paper Fea2GS or Enhanced
+    Fea2GSRopeAMP params) -> (encoder state_dict, decoder state_dict) with
+    the reference keys. The relative_position_index buffers (paper decoder,
+    SwinIR) are not parameters and are left to the module (see
+    `load_params`). The `hat_*` functions convert one HAT module's tree
+    under a key prefix."""
     return _encoder(enc_params), _fea2gs(dec_params)
 
 

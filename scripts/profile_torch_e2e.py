@@ -2,14 +2,15 @@
 """Where the time of one gsasr_torch image or training step goes, on one
 CUDA card.
 
-  python3 scripts/profile_torch_e2e.py [--encoder edsr|swinir|rdn]
+  python3 scripts/profile_torch_e2e.py [--encoder edsr|swinir|rdn|hat]
                                        [--enhanced [--fp32-trunk] |
                                         --train [--fused | --enhanced]]
                                        [--iters 3] [--json PATH]
 
 Builds the paper EDSR-GSASR (--encoder swinir or rdn: SwinIR- or
-RDN-GSASR; with --enhanced the Enhanced EDSR-GSASR, whose decoder trunk
-runs in bf16, or in fp32 with --fp32-trunk) with seeded weights, warms up,
+RDN-GSASR; --encoder hat: the HAT-L Ultra model, padded to 16; with
+--enhanced the Enhanced EDSR-GSASR, whose decoder trunk runs in bf16, or in
+fp32 with --fp32-trunk) with seeded weights, warms up,
 then traces with torch.profiler either `sr_forward` on a 180x180 x4 image
 (padded to the encoder's denominator: 192x192 for SwinIR) or, with
 --train, `Trainer.step` of configs/train_<encoder>_paper.yml's recipe on
@@ -45,6 +46,13 @@ sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
 
 FAMILIES = (
     ("R raster_fwd", ("raster_fwd_kernel",)),
+    # the window-16 forms: W-long, and A-long's projections, attention and
+    # (bf16) out-projection
+    ("W-long window_attn_fwd long", ("window_attn_fwd_long_kernel",)),
+    ("A-long q/k/v projections", ("ln_qkv_kernel",)),
+    ("A-long attention", ("attn_long_kernel",)),
+    ("A-long out-proj (bf16)", ("out_proj_kernel<__nv_bfloat16, "
+                                "__nv_bfloat16",)),
     ("RB raster_bwd", ("raster_bwd_kernel",)),
     # WM and W-bf16 are kernels of their own over W's body; WMB and
     # WB-bf16 instantiations of WB's kernel (kMask true; T bfloat16)
@@ -91,8 +99,9 @@ def main() -> int:
     ap.add_argument("--fused", action="store_true",
                     help="with --train: the fused decoder")
     ap.add_argument("--encoder", default="edsr",
-                    choices=("edsr", "swinir", "rdn"),
-                    help="the paper GSASR of this encoder")
+                    choices=("edsr", "swinir", "rdn", "hat"),
+                    help="the paper GSASR of this encoder (hat: HAT-L "
+                    "Ultra, inference)")
     ap.add_argument("--enhanced", action="store_true",
                     help="trace sr_forward of the Enhanced EDSR-GSASR (with "
                     "--train: its step at the bf16 recipe)")
@@ -109,12 +118,16 @@ def main() -> int:
     if args.enhanced and (args.encoder != "edsr" or args.fused or
                           args.train and args.fp32_trunk):
         ap.error("--enhanced traces EDSR, the step on its module decoder")
+    ultra = args.encoder == "hat"
+    if ultra and (args.train or args.enhanced):
+        ap.error("--encoder hat traces HAT-L Ultra inference")
     trunk = torch.float32 if args.fp32_trunk else None
     if args.train and args.enhanced:
         from chip_smoke import enhanced_networks
         enc, dec = enhanced_networks()
     else:
         enc, dec = make_models(args.encoder,
+                               "ultra" if ultra else
                                "enhanced" if args.enhanced else "paper",
                                generator=torch.Generator().manual_seed(0))
     if args.train:
@@ -176,7 +189,8 @@ def main() -> int:
     res = dict(
         card=card, iters=per, unit=unit,
         encoder=args.encoder,
-        decoder=("paper" if not args.enhanced else "Enhanced, fp32 trunk"
+        decoder=("Ultra, bf16 trunk" if ultra else "paper"
+                 if not args.enhanced else "Enhanced, fp32 trunk"
                  if args.fp32_trunk else "Enhanced, bf16 recipe (module)"
                  if args.train else "Enhanced, bf16 trunk"),
         wall_ms_per_image=wall_ms / per,

@@ -287,3 +287,37 @@ def test_bf16_forms_raise_where_not_ported():
     assert ta.window_attention_packed_bf16_fwd.launches == n
     assert ta.window_attention_packed_bf16_bwd.launches == m
 
+
+
+# (windows, Tq, Tk, C, heads): HAT's window of 16 (256 tokens) and OCAB's
+# 256 queries against 576 keys, narrow, and the bf16 operands of the
+# window-16 form at 256 x 256
+WINDOW16_CASES = [(2, 256, 256, 16, 2, "f32"), (2, 256, 576, 16, 2, "f32"),
+                  (2, 256, 256, 16, 2, "bf16")]
+
+
+@pytest.mark.parametrize("b,tq,tk,c,nh,dt", WINDOW16_CASES)
+def test_window16_matches_jax_and_backward_raises(b, tq, tk, c, nh, dt):
+    """Windows beyond W's 160 keys, the forward of W's window-16 form
+    (W-long, W-long-bf16): K11 in interpret mode against the port's plain
+    version (1e-5 in float32; in bf16, where both round p once, within one
+    bf16 step). The backward raises, naming WB's missing window-16 form,
+    on the CPU as on the card."""
+    q, k, v, _, _ = _inputs(b, tq, tk, c, nh, False, seed=7)
+    if dt == "bf16":
+        q, k, v = (torch.from_numpy(a).to(torch.bfloat16) for a in (q, k, v))
+        ref = jattn(*(jnp.asarray(t.float().numpy()).astype(jnp.bfloat16)
+                      for t in (q, k, v)), None, num_heads=nh)
+        out = ta.window_attention_packed(q, k, v, num_heads=nh)
+        assert _within_a_bf16_step(
+            out, torch.from_numpy(np.array(ref.astype(jnp.float32)))
+            .to(torch.bfloat16))
+        return
+    ref = jattn(*map(jnp.asarray, (q, k, v)), None, num_heads=nh)
+    qt = torch.from_numpy(q).requires_grad_()
+    out = ta.window_attention_packed(qt, torch.from_numpy(k),
+                                     torch.from_numpy(v), num_heads=nh)
+    np.testing.assert_allclose(out.detach().numpy(), np.asarray(ref),
+                               rtol=1e-5, atol=1e-5)
+    with pytest.raises(NotImplementedError, match="WB's window-16 form"):
+        out.sum().backward()

@@ -238,7 +238,7 @@ def test_make_models_enhanced_seeded_and_shaped():
     """make_models("edsr", "enhanced" | "ultra") builds the Enhanced
     decoder at its published widths, every weight drawn from the generator;
     RDN's takes two cross-attention blocks (`gsasr_tpu/model.py`'s
-    enhanced_cfg); SwinIR's still raises."""
+    enhanced_cfg); SwinIR's takes 256 seeds in windows of 16."""
     from gsasr_torch.model import make_models
 
     _, dec = make_models("edsr", "enhanced", device="cpu",
@@ -266,5 +266,6 @@ def test_make_models_enhanced_seeded_and_shaped():
     assert isinstance(rdec, Fea2GSRopeAMP)
     assert len(rdec.window_crossattn_blocks) == 2
     assert len(rdec.gs_selfattn_blocks) == 6
-    with pytest.raises(NotImplementedError):
-        make_models("swinir", "enhanced", device="cpu")
+    _, sdec = make_models("swinir", "enhanced", device="cpu")
+    assert sdec.num_gs_seed == 256 and sdec.window_size == 16
+    assert len(sdec.window_crossattn_blocks) == 2

@@ -490,3 +490,92 @@ def test_enhanced_bf16_module_step_through_autograd(cuda):
     for a, r in zip(*outs):
         tol = 2 ** -8 * 17 * float(r.abs().max())
         torch.testing.assert_close(a, r, rtol=0, atol=tol)
+
+
+# (windows, Tq, Tk, C, heads, bias, dtype) for W-long and W-long-bf16, the
+# window-16 forms: HAT's 256-token windows and OCAB's 256 x 576 (cut to 7
+# windows), a ragged query tile and key tile with a bias, a head width
+# below 32, and bf16 at 256 x 256
+LONG_ATTN_CASES = [(7, 256, 256, 192, 6, False, torch.float32),
+                   (5, 256, 576, 192, 6, False, torch.float32),
+                   (3, 130, 300, 180, 6, True, torch.float32),
+                   (4, 200, 161, 96, 4, False, torch.float32),
+                   (7, 256, 256, 192, 6, False, torch.bfloat16)]
+
+
+@pytest.mark.parametrize("b,tq,tk,c,nh,bias,dt", LONG_ATTN_CASES)
+def test_window_attn_long_matches_plain_and_repeats(cuda, b, tq, tk, c, nh,
+                                                    bias, dt):
+    """W-long (W-long-bf16) against the plain version, twice bitwise; the
+    T <= 160 kernels are not launched, and the autograd Function takes the
+    long form and refuses its backward."""
+    from gsasr_torch.ops import attention as ta
+
+    q, k, v, bs, _ = _attn_inputs(cuda, b, tq, tk, c, nh, bias, seed=14)
+    q, k, v = (x.to(dt) for x in (q, k, v))
+    scale = (c // nh) ** -0.5
+    long_fwd = (ta.window_attention_packed_long_bf16_fwd
+                if dt == torch.bfloat16
+                else ta.window_attention_packed_long_fwd)
+    n = (ta.window_attention_packed_fwd.launches,
+         ta.window_attention_packed_bf16_fwd.launches, long_fwd.launches)
+    out = long_fwd(q, k, v, bs, scale, nh)
+    assert torch.equal(out, long_fwd(q, k, v, bs, scale, nh))
+    ref = ta.window_attention_packed_plain(q, k, v, bs, scale, nh)
+    if dt == torch.bfloat16:
+        _assert_bf16_close(out, ref)
+    else:
+        torch.testing.assert_close(out, ref, rtol=1e-4, atol=1e-4)
+    qg = q.detach().requires_grad_()
+    y = ta.window_attention_packed(qg, k, v, bs, num_heads=nh)
+    assert torch.equal(y, out)
+    assert (ta.window_attention_packed_fwd.launches,
+            ta.window_attention_packed_bf16_fwd.launches,
+            long_fwd.launches) == (n[0], n[1], n[2] + 3)
+    with pytest.raises(NotImplementedError, match="window-16"):
+        y.sum().backward()
+
+
+@pytest.mark.parametrize("opts,bf16", [("rope_cross", False),
+                                       ("rope_self", False),
+                                       ("rope_cross", True),
+                                       ("rope_self", True),
+                                       ("bias_self", False),
+                                       ("pos_kv_odd", True)])
+def test_ln_attn_long_matches_plain_and_repeats(cuda, opts, bf16):
+    """A-long, the window-16 form of A, at T = 256, 192 channels and 6 heads
+    of 32: RoPE cross-attention (pos, kv) and self-attention in both types
+    (the Ultra decoder's forms), the paper's bias form in fp32, and a
+    ragged shape (Tq 200 against Tk 300, no RoPE) in bf16; twice bitwise,
+    and A itself not launched."""
+    from gsasr_torch.models.fea2gs_rope_fast import rope_tables
+    from gsasr_torch.ops import fused_layers as tf
+
+    g = torch.Generator(device="cpu").manual_seed(15)
+    b, tq, tk, c, nh = 9, 256, 256, 192, 6
+    if opts == "pos_kv_odd":
+        tq, tk = 200, 300
+    r = lambda *s: torch.randn(*s, generator=g).to(cuda)  # noqa: E731
+    dt = torch.bfloat16 if bf16 else torch.float32
+    kw = {k: r(c, c) / 14 if k[0] == "w" else r(c)
+          for k in ("wq", "bq", "wk", "bk", "wv", "bv", "wo", "bo")}
+    kw.update(ln_w=1 + 0.1 * r(c), ln_b=0.1 * r(c), num_heads=nh)
+    if opts.endswith("cross") or opts == "pos_kv_odd":
+        kw.update(pos=r(tq, c).to(dt), kv=r(b, tk, c).to(dt))
+    if opts.startswith("rope"):
+        cos, sin = rope_tables(0.5 * r(2, nh, c // nh // 2), 16, tq)
+        kw.update(rope_cos_q=cos, rope_sin_q=sin, rope_cos_k=cos,
+                  rope_sin_k=sin)
+    elif opts == "bias_self":
+        kw.update(bias=0.5 * r(nh, tq, tk))
+    x = r(b, tq, c).to(dt)
+    n = (tf.ln_attn_proj.launches, tf.ln_attn_proj_long.launches)
+    out = tf.ln_attn_proj(x, **kw)
+    assert torch.equal(out, tf.ln_attn_proj(x, **kw))
+    assert (tf.ln_attn_proj.launches,
+            tf.ln_attn_proj_long.launches) == (n[0], n[1] + 2)
+    ref = tf.ln_attn_proj_plain(x, **kw)
+    if bf16:
+        _assert_bf16_close(out, ref)
+    else:
+        torch.testing.assert_close(out, ref, rtol=1e-4, atol=1e-4)

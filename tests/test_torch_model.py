@@ -236,8 +236,14 @@ def test_make_models_seeded_and_shaped():
     bound = 1 / math.sqrt(180)
     w = dec.gs_selfattn_blocks[0].blocks[0].mlp_selfattn.fc1.weight
     assert w.abs().max() <= bound and w.abs().max() > 0.9 * bound
-    with pytest.raises(NotImplementedError):
-        make_models("hat", "paper", device="cpu")
+    # HAT-L with the paper decoder builds (as JAX's make_models does); an
+    # unknown encoder raises
+    henc, hdec = make_models("hat", "paper", device="cpu")
+    assert len(henc.layers) == 12 and henc.window_size == 16
+    assert henc.conv_before_upsample[0].weight.shape == (64, 192, 3, 3)
+    assert isinstance(hdec, Fea2GS) and hdec.gs_embedding.shape == (144, 180)
+    with pytest.raises(NotImplementedError, match="encoder 'vgg'"):
+        make_models("vgg", "paper", device="cpu")
 
 
 # two layers per block, so the odd layers' feature and lattice rolls run

@@ -163,6 +163,23 @@ ATTN_CASES = [("rope_cross", "f32"), ("rope_self", "f32"),
 @pytest.mark.parametrize("opts,dtype", ATTN_CASES,
                          ids=[f"{o}-{d}" for o, d in ATTN_CASES])
 def test_ln_attn_new_forms_match_jax(shape, opts, dtype):
+    _ln_attn_case(shape, opts, dtype)
+
+
+# the window-16 decoders' A (A-long on the card): 256 seeds against 256
+# keys, narrow
+WINDOW16_ATTN_CASES = ATTN_CASES[:4]
+
+
+@pytest.mark.parametrize("opts,dtype", WINDOW16_ATTN_CASES,
+                         ids=[f"{o}-{d}" for o, d in WINDOW16_ATTN_CASES])
+def test_ln_attn_window16_matches_jax(opts, dtype):
+    """A's RoPE forms at T = 256 (C 16, 2 heads): the plain version the
+    CPU takes for A-long against K8 in interpret mode."""
+    _ln_attn_case((2, 256, 256, 16, 2), opts, dtype)
+
+
+def _ln_attn_case(shape, opts, dtype):
     b, tq, tk, c, nh = shape
     cross = opts.endswith("cross")
     if not cross:

@@ -229,8 +229,8 @@ def test_trainer_droppath_stream_is_deterministic_in_seed_and_step():
 
 def test_make_models_swinir_and_rdn_seeded_and_shaped():
     """make_models("swinir" | "rdn", "paper") at the published widths with
-    SwinIR's _init_weights; HAT and the other encoders' Enhanced decoders
-    raise with their reason."""
+    SwinIR's _init_weights; HAT with the paper decoder and SwinIR's
+    window-16 Enhanced decoder build at their shapes."""
     from gsasr_torch.model import make_models
 
     enc, dec = make_models("swinir", "paper", device="cpu",
@@ -259,10 +259,12 @@ def test_make_models_swinir_and_rdn_seeded_and_shaped():
     rdn, _ = make_models("rdn", "paper", device="cpu")
     assert len(rdn.RDBs) == 16 and len(rdn.RDBs[0].convs) == 8
     assert rdn.RDBs[15].LFF.weight.shape == (64, 576, 1, 1)
-    for enc_name, version in (("hat", "paper"), ("swinir", "enhanced"),
-                              ("swinir", "ultra")):
-        with pytest.raises(NotImplementedError, match="window-16"):
-            make_models(enc_name, version, device="cpu")
+    for enc_name, version, seeds, ws in (("hat", "paper", 144, 12),
+                                         ("swinir", "enhanced", 256, 16),
+                                         ("swinir", "ultra", 256, 16)):
+        enc, dec = make_models(enc_name, version, device="cpu")
+        assert enc.conv_before_upsample[0].out_channels == 64
+        assert dec.num_gs_seed == seeds and dec.window_size == ws
 
 
 def _assert_tree_equal(a, b, path=""):
