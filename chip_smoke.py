@@ -5,8 +5,8 @@
 
 1. Prints the card (nvidia-smi name and power limit), the torch and CUDA
    versions, and builds kernels R, M, A, W, WB, RB, MB, AB and T (and
-   their forms) from gsasr_torch/ops/csrc, one nvcc per source, in
-   parallel.
+   their forms: WB-long among them) from gsasr_torch/ops/csrc, one nvcc
+   per source, in parallel.
 2. Kernel phase (TF32 off): R, M and A against their plain PyTorch versions
    at the inference path's shapes, with their median times, the plain
    versions' times and their lower bounds on this card.
@@ -85,6 +85,23 @@
    A, per forward), a 48x48 request on the card against the CPU (bf16
    trunk), and the 180x180 x4 end-to-end timing with its split, peak
    memory and bound.
+24. Ultra training kernel phase (TF32 off): W-long-bf16, WB-long-bf16 (the
+   window-16 form of WB) and WB-long against their plain versions at the
+   Ultra training step's shapes (128 windows x 256 x 256 and 256 x 576, 6
+   heads of 32; WB-long-bf16 once more with a bias), twice each for
+   bitwise repeatability, with SDPA forward and backward as the yardstick
+   and ptxas's registers; R and RB on the 8-slot 1024x1024 canvas.
+25. HAT-L Ultra training: Trainer.step of configs/train_hatl_ultra.yml's
+   recipe (written out as ULTRA_TRAIN and enhanced_networks("hat"): bf16
+   compute on fp32 parameters, DropPath 0.1) at batch 8 of 64x64 LR,
+   scales in [1, 16], canvas 1024: W-long-bf16 148, WB-long-bf16 148, R 1,
+   RB 1 per step and nothing else, two gradients of one batch asserted the
+   same bits; then 3 steps of the same networks at model_dtype float32
+   (W-long 148, WB-long 148); and a tiny bf16 step at window 16 on the card
+   against the CPU.
+26. HAT-L Ultra in bf16 (make_models("hat", "ultra", dtype=torch.bfloat16),
+   the reference's --AMP_test): path phase (84 W-long-bf16, 64 A-long, 140
+   M, 1 R per image) and end-to-end timing at 180x180 x4.
 
 Every training phase also times Trainer.grads, which runs with cuDNN's
 deterministic algorithms, against the same forward and backward under
@@ -104,6 +121,7 @@ import gc
 import json
 import math
 import os
+import re
 import subprocess
 import sys
 import time
@@ -176,11 +194,13 @@ GRAD_TOL = 1e-4
 # per attention instead of W and WB.
 TRAIN_COUNTS = {"R": 1, "M": 0, "A": 0, "W": 38, "WB": 38, "RB": 1, "MB": 0,
                 "AB": 0, "T": 38, "WM": 0, "WMB": 0, "W-bf16": 0,
-                "WB-bf16": 0, "W-long": 0, "W-long-bf16": 0, "A-long": 0}
+                "WB-bf16": 0, "W-long": 0, "W-long-bf16": 0, "A-long": 0,
+                "WB-long": 0, "WB-long-bf16": 0}
 FUSED_TRAIN_COUNTS = {"R": 1, "M": 83, "A": 38, "W": 0, "WB": 0, "RB": 1,
                       "MB": 83, "AB": 38, "T": 38, "WM": 0, "WMB": 0,
                       "W-bf16": 0, "WB-bf16": 0, "W-long": 0,
-                      "W-long-bf16": 0, "A-long": 0}
+                      "W-long-bf16": 0, "A-long": 0, "WB-long": 0,
+                      "WB-long-bf16": 0}
 # SwinIR (6 RSTBs of 6 blocks, window 8, shift 4 on odd blocks): per
 # forward 18 W (unshifted blocks) and 18 WM (shifted), per step their
 # backward too, and 36 more T (its bias tables). configs/
@@ -219,6 +239,28 @@ ULTRA_PER_FORWARD = {"M": 140, "A": 0, "W-long": 84, "A-long": 64}
 # x 4 + 1) + 6 (2 x 6 + 1) = 96.
 SWINIR_ENHANCED_PER_FORWARD = {"W": 18, "WM": 18, "M": 96, "A": 0,
                                "A-long": 44}
+# configs/train_hatl_ultra.yml (HAT-L Ultra, GSASRAMPModel: bf16 compute on
+# fp32 parameters, no clip) as build_train_config reads it, and its dataset
+# block: 8 samples of 64x64 LR, scales in [1, 16], gt = ceil(64 s), so the
+# canvas is 1024x1024 (tests/test_torch_hat_train.py holds them equal).
+ULTRA_TRAIN = dict(PAPER_TRAIN, canvas_hw=(1024, 1024))
+ULTRA_BATCH = 8
+ULTRA_LR_SIZE = 64
+ULTRA_SCALES = (1, 16)
+# Launches per Ultra step at the bf16 recipe: W-long-bf16 forward and
+# WB-long-bf16 backward once per window attention (the encoder's 72 HABs
+# and 12 OCABs, the decoder's 16 cross and 48 self layers), R and RB once;
+# no T (RoPE has no bias table).
+ULTRA_TRAIN_COUNTS = dict({k: 0 for k in TRAIN_COUNTS}, R=1, RB=1,
+                          **{"W-long-bf16": 148, "WB-long-bf16": 148})
+# The same networks at model_dtype float32: W-long and WB-long instead.
+ULTRA_FP32_TRAIN_COUNTS = dict({k: 0 for k in TRAIN_COUNTS}, R=1, RB=1,
+                               **{"W-long": 148, "WB-long": 148})
+# A bf16 Ultra image (make_models("hat", "ultra", dtype=torch.bfloat16), the
+# reference's --AMP_test): the encoder's 84 window attentions in bf16, the
+# decoder as ULTRA_PER_FORWARD.
+ULTRA_BF16_PER_FORWARD = {"M": 140, "A": 0, "W-long": 0, "W-long-bf16": 84,
+                          "A-long": 64}
 TRAIN_WARMUP = 2
 TRAIN_STEPS = 5
 
@@ -367,8 +409,9 @@ def _e2e_bound_ms(enc, dec, lq, dt, denominator=12):
     type's peak: 4 rows C^2 and 2 B (2 Tq C^2 + 2 Tk C^2 + 2 Tq Tk C) per
     launch, at the decoder's T whether A or A-long runs), a SwinIR
     encoder's W and WM (4 B T^2 C each, FP32) and a HAT encoder's W-long
-    (4 B Tq Tk C: T^2 in each HAB, ws^2 ows^2 in each OCAB, FP32). The
-    raster and the glue's bytes are not counted."""
+    or W-long-bf16 (4 B Tq Tk C: T^2 in each HAB, ws^2 ows^2 in each OCAB,
+    at the encoder type's peak). The raster and the glue's bytes are not
+    counted."""
     from gsasr_torch.model import pad_to_denominator, sr_forward
     from gsasr_torch.models import HATNOUP, SwinIRNOUP
 
@@ -415,7 +458,8 @@ def _e2e_bound_ms(enc, dec, lq, dt, denominator=12):
         flops["kernels_W_long"] = (4.0 * b * (h // ew) * (w // ew) * ew ** 2
                                    * ec * (habs * ew ** 2
                                            + len(enc.layers) * ows ** 2))
-        ms += flops["kernels_W_long"] / PEAK_FP32 * 1e3
+        ms += flops["kernels_W_long"] / (
+            PEAK_BF16 if enc.dtype == torch.bfloat16 else PEAK_FP32) * 1e3
     return ms, flops
 
 
@@ -765,18 +809,20 @@ def e2e_phase(enc, dec, dev, trunk_dtype=None, label="paper",
     return res
 
 
-def paper_batch(b: int, seed: int, ceil: bool = False):
+def paper_batch(b: int, seed: int, ceil: bool = False, ultra: bool = False):
     """A synthetic batch of the paper recipe: b samples of 48x48 LR, scales
     uniform in [1, 4], gt_h = gt_w = round(scale * 48) (ceil with `ceil`,
-    the Enhanced recipe's round_mode), random gt on the 192x192 canvas;
-    numpy from a seed."""
+    the Enhanced recipe's round_mode), random gt on the 192x192 canvas; or
+    of the Ultra recipe (`ultra`): 64x64 LR, scales in [1, 16], gt =
+    ceil(64 s) on the 1024x1024 canvas. numpy from a seed."""
     rng = np.random.default_rng(seed)
-    hmax = PAPER_TRAIN["canvas_hw"][0]
-    scales = rng.uniform(*PAPER_SCALES, b).astype(np.float32)
-    gt = (np.ceil if ceil else np.round)(scales * PAPER_LR_SIZE).astype(
+    lr, lo_hi, cfg = ((ULTRA_LR_SIZE, ULTRA_SCALES, ULTRA_TRAIN) if ultra
+                      else (PAPER_LR_SIZE, PAPER_SCALES, PAPER_TRAIN))
+    hmax = cfg["canvas_hw"][0]
+    scales = rng.uniform(*lo_hi, b).astype(np.float32)
+    gt = (np.ceil if ceil or ultra else np.round)(scales * lr).astype(
         np.int32)
-    return {"lq": rng.random((b, PAPER_LR_SIZE, PAPER_LR_SIZE, 3),
-                             dtype=np.float32),
+    return {"lq": rng.random((b, lr, lr, 3), dtype=np.float32),
             "gt": rng.random((b, hmax, hmax, 3), dtype=np.float32),
             "scale": scales, "gt_h": gt, "gt_w": gt}
 
@@ -1214,29 +1260,34 @@ def enhanced_train_kernel_phase(dec, dev):
     return results
 
 
-def enhanced_networks(encoder: str = "edsr"):
-    """The Enhanced recipe's networks as gsasr_torch.config.build_networks
-    builds them from configs/train_<encoder>_amp.yml (written out: the card
-    has no PyYAML; tests/test_torch_enhanced_train.py holds them equal):
-    EDSR or RDN and Fea2GSRopeAMP (RDN's with two cross-attention blocks),
-    bf16 compute on fp32 parameters, every weight from a generator seeded
-    with the recipe's manual_seed 0. On the CPU, in training mode."""
-    from gsasr_torch.models import EDSRNOUP, RDNNOUP, Fea2GSRopeAMP
+def enhanced_networks(encoder: str = "edsr", dtype=torch.bfloat16):
+    """The bf16 recipe's networks as gsasr_torch.config.build_networks
+    builds them from configs/train_<encoder>_amp.yml, or for "hat" from
+    configs/train_hatl_ultra.yml (written out: the card has no PyYAML;
+    tests/test_torch_enhanced_train.py and tests/test_torch_hat_train.py
+    hold them equal): EDSR, RDN or HAT-L and Fea2GSRopeAMP (RDN's with two
+    cross-attention blocks, HAT-L's the Ultra decoder), bf16 compute on fp32
+    parameters (`dtype` float32: model_dtype float32), every weight from a
+    generator seeded with the recipe's manual_seed 0. On the CPU, in
+    training mode."""
+    from gsasr_torch.model import ENHANCED_CFG
+    from gsasr_torch.models import EDSRNOUP, HATNOUP, RDNNOUP, Fea2GSRopeAMP
     from gsasr_torch.models.init import init_weights
 
-    bf16 = torch.bfloat16
     g = torch.Generator().manual_seed(0)
+    encoders = {"edsr": EDSRNOUP, "rdn": RDNNOUP, "hat": HATNOUP}
     with torch.random.fork_rng(devices=[]):
-        enc = (EDSRNOUP if encoder == "edsr" else RDNNOUP)(dtype=bf16)
-        dec = Fea2GSRopeAMP(num_crossattn_blocks=2 if encoder == "rdn" else 1,
-                            dtype=bf16)
+        enc = encoders[encoder](dtype=dtype)
+        dec = Fea2GSRopeAMP(**(ENHANCED_CFG[encoder] if encoder == "hat" else
+                               dict(num_crossattn_blocks=2 if encoder ==
+                                    "rdn" else 1)), dtype=dtype)
     return init_weights(enc, g), init_weights(dec, g)
 
 
-def _determinism_cost(tr, batch):
+def _determinism_cost(tr, batch, turns: int = 3):
     """Host ms of Trainer.grads (cuDNN's deterministic algorithms) against
     the same forward and backward under the process's cuDNN flags
-    (PyTorch's defaults: not deterministic), three each, in turns."""
+    (PyTorch's defaults: not deterministic), `turns` each, in turns."""
     def pinned():
         tr.grads(batch)
 
@@ -1247,7 +1298,7 @@ def _determinism_cost(tr, batch):
 
     times = {"deterministic": [], "default": []}
     for key in ("deterministic", "default", "default", "deterministic",
-                "deterministic", "default"):
+                "deterministic", "default")[:2 * turns]:
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         (pinned if key == "deterministic" else default)()
@@ -1259,11 +1310,21 @@ def _determinism_cost(tr, batch):
 
 
 def _train_run(dev, kernels, b: int, fused: bool, encoder: str,
-               enhanced: bool = False):
+               enhanced: bool = False, ultra=None):
+    """`ultra` (a dtype): configs/train_hatl_ultra.yml's networks and
+    recipe, bf16 (the recipe's; its repeatability asserted, its costly
+    reports run once) or float32 (model_dtype float32: 1 warm-up and 2
+    timed steps, no reports)."""
     from gsasr_torch.model import make_models
     from gsasr_torch.train import TrainConfig, Trainer
 
-    if enhanced:
+    warmup, steps = TRAIN_WARMUP, TRAIN_STEPS
+    if ultra is not None:
+        enc, dec = enhanced_networks("hat", ultra)
+        cfg = ULTRA_TRAIN
+        if ultra == torch.float32:
+            warmup, steps = 1, 2
+    elif enhanced:
         enc, dec = enhanced_networks(encoder)
         cfg = ENHANCED_TRAIN
     else:
@@ -1271,17 +1332,21 @@ def _train_run(dev, kernels, b: int, fused: bool, encoder: str,
                                generator=torch.Generator().manual_seed(0))
         cfg = PAPER_TRAIN
     tr = Trainer(enc, dec, TrainConfig(**dict(cfg, fused_decoder=fused)))
-    want = (ENHANCED_TRAIN_COUNTS if enhanced else
+    want = (ULTRA_TRAIN_COUNTS if ultra == torch.bfloat16 else
+            ULTRA_FP32_TRAIN_COUNTS if ultra == torch.float32 else
+            ENHANCED_TRAIN_COUNTS if enhanced else
             FUSED_TRAIN_COUNTS if fused else
             SWINIR_TRAIN_COUNTS if encoder == "swinir" else TRAIN_COUNTS)
-    label = ("Enhanced bf16 " if enhanced else "") + (
-        "fused" if fused else "module") + (
-        "" if encoder == "edsr" else f" {encoder}")
+    label = (f"HAT-L Ultra {str(ultra).replace('torch.', '')}" if ultra
+             else ("Enhanced bf16 " if enhanced else "") + (
+                 "fused" if fused else "module") + (
+                 "" if encoder == "edsr" else f" {encoder}"))
     start = [p.detach().clone() for p in tr.params_g + tr.params_d]
     start_ema = [p.detach().clone() for p in
                  list(tr.ema_g.parameters()) + list(tr.ema_d.parameters())]
-    batches = [paper_batch(b, seed=10 + i, ceil=enhanced)
-               for i in range(TRAIN_WARMUP + TRAIN_STEPS)]
+    batches = [paper_batch(b, seed=10 + i, ceil=enhanced,
+                           ultra=ultra is not None)
+               for i in range(warmup + steps)]
     steps, grads_ms, apply_ms, losses, counts = [], [], [], [], []
     for i, batch in enumerate(batches):
         if i == len(batches) - 1:
@@ -1305,7 +1370,7 @@ def _train_run(dev, kernels, b: int, fused: bool, encoder: str,
             raise AssertionError(f"step {i}: loss {loss}")
         losses.append(loss)
         counts.append(c)
-        if i >= TRAIN_WARMUP:
+        if i >= warmup:
             steps.append((t2 - t0) * 1e3)
             grads_ms.append((t1 - t0) * 1e3)
             apply_ms.append((t2 - t1) * 1e3)
@@ -1319,12 +1384,18 @@ def _train_run(dev, kernels, b: int, fused: bool, encoder: str,
     if not (moved and ema_moved):
         raise AssertionError(f"parameters moved {moved}, EMA moved "
                              f"{ema_moved}")
-    repeat = _repeat_report(tr, batches[-1], label)
-    det = _determinism_cost(tr, batches[-1])
-    print(f"  {label} cost of cuDNN determinism: Trainer.grads median "
-          f"{det['grads_ms_median']['deterministic']:.1f} ms against "
-          f"{det['grads_ms_median']['default']:.1f} ms under the default "
-          f"flags ({det['cost_ms']:+.1f} ms)", flush=True)
+    repeat = det = None
+    if ultra != torch.float32:
+        repeat = _repeat_report(tr, batches[-1], label)
+        if ultra is not None and not repeat["same_bits"]:
+            raise AssertionError(f"{label}: two gradients of one batch "
+                                 "differ")
+        det = _determinism_cost(tr, batches[-1],
+                                turns=1 if ultra is not None else 3)
+        print(f"  {label} cost of cuDNN determinism: Trainer.grads median "
+              f"{det['grads_ms_median']['deterministic']:.1f} ms against "
+              f"{det['grads_ms_median']['default']:.1f} ms under the default "
+              f"flags ({det['cost_ms']:+.1f} ms)", flush=True)
     med = lambda x: float(np.median(x))  # noqa: E731
     res = dict(decoder=label, encoder=encoder, batch=b,
                step_ms_median=med(steps),
@@ -1365,17 +1436,18 @@ def _repeat_report(tr, batch, label):
 
 
 def train_phase(dev, kernels, fused: bool, encoder: str = "edsr",
-                enhanced: bool = False):
+                enhanced: bool = False, ultra=None):
     """Full-width training steps of `encoder` at the paper recipe on the
-    module or the fused decoder, or at the Enhanced bf16 recipe
-    (`enhanced`); halves the batch only if it does not fit the card, and
-    says so."""
+    module or the fused decoder, at the Enhanced bf16 recipe (`enhanced`),
+    or of HAT-L Ultra at train_hatl_ultra.yml's recipe in `ultra`'s type;
+    halves the batch only if it does not fit the card, and says so."""
     torch.backends.cuda.matmul.allow_tf32 = False  # PyTorch default
     torch.backends.cudnn.allow_tf32 = True         # PyTorch default
-    b = PAPER_BATCH
+    b = PAPER_BATCH if ultra is None else ULTRA_BATCH
     while True:
         try:
-            return _train_run(dev, kernels, b, fused, encoder, enhanced)
+            return _train_run(dev, kernels, b, fused, encoder, enhanced,
+                              ultra)
         except torch.cuda.OutOfMemoryError:
             if b == 1:
                 raise
@@ -1600,6 +1672,275 @@ def ultra_kernel_phase(dec, dev):
     return results
 
 
+def _raster_rows(geom, col, bbox, h, w, g, per_step, case):
+    """R and RB against their plain versions on one canvas,
+    each twice for bitwise repeatability, with their times (the plain
+    versions once) and bounds: the pairs this run's data needs (the clipped
+    integer pixels of every cull box) at their FP32 operations or
+    exponentials per pair, or the bytes. Returns {"R": row, "RB": row}."""
+    from gsasr_torch.ops import rasterizer as rz
+
+    nx = (torch.clamp(torch.floor(geom[:, 6]), max=w - 1)
+          - torch.clamp(torch.ceil(geom[:, 5]), min=0) + 1).clamp(min=0)
+    ny = (torch.clamp(torch.floor(geom[:, 8]), max=h - 1)
+          - torch.clamp(torch.ceil(geom[:, 7]), min=0) + 1).clamp(min=0)
+    pairs = float((nx.double() * ny.double()).sum())
+
+    def row(name, fn, plain_fn, compare, ops_per_pair, nbytes):
+        out = fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ref = plain_fn()
+        torch.cuda.synchronize()
+        plain = (time.perf_counter() - t0) * 1e3
+        err = compare(out, ref)
+        _repeatable(lambda: (fn(),) if name == "R" else fn(),
+                    f"{name} {case}")
+        ms = _time_ms(fn, 10)
+        t_ops = pairs * ops_per_pair / PEAK_FP32
+        t_sfu = pairs / PEAK_SFU
+        t_bytes = nbytes / PEAK_HBM
+        print(f"  {name} {case}: {ms:.4f} ms (plain {plain:.1f}, bound "
+              f"{max(t_ops, t_sfu, t_bytes) * 1e3:.4f}), {pairs:.3e} box "
+              f"pairs, {int(geom.shape[0])} Gaussians in "
+              f"{int(bbox.shape[1])} chunks", flush=True)
+        return dict(case=case, per_step=per_step, max_abs_err=err, ms=ms,
+                    plain_ms=plain, bound_ms=max(t_ops, t_sfu, t_bytes) * 1e3,
+                    bound_by="bytes" if t_bytes > max(t_ops, t_sfu)
+                    else "operations", library_ms=None,
+                    library_null_reason="no PyTorch call computes it",
+                    box_pairs=pairs, gaussians=int(geom.shape[0]),
+                    chunks=int(bbox.shape[1]))
+
+    rows = {"R": row(
+        "R", lambda: rz.raster_fwd(geom, col, bbox, h, w),
+        lambda: rz.raster_fwd_plain(geom, col, bbox, h, w),
+        lambda o, r: _compare(o, r, f"R {case}"), RASTER_OPS_PER_PAIR,
+        4 * (geom.numel() + col.numel() + h * w * 3))}
+
+    def rb_compare(outs, refs):
+        if not bool((outs[0][:, 5:] == 0).all()):
+            raise AssertionError("RB: cull-box columns got a gradient")
+        return max(_compare_grad(o, r, f"RB {case} {n}") for o, r, n in zip(
+            outs, refs, ("dgeom", "dcol")))
+
+    rows["RB"] = row(
+        "RB", lambda: rz.raster_bwd(geom, col, bbox, g, h, w),
+        lambda: rz.raster_bwd_plain(geom, col, bbox, g, h, w), rb_compare,
+        RB_OPS_PER_PAIR, 4 * (2 * geom.numel() + 2 * col.numel() + h * w * 3))
+    return rows
+
+
+def _ptxas_kernels(report, key):
+    """{kernel: (registers, spill store bytes, spill load bytes)} of the
+    entry functions in a ptxas -v report whose mangled name holds `key`."""
+    out, name = {}, None
+    for line in report.splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", line)
+        if m:
+            name = m.group(1)
+            continue
+        if name and key in name:
+            sp = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill "
+                           r"loads", line)
+            if sp:
+                out[name] = [None, int(sp.group(1)), int(sp.group(2))]
+            reg = re.search(r"Used (\d+) registers", line)
+            if reg and name in out:
+                out[name][0] = int(reg.group(1))
+    return {k: tuple(v) for k, v in out.items()}
+
+
+@torch.no_grad()
+def ultra_train_kernel_phase(enc, dec, dev):
+    """The window-16 kernels of the Ultra training step against their plain
+    versions at its shapes (8 samples of 64x64 LR: 128 windows of 256
+    tokens, 192 channels, 6 heads of 32, no bias; the HABs' and the
+    decoder's 256 x 256 and the OCABs' 256 x 576): W-long-bf16 and
+    WB-long-bf16 (the bf16 recipe's), WB-long-bf16 once more with a bias
+    (dbias), and WB-long (fp32, model_dtype float32); each twice for
+    bitwise repeatability, with SDPA forward and backward in the kernel's
+    type as the yardstick and ptxas's registers. Then R and RB on the
+    8-slot 1024x1024 canvas of the seeded Ultra networks' Gaussians at
+    scales in [1, 16]. per_step: launches per Ultra step of that type."""
+    from gsasr_torch.ops import _build
+    from gsasr_torch.ops import attention as ta
+    from gsasr_torch.ops import rasterizer as rz
+    from gsasr_torch.rendering import training_batch_geometry
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    gen = torch.Generator().manual_seed(15)
+    rnd = lambda *s: torch.randn(*s, generator=gen).to(dev)  # noqa: E731
+    f32, bf16 = torch.float32, torch.bfloat16
+    ws, c, nh = dec.window_size, dec.channel, dec.num_heads
+    t, hd = ws * ws, c // nh
+    ocab = (ws + ws // 2) ** 2
+    b = ULTRA_BATCH * (ULTRA_LR_SIZE // ws) ** 2
+    scale = hd ** -0.5
+    regs = _ptxas_kernels(_build.ptxas_report("window_attn_bwd_long"),
+                          "window_attn_bwd_long")
+    results = {"W-long-bf16": [], "WB-long-bf16": [], "WB-long": []}
+    for name, tk, dt, bias, per_step in (
+            ("HAB and decoder 256x256", t, bf16, None, 136),
+            ("OCAB 256x576", ocab, bf16, None, 12),
+            ("256x256, bias", t, bf16, 0.5 * rnd(nh, t, t), 0),
+            ("HAB and decoder 256x256", t, f32, None, 136),
+            ("OCAB 256x576", ocab, f32, None, 12)):
+        q, g = rnd(b, t, c).to(dt), rnd(b, t, c).to(dt)
+        k, v = rnd(b, tk, c).to(dt), rnd(b, tk, c).to(dt)
+        act = 2 if dt == bf16 else 4
+        peak = PEAK_BF16 if dt == bf16 else PEAK_FP32
+        nbias = 0 if bias is None else 4 * nh * t * tk
+        lib_f, lib_b, why = _sdpa_ms(
+            q, k, v, None if bias is None else bias.to(dt)[None], g, nh,
+            scale)
+        if dt == bf16 and bias is None:
+            fargs = (q, k, v, None, scale, nh)
+            fwd = ta.window_attention_packed_long_bf16_fwd
+            err = _compare_bf16(fwd(*fargs),
+                                ta.window_attention_packed_plain(*fargs),
+                                f"W-long-bf16 {name}")
+            _repeatable(lambda: (fwd(*fargs),), f"W-long-bf16 {name}")
+            bound, by = _bound_ms(4.0 * b * nh * t * tk * hd,
+                                  act * (2 * b * t * c + 2 * b * tk * c),
+                                  peak)
+            results["W-long-bf16"].append(dict(
+                case=name, dtype="bfloat16", windows=b, per_step=per_step,
+                max_abs_err=err, ms=_time_ms(lambda: fwd(*fargs), 10),
+                plain_ms=_time_ms(lambda: ta.window_attention_packed_plain(
+                    *fargs), 3), bound_ms=bound, bound_by=by,
+                library_ms=lib_f))
+        key = "WB-long-bf16" if dt == bf16 else "WB-long"
+        bwd = (ta.window_attention_packed_long_bf16_bwd if dt == bf16
+               else ta.window_attention_packed_long_bwd)
+        bargs = (q, k, v, bias, g, scale, nh)
+        outs = bwd(*bargs)
+        refs = ta.window_attention_packed_bwd_plain(*bargs)
+        cmp = _compare_bf16 if dt == bf16 else _compare_grad
+        err = max(cmp(o, r, f"{key} {name} {n}")
+                  for o, r, n in zip(outs[:3], refs[:3], ("dq", "dk", "dv")))
+        if bias is not None:
+            err = max(err, _compare_grad(outs[3], refs[3],
+                                         f"{key} {name} dbias"))
+        _repeatable(lambda: bwd(*bargs), f"{key} {name}")
+        ms = _time_ms(lambda: bwd(*bargs), 10)
+        plain = _time_ms(lambda: ta.window_attention_packed_bwd_plain(
+            *bargs), 3)
+        if why:
+            print(f"  {key} {name} library: null ({why})", flush=True)
+        # the function's five products (the scores, dp, dv, dq, dk); bytes:
+        # q, g, dq, k, v, dk, dv (and the f32 bias and dbias)
+        bound, by = _bound_ms(10.0 * b * nh * t * tk * hd,
+                              act * (3 * b * t * c + 4 * b * tk * c)
+                              + 2 * nbias, peak)
+        results[key].append(dict(
+            case=name, dtype=str(dt).replace("torch.", ""), windows=b,
+            per_step=per_step, max_abs_err=err, ms=ms, plain_ms=plain,
+            bound_ms=bound, bound_by=by, library_ms=lib_b,
+            library_null_reason=why,
+            registers={k: r for k, r in regs.items()
+                       if ("bfloat16" in k) == (dt == bf16)}))
+    for name, (r_, st, ld) in regs.items():
+        print(f"  ptxas {name}: {r_} registers, {st}/{ld} bytes spilled",
+              flush=True)
+
+    # -- R and RB on the Ultra canvas of the seeded networks' Gaussians ------
+    cfg = ULTRA_TRAIN
+    batch = paper_batch(ULTRA_BATCH, seed=16, ultra=True)
+    lq = torch.from_numpy(batch["lq"]).to(dev)
+    sc = torch.from_numpy(batch["scale"]).to(dev)
+    gt_h = torch.from_numpy(batch["gt_h"]).to(dev)
+    gs = dec(enc(lq), sc)
+    geoms, colors = training_batch_geometry(
+        gs, sc, gt_h, gt_h, cfg["canvas_hw"],
+        default_step_size=cfg["default_step_size"], if_dmax=cfg["if_dmax"],
+        dmax_mode=cfg["dmax_mode"], dmax=cfg["dmax"])
+    del gs
+    h, w = ULTRA_BATCH * cfg["canvas_hw"][0], cfg["canvas_hw"][1]
+    geom, col, bbox = rz.chunk_geometry(geoms.reshape(-1, rz.GEOM_COLS),
+                                        colors.reshape(-1, 3), (h, w))
+    rows = _raster_rows(geom, col, bbox, h, w, rnd(h, w, 3), 1,
+                        f"{h}x{w}, scales {batch['scale'].min():.2f}-"
+                        f"{batch['scale'].max():.2f}")
+    results.update({k: [r] for k, r in rows.items()})
+    for k in ("W-long-bf16", "WB-long-bf16", "WB-long"):
+        for r in results[k]:
+            lib = "null" if r["library_ms"] is None else \
+                f"{r['library_ms']:.4f}"
+            print(f"  {k} {r['case']}: {r['ms']:.4f} ms (plain "
+                  f"{r['plain_ms']:.4f}, bound {r['bound_ms']:.4f} by "
+                  f"{r['bound_by']}, SDPA {lib}) x{r['per_step']} per "
+                  f"Ultra step", flush=True)
+    return results
+
+
+def ultra_train_card_vs_cpu(dev):
+    """One tiny step of the Ultra recipe (a bf16 HAT of one RHAG of two
+    HABs, the second shifted, and OCAB, at window 16 on 32x32 LR: 256 x
+    256 and 256 x 576 windows; a bf16 decoder of one cross and one self
+    layer at 256 seeds in windows of 16; batch 2) from the same weights on
+    the card (W-long-bf16, WB-long-bf16) and on the CPU (their plain
+    versions): loss within 2^-8 relative, each network's gradient within
+    relative L2 2^-8 times its bf16 depth (tests/test_torch_hat_train.py's
+    depths: the decoder's ENHANCED_TINY_DEPTH, the tiny HAT's 50 more)."""
+    from gsasr_torch.models import HATNOUP, Fea2GSRopeAMP
+    from gsasr_torch.models.init import init_weights
+    from gsasr_torch.ops import attention as ta
+    from gsasr_torch.train import TrainConfig, Trainer
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    bf16 = torch.bfloat16
+    gen = torch.Generator().manual_seed(19)
+    enc = init_weights(HATNOUP(embed_dim=24, depths=(2,), num_heads=(6,),
+                               window_size=16, squeeze_factor=4,
+                               conv_scale=0.5, num_feat=16,
+                               drop_path_rate=0.0, dtype=bf16), gen)
+    dec = init_weights(Fea2GSRopeAMP(inchannel=16, channel=24, num_heads=6,
+                                     num_crossattn_blocks=1,
+                                     num_crossattn_layers=1,
+                                     num_selfattn_blocks=1,
+                                     num_selfattn_layers=1, num_gs_seed=256,
+                                     window_size=16, dtype=bf16), gen)
+    cfg = TrainConfig(canvas_hw=(64, 64), warmup_iter=-1, milestones=(100,),
+                      clip_grad_norm=None)
+    rng = np.random.default_rng(20)
+    scales = (1.0 + rng.random(2)).astype(np.float32)
+    gt = np.ceil(scales * 32).astype(np.int32)
+    batch = {"lq": rng.random((2, 32, 32, 3), dtype=np.float32),
+             "gt": rng.random((2, 64, 64, 3), dtype=np.float32),
+             "scale": scales, "gt_h": gt, "gt_w": gt}
+    card = Trainer(copy.deepcopy(enc), copy.deepcopy(dec), cfg)
+    cpu = Trainer(enc, dec, cfg, device="cpu")
+    n = ta.window_attention_packed_long_bf16_bwd.launches
+    out_card = card.grads(batch)
+    torch.cuda.synchronize()
+    launched = ta.window_attention_packed_long_bf16_bwd.launches - n
+    if launched != 5:
+        raise AssertionError(f"tiny Ultra step: {launched} WB-long-bf16 "
+                             "launches, expected 5")
+    out_cpu = cpu.grads(batch)
+    l_card, l_cpu = float(out_card[0]), float(out_cpu[0])
+    rel = abs(l_card - l_cpu) / abs(l_cpu)
+    dist = []
+    for i, depth in ((2, ENHANCED_TINY_DEPTH + 50), (3, ENHANCED_TINY_DEPTH)):
+        num = sum(float(((a.cpu().double() - r.double()) ** 2).sum())
+                  for a, r in zip(out_card[i], out_cpu[i]))
+        den = sum(float((r.double() ** 2).sum()) for r in out_cpu[i])
+        dist.append((math.sqrt(num / den), 2.0 ** -8 * depth))
+    card.apply(*out_card)
+    cpu.apply(*out_cpu)
+    print(f"  tiny HAT-L Ultra bf16 training step card vs CPU: loss "
+          f"{l_card:.7f} vs {l_cpu:.7f} (rel {rel:.2e}, tol {2.0 ** -8:.2e});"
+          f" gradient rel L2 encoder {dist[0][0]:.2e} (tol {dist[0][1]:.2e}),"
+          f" decoder {dist[1][0]:.2e} (tol {dist[1][1]:.2e})", flush=True)
+    if not rel <= 2.0 ** -8 or any(not d <= t for d, t in dist):
+        raise AssertionError("Ultra bf16 step: card and CPU disagree")
+    return dict(loss_card=l_card, loss_cpu=l_cpu, loss_rel=rel,
+                grad_rel_l2_enc=dist[0][0], grad_rel_l2_dec=dist[1][0])
+
+
 FORM_KEYS = ("decoder", "case", "dtype", "nW", "windows", "per_image",
              "per_step", "max_abs_err", "ms", "plain_ms", "bound_ms",
              "bound_by", "library_ms")
@@ -1644,8 +1985,10 @@ def main() -> int:
     from gsasr_torch.ops.attention import (
         window_attention_packed_bf16_bwd, window_attention_packed_bf16_fwd,
         window_attention_packed_bwd, window_attention_packed_fwd,
+        window_attention_packed_long_bf16_bwd,
         window_attention_packed_long_bf16_fwd,
-        window_attention_packed_long_fwd, window_attention_packed_masked_bwd,
+        window_attention_packed_long_bwd, window_attention_packed_long_fwd,
+        window_attention_packed_masked_bwd,
         window_attention_packed_masked_fwd)
     from gsasr_torch.ops.bias_table import bias_table_bwd
     from gsasr_torch.ops.fused_layers import (ln_attn_proj, ln_attn_proj_bwd,
@@ -1683,7 +2026,9 @@ def main() -> int:
                "WB-bf16": window_attention_packed_bf16_bwd,
                "W-long": window_attention_packed_long_fwd,
                "W-long-bf16": window_attention_packed_long_bf16_fwd,
-               "A-long": ln_attn_proj_long}
+               "A-long": ln_attn_proj_long,
+               "WB-long": window_attention_packed_long_bwd,
+               "WB-long-bf16": window_attention_packed_long_bf16_bwd}
     enc, dec = make_models("edsr", "paper",
                            generator=torch.Generator().manual_seed(0))
 
@@ -1817,7 +2162,42 @@ def main() -> int:
     ue2e = e2e_phase(enc_u, dec_u, dev, label="HAT-L Ultra",
                      denominator=ULTRA_DENOMINATOR)
     del enc_u, dec_u
-    for r in (train, ftrain, strain, etrain):
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    enc_ut, dec_ut = enhanced_networks("hat")
+    print("Ultra training kernel phase", flush=True)
+    utres = ultra_train_kernel_phase(enc_ut.to(dev).eval(),
+                                     dec_ut.to(dev).eval(), dev)
+    del enc_ut, dec_ut
+    gc.collect()
+    torch.cuda.empty_cache()
+    print("Ultra training phase", flush=True)
+    utrain = train_phase(dev, kernels, fused=False, encoder="hat",
+                         ultra=torch.bfloat16)
+    gc.collect()
+    torch.cuda.empty_cache()
+    utrain32 = train_phase(dev, kernels, fused=False, encoder="hat",
+                           ultra=torch.float32)
+    gc.collect()
+    torch.cuda.empty_cache()
+    print("Ultra training card vs CPU", flush=True)
+    utcvc = ultra_train_card_vs_cpu(dev)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    enc_ub, dec_ub = make_models("hat", "ultra", dtype=torch.bfloat16,
+                                 generator=torch.Generator().manual_seed(0))
+    print("Ultra bf16 path phase", flush=True)
+    ubruns = path_phase(enc_ub, dec_ub, dev, kernels,
+                        label="HAT-L Ultra bf16",
+                        denominator=ULTRA_DENOMINATOR,
+                        extra=ULTRA_BF16_PER_FORWARD)
+    print("Ultra bf16 end to end", flush=True)
+    ube2e = e2e_phase(enc_ub, dec_ub, dev, label="HAT-L Ultra bf16",
+                      denominator=ULTRA_DENOMINATOR)
+    del enc_ub, dec_ub
+    for r in (train, ftrain, strain, etrain, utrain):
         same = "the same" if r["repeat"]["same_bits"] else "NOT the same"
         print(f"  {r['decoder']} step: repeatability {same} bits; cost of "
               f"cuDNN determinism {r['determinism']['cost_ms']:+.1f} ms on "
@@ -1827,6 +2207,7 @@ def main() -> int:
     sinfer, sstep = sruns[0]["launches"], strain["launches"]
     fstep, einfer = ftrain["launches"], eruns[0]["launches"]
     estep, uinfer = etrain["launches"], uruns[0]["launches"]
+    ustep, ustep32 = utrain["launches"], utrain32["launches"]
     enhanced = "sr_forward (Enhanced, bf16 trunk)"
     for k in ("M", "A"):
         for r in kres[k]:
@@ -1842,7 +2223,7 @@ def main() -> int:
               "gsasr_tpu/ops/rasterizer.py:334",
               ["gsasr_tpu/ops/rasterizer.py:254",
                "gsasr_tpu/ops/rasterizer.py:126"], infer, "sr_forward",
-              kres["R"], None),
+              kres["R"], kres["R"] + utres["R"]),
         "M": ("ln_mlp", "gsasr_torch/ops/csrc/ln_mlp.cu",
               "gsasr_tpu/ops/fused_layers.py:122", [], einfer, enhanced,
               _on_path(ekres["M"], "per_image"), kres["M"] + ekres["M"]),
@@ -1859,7 +2240,7 @@ def main() -> int:
                "gsasr_tpu/ops/rasterizer.py:232",
                ["gsasr_tpu/ops/rasterizer.py:166",
                 "gsasr_tpu/ops/rasterizer.py:308"], step, "Trainer.step",
-               kres["RB"], None),
+               kres["RB"], kres["RB"] + utres["RB"]),
         "MB": ("ln_mlp_bwd", "gsasr_torch/ops/csrc/ln_mlp_bwd.cu",
                "gsasr_tpu/ops/fused_layers.py:146", [], fstep,
                "Trainer.step(fused_decoder=True)", kres["MB"], None),
@@ -1895,7 +2276,25 @@ def main() -> int:
                    "gsasr_torch/ops/csrc/window_attn_fwd.cu",
                    "gsasr_tpu/ops/attention.py:338", [], uinfer,
                    "sr_forward (HAT-L Ultra)", ures["W-long"],
-                   ures["W-long"] + ures["W-long-bf16"]),
+                   ures["W-long"]),
+        "W-long-bf16": ("window_attn_fwd_long_bf16",
+                        "gsasr_torch/ops/csrc/window_attn_fwd.cu",
+                        "gsasr_tpu/ops/attention.py:338", [], ustep,
+                        "Trainer.step (HAT-L Ultra, bf16 recipe)",
+                        _on_path(utres["W-long-bf16"], "per_step"),
+                        ures["W-long-bf16"] + utres["W-long-bf16"]),
+        "WB-long": ("window_attn_bwd_long",
+                    "gsasr_torch/ops/csrc/window_attn_bwd.cu",
+                    "gsasr_tpu/ops/attention.py:397", [], ustep32,
+                    "Trainer.step (HAT-L Ultra, model_dtype float32)",
+                    _on_path(utres["WB-long"], "per_step"),
+                    utres["WB-long"]),
+        "WB-long-bf16": ("window_attn_bwd_long_bf16",
+                         "gsasr_torch/ops/csrc/window_attn_bwd.cu",
+                         "gsasr_tpu/ops/attention.py:397", [], ustep,
+                         "Trainer.step (HAT-L Ultra, bf16 recipe)",
+                         _on_path(utres["WB-long-bf16"], "per_step"),
+                         utres["WB-long-bf16"]),
         "A-long": ("ln_attn_long", "gsasr_torch/ops/csrc/ln_attn.cu",
                    "gsasr_tpu/ops/fused_layers.py:336", [], uinfer,
                    "sr_forward (HAT-L Ultra, bf16 trunk)",
@@ -1926,6 +2325,10 @@ def main() -> int:
                            swinir_enhanced=dict(paths=seruns, e2e=see2e),
                            ultra=dict(kernels=ures, paths=uruns,
                                       card_vs_cpu=ucvc, e2e=ue2e),
+                           ultra_train=dict(kernels=utres, train=utrain,
+                                            train_fp32=utrain32,
+                                            card_vs_cpu=utcvc),
+                           ultra_bf16=dict(paths=ubruns, e2e=ube2e),
                            total_s=time.perf_counter() - t_start), f, indent=1)
     print(f"total {time.perf_counter() - t_start:.1f} s", flush=True)
     print(f"card: {card}", flush=True)

@@ -14,8 +14,8 @@ from typing import Any, Dict, List, Optional
 
 import torch
 
-from gsasr_torch.models import (EDSRNOUP, RDNNOUP, Fea2GS, Fea2GSRopeAMP,
-                                SwinIRNOUP)
+from gsasr_torch.models import (EDSRNOUP, HATNOUP, RDNNOUP, Fea2GS,
+                                Fea2GSRopeAMP, SwinIRNOUP)
 from gsasr_torch.models.init import init_weights
 from gsasr_torch.train.trainer import TrainConfig
 
@@ -49,14 +49,10 @@ _STRUCTURAL = {"upscale", "upsampler", "img_size", "img_range", "in_chans",
                "patch_norm"}
 _ENCODERS = {"EDSRNOUP": EDSRNOUP, "EDSR": EDSRNOUP,
              "RDNNOUP": RDNNOUP, "RDN": RDNNOUP,
-             "SwinIRNOUP": SwinIRNOUP, "SWINNOUP": SwinIRNOUP}
+             "SwinIRNOUP": SwinIRNOUP, "SWINNOUP": SwinIRNOUP,
+             "HATNOUP_ROPE_AMP": HATNOUP}
 # Encoders the JAX package trains that the port does not yet, and why.
 _UNPORTED_ENCODERS = {
-    "HATNOUP_ROPE_AMP": (
-        "HAT-L training (train_hatl_ultra.yml) is not ported yet: it needs "
-        "the backward of window attention at window 16 (WB at T = 256 and "
-        "OCAB's 256 x 576) and a bf16 HAT encoder; HAT-L inference is "
-        "make_models('hat', 'ultra')"),
     "HATNOUP": (
         "the paper HAT (hat_paper.py: relative-position bias, SW-MSA masks "
         "at T = 256) is not ported yet: it needs WM and WMB at window 16"),
@@ -89,11 +85,12 @@ def build_networks(opt: Dict[str, Any],
                    generator: Optional[torch.Generator] = None):
     """network_g / network_fea2gs -> (encoder, decoder) on the CPU, every
     weight drawn with the reference initializers from `generator` (default:
-    seeded with the options' manual_seed). The EDSR, RDN and SwinIR
-    encoders and both decoders are ported in float32; `model_dtype:
-    bfloat16` (the default of `model_type: GSASRAMPModel`, as in the JAX
-    package) builds EDSR or RDN with the Enhanced decoder in bf16 compute
-    on float32 parameters."""
+    seeded with the options' manual_seed). The EDSR, RDN, SwinIR and HAT-L
+    (HATNOUP_ROPE_AMP) encoders and both decoders are ported in float32;
+    `model_dtype: bfloat16` (the default of `model_type: GSASRAMPModel`, as
+    in the JAX package) builds EDSR, RDN or HAT-L with the Enhanced decoder
+    in bf16 compute on float32 parameters (configs/train_hatl_ultra.yml is
+    the Ultra recipe)."""
     default = "bfloat16" if "AMP" in str(opt.get("model_type", "")) else \
         "float32"
     model_dtype = str(opt.get("model_dtype", default)).lower()
@@ -119,10 +116,9 @@ def build_networks(opt: Dict[str, Any],
                 "and WB-bf16 with the bias table against JAX")
         if enc_cls is SwinIRNOUP:
             raise NotImplementedError(
-                "SwinIR in bfloat16 is not ported yet: it needs bfloat16 "
-                "forms of the masked kernels WM and WMB, and its recipe's "
-                "decoder (train_swinir_amp.yml, windows of 16) the backward "
-                "of window attention at T = 256 (WB's window-16 form)")
+                "SwinIR in bfloat16 (train_swinir_amp.yml) is not ported "
+                "yet: it needs bfloat16 forms of the masked kernels WM and "
+                "WMB")
         g["dtype"] = d["dtype"] = dtype
     if generator is None:
         generator = torch.Generator().manual_seed(

@@ -70,28 +70,43 @@ def pad_to_denominator(img, denom: int):
 
 
 def make_models(encoder: str = "edsr", version: str = "paper", *,
+                dtype=torch.float32,
                 generator: Optional[torch.Generator] = None, device=None):
     """Build (encoder, decoder) with seeded reference initializers, in eval
     mode on `device` (default: the CUDA card). encoder: 'edsr', 'rdn',
-    'swinir' or 'hat' (HAT-L, fp32); version: 'paper' (Fea2GS) or
-    'enhanced' / 'ultra' (Fea2GSRopeAMP with the encoder's settings,
-    `ENHANCED_CFG`; HAT-L's is the Ultra model). Callers pad with
-    `DENOMINATORS[encoder]` (`sr_forward(..., denominator=...)`), 16 for
-    the window-16 decoders of SwinIR and HAT-L."""
+    'swinir' or 'hat' (HAT-L); version: 'paper' (Fea2GS) or 'enhanced' /
+    'ultra' (Fea2GSRopeAMP with the encoder's settings, `ENHANCED_CFG`;
+    HAT-L's is the Ultra model). dtype: the modules' compute type on float32
+    parameters, `gsasr_tpu/model.py`'s keyword; torch.bfloat16 (the
+    reference's --AMP_test) is taken by EDSR, RDN and HAT-L with the
+    Enhanced / Ultra decoder. Callers pad with `DENOMINATORS[encoder]`
+    (`sr_forward(..., denominator=...)`), 16 for the window-16 decoders of
+    SwinIR and HAT-L."""
     dev = resolve_device(device)
     if encoder not in _ENCODERS:
         raise NotImplementedError(f"encoder '{encoder}'")
     if version not in ("paper", "enhanced", "ultra"):
         raise NotImplementedError(f"version '{version}'")
+    if dtype not in (torch.float32, torch.bfloat16):
+        raise NotImplementedError(f"dtype {dtype}")
+    kw = {}
+    if dtype == torch.bfloat16:
+        if version == "paper" or encoder == "swinir":
+            raise NotImplementedError(
+                f"make_models('{encoder}', '{version}') in bfloat16: the "
+                "port has bf16 forms of EDSR, RDN and HAT-L with the "
+                "Enhanced / Ultra decoder only (the paper Fea2GS and SwinIR "
+                "in bf16 are not ported)")
+        kw = dict(dtype=dtype)
     if generator is None:
         generator = torch.Generator().manual_seed(0)
     # Module constructors draw PyTorch's default init from the global RNG;
     # fork it so building a model leaves that state alone. All kept values
     # come from `generator`.
     with torch.random.fork_rng(devices=[]):
-        enc = _ENCODERS[encoder]()
+        enc = _ENCODERS[encoder](**kw)
         dec = Fea2GS() if version == "paper" else Fea2GSRopeAMP(
-            **ENHANCED_CFG[encoder])
+            **ENHANCED_CFG[encoder], **kw)
     init_weights(enc, generator)
     init_weights(dec, generator)
     return enc.to(dev).eval(), dec.to(dev).eval()

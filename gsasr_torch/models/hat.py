@@ -10,8 +10,16 @@ num_feat, LeakyReLU 0.01). NHWC in and out, under the reference
 
 Every attention goes through `window_attention_packed` without a bias or a
 mask: HAT-L's windows of 16 (256 tokens) and OCAB's 256 queries against
-576 keys take kernel W's window-16 form (W-long) on the card. The
-reference's quirks are kept, as the JAX module states them:
+576 keys take the window-16 forms of kernels W and WB on the card (W-long
+and WB-long; W-long-bf16 and WB-long-bf16 in bfloat16). With
+`dtype=torch.bfloat16` (the Ultra recipe's GSASRAMPModel, the reference's
+--AMP_test) every module computes in bfloat16 on float32 parameters with
+flax's `dtype=` semantics (`models/common.py`): each Dense and Conv rounds
+its product, then adds its bias; a LayerNorm rounds once; the channel
+attention's mean is taken in f32 and rounded; exact GELU, the sigmoid, the
+residual adds and `conv_scale` run in bfloat16; RoPE rotates in f32 and
+rounds back. The reference's quirks are kept, as the JAX module states
+them:
 
 - shifted HABs roll by ws // 2, attend unmasked and roll back (the
   reference's SDPA ignores its shifted-window mask);
@@ -31,7 +39,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from gsasr_torch.models.common import MLP, DropPath, LayerNorm
+from gsasr_torch.models.common import (MLP, Conv2d, DropPath, LayerNorm,
+                                       Linear, linear)
 from gsasr_torch.models.fea2gs import conv_nhwc, to_lattice, window_partition
 from gsasr_torch.models.fea2gs_rope import (apply_rope_packed, rope_phases,
                                             rope_t_xy)
@@ -56,10 +65,13 @@ def _rope_attend(q, k, v, freqs, end: int, num_heads: int):
 
 class ChannelAttention(nn.Module):
     """RCAN channel attention (`hatropeamp.py:191-209`), NHWC: the map's
-    mean through two 1x1 convs (ReLU, sigmoid) scales each channel."""
+    mean (f32, rounded to `dtype`) through two 1x1 convs (ReLU, sigmoid)
+    scales each channel."""
 
-    def __init__(self, num_feat: int, squeeze_factor: int):
+    def __init__(self, num_feat: int, squeeze_factor: int,
+                 dtype=torch.float32):
         super().__init__()
+        self.dtype = dtype
         self.attention = nn.Sequential(
             nn.AdaptiveAvgPool2d(1),
             nn.Conv2d(num_feat, num_feat // squeeze_factor, 1),
@@ -69,9 +81,10 @@ class ChannelAttention(nn.Module):
 
     def forward(self, x):
         fc1, fc2 = self.attention[1], self.attention[3]
-        y = x.mean(dim=(1, 2), keepdim=True)
-        y = torch.relu(F.linear(y, fc1.weight.flatten(1), fc1.bias))
-        return x * torch.sigmoid(F.linear(y, fc2.weight.flatten(1), fc2.bias))
+        y = x.float().mean(dim=(1, 2), keepdim=True).to(self.dtype)
+        y = torch.relu(linear(y, fc1.weight.flatten(1), fc1.bias, self.dtype))
+        return x * torch.sigmoid(linear(y, fc2.weight.flatten(1), fc2.bias,
+                                        self.dtype))
 
 
 class CAB(nn.Module):
@@ -80,13 +93,15 @@ class CAB(nn.Module):
     attention."""
 
     def __init__(self, num_feat: int, compress_ratio: int = 3,
-                 squeeze_factor: int = 30):
+                 squeeze_factor: int = 30, dtype=torch.float32):
         super().__init__()
         self.cab = nn.Sequential(
-            nn.Conv2d(num_feat, num_feat // compress_ratio, 3, padding=1),
+            Conv2d(num_feat, num_feat // compress_ratio, 3, padding=1,
+                   dtype=dtype),
             nn.GELU(),
-            nn.Conv2d(num_feat // compress_ratio, num_feat, 3, padding=1),
-            ChannelAttention(num_feat, squeeze_factor))
+            Conv2d(num_feat // compress_ratio, num_feat, 3, padding=1,
+                   dtype=dtype),
+            ChannelAttention(num_feat, squeeze_factor, dtype))
 
     def forward(self, x):
         y = F.gelu(conv_nhwc(self.cab[0], x))
@@ -98,13 +113,14 @@ class HATWindowAttention(nn.Module):
     split into contiguous thirds, q and k rotated on the window's lattice,
     no mask and no bias, then proj."""
 
-    def __init__(self, dim: int, num_heads: int, rope_theta: float = 10.0):
+    def __init__(self, dim: int, num_heads: int, rope_theta: float = 10.0,
+                 dtype=torch.float32):
         super().__init__()
         self.num_heads = num_heads
         self.rope_theta = rope_theta
         self.rope_freqs = _rope_freqs(dim, num_heads)
-        self.qkv = nn.Linear(dim, 3 * dim)
-        self.proj = nn.Linear(dim, dim)
+        self.qkv = Linear(dim, 3 * dim, dtype)
+        self.proj = Linear(dim, dim, dtype)
 
     def forward(self, x, ws: int):
         """x: (B_, ws*ws, C) windows."""
@@ -121,17 +137,18 @@ class HAB(nn.Module):
     def __init__(self, dim: int, num_heads: int, window_size: int,
                  shift_size: int, compress_ratio: int, squeeze_factor: int,
                  conv_scale: float, mlp_ratio: float, rope_theta: float,
-                 drop_path: float = 0.0):
+                 drop_path: float = 0.0, dtype=torch.float32):
         super().__init__()
         self.window_size = window_size
         self.shift_size = shift_size
         self.conv_scale = conv_scale
-        self.norm1 = LayerNorm(dim)
-        self.conv_block = CAB(dim, compress_ratio, squeeze_factor)
-        self.attn = HATWindowAttention(dim, num_heads, rope_theta)
+        self.norm1 = LayerNorm(dim, dtype)
+        self.conv_block = CAB(dim, compress_ratio, squeeze_factor, dtype)
+        self.attn = HATWindowAttention(dim, num_heads, rope_theta, dtype)
         self.drop_path = DropPath(drop_path)
-        self.norm2 = LayerNorm(dim)
-        self.mlp = MLP(dim, int(dim * mlp_ratio), dim, act=F.gelu)
+        self.norm2 = LayerNorm(dim, dtype)
+        self.mlp = MLP(dim, int(dim * mlp_ratio), dim, act=F.gelu,
+                       dtype=dtype)
 
     def forward(self, x, generator=None):
         b, h, w, _ = x.shape
@@ -173,18 +190,20 @@ class OCAB(nn.Module):
     MLP."""
 
     def __init__(self, dim: int, window_size: int, overlap_ratio: float,
-                 num_heads: int, mlp_ratio: float, rope_theta: float = 10.0):
+                 num_heads: int, mlp_ratio: float, rope_theta: float = 10.0,
+                 dtype=torch.float32):
         super().__init__()
         self.window_size = window_size
         self.overlap_win_size = int(window_size * overlap_ratio) + window_size
         self.num_heads = num_heads
         self.rope_theta = rope_theta
-        self.norm1 = LayerNorm(dim)
-        self.qkv = nn.Linear(dim, 3 * dim)
+        self.norm1 = LayerNorm(dim, dtype)
+        self.qkv = Linear(dim, 3 * dim, dtype)
         self.rope_freqs = _rope_freqs(dim, num_heads)
-        self.proj = nn.Linear(dim, dim)
-        self.norm2 = LayerNorm(dim)
-        self.mlp = MLP(dim, int(dim * mlp_ratio), dim, act=F.gelu)
+        self.proj = Linear(dim, dim, dtype)
+        self.norm2 = LayerNorm(dim, dtype)
+        self.mlp = MLP(dim, int(dim * mlp_ratio), dim, act=F.gelu,
+                       dtype=dtype)
 
     def forward(self, x):
         b, h, w, _ = x.shape
@@ -206,17 +225,18 @@ class RHAG(nn.Module):
     def __init__(self, dim: int, depth: int, num_heads: int,
                  window_size: int, compress_ratio: int, squeeze_factor: int,
                  conv_scale: float, overlap_ratio: float, mlp_ratio: float,
-                 rope_theta: float, drop_path: Sequence[float]):
+                 rope_theta: float, drop_path: Sequence[float],
+                 dtype=torch.float32):
         super().__init__()
         self.residual_group = nn.ModuleDict({
             "blocks": nn.ModuleList(
                 HAB(dim, num_heads, window_size,
                     0 if i % 2 == 0 else window_size // 2, compress_ratio,
                     squeeze_factor, conv_scale, mlp_ratio, rope_theta,
-                    drop_path[i]) for i in range(depth)),
+                    drop_path[i], dtype) for i in range(depth)),
             "overlap_attn": OCAB(dim, window_size, overlap_ratio, num_heads,
-                                 mlp_ratio, rope_theta)})
-        self.conv = nn.Conv2d(dim, dim, 3, padding=1)
+                                 mlp_ratio, rope_theta, dtype)})
+        self.conv = Conv2d(dim, dim, 3, padding=1, dtype=dtype)
 
     def forward(self, x, generator=None):
         y = x
@@ -227,10 +247,11 @@ class RHAG(nn.Module):
 
 
 class HATNOUP(nn.Module):
-    """(B, H, W, 3) -> (B, H, W, num_feat) NHWC; H and W multiples of
-    window_size (sr_forward pads to 16: `DENOMINATORS["hat"]`). The
-    defaults are HAT-L's: 192 channels, 12 RHAGs of 6 HABs, 6 heads of 32,
-    window 16, overlap 0.5, compress 3, squeeze 32, conv_scale 0.01."""
+    """(B, H, W, 3) -> (B, H, W, num_feat) NHWC in `dtype`; H and W
+    multiples of window_size (sr_forward pads to 16: `DENOMINATORS["hat"]`).
+    The defaults are HAT-L's: 192 channels, 12 RHAGs of 6 HABs, 6 heads of
+    32, window 16, overlap 0.5, compress 3, squeeze 32, conv_scale 0.01,
+    stochastic depth 0.1."""
 
     def __init__(self, embed_dim: int = 192,
                  depths: Sequence[int] = (6,) * 12,
@@ -239,23 +260,29 @@ class HATNOUP(nn.Module):
                  squeeze_factor: int = 32, conv_scale: float = 0.01,
                  overlap_ratio: float = 0.5, mlp_ratio: float = 2.0,
                  num_feat: int = 64, rope_theta: float = 10.0,
-                 drop_path_rate: float = 0.1):
+                 drop_path_rate: float = 0.1, dtype=torch.float32):
         super().__init__()
         self.window_size = window_size
+        # read by the Trainer, which passes a DropPath generator when it is
+        # above 0
+        self.drop_path_rate = drop_path_rate
+        self.dtype = dtype
         # stochastic depth: a linspace over all blocks (`hatropeamp.py:978`)
         dpr = np.linspace(0, drop_path_rate, sum(depths)).tolist()
         offs = np.cumsum([0, *depths])
-        self.conv_first = nn.Conv2d(3, embed_dim, 3, padding=1)
-        self.patch_embed = nn.ModuleDict({"norm": LayerNorm(embed_dim)})
+        self.conv_first = Conv2d(3, embed_dim, 3, padding=1, dtype=dtype)
+        self.patch_embed = nn.ModuleDict({"norm": LayerNorm(embed_dim,
+                                                            dtype)})
         self.layers = nn.ModuleList(
             RHAG(embed_dim, d, num_heads[i], window_size, compress_ratio,
                  squeeze_factor, conv_scale, overlap_ratio, mlp_ratio,
-                 rope_theta, dpr[offs[i]:offs[i + 1]])
+                 rope_theta, dpr[offs[i]:offs[i + 1]], dtype)
             for i, d in enumerate(depths))
-        self.norm = LayerNorm(embed_dim)
-        self.conv_after_body = nn.Conv2d(embed_dim, embed_dim, 3, padding=1)
+        self.norm = LayerNorm(embed_dim, dtype)
+        self.conv_after_body = Conv2d(embed_dim, embed_dim, 3, padding=1,
+                                      dtype=dtype)
         self.conv_before_upsample = nn.Sequential(
-            nn.Conv2d(embed_dim, num_feat, 3, padding=1),
+            Conv2d(embed_dim, num_feat, 3, padding=1, dtype=dtype),
             nn.LeakyReLU(0.01))
 
     def forward(self, x, generator: Optional[torch.Generator] = None):

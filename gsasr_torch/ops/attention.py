@@ -19,10 +19,11 @@ softmax in f32, p rounded to bfloat16 before the PV product, out in
 bfloat16; in the backward p is recomputed in f32 and not rounded, and dq,
 dk, dv come out in bfloat16 while dbias stays f32. The masked forms take
 float32 only. Windows of more than `_MAX_T` tokens (HAT's 256, OCAB's
-256 x 576) take W-long and W-long-bf16, the window-16 forms of W, which
-walk the keys in tiles; their backward (WB at window 16) is not ported,
-and the autograd Function raises rather than take the plain version. Each
-pair sits inside one autograd Function; the mask is a constant and gets no
+256 x 576) take W-long and W-long-bf16 forward and WB-long and
+WB-long-bf16 backward, the window-16 forms of W and WB, which walk the
+keys (and, backward, the queries) in tiles; a masked window of more than
+`_MAX_T` tokens raises (WM and WMB have no window-16 form yet). Each pair
+sits inside one autograd Function; the mask is a constant and gets no
 gradient. CPU tensors take the plain versions beside the wrappers.
 """
 
@@ -156,6 +157,8 @@ _FWD_LONG = {torch.float32: "window_attn_fwd_long",
              torch.bfloat16: "window_attn_fwd_long_bf16"}
 _BWD = {torch.float32: "window_attn_bwd",
         torch.bfloat16: "window_attn_bwd_bf16"}
+_BWD_LONG = {torch.float32: "window_attn_bwd_long",
+             torch.bfloat16: "window_attn_bwd_long_bf16"}
 
 
 def _fwd(q, k, v, bias, mask, scale: float, num_heads: int, dtype):
@@ -187,10 +190,11 @@ def _fwd_long(q, k, v, bias, scale: float, num_heads: int, dtype):
     return out
 
 
-def _bwd(q, k, v, bias, mask, g, scale: float, num_heads: int, dtype):
-    """Launch kernel WB (WB-bf16 for bfloat16 `dtype`), or WMB when `mask`
-    is given; returns (dq, dk, dv, dbias or None)."""
-    _check(q, k, v, bias, num_heads, dtype, extra=((g, "g"),), mask=mask)
+def _bwd_outputs(q, k, v, bias, g, num_heads: int, dtype, max_t, mask=None):
+    """Check the backward's operands; returns (b, tq, tk, c, dq, dk, dv,
+    dbias or None), the gradients allocated in `dtype` (dbias f32)."""
+    _check(q, k, v, bias, num_heads, dtype, extra=((g, "g"),), mask=mask,
+           max_t=max_t)
     b, tq, c = q.shape
     tk = k.shape[1]
     if g.shape != q.shape:
@@ -198,13 +202,21 @@ def _bwd(q, k, v, bias, mask, g, scale: float, num_heads: int, dtype):
     dq = torch.empty_like(q, memory_format=torch.contiguous_format)
     dk = torch.empty((b, tk, c), dtype=dtype, device=q.device)
     dv = torch.empty_like(dk)
+    dbias = (None if bias is None else
+             torch.empty((num_heads, tq, tk), dtype=torch.float32,
+                         device=q.device))
+    return b, tq, tk, c, dq, dk, dv, dbias
+
+
+def _bwd(q, k, v, bias, mask, g, scale: float, num_heads: int, dtype):
+    """Launch kernel WB (WB-bf16 for bfloat16 `dtype`), or WMB when `mask`
+    is given; returns (dq, dk, dv, dbias or None)."""
+    b, tq, tk, c, dq, dk, dv, dbias = _bwd_outputs(
+        q, k, v, bias, g, num_heads, dtype, _MAX_T, mask)
     # per-window ds (B, nh, Tq, Tk), f32 whatever the operand type: dk's
     # operand, and dbias's partial sums
     ds = torch.empty((b, num_heads, tq, tk), dtype=torch.float32,
                      device=q.device)
-    dbias = (None if bias is None else
-             torch.empty((num_heads, tq, tk), dtype=torch.float32,
-                         device=q.device))
     ops = (q.contiguous(), k.contiguous(), v.contiguous(),
            None if bias is None else bias.contiguous())
     outs = (g.contiguous(), dq, dk, dv, ds, dbias, b, tq, tk, c, num_heads)
@@ -213,6 +225,25 @@ def _bwd(q, k, v, bias, mask, g, scale: float, num_heads: int, dtype):
     else:
         _build.launch("window_attn_bwd_masked", *ops, mask.contiguous(),
                       *outs, mask.shape[0], float(scale))
+    return dq, dk, dv, dbias
+
+
+def _bwd_long(q, k, v, bias, g, scale: float, num_heads: int, dtype):
+    """Launch kernel WB-long (WB-long-bf16 for bfloat16 `dtype`); returns
+    (dq, dk, dv, dbias or None)."""
+    b, tq, tk, c, dq, dk, dv, dbias = _bwd_outputs(
+        q, k, v, bias, g, num_heads, dtype, None)
+    # each query row's (max, sum, D); with a bias, the per-window ds that
+    # dbias sums in window order
+    stats = torch.empty((b, num_heads, tq, 3), dtype=torch.float32,
+                        device=q.device)
+    ds = (None if bias is None else
+          torch.empty((b, num_heads, tq, tk), dtype=torch.float32,
+                      device=q.device))
+    _build.launch(_BWD_LONG[dtype], q.contiguous(), k.contiguous(),
+                  v.contiguous(), None if bias is None else bias.contiguous(),
+                  g.contiguous(), dq, dk, dv, stats, ds, dbias, b, tq, tk, c,
+                  num_heads, float(scale))
     return dq, dk, dv, dbias
 
 
@@ -305,6 +336,38 @@ def window_attention_packed_long_bf16_fwd(q, k, v, bias, scale: float,
 window_attention_packed_long_bf16_fwd.launches = 0
 
 
+def window_attention_packed_long_bwd(q, k, v, bias, g, scale: float,
+                                     num_heads: int):
+    """Backward of the packed attention in float32 for any Tq and Tk:
+    kernel WB-long on CUDA tensors, the plain version on CPU tensors.
+    Returns (dq, dk, dv, dbias or None)."""
+    if q.device.type == "cpu":
+        return window_attention_packed_bwd_plain(q, k, v, bias, g, scale,
+                                                 num_heads)
+    out = _bwd_long(q, k, v, bias, g, scale, num_heads, torch.float32)
+    window_attention_packed_long_bwd.launches += 1
+    return out
+
+
+window_attention_packed_long_bwd.launches = 0
+
+
+def window_attention_packed_long_bf16_bwd(q, k, v, bias, g, scale: float,
+                                          num_heads: int):
+    """Backward of the packed attention with bfloat16 q, k, v and g for any
+    Tq and Tk: kernel WB-long-bf16 on CUDA tensors, the plain version on
+    CPU tensors. Returns (dq, dk, dv in bfloat16, dbias float32 or None)."""
+    if q.device.type == "cpu":
+        return window_attention_packed_bwd_plain(q, k, v, bias, g, scale,
+                                                 num_heads)
+    out = _bwd_long(q, k, v, bias, g, scale, num_heads, torch.bfloat16)
+    window_attention_packed_long_bf16_bwd.launches += 1
+    return out
+
+
+window_attention_packed_long_bf16_bwd.launches = 0
+
+
 def window_attention_packed_masked_fwd(q, k, v, bias, mask, scale: float,
                                        num_heads: int):
     """Forward of the masked attention: kernel WM on CUDA tensors, the plain
@@ -341,15 +404,20 @@ class _PackedWindowAttention(torch.autograd.Function):
     """Forward W and backward WB (W-bf16 and WB-bf16 for bfloat16 operands),
     or WM and WMB with a mask (the custom VJPs of `_packed_window_attention`
     and `_masked_packed_window_attention` in the JAX package); windows of
-    more than `_MAX_T` tokens take W-long (W-long-bf16) forward, and their
-    backward raises. The mask gets no gradient where JAX returns zeros for
-    it."""
+    more than `_MAX_T` tokens take W-long and WB-long (W-long-bf16 and
+    WB-long-bf16), and with a mask raise. The mask gets no gradient where
+    JAX returns zeros for it."""
 
     @staticmethod
     def forward(ctx, q, k, v, bias, mask, scale, num_heads):
         ctx.save_for_backward(q, k, v, bias, mask)
         ctx.scale, ctx.num_heads = scale, num_heads
         if mask is not None:
+            if _long(q, k):
+                raise NotImplementedError(
+                    f"masked window attention at Tq {q.shape[1]}, Tk "
+                    f"{k.shape[1]} (> {_MAX_T}) needs the window-16 forms "
+                    "of WM and WMB, which are not ported (the paper HAT)")
             return window_attention_packed_masked_fwd(q, k, v, bias, mask,
                                                       scale, num_heads)
         bf16 = q.dtype == torch.bfloat16
@@ -364,15 +432,14 @@ class _PackedWindowAttention(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         q, k, v, bias, mask = ctx.saved_tensors
-        if _long(q, k):
-            raise NotImplementedError(
-                f"the backward of window attention at Tq {q.shape[1]}, Tk "
-                f"{k.shape[1]} (> {_MAX_T}) needs WB's window-16 form, which "
-                "is not ported: HAT training waits for it")
         if mask is None:
-            bwd = (window_attention_packed_bf16_bwd
-                   if q.dtype == torch.bfloat16
-                   else window_attention_packed_bwd)
+            bf16 = q.dtype == torch.bfloat16
+            if _long(q, k):
+                bwd = (window_attention_packed_long_bf16_bwd if bf16
+                       else window_attention_packed_long_bwd)
+            else:
+                bwd = (window_attention_packed_bf16_bwd if bf16
+                       else window_attention_packed_bwd)
             grads = bwd(q, k, v, bias, g, ctx.scale, ctx.num_heads)
         else:
             grads = window_attention_packed_masked_bwd(

@@ -1,12 +1,15 @@
 // Kernel WB: packed multi-head window attention, backward; kernel WMB, its
-// masked form; and kernel WB-bf16, its form with bfloat16 operands.
+// masked form; kernel WB-bf16, its form with bfloat16 operands; and
+// WB-long and WB-long-bf16, its window-16 forms for any Tq and Tk.
 //
 // WB replaces _attn_kernel_packed_bwd of gsasr_tpu/ops/attention.py
 // (reached from _attention_packed_pallas_bwd, the custom VJP of
 // window_attention_packed); WMB replaces _attn_kernel_packed_masked_bwd
 // (reached from _attention_packed_pallas_masked_bwd, the VJP with a
 // window_mask); WB-bf16 replaces _attn_kernel_packed_bwd with bfloat16
-// operands (the Enhanced decoder's bf16 module path). Per window w and
+// operands (the Enhanced decoder's bf16 module path); WB-long and
+// WB-long-bf16 replace it at windows beyond WB's 160 keys (HAT-L Ultra
+// training: 256 x 256 and OCAB's 256 x 576). Per window w and
 // head h, with the softmax recomputed from
 // q, k, bias (and mask[w % nW]) as kernels W and WM compute it:
 //
@@ -34,11 +37,62 @@
 // and ds are f32 and p is not rounded (the Pallas body's f32 dots); dq, dk
 // and dv are rounded once as they are stored; the ds_w scratch and dbias
 // are f32.
+//
+// WB-long at the HAT-L Ultra training shape (128 windows x 6 heads x 256 x
+// 256 x 32): the five products of the function are 16.1 GFLOP, 0.016 ms at
+// the bf16 tensor-core peak, against 88 MB of bf16 q, k, v, g, dq, dk, dv
+// (0.026 ms at 3.35 TB/s): bound by bytes in bf16; in fp32 by the
+// operations (0.24 ms at 67 TFLOP/s). Its design (window_attn_long_bwd.cuh)
+// forms ten such products on the CUDA cores in f32, twice the function's,
+// to keep every output owned by one block and every sum in one order.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include "window_attn_bwd.cuh"
+#include "window_attn_long_bwd.cuh"
+
+namespace {
+
+// The launches of WB-long (T float) and WB-long-bf16 (T __nv_bfloat16):
+// dq and the rows' statistics per query tile, then dk and dv per key tile,
+// then (dbias given) the ordered sum of ds_w over the windows.
+template <typename T>
+cudaError_t launch_window_attn_bwd_long(const T* q, const T* k, const T* v,
+                                        const float* bias, const T* g, T* dq,
+                                        T* dk, T* dv, float* stats,
+                                        float* ds_w, float* dbias, int B,
+                                        int Tq, int Tk, int C, int nh,
+                                        float scale, cudaStream_t st) {
+  if (!gsasr::long_shape_ok(B, Tq, Tk, C, nh) || (dbias && !ds_w))
+    return cudaErrorInvalidValue;
+  const size_t smem = gsasr::long_bwd_smem_bytes(C / nh);
+  cudaError_t err = cudaFuncSetAttribute(
+      gsasr::window_attn_bwd_long_q_kernel<T>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+  if (err != cudaSuccess) return err;
+  err = cudaFuncSetAttribute(gsasr::window_attn_bwd_long_kv_kernel<T>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             static_cast<int>(smem));
+  if (err != cudaSuccess) return err;
+  gsasr::window_attn_bwd_long_q_kernel<T>
+      <<<gsasr::long_grid(nh, B, Tq), kThreads, smem, st>>>(
+          q, k, v, bias, g, dq, stats, dbias ? ds_w : nullptr, Tq, Tk, C, nh,
+          scale);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  gsasr::window_attn_bwd_long_kv_kernel<T>
+      <<<dim3(nh, B, (Tk + gsasr::kLK - 1) / gsasr::kLK), kThreads, smem,
+         st>>>(q, k, v, bias, g, dk, dv, stats, Tq, Tk, C, nh, scale);
+  err = cudaGetLastError();
+  if (err != cudaSuccess || !dbias) return err;
+  const int n = nh * Tq * Tk;
+  dbias_sum_kernel<<<(n + kThreads - 1) / kThreads, kThreads, 0, st>>>(
+      ds_w, dbias, B, n);
+  return cudaGetLastError();
+}
+
+}  // namespace
 
 // q, g, dq (B, Tq, C); k, v, dk, dv (B, Tk, C); bias (nh, Tq, Tk) or null;
 // ds_w (B, nh, Tq, Tk) scratch the caller allocates; dbias (nh, Tq, Tk), or
@@ -79,5 +133,33 @@ extern "C" int window_attn_bwd_bf16(const __nv_bfloat16* q,
                                     void* stream) {
   return static_cast<int>(launch_window_attn_bwd<false, false, __nv_bfloat16>(
       q, k, v, bias, g, dq, dk, dv, ds_w, dbias, nullptr, B, Tq, Tk, C, nh,
+      scale, static_cast<cudaStream_t>(stream)));
+}
+
+// Kernel WB-long: as window_attn_bwd for any Tq and Tk (the window-16
+// form), plus stats (B, nh, Tq, 3) float32 scratch the caller allocates;
+// ds_w (B, nh, Tq, Tk) is needed, and written, only with dbias.
+extern "C" int window_attn_bwd_long(const float* q, const float* k,
+                                    const float* v, const float* bias,
+                                    const float* g, float* dq, float* dk,
+                                    float* dv, float* stats, float* ds_w,
+                                    float* dbias, int B, int Tq, int Tk,
+                                    int C, int nh, float scale,
+                                    void* stream) {
+  return static_cast<int>(launch_window_attn_bwd_long<float>(
+      q, k, v, bias, g, dq, dk, dv, stats, ds_w, dbias, B, Tq, Tk, C, nh,
+      scale, static_cast<cudaStream_t>(stream)));
+}
+
+// Kernel WB-long-bf16: as window_attn_bwd_long with q, k, v, g, dq, dk and
+// dv bfloat16; bias, stats, ds_w and dbias float32.
+extern "C" int window_attn_bwd_long_bf16(
+    const __nv_bfloat16* q, const __nv_bfloat16* k, const __nv_bfloat16* v,
+    const float* bias, const __nv_bfloat16* g, __nv_bfloat16* dq,
+    __nv_bfloat16* dk, __nv_bfloat16* dv, float* stats, float* ds_w,
+    float* dbias, int B, int Tq, int Tk, int C, int nh, float scale,
+    void* stream) {
+  return static_cast<int>(launch_window_attn_bwd_long<__nv_bfloat16>(
+      q, k, v, bias, g, dq, dk, dv, stats, ds_w, dbias, B, Tq, Tk, C, nh,
       scale, static_cast<cudaStream_t>(stream)));
 }

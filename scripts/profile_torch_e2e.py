@@ -8,7 +8,9 @@ CUDA card.
                                        [--iters 3] [--json PATH]
 
 Builds the paper EDSR-GSASR (--encoder swinir or rdn: SwinIR- or
-RDN-GSASR; --encoder hat: the HAT-L Ultra model, padded to 16; with
+RDN-GSASR; --encoder hat: the HAT-L Ultra model, padded to 16, or with
+--train the Ultra step at configs/train_hatl_ultra.yml's bf16 recipe, 8
+samples of 64x64 at scales in [1, 16] on the 1024x1024 canvas; with
 --enhanced the Enhanced EDSR-GSASR, whose decoder trunk runs in bf16, or in
 fp32 with --fp32-trunk) with seeded weights, warms up,
 then traces with torch.profiler either `sr_forward` on a 180x180 x4 image
@@ -49,6 +51,8 @@ FAMILIES = (
     # the window-16 forms: W-long, and A-long's projections, attention and
     # (bf16) out-projection
     ("W-long window_attn_fwd long", ("window_attn_fwd_long_kernel",)),
+    # WB-long: the dq / row-statistics and the dk / dv launches
+    ("WB-long window_attn_bwd long", ("window_attn_bwd_long",)),
     ("A-long q/k/v projections", ("ln_qkv_kernel",)),
     ("A-long attention", ("attn_long_kernel",)),
     ("A-long out-proj (bf16)", ("out_proj_kernel<__nv_bfloat16, "
@@ -101,7 +105,7 @@ def main() -> int:
     ap.add_argument("--encoder", default="edsr",
                     choices=("edsr", "swinir", "rdn", "hat"),
                     help="the paper GSASR of this encoder (hat: HAT-L "
-                    "Ultra, inference)")
+                    "Ultra; with --train its bf16 recipe)")
     ap.add_argument("--enhanced", action="store_true",
                     help="trace sr_forward of the Enhanced EDSR-GSASR (with "
                     "--train: its step at the bf16 recipe)")
@@ -119,12 +123,13 @@ def main() -> int:
                           args.train and args.fp32_trunk):
         ap.error("--enhanced traces EDSR, the step on its module decoder")
     ultra = args.encoder == "hat"
-    if ultra and (args.train or args.enhanced):
-        ap.error("--encoder hat traces HAT-L Ultra inference")
+    if ultra and (args.enhanced or args.fused):
+        ap.error("--encoder hat traces HAT-L Ultra (--train: its bf16 "
+                 "recipe on the module decoder)")
     trunk = torch.float32 if args.fp32_trunk else None
-    if args.train and args.enhanced:
+    if args.train and (args.enhanced or ultra):
         from chip_smoke import enhanced_networks
-        enc, dec = enhanced_networks()
+        enc, dec = enhanced_networks(args.encoder)
     else:
         enc, dec = make_models(args.encoder,
                                "ultra" if ultra else
@@ -132,13 +137,15 @@ def main() -> int:
                                generator=torch.Generator().manual_seed(0))
     if args.train:
         from chip_smoke import (ENHANCED_TRAIN, PAPER_BATCH, PAPER_TRAIN,
-                                paper_batch)
+                                ULTRA_BATCH, ULTRA_TRAIN, paper_batch)
         from gsasr_torch.train import TrainConfig, Trainer
 
-        tr = Trainer(enc, dec, TrainConfig(**dict(
-            ENHANCED_TRAIN if args.enhanced else PAPER_TRAIN,
-            fused_decoder=args.fused)))
-        batches = [paper_batch(PAPER_BATCH, seed=20 + i, ceil=args.enhanced)
+        recipe = (ULTRA_TRAIN if ultra else ENHANCED_TRAIN if args.enhanced
+                  else PAPER_TRAIN)
+        tr = Trainer(enc, dec, TrainConfig(**dict(recipe,
+                                                  fused_decoder=args.fused)))
+        batches = [paper_batch(ULTRA_BATCH if ultra else PAPER_BATCH,
+                               seed=20 + i, ceil=args.enhanced, ultra=ultra)
                    for i in range(args.iters + 2)]
 
         def run(i):
@@ -189,7 +196,8 @@ def main() -> int:
     res = dict(
         card=card, iters=per, unit=unit,
         encoder=args.encoder,
-        decoder=("Ultra, bf16 trunk" if ultra else "paper"
+        decoder=("Ultra, bf16 recipe (module)" if ultra and args.train
+                 else "Ultra, bf16 trunk" if ultra else "paper"
                  if not args.enhanced else "Enhanced, fp32 trunk"
                  if args.fp32_trunk else "Enhanced, bf16 recipe (module)"
                  if args.train else "Enhanced, bf16 trunk"),

@@ -296,28 +296,86 @@ WINDOW16_CASES = [(2, 256, 256, 16, 2, "f32"), (2, 256, 576, 16, 2, "f32"),
                   (2, 256, 256, 16, 2, "bf16")]
 
 
+def _window16_vjp(b, tq, tk, c, nh, dt, bias, seed):
+    """Forward and VJP of window attention beyond W's 160 keys through the
+    port (W-long and WB-long's plain versions, or their bf16 forms) and
+    through JAX (K11 and K12 in interpret mode), from the same inputs: a
+    list of (name, port, JAX) pairs of out, dq, dk, dv (in the operand
+    type) and dbias (f32) where a bias is given."""
+    q, k, v, bs, g = _inputs(b, tq, tk, c, nh, bias, seed=seed)
+    tdt = torch.bfloat16 if dt == "bf16" else torch.float32
+    jdt = jnp.bfloat16 if dt == "bf16" else jnp.float32
+    ops = [torch.from_numpy(a).to(tdt) for a in (q, k, v)]
+    jops = [jnp.asarray(t.float().numpy()).astype(jdt) for t in ops]
+    gt = torch.from_numpy(g).to(tdt)
+    if bias:
+        ops.append(torch.from_numpy(bs))
+        jops.append(jnp.asarray(bs))
+
+    def jfwd(*a):
+        return jattn(*a[:3], a[3] if bias else None, num_heads=nh)
+
+    jout, vjp = jax.vjp(jfwd, *jops)
+    jgrads = vjp(jnp.asarray(gt.float().numpy()).astype(jdt))
+    tens = [t.requires_grad_() for t in ops]
+    out = ta.window_attention_packed(*tens[:3], tens[3] if bias else None,
+                                     num_heads=nh)
+    out.backward(gt)
+    tj = [torch.from_numpy(np.array(x.astype(jnp.float32))) for x in
+          (jout, *jgrads)]
+    names = ["out", "dq", "dk", "dv", "dbias"][:len(tj)]
+    return [(n, t, r if n == "dbias" else r.to(tdt)) for n, t, r in
+            zip(names, [out.detach()] + [x.grad for x in tens], tj)]
+
+
+def _assert_window16(pairs, dt):
+    """float32: 1e-5 (products of depth hd and up to 576 keys summed in
+    another order); bf16: each of out, dq, dk, dv rounded once from f32
+    sums taken in another order, so equal or one bf16 step apart
+    (`_within_a_bf16_step`), and dbias f32 (1e-5)."""
+    for name, t, r in pairs:
+        if dt == "bf16" and name != "dbias":
+            assert t.dtype == torch.bfloat16, name
+            assert _within_a_bf16_step(t, r), name
+        else:
+            assert t.dtype == torch.float32, name
+            np.testing.assert_allclose(t.numpy(), r.numpy(), rtol=1e-5,
+                                       atol=1e-5, err_msg=name)
+
+
 @pytest.mark.parametrize("b,tq,tk,c,nh,dt", WINDOW16_CASES)
 def test_window16_matches_jax_and_backward_raises(b, tq, tk, c, nh, dt):
-    """Windows beyond W's 160 keys, the forward of W's window-16 form
-    (W-long, W-long-bf16): K11 in interpret mode against the port's plain
-    version (1e-5 in float32; in bf16, where both round p once, within one
-    bf16 step). The backward raises, naming WB's missing window-16 form,
-    on the CPU as on the card."""
-    q, k, v, _, _ = _inputs(b, tq, tk, c, nh, False, seed=7)
-    if dt == "bf16":
-        q, k, v = (torch.from_numpy(a).to(torch.bfloat16) for a in (q, k, v))
-        ref = jattn(*(jnp.asarray(t.float().numpy()).astype(jnp.bfloat16)
-                      for t in (q, k, v)), None, num_heads=nh)
-        out = ta.window_attention_packed(q, k, v, num_heads=nh)
-        assert _within_a_bf16_step(
-            out, torch.from_numpy(np.array(ref.astype(jnp.float32)))
-            .to(torch.bfloat16))
-        return
-    ref = jattn(*map(jnp.asarray, (q, k, v)), None, num_heads=nh)
-    qt = torch.from_numpy(q).requires_grad_()
-    out = ta.window_attention_packed(qt, torch.from_numpy(k),
-                                     torch.from_numpy(v), num_heads=nh)
-    np.testing.assert_allclose(out.detach().numpy(), np.asarray(ref),
-                               rtol=1e-5, atol=1e-5)
-    with pytest.raises(NotImplementedError, match="WB's window-16 form"):
-        out.sum().backward()
+    """Windows beyond W's 160 keys, the window-16 forms of W and WB (W-long
+    and WB-long, W-long-bf16 and WB-long-bf16): K11 and K12 in interpret
+    mode against the port's plain versions through the autograd Function,
+    forward and VJP. The backward no longer raises (WB's window-16 form is
+    ported); a masked window of this length still does
+    (`test_window16_mask_raises`)."""
+    _assert_window16(_window16_vjp(b, tq, tk, c, nh, dt, False, seed=7), dt)
+
+
+# (windows, Tq, Tk, C, heads, dtype, bias): HAT-L's 256 x 256 and OCAB's
+# 256 x 576 at a narrow C of 6 heads, with and without a bias, fp32 and
+# bf16 operands
+WINDOW16_VJP_CASES = [(2, 256, 256, 24, 6, "f32", True),
+                      (2, 256, 576, 24, 6, "f32", True),
+                      (2, 256, 256, 24, 6, "bf16", True),
+                      (2, 256, 576, 24, 6, "bf16", True),
+                      (2, 256, 576, 24, 6, "bf16", False)]
+
+
+@pytest.mark.parametrize("b,tq,tk,c,nh,dt,bias", WINDOW16_VJP_CASES)
+def test_window16_vjp_matches_jax(b, tq, tk, c, nh, dt, bias):
+    """WB-long's plain twin against jax.vjp of window_attention_packed (K12
+    in interpret mode) at 6 heads, with a bias (dbias f32, summed over the
+    windows) and without, in fp32 and bf16."""
+    _assert_window16(_window16_vjp(b, tq, tk, c, nh, dt, bias, seed=9), dt)
+
+
+def test_window16_mask_raises():
+    """A masked window beyond 160 tokens raises, on the CPU as on the card,
+    naming the missing window-16 forms of WM and WMB (the paper HAT)."""
+    x = torch.zeros(2, 256, 8)
+    with pytest.raises(NotImplementedError, match="WM and WMB"):
+        ta.window_attention_packed(x, x, x, num_heads=2,
+                                   window_mask=torch.zeros(1, 256, 256))

@@ -2,7 +2,8 @@
 (CAB, the RoPE window attention, HAB unshifted and shifted, OCAB and its
 overlapping windows, a tiny HATNOUP, a full-width RHAG), the state_dict
 round trip through the reference converter, the seeded initializers and
-make_models' HAT-L, and what stays unported raising.
+make_models' HAT-L, what stays unported raising, and the backward through
+a 256-token window on the CPU.
 
 Weights come from a JAX init (every leaf moved by seeded noise, so biases
 and LayerNorm affines are not trivially 0 or 1) and are loaded into port
@@ -25,6 +26,7 @@ from gsasr_tpu.models import hat as jhat
 from gsasr_tpu.utils.torch_convert import convert_hat
 from gsasr_torch.models import hat
 from gsasr_torch.models.init import init_weights
+from gsasr_torch.ops.attention import window_attention_packed
 from gsasr_torch.utils import convert as cv
 from gsasr_torch.utils.convert import load_params
 
@@ -259,21 +261,51 @@ def test_make_models_hat_ultra_seeded_and_shaped():
 
 
 def test_unported_hat_training_raises():
-    """HAT training waits for the backward of window attention at window
-    16: a backward through a HAT window attention of 256 tokens raises on
-    the CPU, naming WB's window-16 form, and never takes the plain version;
-    build_networks raises for the Ultra recipe and the paper HAT."""
+    """What of HAT training still waits: the paper HAT (relative-position
+    bias and SW-MSA masks at window 16) raises in build_networks, naming
+    WM and WMB at window 16, and a masked window attention of 256 tokens
+    raises on the CPU as on the card, naming their window-16 forms. The
+    Ultra recipe (HATNOUP_ROPE_AMP) builds: tests/test_torch_hat_train.py."""
     from gsasr_torch.config import build_networks, load_options
 
-    m = init_weights(hat.HATWindowAttention(24, 6),
-                     torch.Generator().manual_seed(4))
-    y = m(torch.from_numpy(_x(10, 2, 256, 24)), 16)
-    assert y.shape == (2, 256, 24)
-    with pytest.raises(NotImplementedError, match="WB's window-16 form"):
-        y.sum().backward()
     opt = load_options(ROOT / "configs" / "train_hatl_ultra.yml")
-    with pytest.raises(NotImplementedError, match="WB at T = 256"):
-        build_networks(opt)
     opt["network_g"] = dict(opt["network_g"], type="HATNOUP")
     with pytest.raises(NotImplementedError, match="WM and WMB at window 16"):
         build_networks(opt)
+    m = init_weights(hat.HATWindowAttention(24, 6),
+                     torch.Generator().manual_seed(4))
+    x = torch.from_numpy(_x(10, 2, 256, 24))
+    q, k, v = m.qkv(x).chunk(3, dim=-1)
+    with pytest.raises(NotImplementedError, match="WM and WMB"):
+        window_attention_packed(q, k, v, num_heads=6,
+                                window_mask=torch.zeros(2, 256, 256))
+
+
+def test_hat_window_attention_backward_on_cpu():
+    """The backward through a HAT window attention of 256 tokens, once a
+    raise, runs WB-long's plain version on CPU tensors: every parameter's
+    and the input's gradient equals autograd through the plain forward
+    (float32, the same products in another order: 1e-5 of each tensor's
+    largest entry), and no kernel launch is counted."""
+    from gsasr_torch.ops import attention as ta
+
+    m = init_weights(hat.HATWindowAttention(24, 6),
+                     torch.Generator().manual_seed(4))
+    x = torch.from_numpy(_x(10, 2, 256, 24)).requires_grad_()
+    cot = torch.from_numpy(_x(11, 2, 256, 24))
+    n = ta.window_attention_packed_long_bwd.launches
+    y = m(x, 16)
+    got = torch.autograd.grad((y * cot).sum(), [x, *m.parameters()])
+    assert ta.window_attention_packed_long_bwd.launches == n
+
+    def plain(q, k, v, bias, num_heads):
+        return ta.window_attention_packed_plain(q, k, v, bias,
+                                                (24 // 6) ** -0.5, num_heads)
+
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(hat, "window_attention_packed", plain)
+        ref = torch.autograd.grad((m(x, 16) * cot).sum(),
+                                  [x, *m.parameters()])
+    for a, r in zip(got, ref):
+        tol = 1e-5 * float(r.abs().max())
+        torch.testing.assert_close(a, r, rtol=1e-5, atol=tol)

@@ -93,8 +93,10 @@ def test_ultra_decoder_fused_matches_jax(dec_kw, b, hw, tol):
 def test_ultra_decoder_module_path_matches_jax():
     """The differentiable module path at windows of 16 (every attention of
     256 tokens: W-long's plain version here) against Fea2GSRopeAMP.apply,
-    fp32, within the fused test's tiny bound; its backward raises, naming
-    WB's window-16 form."""
+    fp32, within the fused test's tiny bound; its backward, once a raise,
+    runs WB-long's plain version: every parameter's gradient equals
+    autograd through the plain forward (1e-5 of each tensor's largest
+    entry: the same float32 products in another order)."""
     *_, dp, _, dec = _pair("hat", TINY16, seed=3)
     rng = np.random.default_rng(3)
     srcs = rng.random((1, 16, 32, 8), dtype=np.float32)
@@ -104,8 +106,26 @@ def test_ultra_decoder_module_path_matches_jax():
     out = dec(torch.from_numpy(srcs), torch.from_numpy(scale))
     np.testing.assert_allclose(out.detach().numpy(), ref, rtol=2e-4,
                                atol=2e-4)
-    with pytest.raises(NotImplementedError, match="WB's window-16 form"):
-        out.sum().backward()
+    from gsasr_torch.models import fea2gs_rope
+    from gsasr_torch.ops import attention as ta
+
+    params = [p for p in dec.parameters() if p.requires_grad]
+    got = torch.autograd.grad(out.square().sum(), params, allow_unused=True)
+
+    def plain(q, k, v, bias, num_heads):
+        return ta.window_attention_packed_plain(
+            q, k, v, bias, (q.shape[-1] // num_heads) ** -0.5, num_heads)
+
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(fea2gs_rope, "window_attention_packed", plain)
+        y = dec(torch.from_numpy(srcs), torch.from_numpy(scale))
+        ref = torch.autograd.grad(y.square().sum(), params, allow_unused=True)
+    assert sum(g is not None for g in got) > len(params) // 2
+    for a, r in zip(got, ref):
+        assert (a is None) == (r is None)
+        if r is not None:
+            torch.testing.assert_close(a, r, rtol=1e-5,
+                                       atol=1e-5 * float(r.abs().max()))
 
 
 @pytest.mark.parametrize("encoder", ["hat", "swinir"])

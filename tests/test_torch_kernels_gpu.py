@@ -508,7 +508,7 @@ def test_window_attn_long_matches_plain_and_repeats(cuda, b, tq, tk, c, nh,
                                                     bias, dt):
     """W-long (W-long-bf16) against the plain version, twice bitwise; the
     T <= 160 kernels are not launched, and the autograd Function takes the
-    long form and refuses its backward."""
+    long forms both ways (its backward WB-long or WB-long-bf16, once)."""
     from gsasr_torch.ops import attention as ta
 
     q, k, v, bs, _ = _attn_inputs(cuda, b, tq, tk, c, nh, bias, seed=14)
@@ -532,8 +532,85 @@ def test_window_attn_long_matches_plain_and_repeats(cuda, b, tq, tk, c, nh,
     assert (ta.window_attention_packed_fwd.launches,
             ta.window_attention_packed_bf16_fwd.launches,
             long_fwd.launches) == (n[0], n[1], n[2] + 3)
-    with pytest.raises(NotImplementedError, match="window-16"):
-        y.sum().backward()
+    long_bwd = (ta.window_attention_packed_long_bf16_bwd
+                if dt == torch.bfloat16
+                else ta.window_attention_packed_long_bwd)
+    m = (ta.window_attention_packed_bwd.launches,
+         ta.window_attention_packed_bf16_bwd.launches, long_bwd.launches)
+    y.float().sum().backward()
+    assert (ta.window_attention_packed_bwd.launches,
+            ta.window_attention_packed_bf16_bwd.launches,
+            long_bwd.launches) == (m[0], m[1], m[2] + 1)
+    ref = ta.window_attention_packed_bwd_plain(
+        q, k, v, bs, torch.ones_like(out), scale, nh)[0]
+    if dt == torch.bfloat16:
+        _assert_bf16_close(qg.grad, ref)
+    else:
+        torch.testing.assert_close(qg.grad, ref, rtol=1e-4,
+                                   atol=1e-4 * float(ref.abs().max()))
+
+
+# (windows, Tq, Tk, C, heads, bias, dtype) for WB-long and WB-long-bf16, the
+# window-16 forms of WB: a HAB's and the Ultra decoder's 256 x 256 and an
+# OCAB's 256 x 576 (6 heads of 32, cut to 9 and 5 windows) in both types,
+# a ragged query and key tile with a bias in both types, and a head width
+# below 32
+LONG_BWD_CASES = [(9, 256, 256, 192, 6, False, torch.bfloat16),
+                  (5, 256, 576, 192, 6, False, torch.bfloat16),
+                  (9, 256, 256, 192, 6, False, torch.float32),
+                  (5, 256, 576, 192, 6, False, torch.float32),
+                  (3, 130, 300, 180, 6, True, torch.float32),
+                  (3, 130, 300, 180, 6, True, torch.bfloat16),
+                  (4, 200, 161, 96, 4, False, torch.float32)]
+
+
+@pytest.mark.parametrize("b,tq,tk,c,nh,bias,dt", LONG_BWD_CASES)
+def test_window_attn_long_bwd_matches_plain_and_repeats(cuda, b, tq, tk, c,
+                                                        nh, bias, dt):
+    """WB-long (WB-long-bf16) against the plain backward: fp32 dq, dk, dv
+    within 1e-4 of each tensor's largest entry, bf16 within one bf16 step
+    (`_assert_bf16_close`), dbias f32; twice, bitwise (no atomics, every
+    sum in one order); WB and WB-bf16 not launched."""
+    from gsasr_torch.ops import attention as ta
+
+    q, k, v, bs, g = _attn_inputs(cuda, b, tq, tk, c, nh, bias, seed=16)
+    q, k, v, g = (x.to(dt) for x in (q, k, v, g))
+    scale = (c // nh) ** -0.5
+    bwd = (ta.window_attention_packed_long_bf16_bwd if dt == torch.bfloat16
+           else ta.window_attention_packed_long_bwd)
+    n = (ta.window_attention_packed_bwd.launches,
+         ta.window_attention_packed_bf16_bwd.launches)
+    out = bwd(q, k, v, bs, g, scale, nh)
+    again = bwd(q, k, v, bs, g, scale, nh)
+    ref = ta.window_attention_packed_bwd_plain(q, k, v, bs, g, scale, nh)
+    assert (out[3] is None) == (not bias)
+    for o, a, r in zip(out[:3], again[:3], ref[:3]):
+        assert torch.equal(o, a)
+        if dt == torch.bfloat16:
+            _assert_bf16_close(o, r)
+        else:
+            torch.testing.assert_close(o, r, rtol=1e-4,
+                                       atol=1e-4 * float(r.abs().max()))
+    if bias:
+        assert torch.equal(out[3], again[3]) and out[3].dtype == torch.float32
+        torch.testing.assert_close(out[3], ref[3], rtol=1e-4,
+                                   atol=1e-4 * float(ref[3].abs().max()))
+    assert (ta.window_attention_packed_bwd.launches,
+            ta.window_attention_packed_bf16_bwd.launches) == n
+
+
+def test_window_attn_bwd_kernels_do_not_spill(cuda):
+    """ptxas's report of WB's source (WB, WMB, WB-bf16 and the window-16
+    forms): no kernel spills a register to local memory."""
+    import re
+
+    from gsasr_torch.ops import _build
+
+    _build.build(["window_attn_bwd_long"])
+    report = _build.ptxas_report("window_attn_bwd_long")
+    spills = re.findall(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                        report)
+    assert spills and all(a == "0" and b == "0" for a, b in spills), report
 
 
 @pytest.mark.parametrize("opts,bf16", [("rope_cross", False),
