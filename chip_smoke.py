@@ -5,8 +5,8 @@
 
 1. Prints the card (nvidia-smi name and power limit), the torch and CUDA
    versions, and builds kernels R, M, A, W, WB, RB, MB, AB and T (and
-   their forms: WB-long among them) from gsasr_torch/ops/csrc, one nvcc
-   per source, in parallel.
+   their forms: WB-long, MB-bf16 and AB-bf16 among them) from
+   gsasr_torch/ops/csrc, one nvcc per source, in parallel.
 2. Kernel phase (TF32 off): R, M and A against their plain PyTorch versions
    at the inference path's shapes, with their median times, the plain
    versions' times and their lower bounds on this card.
@@ -102,6 +102,18 @@
 26. HAT-L Ultra in bf16 (make_models("hat", "ultra", dtype=torch.bfloat16),
    the reference's --AMP_test): path phase (84 W-long-bf16, 64 A-long, 140
    M, 1 R per image) and end-to-end timing at 180x180 x4.
+27. Enhanced fused training kernel phase (TF32 off): MB in its ln_inj, ln
+   and zero_base option sets and AB's RoPE cross-attention (pos, kv, Tk =
+   144) and self-attention (with the four RoPE-table gradients), each in
+   bf16 and fp32, against their plain versions at the Enhanced training
+   shape (256 windows x 144 tokens x 192 channels, 6 heads of 32), twice
+   each for bitwise repeatability, with times, launches per step, bounds
+   and ptxas's registers.
+28. Enhanced fused training: Trainer.step of configs/train_edsr_amp.yml's
+   recipe with fused_decoder=True at batch 16, as phase 8 (M 83, A 38, MB
+   83, AB 38, R 1, RB 1 per step, nothing else; two gradients of one batch
+   asserted the same bits), 3 steps at model_dtype float32 (the same
+   counts), and a tiny fused bf16 step on the card against the CPU.
 
 Every training phase also times Trainer.grads, which runs with cuDNN's
 deterministic algorithms, against the same forward and backward under
@@ -261,6 +273,22 @@ ULTRA_FP32_TRAIN_COUNTS = dict({k: 0 for k in TRAIN_COUNTS}, R=1, RB=1,
 # decoder as ULTRA_PER_FORWARD.
 ULTRA_BF16_PER_FORWARD = {"M": 140, "A": 0, "W-long": 0, "W-long-bf16": 84,
                           "A-long": 64}
+# Launches per Enhanced step on the fused decoder (train_edsr_amp.yml's
+# recipe with fused_decoder=True), in either type: M and MB once per MLP
+# chain (38 inject, 38 feature/self FFNs, 7 block tails), A and AB once
+# per attention (2 cross + 36 self), R and RB once; no W, WB or T.
+ENHANCED_FUSED_TRAIN_COUNTS = dict({k: 0 for k in TRAIN_COUNTS}, M=83, A=38,
+                                   MB=83, AB=38, R=1, RB=1)
+# The bf16 forms of MB and AB against their plain versions on the card:
+# each output within relative L2 distance 2^-7 of the plain version's.
+# Both round at the same points but sum their f32 products (and the LN
+# statistics) in another order, so a rounded value may sit one bf16 step
+# (2^-8) apart; an LN output one step apart moves a pre-activation by
+# about 1e-3, which can cross the ReLU's 0 and move a whole entry of dz1,
+# so single entries of dx and dw1 move by many steps (the plain version on
+# the card against the same on the CPU: 9% of an entry), and no
+# elementwise bound holds.
+BWD_BF16_TOL = 2.0 ** -7
 TRAIN_WARMUP = 2
 TRAIN_STEPS = 5
 
@@ -314,14 +342,16 @@ def _compare(out, ref, name):
     return mx
 
 
-def _grad_err(out, ref, per_column: bool = True, floor: float = 0.0):
-    """Largest |out - ref| and whether every entry is inside GRAD_TOL
-    (per column of the last axis, or of the whole tensor) plus `floor`."""
-    r = ref.reshape(-1, ref.shape[-1]) if ref.dim() else ref.reshape(1, 1)
-    o = out.reshape(r.shape)
+def _grad_err(out, ref, per_column: bool = True, floor: float = 0.0,
+              tol: float = GRAD_TOL):
+    """Largest |out - ref| and whether every entry is inside tol (per
+    column of the last axis, or of the whole tensor) plus `floor`."""
+    r = ref.float().reshape(-1, ref.shape[-1]) if ref.dim() else \
+        ref.float().reshape(1, 1)
+    o = out.float().reshape(r.shape)
     scale = r.abs().amax(dim=0) if per_column else r.abs().max()
     err = (o - r).abs()
-    ok = bool((err <= GRAD_TOL * scale + GRAD_TOL * r.abs() + floor).all())
+    ok = bool((err <= tol * scale + tol * r.abs() + floor).all())
     return float(err.max()), ok and bool(torch.isfinite(o).all())
 
 
@@ -335,22 +365,48 @@ def _compare_grad(out, ref, name):
     return mx
 
 
-def _compare_grads(outs, refs, names, label, floor_of=None):
+def _l2_err(out, ref, floor: float = 0.0):
+    """Largest |out - ref|, and ||out - ref|| over max(||ref||, floor)."""
+    d = out.double() - ref.double()
+    return (float(d.abs().max()),
+            float(d.norm()) / max(float(ref.double().norm()), floor, 1e-30))
+
+
+def _compare_grads(outs, refs, names, label, floor_of=None,
+                   tol: float = GRAD_TOL, l2: bool = False):
     """_compare_grad over a kernel's outputs: a matrix per column, a vector
-    over the whole vector. `floor_of` maps an output whose true value is 0
-    (float32 noise on both sides) to the output whose largest entry, times
-    GRAD_TOL, is its floor. Returns the largest |out - ref|."""
+    over the whole vector, each output in its reference's type; with l2,
+    each output's relative L2 distance instead (the bf16 forms). `floor_of`
+    maps an output whose true value is 0 (float32 noise on both sides) to
+    the output whose largest entry (with l2: whose norm, scaled to the
+    output's size), times tol, is its floor. Returns the largest |out -
+    ref|."""
     worst = 0.0
     for o, r, n in zip(outs, refs, names):
         if r is None:
             if o is not None:
                 raise AssertionError(f"{label} {n}: output without reference")
             continue
-        floor = 0.0
-        if floor_of and n in floor_of:
-            floor = GRAD_TOL * float(
-                refs[names.index(floor_of[n])].abs().max())
-        mx, ok = _grad_err(o, r, per_column=r.dim() >= 2, floor=floor)
+        if o is None or o.dtype != r.dtype:
+            raise AssertionError(f"{label} {n}: {o} against a {r.dtype} "
+                                 "reference")
+        f = refs[names.index(floor_of[n])] if floor_of and n in floor_of \
+            else None
+        if l2:
+            floor = (0.0 if f is None else
+                     float(f.double().norm()) * (r.numel() / f.numel()) ** 0.5)
+            mx, rel = _l2_err(o, r, floor)
+            print(f"  {label} {n}: max|d| {mx:.3e}, relative L2 {rel:.3e} "
+                  f"(tol {tol:.3e}; max|ref| {float(r.abs().max()):.3e})",
+                  flush=True)
+            if not rel <= tol or not bool(torch.isfinite(o).all()):
+                raise AssertionError(f"{label} {n}: kernel disagrees with its "
+                                     "plain version")
+            worst = max(worst, mx)
+            continue
+        floor = 0.0 if f is None else tol * float(f.abs().max())
+        mx, ok = _grad_err(o, r, per_column=r.dim() >= 2, floor=floor,
+                           tol=tol)
         print(f"  {label} {n}: max|d| {mx:.3e} (max|ref| "
               f"{float(r.abs().max()):.3e})", flush=True)
         if not ok:
@@ -1260,6 +1316,135 @@ def enhanced_train_kernel_phase(dec, dev):
     return results
 
 
+@torch.no_grad()
+def enhanced_fused_kernel_phase(dec, dev):
+    """MB and AB in the Enhanced fused step's forms against their plain
+    versions at its shapes (16 samples of 48x48: 256 windows of 144
+    tokens, 192 channels, 6 heads of 32), with the recipe decoder's weights
+    and RoPE tables: MB in its ln_inj, ln and zero_base option sets, AB's
+    RoPE cross-attention (pos, kv, Tk = 144) and self-attention (the four
+    table gradients among the outputs), each in bf16 and fp32; each twice
+    for bitwise repeatability, with times, bounds (bf16: bytes against the
+    tensor-core peak) and ptxas's registers. per_step: launches per step of
+    the bf16 recipe on the fused decoder (fp32 rows: its model_dtype
+    float32 step's)."""
+    from gsasr_torch.models.fea2gs_fast import _attn, _ln, _mlp, _seq_mlp
+    from gsasr_torch.models.fea2gs_rope_fast import rope_tables
+    from gsasr_torch.ops import _build
+    from gsasr_torch.ops import fused_layers as fl
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    gen = torch.Generator().manual_seed(19)
+    rnd = lambda *s: torch.randn(*s, generator=gen).to(dev)  # noqa: E731
+    f32, bf16 = torch.float32, torch.bfloat16
+    b = PAPER_BATCH * (PAPER_LR_SIZE // dec.window_size) ** 2
+    t, c, nh, ws = dec.num_gs_seed, dec.channel, dec.num_heads, \
+        dec.window_size
+    m = b * t
+    blk = dec.gs_selfattn_blocks[0]
+    lyr = blk.blocks[0]
+    cl = dec.window_crossattn_blocks[0].blocks[0]
+    scale_emb = dec.scale_mlp(torch.full((1, 1), 0.25, device=dev))
+    inj = lyr.gs_cross_attn_scale(scale_emb).expand(b, c).contiguous()
+    null = "no PyTorch call computes it"
+    regs = {}
+    for src in ("ln_mlp_bwd", "ln_attn_bwd"):
+        regs.update(_ptxas_kernels(_build.ptxas_report(src), ""))
+    results = {"MB": [], "AB": []}
+
+    def row(kind, name, dt, per_step, fn, plain, names, flops, nbytes,
+            floor_of=None):
+        label = f"{kind} {name} {str(dt).replace('torch.', '')}"
+        outs, refs = fn(), plain()
+        err = _compare_grads(outs, refs, names, label, floor_of,
+                             BWD_BF16_TOL if dt == bf16 else GRAD_TOL,
+                             l2=dt == bf16)
+        _repeatable(fn, label)
+        ms = _time_ms(fn, 10)
+        plain_ms = _time_ms(plain, 3)
+        bound, by = _bound_ms(flops, nbytes,
+                              PEAK_BF16 if dt == bf16 else PEAK_FP32)
+        results[kind].append(dict(
+            case=name, dtype=str(dt).replace("torch.", ""),
+            decoder="Enhanced", windows=b, per_step=per_step,
+            max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound,
+            bound_by=by, library_ms=None, library_null_reason=null))
+
+    # -- MB: the inject and FFN chains, the block tails (zero_base) ---------
+    names = ("dx", "dresi", "dinj", "dln_w", "dln_b", "dw1", "db1", "dw2",
+             "db2")
+    for name, kw, per_step in (
+            ("ln_inj", dict(inj=inj, **_ln(lyr.norm4),
+                            **_mlp(lyr.mlp_crossattn)), 38),
+            ("ln", dict(**_ln(lyr.norm2), **_mlp(lyr.mlp_selfattn)), 38),
+            ("zero_base", dict(zero_base=True, **_seq_mlp(blk.mlp)), 7)):
+        for dt in (bf16, f32):
+            x, g = rnd(b, t, c).to(dt), rnd(b, t, c).to(dt)
+            kwd = dict(kw, inj=inj.to(dt)) if "inj" in kw else kw
+            act = 2 if dt == bf16 else 4
+            hid = kw["w1"].shape[0]
+            # five products: the recomputed fc1, dw2, dz1, dw1 and dh;
+            # bytes: x, g, dx (inj, dinj), the weights and their gradients,
+            # the vectors
+            nbytes = (act * (3 * m * c + (2 * b * c if "inj" in kw else 0))
+                      + 4 * (4 * c * hid + 2 * hid + 2 * c
+                             + (4 * c if "ln_w" in kw else 0)))
+            row("MB", name, dt, per_step if dt == bf16 else 0,
+                lambda: fl.ln_mlp_residual_bwd(x, g, **kwd),
+                lambda: fl.ln_mlp_residual_bwd_plain(x, g, **kwd), names,
+                10.0 * m * c * hid, nbytes)
+
+    # -- AB: RoPE cross-attention (pos, kv) and self-attention ---------------
+    nsq = math.isqrt(t)
+    cc, sc = rope_tables(cl.window_cross_attn.rope_freqs, max(nsq, ws),
+                         max(t, ws * ws))
+    cs, ss = rope_tables(lyr.gs_self_attn.rope_freqs, nsq, t)
+    names = ("dx", "dpos", "dkv", "dln_w", "dln_b", "dwq", "dbq", "dwk",
+             "dbk", "dwv", "dbv", "dwo", "dbo", "dbias", "dcos_q", "dsin_q",
+             "dcos_k", "dsin_k")
+    for name, kw, per_step in (
+            ("rope_cross", dict(pos=dec.pos_embedding, kv=rnd(b, ws * ws, c),
+                                rope_cos_q=cc[:t], rope_sin_q=sc[:t],
+                                rope_cos_k=cc[:ws * ws],
+                                rope_sin_k=sc[:ws * ws],
+                                **_attn(cl.window_cross_attn),
+                                **_ln(cl.norm3)), 2),
+            ("rope_self", dict(rope_cos_q=cs, rope_sin_q=ss, rope_cos_k=cs,
+                               rope_sin_k=ss, **_attn(lyr.gs_self_attn),
+                               **_ln(lyr.norm1)), 36)):
+        for dt in (bf16, f32):
+            x, g = rnd(b, t, c).to(dt), rnd(b, t, c).to(dt)
+            kwd = dict(kw, num_heads=nh)
+            if "kv" in kw:
+                kwd.update(pos=kw["pos"].to(dt), kv=kw["kv"].to(dt))
+            act = 2 if dt == bf16 else 4
+            tk = ws * ws if "kv" in kw else t
+            # eleven products of 2 T C^2 and six of 2 T^2 C per window (as
+            # the paper form); bytes: x, g, dx (kv, dkv, pos, dpos) in the
+            # activation type, the four tables and their gradients, the
+            # weights and their gradients, the vectors
+            flops = 2.0 * b * (11 * t * c * c + 6 * t * tk * c)
+            nbytes = (act * (3 * m * c + (2 * b * tk * c + 2 * t * c
+                                          if "kv" in kw else 0))
+                      + 4 * (4 * (t + tk) * c + 8 * c * c + 11 * c))
+            row("AB", name, dt, per_step if dt == bf16 else 0,
+                lambda: fl.ln_attn_proj_bwd(x, g, **kwd),
+                lambda: fl.ln_attn_proj_bwd_plain(x, g, **kwd), names, flops,
+                nbytes, floor_of={"dbk": "dwk"})
+    for k, rows in results.items():
+        for r in rows:
+            print(f"  {k} {r['case']} {r['dtype']}: {r['ms']:.4f} ms (plain "
+                  f"{r['plain_ms']:.4f}, bound {r['bound_ms']:.4f} by "
+                  f"{r['bound_by']}, library null) x{r['per_step']} per "
+                  f"Enhanced fused step", flush=True)
+    for name, (r_, st, ld) in sorted(regs.items()):
+        print(f"  ptxas {name}: {r_} registers, {st}/{ld} bytes spilled",
+              flush=True)
+    results["registers"] = regs
+    return results
+
+
 def enhanced_networks(encoder: str = "edsr", dtype=torch.bfloat16):
     """The bf16 recipe's networks as gsasr_torch.config.build_networks
     builds them from configs/train_<encoder>_amp.yml, or for "hat" from
@@ -1310,11 +1495,14 @@ def _determinism_cost(tr, batch, turns: int = 3):
 
 
 def _train_run(dev, kernels, b: int, fused: bool, encoder: str,
-               enhanced: bool = False, ultra=None):
+               enhanced=None, ultra=None):
     """`ultra` (a dtype): configs/train_hatl_ultra.yml's networks and
     recipe, bf16 (the recipe's; its repeatability asserted, its costly
     reports run once) or float32 (model_dtype float32: 1 warm-up and 2
-    timed steps, no reports)."""
+    timed steps, no reports). `enhanced` (a dtype): configs/
+    train_edsr_amp.yml's networks and recipe, bf16 (the recipe's; on the
+    fused decoder its repeatability asserted) or float32 (model_dtype
+    float32: 1 warm-up and 2 timed steps, no reports)."""
     from gsasr_torch.model import make_models
     from gsasr_torch.train import TrainConfig, Trainer
 
@@ -1324,9 +1512,11 @@ def _train_run(dev, kernels, b: int, fused: bool, encoder: str,
         cfg = ULTRA_TRAIN
         if ultra == torch.float32:
             warmup, steps = 1, 2
-    elif enhanced:
-        enc, dec = enhanced_networks(encoder)
+    elif enhanced is not None:
+        enc, dec = enhanced_networks(encoder, enhanced)
         cfg = ENHANCED_TRAIN
+        if enhanced == torch.float32:
+            warmup, steps = 1, 2
     else:
         enc, dec = make_models(encoder, "paper",
                                generator=torch.Generator().manual_seed(0))
@@ -1334,17 +1524,20 @@ def _train_run(dev, kernels, b: int, fused: bool, encoder: str,
     tr = Trainer(enc, dec, TrainConfig(**dict(cfg, fused_decoder=fused)))
     want = (ULTRA_TRAIN_COUNTS if ultra == torch.bfloat16 else
             ULTRA_FP32_TRAIN_COUNTS if ultra == torch.float32 else
+            ENHANCED_FUSED_TRAIN_COUNTS if enhanced and fused else
             ENHANCED_TRAIN_COUNTS if enhanced else
             FUSED_TRAIN_COUNTS if fused else
             SWINIR_TRAIN_COUNTS if encoder == "swinir" else TRAIN_COUNTS)
-    label = (f"HAT-L Ultra {str(ultra).replace('torch.', '')}" if ultra
-             else ("Enhanced bf16 " if enhanced else "") + (
+    dtn = lambda d: str(d).replace("torch.", "").replace(  # noqa: E731
+        "bfloat16", "bf16")
+    label = (f"HAT-L Ultra {dtn(ultra)}" if ultra
+             else (f"Enhanced {dtn(enhanced)} " if enhanced else "") + (
                  "fused" if fused else "module") + (
                  "" if encoder == "edsr" else f" {encoder}"))
     start = [p.detach().clone() for p in tr.params_g + tr.params_d]
     start_ema = [p.detach().clone() for p in
                  list(tr.ema_g.parameters()) + list(tr.ema_d.parameters())]
-    batches = [paper_batch(b, seed=10 + i, ceil=enhanced,
+    batches = [paper_batch(b, seed=10 + i, ceil=enhanced is not None,
                            ultra=ultra is not None)
                for i in range(warmup + steps)]
     steps, grads_ms, apply_ms, losses, counts = [], [], [], [], []
@@ -1385,9 +1578,10 @@ def _train_run(dev, kernels, b: int, fused: bool, encoder: str,
         raise AssertionError(f"parameters moved {moved}, EMA moved "
                              f"{ema_moved}")
     repeat = det = None
-    if ultra != torch.float32:
+    if torch.float32 not in (ultra, enhanced):
         repeat = _repeat_report(tr, batches[-1], label)
-        if ultra is not None and not repeat["same_bits"]:
+        if ((ultra is not None or (enhanced and fused))
+                and not repeat["same_bits"]):
             raise AssertionError(f"{label}: two gradients of one batch "
                                  "differ")
         det = _determinism_cost(tr, batches[-1],
@@ -1436,11 +1630,12 @@ def _repeat_report(tr, batch, label):
 
 
 def train_phase(dev, kernels, fused: bool, encoder: str = "edsr",
-                enhanced: bool = False, ultra=None):
+                enhanced=None, ultra=None):
     """Full-width training steps of `encoder` at the paper recipe on the
-    module or the fused decoder, at the Enhanced bf16 recipe (`enhanced`),
-    or of HAT-L Ultra at train_hatl_ultra.yml's recipe in `ultra`'s type;
-    halves the batch only if it does not fit the card, and says so."""
+    module or the fused decoder, at the Enhanced recipe (`enhanced`: the
+    networks' type, bfloat16 for the recipe's), or of HAT-L Ultra at
+    train_hatl_ultra.yml's recipe in `ultra`'s type; halves the batch only
+    if it does not fit the card, and says so."""
     torch.backends.cuda.matmul.allow_tf32 = False  # PyTorch default
     torch.backends.cudnn.allow_tf32 = True         # PyTorch default
     b = PAPER_BATCH if ultra is None else ULTRA_BATCH
@@ -1520,13 +1715,14 @@ def train_card_vs_cpu(dev, fused: bool, encoder: str = "edsr"):
                 loss_rel=rel, grad_max_abs_err=worst, tensors=len(names))
 
 
-def enhanced_train_card_vs_cpu(dev):
+def enhanced_train_card_vs_cpu(dev, fused: bool = False):
     """One tiny step of the bf16 recipe (tests/test_trainer.py's bf16
     networks: EDSR 16 x 1, Fea2GSRopeAMP 24 channels, one layer per block;
-    batch 2) from the same weights on the card and on the CPU: loss within
-    2^-8 relative, each network's gradient within relative L2 2^-8 times its
-    bf16 depth (two libraries round the same bf16 values, summed in
-    another order, one step apart now and then)."""
+    batch 2) on the module or the fused decoder, from the same weights on
+    the card and on the CPU: loss within 2^-8 relative, each network's
+    gradient within relative L2 2^-8 times its bf16 depth (two libraries
+    round the same bf16 values, summed in another order, one step apart
+    now and then; the fused path is no deeper than the module path)."""
     from gsasr_torch.models import EDSRNOUP, Fea2GSRopeAMP
     from gsasr_torch.models.init import init_weights
     from gsasr_torch.train import TrainConfig, Trainer
@@ -1543,7 +1739,7 @@ def enhanced_train_card_vs_cpu(dev):
                                      num_selfattn_layers=1, num_gs_seed=16,
                                      window_size=4, dtype=bf16), gen)
     cfg = TrainConfig(canvas_hw=(32, 32), warmup_iter=-1, milestones=(100,),
-                      clip_grad_norm=None)
+                      clip_grad_norm=None, fused_decoder=fused)
     rng = np.random.default_rng(18)
     scales = (2.0 + 2.0 * rng.random(2)).astype(np.float32)
     gt = np.ceil(scales * 8).astype(np.int32)
@@ -1563,13 +1759,15 @@ def enhanced_train_card_vs_cpu(dev):
         dist.append((math.sqrt(num / den), 2.0 ** -8 * depth))
     card.apply(*out_card)
     cpu.apply(*out_cpu)
-    print(f"  tiny Enhanced bf16 training step card vs CPU: loss "
+    print(f"  tiny Enhanced bf16 {'fused' if fused else 'module'} training "
+          f"step card vs CPU: loss "
           f"{l_card:.7f} vs {l_cpu:.7f} (rel {rel:.2e}, tol {2.0 ** -8:.2e});"
           f" gradient rel L2 encoder {dist[0][0]:.2e} (tol {dist[0][1]:.2e}),"
           f" decoder {dist[1][0]:.2e} (tol {dist[1][1]:.2e})", flush=True)
     if not rel <= 2.0 ** -8 or any(not d <= t for d, t in dist):
         raise AssertionError("Enhanced bf16 step: card and CPU disagree")
-    return dict(loss_card=l_card, loss_cpu=l_cpu, loss_rel=rel,
+    return dict(fused_decoder=fused, loss_card=l_card, loss_cpu=l_cpu,
+                loss_rel=rel,
                 grad_rel_l2_enc=dist[0][0], grad_rel_l2_dec=dist[1][0])
 
 
@@ -2117,7 +2315,7 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     print("Enhanced training phase", flush=True)
-    etrain = train_phase(dev, kernels, fused=False, enhanced=True)
+    etrain = train_phase(dev, kernels, fused=False, enhanced=torch.bfloat16)
     print("Enhanced training card vs CPU", flush=True)
     etcvc = enhanced_train_card_vs_cpu(dev)
     gc.collect()
@@ -2197,7 +2395,30 @@ def main() -> int:
     ube2e = e2e_phase(enc_ub, dec_ub, dev, label="HAT-L Ultra bf16",
                       denominator=ULTRA_DENOMINATOR)
     del enc_ub, dec_ub
-    for r in (train, ftrain, strain, etrain, utrain):
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    enc_ef, dec_ef = enhanced_networks("edsr")
+    print("Enhanced fused training kernel phase", flush=True)
+    efres = enhanced_fused_kernel_phase(dec_ef.to(dev).eval(), dev)
+    del enc_ef, dec_ef
+    gc.collect()
+    torch.cuda.empty_cache()
+    print("Enhanced fused training phase", flush=True)
+    eftrain = train_phase(dev, kernels, fused=True, enhanced=torch.bfloat16)
+    print(f"  Enhanced fused vs module step median, batch "
+          f"{eftrain['batch']}: {eftrain['step_ms_median']:.1f} vs "
+          f"{etrain['step_ms_median']:.1f} ms; peak "
+          f"{eftrain['peak_mem_bytes'] / 2**30:.2f} vs "
+          f"{etrain['peak_mem_bytes'] / 2**30:.2f} GiB", flush=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    eftrain32 = train_phase(dev, kernels, fused=True, enhanced=torch.float32)
+    gc.collect()
+    torch.cuda.empty_cache()
+    print("Enhanced fused training card vs CPU", flush=True)
+    eftcvc = enhanced_train_card_vs_cpu(dev, fused=True)
+    for r in (train, ftrain, strain, etrain, utrain, eftrain):
         same = "the same" if r["repeat"]["same_bits"] else "NOT the same"
         print(f"  {r['decoder']} step: repeatability {same} bits; cost of "
               f"cuDNN determinism {r['determinism']['cost_ms']:+.1f} ms on "
@@ -2208,12 +2429,17 @@ def main() -> int:
     fstep, einfer = ftrain["launches"], eruns[0]["launches"]
     estep, uinfer = etrain["launches"], uruns[0]["launches"]
     ustep, ustep32 = utrain["launches"], utrain32["launches"]
+    efstep = eftrain["launches"]
     enhanced = "sr_forward (Enhanced, bf16 trunk)"
     for k in ("M", "A"):
         for r in kres[k]:
             r.update(dtype="float32", decoder="paper")
         for r in ekres[k]:
             r["decoder"] = "Enhanced"
+    for k in ("MB", "AB"):
+        for r in kres[k]:
+            r.update(dtype="float32", decoder="paper")
+    efpath = "Trainer.step (Enhanced, fused_decoder=True, bf16 recipe)"
     # Each kernel: (name, source, replaces, also replaces, launch counts,
     # path, the rows timed on that path, the rows of its other forms and
     # shapes or None). A row's per_image / per_step is its launches on the
@@ -2242,11 +2468,11 @@ def main() -> int:
                 "gsasr_tpu/ops/rasterizer.py:308"], step, "Trainer.step",
                kres["RB"], kres["RB"] + utres["RB"]),
         "MB": ("ln_mlp_bwd", "gsasr_torch/ops/csrc/ln_mlp_bwd.cu",
-               "gsasr_tpu/ops/fused_layers.py:146", [], fstep,
-               "Trainer.step(fused_decoder=True)", kres["MB"], None),
+               "gsasr_tpu/ops/fused_layers.py:146", [], efstep, efpath,
+               _on_path(efres["MB"], "per_step"), kres["MB"] + efres["MB"]),
         "AB": ("ln_attn_bwd", "gsasr_torch/ops/csrc/ln_attn_bwd.cu",
-               "gsasr_tpu/ops/fused_layers.py:381", [], fstep,
-               "Trainer.step(fused_decoder=True)", kres["AB"], None),
+               "gsasr_tpu/ops/fused_layers.py:381", [], efstep, efpath,
+               _on_path(efres["AB"], "per_step"), kres["AB"] + efres["AB"]),
         "T": ("bias_table_bwd", "gsasr_torch/ops/csrc/bias_table_bwd.cu",
               "no Pallas kernel: the gradient of the bias-table gather "
               "(gsasr_tpu/models/fea2gs.py:142,173) is XLA's", [], step,
@@ -2329,6 +2555,9 @@ def main() -> int:
                                             train_fp32=utrain32,
                                             card_vs_cpu=utcvc),
                            ultra_bf16=dict(paths=ubruns, e2e=ube2e),
+                           enhanced_fused_train=dict(
+                               kernels=efres, train=eftrain,
+                               train_fp32=eftrain32, card_vs_cpu=eftcvc),
                            total_s=time.perf_counter() - t_start), f, indent=1)
     print(f"total {time.perf_counter() - t_start:.1f} s", flush=True)
     print(f"card: {card}", flush=True)

@@ -1,12 +1,13 @@
 """Fused path of the Enhanced `Fea2GSRopeAMP` decoder (counterpart of
-`gsasr_tpu/models/fea2gs_rope_fast.py`), for inference.
+`gsasr_tpu/models/fea2gs_rope_fast.py`), for inference and training.
 
 Every [scale-inject -> FFN], [pre-norm RoPE attention -> proj] and
 block-tail MLP is one call of `ln_mlp_residual` or `ln_attn_proj` (kernels
-M and A on the card), with the RoPE rotations inside A in f32 on
-pair-duplicated cos/sin tables built per layer from the learnable
-frequencies. The 3x3 lattice convolutions (block tails and conv_final), the
-scale MLP, UPNet and the heads are PyTorch ops.
+M and A on the card forward, MB and AB backward), with the RoPE rotations
+inside A in f32 on pair-duplicated cos/sin tables built per layer from the
+learnable frequencies under autograd: AB's table gradients reach
+`rope_freqs` through them. The 3x3 lattice convolutions (block tails and
+conv_final), the scale MLP, UPNet and the heads are PyTorch ops.
 
 dtype=torch.bfloat16 runs the trunk in bf16 and UPNet and the heads in
 fp32, the reference's AMP semantics for this family, whatever compute type
@@ -48,7 +49,7 @@ def _dense(lin, x):
 def rope_tables(freqs, end: int, n: int):
     """Learnable frequencies (2, nh, hd/2) -> pair-duplicated (n, C) cos and
     sin tables of the first n tokens of the end x end lattice, on the
-    frequencies' device."""
+    frequencies' device, differentiable in the frequencies."""
     ph = rope_phases(freqs, *rope_t_xy(end, end, freqs.device))[:, :n]
 
     def expand(t):
@@ -105,7 +106,8 @@ def fea2gs_rope_apply_fused(m, srcs, scale, dtype=None):
                 f = torch.roll(f, (-shift, -shift), dims=(1, 2))
             attn = lyr.window_cross_attn
             # q takes the first t rows, k the first ws^2: the table has
-            # max(t, ws^2) rows (the JAX fast path cuts it to t)
+            # max(t, ws^2) rows (the JAX fast path cuts it to t); autograd
+            # sums the two slices' gradients into the one table
             cos, sin = rope_tables(attn.rope_freqs, end_cross,
                                    max(t, ws * ws))
             a = ln_attn_proj(x, pos=query_pos, kv=window_partition(f, ws),

@@ -5,8 +5,8 @@ with a plain C interface (nvcc, sm_90a), written to
 `build/gsasr_torch_kernels/` at the root of the checkout and keyed by a hash
 of the sources and flags, then loaded with ctypes. Each library exports an
 entry point of the same name and, where `SOURCES` says so, others (the
-masked and bfloat16 forms of W and WB, and the window-16 forms of W, WB
-and A, live in the same sources). Each
+masked and bfloat16 forms of W and WB, the window-16 forms of W, WB and
+A, and the bfloat16 forms of MB and AB live in the same sources). Each
 entry point's C signature is declared in `SIGNATURES`: it takes its
 pointers and the CUDA stream as `void*` and returns `cudaGetLastError()`
 after its launches; `launch` raises when that is not 0.
@@ -48,7 +48,9 @@ SIGNATURES = {
     "ln_attn_long": "p" * 23 + "iiiiii" + "f",
     "raster_bwd": "ppppppiiii",
     "ln_mlp_bwd": "p" * 16 + "iiiiii",
-    "ln_attn_bwd": "p" * 28 + "iiiiiif",
+    "ln_mlp_bwd_bf16": "p" * 16 + "iiiiii",
+    "ln_attn_bwd": "p" * 36 + "iiiiii" + "f",
+    "ln_attn_bwd_bf16": "p" * 36 + "iiiiii" + "f",
     "bias_table_bwd": "pppiiii",
 }
 # Entry points compiled from another entry point's source.
@@ -60,7 +62,9 @@ SOURCES = {"window_attn_fwd_masked": "window_attn_fwd",
            "window_attn_fwd_long_bf16": "window_attn_fwd",
            "window_attn_bwd_long": "window_attn_bwd",
            "window_attn_bwd_long_bf16": "window_attn_bwd",
-           "ln_attn_long": "ln_attn"}
+           "ln_attn_long": "ln_attn",
+           "ln_mlp_bwd_bf16": "ln_mlp_bwd",
+           "ln_attn_bwd_bf16": "ln_attn_bwd"}
 _CTYPES = {"p": ctypes.c_void_p, "i": ctypes.c_int, "f": ctypes.c_float}
 
 _libs: dict = {}
@@ -174,8 +178,8 @@ def launch(name: str, *args) -> None:
 
 def check_tensor(t: torch.Tensor, name: str, dtype=torch.float32) -> None:
     """Raise on what the kernels do not take: another dtype than `dtype`
-    (float32, or bfloat16 for the activations of kernels M and A and the
-    operands of W-bf16 and WB-bf16), a
+    (float32, or bfloat16 for the activations of kernels M, A, MB and AB
+    and the operands of W-bf16 and WB-bf16), a
     tensor that autograd would need a gradient for (a kernel differentiates
     only inside its autograd Function, where grad mode is off), or one off
     the card."""

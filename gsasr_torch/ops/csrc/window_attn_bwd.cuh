@@ -23,7 +23,11 @@
 // are staged; p is recomputed in f32 and not rounded, dp, ds and the
 // products run in f32 from the bf16 operands (the Pallas body's f32 dots),
 // ds_w stays f32, and dq, dk and dv are rounded to bfloat16 once, as they
-// are stored. dbias stays f32.
+// are stored. dbias stays f32. With kRnd (the bfloat16 form of AB, whose
+// operands are float tiles holding bf16 values) the body rounds where
+// _k_ln_attn_bwd rounds: p in the tile (for att and dv), ds as an operand
+// of dq and dk (ds_w and dbias keep it unrounded) and att as it is stored;
+// dq, dk and dv stay f32.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -34,6 +38,7 @@ namespace {
 
 using gsasr::from_f32;
 using gsasr::HeadLayout;
+using gsasr::rnd;
 using gsasr::kKeysPer;
 using gsasr::kMaxHd;
 using gsasr::kMaxT;
@@ -66,8 +71,9 @@ struct Layout : HeadLayout {
 // out[(row0 + o) * C + n0 + d] = mul * sum_i A(i, o) * X[i * ldx + d] for
 // o < n_out, d < hd, summing i < n_sum in ascending order, where A(i, o) is
 // A[i * lda + o] (A^T X, the column product) or, with kRows, A[o * lda + i]
-// (A X, the row product); stored rounded to TO.
-template <bool kRows, typename TO>
+// (A X, the row product); rounded to bf16 with kRndOut, then stored rounded
+// to TO.
+template <bool kRows, typename TO, bool kRndOut = false>
 __device__ void head_product(const float* A, int lda, const float* X, int ldx,
                              int n_sum, int n_out, int hd, float mul,
                              TO* __restrict__ out, size_t row0, int C,
@@ -102,12 +108,16 @@ __device__ void head_product(const float* A, int lda, const float* X, int ldx,
 #pragma unroll
     for (int b = 0; b < kColsPer; ++b) {
       const int d = cg + kColGroups * b;
-      if (d < hd) out[(row0 + o) * C + n0 + d] = from_f32<TO>(acc[a][b] * mul);
+      if (d < hd) {
+        const float v = acc[a][b] * mul;
+        out[(row0 + o) * C + n0 + d] =
+            from_f32<TO>(kRndOut ? rnd<__nv_bfloat16>(v) : v);
+      }
     }
   }
 }
 
-template <bool kAtt, bool kMask, typename T>
+template <bool kAtt, bool kMask, typename T, bool kRnd = false>
 __global__ void __launch_bounds__(kThreads)
 window_attn_bwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
                        const T* __restrict__ v,
@@ -192,9 +202,9 @@ window_attn_bwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
         const int j = lane + 32 * m;
         if (j < Tk) {
           const float dsv = s[r][m] * (dp[r][m] - rs);
-          drow[r * Tk + j] = dsv;
+          drow[r * Tk + j] = kRnd ? rnd<__nv_bfloat16>(dsv) : dsv;
           if (live) {
-            ps[i * L.ldp + j] = s[r][m];
+            ps[i * L.ldp + j] = kRnd ? rnd<__nv_bfloat16>(s[r][m]) : s[r][m];
             dsb[static_cast<size_t>(i) * Tk + j] = dsv;
           }
         }
@@ -220,15 +230,15 @@ window_attn_bwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
   // att = p v from the p tile (kernel AB's forward recompute).
   if constexpr (kAtt)
-    head_product<true>(ps, L.ldp, vs, L.ld, Tk, Tq, hd, 1.0f, att, qrow0, C,
-                       n0);
+    head_product<true, float, kRnd>(ps, L.ldp, vs, L.ld, Tk, Tq, hd, 1.0f,
+                                    att, qrow0, C, n0);
   // Pass 2: dv = p^T g from the p tile.
   head_product<false>(ps, L.ldp, gs, L.ld, Tq, Tk, hd, 1.0f, dv, krow0, C, n0);
   __syncthreads();
   // ds of this (window, head), written above by this block, over the tile.
   for (int e = threadIdx.x; e < Tq * Tk; e += kThreads) {
     const int i = e / Tk;
-    ps[i * L.ldp + (e - i * Tk)] = dsb[e];
+    ps[i * L.ldp + (e - i * Tk)] = kRnd ? rnd<__nv_bfloat16>(dsb[e]) : dsb[e];
   }
   __syncthreads();
   head_product<false>(ps, L.ldp, qs, L.ld, Tq, Tk, hd, scale, dk, krow0, C,
@@ -248,9 +258,11 @@ dbias_sum_kernel(const float* __restrict__ ds_w, float* __restrict__ dbias,
 
 // The launches of kernel WB (with kAtt, also att (B, Tq, C); with kMask,
 // kernel WMB: mask (nW, Tq, Tk), B a multiple of nW; with T bfloat16,
-// WB-bf16). Arguments as window_attn_bwd, window_attn_bwd_masked and
-// window_attn_bwd_bf16 in window_attn_bwd.cu.
-template <bool kAtt, bool kMask = false, typename T = float>
+// WB-bf16; with kRnd, AB's bfloat16 rounding). Arguments as
+// window_attn_bwd, window_attn_bwd_masked and window_attn_bwd_bf16 in
+// window_attn_bwd.cu.
+template <bool kAtt, bool kMask = false, typename T = float,
+          bool kRnd = false>
 cudaError_t launch_window_attn_bwd(const T* q, const T* k, const T* v,
                                    const float* bias, const T* g, T* dq,
                                    T* dk, T* dv, float* ds_w, float* dbias,
@@ -263,10 +275,11 @@ cudaError_t launch_window_attn_bwd(const T* q, const T* k, const T* v,
   const Layout L(Tq, Tk, C / nh);
   const size_t smem = L.bytes(Tk);
   cudaError_t err = cudaFuncSetAttribute(
-      window_attn_bwd_kernel<kAtt, kMask, T>,
+      window_attn_bwd_kernel<kAtt, kMask, T, kRnd>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
   if (err != cudaSuccess) return err;
-  window_attn_bwd_kernel<kAtt, kMask, T><<<dim3(nh, B), kThreads, smem, st>>>(
+  window_attn_bwd_kernel<kAtt, kMask, T, kRnd>
+      <<<dim3(nh, B), kThreads, smem, st>>>(
       q, k, v, bias, g, dq, dk, dv, ds_w, att, Tq, Tk, C, nh, scale, mask, nW);
   err = cudaGetLastError();
   if (err != cudaSuccess || !dbias) return err;

@@ -18,13 +18,15 @@ RoPE) and v, the probabilities, the attention output and the result. Every
 product takes rounded operands and sums in f32; LN statistics, the softmax
 and RoPE are f32; eps is 1e-5.
 
-The float32 forms without RoPE or zero_base are differentiable in every
-tensor argument: an autograd Function saves only the inputs, and the
-backward kernel recomputes the forward, as the JAX package's custom VJPs
-do. The backward of the bfloat16, RoPE and zero_base forms is not ported
-and raises. Weights are in nn.Linear layout, (out, in). CPU tensors take
-the plain PyTorch version beside each wrapper; CUDA tensors launch the
-kernel.
+Every form is differentiable in every tensor argument, the RoPE tables
+included: an autograd Function saves only the inputs, and the backward
+kernel recomputes the forward, as the JAX package's custom VJPs do. The
+backward rounds where the Pallas backward bodies round; weight, bias, LN,
+bias-table and RoPE-table gradients come back in float32, dx, dinj, dpos
+and dkv in the activation type. The backward of windows of more than 160
+tokens (A-long's) is not ported and raises. Weights are in nn.Linear
+layout, (out, in). CPU tensors take the plain PyTorch version beside each
+wrapper; CUDA tensors launch the kernel.
 """
 
 from __future__ import annotations
@@ -32,8 +34,7 @@ from __future__ import annotations
 import torch
 
 from gsasr_torch.ops import _build
-from gsasr_torch.ops.attention import (_heads, _merge, _probs,
-                                       window_attention_packed_bwd_plain)
+from gsasr_torch.ops.attention import _heads, _merge
 
 _EPS = 1e-5
 # Kernel A's limits: kMaxT and kMaxHd of csrc/ln_attn.cu (longer windows
@@ -44,6 +45,9 @@ _A_MAX_HD = 32
 _A_MAX_C = 192
 # kMaxGroups of csrc/fused_bwd.cuh: the weight-gradient row groups
 _MAX_GROUPS = 128
+# kRopeGroups of csrc/ln_attn_bwd.cu: the RoPE-table gradient's groups of
+# windows
+_ROPE_GROUPS = 32
 # row tile of csrc/tile_gemm.cuh (kBM)
 _ROW_TILE = 64
 
@@ -116,31 +120,42 @@ def ln_mlp_residual_plain(x, *, w1, b1, w2, b2, ln_w=None, ln_b=None,
 
 
 def ln_mlp_residual_bwd_plain(x, g, *, w1, b1, w2, b2, ln_w=None,
-                              ln_b=None, inj=None, resi=None):
+                              ln_b=None, inj=None, resi=None,
+                              zero_base: bool = False):
     """Plain PyTorch version of kernel MB: the VJP of ln_mlp_residual at
     cotangent g, forward recomputed. Returns what `_ln_mlp_core_bwd`
     returns, (dx, dresi, dinj, dln_w, dln_b, dw1, db1, dw2, db2), with None
-    for an option not given."""
-    t = x + inj[:, None, :] if inj is not None else x
+    for an option not given. In bfloat16 it rounds where `_k_ln_mlp_bwd`
+    rounds: h, the ReLU output, g and dz1 as product operands, the weights
+    as they are used, and dx and dinj as they are stored; the bias sums
+    take the unrounded g and dz1."""
+    dt = x.dtype
+    t = x.float()
+    if inj is not None:
+        t = t + inj.float()[:, None, :]
     if ln_w is not None:
         y, inv = _ln_stats(t)
         h = y * ln_w + ln_b
     else:
         h = t
-    z1p = h @ w1.t() + b1
-    z1 = torch.relu(z1p)
-    dw2, db2 = _wgrad(g, z1), g.flatten(0, -2).sum(0)
-    dz1 = (g @ w2) * (z1p > 0)
-    dw1, db1 = _wgrad(dz1, h), dz1.flatten(0, -2).sum(0)
-    dt = dz1 @ w1
+    h = _rnd(h, dt)
+    w1r, w2r = _rnd(w1, dt), _rnd(w2, dt)
+    z1p = h @ w1r.t() + b1
+    z1 = _rnd(torch.relu(z1p), dt)
+    gf = g.float()
+    dw2, db2 = _wgrad(gf, z1), gf.flatten(0, -2).sum(0)
+    dz1 = (gf @ w2r) * (z1p > 0)
+    dz1d = _rnd(dz1, dt)
+    dw1, db1 = _wgrad(dz1d, h), dz1.flatten(0, -2).sum(0)
+    dh = dz1d @ w1r
     dlnw = dlnb = None
     if ln_w is not None:
-        dt, dlnw, dlnb = _ln_bwd(dt, y, inv, ln_w)
-    if resi is None:
-        dt = dt + g
-    return (dt, g if resi is not None else None,
-            dt.sum(dim=1) if inj is not None else None, dlnw, dlnb, dw1, db1,
-            dw2, db2)
+        dh, dlnw, dlnb = _ln_bwd(dh, y, inv, ln_w)
+    if resi is None and not zero_base:
+        dh = dh + gf
+    return (dh.to(dt), g if resi is not None and not zero_base else None,
+            dh.sum(dim=1).to(dt) if inj is not None else None, dlnw, dlnb,
+            dw1, db1, dw2, db2)
 
 
 def _check_mlp(x, w1, w2, ln_w, ln_b, inj, resi):
@@ -195,38 +210,42 @@ def _ln_mlp_fwd(x, *, w1, b1, w2, b2, ln_w, ln_b, inj, resi, zero_base):
 
 
 def ln_mlp_residual_bwd(x, g, *, w1, b1, w2, b2, ln_w=None, ln_b=None,
-                        inj=None, resi=None):
+                        inj=None, resi=None, zero_base: bool = False):
     """Kernel MB on CUDA tensors, its plain version on CPU tensors: the VJP
-    of ln_mlp_residual at cotangent g (B, T, C), returned as
+    of ln_mlp_residual at cotangent g (B, T, C, x's type), returned as
     `ln_mlp_residual_bwd_plain` returns it."""
     kw = dict(w1=w1, b1=b1, w2=w2, b2=b2, ln_w=ln_w, ln_b=ln_b, inj=inj,
               resi=resi)
     if x.device.type == "cpu":
-        return ln_mlp_residual_bwd_plain(x, g, **kw)
+        return ln_mlp_residual_bwd_plain(x, g, zero_base=zero_base, **kw)
     _check_mlp(x, w1, w2, ln_w, ln_b, inj, resi)
     if g.shape != x.shape:
         raise ValueError(f"g {tuple(g.shape)} must match x {tuple(x.shape)}")
-    _backward_f32(x)
-    a = _contig(x=x, g=g, w1=w1, b1=b1, w2=w2, ln_w=ln_w, ln_b=ln_b, inj=inj)
+    bf16 = x.dtype == torch.bfloat16
+    a = _contig(act=("g",), x=x, g=g, w1=w1, b1=b1, w2=w2, ln_w=ln_w,
+                ln_b=ln_b, inj=inj.float() if inj is not None else None)
     b, t, c = x.shape
     hid = w1.shape[0]
     m = b * t
     f32 = dict(dtype=torch.float32, device=x.device)
-    dx = torch.empty((b, t, c), **f32)
-    dinj = torch.empty((b, c), **f32) if inj is not None else None
+    dx = torch.empty_like(a["x"])
+    dinj = (torch.empty((b, c), dtype=x.dtype, device=x.device)
+            if inj is not None else None)
     dln = torch.empty((2, c), **f32) if ln_w is not None else None
     dw1, db1 = torch.empty((hid, c), **f32), torch.empty(hid, **f32)
     dw2, db2 = torch.empty((c, hid), **f32), torch.empty(c, **f32)
-    # h, z1, dz1, dh; the weight-gradient partials; the LN partials
+    # h, z1, dz1, dh; the weight-gradient partials; the LN partials; in
+    # bfloat16 also x and g widened, dx and dinj in f32
     floats = (2 * m * (c + hid)
               + _MAX_GROUPS * max(hid * (c + 1), c * (hid + 1))
-              + -(-m // _ROW_TILE) * 2 * c)
+              + -(-m // _ROW_TILE) * 2 * c + (3 * m * c + b * c) * bf16)
     work = _work(floats, x)
-    _build.launch("ln_mlp_bwd", a["x"], a["inj"], a["ln_w"], a["ln_b"],
-                  a["w1"], a["b1"], a["w2"], a["g"], dx, dinj, dln, dw1, db1,
-                  dw2, db2, work, floats, m, t, c, hid, int(resi is None))
+    _build.launch("ln_mlp_bwd_bf16" if bf16 else "ln_mlp_bwd", a["x"],
+                  a["inj"], a["ln_w"], a["ln_b"], a["w1"], a["b1"], a["w2"],
+                  a["g"], dx, dinj, dln, dw1, db1, dw2, db2, work, floats, m,
+                  t, c, hid, int(resi is None and not zero_base))
     ln_mlp_residual_bwd.launches += 1
-    return (dx, g if resi is not None else None, dinj,
+    return (dx, g if resi is not None and not zero_base else None, dinj,
             dln[0] if dln is not None else None,
             dln[1] if dln is not None else None, dw1, db1, dw2, db2)
 
@@ -234,16 +253,9 @@ def ln_mlp_residual_bwd(x, g, *, w1, b1, w2, b2, ln_w=None, ln_b=None,
 ln_mlp_residual_bwd.launches = 0
 
 
-def _backward_f32(x):
-    if x.dtype != torch.float32:
-        raise NotImplementedError(
-            "the backward of the bfloat16 forms is not ported")
-
-
 class _LnMlp(torch.autograd.Function):
     """Forward M, backward MB (the custom VJP `_ln_mlp_core` of the JAX
-    package): saves the inputs only. The backward of the zero_base and
-    bfloat16 forms raises."""
+    package): saves the inputs only."""
 
     @staticmethod
     def forward(ctx, x, w1, b1, w2, b2, ln_w, ln_b, inj, resi, zero_base):
@@ -255,13 +267,9 @@ class _LnMlp(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         x, w1, b1, w2, b2, ln_w, ln_b, inj, resi = ctx.saved_tensors
-        if ctx.zero_base:
-            raise NotImplementedError(
-                "the backward of zero_base is not ported")
-        _backward_f32(x)
         dx, dresi, dinj, dlnw, dlnb, dw1, db1, dw2, db2 = ln_mlp_residual_bwd(
             x, g, w1=w1, b1=b1, w2=w2, b2=b2, ln_w=ln_w, ln_b=ln_b, inj=inj,
-            resi=resi)
+            resi=resi, zero_base=ctx.zero_base)
         return dx, dw1, db1, dw2, db2, dlnw, dlnb, dinj, dresi, None
 
 
@@ -272,8 +280,8 @@ def ln_mlp_residual(x, *, w1, b1, w2, b2, ln_w=None, ln_b=None, inj=None,
     x, resi: (B, T, C) float32 or bfloat16, resi in x's type; inj: (B, C)
     broadcast over T, either type (summed in f32, unrounded); w1 (hid, C),
     w2 (C, hid) float32. zero_base=True returns the bare MLP output (the
-    Enhanced block tails). The float32 forms without zero_base are
-    differentiable in every tensor argument (kernel MB on the card)."""
+    Enhanced block tails). Differentiable in every tensor argument (kernel
+    MB on the card)."""
     return _LnMlp.apply(x, w1, b1, w2, b2, ln_w, ln_b, inj, resi, zero_base)
 
 
@@ -316,36 +324,76 @@ def ln_attn_proj_plain(x, *, wq, bq, wk, bk, wv, bv, wo, bo, ln_w, ln_b,
 
 def ln_attn_proj_bwd_plain(x, g, *, wq, bq, wk, bk, wv, bv, wo, bo, ln_w,
                            ln_b, num_heads: int, bias=None, pos=None, kv=None,
-                           scale=None):
+                           scale=None, rope_cos_q=None, rope_sin_q=None,
+                           rope_cos_k=None, rope_sin_k=None):
     """Plain PyTorch version of kernel AB: the VJP of ln_attn_proj at
     cotangent g, forward recomputed. Returns what `_ln_attn_core_bwd`
-    returns without the RoPE table gradients, (dx, dpos, dkv, dln_w, dln_b,
-    dwq, dbq, dwk, dbk, dwv, dbv, dwo, dbo, dbias), with None for an option
-    not given."""
+    returns, (dx, dpos, dkv, dln_w, dln_b, dwq, dbq, dwk, dbk, dwv, dbv,
+    dwo, dbo, dbias, drope_cos_q, drope_sin_q, drope_cos_k, drope_sin_k),
+    with None for an option not given. With RoPE, dq and dk are rotated
+    back by (cos, -sin) (the pair-duplicated tables make the rotation's
+    transpose a rotation) and the table gradients are sum_windows dq q0 and
+    dq shuffle(q0) (and for k), from the f32 dq and the unrounded q0. In
+    bfloat16 it rounds where `_k_ln_attn_bwd` rounds: xq, q, k, v, the
+    probabilities and the attention output as in the forward, g, the
+    per-head slices of g wo^T, ds, the back-rotated dq, dk and dv as
+    product operands, the weights as they are used, and dx, dpos and dkv as
+    they are stored; the bias sums take the unrounded values."""
+    dt = x.dtype
     c = x.shape[-1]
+    nh = num_heads
     if scale is None:
-        scale = (c // num_heads) ** -0.5
-    y, inv = _ln_stats(x)
+        scale = (c // nh) ** -0.5
+    wq_, wk_, wv_, wo_ = (_rnd(w, dt) for w in (wq, wk, wv, wo))
+    y, inv = _ln_stats(x.float())
     xq = y * ln_w + ln_b
     if pos is not None:
-        xq = xq + pos
-    src = kv if kv is not None else xq
-    q, k, v = xq @ wq.t() + bq, src @ wk.t() + bk, src @ wv.t() + bv
-    att = _merge(_probs(q, k, bias, scale, num_heads)
-                 @ _heads(v, num_heads))
-    dwo, dbo = _wgrad(g, att), g.flatten(0, -2).sum(0)
-    dq, dk, dv, dbias = window_attention_packed_bwd_plain(
-        q, k, v, bias, g @ wo, scale, num_heads)
-    dxq = dq @ wq
-    dsrc = dk @ wk + dv @ wv
+        xq = xq + _rnd(pos.float(), dt)
+    xq = _rnd(xq, dt)
+    src = kv.float() if kv is not None else xq
+    q0, k0, v = xq @ wq_.t() + bq, src @ wk_.t() + bk, src @ wv_.t() + bv
+    rope = rope_cos_q is not None
+    if rope:
+        q, k = (rope_rotate(q0, rope_cos_q, rope_sin_q),
+                rope_rotate(k0, rope_cos_k, rope_sin_k))
+    else:
+        q, k = q0, k0
+    qd, kd, vd = (_heads(_rnd(t, dt), nh) for t in (q, k, v))
+    s = (qd @ kd.transpose(-1, -2)) * scale
+    if bias is not None:
+        s = s + bias
+    s = s - s.amax(dim=-1, keepdim=True)
+    e = torch.exp(s)
+    p = e / e.sum(dim=-1, keepdim=True)
+    pd = _rnd(p, dt)
+    att = _rnd(_merge(pd @ vd), dt)
+    gf = g.float()
+    dwo, dbo = _wgrad(gf, att), gf.flatten(0, -2).sum(0)
+    gh = _heads(_rnd(gf @ wo_, dt), nh)
+    dv = _merge(pd.transpose(-1, -2) @ gh)
+    dp = gh @ vd.transpose(-1, -2)
+    ds = p * (dp - (dp * p).sum(dim=-1, keepdim=True))
+    dsd = _rnd(ds, dt)
+    dq = _merge(dsd @ kd) * scale
+    dk = _merge(dsd.transpose(-1, -2) @ qd) * scale
+    tables = (None,) * 4
+    if rope:
+        tables = ((dq * q0).sum(0), (dq * rope_shuffle(q0)).sum(0),
+                  (dk * k0).sum(0), (dk * rope_shuffle(k0)).sum(0))
+        dq = rope_rotate(dq, rope_cos_q, -rope_sin_q)
+        dk = rope_rotate(dk, rope_cos_k, -rope_sin_k)
+    dqd, dkd, dvd = _rnd(dq, dt), _rnd(dk, dt), _rnd(dv, dt)
+    dxq = dqd @ wq_
+    dsrc = dkd @ wk_ + dvd @ wv_
     if kv is None:
         dxq = dxq + dsrc
     dx, dlnw, dlnb = _ln_bwd(dxq, y, inv, ln_w)
-    return (dx, dxq.sum(dim=0) if pos is not None else None,
-            dsrc if kv is not None else None, dlnw, dlnb,
-            _wgrad(dq, xq), dq.flatten(0, -2).sum(0),
-            _wgrad(dk, src), dk.flatten(0, -2).sum(0),
-            _wgrad(dv, src), dv.flatten(0, -2).sum(0), dwo, dbo, dbias)
+    return (dx.to(dt), dxq.sum(dim=0).to(dt) if pos is not None else None,
+            dsrc.to(dt) if kv is not None else None, dlnw, dlnb,
+            _wgrad(dqd, xq), dq.flatten(0, -2).sum(0),
+            _wgrad(dkd, src), dk.flatten(0, -2).sum(0),
+            _wgrad(dvd, src), dv.flatten(0, -2).sum(0), dwo, dbo,
+            ds.sum(dim=0) if bias is not None else None, *tables)
 
 
 _ROPE = ("rope_cos_q", "rope_sin_q", "rope_cos_k", "rope_sin_k")
@@ -363,6 +411,10 @@ def _check_attn(x, num_heads, ws, bias, pos, kv, rope=(None,) * 4):
                 and [r.shape for r in rope] != [(tq, c)] * 2 + [(tk, c)] * 2)):
         raise ValueError("ln_attn_proj: inconsistent shapes")
     return b, tq, tk, c
+
+
+_AB_LONG = (f"the backward of A at windows of more than {_A_MAX_T} tokens "
+            "needs AB's window-16 form, which is not ported")
 
 
 def _a_long(x, kv) -> bool:
@@ -385,8 +437,8 @@ def _check_attn_kernel(x, num_heads, rope: bool):
 
 
 def _ln_attn_args(x, num_heads, kw):
-    """Checked, contiguous kernel arguments of A and A-long: (b, tq, tk, c,
-    the tensors by name)."""
+    """Checked, contiguous kernel arguments of A, A-long and AB: (b, tq, tk,
+    c, the tensors by name)."""
     b, tq, tk, c = _check_attn(x, num_heads, (kw["wq"], kw["wk"], kw["wv"],
                                               kw["wo"]),
                                kw["bias"], kw["pos"], kw["kv"],
@@ -395,7 +447,7 @@ def _ln_attn_args(x, num_heads, kw):
     # pos is rounded to the activation type, as the Pallas wrapper casts it
     if kw["pos"] is not None:
         kw = dict(kw, pos=kw["pos"].to(x.dtype))
-    return b, tq, tk, c, _contig(act=("pos", "kv"), x=x, **kw)
+    return b, tq, tk, c, _contig(act=("pos", "kv", "g"), x=x, **kw)
 
 
 def ln_attn_proj_long(x, *, num_heads, scale=None, **kw):
@@ -448,43 +500,57 @@ def _ln_attn_fwd(x, *, num_heads, scale, **kw):
 
 def ln_attn_proj_bwd(x, g, *, wq, bq, wk, bk, wv, bv, wo, bo, ln_w, ln_b,
                      num_heads: int, bias=None, pos=None, kv=None,
-                     scale=None):
+                     scale=None, rope_cos_q=None, rope_sin_q=None,
+                     rope_cos_k=None, rope_sin_k=None):
     """Kernel AB on CUDA tensors, its plain version on CPU tensors: the VJP
-    of ln_attn_proj at cotangent g (B, Tq, C), returned as
+    of ln_attn_proj at cotangent g (B, Tq, C, x's type), returned as
     `ln_attn_proj_bwd_plain` returns it."""
     kw = dict(wq=wq, bq=bq, wk=wk, bk=bk, wv=wv, bv=bv, wo=wo, bo=bo,
-              ln_w=ln_w, ln_b=ln_b, bias=bias, pos=pos, kv=kv)
+              ln_w=ln_w, ln_b=ln_b, bias=bias, pos=pos, kv=kv,
+              rope_cos_q=rope_cos_q, rope_sin_q=rope_sin_q,
+              rope_cos_k=rope_cos_k, rope_sin_k=rope_sin_k)
     if scale is None:
         scale = (x.shape[-1] // num_heads) ** -0.5
     if x.device.type == "cpu":
         return ln_attn_proj_bwd_plain(x, g, num_heads=num_heads, scale=scale,
                                       **kw)
-    b, tq, tk, c = _check_attn(x, num_heads, (wq, wk, wv, wo), bias, pos, kv)
     if g.shape != x.shape:
         raise ValueError(f"g {tuple(g.shape)} must match x {tuple(x.shape)}")
-    _backward_f32(x)
-    a = _contig(x=x, g=g, **kw)
+    b, tq, tk, c, a = _ln_attn_args(x, num_heads, dict(kw, g=g))
+    if max(tq, tk) > _A_MAX_T:
+        raise NotImplementedError(_AB_LONG)
+    bf16 = x.dtype == torch.bfloat16
+    rope = rope_cos_q is not None
     f32 = dict(dtype=torch.float32, device=x.device)
-    dx = torch.empty((b, tq, c), **f32)
-    dkv = torch.empty((b, tk, c), **f32) if kv is not None else None
-    dpos = torch.empty((tq, c), **f32) if pos is not None else None
+    act = dict(dtype=x.dtype, device=x.device)
+    dx = torch.empty((b, tq, c), **act)
+    dkv = torch.empty((b, tk, c), **act) if kv is not None else None
+    dpos = torch.empty((tq, c), **act) if pos is not None else None
     dln = torch.empty((2, c), **f32)
     dws = [torch.empty(s, **f32) for _ in range(4) for s in ((c, c), (c,))]
     dbias = (torch.empty((num_heads, tq, tk), **f32) if bias is not None
              else None)
+    drope = ([torch.empty((n, c), **f32) for n in (tq, tq, tk, tk)] if rope
+             else [None] * 4)
     mq, mk = b * tq, b * tk
     # xq, q, datt, att, dq, dxq, k, v, dk, dv; ds per window; the
-    # weight-gradient partials; the LN partials
+    # weight-gradient partials; the LN partials; with RoPE q0 and k0 (dq0
+    # and dk0 in place) and the table partials of up to 32 groups of
+    # windows; in bfloat16 also x, g and kv widened, and dx, dkv and dpos
+    # in f32
     floats = ((6 * mq + 4 * mk) * c + b * num_heads * tq * tk
-              + _MAX_GROUPS * c * (c + 1) + -(-mq // _ROW_TILE) * 2 * c)
+              + _MAX_GROUPS * c * (c + 1) + -(-mq // _ROW_TILE) * 2 * c
+              + ((mq + mk) * c + 2 * _ROPE_GROUPS * (tq + tk) * c) * rope
+              + ((3 * mq + 2 * mk) * c + tq * c) * bf16)
     work = _work(floats, x)
-    _build.launch("ln_attn_bwd", a["x"], a["pos"], a["kv"], a["ln_w"],
-                  a["ln_b"], a["wq"], a["bq"], a["wk"], a["bk"], a["wv"],
-                  a["bv"], a["wo"], a["bias"], a["g"], dx, dkv, dpos, dln,
-                  *dws, dbias, work, floats, b, tq, tk, c, num_heads,
+    _build.launch("ln_attn_bwd_bf16" if bf16 else "ln_attn_bwd", a["x"],
+                  a["pos"], a["kv"], a["ln_w"], a["ln_b"], a["wq"], a["bq"],
+                  a["wk"], a["bk"], a["wv"], a["bv"], a["wo"], a["bias"],
+                  *(a[r] for r in _ROPE), a["g"], dx, dkv, dpos, dln, *dws,
+                  dbias, *drope, work, floats, b, tq, tk, c, num_heads,
                   float(scale))
     ln_attn_proj_bwd.launches += 1
-    return (dx, dpos, dkv, dln[0], dln[1], *dws, dbias)
+    return (dx, dpos, dkv, dln[0], dln[1], *dws, dbias, *drope)
 
 
 ln_attn_proj_bwd.launches = 0
@@ -492,16 +558,15 @@ ln_attn_proj_bwd.launches = 0
 
 class _LnAttn(torch.autograd.Function):
     """Forward A, backward AB (the custom VJP `_ln_attn_core` of the JAX
-    package): saves the inputs only. The backward of the RoPE and bfloat16
-    forms raises: AB has no RoPE-table gradients yet."""
+    package): saves the inputs only. The backward of windows of more than
+    160 tokens raises: AB's window-16 form is not ported."""
 
     @staticmethod
     def forward(ctx, x, wq, bq, wk, bk, wv, bv, wo, bo, ln_w, ln_b, bias,
                 pos, kv, cos_q, sin_q, cos_k, sin_k, num_heads, scale):
         ctx.save_for_backward(x, wq, bq, wk, bk, wv, bv, wo, bo, ln_w, ln_b,
-                              bias, pos, kv)
+                              bias, pos, kv, cos_q, sin_q, cos_k, sin_k)
         ctx.num_heads, ctx.scale = num_heads, scale
-        ctx.rope = cos_q is not None
         return _ln_attn_fwd(x, wq=wq, bq=bq, wk=wk, bk=bk, wv=wv, bv=bv,
                             wo=wo, bo=bo, ln_w=ln_w, ln_b=ln_b, bias=bias,
                             pos=pos, kv=kv, rope_cos_q=cos_q,
@@ -511,24 +576,18 @@ class _LnAttn(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, g):
-        (x, wq, bq, wk, bk, wv, bv, wo, bo, ln_w, ln_b, bias, pos,
-         kv) = ctx.saved_tensors
+        (x, wq, bq, wk, bk, wv, bv, wo, bo, ln_w, ln_b, bias, pos, kv, cos_q,
+         sin_q, cos_k, sin_k) = ctx.saved_tensors
         if _a_long(x, kv):
-            raise NotImplementedError(
-                f"the backward of A at windows of more than {_A_MAX_T} "
-                "tokens needs AB's window-16 form, which is not ported")
-        if ctx.rope:
-            raise NotImplementedError(
-                "the backward of the RoPE form (K10's table gradients) is "
-                "not ported")
-        _backward_f32(x)
+            raise NotImplementedError(_AB_LONG)
         (dx, dpos, dkv, dlnw, dlnb, dwq, dbq, dwk, dbk, dwv, dbv, dwo, dbo,
-         dbias) = ln_attn_proj_bwd(
+         dbias, dcq, dsq, dck, dsk) = ln_attn_proj_bwd(
             x, g, wq=wq, bq=bq, wk=wk, bk=bk, wv=wv, bv=bv, wo=wo, bo=bo,
             ln_w=ln_w, ln_b=ln_b, num_heads=ctx.num_heads, bias=bias,
-            pos=pos, kv=kv, scale=ctx.scale)
+            pos=pos, kv=kv, scale=ctx.scale, rope_cos_q=cos_q,
+            rope_sin_q=sin_q, rope_cos_k=cos_k, rope_sin_k=sin_k)
         return (dx, dwq, dbq, dwk, dbk, dwv, dbv, dwo, dbo, dlnw, dlnb, dbias,
-                dpos, dkv, None, None, None, None, None, None)
+                dpos, dkv, dcq, dsq, dck, dsk, None, None)
 
 
 def ln_attn_proj(x, *, wq, bq, wk, bk, wv, bv, wo, bo, ln_w, ln_b,
@@ -543,9 +602,9 @@ def ln_attn_proj(x, *, wq, bq, wk, bk, wv, bv, wo, bo, ln_w, ln_b,
     (Tq, C) added after the LN, rounded to x's type; bias: (num_heads, Tq,
     Tk) float32; rope_{cos,sin}_q (Tq, C) and rope_{cos,sin}_k (Tk, C):
     pair-duplicated float32 rotation tables applied to the projected q and k
-    in f32 (the Enhanced family), all four or none. The float32 form
-    without RoPE is differentiable in every tensor argument (kernel AB on
-    the card)."""
+    in f32 (the Enhanced family), all four or none. Differentiable in every
+    tensor argument, the tables included (kernel AB on the card), for
+    windows of up to 160 tokens."""
     if scale is None:
         scale = (x.shape[-1] // num_heads) ** -0.5
     return _LnAttn.apply(x, wq, bq, wk, bk, wv, bv, wo, bo, ln_w, ln_b, bias,

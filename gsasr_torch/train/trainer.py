@@ -9,10 +9,15 @@ call.
 
 The decoder runs its module path by default (`dec(feat, scale)`, for the
 paper Fea2GS and the Enhanced Fea2GSRopeAMP in the module's compute type)
-and, for the paper decoder, its fused path with `fused_decoder=True`, as the
-JAX Trainer's `_dec_apply` does. Per step of the paper decoder on the card:
-module path 38 W and 38 WB; fused path 83 M and 38 A forward, 83 MB and 38
-AB backward; either way 1 R, 1 RB and 38 T (the bias-table gradients). A
+and its fused path with `fused_decoder=True`, as the JAX Trainer's
+`_dec_apply` does: `fea2gs_apply_fused` for Fea2GS, `fea2gs_rope_apply_fused`
+for Fea2GSRopeAMP, either with the trunk in the decoder's compute type
+(bf16 with fp32 UPNet and heads, or fp32). Per step of the paper decoder
+on the card: module path 38 W and 38 WB; fused path 83 M and 38 A forward,
+83 MB and 38 AB backward; either way 1 R, 1 RB and 38 T (the bias-table
+gradients). The Enhanced decoder's fused path launches 83 M, 38 A, 83 MB
+and 38 AB (RDN-Enhanced's two cross blocks 88 and 40 of each), 1 R and 1
+RB per step, and no T. A
 SwinIR encoder adds 18 W, 18 WB, 18 WM, 18 WMB and 36 T per step (its
 unshifted and shifted blocks and their bias tables), and its DropPath masks
 come from a generator on the trainer's device seeded from (config.seed,
@@ -36,6 +41,8 @@ import torch
 from gsasr_torch import resolve_device
 from gsasr_torch.models.fea2gs_fast import fea2gs_apply_fused
 from gsasr_torch.models.fea2gs_rope import Fea2GSRopeAMP
+from gsasr_torch.models.fea2gs_rope_fast import fea2gs_rope_apply_fused
+from gsasr_torch.ops.fused_layers import _A_MAX_T
 from gsasr_torch.rendering import render_training_batch
 from gsasr_torch.train.losses import masked_l1, size_mask, ssim
 from gsasr_torch.train.schedules import multistep_warmup_schedule
@@ -113,13 +120,13 @@ class Trainer:
         if mesh is not None:
             raise NotImplementedError(
                 "meshes (data and band axes) come with the multi-GPU slice")
-        if config.fused_decoder and isinstance(dec, Fea2GSRopeAMP):
+        if (config.fused_decoder and isinstance(dec, Fea2GSRopeAMP)
+                and max(dec.num_gs_seed, dec.window_size ** 2) > _A_MAX_T):
             raise NotImplementedError(
-                "fused_decoder=True with the Enhanced decoder needs the "
-                "backward of kernel A's RoPE form (K10's RoPE-table "
-                "gradients) and the bf16 and zero_base forms of MB and AB "
-                "(K9/K10), which are not ported yet; its module path "
-                "(fused_decoder=False, the recipes' default) trains")
+                "fused_decoder=True with windows of more than "
+                f"{_A_MAX_T} tokens needs AB's window-16 form (the backward "
+                "of A-long, K10 at T > 160), which is not ported; the module "
+                "path (fused_decoder=False, the recipes' default) trains")
         self.device = resolve_device(device)
         self.cfg = config
         self.enc = enc.to(self.device).train()
@@ -149,7 +156,12 @@ class Trainer:
             feat = self.enc(batch["lq"], generator=self.droppath_generator())
         else:
             feat = self.enc(batch["lq"])
-        if cfg.fused_decoder:
+        if cfg.fused_decoder and isinstance(self.dec, Fea2GSRopeAMP):
+            dt = self.dec.dtype
+            gs = fea2gs_rope_apply_fused(
+                self.dec, feat, batch["scale"],
+                dtype=None if dt == torch.float32 else dt)
+        elif cfg.fused_decoder:
             gs = fea2gs_apply_fused(self.dec, feat, batch["scale"])
         else:
             gs = self.dec(feat, batch["scale"])

@@ -4,7 +4,7 @@ CUDA card.
 
   python3 scripts/profile_torch_e2e.py [--encoder edsr|swinir|rdn|hat]
                                        [--enhanced [--fp32-trunk] |
-                                        --train [--fused | --enhanced]]
+                                        --train [--fused] [--enhanced]]
                                        [--iters 3] [--json PATH]
 
 Builds the paper EDSR-GSASR (--encoder swinir or rdn: SwinIR- or
@@ -19,7 +19,8 @@ then traces with torch.profiler either `sr_forward` on a 180x180 x4 image
 chip_smoke.py's synthetic batch of 16 samples of 48x48 (with --fused, on
 the fused decoder: fused_decoder=True; with --enhanced, the Enhanced
 EDSR-GSASR at configs/train_edsr_amp.yml's bf16 recipe on its module
-decoder, the networks as chip_smoke.enhanced_networks builds them). Prints
+decoder, or with --fused too on its fused decoder, the networks as
+chip_smoke.enhanced_networks builds them). Prints
 the device
 time per image (or step) grouped by kernel family (the port's kernels,
 cuDNN convolutions, cuBLAS products, PyTorch's ReLU, foreach updates,
@@ -78,6 +79,9 @@ FAMILIES = (
     ("MB, AB LN rows and ordered sums", ("ln_rows_kernel",
                                          "ln_bwd_rows_kernel",
                                          "sum_terms_kernel")),
+    ("MB, AB RoPE passes and bf16 conversions", ("rope_rows_kernel",
+                                                 "rope_back_kernel",
+                                                 "gsasr::convert_kernel")),
     ("T bias_table_bwd", ("bias_table_bwd_kernel",)),
     # before the products: cuDNN's implicit-GEMM kernels also say "gemm"
     ("cuDNN convolutions", ("fprop", "conv", "cudnn", "winograd")),
@@ -119,9 +123,10 @@ def main() -> int:
         return 2
     from gsasr_torch.model import DENOMINATORS, make_models, sr_forward
 
-    if args.enhanced and (args.encoder != "edsr" or args.fused or
-                          args.train and args.fp32_trunk):
-        ap.error("--enhanced traces EDSR, the step on its module decoder")
+    if args.enhanced and (args.encoder != "edsr" or args.fused and not
+                          args.train or args.train and args.fp32_trunk):
+        ap.error("--enhanced traces EDSR (its step on the module decoder, "
+                 "or with --fused the fused one)")
     ultra = args.encoder == "hat"
     if ultra and (args.enhanced or args.fused):
         ap.error("--encoder hat traces HAT-L Ultra (--train: its bf16 "
@@ -199,8 +204,10 @@ def main() -> int:
         decoder=("Ultra, bf16 recipe (module)" if ultra and args.train
                  else "Ultra, bf16 trunk" if ultra else "paper"
                  if not args.enhanced else "Enhanced, fp32 trunk"
-                 if args.fp32_trunk else "Enhanced, bf16 recipe (module)"
-                 if args.train else "Enhanced, bf16 trunk"),
+                 if args.fp32_trunk else "Enhanced, bf16 recipe (fused)"
+                 if args.train and args.fused else
+                 "Enhanced, bf16 recipe (module)" if args.train else
+                 "Enhanced, bf16 trunk"),
         wall_ms_per_image=wall_ms / per,
         device_busy_ms_per_image=busy_ms / per,
         device_busy_share=busy_ms / wall_ms,

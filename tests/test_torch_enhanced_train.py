@@ -8,7 +8,7 @@ gsasr_tpu on the CPU.
 - One bf16 Trainer step against the JAX Trainer: loss, gradients and the
   parameters after the update.
 - build_networks on the Enhanced recipes, the combinations that still
-  raise, and the fused Enhanced trainer's raise.
+  raise, and the window-16 fused trainer's raise.
 - RDN-Enhanced (two cross-attention blocks) through sr_forward.
 - The bias-table inverse rebuilt when a state_dict loads an index, and the
   trainer's deterministic cuDNN flags.
@@ -374,16 +374,19 @@ def test_build_networks_enhanced_recipes(yml, enc_cls, cross):
 
 def test_unported_bf16_combinations_raise():
     """The paper Fea2GS and SwinIR in bf16 raise, naming what they need; a
-    fused Enhanced Trainer raises at construction, naming the kernel forms
-    its backward lacks."""
+    fused trainer whose decoder has windows of more than 160 tokens (the
+    Ultra and SwinIR-Enhanced decoders' 256 seeds in windows of 16) raises
+    at construction, naming AB's window-16 form, rather than in its first
+    backward."""
     from gsasr_torch.config import build_networks, load_options
 
     for yml, match in (("train_edsr_paper_bf16_r3.yml", "paper Fea2GS"),
                        ("train_swinir_amp.yml", "WM and WMB")):
         with pytest.raises(NotImplementedError, match=match):
             build_networks(load_options(ROOT / "configs" / yml))
-    enc, dec = _port(_weights(8, DEC_KW), DEC_KW, BF16)
-    with pytest.raises(NotImplementedError, match="K10.*MB and AB"):
+    w16 = dict(DEC_KW, num_gs_seed=256, window_size=16)
+    enc, dec = _port(_weights(8, w16), w16, BF16)
+    with pytest.raises(NotImplementedError, match="AB's window-16 form"):
         Trainer(enc, dec, TrainConfig(**CFG, fused_decoder=True),
                 device="cpu")
 

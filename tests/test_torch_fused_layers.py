@@ -88,11 +88,11 @@ def test_ln_attn_proj_matches_jax(shape, opts):
 
 
 def test_unported_options_raise():
-    """zero_base, RoPE and bf16 activations run forward (the Enhanced
-    family) with gradients on; their backward (K10's table gradients, MB
-    and AB in bf16) is not ported and raises when a gradient is asked for,
-    rather than returning one that ignores them. The fp32 paper forms
-    still differentiate."""
+    """zero_base, RoPE and bf16 activations (the Enhanced family)
+    differentiate, the RoPE tables included, with finite gradients; the
+    backward of windows of more than 160 tokens (AB's window-16 form) is
+    not ported and raises when a gradient is asked for, rather than
+    returning one."""
     g = torch.Generator().manual_seed(0)
     r = lambda *s: torch.randn(*s, generator=g)  # noqa: E731
     x = r(2, 4, 8).requires_grad_()
@@ -100,15 +100,18 @@ def test_unported_options_raise():
     attn = {k: r(8, 8) if k[0] == "w" else r(8)
             for k in ("wq", "bq", "wk", "bk", "wv", "bv", "wo", "bo")}
     attn.update(ln_w=r(8), ln_b=r(8), num_heads=2)
-    rope = {k: r(4, 8) for k in ("rope_cos_q", "rope_sin_q", "rope_cos_k",
-                                 "rope_sin_k")}
-    for y in (tf.ln_mlp_residual(x, zero_base=True, **mlp),
-              tf.ln_mlp_residual(x.bfloat16(), **mlp),
-              tf.ln_attn_proj(x, **attn, **rope),
-              tf.ln_attn_proj(x.bfloat16(), **attn)):
+    rope = {k: r(4, 8).requires_grad_() for k in (
+        "rope_cos_q", "rope_sin_q", "rope_cos_k", "rope_sin_k")}
+    for y, wrt in ((tf.ln_mlp_residual(x, zero_base=True, **mlp), [x]),
+                   (tf.ln_mlp_residual(x.bfloat16(), **mlp), [x]),
+                   (tf.ln_attn_proj(x, **attn, **rope),
+                    [x, *rope.values()]),
+                   (tf.ln_attn_proj(x.bfloat16(), **attn), [x])):
         assert y.shape == x.shape and y.grad_fn is not None
-        with pytest.raises(NotImplementedError):
-            y.float().sum().backward()
-    (tf.ln_mlp_residual(x, **mlp).sum()
-     + tf.ln_attn_proj(x, **attn).sum()).backward()
-    assert x.grad is not None and bool(torch.isfinite(x.grad).all())
+        grads = torch.autograd.grad(y.float().sum(), wrt)
+        assert all(bool(torch.isfinite(d).all()) for d in grads)
+    long = r(1, 161, 8).requires_grad_()
+    y = tf.ln_attn_proj(long, **attn)
+    assert y.shape == long.shape
+    with pytest.raises(NotImplementedError, match="window-16"):
+        y.sum().backward()

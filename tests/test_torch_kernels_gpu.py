@@ -373,6 +373,102 @@ def test_ln_attn_bwd_matches_plain_and_repeats(cuda, cross):
             _assert_grad_close(o, rf, ref[7].abs().max() if i == 8 else None)
 
 
+def _assert_bwd_close(out, ref, bf16, scale=None):
+    """A backward output against its plain version: float32 as
+    _assert_grad_close; an output of a bf16 form within relative L2
+    distance 2^-7 of the plain version's (`scale`: the floor of the norm).
+    The two round at the same points but sum in another order, so an LN
+    output may round one step apart, move a pre-activation across the
+    ReLU's 0 and move a whole entry of dz1: single entries move by many
+    bf16 steps, and no elementwise bound holds (chip_smoke.py,
+    BWD_BF16_TOL)."""
+    if not bf16:
+        _assert_grad_close(out, ref, scale)
+        return
+    assert out.dtype == ref.dtype
+    d = float((out.double() - ref.double()).norm())
+    r = float(ref.double().norm())
+    if scale is not None:
+        r = max(r, float(scale))
+    assert d <= 2 ** -7 * r, (d, r)
+
+
+@pytest.mark.parametrize("opts,bf16", [("zero_base", False),
+                                       ("ln_inj", True), ("ln", True),
+                                       ("zero_base", True)])
+def test_ln_mlp_bwd_enhanced_forms_match_plain_and_repeats(cuda, opts,
+                                                           bf16):
+    """MB's Enhanced forms at 192 channels (the weight gradients' 193
+    columns): the block tails' zero base, and bf16 activations in the
+    decoder's three option sets; twice each, bitwise."""
+    from gsasr_torch.ops import fused_layers as tf
+
+    r = _fused_inputs(cuda, 14)
+    b, t, c = 7, 144, 192
+    dt = torch.bfloat16 if bf16 else torch.float32
+    kw = dict(w1=r(c, c) / 14, b1=r(c), w2=r(c, c) / 14, b2=r(c),
+              zero_base=opts == "zero_base")
+    if opts != "zero_base":
+        kw.update(ln_w=1 + 0.1 * r(c), ln_b=0.1 * r(c))
+    if opts == "ln_inj":
+        kw.update(inj=r(b, c).to(dt))
+    x, g = r(b, t, c).to(dt), r(b, t, c).to(dt)
+    out = tf.ln_mlp_residual_bwd(x, g, **kw)
+    again = tf.ln_mlp_residual_bwd(x, g, **kw)
+    ref = tf.ln_mlp_residual_bwd_plain(x, g, **kw)
+    for o, a, rf in zip(out, again, ref):
+        assert (o is None) == (rf is None)
+        if rf is not None:
+            assert torch.equal(o, a)  # bitwise repeatable: no atomics
+            _assert_bwd_close(o, rf, bf16)
+
+
+@pytest.mark.parametrize("opts,bf16", [("rope_cross", False),
+                                       ("rope_self", False),
+                                       ("rope_cross", True),
+                                       ("rope_self", True),
+                                       ("bias_self", True)])
+def test_ln_attn_bwd_enhanced_forms_match_plain_and_repeats(cuda, opts,
+                                                            bf16):
+    """AB's Enhanced forms at 192 channels and 6 heads of 32: RoPE (cross-
+    attention with pos and kv, and self-attention; the four table
+    gradients among the outputs) in both types, and the paper's bias form
+    in bf16; twice each, bitwise."""
+    from gsasr_torch.models.fea2gs_rope_fast import rope_tables
+    from gsasr_torch.ops import fused_layers as tf
+
+    r = _fused_inputs(cuda, 15)
+    b, t, c, nh = 5, 144, 192, 6
+    dt = torch.bfloat16 if bf16 else torch.float32
+    kw = {k: r(c, c) / 14 if k[0] == "w" else r(c)
+          for k in ("wq", "bq", "wk", "bk", "wv", "bv", "wo", "bo")}
+    kw.update(ln_w=1 + 0.1 * r(c), ln_b=0.1 * r(c), num_heads=nh)
+    if opts.endswith("cross"):
+        kw.update(pos=r(t, c).to(dt), kv=r(b, t, c).to(dt))
+    if opts.startswith("rope"):
+        cq, sq = rope_tables(0.5 * r(2, nh, c // nh // 2), 12, t)
+        ck, sk = rope_tables(0.5 * r(2, nh, c // nh // 2), 12, t)
+        kw.update(rope_cos_q=cq, rope_sin_q=sq, rope_cos_k=ck,
+                  rope_sin_k=sk)
+    else:
+        kw.update(bias=0.5 * r(nh, t, t))
+    x, g = r(b, t, c).to(dt), r(b, t, c).to(dt)
+    out = tf.ln_attn_proj_bwd(x, g, **kw)
+    again = tf.ln_attn_proj_bwd(x, g, **kw)
+    ref = tf.ln_attn_proj_bwd_plain(x, g, **kw)
+    for i, (o, a, rf) in enumerate(zip(out, again, ref)):
+        assert (o is None) == (rf is None)
+        if rf is not None:
+            assert torch.equal(o, a)  # bitwise repeatable: no atomics
+            # dbk (index 8): its true value is 0, held to dwk's scale
+            # (with bf16, dwk's norm scaled to C entries)
+            floor = None
+            if i == 8:
+                floor = (ref[7].double().norm() / ref[7].shape[0] ** 0.5
+                         if bf16 else ref[7].abs().max())
+            _assert_bwd_close(o, rf, bf16, floor)
+
+
 def test_fused_layers_backward_through_autograd(cuda):
     """On the card, ln_mlp_residual and ln_attn_proj differentiate through
     kernels MB and AB: one launch each per backward, none under no_grad."""
