@@ -114,6 +114,35 @@
    83, AB 38, R 1, RB 1 per step, nothing else; two gradients of one batch
    asserted the same bits), 3 steps at model_dtype float32 (the same
    counts), and a tiny fused bf16 step on the card against the CPU.
+29. Masked kernel phase (TF32 off): WM-bf16 and WMB-bf16 (the bf16 forms of
+   WM and WMB) at SwinIR's training shape (16 x 36 windows of 64 tokens,
+   180 channels, 6 heads of 30, mask period 36) and inference shape (576
+   windows, period 576); WM-long and WMB-long, fp32 and bf16 (the
+   window-16 masked forms), at the paper HAT's training shape (144 windows
+   of 256 tokens, period 9) and inference shape (period 144); each with
+   the bias of a shifted block's table, against its plain version, twice
+   for bitwise repeatability, with times, bounds, SDPA with the bias and
+   mask as a float mask, and ptxas's registers (W-long's, A-long's and
+   WB-long's beside them).
+30. SwinIR at its bf16 recipe: Trainer.step of configs/train_swinir_amp.yml
+   (written out as ENHANCED_TRAIN and enhanced_networks("swinir")) at batch
+   16, as phase 8 (W-bf16 18, WM-bf16 18, W-long-bf16 44, WB-bf16 18,
+   WMB-bf16 18, WB-long-bf16 44, T 36, R 1, RB 1 per step and nothing
+   else; two gradients of one batch asserted the same bits), and a tiny
+   bf16 step (a shifted, masked block) on the card against the CPU.
+31. SwinIR-Enhanced in bf16 (make_models("swinir", "enhanced",
+   dtype=torch.bfloat16)): path phase (18 W-bf16, 18 WM-bf16, 44 A-long,
+   96 M, 1 R per image) and end-to-end timing at denominator 16.
+32. The paper HAT (network_g type HATNOUP: 180 channels, 6 RHAGs of 6
+   HABs, window 16, OCAB 256 x 576, with the paper Fea2GS): path phase at
+   denominator 48 (24 W-long, 18 WM-long, 83 M, 38 A, 1 R per image), a
+   48x48 request on the card against the CPU, end-to-end timing, and
+   Trainer.step at the paper recipe, batch 16 (W-long 24, WM-long 18,
+   WB-long 24, WMB-long 18, W 38, WB 38, T 80, R 1, RB 1 per step; two
+   gradients of one batch asserted the same bits).
+33. The paper HAT in bf16 with the Enhanced decoder (train_swinir_amp.yml
+   with network_g HATNOUP): 3 steps (W-long-bf16 68, WM-long-bf16 18,
+   WB-long-bf16 68, WMB-long-bf16 18, T 42, R 1, RB 1 per step).
 
 Every training phase also times Trainer.grads, which runs with cuDNN's
 deterministic algorithms, against the same forward and backward under
@@ -207,12 +236,11 @@ GRAD_TOL = 1e-4
 TRAIN_COUNTS = {"R": 1, "M": 0, "A": 0, "W": 38, "WB": 38, "RB": 1, "MB": 0,
                 "AB": 0, "T": 38, "WM": 0, "WMB": 0, "W-bf16": 0,
                 "WB-bf16": 0, "W-long": 0, "W-long-bf16": 0, "A-long": 0,
-                "WB-long": 0, "WB-long-bf16": 0}
-FUSED_TRAIN_COUNTS = {"R": 1, "M": 83, "A": 38, "W": 0, "WB": 0, "RB": 1,
-                      "MB": 83, "AB": 38, "T": 38, "WM": 0, "WMB": 0,
-                      "W-bf16": 0, "WB-bf16": 0, "W-long": 0,
-                      "W-long-bf16": 0, "A-long": 0, "WB-long": 0,
-                      "WB-long-bf16": 0}
+                "WB-long": 0, "WB-long-bf16": 0, "WM-bf16": 0,
+                "WMB-bf16": 0, "WM-long": 0, "WMB-long": 0,
+                "WM-long-bf16": 0, "WMB-long-bf16": 0}
+FUSED_TRAIN_COUNTS = dict({k: 0 for k in TRAIN_COUNTS}, R=1, M=83, A=38,
+                          RB=1, MB=83, AB=38, T=38)
 # SwinIR (6 RSTBs of 6 blocks, window 8, shift 4 on odd blocks): per
 # forward 18 W (unshifted blocks) and 18 WM (shifted), per step their
 # backward too, and 36 more T (its bias tables). configs/
@@ -289,6 +317,46 @@ ENHANCED_FUSED_TRAIN_COUNTS = dict({k: 0 for k in TRAIN_COUNTS}, M=83, A=38,
 # the card against the same on the CPU: 9% of an entry), and no
 # elementwise bound holds.
 BWD_BF16_TOL = 2.0 ** -7
+# configs/train_swinir_amp.yml (SwinIR at the bf16 recipe) trains by
+# ENHANCED_TRAIN (its train block is train_edsr_amp.yml's;
+# tests/test_torch_swinir_bf16.py holds them equal). Per step: SwinIR's 18
+# unshifted blocks W-bf16 (T 64, bias) and 18 shifted WM-bf16, their
+# backward, 36 T; the decoder's 2 x 4 cross and 6 x 6 self layers at 256
+# seeds in windows of 16, W-long-bf16 and WB-long-bf16 44 each; R, RB.
+SWINIR_AMP_TRAIN_COUNTS = dict({k: 0 for k in TRAIN_COUNTS}, R=1, RB=1,
+                               T=36, **{"W-bf16": 18, "WM-bf16": 18,
+                                        "W-long-bf16": 44, "WB-bf16": 18,
+                                        "WMB-bf16": 18,
+                                        "WB-long-bf16": 44})
+# A bf16 SwinIR-Enhanced image: SwinIR_ENHANCED_PER_FORWARD's encoder
+# launches in their bf16 forms.
+SWINIR_ENHANCED_BF16_PER_FORWARD = dict(SWINIR_ENHANCED_PER_FORWARD, W=0,
+                                        WM=0, **{"W-bf16": 18,
+                                                 "WM-bf16": 18})
+# The paper HAT (HATNOUPPaper, 6 RHAGs of 6 HABs at window 16): per
+# forward its 18 unshifted HABs and 6 OCABs take W-long with a bias (256 x
+# 256, 256 x 576), its 18 shifted HABs WM-long; with the paper decoder
+# sr_forward pads to 48 = lcm(16, 12). Per step at the paper recipe, their
+# backward, T for 42 encoder and 38 decoder tables, and the paper decoder's
+# module path (TRAIN_COUNTS).
+HAT_PAPER_DENOMINATOR = 48
+HAT_PAPER_PER_FORWARD = {"W-long": 24, "WM-long": 18}
+HAT_PAPER_TRAIN_COUNTS = dict(TRAIN_COUNTS, T=80, **{
+    "W-long": 24, "WM-long": 18, "WB-long": 24, "WMB-long": 18})
+# In bf16 with the Enhanced decoder (train_swinir_amp.yml's recipe and
+# decoder, network_g HATNOUP): the encoder's 24 and the decoder's 44
+# window attentions W-long-bf16, 18 WM-long-bf16, their backward, T 42.
+HAT_PAPER_BF16_TRAIN_COUNTS = dict({k: 0 for k in TRAIN_COUNTS}, R=1, RB=1,
+                                   T=42, **{"W-long-bf16": 68,
+                                            "WM-long-bf16": 18,
+                                            "WB-long-bf16": 68,
+                                            "WMB-long-bf16": 18})
+# ptxas registers of the earlier window-16 kernels as PERF.md §6 records
+# them (A-long's projections and attention, WB-long's dq and dk/dv launches
+# in bf16 and fp32): the masked forms' template flag must leave them as
+# they were.
+LONG_REGS_RECORDED = {"W-long": (128, 128), "A-long": (114, 114, 128, 128),
+                 "WB-long": (128, 130, 177, 177)}
 TRAIN_WARMUP = 2
 TRAIN_STEPS = 5
 
@@ -464,12 +532,12 @@ def _e2e_bound_ms(enc, dec, lq, dt, denominator=12):
     over their peaks, plus kernels M and A (their operations at their
     type's peak: 4 rows C^2 and 2 B (2 Tq C^2 + 2 Tk C^2 + 2 Tq Tk C) per
     launch, at the decoder's T whether A or A-long runs), a SwinIR
-    encoder's W and WM (4 B T^2 C each, FP32) and a HAT encoder's W-long
-    or W-long-bf16 (4 B Tq Tk C: T^2 in each HAB, ws^2 ows^2 in each OCAB,
-    at the encoder type's peak). The raster and the glue's bytes are not
-    counted."""
+    encoder's W and WM (4 B T^2 C each) and a HAT encoder's (the paper
+    HAT's too) W-long and WM-long (4 B Tq Tk C: T^2 in each HAB, ws^2 ows^2
+    in each OCAB), at the encoder type's peak. The raster and the glue's
+    bytes are not counted."""
     from gsasr_torch.model import pad_to_denominator, sr_forward
-    from gsasr_torch.models import HATNOUP, SwinIRNOUP
+    from gsasr_torch.models import HATNOUP, HATNOUPPaper, SwinIRNOUP
 
     mode = _OpFlops()
     with mode:
@@ -504,8 +572,9 @@ def _e2e_bound_ms(enc, dec, lq, dt, denominator=12):
         ec = enc.conv_first.out_channels
         flops["kernels_W_WM"] = (blocks * 4.0 * b * (h // ew) * (w // ew)
                                  * ew ** 4 * ec)
-        ms += flops["kernels_W_WM"] / PEAK_FP32 * 1e3
-    if isinstance(enc, HATNOUP):
+        ms += flops["kernels_W_WM"] / (
+            PEAK_BF16 if enc.dtype == torch.bfloat16 else PEAK_FP32) * 1e3
+    if isinstance(enc, (HATNOUP, HATNOUPPaper)):
         ew = enc.window_size
         ows = enc.layers[0].residual_group["overlap_attn"].overlap_win_size
         habs = sum(len(layer.residual_group["blocks"])
@@ -1449,23 +1518,46 @@ def enhanced_networks(encoder: str = "edsr", dtype=torch.bfloat16):
     """The bf16 recipe's networks as gsasr_torch.config.build_networks
     builds them from configs/train_<encoder>_amp.yml, or for "hat" from
     configs/train_hatl_ultra.yml (written out: the card has no PyYAML;
-    tests/test_torch_enhanced_train.py and tests/test_torch_hat_train.py
-    hold them equal): EDSR, RDN or HAT-L and Fea2GSRopeAMP (RDN's with two
-    cross-attention blocks, HAT-L's the Ultra decoder), bf16 compute on fp32
-    parameters (`dtype` float32: model_dtype float32), every weight from a
-    generator seeded with the recipe's manual_seed 0. On the CPU, in
-    training mode."""
+    tests/test_torch_enhanced_train.py, tests/test_torch_hat_train.py and
+    tests/test_torch_swinir_bf16.py hold them equal): EDSR, RDN, SwinIR or
+    HAT-L and Fea2GSRopeAMP (RDN's with two cross-attention blocks,
+    SwinIR's at 256 seeds in windows of 16, HAT-L's the Ultra decoder),
+    bf16 compute on fp32 parameters (`dtype` float32: model_dtype float32),
+    every weight from a generator seeded with the recipe's manual_seed 0.
+    On the CPU, in training mode."""
     from gsasr_torch.model import ENHANCED_CFG
-    from gsasr_torch.models import EDSRNOUP, HATNOUP, RDNNOUP, Fea2GSRopeAMP
+    from gsasr_torch.models import (EDSRNOUP, HATNOUP, RDNNOUP,
+                                    Fea2GSRopeAMP, SwinIRNOUP)
     from gsasr_torch.models.init import init_weights
 
     g = torch.Generator().manual_seed(0)
-    encoders = {"edsr": EDSRNOUP, "rdn": RDNNOUP, "hat": HATNOUP}
+    encoders = {"edsr": EDSRNOUP, "rdn": RDNNOUP, "hat": HATNOUP,
+                "swinir": SwinIRNOUP}
     with torch.random.fork_rng(devices=[]):
         enc = encoders[encoder](dtype=dtype)
-        dec = Fea2GSRopeAMP(**(ENHANCED_CFG[encoder] if encoder == "hat" else
+        dec = Fea2GSRopeAMP(**(ENHANCED_CFG[encoder]
+                               if encoder in ("hat", "swinir") else
                                dict(num_crossattn_blocks=2 if encoder ==
                                     "rdn" else 1)), dtype=dtype)
+    return init_weights(enc, g), init_weights(dec, g)
+
+
+def hat_paper_networks(dtype=torch.float32):
+    """The paper HAT's networks as build_networks builds them with network_g
+    {type: HATNOUP}: in float32 from configs/train_swinir_paper.yml (the
+    paper Fea2GS), in bfloat16 from configs/train_swinir_amp.yml (the
+    Enhanced decoder at 256 seeds in windows of 16), every weight from a
+    generator seeded with manual_seed 0 (tests/test_torch_hat_paper.py
+    holds them equal). On the CPU, in training mode."""
+    from gsasr_torch.model import ENHANCED_CFG
+    from gsasr_torch.models import Fea2GS, Fea2GSRopeAMP, HATNOUPPaper
+    from gsasr_torch.models.init import init_weights
+
+    g = torch.Generator().manual_seed(0)
+    with torch.random.fork_rng(devices=[]):
+        enc = HATNOUPPaper(dtype=dtype)
+        dec = (Fea2GS() if dtype == torch.float32 else
+               Fea2GSRopeAMP(**ENHANCED_CFG["swinir"], dtype=dtype))
     return init_weights(enc, g), init_weights(dec, g)
 
 
@@ -1500,23 +1592,29 @@ def _train_run(dev, kernels, b: int, fused: bool, encoder: str,
     recipe, bf16 (the recipe's; its repeatability asserted, its costly
     reports run once) or float32 (model_dtype float32: 1 warm-up and 2
     timed steps, no reports). `enhanced` (a dtype): configs/
-    train_edsr_amp.yml's networks and recipe, bf16 (the recipe's; on the
-    fused decoder its repeatability asserted) or float32 (model_dtype
-    float32: 1 warm-up and 2 timed steps, no reports)."""
+    train_<encoder>_amp.yml's networks and recipe, bf16 (the recipe's; on
+    the fused decoder, and for SwinIR, its repeatability asserted) or
+    float32 (model_dtype float32: 1 warm-up and 2 timed steps, no reports).
+    encoder "hat_paper": the paper HAT with the paper recipe (its
+    repeatability asserted), or with `enhanced` bf16 train_swinir_amp.yml's
+    recipe and decoder (1 warm-up and 2 timed steps, no reports)."""
     from gsasr_torch.model import make_models
     from gsasr_torch.train import TrainConfig, Trainer
 
     warmup, steps = TRAIN_WARMUP, TRAIN_STEPS
+    short = torch.float32 in (ultra, enhanced) or (
+        encoder == "hat_paper" and enhanced is not None)
+    if short:
+        warmup, steps = 1, 2
     if ultra is not None:
         enc, dec = enhanced_networks("hat", ultra)
         cfg = ULTRA_TRAIN
-        if ultra == torch.float32:
-            warmup, steps = 1, 2
+    elif encoder == "hat_paper":
+        enc, dec = hat_paper_networks(enhanced or torch.float32)
+        cfg = PAPER_TRAIN if enhanced is None else ENHANCED_TRAIN
     elif enhanced is not None:
         enc, dec = enhanced_networks(encoder, enhanced)
         cfg = ENHANCED_TRAIN
-        if enhanced == torch.float32:
-            warmup, steps = 1, 2
     else:
         enc, dec = make_models(encoder, "paper",
                                generator=torch.Generator().manual_seed(0))
@@ -1524,7 +1622,10 @@ def _train_run(dev, kernels, b: int, fused: bool, encoder: str,
     tr = Trainer(enc, dec, TrainConfig(**dict(cfg, fused_decoder=fused)))
     want = (ULTRA_TRAIN_COUNTS if ultra == torch.bfloat16 else
             ULTRA_FP32_TRAIN_COUNTS if ultra == torch.float32 else
+            HAT_PAPER_BF16_TRAIN_COUNTS if encoder == "hat_paper" and enhanced
+            else HAT_PAPER_TRAIN_COUNTS if encoder == "hat_paper" else
             ENHANCED_FUSED_TRAIN_COUNTS if enhanced and fused else
+            SWINIR_AMP_TRAIN_COUNTS if enhanced and encoder == "swinir" else
             ENHANCED_TRAIN_COUNTS if enhanced else
             FUSED_TRAIN_COUNTS if fused else
             SWINIR_TRAIN_COUNTS if encoder == "swinir" else TRAIN_COUNTS)
@@ -1578,14 +1679,16 @@ def _train_run(dev, kernels, b: int, fused: bool, encoder: str,
         raise AssertionError(f"parameters moved {moved}, EMA moved "
                              f"{ema_moved}")
     repeat = det = None
-    if torch.float32 not in (ultra, enhanced):
+    if not short:
         repeat = _repeat_report(tr, batches[-1], label)
-        if ((ultra is not None or (enhanced and fused))
+        if ((ultra is not None or (enhanced and fused)
+             or encoder == "hat_paper" or (enhanced and encoder == "swinir"))
                 and not repeat["same_bits"]):
             raise AssertionError(f"{label}: two gradients of one batch "
                                  "differ")
-        det = _determinism_cost(tr, batches[-1],
-                                turns=1 if ultra is not None else 3)
+        det = _determinism_cost(
+            tr, batches[-1],
+            turns=1 if ultra is not None or encoder == "hat_paper" else 3)
         print(f"  {label} cost of cuDNN determinism: Trainer.grads median "
               f"{det['grads_ms_median']['deterministic']:.1f} ms against "
               f"{det['grads_ms_median']['default']:.1f} ms under the default "
@@ -1715,23 +1818,36 @@ def train_card_vs_cpu(dev, fused: bool, encoder: str = "edsr"):
                 loss_rel=rel, grad_max_abs_err=worst, tensors=len(names))
 
 
-def enhanced_train_card_vs_cpu(dev, fused: bool = False):
+def enhanced_train_card_vs_cpu(dev, fused: bool = False,
+                               encoder: str = "edsr"):
     """One tiny step of the bf16 recipe (tests/test_trainer.py's bf16
-    networks: EDSR 16 x 1, Fea2GSRopeAMP 24 channels, one layer per block;
-    batch 2) on the module or the fused decoder, from the same weights on
-    the card and on the CPU: loss within 2^-8 relative, each network's
-    gradient within relative L2 2^-8 times its bf16 depth (two libraries
-    round the same bf16 values, summed in another order, one step apart
-    now and then; the fused path is no deeper than the module path)."""
-    from gsasr_torch.models import EDSRNOUP, Fea2GSRopeAMP
+    networks: EDSR 16 x 1, or tests/test_torch_swinir_bf16.py's SwinIR of
+    two blocks at window 4, the second shifted and masked; Fea2GSRopeAMP 24
+    channels, one layer per block; batch 2) on the module or the fused
+    decoder, from the same weights on the card and on the CPU: loss within
+    2^-8 relative, each network's gradient within relative L2 2^-8 times
+    its bf16 depth (two libraries round the same bf16 values, summed in
+    another order, one step apart now and then; the fused path is no
+    deeper than the module path). SwinIR's step launches WMB-bf16 once."""
+    from gsasr_torch.models import EDSRNOUP, Fea2GSRopeAMP, SwinIRNOUP
     from gsasr_torch.models.init import init_weights
+    from gsasr_torch.ops import attention as ta
     from gsasr_torch.train import TrainConfig, Trainer
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     bf16 = torch.bfloat16
     gen = torch.Generator().manual_seed(17)
-    enc = init_weights(EDSRNOUP(num_feat=16, num_block=1, dtype=bf16), gen)
+    if encoder == "swinir":
+        enc = init_weights(SwinIRNOUP(embed_dim=24, depths=(2,),
+                                      num_heads=(6,), window_size=4,
+                                      num_feat=16, drop_path_rate=0.0,
+                                      dtype=bf16), gen)
+        enc_depth = ENHANCED_TINY_DEPTH + 29
+    else:
+        enc = init_weights(EDSRNOUP(num_feat=16, num_block=1, dtype=bf16),
+                           gen)
+        enc_depth = ENHANCED_TINY_DEPTH + 3
     dec = init_weights(Fea2GSRopeAMP(inchannel=16, channel=24, num_heads=6,
                                      num_crossattn_blocks=1,
                                      num_crossattn_layers=1,
@@ -1748,26 +1864,33 @@ def enhanced_train_card_vs_cpu(dev, fused: bool = False):
              "scale": scales, "gt_h": gt, "gt_w": gt}
     card = Trainer(copy.deepcopy(enc), copy.deepcopy(dec), cfg)
     cpu = Trainer(enc, dec, cfg, device="cpu")
-    out_card, out_cpu = card.grads(batch), cpu.grads(batch)
+    n = ta.window_attention_packed_masked_bf16_bwd.launches
+    out_card = card.grads(batch)
+    torch.cuda.synchronize()
+    launched = ta.window_attention_packed_masked_bf16_bwd.launches - n
+    if launched != (1 if encoder == "swinir" else 0):
+        raise AssertionError(f"tiny {encoder} bf16 step: {launched} "
+                             "WMB-bf16 launches")
+    out_cpu = cpu.grads(batch)
     l_card, l_cpu = float(out_card[0]), float(out_cpu[0])
     rel = abs(l_card - l_cpu) / abs(l_cpu)
     dist = []
-    for i, depth in ((2, ENHANCED_TINY_DEPTH + 3), (3, ENHANCED_TINY_DEPTH)):
+    for i, depth in ((2, enc_depth), (3, ENHANCED_TINY_DEPTH)):
         num = sum(float(((a.cpu().double() - r.double()) ** 2).sum())
                   for a, r in zip(out_card[i], out_cpu[i]))
         den = sum(float((r.double() ** 2).sum()) for r in out_cpu[i])
         dist.append((math.sqrt(num / den), 2.0 ** -8 * depth))
     card.apply(*out_card)
     cpu.apply(*out_cpu)
-    print(f"  tiny Enhanced bf16 {'fused' if fused else 'module'} training "
-          f"step card vs CPU: loss "
+    print(f"  tiny Enhanced bf16 {'fused' if fused else 'module'} {encoder} "
+          f"training step card vs CPU: loss "
           f"{l_card:.7f} vs {l_cpu:.7f} (rel {rel:.2e}, tol {2.0 ** -8:.2e});"
           f" gradient rel L2 encoder {dist[0][0]:.2e} (tol {dist[0][1]:.2e}),"
           f" decoder {dist[1][0]:.2e} (tol {dist[1][1]:.2e})", flush=True)
     if not rel <= 2.0 ** -8 or any(not d <= t for d, t in dist):
         raise AssertionError("Enhanced bf16 step: card and CPU disagree")
-    return dict(fused_decoder=fused, loss_card=l_card, loss_cpu=l_cpu,
-                loss_rel=rel,
+    return dict(fused_decoder=fused, encoder=encoder, loss_card=l_card,
+                loss_cpu=l_cpu, loss_rel=rel,
                 grad_rel_l2_enc=dist[0][0], grad_rel_l2_dec=dist[1][0])
 
 
@@ -1976,8 +2099,10 @@ def ultra_train_kernel_phase(enc, dec, dev):
     ocab = (ws + ws // 2) ** 2
     b = ULTRA_BATCH * (ULTRA_LR_SIZE // ws) ** 2
     scale = hd ** -0.5
-    regs = _ptxas_kernels(_build.ptxas_report("window_attn_bwd_long"),
-                          "window_attn_bwd_long")
+    # WB-long's launches, not the masked forms' (template flag true)
+    regs = {k: r for k, r in _ptxas_kernels(
+        _build.ptxas_report("window_attn_bwd_long"),
+        "window_attn_bwd_long").items() if "Lb1E" not in k}
     results = {"W-long-bf16": [], "WB-long-bf16": [], "WB-long": []}
     for name, tk, dt, bias, per_step in (
             ("HAB and decoder 256x256", t, bf16, None, 136),
@@ -2139,6 +2264,165 @@ def ultra_train_card_vs_cpu(dev):
                 grad_rel_l2_enc=dist[0][0], grad_rel_l2_dec=dist[1][0])
 
 
+# Each form's kernels in ptxas's report: (a substring of the mangled name,
+# a substring of its template arguments or ""), one pair per kernel.
+REG_KEYS = {
+    "WM-bf16": [("window_attn_fwd_masked_bf16_kernel", "")],
+    "WMB-bf16": [("window_attn_bwd_kernel", "Lb1E13__nv_bfloat16")],
+    "WM-long": [("window_attn_fwd_long_masked_kernel", "IfE")],
+    "WM-long-bf16": [("window_attn_fwd_long_masked_kernel", "bfloat16")],
+    "WMB-long": [("window_attn_bwd_long_", "IfLb1E")],
+    "WMB-long-bf16": [("window_attn_bwd_long_", "bfloat16Lb1E")],
+    "W-long": [("window_attn_fwd_long_kernel", "")],
+    "A-long": [("ln_qkv_kernel", ""), ("attn_long_kernel", "")],
+    "WB-long": [("window_attn_bwd_long_", "Lb0E")],
+}
+
+
+def _form_regs(regs, form):
+    """{kernel: (registers, spill stores, spill loads)} of one form."""
+    return {k: r for k, r in regs.items()
+            if any(key in k and args in k for key, args in REG_KEYS[form])}
+
+
+@torch.no_grad()
+def masked_kernel_phase(enc_s, enc_h, dev):
+    """The bf16 and window-16 forms of WM and WMB against their plain
+    versions at their paths' shapes: WM-bf16 and WMB-bf16 at SwinIR's
+    (window 8: 16 samples of 48x48, 576 windows of 64 tokens, period 36;
+    one 192x192 map, period 576), WM-long and WMB-long in fp32 and bf16
+    at the paper HAT's (window 16: 144 windows of 256 tokens, period 9 in
+    training and 144 at inference); 180 channels, 6 heads of 30, the bias
+    of the encoder's first shifted block. Each twice for bitwise
+    repeatability, with its time, plain time, bound in its type, SDPA (the
+    bias plus the mask as a float mask in the operands' type) forward and
+    backward, and ptxas's registers; then W-long's, A-long's and WB-long's
+    registers beside the recorded ones. per_image / per_step: launches on
+    the bf16 SwinIR-Enhanced image and the bf16 SwinIR step (the bf16
+    forms), the paper HAT's image and step (WM-long, WMB-long) and the bf16
+    paper HAT step (the window-16 bf16 forms)."""
+    from gsasr_torch.models.swinir import swin_attn_mask
+    from gsasr_torch.ops import _build
+    from gsasr_torch.ops import attention as ta
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    gen = torch.Generator().manual_seed(21)
+    rnd = lambda *s: torch.randn(*s, generator=gen).to(dev)  # noqa: E731
+    f32, bf16 = torch.float32, torch.bfloat16
+    regs = {}
+    for src in ("window_attn_fwd", "window_attn_bwd", "ln_attn"):
+        regs.update(_ptxas_kernels(_build.ptxas_report(src), ""))
+    results = {k: [] for k in ("WM-bf16", "WMB-bf16", "WM-long",
+                               "WMB-long", "WM-long-bf16", "WMB-long-bf16")}
+    lr = PAPER_LR_SIZE
+    # (encoder, type, case, map side, samples, per forward, per backward)
+    cases = [(enc_s, bf16, "SwinIR training 16x48x48", lr, PAPER_BATCH,
+              dict(per_step=18), dict(per_step=18)),
+             (enc_s, bf16, "SwinIR inference 192x192", 192, 1,
+              dict(per_image=18), dict(per_step=0)),
+             (enc_h, f32, "paper HAT training 16x48x48", lr, PAPER_BATCH,
+              dict(per_step=18), dict(per_step=18)),
+             (enc_h, f32, "paper HAT inference 192x192", 192, 1,
+              dict(per_image=18), dict(per_step=0)),
+             (enc_h, bf16, "paper HAT training 16x48x48", lr, PAPER_BATCH,
+              dict(per_step=18), dict(per_step=18)),
+             (enc_h, bf16, "paper HAT inference 192x192", 192, 1,
+              dict(per_image=0), dict(per_step=0))]
+    for enc, dt, name, side, samples, per_f, per_b in cases:
+        attn = enc.layers[0].residual_group["blocks"][1].attn
+        ws = enc.window_size
+        nh, c = attn.num_heads, attn.proj.in_features
+        t, hd = ws * ws, c // attn.num_heads
+        scale = hd ** -0.5
+        long = t > ta._MAX_T
+        isbf = dt == bf16
+        suffix = "-bf16" if isbf else ""
+        kf, kb = (("WM-long", "WMB-long") if long else ("WM", "WMB"))
+        kf, kb = kf + suffix, kb + suffix
+        fwd, bwd = ta._FORMS[True, isbf, long]
+        bias = attn.relative_position_bias_table[
+            attn.relative_position_index].permute(2, 0, 1).contiguous()
+        mask = swin_attn_mask(side, side, ws, ws // 2, dev)
+        nw = mask.shape[0]
+        b = samples * nw
+        q, k, v, g = (rnd(b, t, c).to(dt) for _ in range(4))
+        full = (bias[None] + mask.repeat(b // nw, 1, 1)[:, None]).to(dt)
+        fargs = (q, k, v, bias, mask, scale, nh)
+        plain_f = lambda: ta.window_attention_packed_plain(  # noqa: E731
+            q, k, v, bias, scale, nh, mask)
+        out, ref = fwd(*fargs), plain_f()
+        err = (_compare_bf16(out, ref, f"{kf} {name}") if isbf
+               else _compare(out, ref, f"{kf} {name}"))
+        _repeatable(lambda: (fwd(*fargs),), f"{kf} {name}")
+        ms = _time_ms(lambda: fwd(*fargs), 10)
+        plain = _time_ms(plain_f, 3)
+        lib_f, lib_b, why = _sdpa_ms(q, k, v, full, g, nh, scale)
+        act = 2 if isbf else 4
+        peak = PEAK_BF16 if isbf else PEAK_FP32
+        # bytes: q, k, v, out in the operands' type; the f32 bias and mask
+        bound, by = _bound_ms(4.0 * b * nh * t * t * hd,
+                              act * 4 * b * t * c + 4 * (nh + nw) * t * t,
+                              peak)
+        results[kf].append(dict(
+            case=name, dtype=str(dt).replace("torch.", ""), nW=nw,
+            windows=b, max_abs_err=err, ms=ms, plain_ms=plain,
+            bound_ms=bound, bound_by=by, library_ms=lib_f,
+            registers=_form_regs(regs, kf), **per_f))
+        bargs = (q, k, v, bias, mask, g, scale, nh)
+        plain_b = lambda: ta.window_attention_packed_bwd_plain(  # noqa: E731
+            q, k, v, bias, g, scale, nh, mask)
+        outs, refs = bwd(*bargs), plain_b()
+        if isbf:
+            err = max(_compare_bf16(o, r, f"{kb} {name} {n}") for o, r, n in
+                      zip(outs[:3], refs[:3], ("dq", "dk", "dv")))
+            err = max(err, _compare_grad(outs[3], refs[3],
+                                         f"{kb} {name} dbias"))
+        else:
+            err = _compare_grads(outs, refs, ("dq", "dk", "dv", "dbias"),
+                                 f"{kb} {name}")
+        _repeatable(lambda: bwd(*bargs), f"{kb} {name}")
+        ms = _time_ms(lambda: bwd(*bargs), 10)
+        plain = _time_ms(plain_b, 3)
+        if why:
+            print(f"  {kb} {name} library: null ({why})", flush=True)
+        # the function's five products; bytes: q, g, dq, k, v, dk, dv in
+        # the operands' type, the f32 bias, dbias and mask
+        bound, by = _bound_ms(10.0 * b * nh * t * t * hd,
+                              act * 7 * b * t * c
+                              + 4 * (2 * nh + nw) * t * t, peak)
+        results[kb].append(dict(
+            case=name, dtype=str(dt).replace("torch.", ""), nW=nw,
+            windows=b, max_abs_err=err, ms=ms, plain_ms=plain,
+            bound_ms=bound, bound_by=by, library_ms=lib_b,
+            library_null_reason=why, registers=_form_regs(regs, kb),
+            **per_b))
+    for key, rows in results.items():
+        for r in rows:
+            lib = "null" if r["library_ms"] is None else \
+                f"{r['library_ms']:.4f}"
+            per = r.get("per_image", r.get("per_step"))
+            print(f"  {key} {r['case']}: {r['ms']:.4f} ms (plain "
+                  f"{r['plain_ms']:.4f}, bound {r['bound_ms']:.4f} by "
+                  f"{r['bound_by']}, SDPA {lib}) x{per} per "
+                  f"{'image' if 'per_image' in r else 'step'}", flush=True)
+    kept = {}
+    for form in REG_KEYS:
+        for name, (r_, st, ld) in _form_regs(regs, form).items():
+            print(f"  ptxas {form} {name}: {r_} registers, {st}/{ld} bytes "
+                  "spilled", flush=True)
+            kept.setdefault(form, []).append(r_)
+    earlier = {k: tuple(sorted(kept.get(k, ())))
+               for k in LONG_REGS_RECORDED}
+    same = earlier == LONG_REGS_RECORDED
+    print(f"  registers of the earlier window-16 kernels: {earlier}, "
+          f"{'kept' if same else 'MOVED'} (recorded: "
+          f"{LONG_REGS_RECORDED})", flush=True)
+    results["registers"] = {k: sorted(v) for k, v in kept.items()}
+    results["earlier_registers_kept"] = same
+    return results
+
+
 FORM_KEYS = ("decoder", "case", "dtype", "nW", "windows", "per_image",
              "per_step", "max_abs_err", "ms", "plain_ms", "bound_ms",
              "bound_by", "library_ms")
@@ -2186,6 +2470,12 @@ def main() -> int:
         window_attention_packed_long_bf16_bwd,
         window_attention_packed_long_bf16_fwd,
         window_attention_packed_long_bwd, window_attention_packed_long_fwd,
+        window_attention_packed_long_masked_bf16_bwd,
+        window_attention_packed_long_masked_bf16_fwd,
+        window_attention_packed_long_masked_bwd,
+        window_attention_packed_long_masked_fwd,
+        window_attention_packed_masked_bf16_bwd,
+        window_attention_packed_masked_bf16_fwd,
         window_attention_packed_masked_bwd,
         window_attention_packed_masked_fwd)
     from gsasr_torch.ops.bias_table import bias_table_bwd
@@ -2226,7 +2516,14 @@ def main() -> int:
                "W-long-bf16": window_attention_packed_long_bf16_fwd,
                "A-long": ln_attn_proj_long,
                "WB-long": window_attention_packed_long_bwd,
-               "WB-long-bf16": window_attention_packed_long_bf16_bwd}
+               "WB-long-bf16": window_attention_packed_long_bf16_bwd,
+               "WM-bf16": window_attention_packed_masked_bf16_fwd,
+               "WMB-bf16": window_attention_packed_masked_bf16_bwd,
+               "WM-long": window_attention_packed_long_masked_fwd,
+               "WMB-long": window_attention_packed_long_masked_bwd,
+               "WM-long-bf16": window_attention_packed_long_masked_bf16_fwd,
+               "WMB-long-bf16":
+                   window_attention_packed_long_masked_bf16_bwd}
     enc, dec = make_models("edsr", "paper",
                            generator=torch.Generator().manual_seed(0))
 
@@ -2418,7 +2715,53 @@ def main() -> int:
     torch.cuda.empty_cache()
     print("Enhanced fused training card vs CPU", flush=True)
     eftcvc = enhanced_train_card_vs_cpu(dev, fused=True)
-    for r in (train, ftrain, strain, etrain, utrain, eftrain):
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    enc_sb, dec_sb = make_models("swinir", "enhanced", dtype=torch.bfloat16,
+                                 generator=torch.Generator().manual_seed(0))
+    enc_h, dec_h = hat_paper_networks()
+    enc_h, dec_h = enc_h.to(dev).eval(), dec_h.to(dev).eval()
+    print("masked kernel phase", flush=True)
+    mres = masked_kernel_phase(enc_sb, enc_h, dev)
+    print("SwinIR bf16 training phase", flush=True)
+    sbtrain = train_phase(dev, kernels, fused=False, encoder="swinir",
+                          enhanced=torch.bfloat16)
+    print("SwinIR bf16 training card vs CPU", flush=True)
+    sbtcvc = enhanced_train_card_vs_cpu(dev, encoder="swinir")
+    print("SwinIR-Enhanced bf16 path phase", flush=True)
+    sbruns = path_phase(enc_sb, dec_sb, dev, kernels,
+                        label="SwinIR-Enhanced bf16",
+                        denominator=ULTRA_DENOMINATOR,
+                        extra=SWINIR_ENHANCED_BF16_PER_FORWARD)
+    print("SwinIR-Enhanced bf16 end to end", flush=True)
+    sbe2e = e2e_phase(enc_sb, dec_sb, dev, label="SwinIR-Enhanced bf16",
+                      denominator=ULTRA_DENOMINATOR)
+    del enc_sb, dec_sb
+    gc.collect()
+    torch.cuda.empty_cache()
+    print("paper HAT path phase", flush=True)
+    hruns = path_phase(enc_h, dec_h, dev, kernels, label="paper HAT",
+                       denominator=HAT_PAPER_DENOMINATOR,
+                       extra=HAT_PAPER_PER_FORWARD)
+    print("paper HAT card vs CPU", flush=True)
+    hcvc = card_vs_cpu(enc_h, dec_h, dev, label="paper HAT",
+                       denominator=HAT_PAPER_DENOMINATOR)
+    print("paper HAT end to end", flush=True)
+    he2e = e2e_phase(enc_h, dec_h, dev, label="paper HAT",
+                     denominator=HAT_PAPER_DENOMINATOR)
+    del enc_h, dec_h
+    gc.collect()
+    torch.cuda.empty_cache()
+    print("paper HAT training phase", flush=True)
+    htrain = train_phase(dev, kernels, fused=False, encoder="hat_paper")
+    gc.collect()
+    torch.cuda.empty_cache()
+    print("paper HAT bf16 training phase", flush=True)
+    hbtrain = train_phase(dev, kernels, fused=False, encoder="hat_paper",
+                          enhanced=torch.bfloat16)
+    for r in (train, ftrain, strain, etrain, utrain, eftrain, sbtrain,
+              htrain):
         same = "the same" if r["repeat"]["same_bits"] else "NOT the same"
         print(f"  {r['decoder']} step: repeatability {same} bits; cost of "
               f"cuDNN determinism {r['determinism']['cost_ms']:+.1f} ms on "
@@ -2430,6 +2773,9 @@ def main() -> int:
     estep, uinfer = etrain["launches"], uruns[0]["launches"]
     ustep, ustep32 = utrain["launches"], utrain32["launches"]
     efstep = eftrain["launches"]
+    sbstep, hstep = sbtrain["launches"], htrain["launches"]
+    hbstep, sbinfer = hbtrain["launches"], sbruns[0]["launches"]
+    hinfer = hruns[0]["launches"]
     enhanced = "sr_forward (Enhanced, bf16 trunk)"
     for k in ("M", "A"):
         for r in kres[k]:
@@ -2525,6 +2871,42 @@ def main() -> int:
                    "gsasr_tpu/ops/fused_layers.py:336", [], uinfer,
                    "sr_forward (HAT-L Ultra, bf16 trunk)",
                    _on_path(ures["A-long"], "per_image"), ures["A-long"]),
+        "WM-bf16": ("window_attn_fwd_masked_bf16",
+                    "gsasr_torch/ops/csrc/window_attn_fwd.cu",
+                    "gsasr_tpu/ops/attention.py:553", [], sbstep,
+                    "Trainer.step (SwinIR, bf16 recipe)",
+                    _on_path(mres["WM-bf16"], "per_step"), mres["WM-bf16"]),
+        "WMB-bf16": ("window_attn_bwd_masked_bf16",
+                     "gsasr_torch/ops/csrc/window_attn_bwd.cu",
+                     "gsasr_tpu/ops/attention.py:661", [], sbstep,
+                     "Trainer.step (SwinIR, bf16 recipe)",
+                     _on_path(mres["WMB-bf16"], "per_step"),
+                     mres["WMB-bf16"]),
+        "WM-long": ("window_attn_fwd_long_masked",
+                    "gsasr_torch/ops/csrc/window_attn_fwd.cu",
+                    "gsasr_tpu/ops/attention.py:553", [], hstep,
+                    "Trainer.step (paper HAT, paper recipe)",
+                    _on_path(mres["WM-long"], "per_step"), mres["WM-long"]),
+        "WMB-long": ("window_attn_bwd_long_masked",
+                     "gsasr_torch/ops/csrc/window_attn_bwd.cu",
+                     "gsasr_tpu/ops/attention.py:661", [], hstep,
+                     "Trainer.step (paper HAT, paper recipe)",
+                     _on_path(mres["WMB-long"], "per_step"),
+                     mres["WMB-long"]),
+        "WM-long-bf16": ("window_attn_fwd_long_masked_bf16",
+                         "gsasr_torch/ops/csrc/window_attn_fwd.cu",
+                         "gsasr_tpu/ops/attention.py:553", [], hbstep,
+                         "Trainer.step (paper HAT in bf16, Enhanced "
+                         "decoder)",
+                         _on_path(mres["WM-long-bf16"], "per_step"),
+                         mres["WM-long-bf16"]),
+        "WMB-long-bf16": ("window_attn_bwd_long_masked_bf16",
+                          "gsasr_torch/ops/csrc/window_attn_bwd.cu",
+                          "gsasr_tpu/ops/attention.py:661", [], hbstep,
+                          "Trainer.step (paper HAT in bf16, Enhanced "
+                          "decoder)",
+                          _on_path(mres["WMB-long-bf16"], "per_step"),
+                          mres["WMB-long-bf16"]),
     }
     line = [_kernel_entry(name, src, rep, also, counts[k], path, rows, forms)
             for k, (name, src, rep, also, counts, path, rows, forms)
@@ -2558,6 +2940,15 @@ def main() -> int:
                            enhanced_fused_train=dict(
                                kernels=efres, train=eftrain,
                                train_fp32=eftrain32, card_vs_cpu=eftcvc),
+                           masked_kernels=mres,
+                           swinir_bf16=dict(train=sbtrain,
+                                            train_card_vs_cpu=sbtcvc,
+                                            paths=sbruns, e2e=sbe2e,
+                                            infer_launches=sbinfer),
+                           hat_paper=dict(paths=hruns, card_vs_cpu=hcvc,
+                                          e2e=he2e, train=htrain,
+                                          train_bf16=hbtrain,
+                                          infer_launches=hinfer),
                            total_s=time.perf_counter() - t_start), f, indent=1)
     print(f"total {time.perf_counter() - t_start:.1f} s", flush=True)
     print(f"card: {card}", flush=True)

@@ -15,7 +15,7 @@ from typing import Any, Dict, List, Optional
 import torch
 
 from gsasr_torch.models import (EDSRNOUP, HATNOUP, RDNNOUP, Fea2GS,
-                                Fea2GSRopeAMP, SwinIRNOUP)
+                                Fea2GSRopeAMP, HATNOUPPaper, SwinIRNOUP)
 from gsasr_torch.models.init import init_weights
 from gsasr_torch.train.trainer import TrainConfig
 
@@ -50,13 +50,10 @@ _STRUCTURAL = {"upscale", "upsampler", "img_size", "img_range", "in_chans",
 _ENCODERS = {"EDSRNOUP": EDSRNOUP, "EDSR": EDSRNOUP,
              "RDNNOUP": RDNNOUP, "RDN": RDNNOUP,
              "SwinIRNOUP": SwinIRNOUP, "SWINNOUP": SwinIRNOUP,
-             "HATNOUP_ROPE_AMP": HATNOUP}
-# Encoders the JAX package trains that the port does not yet, and why.
-_UNPORTED_ENCODERS = {
-    "HATNOUP": (
-        "the paper HAT (hat_paper.py: relative-position bias, SW-MSA masks "
-        "at T = 256) is not ported yet: it needs WM and WMB at window 16"),
-}
+             "HATNOUP_ROPE_AMP": HATNOUP,
+             # the reference's paper HAT (relative-position bias, masked
+             # shifts), not the RoPE variant
+             "HATNOUP": HATNOUPPaper}
 # reference yaml names -> constructor arguments
 _RENAME = {"G0": "g0", "RDNconfig": "config"}
 _DECODERS = {"Fea2GS": Fea2GS, "Fea2GS_ROPE_AMP": Fea2GSRopeAMP,
@@ -85,12 +82,13 @@ def build_networks(opt: Dict[str, Any],
                    generator: Optional[torch.Generator] = None):
     """network_g / network_fea2gs -> (encoder, decoder) on the CPU, every
     weight drawn with the reference initializers from `generator` (default:
-    seeded with the options' manual_seed). The EDSR, RDN, SwinIR and HAT-L
-    (HATNOUP_ROPE_AMP) encoders and both decoders are ported in float32;
-    `model_dtype: bfloat16` (the default of `model_type: GSASRAMPModel`, as
-    in the JAX package) builds EDSR, RDN or HAT-L with the Enhanced decoder
-    in bf16 compute on float32 parameters (configs/train_hatl_ultra.yml is
-    the Ultra recipe)."""
+    seeded with the options' manual_seed). The EDSR, RDN, SwinIR, HAT-L
+    (HATNOUP_ROPE_AMP) and paper HAT (HATNOUP) encoders and both decoders
+    are ported in float32; `model_dtype: bfloat16` (the default of
+    `model_type: GSASRAMPModel`, as in the JAX package) builds any of the
+    encoders with the Enhanced decoder in bf16 compute on float32
+    parameters (configs/train_hatl_ultra.yml is the Ultra recipe,
+    configs/train_swinir_amp.yml SwinIR's)."""
     default = "bfloat16" if "AMP" in str(opt.get("model_type", "")) else \
         "float32"
     model_dtype = str(opt.get("model_dtype", default)).lower()
@@ -99,8 +97,6 @@ def build_networks(opt: Dict[str, Any],
             f"model_dtype {model_dtype!r} (expected one of {sorted(_DTYPES)})")
     dtype = _DTYPES[model_dtype]
     g = dict(opt["network_g"])
-    if g["type"] in _UNPORTED_ENCODERS:
-        raise NotImplementedError(_UNPORTED_ENCODERS[g["type"]])
     enc_cls = _ENCODERS.get(g.pop("type"))
     d = dict(opt["network_fea2gs"])
     dec_cls = _DECODERS.get(d.pop("type"))
@@ -114,11 +110,6 @@ def build_networks(opt: Dict[str, Any],
                 "the paper Fea2GS in bfloat16 (train_edsr_paper_bf16_r3.yml) "
                 "is not ported yet: its module path needs a test of W-bf16 "
                 "and WB-bf16 with the bias table against JAX")
-        if enc_cls is SwinIRNOUP:
-            raise NotImplementedError(
-                "SwinIR in bfloat16 (train_swinir_amp.yml) is not ported "
-                "yet: it needs bfloat16 forms of the masked kernels WM and "
-                "WMB")
         g["dtype"] = d["dtype"] = dtype
     if generator is None:
         generator = torch.Generator().manual_seed(

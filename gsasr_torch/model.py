@@ -78,8 +78,8 @@ def make_models(encoder: str = "edsr", version: str = "paper", *,
     'ultra' (Fea2GSRopeAMP with the encoder's settings, `ENHANCED_CFG`;
     HAT-L's is the Ultra model). dtype: the modules' compute type on float32
     parameters, `gsasr_tpu/model.py`'s keyword; torch.bfloat16 (the
-    reference's --AMP_test) is taken by EDSR, RDN and HAT-L with the
-    Enhanced / Ultra decoder. Callers pad with `DENOMINATORS[encoder]`
+    reference's --AMP_test) is taken by every encoder with the Enhanced /
+    Ultra decoder. Callers pad with `DENOMINATORS[encoder]`
     (`sr_forward(..., denominator=...)`), 16 for the window-16 decoders of
     SwinIR and HAT-L."""
     dev = resolve_device(device)
@@ -91,12 +91,11 @@ def make_models(encoder: str = "edsr", version: str = "paper", *,
         raise NotImplementedError(f"dtype {dtype}")
     kw = {}
     if dtype == torch.bfloat16:
-        if version == "paper" or encoder == "swinir":
+        if version == "paper":
             raise NotImplementedError(
-                f"make_models('{encoder}', '{version}') in bfloat16: the "
-                "port has bf16 forms of EDSR, RDN and HAT-L with the "
-                "Enhanced / Ultra decoder only (the paper Fea2GS and SwinIR "
-                "in bf16 are not ported)")
+                f"make_models('{encoder}', 'paper') in bfloat16: the port "
+                "has the bf16 forms of the Enhanced / Ultra decoder only "
+                "(the paper Fea2GS in bf16 is not ported)")
         kw = dict(dtype=dtype)
     if generator is None:
         generator = torch.Generator().manual_seed(0)

@@ -8,11 +8,19 @@ LeakyReLU 0.01). NHWC in and out, under the reference `state_dict` keys
 
 Every window attention goes through `window_attention_packed`: the
 unshifted blocks' through kernels W and WB on the card, the shifted
-blocks' with the SW-MSA mask through WM and WMB. The mask is built on the
-device with torch ops, once per (h, w, ws, shift, device). The bias tables'
+blocks' with the SW-MSA mask through WM and WMB (W-bf16, WB-bf16, WM-bf16
+and WMB-bf16 in bfloat16). The mask is built on the device with torch ops,
+once per (h, w, ws, shift, device). The bias tables'
 gradients are kernel T's ordered sums. Stochastic depth (DropPath, a
 linspace of rates over all blocks) is active in training mode and draws
 from the generator passed to `forward`.
+
+With `dtype=torch.bfloat16` (configs/train_swinir_amp.yml's GSASRAMPModel)
+every module computes in bfloat16 on float32 parameters with flax's
+`dtype=` semantics (`models/common.py`): each Dense and Conv rounds its
+product, then adds its bias; a LayerNorm rounds once; exact GELU, the
+residual adds, the rolls and DropPath run in bfloat16. The bias tables and
+the mask stay float32, as in the JAX module.
 """
 
 from __future__ import annotations
@@ -25,7 +33,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from gsasr_torch.models.common import MLP, DropPath, LayerNorm
+from gsasr_torch.models.common import (MLP, Conv2d, DropPath, LayerNorm,
+                                       Linear)
 from gsasr_torch.models.fea2gs import (conv_nhwc, self_attn_rel_pos_index,
                                        to_lattice, window_partition)
 from gsasr_torch.ops.attention import window_attention_packed
@@ -52,7 +61,8 @@ class WindowAttention(nn.Module):
     """W-MSA with a relative-position bias (reference `swinir.py:177-259`):
     one qkv projection split into contiguous thirds, then proj."""
 
-    def __init__(self, dim: int, window_size: int, num_heads: int):
+    def __init__(self, dim: int, window_size: int, num_heads: int,
+                 dtype=torch.float32):
         super().__init__()
         self.num_heads = num_heads
         rows = (2 * window_size - 1) ** 2
@@ -60,8 +70,8 @@ class WindowAttention(nn.Module):
         self.relative_position_bias_table = nn.Parameter(
             torch.empty(rows, num_heads))
         register_bias_index(self, index, rows)
-        self.qkv = nn.Linear(dim, 3 * dim)
-        self.proj = nn.Linear(dim, dim)
+        self.qkv = Linear(dim, 3 * dim, dtype)
+        self.proj = Linear(dim, dim, dtype)
 
     def forward(self, x, mask=None):
         """x: (B_, ws*ws, C) windows; mask: (nW, ws*ws, ws*ws) or None."""
@@ -79,15 +89,17 @@ class SwinBlock(nn.Module):
     by the same DropPath."""
 
     def __init__(self, dim: int, num_heads: int, window_size: int,
-                 shift_size: int, mlp_ratio: float, drop_path: float = 0.0):
+                 shift_size: int, mlp_ratio: float, drop_path: float = 0.0,
+                 dtype=torch.float32):
         super().__init__()
         self.window_size = window_size
         self.shift_size = shift_size
-        self.norm1 = LayerNorm(dim)
-        self.attn = WindowAttention(dim, window_size, num_heads)
+        self.norm1 = LayerNorm(dim, dtype)
+        self.attn = WindowAttention(dim, window_size, num_heads, dtype)
         self.drop_path = DropPath(drop_path)
-        self.norm2 = LayerNorm(dim)
-        self.mlp = MLP(dim, int(dim * mlp_ratio), dim, act=F.gelu)
+        self.norm2 = LayerNorm(dim, dtype)
+        self.mlp = MLP(dim, int(dim * mlp_ratio), dim, act=F.gelu,
+                       dtype=dtype)
 
     def forward(self, x, generator=None):
         b, h, w, _ = x.shape
@@ -114,13 +126,14 @@ class RSTB(nn.Module):
     conv, and a residual."""
 
     def __init__(self, dim: int, depth: int, num_heads: int, window_size: int,
-                 mlp_ratio: float, drop_path: Sequence[float]):
+                 mlp_ratio: float, drop_path: Sequence[float],
+                 dtype=torch.float32):
         super().__init__()
         self.residual_group = nn.ModuleDict({"blocks": nn.ModuleList(
             SwinBlock(dim, num_heads, window_size,
                       0 if i % 2 == 0 else window_size // 2, mlp_ratio,
-                      drop_path[i]) for i in range(depth))})
-        self.conv = nn.Conv2d(dim, dim, 3, padding=1)
+                      drop_path[i], dtype) for i in range(depth))})
+        self.conv = Conv2d(dim, dim, 3, padding=1, dtype=dtype)
 
     def forward(self, x, generator=None):
         y = x
@@ -130,29 +143,35 @@ class RSTB(nn.Module):
 
 
 class SwinIRNOUP(nn.Module):
-    """(B, H, W, 3) -> (B, H, W, num_feat) NHWC; H and W multiples of
-    window_size (sr_forward pads to 24: `DENOMINATORS["swinir"]`)."""
+    """(B, H, W, 3) -> (B, H, W, num_feat) NHWC in `dtype`; H and W
+    multiples of window_size (sr_forward pads to 24: `DENOMINATORS
+    ["swinir"]`)."""
 
     def __init__(self, embed_dim: int = 180,
                  depths: Sequence[int] = (6, 6, 6, 6, 6, 6),
                  num_heads: Sequence[int] = (6, 6, 6, 6, 6, 6),
                  window_size: int = 8, mlp_ratio: float = 2.0,
-                 num_feat: int = 64, drop_path_rate: float = 0.1):
+                 num_feat: int = 64, drop_path_rate: float = 0.1,
+                 dtype=torch.float32):
         super().__init__()
         self.window_size = window_size
         self.drop_path_rate = drop_path_rate
+        self.dtype = dtype
         # stochastic depth: a linspace over all blocks (`swinir.py:877`)
         dpr = np.linspace(0, drop_path_rate, sum(depths)).tolist()
-        self.conv_first = nn.Conv2d(3, embed_dim, 3, padding=1)
-        self.patch_embed = nn.ModuleDict({"norm": LayerNorm(embed_dim)})
+        self.conv_first = Conv2d(3, embed_dim, 3, padding=1, dtype=dtype)
+        self.patch_embed = nn.ModuleDict({"norm": LayerNorm(embed_dim,
+                                                            dtype)})
         offs = np.cumsum([0, *depths])
         self.layers = nn.ModuleList(
             RSTB(embed_dim, d, num_heads[i], window_size, mlp_ratio,
-                 dpr[offs[i]:offs[i + 1]]) for i, d in enumerate(depths))
-        self.norm = LayerNorm(embed_dim)
-        self.conv_after_body = nn.Conv2d(embed_dim, embed_dim, 3, padding=1)
+                 dpr[offs[i]:offs[i + 1]], dtype)
+            for i, d in enumerate(depths))
+        self.norm = LayerNorm(embed_dim, dtype)
+        self.conv_after_body = Conv2d(embed_dim, embed_dim, 3, padding=1,
+                                      dtype=dtype)
         self.conv_before_upsample = nn.Sequential(
-            nn.Conv2d(embed_dim, num_feat, 3, padding=1),
+            Conv2d(embed_dim, num_feat, 3, padding=1, dtype=dtype),
             nn.LeakyReLU(0.01))
 
     def forward(self, x, generator: Optional[torch.Generator] = None):

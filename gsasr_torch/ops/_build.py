@@ -5,9 +5,9 @@ with a plain C interface (nvcc, sm_90a), written to
 `build/gsasr_torch_kernels/` at the root of the checkout and keyed by a hash
 of the sources and flags, then loaded with ctypes. Each library exports an
 entry point of the same name and, where `SOURCES` says so, others (the
-masked and bfloat16 forms of W and WB, the window-16 forms of W, WB and
-A, and the bfloat16 forms of MB and AB live in the same sources). Each
-entry point's C signature is declared in `SIGNATURES`: it takes its
+masked and bfloat16 forms of W and WB, the window-16 forms of W, WB, WM,
+WMB and A, and the bfloat16 forms of MB and AB live in the same sources).
+Each entry point's C signature is declared in `SIGNATURES`: it takes its
 pointers and the CUDA stream as `void*` and returns `cudaGetLastError()`
 after its launches; `launch` raises when that is not 0.
 """
@@ -45,6 +45,12 @@ SIGNATURES = {
     "window_attn_fwd_long_bf16": "pppppiiiiif",
     "window_attn_bwd_long": "p" * 11 + "iiiii" + "f",
     "window_attn_bwd_long_bf16": "p" * 11 + "iiiii" + "f",
+    "window_attn_fwd_masked_bf16": "ppppppiiiiiif",
+    "window_attn_bwd_masked_bf16": "p" * 11 + "iiiiiif",
+    "window_attn_fwd_long_masked": "ppppppiiiiiif",
+    "window_attn_fwd_long_masked_bf16": "ppppppiiiiiif",
+    "window_attn_bwd_long_masked": "p" * 12 + "iiiiii" + "f",
+    "window_attn_bwd_long_masked_bf16": "p" * 12 + "iiiiii" + "f",
     "ln_attn_long": "p" * 23 + "iiiiii" + "f",
     "raster_bwd": "ppppppiiii",
     "ln_mlp_bwd": "p" * 16 + "iiiiii",
@@ -62,6 +68,12 @@ SOURCES = {"window_attn_fwd_masked": "window_attn_fwd",
            "window_attn_fwd_long_bf16": "window_attn_fwd",
            "window_attn_bwd_long": "window_attn_bwd",
            "window_attn_bwd_long_bf16": "window_attn_bwd",
+           "window_attn_fwd_masked_bf16": "window_attn_fwd",
+           "window_attn_bwd_masked_bf16": "window_attn_bwd",
+           "window_attn_fwd_long_masked": "window_attn_fwd",
+           "window_attn_fwd_long_masked_bf16": "window_attn_fwd",
+           "window_attn_bwd_long_masked": "window_attn_bwd",
+           "window_attn_bwd_long_masked_bf16": "window_attn_bwd",
            "ln_attn_long": "ln_attn",
            "ln_mlp_bwd_bf16": "ln_mlp_bwd",
            "ln_attn_bwd_bf16": "ln_attn_bwd"}

@@ -12,19 +12,19 @@ Operands keep the projections' packed (B, T, C) layout: head h is columns
 Without a mask the forward is kernel W (`csrc/window_attn_fwd.cu`) and the
 backward kernel WB (`csrc/window_attn_bwd.cu`); with the (nW, Tq, Tk)
 additive mask of Swin's shifted windows they are kernels WM and WMB, the
-masked forms of the same sources. With bfloat16 q, k, v (the Enhanced
-decoder's bf16 module path) they are W-bf16 and WB-bf16, the bfloat16
-forms of W and WB, which round where the Pallas bodies round: scores and
-softmax in f32, p rounded to bfloat16 before the PV product, out in
-bfloat16; in the backward p is recomputed in f32 and not rounded, and dq,
-dk, dv come out in bfloat16 while dbias stays f32. The masked forms take
-float32 only. Windows of more than `_MAX_T` tokens (HAT's 256, OCAB's
-256 x 576) take W-long and W-long-bf16 forward and WB-long and
-WB-long-bf16 backward, the window-16 forms of W and WB, which walk the
-keys (and, backward, the queries) in tiles; a masked window of more than
-`_MAX_T` tokens raises (WM and WMB have no window-16 form yet). Each pair
-sits inside one autograd Function; the mask is a constant and gets no
-gradient. CPU tensors take the plain versions beside the wrappers.
+masked forms of the same sources. With bfloat16 q, k, v (the bf16 module
+paths: the Enhanced decoder, SwinIR and the HATs in bf16) they are W-bf16
+and WB-bf16 (WM-bf16 and WMB-bf16 with a mask), which round where the
+Pallas bodies round: scores and softmax in f32, p rounded to bfloat16
+before the PV product, out in bfloat16; in the backward p is recomputed in
+f32 and not rounded, and dq, dk, dv come out in bfloat16 while dbias stays
+f32. Windows of more than `_MAX_T` tokens (HAT's 256, OCAB's 256 x 576)
+take the window-16 forms, which walk the keys (and, backward, the queries)
+in tiles: W-long and WB-long, and with a mask (the paper HAT's shifted
+windows) WM-long and WMB-long, each also in bfloat16. Each pair sits inside
+one autograd Function, which picks it by (mask, type, length); the mask is
+a constant and gets no gradient. CPU tensors take the plain versions beside
+the wrappers.
 """
 
 from __future__ import annotations
@@ -106,12 +106,7 @@ def window_attention_packed_bwd_plain(q, k, v, bias, g, scale: float,
 
 def _check_mask(q, k, mask):
     """A window mask is (nW, Tq, Tk) and its period divides the window
-    count, as the JAX package requires; the masked forms take float32
-    operands only."""
-    if q.dtype == torch.bfloat16:
-        raise NotImplementedError(
-            "masked window attention in bfloat16: kernels WM and WMB take "
-            "float32 only (their bf16 forms come with SwinIR's bf16 slice)")
+    count, as the JAX package requires."""
     b, tq = q.shape[:2]
     if mask.dim() != 3 or mask.shape[1:] != (tq, k.shape[1]):
         raise ValueError(f"window mask {tuple(mask.shape)} is not (nW, "
@@ -128,15 +123,17 @@ def _long(q, k) -> bool:
 
 def _check(q, k, v, bias, num_heads: int, dtype, extra=(), mask=None,
            max_t=_MAX_T):
-    """q, k, v (and `extra`) of `dtype` (float32, or bfloat16 for W-bf16 and
-    WB-bf16); bias and mask float32; Tq, Tk <= max_t (None: any, W-long)."""
+    """q, k, v (and `extra`) of `dtype` (float32, or bfloat16 for the bf16
+    forms); bias and mask float32; Tq, Tk <= max_t (None: any, the
+    window-16 forms)."""
     b, tq, c = q.shape
     tk = k.shape[1]
     if mask is not None:
         _check_mask(q, k, mask)
-        _build.check_tensor(mask, "mask")
     for t, name in ((q, "q"), (k, "k"), (v, "v"), *extra):
         _build.check_tensor(t, name, dtype)
+    if mask is not None:
+        _build.check_tensor(mask, "mask")
     if bias is not None:
         _build.check_tensor(bias, "bias")
     if (k.shape != (b, tk, c) or v.shape != k.shape or c % num_heads
@@ -150,43 +147,48 @@ def _check(q, k, v, bias, num_heads: int, dtype, extra=(), mask=None,
             "Tk)")
 
 
-# Entry points of the unmasked forms by operand type.
-_FWD = {torch.float32: "window_attn_fwd",
-        torch.bfloat16: "window_attn_fwd_bf16"}
-_FWD_LONG = {torch.float32: "window_attn_fwd_long",
-             torch.bfloat16: "window_attn_fwd_long_bf16"}
-_BWD = {torch.float32: "window_attn_bwd",
-        torch.bfloat16: "window_attn_bwd_bf16"}
-_BWD_LONG = {torch.float32: "window_attn_bwd_long",
-             torch.bfloat16: "window_attn_bwd_long_bf16"}
+# Entry points by (masked, window-16) form and operand type.
+_F32, _BF16 = torch.float32, torch.bfloat16
+_FWD = {(False, False): {_F32: "window_attn_fwd",
+                         _BF16: "window_attn_fwd_bf16"},
+        (True, False): {_F32: "window_attn_fwd_masked",
+                        _BF16: "window_attn_fwd_masked_bf16"},
+        (False, True): {_F32: "window_attn_fwd_long",
+                        _BF16: "window_attn_fwd_long_bf16"},
+        (True, True): {_F32: "window_attn_fwd_long_masked",
+                       _BF16: "window_attn_fwd_long_masked_bf16"}}
+_BWD = {(False, False): {_F32: "window_attn_bwd",
+                         _BF16: "window_attn_bwd_bf16"},
+        (True, False): {_F32: "window_attn_bwd_masked",
+                        _BF16: "window_attn_bwd_masked_bf16"},
+        (False, True): {_F32: "window_attn_bwd_long",
+                        _BF16: "window_attn_bwd_long_bf16"},
+        (True, True): {_F32: "window_attn_bwd_long_masked",
+                       _BF16: "window_attn_bwd_long_masked_bf16"}}
 
 
-def _fwd(q, k, v, bias, mask, scale: float, num_heads: int, dtype):
-    """Launch kernel W (W-bf16 for bfloat16 `dtype`), or WM when `mask` is
-    given; returns out."""
-    _check(q, k, v, bias, num_heads, dtype, mask=mask)
+def _mask_args(mask):
+    """What a masked entry point takes besides the unmasked one's arguments:
+    the mask after the bias, and its period before the scale (nothing and
+    nothing without a mask)."""
+    return ((), ()) if mask is None else ((mask.contiguous(),),
+                                          (mask.shape[0],))
+
+
+def _fwd(q, k, v, bias, mask, scale: float, num_heads: int, dtype,
+         long: bool = False):
+    """Launch kernel W (W-bf16 for bfloat16 `dtype`), WM with `mask`, or
+    their window-16 forms with `long` (W-long, WM-long and their bf16
+    forms); returns out."""
+    _check(q, k, v, bias, num_heads, dtype, mask=mask,
+           max_t=None if long else _MAX_T)
     b, tq, c = q.shape
     out = torch.empty((b, tq, c), dtype=dtype, device=q.device)
-    ops = (q.contiguous(), k.contiguous(), v.contiguous(),
-           None if bias is None else bias.contiguous())
-    dims = (b, tq, k.shape[1], c, num_heads)
-    if mask is None:
-        _build.launch(_FWD[dtype], *ops, out, *dims, float(scale))
-    else:
-        _build.launch("window_attn_fwd_masked", *ops, mask.contiguous(), out,
-                      *dims, mask.shape[0], float(scale))
-    return out
-
-
-def _fwd_long(q, k, v, bias, scale: float, num_heads: int, dtype):
-    """Launch kernel W-long (W-long-bf16 for bfloat16 `dtype`); returns
-    out."""
-    _check(q, k, v, bias, num_heads, dtype, max_t=None)
-    b, tq, c = q.shape
-    out = torch.empty((b, tq, c), dtype=dtype, device=q.device)
-    _build.launch(_FWD_LONG[dtype], q.contiguous(), k.contiguous(),
-                  v.contiguous(), None if bias is None else bias.contiguous(),
-                  out, b, tq, k.shape[1], c, num_heads, float(scale))
+    m, nw = _mask_args(mask)
+    _build.launch(_FWD[mask is not None, long][dtype], q.contiguous(),
+                  k.contiguous(), v.contiguous(),
+                  None if bias is None else bias.contiguous(), *m, out, b,
+                  tq, k.shape[1], c, num_heads, *nw, float(scale))
     return out
 
 
@@ -208,42 +210,27 @@ def _bwd_outputs(q, k, v, bias, g, num_heads: int, dtype, max_t, mask=None):
     return b, tq, tk, c, dq, dk, dv, dbias
 
 
-def _bwd(q, k, v, bias, mask, g, scale: float, num_heads: int, dtype):
-    """Launch kernel WB (WB-bf16 for bfloat16 `dtype`), or WMB when `mask`
-    is given; returns (dq, dk, dv, dbias or None)."""
+def _bwd(q, k, v, bias, mask, g, scale: float, num_heads: int, dtype,
+         long: bool = False):
+    """Launch kernel WB (WB-bf16 for bfloat16 `dtype`), WMB with `mask`, or
+    their window-16 forms with `long` (WB-long, WMB-long and their bf16
+    forms); returns (dq, dk, dv, dbias or None)."""
     b, tq, tk, c, dq, dk, dv, dbias = _bwd_outputs(
-        q, k, v, bias, g, num_heads, dtype, _MAX_T, mask)
-    # per-window ds (B, nh, Tq, Tk), f32 whatever the operand type: dk's
-    # operand, and dbias's partial sums
-    ds = torch.empty((b, num_heads, tq, tk), dtype=torch.float32,
-                     device=q.device)
-    ops = (q.contiguous(), k.contiguous(), v.contiguous(),
-           None if bias is None else bias.contiguous())
-    outs = (g.contiguous(), dq, dk, dv, ds, dbias, b, tq, tk, c, num_heads)
-    if mask is None:
-        _build.launch(_BWD[dtype], *ops, *outs, float(scale))
-    else:
-        _build.launch("window_attn_bwd_masked", *ops, mask.contiguous(),
-                      *outs, mask.shape[0], float(scale))
-    return dq, dk, dv, dbias
-
-
-def _bwd_long(q, k, v, bias, g, scale: float, num_heads: int, dtype):
-    """Launch kernel WB-long (WB-long-bf16 for bfloat16 `dtype`); returns
-    (dq, dk, dv, dbias or None)."""
-    b, tq, tk, c, dq, dk, dv, dbias = _bwd_outputs(
-        q, k, v, bias, g, num_heads, dtype, None)
-    # each query row's (max, sum, D); with a bias, the per-window ds that
-    # dbias sums in window order
-    stats = torch.empty((b, num_heads, tq, 3), dtype=torch.float32,
-                        device=q.device)
-    ds = (None if bias is None else
-          torch.empty((b, num_heads, tq, tk), dtype=torch.float32,
-                      device=q.device))
-    _build.launch(_BWD_LONG[dtype], q.contiguous(), k.contiguous(),
-                  v.contiguous(), None if bias is None else bias.contiguous(),
-                  g.contiguous(), dq, dk, dv, stats, ds, dbias, b, tq, tk, c,
-                  num_heads, float(scale))
+        q, k, v, bias, g, num_heads, dtype, None if long else _MAX_T, mask)
+    f32 = dict(dtype=torch.float32, device=q.device)
+    # WB's per-window ds (B, nh, Tq, Tk), f32 whatever the operand type:
+    # dk's operand and dbias's partial sums; the window-16 forms keep each
+    # query row's (max, sum, D) and need ds only for dbias's ordered sum
+    ds = (None if long and bias is None else
+          torch.empty((b, num_heads, tq, tk), **f32))
+    scratch = (torch.empty((b, num_heads, tq, 3), **f32), ds) if long \
+        else (ds,)
+    m, nw = _mask_args(mask)
+    _build.launch(_BWD[mask is not None, long][dtype], q.contiguous(),
+                  k.contiguous(), v.contiguous(),
+                  None if bias is None else bias.contiguous(), *m,
+                  g.contiguous(), dq, dk, dv, *scratch, dbias, b, tq, tk, c,
+                  num_heads, *nw, float(scale))
     return dq, dk, dv, dbias
 
 
@@ -313,7 +300,7 @@ def window_attention_packed_long_fwd(q, k, v, bias, scale: float,
     W-long on CUDA tensors, the plain version on CPU tensors."""
     if q.device.type == "cpu":
         return window_attention_packed_plain(q, k, v, bias, scale, num_heads)
-    out = _fwd_long(q, k, v, bias, scale, num_heads, torch.float32)
+    out = _fwd(q, k, v, bias, None, scale, num_heads, torch.float32, True)
     window_attention_packed_long_fwd.launches += 1
     return out
 
@@ -328,7 +315,8 @@ def window_attention_packed_long_bf16_fwd(q, k, v, bias, scale: float,
     tensors."""
     if q.device.type == "cpu":
         return window_attention_packed_plain(q, k, v, bias, scale, num_heads)
-    out = _fwd_long(q, k, v, bias, scale, num_heads, torch.bfloat16)
+    out = _fwd(q, k, v, bias, None, scale, num_heads, torch.bfloat16,
+               True)
     window_attention_packed_long_bf16_fwd.launches += 1
     return out
 
@@ -344,7 +332,8 @@ def window_attention_packed_long_bwd(q, k, v, bias, g, scale: float,
     if q.device.type == "cpu":
         return window_attention_packed_bwd_plain(q, k, v, bias, g, scale,
                                                  num_heads)
-    out = _bwd_long(q, k, v, bias, g, scale, num_heads, torch.float32)
+    out = _bwd(q, k, v, bias, None, g, scale, num_heads, torch.float32,
+               True)
     window_attention_packed_long_bwd.launches += 1
     return out
 
@@ -360,7 +349,8 @@ def window_attention_packed_long_bf16_bwd(q, k, v, bias, g, scale: float,
     if q.device.type == "cpu":
         return window_attention_packed_bwd_plain(q, k, v, bias, g, scale,
                                                  num_heads)
-    out = _bwd_long(q, k, v, bias, g, scale, num_heads, torch.bfloat16)
+    out = _bwd(q, k, v, bias, None, g, scale, num_heads, torch.bfloat16,
+               True)
     window_attention_packed_long_bf16_bwd.launches += 1
     return out
 
@@ -400,50 +390,156 @@ def window_attention_packed_masked_bwd(q, k, v, bias, mask, g, scale: float,
 window_attention_packed_masked_bwd.launches = 0
 
 
+def window_attention_packed_masked_bf16_fwd(q, k, v, bias, mask,
+                                            scale: float, num_heads: int):
+    """Forward of the masked attention with bfloat16 q, k, v (bias and mask
+    float32): kernel WM-bf16 on CUDA tensors, the plain version on CPU
+    tensors. Returns bfloat16."""
+    if q.device.type == "cpu":
+        _check_mask(q, k, mask)
+        return window_attention_packed_plain(q, k, v, bias, scale, num_heads,
+                                             mask)
+    out = _fwd(q, k, v, bias, mask, scale, num_heads, torch.bfloat16)
+    window_attention_packed_masked_bf16_fwd.launches += 1
+    return out
+
+
+window_attention_packed_masked_bf16_fwd.launches = 0
+
+
+def window_attention_packed_masked_bf16_bwd(q, k, v, bias, mask, g,
+                                            scale: float, num_heads: int):
+    """Backward of the masked attention with bfloat16 q, k, v and g: kernel
+    WMB-bf16 on CUDA tensors, the plain version on CPU tensors. Returns
+    (dq, dk, dv in bfloat16, dbias float32 or None)."""
+    if q.device.type == "cpu":
+        _check_mask(q, k, mask)
+        return window_attention_packed_bwd_plain(q, k, v, bias, g, scale,
+                                                 num_heads, mask)
+    out = _bwd(q, k, v, bias, mask, g, scale, num_heads, torch.bfloat16)
+    window_attention_packed_masked_bf16_bwd.launches += 1
+    return out
+
+
+window_attention_packed_masked_bf16_bwd.launches = 0
+
+
+def window_attention_packed_long_masked_fwd(q, k, v, bias, mask,
+                                            scale: float, num_heads: int):
+    """Forward of the masked attention in float32 for any Tq and Tk: kernel
+    WM-long on CUDA tensors, the plain version on CPU tensors."""
+    if q.device.type == "cpu":
+        _check_mask(q, k, mask)
+        return window_attention_packed_plain(q, k, v, bias, scale, num_heads,
+                                             mask)
+    out = _fwd(q, k, v, bias, mask, scale, num_heads, torch.float32, True)
+    window_attention_packed_long_masked_fwd.launches += 1
+    return out
+
+
+window_attention_packed_long_masked_fwd.launches = 0
+
+
+def window_attention_packed_long_masked_bf16_fwd(q, k, v, bias, mask,
+                                                 scale: float,
+                                                 num_heads: int):
+    """Forward of the masked attention with bfloat16 q, k, v for any Tq and
+    Tk: kernel WM-long-bf16 on CUDA tensors, the plain version on CPU
+    tensors."""
+    if q.device.type == "cpu":
+        _check_mask(q, k, mask)
+        return window_attention_packed_plain(q, k, v, bias, scale, num_heads,
+                                             mask)
+    out = _fwd(q, k, v, bias, mask, scale, num_heads, torch.bfloat16, True)
+    window_attention_packed_long_masked_bf16_fwd.launches += 1
+    return out
+
+
+window_attention_packed_long_masked_bf16_fwd.launches = 0
+
+
+def window_attention_packed_long_masked_bwd(q, k, v, bias, mask, g,
+                                            scale: float, num_heads: int):
+    """Backward of the masked attention in float32 for any Tq and Tk:
+    kernel WMB-long on CUDA tensors, the plain version on CPU tensors.
+    Returns (dq, dk, dv, dbias or None)."""
+    if q.device.type == "cpu":
+        _check_mask(q, k, mask)
+        return window_attention_packed_bwd_plain(q, k, v, bias, g, scale,
+                                                 num_heads, mask)
+    out = _bwd(q, k, v, bias, mask, g, scale, num_heads, torch.float32, True)
+    window_attention_packed_long_masked_bwd.launches += 1
+    return out
+
+
+window_attention_packed_long_masked_bwd.launches = 0
+
+
+def window_attention_packed_long_masked_bf16_bwd(q, k, v, bias, mask, g,
+                                                 scale: float,
+                                                 num_heads: int):
+    """Backward of the masked attention with bfloat16 q, k, v and g for any
+    Tq and Tk: kernel WMB-long-bf16 on CUDA tensors, the plain version on
+    CPU tensors. Returns (dq, dk, dv in bfloat16, dbias float32 or
+    None)."""
+    if q.device.type == "cpu":
+        _check_mask(q, k, mask)
+        return window_attention_packed_bwd_plain(q, k, v, bias, g, scale,
+                                                 num_heads, mask)
+    out = _bwd(q, k, v, bias, mask, g, scale, num_heads, torch.bfloat16,
+               True)
+    window_attention_packed_long_masked_bf16_bwd.launches += 1
+    return out
+
+
+window_attention_packed_long_masked_bf16_bwd.launches = 0
+
+# The (forward, backward) wrappers of each form by (masked, bfloat16,
+# window-16); the masked ones take the mask after the bias.
+_FORMS = {
+    (False, False, False): (window_attention_packed_fwd,
+                            window_attention_packed_bwd),
+    (False, True, False): (window_attention_packed_bf16_fwd,
+                           window_attention_packed_bf16_bwd),
+    (False, False, True): (window_attention_packed_long_fwd,
+                           window_attention_packed_long_bwd),
+    (False, True, True): (window_attention_packed_long_bf16_fwd,
+                          window_attention_packed_long_bf16_bwd),
+    (True, False, False): (window_attention_packed_masked_fwd,
+                           window_attention_packed_masked_bwd),
+    (True, True, False): (window_attention_packed_masked_bf16_fwd,
+                          window_attention_packed_masked_bf16_bwd),
+    (True, False, True): (window_attention_packed_long_masked_fwd,
+                          window_attention_packed_long_masked_bwd),
+    (True, True, True): (window_attention_packed_long_masked_bf16_fwd,
+                         window_attention_packed_long_masked_bf16_bwd),
+}
+
+
 class _PackedWindowAttention(torch.autograd.Function):
-    """Forward W and backward WB (W-bf16 and WB-bf16 for bfloat16 operands),
-    or WM and WMB with a mask (the custom VJPs of `_packed_window_attention`
-    and `_masked_packed_window_attention` in the JAX package); windows of
-    more than `_MAX_T` tokens take W-long and WB-long (W-long-bf16 and
-    WB-long-bf16), and with a mask raise. The mask gets no gradient where
-    JAX returns zeros for it."""
+    """One (forward, backward) pair of `_FORMS`, picked by the mask, the
+    operand type and the window length: W and WB (the custom VJP of
+    `_packed_window_attention` in the JAX package), WM and WMB with a mask
+    (`_masked_packed_window_attention`'s), their bf16 forms, and the
+    window-16 forms of all four beyond `_MAX_T` tokens. The mask gets no
+    gradient where JAX returns zeros for it."""
 
     @staticmethod
     def forward(ctx, q, k, v, bias, mask, scale, num_heads):
         ctx.save_for_backward(q, k, v, bias, mask)
         ctx.scale, ctx.num_heads = scale, num_heads
-        if mask is not None:
-            if _long(q, k):
-                raise NotImplementedError(
-                    f"masked window attention at Tq {q.shape[1]}, Tk "
-                    f"{k.shape[1]} (> {_MAX_T}) needs the window-16 forms "
-                    "of WM and WMB, which are not ported (the paper HAT)")
-            return window_attention_packed_masked_fwd(q, k, v, bias, mask,
-                                                      scale, num_heads)
-        bf16 = q.dtype == torch.bfloat16
-        if _long(q, k):
-            fwd = (window_attention_packed_long_bf16_fwd if bf16
-                   else window_attention_packed_long_fwd)
-        else:
-            fwd = (window_attention_packed_bf16_fwd if bf16
-                   else window_attention_packed_fwd)
-        return fwd(q, k, v, bias, scale, num_heads)
+        fwd, _ = _FORMS[mask is not None, q.dtype == torch.bfloat16,
+                        _long(q, k)]
+        ops = (q, k, v, bias) if mask is None else (q, k, v, bias, mask)
+        return fwd(*ops, scale, num_heads)
 
     @staticmethod
     def backward(ctx, g):
         q, k, v, bias, mask = ctx.saved_tensors
-        if mask is None:
-            bf16 = q.dtype == torch.bfloat16
-            if _long(q, k):
-                bwd = (window_attention_packed_long_bf16_bwd if bf16
-                       else window_attention_packed_long_bwd)
-            else:
-                bwd = (window_attention_packed_bf16_bwd if bf16
-                       else window_attention_packed_bwd)
-            grads = bwd(q, k, v, bias, g, ctx.scale, ctx.num_heads)
-        else:
-            grads = window_attention_packed_masked_bwd(
-                q, k, v, bias, mask, g, ctx.scale, ctx.num_heads)
+        _, bwd = _FORMS[mask is not None, q.dtype == torch.bfloat16,
+                        _long(q, k)]
+        ops = (q, k, v, bias) if mask is None else (q, k, v, bias, mask)
+        grads = bwd(*ops, g, ctx.scale, ctx.num_heads)
         return (*grads, None, None, None)
 
 
@@ -454,10 +550,9 @@ def window_attention_packed(q, k, v, bias: Optional[torch.Tensor] = None, *,
     k, v and bias.
 
     q: (B, Tq, C); k, v: (B, Tk, C), all float32 or all bfloat16; bias:
-    (num_heads, Tq, Tk) float32 or None; window_mask: (nW, Tq, Tk) or None
-    (float32 operands only), added to window w's scores as
-    window_mask[w % nW] (B must be a multiple of nW). Returns (B, Tq, C) in
-    q's type."""
+    (num_heads, Tq, Tk) float32 or None; window_mask: (nW, Tq, Tk) float32
+    or None, added to window w's scores as window_mask[w % nW] (B must be a
+    multiple of nW). Returns (B, Tq, C) in q's type."""
     if scale is None:
         scale = (q.shape[-1] // num_heads) ** -0.5
     return _PackedWindowAttention.apply(q, k, v, bias, window_mask,

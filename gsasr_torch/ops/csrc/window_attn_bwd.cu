@@ -1,6 +1,7 @@
 // Kernel WB: packed multi-head window attention, backward; kernel WMB, its
-// masked form; kernel WB-bf16, its form with bfloat16 operands; and
-// WB-long and WB-long-bf16, its window-16 forms for any Tq and Tk.
+// masked form; kernels WB-bf16 and WMB-bf16, their forms with bfloat16
+// operands; and WB-long, WB-long-bf16, WMB-long and WMB-long-bf16, the
+// window-16 forms of all four for any Tq and Tk.
 //
 // WB replaces _attn_kernel_packed_bwd of gsasr_tpu/ops/attention.py
 // (reached from _attention_packed_pallas_bwd, the custom VJP of
@@ -9,7 +10,11 @@
 // window_mask); WB-bf16 replaces _attn_kernel_packed_bwd with bfloat16
 // operands (the Enhanced decoder's bf16 module path); WB-long and
 // WB-long-bf16 replace it at windows beyond WB's 160 keys (HAT-L Ultra
-// training: 256 x 256 and OCAB's 256 x 576). Per window w and
+// training: 256 x 256 and OCAB's 256 x 576). WMB-bf16 replaces
+// _attn_kernel_packed_masked_bwd with bfloat16 operands (SwinIR's shifted
+// blocks at the bf16 recipe, train_swinir_amp.yml), and WMB-long and
+// WMB-long-bf16 replace it at windows beyond 160 keys (the paper HAT's
+// shifted 256-token windows, fp32 and bf16). Per window w and
 // head h, with the softmax recomputed from
 // q, k, bias (and mask[w % nW]) as kernels W and WM compute it:
 //
@@ -45,6 +50,15 @@
 // operations (0.24 ms at 67 TFLOP/s). Its design (window_attn_long_bwd.cuh)
 // forms ten such products on the CUDA cores in f32, twice the function's,
 // to keep every output owned by one block and every sum in one order.
+//
+// WMB-bf16 at SwinIR's training shape (576 windows x 6 heads x 64 x 64 x
+// 30) does 4.2 GFLOP, 0.004 ms at the bf16 tensor-core peak, against 58 MB
+// (bf16 q, k, v, g, dq, dk, dv; f32 bias, dbias, mask): bound by bytes.
+// WMB-long at the paper HAT's training shape (144 windows x 6 heads x 256
+// x 256 x 30) does 17 GFLOP, 0.25 ms at the FP32 peak; WMB-long-bf16 the
+// same products against about 98 MB of bf16 operands and f32 bias, dbias
+// and mask: bound by bytes. The masked forms read one mask entry per
+// score, from the window class's rows, which stay in L2.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -54,36 +68,41 @@
 
 namespace {
 
-// The launches of WB-long (T float) and WB-long-bf16 (T __nv_bfloat16):
-// dq and the rows' statistics per query tile, then dk and dv per key tile,
-// then (dbias given) the ordered sum of ds_w over the windows.
-template <typename T>
+// The launches of WB-long (T float) and WB-long-bf16 (T __nv_bfloat16), or
+// with kMask WMB-long and WMB-long-bf16 (mask (nW, Tq, Tk), B a multiple of
+// nW): dq and the rows' statistics per query tile, then dk and dv per key
+// tile, then (dbias given) the ordered sum of ds_w over the windows.
+template <typename T, bool kMask = false>
 cudaError_t launch_window_attn_bwd_long(const T* q, const T* k, const T* v,
                                         const float* bias, const T* g, T* dq,
                                         T* dk, T* dv, float* stats,
                                         float* ds_w, float* dbias, int B,
                                         int Tq, int Tk, int C, int nh,
-                                        float scale, cudaStream_t st) {
-  if (!gsasr::long_shape_ok(B, Tq, Tk, C, nh) || (dbias && !ds_w))
+                                        float scale, cudaStream_t st,
+                                        const float* mask = nullptr,
+                                        int nW = 1) {
+  if (!gsasr::long_shape_ok(B, Tq, Tk, C, nh) || (dbias && !ds_w) ||
+      nW < 1 || B % nW != 0 || (kMask && !mask))
     return cudaErrorInvalidValue;
   const size_t smem = gsasr::long_bwd_smem_bytes(C / nh);
   cudaError_t err = cudaFuncSetAttribute(
-      gsasr::window_attn_bwd_long_q_kernel<T>,
+      gsasr::window_attn_bwd_long_q_kernel<T, kMask>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
   if (err != cudaSuccess) return err;
-  err = cudaFuncSetAttribute(gsasr::window_attn_bwd_long_kv_kernel<T>,
+  err = cudaFuncSetAttribute(gsasr::window_attn_bwd_long_kv_kernel<T, kMask>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
                              static_cast<int>(smem));
   if (err != cudaSuccess) return err;
-  gsasr::window_attn_bwd_long_q_kernel<T>
+  gsasr::window_attn_bwd_long_q_kernel<T, kMask>
       <<<gsasr::long_grid(nh, B, Tq), kThreads, smem, st>>>(
           q, k, v, bias, g, dq, stats, dbias ? ds_w : nullptr, Tq, Tk, C, nh,
-          scale);
+          scale, mask, nW);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  gsasr::window_attn_bwd_long_kv_kernel<T>
+  gsasr::window_attn_bwd_long_kv_kernel<T, kMask>
       <<<dim3(nh, B, (Tk + gsasr::kLK - 1) / gsasr::kLK), kThreads, smem,
-         st>>>(q, k, v, bias, g, dk, dv, stats, Tq, Tk, C, nh, scale);
+         st>>>(q, k, v, bias, g, dk, dv, stats, Tq, Tk, C, nh, scale, mask,
+               nW);
   err = cudaGetLastError();
   if (err != cudaSuccess || !dbias) return err;
   const int n = nh * Tq * Tk;
@@ -117,6 +136,19 @@ extern "C" int window_attn_bwd_masked(const float* q, const float* k,
                                       int Tk, int C, int nh, int nW,
                                       float scale, void* stream) {
   return static_cast<int>(launch_window_attn_bwd<false, true>(
+      q, k, v, bias, g, dq, dk, dv, ds_w, dbias, nullptr, B, Tq, Tk, C, nh,
+      scale, static_cast<cudaStream_t>(stream), mask, nW));
+}
+
+// Kernel WMB-bf16: as window_attn_bwd_masked with q, k, v, g, dq, dk and
+// dv bfloat16; bias, mask, ds_w and dbias float32.
+extern "C" int window_attn_bwd_masked_bf16(
+    const __nv_bfloat16* q, const __nv_bfloat16* k, const __nv_bfloat16* v,
+    const float* bias, const float* mask, const __nv_bfloat16* g,
+    __nv_bfloat16* dq, __nv_bfloat16* dk, __nv_bfloat16* dv, float* ds_w,
+    float* dbias, int B, int Tq, int Tk, int C, int nh, int nW, float scale,
+    void* stream) {
+  return static_cast<int>(launch_window_attn_bwd<false, true, __nv_bfloat16>(
       q, k, v, bias, g, dq, dk, dv, ds_w, dbias, nullptr, B, Tq, Tk, C, nh,
       scale, static_cast<cudaStream_t>(stream), mask, nW));
 }
@@ -162,4 +194,29 @@ extern "C" int window_attn_bwd_long_bf16(
   return static_cast<int>(launch_window_attn_bwd_long<__nv_bfloat16>(
       q, k, v, bias, g, dq, dk, dv, stats, ds_w, dbias, B, Tq, Tk, C, nh,
       scale, static_cast<cudaStream_t>(stream)));
+}
+
+// Kernel WMB-long: as window_attn_bwd_long, plus mask (nW, Tq, Tk) float32,
+// window w taking mask[w % nW]; B must be a multiple of nW.
+extern "C" int window_attn_bwd_long_masked(
+    const float* q, const float* k, const float* v, const float* bias,
+    const float* mask, const float* g, float* dq, float* dk, float* dv,
+    float* stats, float* ds_w, float* dbias, int B, int Tq, int Tk, int C,
+    int nh, int nW, float scale, void* stream) {
+  return static_cast<int>(launch_window_attn_bwd_long<float, true>(
+      q, k, v, bias, g, dq, dk, dv, stats, ds_w, dbias, B, Tq, Tk, C, nh,
+      scale, static_cast<cudaStream_t>(stream), mask, nW));
+}
+
+// Kernel WMB-long-bf16: as window_attn_bwd_long_masked with q, k, v, g, dq,
+// dk and dv bfloat16; bias, mask, stats, ds_w and dbias float32.
+extern "C" int window_attn_bwd_long_masked_bf16(
+    const __nv_bfloat16* q, const __nv_bfloat16* k, const __nv_bfloat16* v,
+    const float* bias, const float* mask, const __nv_bfloat16* g,
+    __nv_bfloat16* dq, __nv_bfloat16* dk, __nv_bfloat16* dv, float* stats,
+    float* ds_w, float* dbias, int B, int Tq, int Tk, int C, int nh, int nW,
+    float scale, void* stream) {
+  return static_cast<int>(launch_window_attn_bwd_long<__nv_bfloat16, true>(
+      q, k, v, bias, g, dq, dk, dv, stats, ds_w, dbias, B, Tq, Tk, C, nh,
+      scale, static_cast<cudaStream_t>(stream), mask, nW));
 }

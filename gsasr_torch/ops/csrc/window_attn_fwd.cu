@@ -1,12 +1,16 @@
 // Kernel W: packed multi-head window attention, forward; with kMask, kernel
-// WM, its masked form; with bfloat16 operands, kernel W-bf16.
+// WM, its masked form; with bfloat16 operands, kernels W-bf16 and WM-bf16;
+// and W-long, W-long-bf16, WM-long and WM-long-bf16, the window-16 forms
+// of all four.
 //
 // W replaces _attn_kernel_packed of gsasr_tpu/ops/attention.py (reached
 // from _attention_packed_pallas, the forward of window_attention_packed
 // without a mask) with float32 operands, and W-bf16 the same body with
 // bfloat16 operands (the Enhanced decoder's bf16 module path, through
 // _sdpa_packed); WM replaces _attn_kernel_packed_masked (reached from
-// _attention_packed_pallas_masked, the forward with a window_mask). Per
+// _attention_packed_pallas_masked, the forward with a window_mask), and
+// WM-bf16 the same body with bfloat16 operands (SwinIR's shifted blocks at
+// the bf16 recipe, train_swinir_amp.yml). Per
 // window w and head h, on the packed (B, T, C) layout where head h is
 // columns [h*hd, (h+1)*hd):
 //
@@ -57,6 +61,16 @@
 // where the bound counts two: 7.2 GFLOP (HAB) and 16.3 GFLOP (OCAB)
 // against 67 TFLOP/s, 0.108 and 0.243 ms, over 113 and 193 MB of q, k, v
 // and out at 3.35 TB/s, 0.034 and 0.058 ms. Bound by operations.
+//
+// WM-long and WM-long-bf16 replace _attn_kernel_packed_masked beyond 160
+// tokens: the paper HAT's shifted windows of 16 (144 windows x 6 heads x
+// 256 x 256 x 30, with a bias and the SW-MSA mask of period 9 or 144), the
+// same body with the mask added after the bias in each pass (a template
+// flag, so W-long and A-long keep their code). WM-long does 6.8 GFLOP,
+// 0.10 ms at the FP32 peak; WM-long-bf16 moves 53 MB of bf16 q, k, v and
+// out, 1.6 MB of bias and up to 38 MB of mask (period 144), 0.027 ms:
+// bound by bytes. WM-bf16 at SwinIR's shape (576 windows, T 64) moves 53
+// MB of bf16 operands and up to 9.4 MB of mask: bound by bytes too.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -87,8 +101,9 @@ __host__ __device__ size_t smem_bytes(const HeadLayout& L, int Tk) {
          (L.q_floats + 2 * L.kv_floats + static_cast<size_t>(kWarps) * kQRows * Tk);
 }
 
-// The body of W (kMask false, T float), W-bf16 (T __nv_bfloat16) and WM
-// (kMask true, T float), one block per (head, window).
+// The body of W (kMask false, T float), W-bf16 (T __nv_bfloat16), WM
+// (kMask true, T float) and WM-bf16 (kMask true, T __nv_bfloat16), one
+// block per (head, window).
 template <bool kMask, typename T>
 __device__ __forceinline__ void window_attn_fwd_body(
     const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
@@ -199,12 +214,29 @@ window_attn_fwd_masked_kernel(const float* __restrict__ q,
                                     nW, scale);
 }
 
-// The kernel of a form: WM (float only), W or W-bf16.
+// WM-bf16, held to four blocks per SM as WM is.
+__global__ void __launch_bounds__(kThreads, 4)
+window_attn_fwd_masked_bf16_kernel(const __nv_bfloat16* __restrict__ q,
+                                   const __nv_bfloat16* __restrict__ k,
+                                   const __nv_bfloat16* __restrict__ v,
+                                   const float* __restrict__ bias,
+                                   const float* __restrict__ mask,
+                                   __nv_bfloat16* __restrict__ out, int Tq,
+                                   int Tk, int C, int nh, int nW,
+                                   float scale) {
+  window_attn_fwd_body<true, __nv_bfloat16>(q, k, v, bias, mask, out, Tq, Tk,
+                                            C, nh, nW, scale);
+}
+
+// The kernel of a form: W, W-bf16, WM or WM-bf16.
 template <bool kMask, typename T>
 constexpr auto fwd_kernel() {
-  if constexpr (kMask)
+  constexpr bool kF32 = std::is_same_v<T, float>;
+  if constexpr (kMask && kF32)
     return window_attn_fwd_masked_kernel;
-  else if constexpr (std::is_same_v<T, float>)
+  else if constexpr (kMask)
+    return window_attn_fwd_masked_bf16_kernel;
+  else if constexpr (kF32)
     return window_attn_fwd_kernel;
   else
     return window_attn_fwd_bf16_kernel;
@@ -240,19 +272,47 @@ window_attn_fwd_long_kernel(const T* __restrict__ q, const T* __restrict__ k,
                                       scale);
 }
 
+// WM-long (T float) and WM-long-bf16 (T __nv_bfloat16): W-long's body with
+// the mask; a kernel of its own, so W-long's does not move.
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+window_attn_fwd_long_masked_kernel(const T* __restrict__ q,
+                                   const T* __restrict__ k,
+                                   const T* __restrict__ v,
+                                   const float* __restrict__ bias,
+                                   const float* __restrict__ mask,
+                                   T* __restrict__ out, int Tq, int Tk, int C,
+                                   int nh, int nW, float scale) {
+  gsasr::window_attn_fwd_long_body<T, true>(q, k, v, bias, out, Tq, Tk, C,
+                                            nh, scale, mask, nW);
+}
+
+// W-long, or with a mask (nW, Tq, Tk; B a multiple of nW) WM-long.
 template <typename T>
 cudaError_t launch_fwd_long(const T* q, const T* k, const T* v,
                             const float* bias, T* out, int B, int Tq, int Tk,
-                            int C, int nh, float scale, cudaStream_t st) {
-  if (!gsasr::long_shape_ok(B, Tq, Tk, C, nh)) return cudaErrorInvalidValue;
+                            int C, int nh, float scale, cudaStream_t st,
+                            const float* mask = nullptr, int nW = 1) {
+  if (!gsasr::long_shape_ok(B, Tq, Tk, C, nh) || nW < 1 || B % nW != 0)
+    return cudaErrorInvalidValue;
   const size_t smem = gsasr::long_smem_bytes(C / nh);
-  cudaError_t err = cudaFuncSetAttribute(
-      window_attn_fwd_long_kernel<T>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+  const dim3 grid = gsasr::long_grid(nh, B, Tq);
+  cudaError_t err;
+  if (mask) {
+    err = cudaFuncSetAttribute(window_attn_fwd_long_masked_kernel<T>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               static_cast<int>(smem));
+    if (err != cudaSuccess) return err;
+    window_attn_fwd_long_masked_kernel<T><<<grid, kThreads, smem, st>>>(
+        q, k, v, bias, mask, out, Tq, Tk, C, nh, nW, scale);
+    return cudaGetLastError();
+  }
+  err = cudaFuncSetAttribute(window_attn_fwd_long_kernel<T>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             static_cast<int>(smem));
   if (err != cudaSuccess) return err;
-  window_attn_fwd_long_kernel<T><<<gsasr::long_grid(nh, B, Tq), kThreads,
-                                   smem, st>>>(q, k, v, bias, out, Tq, Tk, C,
-                                               nh, scale);
+  window_attn_fwd_long_kernel<T><<<grid, kThreads, smem, st>>>(
+      q, k, v, bias, out, Tq, Tk, C, nh, scale);
   return cudaGetLastError();
 }
 
@@ -293,6 +353,17 @@ extern "C" int window_attn_fwd_masked(const float* q, const float* k,
       static_cast<cudaStream_t>(stream)));
 }
 
+// Kernel WM-bf16: as window_attn_fwd_masked with q, k, v and out
+// bfloat16; bias and mask float32.
+extern "C" int window_attn_fwd_masked_bf16(
+    const __nv_bfloat16* q, const __nv_bfloat16* k, const __nv_bfloat16* v,
+    const float* bias, const float* mask, __nv_bfloat16* out, int B, int Tq,
+    int Tk, int C, int nh, int nW, float scale, void* stream) {
+  return static_cast<int>(launch_fwd<true, __nv_bfloat16>(
+      q, k, v, bias, mask, out, B, Tq, Tk, C, nh, nW, scale,
+      static_cast<cudaStream_t>(stream)));
+}
+
 // Kernel W-long: as window_attn_fwd for any Tq and Tk (the window-16 form).
 extern "C" int window_attn_fwd_long(const float* q, const float* k,
                                     const float* v, const float* bias,
@@ -314,4 +385,28 @@ extern "C" int window_attn_fwd_long_bf16(const __nv_bfloat16* q,
   return static_cast<int>(launch_fwd_long<__nv_bfloat16>(
       q, k, v, bias, out, B, Tq, Tk, C, nh, scale,
       static_cast<cudaStream_t>(stream)));
+}
+
+// Kernel WM-long: as window_attn_fwd_masked for any Tq and Tk.
+extern "C" int window_attn_fwd_long_masked(const float* q, const float* k,
+                                           const float* v, const float* bias,
+                                           const float* mask, float* out,
+                                           int B, int Tq, int Tk, int C,
+                                           int nh, int nW, float scale,
+                                           void* stream) {
+  if (!mask) return static_cast<int>(cudaErrorInvalidValue);
+  return static_cast<int>(launch_fwd_long<float>(
+      q, k, v, bias, out, B, Tq, Tk, C, nh, scale,
+      static_cast<cudaStream_t>(stream), mask, nW));
+}
+
+// Kernel WM-long-bf16: as window_attn_fwd_masked_bf16 for any Tq and Tk.
+extern "C" int window_attn_fwd_long_masked_bf16(
+    const __nv_bfloat16* q, const __nv_bfloat16* k, const __nv_bfloat16* v,
+    const float* bias, const float* mask, __nv_bfloat16* out, int B, int Tq,
+    int Tk, int C, int nh, int nW, float scale, void* stream) {
+  if (!mask) return static_cast<int>(cudaErrorInvalidValue);
+  return static_cast<int>(launch_fwd_long<__nv_bfloat16>(
+      q, k, v, bias, out, B, Tq, Tk, C, nh, scale,
+      static_cast<cudaStream_t>(stream), mask, nW));
 }

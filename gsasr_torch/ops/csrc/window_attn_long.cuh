@@ -4,9 +4,15 @@
 // ln_attn.cu (the attention of A-long). Per window w and head h, on the
 // packed (B, T, C) layout where head h is columns [h*hd, (h+1)*hd):
 //
-//   s = q_h k_h^T * scale (+ bias[h])     (Tq x Tk, f32)
+//   s = q_h k_h^T * scale (+ bias[h]) (+ mask[w % nW])   (Tq x Tk, f32)
 //   p = softmax(s) with the row max subtracted, rounded to T
 //   out[w, :, h*hd:(h+1)*hd] = p v_h      (f32 sums, stored as T)
+//
+// The mask (kMask, the masked forms WM-long and WM-long-bf16 of
+// window_attn_fwd.cu and the backward's WMB-long) is the per-window-class
+// additive mask of Swin's shifted windows at window 16 (the paper HAT's
+// 256-token windows), added after the bias. It is a template flag, so the
+// unmasked forms (W-long, A-long) compile as without it.
 //
 // W's T <= 160 body holds a whole score row in a warp's registers and one
 // head's q, k and v in shared memory: 186 KB at 256 x 576. Here a block
@@ -70,18 +76,21 @@ __device__ __forceinline__ void long_stage(const T* __restrict__ src,
   }
 }
 
-// s[r][m] = the scaled (and biased) score of this warp's query row r (rows
-// qw + r * ld of the staged tile) against key l + 32 m of the staged k
-// tile: (q . k) * scale + bias, each step rounded on its own (no
-// contraction), so that both passes compute the same bits. hb is the
-// head's bias at column k0 or null; the bias row of query row i0 + r is
+// s[r][m] = the scaled (biased, masked) score of this warp's query row r
+// (rows qw + r * ld of the staged tile) against key l + 32 m of the staged
+// k tile: (q . k) * scale + bias + mask, each step rounded on its own (no
+// contraction), so that every pass computes the same bits. hb is the
+// head's bias at column k0 or null; with kMask, mb is the window class's
+// mask at column k0. The bias and mask rows of query row i0 + r are
 // clamped to Tq - 1. Keys at or beyond kb read the tile's last key; the
 // callers ignore them.
+template <bool kMask = false>
 __device__ __forceinline__ void long_scores(const float* qw, const float* ks,
                                             int ld, int hd, int kb,
                                             const float* hb, int i0, int Tq,
                                             int Tk, float scale,
-                                            float (&s)[kLRows][kLKeysPer]) {
+                                            float (&s)[kLRows][kLKeysPer],
+                                            const float* mb = nullptr) {
   const int lane = threadIdx.x & 31;
 #pragma unroll
   for (int r = 0; r < kLRows; ++r)
@@ -100,24 +109,36 @@ __device__ __forceinline__ void long_scores(const float* qw, const float* ks,
   }
 #pragma unroll
   for (int r = 0; r < kLRows; ++r) {
-    const float* brow =
-        hb ? hb + static_cast<size_t>(min(i0 + r, Tq - 1)) * Tk : nullptr;
+    const size_t row = static_cast<size_t>(min(i0 + r, Tq - 1)) * Tk;
+    const float* brow = hb ? hb + row : nullptr;
 #pragma unroll
     for (int m = 0; m < kLKeysPer; ++m) {
       s[r][m] = __fmul_rn(s[r][m], scale);
       if (brow) s[r][m] = __fadd_rn(s[r][m], brow[min(lane + 32 * m, kb - 1)]);
+      if constexpr (kMask)
+        s[r][m] = __fadd_rn(s[r][m], mb[row + min(lane + 32 * m, kb - 1)]);
     }
   }
 }
 
+// The (Tq, Tk) mask of window `win`: class win % nW of the (nW, Tq, Tk)
+// mask (the Swin SW-MSA convention); null without one.
+__device__ __forceinline__ const float* long_window_mask(const float* mask,
+                                                        int win, int nW,
+                                                        int Tq, int Tk) {
+  return mask ? mask + static_cast<size_t>(win % nW) * Tq * Tk : nullptr;
+}
+
 // The body, one block of kThreads per (head, window, query tile) of
 // long_grid. q, k, v and out are T (float or __nv_bfloat16) in the packed
-// layout; bias (nh, Tq, Tk) f32 or null.
-template <typename T>
+// layout; bias (nh, Tq, Tk) f32 or null; with kMask, mask (nW, Tq, Tk)
+// f32, window w taking mask[w % nW].
+template <typename T, bool kMask = false>
 __device__ __forceinline__ void window_attn_fwd_long_body(
     const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
     const float* __restrict__ bias, T* __restrict__ out, int Tq, int Tk,
-    int C, int nh, float scale) {
+    int C, int nh, float scale, const float* __restrict__ mask = nullptr,
+    int nW = 1) {
   extern __shared__ float smem[];
   const int hd = C / nh;
   const int ld = hd | 1;
@@ -136,6 +157,8 @@ __device__ __forceinline__ void window_attn_fwd_long_body(
   float* pb = vs + kLK * ld + warp * kLRows * kLK;
   const float* hb =
       bias ? bias + static_cast<size_t>(head) * Tq * Tk : nullptr;
+  const float* wm =
+      kMask ? long_window_mask(mask, win, nW, Tq, Tk) : nullptr;
 
   // the tile's query rows; rows past Tq are zeros, computed and not stored
   long_stage(q, static_cast<size_t>(win) * Tq + q0, rows, C, n0, hd, qs, ld);
@@ -157,8 +180,8 @@ __device__ __forceinline__ void window_attn_fwd_long_body(
     long_stage(k, static_cast<size_t>(win) * Tk + k0, kb, C, n0, hd, ks, ld);
     __syncthreads();
     float s[kLRows][kLKeysPer];
-    long_scores(qw, ks, ld, hd, kb, hb ? hb + k0 : nullptr, q0 + r0, Tq, Tk,
-                scale, s);
+    long_scores<kMask>(qw, ks, ld, hd, kb, hb ? hb + k0 : nullptr, q0 + r0,
+                       Tq, Tk, scale, s, kMask ? wm + k0 : nullptr);
 #pragma unroll
     for (int r = 0; r < kLRows; ++r) {
       float mx = -INFINITY;
@@ -186,8 +209,8 @@ __device__ __forceinline__ void window_attn_fwd_long_body(
     long_stage(v, static_cast<size_t>(win) * Tk + k0, kb, C, n0, hd, vs, ld);
     __syncthreads();
     float s[kLRows][kLKeysPer];
-    long_scores(qw, ks, ld, hd, kb, hb ? hb + k0 : nullptr, q0 + r0, Tq, Tk,
-                scale, s);
+    long_scores<kMask>(qw, ks, ld, hd, kb, hb ? hb + k0 : nullptr, q0 + r0,
+                       Tq, Tk, scale, s, kMask ? wm + k0 : nullptr);
 #pragma unroll
     for (int r = 0; r < kLRows; ++r)
 #pragma unroll

@@ -5,7 +5,8 @@
 // h, on the packed (B, T, C) layout, with the softmax recomputed from q, k
 // and bias as W-long computes it:
 //
-//   p = softmax(q_h k_h^T * scale (+ bias[h]))   (f32, not rounded)
+//   p = softmax(q_h k_h^T * scale (+ bias[h]) (+ mask[w % nW]))
+//                                                (f32, not rounded)
 //   dv = p^T g_h      dp = g_h v_h^T      ds = p (dp - rowsum(dp p))
 //   dq = ds k_h * scale                   dk = ds^T q_h * scale
 //
@@ -33,7 +34,12 @@
 // the bf16 form). Every sum runs in a fixed order and no float atomics are
 // used: two launches give the same bits. bf16 operands widen to f32 as
 // they are staged; dq, dk and dv round once as they are stored; stats,
-// ds_w and dbias are f32.
+// ds_w and dbias are f32. With kMask (WMB-long, WMB-long-bf16: the paper
+// HAT's shifted windows) every recomputed score takes the window class's
+// mask row after the bias, as W-long's masked form does; the mask is a
+// constant and gets no gradient, and dbias stays the ordered sum over
+// windows. The flag is a template parameter of both launches, so WB-long
+// compiles as without it.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -95,16 +101,18 @@ __device__ __forceinline__ void long_dots(const float* gw, const float* vs,
 // p = exp(s - max) / sum of this warp's rows against the staged key tile,
 // unrounded, into prow[r * kLK + j] for keys j < kb (the arguments of
 // long_scores, and each row's max and sum).
+template <bool kMask = false>
 __device__ __forceinline__ void long_probs(const float* qw, const float* ks,
                                            int ld, int hd, int kb,
                                            const float* hb, int i0, int Tq,
                                            int Tk, float scale,
                                            const float (&mrow)[kLRows],
                                            const float (&lrow)[kLRows],
-                                           float* prow) {
+                                           float* prow,
+                                           const float* mb = nullptr) {
   const int lane = threadIdx.x & 31;
   float s[kLRows][kLKeysPer];
-  long_scores(qw, ks, ld, hd, kb, hb, i0, Tq, Tk, scale, s);
+  long_scores<kMask>(qw, ks, ld, hd, kb, hb, i0, Tq, Tk, scale, s, mb);
 #pragma unroll
   for (int r = 0; r < kLRows; ++r)
 #pragma unroll
@@ -134,8 +142,9 @@ __device__ __forceinline__ void long_ds(const float* gw, const float* vs,
 
 // Launch 1, one block of kThreads per (head, window, query tile) of
 // long_grid: dq, each row's (max, sum, D) into stats, and ds into ds_w when
-// it is not null.
-template <typename T>
+// it is not null. With kMask, mask (nW, Tq, Tk), window w taking mask[w %
+// nW].
+template <typename T, bool kMask = false>
 __global__ void __launch_bounds__(kThreads)
 window_attn_bwd_long_q_kernel(const T* __restrict__ q, const T* __restrict__ k,
                               const T* __restrict__ v,
@@ -143,7 +152,8 @@ window_attn_bwd_long_q_kernel(const T* __restrict__ q, const T* __restrict__ k,
                               const T* __restrict__ g, T* __restrict__ dq,
                               float* __restrict__ stats,
                               float* __restrict__ ds_w, int Tq, int Tk, int C,
-                              int nh, float scale) {
+                              int nh, float scale,
+                              const float* __restrict__ mask, int nW) {
   extern __shared__ float smem[];
   const int hd = C / nh;
   const int ld = hd | 1;
@@ -168,6 +178,8 @@ window_attn_bwd_long_q_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const size_t qrow0 = static_cast<size_t>(win) * Tq + q0;
   const size_t krow0 = static_cast<size_t>(win) * Tk;
   const size_t srow0 = (static_cast<size_t>(win) * nh + head) * Tq + q0 + r0;
+  const float* wm =
+      kMask ? long_window_mask(mask, win, nW, Tq, Tk) : nullptr;
 
   long_stage_tile(q, qrow0, rows, C, n0, hd, qs, ld);
   long_stage_tile(g, qrow0, rows, C, n0, hd, gs, ld);
@@ -185,8 +197,8 @@ window_attn_bwd_long_q_kernel(const T* __restrict__ q, const T* __restrict__ k,
     long_stage(k, krow0 + k0, kb, C, n0, hd, ks, ld);
     __syncthreads();
     float s[kLRows][kLKeysPer];
-    long_scores(qw, ks, ld, hd, kb, hb ? hb + k0 : nullptr, q0 + r0, Tq, Tk,
-                scale, s);
+    long_scores<kMask>(qw, ks, ld, hd, kb, hb ? hb + k0 : nullptr, q0 + r0,
+                       Tq, Tk, scale, s, kMask ? wm + k0 : nullptr);
 #pragma unroll
     for (int r = 0; r < kLRows; ++r) {
       float mx = -INFINITY;
@@ -213,8 +225,9 @@ window_attn_bwd_long_q_kernel(const T* __restrict__ q, const T* __restrict__ k,
     long_stage(k, krow0 + k0, kb, C, n0, hd, ks, ld);
     long_stage(v, krow0 + k0, kb, C, n0, hd, vs, ld);
     __syncthreads();
-    long_probs(qw, ks, ld, hd, kb, hb ? hb + k0 : nullptr, q0 + r0, Tq, Tk,
-               scale, mrow, lrow, prow);
+    long_probs<kMask>(qw, ks, ld, hd, kb, hb ? hb + k0 : nullptr, q0 + r0,
+                      Tq, Tk, scale, mrow, lrow, prow,
+                      kMask ? wm + k0 : nullptr);
     float dp[kLRows][kLKeysPer];
     long_dots(gw, vs, ld, hd, kb, dp);
 #pragma unroll
@@ -250,8 +263,9 @@ window_attn_bwd_long_q_kernel(const T* __restrict__ q, const T* __restrict__ k,
     long_stage(k, krow0 + k0, kb, C, n0, hd, ks, ld);
     long_stage(v, krow0 + k0, kb, C, n0, hd, vs, ld);
     __syncthreads();
-    long_probs(qw, ks, ld, hd, kb, hb ? hb + k0 : nullptr, q0 + r0, Tq, Tk,
-               scale, mrow, lrow, prow);
+    long_probs<kMask>(qw, ks, ld, hd, kb, hb ? hb + k0 : nullptr, q0 + r0,
+                      Tq, Tk, scale, mrow, lrow, prow,
+                      kMask ? wm + k0 : nullptr);
     long_ds(gw, vs, ld, hd, kb, drow, prow);
     if (ds_w) {
 #pragma unroll
@@ -283,8 +297,8 @@ window_attn_bwd_long_q_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
 // Launch 2, one block of kThreads per (head, window, key tile of kLK): dv
 // and dk of the tile's keys, the query tiles walked in order with the
-// statistics launch 1 stored.
-template <typename T>
+// statistics launch 1 stored. With kMask, the mask as launch 1 takes it.
+template <typename T, bool kMask = false>
 __global__ void __launch_bounds__(kThreads)
 window_attn_bwd_long_kv_kernel(const T* __restrict__ q,
                                const T* __restrict__ k,
@@ -293,7 +307,8 @@ window_attn_bwd_long_kv_kernel(const T* __restrict__ q,
                                const T* __restrict__ g, T* __restrict__ dk,
                                T* __restrict__ dv,
                                const float* __restrict__ stats, int Tq,
-                               int Tk, int C, int nh, float scale) {
+                               int Tk, int C, int nh, float scale,
+                               const float* __restrict__ mask, int nW) {
   extern __shared__ float smem[];
   const int hd = C / nh;
   const int ld = hd | 1;
@@ -316,6 +331,8 @@ window_attn_bwd_long_kv_kernel(const T* __restrict__ q,
   float* prow = tile + r0 * kLK;
   const float* hb =
       bias ? bias + static_cast<size_t>(head) * Tq * Tk + k0 : nullptr;
+  const float* mb =
+      kMask ? long_window_mask(mask, win, nW, Tq, Tk) + k0 : nullptr;
   const size_t krow0 = static_cast<size_t>(win) * Tk + k0;
   const size_t srow0 = (static_cast<size_t>(win) * nh + head) * Tq;
 
@@ -343,8 +360,8 @@ window_attn_bwd_long_kv_kernel(const T* __restrict__ q,
       lrow[r] = st[1];
       drow[r] = st[2];
     }
-    long_probs(qw, ks, ld, hd, kb, hb, q0 + r0, Tq, Tk, scale, mrow, lrow,
-               prow);
+    long_probs<kMask>(qw, ks, ld, hd, kb, hb, q0 + r0, Tq, Tk, scale, mrow,
+                      lrow, prow, mb);
     // dp, held for ds while the tile holds p for dv
     float dp[kLRows][kLKeysPer];
     long_dots(gw, vs, ld, hd, kb, dp);

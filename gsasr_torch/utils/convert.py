@@ -1,6 +1,7 @@
 """JAX parameter trees -> the port's state_dicts: the inverse of
 `gsasr_tpu/utils/torch_convert.py`'s `convert_edsr`, `convert_rdn`,
-`convert_swinir`, `convert_hat`, `convert_fea2gs` and `convert_fea2gs_rope`.
+`convert_swinir`, `convert_hat`, `convert_hat_paper`, `convert_fea2gs` and
+`convert_fea2gs_rope`.
 
 Trees are nested dicts of arrays. Conv kernels (kH, kW, I, O) become
 weights (O, I, kH, kW); dense kernels (I, O) become (O, I); LayerNorm
@@ -122,7 +123,11 @@ def hat_cab(sd, key, p):
 
 
 def hat_window_attn(sd, key, p):
-    sd[f"{key}.rope_freqs"] = _t(p["rope_freqs"])
+    """The attention of a HAB or an OCAB: RoPE frequencies, or (the paper
+    HAT's) a relative-position bias table."""
+    name = ("relative_position_bias_table"
+            if "relative_position_bias_table" in p else "rope_freqs")
+    sd[f"{key}.{name}"] = _t(p[name])
     _dense(sd, f"{key}.qkv", p["qkv"])
     _dense(sd, f"{key}.proj", p["proj"])
 
@@ -155,6 +160,8 @@ def hat_rhag(sd, key, p):
 
 
 def _hat(p) -> Dict[str, torch.Tensor]:
+    """A HAT tree, the RoPE HAT-L's or the paper HAT's (the same keys but
+    for each attention's bias table in place of its RoPE frequencies)."""
     sd: Dict[str, torch.Tensor] = {}
     _conv(sd, "conv_first", p["conv_first"])
     _ln(sd, "patch_embed.norm", p["patch_embed_norm"])
@@ -168,7 +175,8 @@ def _hat(p) -> Dict[str, torch.Tensor]:
 
 def _encoder(p) -> Dict[str, torch.Tensor]:
     """An EDSR, RDN, SwinIR or HAT tree, told apart by its keys (HAT's
-    groups end in an overlapping cross-attention block)."""
+    groups end in an overlapping cross-attention block; the RoPE HAT's and
+    the paper HAT's attentions hold RoPE frequencies or bias tables)."""
     if "patch_embed_norm" in p:
         return _hat(p) if "overlap_attn" in p["layer_0"] else _swinir(p)
     if "sfenet1" in p:
@@ -225,12 +233,12 @@ def _fea2gs(p) -> Dict[str, torch.Tensor]:
 
 
 def params_from_jax(enc_params, dec_params):
-    """(EDSR, RDN, SwinIR or HAT params; paper Fea2GS or Enhanced
-    Fea2GSRopeAMP params) -> (encoder state_dict, decoder state_dict) with
-    the reference keys. The relative_position_index buffers (paper decoder,
-    SwinIR) are not parameters and are left to the module (see
-    `load_params`). The `hat_*` functions convert one HAT module's tree
-    under a key prefix."""
+    """(EDSR, RDN, SwinIR, HAT-L or paper HAT params; paper Fea2GS or
+    Enhanced Fea2GSRopeAMP params) -> (encoder state_dict, decoder
+    state_dict) with the reference keys. The relative_position_index
+    buffers (paper decoder, SwinIR, paper HAT) are not parameters and are
+    left to the module (see `load_params`). The `hat_*` functions convert
+    one HAT module's tree under a key prefix."""
     return _encoder(enc_params), _fea2gs(dec_params)
 
 

@@ -2,17 +2,21 @@
 """Where the time of one gsasr_torch image or training step goes, on one
 CUDA card.
 
-  python3 scripts/profile_torch_e2e.py [--encoder edsr|swinir|rdn|hat]
-                                       [--enhanced [--fp32-trunk] |
-                                        --train [--fused] [--enhanced]]
-                                       [--iters 3] [--json PATH]
+  python3 scripts/profile_torch_e2e.py
+      [--encoder edsr|swinir|rdn|hat|hat_paper]
+      [--enhanced [--fp32-trunk] | --train [--fused] [--enhanced]]
+      [--iters 3] [--json PATH]
 
 Builds the paper EDSR-GSASR (--encoder swinir or rdn: SwinIR- or
 RDN-GSASR; --encoder hat: the HAT-L Ultra model, padded to 16, or with
 --train the Ultra step at configs/train_hatl_ultra.yml's bf16 recipe, 8
 samples of 64x64 at scales in [1, 16] on the 1024x1024 canvas; with
 --enhanced the Enhanced EDSR-GSASR, whose decoder trunk runs in bf16, or in
-fp32 with --fp32-trunk) with seeded weights, warms up,
+fp32 with --fp32-trunk; --encoder hat_paper: the paper HAT, network_g
+type HATNOUP, with the paper Fea2GS, padded to 48, or with --train its
+step at the paper recipe; --encoder swinir --enhanced --train: SwinIR's
+step at configs/train_swinir_amp.yml's bf16 recipe) with seeded weights,
+warms up,
 then traces with torch.profiler either `sr_forward` on a 180x180 x4 image
 (padded to the encoder's denominator: 192x192 for SwinIR) or, with
 --train, `Trainer.step` of configs/train_<encoder>_paper.yml's recipe on
@@ -49,6 +53,16 @@ sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
 
 FAMILIES = (
     ("R raster_fwd", ("raster_fwd_kernel",)),
+    # the masked forms of the window-16 kernels (the paper HAT's shifted
+    # windows), kernels and instantiations of their own, before the
+    # unmasked forms' names match them
+    ("WM-long window_attn_fwd long masked",
+     ("window_attn_fwd_long_masked_kernel",)),
+    ("WMB-long window_attn_bwd long masked",
+     ("window_attn_bwd_long_q_kernel<float, true",
+      "window_attn_bwd_long_kv_kernel<float, true",
+      "window_attn_bwd_long_q_kernel<__nv_bfloat16, true",
+      "window_attn_bwd_long_kv_kernel<__nv_bfloat16, true")),
     # the window-16 forms: W-long, and A-long's projections, attention and
     # (bf16) out-projection
     ("W-long window_attn_fwd long", ("window_attn_fwd_long_kernel",)),
@@ -59,11 +73,16 @@ FAMILIES = (
     ("A-long out-proj (bf16)", ("out_proj_kernel<__nv_bfloat16, "
                                 "__nv_bfloat16",)),
     ("RB raster_bwd", ("raster_bwd_kernel",)),
-    # WM and W-bf16 are kernels of their own over W's body; WMB and
-    # WB-bf16 instantiations of WB's kernel (kMask true; T bfloat16)
+    # WM, WM-bf16 and W-bf16 are kernels of their own over W's body; WMB,
+    # WMB-bf16 and WB-bf16 instantiations of WB's kernel (kMask true; T
+    # bfloat16)
+    ("WM-bf16 window_attn_fwd masked bf16",
+     ("window_attn_fwd_masked_bf16_kernel",)),
     ("WM window_attn_fwd masked", ("window_attn_fwd_masked_kernel",)),
     ("W-bf16 window_attn_fwd bf16", ("window_attn_fwd_bf16_kernel",)),
     ("W window_attn_fwd", ("window_attn_fwd_kernel",)),
+    ("WMB-bf16 window_attn_bwd masked bf16",
+     ("window_attn_bwd_kernel<false, true, __nv_bfloat16",)),
     ("WMB window_attn_bwd masked", ("window_attn_bwd_kernel<false, true",)),
     ("WB-bf16 window_attn_bwd bf16", ("window_attn_bwd_kernel<false, false, "
                                       "__nv_bfloat16",)),
@@ -107,12 +126,14 @@ def main() -> int:
     ap.add_argument("--fused", action="store_true",
                     help="with --train: the fused decoder")
     ap.add_argument("--encoder", default="edsr",
-                    choices=("edsr", "swinir", "rdn", "hat"),
+                    choices=("edsr", "swinir", "rdn", "hat", "hat_paper"),
                     help="the paper GSASR of this encoder (hat: HAT-L "
-                    "Ultra; with --train its bf16 recipe)")
+                    "Ultra, with --train its bf16 recipe; hat_paper: the "
+                    "paper HAT)")
     ap.add_argument("--enhanced", action="store_true",
                     help="trace sr_forward of the Enhanced EDSR-GSASR (with "
-                    "--train: its step at the bf16 recipe)")
+                    "--train: its step at the bf16 recipe, or SwinIR's with "
+                    "--encoder swinir)")
     ap.add_argument("--fp32-trunk", action="store_true",
                     help="with --enhanced: the decoder trunk in fp32")
     ap.add_argument("--iters", type=int, default=3)
@@ -123,16 +144,27 @@ def main() -> int:
         return 2
     from gsasr_torch.model import DENOMINATORS, make_models, sr_forward
 
-    if args.enhanced and (args.encoder != "edsr" or args.fused and not
-                          args.train or args.train and args.fp32_trunk):
+    swinir_amp = args.encoder == "swinir" and args.enhanced
+    if args.enhanced and (
+            args.encoder not in ("edsr", "swinir")
+            or args.fused and not args.train
+            or args.train and args.fp32_trunk
+            or swinir_amp and (args.fused or not args.train)):
         ap.error("--enhanced traces EDSR (its step on the module decoder, "
-                 "or with --fused the fused one)")
+                 "or with --fused the fused one), or with --encoder swinir "
+                 "--train SwinIR's bf16 step on the module decoder")
     ultra = args.encoder == "hat"
-    if ultra and (args.enhanced or args.fused):
+    hat_paper = args.encoder == "hat_paper"
+    if (ultra or hat_paper) and (args.enhanced or args.fused):
         ap.error("--encoder hat traces HAT-L Ultra (--train: its bf16 "
-                 "recipe on the module decoder)")
+                 "recipe on the module decoder), hat_paper the paper HAT "
+                 "(--train: the paper recipe on the module decoder)")
     trunk = torch.float32 if args.fp32_trunk else None
-    if args.train and (args.enhanced or ultra):
+    denominator = DENOMINATORS.get(args.encoder, 48)
+    if hat_paper:
+        from chip_smoke import hat_paper_networks
+        enc, dec = (m.cuda().eval() for m in hat_paper_networks())
+    elif args.train and (args.enhanced or ultra):
         from chip_smoke import enhanced_networks
         enc, dec = enhanced_networks(args.encoder)
     else:
@@ -164,7 +196,7 @@ def main() -> int:
 
         def run(i):
             sr_forward(enc, dec, lq, 4.0, trunk_dtype=trunk,
-                       denominator=DENOMINATORS[args.encoder])
+                       denominator=denominator)
     for i in range(2):
         run(i)
     torch.cuda.synchronize()
@@ -203,7 +235,9 @@ def main() -> int:
         encoder=args.encoder,
         decoder=("Ultra, bf16 recipe (module)" if ultra and args.train
                  else "Ultra, bf16 trunk" if ultra else "paper"
-                 if not args.enhanced else "Enhanced, fp32 trunk"
+                 if not args.enhanced else
+                 "Enhanced, SwinIR's bf16 recipe (module)" if swinir_amp
+                 else "Enhanced, fp32 trunk"
                  if args.fp32_trunk else "Enhanced, bf16 recipe (fused)"
                  if args.train and args.fused else
                  "Enhanced, bf16 recipe (module)" if args.train else

@@ -267,19 +267,30 @@ def test_bf16_plain_rounds_where_the_pallas_bodies_round():
 
 
 def test_bf16_forms_raise_where_not_ported():
-    """A masked bf16 call raises on the CPU as on the card (WM and WMB take
-    float32 only); the float32 entry points refuse bf16 operands and the
-    bf16 ones float32, before any launch (meta tensors stand in for CUDA
-    ones); CPU tensors never count a launch."""
+    """A masked bf16 call no longer raises (WM-bf16 and WMB-bf16 are
+    ported): on the CPU it takes the plain version and counts no launch;
+    the float32 entry points refuse bf16 operands and the bf16 ones float32
+    (the masked ones too), before any launch (meta tensors stand in for
+    CUDA ones); CPU tensors never count a launch."""
     x = torch.zeros(6, 4, 6, dtype=torch.bfloat16)
-    with pytest.raises(NotImplementedError, match="WM and WMB"):
-        ta.window_attention_packed(x, x, x, num_heads=2,
-                                   window_mask=torch.zeros(3, 4, 4))
+    mask = torch.zeros(3, 4, 4)
+    nm = ta.window_attention_packed_masked_bf16_fwd.launches
+    out = ta.window_attention_packed(x, x, x, num_heads=2, window_mask=mask)
+    assert out.dtype == torch.bfloat16
+    assert torch.equal(out, ta.window_attention_packed(x, x, x, num_heads=2))
+    assert ta.window_attention_packed_masked_bf16_fwd.launches == nm
     for dt, fn in ((torch.bfloat16, ta.window_attention_packed_fwd),
                    (torch.float32, ta.window_attention_packed_bf16_fwd)):
         meta = torch.empty(6, 4, 6, device="meta", dtype=dt)
         with pytest.raises(TypeError):
             fn(meta, meta, meta, None, 0.5, 2)
+    for dt, fn in ((torch.bfloat16, ta.window_attention_packed_masked_fwd),
+                   (torch.float32,
+                    ta.window_attention_packed_masked_bf16_fwd)):
+        meta = torch.empty(6, 4, 6, device="meta", dtype=dt)
+        with pytest.raises(TypeError):
+            fn(meta, meta, meta, None, torch.empty(3, 4, 4, device="meta"),
+               0.5, 2)
     n = ta.window_attention_packed_bf16_fwd.launches
     m = ta.window_attention_packed_bf16_bwd.launches
     y = ta.window_attention_packed(x.requires_grad_(), x, x, num_heads=2)
@@ -287,6 +298,57 @@ def test_bf16_forms_raise_where_not_ported():
     assert ta.window_attention_packed_bf16_fwd.launches == n
     assert ta.window_attention_packed_bf16_bwd.launches == m
 
+
+# (masked, bf16, window-16) of each form; the launch arguments of each are
+# checked against its entry point's C signature
+FORMS = sorted(ta._FORMS)
+
+
+@pytest.mark.parametrize("masked,bf16,long", FORMS)
+def test_each_form_launches_its_entry_point(monkeypatch, masked, bf16, long):
+    """Each of the eight forms (W, WM, their bf16 and window-16 forms; WB,
+    WMB alike) passes its entry point the arguments its C signature
+    declares, the mask right after the bias and its period before the
+    scale, with the scratch the entry point takes: ctypes stands in for the
+    library and CPU tensors for CUDA ones (no card here)."""
+    from gsasr_torch.ops import _build
+
+    calls = []
+
+    def fake(name):
+        def call(*args):
+            calls.append((name, args))
+            return 0
+        return call
+
+    monkeypatch.setattr(_build, "check_tensor", lambda *a, **k: None)
+    monkeypatch.setattr(_build, "_libs", {n: fake(n) for n in
+                                          _build.SIGNATURES})
+    monkeypatch.setattr(torch.cuda, "current_stream",
+                        lambda: type("S", (), {"cuda_stream": 0})())
+    dt = torch.bfloat16 if bf16 else torch.float32
+    t = 200 if long else 16
+    b, c, nh, nw = 4, 12, 3, 2
+    q = torch.zeros(b, t, c, dtype=dt)
+    bias = torch.zeros(nh, t, t)
+    mask = torch.zeros(nw, t, t) if masked else None
+    ta._fwd(q, q, q, bias, mask, 0.5, nh, dt, long)
+    ta._bwd(q, q, q, bias, mask, q, 0.5, nh, dt, long)
+    fwd, bwd = (n[dt] for n in (ta._FWD[masked, long], ta._BWD[masked, long]))
+    assert [n for n, _ in calls] == [fwd, bwd]
+    for name, args in calls:
+        sig = _build.SIGNATURES[name]
+        ints = [a for a, k in zip(args, sig) if k == "i"]
+        assert ints[:5] == [b, t, t, c, nh] and ints[5:] == (
+            [nw] if masked else []), name
+        assert args[3] == bias.data_ptr(), name
+        if masked:
+            assert args[4] == mask.data_ptr(), name
+    # the backward's scratch after dv: ds (WB's), or each row's statistics
+    # and ds (the window-16 forms, ds for dbias's sum)
+    _, bargs = calls[1]
+    scratch = bargs[8 + masked:9 + masked + long]
+    assert all(isinstance(a, int) and a for a in scratch)
 
 
 # (windows, Tq, Tk, C, heads): HAT's window of 16 (256 tokens) and OCAB's
@@ -296,13 +358,15 @@ WINDOW16_CASES = [(2, 256, 256, 16, 2, "f32"), (2, 256, 576, 16, 2, "f32"),
                   (2, 256, 256, 16, 2, "bf16")]
 
 
-def _window16_vjp(b, tq, tk, c, nh, dt, bias, seed):
+def _window16_vjp(b, tq, tk, c, nh, dt, bias, seed, nw=0):
     """Forward and VJP of window attention beyond W's 160 keys through the
-    port (W-long and WB-long's plain versions, or their bf16 forms) and
-    through JAX (K11 and K12 in interpret mode), from the same inputs: a
-    list of (name, port, JAX) pairs of out, dq, dk, dv (in the operand
-    type) and dbias (f32) where a bias is given."""
+    port (W-long and WB-long's plain versions, or their bf16 forms; with a
+    mask of period nw, WM-long and WMB-long's) and through JAX (K11 and K12,
+    or K13 and K13b, in interpret mode), from the same inputs: a list of
+    (name, port, JAX) pairs of out, dq, dk, dv (in the operand type) and
+    dbias (f32) where a bias is given."""
     q, k, v, bs, g = _inputs(b, tq, tk, c, nh, bias, seed=seed)
+    mask = _mask(nw, tq, tk, seed=seed + 1) if nw else None
     tdt = torch.bfloat16 if dt == "bf16" else torch.float32
     jdt = jnp.bfloat16 if dt == "bf16" else jnp.float32
     ops = [torch.from_numpy(a).to(tdt) for a in (q, k, v)]
@@ -313,13 +377,15 @@ def _window16_vjp(b, tq, tk, c, nh, dt, bias, seed):
         jops.append(jnp.asarray(bs))
 
     def jfwd(*a):
-        return jattn(*a[:3], a[3] if bias else None, num_heads=nh)
+        return jattn(*a[:3], a[3] if bias else None, num_heads=nh,
+                     window_mask=None if mask is None else jnp.asarray(mask))
 
     jout, vjp = jax.vjp(jfwd, *jops)
     jgrads = vjp(jnp.asarray(gt.float().numpy()).astype(jdt))
     tens = [t.requires_grad_() for t in ops]
-    out = ta.window_attention_packed(*tens[:3], tens[3] if bias else None,
-                                     num_heads=nh)
+    out = ta.window_attention_packed(
+        *tens[:3], tens[3] if bias else None, num_heads=nh,
+        window_mask=None if mask is None else torch.from_numpy(mask))
     out.backward(gt)
     tj = [torch.from_numpy(np.array(x.astype(jnp.float32))) for x in
           (jout, *jgrads)]
@@ -349,33 +415,58 @@ def test_window16_matches_jax_and_backward_raises(b, tq, tk, c, nh, dt):
     and WB-long, W-long-bf16 and WB-long-bf16): K11 and K12 in interpret
     mode against the port's plain versions through the autograd Function,
     forward and VJP. The backward no longer raises (WB's window-16 form is
-    ported); a masked window of this length still does
+    ported), nor does a masked window of this length
     (`test_window16_mask_raises`)."""
     _assert_window16(_window16_vjp(b, tq, tk, c, nh, dt, False, seed=7), dt)
 
 
-# (windows, Tq, Tk, C, heads, dtype, bias): HAT-L's 256 x 256 and OCAB's
-# 256 x 576 at a narrow C of 6 heads, with and without a bias, fp32 and
-# bf16 operands
-WINDOW16_VJP_CASES = [(2, 256, 256, 24, 6, "f32", True),
-                      (2, 256, 576, 24, 6, "f32", True),
-                      (2, 256, 256, 24, 6, "bf16", True),
-                      (2, 256, 576, 24, 6, "bf16", True),
-                      (2, 256, 576, 24, 6, "bf16", False)]
+# (windows, Tq, Tk, C, heads, dtype, bias, mask period): HAT-L's 256 x 256
+# and OCAB's 256 x 576 at a narrow C of 6 heads, with and without a bias,
+# fp32 and bf16 operands; and the paper HAT's shifted windows, 256 x 256
+# with a bias and a mask of period 1 and 2 (WM-long and WMB-long, fp32 and
+# bf16)
+WINDOW16_VJP_CASES = [(2, 256, 256, 24, 6, "f32", True, 0),
+                      (2, 256, 576, 24, 6, "f32", True, 0),
+                      (2, 256, 256, 24, 6, "bf16", True, 0),
+                      (2, 256, 576, 24, 6, "bf16", True, 0),
+                      (2, 256, 576, 24, 6, "bf16", False, 0),
+                      (2, 256, 256, 24, 6, "f32", True, 1),
+                      (2, 256, 256, 24, 6, "f32", True, 2),
+                      (2, 256, 256, 24, 6, "bf16", True, 1),
+                      (2, 256, 256, 24, 6, "bf16", True, 2)]
 
 
-@pytest.mark.parametrize("b,tq,tk,c,nh,dt,bias", WINDOW16_VJP_CASES)
-def test_window16_vjp_matches_jax(b, tq, tk, c, nh, dt, bias):
-    """WB-long's plain twin against jax.vjp of window_attention_packed (K12
-    in interpret mode) at 6 heads, with a bias (dbias f32, summed over the
-    windows) and without, in fp32 and bf16."""
-    _assert_window16(_window16_vjp(b, tq, tk, c, nh, dt, bias, seed=9), dt)
+@pytest.mark.parametrize("b,tq,tk,c,nh,dt,bias,nw", WINDOW16_VJP_CASES)
+def test_window16_vjp_matches_jax(b, tq, tk, c, nh, dt, bias, nw):
+    """WB-long's plain twin (WMB-long's with a mask) against jax.vjp of
+    window_attention_packed (K12, or K13b with the mask, in interpret mode)
+    at 6 heads, with a bias (dbias f32, summed over the windows) and
+    without, in fp32 and bf16."""
+    _assert_window16(_window16_vjp(b, tq, tk, c, nh, dt, bias, seed=9,
+                                   nw=nw), dt)
 
 
 def test_window16_mask_raises():
-    """A masked window beyond 160 tokens raises, on the CPU as on the card,
-    naming the missing window-16 forms of WM and WMB (the paper HAT)."""
-    x = torch.zeros(2, 256, 8)
-    with pytest.raises(NotImplementedError, match="WM and WMB"):
-        ta.window_attention_packed(x, x, x, num_heads=2,
-                                   window_mask=torch.zeros(1, 256, 256))
+    """A masked window beyond 160 tokens no longer raises (WM-long and
+    WMB-long are ported): what still raises does, on the CPU as on the
+    card, before any launch: a mask whose period does not divide the window
+    count, a mask whose rows are not (Tq, Tk), and (meta tensors standing
+    in for CUDA ones) a mask off the card."""
+    x = torch.zeros(4, 256, 8)
+    n = ta.window_attention_packed_long_masked_fwd.launches
+    out = ta.window_attention_packed(x, x, x, num_heads=2,
+                                     window_mask=torch.zeros(2, 256, 256))
+    assert out.shape == x.shape
+    assert ta.window_attention_packed_long_masked_fwd.launches == n
+    for mask in (torch.zeros(3, 256, 256), torch.zeros(2, 256, 255)):
+        with pytest.raises(ValueError):
+            ta.window_attention_packed(x, x, x, num_heads=2,
+                                       window_mask=mask)
+        with pytest.raises(ValueError):
+            ta.window_attention_packed_long_masked_bwd(x, x, x, None, mask,
+                                                       x, 0.5, 2)
+    meta = torch.empty(4, 256, 8, device="meta")
+    with pytest.raises(ValueError, match="CUDA"):
+        ta.window_attention_packed_long_masked_fwd(
+            meta, meta, meta, None, torch.empty(2, 256, 256, device="meta"),
+            0.5, 2)

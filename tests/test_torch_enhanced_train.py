@@ -373,17 +373,23 @@ def test_build_networks_enhanced_recipes(yml, enc_cls, cross):
 
 
 def test_unported_bf16_combinations_raise():
-    """The paper Fea2GS and SwinIR in bf16 raise, naming what they need; a
+    """The paper Fea2GS in bf16 raises, naming what it needs (SwinIR in
+    bf16, train_swinir_amp.yml, now builds: tests/test_torch_swinir_bf16.py;
+    so does the paper HAT in bf16 with it); a
     fused trainer whose decoder has windows of more than 160 tokens (the
     Ultra and SwinIR-Enhanced decoders' 256 seeds in windows of 16) raises
     at construction, naming AB's window-16 form, rather than in its first
     backward."""
     from gsasr_torch.config import build_networks, load_options
 
-    for yml, match in (("train_edsr_paper_bf16_r3.yml", "paper Fea2GS"),
-                       ("train_swinir_amp.yml", "WM and WMB")):
-        with pytest.raises(NotImplementedError, match=match):
-            build_networks(load_options(ROOT / "configs" / yml))
+    with pytest.raises(NotImplementedError, match="paper Fea2GS"):
+        build_networks(load_options(
+            ROOT / "configs" / "train_edsr_paper_bf16_r3.yml"))
+    opt = load_options(ROOT / "configs" / "train_edsr_paper_bf16_r3.yml")
+    opt["network_g"] = {"type": "HATNOUP", "embed_dim": 24, "depths": [2],
+                        "num_heads": [6], "squeeze_factor": 4}
+    with pytest.raises(NotImplementedError, match="paper Fea2GS"):
+        build_networks(opt)
     w16 = dict(DEC_KW, num_gs_seed=256, window_size=16)
     enc, dec = _port(_weights(8, w16), w16, BF16)
     with pytest.raises(NotImplementedError, match="AB's window-16 form"):

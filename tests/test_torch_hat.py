@@ -261,24 +261,35 @@ def test_make_models_hat_ultra_seeded_and_shaped():
 
 
 def test_unported_hat_training_raises():
-    """What of HAT training still waits: the paper HAT (relative-position
-    bias and SW-MSA masks at window 16) raises in build_networks, naming
-    WM and WMB at window 16, and a masked window attention of 256 tokens
-    raises on the CPU as on the card, naming their window-16 forms. The
-    Ultra recipe (HATNOUP_ROPE_AMP) builds: tests/test_torch_hat_train.py."""
+    """The paper HAT (HATNOUP: relative-position bias and SW-MSA masks at
+    window 16) now builds through build_networks, at the Ultra recipe's
+    bf16 as the paper HAT's own test file trains it
+    (tests/test_torch_hat_paper.py); a masked window attention of 256
+    tokens runs on the CPU (WM-long's plain version), and what still raises
+    raises: a mask whose period does not divide the window count, and an
+    unknown encoder type."""
     from gsasr_torch.config import build_networks, load_options
+    from gsasr_torch.models import HATNOUPPaper
 
     opt = load_options(ROOT / "configs" / "train_hatl_ultra.yml")
-    opt["network_g"] = dict(opt["network_g"], type="HATNOUP")
-    with pytest.raises(NotImplementedError, match="WM and WMB at window 16"):
-        build_networks(opt)
+    opt["network_g"] = {"type": "HATNOUP", "embed_dim": 24, "depths": [2],
+                        "num_heads": [6], "squeeze_factor": 4,
+                        "num_feat": 64}
+    enc, _ = build_networks(opt)
+    assert isinstance(enc, HATNOUPPaper) and enc.dtype == torch.bfloat16
     m = init_weights(hat.HATWindowAttention(24, 6),
                      torch.Generator().manual_seed(4))
     x = torch.from_numpy(_x(10, 2, 256, 24))
     q, k, v = m.qkv(x).chunk(3, dim=-1)
-    with pytest.raises(NotImplementedError, match="WM and WMB"):
+    out = window_attention_packed(q, k, v, num_heads=6,
+                                  window_mask=torch.zeros(2, 256, 256))
+    assert torch.equal(out, window_attention_packed(q, k, v, num_heads=6))
+    with pytest.raises(ValueError, match="multiple"):
         window_attention_packed(q, k, v, num_heads=6,
-                                window_mask=torch.zeros(2, 256, 256))
+                                window_mask=torch.zeros(3, 256, 256))
+    opt["network_g"] = {"type": "HATNOUP_PAPER"}
+    with pytest.raises(NotImplementedError):
+        build_networks(opt)
 
 
 def test_hat_window_attention_backward_on_cpu():

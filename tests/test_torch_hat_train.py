@@ -408,8 +408,9 @@ def test_hat_droppath_trains_and_repeats():
 def test_make_models_dtype():
     """make_models takes JAX's dtype keyword: bf16 HAT-L Ultra (the
     reference's --AMP_test) builds bf16 modules on fp32 parameters, as do
-    EDSR and RDN with the Enhanced decoder; the paper decoder and SwinIR in
-    bf16 raise, naming what the port has."""
+    EDSR and RDN with the Enhanced decoder (SwinIR too:
+    tests/test_torch_swinir_bf16.py); the paper decoder in bf16 raises,
+    naming what the port has."""
     from gsasr_torch.model import make_models
 
     enc, dec = make_models("hat", "ultra", dtype=BF16, device="cpu")
@@ -424,6 +425,5 @@ def test_make_models_dtype():
         assert torch.equal(v, v32), k
     assert make_models("rdn", "enhanced", dtype=BF16,
                        device="cpu")[0].dtype == BF16
-    for encoder, version in (("edsr", "paper"), ("swinir", "enhanced")):
-        with pytest.raises(NotImplementedError, match="bf16 forms"):
-            make_models(encoder, version, dtype=BF16, device="cpu")
+    with pytest.raises(NotImplementedError, match="bf16 forms"):
+        make_models("edsr", "paper", dtype=BF16, device="cpu")

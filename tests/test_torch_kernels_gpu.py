@@ -695,6 +695,68 @@ def test_window_attn_long_bwd_matches_plain_and_repeats(cuda, b, tq, tk, c,
             ta.window_attention_packed_bf16_bwd.launches) == n
 
 
+# (windows, mask period, Tq, Tk, C, heads, bias, dtype) for the masked
+# forms beyond WM and WMB: WM-bf16 and WMB-bf16 at SwinIR's training shape
+# (36 classes, cut to 72 windows) and inference shape (cut to 48 classes);
+# WM-long and WMB-long at the paper HAT's 256 x 256 (period 9 and its
+# inference's one class a window, cut), fp32 and bf16; a ragged query and
+# key tile; no bias and a head width below 32
+MASKED_FORM_CASES = [(72, 36, 64, 64, 180, 6, True, torch.bfloat16),
+                     (48, 48, 64, 64, 180, 6, True, torch.bfloat16),
+                     (18, 9, 256, 256, 180, 6, True, torch.float32),
+                     (18, 9, 256, 256, 180, 6, True, torch.bfloat16),
+                     (12, 12, 256, 256, 180, 6, True, torch.bfloat16),
+                     (4, 2, 130, 300, 180, 6, True, torch.float32),
+                     (6, 3, 256, 256, 96, 4, False, torch.bfloat16)]
+
+
+@pytest.mark.parametrize("b,nw,tq,tk,c,nh,bias,dt", MASKED_FORM_CASES)
+def test_window_attn_masked_forms_match_plain_and_repeat(cuda, b, nw, tq, tk,
+                                                         c, nh, bias, dt):
+    """WM-bf16 and WMB-bf16 (T <= 160), WM-long and WMB-long (fp32 and
+    bf16) against their plain versions, each twice, bitwise; the autograd
+    Function takes them both ways and launches no other form."""
+    from gsasr_torch.ops import attention as ta
+
+    q, k, v, bs, g = _attn_inputs(cuda, b, tq, tk, c, nh, bias, seed=18)
+    q, k, v, g = (x.to(dt) for x in (q, k, v, g))
+    g32 = torch.Generator(device="cpu").manual_seed(19)
+    mask = torch.where(torch.rand(nw, tq, tk, generator=g32) < 0.4, -100.0,
+                       0.0).to(cuda)
+    scale = (c // nh) ** -0.5
+    bf16 = dt == torch.bfloat16
+    fwd, bwd = ta._FORMS[True, bf16, max(tq, tk) > ta._MAX_T]
+    out = fwd(q, k, v, bs, mask, scale, nh)
+    assert torch.equal(out, fwd(q, k, v, bs, mask, scale, nh))
+    ref = ta.window_attention_packed_plain(q, k, v, bs, scale, nh, mask)
+    grads = bwd(q, k, v, bs, mask, g, scale, nh)
+    again = bwd(q, k, v, bs, mask, g, scale, nh)
+    refs = ta.window_attention_packed_bwd_plain(q, k, v, bs, g, scale, nh,
+                                                mask)
+    assert (grads[3] is None) == (not bias)
+    for o, a, r in zip((out, *grads), (out, *again), (ref, *refs)):
+        if r is None:
+            continue
+        assert torch.equal(o, a)
+        if bf16 and o.dtype == torch.bfloat16:
+            _assert_bf16_close(o, r)
+        else:
+            torch.testing.assert_close(o, r, rtol=1e-4,
+                                       atol=1e-4 * float(r.abs().max()))
+    counts = lambda: [f.launches for pair in ta._FORMS.values()  # noqa: E731
+                      for f in pair]
+    n = counts()
+    qg = q.detach().requires_grad_()
+    y = ta.window_attention_packed(qg, k, v, bs, num_heads=nh,
+                                   window_mask=mask)
+    assert torch.equal(y, out)
+    y.backward(g)
+    torch.testing.assert_close(qg.grad, grads[0], rtol=0, atol=0)
+    want = [m + (f in (fwd, bwd)) for m, f in
+            zip(n, [f for pair in ta._FORMS.values() for f in pair])]
+    assert counts() == want
+
+
 def test_window_attn_bwd_kernels_do_not_spill(cuda):
     """ptxas's report of WB's source (WB, WMB, WB-bf16 and the window-16
     forms): no kernel spills a register to local memory."""

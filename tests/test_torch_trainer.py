@@ -360,7 +360,7 @@ def test_build_networks_and_overrides():
     assert len(enc.body) == 2 and dec.channel == 12
     enc2, _ = build_networks(opt)
     assert torch.equal(enc.conv_first.weight, enc2.conv_first.weight)
-    for bad, err in (({"type": "HATNOUP"}, NotImplementedError),
+    for bad, err in (({"type": "UNKNOWNNOUP"}, NotImplementedError),
                      ({"type": "EDSR", "num_feats": 8}, TypeError)):
         with pytest.raises(err):
             build_networks(dict(opt, network_g=bad))
