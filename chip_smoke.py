@@ -5,7 +5,7 @@
 
 1. Prints the card (nvidia-smi name and power limit), the torch and CUDA
    versions, and builds kernels R, M, A, W, WB, RB, MB, AB and T (and
-   their forms: WB-long, MB-bf16 and AB-bf16 among them) from
+   their forms: WB-long, MB-bf16, AB-bf16 and AB-long among them) from
    gsasr_torch/ops/csrc, one nvcc per source, in parallel.
 2. Kernel phase (TF32 off): R, M and A against their plain PyTorch versions
    at the inference path's shapes, with their median times, the plain
@@ -143,6 +143,26 @@
 33. The paper HAT in bf16 with the Enhanced decoder (train_swinir_amp.yml
    with network_g HATNOUP): 3 steps (W-long-bf16 68, WM-long-bf16 18,
    WB-long-bf16 68, WMB-long-bf16 18, T 42, R 1, RB 1 per step).
+34. AB-long kernel phase (TF32 off): AB-long and AB-long-bf16 (the
+   window-16 form of AB) against their plain versions at the Ultra step's
+   shapes (128 windows x 256 tokens x 192 channels, 6 heads of 32, the
+   recipe decoder's weights and RoPE tables): RoPE cross-attention (pos,
+   kv) and self-attention in both types and a bias in fp32, twice each for
+   bitwise repeatability, with times, bounds and ptxas's registers (AB's
+   and WB-long's beside the recorded ones).
+35. HAT-L Ultra on the fused decoder: Trainer.step of
+   configs/train_hatl_ultra.yml's recipe with fused_decoder=True at batch 8
+   (W-long-bf16 84, WB-long-bf16 84, M 140, MB 140, A-long 64, AB-long 64,
+   R 1, RB 1 per step and nothing else; two gradients of one batch
+   asserted the same bits; beside the module step of phase 25), a report
+   of cuBLAS's reduced-precision bf16 reductions (one step's gradients
+   with the flag on and off), 3 steps at model_dtype float32 (W-long,
+   WB-long, AB-long fp32), and a tiny fused window-16 step on the card
+   against the CPU.
+36. SwinIR-Enhanced on the fused decoder: 3 steps of
+   configs/train_swinir_amp.yml's recipe with fused_decoder=True at batch
+   16 (W-bf16 18, WM-bf16 18, WB-bf16 18, WMB-bf16 18, T 36, M 96, MB 96,
+   A-long 44, AB-long 44, R 1, RB 1 per step and nothing else).
 
 Every training phase also times Trainer.grads, which runs with cuDNN's
 deterministic algorithms, against the same forward and backward under
@@ -238,7 +258,7 @@ TRAIN_COUNTS = {"R": 1, "M": 0, "A": 0, "W": 38, "WB": 38, "RB": 1, "MB": 0,
                 "WB-bf16": 0, "W-long": 0, "W-long-bf16": 0, "A-long": 0,
                 "WB-long": 0, "WB-long-bf16": 0, "WM-bf16": 0,
                 "WMB-bf16": 0, "WM-long": 0, "WMB-long": 0,
-                "WM-long-bf16": 0, "WMB-long-bf16": 0}
+                "WM-long-bf16": 0, "WMB-long-bf16": 0, "AB-long": 0}
 FUSED_TRAIN_COUNTS = dict({k: 0 for k in TRAIN_COUNTS}, R=1, M=83, A=38,
                           RB=1, MB=83, AB=38, T=38)
 # SwinIR (6 RSTBs of 6 blocks, window 8, shift 4 on odd blocks): per
@@ -351,12 +371,35 @@ HAT_PAPER_BF16_TRAIN_COUNTS = dict({k: 0 for k in TRAIN_COUNTS}, R=1, RB=1,
                                             "WM-long-bf16": 18,
                                             "WB-long-bf16": 68,
                                             "WMB-long-bf16": 18})
+# HAT-L Ultra's step on the fused decoder (train_hatl_ultra.yml with
+# fused_decoder=True): the encoder's 72 HABs and 12 OCABs W-long-bf16 and
+# WB-long-bf16; the decoder's 16 cross and 48 self attentions A-long and
+# AB-long, its 140 MLP chains (ULTRA_PER_FORWARD's) M and MB; R, RB.
+ULTRA_FUSED_TRAIN_COUNTS = dict(
+    {k: 0 for k in TRAIN_COUNTS}, R=1, RB=1, M=140, MB=140,
+    **{"W-long-bf16": 84, "WB-long-bf16": 84, "A-long": 64, "AB-long": 64})
+# The same at model_dtype float32: W-long and WB-long, AB-long in fp32.
+ULTRA_FP32_FUSED_TRAIN_COUNTS = dict(
+    {k: 0 for k in TRAIN_COUNTS}, R=1, RB=1, M=140, MB=140,
+    **{"W-long": 84, "WB-long": 84, "A-long": 64, "AB-long": 64})
+# SwinIR at its bf16 recipe on the fused decoder (train_swinir_amp.yml with
+# fused_decoder=True): SWINIR_AMP_TRAIN_COUNTS' encoder launches; the
+# decoder's 8 cross and 36 self attentions A-long and AB-long, its 96 MLP
+# chains M and MB.
+SWINIR_FUSED_TRAIN_COUNTS = dict(
+    {k: 0 for k in TRAIN_COUNTS}, R=1, RB=1, T=36, M=96, MB=96,
+    **{"W-bf16": 18, "WM-bf16": 18, "WB-bf16": 18, "WMB-bf16": 18,
+       "A-long": 44, "AB-long": 44})
 # ptxas registers of the earlier window-16 kernels as PERF.md §6 records
 # them (A-long's projections and attention, WB-long's dq and dk/dv launches
-# in bf16 and fp32): the masked forms' template flag must leave them as
-# they were.
+# in bf16 and fp32, WMB-long's): the template flags of the masked forms and
+# of AB-long must leave them as they were.
 LONG_REGS_RECORDED = {"W-long": (128, 128), "A-long": (114, 114, 128, 128),
-                 "WB-long": (128, 130, 177, 177)}
+                      "WB-long": (128, 130, 177, 177),
+                      "WMB-long": (176, 189), "WMB-long-bf16": (178, 189)}
+# AB's attention backward (WB's body with att: with AB-bf16's rounding,
+# and in fp32), as ptxas reported them before AB-long joined its source.
+AB_REGS_RECORDED = (99, 105)
 TRAIN_WARMUP = 2
 TRAIN_STEPS = 5
 
@@ -1590,10 +1633,12 @@ def _train_run(dev, kernels, b: int, fused: bool, encoder: str,
                enhanced=None, ultra=None):
     """`ultra` (a dtype): configs/train_hatl_ultra.yml's networks and
     recipe, bf16 (the recipe's; its repeatability asserted, its costly
-    reports run once) or float32 (model_dtype float32: 1 warm-up and 2
-    timed steps, no reports). `enhanced` (a dtype): configs/
+    reports run once; on the fused decoder also the report of cuBLAS's
+    reduced-precision bf16 reductions) or float32 (model_dtype float32: 1
+    warm-up and 2 timed steps, no reports). `enhanced` (a dtype): configs/
     train_<encoder>_amp.yml's networks and recipe, bf16 (the recipe's; on
-    the fused decoder, and for SwinIR, its repeatability asserted) or
+    the fused decoder, and for SwinIR, its repeatability asserted; SwinIR
+    on the fused decoder 1 warm-up and 2 timed steps, no reports) or
     float32 (model_dtype float32: 1 warm-up and 2 timed steps, no reports).
     encoder "hat_paper": the paper HAT with the paper recipe (its
     repeatability asserted), or with `enhanced` bf16 train_swinir_amp.yml's
@@ -1603,7 +1648,8 @@ def _train_run(dev, kernels, b: int, fused: bool, encoder: str,
 
     warmup, steps = TRAIN_WARMUP, TRAIN_STEPS
     short = torch.float32 in (ultra, enhanced) or (
-        encoder == "hat_paper" and enhanced is not None)
+        encoder == "hat_paper" and enhanced is not None) or (
+        encoder == "swinir" and enhanced is not None and fused)
     if short:
         warmup, steps = 1, 2
     if ultra is not None:
@@ -1620,10 +1666,15 @@ def _train_run(dev, kernels, b: int, fused: bool, encoder: str,
                                generator=torch.Generator().manual_seed(0))
         cfg = PAPER_TRAIN
     tr = Trainer(enc, dec, TrainConfig(**dict(cfg, fused_decoder=fused)))
-    want = (ULTRA_TRAIN_COUNTS if ultra == torch.bfloat16 else
+    want = (ULTRA_FUSED_TRAIN_COUNTS if ultra == torch.bfloat16 and fused
+            else ULTRA_FP32_FUSED_TRAIN_COUNTS if ultra == torch.float32
+            and fused else
+            ULTRA_TRAIN_COUNTS if ultra == torch.bfloat16 else
             ULTRA_FP32_TRAIN_COUNTS if ultra == torch.float32 else
             HAT_PAPER_BF16_TRAIN_COUNTS if encoder == "hat_paper" and enhanced
             else HAT_PAPER_TRAIN_COUNTS if encoder == "hat_paper" else
+            SWINIR_FUSED_TRAIN_COUNTS if enhanced and fused
+            and encoder == "swinir" else
             ENHANCED_FUSED_TRAIN_COUNTS if enhanced and fused else
             SWINIR_AMP_TRAIN_COUNTS if enhanced and encoder == "swinir" else
             ENHANCED_TRAIN_COUNTS if enhanced else
@@ -1631,8 +1682,9 @@ def _train_run(dev, kernels, b: int, fused: bool, encoder: str,
             SWINIR_TRAIN_COUNTS if encoder == "swinir" else TRAIN_COUNTS)
     dtn = lambda d: str(d).replace("torch.", "").replace(  # noqa: E731
         "bfloat16", "bf16")
-    label = (f"HAT-L Ultra {dtn(ultra)}" if ultra
-             else (f"Enhanced {dtn(enhanced)} " if enhanced else "") + (
+    label = (f"HAT-L Ultra {dtn(ultra)}" + (" fused" if fused else "")
+             if ultra else (f"Enhanced {dtn(enhanced)} " if enhanced
+                            else "") + (
                  "fused" if fused else "module") + (
                  "" if encoder == "edsr" else f" {encoder}"))
     start = [p.detach().clone() for p in tr.params_g + tr.params_d]
@@ -1678,7 +1730,7 @@ def _train_run(dev, kernels, b: int, fused: bool, encoder: str,
     if not (moved and ema_moved):
         raise AssertionError(f"parameters moved {moved}, EMA moved "
                              f"{ema_moved}")
-    repeat = det = None
+    repeat = det = reduction = None
     if not short:
         repeat = _repeat_report(tr, batches[-1], label)
         if ((ultra is not None or (enhanced and fused)
@@ -1693,6 +1745,8 @@ def _train_run(dev, kernels, b: int, fused: bool, encoder: str,
               f"{det['grads_ms_median']['deterministic']:.1f} ms against "
               f"{det['grads_ms_median']['default']:.1f} ms under the default "
               f"flags ({det['cost_ms']:+.1f} ms)", flush=True)
+        if ultra is not None and fused:
+            reduction = _bf16_reduction_report(tr, batches[-1], label)
     med = lambda x: float(np.median(x))  # noqa: E731
     res = dict(decoder=label, encoder=encoder, batch=b,
                step_ms_median=med(steps),
@@ -1700,7 +1754,7 @@ def _train_run(dev, kernels, b: int, fused: bool, encoder: str,
                forward_ms=med(fwd), backward_ms=med(grads_ms) - med(fwd),
                grads_ms=med(grads_ms), optimizer_ema_ms=med(apply_ms),
                peak_mem_bytes=int(peak), losses=losses, launches=counts[-1],
-               repeat=repeat, determinism=det,
+               repeat=repeat, determinism=det, bf16_reduction=reduction,
                tf32={"cudnn": True, "matmul": False})
     print(f"  {label} training step, batch {b}: median {res['step_ms_median']:.1f} "
           f"ms over {len(steps)} steps (forward {res['forward_ms']:.1f}, "
@@ -1708,6 +1762,35 @@ def _train_run(dev, kernels, b: int, fused: bool, encoder: str,
           f"{res['optimizer_ema_ms']:.1f}); peak {peak / 2**30:.2f} GiB; "
           f"TF32 cudnn on, matmul off (PyTorch defaults)", flush=True)
     return res
+
+
+def _bf16_reduction_report(tr, batch, label):
+    """One batch's gradients with cuBLAS's reduced-precision bf16 reductions
+    allowed (PyTorch's default) and not (XLA's f32 accumulation), from one
+    state: their relative L2 distance per network. A report: it asserts
+    nothing, and the flag is restored as it was."""
+    mm = torch.backends.cuda.matmul
+    flag = mm.allow_bf16_reduced_precision_reduction
+    grads = {}
+    try:
+        for on in (True, False):
+            mm.allow_bf16_reduced_precision_reduction = on
+            grads[on] = tr.grads(batch)
+    finally:
+        mm.allow_bf16_reduced_precision_reduction = flag
+    dist = {}
+    for i, net in ((2, "encoder"), (3, "decoder")):
+        num = sum(float(((a.double() - b.double()) ** 2).sum())
+                  for a, b in zip(grads[True][i], grads[False][i]))
+        den = sum(float((b.double() ** 2).sum()) for b in grads[False][i])
+        dist[net] = math.sqrt(num / den)
+    loss_rel = abs(float(grads[True][0]) - float(grads[False][0])) / abs(
+        float(grads[False][0]))
+    print(f"  {label} cuBLAS reduced-precision bf16 reductions on vs off: "
+          f"gradient rel L2 encoder {dist['encoder']:.3e}, decoder "
+          f"{dist['decoder']:.3e}; loss rel {loss_rel:.3e} (flag restored "
+          f"to {flag})", flush=True)
+    return dict(grad_rel_l2=dist, loss_rel=loss_rel, default=flag)
 
 
 def _repeat_report(tr, batch, label):
@@ -2198,18 +2281,20 @@ def ultra_train_kernel_phase(enc, dec, dev):
     return results
 
 
-def ultra_train_card_vs_cpu(dev):
+def ultra_train_card_vs_cpu(dev, fused: bool = False):
     """One tiny step of the Ultra recipe (a bf16 HAT of one RHAG of two
     HABs, the second shifted, and OCAB, at window 16 on 32x32 LR: 256 x
     256 and 256 x 576 windows; a bf16 decoder of one cross and one self
     layer at 256 seeds in windows of 16; batch 2) from the same weights on
-    the card (W-long-bf16, WB-long-bf16) and on the CPU (their plain
+    the card (W-long-bf16, WB-long-bf16; with `fused` the decoder's
+    attentions A-long and AB-long-bf16) and on the CPU (their plain
     versions): loss within 2^-8 relative, each network's gradient within
     relative L2 2^-8 times its bf16 depth (tests/test_torch_hat_train.py's
     depths: the decoder's ENHANCED_TINY_DEPTH, the tiny HAT's 50 more)."""
     from gsasr_torch.models import HATNOUP, Fea2GSRopeAMP
     from gsasr_torch.models.init import init_weights
     from gsasr_torch.ops import attention as ta
+    from gsasr_torch.ops import fused_layers as fl
     from gsasr_torch.train import TrainConfig, Trainer
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -2227,7 +2312,7 @@ def ultra_train_card_vs_cpu(dev):
                                      num_selfattn_layers=1, num_gs_seed=256,
                                      window_size=16, dtype=bf16), gen)
     cfg = TrainConfig(canvas_hw=(64, 64), warmup_iter=-1, milestones=(100,),
-                      clip_grad_norm=None)
+                      clip_grad_norm=None, fused_decoder=fused)
     rng = np.random.default_rng(20)
     scales = (1.0 + rng.random(2)).astype(np.float32)
     gt = np.ceil(scales * 32).astype(np.int32)
@@ -2236,13 +2321,15 @@ def ultra_train_card_vs_cpu(dev):
              "scale": scales, "gt_h": gt, "gt_w": gt}
     card = Trainer(copy.deepcopy(enc), copy.deepcopy(dec), cfg)
     cpu = Trainer(enc, dec, cfg, device="cpu")
-    n = ta.window_attention_packed_long_bf16_bwd.launches
+    n = (ta.window_attention_packed_long_bf16_bwd.launches,
+         fl.ln_attn_proj_bwd_long.launches)
     out_card = card.grads(batch)
     torch.cuda.synchronize()
-    launched = ta.window_attention_packed_long_bf16_bwd.launches - n
-    if launched != 5:
-        raise AssertionError(f"tiny Ultra step: {launched} WB-long-bf16 "
-                             "launches, expected 5")
+    launched = (ta.window_attention_packed_long_bf16_bwd.launches - n[0],
+                fl.ln_attn_proj_bwd_long.launches - n[1])
+    if launched != ((3, 2) if fused else (5, 0)):
+        raise AssertionError(f"tiny Ultra step: {launched} WB-long-bf16 and "
+                             "AB-long launches")
     out_cpu = cpu.grads(batch)
     l_card, l_cpu = float(out_card[0]), float(out_cpu[0])
     rel = abs(l_card - l_cpu) / abs(l_cpu)
@@ -2254,18 +2341,23 @@ def ultra_train_card_vs_cpu(dev):
         dist.append((math.sqrt(num / den), 2.0 ** -8 * depth))
     card.apply(*out_card)
     cpu.apply(*out_cpu)
-    print(f"  tiny HAT-L Ultra bf16 training step card vs CPU: loss "
+    print(f"  tiny HAT-L Ultra bf16 {'fused' if fused else 'module'} "
+          f"training step card vs CPU: loss "
           f"{l_card:.7f} vs {l_cpu:.7f} (rel {rel:.2e}, tol {2.0 ** -8:.2e});"
           f" gradient rel L2 encoder {dist[0][0]:.2e} (tol {dist[0][1]:.2e}),"
           f" decoder {dist[1][0]:.2e} (tol {dist[1][1]:.2e})", flush=True)
     if not rel <= 2.0 ** -8 or any(not d <= t for d, t in dist):
         raise AssertionError("Ultra bf16 step: card and CPU disagree")
-    return dict(loss_card=l_card, loss_cpu=l_cpu, loss_rel=rel,
-                grad_rel_l2_enc=dist[0][0], grad_rel_l2_dec=dist[1][0])
+    return dict(fused_decoder=fused, loss_card=l_card, loss_cpu=l_cpu,
+                loss_rel=rel, grad_rel_l2_enc=dist[0][0],
+                grad_rel_l2_dec=dist[1][0])
 
 
 # Each form's kernels in ptxas's report: (a substring of the mangled name,
-# a substring of its template arguments or ""), one pair per kernel.
+# a substring of its template arguments or ""), one pair per kernel. The
+# window-16 backward's launches take (T, kMask[, kAtt], kRnd): WB-long's
+# and WMB-long's are the instantiations whose flags after T start false or
+# true (AB-long's, with kAtt or kRnd set, compile in ln_attn_bwd.cu).
 REG_KEYS = {
     "WM-bf16": [("window_attn_fwd_masked_bf16_kernel", "")],
     "WMB-bf16": [("window_attn_bwd_kernel", "Lb1E13__nv_bfloat16")],
@@ -2275,14 +2367,28 @@ REG_KEYS = {
     "WMB-long-bf16": [("window_attn_bwd_long_", "bfloat16Lb1E")],
     "W-long": [("window_attn_fwd_long_kernel", "")],
     "A-long": [("ln_qkv_kernel", ""), ("attn_long_kernel", "")],
-    "WB-long": [("window_attn_bwd_long_", "Lb0E")],
+    "WB-long": [("window_attn_bwd_long_", "IfLb0E"),
+                ("window_attn_bwd_long_", "bfloat16Lb0E")],
 }
 
 
-def _form_regs(regs, form):
+# AB's attention (WB's body with att: fp32, and AB-bf16's rounding) and
+# AB-long's two launches in ptxas's report of ln_attn_bwd.cu: (T, kMask,
+# kAtt, kRnd) for the dq launch, (T, kMask, kRnd) for the dk/dv launch.
+AB_REG_KEYS = {
+    "AB": [("window_attn_bwd_kernel", "ILb1ELb0EfLb0E"),
+           ("window_attn_bwd_kernel", "ILb1ELb0EfLb1E")],
+    "AB-long": [("window_attn_bwd_long_q_kernel", "IfLb0ELb1ELb0EE"),
+                ("window_attn_bwd_long_kv_kernel", "IfLb0ELb0EE")],
+    "AB-long-bf16": [("window_attn_bwd_long_q_kernel", "IfLb0ELb1ELb1EE"),
+                     ("window_attn_bwd_long_kv_kernel", "IfLb0ELb1EE")],
+}
+
+
+def _form_regs(regs, form, keys=REG_KEYS):
     """{kernel: (registers, spill stores, spill loads)} of one form."""
     return {k: r for k, r in regs.items()
-            if any(key in k and args in k for key, args in REG_KEYS[form])}
+            if any(key in k and args in k for key, args in keys[form])}
 
 
 @torch.no_grad()
@@ -2423,6 +2529,118 @@ def masked_kernel_phase(enc_s, enc_h, dev):
     return results
 
 
+@torch.no_grad()
+def ab_long_kernel_phase(dec, dev):
+    """AB-long and AB-long-bf16 (the window-16 form of AB) against their
+    plain versions at the Ultra fused step's shapes (8 samples of 64x64 LR:
+    128 windows of 256 tokens, 192 channels, 6 heads of 32), with the
+    recipe decoder's weights and RoPE tables: RoPE cross-attention (pos,
+    kv, Tk = 256) and self-attention (the four table gradients among the
+    outputs), each in bf16 and fp32, and the self-attention with a bias in
+    fp32 (dbias, the ordered sum over windows); each twice for bitwise
+    repeatability, with times, bounds (bf16: the operations against the
+    tensor-core peak) and ptxas's registers of AB-long's launches, beside
+    AB's attention and WB-long's as recorded. per_step: launches per Ultra
+    step on the fused decoder at the bf16 recipe (the fp32 and bias rows
+    0)."""
+    from gsasr_torch.models.fea2gs_fast import _attn, _ln
+    from gsasr_torch.models.fea2gs_rope_fast import rope_tables
+    from gsasr_torch.ops import _build
+    from gsasr_torch.ops import fused_layers as fl
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    gen = torch.Generator().manual_seed(23)
+    rnd = lambda *s: torch.randn(*s, generator=gen).to(dev)  # noqa: E731
+    f32, bf16 = torch.float32, torch.bfloat16
+    ws, t, c, nh = dec.window_size, dec.num_gs_seed, dec.channel, \
+        dec.num_heads
+    b = ULTRA_BATCH * (ULTRA_LR_SIZE // ws) ** 2
+    m = b * t
+    lyr = dec.gs_selfattn_blocks[0].blocks[0]
+    cl = dec.window_crossattn_blocks[0].blocks[0]
+    nsq = math.isqrt(t)
+    cc, sc = rope_tables(cl.window_cross_attn.rope_freqs, max(nsq, ws),
+                         max(t, ws * ws))
+    cs, ss = rope_tables(lyr.gs_self_attn.rope_freqs, nsq, t)
+    names = ("dx", "dpos", "dkv", "dln_w", "dln_b", "dwq", "dbq", "dwk",
+             "dbk", "dwv", "dbv", "dwo", "dbo", "dbias", "dcos_q", "dsin_q",
+             "dcos_k", "dsin_k")
+    self_kw = dict(rope_cos_q=cs, rope_sin_q=ss, rope_cos_k=cs,
+                   rope_sin_k=ss, **_attn(lyr.gs_self_attn), **_ln(lyr.norm1))
+    cases = [("rope_cross", dict(pos=dec.pos_embedding, kv=rnd(b, ws * ws, c),
+                                 rope_cos_q=cc[:t], rope_sin_q=sc[:t],
+                                 rope_cos_k=cc[:ws * ws],
+                                 rope_sin_k=sc[:ws * ws],
+                                 **_attn(cl.window_cross_attn),
+                                 **_ln(cl.norm3)), 16),
+             ("rope_self", self_kw, 48)]
+    rows = []
+    for name, kw, per_step in cases + [
+            ("rope_self, bias", dict(self_kw, bias=0.5 * rnd(nh, t, t)), 0)]:
+        for dt in ((bf16, f32) if "bias" not in name else (f32,)):
+            x, g = rnd(b, t, c).to(dt), rnd(b, t, c).to(dt)
+            kwd = dict(kw, num_heads=nh)
+            if "kv" in kw:
+                kwd.update(pos=kw["pos"].to(dt), kv=kw["kv"].to(dt))
+            label = f"AB-long {name} {str(dt).replace('torch.', '')}"
+            fn = lambda: fl.ln_attn_proj_bwd(x, g, **kwd)  # noqa: E731
+            plain = lambda: fl.ln_attn_proj_bwd_plain(  # noqa: E731
+                x, g, **kwd)
+            n = fl.ln_attn_proj_bwd_long.launches
+            outs, refs = fn(), plain()
+            if fl.ln_attn_proj_bwd_long.launches != n + 1:
+                raise AssertionError(f"{label}: AB-long not launched")
+            err = _compare_grads(outs, refs, names, label, {"dbk": "dwk"},
+                                 BWD_BF16_TOL if dt == bf16 else GRAD_TOL,
+                                 l2=dt == bf16)
+            _repeatable(fn, label)
+            act = 2 if dt == bf16 else 4
+            tk = ws * ws if "kv" in kw else t
+            # eleven products of 2 T C^2 and six of 2 T^2 C per window (as
+            # AB); bytes: x, g, dx (kv, dkv, pos, dpos) in the activation
+            # type, the four tables and their gradients, the weights and
+            # their gradients, the vectors (the f32 bias and dbias)
+            flops = 2.0 * b * (11 * t * c * c + 6 * t * tk * c)
+            nbytes = (act * (3 * m * c + (2 * b * tk * c + 2 * t * c
+                                          if "kv" in kw else 0))
+                      + 4 * (4 * (t + tk) * c + 8 * c * c + 11 * c
+                             + (2 * nh * t * tk if "bias" in kw else 0)))
+            bound, by = _bound_ms(flops, nbytes,
+                                  PEAK_BF16 if dt == bf16 else PEAK_FP32)
+            rows.append(dict(
+                case=name, dtype=str(dt).replace("torch.", ""),
+                decoder="HAT-L Ultra", windows=b,
+                per_step=per_step if dt == bf16 else 0, max_abs_err=err,
+                ms=_time_ms(fn, 10), plain_ms=_time_ms(plain, 3),
+                bound_ms=bound, bound_by=by, library_ms=None,
+                library_null_reason="no PyTorch call computes it"))
+            print(f"  {label}: {rows[-1]['ms']:.4f} ms (plain "
+                  f"{rows[-1]['plain_ms']:.4f}, bound {bound:.4f} by {by}, "
+                  f"library null) x{rows[-1]['per_step']} per Ultra fused "
+                  f"step", flush=True)
+    regs = _ptxas_kernels(_build.ptxas_report("ln_attn_bwd"), "")
+    wregs = _ptxas_kernels(_build.ptxas_report("window_attn_bwd"), "")
+    kept = {}
+    for form, src in (("AB", regs), ("AB-long", regs),
+                      ("AB-long-bf16", regs), ("WB-long", wregs)):
+        keys = REG_KEYS if form == "WB-long" else AB_REG_KEYS
+        for k, (r_, st, ld) in _form_regs(src, form, keys).items():
+            print(f"  ptxas {form} {k}: {r_} registers, {st}/{ld} bytes "
+                  "spilled", flush=True)
+            kept.setdefault(form, []).append(r_)
+    earlier = {"AB": tuple(sorted(kept.get("AB", ()))),
+               "WB-long": tuple(sorted(kept.get("WB-long", ())))}
+    recorded = {"AB": AB_REGS_RECORDED,
+                "WB-long": LONG_REGS_RECORDED["WB-long"]}
+    print(f"  registers of AB's attention and WB-long: {earlier}, "
+          f"{'kept' if earlier == recorded else 'MOVED'} (recorded: "
+          f"{recorded})", flush=True)
+    return {"AB-long": rows,
+            "registers": {k: sorted(v) for k, v in kept.items()},
+            "earlier_registers_kept": earlier == recorded}
+
+
 FORM_KEYS = ("decoder", "case", "dtype", "nW", "windows", "per_image",
              "per_step", "max_abs_err", "ms", "plain_ms", "bound_ms",
              "bound_by", "library_ms")
@@ -2480,6 +2698,7 @@ def main() -> int:
         window_attention_packed_masked_fwd)
     from gsasr_torch.ops.bias_table import bias_table_bwd
     from gsasr_torch.ops.fused_layers import (ln_attn_proj, ln_attn_proj_bwd,
+                                              ln_attn_proj_bwd_long,
                                               ln_attn_proj_long,
                                               ln_mlp_residual,
                                               ln_mlp_residual_bwd)
@@ -2523,7 +2742,8 @@ def main() -> int:
                "WMB-long": window_attention_packed_long_masked_bwd,
                "WM-long-bf16": window_attention_packed_long_masked_bf16_fwd,
                "WMB-long-bf16":
-                   window_attention_packed_long_masked_bf16_bwd}
+                   window_attention_packed_long_masked_bf16_bwd,
+               "AB-long": ln_attn_proj_bwd_long}
     enc, dec = make_models("edsr", "paper",
                            generator=torch.Generator().manual_seed(0))
 
@@ -2760,8 +2980,43 @@ def main() -> int:
     print("paper HAT bf16 training phase", flush=True)
     hbtrain = train_phase(dev, kernels, fused=False, encoder="hat_paper",
                           enhanced=torch.bfloat16)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    _, dec_uf = enhanced_networks("hat")
+    print("AB-long kernel phase", flush=True)
+    abres = ab_long_kernel_phase(dec_uf.to(dev).eval(), dev)
+    del dec_uf
+    gc.collect()
+    torch.cuda.empty_cache()
+    print("Ultra fused training phase", flush=True)
+    uftrain = train_phase(dev, kernels, fused=True, encoder="hat",
+                          ultra=torch.bfloat16)
+    print(f"  HAT-L Ultra fused vs module step median, batch "
+          f"{uftrain['batch']}: {uftrain['step_ms_median']:.1f} vs "
+          f"{utrain['step_ms_median']:.1f} ms (forward "
+          f"{uftrain['forward_ms']:.1f} vs {utrain['forward_ms']:.1f}, "
+          f"backward {uftrain['backward_ms']:.1f} vs "
+          f"{utrain['backward_ms']:.1f}, optimizer+EMA "
+          f"{uftrain['optimizer_ema_ms']:.1f} vs "
+          f"{utrain['optimizer_ema_ms']:.1f}); peak "
+          f"{uftrain['peak_mem_bytes'] / 2**30:.2f} vs "
+          f"{utrain['peak_mem_bytes'] / 2**30:.2f} GiB", flush=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    uftrain32 = train_phase(dev, kernels, fused=True, encoder="hat",
+                            ultra=torch.float32)
+    gc.collect()
+    torch.cuda.empty_cache()
+    print("Ultra fused training card vs CPU", flush=True)
+    ufcvc = ultra_train_card_vs_cpu(dev, fused=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    print("SwinIR-Enhanced fused training phase", flush=True)
+    sftrain = train_phase(dev, kernels, fused=True, encoder="swinir",
+                          enhanced=torch.bfloat16)
     for r in (train, ftrain, strain, etrain, utrain, eftrain, sbtrain,
-              htrain):
+              htrain, uftrain):
         same = "the same" if r["repeat"]["same_bits"] else "NOT the same"
         print(f"  {r['decoder']} step: repeatability {same} bits; cost of "
               f"cuDNN determinism {r['determinism']['cost_ms']:+.1f} ms on "
@@ -2776,6 +3031,7 @@ def main() -> int:
     sbstep, hstep = sbtrain["launches"], htrain["launches"]
     hbstep, sbinfer = hbtrain["launches"], sbruns[0]["launches"]
     hinfer = hruns[0]["launches"]
+    ufstep = uftrain["launches"]
     enhanced = "sr_forward (Enhanced, bf16 trunk)"
     for k in ("M", "A"):
         for r in kres[k]:
@@ -2907,6 +3163,11 @@ def main() -> int:
                           "decoder)",
                           _on_path(mres["WMB-long-bf16"], "per_step"),
                           mres["WMB-long-bf16"]),
+        "AB-long": ("ln_attn_bwd_long", "gsasr_torch/ops/csrc/ln_attn_bwd.cu",
+                    "gsasr_tpu/ops/fused_layers.py:381", [], ufstep,
+                    "Trainer.step (HAT-L Ultra, fused_decoder=True, bf16 "
+                    "recipe)", _on_path(abres["AB-long"], "per_step"),
+                    abres["AB-long"]),
     }
     line = [_kernel_entry(name, src, rep, also, counts[k], path, rows, forms)
             for k, (name, src, rep, also, counts, path, rows, forms)
@@ -2949,6 +3210,10 @@ def main() -> int:
                                           e2e=he2e, train=htrain,
                                           train_bf16=hbtrain,
                                           infer_launches=hinfer),
+                           ultra_fused_train=dict(
+                               kernels=abres, train=uftrain,
+                               train_fp32=uftrain32, card_vs_cpu=ufcvc),
+                           swinir_fused_train=sftrain,
                            total_s=time.perf_counter() - t_start), f, indent=1)
     print(f"total {time.perf_counter() - t_start:.1f} s", flush=True)
     print(f"card: {card}", flush=True)

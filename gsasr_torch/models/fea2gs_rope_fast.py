@@ -3,7 +3,9 @@
 
 Every [scale-inject -> FFN], [pre-norm RoPE attention -> proj] and
 block-tail MLP is one call of `ln_mlp_residual` or `ln_attn_proj` (kernels
-M and A on the card forward, MB and AB backward), with the RoPE rotations
+M and A on the card forward, MB and AB backward; A-long and AB-long at 256
+seeds in windows of 16, the Ultra and SwinIR-Enhanced decoders), with the
+RoPE rotations
 inside A in f32 on pair-duplicated cos/sin tables built per layer from the
 learnable frequencies under autograd: AB's table gradients reach
 `rope_freqs` through them. The 3x3 lattice convolutions (block tails and

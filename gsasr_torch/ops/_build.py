@@ -6,7 +6,8 @@ with a plain C interface (nvcc, sm_90a), written to
 of the sources and flags, then loaded with ctypes. Each library exports an
 entry point of the same name and, where `SOURCES` says so, others (the
 masked and bfloat16 forms of W and WB, the window-16 forms of W, WB, WM,
-WMB and A, and the bfloat16 forms of MB and AB live in the same sources).
+WMB, A and AB, and the bfloat16 forms of MB and AB live in the same
+sources).
 Each entry point's C signature is declared in `SIGNATURES`: it takes its
 pointers and the CUDA stream as `void*` and returns `cudaGetLastError()`
 after its launches; `launch` raises when that is not 0.
@@ -57,6 +58,8 @@ SIGNATURES = {
     "ln_mlp_bwd_bf16": "p" * 16 + "iiiiii",
     "ln_attn_bwd": "p" * 36 + "iiiiii" + "f",
     "ln_attn_bwd_bf16": "p" * 36 + "iiiiii" + "f",
+    "ln_attn_bwd_long": "p" * 36 + "iiiiii" + "f",
+    "ln_attn_bwd_long_bf16": "p" * 36 + "iiiiii" + "f",
     "bias_table_bwd": "pppiiii",
 }
 # Entry points compiled from another entry point's source.
@@ -76,7 +79,9 @@ SOURCES = {"window_attn_fwd_masked": "window_attn_fwd",
            "window_attn_bwd_long_masked_bf16": "window_attn_bwd",
            "ln_attn_long": "ln_attn",
            "ln_mlp_bwd_bf16": "ln_mlp_bwd",
-           "ln_attn_bwd_bf16": "ln_attn_bwd"}
+           "ln_attn_bwd_bf16": "ln_attn_bwd",
+           "ln_attn_bwd_long": "ln_attn_bwd",
+           "ln_attn_bwd_long_bf16": "ln_attn_bwd"}
 _CTYPES = {"p": ctypes.c_void_p, "i": ctypes.c_int, "f": ctypes.c_float}
 
 _libs: dict = {}

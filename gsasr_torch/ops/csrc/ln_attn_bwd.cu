@@ -51,11 +51,28 @@
 // row. In bfloat16, x, kv and g are widened to f32 scratch first and dx,
 // dpos and dkv narrowed last. No float atomics, so the result is the same
 // bits from run to run.
+//
+// AB-long (ln_attn_bwd_long, ln_attn_bwd_long_bf16): the same VJP for
+// windows of any Tq and Tk, which replaces _k_ln_attn_bwd beyond WB's 160
+// tokens (reached from _ln_attn_core_bwd, the custom VJP of ln_attn_proj, in
+// the Ultra and SwinIR-Enhanced decoders' windows of 256 seeds). It is AB's
+// sequence above with its attention step swapped for WB-long's two launches
+// (window_attn_long_bwd.cuh): the dq launch keeps each row's (max, sum, D)
+// in a (B, nh, Tq, 3) scratch and, with AB's flags, forms att = p v in its
+// D pass and rounds as AB-bf16 rounds; the dk / dv launch walks the query
+// tiles in order. A bias's gradient is the same ordered sum over windows of
+// a per-window ds, which only a bias needs. Its bound at the Ultra step's
+// 128 windows x 256 tokens x 192 channels: the eleven products of 2 T C^2
+// and six of 2 T^2 C per window are 45.9 GFLOP, 0.685 ms at the FP32 peak
+// and 0.046 ms at the bf16 tensor-core peak; its bytes (x, kv, g, dx, dkv)
+// take under 0.02 ms. This first form is the two bodies, already measured,
+// joined: simple and right, with speed left for later (it recomputes the
+// scores five times where the function needs them once).
 
 #include <cuda_runtime.h>
 
 #include "fused_bwd.cuh"
-#include "window_attn_bwd.cuh"
+#include "window_attn_long_bwd.cuh"
 
 namespace {
 
@@ -166,12 +183,14 @@ cudaError_t launch_rope_back(const float* dq, float* x0, const float* cs,
 // Arguments as ln_attn_bwd below, in the activation type Act (float, or
 // __nv_bfloat16 for x, pos, kv, g, dx, dpos and dkv). work holds
 // work_floats floats of scratch: (6 B Tq + 4 B Tk) C for xq, q, datt, att,
-// dq, dxq, k, v, dk, dv, then B nh Tq Tk for the per-window ds, kMaxGroups
-// C (C + 1) for the weight-gradient partials, ceil(B Tq / 64) 2 C for the
-// LN partials; with RoPE (B Tq + B Tk) C for q0 and k0 and 2 kRopeGroups
-// (Tq + Tk) C for the table partials; in bfloat16 (3 B Tq + 2 B Tk) C + Tq
-// C for x, g and kv widened and dx, dkv and dpos in f32.
-template <typename Act>
+// dq, dxq, k, v, dk, dv, then B nh Tq Tk for the per-window ds (with kLong,
+// AB-long: B nh Tq 3 for the rows' statistics, and B nh Tq Tk for ds only
+// with a bias), kMaxGroups C (C + 1) for the weight-gradient partials,
+// ceil(B Tq / 64) 2 C for the LN partials; with RoPE (B Tq + B Tk) C for q0
+// and k0 and 2 kRopeGroups (Tq + Tk) C for the table partials; in bfloat16
+// (3 B Tq + 2 B Tk) C + Tq C for x, g and kv widened and dx, dkv and dpos
+// in f32.
+template <typename Act, bool kLong>
 int ln_attn_bwd_impl(const Act* x, const Act* pos, const Act* kv,
                      const float* ln_w, const float* ln_b, const float* wq,
                      const float* bq, const float* wk, const float* bk,
@@ -193,7 +212,9 @@ int ln_attn_bwd_impl(const Act* x, const Act* pos, const Act* kv,
                        !dcos_k && !dsin_k;
   if (B < 1 || nh < 1 || C % nh != 0 || C / nh > kMaxHd ||
       C > gsasr::kMaxN || C > 32 * gsasr::kLnPer || Tq < 1 || Tk < 1 ||
-      Tq > kMaxT || Tk > kMaxT || (!kv && Tk != Tq) ||
+      (kLong ? !gsasr::long_shape_ok(B, Tq, Tk, C, nh)
+             : Tq > kMaxT || Tk > kMaxT) ||
+      (!kv && Tk != Tq) ||
       (kv == nullptr) != (dkv == nullptr) ||
       (pos == nullptr) != (dpos == nullptr) ||
       (bias == nullptr) != (dbias == nullptr) ||
@@ -204,7 +225,9 @@ int ln_attn_bwd_impl(const Act* x, const Act* pos, const Act* kv,
   const int Mk = B * Tk;
   const size_t rq = static_cast<size_t>(Mq) * C;
   const size_t rk = static_cast<size_t>(Mk) * C;
-  const size_t n_ds = static_cast<size_t>(B) * nh * Tq * Tk;
+  const size_t n_stats = kLong ? static_cast<size_t>(B) * nh * Tq * 3 : 0;
+  const size_t n_ds = (!kLong || bias) ? static_cast<size_t>(B) * nh * Tq * Tk
+                                       : 0;
   const size_t n_part = static_cast<size_t>(gsasr::kMaxGroups) * C * (C + 1);
   const size_t n_ln = static_cast<size_t>(blocks_for(Mq, gsasr::kBM)) * 2 * C;
   const size_t n_rope =
@@ -213,7 +236,7 @@ int ln_attn_bwd_impl(const Act* x, const Act* pos, const Act* kv,
   const size_t n_wide =
       kBf16 ? 3 * rq + 2 * rk + static_cast<size_t>(Tq) * C : 0;
   if (static_cast<size_t>(work_floats) <
-      6 * rq + 4 * rk + n_ds + n_part + n_ln + n_rope + n_wide)
+      6 * rq + 4 * rk + n_stats + n_ds + n_part + n_ln + n_rope + n_wide)
     return static_cast<int>(cudaErrorInvalidValue);
   float* xq = work;
   float* q = xq + rq;
@@ -225,7 +248,8 @@ int ln_attn_bwd_impl(const Act* x, const Act* pos, const Act* kv,
   float* v = k + rk;
   float* dk = v + rk;
   float* dv = dk + rk;
-  float* ds = dv + rk;
+  float* stats = dv + rk;
+  float* ds = stats + n_stats;
   float* part = ds + n_ds;
   float* lnpart = part + n_part;
   float* q0 = q;  // without RoPE q0 is q, and dq0 is dq
@@ -293,9 +317,14 @@ int ln_attn_bwd_impl(const Act* x, const Act* pos, const Act* kv,
   // out-projection: datt = g wo (rounded); attention backward, att, dbias
   GSASR_TRY_INT(launch_linear<true, kBf16>(Terms{{gf}, {wo}, 1}, nullptr,
                                            nullptr, 0, datt, Mq, C, C, st, 1));
-  GSASR_TRY_INT(launch_window_attn_bwd<true, false, float, kBf16>(
-      q, k, v, bias, datt, dq, dk, dv, ds, dbias, att, B, Tq, Tk, C, nh, scale,
-      st));
+  if constexpr (kLong)
+    GSASR_TRY_INT(launch_window_attn_bwd_long<float, false, true, kBf16>(
+        q, k, v, bias, datt, dq, dk, dv, stats, bias ? ds : nullptr, dbias, B,
+        Tq, Tk, C, nh, scale, st, nullptr, 1, att));
+  else
+    GSASR_TRY_INT(launch_window_attn_bwd<true, false, float, kBf16>(
+        q, k, v, bias, datt, dq, dk, dv, ds, dbias, att, B, Tq, Tk, C, nh,
+        scale, st));
   // RoPE: the table gradients, and dq0, dk0 over q0, k0
   if (rope) {
     GSASR_TRY_INT(launch_rope_back(dq, q0, cos_q, sin_q, dcos_q, dsin_q, rpart,
@@ -357,12 +386,11 @@ extern "C" int ln_attn_bwd(const float* x, const float* pos, const float* kv,
                            float* dsin_q, float* dcos_k, float* dsin_k,
                            float* work, int work_floats, int B, int Tq, int Tk,
                            int C, int nh, float scale, void* stream) {
-  return ln_attn_bwd_impl(x, pos, kv, ln_w, ln_b, wq, bq, wk, bk, wv, bv, wo,
-                          bias, cos_q, sin_q, cos_k, sin_k, g, dx, dkv, dpos,
-                          dln, dwq, dbq, dwk, dbk, dwv, dbv, dwo, dbo, dbias,
-                          dcos_q, dsin_q, dcos_k, dsin_k, work, work_floats, B,
-                          Tq, Tk, C, nh, scale,
-                          static_cast<cudaStream_t>(stream));
+  return ln_attn_bwd_impl<float, false>(
+      x, pos, kv, ln_w, ln_b, wq, bq, wk, bk, wv, bv, wo, bias, cos_q, sin_q,
+      cos_k, sin_k, g, dx, dkv, dpos, dln, dwq, dbq, dwk, dbk, dwv, dbv, dwo,
+      dbo, dbias, dcos_q, dsin_q, dcos_k, dsin_k, work, work_floats, B, Tq, Tk,
+      C, nh, scale, static_cast<cudaStream_t>(stream));
 }
 
 // The bfloat16 form: arguments as ln_attn_bwd, the activations bfloat16.
@@ -378,10 +406,49 @@ extern "C" int ln_attn_bwd_bf16(
     float* dbo, float* dbias, float* dcos_q, float* dsin_q, float* dcos_k,
     float* dsin_k, float* work, int work_floats, int B, int Tq, int Tk, int C,
     int nh, float scale, void* stream) {
-  return ln_attn_bwd_impl(x, pos, kv, ln_w, ln_b, wq, bq, wk, bk, wv, bv, wo,
-                          bias, cos_q, sin_q, cos_k, sin_k, g, dx, dkv, dpos,
-                          dln, dwq, dbq, dwk, dbk, dwv, dbv, dwo, dbo, dbias,
-                          dcos_q, dsin_q, dcos_k, dsin_k, work, work_floats, B,
-                          Tq, Tk, C, nh, scale,
-                          static_cast<cudaStream_t>(stream));
+  return ln_attn_bwd_impl<__nv_bfloat16, false>(
+      x, pos, kv, ln_w, ln_b, wq, bq, wk, bk, wv, bv, wo, bias, cos_q, sin_q,
+      cos_k, sin_k, g, dx, dkv, dpos, dln, dwq, dbq, dwk, dbk, dwv, dbv, dwo,
+      dbo, dbias, dcos_q, dsin_q, dcos_k, dsin_k, work, work_floats, B, Tq, Tk,
+      C, nh, scale, static_cast<cudaStream_t>(stream));
+}
+
+// Kernel AB-long: as ln_attn_bwd for windows of any Tq and Tk (the window-16
+// form); scratch as ln_attn_bwd_impl with kLong.
+extern "C" int ln_attn_bwd_long(
+    const float* x, const float* pos, const float* kv, const float* ln_w,
+    const float* ln_b, const float* wq, const float* bq, const float* wk,
+    const float* bk, const float* wv, const float* bv, const float* wo,
+    const float* bias, const float* cos_q, const float* sin_q,
+    const float* cos_k, const float* sin_k, const float* g, float* dx,
+    float* dkv, float* dpos, float* dln, float* dwq, float* dbq, float* dwk,
+    float* dbk, float* dwv, float* dbv, float* dwo, float* dbo, float* dbias,
+    float* dcos_q, float* dsin_q, float* dcos_k, float* dsin_k, float* work,
+    int work_floats, int B, int Tq, int Tk, int C, int nh, float scale,
+    void* stream) {
+  return ln_attn_bwd_impl<float, true>(
+      x, pos, kv, ln_w, ln_b, wq, bq, wk, bk, wv, bv, wo, bias, cos_q, sin_q,
+      cos_k, sin_k, g, dx, dkv, dpos, dln, dwq, dbq, dwk, dbk, dwv, dbv, dwo,
+      dbo, dbias, dcos_q, dsin_q, dcos_k, dsin_k, work, work_floats, B, Tq, Tk,
+      C, nh, scale, static_cast<cudaStream_t>(stream));
+}
+
+// Kernel AB-long-bf16: as ln_attn_bwd_long, the activations bfloat16.
+extern "C" int ln_attn_bwd_long_bf16(
+    const __nv_bfloat16* x, const __nv_bfloat16* pos,
+    const __nv_bfloat16* kv, const float* ln_w, const float* ln_b,
+    const float* wq, const float* bq, const float* wk, const float* bk,
+    const float* wv, const float* bv, const float* wo, const float* bias,
+    const float* cos_q, const float* sin_q, const float* cos_k,
+    const float* sin_k, const __nv_bfloat16* g, __nv_bfloat16* dx,
+    __nv_bfloat16* dkv, __nv_bfloat16* dpos, float* dln, float* dwq,
+    float* dbq, float* dwk, float* dbk, float* dwv, float* dbv, float* dwo,
+    float* dbo, float* dbias, float* dcos_q, float* dsin_q, float* dcos_k,
+    float* dsin_k, float* work, int work_floats, int B, int Tq, int Tk, int C,
+    int nh, float scale, void* stream) {
+  return ln_attn_bwd_impl<__nv_bfloat16, true>(
+      x, pos, kv, ln_w, ln_b, wq, bq, wk, bk, wv, bv, wo, bias, cos_q, sin_q,
+      cos_k, sin_k, g, dx, dkv, dpos, dln, dwq, dbq, dwk, dbk, dwv, dbv, dwo,
+      dbo, dbias, dcos_q, dsin_q, dcos_k, dsin_k, work, work_floats, B, Tq, Tk,
+      C, nh, scale, static_cast<cudaStream_t>(stream));
 }

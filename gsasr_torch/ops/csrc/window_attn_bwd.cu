@@ -66,53 +66,6 @@
 #include "window_attn_bwd.cuh"
 #include "window_attn_long_bwd.cuh"
 
-namespace {
-
-// The launches of WB-long (T float) and WB-long-bf16 (T __nv_bfloat16), or
-// with kMask WMB-long and WMB-long-bf16 (mask (nW, Tq, Tk), B a multiple of
-// nW): dq and the rows' statistics per query tile, then dk and dv per key
-// tile, then (dbias given) the ordered sum of ds_w over the windows.
-template <typename T, bool kMask = false>
-cudaError_t launch_window_attn_bwd_long(const T* q, const T* k, const T* v,
-                                        const float* bias, const T* g, T* dq,
-                                        T* dk, T* dv, float* stats,
-                                        float* ds_w, float* dbias, int B,
-                                        int Tq, int Tk, int C, int nh,
-                                        float scale, cudaStream_t st,
-                                        const float* mask = nullptr,
-                                        int nW = 1) {
-  if (!gsasr::long_shape_ok(B, Tq, Tk, C, nh) || (dbias && !ds_w) ||
-      nW < 1 || B % nW != 0 || (kMask && !mask))
-    return cudaErrorInvalidValue;
-  const size_t smem = gsasr::long_bwd_smem_bytes(C / nh);
-  cudaError_t err = cudaFuncSetAttribute(
-      gsasr::window_attn_bwd_long_q_kernel<T, kMask>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
-  if (err != cudaSuccess) return err;
-  err = cudaFuncSetAttribute(gsasr::window_attn_bwd_long_kv_kernel<T, kMask>,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             static_cast<int>(smem));
-  if (err != cudaSuccess) return err;
-  gsasr::window_attn_bwd_long_q_kernel<T, kMask>
-      <<<gsasr::long_grid(nh, B, Tq), kThreads, smem, st>>>(
-          q, k, v, bias, g, dq, stats, dbias ? ds_w : nullptr, Tq, Tk, C, nh,
-          scale, mask, nW);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
-  gsasr::window_attn_bwd_long_kv_kernel<T, kMask>
-      <<<dim3(nh, B, (Tk + gsasr::kLK - 1) / gsasr::kLK), kThreads, smem,
-         st>>>(q, k, v, bias, g, dk, dv, stats, Tq, Tk, C, nh, scale, mask,
-               nW);
-  err = cudaGetLastError();
-  if (err != cudaSuccess || !dbias) return err;
-  const int n = nh * Tq * Tk;
-  dbias_sum_kernel<<<(n + kThreads - 1) / kThreads, kThreads, 0, st>>>(
-      ds_w, dbias, B, n);
-  return cudaGetLastError();
-}
-
-}  // namespace
-
 // q, g, dq (B, Tq, C); k, v, dk, dv (B, Tk, C); bias (nh, Tq, Tk) or null;
 // ds_w (B, nh, Tq, Tk) scratch the caller allocates; dbias (nh, Tq, Tk), or
 // null to skip the sum over windows. All float32, contiguous, on the device.

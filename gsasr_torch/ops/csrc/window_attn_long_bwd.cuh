@@ -40,12 +40,23 @@
 // constant and gets no gradient, and dbias stays the ordered sum over
 // windows. The flag is a template parameter of both launches, so WB-long
 // compiles as without it.
+//
+// AB-long (ln_attn_bwd.cu, the backward of A-long) runs both launches on f32
+// scratch with two more template flags, so WB-long and WMB-long compile as
+// without them. kAtt: launch 1's pass 2 also forms att = p v (the forward's
+// attention output, which AB's dwo needs) from the same p and v tile, p
+// rounded before the product as W-long's body rounds it. kRnd (AB-long's
+// bfloat16 form, whose operands are f32 tiles holding bf16 values) rounds
+// where _k_ln_attn_bwd rounds: p as the operand of att and dv, ds as the
+// operand of dq and dk (D, ds_w and dbias take them unrounded), and att as
+// it is stored; dq, dk and dv stay f32.
 #pragma once
 
 #include <cuda_runtime.h>
 
 #include <cmath>
 
+#include "window_attn_bwd.cuh"
 #include "window_attn_long.cuh"
 
 namespace gsasr {
@@ -143,8 +154,9 @@ __device__ __forceinline__ void long_ds(const float* gw, const float* vs,
 // Launch 1, one block of kThreads per (head, window, query tile) of
 // long_grid: dq, each row's (max, sum, D) into stats, and ds into ds_w when
 // it is not null. With kMask, mask (nW, Tq, Tk), window w taking mask[w %
-// nW].
-template <typename T, bool kMask = false>
+// nW]. With kAtt, att (B, Tq, C) = p v; with kRnd, AB-long's bf16 rounding.
+template <typename T, bool kMask = false, bool kAtt = false,
+          bool kRnd = false>
 __global__ void __launch_bounds__(kThreads)
 window_attn_bwd_long_q_kernel(const T* __restrict__ q, const T* __restrict__ k,
                               const T* __restrict__ v,
@@ -153,7 +165,8 @@ window_attn_bwd_long_q_kernel(const T* __restrict__ q, const T* __restrict__ k,
                               float* __restrict__ stats,
                               float* __restrict__ ds_w, int Tq, int Tk, int C,
                               int nh, float scale,
-                              const float* __restrict__ mask, int nW) {
+                              const float* __restrict__ mask, int nW,
+                              float* __restrict__ att) {
   extern __shared__ float smem[];
   const int hd = C / nh;
   const int ld = hd | 1;
@@ -215,10 +228,12 @@ window_attn_bwd_long_q_kernel(const T* __restrict__ q, const T* __restrict__ k,
     }
   }
 
-  // pass 2: D = sum_j p dp, key tiles in order
+  // pass 2: D = sum_j p dp, key tiles in order; with kAtt also att = p v
+  // (lane d owning column d, as W-long's body sums it)
   float drow[kLRows];
+  float orow[kLRows];
 #pragma unroll
-  for (int r = 0; r < kLRows; ++r) drow[r] = 0.f;
+  for (int r = 0; r < kLRows; ++r) drow[r] = orow[r] = 0.f;
   for (int k0 = 0; k0 < Tk; k0 += kLK) {
     const int kb = min(kLK, Tk - k0);
     __syncthreads();
@@ -239,6 +254,30 @@ window_attn_bwd_long_q_kernel(const T* __restrict__ q, const T* __restrict__ k,
         if (j < kb) e += prow[r * kLK + j] * dp[r][m];
       }
       drow[r] += warp_sum(e);
+    }
+    if constexpr (kAtt) {
+      __syncwarp();
+      if (lane < hd) {
+        for (int j = 0; j < kb; ++j) {
+          const float vj = vs[j * ld + lane];
+#pragma unroll
+          for (int r = 0; r < kLRows; ++r) {
+            const float p = prow[r * kLK + j];
+            orow[r] = fmaf(kRnd ? rnd<__nv_bfloat16>(p) : p, vj, orow[r]);
+          }
+        }
+      }
+      __syncwarp();
+    }
+  }
+  if constexpr (kAtt) {
+    if (lane < hd) {
+#pragma unroll
+      for (int r = 0; r < kLRows; ++r) {
+        if (r0 + r < rows)
+          att[(qrow0 + r0 + r) * C + n0 + lane] =
+              kRnd ? rnd<__nv_bfloat16>(orow[r]) : orow[r];
+      }
     }
   }
   if (lane == 0) {
@@ -275,6 +314,13 @@ window_attn_bwd_long_q_kernel(const T* __restrict__ q, const T* __restrict__ k,
         for (int j = lane; j < kb; j += 32) dsr[j] = prow[r * kLK + j];
       }
     }
+    if constexpr (kRnd) {
+      // ds as the operand of dq (each lane rounds the entries it wrote)
+#pragma unroll
+      for (int r = 0; r < kLRows; ++r)
+        for (int j = lane; j < kb; j += 32)
+          prow[r * kLK + j] = rnd<__nv_bfloat16>(prow[r * kLK + j]);
+    }
     __syncwarp();
     if (lane < hd) {
       for (int j = 0; j < kb; ++j) {
@@ -297,8 +343,9 @@ window_attn_bwd_long_q_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
 // Launch 2, one block of kThreads per (head, window, key tile of kLK): dv
 // and dk of the tile's keys, the query tiles walked in order with the
-// statistics launch 1 stored. With kMask, the mask as launch 1 takes it.
-template <typename T, bool kMask = false>
+// statistics launch 1 stored. With kMask, the mask as launch 1 takes it;
+// with kRnd, AB-long's bf16 rounding of p and ds.
+template <typename T, bool kMask = false, bool kRnd = false>
 __global__ void __launch_bounds__(kThreads)
 window_attn_bwd_long_kv_kernel(const T* __restrict__ q,
                                const T* __restrict__ k,
@@ -362,7 +409,8 @@ window_attn_bwd_long_kv_kernel(const T* __restrict__ q,
     }
     long_probs<kMask>(qw, ks, ld, hd, kb, hb, q0 + r0, Tq, Tk, scale, mrow,
                       lrow, prow, mb);
-    // dp, held for ds while the tile holds p for dv
+    // dp, held for ds while the tile holds p for dv (ds from the unrounded
+    // p; with kRnd, p rounded in place after)
     float dp[kLRows][kLKeysPer];
     long_dots(gw, vs, ld, hd, kb, dp);
 #pragma unroll
@@ -370,7 +418,11 @@ window_attn_bwd_long_kv_kernel(const T* __restrict__ q,
 #pragma unroll
       for (int m = 0; m < kLKeysPer; ++m) {
         const int j = lane + 32 * m;
-        if (j < kb) dp[r][m] = prow[r * kLK + j] * (dp[r][m] - drow[r]);
+        if (j < kb) {
+          const float p = prow[r * kLK + j];
+          dp[r][m] = p * (dp[r][m] - drow[r]);
+          if constexpr (kRnd) prow[r * kLK + j] = rnd<__nv_bfloat16>(p);
+        }
       }
     __syncthreads();
     // dv += p^T g over the tile's rows in order
@@ -389,7 +441,8 @@ window_attn_bwd_long_kv_kernel(const T* __restrict__ q,
 #pragma unroll
       for (int m = 0; m < kLKeysPer; ++m) {
         const int j = lane + 32 * m;
-        if (j < kb) prow[r * kLK + j] = dp[r][m];
+        if (j < kb)
+          prow[r * kLK + j] = kRnd ? rnd<__nv_bfloat16>(dp[r][m]) : dp[r][m];
       }
     __syncthreads();
     // dk += ds^T q over the tile's rows in order
@@ -417,3 +470,52 @@ window_attn_bwd_long_kv_kernel(const T* __restrict__ q,
 }
 
 }  // namespace gsasr
+
+namespace {
+
+// The launches of WB-long (T float) and WB-long-bf16 (T __nv_bfloat16), or
+// with kMask WMB-long and WMB-long-bf16 (mask (nW, Tq, Tk), B a multiple of
+// nW), or with kAtt (att (B, Tq, C) f32) and kRnd AB-long's attention
+// backward: dq and the rows' statistics per query tile, then dk and dv per
+// key tile, then (dbias given) the ordered sum of ds_w over the windows.
+template <typename T, bool kMask = false, bool kAtt = false,
+          bool kRnd = false>
+cudaError_t launch_window_attn_bwd_long(const T* q, const T* k, const T* v,
+                                        const float* bias, const T* g, T* dq,
+                                        T* dk, T* dv, float* stats,
+                                        float* ds_w, float* dbias, int B,
+                                        int Tq, int Tk, int C, int nh,
+                                        float scale, cudaStream_t st,
+                                        const float* mask = nullptr,
+                                        int nW = 1, float* att = nullptr) {
+  if (!gsasr::long_shape_ok(B, Tq, Tk, C, nh) || (dbias && !ds_w) ||
+      nW < 1 || B % nW != 0 || (kMask && !mask) || (kAtt && !att))
+    return cudaErrorInvalidValue;
+  const size_t smem = gsasr::long_bwd_smem_bytes(C / nh);
+  cudaError_t err = cudaFuncSetAttribute(
+      gsasr::window_attn_bwd_long_q_kernel<T, kMask, kAtt, kRnd>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+  if (err != cudaSuccess) return err;
+  err = cudaFuncSetAttribute(
+      gsasr::window_attn_bwd_long_kv_kernel<T, kMask, kRnd>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+  if (err != cudaSuccess) return err;
+  gsasr::window_attn_bwd_long_q_kernel<T, kMask, kAtt, kRnd>
+      <<<gsasr::long_grid(nh, B, Tq), kThreads, smem, st>>>(
+          q, k, v, bias, g, dq, stats, dbias ? ds_w : nullptr, Tq, Tk, C, nh,
+          scale, mask, nW, att);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  gsasr::window_attn_bwd_long_kv_kernel<T, kMask, kRnd>
+      <<<dim3(nh, B, (Tk + gsasr::kLK - 1) / gsasr::kLK), kThreads, smem,
+         st>>>(q, k, v, bias, g, dk, dv, stats, Tq, Tk, C, nh, scale, mask,
+               nW);
+  err = cudaGetLastError();
+  if (err != cudaSuccess || !dbias) return err;
+  const int n = nh * Tq * Tk;
+  dbias_sum_kernel<<<(n + kThreads - 1) / kThreads, kThreads, 0, st>>>(
+      ds_w, dbias, B, n);
+  return cudaGetLastError();
+}
+
+}  // namespace

@@ -7,8 +7,8 @@ forward and backward.
 - `ln_attn_proj`: out = proj(MHA(rope?(LN(x) (+pos) -> q; kv | LN(x) -> k,
   v); + bias[h])) -> kernel A (`csrc/ln_attn.cu`) forward, kernel AB
   (`csrc/ln_attn_bwd.cu`) backward; windows of more than 160 tokens (the
-  decoders' windows of 16) take A-long, the window-16 form of A, forward
-  only.
+  decoders' windows of 16) take A-long and AB-long, the window-16 forms of
+  A and AB.
 
 Activations (x, inj, resi, pos, kv and the output) are float32 or
 bfloat16; weights, biases, the bias table and the RoPE tables float32. In
@@ -23,10 +23,9 @@ included: an autograd Function saves only the inputs, and the backward
 kernel recomputes the forward, as the JAX package's custom VJPs do. The
 backward rounds where the Pallas backward bodies round; weight, bias, LN,
 bias-table and RoPE-table gradients come back in float32, dx, dinj, dpos
-and dkv in the activation type. The backward of windows of more than 160
-tokens (A-long's) is not ported and raises. Weights are in nn.Linear
-layout, (out, in). CPU tensors take the plain PyTorch version beside each
-wrapper; CUDA tensors launch the kernel.
+and dkv in the activation type. Weights are in nn.Linear layout, (out,
+in). CPU tensors take the plain PyTorch version beside each wrapper; CUDA
+tensors launch the kernel.
 """
 
 from __future__ import annotations
@@ -38,8 +37,9 @@ from gsasr_torch.ops.attention import _heads, _merge
 
 _EPS = 1e-5
 # Kernel A's limits: kMaxT and kMaxHd of csrc/ln_attn.cu (longer windows
-# take A-long; a lane holds one head column) and kMaxN = 32 kLnPer of
-# csrc/tile_gemm.cuh (the width of the row tile products and LN rows).
+# take A-long and AB-long; a lane holds one head column) and kMaxN = 32
+# kLnPer of csrc/tile_gemm.cuh (the width of the row tile products and LN
+# rows).
 _A_MAX_T = 160
 _A_MAX_HD = 32
 _A_MAX_C = 192
@@ -413,12 +413,8 @@ def _check_attn(x, num_heads, ws, bias, pos, kv, rope=(None,) * 4):
     return b, tq, tk, c
 
 
-_AB_LONG = (f"the backward of A at windows of more than {_A_MAX_T} tokens "
-            "needs AB's window-16 form, which is not ported")
-
-
 def _a_long(x, kv) -> bool:
-    """Windows too long for A: A-long's."""
+    """Windows too long for A and AB: A-long's and AB-long's."""
     return max(x.shape[1], kv.shape[1] if kv is not None else 0) > _A_MAX_T
 
 
@@ -502,9 +498,10 @@ def ln_attn_proj_bwd(x, g, *, wq, bq, wk, bk, wv, bv, wo, bo, ln_w, ln_b,
                      num_heads: int, bias=None, pos=None, kv=None,
                      scale=None, rope_cos_q=None, rope_sin_q=None,
                      rope_cos_k=None, rope_sin_k=None):
-    """Kernel AB on CUDA tensors, its plain version on CPU tensors: the VJP
-    of ln_attn_proj at cotangent g (B, Tq, C, x's type), returned as
-    `ln_attn_proj_bwd_plain` returns it."""
+    """Kernel AB (AB-long for windows of more than 160 tokens) on CUDA
+    tensors, its plain version on CPU tensors: the VJP of ln_attn_proj at
+    cotangent g (B, Tq, C, x's type), returned as `ln_attn_proj_bwd_plain`
+    returns it."""
     kw = dict(wq=wq, bq=bq, wk=wk, bk=bk, wv=wv, bv=bv, wo=wo, bo=bo,
               ln_w=ln_w, ln_b=ln_b, bias=bias, pos=pos, kv=kv,
               rope_cos_q=rope_cos_q, rope_sin_q=rope_sin_q,
@@ -514,52 +511,81 @@ def ln_attn_proj_bwd(x, g, *, wq, bq, wk, bk, wv, bv, wo, bo, ln_w, ln_b,
     if x.device.type == "cpu":
         return ln_attn_proj_bwd_plain(x, g, num_heads=num_heads, scale=scale,
                                       **kw)
-    if g.shape != x.shape:
-        raise ValueError(f"g {tuple(g.shape)} must match x {tuple(x.shape)}")
-    b, tq, tk, c, a = _ln_attn_args(x, num_heads, dict(kw, g=g))
-    if max(tq, tk) > _A_MAX_T:
-        raise NotImplementedError(_AB_LONG)
-    bf16 = x.dtype == torch.bfloat16
-    rope = rope_cos_q is not None
-    f32 = dict(dtype=torch.float32, device=x.device)
-    act = dict(dtype=x.dtype, device=x.device)
-    dx = torch.empty((b, tq, c), **act)
-    dkv = torch.empty((b, tk, c), **act) if kv is not None else None
-    dpos = torch.empty((tq, c), **act) if pos is not None else None
-    dln = torch.empty((2, c), **f32)
-    dws = [torch.empty(s, **f32) for _ in range(4) for s in ((c, c), (c,))]
-    dbias = (torch.empty((num_heads, tq, tk), **f32) if bias is not None
-             else None)
-    drope = ([torch.empty((n, c), **f32) for n in (tq, tq, tk, tk)] if rope
-             else [None] * 4)
-    mq, mk = b * tq, b * tk
-    # xq, q, datt, att, dq, dxq, k, v, dk, dv; ds per window; the
-    # weight-gradient partials; the LN partials; with RoPE q0 and k0 (dq0
-    # and dk0 in place) and the table partials of up to 32 groups of
-    # windows; in bfloat16 also x, g and kv widened, and dx, dkv and dpos
-    # in f32
-    floats = ((6 * mq + 4 * mk) * c + b * num_heads * tq * tk
-              + _MAX_GROUPS * c * (c + 1) + -(-mq // _ROW_TILE) * 2 * c
-              + ((mq + mk) * c + 2 * _ROPE_GROUPS * (tq + tk) * c) * rope
-              + ((3 * mq + 2 * mk) * c + tq * c) * bf16)
-    work = _work(floats, x)
-    _build.launch("ln_attn_bwd_bf16" if bf16 else "ln_attn_bwd", a["x"],
-                  a["pos"], a["kv"], a["ln_w"], a["ln_b"], a["wq"], a["bq"],
-                  a["wk"], a["bk"], a["wv"], a["bv"], a["wo"], a["bias"],
-                  *(a[r] for r in _ROPE), a["g"], dx, dkv, dpos, dln, *dws,
-                  dbias, *drope, work, floats, b, tq, tk, c, num_heads,
-                  float(scale))
+    if _a_long(x, kv):
+        return ln_attn_proj_bwd_long(x, g, num_heads=num_heads, scale=scale,
+                                     **kw)
+    out = _ln_attn_bwd_launch(x, g, num_heads, scale, kw, long=False)
     ln_attn_proj_bwd.launches += 1
-    return (dx, dpos, dkv, dln[0], dln[1], *dws, dbias, *drope)
+    return out
 
 
 ln_attn_proj_bwd.launches = 0
 
 
+def ln_attn_proj_bwd_long(x, g, *, num_heads, scale=None, **kw):
+    """The backward of `ln_attn_proj` for windows of any length: kernel
+    AB-long on CUDA tensors, the plain version on CPU tensors, returned as
+    `ln_attn_proj_bwd_plain` returns it. `kw`: the tensor arguments of
+    `ln_attn_proj` by name."""
+    if scale is None:
+        scale = (x.shape[-1] // num_heads) ** -0.5
+    kw = {**dict.fromkeys(("bias", "pos", "kv") + _ROPE), **kw}
+    if x.device.type == "cpu":
+        return ln_attn_proj_bwd_plain(x, g, num_heads=num_heads, scale=scale,
+                                      **kw)
+    out = _ln_attn_bwd_launch(x, g, num_heads, scale, kw, long=True)
+    ln_attn_proj_bwd_long.launches += 1
+    return out
+
+
+ln_attn_proj_bwd_long.launches = 0
+
+
+def _ln_attn_bwd_launch(x, g, num_heads, scale, kw, long: bool):
+    """AB's or AB-long's launch on CUDA tensors, with its outputs and
+    scratch."""
+    if g.shape != x.shape:
+        raise ValueError(f"g {tuple(g.shape)} must match x {tuple(x.shape)}")
+    b, tq, tk, c, a = _ln_attn_args(x, num_heads, dict(kw, g=g))
+    bf16 = x.dtype == torch.bfloat16
+    rope = kw["rope_cos_q"] is not None
+    has_bias = kw["bias"] is not None
+    f32 = dict(dtype=torch.float32, device=x.device)
+    act = dict(dtype=x.dtype, device=x.device)
+    dx = torch.empty((b, tq, c), **act)
+    dkv = torch.empty((b, tk, c), **act) if kw["kv"] is not None else None
+    dpos = torch.empty((tq, c), **act) if kw["pos"] is not None else None
+    dln = torch.empty((2, c), **f32)
+    dws = [torch.empty(s, **f32) for _ in range(4) for s in ((c, c), (c,))]
+    dbias = torch.empty((num_heads, tq, tk), **f32) if has_bias else None
+    drope = ([torch.empty((n, c), **f32) for n in (tq, tq, tk, tk)] if rope
+             else [None] * 4)
+    mq, mk = b * tq, b * tk
+    # xq, q, datt, att, dq, dxq, k, v, dk, dv; ds per window (AB-long: each
+    # row's softmax statistics, and ds only for a bias); the weight-gradient
+    # partials; the LN partials; with RoPE q0 and k0 (dq0 and dk0 in place)
+    # and the table partials of up to 32 groups of windows; in bfloat16 also
+    # x, g and kv widened, and dx, dkv and dpos in f32
+    n_ds = b * num_heads * tq * tk
+    floats = ((6 * mq + 4 * mk) * c
+              + (b * num_heads * tq * 3 + n_ds * has_bias if long else n_ds)
+              + _MAX_GROUPS * c * (c + 1) + -(-mq // _ROW_TILE) * 2 * c
+              + ((mq + mk) * c + 2 * _ROPE_GROUPS * (tq + tk) * c) * rope
+              + ((3 * mq + 2 * mk) * c + tq * c) * bf16)
+    work = _work(floats, x)
+    name = "ln_attn_bwd" + "_long" * long + "_bf16" * bf16
+    _build.launch(name, a["x"], a["pos"], a["kv"], a["ln_w"], a["ln_b"],
+                  a["wq"], a["bq"], a["wk"], a["bk"], a["wv"], a["bv"],
+                  a["wo"], a["bias"], *(a[r] for r in _ROPE), a["g"], dx,
+                  dkv, dpos, dln, *dws, dbias, *drope, work, floats, b, tq,
+                  tk, c, num_heads, float(scale))
+    return (dx, dpos, dkv, dln[0], dln[1], *dws, dbias, *drope)
+
+
 class _LnAttn(torch.autograd.Function):
-    """Forward A, backward AB (the custom VJP `_ln_attn_core` of the JAX
-    package): saves the inputs only. The backward of windows of more than
-    160 tokens raises: AB's window-16 form is not ported."""
+    """Forward A, backward AB (A-long and AB-long for windows of more than
+    160 tokens; the custom VJP `_ln_attn_core` of the JAX package): saves
+    the inputs only."""
 
     @staticmethod
     def forward(ctx, x, wq, bq, wk, bk, wv, bv, wo, bo, ln_w, ln_b, bias,
@@ -578,8 +604,6 @@ class _LnAttn(torch.autograd.Function):
     def backward(ctx, g):
         (x, wq, bq, wk, bk, wv, bv, wo, bo, ln_w, ln_b, bias, pos, kv, cos_q,
          sin_q, cos_k, sin_k) = ctx.saved_tensors
-        if _a_long(x, kv):
-            raise NotImplementedError(_AB_LONG)
         (dx, dpos, dkv, dlnw, dlnb, dwq, dbq, dwk, dbk, dwv, dbv, dwo, dbo,
          dbias, dcq, dsq, dck, dsk) = ln_attn_proj_bwd(
             x, g, wq=wq, bq=bq, wk=wk, bk=bk, wv=wv, bv=bv, wo=wo, bo=bo,
@@ -603,8 +627,8 @@ def ln_attn_proj(x, *, wq, bq, wk, bk, wv, bv, wo, bo, ln_w, ln_b,
     Tk) float32; rope_{cos,sin}_q (Tq, C) and rope_{cos,sin}_k (Tk, C):
     pair-duplicated float32 rotation tables applied to the projected q and k
     in f32 (the Enhanced family), all four or none. Differentiable in every
-    tensor argument, the tables included (kernel AB on the card), for
-    windows of up to 160 tokens."""
+    tensor argument, the tables included (kernel AB on the card, AB-long
+    for windows of more than 160 tokens)."""
     if scale is None:
         scale = (x.shape[-1] // num_heads) ** -0.5
     return _LnAttn.apply(x, wq, bq, wk, bk, wv, bv, wo, bo, ln_w, ln_b, bias,

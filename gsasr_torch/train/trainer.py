@@ -17,7 +17,9 @@ on the card: module path 38 W and 38 WB; fused path 83 M and 38 A forward,
 83 MB and 38 AB backward; either way 1 R, 1 RB and 38 T (the bias-table
 gradients). The Enhanced decoder's fused path launches 83 M, 38 A, 83 MB
 and 38 AB (RDN-Enhanced's two cross blocks 88 and 40 of each), 1 R and 1
-RB per step, and no T. A
+RB per step, and no T; at 256 seeds in windows of 16 its attentions take
+A-long and AB-long: the HAT-L Ultra decoder 140 M, 140 MB, 64 A-long and
+64 AB-long per step, SwinIR-Enhanced's 96, 96, 44 and 44. A
 SwinIR encoder adds 18 W, 18 WB, 18 WM, 18 WMB and 36 T per step (its
 unshifted and shifted blocks and their bias tables), and its DropPath masks
 come from a generator on the trainer's device seeded from (config.seed,
@@ -42,7 +44,6 @@ from gsasr_torch import resolve_device
 from gsasr_torch.models.fea2gs_fast import fea2gs_apply_fused
 from gsasr_torch.models.fea2gs_rope import Fea2GSRopeAMP
 from gsasr_torch.models.fea2gs_rope_fast import fea2gs_rope_apply_fused
-from gsasr_torch.ops.fused_layers import _A_MAX_T
 from gsasr_torch.rendering import render_training_batch
 from gsasr_torch.train.losses import masked_l1, size_mask, ssim
 from gsasr_torch.train.schedules import multistep_warmup_schedule
@@ -120,13 +121,6 @@ class Trainer:
         if mesh is not None:
             raise NotImplementedError(
                 "meshes (data and band axes) come with the multi-GPU slice")
-        if (config.fused_decoder and isinstance(dec, Fea2GSRopeAMP)
-                and max(dec.num_gs_seed, dec.window_size ** 2) > _A_MAX_T):
-            raise NotImplementedError(
-                "fused_decoder=True with windows of more than "
-                f"{_A_MAX_T} tokens needs AB's window-16 form (the backward "
-                "of A-long, K10 at T > 160), which is not ported; the module "
-                "path (fused_decoder=False, the recipes' default) trains")
         self.device = resolve_device(device)
         self.cfg = config
         self.enc = enc.to(self.device).train()

@@ -15,8 +15,9 @@ samples of 64x64 at scales in [1, 16] on the 1024x1024 canvas; with
 fp32 with --fp32-trunk; --encoder hat_paper: the paper HAT, network_g
 type HATNOUP, with the paper Fea2GS, padded to 48, or with --train its
 step at the paper recipe; --encoder swinir --enhanced --train: SwinIR's
-step at configs/train_swinir_amp.yml's bf16 recipe) with seeded weights,
-warms up,
+step at configs/train_swinir_amp.yml's bf16 recipe; --fused with either
+window-16 step, HAT-L Ultra's or SwinIR's, takes its fused decoder: M, A-long,
+MB and AB-long) with seeded weights, warms up,
 then traces with torch.profiler either `sr_forward` on a 180x180 x4 image
 (padded to the encoder's denominator: 192x192 for SwinIR) or, with
 --train, `Trainer.step` of configs/train_<encoder>_paper.yml's recipe on
@@ -66,7 +67,15 @@ FAMILIES = (
     # the window-16 forms: W-long, and A-long's projections, attention and
     # (bf16) out-projection
     ("W-long window_attn_fwd long", ("window_attn_fwd_long_kernel",)),
-    # WB-long: the dq / row-statistics and the dk / dv launches
+    # AB-long's attention backward: WB-long's launches on AB's f32 scratch,
+    # forming att (kAtt) and, in bf16, rounding as AB-bf16 (kRnd)
+    ("AB-long attention (bf16)",
+     ("window_attn_bwd_long_q_kernel<float, false, true, true",
+      "window_attn_bwd_long_kv_kernel<float, false, true")),
+    ("AB-long attention (fp32) dq",
+     ("window_attn_bwd_long_q_kernel<float, false, true, false",)),
+    # WB-long: the dq / row-statistics and the dk / dv launches (and AB-long
+    # fp32's dk / dv launch, the same instantiation)
     ("WB-long window_attn_bwd long", ("window_attn_bwd_long",)),
     ("A-long q/k/v projections", ("ln_qkv_kernel",)),
     ("A-long attention", ("attn_long_kernel",)),
@@ -149,16 +158,19 @@ def main() -> int:
             args.encoder not in ("edsr", "swinir")
             or args.fused and not args.train
             or args.train and args.fp32_trunk
-            or swinir_amp and (args.fused or not args.train)):
+            or swinir_amp and not args.train):
         ap.error("--enhanced traces EDSR (its step on the module decoder, "
                  "or with --fused the fused one), or with --encoder swinir "
-                 "--train SwinIR's bf16 step on the module decoder")
+                 "--train SwinIR's bf16 step (--fused: on the fused "
+                 "decoder)")
     ultra = args.encoder == "hat"
     hat_paper = args.encoder == "hat_paper"
-    if (ultra or hat_paper) and (args.enhanced or args.fused):
+    if (ultra or hat_paper) and args.enhanced or hat_paper and args.fused \
+            or args.fused and not args.train:
         ap.error("--encoder hat traces HAT-L Ultra (--train: its bf16 "
-                 "recipe on the module decoder), hat_paper the paper HAT "
-                 "(--train: the paper recipe on the module decoder)")
+                 "recipe on the module decoder, --fused on the fused one), "
+                 "hat_paper the paper HAT (--train: the paper recipe on the "
+                 "module decoder)")
     trunk = torch.float32 if args.fp32_trunk else None
     denominator = DENOMINATORS.get(args.encoder, 48)
     if hat_paper:
@@ -230,13 +242,14 @@ def main() -> int:
                            "--format=csv,noheader"], capture_output=True,
                           text=True, timeout=60, check=True).stdout.strip()
     unit = "step" if args.train else "image"
+    mode = "fused" if args.fused else "module"
     res = dict(
         card=card, iters=per, unit=unit,
         encoder=args.encoder,
-        decoder=("Ultra, bf16 recipe (module)" if ultra and args.train
+        decoder=(f"Ultra, bf16 recipe ({mode})" if ultra and args.train
                  else "Ultra, bf16 trunk" if ultra else "paper"
                  if not args.enhanced else
-                 "Enhanced, SwinIR's bf16 recipe (module)" if swinir_amp
+                 f"Enhanced, SwinIR's bf16 recipe ({mode})" if swinir_amp
                  else "Enhanced, fp32 trunk"
                  if args.fp32_trunk else "Enhanced, bf16 recipe (fused)"
                  if args.train and args.fused else

@@ -375,11 +375,10 @@ def test_build_networks_enhanced_recipes(yml, enc_cls, cross):
 def test_unported_bf16_combinations_raise():
     """The paper Fea2GS in bf16 raises, naming what it needs (SwinIR in
     bf16, train_swinir_amp.yml, now builds: tests/test_torch_swinir_bf16.py;
-    so does the paper HAT in bf16 with it); a
-    fused trainer whose decoder has windows of more than 160 tokens (the
-    Ultra and SwinIR-Enhanced decoders' 256 seeds in windows of 16) raises
-    at construction, naming AB's window-16 form, rather than in its first
-    backward."""
+    so does the paper HAT in bf16 with it); a fused trainer whose decoder
+    has windows of more than 160 tokens (the Ultra and SwinIR-Enhanced
+    decoders' 256 seeds in windows of 16) now constructs, on the fused
+    decoder (AB-long: tests/test_torch_ultra_fused_train.py)."""
     from gsasr_torch.config import build_networks, load_options
 
     with pytest.raises(NotImplementedError, match="paper Fea2GS"):
@@ -392,9 +391,9 @@ def test_unported_bf16_combinations_raise():
         build_networks(opt)
     w16 = dict(DEC_KW, num_gs_seed=256, window_size=16)
     enc, dec = _port(_weights(8, w16), w16, BF16)
-    with pytest.raises(NotImplementedError, match="AB's window-16 form"):
-        Trainer(enc, dec, TrainConfig(**CFG, fused_decoder=True),
-                device="cpu")
+    tr = Trainer(enc, dec, TrainConfig(**CFG, fused_decoder=True),
+                 device="cpu")
+    assert tr.cfg.fused_decoder and tr.dec is dec
 
 
 def test_chip_smoke_enhanced_constants_match_yaml():

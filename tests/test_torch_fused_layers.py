@@ -90,9 +90,8 @@ def test_ln_attn_proj_matches_jax(shape, opts):
 def test_unported_options_raise():
     """zero_base, RoPE and bf16 activations (the Enhanced family)
     differentiate, the RoPE tables included, with finite gradients; the
-    backward of windows of more than 160 tokens (AB's window-16 form) is
-    not ported and raises when a gradient is asked for, rather than
-    returning one."""
+    backward of windows of more than 160 tokens (AB-long's, ported) runs,
+    and its gradients equal autograd through the plain forward."""
     g = torch.Generator().manual_seed(0)
     r = lambda *s: torch.randn(*s, generator=g)  # noqa: E731
     x = r(2, 4, 8).requires_grad_()
@@ -111,7 +110,18 @@ def test_unported_options_raise():
         grads = torch.autograd.grad(y.float().sum(), wrt)
         assert all(bool(torch.isfinite(d).all()) for d in grads)
     long = r(1, 161, 8).requires_grad_()
-    y = tf.ln_attn_proj(long, **attn)
+    weights = {k: v.clone().requires_grad_() for k, v in attn.items()
+               if k != "num_heads"}
+    g_out = r(1, 161, 8)
+    y = tf.ln_attn_proj(long, num_heads=2, **weights)
     assert y.shape == long.shape
-    with pytest.raises(NotImplementedError, match="window-16"):
-        y.sum().backward()
+    got = torch.autograd.grad(y, [long, *weights.values()], g_out)
+    ref = tf.ln_attn_proj_plain(long, num_heads=2, **weights)
+    want = dict(zip(["x", *weights], torch.autograd.grad(
+        ref, [long, *weights.values()], g_out)))
+    for name, a in zip(want, got):
+        # 1e-5 of the tensor's largest entry (float32 sums in another
+        # order); the k bias's true gradient is 0, held to the k weight's
+        scale = want["wk" if name == "bk" else name].abs().max()
+        torch.testing.assert_close(a, want[name], rtol=0,
+                                   atol=1e-5 * float(scale), msg=name)

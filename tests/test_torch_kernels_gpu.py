@@ -759,16 +759,84 @@ def test_window_attn_masked_forms_match_plain_and_repeat(cuda, b, nw, tq, tk,
 
 def test_window_attn_bwd_kernels_do_not_spill(cuda):
     """ptxas's report of WB's source (WB, WMB, WB-bf16 and the window-16
-    forms): no kernel spills a register to local memory."""
+    forms), and the attention kernels of AB's source (AB's WB body, and
+    AB-long's WB-long launches in their att and bf16-rounding
+    instantiations): no kernel spills a register to local memory."""
     import re
 
     from gsasr_torch.ops import _build
 
-    _build.build(["window_attn_bwd_long"])
-    report = _build.ptxas_report("window_attn_bwd_long")
-    spills = re.findall(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
-                        report)
-    assert spills and all(a == "0" and b == "0" for a, b in spills), report
+    _build.build(["window_attn_bwd_long", "ln_attn_bwd_long"])
+    for src, key in (("window_attn_bwd_long", ""),
+                     ("ln_attn_bwd_long", "window_attn_bwd")):
+        spills, name = {}, None
+        for line in _build.ptxas_report(src).splitlines():
+            m = re.search(r"Compiling entry function '(\w+)'", line)
+            if m:
+                name = m.group(1)
+            sp = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill "
+                           r"loads", line)
+            if sp and key in name:
+                spills[name] = sp.groups()
+        assert spills and all(v == ("0", "0") for v in spills.values()), \
+            spills
+        if key:
+            assert sum("window_attn_bwd_long_q_kernelIfLb0ELb1E" in k
+                       for k in spills) == 2, sorted(spills)
+
+
+@pytest.mark.parametrize("opts,bf16", [("rope_cross", False),
+                                       ("rope_self", False),
+                                       ("rope_cross", True),
+                                       ("rope_self", True),
+                                       ("bias_self", False)])
+def test_ln_attn_bwd_long_matches_plain_and_repeats(cuda, opts, bf16):
+    """AB-long, the window-16 form of AB, at T = 256, 192 channels and 6
+    heads of 32: RoPE cross-attention (pos, kv) and self-attention in both
+    types (the Ultra decoder's forms; the four table gradients among the
+    outputs) and the bias form in fp32 (dbias, the ordered sum over
+    windows); twice bitwise, AB itself not launched; through autograd on
+    the card, one AB-long launch per backward."""
+    from gsasr_torch.models.fea2gs_rope_fast import rope_tables
+    from gsasr_torch.ops import fused_layers as tf
+
+    r = _fused_inputs(cuda, 16)
+    b, t, c, nh = 5, 256, 192, 6
+    dt = torch.bfloat16 if bf16 else torch.float32
+    kw = {k: r(c, c) / 14 if k[0] == "w" else r(c)
+          for k in ("wq", "bq", "wk", "bk", "wv", "bv", "wo", "bo")}
+    kw.update(ln_w=1 + 0.1 * r(c), ln_b=0.1 * r(c), num_heads=nh)
+    if opts.endswith("cross"):
+        kw.update(pos=r(t, c).to(dt), kv=r(b, t, c).to(dt))
+    if opts.startswith("rope"):
+        cq, sq = rope_tables(0.5 * r(2, nh, c // nh // 2), 16, t)
+        ck, sk = rope_tables(0.5 * r(2, nh, c // nh // 2), 16, t)
+        kw.update(rope_cos_q=cq, rope_sin_q=sq, rope_cos_k=ck,
+                  rope_sin_k=sk)
+    else:
+        kw.update(bias=0.5 * r(nh, t, t))
+    x, g = r(b, t, c).to(dt), r(b, t, c).to(dt)
+    n = (tf.ln_attn_proj_bwd.launches, tf.ln_attn_proj_bwd_long.launches)
+    out = tf.ln_attn_proj_bwd(x, g, **kw)
+    again = tf.ln_attn_proj_bwd(x, g, **kw)
+    assert (tf.ln_attn_proj_bwd.launches,
+            tf.ln_attn_proj_bwd_long.launches) == (n[0], n[1] + 2)
+    ref = tf.ln_attn_proj_bwd_plain(x, g, **kw)
+    for i, (o, a, rf) in enumerate(zip(out, again, ref)):
+        assert (o is None) == (rf is None)
+        if rf is not None:
+            assert torch.equal(o, a)  # bitwise repeatable: no atomics
+            # dbk (index 8): its true value is 0, held to dwk's scale
+            # (with bf16, dwk's norm scaled to C entries)
+            floor = None
+            if i == 8:
+                floor = (ref[7].double().norm() / ref[7].shape[0] ** 0.5
+                         if bf16 else ref[7].abs().max())
+            _assert_bwd_close(o, rf, bf16, floor)
+    xg = x.clone().requires_grad_()
+    (dx,) = torch.autograd.grad(tf.ln_attn_proj(xg, **kw), xg, g)
+    assert tf.ln_attn_proj_bwd_long.launches == n[1] + 3
+    assert torch.equal(dx, out[0])
 
 
 @pytest.mark.parametrize("opts,bf16", [("rope_cross", False),
