@@ -5,8 +5,9 @@
 
 1. Prints the card (nvidia-smi name and power limit), the torch and CUDA
    versions, and builds kernels R, M, A, W, WB, RB, MB, AB and T (and
-   their forms: WB-long, MB-bf16, AB-bf16 and AB-long among them) from
-   gsasr_torch/ops/csrc, one nvcc per source, in parallel.
+   their forms: WB-long, MB-bf16, AB-bf16, AB-long, R-exact, W4 and WB4
+   among them) from gsasr_torch/ops/csrc, one nvcc per source, in
+   parallel.
 2. Kernel phase (TF32 off): R, M and A against their plain PyTorch versions
    at the inference path's shapes, with their median times, the plain
    versions' times and their lower bounds on this card.
@@ -163,6 +164,22 @@
    configs/train_swinir_amp.yml's recipe with fused_decoder=True at batch
    16 (W-bf16 18, WM-bf16 18, WB-bf16 18, WMB-bf16 18, T 36, M 96, MB 96,
    A-long 44, AB-long 44, R 1, RB 1 per step and nothing else).
+37. Exact render (TF32 off): gs_render(binning="exact") on
+   scripts/bench_exact_render.py's workload (720x720, 518,400 Gaussians,
+   dmax 0.1): trained-like boxes launch R-exact once and nothing else,
+   init-like ones overflow the lists and launch R once; the lists' ok, the
+   build's ms (and its device time by kernel), the path's ms beside
+   binning="auto"'s; R-exact against its plain walk and against R on the
+   same Gaussians, twice for bits, with its ms, bound, memberships and
+   used chunks; one backward against binning="auto"'s gradients.
+38. 4D window attention (TF32 off): W4 and WB4 (K14, K14b; bf16 forms and
+   the window-16 bodies) against their plain versions at the decoder's
+   window (225 and 256 windows x 6 heads x 144 x 30 fp32, 32 bf16) and
+   HAT's (128 x 6 x 256 x 32, fp32 and bf16, with and without a bias),
+   twice each for bits, beside the packed W and WB on the same operands
+   and SDPA; window_attention through autograd once per shape (launches
+   asserted); ptxas's registers of the 4D kernels and the packed forms'
+   beside the recorded ones.
 
 Every training phase also times Trainer.grads, which runs with cuDNN's
 deterministic algorithms, against the same forward and backward under
@@ -258,7 +275,9 @@ TRAIN_COUNTS = {"R": 1, "M": 0, "A": 0, "W": 38, "WB": 38, "RB": 1, "MB": 0,
                 "WB-bf16": 0, "W-long": 0, "W-long-bf16": 0, "A-long": 0,
                 "WB-long": 0, "WB-long-bf16": 0, "WM-bf16": 0,
                 "WMB-bf16": 0, "WM-long": 0, "WMB-long": 0,
-                "WM-long-bf16": 0, "WMB-long-bf16": 0, "AB-long": 0}
+                "WM-long-bf16": 0, "WMB-long-bf16": 0, "AB-long": 0,
+                "R-exact": 0, "W4": 0, "W4-bf16": 0, "WB4": 0,
+                "WB4-bf16": 0}
 FUSED_TRAIN_COUNTS = dict({k: 0 for k in TRAIN_COUNTS}, R=1, M=83, A=38,
                           RB=1, MB=83, AB=38, T=38)
 # SwinIR (6 RSTBs of 6 blocks, window 8, shift 4 on odd blocks): per
@@ -996,7 +1015,8 @@ def paper_batch(b: int, seed: int, ceil: bool = False, ultra: bool = False):
 
 
 def _sdpa_ms(q, k, v, mask, g, nh, scale):
-    """Yardsticks for W and WB (WM and WMB, W-bf16 and WB-bf16): one
+    """Yardsticks for W and WB (WM and WMB, W-bf16 and WB-bf16; with nh
+    None, W4 and WB4 on head-major operands): one
     scaled_dot_product_attention call on (B, nh, T, hd) views of the packed
     operands with a float attn_mask (the bias as (1, nh, Tq, Tk), or bias
     and window mask summed to (B, nh, Tq, Tk); none without a bias), and
@@ -1004,8 +1024,12 @@ def _sdpa_ms(q, k, v, mask, g, nh, scale):
     None, why None)."""
     import torch.nn.functional as F
 
-    b, tq, c = q.shape
-    heads = lambda x: x.view(b, x.shape[1], nh, c // nh).transpose(1, 2)  # noqa: E731
+    def heads(x):
+        if nh is None:
+            return x
+        b, t, c = x.shape
+        return x.view(b, t, nh, c // nh).transpose(1, 2)
+
     qh, kh, vh, gh = heads(q), heads(k), heads(v), heads(g)
     fwd = _time_ms(lambda: F.scaled_dot_product_attention(
         qh, kh, vh, attn_mask=mask, scale=scale), 10)
@@ -2355,9 +2379,10 @@ def ultra_train_card_vs_cpu(dev, fused: bool = False):
 
 # Each form's kernels in ptxas's report: (a substring of the mangled name,
 # a substring of its template arguments or ""), one pair per kernel. The
-# window-16 backward's launches take (T, kMask[, kAtt], kRnd): WB-long's
-# and WMB-long's are the instantiations whose flags after T start false or
-# true (AB-long's, with kAtt or kRnd set, compile in ln_attn_bwd.cu).
+# window-16 backward's launches take (T, kMask[, kAtt], kRnd, kHM): WB-long's
+# are the instantiations with every flag false, WMB-long's those whose
+# flags after T start true (AB-long's, with kAtt or kRnd set, compile in
+# ln_attn_bwd.cu; WB4-long's, with kHM set, beside WB-long's).
 REG_KEYS = {
     "WM-bf16": [("window_attn_fwd_masked_bf16_kernel", "")],
     "WMB-bf16": [("window_attn_bwd_kernel", "Lb1E13__nv_bfloat16")],
@@ -2367,21 +2392,39 @@ REG_KEYS = {
     "WMB-long-bf16": [("window_attn_bwd_long_", "bfloat16Lb1E")],
     "W-long": [("window_attn_fwd_long_kernel", "")],
     "A-long": [("ln_qkv_kernel", ""), ("attn_long_kernel", "")],
-    "WB-long": [("window_attn_bwd_long_", "IfLb0E"),
-                ("window_attn_bwd_long_", "bfloat16Lb0E")],
+    "WB-long": [("window_attn_bwd_long_", "IfLb0ELb0ELb0ELb0EE"),
+                ("window_attn_bwd_long_", "IfLb0ELb0ELb0EE"),
+                ("window_attn_bwd_long_", "bfloat16Lb0ELb0ELb0ELb0EE"),
+                ("window_attn_bwd_long_", "bfloat16Lb0ELb0ELb0EE")],
 }
+# The T <= 160 forms of W and WB (whose bodies W4 and WB4 share) with their
+# registers as recorded before the 4D forms joined their sources, printed
+# by the 4D attention phase beside the 4D kernels'.
+PACKED_REG_KEYS = {
+    "W": [("window_attn_fwd_kernel", "")],
+    "W-bf16": [("window_attn_fwd_bf16_kernel", "")],
+    "WM": [("window_attn_fwd_masked_kernel", "")],
+    "WM-bf16": [("window_attn_fwd_masked_bf16_kernel", "")],
+    "WB": [("window_attn_bwd_kernel", "ILb0ELb0EfLb0E")],
+    "WB-bf16": [("window_attn_bwd_kernel", "ILb0ELb0E13__nv_bfloat16Lb0E")],
+    "WMB": [("window_attn_bwd_kernel", "ILb0ELb1EfLb0E")],
+}
+PACKED_REGS_RECORDED = {"W": (64,), "W-bf16": (64,), "WM": (64,),
+                        "WM-bf16": (64,), "WB": (99,), "WB-bf16": (99,),
+                        "WMB": (80,)}
 
 
 # AB's attention (WB's body with att: fp32, and AB-bf16's rounding) and
 # AB-long's two launches in ptxas's report of ln_attn_bwd.cu: (T, kMask,
-# kAtt, kRnd) for the dq launch, (T, kMask, kRnd) for the dk/dv launch.
+# kAtt, kRnd, kHM) for the dq launch, (T, kMask, kRnd, kHM) for the dk/dv
+# launch.
 AB_REG_KEYS = {
     "AB": [("window_attn_bwd_kernel", "ILb1ELb0EfLb0E"),
            ("window_attn_bwd_kernel", "ILb1ELb0EfLb1E")],
-    "AB-long": [("window_attn_bwd_long_q_kernel", "IfLb0ELb1ELb0EE"),
-                ("window_attn_bwd_long_kv_kernel", "IfLb0ELb0EE")],
-    "AB-long-bf16": [("window_attn_bwd_long_q_kernel", "IfLb0ELb1ELb1EE"),
-                     ("window_attn_bwd_long_kv_kernel", "IfLb0ELb1EE")],
+    "AB-long": [("window_attn_bwd_long_q_kernel", "IfLb0ELb1ELb0ELb0EE"),
+                ("window_attn_bwd_long_kv_kernel", "IfLb0ELb0ELb0EE")],
+    "AB-long-bf16": [("window_attn_bwd_long_q_kernel", "IfLb0ELb1ELb1ELb0EE"),
+                     ("window_attn_bwd_long_kv_kernel", "IfLb0ELb1ELb0EE")],
 }
 
 
@@ -2641,9 +2684,348 @@ def ab_long_kernel_phase(dec, dev):
             "earlier_registers_kept": earlier == recorded}
 
 
-FORM_KEYS = ("decoder", "case", "dtype", "nW", "windows", "per_image",
-             "per_step", "max_abs_err", "ms", "plain_ms", "bound_ms",
-             "bound_by", "library_ms")
+# Phase 37: scripts/bench_exact_render.py's workload, the render of the
+# 180^2 -> x4 bench: a 720^2 canvas, 518,400 Gaussians, dmax 0.1.
+EXACT_HW = 720
+EXACT_GAUSSIANS = 518400
+EXACT_DMAX = 0.1
+
+
+def exact_workload(kind: str, dev, s: int = EXACT_GAUSSIANS,
+                   hw: int = EXACT_HW, seed: int = 0):
+    """scripts/bench_exact_render.py's Gaussians, from a seed with numpy:
+    centers on a jittered lattice, colors in [0, 0.3], rho in [-0.6, 0.6];
+    sigmas "trained"-like (lognormal around 1.1 px, sigma 0.7, clipped to
+    [0.3, 60]: boxes of about 32 px) or "init"-like (300 px, every box at
+    the dmax clamp). Returns (sigmas, coords, colors) on `dev`."""
+    rng = np.random.default_rng(seed)
+    half = (hw - 1) / 2.0
+    if kind == "trained":
+        sig_px = np.clip(np.exp(rng.normal(np.log(1.1), 0.7, (s, 2))).astype(
+            np.float32), 0.3, 60.0)
+    else:
+        sig_px = np.full((s, 2), 300.0, np.float32)
+    sigmas = np.concatenate(
+        [sig_px / half, rng.uniform(-0.6, 0.6, (s, 1)).astype(np.float32)],
+        axis=1)
+    n = int(np.sqrt(s))
+    gx, gy = np.meshgrid(np.linspace(-1, 1, n), np.linspace(-1, 1, n))
+    coords = np.stack([gx.ravel(), gy.ravel()], 1).astype(np.float32)
+    coords += rng.uniform(-1.0 / n, 1.0 / n, coords.shape).astype(np.float32)
+    colors = rng.uniform(0, 0.3, (s, 3)).astype(np.float32)
+    return [torch.from_numpy(x).to(dev) for x in (sigmas, coords, colors)]
+
+
+def exact_render_phase(dev, kernels):
+    """Phase 37: gs_render(binning="exact") at full width (the 720^2 render
+    of 518,400 Gaussians, dmax 0.1) on trained-like boxes (the lists fit:
+    R-exact once, no R) and init-like ones (they overflow: R once, no
+    R-exact), each call driven with every count from zero. Then, per
+    regime: the lists' ok, the build's ms (sort, pad, tables), the path's
+    host ms beside binning="auto"'s (R) on the same Gaussians and R's
+    kernel ms; on the trained-like regime R-exact against its plain walk
+    and against R on the same sorted Gaussians, twice for bits, its ms and
+    bound (the box pairs this run needs at 24 FP32 operations or one exp
+    each, or the bytes: geometry, colors, the used list slots and the
+    table read once, the image written once), memberships and used chunks;
+    and one backward through the exact path against binning="auto"'s."""
+    from gsasr_torch.ops import rasterizer as rz
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    hw, dmax = EXACT_HW, EXACT_DMAX
+    box = dmax * (hw - 1) + 1
+    mr, mc = rz._exact_spans(hw, hw, (box, box))
+    results = {"R-exact": [], "regimes": []}
+    for kind, want in (("trained", {"R-exact": 1}), ("init", {"R": 1})):
+        sigmas, coords, colors = exact_workload(kind, dev)
+        with torch.no_grad():
+            _reset(kernels)
+            img = rz.gs_render(sigmas, coords, colors, (hw, hw), dmax,
+                               binning="exact")
+            torch.cuda.synchronize()
+            counts = _counts(kernels)
+            print(f"  exact render {kind}: {tuple(img.shape)}, launches "
+                  f"{ {k: c for k, c in counts.items() if c} }, range "
+                  f"[{float(img.min()):.4f}, {float(img.max()):.4f}]",
+                  flush=True)
+            if counts != dict({k: 0 for k in kernels}, **want):
+                raise AssertionError(f"exact render {kind}: launch counts "
+                                     f"{counts}")
+            if tuple(img.shape) != (hw, hw, 3) or \
+                    not bool(torch.isfinite(img).all()):
+                raise AssertionError(f"exact render {kind}: bad image")
+            geom = rz.pack_geometry(sigmas, coords, (hw, hw), dmax)
+
+            def build():
+                return rz.exact_geometry(geom, colors, (hw, hw), mr, mc)
+
+            g, col, bbox, lists, tab, ok = build()
+            ok = bool(ok)
+            med = lambda fn, n=5: float(np.median(_host_ms(fn, n)))  # noqa
+            row = dict(
+                case=kind, ok=ok, span=[mr, mc], build_ms=med(build),
+                path_ms=med(lambda: rz.gs_render(
+                    sigmas, coords, colors, (hw, hw), dmax,
+                    binning="exact")),
+                r_path_ms=med(lambda: rz.gs_render(
+                    sigmas, coords, colors, (hw, hw), dmax)),
+                launches=counts, capacity_chunks=int(tab.numel()))
+            # the build's device time by kernel (torch.profiler)
+            with torch.profiler.profile(activities=[
+                    torch.profiler.ProfilerActivity.CUDA]) as prof:
+                build()
+                torch.cuda.synchronize()
+            kern = sorted((e for e in prof.key_averages()
+                           if e.device_type == torch.autograd.DeviceType.CUDA
+                           and e.self_device_time_total > 0),
+                          key=lambda e: -e.self_device_time_total)
+            row["build_device_ms"] = sum(
+                e.self_device_time_total for e in kern) / 1e3
+            row["build_kernels"] = [[e.key[:80], e.count,
+                                     e.self_device_time_total / 1e3]
+                                    for e in kern[:8]]
+            print(f"  exact render {kind}: build on the device "
+                  f"{row['build_device_ms']:.3f} ms; "
+                  + "; ".join(f"{k[:48]} x{n} {ms:.3f}"
+                              for k, n, ms in row["build_kernels"]),
+                  flush=True)
+            rg, rcol, rbbox = rz.chunk_geometry(geom, colors, (hw, hw))
+            row["r_ms"] = _time_ms(lambda: rz.raster_fwd(rg, rcol, rbbox, hw,
+                                                         hw), 10)
+            if ok:
+                walk = lambda: rz.raster_fwd_exact(  # noqa: E731
+                    g, col, lists, tab, hw, hw)
+                out = walk()
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                ref = rz.raster_fwd_exact_plain(g, col, lists, tab, hw, hw)
+                torch.cuda.synchronize()
+                plain = (time.perf_counter() - t0) * 1e3
+                err = _compare(out, ref, "R-exact")
+                _compare(out, rz.raster_fwd(g, col, bbox, hw, hw),
+                         "R-exact vs R, same Gaussians")
+                _repeatable(lambda: (walk(),), "R-exact")
+                used = tab % 4 != 0
+                members = int((lists.view(-1, 256)[used] < g.shape[0]).sum())
+                nx = (torch.clamp(torch.floor(g[:, 6]), max=hw - 1)
+                      - torch.clamp(torch.ceil(g[:, 5]), min=0) + 1).clamp(
+                          min=0)
+                ny = (torch.clamp(torch.floor(g[:, 8]), max=hw - 1)
+                      - torch.clamp(torch.ceil(g[:, 7]), min=0) + 1).clamp(
+                          min=0)
+                pairs = float((nx.double() * ny.double()).sum())
+                t_ops = pairs * RASTER_OPS_PER_PAIR / PEAK_FP32
+                t_sfu = pairs / PEAK_SFU
+                t_bytes = 4 * (g.numel() + col.numel() + hw * hw * 3
+                               + 256 * int(used.sum()) + tab.numel()) \
+                    / PEAK_HBM
+                row.update(
+                    per_image=1, max_abs_err=err, ms=_time_ms(walk, 10),
+                    plain_ms=plain,
+                    bound_ms=max(t_ops, t_sfu, t_bytes) * 1e3,
+                    bound_by="bytes" if t_bytes > max(t_ops, t_sfu)
+                    else "operations", library_ms=None,
+                    library_null_reason="no PyTorch call computes it",
+                    box_pairs=pairs, memberships=members,
+                    used_chunks=int(used.sum()), gaussians=int(g.shape[0]))
+                results["R-exact"].append(row)
+            results["regimes"].append(row)
+            walk_s = (f"walk {row['ms']:.4f} ms (plain {row['plain_ms']:.1f},"
+                      f" bound {row['bound_ms']:.4f} by {row['bound_by']}), "
+                      f"{row['memberships']} memberships in "
+                      f"{row['used_chunks']} of {row['capacity_chunks']} "
+                      f"chunks, {row['box_pairs']:.4e} box pairs; "
+                      if ok else "")
+            print(f"  exact render {kind}: ok {ok} (span {mr} x {mc} list "
+                  f"tiles), build {row['build_ms']:.3f} ms, {walk_s}path "
+                  f"{row['path_ms']:.3f} ms against R's {row['r_path_ms']:.3f}"
+                  f" (R kernel {row['r_ms']:.4f} ms)", flush=True)
+            del g, col, bbox, lists, tab, rg, rcol, rbbox
+    sigmas, coords, colors = exact_workload("trained", dev)
+    wgt = torch.randn(hw, hw, 3, generator=torch.Generator().manual_seed(37)
+                      ).to(dev)
+    grads = []
+    for binning in ("exact", "auto"):
+        tens = [x.clone().requires_grad_() for x in (sigmas, coords, colors)]
+        (rz.gs_render(*tens, (hw, hw), dmax, binning=binning) * wgt).sum(
+        ).backward()
+        grads.append([t.grad for t in tens])
+    results["grad_max_abs_err"] = max(
+        _compare_grad(a, r, f"exact render gradient {n} against R's")
+        for a, r, n in zip(*grads, ("sigmas", "coords", "colors")))
+    return results
+
+
+# Phase 38: the 4D layout's shapes (windows, Tq = Tk, head width, type,
+# bias, backward): the decoder's window at inference, its training step in
+# fp32 and at the Enhanced width in bf16, and HAT's window of 16 (128
+# windows of the Ultra step) in both types, with and without a bias; 6
+# heads each.
+ATTN4_SHAPES = [("decoder window, inference", 225, 144, 30, torch.float32,
+                 True, False),
+                ("training", 256, 144, 30, torch.float32, True, True),
+                ("training", 256, 144, 32, torch.bfloat16, True, True),
+                ("window 16", 128, 256, 32, torch.float32, True, True),
+                ("window 16", 128, 256, 32, torch.float32, False, True),
+                ("window 16", 128, 256, 32, torch.bfloat16, True, True),
+                ("window 16", 128, 256, 32, torch.bfloat16, False, True)]
+# The 4D forms' kernels in ptxas's reports: W's and W-long's bodies on the
+# head-major layout, WB's, and WB-long's two launches with kHM set.
+FOURD_REG_KEYS = {
+    "W4": [("window_attn_fwd_4d_kernelIf", ""),
+           ("window_attn_fwd_4d_long_kernelIf", "")],
+    "W4-bf16": [("window_attn_fwd_4d_kernelI13", ""),
+                ("window_attn_fwd_4d_long_kernelI13", "")],
+    "WB4": [("window_attn_bwd_4d_kernelIf", ""),
+            ("window_attn_bwd_long_", "IfLb0ELb0ELb0ELb1EE"),
+            ("window_attn_bwd_long_", "IfLb0ELb0ELb1EE")],
+    "WB4-bf16": [("window_attn_bwd_4d_kernelI13", ""),
+                 ("window_attn_bwd_long_", "bfloat16Lb0ELb0ELb0ELb1EE"),
+                 ("window_attn_bwd_long_", "bfloat16Lb0ELb0ELb1EE")],
+}
+
+
+@torch.no_grad()
+def attention_4d_phase(dev, kernels):
+    """Phase 38: W4 and WB4 (K14, K14b; their bf16 forms, and beyond 160
+    tokens W-long's and WB-long's bodies on the head-major layout) against
+    their plain versions at ATTN4_SHAPES, twice each for bits, with their
+    ms, the plain versions', the packed W / WB (or their window-16 and bf16
+    forms) on packed copies of the same operands, SDPA forward and backward
+    on the 4D operands as the library call, and bounds (the function's
+    products at the type's peak, or q, k, v, out (and g, dq, dk, dv), the
+    f32 bias and dbias); then the path: window_attention forward (and
+    backward through autograd) once per shape, every count from zero; and
+    ptxas's registers of the 4D kernels beside the packed forms' recorded
+    ones."""
+    from gsasr_torch.ops import _build
+    from gsasr_torch.ops import attention as ta
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    gen = torch.Generator().manual_seed(38)
+    rnd = lambda *s: torch.randn(*s, generator=gen).to(dev)  # noqa: E731
+    nh = 6
+    results = {k: [] for k in ("W4", "W4-bf16", "WB4", "WB4-bf16")}
+    ops = []
+    for name, b, t, hd, dt, has_bias, backward in ATTN4_SHAPES:
+        bf = dt == torch.bfloat16
+        sfx = "-bf16" if bf else ""
+        long = t > ta._MAX_T
+        q, k, v, g = (rnd(b, nh, t, hd).to(dt) for _ in range(4))
+        bias = 0.5 * rnd(nh, t, t) if has_bias else None
+        scale = hd ** -0.5
+        ops.append((q, k, v, bias, g, backward))
+        fwd, bwd = ta._FORMS4[bf]
+        pfwd, pbwd = ta._FORMS[False, bf, long]
+        packed = [x.transpose(1, 2).reshape(b, t, nh * hd)
+                  for x in (q, k, v, g)]
+        act = 2 if bf else 4
+        peak = PEAK_BF16 if bf else PEAK_FP32
+        nbias = 0 if bias is None else 4 * nh * t * t
+        label = f"{name} {b}x{nh}x{t}x{hd} {str(dt)[6:]}" + (
+            "" if has_bias else ", no bias")
+        lib_f, lib_b, why = _sdpa_ms(q, k, v, None if bias is None else
+                                     bias.to(dt)[None], g, None, scale)
+        fargs = (q, k, v, bias, scale)
+        out, ref = fwd(*fargs), ta.window_attention_plain(*fargs)
+        err = (_compare_bf16(out, ref, f"W4{sfx} {label}") if bf
+               else _compare(out, ref, f"W4{sfx} {label}"))
+        _repeatable(lambda: (fwd(*fargs),), f"W4{sfx} {label}")
+        bound, by = _bound_ms(4.0 * b * nh * t * t * hd,
+                              act * 4 * b * nh * t * hd + nbias, peak)
+        row = dict(case=name, dtype=str(dt)[6:], windows=b, tokens=t,
+                   head_width=hd, bias=has_bias, per_step=1,
+                   max_abs_err=err, ms=_time_ms(lambda: fwd(*fargs), 10),
+                   plain_ms=_time_ms(lambda: ta.window_attention_plain(
+                       *fargs), 3),
+                   packed_ms=_time_ms(lambda: pfwd(
+                       *packed[:3], bias, scale, nh), 10),
+                   bound_ms=bound, bound_by=by, library_ms=lib_f)
+        results["W4" + sfx].append(row)
+        if not backward:
+            continue
+        bargs = (q, k, v, bias, g, scale)
+        outs, refs = bwd(*bargs), ta.window_attention_bwd_plain(*bargs)
+        if bf:
+            err = max(_compare_bf16(o, r, f"WB4-bf16 {label} {n}")
+                      for o, r, n in zip(outs[:3], refs[:3], "qkv"))
+            if bias is not None:
+                err = max(err, _compare_grad(outs[3], refs[3],
+                                             f"WB4-bf16 {label} dbias"))
+        else:
+            err = _compare_grads(outs, refs, ("dq", "dk", "dv", "dbias"),
+                                 f"WB4 {label}")
+        _repeatable(lambda: bwd(*bargs), f"WB4{sfx} {label}")
+        if why:
+            print(f"  WB4{sfx} {label} library: null ({why})", flush=True)
+        bound, by = _bound_ms(10.0 * b * nh * t * t * hd,
+                              act * 7 * b * nh * t * hd + 2 * nbias, peak)
+        results["WB4" + sfx].append(dict(
+            row, max_abs_err=err, ms=_time_ms(lambda: bwd(*bargs), 10),
+            plain_ms=_time_ms(lambda: ta.window_attention_bwd_plain(
+                *bargs), 3),
+            packed_ms=_time_ms(lambda: pbwd(*packed[:3], bias, packed[3],
+                                            scale, nh), 10),
+            bound_ms=bound, bound_by=by, library_ms=lib_b,
+            library_null_reason=why))
+    for key, rows in results.items():
+        for r in rows:
+            lib = "null" if r["library_ms"] is None else \
+                f"{r['library_ms']:.4f}"
+            print(f"  {key} {r['case']} {r['windows']}x{nh}x{r['tokens']}x"
+                  f"{r['head_width']}{'' if r['bias'] else ', no bias'}: "
+                  f"{r['ms']:.4f} ms (packed {r['packed_ms']:.4f}, plain "
+                  f"{r['plain_ms']:.4f}, bound {r['bound_ms']:.4f} by "
+                  f"{r['bound_by']}, SDPA {lib})", flush=True)
+
+    # the path: window_attention through autograd, counts from zero
+    _reset(kernels)
+    for q, k, v, bias, g, backward in ops:
+        with torch.enable_grad():
+            qg = q.detach().requires_grad_(backward)
+            y = ta.window_attention(qg, k, v, bias)
+            if backward:
+                y.backward(g)
+        if not bool(torch.isfinite(y).all()):
+            raise AssertionError("window_attention: non-finite output")
+    torch.cuda.synchronize()
+    counts = _counts(kernels)
+    want = dict({k: 0 for k in kernels}, **{
+        f: sum(1 for *_, dt, _, bw in ATTN4_SHAPES if f.endswith("-bf16") ==
+               (dt == torch.bfloat16) and (bw or f.startswith("W4")))
+        for f in results})
+    print(f"  4D window attention path: launches "
+          f"{ {k: c for k, c in counts.items() if c} }", flush=True)
+    if counts != want:
+        raise AssertionError(f"4D window attention launch counts {counts}")
+
+    regs = {}
+    for src in ("window_attn_fwd", "window_attn_bwd"):
+        regs.update(_ptxas_kernels(_build.ptxas_report(src), ""))
+    kept, new = {}, {}
+    for form in FOURD_REG_KEYS:
+        for name, (r_, st, ld) in _form_regs(regs, form,
+                                             FOURD_REG_KEYS).items():
+            print(f"  ptxas {form} {name}: {r_} registers, {st}/{ld} bytes "
+                  "spilled", flush=True)
+            new.setdefault(form, []).append(r_)
+    for form in PACKED_REG_KEYS:
+        kept[form] = tuple(sorted(
+            r_ for r_, _, _ in _form_regs(regs, form,
+                                          PACKED_REG_KEYS).values()))
+    same = kept == PACKED_REGS_RECORDED
+    print(f"  registers of the packed forms: {kept}, "
+          f"{'kept' if same else 'MOVED'} (recorded: "
+          f"{PACKED_REGS_RECORDED})", flush=True)
+    results.update(path_launches=counts, registers=new,
+                   packed_registers=kept, packed_registers_kept=same)
+    return results
+
+
+FORM_KEYS = ("decoder", "case", "dtype", "nW", "windows", "tokens",
+             "head_width", "bias", "per_image", "per_step", "max_abs_err",
+             "ms", "plain_ms", "packed_ms", "bound_ms", "bound_by",
+             "library_ms", "memberships", "used_chunks", "build_ms")
 
 
 def _on_path(rows, per):
@@ -2683,6 +3065,8 @@ def main() -> int:
     from gsasr_torch.model import make_models
     from gsasr_torch.ops import _build
     from gsasr_torch.ops.attention import (
+        window_attention_4d_bf16_bwd, window_attention_4d_bf16_fwd,
+        window_attention_4d_bwd, window_attention_4d_fwd,
         window_attention_packed_bf16_bwd, window_attention_packed_bf16_fwd,
         window_attention_packed_bwd, window_attention_packed_fwd,
         window_attention_packed_long_bf16_bwd,
@@ -2702,7 +3086,8 @@ def main() -> int:
                                               ln_attn_proj_long,
                                               ln_mlp_residual,
                                               ln_mlp_residual_bwd)
-    from gsasr_torch.ops.rasterizer import raster_bwd, raster_fwd
+    from gsasr_torch.ops.rasterizer import (raster_bwd, raster_fwd,
+                                            raster_fwd_exact)
 
     t_start = time.perf_counter()
     card = _nvidia_smi()
@@ -2743,7 +3128,11 @@ def main() -> int:
                "WM-long-bf16": window_attention_packed_long_masked_bf16_fwd,
                "WMB-long-bf16":
                    window_attention_packed_long_masked_bf16_bwd,
-               "AB-long": ln_attn_proj_bwd_long}
+               "AB-long": ln_attn_proj_bwd_long,
+               "R-exact": raster_fwd_exact, "W4": window_attention_4d_fwd,
+               "W4-bf16": window_attention_4d_bf16_fwd,
+               "WB4": window_attention_4d_bwd,
+               "WB4-bf16": window_attention_4d_bf16_bwd}
     enc, dec = make_models("edsr", "paper",
                            generator=torch.Generator().manual_seed(0))
 
@@ -3015,6 +3404,14 @@ def main() -> int:
     print("SwinIR-Enhanced fused training phase", flush=True)
     sftrain = train_phase(dev, kernels, fused=True, encoder="swinir",
                           enhanced=torch.bfloat16)
+    gc.collect()
+    torch.cuda.empty_cache()
+    print("exact render phase", flush=True)
+    xres = exact_render_phase(dev, kernels)
+    gc.collect()
+    torch.cuda.empty_cache()
+    print("4D window attention phase", flush=True)
+    fres = attention_4d_phase(dev, kernels)
     for r in (train, ftrain, strain, etrain, utrain, eftrain, sbtrain,
               htrain, uftrain):
         same = "the same" if r["repeat"]["same_bits"] else "NOT the same"
@@ -3168,7 +3565,24 @@ def main() -> int:
                     "Trainer.step (HAT-L Ultra, fused_decoder=True, bf16 "
                     "recipe)", _on_path(abres["AB-long"], "per_step"),
                     abres["AB-long"]),
+        "R-exact": ("raster_fwd_exact", "gsasr_torch/ops/csrc/raster_fwd.cu",
+                    "gsasr_tpu/ops/rasterizer.py:334",
+                    ["gsasr_tpu/ops/rasterizer.py:732"],
+                    xres["regimes"][0]["launches"],
+                    "exact render (gs_render(binning=\"exact\"), 720x720, "
+                    "518,400 Gaussians)", xres["R-exact"], xres["R-exact"]),
     }
+    for key, rep in (("W4", "gsasr_tpu/ops/attention.py:87"),
+                     ("WB4", "gsasr_tpu/ops/attention.py:109")):
+        src = ("gsasr_torch/ops/csrc/window_attn_fwd.cu" if key == "W4"
+               else "gsasr_torch/ops/csrc/window_attn_bwd.cu")
+        entry = "window_attn_fwd_4d" if key == "W4" else "window_attn_bwd_4d"
+        for sfx in ("", "-bf16"):
+            meta[key + sfx] = (
+                entry + sfx.replace("-", "_"), src, rep, [],
+                fres["path_launches"], "4D window attention "
+                "(window_attention, forward and backward)",
+                fres[key + sfx], fres[key + sfx])
     line = [_kernel_entry(name, src, rep, also, counts[k], path, rows, forms)
             for k, (name, src, rep, also, counts, path, rows, forms)
             in meta.items()]
@@ -3214,6 +3628,7 @@ def main() -> int:
                                kernels=abres, train=uftrain,
                                train_fp32=uftrain32, card_vs_cpu=ufcvc),
                            swinir_fused_train=sftrain,
+                           exact_render=xres, attention_4d=fres,
                            total_s=time.perf_counter() - t_start), f, indent=1)
     print(f"total {time.perf_counter() - t_start:.1f} s", flush=True)
     print(f"card: {card}", flush=True)

@@ -6,8 +6,8 @@ with a plain C interface (nvcc, sm_90a), written to
 of the sources and flags, then loaded with ctypes. Each library exports an
 entry point of the same name and, where `SOURCES` says so, others (the
 masked and bfloat16 forms of W and WB, the window-16 forms of W, WB, WM,
-WMB, A and AB, and the bfloat16 forms of MB and AB live in the same
-sources).
+WMB, A and AB, the bfloat16 forms of MB and AB, the head-major (4D) forms
+of W and WB, and R-exact beside R live in the same sources).
 Each entry point's C signature is declared in `SIGNATURES`: it takes its
 pointers and the CUDA stream as `void*` and returns `cudaGetLastError()`
 after its launches; `launch` raises when that is not 0.
@@ -34,6 +34,7 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 # p = device pointer (a tensor, or None for null), i = int, f = float.
 SIGNATURES = {
     "raster_fwd": "ppppiiii",
+    "raster_fwd_exact": "pppppiiii",
     "ln_mlp": "p" * 10 + "iiiiii",
     "ln_attn": "p" * 20 + "iiiiii" + "f",
     "window_attn_fwd": "pppppiiiiif",
@@ -61,9 +62,14 @@ SIGNATURES = {
     "ln_attn_bwd_long": "p" * 36 + "iiiiii" + "f",
     "ln_attn_bwd_long_bf16": "p" * 36 + "iiiiii" + "f",
     "bias_table_bwd": "pppiiii",
+    "window_attn_fwd_4d": "pppppiiiiif",
+    "window_attn_fwd_4d_bf16": "pppppiiiiif",
+    "window_attn_bwd_4d": "p" * 11 + "iiiii" + "f",
+    "window_attn_bwd_4d_bf16": "p" * 11 + "iiiii" + "f",
 }
 # Entry points compiled from another entry point's source.
-SOURCES = {"window_attn_fwd_masked": "window_attn_fwd",
+SOURCES = {"raster_fwd_exact": "raster_fwd",
+           "window_attn_fwd_masked": "window_attn_fwd",
            "window_attn_bwd_masked": "window_attn_bwd",
            "window_attn_fwd_bf16": "window_attn_fwd",
            "window_attn_bwd_bf16": "window_attn_bwd",
@@ -81,7 +87,11 @@ SOURCES = {"window_attn_fwd_masked": "window_attn_fwd",
            "ln_mlp_bwd_bf16": "ln_mlp_bwd",
            "ln_attn_bwd_bf16": "ln_attn_bwd",
            "ln_attn_bwd_long": "ln_attn_bwd",
-           "ln_attn_bwd_long_bf16": "ln_attn_bwd"}
+           "ln_attn_bwd_long_bf16": "ln_attn_bwd",
+           "window_attn_fwd_4d": "window_attn_fwd",
+           "window_attn_fwd_4d_bf16": "window_attn_fwd",
+           "window_attn_bwd_4d": "window_attn_bwd",
+           "window_attn_bwd_4d_bf16": "window_attn_bwd"}
 _CTYPES = {"p": ctypes.c_void_p, "i": ctypes.c_int, "f": ctypes.c_float}
 
 _libs: dict = {}
@@ -195,8 +205,9 @@ def launch(name: str, *args) -> None:
 
 def check_tensor(t: torch.Tensor, name: str, dtype=torch.float32) -> None:
     """Raise on what the kernels do not take: another dtype than `dtype`
-    (float32, or bfloat16 for the activations of kernels M, A, MB and AB
-    and the operands of W-bf16 and WB-bf16), a
+    (float32; bfloat16 for the activations of kernels M, A, MB and AB
+    and the operands of the bf16 window attentions; int32 for R-exact's
+    lists), a
     tensor that autograd would need a gradient for (a kernel differentiates
     only inside its autograd Function, where grad mode is off), or one off
     the card."""

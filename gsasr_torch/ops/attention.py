@@ -1,6 +1,7 @@
-"""Packed multi-head window attention (counterpart of
-`gsasr_tpu/ops/attention.py::window_attention_packed`, with and without the
-window mask).
+"""Multi-head window attention (counterpart of
+`gsasr_tpu/ops/attention.py`): the packed layout of
+`window_attention_packed`, with and without the window mask, and the 4D
+layout of `window_attention`.
 
 Operands keep the projections' packed (B, T, C) layout: head h is columns
 [h*hd, (h+1)*hd) of C, as torch's MultiheadAttention packs them, and no
@@ -25,6 +26,18 @@ windows) WM-long and WMB-long, each also in bfloat16. Each pair sits inside
 one autograd Function, which picks it by (mask, type, length); the mask is
 a constant and gets no gradient. CPU tensors take the plain versions beside
 the wrappers.
+
+`window_attention` takes the JAX package's 4D layout: q (B, nh, Tq, hd), k
+and v (B, nh, Tk, hd), a bias (nh, Tq, Tk). Its forward is kernel W4 and
+its backward WB4 (`window_attn_fwd_4d`, `window_attn_bwd_4d` and their
+bfloat16 forms): W's and WB's bodies, or beyond `_MAX_T` tokens W-long's
+and WB-long's, reading and writing the head-major layout in place (a
+template flag on their index arithmetic), so no transpose to the packed
+layout is made. They round where K14 and K14b round: scores and softmax in
+f32, p rounded to v's type before the PV product, out in q's type; the
+backward recomputes p in f32, forms dq, dk, dv in f32 and stores them in
+the operands' type, and sums dbias over the windows in f32. With a window
+mask it runs the plain composition, as the JAX package does.
 """
 
 from __future__ import annotations
@@ -47,9 +60,17 @@ def _heads(x, num_heads: int):
 
 
 def _probs(q, k, bias, scale: float, num_heads: int, mask=None):
-    """(B, nh, Tq, Tk) softmax probabilities, f32, row max subtracted;
-    window w takes mask[w % nW] after the bias."""
-    s = (_heads(q, num_heads) @ _heads(k, num_heads).transpose(-1, -2)) * scale
+    """(B, nh, Tq, Tk) softmax probabilities of packed q and k, f32, row max
+    subtracted; window w takes mask[w % nW] after the bias."""
+    return _probs4(_heads(q, num_heads), _heads(k, num_heads), bias, scale,
+                   mask)
+
+
+def _probs4(q, k, bias, scale: float, mask=None):
+    """(B, nh, Tq, Tk) softmax probabilities of head-major q (B, nh, Tq, hd)
+    and k (B, nh, Tk, hd), in their type (f32 or wider), row max
+    subtracted; window w takes mask[w % nW] after the bias."""
+    s = (q @ k.transpose(-1, -2)) * scale
     if bias is not None:
         s = s + bias
     if mask is not None:
@@ -73,15 +94,42 @@ def _wide(*xs):
     return [x.to(acc) for x in xs]
 
 
+def window_attention_plain(q, k, v, bias, scale: float, mask=None):
+    """Plain PyTorch version of kernel W4 (K14; W4-bf16 with bfloat16
+    operands), and the masked composition of `window_attention`: head-major
+    q (B, nh, Tq, hd), k, v (B, nh, Tk, hd) -> (B, nh, Tq, hd) in q's type.
+    Scores and softmax in f32 (or wider), p rounded to v's type before the
+    PV product."""
+    qw, kw, vw = _wide(q, k, v)
+    p = _probs4(qw, kw, bias, scale, mask)
+    return (p.to(v.dtype).to(vw.dtype) @ vw).to(q.dtype)
+
+
+def window_attention_bwd_plain(q, k, v, bias, g, scale: float, mask=None):
+    """Plain PyTorch version of kernel WB4 (K14b; WB4-bf16 with bfloat16
+    operands) on the head-major layout: (dq, dk, dv, dbias), the attention
+    VJP with the softmax recomputed, unrounded. dq, dk, dv are formed in f32
+    (or wider) and come out in the operands' type; dbias sums the windows
+    in f32 (or wider), comes out in bias's type and is None when bias is
+    None."""
+    qw, kw, vw, gw = _wide(q, k, v, g)
+    p = _probs4(qw, kw, bias, scale, mask)
+    dv = p.transpose(-1, -2) @ gw
+    dp = gw @ vw.transpose(-1, -2)
+    ds = p * (dp - (dp * p).sum(dim=-1, keepdim=True))
+    dq = (ds @ kw) * scale
+    dk = (ds.transpose(-1, -2) @ qw) * scale
+    dbias = None if bias is None else ds.sum(dim=0).to(bias.dtype)
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype), dbias
+
+
 def window_attention_packed_plain(q, k, v, bias, scale: float,
                                   num_heads: int, mask=None):
     """Plain PyTorch version of kernel W (WM with `mask`, W-bf16 with
     bfloat16 operands): (B, Tq, C) in q's type; p is rounded to v's type
     before the PV product."""
-    qw, kw, vw = _wide(q, k, v)
-    p = _probs(qw, kw, bias, scale, num_heads, mask)
-    out = _merge(p.to(v.dtype).to(vw.dtype) @ _heads(vw, num_heads))
-    return out.to(q.dtype)
+    return _merge(window_attention_plain(
+        *(_heads(x, num_heads) for x in (q, k, v)), bias, scale, mask))
 
 
 def window_attention_packed_bwd_plain(q, k, v, bias, g, scale: float,
@@ -91,17 +139,10 @@ def window_attention_packed_bwd_plain(q, k, v, bias, g, scale: float,
     softmax recomputed, unrounded. dq, dk, dv come out in the operands'
     type; dbias sums the windows in f32 (or wider) and is None when bias is
     None."""
-    qw, kw, vw, gw = _wide(q, k, v, g)
-    p = _probs(qw, kw, bias, scale, num_heads, mask)
-    gh = _heads(gw, num_heads)
-    dv = p.transpose(-1, -2) @ gh
-    dp = gh @ _heads(vw, num_heads).transpose(-1, -2)
-    ds = p * (dp - (dp * p).sum(dim=-1, keepdim=True))
-    dq = (ds @ _heads(kw, num_heads)) * scale
-    dk = (ds.transpose(-1, -2) @ _heads(qw, num_heads)) * scale
-    dbias = None if bias is None else ds.sum(dim=0)
-    return (_merge(dq).to(q.dtype), _merge(dk).to(k.dtype),
-            _merge(dv).to(v.dtype), dbias)
+    dq, dk, dv, dbias = window_attention_bwd_plain(
+        *(_heads(x, num_heads) for x in (q, k, v)), bias,
+        _heads(g, num_heads), scale, mask)
+    return _merge(dq), _merge(dk), _merge(dv), dbias
 
 
 def _check_mask(q, k, mask):
@@ -557,3 +598,180 @@ def window_attention_packed(q, k, v, bias: Optional[torch.Tensor] = None, *,
         scale = (q.shape[-1] // num_heads) ** -0.5
     return _PackedWindowAttention.apply(q, k, v, bias, window_mask,
                                         float(scale), num_heads)
+
+
+# ---------------------------------------------------------------------------
+# 4D (head-major) layout: window_attention, kernels W4 and WB4
+# ---------------------------------------------------------------------------
+
+_FWD4 = {_F32: "window_attn_fwd_4d", _BF16: "window_attn_fwd_4d_bf16"}
+_BWD4 = {_F32: "window_attn_bwd_4d", _BF16: "window_attn_bwd_4d_bf16"}
+
+
+def _check4(q, k, v, bias, dtype, extra=()):
+    """Head-major q (B, nh, Tq, hd), k and v (B, nh, Tk, hd) (and `extra`)
+    of `dtype`, head width <= _MAX_HD, bias (nh, Tq, Tk) float32 or None.
+    Returns (B, nh, Tq, Tk, hd)."""
+    for t, name in ((q, "q"), (k, "k"), (v, "v"), *extra):
+        _build.check_tensor(t, name, dtype)
+    if bias is not None:
+        _build.check_tensor(bias, "bias")
+    if q.dim() != 4:
+        raise ValueError(f"q {tuple(q.shape)} is not (B, nh, Tq, hd)")
+    b, nh, tq, hd = q.shape
+    tk = k.shape[2]
+    if (k.shape != (b, nh, tk, hd) or v.shape != k.shape or hd > _MAX_HD
+            or (bias is not None and bias.shape != (nh, tq, tk))):
+        raise ValueError(
+            f"window attention: q {tuple(q.shape)}, k {tuple(k.shape)}, v "
+            f"{tuple(v.shape)}: the kernels take (B, nh, T, hd) operands, "
+            f"head width <= {_MAX_HD} and bias (nh, Tq, Tk)")
+    return b, nh, tq, tk, hd
+
+
+def _fwd4(q, k, v, bias, scale: float, dtype):
+    """Launch kernel W4 (W4-bf16 for bfloat16 `dtype`; W-long's body beyond
+    _MAX_T tokens); returns out (B, nh, Tq, hd)."""
+    b, nh, tq, tk, hd = _check4(q, k, v, bias, dtype)
+    out = torch.empty((b, nh, tq, hd), dtype=dtype, device=q.device)
+    _build.launch(_FWD4[dtype], q.contiguous(), k.contiguous(),
+                  v.contiguous(), None if bias is None else bias.contiguous(),
+                  out, b, tq, tk, nh * hd, nh, float(scale))
+    return out
+
+
+def _bwd4(q, k, v, bias, g, scale: float, dtype):
+    """Launch kernel WB4 (WB4-bf16 for bfloat16 `dtype`; WB-long's launches
+    beyond _MAX_T tokens); returns (dq, dk, dv, dbias f32 or None)."""
+    b, nh, tq, tk, hd = _check4(q, k, v, bias, dtype, extra=((g, "g"),))
+    if g.shape != q.shape:
+        raise ValueError(f"g {tuple(g.shape)} must match q {tuple(q.shape)}")
+    dq = torch.empty((b, nh, tq, hd), dtype=dtype, device=q.device)
+    dk = torch.empty((b, nh, tk, hd), dtype=dtype, device=q.device)
+    dv = torch.empty_like(dk)
+    f32 = dict(dtype=torch.float32, device=q.device)
+    dbias = None if bias is None else torch.empty((nh, tq, tk), **f32)
+    # WB's per-window ds (dk's operand and dbias's partial sums); the
+    # window-16 form keeps each query row's (max, sum, D) and needs ds only
+    # for dbias's ordered sum
+    long = max(tq, tk) > _MAX_T
+    stats = torch.empty((b, nh, tq, 3), **f32) if long else None
+    ds = (None if long and bias is None else
+          torch.empty((b, nh, tq, tk), **f32))
+    _build.launch(_BWD4[dtype], q.contiguous(), k.contiguous(),
+                  v.contiguous(), None if bias is None else bias.contiguous(),
+                  g.contiguous(), dq, dk, dv, stats, ds, dbias, b, tq, tk,
+                  nh * hd, nh, float(scale))
+    return dq, dk, dv, dbias
+
+
+def window_attention_4d_fwd(q, k, v, bias, scale: float):
+    """Forward of the 4D attention in float32: kernel W4 on CUDA tensors,
+    the plain version on CPU tensors."""
+    if q.device.type == "cpu":
+        return window_attention_plain(q, k, v, bias, scale)
+    out = _fwd4(q, k, v, bias, scale, torch.float32)
+    window_attention_4d_fwd.launches += 1
+    return out
+
+
+window_attention_4d_fwd.launches = 0
+
+
+def window_attention_4d_bf16_fwd(q, k, v, bias, scale: float):
+    """Forward of the 4D attention with bfloat16 q, k, v (bias float32 or
+    None): kernel W4-bf16 on CUDA tensors, the plain version on CPU
+    tensors. Returns bfloat16."""
+    if q.device.type == "cpu":
+        return window_attention_plain(q, k, v, bias, scale)
+    out = _fwd4(q, k, v, bias, scale, torch.bfloat16)
+    window_attention_4d_bf16_fwd.launches += 1
+    return out
+
+
+window_attention_4d_bf16_fwd.launches = 0
+
+
+def window_attention_4d_bwd(q, k, v, bias, g, scale: float):
+    """Backward of the 4D attention in float32: kernel WB4 on CUDA tensors,
+    the plain version on CPU tensors. Returns (dq, dk, dv, dbias or None)."""
+    if q.device.type == "cpu":
+        return window_attention_bwd_plain(q, k, v, bias, g, scale)
+    out = _bwd4(q, k, v, bias, g, scale, torch.float32)
+    window_attention_4d_bwd.launches += 1
+    return out
+
+
+window_attention_4d_bwd.launches = 0
+
+
+def window_attention_4d_bf16_bwd(q, k, v, bias, g, scale: float):
+    """Backward of the 4D attention with bfloat16 q, k, v and g: kernel
+    WB4-bf16 on CUDA tensors, the plain version on CPU tensors. Returns (dq,
+    dk, dv in bfloat16, dbias float32 or None)."""
+    if q.device.type == "cpu":
+        return window_attention_bwd_plain(q, k, v, bias, g, scale)
+    out = _bwd4(q, k, v, bias, g, scale, torch.bfloat16)
+    window_attention_4d_bf16_bwd.launches += 1
+    return out
+
+
+window_attention_4d_bf16_bwd.launches = 0
+
+# The (forward, backward) wrappers of the 4D layout by bfloat16 operands.
+_FORMS4 = {False: (window_attention_4d_fwd, window_attention_4d_bwd),
+           True: (window_attention_4d_bf16_fwd, window_attention_4d_bf16_bwd)}
+
+
+class _WindowAttention(torch.autograd.Function):
+    """W4 and WB4 (or their bf16 forms), the custom VJP of the JAX
+    package's `fused_window_attention`: the forward saves its inputs and the
+    backward recomputes the softmax. A bias of another float type is taken
+    in float32 and its gradient returned in its own type."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, bias, scale):
+        b32 = None if bias is None else bias.to(torch.float32)
+        ctx.save_for_backward(q, k, v, b32)
+        ctx.scale = scale
+        ctx.bias_dtype = None if bias is None else bias.dtype
+        fwd, _ = _FORMS4[q.dtype == torch.bfloat16]
+        return fwd(q, k, v, b32, scale)
+
+    @staticmethod
+    def backward(ctx, g):
+        q, k, v, b32 = ctx.saved_tensors
+        _, bwd = _FORMS4[q.dtype == torch.bfloat16]
+        dq, dk, dv, dbias = bwd(q, k, v, b32, g, ctx.scale)
+        if dbias is not None:
+            dbias = dbias.to(ctx.bias_dtype)
+        return dq, dk, dv, dbias, None
+
+
+def fused_window_attention(q, k, v, bias, scale: float):
+    """softmax(q k^T * scale + bias) v on the head-major layout, its logits
+    never written out: q (B, nh, Tq, hd); k, v (B, nh, Tk, hd), all float32
+    or all bfloat16; bias (nh, Tq, Tk) or None, broadcast over B. Returns
+    (B, nh, Tq, hd) in q's type; differentiable in q, k, v and bias."""
+    return _WindowAttention.apply(q, k, v, bias, float(scale))
+
+
+def window_attention(q, k, v, bias: Optional[torch.Tensor] = None, *,
+                     scale: Optional[float] = None,
+                     window_mask: Optional[torch.Tensor] = None):
+    """Window attention on the JAX package's 4D layout (its public
+    `window_attention`): `fused_window_attention` with the scale defaulting
+    to hd^-0.5. window_mask, an (nW, Tq, Tk) additive mask where window row
+    i of the (B, ...) operands takes window_mask[i % nW], runs the plain
+    composition (`window_attention_plain`), as the JAX package runs its
+    einsum composition there; B must be a multiple of nW."""
+    if scale is None:
+        scale = q.shape[-1] ** -0.5
+    if window_mask is not None:
+        if q.shape[0] % window_mask.shape[0] != 0:
+            raise ValueError(
+                f"window axis {q.shape[0]} not a multiple of mask period "
+                f"{window_mask.shape[0]}")
+        return window_attention_plain(q, k, v, bias, float(scale),
+                                      window_mask)
+    return fused_window_attention(q, k, v, bias, float(scale))

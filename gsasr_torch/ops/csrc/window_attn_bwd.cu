@@ -1,7 +1,8 @@
 // Kernel WB: packed multi-head window attention, backward; kernel WMB, its
 // masked form; kernels WB-bf16 and WMB-bf16, their forms with bfloat16
 // operands; and WB-long, WB-long-bf16, WMB-long and WMB-long-bf16, the
-// window-16 forms of all four for any Tq and Tk.
+// window-16 forms of all four for any Tq and Tk; and WB4 and WB4-bf16, the
+// 4D form.
 //
 // WB replaces _attn_kernel_packed_bwd of gsasr_tpu/ops/attention.py
 // (reached from _attention_packed_pallas_bwd, the custom VJP of
@@ -59,6 +60,14 @@
 // same products against about 98 MB of bf16 operands and f32 bias, dbias
 // and mask: bound by bytes. The masked forms read one mask entry per
 // score, from the window class's rows, which stay in L2.
+//
+// WB4 and WB4-bf16 (window_attn_bwd_4d[_bf16]) replace _attn_kernel_bwd of
+// gsasr_tpu/ops/attention.py (reached from _attention_pallas_bwd, the VJP
+// of fused_window_attention and so of window_attention): WB's body up to
+// 160 tokens and WB-long's two launches beyond, on the head-major (B, nh,
+// T, hd) layout in place (their kHM flag), with dbias WB's ordered sum
+// over the windows, f32; dq, dk, dv are formed in f32 and stored in the
+// operands' type, as K14b stores them. Bounds as WB's and WB-long's.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -172,4 +181,55 @@ extern "C" int window_attn_bwd_long_masked_bf16(
   return static_cast<int>(launch_window_attn_bwd_long<__nv_bfloat16, true>(
       q, k, v, bias, g, dq, dk, dv, stats, ds_w, dbias, B, Tq, Tk, C, nh,
       scale, static_cast<cudaStream_t>(stream), mask, nW));
+}
+
+// Kernel WB4 (K14b): the backward of window attention on the head-major
+// layout, q, g, dq (B, nh, Tq, hd); k, v, dk, dv (B, nh, Tk, hd); bias and
+// dbias (nh, Tq, Tk) or null; C = nh * hd. Up to kMaxT tokens WB's body
+// (ds_w (B, nh, Tq, Tk) scratch always, stats unused), beyond them WB-long's
+// two launches (WB4-long: stats (B, nh, Tq, 3) scratch, ds_w only with
+// dbias). All float32, contiguous, on the device.
+extern "C" int window_attn_bwd_4d(const float* q, const float* k,
+                                  const float* v, const float* bias,
+                                  const float* g, float* dq, float* dk,
+                                  float* dv, float* stats, float* ds_w,
+                                  float* dbias, int B, int Tq, int Tk, int C,
+                                  int nh, float scale, void* stream) {
+  const auto st = static_cast<cudaStream_t>(stream);
+  const bool long_form = Tq > kMaxT || Tk > kMaxT;
+  if (long_form ? !stats : !ds_w)
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (long_form)
+    return static_cast<int>(
+        launch_window_attn_bwd_long<float, false, false, false, true>(
+            q, k, v, bias, g, dq, dk, dv, stats, ds_w, dbias, B, Tq, Tk, C,
+            nh, scale, st));
+  return static_cast<int>(launch_window_attn_bwd<false, false, float, false,
+                                                 true>(
+      q, k, v, bias, g, dq, dk, dv, ds_w, dbias, nullptr, B, Tq, Tk, C, nh,
+      scale, st));
+}
+
+// Kernel WB4-bf16: as window_attn_bwd_4d with q, k, v, g, dq, dk and dv
+// bfloat16; bias, stats, ds_w and dbias float32.
+extern "C" int window_attn_bwd_4d_bf16(
+    const __nv_bfloat16* q, const __nv_bfloat16* k, const __nv_bfloat16* v,
+    const float* bias, const __nv_bfloat16* g, __nv_bfloat16* dq,
+    __nv_bfloat16* dk, __nv_bfloat16* dv, float* stats, float* ds_w,
+    float* dbias, int B, int Tq, int Tk, int C, int nh, float scale,
+    void* stream) {
+  const auto st = static_cast<cudaStream_t>(stream);
+  const bool long_form = Tq > kMaxT || Tk > kMaxT;
+  if (long_form ? !stats : !ds_w)
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (long_form)
+    return static_cast<int>(
+        launch_window_attn_bwd_long<__nv_bfloat16, false, false, false,
+                                    true>(
+            q, k, v, bias, g, dq, dk, dv, stats, ds_w, dbias, B, Tq, Tk, C,
+            nh, scale, st));
+  return static_cast<int>(launch_window_attn_bwd<false, false, __nv_bfloat16,
+                                                 false, true>(
+      q, k, v, bias, g, dq, dk, dv, ds_w, dbias, nullptr, B, Tq, Tk, C, nh,
+      scale, st));
 }

@@ -27,7 +27,9 @@
 // operands are float tiles holding bf16 values) the body rounds where
 // _k_ln_attn_bwd rounds: p in the tile (for att and dv), ds as an operand
 // of dq and dk (ds_w and dbias keep it unrounded) and att as it is stored;
-// dq, dk and dv stay f32.
+// dq, dk and dv stay f32. With kHM (WB4, the 4D form) the body reads and
+// writes the head-major (B, nh, T, hd) layout: head h of window w is rows
+// (w nh + h) T of hd; it is a kernel of its own over the shared body.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -117,16 +119,16 @@ __device__ void head_product(const float* A, int lda, const float* X, int ldx,
   }
 }
 
-template <bool kAtt, bool kMask, typename T, bool kRnd = false>
-__global__ void __launch_bounds__(kThreads)
-window_attn_bwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                       const T* __restrict__ v,
-                       const float* __restrict__ bias,
-                       const T* __restrict__ g, T* __restrict__ dq,
-                       T* __restrict__ dk, T* __restrict__ dv,
-                       float* __restrict__ ds_w, float* __restrict__ att,
-                       int Tq, int Tk, int C, int nh, float scale,
-                       const float* __restrict__ mask, int nW) {
+// The body of WB and its forms, one block per (head, window); with kHM, of
+// WB4 and WB4-bf16 on the head-major (B, nh, T, hd) layout.
+template <bool kAtt, bool kMask, typename T, bool kRnd = false,
+          bool kHM = false>
+__device__ __forceinline__ void window_attn_bwd_body(
+    const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
+    const float* __restrict__ bias, const T* __restrict__ g,
+    T* __restrict__ dq, T* __restrict__ dk, T* __restrict__ dv,
+    float* __restrict__ ds_w, float* __restrict__ att, int Tq, int Tk, int C,
+    int nh, float scale, const float* __restrict__ mask, int nW) {
   extern __shared__ float smem[];
   const int hd = C / nh;
   const Layout L(Tq, Tk, hd);
@@ -139,16 +141,18 @@ window_attn_bwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int win = blockIdx.y;
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
-  const int n0 = head * hd;
+  const int n0 = kHM ? 0 : head * hd;
+  const int ldg = kHM ? hd : C;
   float* drow = ps + L.p_floats + warp * kQRows * Tk;
-  const size_t qrow0 = static_cast<size_t>(win) * Tq;
-  const size_t krow0 = static_cast<size_t>(win) * Tk;
+  const size_t wrow = kHM ? static_cast<size_t>(win) * nh + head : win;
+  const size_t qrow0 = wrow * Tq;
+  const size_t krow0 = wrow * Tk;
   float* dsb = ds_w + (static_cast<size_t>(win) * nh + head) * Tq * Tk;
 
-  stage_head(q, qrow0, Tq, C, n0, hd, qs, L.ld);
-  stage_head(g, qrow0, Tq, C, n0, hd, gs, L.ld);
-  stage_head(k, krow0, Tk, C, n0, hd, ks, L.ld);
-  stage_head(v, krow0, Tk, C, n0, hd, vs, L.ld);
+  stage_head(q, qrow0, Tq, ldg, n0, hd, qs, L.ld);
+  stage_head(g, qrow0, Tq, ldg, n0, hd, gs, L.ld);
+  stage_head(k, krow0, Tk, ldg, n0, hd, ks, L.ld);
+  stage_head(v, krow0, Tk, ldg, n0, hd, vs, L.ld);
   __syncthreads();
 
   // Pass 1: p, ds and dq, four query rows per warp.
@@ -221,7 +225,8 @@ window_attn_bwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
       for (int r = 0; r < kQRows; ++r) {
         if (i0 + r < Tq)
-          dq[(qrow0 + i0 + r) * C + n0 + lane] = from_f32<T>(acc[r] * scale);
+          dq[(qrow0 + i0 + r) * ldg + n0 + lane] =
+              from_f32<T>(acc[r] * scale);
       }
     }
     __syncwarp();
@@ -231,9 +236,10 @@ window_attn_bwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   // att = p v from the p tile (kernel AB's forward recompute).
   if constexpr (kAtt)
     head_product<true, float, kRnd>(ps, L.ldp, vs, L.ld, Tk, Tq, hd, 1.0f,
-                                    att, qrow0, C, n0);
+                                    att, qrow0, ldg, n0);
   // Pass 2: dv = p^T g from the p tile.
-  head_product<false>(ps, L.ldp, gs, L.ld, Tq, Tk, hd, 1.0f, dv, krow0, C, n0);
+  head_product<false>(ps, L.ldp, gs, L.ld, Tq, Tk, hd, 1.0f, dv, krow0, ldg,
+                      n0);
   __syncthreads();
   // ds of this (window, head), written above by this block, over the tile.
   for (int e = threadIdx.x; e < Tq * Tk; e += kThreads) {
@@ -241,8 +247,40 @@ window_attn_bwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
     ps[i * L.ldp + (e - i * Tk)] = kRnd ? rnd<__nv_bfloat16>(dsb[e]) : dsb[e];
   }
   __syncthreads();
-  head_product<false>(ps, L.ldp, qs, L.ld, Tq, Tk, hd, scale, dk, krow0, C,
+  head_product<false>(ps, L.ldp, qs, L.ld, Tq, Tk, hd, scale, dk, krow0, ldg,
                       n0);
+}
+
+template <bool kAtt, bool kMask, typename T, bool kRnd = false>
+__global__ void __launch_bounds__(kThreads)
+window_attn_bwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                       const T* __restrict__ v,
+                       const float* __restrict__ bias,
+                       const T* __restrict__ g, T* __restrict__ dq,
+                       T* __restrict__ dk, T* __restrict__ dv,
+                       float* __restrict__ ds_w, float* __restrict__ att,
+                       int Tq, int Tk, int C, int nh, float scale,
+                       const float* __restrict__ mask, int nW) {
+  window_attn_bwd_body<kAtt, kMask, T, kRnd>(q, k, v, bias, g, dq, dk, dv,
+                                             ds_w, att, Tq, Tk, C, nh, scale,
+                                             mask, nW);
+}
+
+// WB4 (T float) and WB4-bf16 (T __nv_bfloat16): WB's body on the
+// head-major layout, a kernel of its own, so WB's code does not move.
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+window_attn_bwd_4d_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                          const T* __restrict__ v,
+                          const float* __restrict__ bias,
+                          const T* __restrict__ g, T* __restrict__ dq,
+                          T* __restrict__ dk, T* __restrict__ dv,
+                          float* __restrict__ ds_w, float* __restrict__ att,
+                          int Tq, int Tk, int C, int nh, float scale,
+                          const float* __restrict__ mask, int nW) {
+  window_attn_bwd_body<false, false, T, false, true>(
+      q, k, v, bias, g, dq, dk, dv, ds_w, att, Tq, Tk, C, nh, scale, mask,
+      nW);
 }
 
 // dbias[e] = sum_{w < B} ds_w[w * n + e] in ascending w, e < n = nh Tq Tk.
@@ -256,13 +294,23 @@ dbias_sum_kernel(const float* __restrict__ ds_w, float* __restrict__ dbias,
   dbias[e] = acc;
 }
 
+// The kernel of a form: WB's (with its flags), or with kHM WB4's; only the
+// one launched is instantiated.
+template <bool kAtt, bool kMask, typename T, bool kRnd, bool kHM>
+constexpr auto bwd_kernel() {
+  if constexpr (kHM)
+    return window_attn_bwd_4d_kernel<T>;
+  else
+    return window_attn_bwd_kernel<kAtt, kMask, T, kRnd>;
+}
+
 // The launches of kernel WB (with kAtt, also att (B, Tq, C); with kMask,
 // kernel WMB: mask (nW, Tq, Tk), B a multiple of nW; with T bfloat16,
-// WB-bf16; with kRnd, AB's bfloat16 rounding). Arguments as
-// window_attn_bwd, window_attn_bwd_masked and window_attn_bwd_bf16 in
-// window_attn_bwd.cu.
+// WB-bf16; with kRnd, AB's bfloat16 rounding; with kHM, WB4 on the
+// head-major layout). Arguments as window_attn_bwd, window_attn_bwd_masked
+// and window_attn_bwd_bf16 in window_attn_bwd.cu.
 template <bool kAtt, bool kMask = false, typename T = float,
-          bool kRnd = false>
+          bool kRnd = false, bool kHM = false>
 cudaError_t launch_window_attn_bwd(const T* q, const T* k, const T* v,
                                    const float* bias, const T* g, T* dq,
                                    T* dk, T* dv, float* ds_w, float* dbias,
@@ -274,12 +322,12 @@ cudaError_t launch_window_attn_bwd(const T* q, const T* k, const T* v,
     return cudaErrorInvalidValue;
   const Layout L(Tq, Tk, C / nh);
   const size_t smem = L.bytes(Tk);
+  const auto kernel = bwd_kernel<kAtt, kMask, T, kRnd, kHM>();
   cudaError_t err = cudaFuncSetAttribute(
-      window_attn_bwd_kernel<kAtt, kMask, T, kRnd>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(smem));
   if (err != cudaSuccess) return err;
-  window_attn_bwd_kernel<kAtt, kMask, T, kRnd>
-      <<<dim3(nh, B), kThreads, smem, st>>>(
+  kernel<<<dim3(nh, B), kThreads, smem, st>>>(
       q, k, v, bias, g, dq, dk, dv, ds_w, att, Tq, Tk, C, nh, scale, mask, nW);
   err = cudaGetLastError();
   if (err != cudaSuccess || !dbias) return err;

@@ -1,7 +1,8 @@
 // Kernel W: packed multi-head window attention, forward; with kMask, kernel
 // WM, its masked form; with bfloat16 operands, kernels W-bf16 and WM-bf16;
 // and W-long, W-long-bf16, WM-long and WM-long-bf16, the window-16 forms
-// of all four.
+// of all four; and W4 and W4-bf16, W's and W-long's bodies on the
+// head-major layout (the 4D form).
 //
 // W replaces _attn_kernel_packed of gsasr_tpu/ops/attention.py (reached
 // from _attention_packed_pallas, the forward of window_attention_packed
@@ -71,6 +72,20 @@
 // out, 1.6 MB of bias and up to 38 MB of mask (period 144), 0.027 ms:
 // bound by bytes. WM-bf16 at SwinIR's shape (576 windows, T 64) moves 53
 // MB of bf16 operands and up to 9.4 MB of mask: bound by bytes too.
+//
+// W4 and W4-bf16 (window_attn_fwd_4d[_bf16]) replace _attn_kernel of
+// gsasr_tpu/ops/attention.py (reached from _attention_pallas, the forward
+// of window_attention and fused_window_attention): the same function on
+// the JAX package's 4D layout, q and out (B, nh, Tq, hd), k and v (B, nh,
+// Tk, hd), with the rounding of K11's body (p to v's type before the PV
+// product, out in q's type). Its bounds are W's and W-long's at the same
+// shapes: operations in fp32, bytes in bf16. The head-major flag (kHM) of
+// the bodies changes only where a head lies: head h of window w is rows
+// (w nh + h) T of hd, contiguous, instead of columns h hd of every packed
+// row, so the kernels read the 4D operands in place and no transpose to
+// the packed layout is made; up to 160 tokens W's body, beyond it
+// W-long's. Each is a kernel of its own, so W's and W-long's code does
+// not move.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -103,8 +118,9 @@ __host__ __device__ size_t smem_bytes(const HeadLayout& L, int Tk) {
 
 // The body of W (kMask false, T float), W-bf16 (T __nv_bfloat16), WM
 // (kMask true, T float) and WM-bf16 (kMask true, T __nv_bfloat16), one
-// block per (head, window).
-template <bool kMask, typename T>
+// block per (head, window); with kHM, of W4 and W4-bf16 on the head-major
+// (B, nh, T, hd) layout.
+template <bool kMask, typename T, bool kHM = false>
 __device__ __forceinline__ void window_attn_fwd_body(
     const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
     const float* __restrict__ bias, const float* __restrict__ mask,
@@ -119,12 +135,14 @@ __device__ __forceinline__ void window_attn_fwd_body(
   const int win = blockIdx.y;
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
-  const int n0 = head * hd;
+  const int n0 = kHM ? 0 : head * hd;
+  const int ldg = kHM ? hd : C;
+  const size_t wrow = kHM ? static_cast<size_t>(win) * nh + head : win;
   float* prow = vs + L.kv_floats + warp * kQRows * Tk;
 
-  stage_head(q, static_cast<size_t>(win) * Tq, Tq, C, n0, hd, qs, L.ld);
-  stage_head(k, static_cast<size_t>(win) * Tk, Tk, C, n0, hd, ks, L.ld);
-  stage_head(v, static_cast<size_t>(win) * Tk, Tk, C, n0, hd, vs, L.ld);
+  stage_head(q, wrow * Tq, Tq, ldg, n0, hd, qs, L.ld);
+  stage_head(k, wrow * Tk, Tk, ldg, n0, hd, ks, L.ld);
+  stage_head(v, wrow * Tk, Tk, ldg, n0, hd, vs, L.ld);
   __syncthreads();
 
   const float* hbias = bias ? bias + static_cast<size_t>(head) * Tq * Tk : nullptr;
@@ -169,8 +187,7 @@ __device__ __forceinline__ void window_attn_fwd_body(
 #pragma unroll
       for (int r = 0; r < kQRows; ++r) {
         if (i0 + r < Tq)
-          out[(static_cast<size_t>(win) * Tq + i0 + r) * C + n0 + lane] =
-              from_f32<T>(o[r]);
+          out[(wrow * Tq + i0 + r) * ldg + n0 + lane] = from_f32<T>(o[r]);
       }
     }
     __syncwarp();
@@ -228,11 +245,26 @@ window_attn_fwd_masked_bf16_kernel(const __nv_bfloat16* __restrict__ q,
                                             C, nh, nW, scale);
 }
 
-// The kernel of a form: W, W-bf16, WM or WM-bf16.
-template <bool kMask, typename T>
+// W4 (T float) and W4-bf16 (T __nv_bfloat16): W's body on the head-major
+// (B, nh, T, hd) layout, a kernel of its own, so W's code does not move.
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+window_attn_fwd_4d_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                          const T* __restrict__ v,
+                          const float* __restrict__ bias,
+                          const float* __restrict__ mask, T* __restrict__ out,
+                          int Tq, int Tk, int C, int nh, int nW, float scale) {
+  window_attn_fwd_body<false, T, true>(q, k, v, bias, mask, out, Tq, Tk, C,
+                                       nh, nW, scale);
+}
+
+// The kernel of a form: W, W-bf16, WM or WM-bf16; with kHM, W4 or W4-bf16.
+template <bool kMask, typename T, bool kHM = false>
 constexpr auto fwd_kernel() {
   constexpr bool kF32 = std::is_same_v<T, float>;
-  if constexpr (kMask && kF32)
+  if constexpr (kHM)
+    return window_attn_fwd_4d_kernel<T>;
+  else if constexpr (kMask && kF32)
     return window_attn_fwd_masked_kernel;
   else if constexpr (kMask)
     return window_attn_fwd_masked_bf16_kernel;
@@ -242,7 +274,7 @@ constexpr auto fwd_kernel() {
     return window_attn_fwd_bf16_kernel;
 }
 
-template <bool kMask, typename T>
+template <bool kMask, typename T, bool kHM = false>
 cudaError_t launch_fwd(const T* q, const T* k, const T* v, const float* bias,
                        const float* mask, T* out, int B, int Tq, int Tk, int C,
                        int nh, int nW, float scale, cudaStream_t st) {
@@ -250,7 +282,7 @@ cudaError_t launch_fwd(const T* q, const T* k, const T* v, const float* bias,
       Tq > kMaxT || Tk > kMaxT || nW < 1 || B % nW != 0)
     return cudaErrorInvalidValue;
   const size_t smem = smem_bytes(HeadLayout(Tq, Tk, C / nh), Tk);
-  const auto kernel = fwd_kernel<kMask, T>();
+  const auto kernel = fwd_kernel<kMask, T, kHM>();
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
@@ -287,8 +319,32 @@ window_attn_fwd_long_masked_kernel(const T* __restrict__ q,
                                             nh, scale, mask, nW);
 }
 
-// W-long, or with a mask (nW, Tq, Tk; B a multiple of nW) WM-long.
+// W4-long (T float) and W4-long-bf16 (T __nv_bfloat16): W-long's body on
+// the head-major (B, nh, T, hd) layout, a kernel of its own.
 template <typename T>
+__global__ void __launch_bounds__(kThreads)
+window_attn_fwd_4d_long_kernel(const T* __restrict__ q,
+                               const T* __restrict__ k,
+                               const T* __restrict__ v,
+                               const float* __restrict__ bias,
+                               T* __restrict__ out, int Tq, int Tk, int C,
+                               int nh, float scale) {
+  gsasr::window_attn_fwd_long_body<T, false, true>(q, k, v, bias, out, Tq, Tk,
+                                                   C, nh, scale);
+}
+
+// The unmasked window-16 kernel: W-long's, or with kHM W4-long's.
+template <typename T, bool kHM>
+constexpr auto long_kernel() {
+  if constexpr (kHM)
+    return window_attn_fwd_4d_long_kernel<T>;
+  else
+    return window_attn_fwd_long_kernel<T>;
+}
+
+// W-long, or with a mask (nW, Tq, Tk; B a multiple of nW) WM-long; with
+// kHM, W4-long on the head-major layout.
+template <typename T, bool kHM = false>
 cudaError_t launch_fwd_long(const T* q, const T* k, const T* v,
                             const float* bias, T* out, int B, int Tq, int Tk,
                             int C, int nh, float scale, cudaStream_t st,
@@ -307,12 +363,13 @@ cudaError_t launch_fwd_long(const T* q, const T* k, const T* v,
         q, k, v, bias, mask, out, Tq, Tk, C, nh, nW, scale);
     return cudaGetLastError();
   }
-  err = cudaFuncSetAttribute(window_attn_fwd_long_kernel<T>,
+  const auto kernel = long_kernel<T, kHM>();
+  err = cudaFuncSetAttribute(kernel,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
                              static_cast<int>(smem));
   if (err != cudaSuccess) return err;
-  window_attn_fwd_long_kernel<T><<<grid, kThreads, smem, st>>>(
-      q, k, v, bias, out, Tq, Tk, C, nh, scale);
+  kernel<<<grid, kThreads, smem, st>>>(q, k, v, bias, out, Tq, Tk, C, nh,
+                                       scale);
   return cudaGetLastError();
 }
 
@@ -409,4 +466,36 @@ extern "C" int window_attn_fwd_long_masked_bf16(
   return static_cast<int>(launch_fwd_long<__nv_bfloat16>(
       q, k, v, bias, out, B, Tq, Tk, C, nh, scale,
       static_cast<cudaStream_t>(stream), mask, nW));
+}
+
+// Kernel W4 (K14): window attention on the head-major layout, q, out (B, nh,
+// Tq, hd); k, v (B, nh, Tk, hd); bias (nh, Tq, Tk) or null; C = nh * hd.
+// All float32, contiguous, on the device. W's body up to kMaxT tokens,
+// W-long's (W4-long) beyond.
+extern "C" int window_attn_fwd_4d(const float* q, const float* k,
+                                  const float* v, const float* bias,
+                                  float* out, int B, int Tq, int Tk, int C,
+                                  int nh, float scale, void* stream) {
+  const auto st = static_cast<cudaStream_t>(stream);
+  if (Tq > kMaxT || Tk > kMaxT)
+    return static_cast<int>(launch_fwd_long<float, true>(
+        q, k, v, bias, out, B, Tq, Tk, C, nh, scale, st));
+  return static_cast<int>(launch_fwd<false, float, true>(
+      q, k, v, bias, nullptr, out, B, Tq, Tk, C, nh, 1, scale, st));
+}
+
+// Kernel W4-bf16: as window_attn_fwd_4d with q, k, v and out bfloat16; bias
+// float32 or null.
+extern "C" int window_attn_fwd_4d_bf16(const __nv_bfloat16* q,
+                                       const __nv_bfloat16* k,
+                                       const __nv_bfloat16* v,
+                                       const float* bias, __nv_bfloat16* out,
+                                       int B, int Tq, int Tk, int C, int nh,
+                                       float scale, void* stream) {
+  const auto st = static_cast<cudaStream_t>(stream);
+  if (Tq > kMaxT || Tk > kMaxT)
+    return static_cast<int>(launch_fwd_long<__nv_bfloat16, true>(
+        q, k, v, bias, out, B, Tq, Tk, C, nh, scale, st));
+  return static_cast<int>(launch_fwd<false, __nv_bfloat16, true>(
+      q, k, v, bias, nullptr, out, B, Tq, Tk, C, nh, 1, scale, st));
 }

@@ -12,7 +12,10 @@
 // window_attn_fwd.cu and the backward's WMB-long) is the per-window-class
 // additive mask of Swin's shifted windows at window 16 (the paper HAT's
 // 256-token windows), added after the bias. It is a template flag, so the
-// unmasked forms (W-long, A-long) compile as without it.
+// unmasked forms (W-long, A-long) compile as without it. So is kHM, the
+// head-major (B, nh, T, hd) layout of the 4D form W4-long: head h of window
+// w is then rows (w nh + h) T of hd instead of columns h hd of the packed
+// rows.
 //
 // W's T <= 160 body holds a whole score row in a warp's registers and one
 // head's q, k and v in shared memory: 186 KB at 256 x 576. Here a block
@@ -131,9 +134,10 @@ __device__ __forceinline__ const float* long_window_mask(const float* mask,
 
 // The body, one block of kThreads per (head, window, query tile) of
 // long_grid. q, k, v and out are T (float or __nv_bfloat16) in the packed
-// layout; bias (nh, Tq, Tk) f32 or null; with kMask, mask (nW, Tq, Tk)
-// f32, window w taking mask[w % nW].
-template <typename T, bool kMask = false>
+// layout, or with kHM in the head-major (B, nh, T, hd) layout (W4-long);
+// bias (nh, Tq, Tk) f32 or null; with kMask, mask (nW, Tq, Tk) f32, window
+// w taking mask[w % nW].
+template <typename T, bool kMask = false, bool kHM = false>
 __device__ __forceinline__ void window_attn_fwd_long_body(
     const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
     const float* __restrict__ bias, T* __restrict__ out, int Tq, int Tk,
@@ -150,7 +154,8 @@ __device__ __forceinline__ void window_attn_fwd_long_body(
   const int q0 = blockIdx.z * kLQ;
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
-  const int n0 = head * hd;
+  const int n0 = kHM ? 0 : head * hd;
+  const int ldg = kHM ? hd : C;
   const int rows = min(kLQ, Tq - q0);
   const int r0 = warp * kLRows;
   const float* qw = qs + r0 * ld;
@@ -159,9 +164,10 @@ __device__ __forceinline__ void window_attn_fwd_long_body(
       bias ? bias + static_cast<size_t>(head) * Tq * Tk : nullptr;
   const float* wm =
       kMask ? long_window_mask(mask, win, nW, Tq, Tk) : nullptr;
+  const size_t wrow = kHM ? static_cast<size_t>(win) * nh + head : win;
 
   // the tile's query rows; rows past Tq are zeros, computed and not stored
-  long_stage(q, static_cast<size_t>(win) * Tq + q0, rows, C, n0, hd, qs, ld);
+  long_stage(q, wrow * Tq + q0, rows, ldg, n0, hd, qs, ld);
   for (int e = rows * hd + threadIdx.x; e < kLQ * hd; e += kThreads) {
     const int r = e / hd;
     qs[r * ld + e - r * hd] = 0.f;
@@ -177,7 +183,7 @@ __device__ __forceinline__ void window_attn_fwd_long_body(
   for (int k0 = 0; k0 < Tk; k0 += kLK) {
     const int kb = min(kLK, Tk - k0);
     __syncthreads();
-    long_stage(k, static_cast<size_t>(win) * Tk + k0, kb, C, n0, hd, ks, ld);
+    long_stage(k, wrow * Tk + k0, kb, ldg, n0, hd, ks, ld);
     __syncthreads();
     float s[kLRows][kLKeysPer];
     long_scores<kMask>(qw, ks, ld, hd, kb, hb ? hb + k0 : nullptr, q0 + r0,
@@ -205,8 +211,8 @@ __device__ __forceinline__ void window_attn_fwd_long_body(
   for (int k0 = 0; k0 < Tk; k0 += kLK) {
     const int kb = min(kLK, Tk - k0);
     __syncthreads();
-    long_stage(k, static_cast<size_t>(win) * Tk + k0, kb, C, n0, hd, ks, ld);
-    long_stage(v, static_cast<size_t>(win) * Tk + k0, kb, C, n0, hd, vs, ld);
+    long_stage(k, wrow * Tk + k0, kb, ldg, n0, hd, ks, ld);
+    long_stage(v, wrow * Tk + k0, kb, ldg, n0, hd, vs, ld);
     __syncthreads();
     float s[kLRows][kLKeysPer];
     long_scores<kMask>(qw, ks, ld, hd, kb, hb ? hb + k0 : nullptr, q0 + r0,
@@ -232,7 +238,7 @@ __device__ __forceinline__ void window_attn_fwd_long_body(
 #pragma unroll
     for (int r = 0; r < kLRows; ++r) {
       if (r0 + r < rows)
-        out[(static_cast<size_t>(win) * Tq + q0 + r0 + r) * C + n0 + lane] =
+        out[(wrow * Tq + q0 + r0 + r) * ldg + n0 + lane] =
             from_f32<T>(o[r]);
     }
   }

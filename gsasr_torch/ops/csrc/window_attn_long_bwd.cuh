@@ -154,9 +154,11 @@ __device__ __forceinline__ void long_ds(const float* gw, const float* vs,
 // Launch 1, one block of kThreads per (head, window, query tile) of
 // long_grid: dq, each row's (max, sum, D) into stats, and ds into ds_w when
 // it is not null. With kMask, mask (nW, Tq, Tk), window w taking mask[w %
-// nW]. With kAtt, att (B, Tq, C) = p v; with kRnd, AB-long's bf16 rounding.
+// nW]. With kAtt, att (B, Tq, C) = p v; with kRnd, AB-long's bf16 rounding;
+// with kHM, q, k, v, g and dq in the head-major (B, nh, T, hd) layout (the
+// 4D form WB4-long): head h of window w owns rows (w nh + h) T of hd.
 template <typename T, bool kMask = false, bool kAtt = false,
-          bool kRnd = false>
+          bool kRnd = false, bool kHM = false>
 __global__ void __launch_bounds__(kThreads)
 window_attn_bwd_long_q_kernel(const T* __restrict__ q, const T* __restrict__ k,
                               const T* __restrict__ v,
@@ -180,7 +182,8 @@ window_attn_bwd_long_q_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int q0 = blockIdx.z * kLQ;
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
-  const int n0 = head * hd;
+  const int n0 = kHM ? 0 : head * hd;
+  const int ldg = kHM ? hd : C;
   const int rows = min(kLQ, Tq - q0);
   const int r0 = warp * kLRows;
   const float* qw = qs + r0 * ld;
@@ -188,14 +191,15 @@ window_attn_bwd_long_q_kernel(const T* __restrict__ q, const T* __restrict__ k,
   float* prow = tile + r0 * kLK;
   const float* hb =
       bias ? bias + static_cast<size_t>(head) * Tq * Tk : nullptr;
-  const size_t qrow0 = static_cast<size_t>(win) * Tq + q0;
-  const size_t krow0 = static_cast<size_t>(win) * Tk;
+  const size_t wrow = kHM ? static_cast<size_t>(win) * nh + head : win;
+  const size_t qrow0 = wrow * Tq + q0;
+  const size_t krow0 = wrow * Tk;
   const size_t srow0 = (static_cast<size_t>(win) * nh + head) * Tq + q0 + r0;
   const float* wm =
       kMask ? long_window_mask(mask, win, nW, Tq, Tk) : nullptr;
 
-  long_stage_tile(q, qrow0, rows, C, n0, hd, qs, ld);
-  long_stage_tile(g, qrow0, rows, C, n0, hd, gs, ld);
+  long_stage_tile(q, qrow0, rows, ldg, n0, hd, qs, ld);
+  long_stage_tile(g, qrow0, rows, ldg, n0, hd, gs, ld);
 
   // pass 1: each row's running max and sum of exponentials (W-long's)
   float mrow[kLRows], lrow[kLRows];
@@ -207,7 +211,7 @@ window_attn_bwd_long_q_kernel(const T* __restrict__ q, const T* __restrict__ k,
   for (int k0 = 0; k0 < Tk; k0 += kLK) {
     const int kb = min(kLK, Tk - k0);
     __syncthreads();
-    long_stage(k, krow0 + k0, kb, C, n0, hd, ks, ld);
+    long_stage(k, krow0 + k0, kb, ldg, n0, hd, ks, ld);
     __syncthreads();
     float s[kLRows][kLKeysPer];
     long_scores<kMask>(qw, ks, ld, hd, kb, hb ? hb + k0 : nullptr, q0 + r0,
@@ -237,8 +241,8 @@ window_attn_bwd_long_q_kernel(const T* __restrict__ q, const T* __restrict__ k,
   for (int k0 = 0; k0 < Tk; k0 += kLK) {
     const int kb = min(kLK, Tk - k0);
     __syncthreads();
-    long_stage(k, krow0 + k0, kb, C, n0, hd, ks, ld);
-    long_stage(v, krow0 + k0, kb, C, n0, hd, vs, ld);
+    long_stage(k, krow0 + k0, kb, ldg, n0, hd, ks, ld);
+    long_stage(v, krow0 + k0, kb, ldg, n0, hd, vs, ld);
     __syncthreads();
     long_probs<kMask>(qw, ks, ld, hd, kb, hb ? hb + k0 : nullptr, q0 + r0,
                       Tq, Tk, scale, mrow, lrow, prow,
@@ -275,7 +279,7 @@ window_attn_bwd_long_q_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
       for (int r = 0; r < kLRows; ++r) {
         if (r0 + r < rows)
-          att[(qrow0 + r0 + r) * C + n0 + lane] =
+          att[(qrow0 + r0 + r) * ldg + n0 + lane] =
               kRnd ? rnd<__nv_bfloat16>(orow[r]) : orow[r];
       }
     }
@@ -299,8 +303,8 @@ window_attn_bwd_long_q_kernel(const T* __restrict__ q, const T* __restrict__ k,
   for (int k0 = 0; k0 < Tk; k0 += kLK) {
     const int kb = min(kLK, Tk - k0);
     __syncthreads();
-    long_stage(k, krow0 + k0, kb, C, n0, hd, ks, ld);
-    long_stage(v, krow0 + k0, kb, C, n0, hd, vs, ld);
+    long_stage(k, krow0 + k0, kb, ldg, n0, hd, ks, ld);
+    long_stage(v, krow0 + k0, kb, ldg, n0, hd, vs, ld);
     __syncthreads();
     long_probs<kMask>(qw, ks, ld, hd, kb, hb ? hb + k0 : nullptr, q0 + r0,
                       Tq, Tk, scale, mrow, lrow, prow,
@@ -336,7 +340,7 @@ window_attn_bwd_long_q_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
     for (int r = 0; r < kLRows; ++r) {
       if (r0 + r < rows)
-        dq[(qrow0 + r0 + r) * C + n0 + lane] = from_f32<T>(acc[r] * scale);
+        dq[(qrow0 + r0 + r) * ldg + n0 + lane] = from_f32<T>(acc[r] * scale);
     }
   }
 }
@@ -344,8 +348,10 @@ window_attn_bwd_long_q_kernel(const T* __restrict__ q, const T* __restrict__ k,
 // Launch 2, one block of kThreads per (head, window, key tile of kLK): dv
 // and dk of the tile's keys, the query tiles walked in order with the
 // statistics launch 1 stored. With kMask, the mask as launch 1 takes it;
-// with kRnd, AB-long's bf16 rounding of p and ds.
-template <typename T, bool kMask = false, bool kRnd = false>
+// with kRnd, AB-long's bf16 rounding of p and ds; with kHM, the head-major
+// layout.
+template <typename T, bool kMask = false, bool kRnd = false,
+          bool kHM = false>
 __global__ void __launch_bounds__(kThreads)
 window_attn_bwd_long_kv_kernel(const T* __restrict__ q,
                                const T* __restrict__ k,
@@ -370,7 +376,8 @@ window_attn_bwd_long_kv_kernel(const T* __restrict__ q,
   const int kb = min(kLK, Tk - k0);
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
-  const int n0 = head * hd;
+  const int n0 = kHM ? 0 : head * hd;
+  const int ldg = kHM ? hd : C;
   const int r0 = warp * kLRows;
   const int jw = warp * kLBKeysPerWarp;
   const float* qw = qs + r0 * ld;
@@ -380,11 +387,12 @@ window_attn_bwd_long_kv_kernel(const T* __restrict__ q,
       bias ? bias + static_cast<size_t>(head) * Tq * Tk + k0 : nullptr;
   const float* mb =
       kMask ? long_window_mask(mask, win, nW, Tq, Tk) + k0 : nullptr;
-  const size_t krow0 = static_cast<size_t>(win) * Tk + k0;
+  const size_t wrow = kHM ? static_cast<size_t>(win) * nh + head : win;
+  const size_t krow0 = wrow * Tk + k0;
   const size_t srow0 = (static_cast<size_t>(win) * nh + head) * Tq;
 
-  long_stage(k, krow0, kb, C, n0, hd, ks, ld);
-  long_stage(v, krow0, kb, C, n0, hd, vs, ld);
+  long_stage(k, krow0, kb, ldg, n0, hd, ks, ld);
+  long_stage(v, krow0, kb, ldg, n0, hd, vs, ld);
 
   float adv[kLBKeysPerWarp], adk[kLBKeysPerWarp];
 #pragma unroll
@@ -392,10 +400,8 @@ window_attn_bwd_long_kv_kernel(const T* __restrict__ q,
   for (int q0 = 0; q0 < Tq; q0 += kLQ) {
     const int rows = min(kLQ, Tq - q0);
     __syncthreads();
-    long_stage_tile(q, static_cast<size_t>(win) * Tq + q0, rows, C, n0, hd,
-                    qs, ld);
-    long_stage_tile(g, static_cast<size_t>(win) * Tq + q0, rows, C, n0, hd,
-                    gs, ld);
+    long_stage_tile(q, wrow * Tq + q0, rows, ldg, n0, hd, qs, ld);
+    long_stage_tile(g, wrow * Tq + q0, rows, ldg, n0, hd, gs, ld);
     __syncthreads();
     // this warp's rows' statistics (rows past Tq read the last row's and
     // are never summed)
@@ -461,7 +467,7 @@ window_attn_bwd_long_kv_kernel(const T* __restrict__ q,
     for (int jj = 0; jj < kLBKeysPerWarp; ++jj) {
       const int j = jw + jj;
       if (j < kb) {
-        const size_t o = (krow0 + j) * C + n0 + lane;
+        const size_t o = (krow0 + j) * ldg + n0 + lane;
         dv[o] = from_f32<T>(adv[jj]);
         dk[o] = from_f32<T>(adk[jj] * scale);
       }
@@ -476,10 +482,11 @@ namespace {
 // The launches of WB-long (T float) and WB-long-bf16 (T __nv_bfloat16), or
 // with kMask WMB-long and WMB-long-bf16 (mask (nW, Tq, Tk), B a multiple of
 // nW), or with kAtt (att (B, Tq, C) f32) and kRnd AB-long's attention
-// backward: dq and the rows' statistics per query tile, then dk and dv per
-// key tile, then (dbias given) the ordered sum of ds_w over the windows.
+// backward, or with kHM WB4-long on the head-major layout: dq and the rows'
+// statistics per query tile, then dk and dv per key tile, then (dbias
+// given) the ordered sum of ds_w over the windows.
 template <typename T, bool kMask = false, bool kAtt = false,
-          bool kRnd = false>
+          bool kRnd = false, bool kHM = false>
 cudaError_t launch_window_attn_bwd_long(const T* q, const T* k, const T* v,
                                         const float* bias, const T* g, T* dq,
                                         T* dk, T* dv, float* stats,
@@ -493,20 +500,20 @@ cudaError_t launch_window_attn_bwd_long(const T* q, const T* k, const T* v,
     return cudaErrorInvalidValue;
   const size_t smem = gsasr::long_bwd_smem_bytes(C / nh);
   cudaError_t err = cudaFuncSetAttribute(
-      gsasr::window_attn_bwd_long_q_kernel<T, kMask, kAtt, kRnd>,
+      gsasr::window_attn_bwd_long_q_kernel<T, kMask, kAtt, kRnd, kHM>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
   if (err != cudaSuccess) return err;
   err = cudaFuncSetAttribute(
-      gsasr::window_attn_bwd_long_kv_kernel<T, kMask, kRnd>,
+      gsasr::window_attn_bwd_long_kv_kernel<T, kMask, kRnd, kHM>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
   if (err != cudaSuccess) return err;
-  gsasr::window_attn_bwd_long_q_kernel<T, kMask, kAtt, kRnd>
+  gsasr::window_attn_bwd_long_q_kernel<T, kMask, kAtt, kRnd, kHM>
       <<<gsasr::long_grid(nh, B, Tq), kThreads, smem, st>>>(
           q, k, v, bias, g, dq, stats, dbias ? ds_w : nullptr, Tq, Tk, C, nh,
           scale, mask, nW, att);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  gsasr::window_attn_bwd_long_kv_kernel<T, kMask, kRnd>
+  gsasr::window_attn_bwd_long_kv_kernel<T, kMask, kRnd, kHM>
       <<<dim3(nh, B, (Tk + gsasr::kLK - 1) / gsasr::kLK), kThreads, smem,
          st>>>(q, k, v, bias, g, dk, dv, stats, Tq, Tk, C, nh, scale, mask,
                nW);

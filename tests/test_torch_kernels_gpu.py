@@ -882,3 +882,147 @@ def test_ln_attn_long_matches_plain_and_repeats(cuda, opts, bf16):
         _assert_bf16_close(out, ref)
     else:
         torch.testing.assert_close(out, ref, rtol=1e-4, atol=1e-4)
+
+
+def _trained_like(cuda, s, h, w, sat=False, seed=30):
+    """scripts/bench_exact_render.py's Gaussians, cut in count and canvas:
+    lattice centers with jitter, sigmas lognormal around 1.1 px (clipped
+    to [0.3, 60]), or with `sat` saturated at 300 px; packed at dmax 0.1."""
+    from gsasr_torch.ops import rasterizer as tr
+
+    rng = np.random.default_rng(seed)
+    half = np.array([(w - 1) / 2.0, (h - 1) / 2.0], np.float32)
+    sig = (np.full((s, 2), 300.0, np.float32) if sat else np.clip(
+        np.exp(rng.normal(np.log(1.1), 0.7, (s, 2))), 0.3, 60.0))
+    sigmas = np.concatenate([sig / half, rng.uniform(-0.6, 0.6, (s, 1))],
+                            axis=1).astype(np.float32)
+    coords = rng.uniform(-1, 1, (s, 2)).astype(np.float32)
+    colors = rng.uniform(0, 0.3, (s, 3)).astype(np.float32)
+    return [torch.from_numpy(x).to(cuda) for x in (sigmas, coords, colors)]
+
+
+def test_raster_fwd_exact_matches_plain_and_repeats(cuda):
+    """R-exact against its plain list walk and against R on the same sorted
+    Gaussians (1e-5: the same terms in another order), twice bitwise, on a
+    canvas that is not a whole number of 8 x 128 list tiles."""
+    from gsasr_torch.ops import rasterizer as tr
+
+    h, w = 203, 300
+    sigmas, coords, colors = _trained_like(cuda, 40000, h, w)
+    geom = tr.pack_geometry(sigmas, coords, (h, w), 0.1)
+    mr, mc = tr._exact_spans(h, w, (0.1 * (h - 1) + 1, 0.1 * (w - 1) + 1))
+    g, col, bbox, lists, tab, ok = tr.exact_geometry(geom, colors, (h, w),
+                                                     mr, mc)
+    assert bool(ok)
+    n = tr.raster_fwd_exact.launches
+    out = tr.raster_fwd_exact(g, col, lists, tab, h, w)
+    assert torch.equal(out, tr.raster_fwd_exact(g, col, lists, tab, h, w))
+    assert tr.raster_fwd_exact.launches == n + 2
+    for ref in (tr.raster_fwd_exact_plain(g, col, lists, tab, h, w),
+                tr.raster_fwd(g, col, bbox, h, w)):
+        torch.testing.assert_close(out, ref, rtol=1e-5, atol=1e-5)
+
+
+def test_gs_render_exact_routes_and_differentiates(cuda):
+    """gs_render(binning="exact") launches R-exact once and no R on
+    trained-like boxes (dmax 0.1), R once and no R-exact on saturated ones
+    at dmax 0.5 (about 80 x 128 px boxes, 20 list tiles each: the lists
+    overflow); both images and gradients agree with binning="auto" (R, RB)
+    on the same Gaussians."""
+    from gsasr_torch.ops import rasterizer as tr
+
+    h, w = 160, 256
+    for sat, dmax, want in ((False, 0.1, (1, 0)), (True, 0.5, (0, 1))):
+        args = _trained_like(cuda, 20000, h, w, sat=sat, seed=31)
+        grads = []
+        for binning in ("exact", "auto"):
+            tens = [x.clone().requires_grad_() for x in args]
+            n = (tr.raster_fwd_exact.launches, tr.raster_fwd.launches)
+            out = tr.gs_render(*tens, (h, w), dmax, binning=binning)
+            if binning == "exact":
+                assert (tr.raster_fwd_exact.launches - n[0],
+                        tr.raster_fwd.launches - n[1]) == want
+                img = out.detach()
+            else:
+                torch.testing.assert_close(img, out.detach(), rtol=1e-5,
+                                           atol=1e-5)
+            out.square().sum().backward()
+            grads.append([t.grad for t in tens])
+        for a, r in zip(*grads):
+            _assert_grad_close(a, r)
+
+
+# (windows, heads, Tq, Tk, hd, bias, dtype) for W4 and WB4 on the 4D
+# layout: the decoder's window (cut to 37 windows, prime), rectangular
+# without a bias, window 16 (HAT's 256 tokens) and a ragged 130 x 300 with
+# a bias, in fp32 and bf16
+ATTN4_CASES = [(37, 6, 144, 144, 30, True, torch.float32),
+               (11, 6, 64, 144, 30, False, torch.float32),
+               (9, 6, 144, 144, 32, True, torch.bfloat16),
+               (5, 6, 256, 256, 32, True, torch.float32),
+               (5, 6, 256, 256, 32, False, torch.bfloat16),
+               (3, 6, 130, 300, 30, True, torch.float32)]
+
+
+@pytest.mark.parametrize("b,nh,tq,tk,hd,bias,dt", ATTN4_CASES)
+def test_window_attn_4d_matches_plain_and_repeats(cuda, b, nh, tq, tk, hd,
+                                                  bias, dt):
+    """W4 and WB4 (their bf16 forms; W-long's and WB-long's bodies beyond 160
+    tokens) against their plain versions on the head-major layout, each
+    twice bitwise; window_attention launches each once and no packed form."""
+    from gsasr_torch.ops import attention as ta
+
+    g = torch.Generator(device="cpu").manual_seed(33)
+    r = lambda *s: torch.randn(*s, generator=g).to(cuda)  # noqa: E731
+    q, k, v, go = (r(b, nh, t, hd).to(dt) for t in (tq, tk, tk, tq))
+    bs = 0.5 * r(nh, tq, tk) if bias else None
+    scale = hd ** -0.5
+    fwd, bwd = ta._FORMS4[dt == torch.bfloat16]
+    out = fwd(q, k, v, bs, scale)
+    assert torch.equal(out, fwd(q, k, v, bs, scale))
+    grads, again = bwd(q, k, v, bs, go, scale), bwd(q, k, v, bs, go, scale)
+    refs = (ta.window_attention_plain(q, k, v, bs, scale),
+            *ta.window_attention_bwd_plain(q, k, v, bs, go, scale))
+    assert (grads[3] is None) == (not bias)
+    for o, a, ref in zip((out, *grads), (out, *again), refs):
+        if ref is None:
+            continue
+        assert torch.equal(o, a)
+        if o.dtype == torch.bfloat16:
+            _assert_bf16_close(o, ref)
+        else:
+            torch.testing.assert_close(o, ref, rtol=1e-4,
+                                       atol=1e-4 * float(ref.abs().max()))
+    packed = [f.launches for pair in ta._FORMS.values() for f in pair]
+    n = (fwd.launches, bwd.launches)
+    qg = q.detach().requires_grad_()
+    y = ta.window_attention(qg, k, v, bs)
+    assert torch.equal(y, out)
+    y.backward(go)
+    assert torch.equal(qg.grad, grads[0])
+    assert (fwd.launches, bwd.launches) == (n[0] + 1, n[1] + 1)
+    assert [f.launches for pair in ta._FORMS.values() for f in pair] == packed
+
+
+def test_exact_and_4d_kernels_do_not_spill(cuda):
+    """ptxas's report: R-exact and the head-major kernels (W4, W4-long, WB4,
+    WB4-long, both types) use no local memory for spills."""
+    import re
+
+    from gsasr_torch.ops import _build
+
+    _build.build(["raster_fwd_exact", "window_attn_fwd_4d",
+                  "window_attn_bwd_4d"])
+    for src, key in (("raster_fwd", "raster_fwd_exact"),
+                     ("window_attn_fwd", "_4d_"), ("window_attn_bwd", "_4d_")):
+        spills, name = {}, None
+        for line in _build.ptxas_report(src).splitlines():
+            m = re.search(r"Compiling entry function '(\w+)'", line)
+            if m:
+                name = m.group(1)
+            sp = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill "
+                           r"loads", line)
+            if sp and key in name:
+                spills[name] = sp.groups()
+        assert spills and all(v == ("0", "0") for v in spills.values()), \
+            spills
