@@ -86,9 +86,11 @@
    A, per forward), a 48x48 request on the card against the CPU (bf16
    trunk), and the 180x180 x4 end-to-end timing with its split, peak
    memory and bound.
-24. Ultra training kernel phase (TF32 off): W-long-bf16, WB-long-bf16 (the
-   window-16 form of WB) and WB-long against their plain versions at the
-   Ultra training step's shapes (128 windows x 256 x 256 and 256 x 576, 6
+24. Ultra training kernel phase (TF32 off): W-long-bf16 and WB-long-bf16
+   (the bf16 window-16 forms of W and WB, on the tensor cores:
+   window_attn_long_mma.cuh, window_attn_long_mma_bwd.cuh) and WB-long
+   (fp32, FMA body) against their plain versions at the Ultra training
+   step's shapes (128 windows x 256 x 256 and 256 x 576, 6
    heads of 32; WB-long-bf16 once more with a bias), twice each for
    bitwise repeatability, with SDPA forward and backward as the yardstick
    and ptxas's registers; R and RB on the 8-slot 1024x1024 canvas.
@@ -119,12 +121,14 @@
    WM and WMB) at SwinIR's training shape (16 x 36 windows of 64 tokens,
    180 channels, 6 heads of 30, mask period 36) and inference shape (576
    windows, period 576); WM-long and WMB-long, fp32 and bf16 (the
-   window-16 masked forms), at the paper HAT's training shape (144 windows
-   of 256 tokens, period 9) and inference shape (period 144); each with
-   the bias of a shifted block's table, against its plain version, twice
-   for bitwise repeatability, with times, bounds, SDPA with the bias and
-   mask as a float mask, and ptxas's registers (W-long's, A-long's and
-   WB-long's beside them).
+   window-16 masked forms; in bf16 the tensor-core bodies with their mask
+   flag), at the paper HAT's training shape (144 windows of 256 tokens,
+   period 9) and inference shape (period 144); each with the bias of a
+   shifted block's table, against its plain version, twice for bitwise
+   repeatability, with times, bounds, SDPA with the bias and mask as a
+   float mask, and ptxas's registers: W-long's, A-long's and WB-long's
+   fp32 kernels and the tensor-core bodies' beside the recorded ones (a
+   tensor-core body that spills fails the phase).
 30. SwinIR at its bf16 recipe: Trainer.step of configs/train_swinir_amp.yml
    (written out as ENHANCED_TRAIN and enhanced_networks("swinir")) at batch
    16, as phase 8 (W-bf16 18, WM-bf16 18, W-long-bf16 44, WB-bf16 18,
@@ -173,8 +177,10 @@
    same Gaussians, twice for bits, with its ms, bound, memberships and
    used chunks; one backward against binning="auto"'s gradients.
 38. 4D window attention (TF32 off): W4 and WB4 (K14, K14b; bf16 forms and
-   the window-16 bodies) against their plain versions at the decoder's
-   window (225 and 256 windows x 6 heads x 144 x 30 fp32, 32 bf16) and
+   the window-16 bodies: in fp32 W-long's and WB-long's FMA bodies, in
+   bf16 their tensor-core bodies, all with the head-major flag) against
+   their plain versions at the decoder's window (225 and 256 windows x 6
+   heads x 144 x 30 fp32, 32 bf16) and
    HAT's (128 x 6 x 256 x 32, fp32 and bf16, with and without a bias),
    twice each for bits, beside the packed W and WB on the same operands
    and SDPA; window_attention through autograd once per shape (launches
@@ -410,12 +416,20 @@ SWINIR_FUSED_TRAIN_COUNTS = dict(
     **{"W-bf16": 18, "WM-bf16": 18, "WB-bf16": 18, "WMB-bf16": 18,
        "A-long": 44, "AB-long": 44})
 # ptxas registers of the earlier window-16 kernels as PERF.md §6 records
-# them (A-long's projections and attention, WB-long's dq and dk/dv launches
-# in bf16 and fp32, WMB-long's): the template flags of the masked forms and
-# of AB-long must leave them as they were.
-LONG_REGS_RECORDED = {"W-long": (128, 128), "A-long": (114, 114, 128, 128),
-                      "WB-long": (128, 130, 177, 177),
-                      "WMB-long": (176, 189), "WMB-long-bf16": (178, 189)}
+# them (W-long's; A-long's projections in both types and its fp32
+# attention; WB-long's and WMB-long's dq and dk/dv launches in fp32): the
+# template flags of the masked forms and of AB-long, and the bf16 forms'
+# move to the tensor-core bodies, must leave them as they were.
+LONG_REGS_RECORDED = {"W-long": (128,), "A-long": (114, 114, 128),
+                      "WB-long": (130, 177), "WMB-long": (176, 189)}
+# ptxas registers of the bf16 window-16 forms' tensor-core bodies
+# (window_attn_long_mma.cuh, window_attn_long_mma_bwd.cuh) as PERF.md §6
+# records them: the forward's flag pairs (A-long-bf16's attention is
+# W-long-bf16's kernel), the backward's dq and dk/dv launches.
+MMA_REGS_RECORDED = {"W-long-bf16": (94,), "WM-long-bf16": (96,),
+                     "W4-long-bf16": (96,), "WB-long-bf16": (125, 126),
+                     "WMB-long-bf16": (128, 128),
+                     "WB4-long-bf16": (128, 128)}
 # AB's attention backward (WB's body with att: with AB-bf16's rounding,
 # and in fp32), as ptxas reported them before AB-long joined its source.
 AB_REGS_RECORDED = (99, 105)
@@ -2185,8 +2199,9 @@ def ultra_train_kernel_phase(enc, dec, dev):
     versions at its shapes (8 samples of 64x64 LR: 128 windows of 256
     tokens, 192 channels, 6 heads of 32, no bias; the HABs' and the
     decoder's 256 x 256 and the OCABs' 256 x 576): W-long-bf16 and
-    WB-long-bf16 (the bf16 recipe's), WB-long-bf16 once more with a bias
-    (dbias), and WB-long (fp32, model_dtype float32); each twice for
+    WB-long-bf16 (the bf16 recipe's, the tensor-core bodies), WB-long-bf16
+    once more with a bias (dbias), and WB-long (fp32, model_dtype float32,
+    the FMA body); each twice for
     bitwise repeatability, with SDPA forward and backward in the kernel's
     type as the yardstick and ptxas's registers. Then R and RB on the
     8-slot 1024x1024 canvas of the seeded Ultra networks' Gaussians at
@@ -2387,15 +2402,18 @@ REG_KEYS = {
     "WM-bf16": [("window_attn_fwd_masked_bf16_kernel", "")],
     "WMB-bf16": [("window_attn_bwd_kernel", "Lb1E13__nv_bfloat16")],
     "WM-long": [("window_attn_fwd_long_masked_kernel", "IfE")],
-    "WM-long-bf16": [("window_attn_fwd_long_masked_kernel", "bfloat16")],
     "WMB-long": [("window_attn_bwd_long_", "IfLb1E")],
-    "WMB-long-bf16": [("window_attn_bwd_long_", "bfloat16Lb1E")],
     "W-long": [("window_attn_fwd_long_kernel", "")],
     "A-long": [("ln_qkv_kernel", ""), ("attn_long_kernel", "")],
     "WB-long": [("window_attn_bwd_long_", "IfLb0ELb0ELb0ELb0EE"),
-                ("window_attn_bwd_long_", "IfLb0ELb0ELb0EE"),
-                ("window_attn_bwd_long_", "bfloat16Lb0ELb0ELb0ELb0EE"),
-                ("window_attn_bwd_long_", "bfloat16Lb0ELb0ELb0EE")],
+                ("window_attn_bwd_long_", "IfLb0ELb0ELb0EE")],
+    # the tensor-core bodies, by their flags (kMask, kHM)
+    "W-long-bf16": [("window_attn_fwd_long_mma_kernel", "ILb0ELb0E")],
+    "WM-long-bf16": [("window_attn_fwd_long_mma_kernel", "ILb1ELb0E")],
+    "W4-long-bf16": [("window_attn_fwd_long_mma_kernel", "ILb0ELb1E")],
+    "WB-long-bf16": [("window_attn_bwd_long_mma_", "ILb0ELb0E")],
+    "WMB-long-bf16": [("window_attn_bwd_long_mma_", "ILb1ELb0E")],
+    "WB4-long-bf16": [("window_attn_bwd_long_mma_", "ILb0ELb1E")],
 }
 # The T <= 160 forms of W and WB (whose bodies W4 and WB4 share) with their
 # registers as recorded before the 4D forms joined their sources, printed
@@ -2442,11 +2460,13 @@ def masked_kernel_phase(enc_s, enc_h, dev):
     one 192x192 map, period 576), WM-long and WMB-long in fp32 and bf16
     at the paper HAT's (window 16: 144 windows of 256 tokens, period 9 in
     training and 144 at inference); 180 channels, 6 heads of 30, the bias
-    of the encoder's first shifted block. Each twice for bitwise
-    repeatability, with its time, plain time, bound in its type, SDPA (the
-    bias plus the mask as a float mask in the operands' type) forward and
-    backward, and ptxas's registers; then W-long's, A-long's and WB-long's
-    registers beside the recorded ones. per_image / per_step: launches on
+    of the encoder's first shifted block (the bf16 window-16 forms on the
+    tensor-core bodies). Each twice for bitwise repeatability, with its
+    time, plain time, bound in its type, SDPA (the bias plus the mask as a
+    float mask in the operands' type) forward and backward, and ptxas's
+    registers; then W-long's, A-long's and WB-long's fp32 registers and the
+    tensor-core bodies' beside the recorded ones (raises if a tensor-core
+    body is missing or spills). per_image / per_step: launches on
     the bf16 SwinIR-Enhanced image and the bf16 SwinIR step (the bf16
     forms), the paper HAT's image and step (WM-long, WMB-long) and the bf16
     paper HAT step (the window-16 bf16 forms)."""
@@ -2567,8 +2587,18 @@ def masked_kernel_phase(enc_s, enc_h, dev):
     print(f"  registers of the earlier window-16 kernels: {earlier}, "
           f"{'kept' if same else 'MOVED'} (recorded: "
           f"{LONG_REGS_RECORDED})", flush=True)
+    mma = {k: tuple(sorted(kept.get(k, ()))) for k in MMA_REGS_RECORDED}
+    print(f"  registers of the tensor-core bodies: {mma}, "
+          f"{'kept' if mma == MMA_REGS_RECORDED else 'MOVED'} (recorded: "
+          f"{MMA_REGS_RECORDED})", flush=True)
+    spilled = {k: r for form in MMA_REGS_RECORDED
+               for k, r in _form_regs(regs, form).items() if r[1] or r[2]}
+    if spilled or not all(mma.values()):
+        raise AssertionError(f"tensor-core bodies missing or spilling: "
+                             f"{mma}, {spilled}")
     results["registers"] = {k: sorted(v) for k, v in kept.items()}
     results["earlier_registers_kept"] = same
+    results["mma_registers_kept"] = mma == MMA_REGS_RECORDED
     return results
 
 
@@ -2875,20 +2905,20 @@ FOURD_REG_KEYS = {
     "W4": [("window_attn_fwd_4d_kernelIf", ""),
            ("window_attn_fwd_4d_long_kernelIf", "")],
     "W4-bf16": [("window_attn_fwd_4d_kernelI13", ""),
-                ("window_attn_fwd_4d_long_kernelI13", "")],
+                ("window_attn_fwd_long_mma_kernel", "ILb0ELb1E")],
     "WB4": [("window_attn_bwd_4d_kernelIf", ""),
             ("window_attn_bwd_long_", "IfLb0ELb0ELb0ELb1EE"),
             ("window_attn_bwd_long_", "IfLb0ELb0ELb1EE")],
     "WB4-bf16": [("window_attn_bwd_4d_kernelI13", ""),
-                 ("window_attn_bwd_long_", "bfloat16Lb0ELb0ELb0ELb1EE"),
-                 ("window_attn_bwd_long_", "bfloat16Lb0ELb0ELb1EE")],
+                 ("window_attn_bwd_long_mma_", "ILb0ELb1E")],
 }
 
 
 @torch.no_grad()
 def attention_4d_phase(dev, kernels):
     """Phase 38: W4 and WB4 (K14, K14b; their bf16 forms, and beyond 160
-    tokens W-long's and WB-long's bodies on the head-major layout) against
+    tokens W-long's and WB-long's bodies on the head-major layout: the FMA
+    bodies in fp32, the tensor-core ones in bf16) against
     their plain versions at ATTN4_SHAPES, twice each for bits, with their
     ms, the plain versions', the packed W / WB (or their window-16 and bf16
     forms) on packed copies of the same operands, SDPA forward and backward
@@ -3503,7 +3533,7 @@ def main() -> int:
                    "sr_forward (HAT-L Ultra)", ures["W-long"],
                    ures["W-long"]),
         "W-long-bf16": ("window_attn_fwd_long_bf16",
-                        "gsasr_torch/ops/csrc/window_attn_fwd.cu",
+                        "gsasr_torch/ops/csrc/window_attn_long_mma.cuh",
                         "gsasr_tpu/ops/attention.py:338", [], ustep,
                         "Trainer.step (HAT-L Ultra, bf16 recipe)",
                         _on_path(utres["W-long-bf16"], "per_step"),
@@ -3515,7 +3545,7 @@ def main() -> int:
                     _on_path(utres["WB-long"], "per_step"),
                     utres["WB-long"]),
         "WB-long-bf16": ("window_attn_bwd_long_bf16",
-                         "gsasr_torch/ops/csrc/window_attn_bwd.cu",
+                         "gsasr_torch/ops/csrc/window_attn_long_mma_bwd.cuh",
                          "gsasr_tpu/ops/attention.py:397", [], ustep,
                          "Trainer.step (HAT-L Ultra, bf16 recipe)",
                          _on_path(utres["WB-long-bf16"], "per_step"),
@@ -3547,14 +3577,15 @@ def main() -> int:
                      _on_path(mres["WMB-long"], "per_step"),
                      mres["WMB-long"]),
         "WM-long-bf16": ("window_attn_fwd_long_masked_bf16",
-                         "gsasr_torch/ops/csrc/window_attn_fwd.cu",
+                         "gsasr_torch/ops/csrc/window_attn_long_mma.cuh",
                          "gsasr_tpu/ops/attention.py:553", [], hbstep,
                          "Trainer.step (paper HAT in bf16, Enhanced "
                          "decoder)",
                          _on_path(mres["WM-long-bf16"], "per_step"),
                          mres["WM-long-bf16"]),
         "WMB-long-bf16": ("window_attn_bwd_long_masked_bf16",
-                          "gsasr_torch/ops/csrc/window_attn_bwd.cu",
+                          "gsasr_torch/ops/csrc/"
+                          "window_attn_long_mma_bwd.cuh",
                           "gsasr_tpu/ops/attention.py:661", [], hbstep,
                           "Trainer.step (paper HAT in bf16, Enhanced "
                           "decoder)",

@@ -44,7 +44,8 @@
 // all heads at once with the tile product, adds the bias, rotates q and k
 // (RoPE, the pair partner from the neighbouring lane) and rounds q, k, v to
 // the activation type into scratch. (1b) The attention of each (window,
-// head) is the window-16 body of W (window_attn_long.cuh) on that scratch:
+// head) is the window-16 body of W on that scratch (window_attn_long.cuh in
+// fp32; in bf16 W-long-bf16's tensor-core body, window_attn_long_mma.cuh):
 // p is rounded before the PV product and att as it is stored. Phase 2 is
 // the out-projection above, reading att in the activation type. The
 // rounding points are those of _k_ln_attn. Bound at 144 windows, T = 256,
@@ -57,9 +58,11 @@
 
 #include <algorithm>
 #include <cmath>
+#include <type_traits>
 
 #include "tile_gemm.cuh"
 #include "window_attn_long.cuh"
+#include "window_attn_long_mma.cuh"
 
 namespace {
 
@@ -470,14 +473,20 @@ int launch_long(const Act* x, const Act* pos, const Act* kv,
       sin_k, qs, ks, vs, B, Tq, Tk, C);
   err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
-  const size_t smem2 = long_smem_bytes(C / nh);
-  err = cudaFuncSetAttribute(attn_long_kernel<Act>,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             static_cast<int>(smem2));
-  if (err != cudaSuccess) return static_cast<int>(err);
-  attn_long_kernel<Act><<<long_grid(nh, B, Tq), kThreads, smem2, st>>>(
-      qs, ks, vs, bias, att, Tq, Tk, C, nh, scale);
-  err = cudaGetLastError();
+  if constexpr (std::is_same_v<Act, __nv_bfloat16>) {
+    // the bf16 form: W-long-bf16's tensor-core body
+    err = launch_fwd_long_mma<false, false>(qs, ks, vs, bias, nullptr, att,
+                                            B, Tq, Tk, C, nh, 1, scale, st);
+  } else {
+    const size_t smem2 = long_smem_bytes(C / nh);
+    err = cudaFuncSetAttribute(attn_long_kernel<Act>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               static_cast<int>(smem2));
+    if (err != cudaSuccess) return static_cast<int>(err);
+    attn_long_kernel<Act><<<long_grid(nh, B, Tq), kThreads, smem2, st>>>(
+        qs, ks, vs, bias, att, Tq, Tk, C, nh, scale);
+    err = cudaGetLastError();
+  }
   if (err != cudaSuccess) return static_cast<int>(err);
   const size_t smem3 = sizeof(float) * (kBM * C + kWsFloats);
   err = cudaFuncSetAttribute(out_proj_kernel<Act, Act>,

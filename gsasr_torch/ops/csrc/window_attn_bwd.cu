@@ -48,9 +48,13 @@
 // 256 x 32): the five products of the function are 16.1 GFLOP, 0.016 ms at
 // the bf16 tensor-core peak, against 88 MB of bf16 q, k, v, g, dq, dk, dv
 // (0.026 ms at 3.35 TB/s): bound by bytes in bf16; in fp32 by the
-// operations (0.24 ms at 67 TFLOP/s). Its design (window_attn_long_bwd.cuh)
-// forms ten such products on the CUDA cores in f32, twice the function's,
-// to keep every output owned by one block and every sum in one order.
+// operations (0.24 ms at 67 TFLOP/s). WB-long's design
+// (window_attn_long_bwd.cuh) forms ten such products on the CUDA cores in
+// f32, twice the function's, to keep every output owned by one block and
+// every sum in one order. WB-long-bf16 (and WMB-long-bf16, WB4-long-bf16
+// by its flags) keeps that ownership and order on the tensor cores, bf16
+// operands staged in bf16 and p and ds fed as hi/lo bf16 pairs
+// (window_attn_long_mma_bwd.cuh).
 //
 // WMB-bf16 at SwinIR's training shape (576 windows x 6 heads x 64 x 64 x
 // 30) does 4.2 GFLOP, 0.004 ms at the bf16 tensor-core peak, against 58 MB
@@ -74,6 +78,7 @@
 
 #include "window_attn_bwd.cuh"
 #include "window_attn_long_bwd.cuh"
+#include "window_attn_long_mma_bwd.cuh"
 
 // q, g, dq (B, Tq, C); k, v, dk, dv (B, Tk, C); bias (nh, Tq, Tk) or null;
 // ds_w (B, nh, Tq, Tk) scratch the caller allocates; dbias (nh, Tq, Tk), or
@@ -146,14 +151,14 @@ extern "C" int window_attn_bwd_long(const float* q, const float* k,
 }
 
 // Kernel WB-long-bf16: as window_attn_bwd_long with q, k, v, g, dq, dk and
-// dv bfloat16; bias, stats, ds_w and dbias float32.
+// dv bfloat16; bias, stats, ds_w and dbias float32 (the tensor-core body).
 extern "C" int window_attn_bwd_long_bf16(
     const __nv_bfloat16* q, const __nv_bfloat16* k, const __nv_bfloat16* v,
     const float* bias, const __nv_bfloat16* g, __nv_bfloat16* dq,
     __nv_bfloat16* dk, __nv_bfloat16* dv, float* stats, float* ds_w,
     float* dbias, int B, int Tq, int Tk, int C, int nh, float scale,
     void* stream) {
-  return static_cast<int>(launch_window_attn_bwd_long<__nv_bfloat16>(
+  return static_cast<int>(launch_window_attn_bwd_long_mma<false, false>(
       q, k, v, bias, g, dq, dk, dv, stats, ds_w, dbias, B, Tq, Tk, C, nh,
       scale, static_cast<cudaStream_t>(stream)));
 }
@@ -178,7 +183,7 @@ extern "C" int window_attn_bwd_long_masked_bf16(
     __nv_bfloat16* dq, __nv_bfloat16* dk, __nv_bfloat16* dv, float* stats,
     float* ds_w, float* dbias, int B, int Tq, int Tk, int C, int nh, int nW,
     float scale, void* stream) {
-  return static_cast<int>(launch_window_attn_bwd_long<__nv_bfloat16, true>(
+  return static_cast<int>(launch_window_attn_bwd_long_mma<true, false>(
       q, k, v, bias, g, dq, dk, dv, stats, ds_w, dbias, B, Tq, Tk, C, nh,
       scale, static_cast<cudaStream_t>(stream), mask, nW));
 }
@@ -223,11 +228,9 @@ extern "C" int window_attn_bwd_4d_bf16(
   if (long_form ? !stats : !ds_w)
     return static_cast<int>(cudaErrorInvalidValue);
   if (long_form)
-    return static_cast<int>(
-        launch_window_attn_bwd_long<__nv_bfloat16, false, false, false,
-                                    true>(
-            q, k, v, bias, g, dq, dk, dv, stats, ds_w, dbias, B, Tq, Tk, C,
-            nh, scale, st));
+    return static_cast<int>(launch_window_attn_bwd_long_mma<false, true>(
+        q, k, v, bias, g, dq, dk, dv, stats, ds_w, dbias, B, Tq, Tk, C, nh,
+        scale, st));
   return static_cast<int>(launch_window_attn_bwd<false, false, __nv_bfloat16,
                                                  false, true>(
       q, k, v, bias, g, dq, dk, dv, ds_w, dbias, nullptr, B, Tq, Tk, C, nh,

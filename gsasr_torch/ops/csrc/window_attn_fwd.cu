@@ -56,12 +56,15 @@
 //
 // W-long and W-long-bf16 are the window-16 form (HAT's 144 windows x 6
 // heads x 256 x 256, and OCAB's 256 queries x 576 keys, head width 32,
-// no bias), for any Tq and Tk: the body of window_attn_long.cuh, which
-// walks the keys in tiles in two passes and recomputes the scores in the
-// second, three products of 2 * B * nh * Tq * Tk * hd operations each
-// where the bound counts two: 7.2 GFLOP (HAB) and 16.3 GFLOP (OCAB)
-// against 67 TFLOP/s, 0.108 and 0.243 ms, over 113 and 193 MB of q, k, v
-// and out at 3.35 TB/s, 0.034 and 0.058 ms. Bound by operations.
+// no bias), for any Tq and Tk. W-long runs the body of
+// window_attn_long.cuh, which walks the keys in tiles in two passes and
+// recomputes the scores in the second, three products of 2 * B * nh * Tq *
+// Tk * hd operations each where the bound counts two: 7.2 GFLOP (HAB) and
+// 16.3 GFLOP (OCAB) against 67 TFLOP/s, 0.108 and 0.243 ms, over 113 and
+// 193 MB of q, k, v and out at 3.35 TB/s, 0.034 and 0.058 ms. Bound by
+// operations. W-long-bf16 (and WM-long-bf16, W4-long-bf16 by its flags)
+// runs the same two passes on the tensor cores, bf16 operands staged in
+// bf16 (window_attn_long_mma.cuh): bound by bytes.
 //
 // WM-long and WM-long-bf16 replace _attn_kernel_packed_masked beyond 160
 // tokens: the paper HAT's shifted windows of 16 (144 windows x 6 heads x
@@ -94,6 +97,7 @@
 
 #include "window_attn.cuh"
 #include "window_attn_long.cuh"
+#include "window_attn_long_mma.cuh"
 
 namespace {
 
@@ -292,7 +296,7 @@ cudaError_t launch_fwd(const T* q, const T* k, const T* v, const float* bias,
   return cudaGetLastError();
 }
 
-// W-long (T float) and W-long-bf16 (T __nv_bfloat16).
+// W-long (fp32; W-long-bf16 is window_attn_long_mma.cuh's kernel).
 template <typename T>
 __global__ void __launch_bounds__(kThreads)
 window_attn_fwd_long_kernel(const T* __restrict__ q, const T* __restrict__ k,
@@ -304,8 +308,8 @@ window_attn_fwd_long_kernel(const T* __restrict__ q, const T* __restrict__ k,
                                       scale);
 }
 
-// WM-long (T float) and WM-long-bf16 (T __nv_bfloat16): W-long's body with
-// the mask; a kernel of its own, so W-long's does not move.
+// WM-long (fp32): W-long's body with the mask; a kernel of its own, so
+// W-long's does not move.
 template <typename T>
 __global__ void __launch_bounds__(kThreads)
 window_attn_fwd_long_masked_kernel(const T* __restrict__ q,
@@ -319,8 +323,8 @@ window_attn_fwd_long_masked_kernel(const T* __restrict__ q,
                                             nh, scale, mask, nW);
 }
 
-// W4-long (T float) and W4-long-bf16 (T __nv_bfloat16): W-long's body on
-// the head-major (B, nh, T, hd) layout, a kernel of its own.
+// W4-long (fp32): W-long's body on the head-major (B, nh, T, hd) layout, a
+// kernel of its own.
 template <typename T>
 __global__ void __launch_bounds__(kThreads)
 window_attn_fwd_4d_long_kernel(const T* __restrict__ q,
@@ -431,7 +435,8 @@ extern "C" int window_attn_fwd_long(const float* q, const float* k,
       static_cast<cudaStream_t>(stream)));
 }
 
-// Kernel W-long-bf16: as window_attn_fwd_bf16 for any Tq and Tk.
+// Kernel W-long-bf16: as window_attn_fwd_bf16 for any Tq and Tk (the
+// tensor-core body).
 extern "C" int window_attn_fwd_long_bf16(const __nv_bfloat16* q,
                                          const __nv_bfloat16* k,
                                          const __nv_bfloat16* v,
@@ -439,8 +444,8 @@ extern "C" int window_attn_fwd_long_bf16(const __nv_bfloat16* q,
                                          __nv_bfloat16* out, int B, int Tq,
                                          int Tk, int C, int nh, float scale,
                                          void* stream) {
-  return static_cast<int>(launch_fwd_long<__nv_bfloat16>(
-      q, k, v, bias, out, B, Tq, Tk, C, nh, scale,
+  return static_cast<int>(launch_fwd_long_mma<false, false>(
+      q, k, v, bias, nullptr, out, B, Tq, Tk, C, nh, 1, scale,
       static_cast<cudaStream_t>(stream)));
 }
 
@@ -457,15 +462,16 @@ extern "C" int window_attn_fwd_long_masked(const float* q, const float* k,
       static_cast<cudaStream_t>(stream), mask, nW));
 }
 
-// Kernel WM-long-bf16: as window_attn_fwd_masked_bf16 for any Tq and Tk.
+// Kernel WM-long-bf16: as window_attn_fwd_masked_bf16 for any Tq and Tk
+// (the tensor-core body with its mask flag).
 extern "C" int window_attn_fwd_long_masked_bf16(
     const __nv_bfloat16* q, const __nv_bfloat16* k, const __nv_bfloat16* v,
     const float* bias, const float* mask, __nv_bfloat16* out, int B, int Tq,
     int Tk, int C, int nh, int nW, float scale, void* stream) {
   if (!mask) return static_cast<int>(cudaErrorInvalidValue);
-  return static_cast<int>(launch_fwd_long<__nv_bfloat16>(
-      q, k, v, bias, out, B, Tq, Tk, C, nh, scale,
-      static_cast<cudaStream_t>(stream), mask, nW));
+  return static_cast<int>(launch_fwd_long_mma<true, false>(
+      q, k, v, bias, mask, out, B, Tq, Tk, C, nh, nW, scale,
+      static_cast<cudaStream_t>(stream)));
 }
 
 // Kernel W4 (K14): window attention on the head-major layout, q, out (B, nh,
@@ -494,8 +500,8 @@ extern "C" int window_attn_fwd_4d_bf16(const __nv_bfloat16* q,
                                        float scale, void* stream) {
   const auto st = static_cast<cudaStream_t>(stream);
   if (Tq > kMaxT || Tk > kMaxT)
-    return static_cast<int>(launch_fwd_long<__nv_bfloat16, true>(
-        q, k, v, bias, out, B, Tq, Tk, C, nh, scale, st));
+    return static_cast<int>(launch_fwd_long_mma<false, true>(
+        q, k, v, bias, nullptr, out, B, Tq, Tk, C, nh, 1, scale, st));
   return static_cast<int>(launch_fwd<false, __nv_bfloat16, true>(
       q, k, v, bias, nullptr, out, B, Tq, Tk, C, nh, 1, scale, st));
 }

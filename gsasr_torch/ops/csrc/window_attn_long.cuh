@@ -1,15 +1,17 @@
 // The window-16 form of kernel W's body: packed multi-head window attention
 // for any Tq and Tk (HAT's 256-token windows and OCAB's 256 x 576
-// rectangles), shared by window_attn_fwd.cu (W-long, W-long-bf16) and
-// ln_attn.cu (the attention of A-long). Per window w and head h, on the
-// packed (B, T, C) layout where head h is columns [h*hd, (h+1)*hd):
+// rectangles), shared by window_attn_fwd.cu (W-long, WM-long, W4-long) and
+// ln_attn.cu (the attention of A-long), all in fp32: their bf16 forms run
+// the tensor-core body of window_attn_long_mma.cuh. Per window w and head
+// h, on the packed (B, T, C) layout where head h is columns [h*hd,
+// (h+1)*hd):
 //
 //   s = q_h k_h^T * scale (+ bias[h]) (+ mask[w % nW])   (Tq x Tk, f32)
 //   p = softmax(s) with the row max subtracted, rounded to T
 //   out[w, :, h*hd:(h+1)*hd] = p v_h      (f32 sums, stored as T)
 //
-// The mask (kMask, the masked forms WM-long and WM-long-bf16 of
-// window_attn_fwd.cu and the backward's WMB-long) is the per-window-class
+// The mask (kMask, the masked form WM-long of window_attn_fwd.cu and the
+// backward's WMB-long) is the per-window-class
 // additive mask of Swin's shifted windows at window 16 (the paper HAT's
 // 256-token windows), added after the bias. It is a template flag, so the
 // unmasked forms (W-long, A-long) compile as without it. So is kHM, the

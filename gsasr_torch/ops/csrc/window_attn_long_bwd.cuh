@@ -1,9 +1,10 @@
 // The window-16 form of kernel WB: the backward of packed multi-head window
 // attention for any Tq and Tk (HAT's 256-token windows, OCAB's 256 x 576
-// rectangles and the Ultra decoder's windows of 256 seeds), WB-long and
-// WB-long-bf16 (entry points of window_attn_bwd.cu). Per window w and head
-// h, on the packed (B, T, C) layout, with the softmax recomputed from q, k
-// and bias as W-long computes it:
+// rectangles and the Ultra decoder's windows of 256 seeds), WB-long
+// (window_attn_bwd.cu's fp32 entry point; WB-long-bf16 runs the tensor-core
+// body of window_attn_long_mma_bwd.cuh). Per window w and head h, on the
+// packed (B, T, C) layout, with the softmax recomputed from q, k and bias
+// as W-long computes it:
 //
 //   p = softmax(q_h k_h^T * scale (+ bias[h]) (+ mask[w % nW]))
 //                                                (f32, not rounded)
@@ -32,10 +33,9 @@
 // five: the scores four times, dp three times, dq, dk and dv once. D comes
 // from p and dp, as in the Pallas body, not from g . out (out is rounded in
 // the bf16 form). Every sum runs in a fixed order and no float atomics are
-// used: two launches give the same bits. bf16 operands widen to f32 as
-// they are staged; dq, dk and dv round once as they are stored; stats,
-// ds_w and dbias are f32. With kMask (WMB-long, WMB-long-bf16: the paper
-// HAT's shifted windows) every recomputed score takes the window class's
+// used: two launches give the same bits. stats, ds_w and dbias are f32.
+// With kMask (WMB-long: the paper HAT's shifted windows; WMB-long-bf16 is
+// the tensor-core body's) every recomputed score takes the window class's
 // mask row after the bias, as W-long's masked form does; the mask is a
 // constant and gets no gradient, and dbias stays the ordered sum over
 // windows. The flag is a template parameter of both launches, so WB-long
@@ -479,12 +479,11 @@ window_attn_bwd_long_kv_kernel(const T* __restrict__ q,
 
 namespace {
 
-// The launches of WB-long (T float) and WB-long-bf16 (T __nv_bfloat16), or
-// with kMask WMB-long and WMB-long-bf16 (mask (nW, Tq, Tk), B a multiple of
-// nW), or with kAtt (att (B, Tq, C) f32) and kRnd AB-long's attention
-// backward, or with kHM WB4-long on the head-major layout: dq and the rows'
-// statistics per query tile, then dk and dv per key tile, then (dbias
-// given) the ordered sum of ds_w over the windows.
+// The launches of WB-long (T float), or with kMask WMB-long (mask (nW, Tq,
+// Tk), B a multiple of nW), or with kAtt (att (B, Tq, C) f32) and kRnd
+// AB-long's attention backward, or with kHM WB4-long on the head-major
+// layout: dq and the rows' statistics per query tile, then dk and dv per
+// key tile, then (dbias given) the ordered sum of ds_w over the windows.
 template <typename T, bool kMask = false, bool kAtt = false,
           bool kRnd = false, bool kHM = false>
 cudaError_t launch_window_attn_bwd_long(const T* q, const T* k, const T* v,

@@ -54,16 +54,23 @@ sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
 
 FAMILIES = (
     ("R raster_fwd", ("raster_fwd_kernel",)),
-    # the masked forms of the window-16 kernels (the paper HAT's shifted
-    # windows), kernels and instantiations of their own, before the
+    # the bf16 window-16 forms on the tensor cores: W-long-bf16 (with its
+    # flags WM-long-bf16, W4-long-bf16, and A-long-bf16's attention) and
+    # WB-long-bf16's two launches (WMB-long-bf16, WB4-long-bf16)
+    ("W-long-bf16 window_attn_fwd long mma",
+     ("window_attn_fwd_long_mma_kernel",)),
+    ("WB-long-bf16 window_attn_bwd long mma dq",
+     ("window_attn_bwd_long_mma_q_kernel",)),
+    ("WB-long-bf16 window_attn_bwd long mma dk/dv",
+     ("window_attn_bwd_long_mma_kv_kernel",)),
+    # the masked forms of the fp32 window-16 kernels (the paper HAT's
+    # shifted windows), kernels and instantiations of their own, before the
     # unmasked forms' names match them
     ("WM-long window_attn_fwd long masked",
      ("window_attn_fwd_long_masked_kernel",)),
     ("WMB-long window_attn_bwd long masked",
      ("window_attn_bwd_long_q_kernel<float, true",
-      "window_attn_bwd_long_kv_kernel<float, true",
-      "window_attn_bwd_long_q_kernel<__nv_bfloat16, true",
-      "window_attn_bwd_long_kv_kernel<__nv_bfloat16, true")),
+      "window_attn_bwd_long_kv_kernel<float, true")),
     # the window-16 forms: W-long, and A-long's projections, attention and
     # (bf16) out-projection
     ("W-long window_attn_fwd long", ("window_attn_fwd_long_kernel",)),

@@ -470,3 +470,55 @@ def test_window16_mask_raises():
         ta.window_attention_packed_long_masked_fwd(
             meta, meta, meta, None, torch.empty(2, 256, 256, device="meta"),
             0.5, 2)
+
+
+# (windows, Tq, Tk, C, heads) for the operand treatment of the bf16
+# window-16 backward on the tensor cores: the Ultra step's OCAB 256 x 576 at
+# a head width of 32, and the paper HAT's 256 x 256 at 30
+HILO_CASES = [(4, 256, 576, 192, 6), (4, 256, 256, 180, 6)]
+
+
+def _hilo(x):
+    """An f32 operand as WB-long-bf16's body feeds it to bf16 products:
+    hi = bf16(x), lo = bf16(x - hi), both products summed in f32."""
+    hi = x.to(torch.bfloat16).float()
+    return hi, (x - hi).to(torch.bfloat16).float()
+
+
+@pytest.mark.parametrize("b,tq,tk,c,nh", HILO_CASES)
+def test_bf16_window16_backward_operand_pairs(b, tq, tk, c, nh):
+    """WB-long-bf16's precision design emulated in torch: bf16 q, k, v and g
+    (exact in f32), p and ds f32, each fed to the products dv = p^T g, dq =
+    ds k, dk = ds^T q as a hi + lo pair of bf16, f32 sums. Before the final
+    rounding it stays within 1e-4 of max|ref| of the plain backward in f32
+    (one bf16 rounding of p and ds instead does not); rounded to bf16 it is
+    within the kernels' bf16 tolerance of the plain bf16 backward."""
+    rng = np.random.default_rng(13)
+    q, g, k, v = (torch.from_numpy(rng.standard_normal((b, t, c)).astype(
+        np.float32)).to(torch.bfloat16) for t in (tq, tq, tk, tk))
+    scale = (c // nh) ** -0.5
+    qh, kh, vh, gh = (ta._heads(x.float(), nh) for x in (q, k, v, g))
+    p = ta._probs4(qh, kh, None, scale)
+    dp = gh @ vh.transpose(-1, -2)
+    ds = p * (dp - (p * dp).sum(dim=-1, keepdim=True))
+
+    def grads(split):
+        (ph, pl), (dh, dl) = split(p), split(ds)
+        dv = ph.transpose(-1, -2) @ gh + pl.transpose(-1, -2) @ gh
+        dq = (dh @ kh + dl @ kh) * scale
+        dk = (dh.transpose(-1, -2) @ qh + dl.transpose(-1, -2) @ qh) * scale
+        return [ta._merge(x) for x in (dq, dk, dv)]
+
+    wide = ta.window_attention_packed_bwd_plain(
+        q.float(), k.float(), v.float(), None, g.float(), scale, nh)
+    once = grads(lambda x: (x.to(torch.bfloat16).float(), torch.zeros_like(x)))
+    rounded = ta.window_attention_packed_bwd_plain(q, k, v, None, g, scale,
+                                                   nh)
+    for name, pair, one, w, r in zip(("dq", "dk", "dv"), grads(_hilo), once,
+                                     wide, rounded):
+        top = float(w.abs().max())
+        assert float((pair - w).abs().max()) <= 1e-4 * top, name
+        assert float((one - w).abs().max()) > 1e-4 * top, name
+        o, r = pair.to(torch.bfloat16).float(), r.float()
+        tol = 2 ** -7 * r.abs() + 2 ** -8 * float(r.abs().max())
+        assert bool(((o - r).abs() <= tol).all()), name

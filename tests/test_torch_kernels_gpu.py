@@ -591,12 +591,18 @@ def test_enhanced_bf16_module_step_through_autograd(cuda):
 # (windows, Tq, Tk, C, heads, bias, dtype) for W-long and W-long-bf16, the
 # window-16 forms: HAT's 256-token windows and OCAB's 256 x 576 (cut to 7
 # windows), a ragged query tile and key tile with a bias, a head width
-# below 32, and bf16 at 256 x 256
+# below 32, and bf16 at 256 x 256; and the edges of W-long-bf16's
+# tensor-core tiling: a head width of 30 on packed rows that are not 16-byte
+# aligned (C = 180) with a bias, a head width of 24 with Tk not a multiple
+# of 16, and three keys
 LONG_ATTN_CASES = [(7, 256, 256, 192, 6, False, torch.float32),
                    (5, 256, 576, 192, 6, False, torch.float32),
                    (3, 130, 300, 180, 6, True, torch.float32),
                    (4, 200, 161, 96, 4, False, torch.float32),
-                   (7, 256, 256, 192, 6, False, torch.bfloat16)]
+                   (7, 256, 256, 192, 6, False, torch.bfloat16),
+                   (3, 130, 300, 180, 6, True, torch.bfloat16),
+                   (4, 200, 161, 96, 4, False, torch.bfloat16),
+                   (2, 161, 3, 64, 2, False, torch.bfloat16)]
 
 
 @pytest.mark.parametrize("b,tq,tk,c,nh,bias,dt", LONG_ATTN_CASES)
@@ -650,14 +656,17 @@ def test_window_attn_long_matches_plain_and_repeats(cuda, b, tq, tk, c, nh,
 # window-16 forms of WB: a HAB's and the Ultra decoder's 256 x 256 and an
 # OCAB's 256 x 576 (6 heads of 32, cut to 9 and 5 windows) in both types,
 # a ragged query and key tile with a bias in both types, and a head width
-# below 32
+# below 32; and the edges of WB-long-bf16's tensor-core tiling: a head
+# width of 24 with Tk not a multiple of 16, and three keys
 LONG_BWD_CASES = [(9, 256, 256, 192, 6, False, torch.bfloat16),
                   (5, 256, 576, 192, 6, False, torch.bfloat16),
                   (9, 256, 256, 192, 6, False, torch.float32),
                   (5, 256, 576, 192, 6, False, torch.float32),
                   (3, 130, 300, 180, 6, True, torch.float32),
                   (3, 130, 300, 180, 6, True, torch.bfloat16),
-                  (4, 200, 161, 96, 4, False, torch.float32)]
+                  (4, 200, 161, 96, 4, False, torch.float32),
+                  (4, 200, 161, 96, 4, False, torch.bfloat16),
+                  (2, 161, 3, 64, 2, False, torch.bfloat16)]
 
 
 @pytest.mark.parametrize("b,tq,tk,c,nh,bias,dt", LONG_BWD_CASES)
@@ -1026,3 +1035,38 @@ def test_exact_and_4d_kernels_do_not_spill(cuda):
                 spills[name] = sp.groups()
         assert spills and all(v == ("0", "0") for v in spills.values()), \
             spills
+
+
+def test_window16_bf16_mma_kernels_fit(cuda):
+    """ptxas's report: the tensor-core bodies of the bf16 window-16 forms
+    (W-long-bf16, WM-long-bf16, W4-long-bf16 and A-long-bf16's attention;
+    WB-long-bf16's two launches and their masked and head-major forms) use
+    at most 128 registers, so four 128-thread blocks fit an SM, and spill
+    none."""
+    import re
+
+    from gsasr_torch.ops import _build
+
+    _build.build(["window_attn_fwd_long_bf16", "window_attn_bwd_long_bf16",
+                  "ln_attn_long"])
+    found = {}
+    for src in ("window_attn_fwd", "window_attn_bwd", "ln_attn"):
+        name = None
+        for line in _build.ptxas_report(src).splitlines():
+            m = re.search(r"Compiling entry function '(\w+)'", line)
+            if m:
+                name = m.group(1)
+            if not name or "_long_mma_" not in name:
+                continue
+            sp = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill "
+                           r"loads", line)
+            if sp:
+                found[src, name] = [sp.groups()]
+            reg = re.search(r"Used (\d+) registers", line)
+            if reg and (src, name) in found:
+                found[src, name].append(int(reg.group(1)))
+    # forward: three flag pairs and A-long's; backward: two launches each
+    # of three flag pairs
+    assert len(found) == 10, sorted(found)
+    assert all(sp == ("0", "0") and r <= 128 for sp, r in found.values()), \
+        found
