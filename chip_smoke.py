@@ -60,11 +60,15 @@
    (drop_path_rate 0) on the card against the CPU.
 17. RDN: path phase and end-to-end timing of make_models("rdn", "paper").
 18. Enhanced training kernel phase (TF32 off): W-bf16 and WB-bf16 (the
-   bfloat16 forms of W and WB) against their plain versions at the
-   Enhanced training shape (256 windows x 144 tokens x 192 channels, 6
-   heads of 32, no bias) and at an odd shape (Tq 144, Tk 100, a bias),
-   WB-bf16 twice for bitwise repeatability; times, bounds and the SDPA
-   yardstick in bf16.
+   bfloat16 forms of W and WB, on the tensor cores:
+   window_attn_short_mma.cuh, window_attn_short_mma_bwd.cuh) against their
+   plain versions at the Enhanced training shape (256 windows x 144 tokens
+   x 192 channels, 6 heads of 32, no bias), at the bf16 SwinIR step's (576
+   windows x 64 tokens x 180 channels, 6 heads of 30, a bias) and at an
+   odd shape (Tq 144, Tk 100, a bias), each twice for bitwise
+   repeatability; times, bounds, the SDPA yardstick in bf16 and the
+   window-16 routing's time (W-long-bf16's and WB-long-bf16's bodies on
+   the same operands).
 19. Enhanced training: Trainer.step of configs/train_edsr_amp.yml's recipe
    (the networks as build_networks builds them: bf16 compute on fp32
    parameters, the module decoder) at batch 16, as phase 8 (W-bf16 38,
@@ -127,8 +131,9 @@
    shifted block's table, against its plain version, twice for bitwise
    repeatability, with times, bounds, SDPA with the bias and mask as a
    float mask, and ptxas's registers: W-long's, A-long's and WB-long's
-   fp32 kernels and the tensor-core bodies' beside the recorded ones (a
-   tensor-core body that spills fails the phase).
+   fp32 kernels and the window-16 tensor-core bodies' beside the recorded
+   ones, and the tensor-core bodies up to 160 tokens (a tensor-core body
+   that is missing or spills fails the phase).
 30. SwinIR at its bf16 recipe: Trainer.step of configs/train_swinir_amp.yml
    (written out as ENHANCED_TRAIN and enhanced_networks("swinir")) at batch
    16, as phase 8 (W-bf16 18, WM-bf16 18, W-long-bf16 44, WB-bf16 18,
@@ -177,11 +182,11 @@
    same Gaussians, twice for bits, with its ms, bound, memberships and
    used chunks; one backward against binning="auto"'s gradients.
 38. 4D window attention (TF32 off): W4 and WB4 (K14, K14b; bf16 forms and
-   the window-16 bodies: in fp32 W-long's and WB-long's FMA bodies, in
-   bf16 their tensor-core bodies, all with the head-major flag) against
-   their plain versions at the decoder's window (225 and 256 windows x 6
-   heads x 144 x 30 fp32, 32 bf16) and
-   HAT's (128 x 6 x 256 x 32, fp32 and bf16, with and without a bias),
+   the window-16 bodies: in fp32 W's, WB's, W-long's and WB-long's FMA
+   bodies, in bf16 the tensor-core bodies, all with the head-major flag)
+   against their plain versions at the decoder's window (225 and 256
+   windows x 6 heads x 144 x 30 fp32, 32 bf16) and HAT's (128 x 6 x 256 x
+   32, fp32 and bf16, with and without a bias),
    twice each for bits, beside the packed W and WB on the same operands
    and SDPA; window_attention through autograd once per shape (launches
    asserted); ptxas's registers of the 4D kernels and the packed forms'
@@ -1389,13 +1394,17 @@ def swinir_kernel_phase(enc, dev):
 
 @torch.no_grad()
 def enhanced_train_kernel_phase(dec, dev):
-    """W-bf16 and WB-bf16 against their plain versions at the Enhanced
-    training step's shape (16 samples of 48x48: 256 windows of 144 tokens,
-    192 channels, 6 heads of 32, no bias: the RoPE attentions, 38 of each
-    per step) and at an odd shape (Tq 144 against Tk 100, with a bias, as
-    the paper's bf16 module path would take it), WB-bf16 twice to show the
-    bits repeat; times, bounds (bf16 bytes, bf16 tensor-core peak) and
-    SDPA in bf16 as the yardstick."""
+    """W-bf16 and WB-bf16 (the tensor-core bodies up to 160 tokens) against
+    their plain versions at the Enhanced training step's shape (16 samples
+    of 48x48: 256 windows of 144 tokens, 192 channels, 6 heads of 32, no
+    bias: the RoPE attentions, 38 of each per step), at the bf16 SwinIR
+    step's (16 samples of 48x48 in windows of 8: 576 windows of 64 tokens,
+    180 channels, 6 heads of 30, a bias: 18 of each per step) and at an odd
+    shape (Tq 144 against Tk 100, with a bias, as the paper's bf16 module
+    path would take it), WB-bf16 twice to show the bits repeat; times,
+    bounds (bf16 bytes, bf16 tensor-core peak), SDPA in bf16 as the
+    yardstick, and beside each the window-16 routing's time (the same
+    operands through W-long-bf16's and WB-long-bf16's bodies)."""
     from gsasr_torch.ops import attention as ta
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -1404,34 +1413,44 @@ def enhanced_train_kernel_phase(dec, dev):
     bf16 = torch.bfloat16
     rnd = lambda *s: torch.randn(*s, generator=gen).to(dev)  # noqa: E731
     t, c, nh = dec.num_gs_seed, dec.channel, dec.num_heads
-    hd = c // nh
-    scale = hd ** -0.5
     b = PAPER_BATCH * (PAPER_LR_SIZE // dec.window_size) ** 2
+    sw = PAPER_BATCH * (PAPER_LR_SIZE // 8) ** 2
     results = {"W-bf16": [], "WB-bf16": []}
-    for name, bw, tk, bias, per_step in (
-            ("training", b, dec.window_size ** 2, None, 38),
-            ("odd: Tk 100, bias", 64, 100, 0.5 * rnd(nh, t, 100), 0)):
-        q, g = rnd(bw, t, c).to(bf16), rnd(bw, t, c).to(bf16)
-        k, v = rnd(bw, tk, c).to(bf16), rnd(bw, tk, c).to(bf16)
-        nbias = 0 if bias is None else 4 * nh * t * tk
-        fargs = (q, k, v, bias, scale, nh)
+    # (case, windows, Tq, Tk, C, heads, bias, per Enhanced step, per bf16
+    # SwinIR step)
+    for name, bw, tq, tk, cc, nhh, has_bias, per_step, per_swinir in (
+            ("training", b, t, dec.window_size ** 2, c, nh, False, 38, 0),
+            ("SwinIR step: T 64, bias", sw, 64, 64, 180, 6, True, 0, 18),
+            ("odd: Tk 100, bias", 64, t, 100, c, nh, True, 0, 0)):
+        hd = cc // nhh
+        scale = hd ** -0.5
+        q, g = rnd(bw, tq, cc).to(bf16), rnd(bw, tq, cc).to(bf16)
+        k, v = rnd(bw, tk, cc).to(bf16), rnd(bw, tk, cc).to(bf16)
+        bias = 0.5 * rnd(nhh, tq, tk) if has_bias else None
+        nbias = 0 if bias is None else 4 * nhh * tq * tk
+        fargs = (q, k, v, bias, scale, nhh)
         err = _compare_bf16(ta.window_attention_packed_bf16_fwd(*fargs),
                             ta.window_attention_packed_plain(*fargs),
                             f"W-bf16 {name}")
+        _repeatable(lambda: (ta.window_attention_packed_bf16_fwd(*fargs),),
+                    f"W-bf16 {name}")
         ms = _time_ms(lambda: ta.window_attention_packed_bf16_fwd(*fargs), 20)
+        w16 = _time_ms(lambda: ta._fwd(q, k, v, bias, None, scale, nhh, bf16,
+                                       True), 20)
         plain = _time_ms(lambda: ta.window_attention_packed_plain(*fargs), 10)
         lib_f, lib_b, why = _sdpa_ms(
-            q, k, v, None if bias is None else bias.to(bf16)[None], g, nh,
+            q, k, v, None if bias is None else bias.to(bf16)[None], g, nhh,
             scale)
         # bytes: q, k, v, out in bf16 (and the f32 bias)
-        bound, by = _bound_ms(4.0 * bw * nh * t * tk * hd,
-                              2 * (2 * bw * t * c + 2 * bw * tk * c) + nbias,
-                              PEAK_BF16)
+        bound, by = _bound_ms(4.0 * bw * nhh * tq * tk * hd,
+                              2 * (2 * bw * tq * cc + 2 * bw * tk * cc)
+                              + nbias, PEAK_BF16)
         results["W-bf16"].append(dict(
-            case=name, dtype="bfloat16", windows=bw, per_step=per_step,
-            max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=bound,
+            case=name, dtype="bfloat16", windows=bw, tokens=tq,
+            per_step=per_step, per_swinir_step=per_swinir, max_abs_err=err,
+            ms=ms, window16_ms=w16, plain_ms=plain, bound_ms=bound,
             bound_by=by, library_ms=lib_f))
-        bargs = (q, k, v, bias, g, scale, nh)
+        bargs = (q, k, v, bias, g, scale, nhh)
         outs = ta.window_attention_packed_bf16_bwd(*bargs)
         refs = ta.window_attention_packed_bwd_plain(*bargs)
         err = max(_compare_bf16(o, r, f"WB-bf16 {name} {n}")
@@ -1442,27 +1461,32 @@ def enhanced_train_kernel_phase(dec, dev):
         _repeatable(lambda: ta.window_attention_packed_bf16_bwd(*bargs),
                     f"WB-bf16 {name}")
         ms = _time_ms(lambda: ta.window_attention_packed_bf16_bwd(*bargs), 10)
+        w16 = _time_ms(lambda: ta._bwd(q, k, v, bias, None, g, scale, nhh,
+                                       bf16, True), 10)
         plain = _time_ms(lambda: ta.window_attention_packed_bwd_plain(
             *bargs), 5)
         if why:
             print(f"  WB-bf16 {name} library: null ({why})", flush=True)
         # five products; bytes: q, g, dq, k, v, dk, dv in bf16 (and the f32
         # bias and dbias)
-        bound, by = _bound_ms(10.0 * bw * nh * t * tk * hd,
-                              2 * (3 * bw * t * c + 4 * bw * tk * c)
+        bound, by = _bound_ms(10.0 * bw * nhh * tq * tk * hd,
+                              2 * (3 * bw * tq * cc + 4 * bw * tk * cc)
                               + 2 * nbias, PEAK_BF16)
         results["WB-bf16"].append(dict(
-            case=name, dtype="bfloat16", windows=bw, per_step=per_step,
-            max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=bound,
+            case=name, dtype="bfloat16", windows=bw, tokens=tq,
+            per_step=per_step, per_swinir_step=per_swinir, max_abs_err=err,
+            ms=ms, window16_ms=w16, plain_ms=plain, bound_ms=bound,
             bound_by=by, library_ms=lib_b, library_null_reason=why))
     for k, rows in results.items():
         for r in rows:
             lib = "null" if r["library_ms"] is None else \
                 f"{r['library_ms']:.4f}"
-            print(f"  {k} {r['case']}: {r['ms']:.4f} ms (plain "
-                  f"{r['plain_ms']:.4f}, bound {r['bound_ms']:.4f} by "
-                  f"{r['bound_by']}, SDPA bf16 {lib}) x{r['per_step']} per "
-                  f"Enhanced step", flush=True)
+            print(f"  {k} {r['case']}: {r['ms']:.4f} ms (window-16 routing "
+                  f"{r['window16_ms']:.4f}, plain {r['plain_ms']:.4f}, bound "
+                  f"{r['bound_ms']:.4f} by {r['bound_by']}, SDPA bf16 {lib}) "
+                  f"x{r['per_step']} per Enhanced step, "
+                  f"x{r['per_swinir_step']} per bf16 SwinIR step",
+                  flush=True)
     return results
 
 
@@ -2399,8 +2423,10 @@ def ultra_train_card_vs_cpu(dev, fused: bool = False):
 # flags after T start true (AB-long's, with kAtt or kRnd set, compile in
 # ln_attn_bwd.cu; WB4-long's, with kHM set, beside WB-long's).
 REG_KEYS = {
-    "WM-bf16": [("window_attn_fwd_masked_bf16_kernel", "")],
-    "WMB-bf16": [("window_attn_bwd_kernel", "Lb1E13__nv_bfloat16")],
+    # the tensor-core bodies up to 160 tokens, by their flags (kMask, kHM)
+    # and in their three register-array sizes
+    "WM-bf16": [("window_attn_fwd_short_mma_kernel", "ILb1ELb0E")],
+    "WMB-bf16": [("window_attn_bwd_short_mma_kernel", "ILb1ELb0E")],
     "WM-long": [("window_attn_fwd_long_masked_kernel", "IfE")],
     "WMB-long": [("window_attn_bwd_long_", "IfLb1E")],
     "W-long": [("window_attn_fwd_long_kernel", "")],
@@ -2415,21 +2441,31 @@ REG_KEYS = {
     "WMB-long-bf16": [("window_attn_bwd_long_mma_", "ILb1ELb0E")],
     "WB4-long-bf16": [("window_attn_bwd_long_mma_", "ILb0ELb1E")],
 }
-# The T <= 160 forms of W and WB (whose bodies W4 and WB4 share) with their
-# registers as recorded before the 4D forms joined their sources, printed
-# by the 4D attention phase beside the 4D kernels'.
+# The fp32 T <= 160 forms of W and WB (whose bodies W4 and WB4 share) with
+# their registers as recorded before the 4D forms joined their sources,
+# printed by the 4D attention phase beside the 4D kernels'. (Their bf16
+# forms, once W-bf16 64 and WB-bf16 99 registers on the FMA body, run the
+# tensor-core bodies of SHORT_REG_KEYS.)
 PACKED_REG_KEYS = {
     "W": [("window_attn_fwd_kernel", "")],
-    "W-bf16": [("window_attn_fwd_bf16_kernel", "")],
     "WM": [("window_attn_fwd_masked_kernel", "")],
-    "WM-bf16": [("window_attn_fwd_masked_bf16_kernel", "")],
     "WB": [("window_attn_bwd_kernel", "ILb0ELb0EfLb0E")],
-    "WB-bf16": [("window_attn_bwd_kernel", "ILb0ELb0E13__nv_bfloat16Lb0E")],
     "WMB": [("window_attn_bwd_kernel", "ILb0ELb1EfLb0E")],
 }
-PACKED_REGS_RECORDED = {"W": (64,), "W-bf16": (64,), "WM": (64,),
-                        "WM-bf16": (64,), "WB": (99,), "WB-bf16": (99,),
-                        "WMB": (80,)}
+PACKED_REGS_RECORDED = {"W": (64,), "WM": (64,), "WB": (99,), "WMB": (80,)}
+# The bf16 forms up to 160 tokens on the tensor cores
+# (window_attn_short_mma.cuh, window_attn_short_mma_bwd.cuh): each flag
+# pair (kMask, kHM) in its three register-array sizes (4, 9 and 10 chunks
+# of 16 keys); printed by the masked kernel phase, which fails if one is
+# missing or spills.
+SHORT_REG_KEYS = {
+    "W-bf16": [("window_attn_fwd_short_mma_kernel", "ILb0ELb0E")],
+    "WM-bf16": [("window_attn_fwd_short_mma_kernel", "ILb1ELb0E")],
+    "W4-bf16": [("window_attn_fwd_short_mma_kernel", "ILb0ELb1E")],
+    "WB-bf16": [("window_attn_bwd_short_mma_kernel", "ILb0ELb0E")],
+    "WMB-bf16": [("window_attn_bwd_short_mma_kernel", "ILb1ELb0E")],
+    "WB4-bf16": [("window_attn_bwd_short_mma_kernel", "ILb0ELb1E")],
+}
 
 
 # AB's attention (WB's body with att: fp32, and AB-bf16's rounding) and
@@ -2591,12 +2627,29 @@ def masked_kernel_phase(enc_s, enc_h, dev):
     print(f"  registers of the tensor-core bodies: {mma}, "
           f"{'kept' if mma == MMA_REGS_RECORDED else 'MOVED'} (recorded: "
           f"{MMA_REGS_RECORDED})", flush=True)
+    short = {}
+    for form in SHORT_REG_KEYS:
+        for name, (r_, st, ld) in _form_regs(regs, form,
+                                             SHORT_REG_KEYS).items():
+            print(f"  ptxas {form} {name}: {r_} registers, {st}/{ld} bytes "
+                  "spilled", flush=True)
+            short.setdefault(form, []).append(r_)
+    print(f"  registers of the tensor-core bodies up to 160 tokens: "
+          f"{ {k: sorted(v) for k, v in short.items()} } (the FMA body "
+          f"they replace: W-bf16, WM-bf16 64, WB-bf16 99, WMB-bf16 80)",
+          flush=True)
     spilled = {k: r for form in MMA_REGS_RECORDED
                for k, r in _form_regs(regs, form).items() if r[1] or r[2]}
-    if spilled or not all(mma.values()):
+    spilled.update({k: r for form in SHORT_REG_KEYS
+                    for k, r in _form_regs(regs, form,
+                                           SHORT_REG_KEYS).items()
+                    if r[1] or r[2]})
+    if (spilled or not all(mma.values())
+            or any(len(short.get(f, ())) != 3 for f in SHORT_REG_KEYS)):
         raise AssertionError(f"tensor-core bodies missing or spilling: "
-                             f"{mma}, {spilled}")
+                             f"{mma}, {short}, {spilled}")
     results["registers"] = {k: sorted(v) for k, v in kept.items()}
+    results["short_registers"] = {k: sorted(v) for k, v in short.items()}
     results["earlier_registers_kept"] = same
     results["mma_registers_kept"] = mma == MMA_REGS_RECORDED
     return results
@@ -2904,12 +2957,12 @@ ATTN4_SHAPES = [("decoder window, inference", 225, 144, 30, torch.float32,
 FOURD_REG_KEYS = {
     "W4": [("window_attn_fwd_4d_kernelIf", ""),
            ("window_attn_fwd_4d_long_kernelIf", "")],
-    "W4-bf16": [("window_attn_fwd_4d_kernelI13", ""),
+    "W4-bf16": [("window_attn_fwd_short_mma_kernel", "ILb0ELb1E"),
                 ("window_attn_fwd_long_mma_kernel", "ILb0ELb1E")],
     "WB4": [("window_attn_bwd_4d_kernelIf", ""),
             ("window_attn_bwd_long_", "IfLb0ELb0ELb0ELb1EE"),
             ("window_attn_bwd_long_", "IfLb0ELb0ELb1EE")],
-    "WB4-bf16": [("window_attn_bwd_4d_kernelI13", ""),
+    "WB4-bf16": [("window_attn_bwd_short_mma_kernel", "ILb0ELb1E"),
                  ("window_attn_bwd_long_mma_", "ILb0ELb1E")],
 }
 
@@ -3053,8 +3106,9 @@ def attention_4d_phase(dev, kernels):
 
 
 FORM_KEYS = ("decoder", "case", "dtype", "nW", "windows", "tokens",
-             "head_width", "bias", "per_image", "per_step", "max_abs_err",
-             "ms", "plain_ms", "packed_ms", "bound_ms", "bound_by",
+             "head_width", "bias", "per_image", "per_step", "per_swinir_step",
+             "max_abs_err", "ms", "window16_ms", "plain_ms", "packed_ms",
+             "bound_ms", "bound_by",
              "library_ms", "memberships", "used_chunks", "build_ms")
 
 
@@ -3517,12 +3571,12 @@ def main() -> int:
                 "Trainer.step (SwinIR)", _on_path(sres["WMB"], "per_step"),
                 sres["WMB"]),
         "W-bf16": ("window_attn_fwd_bf16",
-                   "gsasr_torch/ops/csrc/window_attn_fwd.cu",
+                   "gsasr_torch/ops/csrc/window_attn_short_mma.cuh",
                    "gsasr_tpu/ops/attention.py:338", [], estep,
                    "Trainer.step (Enhanced, bf16 recipe)",
                    _on_path(etres["W-bf16"], "per_step"), etres["W-bf16"]),
         "WB-bf16": ("window_attn_bwd_bf16",
-                    "gsasr_torch/ops/csrc/window_attn_bwd.cu",
+                    "gsasr_torch/ops/csrc/window_attn_short_mma_bwd.cuh",
                     "gsasr_tpu/ops/attention.py:397", [], estep,
                     "Trainer.step (Enhanced, bf16 recipe)",
                     _on_path(etres["WB-bf16"], "per_step"),
@@ -3555,12 +3609,12 @@ def main() -> int:
                    "sr_forward (HAT-L Ultra, bf16 trunk)",
                    _on_path(ures["A-long"], "per_image"), ures["A-long"]),
         "WM-bf16": ("window_attn_fwd_masked_bf16",
-                    "gsasr_torch/ops/csrc/window_attn_fwd.cu",
+                    "gsasr_torch/ops/csrc/window_attn_short_mma.cuh",
                     "gsasr_tpu/ops/attention.py:553", [], sbstep,
                     "Trainer.step (SwinIR, bf16 recipe)",
                     _on_path(mres["WM-bf16"], "per_step"), mres["WM-bf16"]),
         "WMB-bf16": ("window_attn_bwd_masked_bf16",
-                     "gsasr_torch/ops/csrc/window_attn_bwd.cu",
+                     "gsasr_torch/ops/csrc/window_attn_short_mma_bwd.cuh",
                      "gsasr_tpu/ops/attention.py:661", [], sbstep,
                      "Trainer.step (SwinIR, bf16 recipe)",
                      _on_path(mres["WMB-bf16"], "per_step"),
@@ -3605,10 +3659,13 @@ def main() -> int:
     }
     for key, rep in (("W4", "gsasr_tpu/ops/attention.py:87"),
                      ("WB4", "gsasr_tpu/ops/attention.py:109")):
-        src = ("gsasr_torch/ops/csrc/window_attn_fwd.cu" if key == "W4"
-               else "gsasr_torch/ops/csrc/window_attn_bwd.cu")
         entry = "window_attn_fwd_4d" if key == "W4" else "window_attn_bwd_4d"
         for sfx in ("", "-bf16"):
+            # bf16: the tensor-core bodies (up to 160 tokens, the first rows)
+            src = "gsasr_torch/ops/csrc/" + (
+                ("window_attn_fwd.cu" if key == "W4" else "window_attn_bwd.cu")
+                if not sfx else "window_attn_short_mma.cuh" if key == "W4"
+                else "window_attn_short_mma_bwd.cuh")
             meta[key + sfx] = (
                 entry + sfx.replace("-", "_"), src, rep, [],
                 fres["path_launches"], "4D window attention "

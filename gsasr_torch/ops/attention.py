@@ -15,8 +15,9 @@ backward kernel WB (`csrc/window_attn_bwd.cu`); with the (nW, Tq, Tk)
 additive mask of Swin's shifted windows they are kernels WM and WMB, the
 masked forms of the same sources. With bfloat16 q, k, v (the bf16 module
 paths: the Enhanced decoder, SwinIR and the HATs in bf16) they are W-bf16
-and WB-bf16 (WM-bf16 and WMB-bf16 with a mask), which round where the
-Pallas bodies round: scores and softmax in f32, p rounded to bfloat16
+and WB-bf16 (WM-bf16 and WMB-bf16 with a mask), tensor-core bodies of
+their own (`csrc/window_attn_short_mma.cuh`, `_bwd.cuh`), which round where
+the Pallas bodies round: scores and softmax in f32, p rounded to bfloat16
 before the PV product, out in bfloat16; in the backward p is recomputed in
 f32 and not rounded, and dq, dk, dv come out in bfloat16 while dbias stays
 f32. Windows of more than `_MAX_T` tokens (HAT's 256, OCAB's 256 x 576)
@@ -30,10 +31,10 @@ the wrappers.
 `window_attention` takes the JAX package's 4D layout: q (B, nh, Tq, hd), k
 and v (B, nh, Tk, hd), a bias (nh, Tq, Tk). Its forward is kernel W4 and
 its backward WB4 (`window_attn_fwd_4d`, `window_attn_bwd_4d` and their
-bfloat16 forms): W's and WB's bodies, or beyond `_MAX_T` tokens W-long's
-and WB-long's, reading and writing the head-major layout in place (a
-template flag on their index arithmetic), so no transpose to the packed
-layout is made. They round where K14 and K14b round: scores and softmax in
+bfloat16 forms): W's and WB's bodies (in bfloat16 W-bf16's and WB-bf16's),
+or beyond `_MAX_T` tokens W-long's and WB-long's, reading and writing the
+head-major layout in place (a template flag on their index arithmetic), so
+no transpose to the packed layout is made. They round where K14 and K14b round: scores and softmax in
 f32, p rounded to v's type before the PV product, out in q's type; the
 backward recomputes p in f32, forms dq, dk, dv in f32 and stores them in
 the operands' type, and sums dbias over the windows in f32. With a window
@@ -48,8 +49,8 @@ import torch
 
 from gsasr_torch.ops import _build
 
-# Limits of kernels W and WB: a lane holds 5 keys of a score row and one
-# head column.
+# Limits of kernels W and WB (a lane holds 5 keys of a score row and one
+# head column) and of their bf16 forms (a window's q, k, v and g on chip).
 _MAX_T = 160
 _MAX_HD = 32
 
@@ -260,9 +261,10 @@ def _bwd(q, k, v, bias, mask, g, scale: float, num_heads: int, dtype,
         q, k, v, bias, g, num_heads, dtype, None if long else _MAX_T, mask)
     f32 = dict(dtype=torch.float32, device=q.device)
     # WB's per-window ds (B, nh, Tq, Tk), f32 whatever the operand type:
-    # dk's operand and dbias's partial sums; the window-16 forms keep each
-    # query row's (max, sum, D) and need ds only for dbias's ordered sum
-    ds = (None if long and bias is None else
+    # dk's operand and dbias's partial sums; the tensor-core bodies (bf16)
+    # and the window-16 forms keep ds on the chip and need it only for
+    # dbias's ordered sum
+    ds = (None if (long or dtype == torch.bfloat16) and bias is None else
           torch.empty((b, num_heads, tq, tk), **f32))
     scratch = (torch.empty((b, num_heads, tq, 3), **f32), ds) if long \
         else (ds,)
@@ -652,11 +654,12 @@ def _bwd4(q, k, v, bias, g, scale: float, dtype):
     f32 = dict(dtype=torch.float32, device=q.device)
     dbias = None if bias is None else torch.empty((nh, tq, tk), **f32)
     # WB's per-window ds (dk's operand and dbias's partial sums); the
-    # window-16 form keeps each query row's (max, sum, D) and needs ds only
-    # for dbias's ordered sum
+    # tensor-core bodies (bf16) and the window-16 form keep ds on the chip
+    # and need it only for dbias's ordered sum (the window-16 form keeps
+    # each query row's (max, sum, D) in stats)
     long = max(tq, tk) > _MAX_T
     stats = torch.empty((b, nh, tq, 3), **f32) if long else None
-    ds = (None if long and bias is None else
+    ds = (None if (long or dtype == torch.bfloat16) and bias is None else
           torch.empty((b, nh, tq, tk), **f32))
     _build.launch(_BWD4[dtype], q.contiguous(), k.contiguous(),
                   v.contiguous(), None if bias is None else bias.contiguous(),

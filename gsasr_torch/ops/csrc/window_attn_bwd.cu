@@ -32,17 +32,19 @@
 // take about as long. WB-bf16 at the Enhanced training shape (256 windows
 // x 6 heads x 144 x 144 x 32) does 10.2 GFLOP, 0.010 ms at the bf16
 // tensor-core peak, against 99 MB (bf16 q, k, v, g, dq, dk, dv): 0.030 ms,
-// bound by bytes; it runs WB's f32 FMAs on the CUDA cores.
+// bound by bytes.
 //
-// Design: the device code lives in window_attn_bwd.cuh, which kernel AB
-// shares. One block per (window, head) recomputes p in shared memory and
-// forms dq, dk and dv; dbias, a sum over windows, is summed by a second
-// launch in ascending window order: no float atomics, and the result is
-// the same bits from run to run. The mask gets no gradient (a constant at
-// every call site; the JAX VJP returns zeros for it). In bfloat16 p, dp
-// and ds are f32 and p is not rounded (the Pallas body's f32 dots); dq, dk
-// and dv are rounded once as they are stored; the ds_w scratch and dbias
-// are f32.
+// Design of WB and WMB: the device code lives in window_attn_bwd.cuh,
+// which kernel AB shares. One block per (window, head) recomputes p in
+// shared memory and forms dq, dk and dv; dbias, a sum over windows, is
+// summed by a second launch in ascending window order: no float atomics,
+// and the result is the same bits from run to run. The mask gets no
+// gradient (a constant at every call site; the JAX VJP returns zeros for
+// it). WB-bf16, WMB-bf16 and WB4-bf16 run a tensor-core body of their own
+// (window_attn_short_mma_bwd.cuh) with the same ownership, order and
+// dbias sum: p, dp and ds are f32 and p is not rounded (the Pallas body's
+// f32 dots); dq, dk and dv are rounded once as they are stored; ds goes to
+// device memory only for dbias, in f32.
 //
 // WB-long at the HAT-L Ultra training shape (128 windows x 6 heads x 256 x
 // 256 x 32): the five products of the function are 16.1 GFLOP, 0.016 ms at
@@ -69,9 +71,10 @@
 // gsasr_tpu/ops/attention.py (reached from _attention_pallas_bwd, the VJP
 // of fused_window_attention and so of window_attention): WB's body up to
 // 160 tokens and WB-long's two launches beyond, on the head-major (B, nh,
-// T, hd) layout in place (their kHM flag), with dbias WB's ordered sum
-// over the windows, f32; dq, dk, dv are formed in f32 and stored in the
-// operands' type, as K14b stores them. Bounds as WB's and WB-long's.
+// T, hd) layout in place (their kHM flag; in bf16 the tensor-core
+// bodies), with dbias WB's ordered sum over the windows, f32; dq, dk, dv
+// are formed in f32 and stored in the operands' type, as K14b stores them.
+// Bounds as WB's and WB-long's.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -79,6 +82,7 @@
 #include "window_attn_bwd.cuh"
 #include "window_attn_long_bwd.cuh"
 #include "window_attn_long_mma_bwd.cuh"
+#include "window_attn_short_mma_bwd.cuh"
 
 // q, g, dq (B, Tq, C); k, v, dk, dv (B, Tk, C); bias (nh, Tq, Tk) or null;
 // ds_w (B, nh, Tq, Tk) scratch the caller allocates; dbias (nh, Tq, Tk), or
@@ -108,20 +112,22 @@ extern "C" int window_attn_bwd_masked(const float* q, const float* k,
 }
 
 // Kernel WMB-bf16: as window_attn_bwd_masked with q, k, v, g, dq, dk and
-// dv bfloat16; bias, mask, ds_w and dbias float32.
+// dv bfloat16; bias, mask, ds_w and dbias float32, ds_w needed (and
+// written) only with dbias (the tensor-core body with its mask flag).
 extern "C" int window_attn_bwd_masked_bf16(
     const __nv_bfloat16* q, const __nv_bfloat16* k, const __nv_bfloat16* v,
     const float* bias, const float* mask, const __nv_bfloat16* g,
     __nv_bfloat16* dq, __nv_bfloat16* dk, __nv_bfloat16* dv, float* ds_w,
     float* dbias, int B, int Tq, int Tk, int C, int nh, int nW, float scale,
     void* stream) {
-  return static_cast<int>(launch_window_attn_bwd<false, true, __nv_bfloat16>(
-      q, k, v, bias, g, dq, dk, dv, ds_w, dbias, nullptr, B, Tq, Tk, C, nh,
-      scale, static_cast<cudaStream_t>(stream), mask, nW));
+  return static_cast<int>(launch_bwd_short_mma<true, false>(
+      q, k, v, bias, g, dq, dk, dv, ds_w, dbias, B, Tq, Tk, C, nh, scale,
+      static_cast<cudaStream_t>(stream), mask, nW));
 }
 
 // Kernel WB-bf16: as window_attn_bwd with q, k, v, g, dq, dk and dv
-// bfloat16; bias (nh, Tq, Tk), ds_w and dbias float32.
+// bfloat16; bias (nh, Tq, Tk), ds_w and dbias float32, ds_w needed (and
+// written) only with dbias (the tensor-core body).
 extern "C" int window_attn_bwd_bf16(const __nv_bfloat16* q,
                                     const __nv_bfloat16* k,
                                     const __nv_bfloat16* v, const float* bias,
@@ -130,9 +136,9 @@ extern "C" int window_attn_bwd_bf16(const __nv_bfloat16* q,
                                     float* ds_w, float* dbias, int B, int Tq,
                                     int Tk, int C, int nh, float scale,
                                     void* stream) {
-  return static_cast<int>(launch_window_attn_bwd<false, false, __nv_bfloat16>(
-      q, k, v, bias, g, dq, dk, dv, ds_w, dbias, nullptr, B, Tq, Tk, C, nh,
-      scale, static_cast<cudaStream_t>(stream)));
+  return static_cast<int>(launch_bwd_short_mma<false, false>(
+      q, k, v, bias, g, dq, dk, dv, ds_w, dbias, B, Tq, Tk, C, nh, scale,
+      static_cast<cudaStream_t>(stream)));
 }
 
 // Kernel WB-long: as window_attn_bwd for any Tq and Tk (the window-16
@@ -216,7 +222,9 @@ extern "C" int window_attn_bwd_4d(const float* q, const float* k,
 }
 
 // Kernel WB4-bf16: as window_attn_bwd_4d with q, k, v, g, dq, dk and dv
-// bfloat16; bias, stats, ds_w and dbias float32.
+// bfloat16; bias, stats, ds_w and dbias float32. The tensor-core bodies
+// with their head-major flag: WB-bf16's up to kMaxT tokens (stats unused,
+// ds_w needed only with dbias), WB-long-bf16's two launches beyond.
 extern "C" int window_attn_bwd_4d_bf16(
     const __nv_bfloat16* q, const __nv_bfloat16* k, const __nv_bfloat16* v,
     const float* bias, const __nv_bfloat16* g, __nv_bfloat16* dq,
@@ -224,15 +232,13 @@ extern "C" int window_attn_bwd_4d_bf16(
     float* dbias, int B, int Tq, int Tk, int C, int nh, float scale,
     void* stream) {
   const auto st = static_cast<cudaStream_t>(stream);
-  const bool long_form = Tq > kMaxT || Tk > kMaxT;
-  if (long_form ? !stats : !ds_w)
-    return static_cast<int>(cudaErrorInvalidValue);
-  if (long_form)
-    return static_cast<int>(launch_window_attn_bwd_long_mma<false, true>(
-        q, k, v, bias, g, dq, dk, dv, stats, ds_w, dbias, B, Tq, Tk, C, nh,
-        scale, st));
-  return static_cast<int>(launch_window_attn_bwd<false, false, __nv_bfloat16,
-                                                 false, true>(
-      q, k, v, bias, g, dq, dk, dv, ds_w, dbias, nullptr, B, Tq, Tk, C, nh,
-      scale, st));
+  if (Tq > kMaxT || Tk > kMaxT)
+    return static_cast<int>(
+        stats ? launch_window_attn_bwd_long_mma<false, true>(
+                    q, k, v, bias, g, dq, dk, dv, stats, ds_w, dbias, B, Tq,
+                    Tk, C, nh, scale, st)
+              : cudaErrorInvalidValue);
+  return static_cast<int>(launch_bwd_short_mma<false, true>(
+      q, k, v, bias, g, dq, dk, dv, ds_w, dbias, B, Tq, Tk, C, nh, scale,
+      st));
 }

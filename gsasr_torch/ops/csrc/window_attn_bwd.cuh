@@ -1,6 +1,6 @@
-// The device code of kernel WB, its masked form WMB and its bfloat16 form
-// WB-bf16 (window_attn_bwd.cu), shared with kernel AB (ln_attn_bwd.cu),
-// which also needs the recomputed attention output.
+// The device code of kernel WB and its masked form WMB
+// (window_attn_bwd.cu), shared with kernel AB (ln_attn_bwd.cu), which also
+// needs the recomputed attention output.
 //
 // One 256-thread block per (window, head) stages q_h, k_h, v_h and g_h
 // (T x hd each) in shared memory. Pass 1: each warp takes four query rows,
@@ -18,12 +18,9 @@
 // from run to run. With kMask (WMB) the recomputed scores take the window
 // class's mask rows, mask[w % nW], after the bias, as the forward does; the
 // mask is a constant and gets no gradient. The flag is a template
-// parameter, so WB and AB compile as without it. With T = __nv_bfloat16
-// (WB-bf16) q, k, v and g are bfloat16, widened to the f32 tiles as they
-// are staged; p is recomputed in f32 and not rounded, dp, ds and the
-// products run in f32 from the bf16 operands (the Pallas body's f32 dots),
-// ds_w stays f32, and dq, dk and dv are rounded to bfloat16 once, as they
-// are stored. dbias stays f32. With kRnd (the bfloat16 form of AB, whose
+// parameter, so WB and AB compile as without it. The operand type T is
+// float in every kernel since WB-bf16 moved to the tensor cores
+// (window_attn_short_mma_bwd.cuh). With kRnd (the bfloat16 form of AB, whose
 // operands are float tiles holding bf16 values) the body rounds where
 // _k_ln_attn_bwd rounds: p in the tile (for att and dv), ds as an operand
 // of dq and dk (ds_w and dbias keep it unrounded) and att as it is stored;
@@ -266,8 +263,8 @@ window_attn_bwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
                                              mask, nW);
 }
 
-// WB4 (T float) and WB4-bf16 (T __nv_bfloat16): WB's body on the
-// head-major layout, a kernel of its own, so WB's code does not move.
+// WB4 (T float): WB's body on the head-major layout, a kernel of its own,
+// so WB's code does not move.
 template <typename T>
 __global__ void __launch_bounds__(kThreads)
 window_attn_bwd_4d_kernel(const T* __restrict__ q, const T* __restrict__ k,
@@ -305,10 +302,9 @@ constexpr auto bwd_kernel() {
 }
 
 // The launches of kernel WB (with kAtt, also att (B, Tq, C); with kMask,
-// kernel WMB: mask (nW, Tq, Tk), B a multiple of nW; with T bfloat16,
-// WB-bf16; with kRnd, AB's bfloat16 rounding; with kHM, WB4 on the
-// head-major layout). Arguments as window_attn_bwd, window_attn_bwd_masked
-// and window_attn_bwd_bf16 in window_attn_bwd.cu.
+// kernel WMB: mask (nW, Tq, Tk), B a multiple of nW; with kRnd, AB's
+// bfloat16 rounding; with kHM, WB4 on the head-major layout). Arguments as
+// window_attn_bwd and window_attn_bwd_masked in window_attn_bwd.cu.
 template <bool kAtt, bool kMask = false, typename T = float,
           bool kRnd = false, bool kHM = false>
 cudaError_t launch_window_attn_bwd(const T* q, const T* k, const T* v,

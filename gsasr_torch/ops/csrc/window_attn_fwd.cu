@@ -6,12 +6,13 @@
 //
 // W replaces _attn_kernel_packed of gsasr_tpu/ops/attention.py (reached
 // from _attention_packed_pallas, the forward of window_attention_packed
-// without a mask) with float32 operands, and W-bf16 the same body with
-// bfloat16 operands (the Enhanced decoder's bf16 module path, through
-// _sdpa_packed); WM replaces _attn_kernel_packed_masked (reached from
+// without a mask) with float32 operands, and W-bf16 with bfloat16 operands
+// (the Enhanced decoder's bf16 module path, through _sdpa_packed); WM
+// replaces _attn_kernel_packed_masked (reached from
 // _attention_packed_pallas_masked, the forward with a window_mask), and
-// WM-bf16 the same body with bfloat16 operands (SwinIR's shifted blocks at
-// the bf16 recipe, train_swinir_amp.yml). Per
+// WM-bf16 with bfloat16 operands (SwinIR's shifted blocks at the bf16
+// recipe, train_swinir_amp.yml). W-bf16 and WM-bf16 run a tensor-core body
+// of their own (window_attn_short_mma.cuh). Per
 // window w and head h, on the packed (B, T, C) layout where head h is
 // columns [h*hd, (h+1)*hd):
 //
@@ -32,27 +33,27 @@
 // plus the 9.4 MB mask, so it is bound by bytes. W-bf16 at the Enhanced
 // training shape (256 windows x 6 heads x 144 x 144 x 32) does 4.1 GFLOP,
 // 0.004 ms at the bf16 tensor-core peak, on 57 MB of bf16 q, k, v and out,
-// 0.017 ms: bound by bytes. It runs the same f32 FMAs on the CUDA cores as
-// W, so its time is W's less the halved loads.
+// 0.017 ms: bound by bytes.
 //
-// Design. One 256-thread block per (window, head), so heads are sliced by
-// column offset straight from the packed layout and no head transpose is
-// written to memory. The block stages its q_h, k_h and v_h (Tq, Tk x hd,
-// rows padded to an odd stride) in shared memory as f32 (bfloat16 widened
-// as it is staged), about 54 KB at T = 144.
+// Design of W and WM. One 256-thread block per (window, head), so heads
+// are sliced by column offset straight from the packed layout and no head
+// transpose is written to memory. The block stages its q_h, k_h and v_h
+// (Tq, Tk x hd, rows padded to an odd stride) in shared memory as f32,
+// about 54 KB at T = 144.
 // Each warp takes four query rows at a time and holds their scores in
 // registers (lane l owns keys l + 32 m, so Tk <= 160), takes the softmax
 // with warp reductions, writes the probabilities to a per-warp row buffer
-// (rounded to the operand type) and multiplies them by v_h with lane d
+// and multiplies them by v_h with lane d
 // owning output column d. Each (window, head) writes only its own columns,
 // so no atomics are needed and the result is deterministic. WM reads its
 // window class's mask rows from device memory beside the bias rows (the
 // six heads of a window read the same rows, which stay in L2); the JAX
 // kernel's padding of the window-class period is not needed, since a block
-// takes one window, not a block of them. The mask and the operand type are
-// template parameters of the body that W, W-bf16 and WM share; they are
-// three kernels, each with its own launch bounds, so W compiles as without
-// the mask or the rounding.
+// takes one window, not a block of them. The mask is a template parameter
+// of the body that W and WM share; they are two kernels, each with its own
+// launch bounds, so W compiles as without the mask. (The body's operand
+// type parameter is float in every kernel since the bf16 forms moved to the
+// tensor cores.)
 //
 // W-long and W-long-bf16 are the window-16 form (HAT's 144 windows x 6
 // heads x 256 x 256, and OCAB's 256 queries x 576 keys, head width 32,
@@ -86,18 +87,17 @@
 // the bodies changes only where a head lies: head h of window w is rows
 // (w nh + h) T of hd, contiguous, instead of columns h hd of every packed
 // row, so the kernels read the 4D operands in place and no transpose to
-// the packed layout is made; up to 160 tokens W's body, beyond it
-// W-long's. Each is a kernel of its own, so W's and W-long's code does
-// not move.
+// the packed layout is made; up to 160 tokens W's body (W4-bf16: W-bf16's
+// tensor-core body), beyond it W-long's (W-long-bf16's). Each is a kernel
+// of its own, so W's and W-long's code does not move.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
-#include <type_traits>
-
 #include "window_attn.cuh"
 #include "window_attn_long.cuh"
 #include "window_attn_long_mma.cuh"
+#include "window_attn_short_mma.cuh"
 
 namespace {
 
@@ -120,10 +120,8 @@ __host__ __device__ size_t smem_bytes(const HeadLayout& L, int Tk) {
          (L.q_floats + 2 * L.kv_floats + static_cast<size_t>(kWarps) * kQRows * Tk);
 }
 
-// The body of W (kMask false, T float), W-bf16 (T __nv_bfloat16), WM
-// (kMask true, T float) and WM-bf16 (kMask true, T __nv_bfloat16), one
-// block per (head, window); with kHM, of W4 and W4-bf16 on the head-major
-// (B, nh, T, hd) layout.
+// The body of W (kMask false, T float) and WM (kMask true), one block per
+// (head, window); with kHM, of W4 on the head-major (B, nh, T, hd) layout.
 template <bool kMask, typename T, bool kHM = false>
 __device__ __forceinline__ void window_attn_fwd_body(
     const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
@@ -208,18 +206,6 @@ window_attn_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
                                      nh, nW, scale);
 }
 
-__global__ void __launch_bounds__(kThreads)
-window_attn_fwd_bf16_kernel(const __nv_bfloat16* __restrict__ q,
-                            const __nv_bfloat16* __restrict__ k,
-                            const __nv_bfloat16* __restrict__ v,
-                            const float* __restrict__ bias,
-                            const float* __restrict__ mask,
-                            __nv_bfloat16* __restrict__ out, int Tq, int Tk,
-                            int C, int nh, int nW, float scale) {
-  window_attn_fwd_body<false, __nv_bfloat16>(q, k, v, bias, mask, out, Tq, Tk,
-                                             C, nh, nW, scale);
-}
-
 // WM is held to four blocks per SM (64 registers): left free, the
 // compiler gives it 105 registers, two blocks per SM, and a slower kernel.
 // W keeps its own bounds, so its code does not move.
@@ -235,22 +221,8 @@ window_attn_fwd_masked_kernel(const float* __restrict__ q,
                                     nW, scale);
 }
 
-// WM-bf16, held to four blocks per SM as WM is.
-__global__ void __launch_bounds__(kThreads, 4)
-window_attn_fwd_masked_bf16_kernel(const __nv_bfloat16* __restrict__ q,
-                                   const __nv_bfloat16* __restrict__ k,
-                                   const __nv_bfloat16* __restrict__ v,
-                                   const float* __restrict__ bias,
-                                   const float* __restrict__ mask,
-                                   __nv_bfloat16* __restrict__ out, int Tq,
-                                   int Tk, int C, int nh, int nW,
-                                   float scale) {
-  window_attn_fwd_body<true, __nv_bfloat16>(q, k, v, bias, mask, out, Tq, Tk,
-                                            C, nh, nW, scale);
-}
-
-// W4 (T float) and W4-bf16 (T __nv_bfloat16): W's body on the head-major
-// (B, nh, T, hd) layout, a kernel of its own, so W's code does not move.
+// W4 (T float): W's body on the head-major (B, nh, T, hd) layout, a kernel
+// of its own, so W's code does not move.
 template <typename T>
 __global__ void __launch_bounds__(kThreads)
 window_attn_fwd_4d_kernel(const T* __restrict__ q, const T* __restrict__ k,
@@ -262,31 +234,27 @@ window_attn_fwd_4d_kernel(const T* __restrict__ q, const T* __restrict__ k,
                                        nh, nW, scale);
 }
 
-// The kernel of a form: W, W-bf16, WM or WM-bf16; with kHM, W4 or W4-bf16.
-template <bool kMask, typename T, bool kHM = false>
+// The kernel of an fp32 form: W or WM; with kHM, W4.
+template <bool kMask, bool kHM = false>
 constexpr auto fwd_kernel() {
-  constexpr bool kF32 = std::is_same_v<T, float>;
   if constexpr (kHM)
-    return window_attn_fwd_4d_kernel<T>;
-  else if constexpr (kMask && kF32)
-    return window_attn_fwd_masked_kernel;
+    return window_attn_fwd_4d_kernel<float>;
   else if constexpr (kMask)
-    return window_attn_fwd_masked_bf16_kernel;
-  else if constexpr (kF32)
-    return window_attn_fwd_kernel;
+    return window_attn_fwd_masked_kernel;
   else
-    return window_attn_fwd_bf16_kernel;
+    return window_attn_fwd_kernel;
 }
 
-template <bool kMask, typename T, bool kHM = false>
-cudaError_t launch_fwd(const T* q, const T* k, const T* v, const float* bias,
-                       const float* mask, T* out, int B, int Tq, int Tk, int C,
-                       int nh, int nW, float scale, cudaStream_t st) {
+template <bool kMask, bool kHM = false>
+cudaError_t launch_fwd(const float* q, const float* k, const float* v,
+                       const float* bias, const float* mask, float* out,
+                       int B, int Tq, int Tk, int C, int nh, int nW,
+                       float scale, cudaStream_t st) {
   if (B < 1 || Tq < 1 || Tk < 1 || nh < 1 || C % nh != 0 || C / nh > kMaxHd ||
       Tq > kMaxT || Tk > kMaxT || nW < 1 || B % nW != 0)
     return cudaErrorInvalidValue;
   const size_t smem = smem_bytes(HeadLayout(Tq, Tk, C / nh), Tk);
-  const auto kernel = fwd_kernel<kMask, T, kHM>();
+  const auto kernel = fwd_kernel<kMask, kHM>();
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
@@ -385,19 +353,19 @@ extern "C" int window_attn_fwd(const float* q, const float* k, const float* v,
                                const float* bias, float* out, int B, int Tq,
                                int Tk, int C, int nh, float scale,
                                void* stream) {
-  return static_cast<int>(launch_fwd<false, float>(
+  return static_cast<int>(launch_fwd<false>(
       q, k, v, bias, nullptr, out, B, Tq, Tk, C, nh, 1, scale,
       static_cast<cudaStream_t>(stream)));
 }
 
 // Kernel W-bf16: as window_attn_fwd with q, k, v and out bfloat16; bias
-// (nh, Tq, Tk) float32 or null.
+// (nh, Tq, Tk) float32 or null (the tensor-core body).
 extern "C" int window_attn_fwd_bf16(const __nv_bfloat16* q,
                                     const __nv_bfloat16* k,
                                     const __nv_bfloat16* v, const float* bias,
                                     __nv_bfloat16* out, int B, int Tq, int Tk,
                                     int C, int nh, float scale, void* stream) {
-  return static_cast<int>(launch_fwd<false, __nv_bfloat16>(
+  return static_cast<int>(launch_fwd_short_mma<false, false>(
       q, k, v, bias, nullptr, out, B, Tq, Tk, C, nh, 1, scale,
       static_cast<cudaStream_t>(stream)));
 }
@@ -409,18 +377,19 @@ extern "C" int window_attn_fwd_masked(const float* q, const float* k,
                                       const float* mask, float* out, int B,
                                       int Tq, int Tk, int C, int nh, int nW,
                                       float scale, void* stream) {
-  return static_cast<int>(launch_fwd<true, float>(
+  return static_cast<int>(launch_fwd<true>(
       q, k, v, bias, mask, out, B, Tq, Tk, C, nh, nW, scale,
       static_cast<cudaStream_t>(stream)));
 }
 
 // Kernel WM-bf16: as window_attn_fwd_masked with q, k, v and out
-// bfloat16; bias and mask float32.
+// bfloat16; bias and mask float32 (the tensor-core body with its mask
+// flag).
 extern "C" int window_attn_fwd_masked_bf16(
     const __nv_bfloat16* q, const __nv_bfloat16* k, const __nv_bfloat16* v,
     const float* bias, const float* mask, __nv_bfloat16* out, int B, int Tq,
     int Tk, int C, int nh, int nW, float scale, void* stream) {
-  return static_cast<int>(launch_fwd<true, __nv_bfloat16>(
+  return static_cast<int>(launch_fwd_short_mma<true, false>(
       q, k, v, bias, mask, out, B, Tq, Tk, C, nh, nW, scale,
       static_cast<cudaStream_t>(stream)));
 }
@@ -486,12 +455,13 @@ extern "C" int window_attn_fwd_4d(const float* q, const float* k,
   if (Tq > kMaxT || Tk > kMaxT)
     return static_cast<int>(launch_fwd_long<float, true>(
         q, k, v, bias, out, B, Tq, Tk, C, nh, scale, st));
-  return static_cast<int>(launch_fwd<false, float, true>(
+  return static_cast<int>(launch_fwd<false, true>(
       q, k, v, bias, nullptr, out, B, Tq, Tk, C, nh, 1, scale, st));
 }
 
 // Kernel W4-bf16: as window_attn_fwd_4d with q, k, v and out bfloat16; bias
-// float32 or null.
+// float32 or null. The tensor-core bodies with their head-major flag: W-bf16's
+// up to kMaxT tokens, W-long-bf16's beyond.
 extern "C" int window_attn_fwd_4d_bf16(const __nv_bfloat16* q,
                                        const __nv_bfloat16* k,
                                        const __nv_bfloat16* v,
@@ -502,6 +472,6 @@ extern "C" int window_attn_fwd_4d_bf16(const __nv_bfloat16* q,
   if (Tq > kMaxT || Tk > kMaxT)
     return static_cast<int>(launch_fwd_long_mma<false, true>(
         q, k, v, bias, nullptr, out, B, Tq, Tk, C, nh, 1, scale, st));
-  return static_cast<int>(launch_fwd<false, __nv_bfloat16, true>(
+  return static_cast<int>(launch_fwd_short_mma<false, true>(
       q, k, v, bias, nullptr, out, B, Tq, Tk, C, nh, 1, scale, st));
 }

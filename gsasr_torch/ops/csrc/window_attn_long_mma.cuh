@@ -94,16 +94,17 @@ inline int mma_vec(int hd, const void* const* ptrs, int n) {
 }
 
 // Rows [row0, row0 + rows) of a head's columns [n0, n0 + hd) (rows ldg
-// apart) into kR rows of kMLd in shared memory, rows past `rows` and
-// columns past hd zeros: cp.async copies of vec elements, which the caller
-// commits and waits for, or with vec 1 plain stores.
-template <int kR>
-__device__ __forceinline__ void mma_stage(__nv_bfloat16* dst,
-                                          const __nv_bfloat16* __restrict__ src,
-                                          size_t row0, int rows, int ldg,
-                                          int n0, int hd, int vec) {
+// apart) into `pad` rows of kMLd in shared memory, rows past `rows` and
+// columns past hd zeros, by a block of nthr threads: cp.async copies of vec
+// elements, which the caller commits and waits for, or with vec 1 plain
+// stores.
+__device__ __forceinline__ void mma_stage_n(__nv_bfloat16* dst,
+                                            const __nv_bfloat16* __restrict__ src,
+                                            size_t row0, int rows, int pad,
+                                            int ldg, int n0, int hd, int vec,
+                                            int nthr) {
   if (vec == 1) {
-    for (int e = threadIdx.x; e < kR * kLMaxHd; e += kMThreads) {
+    for (int e = threadIdx.x; e < pad * kLMaxHd; e += nthr) {
       const int r = e / kLMaxHd;
       const int d = e % kLMaxHd;
       dst[r * kMLd + d] = r < rows && d < hd
@@ -113,7 +114,7 @@ __device__ __forceinline__ void mma_stage(__nv_bfloat16* dst,
     return;
   }
   const int per = kLMaxHd / vec;
-  for (int e = threadIdx.x; e < kR * per; e += kMThreads) {
+  for (int e = threadIdx.x; e < pad * per; e += nthr) {
     const int r = e / per;
     const int d = (e - r * per) * vec;
     const bool ok = r < rows && d < hd;
@@ -124,6 +125,15 @@ __device__ __forceinline__ void mma_stage(__nv_bfloat16* dst,
     else
       cp_async4(dst + r * kMLd + d, s, ok ? 4 : 0);
   }
+}
+
+// mma_stage_n into kR rows by the window-16 bodies' kMThreads.
+template <int kR>
+__device__ __forceinline__ void mma_stage(__nv_bfloat16* dst,
+                                          const __nv_bfloat16* __restrict__ src,
+                                          size_t row0, int rows, int ldg,
+                                          int n0, int hd, int vec) {
+  mma_stage_n(dst, src, row0, rows, kR, ldg, n0, hd, vec, kMThreads);
 }
 
 // The A fragments of rows r0 .. r0 + 15 of a tile, both k-steps of its 32

@@ -1,26 +1,31 @@
 #!/usr/bin/env python3
 """Compare the port's CUDA sources of a parent checkout with this tree's on
 one card: ptxas's registers of every kernel of the named sources, kernel
-R's time, and the bf16 window-16 attention's (W-long-bf16, WB-long-bf16 and
-their masked forms WM-long-bf16, WMB-long-bf16) from both builds in turns
-(parent, change, change, parent, ...).
+R's time, and the bf16 window attention's up to 160 tokens (W-bf16,
+WB-bf16 and their masked forms WM-bf16, WMB-bf16) from both builds in
+turns (parent, change, change, parent, ...), with the window-16 routing
+(this tree's W-long-bf16 and WB-long-bf16 on the same operands) beside
+them.
 
-  python3 scripts/ab_torch_sources.py --parent DIR [--json PATH]
+  python3 scripts/ab_torch_sources.py --parent DIR [--label NAME]
+      [--skip-raster] [--json PATH]
 
 DIR holds the parent's `gsasr_torch/ops/csrc` (for example
-`git archive <parent> gsasr_torch/ops/csrc | tar -x -C DIR`). Both builds
-use `gsasr_torch/ops/_build.py`'s flags and go to build/ab_sources/. R runs
+`git archive <parent> gsasr_torch/ops/csrc | tar -x -C DIR`), or a variant
+of this tree's sources, named in the output by --label. Both builds use
+`gsasr_torch/ops/_build.py`'s flags and go to build/ab_sources/. R runs
 on chip_smoke.py's exact-render workloads (scripts/bench_exact_render.py's
 720x720 render of 518,400 Gaussians, trained-like and init-like boxes),
 chunked as `gs_render` chunks them for R, and both builds must give the
-same bits. The attention runs at the HAT-L Ultra step's shapes (128
-windows of 256 queries against 256 and 576 keys, 6 heads of 32, no bias)
-and the paper HAT's masked bf16 shape (144 windows of 256 x 256, 6 heads
-of 30, its shifted blocks' bias and SW-MSA mask of period 9); each build's
-result must hold against the plain version within the bf16 tolerance
-(2^-7 |ref| + 2^-8 max|ref|), and the largest difference between the two
-builds is printed. Each kernel's registers in both builds are printed
-beside its form.
+same bits (--skip-raster leaves it out). The attention runs at the
+Enhanced training step's shape (256 windows of 144 tokens, 6 heads of 32,
+no bias), at the bf16 SwinIR step's unshifted blocks (576 windows of 64
+tokens, 6 heads of 30, a bias) and at its shifted blocks (the same with the
+SW-MSA mask of period 36: WM-bf16, WMB-bf16); each build's result must
+hold against the plain version within the bf16 tolerance (2^-7 |ref| +
+2^-8 max|ref|), and the largest difference between the two builds is
+printed. Each kernel's registers in both builds are printed beside its
+form.
 """
 
 from __future__ import annotations
@@ -57,58 +62,53 @@ def _registers(log: str) -> dict:
 
 # The moved forms' kernels: (source, name key, argument key) in the parent
 # (the FMA body's bf16 instantiations) and in this tree (the tensor-core
-# body's kernels, named by their flags kMask, kHM).
+# body's kernels up to 160 tokens, named by their flags kMask, kHM and
+# compiled in three register-array sizes).
 MOVED_KERNELS = {
-    "W-long-bf16": ([("window_attn_fwd", "window_attn_fwd_long_kernel",
-                      "bfloat16")],
-                    [("window_attn_fwd", "window_attn_fwd_long_mma_kernel",
-                      "ILb0ELb0E")]),
-    "WM-long-bf16": ([("window_attn_fwd",
-                       "window_attn_fwd_long_masked_kernel", "bfloat16")],
-                     [("window_attn_fwd", "window_attn_fwd_long_mma_kernel",
-                       "ILb1ELb0E")]),
-    "A-long-bf16 attention": ([("ln_attn", "attn_long_kernel", "bfloat16")],
-                              [("ln_attn", "window_attn_fwd_long_mma_kernel",
-                                "ILb0ELb0E")]),
-    "WB-long-bf16": ([("window_attn_bwd", "window_attn_bwd_long_",
-                       "bfloat16Lb0ELb0ELb0ELb0EE"),
-                      ("window_attn_bwd", "window_attn_bwd_long_",
-                       "bfloat16Lb0ELb0ELb0EE")],
-                     [("window_attn_bwd", "window_attn_bwd_long_mma_",
-                       "ILb0ELb0E")]),
-    "WMB-long-bf16": ([("window_attn_bwd", "window_attn_bwd_long_",
-                        "bfloat16Lb1E")],
-                      [("window_attn_bwd", "window_attn_bwd_long_mma_",
-                        "ILb1ELb0E")]),
-    "W4-long-bf16": ([("window_attn_fwd", "window_attn_fwd_4d_long_kernel",
-                       "bfloat16")],
-                     [("window_attn_fwd", "window_attn_fwd_long_mma_kernel",
-                       "ILb0ELb1E")]),
-    "WB4-long-bf16": ([("window_attn_bwd", "window_attn_bwd_long_",
-                        "bfloat16Lb0ELb0ELb0ELb1EE"),
-                       ("window_attn_bwd", "window_attn_bwd_long_",
-                        "bfloat16Lb0ELb0ELb1EE")],
-                      [("window_attn_bwd", "window_attn_bwd_long_mma_",
-                        "ILb0ELb1E")]),
+    "W-bf16": ([("window_attn_fwd", "window_attn_fwd_bf16_kernel", "")],
+               [("window_attn_fwd", "window_attn_fwd_short_mma_kernel",
+                 "ILb0ELb0E")]),
+    "WM-bf16": ([("window_attn_fwd", "window_attn_fwd_masked_bf16_kernel",
+                  "")],
+                [("window_attn_fwd", "window_attn_fwd_short_mma_kernel",
+                  "ILb1ELb0E")]),
+    "W4-bf16": ([("window_attn_fwd", "window_attn_fwd_4d_kernelI13", "")],
+                [("window_attn_fwd", "window_attn_fwd_short_mma_kernel",
+                  "ILb0ELb1E")]),
+    "WB-bf16": ([("window_attn_bwd", "window_attn_bwd_kernel",
+                  "ILb0ELb0E13__nv_bfloat16Lb0E")],
+                [("window_attn_bwd", "window_attn_bwd_short_mma_kernel",
+                  "ILb0ELb0E")]),
+    "WMB-bf16": ([("window_attn_bwd", "window_attn_bwd_kernel",
+                   "ILb0ELb1E13__nv_bfloat16")],
+                 [("window_attn_bwd", "window_attn_bwd_short_mma_kernel",
+                   "ILb1ELb0E")]),
+    "WB4-bf16": ([("window_attn_bwd", "window_attn_bwd_4d_kernelI13", "")],
+                 [("window_attn_bwd", "window_attn_bwd_short_mma_kernel",
+                   "ILb0ELb1E")]),
 }
 
 
-def _attention_ab(cs, out_dir, regs):
-    """W-long-bf16 and WB-long-bf16 at the Ultra step's shapes, WM-long-bf16
-    and WMB-long-bf16 at the paper HAT's, from both builds in turns: ms of
-    each, the speed-up, the bound, SDPA's time, and the registers of the
-    kernels of each form."""
+def _attention_ab(cs, out_dir, regs, tags):
+    """W-bf16 and WB-bf16 at the Enhanced step's shape and SwinIR's bf16
+    step's T = 64, WM-bf16 and WMB-bf16 at SwinIR's shifted blocks, from
+    both builds in turns, and the window-16 routing (the change's
+    W-long-bf16 and WB-long-bf16 entry points on the same operands) beside
+    them: ms of each, the speed-ups, the bound, SDPA's time, and the
+    registers of the kernels of each form."""
     import torch
 
     from gsasr_torch.models.swinir import swin_attn_mask
     from gsasr_torch.ops import _build
     from gsasr_torch.ops import attention as ta
 
+    old, new = tags
     entries = {}
-    for tag in ("parent", "change"):
-        for name in ("window_attn_fwd_long_bf16", "window_attn_bwd_long_bf16",
-                     "window_attn_fwd_long_masked_bf16",
-                     "window_attn_bwd_long_masked_bf16"):
+    for tag in tags:
+        for name in ("window_attn_fwd_bf16", "window_attn_bwd_bf16",
+                     "window_attn_fwd_masked_bf16",
+                     "window_attn_bwd_masked_bf16",
+                     "window_attn_fwd_long_bf16", "window_attn_bwd_long_bf16"):
             fn = getattr(ctypes.CDLL(os.path.join(
                 out_dir, f"{tag}_{_build.source_of(name)}.so")), name)
             fn.argtypes = [_build._CTYPES[k] for k in _build.SIGNATURES[
@@ -123,31 +123,30 @@ def _attention_ab(cs, out_dir, regs):
         if err:
             raise RuntimeError(f"the {tag}'s {name} failed: cudaError {err}")
 
-    print("registers of the moved forms (parent -> change):", flush=True)
+    print(f"registers of the moved forms ({old} -> {new}):", flush=True)
     form_regs = {}
-    for form, (old, new) in MOVED_KERNELS.items():
+    for form, (was, now) in MOVED_KERNELS.items():
         pick = lambda keys, tag: {  # noqa: E731
             k: r[tag] for k, r in regs.items() if tag in r and any(
                 k.startswith(src + " ") and name in k and arg in k
                 for src, name, arg in keys)}
-        form_regs[form] = dict(parent=pick(old, "parent"),
-                               change=pick(new, "change"))
-        print(f"  {form}: {sorted(form_regs[form]['parent'].values())} -> "
-              f"{sorted(form_regs[form]['change'].values())}", flush=True)
+        form_regs[form] = {old: pick(was, old), new: pick(now, new)}
+        print(f"  {form}: {sorted(form_regs[form][old].values())} -> "
+              f"{sorted(form_regs[form][new].values())}", flush=True)
 
     dev = torch.device("cuda")
     gen = torch.Generator().manual_seed(31)
     rnd = lambda *s: torch.randn(*s, generator=gen).to(dev)  # noqa: E731
     bf16 = torch.bfloat16
-    mask9 = swin_attn_mask(48, 48, 16, 8, dev)
+    mask36 = swin_attn_mask(48, 48, 8, 4, dev)
     # (forward and backward form, case, windows, Tq, Tk, C, heads, bias,
     # mask)
-    cases = [(("W-long-bf16", "WB-long-bf16"), "Ultra 256x256", 128, 256,
-              256, 192, 6, False, None),
-             (("W-long-bf16", "WB-long-bf16"), "Ultra 256x576", 128, 256,
-              576, 192, 6, False, None),
-             (("WM-long-bf16", "WMB-long-bf16"), "paper HAT 256x256, period "
-              "9", 144, 256, 256, 180, 6, True, mask9)]
+    cases = [(("W-bf16", "WB-bf16"), "Enhanced 144x144", 256, 144, 144, 192,
+              6, False, None),
+             (("W-bf16", "WB-bf16"), "SwinIR 64x64, bias", 576, 64, 64, 180,
+              6, True, None),
+             (("WM-bf16", "WMB-bf16"), "SwinIR 64x64, bias, period 36", 576,
+              64, 64, 180, 6, True, mask36)]
     rows = []
     for forms, case, b, tq, tk, c, nh, has_bias, mask in cases:
         q, g = rnd(b, tq, c).to(bf16), rnd(b, tq, c).to(bf16)
@@ -156,49 +155,56 @@ def _attention_ab(cs, out_dir, regs):
         scale = (c // nh) ** -0.5
         nw = 0 if mask is None else mask.shape[0]
         full = None if bias is None else (
-            bias[None] + mask.repeat(b // nw, 1, 1)[:, None]).to(bf16)
+            bias[None] + (0 if mask is None else mask.repeat(
+                b // nw, 1, 1)[:, None])).to(bf16)
         lib_f, lib_b, _ = cs._sdpa_ms(q, k, v, full, g, nh, scale)
         extra = 4 * nh * tq * tk * (0 if bias is None else 1) + (
             0 if mask is None else 4 * nw * tq * tk)
+        # the ds_w scratch that the parent's FMA body always writes
+        ds_w = torch.empty(b, nh, tq, tk, device=dev)
+        stats = torch.empty(b, nh, tq, 3, device=dev)
         for kind in ("fwd", "bwd"):
-            name = (f"window_attn_{kind}_long"
-                    f"{'' if mask is None else '_masked'}_bf16")
+            masked = "" if mask is None else "_masked"
             label = forms[kind == "bwd"]
             outs = {}
 
             def run(tag):
+                # the window-16 routing: the change's W-long-bf16 and
+                # WB-long-bf16 on the same operands (no mask here)
+                w16 = tag == "window-16"
+                src = new if w16 else tag
+                name = (f"window_attn_{kind}_long_bf16" if w16 else
+                        f"window_attn_{kind}{masked}_bf16")
+                m = [] if w16 or mask is None else [mask]
+                nwa = [] if w16 or mask is None else [nw]
                 if kind == "fwd":
                     out = torch.empty_like(q)
-                    args = [q, k, v, bias] + ([] if mask is None else [mask])
-                    call(tag, name, *args, out, b, tq, tk, c, nh,
-                         *([] if mask is None else [nw]), scale)
+                    call(src, name, q, k, v, bias, *m, out, b, tq, tk, c, nh,
+                         *nwa, scale)
                     outs[tag] = (out,)
                     return
                 dq, dk, dv = (torch.empty_like(x) for x in (q, k, v))
-                stats = torch.empty(b, nh, tq, 3, device=dev)
-                ds_w = (torch.empty(b, nh, tq, tk, device=dev)
-                        if bias is not None else None)
                 dbias = (torch.empty(nh, tq, tk, device=dev)
                          if bias is not None else None)
-                args = [q, k, v, bias] + ([] if mask is None else [mask])
-                call(tag, name, *args, g, dq, dk, dv, stats, ds_w, dbias, b,
-                     tq, tk, c, nh, *([] if mask is None else [nw]), scale)
+                call(src, name, q, k, v, bias, *m, g, dq, dk, dv,
+                     *([stats] if w16 else []), ds_w, dbias, b, tq, tk, c,
+                     nh, *nwa, scale)
                 outs[tag] = (dq, dk, dv)
 
-            ms = {"parent": [], "change": []}
-            for tag in ("parent", "change", "change", "parent", "parent",
-                        "change"):
+            order = [old, new, new, old, old, new]
+            if mask is None:
+                order += ["window-16"] * 3
+            ms = {tag: [] for tag in dict.fromkeys(order)}
+            for tag in order:
                 ms[tag].append(cs._time_ms(lambda: run(tag), 10))
             if kind == "fwd":
                 refs = (ta.window_attention_packed_plain(
-                    q, k, v, bias, scale, nh,
-                    None if mask is None else mask),)
+                    q, k, v, bias, scale, nh, mask),)
                 flops = 4.0 * b * nh * tq * tk * (c // nh)
                 nbytes = 2 * (2 * b * tq * c + 2 * b * tk * c) + extra
             else:
                 refs = ta.window_attention_packed_bwd_plain(
-                    q, k, v, bias, g, scale, nh,
-                    None if mask is None else mask)[:3]
+                    q, k, v, bias, g, scale, nh, mask)[:3]
                 flops = 10.0 * b * nh * tq * tk * (c // nh)
                 nbytes = 2 * (3 * b * tq * c + 4 * b * tk * c) + 2 * extra
             bound, by = cs._bound_ms(flops, nbytes, cs.PEAK_BF16)
@@ -207,15 +213,21 @@ def _attention_ab(cs, out_dir, regs):
                              for o, r in zip(outs[tag], refs))
                     for tag in outs}
             between = max(float((a.float() - o.float()).abs().max())
-                          for a, o in zip(outs["parent"], outs["change"]))
-            med = {tag: sorted(v)[1] for tag, v in ms.items()}
-            rows.append(dict(form=label, case=case, windows=b, ms=ms,
-                             speedup=med["parent"] / med["change"],
-                             bound_ms=bound, bound_by=by,
-                             library_ms=lib_f if kind == "fwd" else lib_b,
-                             max_abs_err=errs, max_between_builds=between))
-            print(f"  {label} {case}: parent {ms['parent']} ms, change "
-                  f"{ms['change']} ms, {rows[-1]['speedup']:.2f}x (bound "
+                          for a, o in zip(outs[old], outs[new]))
+            med = {tag: sorted(v)[len(v) // 2] for tag, v in ms.items()}
+            rows.append(dict(
+                form=label, case=case, windows=b, ms=ms,
+                speedup=med[old] / med[new],
+                speedup_vs_window16=(med["window-16"] / med[new]
+                                     if "window-16" in med else None),
+                bound_ms=bound, bound_by=by,
+                library_ms=lib_f if kind == "fwd" else lib_b,
+                max_abs_err=errs, max_between_builds=between))
+            w16 = ("" if "window-16" not in med else
+                   f", window-16 routing {ms['window-16']} ms "
+                   f"({rows[-1]['speedup_vs_window16']:.2f}x)")
+            print(f"  {label} {case}: {old} {ms[old]} ms, {new} "
+                  f"{ms[new]} ms, {rows[-1]['speedup']:.2f}x{w16} (bound "
                   f"{bound:.4f} by {by}, SDPA {rows[-1]['library_ms']}); "
                   f"builds differ by at most {between:.3e}", flush=True)
     return dict(rows=rows, registers=form_regs)
@@ -225,6 +237,11 @@ def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--parent", required=True,
                     help="directory holding the parent's gsasr_torch/ops/csrc")
+    ap.add_argument("--label", default="parent",
+                    help="name of the other tree in the output (a variant "
+                    "of this tree's sources, say)")
+    ap.add_argument("--skip-raster", action="store_true",
+                    help="time the attention forms only, not kernel R")
     ap.add_argument("--json", help="write the results to this file")
     args = ap.parse_args()
     import torch
@@ -234,11 +251,11 @@ def main() -> int:
         return 2
     import chip_smoke as cs
     from gsasr_torch.ops import _build
-    from gsasr_torch.ops import rasterizer as rz
 
     out_dir = os.path.join(ROOT, "build", "ab_sources")
     os.makedirs(out_dir, exist_ok=True)
-    dirs = {"parent": os.path.join(args.parent, "gsasr_torch", "ops", "csrc"),
+    old = args.label
+    dirs = {old: os.path.join(args.parent, "gsasr_torch", "ops", "csrc"),
             "change": str(_build.SRC_DIR)}
     jobs = [(tag, src, subprocess.Popen(
         [_build._nvcc(), *_build.NVCC_FLAGS, "-o",
@@ -256,10 +273,29 @@ def main() -> int:
     card = cs._nvidia_smi()
     print(f"card: {card}", flush=True)
     for key, r in sorted(regs.items()):
-        mark = "" if r.get("parent") == r.get("change") else "  (differs)"
-        print(f"  {key[:120]}: {r.get('parent')} -> {r.get('change')}{mark}",
+        mark = "" if r.get(old) == r.get("change") else "  (differs)"
+        print(f"  {key[:120]}: {r.get(old)} -> {r.get('change')}{mark}",
               flush=True)
+    times = {}
+    if not args.skip_raster:
+        times = _raster_ab(cs, out_dir, dirs)
+    attn = _attention_ab(cs, out_dir, regs, (old, "change"))
+    if args.json:
+        with open(args.json, "w") as f:
+            json.dump(dict(card=card, registers=regs, r_ms=times,
+                           attention=attn), f, indent=1)
+    return 0
 
+
+def _raster_ab(cs, out_dir, dirs):
+    """Kernel R from both builds in turns on chip_smoke.py's exact-render
+    workloads; both must give the same bits."""
+    import torch
+
+    from gsasr_torch.ops import _build
+    from gsasr_torch.ops import rasterizer as rz
+
+    old = next(iter(dirs))
     fns = {}
     for tag in dirs:
         fn = ctypes.CDLL(os.path.join(out_dir, f"{tag}_raster_fwd.so")
@@ -288,21 +324,15 @@ def main() -> int:
             outs[tag] = out
 
         ms = {tag: [] for tag in dirs}
-        for tag in ("parent", "change", "change", "parent", "parent",
-                    "change"):
+        for tag in (old, "change", "change", old, old, "change"):
             ms[tag].append(cs._time_ms(lambda: run(tag), 20))
-        same = torch.equal(outs["parent"], outs["change"])
+        same = torch.equal(outs[old], outs["change"])
         times[kind] = dict(ms, same_bits=same)
-        print(f"  R {kind}: parent {ms['parent']} ms, change "
-              f"{ms['change']} ms; the same bits: {same}", flush=True)
+        print(f"  R {kind}: {old} {ms[old]} ms, change {ms['change']} ms; "
+              f"the same bits: {same}", flush=True)
         if not same:
             raise AssertionError(f"R {kind}: the two builds differ")
-    attn = _attention_ab(cs, out_dir, regs)
-    if args.json:
-        with open(args.json, "w") as f:
-            json.dump(dict(card=card, registers=regs, r_ms=times,
-                           attention=attn), f, indent=1)
-    return 0
+    return times
 
 
 if __name__ == "__main__":

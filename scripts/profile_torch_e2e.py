@@ -89,22 +89,26 @@ FAMILIES = (
     ("A-long out-proj (bf16)", ("out_proj_kernel<__nv_bfloat16, "
                                 "__nv_bfloat16",)),
     ("RB raster_bwd", ("raster_bwd_kernel",)),
-    # WM, WM-bf16 and W-bf16 are kernels of their own over W's body; WMB,
-    # WMB-bf16 and WB-bf16 instantiations of WB's kernel (kMask true; T
-    # bfloat16)
-    ("WM-bf16 window_attn_fwd masked bf16",
-     ("window_attn_fwd_masked_bf16_kernel",)),
+    # the bf16 forms up to 160 tokens on the tensor cores, by their mask
+    # flag: W-bf16 (and W4-bf16) and WM-bf16, WB-bf16 (and WB4-bf16) and
+    # WMB-bf16
+    ("WM-bf16 window_attn_fwd short mma masked",
+     ("window_attn_fwd_short_mma_kernel<true",)),
+    ("W-bf16 window_attn_fwd short mma",
+     ("window_attn_fwd_short_mma_kernel",)),
+    ("WMB-bf16 window_attn_bwd short mma masked",
+     ("window_attn_bwd_short_mma_kernel<true",)),
+    ("WB-bf16 window_attn_bwd short mma",
+     ("window_attn_bwd_short_mma_kernel",)),
+    # WM is a kernel of its own over W's body; WMB an instantiation of WB's
+    # kernel (kMask true)
     ("WM window_attn_fwd masked", ("window_attn_fwd_masked_kernel",)),
-    ("W-bf16 window_attn_fwd bf16", ("window_attn_fwd_bf16_kernel",)),
     ("W window_attn_fwd", ("window_attn_fwd_kernel",)),
-    ("WMB-bf16 window_attn_bwd masked bf16",
-     ("window_attn_bwd_kernel<false, true, __nv_bfloat16",)),
     ("WMB window_attn_bwd masked", ("window_attn_bwd_kernel<false, true",)),
-    ("WB-bf16 window_attn_bwd bf16", ("window_attn_bwd_kernel<false, false, "
-                                      "__nv_bfloat16",)),
-    # AB runs WB's device code for its attention backward
-    ("WB window_attn_bwd, AB attention", ("window_attn_bwd_kernel",
-                                          "dbias_sum_kernel")),
+    # AB runs WB's device code for its attention backward; the sum of ds
+    # over the windows is every T <= 160 form's dbias
+    ("WB window_attn_bwd, AB attention, dbias sums",
+     ("window_attn_bwd_kernel", "dbias_sum_kernel")),
     ("M ln_mlp", ("ln_mlp_kernel",)),
     ("A ln_attn heads", ("attn_heads_kernel",)),
     ("A ln_attn out-proj", ("out_proj_kernel",)),

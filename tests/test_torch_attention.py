@@ -472,6 +472,72 @@ def test_window16_mask_raises():
             0.5, 2)
 
 
+# (windows, Tq, Tk, C, heads, bias, mask period) for the order of
+# operations of the bf16 tensor-core body up to 160 tokens: ragged 16-row
+# and 16-key tiles with a bias, a mask, and no bias with Tk > Tq
+SHORT_CASES = [(3, 40, 27, 24, 3, True, 0), (4, 33, 33, 16, 2, True, 2),
+               (2, 20, 50, 24, 3, False, 0)]
+
+
+def _short_forward_tiles(q, k, v, bias, scale, nh, mask=None):
+    """W-bf16's tensor-core body (csrc/window_attn_short_mma.cuh) emulated
+    in torch, in its order of operations: q, k, v bf16 (exact in f32), rows
+    padded with zeros to multiples of 16; each 16-row query tile's scores
+    formed per 8-key tile in f32, times the scale, plus the bias, plus the
+    mask, -inf past Tk; the whole row's max and sum of exponentials in one
+    pass (one exponential per score), p normalized and rounded to bf16
+    once, then p v summed over 16-key chunks in f32 and rounded once."""
+    b, tq, c = q.shape
+    tk = k.shape[1]
+    t16 = [-(-t // 16) * 16 for t in (tq, tk)]
+    qh, kh, vh = (torch.nn.functional.pad(
+        ta._heads(x.float(), nh), (0, 0, 0, t - x.shape[1]))
+        for x, t in ((q, t16[0]), (k, t16[1]), (v, t16[1])))
+    add = torch.zeros(b, nh, t16[0], t16[1])
+    add[..., tk:] = -torch.inf
+    if bias is not None:
+        add[:, :, :tq, :tk] += bias
+    if mask is not None:
+        add[:, :, :tq, :tk] += mask.repeat(b // mask.shape[0], 1, 1)[:, None]
+    out = torch.zeros(b, nh, t16[0], qh.shape[-1])
+    for r0 in range(0, t16[0], 16):
+        rows = slice(r0, r0 + 16)
+        s = torch.cat([(qh[:, :, rows] @ kh[:, :, j0:j0 + 8].transpose(-1, -2))
+                       * scale + add[:, :, rows, j0:j0 + 8]
+                       for j0 in range(0, t16[1], 8)], dim=-1)
+        e = torch.exp(s - s.amax(dim=-1, keepdim=True))
+        p = (e * (1.0 / e.sum(dim=-1, keepdim=True))).to(torch.bfloat16)
+        for c0 in range(0, t16[1], 16):
+            out[:, :, rows] += p[..., c0:c0 + 16].float() @ vh[:, :, c0:c0 + 16]
+    return ta._merge(out[:, :, :tq]).to(torch.bfloat16)
+
+
+@pytest.mark.parametrize("b,tq,tk,c,nh,bias,nw", SHORT_CASES)
+def test_bf16_short_forward_tile_order(b, tq, tk, c, nh, bias, nw):
+    """The tensor-core forward's order of operations (16-row and 8-key
+    tiles, a one-pass softmax, p rounded once) against the plain version
+    and K11 (K13 with a mask) with bf16 operands in interpret mode, within
+    the kernels' bf16 tolerance 2^-7 |ref| + 2^-8 max|ref|: the design is
+    held to both before it runs on the card."""
+    q, k, v, bs, _ = _inputs(b, tq, tk, c, nh, bias, seed=21)
+    mask = _mask(nw, tq, tk, seed=22) if nw else None
+    scale = (c // nh) ** -0.5
+    qb, kb, vb = (torch.from_numpy(x).to(torch.bfloat16) for x in (q, k, v))
+    bt = None if bs is None else torch.from_numpy(bs)
+    mt = None if mask is None else torch.from_numpy(mask)
+    emu = _short_forward_tiles(qb, kb, vb, bt, scale, nh, mt).float()
+    jout = jattn(*(jnp.asarray(x).astype(jnp.bfloat16) for x in (q, k, v)),
+                 None if bs is None else jnp.asarray(bs), num_heads=nh,
+                 scale=scale,
+                 window_mask=None if mask is None else jnp.asarray(mask))
+    for ref in (ta.window_attention_packed_plain(qb, kb, vb, bt, scale, nh,
+                                                 mt),
+                torch.from_numpy(np.array(jout.astype(jnp.float32)))):
+        ref = ref.float()
+        tol = 2 ** -7 * ref.abs() + 2 ** -8 * float(ref.abs().max())
+        assert bool(((emu - ref).abs() <= tol).all())
+
+
 # (windows, Tq, Tk, C, heads) for the operand treatment of the bf16
 # window-16 backward on the tensor cores: the Ultra step's OCAB 256 x 576 at
 # a head width of 32, and the paper HAT's 256 x 256 at 30

@@ -509,11 +509,15 @@ def test_bias_table_bwd_matches_plain_and_repeats(cuda):
                        out.abs().max())
 
 
-# (windows, Tq, Tk, C, heads, bias) for W-bf16 and WB-bf16: the Enhanced
-# module path's shape (6 heads of 32, no bias), Tq != Tk with a bias (the
-# paper's bf16 module path), and a head width below 32
+# (windows, Tq, Tk, C, heads, bias) for W-bf16 and WB-bf16 (the tensor-core
+# bodies): the Enhanced module path's shape (6 heads of 32, no bias), Tq !=
+# Tk with a bias (the paper's bf16 module path), a head width below 32,
+# SwinIR's T = 64 with a bias (C = 180, head width 30: 4-byte copies), the
+# longest window (160 tokens, ten 16-row tiles) and a head width of 16
 BF16_ATTN_CASES = [(37, 144, 144, 192, 6, False), (11, 64, 144, 192, 6, True),
-                   (13, 144, 100, 180, 6, True), (7, 49, 49, 96, 4, False)]
+                   (13, 144, 100, 180, 6, True), (7, 49, 49, 96, 4, False),
+                   (24, 64, 64, 180, 6, True), (5, 160, 160, 192, 6, True),
+                   (9, 144, 144, 64, 4, True)]
 
 
 @pytest.mark.parametrize("b,tq,tk,c,nh,bias", BF16_ATTN_CASES)
@@ -706,12 +710,18 @@ def test_window_attn_long_bwd_matches_plain_and_repeats(cuda, b, tq, tk, c,
 
 # (windows, mask period, Tq, Tk, C, heads, bias, dtype) for the masked
 # forms beyond WM and WMB: WM-bf16 and WMB-bf16 at SwinIR's training shape
-# (36 classes, cut to 72 windows) and inference shape (cut to 48 classes);
-# WM-long and WMB-long at the paper HAT's 256 x 256 (period 9 and its
-# inference's one class a window, cut), fp32 and bf16; a ragged query and
-# key tile; no bias and a head width below 32
+# (36 classes, cut to 72 windows) and inference shape (cut to 48 classes),
+# and at 144 tokens without a bias, 144 queries against 100 keys, 49 and 160
+# tokens and a head width of 16; WM-long and WMB-long at the paper HAT's
+# 256 x 256 (period 9 and its inference's one class a window, cut), fp32
+# and bf16; a ragged query and key tile; no bias and a head width below 32
 MASKED_FORM_CASES = [(72, 36, 64, 64, 180, 6, True, torch.bfloat16),
                      (48, 48, 64, 64, 180, 6, True, torch.bfloat16),
+                     (8, 4, 144, 144, 192, 6, False, torch.bfloat16),
+                     (6, 3, 144, 100, 180, 6, True, torch.bfloat16),
+                     (6, 2, 49, 49, 96, 4, True, torch.bfloat16),
+                     (4, 2, 160, 160, 192, 6, True, torch.bfloat16),
+                     (6, 3, 64, 64, 64, 4, True, torch.bfloat16),
                      (18, 9, 256, 256, 180, 6, True, torch.float32),
                      (18, 9, 256, 256, 180, 6, True, torch.bfloat16),
                      (12, 12, 256, 256, 180, 6, True, torch.bfloat16),
@@ -964,13 +974,22 @@ def test_gs_render_exact_routes_and_differentiates(cuda):
 # (windows, heads, Tq, Tk, hd, bias, dtype) for W4 and WB4 on the 4D
 # layout: the decoder's window (cut to 37 windows, prime), rectangular
 # without a bias, window 16 (HAT's 256 tokens) and a ragged 130 x 300 with
-# a bias, in fp32 and bf16
+# a bias, in fp32 and bf16; in bf16 (the tensor-core bodies up to 160
+# tokens) also T = 64 with a bias at a head width of 30, 144 tokens
+# without a bias, 144 queries against 100 keys, 49 and 160 tokens and a
+# head width of 16
 ATTN4_CASES = [(37, 6, 144, 144, 30, True, torch.float32),
                (11, 6, 64, 144, 30, False, torch.float32),
                (9, 6, 144, 144, 32, True, torch.bfloat16),
                (5, 6, 256, 256, 32, True, torch.float32),
                (5, 6, 256, 256, 32, False, torch.bfloat16),
-               (3, 6, 130, 300, 30, True, torch.float32)]
+               (3, 6, 130, 300, 30, True, torch.float32),
+               (7, 6, 64, 64, 30, True, torch.bfloat16),
+               (5, 6, 144, 144, 32, False, torch.bfloat16),
+               (4, 6, 144, 100, 30, True, torch.bfloat16),
+               (3, 4, 49, 49, 24, False, torch.bfloat16),
+               (3, 6, 160, 160, 32, True, torch.bfloat16),
+               (5, 4, 64, 64, 16, True, torch.bfloat16)]
 
 
 @pytest.mark.parametrize("b,nh,tq,tk,hd,bias,dt", ATTN4_CASES)
@@ -1070,3 +1089,34 @@ def test_window16_bf16_mma_kernels_fit(cuda):
     assert len(found) == 10, sorted(found)
     assert all(sp == ("0", "0") and r <= 128 for sp, r in found.values()), \
         found
+
+
+def test_short_bf16_mma_kernels_fit(cuda):
+    """ptxas's report: the tensor-core bodies of the bf16 forms up to 160
+    tokens (W-bf16, WM-bf16 and W4-bf16; WB-bf16, WMB-bf16 and WB4-bf16),
+    each flag pair in its three register-array sizes (4, 9 and 10 chunks of
+    16 keys), spill no register, and no bf16 instantiation of W's or WB's
+    FMA body is left."""
+    import re
+
+    from gsasr_torch.ops import _build
+
+    _build.build(["window_attn_fwd_bf16", "window_attn_bwd_bf16"])
+    found = {}
+    for src in ("window_attn_fwd", "window_attn_bwd"):
+        name = None
+        for line in _build.ptxas_report(src).splitlines():
+            m = re.search(r"Compiling entry function '(\w+)'", line)
+            if m:
+                name = m.group(1)
+                assert not ("13__nv_bfloat16" in name and "_mma_" not in name
+                            and "_long_" not in name), name
+            if not name or "_short_mma_" not in name:
+                continue
+            sp = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill "
+                           r"loads", line)
+            if sp:
+                found[src, name] = sp.groups()
+    # three flag pairs (plain, mask, head-major) x three sizes, each source
+    assert len(found) == 18, sorted(found)
+    assert all(sp == ("0", "0") for sp in found.values()), found
