@@ -93,19 +93,22 @@
 24. Ultra training kernel phase (TF32 off): W-long-bf16 and WB-long-bf16
    (the bf16 window-16 forms of W and WB, on the tensor cores:
    window_attn_long_mma.cuh, window_attn_long_mma_bwd.cuh) and WB-long
-   (fp32, FMA body) against their plain versions at the Ultra training
-   step's shapes (128 windows x 256 x 256 and 256 x 576, 6
-   heads of 32; WB-long-bf16 once more with a bias), twice each for
-   bitwise repeatability, with SDPA forward and backward as the yardstick
-   and ptxas's registers; R and RB on the 8-slot 1024x1024 canvas.
+   (fp32, on the tensor cores in 3xTF32: window_attn_long_tf32_bwd.cuh,
+   its time beside the FMA body's as PERF.md records it) against their
+   plain versions at the Ultra training step's shapes (128 windows x 256 x
+   256 and 256 x 576, 6 heads of 32; WB-long-bf16 once more with a bias),
+   twice each for bitwise repeatability, with SDPA forward and backward as
+   the yardstick, bounds and ptxas's registers; R and RB on the 8-slot
+   1024x1024 canvas.
 25. HAT-L Ultra training: Trainer.step of configs/train_hatl_ultra.yml's
    recipe (written out as ULTRA_TRAIN and enhanced_networks("hat"): bf16
    compute on fp32 parameters, DropPath 0.1) at batch 8 of 64x64 LR,
    scales in [1, 16], canvas 1024: W-long-bf16 148, WB-long-bf16 148, R 1,
    RB 1 per step and nothing else, two gradients of one batch asserted the
    same bits; then 3 steps of the same networks at model_dtype float32
-   (W-long 148, WB-long 148); and a tiny bf16 step at window 16 on the card
-   against the CPU.
+   (W-long 148, WB-long 148; scripts/ab_torch_sources.py --steps times
+   them on the FMA backward too); and a tiny bf16 step at window 16 on the
+   card against the CPU.
 26. HAT-L Ultra in bf16 (make_models("hat", "ultra", dtype=torch.bfloat16),
    the reference's --AMP_test): path phase (84 W-long-bf16, 64 A-long, 140
    M, 1 R per image) and end-to-end timing at 180x180 x4.
@@ -126,14 +129,16 @@
    180 channels, 6 heads of 30, mask period 36) and inference shape (576
    windows, period 576); WM-long and WMB-long, fp32 and bf16 (the
    window-16 masked forms; in bf16 the tensor-core bodies with their mask
-   flag), at the paper HAT's training shape (144 windows of 256 tokens,
-   period 9) and inference shape (period 144); each with the bias of a
-   shifted block's table, against its plain version, twice for bitwise
-   repeatability, with times, bounds, SDPA with the bias and mask as a
-   float mask, and ptxas's registers: W-long's, A-long's and WB-long's
-   fp32 kernels and the window-16 tensor-core bodies' beside the recorded
-   ones, and the tensor-core bodies up to 160 tokens (a tensor-core body
-   that is missing or spills fails the phase).
+   flag, WMB-long the fp32 backward's 3xTF32 body with it, its time beside
+   the FMA body's as recorded), at the paper HAT's training shape (144
+   windows of 256 tokens, period 9) and inference shape (period 144); each
+   with the bias of a shifted block's table, against its plain version,
+   twice for bitwise repeatability, with times, bounds, SDPA with the bias
+   and mask as a float mask, and ptxas's registers: W-long's and A-long's
+   fp32 kernels and the window-16 tensor-core bodies' (the fp32 backward's
+   among them) beside the recorded ones, and the tensor-core bodies up to
+   160 tokens (a tensor-core body that is missing or spills fails the
+   phase).
 30. SwinIR at its bf16 recipe: Trainer.step of configs/train_swinir_amp.yml
    (written out as ENHANCED_TRAIN and enhanced_networks("swinir")) at batch
    16, as phase 8 (W-bf16 18, WM-bf16 18, W-long-bf16 44, WB-bf16 18,
@@ -149,7 +154,8 @@
    48x48 request on the card against the CPU, end-to-end timing, and
    Trainer.step at the paper recipe, batch 16 (W-long 24, WM-long 18,
    WB-long 24, WMB-long 18, W 38, WB 38, T 80, R 1, RB 1 per step; two
-   gradients of one batch asserted the same bits).
+   gradients of one batch asserted the same bits; the step's median beside
+   PERF.md's record of it on the FMA backward).
 33. The paper HAT in bf16 with the Enhanced decoder (train_swinir_amp.yml
    with network_g HATNOUP): 3 steps (W-long-bf16 68, WM-long-bf16 18,
    WB-long-bf16 68, WMB-long-bf16 18, T 42, R 1, RB 1 per step).
@@ -159,7 +165,8 @@
    recipe decoder's weights and RoPE tables): RoPE cross-attention (pos,
    kv) and self-attention in both types and a bias in fp32, twice each for
    bitwise repeatability, with times, bounds and ptxas's registers (AB's
-   and WB-long's beside the recorded ones).
+   attention and AB-long's launches of the window-16 FMA body beside the
+   recorded ones).
 35. HAT-L Ultra on the fused decoder: Trainer.step of
    configs/train_hatl_ultra.yml's recipe with fused_decoder=True at batch 8
    (W-long-bf16 84, WB-long-bf16 84, M 140, MB 140, A-long 64, AB-long 64,
@@ -182,8 +189,9 @@
    same Gaussians, twice for bits, with its ms, bound, memberships and
    used chunks; one backward against binning="auto"'s gradients.
 38. 4D window attention (TF32 off): W4 and WB4 (K14, K14b; bf16 forms and
-   the window-16 bodies: in fp32 W's, WB's, W-long's and WB-long's FMA
-   bodies, in bf16 the tensor-core bodies, all with the head-major flag)
+   the window-16 bodies: in fp32 W's, WB's and W-long's FMA bodies and
+   WB-long's 3xTF32 tensor-core body, its time beside the FMA body's as
+   recorded, in bf16 the tensor-core bodies, all with the head-major flag)
    against their plain versions at the decoder's window (225 and 256
    windows x 6 heads x 144 x 30 fp32, 32 bf16) and HAT's (128 x 6 x 256 x
    32, fp32 and bf16, with and without a bias),
@@ -422,11 +430,30 @@ SWINIR_FUSED_TRAIN_COUNTS = dict(
        "A-long": 44, "AB-long": 44})
 # ptxas registers of the earlier window-16 kernels as PERF.md §6 records
 # them (W-long's; A-long's projections in both types and its fp32
-# attention; WB-long's and WMB-long's dq and dk/dv launches in fp32): the
-# template flags of the masked forms and of AB-long, and the bf16 forms'
-# move to the tensor-core bodies, must leave them as they were.
+# attention; the dq and dk/dv launches of WB-long, WMB-long and WB4-long,
+# the fp32 backward's 3xTF32 tensor-core body): the template flags of the
+# masked forms and of AB-long, and the bf16 forms' move to the tensor-core
+# bodies, must leave them as they were.
 LONG_REGS_RECORDED = {"W-long": (128,), "A-long": (114, 114, 128),
-                      "WB-long": (130, 177), "WMB-long": (176, 189)}
+                      "WB-long": (156, 167), "WMB-long": (152, 168),
+                      "WB4-long": (152, 166)}
+# AB-long's two launches of the window-16 FMA backward body, in fp32 and
+# with AB-long-bf16's rounding, as PERF.md §6 records them.
+AB_LONG_REGS_RECORDED = {"AB-long": (130, 179), "AB-long-bf16": (130, 179)}
+# The times PERF.md §6 records for the fp32 window-16 backward on the FMA
+# body of window_attn_long_bwd.cuh (NVIDIA H100 80GB HBM3 at 700.00 W),
+# printed beside the 3xTF32 body's by the phases that time it: by (form,
+# case) as the Ultra training, masked and 4D attention phases name their
+# rows.
+FMA_BWD_MS = {("WB-long", "HAB and decoder 256x256"): 2.660,
+              ("WB-long", "OCAB 256x576"): 6.170,
+              ("WMB-long", "paper HAT training 16x48x48"): 4.543,
+              ("WMB-long", "paper HAT inference 192x192"): 4.083,
+              ("WB4", "window 16 128x6x256x32 float32"): 3.0148,
+              ("WB4", "window 16 128x6x256x32 float32, no bias"): 2.6885}
+# The paper HAT fp32 step on the FMA backward (PERF.md's unprofiled
+# median, the same card), printed beside the paper HAT training phase's.
+FMA_HAT_PAPER_STEP_MS = 793.2
 # ptxas registers of the bf16 window-16 forms' tensor-core bodies
 # (window_attn_long_mma.cuh, window_attn_long_mma_bwd.cuh) as PERF.md §6
 # records them: the forward's flag pairs (A-long-bf16's attention is
@@ -2225,9 +2252,11 @@ def ultra_train_kernel_phase(enc, dec, dev):
     decoder's 256 x 256 and the OCABs' 256 x 576): W-long-bf16 and
     WB-long-bf16 (the bf16 recipe's, the tensor-core bodies), WB-long-bf16
     once more with a bias (dbias), and WB-long (fp32, model_dtype float32,
-    the FMA body); each twice for
-    bitwise repeatability, with SDPA forward and backward in the kernel's
-    type as the yardstick and ptxas's registers. Then R and RB on the
+    the tensor-core body in 3xTF32, its time beside the FMA body's that
+    PERF.md records); each twice for bitwise repeatability, with SDPA
+    forward and backward in the kernel's type as the yardstick, bounds
+    (the fp32 backward's five products in 3xTF32 at the TF32 peak) and
+    ptxas's registers. Then R and RB on the
     8-slot 1024x1024 canvas of the seeded Ultra networks' Gaussians at
     scales in [1, 16]. per_step: launches per Ultra step of that type."""
     from gsasr_torch.ops import _build
@@ -2298,11 +2327,13 @@ def ultra_train_kernel_phase(enc, dec, dev):
             *bargs), 3)
         if why:
             print(f"  {key} {name} library: null ({why})", flush=True)
-        # the function's five products (the scores, dp, dv, dq, dk); bytes:
-        # q, g, dq, k, v, dk, dv (and the f32 bias and dbias)
-        bound, by = _bound_ms(10.0 * b * nh * t * tk * hd,
-                              act * (3 * b * t * c + 4 * b * tk * c)
-                              + 2 * nbias, peak)
+        # the function's five products (the scores, dp, dv, dq, dk), in
+        # fp32 three TF32 products each (3xTF32); bytes: q, g, dq, k, v,
+        # dk, dv (and the f32 bias and dbias)
+        bound, by = _bound_ms(
+            (10.0 if dt == bf16 else 30.0) * b * nh * t * tk * hd,
+            act * (3 * b * t * c + 4 * b * tk * c) + 2 * nbias,
+            peak if dt == bf16 else PEAK_TF32)
         results[key].append(dict(
             case=name, dtype=str(dt).replace("torch.", ""), windows=b,
             per_step=per_step, max_abs_err=err, ms=ms, plain_ms=plain,
@@ -2337,9 +2368,11 @@ def ultra_train_kernel_phase(enc, dec, dev):
         for r in results[k]:
             lib = "null" if r["library_ms"] is None else \
                 f"{r['library_ms']:.4f}"
+            fma = FMA_BWD_MS.get((k, r["case"]))
+            was = "" if k != "WB-long" else f", FMA body as recorded {fma}"
             print(f"  {k} {r['case']}: {r['ms']:.4f} ms (plain "
                   f"{r['plain_ms']:.4f}, bound {r['bound_ms']:.4f} by "
-                  f"{r['bound_by']}, SDPA {lib}) x{r['per_step']} per "
+                  f"{r['bound_by']}, SDPA {lib}{was}) x{r['per_step']} per "
                   f"Ultra step", flush=True)
     return results
 
@@ -2418,21 +2451,19 @@ def ultra_train_card_vs_cpu(dev, fused: bool = False):
 
 # Each form's kernels in ptxas's report: (a substring of the mangled name,
 # a substring of its template arguments or ""), one pair per kernel. The
-# window-16 backward's launches take (T, kMask[, kAtt], kRnd, kHM): WB-long's
-# are the instantiations with every flag false, WMB-long's those whose
-# flags after T start true (AB-long's, with kAtt or kRnd set, compile in
-# ln_attn_bwd.cu; WB4-long's, with kHM set, beside WB-long's).
+# window-16 backward's tensor-core bodies take (kMask, kHM): in fp32 (3xTF32)
+# WB-long, WMB-long and WB4-long, in bf16 their -bf16 forms.
 REG_KEYS = {
     # the tensor-core bodies up to 160 tokens, by their flags (kMask, kHM)
     # and in their three register-array sizes
     "WM-bf16": [("window_attn_fwd_short_mma_kernel", "ILb1ELb0E")],
     "WMB-bf16": [("window_attn_bwd_short_mma_kernel", "ILb1ELb0E")],
     "WM-long": [("window_attn_fwd_long_masked_kernel", "IfE")],
-    "WMB-long": [("window_attn_bwd_long_", "IfLb1E")],
+    "WMB-long": [("window_attn_bwd_long_tf32_", "ILb1ELb0E")],
     "W-long": [("window_attn_fwd_long_kernel", "")],
     "A-long": [("ln_qkv_kernel", ""), ("attn_long_kernel", "")],
-    "WB-long": [("window_attn_bwd_long_", "IfLb0ELb0ELb0ELb0EE"),
-                ("window_attn_bwd_long_", "IfLb0ELb0ELb0EE")],
+    "WB-long": [("window_attn_bwd_long_tf32_", "ILb0ELb0E")],
+    "WB4-long": [("window_attn_bwd_long_tf32_", "ILb0ELb1E")],
     # the tensor-core bodies, by their flags (kMask, kHM)
     "W-long-bf16": [("window_attn_fwd_long_mma_kernel", "ILb0ELb0E")],
     "WM-long-bf16": [("window_attn_fwd_long_mma_kernel", "ILb1ELb0E")],
@@ -2469,16 +2500,16 @@ SHORT_REG_KEYS = {
 
 
 # AB's attention (WB's body with att: fp32, and AB-bf16's rounding) and
-# AB-long's two launches in ptxas's report of ln_attn_bwd.cu: (T, kMask,
-# kAtt, kRnd, kHM) for the dq launch, (T, kMask, kRnd, kHM) for the dk/dv
-# launch.
+# AB-long's two launches of the window-16 FMA body in ptxas's report of
+# ln_attn_bwd.cu: (T, kAtt, kRnd) for the dq launch, (T, kRnd) for the
+# dk/dv launch.
 AB_REG_KEYS = {
     "AB": [("window_attn_bwd_kernel", "ILb1ELb0EfLb0E"),
            ("window_attn_bwd_kernel", "ILb1ELb0EfLb1E")],
-    "AB-long": [("window_attn_bwd_long_q_kernel", "IfLb0ELb1ELb0ELb0EE"),
-                ("window_attn_bwd_long_kv_kernel", "IfLb0ELb0ELb0EE")],
-    "AB-long-bf16": [("window_attn_bwd_long_q_kernel", "IfLb0ELb1ELb1ELb0EE"),
-                     ("window_attn_bwd_long_kv_kernel", "IfLb0ELb1ELb0EE")],
+    "AB-long": [("window_attn_bwd_long_q_kernel", "IfLb1ELb0EE"),
+                ("window_attn_bwd_long_kv_kernel", "IfLb0EE")],
+    "AB-long-bf16": [("window_attn_bwd_long_q_kernel", "IfLb1ELb1EE"),
+                     ("window_attn_bwd_long_kv_kernel", "IfLb1EE")],
 }
 
 
@@ -2497,12 +2528,15 @@ def masked_kernel_phase(enc_s, enc_h, dev):
     at the paper HAT's (window 16: 144 windows of 256 tokens, period 9 in
     training and 144 at inference); 180 channels, 6 heads of 30, the bias
     of the encoder's first shifted block (the bf16 window-16 forms on the
-    tensor-core bodies). Each twice for bitwise repeatability, with its
-    time, plain time, bound in its type, SDPA (the bias plus the mask as a
-    float mask in the operands' type) forward and backward, and ptxas's
-    registers; then W-long's, A-long's and WB-long's fp32 registers and the
-    tensor-core bodies' beside the recorded ones (raises if a tensor-core
-    body is missing or spills). per_image / per_step: launches on
+    tensor-core bodies; WMB-long on the fp32 backward's 3xTF32 tensor-core
+    body, its time beside the FMA body's that PERF.md records). Each twice
+    for bitwise repeatability, with its time, plain time, bound in its type
+    (WMB-long: its five products in 3xTF32 at the TF32 peak), SDPA (the
+    bias plus the mask as a float mask in the operands' type) forward and
+    backward, and ptxas's registers; then W-long's, A-long's and the fp32
+    backward's registers and the tensor-core bodies' beside the recorded
+    ones (raises if a tensor-core body is missing or spills). per_image /
+    per_step: launches on
     the bf16 SwinIR-Enhanced image and the bf16 SwinIR step (the bf16
     forms), the paper HAT's image and step (WM-long, WMB-long) and the bf16
     paper HAT step (the window-16 bf16 forms)."""
@@ -2591,11 +2625,14 @@ def masked_kernel_phase(enc_s, enc_h, dev):
         plain = _time_ms(plain_b, 3)
         if why:
             print(f"  {kb} {name} library: null ({why})", flush=True)
-        # the function's five products; bytes: q, g, dq, k, v, dk, dv in
-        # the operands' type, the f32 bias, dbias and mask
-        bound, by = _bound_ms(10.0 * b * nh * t * t * hd,
+        # the function's five products (fp32 beyond 160 tokens: three TF32
+        # products each, 3xTF32); bytes: q, g, dq, k, v, dk, dv in the
+        # operands' type, the f32 bias, dbias and mask
+        tf32 = long and not isbf
+        bound, by = _bound_ms((30.0 if tf32 else 10.0) * b * nh * t * t * hd,
                               act * 7 * b * t * c
-                              + 4 * (2 * nh + nw) * t * t, peak)
+                              + 4 * (2 * nh + nw) * t * t,
+                              PEAK_TF32 if tf32 else peak)
         results[kb].append(dict(
             case=name, dtype=str(dt).replace("torch.", ""), nW=nw,
             windows=b, max_abs_err=err, ms=ms, plain_ms=plain,
@@ -2607,9 +2644,11 @@ def masked_kernel_phase(enc_s, enc_h, dev):
             lib = "null" if r["library_ms"] is None else \
                 f"{r['library_ms']:.4f}"
             per = r.get("per_image", r.get("per_step"))
+            fma = FMA_BWD_MS.get((key, r["case"]))
+            was = "" if fma is None else f", FMA body as recorded {fma}"
             print(f"  {key} {r['case']}: {r['ms']:.4f} ms (plain "
                   f"{r['plain_ms']:.4f}, bound {r['bound_ms']:.4f} by "
-                  f"{r['bound_by']}, SDPA {lib}) x{per} per "
+                  f"{r['bound_by']}, SDPA {lib}{was}) x{per} per "
                   f"{'image' if 'per_image' in r else 'step'}", flush=True)
     kept = {}
     for form in REG_KEYS:
@@ -2638,7 +2677,8 @@ def masked_kernel_phase(enc_s, enc_h, dev):
           f"{ {k: sorted(v) for k, v in short.items()} } (the FMA body "
           f"they replace: W-bf16, WM-bf16 64, WB-bf16 99, WMB-bf16 80)",
           flush=True)
-    spilled = {k: r for form in MMA_REGS_RECORDED
+    spilled = {k: r for form in (*MMA_REGS_RECORDED, "WB-long", "WMB-long",
+                                 "WB4-long")
                for k, r in _form_regs(regs, form).items() if r[1] or r[2]}
     spilled.update({k: r for form in SHORT_REG_KEYS
                     for k, r in _form_regs(regs, form,
@@ -2746,22 +2786,18 @@ def ab_long_kernel_phase(dec, dev):
                   f"library null) x{rows[-1]['per_step']} per Ultra fused "
                   f"step", flush=True)
     regs = _ptxas_kernels(_build.ptxas_report("ln_attn_bwd"), "")
-    wregs = _ptxas_kernels(_build.ptxas_report("window_attn_bwd"), "")
     kept = {}
-    for form, src in (("AB", regs), ("AB-long", regs),
-                      ("AB-long-bf16", regs), ("WB-long", wregs)):
-        keys = REG_KEYS if form == "WB-long" else AB_REG_KEYS
-        for k, (r_, st, ld) in _form_regs(src, form, keys).items():
+    for form in ("AB", "AB-long", "AB-long-bf16"):
+        for k, (r_, st, ld) in _form_regs(regs, form, AB_REG_KEYS).items():
             print(f"  ptxas {form} {k}: {r_} registers, {st}/{ld} bytes "
                   "spilled", flush=True)
             kept.setdefault(form, []).append(r_)
-    earlier = {"AB": tuple(sorted(kept.get("AB", ()))),
-               "WB-long": tuple(sorted(kept.get("WB-long", ())))}
-    recorded = {"AB": AB_REGS_RECORDED,
-                "WB-long": LONG_REGS_RECORDED["WB-long"]}
-    print(f"  registers of AB's attention and WB-long: {earlier}, "
-          f"{'kept' if earlier == recorded else 'MOVED'} (recorded: "
-          f"{recorded})", flush=True)
+    earlier = {k: tuple(sorted(kept.get(k, ())))
+               for k in ("AB", *AB_LONG_REGS_RECORDED)}
+    recorded = dict(AB=AB_REGS_RECORDED, **AB_LONG_REGS_RECORDED)
+    print(f"  registers of AB's attention and AB-long's FMA launches: "
+          f"{earlier}, {'kept' if earlier == recorded else 'MOVED'} "
+          f"(recorded: {recorded})", flush=True)
     return {"AB-long": rows,
             "registers": {k: sorted(v) for k, v in kept.items()},
             "earlier_registers_kept": earlier == recorded}
@@ -2953,15 +2989,15 @@ ATTN4_SHAPES = [("decoder window, inference", 225, 144, 30, torch.float32,
                 ("window 16", 128, 256, 32, torch.bfloat16, True, True),
                 ("window 16", 128, 256, 32, torch.bfloat16, False, True)]
 # The 4D forms' kernels in ptxas's reports: W's and W-long's bodies on the
-# head-major layout, WB's, and WB-long's two launches with kHM set.
+# head-major layout, WB's, and WB-long's two launches with kHM set (the
+# tensor-core bodies: 3xTF32 in fp32).
 FOURD_REG_KEYS = {
     "W4": [("window_attn_fwd_4d_kernelIf", ""),
            ("window_attn_fwd_4d_long_kernelIf", "")],
     "W4-bf16": [("window_attn_fwd_short_mma_kernel", "ILb0ELb1E"),
                 ("window_attn_fwd_long_mma_kernel", "ILb0ELb1E")],
     "WB4": [("window_attn_bwd_4d_kernelIf", ""),
-            ("window_attn_bwd_long_", "IfLb0ELb0ELb0ELb1EE"),
-            ("window_attn_bwd_long_", "IfLb0ELb0ELb1EE")],
+            ("window_attn_bwd_long_tf32_", "ILb0ELb1E")],
     "WB4-bf16": [("window_attn_bwd_short_mma_kernel", "ILb0ELb1E"),
                  ("window_attn_bwd_long_mma_", "ILb0ELb1E")],
 }
@@ -2970,14 +3006,16 @@ FOURD_REG_KEYS = {
 @torch.no_grad()
 def attention_4d_phase(dev, kernels):
     """Phase 38: W4 and WB4 (K14, K14b; their bf16 forms, and beyond 160
-    tokens W-long's and WB-long's bodies on the head-major layout: the FMA
-    bodies in fp32, the tensor-core ones in bf16) against
-    their plain versions at ATTN4_SHAPES, twice each for bits, with their
-    ms, the plain versions', the packed W / WB (or their window-16 and bf16
-    forms) on packed copies of the same operands, SDPA forward and backward
-    on the 4D operands as the library call, and bounds (the function's
-    products at the type's peak, or q, k, v, out (and g, dq, dk, dv), the
-    f32 bias and dbias); then the path: window_attention forward (and
+    tokens W-long's and WB-long's bodies on the head-major layout: W-long's
+    FMA body in fp32, WB-long's 3xTF32 tensor-core body, and the
+    tensor-core ones in bf16) against their plain versions at ATTN4_SHAPES,
+    twice each for bits, with their ms (WB4-long's beside the FMA body's
+    that PERF.md records), the plain versions', the packed W / WB (or their
+    window-16 and bf16 forms) on packed copies of the same operands, SDPA
+    forward and backward on the 4D operands as the library call, and
+    bounds (the function's products at the type's peak, WB4-long's in
+    3xTF32 at the TF32 peak, or q, k, v, out (and g, dq, dk, dv), the f32
+    bias and dbias); then the path: window_attention forward (and
     backward through autograd) once per shape, every count from zero; and
     ptxas's registers of the 4D kernels beside the packed forms' recorded
     ones."""
@@ -3041,8 +3079,10 @@ def attention_4d_phase(dev, kernels):
         _repeatable(lambda: bwd(*bargs), f"WB4{sfx} {label}")
         if why:
             print(f"  WB4{sfx} {label} library: null ({why})", flush=True)
-        bound, by = _bound_ms(10.0 * b * nh * t * t * hd,
-                              act * 7 * b * nh * t * hd + 2 * nbias, peak)
+        tf32 = long and not bf
+        bound, by = _bound_ms((30.0 if tf32 else 10.0) * b * nh * t * t * hd,
+                              act * 7 * b * nh * t * hd + 2 * nbias,
+                              PEAK_TF32 if tf32 else peak)
         results["WB4" + sfx].append(dict(
             row, max_abs_err=err, ms=_time_ms(lambda: bwd(*bargs), 10),
             plain_ms=_time_ms(lambda: ta.window_attention_bwd_plain(
@@ -3055,11 +3095,15 @@ def attention_4d_phase(dev, kernels):
         for r in rows:
             lib = "null" if r["library_ms"] is None else \
                 f"{r['library_ms']:.4f}"
-            print(f"  {key} {r['case']} {r['windows']}x{nh}x{r['tokens']}x"
-                  f"{r['head_width']}{'' if r['bias'] else ', no bias'}: "
-                  f"{r['ms']:.4f} ms (packed {r['packed_ms']:.4f}, plain "
-                  f"{r['plain_ms']:.4f}, bound {r['bound_ms']:.4f} by "
-                  f"{r['bound_by']}, SDPA {lib})", flush=True)
+            case = (f"{r['case']} {r['windows']}x{nh}x{r['tokens']}x"
+                    f"{r['head_width']} {r['dtype']}"
+                    f"{'' if r['bias'] else ', no bias'}")
+            fma = FMA_BWD_MS.get((key, case))
+            was = "" if fma is None else f", FMA body as recorded {fma}"
+            print(f"  {key} {case}: {r['ms']:.4f} ms (packed "
+                  f"{r['packed_ms']:.4f}, plain {r['plain_ms']:.4f}, bound "
+                  f"{r['bound_ms']:.4f} by {r['bound_by']}, SDPA "
+                  f"{lib}{was})", flush=True)
 
     # the path: window_attention through autograd, counts from zero
     _reset(kernels)
@@ -3139,15 +3183,9 @@ def _kernel_entry(name, src, rep, also, launches, path, rows, forms=None):
     return entry
 
 
-def main() -> int:
-    ap = argparse.ArgumentParser()
-    ap.add_argument("--json", help="write the details to this file")
-    args = ap.parse_args()
-    if not torch.cuda.is_available():
-        print("chip_smoke: no CUDA card", file=sys.stderr)
-        return 2
-    from gsasr_torch.model import make_models
-    from gsasr_torch.ops import _build
+def kernel_wrappers():
+    """Every kernel's wrapper by its name in the {"kernels": ...} line: the
+    launch counts the phases reset and read."""
     from gsasr_torch.ops.attention import (
         window_attention_4d_bf16_bwd, window_attention_4d_bf16_fwd,
         window_attention_4d_bwd, window_attention_4d_fwd,
@@ -3173,6 +3211,43 @@ def main() -> int:
     from gsasr_torch.ops.rasterizer import (raster_bwd, raster_fwd,
                                             raster_fwd_exact)
 
+    return {"R": raster_fwd, "M": ln_mlp_residual, "A": ln_attn_proj,
+            "W": window_attention_packed_fwd,
+            "WB": window_attention_packed_bwd, "RB": raster_bwd,
+            "MB": ln_mlp_residual_bwd, "AB": ln_attn_proj_bwd,
+            "T": bias_table_bwd, "WM": window_attention_packed_masked_fwd,
+            "WMB": window_attention_packed_masked_bwd,
+            "W-bf16": window_attention_packed_bf16_fwd,
+            "WB-bf16": window_attention_packed_bf16_bwd,
+            "W-long": window_attention_packed_long_fwd,
+            "W-long-bf16": window_attention_packed_long_bf16_fwd,
+            "A-long": ln_attn_proj_long,
+            "WB-long": window_attention_packed_long_bwd,
+            "WB-long-bf16": window_attention_packed_long_bf16_bwd,
+            "WM-bf16": window_attention_packed_masked_bf16_fwd,
+            "WMB-bf16": window_attention_packed_masked_bf16_bwd,
+            "WM-long": window_attention_packed_long_masked_fwd,
+            "WMB-long": window_attention_packed_long_masked_bwd,
+            "WM-long-bf16": window_attention_packed_long_masked_bf16_fwd,
+            "WMB-long-bf16":
+                window_attention_packed_long_masked_bf16_bwd,
+            "AB-long": ln_attn_proj_bwd_long,
+            "R-exact": raster_fwd_exact, "W4": window_attention_4d_fwd,
+            "W4-bf16": window_attention_4d_bf16_fwd,
+            "WB4": window_attention_4d_bwd,
+            "WB4-bf16": window_attention_4d_bf16_bwd}
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--json", help="write the details to this file")
+    args = ap.parse_args()
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA card", file=sys.stderr)
+        return 2
+    from gsasr_torch.model import make_models
+    from gsasr_torch.ops import _build
+
     t_start = time.perf_counter()
     card = _nvidia_smi()
     dev = torch.device("cuda")
@@ -3192,31 +3267,7 @@ def main() -> int:
             if "registers" in line or "spill" in line:
                 print(f"  {n}: {line.strip()}", flush=True)
 
-    kernels = {"R": raster_fwd, "M": ln_mlp_residual, "A": ln_attn_proj,
-               "W": window_attention_packed_fwd,
-               "WB": window_attention_packed_bwd, "RB": raster_bwd,
-               "MB": ln_mlp_residual_bwd, "AB": ln_attn_proj_bwd,
-               "T": bias_table_bwd, "WM": window_attention_packed_masked_fwd,
-               "WMB": window_attention_packed_masked_bwd,
-               "W-bf16": window_attention_packed_bf16_fwd,
-               "WB-bf16": window_attention_packed_bf16_bwd,
-               "W-long": window_attention_packed_long_fwd,
-               "W-long-bf16": window_attention_packed_long_bf16_fwd,
-               "A-long": ln_attn_proj_long,
-               "WB-long": window_attention_packed_long_bwd,
-               "WB-long-bf16": window_attention_packed_long_bf16_bwd,
-               "WM-bf16": window_attention_packed_masked_bf16_fwd,
-               "WMB-bf16": window_attention_packed_masked_bf16_bwd,
-               "WM-long": window_attention_packed_long_masked_fwd,
-               "WMB-long": window_attention_packed_long_masked_bwd,
-               "WM-long-bf16": window_attention_packed_long_masked_bf16_fwd,
-               "WMB-long-bf16":
-                   window_attention_packed_long_masked_bf16_bwd,
-               "AB-long": ln_attn_proj_bwd_long,
-               "R-exact": raster_fwd_exact, "W4": window_attention_4d_fwd,
-               "W4-bf16": window_attention_4d_bf16_fwd,
-               "WB4": window_attention_4d_bwd,
-               "WB4-bf16": window_attention_4d_bf16_bwd}
+    kernels = kernel_wrappers()
     enc, dec = make_models("edsr", "paper",
                            generator=torch.Generator().manual_seed(0))
 
@@ -3367,6 +3418,9 @@ def main() -> int:
     torch.cuda.empty_cache()
     utrain32 = train_phase(dev, kernels, fused=False, encoder="hat",
                            ultra=torch.float32)
+    print(f"  HAT-L Ultra float32 step median {utrain32['step_ms_median']:.1f}"
+          f" ms (on the FMA backward: not recorded; "
+          f"scripts/ab_torch_sources.py --steps times both)", flush=True)
     gc.collect()
     torch.cuda.empty_cache()
     print("Ultra training card vs CPU", flush=True)
@@ -3448,6 +3502,9 @@ def main() -> int:
     torch.cuda.empty_cache()
     print("paper HAT training phase", flush=True)
     htrain = train_phase(dev, kernels, fused=False, encoder="hat_paper")
+    print(f"  paper HAT float32 step median {htrain['step_ms_median']:.1f} "
+          f"ms (on the FMA backward, as recorded: {FMA_HAT_PAPER_STEP_MS})",
+          flush=True)
     gc.collect()
     torch.cuda.empty_cache()
     print("paper HAT bf16 training phase", flush=True)
@@ -3593,7 +3650,7 @@ def main() -> int:
                         _on_path(utres["W-long-bf16"], "per_step"),
                         ures["W-long-bf16"] + utres["W-long-bf16"]),
         "WB-long": ("window_attn_bwd_long",
-                    "gsasr_torch/ops/csrc/window_attn_bwd.cu",
+                    "gsasr_torch/ops/csrc/window_attn_long_tf32_bwd.cuh",
                     "gsasr_tpu/ops/attention.py:397", [], ustep32,
                     "Trainer.step (HAT-L Ultra, model_dtype float32)",
                     _on_path(utres["WB-long"], "per_step"),
@@ -3625,7 +3682,7 @@ def main() -> int:
                     "Trainer.step (paper HAT, paper recipe)",
                     _on_path(mres["WM-long"], "per_step"), mres["WM-long"]),
         "WMB-long": ("window_attn_bwd_long_masked",
-                     "gsasr_torch/ops/csrc/window_attn_bwd.cu",
+                     "gsasr_torch/ops/csrc/window_attn_long_tf32_bwd.cuh",
                      "gsasr_tpu/ops/attention.py:661", [], hstep,
                      "Trainer.step (paper HAT, paper recipe)",
                      _on_path(mres["WMB-long"], "per_step"),

@@ -56,13 +56,14 @@
 // windows of any Tq and Tk, which replaces _k_ln_attn_bwd beyond WB's 160
 // tokens (reached from _ln_attn_core_bwd, the custom VJP of ln_attn_proj, in
 // the Ultra and SwinIR-Enhanced decoders' windows of 256 seeds). It is AB's
-// sequence above with its attention step swapped for WB-long's two launches
-// (window_attn_long_bwd.cuh): the dq launch keeps each row's (max, sum, D)
-// in a (B, nh, Tq, 3) scratch and, with AB's flags, forms att = p v in its
-// D pass and rounds as AB-bf16 rounds; the dk / dv launch walks the query
-// tiles in order. A bias's gradient is the same ordered sum over windows of
-// a per-window ds, which only a bias needs. Its bound at the Ultra step's
-// 128 windows x 256 tokens x 192 channels: the eleven products of 2 T C^2
+// sequence above with its attention step swapped for the two launches of
+// the window-16 FMA body (window_attn_long_bwd.cuh): the dq launch keeps
+// each row's (max, sum, D) in a (B, nh, Tq, 3) scratch and, with AB's
+// flags, forms att = p v in its D pass and rounds as AB-bf16 rounds; the
+// dk / dv launch walks the query tiles in order. A bias's gradient is the
+// same ordered sum over windows of a per-window ds, which only a bias
+// needs. Its bound at the Ultra step's 128 windows x 256 tokens x 192
+// channels: the eleven products of 2 T C^2
 // and six of 2 T^2 C per window are 45.9 GFLOP, 0.685 ms at the FP32 peak
 // and 0.046 ms at the bf16 tensor-core peak; its bytes (x, kv, g, dx, dkv)
 // take under 0.02 ms. This first form is the two bodies, already measured,
@@ -318,9 +319,9 @@ int ln_attn_bwd_impl(const Act* x, const Act* pos, const Act* kv,
   GSASR_TRY_INT(launch_linear<true, kBf16>(Terms{{gf}, {wo}, 1}, nullptr,
                                            nullptr, 0, datt, Mq, C, C, st, 1));
   if constexpr (kLong)
-    GSASR_TRY_INT(launch_window_attn_bwd_long<float, false, true, kBf16>(
+    GSASR_TRY_INT(launch_window_attn_bwd_long<float, true, kBf16>(
         q, k, v, bias, datt, dq, dk, dv, stats, bias ? ds : nullptr, dbias, B,
-        Tq, Tk, C, nh, scale, st, nullptr, 1, att));
+        Tq, Tk, C, nh, scale, st, att));
   else
     GSASR_TRY_INT(launch_window_attn_bwd<true, false, float, kBf16>(
         q, k, v, bias, datt, dq, dk, dv, ds, dbias, att, B, Tq, Tk, C, nh,

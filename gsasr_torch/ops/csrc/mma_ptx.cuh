@@ -1,6 +1,8 @@
-// The warp-level tensor-core and copy instructions of the window-16 bf16
-// attention bodies (window_attn_long_mma.cuh, window_attn_long_mma_bwd.cuh),
-// as inline PTX for sm_90a: mma.sync m16n8k16 with bf16 operands and f32
+// The warp-level tensor-core and copy instructions of the window attention
+// bodies on the tensor cores (window_attn_long_mma.cuh,
+// window_attn_long_mma_bwd.cuh, window_attn_short_mma*.cuh and the fp32
+// window_attn_long_tf32_bwd.cuh), as inline PTX for sm_90a: mma.sync
+// m16n8k16 with bf16 operands and m16n8k8 with tf32 operands, both with f32
 // sums, ldmatrix (plain and transposed) from shared memory, and cp.async
 // with zero fill. No library headers beyond CUDA's own.
 //
@@ -13,6 +15,14 @@
 //                           c3 (g+8, 2t+1)
 // So the accumulators of two neighbouring 8-column tiles, packed in pairs,
 // are the A fragment of the next product over those 16 columns.
+//
+// Fragments of mma.sync.m16n8k8.row.col with tf32 operands (one value a
+// register):
+//   A (16 x 8, row-major): a0 (g, t), a1 (g+8, t), a2 (g, t+4), a3 (g+8, t+4)
+//   B (8 x 8, "col"):      b0 (k t, n g), b1 (k t+4, n g)
+//   C, D (16 x 8, f32):    as m16n8k16's
+// So an accumulator tile is the next product's A fragment only with its
+// contraction index permuted (window_attn_long_tf32_bwd.cuh).
 #pragma once
 
 #include <cuda_bf16.h>
@@ -49,6 +59,16 @@ __device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
                                          uint32_t b0, uint32_t b1) {
   asm volatile(
       "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// d += a b on the tensor cores: tf32 products, f32 sums.
+__device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
       "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));

@@ -50,38 +50,39 @@
 // 256 x 32): the five products of the function are 16.1 GFLOP, 0.016 ms at
 // the bf16 tensor-core peak, against 88 MB of bf16 q, k, v, g, dq, dk, dv
 // (0.026 ms at 3.35 TB/s): bound by bytes in bf16; in fp32 by the
-// operations (0.24 ms at 67 TFLOP/s). WB-long's design
-// (window_attn_long_bwd.cuh) forms ten such products on the CUDA cores in
-// f32, twice the function's, to keep every output owned by one block and
-// every sum in one order. WB-long-bf16 (and WMB-long-bf16, WB4-long-bf16
-// by its flags) keeps that ownership and order on the tensor cores, bf16
-// operands staged in bf16 and p and ds fed as hi/lo bf16 pairs
-// (window_attn_long_mma_bwd.cuh).
+// operations, three TF32 products each in 3xTF32 (0.098 ms at 495 TFLOP/s,
+// against 176 MB, 0.053 ms). Both keep every output owned by one block and
+// every sum in one order, forming ten such products, twice the
+// function's, on the tensor cores: WB-long (and WMB-long, WB4-long by its
+// flags) in 3xTF32 on f32 tiles (window_attn_long_tf32_bwd.cuh),
+// WB-long-bf16 (and WMB-long-bf16, WB4-long-bf16) on bf16 tiles with p and
+// ds fed as hi/lo bf16 pairs (window_attn_long_mma_bwd.cuh).
 //
 // WMB-bf16 at SwinIR's training shape (576 windows x 6 heads x 64 x 64 x
 // 30) does 4.2 GFLOP, 0.004 ms at the bf16 tensor-core peak, against 58 MB
 // (bf16 q, k, v, g, dq, dk, dv; f32 bias, dbias, mask): bound by bytes.
 // WMB-long at the paper HAT's training shape (144 windows x 6 heads x 256
-// x 256 x 30) does 17 GFLOP, 0.25 ms at the FP32 peak; WMB-long-bf16 the
-// same products against about 98 MB of bf16 operands and f32 bias, dbias
-// and mask: bound by bytes. The masked forms read one mask entry per
-// score, from the window class's rows, which stay in L2.
+// x 256 x 30) does 17 GFLOP, 51 GFLOP of TF32 in 3xTF32, 0.103 ms at 495
+// TFLOP/s; WMB-long-bf16 the same products against about 98 MB of bf16
+// operands and f32 bias, dbias and mask: bound by bytes. The masked forms
+// read one mask entry per score, from the window class's rows, which stay
+// in L2.
 //
 // WB4 and WB4-bf16 (window_attn_bwd_4d[_bf16]) replace _attn_kernel_bwd of
 // gsasr_tpu/ops/attention.py (reached from _attention_pallas_bwd, the VJP
 // of fused_window_attention and so of window_attention): WB's body up to
 // 160 tokens and WB-long's two launches beyond, on the head-major (B, nh,
-// T, hd) layout in place (their kHM flag; in bf16 the tensor-core
-// bodies), with dbias WB's ordered sum over the windows, f32; dq, dk, dv
-// are formed in f32 and stored in the operands' type, as K14b stores them.
-// Bounds as WB's and WB-long's.
+// T, hd) layout in place (their kHM flag; beyond 160 tokens, and in bf16,
+// tensor-core bodies), with dbias WB's ordered sum over the windows, f32;
+// dq, dk, dv are formed in f32 and stored in the operands' type, as K14b
+// stores them. Bounds as WB's and WB-long's.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include "window_attn_bwd.cuh"
-#include "window_attn_long_bwd.cuh"
 #include "window_attn_long_mma_bwd.cuh"
+#include "window_attn_long_tf32_bwd.cuh"
 #include "window_attn_short_mma_bwd.cuh"
 
 // q, g, dq (B, Tq, C); k, v, dk, dv (B, Tk, C); bias (nh, Tq, Tk) or null;
@@ -143,7 +144,8 @@ extern "C" int window_attn_bwd_bf16(const __nv_bfloat16* q,
 
 // Kernel WB-long: as window_attn_bwd for any Tq and Tk (the window-16
 // form), plus stats (B, nh, Tq, 3) float32 scratch the caller allocates;
-// ds_w (B, nh, Tq, Tk) is needed, and written, only with dbias.
+// ds_w (B, nh, Tq, Tk) is needed, and written, only with dbias (the
+// tensor-core body in 3xTF32).
 extern "C" int window_attn_bwd_long(const float* q, const float* k,
                                     const float* v, const float* bias,
                                     const float* g, float* dq, float* dk,
@@ -151,7 +153,7 @@ extern "C" int window_attn_bwd_long(const float* q, const float* k,
                                     float* dbias, int B, int Tq, int Tk,
                                     int C, int nh, float scale,
                                     void* stream) {
-  return static_cast<int>(launch_window_attn_bwd_long<float>(
+  return static_cast<int>(launch_window_attn_bwd_long_tf32<false, false>(
       q, k, v, bias, g, dq, dk, dv, stats, ds_w, dbias, B, Tq, Tk, C, nh,
       scale, static_cast<cudaStream_t>(stream)));
 }
@@ -170,13 +172,14 @@ extern "C" int window_attn_bwd_long_bf16(
 }
 
 // Kernel WMB-long: as window_attn_bwd_long, plus mask (nW, Tq, Tk) float32,
-// window w taking mask[w % nW]; B must be a multiple of nW.
+// window w taking mask[w % nW]; B must be a multiple of nW (WB-long's body
+// with its mask flag).
 extern "C" int window_attn_bwd_long_masked(
     const float* q, const float* k, const float* v, const float* bias,
     const float* mask, const float* g, float* dq, float* dk, float* dv,
     float* stats, float* ds_w, float* dbias, int B, int Tq, int Tk, int C,
     int nh, int nW, float scale, void* stream) {
-  return static_cast<int>(launch_window_attn_bwd_long<float, true>(
+  return static_cast<int>(launch_window_attn_bwd_long_tf32<true, false>(
       q, k, v, bias, g, dq, dk, dv, stats, ds_w, dbias, B, Tq, Tk, C, nh,
       scale, static_cast<cudaStream_t>(stream), mask, nW));
 }
@@ -198,8 +201,8 @@ extern "C" int window_attn_bwd_long_masked_bf16(
 // layout, q, g, dq (B, nh, Tq, hd); k, v, dk, dv (B, nh, Tk, hd); bias and
 // dbias (nh, Tq, Tk) or null; C = nh * hd. Up to kMaxT tokens WB's body
 // (ds_w (B, nh, Tq, Tk) scratch always, stats unused), beyond them WB-long's
-// two launches (WB4-long: stats (B, nh, Tq, 3) scratch, ds_w only with
-// dbias). All float32, contiguous, on the device.
+// two launches with the head-major flag (WB4-long: stats (B, nh, Tq, 3)
+// scratch, ds_w only with dbias). All float32, contiguous, on the device.
 extern "C" int window_attn_bwd_4d(const float* q, const float* k,
                                   const float* v, const float* bias,
                                   const float* g, float* dq, float* dk,
@@ -211,10 +214,9 @@ extern "C" int window_attn_bwd_4d(const float* q, const float* k,
   if (long_form ? !stats : !ds_w)
     return static_cast<int>(cudaErrorInvalidValue);
   if (long_form)
-    return static_cast<int>(
-        launch_window_attn_bwd_long<float, false, false, false, true>(
-            q, k, v, bias, g, dq, dk, dv, stats, ds_w, dbias, B, Tq, Tk, C,
-            nh, scale, st));
+    return static_cast<int>(launch_window_attn_bwd_long_tf32<false, true>(
+        q, k, v, bias, g, dq, dk, dv, stats, ds_w, dbias, B, Tq, Tk, C, nh,
+        scale, st));
   return static_cast<int>(launch_window_attn_bwd<false, false, float, false,
                                                  true>(
       q, k, v, bias, g, dq, dk, dv, ds_w, dbias, nullptr, B, Tq, Tk, C, nh,

@@ -1,13 +1,12 @@
-// The window-16 form of kernel WB: the backward of packed multi-head window
-// attention for any Tq and Tk (HAT's 256-token windows, OCAB's 256 x 576
-// rectangles and the Ultra decoder's windows of 256 seeds), WB-long
-// (window_attn_bwd.cu's fp32 entry point; WB-long-bf16 runs the tensor-core
-// body of window_attn_long_mma_bwd.cuh). Per window w and head h, on the
-// packed (B, T, C) layout, with the softmax recomputed from q, k and bias
-// as W-long computes it:
+// The FMA body of the window-16 attention backward for any Tq and Tk, the
+// attention step of AB-long (ln_attn_bwd.cu, the backward of A-long at the
+// Ultra decoder's windows of 256 seeds; WB-long, WMB-long and WB4-long run
+// the tensor-core body of window_attn_long_tf32_bwd.cuh, their bf16 forms
+// window_attn_long_mma_bwd.cuh's). Per window w and head h, on the packed
+// (B, T, C) layout, with the softmax recomputed from q, k and bias as
+// W-long computes it:
 //
-//   p = softmax(q_h k_h^T * scale (+ bias[h]) (+ mask[w % nW]))
-//                                                (f32, not rounded)
+//   p = softmax(q_h k_h^T * scale (+ bias[h]))   (f32, not rounded)
 //   dv = p^T g_h      dp = g_h v_h^T      ds = p (dp - rowsum(dp p))
 //   dq = ds k_h * scale                   dk = ds^T q_h * scale
 //
@@ -34,18 +33,11 @@
 // from p and dp, as in the Pallas body, not from g . out (out is rounded in
 // the bf16 form). Every sum runs in a fixed order and no float atomics are
 // used: two launches give the same bits. stats, ds_w and dbias are f32.
-// With kMask (WMB-long: the paper HAT's shifted windows; WMB-long-bf16 is
-// the tensor-core body's) every recomputed score takes the window class's
-// mask row after the bias, as W-long's masked form does; the mask is a
-// constant and gets no gradient, and dbias stays the ordered sum over
-// windows. The flag is a template parameter of both launches, so WB-long
-// compiles as without it.
 //
-// AB-long (ln_attn_bwd.cu, the backward of A-long) runs both launches on f32
-// scratch with two more template flags, so WB-long and WMB-long compile as
-// without them. kAtt: launch 1's pass 2 also forms att = p v (the forward's
-// attention output, which AB's dwo needs) from the same p and v tile, p
-// rounded before the product as W-long's body rounds it. kRnd (AB-long's
+// AB-long runs both launches on f32 scratch with two template flags. kAtt:
+// launch 1's pass 2 also forms att = p v (the forward's attention output,
+// which AB's dwo needs) from the same p and v tile, p rounded before the
+// product as W-long's body rounds it. kRnd (AB-long's
 // bfloat16 form, whose operands are f32 tiles holding bf16 values) rounds
 // where _k_ln_attn_bwd rounds: p as the operand of att and dv, ds as the
 // operand of dq and dk (D, ds_w and dbias take them unrounded), and att as
@@ -112,18 +104,16 @@ __device__ __forceinline__ void long_dots(const float* gw, const float* vs,
 // p = exp(s - max) / sum of this warp's rows against the staged key tile,
 // unrounded, into prow[r * kLK + j] for keys j < kb (the arguments of
 // long_scores, and each row's max and sum).
-template <bool kMask = false>
 __device__ __forceinline__ void long_probs(const float* qw, const float* ks,
                                            int ld, int hd, int kb,
                                            const float* hb, int i0, int Tq,
                                            int Tk, float scale,
                                            const float (&mrow)[kLRows],
                                            const float (&lrow)[kLRows],
-                                           float* prow,
-                                           const float* mb = nullptr) {
+                                           float* prow) {
   const int lane = threadIdx.x & 31;
   float s[kLRows][kLKeysPer];
-  long_scores<kMask>(qw, ks, ld, hd, kb, hb, i0, Tq, Tk, scale, s, mb);
+  long_scores(qw, ks, ld, hd, kb, hb, i0, Tq, Tk, scale, s);
 #pragma unroll
   for (int r = 0; r < kLRows; ++r)
 #pragma unroll
@@ -153,12 +143,9 @@ __device__ __forceinline__ void long_ds(const float* gw, const float* vs,
 
 // Launch 1, one block of kThreads per (head, window, query tile) of
 // long_grid: dq, each row's (max, sum, D) into stats, and ds into ds_w when
-// it is not null. With kMask, mask (nW, Tq, Tk), window w taking mask[w %
-// nW]. With kAtt, att (B, Tq, C) = p v; with kRnd, AB-long's bf16 rounding;
-// with kHM, q, k, v, g and dq in the head-major (B, nh, T, hd) layout (the
-// 4D form WB4-long): head h of window w owns rows (w nh + h) T of hd.
-template <typename T, bool kMask = false, bool kAtt = false,
-          bool kRnd = false, bool kHM = false>
+// it is not null. With kAtt, att (B, Tq, C) = p v; with kRnd, AB-long's
+// bf16 rounding.
+template <typename T, bool kAtt = false, bool kRnd = false>
 __global__ void __launch_bounds__(kThreads)
 window_attn_bwd_long_q_kernel(const T* __restrict__ q, const T* __restrict__ k,
                               const T* __restrict__ v,
@@ -166,9 +153,7 @@ window_attn_bwd_long_q_kernel(const T* __restrict__ q, const T* __restrict__ k,
                               const T* __restrict__ g, T* __restrict__ dq,
                               float* __restrict__ stats,
                               float* __restrict__ ds_w, int Tq, int Tk, int C,
-                              int nh, float scale,
-                              const float* __restrict__ mask, int nW,
-                              float* __restrict__ att) {
+                              int nh, float scale, float* __restrict__ att) {
   extern __shared__ float smem[];
   const int hd = C / nh;
   const int ld = hd | 1;
@@ -182,8 +167,8 @@ window_attn_bwd_long_q_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int q0 = blockIdx.z * kLQ;
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
-  const int n0 = kHM ? 0 : head * hd;
-  const int ldg = kHM ? hd : C;
+  const int n0 = head * hd;
+  const int ldg = C;
   const int rows = min(kLQ, Tq - q0);
   const int r0 = warp * kLRows;
   const float* qw = qs + r0 * ld;
@@ -191,12 +176,10 @@ window_attn_bwd_long_q_kernel(const T* __restrict__ q, const T* __restrict__ k,
   float* prow = tile + r0 * kLK;
   const float* hb =
       bias ? bias + static_cast<size_t>(head) * Tq * Tk : nullptr;
-  const size_t wrow = kHM ? static_cast<size_t>(win) * nh + head : win;
+  const size_t wrow = win;
   const size_t qrow0 = wrow * Tq + q0;
   const size_t krow0 = wrow * Tk;
   const size_t srow0 = (static_cast<size_t>(win) * nh + head) * Tq + q0 + r0;
-  const float* wm =
-      kMask ? long_window_mask(mask, win, nW, Tq, Tk) : nullptr;
 
   long_stage_tile(q, qrow0, rows, ldg, n0, hd, qs, ld);
   long_stage_tile(g, qrow0, rows, ldg, n0, hd, gs, ld);
@@ -214,8 +197,8 @@ window_attn_bwd_long_q_kernel(const T* __restrict__ q, const T* __restrict__ k,
     long_stage(k, krow0 + k0, kb, ldg, n0, hd, ks, ld);
     __syncthreads();
     float s[kLRows][kLKeysPer];
-    long_scores<kMask>(qw, ks, ld, hd, kb, hb ? hb + k0 : nullptr, q0 + r0,
-                       Tq, Tk, scale, s, kMask ? wm + k0 : nullptr);
+    long_scores(qw, ks, ld, hd, kb, hb ? hb + k0 : nullptr, q0 + r0, Tq, Tk,
+                scale, s);
 #pragma unroll
     for (int r = 0; r < kLRows; ++r) {
       float mx = -INFINITY;
@@ -244,9 +227,8 @@ window_attn_bwd_long_q_kernel(const T* __restrict__ q, const T* __restrict__ k,
     long_stage(k, krow0 + k0, kb, ldg, n0, hd, ks, ld);
     long_stage(v, krow0 + k0, kb, ldg, n0, hd, vs, ld);
     __syncthreads();
-    long_probs<kMask>(qw, ks, ld, hd, kb, hb ? hb + k0 : nullptr, q0 + r0,
-                      Tq, Tk, scale, mrow, lrow, prow,
-                      kMask ? wm + k0 : nullptr);
+    long_probs(qw, ks, ld, hd, kb, hb ? hb + k0 : nullptr, q0 + r0, Tq, Tk,
+               scale, mrow, lrow, prow);
     float dp[kLRows][kLKeysPer];
     long_dots(gw, vs, ld, hd, kb, dp);
 #pragma unroll
@@ -306,9 +288,8 @@ window_attn_bwd_long_q_kernel(const T* __restrict__ q, const T* __restrict__ k,
     long_stage(k, krow0 + k0, kb, ldg, n0, hd, ks, ld);
     long_stage(v, krow0 + k0, kb, ldg, n0, hd, vs, ld);
     __syncthreads();
-    long_probs<kMask>(qw, ks, ld, hd, kb, hb ? hb + k0 : nullptr, q0 + r0,
-                      Tq, Tk, scale, mrow, lrow, prow,
-                      kMask ? wm + k0 : nullptr);
+    long_probs(qw, ks, ld, hd, kb, hb ? hb + k0 : nullptr, q0 + r0, Tq, Tk,
+               scale, mrow, lrow, prow);
     long_ds(gw, vs, ld, hd, kb, drow, prow);
     if (ds_w) {
 #pragma unroll
@@ -347,11 +328,9 @@ window_attn_bwd_long_q_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
 // Launch 2, one block of kThreads per (head, window, key tile of kLK): dv
 // and dk of the tile's keys, the query tiles walked in order with the
-// statistics launch 1 stored. With kMask, the mask as launch 1 takes it;
-// with kRnd, AB-long's bf16 rounding of p and ds; with kHM, the head-major
-// layout.
-template <typename T, bool kMask = false, bool kRnd = false,
-          bool kHM = false>
+// statistics launch 1 stored. With kRnd, AB-long's bf16 rounding of p and
+// ds.
+template <typename T, bool kRnd = false>
 __global__ void __launch_bounds__(kThreads)
 window_attn_bwd_long_kv_kernel(const T* __restrict__ q,
                                const T* __restrict__ k,
@@ -360,8 +339,7 @@ window_attn_bwd_long_kv_kernel(const T* __restrict__ q,
                                const T* __restrict__ g, T* __restrict__ dk,
                                T* __restrict__ dv,
                                const float* __restrict__ stats, int Tq,
-                               int Tk, int C, int nh, float scale,
-                               const float* __restrict__ mask, int nW) {
+                               int Tk, int C, int nh, float scale) {
   extern __shared__ float smem[];
   const int hd = C / nh;
   const int ld = hd | 1;
@@ -376,8 +354,8 @@ window_attn_bwd_long_kv_kernel(const T* __restrict__ q,
   const int kb = min(kLK, Tk - k0);
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
-  const int n0 = kHM ? 0 : head * hd;
-  const int ldg = kHM ? hd : C;
+  const int n0 = head * hd;
+  const int ldg = C;
   const int r0 = warp * kLRows;
   const int jw = warp * kLBKeysPerWarp;
   const float* qw = qs + r0 * ld;
@@ -385,9 +363,7 @@ window_attn_bwd_long_kv_kernel(const T* __restrict__ q,
   float* prow = tile + r0 * kLK;
   const float* hb =
       bias ? bias + static_cast<size_t>(head) * Tq * Tk + k0 : nullptr;
-  const float* mb =
-      kMask ? long_window_mask(mask, win, nW, Tq, Tk) + k0 : nullptr;
-  const size_t wrow = kHM ? static_cast<size_t>(win) * nh + head : win;
+  const size_t wrow = win;
   const size_t krow0 = wrow * Tk + k0;
   const size_t srow0 = (static_cast<size_t>(win) * nh + head) * Tq;
 
@@ -413,8 +389,8 @@ window_attn_bwd_long_kv_kernel(const T* __restrict__ q,
       lrow[r] = st[1];
       drow[r] = st[2];
     }
-    long_probs<kMask>(qw, ks, ld, hd, kb, hb, q0 + r0, Tq, Tk, scale, mrow,
-                      lrow, prow, mb);
+    long_probs(qw, ks, ld, hd, kb, hb, q0 + r0, Tq, Tk, scale, mrow, lrow,
+               prow);
     // dp, held for ds while the tile holds p for dv (ds from the unrounded
     // p; with kRnd, p rounded in place after)
     float dp[kLRows][kLKeysPer];
@@ -479,43 +455,39 @@ window_attn_bwd_long_kv_kernel(const T* __restrict__ q,
 
 namespace {
 
-// The launches of WB-long (T float), or with kMask WMB-long (mask (nW, Tq,
-// Tk), B a multiple of nW), or with kAtt (att (B, Tq, C) f32) and kRnd
-// AB-long's attention backward, or with kHM WB4-long on the head-major
-// layout: dq and the rows' statistics per query tile, then dk and dv per
-// key tile, then (dbias given) the ordered sum of ds_w over the windows.
-template <typename T, bool kMask = false, bool kAtt = false,
-          bool kRnd = false, bool kHM = false>
+// The launches of the FMA body (T float), with kAtt (att (B, Tq, C) f32)
+// and kRnd as AB-long's attention backward takes them: dq and the rows'
+// statistics per query tile, then dk and dv per key tile, then (dbias
+// given) the ordered sum of ds_w over the windows.
+template <typename T, bool kAtt = false, bool kRnd = false>
 cudaError_t launch_window_attn_bwd_long(const T* q, const T* k, const T* v,
                                         const float* bias, const T* g, T* dq,
                                         T* dk, T* dv, float* stats,
                                         float* ds_w, float* dbias, int B,
                                         int Tq, int Tk, int C, int nh,
                                         float scale, cudaStream_t st,
-                                        const float* mask = nullptr,
-                                        int nW = 1, float* att = nullptr) {
+                                        float* att = nullptr) {
   if (!gsasr::long_shape_ok(B, Tq, Tk, C, nh) || (dbias && !ds_w) ||
-      nW < 1 || B % nW != 0 || (kMask && !mask) || (kAtt && !att))
+      (kAtt && !att))
     return cudaErrorInvalidValue;
   const size_t smem = gsasr::long_bwd_smem_bytes(C / nh);
   cudaError_t err = cudaFuncSetAttribute(
-      gsasr::window_attn_bwd_long_q_kernel<T, kMask, kAtt, kRnd, kHM>,
+      gsasr::window_attn_bwd_long_q_kernel<T, kAtt, kRnd>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
   if (err != cudaSuccess) return err;
   err = cudaFuncSetAttribute(
-      gsasr::window_attn_bwd_long_kv_kernel<T, kMask, kRnd, kHM>,
+      gsasr::window_attn_bwd_long_kv_kernel<T, kRnd>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
   if (err != cudaSuccess) return err;
-  gsasr::window_attn_bwd_long_q_kernel<T, kMask, kAtt, kRnd, kHM>
+  gsasr::window_attn_bwd_long_q_kernel<T, kAtt, kRnd>
       <<<gsasr::long_grid(nh, B, Tq), kThreads, smem, st>>>(
           q, k, v, bias, g, dq, stats, dbias ? ds_w : nullptr, Tq, Tk, C, nh,
-          scale, mask, nW, att);
+          scale, att);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  gsasr::window_attn_bwd_long_kv_kernel<T, kMask, kRnd, kHM>
+  gsasr::window_attn_bwd_long_kv_kernel<T, kRnd>
       <<<dim3(nh, B, (Tk + gsasr::kLK - 1) / gsasr::kLK), kThreads, smem,
-         st>>>(q, k, v, bias, g, dk, dv, stats, Tq, Tk, C, nh, scale, mask,
-               nW);
+         st>>>(q, k, v, bias, g, dk, dv, stats, Tq, Tk, C, nh, scale);
   err = cudaGetLastError();
   if (err != cudaSuccess || !dbias) return err;
   const int n = nh * Tq * Tk;

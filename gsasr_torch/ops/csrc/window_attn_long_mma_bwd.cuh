@@ -5,7 +5,8 @@
 // Pallas K12 at window 16: HAT-L Ultra's 256 x 256 windows and OCAB's 256 x
 // 576), of _attn_kernel_packed_masked_bwd (K13b, the paper HAT's shifted
 // windows) and of _attn_kernel_bwd (K14b, the 4D layout) beyond 160 tokens.
-// The fp32 forms and AB-long keep window_attn_long_bwd.cuh's FMA body. Per
+// The fp32 forms run window_attn_long_tf32_bwd.cuh, the same design in
+// 3xTF32, and AB-long keeps window_attn_long_bwd.cuh's FMA body. Per
 // window w and head h, with the softmax recomputed as the forward forms it:
 //
 //   p = softmax(q_h k_h^T * scale (+ bias[h]) (+ mask[w % nW]))   (f32)

@@ -64,26 +64,28 @@ FAMILIES = (
     ("WB-long-bf16 window_attn_bwd long mma dk/dv",
      ("window_attn_bwd_long_mma_kv_kernel",)),
     # the masked forms of the fp32 window-16 kernels (the paper HAT's
-    # shifted windows), kernels and instantiations of their own, before the
-    # unmasked forms' names match them
+    # shifted windows), a kernel and an instantiation (the 3xTF32 backward
+    # with kMask) of their own, before the unmasked forms' names match them
     ("WM-long window_attn_fwd long masked",
      ("window_attn_fwd_long_masked_kernel",)),
-    ("WMB-long window_attn_bwd long masked",
-     ("window_attn_bwd_long_q_kernel<float, true",
-      "window_attn_bwd_long_kv_kernel<float, true")),
+    ("WMB-long window_attn_bwd long tf32 masked",
+     ("window_attn_bwd_long_tf32_q_kernel<true",
+      "window_attn_bwd_long_tf32_kv_kernel<true")),
     # the window-16 forms: W-long, and A-long's projections, attention and
     # (bf16) out-projection
     ("W-long window_attn_fwd long", ("window_attn_fwd_long_kernel",)),
-    # AB-long's attention backward: WB-long's launches on AB's f32 scratch,
-    # forming att (kAtt) and, in bf16, rounding as AB-bf16 (kRnd)
+    # AB-long's attention backward: the window-16 FMA body's launches on
+    # AB's f32 scratch, forming att (kAtt) and, in bf16, rounding as
+    # AB-bf16 (kRnd)
     ("AB-long attention (bf16)",
-     ("window_attn_bwd_long_q_kernel<float, false, true, true",
-      "window_attn_bwd_long_kv_kernel<float, false, true")),
-    ("AB-long attention (fp32) dq",
-     ("window_attn_bwd_long_q_kernel<float, false, true, false",)),
-    # WB-long: the dq / row-statistics and the dk / dv launches (and AB-long
-    # fp32's dk / dv launch, the same instantiation)
-    ("WB-long window_attn_bwd long", ("window_attn_bwd_long",)),
+     ("window_attn_bwd_long_q_kernel<float, true, true",
+      "window_attn_bwd_long_kv_kernel<float, true")),
+    ("AB-long attention (fp32)",
+     ("window_attn_bwd_long_q_kernel<float, true, false",
+      "window_attn_bwd_long_kv_kernel<float, false")),
+    # WB-long (and WB4-long): the 3xTF32 body's dq / row-statistics and
+    # dk / dv launches
+    ("WB-long window_attn_bwd long tf32", ("window_attn_bwd_long_tf32",)),
     ("A-long q/k/v projections", ("ln_qkv_kernel",)),
     ("A-long attention", ("attn_long_kernel",)),
     ("A-long out-proj (bf16)", ("out_proj_kernel<__nv_bfloat16, "

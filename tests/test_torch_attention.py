@@ -588,3 +588,171 @@ def test_bf16_window16_backward_operand_pairs(b, tq, tk, c, nh):
         o, r = pair.to(torch.bfloat16).float(), r.float()
         tol = 2 ** -7 * r.abs() + 2 ** -8 * float(r.abs().max())
         assert bool(((o - r).abs() <= tol).all()), name
+
+
+# (windows, Tq, Tk, C, heads, bias, mask period) for the arithmetic of the
+# fp32 window-16 backward on the tensor cores (3xTF32): the fp32 Ultra
+# step's 256 x 256 and OCAB's 256 x 576 at a head width of 32, and the
+# paper HAT's 256 x 256 at 30 with a bias and a mask of period 2
+TF32_CASES = [(2, 256, 256, 192, 6, False, 0), (2, 256, 576, 192, 6, False, 0),
+              (2, 256, 256, 180, 6, True, 2)]
+# The kernel's contraction slots: k-step j of the scores (and dp) takes
+# head columns 8t + 2j in slot t and 8t + 2j + 1 in slot t + 4; an 8-key
+# (or 8-query) step takes key 2t in slot t and 2t + 1 in slot t + 4; and
+# column n of output tile jn is head column 4n + jn.
+_SLOT_COLS = [8 * t + 2 * j + h for j in range(4) for h in (0, 1)
+              for t in range(4)]
+_SLOT_KEYS = [0, 2, 4, 6, 1, 3, 5, 7]
+_OUT_COLS = [4 * n + jn for jn in range(4) for n in range(8)]
+
+
+def _tf32(x):
+    """x rounded to tf32 as cvt.rna.tf32.f32 rounds it (a 10-bit mantissa,
+    to the nearest, ties away from zero), by bit operations on the f32
+    word."""
+    return ((x.contiguous().view(torch.int32) + 0x1000) & -0x2000).view(
+        torch.float32)
+
+
+def _mma_steps(acc, a, b, three):
+    """acc + a @ b as the kernel's mma.sync m16n8k8 steps form it: the
+    contraction in k-steps of 8 in order, each operand as its pair big =
+    tf32(x), small = tf32(x - big), three products a step (small_a big_b,
+    big_a small_b, big_a big_b; 3xTF32) into f32 sums; without `three`,
+    one product of the rounded operands (1xTF32)."""
+    for j in range(0, a.shape[-1], 8):
+        x, y = a[..., j:j + 8], b[..., j:j + 8, :]
+        xb, yb = _tf32(x), _tf32(y)
+        if three:
+            acc = acc + _tf32(x - xb) @ yb
+            acc = acc + xb @ _tf32(y - yb)
+        acc = acc + xb @ yb
+    return acc
+
+
+def _slots(x, dim):
+    """x with each group of 8 along `dim` in the kernel's key slot order."""
+    idx = torch.tensor([8 * (i // 8) + _SLOT_KEYS[i % 8]
+                        for i in range(x.shape[dim])])
+    return x.index_select(dim, idx)
+
+
+def _tf32_window16_bwd(q, k, v, bias, g, scale, nh, mask, three=True):
+    """WB-long's (WMB-long's with a mask) arithmetic emulated in torch on
+    the packed layout: head columns padded to 32 with zeros; the scores
+    and dp in the column slots; launch 1's online sweep over 16-key chunks
+    in order, each lane t of a quad holding keys 8n + 2t, + 1 of a chunk
+    (the running max, the sum of exponentials and D rescaled when it
+    grows, joined across the quad in a butterfly); ds = p (dp - D) and dq
+    over 8-key steps in key slot order; launch 2's p^T and ds^T from the
+    transposed scores and dp with the stored statistics, dv and dk over
+    8-query steps in order; dbias the sum over the windows in order."""
+    b, tq, c = q.shape
+    tk = k.shape[1]
+    hd = c // nh
+    pad = lambda x: torch.nn.functional.pad(  # noqa: E731
+        ta._heads(x, nh), (0, 32 - hd))
+    qh, kh, vh, gh = (pad(x) for x in (q, k, v, g))
+    col = torch.tensor(_SLOT_COLS)
+    qs, ks, vs, gs = (x[..., col] for x in (qh, kh, vh, gh))
+    zero = torch.zeros(b, nh, tq, tk)
+
+    def fix(s):
+        s = s * scale
+        if bias is not None:
+            s = s + bias
+        if mask is not None:
+            nw = mask.shape[0]
+            s = (s.reshape(-1, nw, nh, tq, tk) + mask[None, :, None]
+                 ).reshape(s.shape)
+        return s
+
+    # launch 1: the scores and dp, then each lane's online sweep
+    s = fix(_mma_steps(zero, qs, ks.transpose(-1, -2), three))
+    dp = _mma_steps(zero, gs, vs.transpose(-1, -2), three)
+    def lane(x):
+        """(..., chunk, lane t, value n e) of 16-key chunks."""
+        return x.reshape(b, nh, tq, tk // 16, 2, 4, 2).permute(
+            0, 1, 2, 3, 5, 4, 6).reshape(b, nh, tq, tk // 16, 4, 4)
+
+    sl, dl = lane(s), lane(dp)
+    mx = torch.full((b, nh, tq, 4), -torch.inf)
+    sm, dd = torch.zeros_like(mx), torch.zeros_like(mx)
+    for ch in range(tk // 16):
+        m = torch.maximum(mx, sl[..., ch, :, :].amax(-1))
+        base = torch.where(m == -torch.inf, 0.0, m)
+        f = torch.exp(mx - base)
+        sm, dd = sm * f, dd * f
+        for i in range(4):
+            p = torch.exp(sl[..., ch, :, i] - base)
+            sm, dd = sm + p, dd + p * dl[..., ch, :, i]
+        mx = m
+    m = mx.amax(-1, keepdim=True)
+    f = torch.where(mx == -torch.inf, 0.0, torch.exp(mx - m))
+    ls, ds_ = sm * f, dd * f
+    l_ = (ls[..., 0] + ls[..., 1]) + (ls[..., 2] + ls[..., 3])
+    inv = 1.0 / l_
+    d_ = ((ds_[..., 0] + ds_[..., 1]) + (ds_[..., 2] + ds_[..., 3])) * inv
+    m = m[..., 0]
+    p = torch.exp(s - m[..., None]) * inv[..., None]
+    ds = p * (dp - d_[..., None])
+    out = torch.tensor(_OUT_COLS)
+    back = torch.argsort(out)
+    dq = _mma_steps(torch.zeros(b, nh, tq, 32), _slots(ds, -1),
+                    _slots(kh, -2)[..., out], three)[..., back] * scale
+    # launch 2: the transposed scores and dp with the stored statistics
+    zt = zero.transpose(-1, -2)
+    st = fix(_mma_steps(zt, ks, qs.transpose(-1, -2), three).transpose(
+        -1, -2)).transpose(-1, -2)
+    pt = torch.exp(st - m[..., None, :]) * (1.0 / l_)[..., None, :]
+    dpt = _mma_steps(zt, vs, gs.transpose(-1, -2), three)
+    dst = pt * (dpt - d_[..., None, :])
+    zk = torch.zeros(b, nh, tk, 32)
+    dv = _mma_steps(zk, _slots(pt, -1), _slots(gh, -2)[..., out],
+                    three)[..., back]
+    dk = _mma_steps(zk, _slots(dst, -1), _slots(qh, -2)[..., out],
+                    three)[..., back] * scale
+    dbias = None
+    if bias is not None:
+        dbias = ds[0]
+        for w in range(1, b):
+            dbias = dbias + ds[w]
+    return (*(ta._merge(x[..., :hd]) for x in (dq, dk, dv)), dbias)
+
+
+@pytest.mark.parametrize("b,tq,tk,c,nh,bias,nw", TF32_CASES)
+def test_fp32_window16_backward_tf32_arithmetic(b, tq, tk, c, nh, bias, nw):
+    """WB-long's and WMB-long's precision design emulated in torch (the
+    3xTF32 products in their slot orders, launch 1's online sweep and
+    launch 2's transposed recompute): dq, dk, dv and dbias within 1e-4 of
+    each tensor's max|ref| of jax.vjp of window_attention_packed (K12, K13b
+    with the mask, in interpret mode) and of the plain backward, the card
+    tests' budget. Prints each one's distance from a float64 reference,
+    and 1xTF32's (each operand rounded once), which is not asserted."""
+    q, k, v, bs, g = (None if x is None else torch.from_numpy(x)
+                      for x in _inputs(b, tq, tk, c, nh, bias, seed=17))
+    mask = torch.from_numpy(_mask(nw, tq, tk, seed=18)) if nw else None
+    scale = (c // nh) ** -0.5
+    emu = _tf32_window16_bwd(q, k, v, bs, g, scale, nh, mask)
+    plain = ta.window_attention_packed_bwd_plain(q, k, v, bs, g, scale, nh,
+                                                 mask)
+    jops = [jnp.asarray(x.numpy()) for x in (q, k, v)] + (
+        [jnp.asarray(bs.numpy())] if bias else [])
+    _, vjp = jax.vjp(lambda *a: jattn(
+        *a[:3], a[3] if bias else None, num_heads=nh,
+        window_mask=None if mask is None else jnp.asarray(mask.numpy())),
+        *jops)
+    jgrads = [torch.from_numpy(np.array(x)) for x in vjp(
+        jnp.asarray(g.numpy()))]
+    wide = ta.window_attention_packed_bwd_plain(
+        *(x.double() for x in (q, k, v)), None if bs is None else bs.double(),
+        g.double(), scale, nh, None if mask is None else mask.double())
+    one = _tf32_window16_bwd(q, k, v, bs, g, scale, nh, mask, three=False)
+    for i, name in enumerate(("dq", "dk", "dv", "dbias")[:3 + bias]):
+        for ref in (jgrads[i], plain[i]):
+            top = float(ref.abs().max())
+            assert float((emu[i] - ref).abs().max()) <= 1e-4 * top, name
+        dist = [float((x[i] - wide[i]).abs().max() / wide[i].abs().max())
+                for x in (emu, one, plain)]
+        print(f"{name}: 3xTF32 {dist[0]:.2e}, 1xTF32 {dist[1]:.2e}, plain "
+              f"fp32 {dist[2]:.2e} of max|float64 ref|")

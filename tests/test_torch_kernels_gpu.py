@@ -660,8 +660,9 @@ def test_window_attn_long_matches_plain_and_repeats(cuda, b, tq, tk, c, nh,
 # window-16 forms of WB: a HAB's and the Ultra decoder's 256 x 256 and an
 # OCAB's 256 x 576 (6 heads of 32, cut to 9 and 5 windows) in both types,
 # a ragged query and key tile with a bias in both types, and a head width
-# below 32; and the edges of WB-long-bf16's tensor-core tiling: a head
-# width of 24 with Tk not a multiple of 16, and three keys
+# below 32; and the edges of the tensor-core tilings in both types: a head
+# width of 24 with Tk not a multiple of 16 (fp32 also with a bias and Tk
+# not a multiple of 8), and three keys
 LONG_BWD_CASES = [(9, 256, 256, 192, 6, False, torch.bfloat16),
                   (5, 256, 576, 192, 6, False, torch.bfloat16),
                   (9, 256, 256, 192, 6, False, torch.float32),
@@ -670,7 +671,9 @@ LONG_BWD_CASES = [(9, 256, 256, 192, 6, False, torch.bfloat16),
                   (3, 130, 300, 180, 6, True, torch.bfloat16),
                   (4, 200, 161, 96, 4, False, torch.float32),
                   (4, 200, 161, 96, 4, False, torch.bfloat16),
-                  (2, 161, 3, 64, 2, False, torch.bfloat16)]
+                  (3, 170, 203, 72, 3, True, torch.float32),
+                  (2, 161, 3, 64, 2, False, torch.bfloat16),
+                  (2, 161, 3, 64, 2, False, torch.float32)]
 
 
 @pytest.mark.parametrize("b,tq,tk,c,nh,bias,dt", LONG_BWD_CASES)
@@ -714,7 +717,8 @@ def test_window_attn_long_bwd_matches_plain_and_repeats(cuda, b, tq, tk, c,
 # and at 144 tokens without a bias, 144 queries against 100 keys, 49 and 160
 # tokens and a head width of 16; WM-long and WMB-long at the paper HAT's
 # 256 x 256 (period 9 and its inference's one class a window, cut), fp32
-# and bf16; a ragged query and key tile; no bias and a head width below 32
+# and bf16; a ragged query and key tile; no bias and a head width below 32;
+# WMB-long at the paper HAT's head width of 30 with Tq != Tk
 MASKED_FORM_CASES = [(72, 36, 64, 64, 180, 6, True, torch.bfloat16),
                      (48, 48, 64, 64, 180, 6, True, torch.bfloat16),
                      (8, 4, 144, 144, 192, 6, False, torch.bfloat16),
@@ -726,7 +730,8 @@ MASKED_FORM_CASES = [(72, 36, 64, 64, 180, 6, True, torch.bfloat16),
                      (18, 9, 256, 256, 180, 6, True, torch.bfloat16),
                      (12, 12, 256, 256, 180, 6, True, torch.bfloat16),
                      (4, 2, 130, 300, 180, 6, True, torch.float32),
-                     (6, 3, 256, 256, 96, 4, False, torch.bfloat16)]
+                     (6, 3, 256, 256, 96, 4, False, torch.bfloat16),
+                     (4, 2, 200, 264, 180, 6, True, torch.float32)]
 
 
 @pytest.mark.parametrize("b,nw,tq,tk,c,nh,bias,dt", MASKED_FORM_CASES)
@@ -779,8 +784,9 @@ def test_window_attn_masked_forms_match_plain_and_repeat(cuda, b, nw, tq, tk,
 def test_window_attn_bwd_kernels_do_not_spill(cuda):
     """ptxas's report of WB's source (WB, WMB, WB-bf16 and the window-16
     forms), and the attention kernels of AB's source (AB's WB body, and
-    AB-long's WB-long launches in their att and bf16-rounding
-    instantiations): no kernel spills a register to local memory."""
+    AB-long's launches of the window-16 FMA body in their att and
+    bf16-rounding instantiations): no kernel spills a register to local
+    memory."""
     import re
 
     from gsasr_torch.ops import _build
@@ -800,7 +806,7 @@ def test_window_attn_bwd_kernels_do_not_spill(cuda):
         assert spills and all(v == ("0", "0") for v in spills.values()), \
             spills
         if key:
-            assert sum("window_attn_bwd_long_q_kernelIfLb0ELb1E" in k
+            assert sum("window_attn_bwd_long_q_kernelIfLb1E" in k
                        for k in spills) == 2, sorted(spills)
 
 
@@ -1057,11 +1063,13 @@ def test_exact_and_4d_kernels_do_not_spill(cuda):
 
 
 def test_window16_bf16_mma_kernels_fit(cuda):
-    """ptxas's report: the tensor-core bodies of the bf16 window-16 forms
+    """ptxas's report: the tensor-core bodies of the window-16 forms
     (W-long-bf16, WM-long-bf16, W4-long-bf16 and A-long-bf16's attention;
     WB-long-bf16's two launches and their masked and head-major forms) use
-    at most 128 registers, so four 128-thread blocks fit an SM, and spill
-    none."""
+    at most 128 registers, so four 128-thread blocks fit an SM, and the
+    fp32 backward's 3xTF32 body (WB-long's two launches and their WMB-long
+    and WB4-long forms) at most 168, three blocks; none spills, and no
+    fp32 instantiation of the FMA backward body is left in WB's source."""
     import re
 
     from gsasr_torch.ops import _build
@@ -1075,7 +1083,10 @@ def test_window16_bf16_mma_kernels_fit(cuda):
             m = re.search(r"Compiling entry function '(\w+)'", line)
             if m:
                 name = m.group(1)
-            if not name or "_long_mma_" not in name:
+                assert "window_attn_bwd_long_q_kernel" not in name and \
+                    "window_attn_bwd_long_kv_kernel" not in name, name
+            if not name or ("_long_mma_" not in name
+                            and "_long_tf32_" not in name):
                 continue
             sp = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill "
                            r"loads", line)
@@ -1084,11 +1095,11 @@ def test_window16_bf16_mma_kernels_fit(cuda):
             reg = re.search(r"Used (\d+) registers", line)
             if reg and (src, name) in found:
                 found[src, name].append(int(reg.group(1)))
-    # forward: three flag pairs and A-long's; backward: two launches each
-    # of three flag pairs
-    assert len(found) == 10, sorted(found)
-    assert all(sp == ("0", "0") and r <= 128 for sp, r in found.values()), \
-        found
+    # forward: three flag pairs and A-long's; backward, bf16 and fp32: two
+    # launches each of three flag pairs
+    assert len(found) == 16, sorted(found)
+    assert all(sp == ("0", "0") and r <= (168 if "_tf32_" in name else 128)
+               for (_, name), (sp, r) in found.items()), found
 
 
 def test_short_bf16_mma_kernels_fit(cuda):
