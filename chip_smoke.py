@@ -21,7 +21,9 @@
 6. Training kernel phase (TF32 off): W, WB and RB against their plain
    versions at the paper training step's shapes (256 windows of 144 tokens;
    the 3072x192 slot canvas of 16 samples), WB and RB twice for bitwise
-   repeatability, with times, bounds and the SDPA yardstick for W and WB.
+   repeatability, with times, bounds (WB's products in 3xTF32 at the TF32
+   peak: it runs the 3xTF32 tensor-core body window_attn_short_tf32_bwd.cuh)
+   and the SDPA yardstick for W and WB.
 7. Fused training kernel phase (TF32 off): MB and AB against their plain
    versions at the training step's shapes, for each option set the fused
    decoder uses, and T (the bias-table gradient) for both tables; each
@@ -81,9 +83,11 @@
    M and 44 A-long per forward: its decoder takes 256 seeds in windows of
    16).
 22. Ultra kernel phase (TF32 off): the window-16 forms W-long (a HAB's
-   144 windows x 256 x 256 and an OCAB's 256 x 576, fp32; and
-   W-long-bf16) and A-long (RoPE cross- and self-attention at T = 256,
-   bf16 and fp32) against their plain versions, each twice for bitwise
+   144 windows x 256 x 256 and an OCAB's 256 x 576, fp32, on the 3xTF32
+   tensor-core body window_attn_long_tf32.cuh, its time beside the FMA
+   body's as recorded; and W-long-bf16) and A-long (RoPE cross- and
+   self-attention at T = 256, bf16 and fp32, whose attention is W-long's
+   body) against their plain versions, each twice for bitwise
    repeatability, with times, bounds and SDPA as W-long's yardstick.
 23. HAT-L Ultra: make_models("hat", "ultra"), sr_forward with denominator
    16 on the three requests of phase 3 (84 W-long, 64 A-long, 140 M, no
@@ -129,16 +133,16 @@
    180 channels, 6 heads of 30, mask period 36) and inference shape (576
    windows, period 576); WM-long and WMB-long, fp32 and bf16 (the
    window-16 masked forms; in bf16 the tensor-core bodies with their mask
-   flag, WMB-long the fp32 backward's 3xTF32 body with it, its time beside
-   the FMA body's as recorded), at the paper HAT's training shape (144
+   flag, in fp32 the 3xTF32 bodies with it, their times beside the FMA
+   bodies' as recorded), at the paper HAT's training shape (144
    windows of 256 tokens, period 9) and inference shape (period 144); each
    with the bias of a shifted block's table, against its plain version,
    twice for bitwise repeatability, with times, bounds, SDPA with the bias
-   and mask as a float mask, and ptxas's registers: W-long's and A-long's
-   fp32 kernels and the window-16 tensor-core bodies' (the fp32 backward's
-   among them) beside the recorded ones, and the tensor-core bodies up to
-   160 tokens (a tensor-core body that is missing or spills fails the
-   phase).
+   and mask as a float mask, and ptxas's registers: the window-16
+   tensor-core bodies' (the fp32 3xTF32 forward and backward among them,
+   A-long's projections beside them) beside the recorded ones, and the
+   tensor-core bodies up to 160 tokens (a tensor-core body that is missing
+   or spills fails the phase).
 30. SwinIR at its bf16 recipe: Trainer.step of configs/train_swinir_amp.yml
    (written out as ENHANCED_TRAIN and enhanced_networks("swinir")) at batch
    16, as phase 8 (W-bf16 18, WM-bf16 18, W-long-bf16 44, WB-bf16 18,
@@ -189,9 +193,11 @@
    same Gaussians, twice for bits, with its ms, bound, memberships and
    used chunks; one backward against binning="auto"'s gradients.
 38. 4D window attention (TF32 off): W4 and WB4 (K14, K14b; bf16 forms and
-   the window-16 bodies: in fp32 W's, WB's and W-long's FMA bodies and
-   WB-long's 3xTF32 tensor-core body, its time beside the FMA body's as
-   recorded, in bf16 the tensor-core bodies, all with the head-major flag)
+   the window-16 bodies: in fp32 W's FMA body up to 160 tokens, W-long's
+   3xTF32 tensor-core body beyond, WB's 3xTF32 body up to 160 tokens and
+   WB-long's beyond,
+   their times beside the FMA bodies' as recorded, in bf16 the tensor-core
+   bodies, all with the head-major flag)
    against their plain versions at the decoder's window (225 and 256
    windows x 6 heads x 144 x 30 fp32, 32 bf16) and HAT's (128 x 6 x 256 x
    32, fp32 and bf16, with and without a bias),
@@ -428,24 +434,38 @@ SWINIR_FUSED_TRAIN_COUNTS = dict(
     {k: 0 for k in TRAIN_COUNTS}, R=1, RB=1, T=36, M=96, MB=96,
     **{"W-bf16": 18, "WM-bf16": 18, "WB-bf16": 18, "WMB-bf16": 18,
        "A-long": 44, "AB-long": 44})
-# ptxas registers of the earlier window-16 kernels as PERF.md §6 records
-# them (W-long's; A-long's projections in both types and its fp32
-# attention; the dq and dk/dv launches of WB-long, WMB-long and WB4-long,
-# the fp32 backward's 3xTF32 tensor-core body): the template flags of the
-# masked forms and of AB-long, and the bf16 forms' move to the tensor-core
-# bodies, must leave them as they were.
-LONG_REGS_RECORDED = {"W-long": (128,), "A-long": (114, 114, 128),
+# ptxas registers of the fp32 window-16 kernels as PERF.md §6 records them
+# (the 3xTF32 forward's W-long and WM-long; A-long's projections in both
+# types and its fp32 attention, W-long's kernel; the dq and dk/dv launches
+# of WB-long, WMB-long and WB4-long, the fp32 backward's 3xTF32 body): the
+# template flags of the masked forms and of AB-long, and the forms' moves
+# to other bodies, must leave them as they were.
+LONG_REGS_RECORDED = {"W-long": (141,), "WM-long": (146,),
+                      "A-long": (114, 114, 141),
                       "WB-long": (156, 167), "WMB-long": (152, 168),
                       "WB4-long": (152, 166)}
 # AB-long's two launches of the window-16 FMA backward body, in fp32 and
 # with AB-long-bf16's rounding, as PERF.md §6 records them.
 AB_LONG_REGS_RECORDED = {"AB-long": (130, 179), "AB-long-bf16": (130, 179)}
-# The times PERF.md §6 records for the fp32 window-16 backward on the FMA
-# body of window_attn_long_bwd.cuh (NVIDIA H100 80GB HBM3 at 700.00 W),
-# printed beside the 3xTF32 body's by the phases that time it: by (form,
-# case) as the Ultra training, masked and 4D attention phases name their
+# The times PERF.md §6 records for the fp32 window attentions on their FMA
+# bodies (NVIDIA H100 80GB HBM3 at 700.00 W): the window-16 backward
+# (window_attn_long_bwd.cuh) and forward (W-long's, A-long's attention),
+# and WB and WMB up to 160 tokens (window_attn_bwd.cuh), printed beside the
+# 3xTF32 bodies' by the phases that time them: by (form, case) as the
+# Ultra, Ultra training, SwinIR, masked and 4D attention phases name their
 # rows.
-FMA_BWD_MS = {("WB-long", "HAB and decoder 256x256"): 2.660,
+FMA_MS = {("W-long", "HAB 256x256"): 0.826, ("W-long", "OCAB 256x576"): 1.881,
+          ("A-long", "rope_cross float32"): 1.630,
+          ("A-long", "rope_self float32"): 1.587,
+          ("WM-long", "paper HAT training 16x48x48"): 1.092,
+          ("WM-long", "paper HAT inference 192x192"): 0.988,
+          ("W4", "window 16 128x6x256x32 float32"): 0.7686,
+          ("W4", "window 16 128x6x256x32 float32, no bias"): 0.7479,
+          ("WB", "swinir T=64"): 0.802,
+          ("WMB", "training 16x48x48"): 0.7753,
+          ("WMB", "inference 192x192"): 0.7805,
+          ("WB4", "training 256x6x144x30 float32"): 1.2235,
+          ("WB-long", "HAB and decoder 256x256"): 2.660,
               ("WB-long", "OCAB 256x576"): 6.170,
               ("WMB-long", "paper HAT training 16x48x48"): 4.543,
               ("WMB-long", "paper HAT inference 192x192"): 4.083,
@@ -1142,10 +1162,11 @@ def train_kernel_phase(enc, dec, dev):
             *bargs), 5)
         if why:
             print(f"  WB {name} library: null ({why})", flush=True)
-        # five products: the recomputed scores, dp, dv, dq and dk
-        bound, by = _bound_ms(10.0 * b * nh * t * tk * hd,
+        # five products: the recomputed scores, dp, dv, dq and dk, each
+        # three TF32 products on WB's 3xTF32 tensor-core body
+        bound, by = _bound_ms(30.0 * b * nh * t * tk * hd,
                               4 * (3 * b * t * c + 4 * b * tk * c
-                                   + 2 * nh * t * tk))
+                                   + 2 * nh * t * tk), PEAK_TF32)
         results["WB"].append(dict(case=name, per_step=per_step,
                                   max_abs_err=err, ms=ms, plain_ms=plain,
                                   bound_ms=bound, bound_by=by,
@@ -1323,8 +1344,10 @@ def swinir_kernel_phase(enc, dev):
     """WM and WMB against their plain versions at SwinIR's inference shape
     (one 192x192 map: 576 windows, each its own mask class) and training
     shape (16 samples of 48x48: 576 windows, mask period 36), WMB twice to
-    show the bits repeat; W and WB at T = 64 beside them. The bias is the
-    encoder's first shifted block's table."""
+    show the bits repeat; W and WB at T = 64 beside them (WB and WMB on the
+    3xTF32 tensor-core body up to 160 tokens, bound by their products in
+    3xTF32 at the TF32 peak or the bytes, their times beside the FMA body's
+    as recorded). The bias is the encoder's first shifted block's table."""
     from gsasr_torch.models.swinir import swin_attn_mask
     from gsasr_torch.ops import attention as ta
 
@@ -1378,9 +1401,10 @@ def swinir_kernel_phase(enc, dev):
             q, k, v, bias, g, scale, nh, mask), 5)
         if why:
             print(f"  WMB {name} library: null ({why})", flush=True)
-        # five products; bytes: q, g, dq, k, v, dk, dv, bias, dbias, mask
-        bound, by = _bound_ms(10.0 * b * nh * t * t * hd,
-                              7 * act + 4 * (2 * nh + nw) * t * t)
+        # five products, three TF32 products each on the 3xTF32 body;
+        # bytes: q, g, dq, k, v, dk, dv, bias, dbias, mask
+        bound, by = _bound_ms(30.0 * b * nh * t * t * hd,
+                              7 * act + 4 * (2 * nh + nw) * t * t, PEAK_TF32)
         results["WMB"].append(dict(
             case=name, nW=nw, windows=b, max_abs_err=err, ms=ms,
             plain_ms=plain, bound_ms=bound, bound_by=by, library_ms=lib_b,
@@ -1403,8 +1427,8 @@ def swinir_kernel_phase(enc, dev):
                          ("dq", "dk", "dv", "dbias"), "WB T=64")
     ms = _time_ms(lambda: ta.window_attention_packed_bwd(*bargs), 10)
     plain = _time_ms(lambda: ta.window_attention_packed_bwd_plain(*bargs), 5)
-    bound, by = _bound_ms(10.0 * b * nh * t * t * hd,
-                          7 * act + 8 * nh * t * t)
+    bound, by = _bound_ms(30.0 * b * nh * t * t * hd,
+                          7 * act + 8 * nh * t * t, PEAK_TF32)
     results["WB"].append(dict(case="swinir T=64", per_step=18,
                               max_abs_err=err, ms=ms, plain_ms=plain,
                               bound_ms=bound, bound_by=by, library_ms=lib_b,
@@ -1413,9 +1437,11 @@ def swinir_kernel_phase(enc, dev):
         for r in rows:
             lib = "null" if r["library_ms"] is None else \
                 f"{r['library_ms']:.4f}"
+            fma = FMA_MS.get((k, r["case"]))
+            was = "" if fma is None else f", FMA body as recorded {fma}"
             print(f"  {k} {r['case']}: {r['ms']:.4f} ms (plain "
                   f"{r['plain_ms']:.4f}, bound {r['bound_ms']:.4f} by "
-                  f"{r['bound_by']}, library {lib})", flush=True)
+                  f"{r['bound_by']}, library {lib}{was})", flush=True)
     return results
 
 
@@ -2070,12 +2096,14 @@ def enhanced_train_card_vs_cpu(dev, fused: bool = False,
 def ultra_kernel_phase(dec, dev):
     """The window-16 forms against their plain versions at the HAT-L Ultra
     path's shapes (one 192x192 padded map: 144 windows): W-long at a HAB's
-    256 x 256 and an OCAB's 256 x 576 (6 heads of 32, no bias) and
+    256 x 256 and an OCAB's 256 x 576 (6 heads of 32, no bias; the 3xTF32
+    tensor-core body, its time beside the FMA body's as recorded) and
     W-long-bf16 at 256 x 256, with SDPA in the kernel's type as the
     yardstick; A-long in the decoder's RoPE cross- and self-attention forms
-    at T = 256, bf16 (the path's trunk) and fp32, with the Ultra decoder's
-    weights and tables. W-long and A-long twice each for bitwise
-    repeatability. per_image: launches per Ultra image."""
+    at T = 256, bf16 (the path's trunk) and fp32 (its attention on W-long's
+    body), with the Ultra decoder's weights and tables. W-long and A-long
+    twice each for bitwise repeatability. per_image: launches per Ultra
+    image."""
     from gsasr_torch.models.fea2gs_fast import _attn, _ln
     from gsasr_torch.models.fea2gs_rope_fast import rope_tables
     from gsasr_torch.ops import attention as ta
@@ -2109,9 +2137,11 @@ def ultra_kernel_phase(dec, dev):
         plain = _time_ms(lambda: ta.window_attention_packed_plain(*fargs), 5)
         lib_f, _, _ = _sdpa_ms(q, k, v, None, g, nh, scale)
         act = 2 if dt == bf16 else 4
-        bound, by = _bound_ms(4.0 * b * nh * t * tk * hd,
+        # the two products; in fp32 three TF32 products each (3xTF32)
+        bound, by = _bound_ms((4.0 if dt == bf16 else 12.0)
+                              * b * nh * t * tk * hd,
                               act * (2 * b * t * c + 2 * b * tk * c),
-                              PEAK_BF16 if dt == bf16 else PEAK_FP32)
+                              PEAK_BF16 if dt == bf16 else PEAK_TF32)
         results[key].append(dict(
             case=name, dtype=str(dt).replace("torch.", ""), windows=b,
             per_image=per_image, max_abs_err=err, ms=ms, plain_ms=plain,
@@ -2144,7 +2174,11 @@ def ultra_kernel_phase(dec, dev):
         ms = _time_ms(lambda: fl.ln_attn_proj_long(xd, **kw), 10)
         plain = _time_ms(lambda: fl.ln_attn_proj_plain(xd, **kw), 5)
         act = 2 if dt == bf16 else 4
-        flops = 2.0 * b * (4 * t * c * c + 2 * t * t * c)
+        # the four projections and the attention's two products; in fp32
+        # the projections on the CUDA cores and the attention in 3xTF32,
+        # counted here as operations at the FP32 peak that take as long
+        proj, att = 8.0 * b * t * c * c, 4.0 * b * t * t * c
+        flops = proj + (att if dt == bf16 else 3 * att * PEAK_FP32 / PEAK_TF32)
         nbytes = (act * (b * t * c * (3 if "kv" in kw else 2)
                          + (t * c if "pos" in kw else 0))
                   + 4 * (4 * c * c + 6 * c + 4 * t * c))
@@ -2158,10 +2192,13 @@ def ultra_kernel_phase(dec, dev):
         for r in rows:
             lib = "null" if r["library_ms"] is None else \
                 f"{r['library_ms']:.4f}"
+            fma = FMA_MS.get((k, r["case"]), FMA_MS.get(
+                (k, f"{r['case']} {r['dtype']}")))
+            was = "" if fma is None else f", FMA body as recorded {fma}"
             print(f"  {k} {r['case']} {r['dtype']}: {r['ms']:.4f} ms (plain "
                   f"{r['plain_ms']:.4f}, bound {r['bound_ms']:.4f} by "
-                  f"{r['bound_by']}, SDPA {lib}) x{r['per_image']} per Ultra "
-                  "image", flush=True)
+                  f"{r['bound_by']}, SDPA {lib}{was}) x{r['per_image']} per "
+                  "Ultra image", flush=True)
     return results
 
 
@@ -2368,7 +2405,7 @@ def ultra_train_kernel_phase(enc, dec, dev):
         for r in results[k]:
             lib = "null" if r["library_ms"] is None else \
                 f"{r['library_ms']:.4f}"
-            fma = FMA_BWD_MS.get((k, r["case"]))
+            fma = FMA_MS.get((k, r["case"]))
             was = "" if k != "WB-long" else f", FMA body as recorded {fma}"
             print(f"  {k} {r['case']}: {r['ms']:.4f} ms (plain "
                   f"{r['plain_ms']:.4f}, bound {r['bound_ms']:.4f} by "
@@ -2451,17 +2488,19 @@ def ultra_train_card_vs_cpu(dev, fused: bool = False):
 
 # Each form's kernels in ptxas's report: (a substring of the mangled name,
 # a substring of its template arguments or ""), one pair per kernel. The
-# window-16 backward's tensor-core bodies take (kMask, kHM): in fp32 (3xTF32)
-# WB-long, WMB-long and WB4-long, in bf16 their -bf16 forms.
+# window-16 tensor-core bodies take (kMask, kHM): in fp32 (3xTF32) W-long,
+# WM-long (and A-long's fp32 attention, W-long's kernel) and WB-long,
+# WMB-long and WB4-long, in bf16 their -bf16 forms.
 REG_KEYS = {
     # the tensor-core bodies up to 160 tokens, by their flags (kMask, kHM)
     # and in their three register-array sizes
     "WM-bf16": [("window_attn_fwd_short_mma_kernel", "ILb1ELb0E")],
     "WMB-bf16": [("window_attn_bwd_short_mma_kernel", "ILb1ELb0E")],
-    "WM-long": [("window_attn_fwd_long_masked_kernel", "IfE")],
+    "WM-long": [("window_attn_fwd_long_tf32_kernel", "ILb1ELb0E")],
     "WMB-long": [("window_attn_bwd_long_tf32_", "ILb1ELb0E")],
-    "W-long": [("window_attn_fwd_long_kernel", "")],
-    "A-long": [("ln_qkv_kernel", ""), ("attn_long_kernel", "")],
+    "W-long": [("window_attn_fwd_long_tf32_kernel", "ILb0ELb0E")],
+    "A-long": [("ln_qkv_kernel", ""),
+               ("window_attn_fwd_long_tf32_kernel", "ILb0ELb0E")],
     "WB-long": [("window_attn_bwd_long_tf32_", "ILb0ELb0E")],
     "WB4-long": [("window_attn_bwd_long_tf32_", "ILb0ELb1E")],
     # the tensor-core bodies, by their flags (kMask, kHM)
@@ -2473,17 +2512,19 @@ REG_KEYS = {
     "WB4-long-bf16": [("window_attn_bwd_long_mma_", "ILb0ELb1E")],
 }
 # The fp32 T <= 160 forms of W and WB (whose bodies W4 and WB4 share) with
-# their registers as recorded before the 4D forms joined their sources,
-# printed by the 4D attention phase beside the 4D kernels'. (Their bf16
+# their registers as recorded, printed by the 4D attention phase beside the
+# 4D kernels': W's and WM's FMA body, and WB's and WMB's 3xTF32 body in its
+# two block sizes (once 99 and 80 registers on the FMA body). (Their bf16
 # forms, once W-bf16 64 and WB-bf16 99 registers on the FMA body, run the
 # tensor-core bodies of SHORT_REG_KEYS.)
 PACKED_REG_KEYS = {
     "W": [("window_attn_fwd_kernel", "")],
     "WM": [("window_attn_fwd_masked_kernel", "")],
-    "WB": [("window_attn_bwd_kernel", "ILb0ELb0EfLb0E")],
-    "WMB": [("window_attn_bwd_kernel", "ILb0ELb1EfLb0E")],
+    "WB": [("window_attn_bwd_short_tf32_kernel", "ILb0ELb0E")],
+    "WMB": [("window_attn_bwd_short_tf32_kernel", "ILb1ELb0E")],
 }
-PACKED_REGS_RECORDED = {"W": (64,), "WM": (64,), "WB": (99,), "WMB": (80,)}
+PACKED_REGS_RECORDED = {"W": (64,), "WM": (64,), "WB": (157, 157),
+                        "WMB": (154, 154)}
 # The bf16 forms up to 160 tokens on the tensor cores
 # (window_attn_short_mma.cuh, window_attn_short_mma_bwd.cuh): each flag
 # pair (kMask, kHM) in its three register-array sizes (4, 9 and 10 chunks
@@ -2499,13 +2540,13 @@ SHORT_REG_KEYS = {
 }
 
 
-# AB's attention (WB's body with att: fp32, and AB-bf16's rounding) and
-# AB-long's two launches of the window-16 FMA body in ptxas's report of
-# ln_attn_bwd.cu: (T, kAtt, kRnd) for the dq launch, (T, kRnd) for the
-# dk/dv launch.
+# AB's attention (the FMA body of window_attn_bwd.cuh: fp32, and AB-bf16's
+# rounding, (T, kRnd)) and AB-long's two launches of the window-16 FMA body
+# in ptxas's report of ln_attn_bwd.cu: (T, kAtt, kRnd) for the dq launch,
+# (T, kRnd) for the dk/dv launch.
 AB_REG_KEYS = {
-    "AB": [("window_attn_bwd_kernel", "ILb1ELb0EfLb0E"),
-           ("window_attn_bwd_kernel", "ILb1ELb0EfLb1E")],
+    "AB": [("window_attn_bwd_kernelIfLb0E", ""),
+           ("window_attn_bwd_kernelIfLb1E", "")],
     "AB-long": [("window_attn_bwd_long_q_kernel", "IfLb1ELb0EE"),
                 ("window_attn_bwd_long_kv_kernel", "IfLb0EE")],
     "AB-long-bf16": [("window_attn_bwd_long_q_kernel", "IfLb1ELb1EE"),
@@ -2528,10 +2569,11 @@ def masked_kernel_phase(enc_s, enc_h, dev):
     at the paper HAT's (window 16: 144 windows of 256 tokens, period 9 in
     training and 144 at inference); 180 channels, 6 heads of 30, the bias
     of the encoder's first shifted block (the bf16 window-16 forms on the
-    tensor-core bodies; WMB-long on the fp32 backward's 3xTF32 tensor-core
-    body, its time beside the FMA body's that PERF.md records). Each twice
-    for bitwise repeatability, with its time, plain time, bound in its type
-    (WMB-long: its five products in 3xTF32 at the TF32 peak), SDPA (the
+    tensor-core bodies; WM-long and WMB-long on the fp32 3xTF32 tensor-core
+    bodies, their times beside the FMA bodies' that PERF.md records). Each
+    twice for bitwise repeatability, with its time, plain time, bound in its
+    type (WM-long, WMB-long: their products in 3xTF32 at the TF32 peak),
+    SDPA (the
     bias plus the mask as a float mask in the operands' type) forward and
     backward, and ptxas's registers; then W-long's, A-long's and the fp32
     backward's registers and the tensor-core bodies' beside the recorded
@@ -2599,10 +2641,12 @@ def masked_kernel_phase(enc_s, enc_h, dev):
         lib_f, lib_b, why = _sdpa_ms(q, k, v, full, g, nh, scale)
         act = 2 if isbf else 4
         peak = PEAK_BF16 if isbf else PEAK_FP32
-        # bytes: q, k, v, out in the operands' type; the f32 bias and mask
-        bound, by = _bound_ms(4.0 * b * nh * t * t * hd,
+        # the two products (fp32, all beyond 160 tokens here: three TF32
+        # products each, 3xTF32); bytes: q, k, v, out in the operands'
+        # type, the f32 bias and mask
+        bound, by = _bound_ms((4.0 if isbf else 12.0) * b * nh * t * t * hd,
                               act * 4 * b * t * c + 4 * (nh + nw) * t * t,
-                              peak)
+                              peak if isbf else PEAK_TF32)
         results[kf].append(dict(
             case=name, dtype=str(dt).replace("torch.", ""), nW=nw,
             windows=b, max_abs_err=err, ms=ms, plain_ms=plain,
@@ -2644,7 +2688,7 @@ def masked_kernel_phase(enc_s, enc_h, dev):
             lib = "null" if r["library_ms"] is None else \
                 f"{r['library_ms']:.4f}"
             per = r.get("per_image", r.get("per_step"))
-            fma = FMA_BWD_MS.get((key, r["case"]))
+            fma = FMA_MS.get((key, r["case"]))
             was = "" if fma is None else f", FMA body as recorded {fma}"
             print(f"  {key} {r['case']}: {r['ms']:.4f} ms (plain "
                   f"{r['plain_ms']:.4f}, bound {r['bound_ms']:.4f} by "
@@ -2677,8 +2721,8 @@ def masked_kernel_phase(enc_s, enc_h, dev):
           f"{ {k: sorted(v) for k, v in short.items()} } (the FMA body "
           f"they replace: W-bf16, WM-bf16 64, WB-bf16 99, WMB-bf16 80)",
           flush=True)
-    spilled = {k: r for form in (*MMA_REGS_RECORDED, "WB-long", "WMB-long",
-                                 "WB4-long")
+    spilled = {k: r for form in (*MMA_REGS_RECORDED, "W-long", "WM-long",
+                                 "WB-long", "WMB-long", "WB4-long")
                for k, r in _form_regs(regs, form).items() if r[1] or r[2]}
     spilled.update({k: r for form in SHORT_REG_KEYS
                     for k, r in _form_regs(regs, form,
@@ -2988,15 +3032,16 @@ ATTN4_SHAPES = [("decoder window, inference", 225, 144, 30, torch.float32,
                 ("window 16", 128, 256, 32, torch.float32, False, True),
                 ("window 16", 128, 256, 32, torch.bfloat16, True, True),
                 ("window 16", 128, 256, 32, torch.bfloat16, False, True)]
-# The 4D forms' kernels in ptxas's reports: W's and W-long's bodies on the
-# head-major layout, WB's, and WB-long's two launches with kHM set (the
-# tensor-core bodies: 3xTF32 in fp32).
+# The 4D forms' kernels in ptxas's reports: W's FMA body on the head-major
+# layout, and the tensor-core bodies with kHM set (3xTF32 in fp32: W-long's
+# forward beyond 160 tokens, WB's body in its two block sizes up to 160 and
+# WB-long's two launches beyond).
 FOURD_REG_KEYS = {
     "W4": [("window_attn_fwd_4d_kernelIf", ""),
-           ("window_attn_fwd_4d_long_kernelIf", "")],
+           ("window_attn_fwd_long_tf32_kernel", "ILb0ELb1E")],
     "W4-bf16": [("window_attn_fwd_short_mma_kernel", "ILb0ELb1E"),
                 ("window_attn_fwd_long_mma_kernel", "ILb0ELb1E")],
-    "WB4": [("window_attn_bwd_4d_kernelIf", ""),
+    "WB4": [("window_attn_bwd_short_tf32_kernel", "ILb0ELb1E"),
             ("window_attn_bwd_long_tf32_", "ILb0ELb1E")],
     "WB4-bf16": [("window_attn_bwd_short_mma_kernel", "ILb0ELb1E"),
                  ("window_attn_bwd_long_mma_", "ILb0ELb1E")],
@@ -3006,15 +3051,17 @@ FOURD_REG_KEYS = {
 @torch.no_grad()
 def attention_4d_phase(dev, kernels):
     """Phase 38: W4 and WB4 (K14, K14b; their bf16 forms, and beyond 160
-    tokens W-long's and WB-long's bodies on the head-major layout: W-long's
-    FMA body in fp32, WB-long's 3xTF32 tensor-core body, and the
-    tensor-core ones in bf16) against their plain versions at ATTN4_SHAPES,
-    twice each for bits, with their ms (WB4-long's beside the FMA body's
-    that PERF.md records), the plain versions', the packed W / WB (or their
+    tokens W-long's and WB-long's bodies on the head-major layout: in fp32
+    W-long's 3xTF32 tensor-core body beyond 160 tokens and W's FMA body up
+    to it, WB's 3xTF32 body up to 160 tokens and WB-long's beyond; in bf16
+    the tensor-core
+    ones) against their plain versions at ATTN4_SHAPES, twice each for
+    bits, with their ms (the fp32 3xTF32 forms' beside the FMA bodies' that
+    PERF.md records), the plain versions', the packed W / WB (or their
     window-16 and bf16 forms) on packed copies of the same operands, SDPA
     forward and backward on the 4D operands as the library call, and
-    bounds (the function's products at the type's peak, WB4-long's in
-    3xTF32 at the TF32 peak, or q, k, v, out (and g, dq, dk, dv), the f32
+    bounds (the function's products at the type's peak, the fp32 3xTF32
+    forms' at the TF32 peak, or q, k, v, out (and g, dq, dk, dv), the f32
     bias and dbias); then the path: window_attention forward (and
     backward through autograd) once per shape, every count from zero; and
     ptxas's registers of the 4D kernels beside the packed forms' recorded
@@ -3052,8 +3099,11 @@ def attention_4d_phase(dev, kernels):
         err = (_compare_bf16(out, ref, f"W4{sfx} {label}") if bf
                else _compare(out, ref, f"W4{sfx} {label}"))
         _repeatable(lambda: (fwd(*fargs),), f"W4{sfx} {label}")
-        bound, by = _bound_ms(4.0 * b * nh * t * t * hd,
-                              act * 4 * b * nh * t * hd + nbias, peak)
+        # W4-long (fp32 beyond 160 tokens): three TF32 products each
+        tf32 = long and not bf
+        bound, by = _bound_ms((12.0 if tf32 else 4.0) * b * nh * t * t * hd,
+                              act * 4 * b * nh * t * hd + nbias,
+                              PEAK_TF32 if tf32 else peak)
         row = dict(case=name, dtype=str(dt)[6:], windows=b, tokens=t,
                    head_width=hd, bias=has_bias, per_step=1,
                    max_abs_err=err, ms=_time_ms(lambda: fwd(*fargs), 10),
@@ -3079,10 +3129,10 @@ def attention_4d_phase(dev, kernels):
         _repeatable(lambda: bwd(*bargs), f"WB4{sfx} {label}")
         if why:
             print(f"  WB4{sfx} {label} library: null ({why})", flush=True)
-        tf32 = long and not bf
-        bound, by = _bound_ms((30.0 if tf32 else 10.0) * b * nh * t * t * hd,
+        # WB4 in fp32 runs a 3xTF32 body at every length
+        bound, by = _bound_ms((10.0 if bf else 30.0) * b * nh * t * t * hd,
                               act * 7 * b * nh * t * hd + 2 * nbias,
-                              PEAK_TF32 if tf32 else peak)
+                              peak if bf else PEAK_TF32)
         results["WB4" + sfx].append(dict(
             row, max_abs_err=err, ms=_time_ms(lambda: bwd(*bargs), 10),
             plain_ms=_time_ms(lambda: ta.window_attention_bwd_plain(
@@ -3098,7 +3148,7 @@ def attention_4d_phase(dev, kernels):
             case = (f"{r['case']} {r['windows']}x{nh}x{r['tokens']}x"
                     f"{r['head_width']} {r['dtype']}"
                     f"{'' if r['bias'] else ', no bias'}")
-            fma = FMA_BWD_MS.get((key, case))
+            fma = FMA_MS.get((key, case))
             was = "" if fma is None else f", FMA body as recorded {fma}"
             print(f"  {key} {case}: {r['ms']:.4f} ms (packed "
                   f"{r['packed_ms']:.4f}, plain {r['plain_ms']:.4f}, bound "
@@ -3599,7 +3649,8 @@ def main() -> int:
         "W": ("window_attn_fwd", "gsasr_torch/ops/csrc/window_attn_fwd.cu",
               "gsasr_tpu/ops/attention.py:338", [], step, "Trainer.step",
               kres["W"], sres["W"]),
-        "WB": ("window_attn_bwd", "gsasr_torch/ops/csrc/window_attn_bwd.cu",
+        "WB": ("window_attn_bwd",
+               "gsasr_torch/ops/csrc/window_attn_short_tf32_bwd.cuh",
                "gsasr_tpu/ops/attention.py:397", [], step, "Trainer.step",
                kres["WB"], sres["WB"]),
         "RB": ("raster_bwd", "gsasr_torch/ops/csrc/raster_bwd.cu",
@@ -3623,7 +3674,7 @@ def main() -> int:
                "sr_forward (SwinIR)", _on_path(sres["WM"], "per_image"),
                sres["WM"]),
         "WMB": ("window_attn_bwd_masked",
-                "gsasr_torch/ops/csrc/window_attn_bwd.cu",
+                "gsasr_torch/ops/csrc/window_attn_short_tf32_bwd.cuh",
                 "gsasr_tpu/ops/attention.py:661", [], sstep,
                 "Trainer.step (SwinIR)", _on_path(sres["WMB"], "per_step"),
                 sres["WMB"]),
@@ -3639,7 +3690,7 @@ def main() -> int:
                     _on_path(etres["WB-bf16"], "per_step"),
                     etres["WB-bf16"]),
         "W-long": ("window_attn_fwd_long",
-                   "gsasr_torch/ops/csrc/window_attn_fwd.cu",
+                   "gsasr_torch/ops/csrc/window_attn_long_tf32.cuh",
                    "gsasr_tpu/ops/attention.py:338", [], uinfer,
                    "sr_forward (HAT-L Ultra)", ures["W-long"],
                    ures["W-long"]),
@@ -3677,7 +3728,7 @@ def main() -> int:
                      _on_path(mres["WMB-bf16"], "per_step"),
                      mres["WMB-bf16"]),
         "WM-long": ("window_attn_fwd_long_masked",
-                    "gsasr_torch/ops/csrc/window_attn_fwd.cu",
+                    "gsasr_torch/ops/csrc/window_attn_long_tf32.cuh",
                     "gsasr_tpu/ops/attention.py:553", [], hstep,
                     "Trainer.step (paper HAT, paper recipe)",
                     _on_path(mres["WM-long"], "per_step"), mres["WM-long"]),
@@ -3718,9 +3769,11 @@ def main() -> int:
                      ("WB4", "gsasr_tpu/ops/attention.py:109")):
         entry = "window_attn_fwd_4d" if key == "W4" else "window_attn_bwd_4d"
         for sfx in ("", "-bf16"):
-            # bf16: the tensor-core bodies (up to 160 tokens, the first rows)
+            # the bodies of the first rows (up to 160 tokens): W's FMA body;
+            # WB's 3xTF32 body; in bf16 the tensor-core bodies
             src = "gsasr_torch/ops/csrc/" + (
-                ("window_attn_fwd.cu" if key == "W4" else "window_attn_bwd.cu")
+                ("window_attn_fwd.cu" if key == "W4" else
+                 "window_attn_short_tf32_bwd.cuh")
                 if not sfx else "window_attn_short_mma.cuh" if key == "W4"
                 else "window_attn_short_mma_bwd.cuh")
             meta[key + sfx] = (

@@ -38,9 +38,9 @@ SIGNATURES = {
     "ln_mlp": "p" * 10 + "iiiiii",
     "ln_attn": "p" * 20 + "iiiiii" + "f",
     "window_attn_fwd": "pppppiiiiif",
-    "window_attn_bwd": "ppppppppppiiiiif",
+    "window_attn_bwd": "p" * 11 + "iiiii" + "f",
     "window_attn_fwd_masked": "ppppppiiiiiif",
-    "window_attn_bwd_masked": "p" * 11 + "iiiiiif",
+    "window_attn_bwd_masked": "p" * 12 + "iiiiii" + "f",
     "window_attn_fwd_bf16": "pppppiiiiif",
     "window_attn_bwd_bf16": "ppppppppppiiiiif",
     "window_attn_fwd_long": "pppppiiiiif",

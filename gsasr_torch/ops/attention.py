@@ -260,14 +260,15 @@ def _bwd(q, k, v, bias, mask, g, scale: float, num_heads: int, dtype,
     b, tq, tk, c, dq, dk, dv, dbias = _bwd_outputs(
         q, k, v, bias, g, num_heads, dtype, None if long else _MAX_T, mask)
     f32 = dict(dtype=torch.float32, device=q.device)
-    # WB's per-window ds (B, nh, Tq, Tk), f32 whatever the operand type:
-    # dk's operand and dbias's partial sums; the tensor-core bodies (bf16)
-    # and the window-16 forms keep ds on the chip and need it only for
-    # dbias's ordered sum
-    ds = (None if (long or dtype == torch.bfloat16) and bias is None else
+    # the per-window ds (B, nh, Tq, Tk), f32 whatever the operand type: the
+    # tensor-core bodies keep ds on the chip and need it only for dbias's
+    # ordered sum; the window-16 forms keep each query row's (max, sum, D)
+    # in stats (B, nh, Tq, 3), and so do the fp32 forms up to 160 tokens
+    # where WB-long's launches stand in for their body (shared memory)
+    ds = (None if bias is None else
           torch.empty((b, num_heads, tq, tk), **f32))
-    scratch = (torch.empty((b, num_heads, tq, 3), **f32), ds) if long \
-        else (ds,)
+    scratch = (torch.empty((b, num_heads, tq, 3), **f32), ds) \
+        if long or dtype == torch.float32 else (ds,)
     m, nw = _mask_args(mask)
     _build.launch(_BWD[mask is not None, long][dtype], q.contiguous(),
                   k.contiguous(), v.contiguous(),
@@ -653,14 +654,13 @@ def _bwd4(q, k, v, bias, g, scale: float, dtype):
     dv = torch.empty_like(dk)
     f32 = dict(dtype=torch.float32, device=q.device)
     dbias = None if bias is None else torch.empty((nh, tq, tk), **f32)
-    # WB's per-window ds (dk's operand and dbias's partial sums); the
-    # tensor-core bodies (bf16) and the window-16 form keep ds on the chip
-    # and need it only for dbias's ordered sum (the window-16 form keeps
-    # each query row's (max, sum, D) in stats)
+    # the per-window ds, needed only for dbias's ordered sum; the window-16
+    # forms keep each query row's (max, sum, D) in stats, and so may the
+    # fp32 form up to 160 tokens (WB-long's launches standing in)
     long = max(tq, tk) > _MAX_T
-    stats = torch.empty((b, nh, tq, 3), **f32) if long else None
-    ds = (None if (long or dtype == torch.bfloat16) and bias is None else
-          torch.empty((b, nh, tq, tk), **f32))
+    stats = (torch.empty((b, nh, tq, 3), **f32)
+             if long or dtype == torch.float32 else None)
+    ds = None if bias is None else torch.empty((b, nh, tq, tk), **f32)
     _build.launch(_BWD4[dtype], q.contiguous(), k.contiguous(),
                   v.contiguous(), None if bias is None else bias.contiguous(),
                   g.contiguous(), dq, dk, dv, stats, ds, dbias, b, tq, tk,

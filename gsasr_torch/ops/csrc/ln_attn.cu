@@ -44,15 +44,16 @@
 // all heads at once with the tile product, adds the bias, rotates q and k
 // (RoPE, the pair partner from the neighbouring lane) and rounds q, k, v to
 // the activation type into scratch. (1b) The attention of each (window,
-// head) is the window-16 body of W on that scratch (window_attn_long.cuh in
-// fp32; in bf16 W-long-bf16's tensor-core body, window_attn_long_mma.cuh):
-// p is rounded before the PV product and att as it is stored. Phase 2 is
+// head) is W-long's body on that scratch (the 3xTF32 tensor-core body of
+// window_attn_long_tf32.cuh in fp32; in bf16 W-long-bf16's tensor-core
+// body, window_attn_long_mma.cuh, where p is rounded before the PV product
+// and att as it is stored). Phase 2 is
 // the out-projection above, reading att in the activation type. The
 // rounding points are those of _k_ln_attn. Bound at 144 windows, T = 256,
 // C = 192: 2 * windows * (4 T C^2 + 2 T^2 C) = 18.1 GFLOP, 0.27 ms at the
 // FP32 peak; in bf16 the bytes (x, kv, out) take longer than the products
-// at the tensor-core peak. A-long runs f32 FMAs on the CUDA cores, and its
-// attention recomputes the scores (half again the T^2 products).
+// at the tensor-core peak. A-long's projections run f32 FMAs on the CUDA
+// cores; its fp32 attention runs on the tensor cores in 3xTF32.
 
 #include <cuda_runtime.h>
 
@@ -61,8 +62,8 @@
 #include <type_traits>
 
 #include "tile_gemm.cuh"
-#include "window_attn_long.cuh"
 #include "window_attn_long_mma.cuh"
+#include "window_attn_long_tf32.cuh"
 
 namespace {
 
@@ -443,16 +444,6 @@ ln_qkv_kernel(const Act* __restrict__ x, const Act* __restrict__ pos,
   }
 }
 
-// A-long phase 1b: the window-16 attention body on the scratch q, k, v.
-template <typename Act>
-__global__ void __launch_bounds__(kThreads)
-attn_long_kernel(const Act* __restrict__ q, const Act* __restrict__ k,
-                 const Act* __restrict__ v, const float* __restrict__ bias,
-                 Act* __restrict__ att, int Tq, int Tk, int C, int nh,
-                 float scale) {
-  window_attn_fwd_long_body<Act>(q, k, v, bias, att, Tq, Tk, C, nh, scale);
-}
-
 template <typename Act>
 int launch_long(const Act* x, const Act* pos, const Act* kv,
                 const float* ln_w, const float* ln_b, const float* wq,
@@ -478,14 +469,9 @@ int launch_long(const Act* x, const Act* pos, const Act* kv,
     err = launch_fwd_long_mma<false, false>(qs, ks, vs, bias, nullptr, att,
                                             B, Tq, Tk, C, nh, 1, scale, st);
   } else {
-    const size_t smem2 = long_smem_bytes(C / nh);
-    err = cudaFuncSetAttribute(attn_long_kernel<Act>,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               static_cast<int>(smem2));
-    if (err != cudaSuccess) return static_cast<int>(err);
-    attn_long_kernel<Act><<<long_grid(nh, B, Tq), kThreads, smem2, st>>>(
-        qs, ks, vs, bias, att, Tq, Tk, C, nh, scale);
-    err = cudaGetLastError();
+    // the fp32 form: W-long's tensor-core body in 3xTF32
+    err = launch_fwd_long_tf32<false, false>(qs, ks, vs, bias, nullptr, att,
+                                             B, Tq, Tk, C, nh, 1, scale, st);
   }
   if (err != cudaSuccess) return static_cast<int>(err);
   const size_t smem3 = sizeof(float) * (kBM * C + kWsFloats);

@@ -323,7 +323,7 @@ int ln_attn_bwd_impl(const Act* x, const Act* pos, const Act* kv,
         q, k, v, bias, datt, dq, dk, dv, stats, bias ? ds : nullptr, dbias, B,
         Tq, Tk, C, nh, scale, st, att));
   else
-    GSASR_TRY_INT(launch_window_attn_bwd<true, false, float, kBf16>(
+    GSASR_TRY_INT(launch_window_attn_bwd<float, kBf16>(
         q, k, v, bias, datt, dq, dk, dv, ds, dbias, att, B, Tq, Tk, C, nh,
         scale, st));
   // RoPE: the table gradients, and dq0, dk0 over q0, k0

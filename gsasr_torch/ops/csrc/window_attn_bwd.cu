@@ -23,28 +23,33 @@
 //   dq = ds k_h * scale   dk = ds^T q_h * scale
 //   dbias[h] = sum over the windows of ds
 //
-// What bounds it on an H100: the five products (the recomputed scores, dp,
-// dv, dq and dk), 10 * B * nh * Tq * Tk * hd FP32 operations (9.6 GFLOP at
-// 256 windows x 6 heads x 144 x 144 x 30) against 67 TFLOP/s; the bytes
-// (q, k, v, g, dq, dk, dv: 186 MB) take about 40% as long at 3.35 TB/s.
-// WMB at a Swin shape (576 windows x 6 heads x 64 x 64 x 30) does 4.2
-// GFLOP against 195 MB (with the mask and dbias): operations and bytes
-// take about as long. WB-bf16 at the Enhanced training shape (256 windows
-// x 6 heads x 144 x 144 x 32) does 10.2 GFLOP, 0.010 ms at the bf16
+// What bounds it on an H100: the five products (the recomputed scores, dp, dv,
+// dq and dk), 10 * B * nh * Tq * Tk * hd operations (9.6 GFLOP at 256 windows
+// x 6 heads x 144 x 144 x 30), each three TF32 products in 3xTF32: 28.7 GFLOP,
+// 0.058 ms at 495 TFLOP/s, against 187 MB of q, k, v, g, dq, dk, dv, bias and
+// dbias (0.056 ms at 3.35 TB/s). WMB at a Swin shape (576 windows x 6 heads x
+// 64 x 64 x 30) does 4.2 GFLOP, 12.7 in 3xTF32, against 195 MB (with the mask
+// and dbias): bound by bytes. WB-bf16 at the Enhanced training shape (256
+// windows x 6 heads x 144 x 144 x 32) does 10.2 GFLOP, 0.010 ms at the bf16
 // tensor-core peak, against 99 MB (bf16 q, k, v, g, dq, dk, dv): 0.030 ms,
 // bound by bytes.
 //
-// Design of WB and WMB: the device code lives in window_attn_bwd.cuh,
-// which kernel AB shares. One block per (window, head) recomputes p in
-// shared memory and forms dq, dk and dv; dbias, a sum over windows, is
-// summed by a second launch in ascending window order: no float atomics,
-// and the result is the same bits from run to run. The mask gets no
-// gradient (a constant at every call site; the JAX VJP returns zeros for
-// it). WB-bf16, WMB-bf16 and WB4-bf16 run a tensor-core body of their own
-// (window_attn_short_mma_bwd.cuh) with the same ownership, order and
-// dbias sum: p, dp and ds are f32 and p is not rounded (the Pallas body's
-// f32 dots); dq, dk and dv are rounded once as they are stored; ds goes to
-// device memory only for dbias, in f32.
+// Design of WB, WMB and WB4: the 3xTF32 tensor-core body up to 160 tokens
+// (window_attn_short_tf32_bwd.cuh), WB-long's arithmetic fused into one block
+// per (window, head) that stages q, g, k, v, the bias and the mask once in
+// shared memory, forms dq and each query row's (max, 1 / sum, D) over the
+// query rows and then dk and dv over the keys; where its shared memory would
+// not fit (a mask beyond about 120 tokens) WB-long's two launches run, with
+// the statistics in the stats scratch. The FMA body of window_attn_bwd.cuh,
+// which WB ran before, stays AB's. With a bias ds goes to ds_w, and dbias, a
+// sum over windows, is summed by another launch in ascending window order: no
+// float atomics, and the result is the same bits from run to run. The mask
+// gets no gradient (a constant at every call site; the JAX VJP returns zeros
+// for it). WB-bf16, WMB-bf16 and WB4-bf16 run a tensor-core body of their own
+// (window_attn_short_mma_bwd.cuh) with the same ownership, order and dbias
+// sum: p, dp and ds are f32 and p is not rounded (the Pallas body's f32 dots);
+// dq, dk and dv are rounded once as they are stored; ds goes to device memory
+// only for dbias, in f32.
 //
 // WB-long at the HAT-L Ultra training shape (128 windows x 6 heads x 256 x
 // 256 x 32): the five products of the function are 16.1 GFLOP, 0.016 ms at
@@ -70,45 +75,50 @@
 //
 // WB4 and WB4-bf16 (window_attn_bwd_4d[_bf16]) replace _attn_kernel_bwd of
 // gsasr_tpu/ops/attention.py (reached from _attention_pallas_bwd, the VJP
-// of fused_window_attention and so of window_attention): WB's body up to
-// 160 tokens and WB-long's two launches beyond, on the head-major (B, nh,
-// T, hd) layout in place (their kHM flag; beyond 160 tokens, and in bf16,
-// tensor-core bodies), with dbias WB's ordered sum over the windows, f32;
+// of fused_window_attention and so of window_attention): in fp32 WB's
+// 3xTF32 body up to 160 tokens and WB-long's two launches beyond, on the
+// head-major (B, nh, T, hd) layout in place (their kHM flag; in bf16
+// WB-bf16's and WB-long-bf16's tensor-core bodies), with dbias WB's ordered
+// sum over the windows, f32;
 // dq, dk, dv are formed in f32 and stored in the operands' type, as K14b
 // stores them. Bounds as WB's and WB-long's.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
-#include "window_attn_bwd.cuh"
 #include "window_attn_long_mma_bwd.cuh"
 #include "window_attn_long_tf32_bwd.cuh"
 #include "window_attn_short_mma_bwd.cuh"
+#include "window_attn_short_tf32_bwd.cuh"
 
-// q, g, dq (B, Tq, C); k, v, dk, dv (B, Tk, C); bias (nh, Tq, Tk) or null;
-// ds_w (B, nh, Tq, Tk) scratch the caller allocates; dbias (nh, Tq, Tk), or
-// null to skip the sum over windows. All float32, contiguous, on the device.
+// q, g, dq (B, Tq, C); k, v, dk, dv (B, Tk, C), Tq, Tk <= kMaxT; bias (nh,
+// Tq, Tk) or null; stats (B, nh, Tq, 3) scratch the caller allocates; ds_w
+// (B, nh, Tq, Tk) scratch, needed (and written) only with dbias; dbias (nh,
+// Tq, Tk), or null to skip the sum over windows. All float32, contiguous,
+// on the device. The 3xTF32 tensor-core body up to 160 tokens (stats used
+// only where WB-long's launches stand in for it).
 extern "C" int window_attn_bwd(const float* q, const float* k, const float* v,
                                const float* bias, const float* g, float* dq,
-                               float* dk, float* dv, float* ds_w, float* dbias,
-                               int B, int Tq, int Tk, int C, int nh,
-                               float scale, void* stream) {
-  return static_cast<int>(launch_window_attn_bwd<false>(
-      q, k, v, bias, g, dq, dk, dv, ds_w, dbias, nullptr, B, Tq, Tk, C, nh,
+                               float* dk, float* dv, float* stats,
+                               float* ds_w, float* dbias, int B, int Tq,
+                               int Tk, int C, int nh, float scale,
+                               void* stream) {
+  return static_cast<int>(launch_window_attn_bwd_short_tf32<false, false>(
+      q, k, v, bias, g, dq, dk, dv, stats, ds_w, dbias, B, Tq, Tk, C, nh,
       scale, static_cast<cudaStream_t>(stream)));
 }
 
 // Kernel WMB: as window_attn_bwd, plus mask (nW, Tq, Tk) float32, window w
-// taking mask[w % nW]; B must be a multiple of nW.
+// taking mask[w % nW]; B must be a multiple of nW (the body's mask flag).
 extern "C" int window_attn_bwd_masked(const float* q, const float* k,
                                       const float* v, const float* bias,
                                       const float* mask, const float* g,
                                       float* dq, float* dk, float* dv,
-                                      float* ds_w, float* dbias, int B, int Tq,
-                                      int Tk, int C, int nh, int nW,
-                                      float scale, void* stream) {
-  return static_cast<int>(launch_window_attn_bwd<false, true>(
-      q, k, v, bias, g, dq, dk, dv, ds_w, dbias, nullptr, B, Tq, Tk, C, nh,
+                                      float* stats, float* ds_w, float* dbias,
+                                      int B, int Tq, int Tk, int C, int nh,
+                                      int nW, float scale, void* stream) {
+  return static_cast<int>(launch_window_attn_bwd_short_tf32<true, false>(
+      q, k, v, bias, g, dq, dk, dv, stats, ds_w, dbias, B, Tq, Tk, C, nh,
       scale, static_cast<cudaStream_t>(stream), mask, nW));
 }
 
@@ -199,10 +209,10 @@ extern "C" int window_attn_bwd_long_masked_bf16(
 
 // Kernel WB4 (K14b): the backward of window attention on the head-major
 // layout, q, g, dq (B, nh, Tq, hd); k, v, dk, dv (B, nh, Tk, hd); bias and
-// dbias (nh, Tq, Tk) or null; C = nh * hd. Up to kMaxT tokens WB's body
-// (ds_w (B, nh, Tq, Tk) scratch always, stats unused), beyond them WB-long's
-// two launches with the head-major flag (WB4-long: stats (B, nh, Tq, 3)
-// scratch, ds_w only with dbias). All float32, contiguous, on the device.
+// dbias (nh, Tq, Tk) or null; C = nh * hd; stats (B, nh, Tq, 3) scratch,
+// ds_w (B, nh, Tq, Tk) scratch only with dbias. WB's 3xTF32 body up to
+// kMaxT tokens, WB-long's two launches beyond (WB4-long), both with the
+// head-major flag. All float32, contiguous, on the device.
 extern "C" int window_attn_bwd_4d(const float* q, const float* k,
                                   const float* v, const float* bias,
                                   const float* g, float* dq, float* dk,
@@ -210,16 +220,13 @@ extern "C" int window_attn_bwd_4d(const float* q, const float* k,
                                   float* dbias, int B, int Tq, int Tk, int C,
                                   int nh, float scale, void* stream) {
   const auto st = static_cast<cudaStream_t>(stream);
-  const bool long_form = Tq > kMaxT || Tk > kMaxT;
-  if (long_form ? !stats : !ds_w)
-    return static_cast<int>(cudaErrorInvalidValue);
-  if (long_form)
+  if (!stats) return static_cast<int>(cudaErrorInvalidValue);
+  if (Tq > kMaxT || Tk > kMaxT)
     return static_cast<int>(launch_window_attn_bwd_long_tf32<false, true>(
         q, k, v, bias, g, dq, dk, dv, stats, ds_w, dbias, B, Tq, Tk, C, nh,
         scale, st));
-  return static_cast<int>(launch_window_attn_bwd<false, false, float, false,
-                                                 true>(
-      q, k, v, bias, g, dq, dk, dv, ds_w, dbias, nullptr, B, Tq, Tk, C, nh,
+  return static_cast<int>(launch_window_attn_bwd_short_tf32<false, true>(
+      q, k, v, bias, g, dq, dk, dv, stats, ds_w, dbias, B, Tq, Tk, C, nh,
       scale, st));
 }
 

@@ -1,32 +1,26 @@
-// The device code of kernel WB and its masked form WMB
-// (window_attn_bwd.cu), shared with kernel AB (ln_attn_bwd.cu), which also
-// needs the recomputed attention output.
+// The device code of kernel AB's attention backward (ln_attn_bwd.cu), which
+// also needs the recomputed attention output, and the ordered dbias sum
+// that every window attention backward shares. (WB, WMB and WB4, which once
+// ran this body too, run the 3xTF32 tensor-core body of
+// window_attn_long_tf32_bwd.cuh.)
 //
 // One 256-thread block per (window, head) stages q_h, k_h, v_h and g_h
 // (T x hd each) in shared memory. Pass 1: each warp takes four query rows,
 // holds their scores and dp in registers (lane l owns keys l + 32 m, so
 // Tk <= 160), takes the softmax and ds with warp reductions, keeps p in a
 // (Tq, Tk) shared tile, writes ds to the per-window buffer ds_w (B, nh, Tq,
-// Tk) and forms its rows of dq from a per-warp ds row buffer. With kAtt the
-// block then forms att_h = p v_h from the p tile. Pass 2 forms dv = p^T g
-// from the p tile; the block then loads its ds back from ds_w (the same
-// block wrote it) over the p tile and forms dk = ds^T q. The probabilities
-// never leave the block. dq, dk, dv and att columns are owned by one
-// (window, head). dbias is a sum over windows, and blocks run in no order,
-// so a second launch sums ds_w over the windows in ascending order, one
-// thread per (h, i, j): no float atomics, and the result is the same bits
-// from run to run. With kMask (WMB) the recomputed scores take the window
-// class's mask rows, mask[w % nW], after the bias, as the forward does; the
-// mask is a constant and gets no gradient. The flag is a template
-// parameter, so WB and AB compile as without it. The operand type T is
-// float in every kernel since WB-bf16 moved to the tensor cores
-// (window_attn_short_mma_bwd.cuh). With kRnd (the bfloat16 form of AB, whose
-// operands are float tiles holding bf16 values) the body rounds where
-// _k_ln_attn_bwd rounds: p in the tile (for att and dv), ds as an operand
-// of dq and dk (ds_w and dbias keep it unrounded) and att as it is stored;
-// dq, dk and dv stay f32. With kHM (WB4, the 4D form) the body reads and
-// writes the head-major (B, nh, T, hd) layout: head h of window w is rows
-// (w nh + h) T of hd; it is a kernel of its own over the shared body.
+// Tk) and forms its rows of dq from a per-warp ds row buffer. The block
+// then forms att_h = p v_h from the p tile. Pass 2 forms dv = p^T g from
+// the p tile; the block then loads its ds back from ds_w (the same block
+// wrote it) over the p tile and forms dk = ds^T q. The probabilities never
+// leave the block. dq, dk, dv and att columns are owned by one (window,
+// head). dbias is a sum over windows, and blocks run in no order, so a
+// second launch sums ds_w over the windows in ascending order, one thread
+// per (h, i, j): no float atomics, and the result is the same bits from run
+// to run. With kRnd (the bfloat16 form of AB, whose operands are float
+// tiles holding bf16 values) the body rounds where _k_ln_attn_bwd rounds: p
+// in the tile (for att and dv), ds as an operand of dq and dk (ds_w and
+// dbias keep it unrounded) and att as it is stored; dq, dk and dv stay f32.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -47,7 +41,6 @@ using gsasr::kWarps;
 using gsasr::softmax_exp_row;
 using gsasr::stage_head;
 using gsasr::warp_sum;
-using gsasr::window_mask;
 
 // Head-product micro-tile: 32 output-row groups x 8 head-column groups.
 constexpr int kRowGroups = 32;
@@ -116,16 +109,14 @@ __device__ void head_product(const float* A, int lda, const float* X, int ldx,
   }
 }
 
-// The body of WB and its forms, one block per (head, window); with kHM, of
-// WB4 and WB4-bf16 on the head-major (B, nh, T, hd) layout.
-template <bool kAtt, bool kMask, typename T, bool kRnd = false,
-          bool kHM = false>
+// The body of AB's attention backward, one block per (head, window).
+template <typename T, bool kRnd = false>
 __device__ __forceinline__ void window_attn_bwd_body(
     const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
     const float* __restrict__ bias, const T* __restrict__ g,
     T* __restrict__ dq, T* __restrict__ dk, T* __restrict__ dv,
     float* __restrict__ ds_w, float* __restrict__ att, int Tq, int Tk, int C,
-    int nh, float scale, const float* __restrict__ mask, int nW) {
+    int nh, float scale) {
   extern __shared__ float smem[];
   const int hd = C / nh;
   const Layout L(Tq, Tk, hd);
@@ -138,12 +129,11 @@ __device__ __forceinline__ void window_attn_bwd_body(
   const int win = blockIdx.y;
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
-  const int n0 = kHM ? 0 : head * hd;
-  const int ldg = kHM ? hd : C;
+  const int n0 = head * hd;
+  const int ldg = C;
   float* drow = ps + L.p_floats + warp * kQRows * Tk;
-  const size_t wrow = kHM ? static_cast<size_t>(win) * nh + head : win;
-  const size_t qrow0 = wrow * Tq;
-  const size_t krow0 = wrow * Tk;
+  const size_t qrow0 = static_cast<size_t>(win) * Tq;
+  const size_t krow0 = static_cast<size_t>(win) * Tk;
   float* dsb = ds_w + (static_cast<size_t>(win) * nh + head) * Tq * Tk;
 
   stage_head(q, qrow0, Tq, ldg, n0, hd, qs, L.ld);
@@ -154,7 +144,6 @@ __device__ __forceinline__ void window_attn_bwd_body(
 
   // Pass 1: p, ds and dq, four query rows per warp.
   const float* hbias = bias ? bias + static_cast<size_t>(head) * Tq * Tk : nullptr;
-  const float* wmask = kMask ? window_mask(mask, win, nW, Tq, Tk) : nullptr;
   for (int i0 = warp * kQRows; i0 < Tq; i0 += kWarps * kQRows) {
     float s[kQRows][kKeysPer], dp[kQRows][kKeysPer];
 #pragma unroll
@@ -184,9 +173,9 @@ __device__ __forceinline__ void window_attn_bwd_body(
 #pragma unroll
     for (int r = 0; r < kQRows; ++r) {
       const int i = min(i0 + r, Tq - 1);
-      const float sum = softmax_exp_row<kMask>(
+      const float sum = softmax_exp_row(
           s[r], hbias ? hbias + static_cast<size_t>(i) * Tk : nullptr, Tk,
-          scale, kMask ? wmask + static_cast<size_t>(i) * Tk : nullptr);
+          scale);
       float rs = 0.f;
 #pragma unroll
       for (int m = 0; m < kKeysPer; ++m) {
@@ -231,9 +220,8 @@ __device__ __forceinline__ void window_attn_bwd_body(
   __syncthreads();
 
   // att = p v from the p tile (kernel AB's forward recompute).
-  if constexpr (kAtt)
-    head_product<true, float, kRnd>(ps, L.ldp, vs, L.ld, Tk, Tq, hd, 1.0f,
-                                    att, qrow0, ldg, n0);
+  head_product<true, float, kRnd>(ps, L.ldp, vs, L.ld, Tk, Tq, hd, 1.0f, att,
+                                  qrow0, ldg, n0);
   // Pass 2: dv = p^T g from the p tile.
   head_product<false>(ps, L.ldp, gs, L.ld, Tq, Tk, hd, 1.0f, dv, krow0, ldg,
                       n0);
@@ -248,7 +236,7 @@ __device__ __forceinline__ void window_attn_bwd_body(
                       n0);
 }
 
-template <bool kAtt, bool kMask, typename T, bool kRnd = false>
+template <typename T, bool kRnd = false>
 __global__ void __launch_bounds__(kThreads)
 window_attn_bwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
                        const T* __restrict__ v,
@@ -256,28 +244,9 @@ window_attn_bwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
                        const T* __restrict__ g, T* __restrict__ dq,
                        T* __restrict__ dk, T* __restrict__ dv,
                        float* __restrict__ ds_w, float* __restrict__ att,
-                       int Tq, int Tk, int C, int nh, float scale,
-                       const float* __restrict__ mask, int nW) {
-  window_attn_bwd_body<kAtt, kMask, T, kRnd>(q, k, v, bias, g, dq, dk, dv,
-                                             ds_w, att, Tq, Tk, C, nh, scale,
-                                             mask, nW);
-}
-
-// WB4 (T float): WB's body on the head-major layout, a kernel of its own,
-// so WB's code does not move.
-template <typename T>
-__global__ void __launch_bounds__(kThreads)
-window_attn_bwd_4d_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                          const T* __restrict__ v,
-                          const float* __restrict__ bias,
-                          const T* __restrict__ g, T* __restrict__ dq,
-                          T* __restrict__ dk, T* __restrict__ dv,
-                          float* __restrict__ ds_w, float* __restrict__ att,
-                          int Tq, int Tk, int C, int nh, float scale,
-                          const float* __restrict__ mask, int nW) {
-  window_attn_bwd_body<false, false, T, false, true>(
-      q, k, v, bias, g, dq, dk, dv, ds_w, att, Tq, Tk, C, nh, scale, mask,
-      nW);
+                       int Tq, int Tk, int C, int nh, float scale) {
+  window_attn_bwd_body<T, kRnd>(q, k, v, bias, g, dq, dk, dv, ds_w, att, Tq,
+                                Tk, C, nh, scale);
 }
 
 // dbias[e] = sum_{w < B} ds_w[w * n + e] in ascending w, e < n = nh Tq Tk.
@@ -291,40 +260,29 @@ dbias_sum_kernel(const float* __restrict__ ds_w, float* __restrict__ dbias,
   dbias[e] = acc;
 }
 
-// The kernel of a form: WB's (with its flags), or with kHM WB4's; only the
-// one launched is instantiated.
-template <bool kAtt, bool kMask, typename T, bool kRnd, bool kHM>
-constexpr auto bwd_kernel() {
-  if constexpr (kHM)
-    return window_attn_bwd_4d_kernel<T>;
-  else
-    return window_attn_bwd_kernel<kAtt, kMask, T, kRnd>;
-}
-
-// The launches of kernel WB (with kAtt, also att (B, Tq, C); with kMask,
-// kernel WMB: mask (nW, Tq, Tk), B a multiple of nW; with kRnd, AB's
-// bfloat16 rounding; with kHM, WB4 on the head-major layout). Arguments as
-// window_attn_bwd and window_attn_bwd_masked in window_attn_bwd.cu.
-template <bool kAtt, bool kMask = false, typename T = float,
-          bool kRnd = false, bool kHM = false>
+// The launches of AB's attention backward (with kRnd, AB-bf16's bfloat16
+// rounding): q, g, dq, att (B, Tq, C); k, v, dk, dv (B, Tk, C); bias (nh,
+// Tq, Tk) or null; ds_w (B, nh, Tq, Tk) scratch; dbias (nh, Tq, Tk), or
+// null to skip the sum over windows; all f32.
+template <typename T = float, bool kRnd = false>
 cudaError_t launch_window_attn_bwd(const T* q, const T* k, const T* v,
                                    const float* bias, const T* g, T* dq,
                                    T* dk, T* dv, float* ds_w, float* dbias,
                                    float* att, int B, int Tq, int Tk, int C,
-                                   int nh, float scale, cudaStream_t st,
-                                   const float* mask = nullptr, int nW = 1) {
+                                   int nh, float scale, cudaStream_t st) {
   if (B < 1 || Tq < 1 || Tk < 1 || nh < 1 || C % nh != 0 || C / nh > kMaxHd ||
-      Tq > kMaxT || Tk > kMaxT || nW < 1 || B % nW != 0)
+      Tq > kMaxT || Tk > kMaxT)
     return cudaErrorInvalidValue;
   const Layout L(Tq, Tk, C / nh);
   const size_t smem = L.bytes(Tk);
-  const auto kernel = bwd_kernel<kAtt, kMask, T, kRnd, kHM>();
+  const auto kernel = window_attn_bwd_kernel<T, kRnd>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
   if (err != cudaSuccess) return err;
-  kernel<<<dim3(nh, B), kThreads, smem, st>>>(
-      q, k, v, bias, g, dq, dk, dv, ds_w, att, Tq, Tk, C, nh, scale, mask, nW);
+  kernel<<<dim3(nh, B), kThreads, smem, st>>>(q, k, v, bias, g, dq, dk, dv,
+                                              ds_w, att, Tq, Tk, C, nh,
+                                              scale);
   err = cudaGetLastError();
   if (err != cudaSuccess || !dbias) return err;
   const int n = nh * Tq * Tk;

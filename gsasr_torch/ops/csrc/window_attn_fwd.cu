@@ -57,25 +57,25 @@
 //
 // W-long and W-long-bf16 are the window-16 form (HAT's 144 windows x 6
 // heads x 256 x 256, and OCAB's 256 queries x 576 keys, head width 32,
-// no bias), for any Tq and Tk. W-long runs the body of
-// window_attn_long.cuh, which walks the keys in tiles in two passes and
-// recomputes the scores in the second, three products of 2 * B * nh * Tq *
-// Tk * hd operations each where the bound counts two: 7.2 GFLOP (HAB) and
-// 16.3 GFLOP (OCAB) against 67 TFLOP/s, 0.108 and 0.243 ms, over 113 and
-// 193 MB of q, k, v and out at 3.35 TB/s, 0.034 and 0.058 ms. Bound by
-// operations. W-long-bf16 (and WM-long-bf16, W4-long-bf16 by its flags)
-// runs the same two passes on the tensor cores, bf16 operands staged in
-// bf16 (window_attn_long_mma.cuh): bound by bytes.
+// no bias), for any Tq and Tk. W-long runs the tensor-core body of
+// window_attn_long_tf32.cuh in 3xTF32: one sweep over the keys with the
+// online softmax, two products of 2 * B * nh * Tq * Tk * hd operations, each
+// three TF32 products: 21.7 GFLOP (HAB) and 48.9 GFLOP (OCAB) against 495
+// TFLOP/s, 0.044 and 0.098 ms, over 113 and 193 MB of q, k, v and out at
+// 3.35 TB/s, 0.034 and 0.058 ms. Bound by operations. W-long-bf16 (and
+// WM-long-bf16, W4-long-bf16 by its flags) runs two sweeps on the tensor
+// cores, bf16 operands staged in bf16 (window_attn_long_mma.cuh): bound by
+// bytes.
 //
 // WM-long and WM-long-bf16 replace _attn_kernel_packed_masked beyond 160
-// tokens: the paper HAT's shifted windows of 16 (144 windows x 6 heads x
-// 256 x 256 x 30, with a bias and the SW-MSA mask of period 9 or 144), the
-// same body with the mask added after the bias in each pass (a template
-// flag, so W-long and A-long keep their code). WM-long does 6.8 GFLOP,
-// 0.10 ms at the FP32 peak; WM-long-bf16 moves 53 MB of bf16 q, k, v and
-// out, 1.6 MB of bias and up to 38 MB of mask (period 144), 0.027 ms:
-// bound by bytes. WM-bf16 at SwinIR's shape (576 windows, T 64) moves 53
-// MB of bf16 operands and up to 9.4 MB of mask: bound by bytes too.
+// tokens: the paper HAT's shifted windows of 16 (144 windows x 6 heads x 256 x
+// 256 x 30, with a bias and the SW-MSA mask of period 9 or 144), the same body
+// with the mask added after the bias (a template flag, so W-long and A-long
+// keep their code). WM-long does 6.8 GFLOP, 20.4 GFLOP of TF32 in 3xTF32,
+// 0.041 ms at 495 TFLOP/s; WM-long-bf16 moves 53 MB of bf16 q, k, v and out,
+// 1.6 MB of bias and up to 38 MB of mask (period 144), 0.027 ms: bound by
+// bytes. WM-bf16 at SwinIR's shape (576 windows, T 64) moves 53 MB of bf16
+// operands and up to 9.4 MB of mask: bound by bytes too.
 //
 // W4 and W4-bf16 (window_attn_fwd_4d[_bf16]) replace _attn_kernel of
 // gsasr_tpu/ops/attention.py (reached from _attention_pallas, the forward
@@ -95,8 +95,8 @@
 #include <cuda_runtime.h>
 
 #include "window_attn.cuh"
-#include "window_attn_long.cuh"
 #include "window_attn_long_mma.cuh"
+#include "window_attn_long_tf32.cuh"
 #include "window_attn_short_mma.cuh"
 
 namespace {
@@ -264,87 +264,6 @@ cudaError_t launch_fwd(const float* q, const float* k, const float* v,
   return cudaGetLastError();
 }
 
-// W-long (fp32; W-long-bf16 is window_attn_long_mma.cuh's kernel).
-template <typename T>
-__global__ void __launch_bounds__(kThreads)
-window_attn_fwd_long_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                            const T* __restrict__ v,
-                            const float* __restrict__ bias,
-                            T* __restrict__ out, int Tq, int Tk, int C, int nh,
-                            float scale) {
-  gsasr::window_attn_fwd_long_body<T>(q, k, v, bias, out, Tq, Tk, C, nh,
-                                      scale);
-}
-
-// WM-long (fp32): W-long's body with the mask; a kernel of its own, so
-// W-long's does not move.
-template <typename T>
-__global__ void __launch_bounds__(kThreads)
-window_attn_fwd_long_masked_kernel(const T* __restrict__ q,
-                                   const T* __restrict__ k,
-                                   const T* __restrict__ v,
-                                   const float* __restrict__ bias,
-                                   const float* __restrict__ mask,
-                                   T* __restrict__ out, int Tq, int Tk, int C,
-                                   int nh, int nW, float scale) {
-  gsasr::window_attn_fwd_long_body<T, true>(q, k, v, bias, out, Tq, Tk, C,
-                                            nh, scale, mask, nW);
-}
-
-// W4-long (fp32): W-long's body on the head-major (B, nh, T, hd) layout, a
-// kernel of its own.
-template <typename T>
-__global__ void __launch_bounds__(kThreads)
-window_attn_fwd_4d_long_kernel(const T* __restrict__ q,
-                               const T* __restrict__ k,
-                               const T* __restrict__ v,
-                               const float* __restrict__ bias,
-                               T* __restrict__ out, int Tq, int Tk, int C,
-                               int nh, float scale) {
-  gsasr::window_attn_fwd_long_body<T, false, true>(q, k, v, bias, out, Tq, Tk,
-                                                   C, nh, scale);
-}
-
-// The unmasked window-16 kernel: W-long's, or with kHM W4-long's.
-template <typename T, bool kHM>
-constexpr auto long_kernel() {
-  if constexpr (kHM)
-    return window_attn_fwd_4d_long_kernel<T>;
-  else
-    return window_attn_fwd_long_kernel<T>;
-}
-
-// W-long, or with a mask (nW, Tq, Tk; B a multiple of nW) WM-long; with
-// kHM, W4-long on the head-major layout.
-template <typename T, bool kHM = false>
-cudaError_t launch_fwd_long(const T* q, const T* k, const T* v,
-                            const float* bias, T* out, int B, int Tq, int Tk,
-                            int C, int nh, float scale, cudaStream_t st,
-                            const float* mask = nullptr, int nW = 1) {
-  if (!gsasr::long_shape_ok(B, Tq, Tk, C, nh) || nW < 1 || B % nW != 0)
-    return cudaErrorInvalidValue;
-  const size_t smem = gsasr::long_smem_bytes(C / nh);
-  const dim3 grid = gsasr::long_grid(nh, B, Tq);
-  cudaError_t err;
-  if (mask) {
-    err = cudaFuncSetAttribute(window_attn_fwd_long_masked_kernel<T>,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               static_cast<int>(smem));
-    if (err != cudaSuccess) return err;
-    window_attn_fwd_long_masked_kernel<T><<<grid, kThreads, smem, st>>>(
-        q, k, v, bias, mask, out, Tq, Tk, C, nh, nW, scale);
-    return cudaGetLastError();
-  }
-  const auto kernel = long_kernel<T, kHM>();
-  err = cudaFuncSetAttribute(kernel,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             static_cast<int>(smem));
-  if (err != cudaSuccess) return err;
-  kernel<<<grid, kThreads, smem, st>>>(q, k, v, bias, out, Tq, Tk, C, nh,
-                                       scale);
-  return cudaGetLastError();
-}
-
 }  // namespace
 
 // q, out (B, Tq, C); k, v (B, Tk, C); bias (nh, Tq, Tk) or null; all float32,
@@ -399,8 +318,8 @@ extern "C" int window_attn_fwd_long(const float* q, const float* k,
                                     const float* v, const float* bias,
                                     float* out, int B, int Tq, int Tk, int C,
                                     int nh, float scale, void* stream) {
-  return static_cast<int>(launch_fwd_long<float>(
-      q, k, v, bias, out, B, Tq, Tk, C, nh, scale,
+  return static_cast<int>(launch_fwd_long_tf32<false, false>(
+      q, k, v, bias, nullptr, out, B, Tq, Tk, C, nh, 1, scale,
       static_cast<cudaStream_t>(stream)));
 }
 
@@ -425,10 +344,9 @@ extern "C" int window_attn_fwd_long_masked(const float* q, const float* k,
                                            int B, int Tq, int Tk, int C,
                                            int nh, int nW, float scale,
                                            void* stream) {
-  if (!mask) return static_cast<int>(cudaErrorInvalidValue);
-  return static_cast<int>(launch_fwd_long<float>(
-      q, k, v, bias, out, B, Tq, Tk, C, nh, scale,
-      static_cast<cudaStream_t>(stream), mask, nW));
+  return static_cast<int>(launch_fwd_long_tf32<true, false>(
+      q, k, v, bias, mask, out, B, Tq, Tk, C, nh, nW, scale,
+      static_cast<cudaStream_t>(stream)));
 }
 
 // Kernel WM-long-bf16: as window_attn_fwd_masked_bf16 for any Tq and Tk
@@ -453,8 +371,8 @@ extern "C" int window_attn_fwd_4d(const float* q, const float* k,
                                   int nh, float scale, void* stream) {
   const auto st = static_cast<cudaStream_t>(stream);
   if (Tq > kMaxT || Tk > kMaxT)
-    return static_cast<int>(launch_fwd_long<float, true>(
-        q, k, v, bias, out, B, Tq, Tk, C, nh, scale, st));
+    return static_cast<int>(launch_fwd_long_tf32<false, true>(
+        q, k, v, bias, nullptr, out, B, Tq, Tk, C, nh, 1, scale, st));
   return static_cast<int>(launch_fwd<false, true>(
       q, k, v, bias, nullptr, out, B, Tq, Tk, C, nh, 1, scale, st));
 }

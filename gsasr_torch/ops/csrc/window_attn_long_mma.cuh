@@ -5,8 +5,8 @@
 // _attn_kernel_packed (gsasr_tpu/ops/attention.py, Pallas K11 at window 16:
 // HAT-L Ultra's 256 x 256 windows and OCAB's 256 x 576 rectangles), of
 // _attn_kernel_packed_masked (K13, the paper HAT's shifted windows) and of
-// _attn_kernel (K14, the 4D layout) beyond 160 tokens. The fp32 forms keep
-// the FMA body of window_attn_long.cuh. Per window w and head h:
+// _attn_kernel (K14, the 4D layout) beyond 160 tokens. The fp32 forms run
+// the 3xTF32 body of window_attn_long_tf32.cuh. Per window w and head h:
 //
 //   s = q_h k_h^T * scale (+ bias[h]) (+ mask[w % nW])   (Tq x Tk, f32)
 //   p = exp(s - max) / sum, normalized, then rounded to bf16

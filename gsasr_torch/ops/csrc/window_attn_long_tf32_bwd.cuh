@@ -5,8 +5,11 @@
 // 16: HAT-L Ultra's 256 x 256 windows and OCAB's 256 x 576 at model_dtype
 // float32), of _attn_kernel_packed_masked_bwd (K13b, the paper HAT's shifted
 // windows) and of _attn_kernel_bwd (K14b, the 4D layout) beyond 160 tokens.
-// The bf16 forms run window_attn_long_mma_bwd.cuh and AB-long keeps
-// window_attn_long_bwd.cuh's FMA body. Per window w and head h, with the
+// Up to 160 tokens WB, WMB and WB4 run the same arithmetic fused into one
+// launch (window_attn_short_tf32_bwd.cuh), and these launches only where
+// its shared memory would not fit. The bf16 forms run
+// window_attn_long_mma_bwd.cuh and AB-long keeps window_attn_long_bwd.cuh's
+// FMA body. Per window w and head h, with the
 // softmax recomputed as the forward forms it:
 //
 //   p = softmax(q_h k_h^T * scale (+ bias[h]) (+ mask[w % nW]))   (f32)
@@ -55,21 +58,11 @@
 //    the accumulator layout and feed dv += p^T g and dk += ds^T q from
 //    registers.
 //
-// Fragments. The m16n8k8 accumulator holds columns 2t and 2t + 1 of rows g
-// and g + 8, where the A fragment takes columns t and t + 4, so each
-// product's contraction index is permuted, and A and B follow the same
-// permutation. The scores and dp: slots t and t + 4 of k-step j are head
-// columns 8t + 2j and 8t + 2j + 1, so a lane's fragments of a row are its
-// own 8 contiguous columns, two 16-byte loads for all four k-steps. The
-// products over keys (launch 2: over queries): slot t of an 8-key step is
-// key 2t, slot t + 4 key 2t + 1, so an accumulator tile of s, dp, p or ds
-// is the next product's A fragment as it stands; column n of the output
-// tile jn is head column 4n + jn, so the B fragments of a key pair for all
-// four output tiles are two 16-byte loads, and lane t ends up owning head
-// columns 8t .. 8t + 7 of its rows. Tiles are f32 in shared memory at a
-// row stride of 36 floats (4 banks mod 32): every one of these loads is
-// free of bank conflicts and rows stay on 16 bytes for cp.async. Head
-// widths below 32 are padded with zeros; keys past Tk get -inf scores and
+// Fragments (tf32_frag.cuh, shared with the forward). The scores and dp
+// take the head columns in the permuted slots of tf32_rows; the products
+// over keys (launch 2: over queries) take an accumulator tile of p or ds as
+// their A fragment as it stands (tf32_cols), and lane t ends up owning head
+// columns 8t .. 8t + 7 of its rows. Keys past Tk get -inf scores and
 // queries past Tq zero p.
 //
 // Shapes as the bf16 body's: any Tq, Tk >= 1, a head width up to 32,
@@ -98,183 +91,10 @@
 #include <cmath>
 #include <cstdint>
 
-#include "mma_ptx.cuh"
+#include "tf32_frag.cuh"
 #include "window_attn_bwd.cuh"
-#include "window_attn_long_mma.cuh"
 
 namespace gsasr {
-
-constexpr int kTLd = 36;  // row stride in shared memory, floats
-
-// Floats per copy of a head row: 4 when every operand's head rows start on
-// 16 bytes, else 1. Rows are C (or, head-major, hd) floats apart and head h
-// starts at float h hd, so hd decides.
-inline int tf32_vec(int hd, const void* const* ptrs, int n) {
-  for (int i = 0; i < n; ++i)
-    if (reinterpret_cast<uintptr_t>(ptrs[i]) % 16) return 1;
-  return hd % 4 == 0 ? 4 : 1;
-}
-
-// Rows [row0, row0 + rows) of a head's columns [n0, n0 + hd) (rows ldg
-// apart) into `pad` rows of kTLd floats, rows past `rows` and columns past
-// hd zeros: cp.async copies of vec floats, which the caller commits and
-// waits for.
-__device__ __forceinline__ void tf32_stage(float* dst,
-                                           const float* __restrict__ src,
-                                           size_t row0, int rows, int pad,
-                                           int ldg, int n0, int hd, int vec) {
-  const int per = kLMaxHd / vec;
-  for (int e = threadIdx.x; e < pad * per; e += kMThreads) {
-    const int r = e / per;
-    const int d = (e - r * per) * vec;
-    const bool ok = r < rows && d < hd;
-    const float* s = src + (row0 + (ok ? r : 0)) * ldg + n0 + (ok ? d : 0);
-    if (vec == 4)
-      cp_async16(dst + r * kTLd + d, s, ok ? 16 : 0);
-    else
-      cp_async4(dst + r * kTLd + d, s, ok ? 4 : 0);
-  }
-}
-
-// x rounded to tf32 (a 10-bit mantissa, to the nearest, ties away from
-// zero: cvt.rna.tf32.f32's bits for finite x) as an f32 bit pattern with
-// its low 13 bits zero.
-__device__ __forceinline__ uint32_t tf32_rna(float x) {
-  return (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
-}
-
-// x as a 3xTF32 pair: big = tf32(x), small = tf32(x - big).
-__device__ __forceinline__ void tf32_split(float x, uint32_t& big,
-                                           uint32_t& small) {
-  big = tf32_rna(x);
-  small = tf32_rna(x - __uint_as_float(big));
-}
-
-__device__ __forceinline__ void tf32_split4(const float (&a)[4],
-                                            uint32_t (&big)[4],
-                                            uint32_t (&small)[4]) {
-#pragma unroll
-  for (int i = 0; i < 4; ++i) tf32_split(a[i], big[i], small[i]);
-}
-
-// d += a b in 3xTF32: the A fragment as its pair (ab, as), the B
-// fragment's two f32 values split here; the small terms first.
-__device__ __forceinline__ void mma_3xtf32(float (&d)[4],
-                                           const uint32_t (&ab)[4],
-                                           const uint32_t (&as)[4], float b0,
-                                           float b1) {
-  uint32_t bb0, bs0, bb1, bs1;
-  tf32_split(b0, bb0, bs0);
-  tf32_split(b1, bb1, bs1);
-  mma_tf32(d, as, bb0, bb1);
-  mma_tf32(d, ab, bs0, bs1);
-  mma_tf32(d, ab, bb0, bb1);
-}
-
-// This lane's A fragments of rows r0 .. r0 + 15 of a tile for the four
-// k-steps over the head's columns, as their pairs (ab, as): fragment j
-// holds (row g, column 8t + 2j), (g + 8, 8t + 2j), (g, 8t + 2j + 1), (g +
-// 8, 8t + 2j + 1).
-__device__ __forceinline__ void tf32_load_a(uint32_t (&ab)[4][4],
-                                            uint32_t (&as)[4][4],
-                                            const float* tile, int r0) {
-  const int lane = threadIdx.x & 31;
-  const float* p = tile + (r0 + (lane >> 2)) * kTLd + 8 * (lane & 3);
-#pragma unroll
-  for (int r = 0; r < 2; ++r)
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      const float4 x =
-          *reinterpret_cast<const float4*>(p + 8 * r * kTLd + 4 * h);
-      tf32_split(x.x, ab[2 * h][r], as[2 * h][r]);
-      tf32_split(x.y, ab[2 * h][2 + r], as[2 * h][2 + r]);
-      tf32_split(x.z, ab[2 * h + 1][r], as[2 * h + 1][r]);
-      tf32_split(x.w, ab[2 * h + 1][2 + r], as[2 * h + 1][2 + r]);
-    }
-}
-
-// acc[n] = a . (rows r0 + 8 n .. r0 + 8 n + 7 of a tile)^T over the head's
-// columns in 3xTF32, n < kN, a given as the pairs of tf32_load_a: the
-// scores of 16 rows against 8 kN staged rows, in the accumulator layout
-// (row g, key 8 n + 2t, + 1).
-template <int kN>
-__device__ __forceinline__ void tf32_rows(float (&acc)[kN][4],
-                                          const uint32_t (&ab)[4][4],
-                                          const uint32_t (&as)[4][4],
-                                          const float* tile, int r0) {
-  const int lane = threadIdx.x & 31;
-  const float* p = tile + (r0 + (lane >> 2)) * kTLd + 8 * (lane & 3);
-#pragma unroll
-  for (int n = 0; n < kN; ++n)
-    acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.f;
-#pragma unroll
-  for (int h = 0; h < 2; ++h) {
-    // columns 8t + 4h .. 8t + 4h + 3 of each row: k-steps 2h and 2h + 1
-    float4 b[kN];
-#pragma unroll
-    for (int n = 0; n < kN; ++n)
-      b[n] = *reinterpret_cast<const float4*>(p + 8 * n * kTLd + 4 * h);
-#pragma unroll
-    for (int s = 0; s < 2; ++s)
-#pragma unroll
-      for (int n = 0; n < kN; ++n)
-        mma_3xtf32(acc[n], ab[2 * h + s], as[2 * h + s],
-                   s ? b[n].z : b[n].x, s ? b[n].w : b[n].y);
-  }
-}
-
-// acc[jn] += x . (rows r0 .. r0 + 7 of a tile) in 3xTF32, where x is an
-// accumulator tile over 8 keys (launch 2: queries): slot t of the step is
-// row r0 + 2t of the tile, slot t + 4 row r0 + 2t + 1, and column n of
-// acc[jn] is head column 4n + jn.
-__device__ __forceinline__ void tf32_cols(float (&acc)[4][4],
-                                          const float (&x)[4],
-                                          const float* tile, int r0) {
-  const int lane = threadIdx.x & 31;
-  const float a[4] = {x[0], x[2], x[1], x[3]};
-  uint32_t ab[4], as[4];
-  tf32_split4(a, ab, as);
-  const float* p = tile + (r0 + 2 * (lane & 3)) * kTLd + 4 * (lane >> 2);
-  const float4 b0 = *reinterpret_cast<const float4*>(p);
-  const float4 b1 = *reinterpret_cast<const float4*>(p + kTLd);
-  mma_3xtf32(acc[0], ab, as, b0.x, b1.x);
-  mma_3xtf32(acc[1], ab, as, b0.y, b1.y);
-  mma_3xtf32(acc[2], ab, as, b0.z, b1.z);
-  mma_3xtf32(acc[3], ab, as, b0.w, b1.w);
-}
-
-// A product of tf32_cols times f into rows r0 + g and r0 + g + 8 (those
-// below `rows`) of dst, rows ldg apart from row0, dst at the head's first
-// column: lane t holds head columns 8t .. 8t + 7.
-__device__ __forceinline__ void tf32_store(float* __restrict__ dst,
-                                           const float (&acc)[4][4],
-                                           size_t row0, int r0, int rows,
-                                           int ldg, int hd, float f,
-                                           int vec) {
-  const int lane = threadIdx.x & 31;
-  const int t = lane & 3;
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    const int row = r0 + (lane >> 2) + 8 * r;
-    if (row >= rows) continue;
-    float* o = dst + (row0 + row) * ldg + 8 * t;
-#pragma unroll
-    for (int e = 0; e < 2; ++e) {
-      const int d = 8 * t + 4 * e;
-      const float x[4] = {acc[0][2 * r + e] * f, acc[1][2 * r + e] * f,
-                          acc[2][2 * r + e] * f, acc[3][2 * r + e] * f};
-      if (vec == 4) {
-        if (d < hd)
-          *reinterpret_cast<float4*>(o + 4 * e) =
-              make_float4(x[0], x[1], x[2], x[3]);
-      } else {
-#pragma unroll
-        for (int jn = 0; jn < 4; ++jn)
-          if (d + jn < hd) o[4 * e + jn] = x[jn];
-      }
-    }
-  }
-}
 
 // Launch 1, one block of kMThreads per (head, window, 64 query rows): dq,
 // each row's (max, sum, D) into stats, and ds into ds_w when it is not

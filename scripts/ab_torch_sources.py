@@ -5,49 +5,62 @@ R's time, the bf16 window attention's up to 160 tokens (W-bf16, WB-bf16
 and their masked forms WM-bf16, WMB-bf16) from both builds in turns
 (parent, change, change, parent, ...), with the window-16 routing (this
 tree's W-long-bf16 and WB-long-bf16 on the same operands) beside them, and
-the fp32 window-16 backward (WB-long, WMB-long, WB4-long) from every build
-in turns.
+the fp32 window attentions (the window-16 forward W-long, WM-long,
+W4-long; the backward up to 160 tokens WB, WMB, WB4; the window-16
+backward WB-long, WMB-long, WB4-long) from every build in turns.
 
   python3 scripts/ab_torch_sources.py --parent DIR [--label NAME]
-      [--parent DIR2 --label NAME2 ...] [--skip-raster] [--fp32-long-only]
+      [--parent DIR2 --label NAME2 ...] [--skip-raster] [--fp32-only]
       [--steps] [--json PATH]
 
 DIR holds the parent's `gsasr_torch/ops/csrc` (for example
-`git archive <parent> gsasr_torch/ops/csrc | tar -x -C DIR`), or a variant
-of this tree's sources, named in the output by --label; further --parent
-DIR --label NAME pairs add variants, which only the fp32 window-16
-backward times (the other sections take the first). All builds use
-`gsasr_torch/ops/_build.py`'s flags and go to build/ab_sources/. R runs
+`git archive <parent> gsasr_torch/ops | tar -x -C DIR`; with the parent's
+`_build.py` beside it, its entry points are called with its own argument
+kinds), or a variant of this tree's sources, named in the output by
+--label; further --parent DIR --label NAME pairs add variants, which only
+the fp32 sections time (the other sections take the first). All builds
+use `gsasr_torch/ops/_build.py`'s flags and go to build/ab_sources/. R runs
 on chip_smoke.py's exact-render workloads (scripts/bench_exact_render.py's
 720x720 render of 518,400 Gaussians, trained-like and init-like boxes),
 chunked as `gs_render` chunks them for R, and both builds must give the
-same bits (--skip-raster leaves it out). The attention runs at the
+same bits (--skip-raster leaves it out). The bf16 attention runs at the
 Enhanced training step's shape (256 windows of 144 tokens, 6 heads of 32,
 no bias), at the bf16 SwinIR step's unshifted blocks (576 windows of 64
 tokens, 6 heads of 30, a bias) and at its shifted blocks (the same with the
-SW-MSA mask of period 36: WM-bf16, WMB-bf16); each build's result must
-hold against the plain version within the bf16 tolerance (2^-7 |ref| +
-2^-8 max|ref|), and the largest difference between the two builds is
-printed. The fp32 window-16 backward runs at the fp32 Ultra step's shapes
-(WB-long: 128 windows of 256 x 256 and 256 x 576, 6 heads of 32, no bias)
-and the paper HAT step's (WMB-long: 144 windows of 256 x 256, 6 heads of
-30, a bias and the SW-MSA mask of period 9), and WB4-long on the
-head-major layout at 128 x 6 x 256 x 256 x 32 with a bias; each build's
-dq, dk, dv (and dbias) must hold against the plain version within 1e-4 of
-each column's largest entry, and give the same bits twice.
---fp32-long-only builds window_attn_bwd.cu alone and times only that
-section. --steps then times two training steps that run the fp32
-window-16 backward, chip_smoke.py's HAT-L Ultra step at model_dtype
-float32 (WB-long 148 a step) and its paper HAT step (WB-long 24, WMB-long
-18), with the first build's and this tree's window_attn_bwd.cu in turns
-(parent, change, change, parent): their entry points are swapped into the
-port's loaded kernels, and the rest of the port is this tree's. Each
-kernel's registers in every build are printed beside its form.
+SW-MSA mask of period 36: WM-bf16, WMB-bf16); each build's result must hold
+against the plain version within the bf16 tolerance (2^-7 |ref| + 2^-8
+max|ref|), and the largest difference between the two builds is printed.
+The fp32 window-16 forward runs W-long at the fp32 Ultra image's 144 and
+the Ultra step's 128 windows of 256 x 256 and 256 x 576, WM-long at the
+paper HAT's 144 x 256 x 256 x 30 with a bias and the mask of period 9,
+W4-long at 128 x 6 x 256 x 32 with a bias, and W at the paper step's 256 x
+6 x 144 x 30 beside this tree's W-long on its operands; the fp32 backward
+up to 160 tokens WB at the paper step's shape and SwinIR's 576 x 6 x 64 x
+30 (with a bias and without), WMB at SwinIR's with a bias and the mask of
+period 36 and WB4 at 256 x 6 x 144 x 30 with a bias; the fp32 window-16
+backward WB-long at the fp32 Ultra step's shapes (128 windows of 256 x 256
+and 256 x 576, 6 heads of 32, no bias), WMB-long at the paper HAT step's
+(144 windows of 256 x 256, 6 heads of 30, a bias and the SW-MSA mask of
+period 9), and WB4-long on the head-major layout at 128 x 6 x 256 x 256 x
+32 with a bias. Each fp32 build's results must hold against the plain
+version (forward atol = rtol = 1e-4; backward within 1e-4 of each output's
+largest entry) and give the same bits twice. --fp32-only builds
+window_attn_fwd.cu and window_attn_bwd.cu alone and times only the fp32
+sections. --steps then times the paths that run the fp32 window attentions,
+chip_smoke.py's paper EDSR module step (WB 38 a step), SwinIR step (WB 56,
+WMB 18), HAT-L Ultra step at model_dtype float32 (W-long 148, WB-long 148),
+paper HAT step (W-long 24, WM-long 18, WB-long 24, WMB-long 18, WB 38) and
+the HAT-L Ultra image (W-long 84), with the first build's and this tree's
+window_attn_fwd.cu, window_attn_bwd.cu and ln_attn.cu in turns (parent,
+change, change, parent): their entry points are swapped into the port's
+loaded kernels, and the rest of the port is this tree's. Each kernel's
+registers in every build are printed beside its form.
 """
 
 from __future__ import annotations
 
 import argparse
+import ast
 import ctypes
 import json
 import os
@@ -256,11 +269,30 @@ def _attention_ab(cs, out_dir, regs, tags):
     return dict(rows=rows, registers=form_regs)
 
 
-# The fp32 window-16 backward's kernels in the parent (the FMA body's
-# instantiations: (T, kMask, kAtt, kRnd, kHM) for the dq launch, (T, kMask,
-# kRnd, kHM) for the dk/dv launch) and in this tree (the 3xTF32 body, by its
-# flags kMask, kHM).
+# The fp32 window attentions' kernels in the earlier builds (the FMA
+# bodies' instantiations: the window-16 forward's, A-long's attention, WB's
+# (T, kMask, ...) and WB4's; the window-16 backward's (T, kMask, kAtt, kRnd,
+# kHM) for the dq launch, (T, kMask, kRnd, kHM) for the dk/dv launch) and
+# in this tree (the 3xTF32 bodies, by their flags kMask, kHM, and for WB,
+# WMB and WB4 kBig).
 LONG_FP32_KERNELS = {
+    "W-long": [("window_attn_fwd", "window_attn_fwd_long_kernel", "IfE"),
+               ("window_attn_fwd", "window_attn_fwd_long_tf32_kernel",
+                "ILb0ELb0E")],
+    "WM-long": [("window_attn_fwd", "window_attn_fwd_long_masked_kernel", ""),
+                ("window_attn_fwd", "window_attn_fwd_long_tf32_kernel",
+                 "ILb1ELb0E")],
+    "W4-long": [("window_attn_fwd", "window_attn_fwd_4d_long_kernel", ""),
+                ("window_attn_fwd", "window_attn_fwd_long_tf32_kernel",
+                 "ILb0ELb1E")],
+    "A-long attention": [("ln_attn", "attn_long_kernel", ""),
+                         ("ln_attn", "window_attn_fwd_long_tf32_kernel", "")],
+    "WB": [("window_attn_bwd", "window_attn_bwd_kernel", "ILb0ELb0EfLb0E"),
+           ("window_attn_bwd", "window_attn_bwd_short_tf32_", "ILb0ELb0E")],
+    "WMB": [("window_attn_bwd", "window_attn_bwd_kernel", "ILb0ELb1EfLb0E"),
+            ("window_attn_bwd", "window_attn_bwd_short_tf32_", "ILb1ELb0E")],
+    "WB4": [("window_attn_bwd", "window_attn_bwd_4d_kernelIf", ""),
+            ("window_attn_bwd", "window_attn_bwd_short_tf32_", "ILb0ELb1E")],
     "WB-long": [("window_attn_bwd", "window_attn_bwd_long_q_kernel",
                  "IfLb0ELb0ELb0ELb0EE"),
                 ("window_attn_bwd", "window_attn_bwd_long_kv_kernel",
@@ -314,7 +346,7 @@ def _long_fp32_ab(cs, out_dir, regs, tags):
         if err:
             raise RuntimeError(f"the {tag}'s {name} failed: cudaError {err}")
 
-    print(f"registers of the fp32 window-16 backward ({', '.join(tags)}):",
+    print(f"registers of the fp32 window attentions ({', '.join(tags)}):",
           flush=True)
     form_regs = {}
     for form, keys in LONG_FP32_KERNELS.items():
@@ -406,6 +438,260 @@ def _long_fp32_ab(cs, out_dir, regs, tags):
               f"{bound:.4f} by {by}, SDPA backward {lib_b})", flush=True)
     return dict(rows=rows, registers=form_regs)
 
+def _signatures(root):
+    """The entry points' argument kinds of the `_build.py` beside a tree's
+    csrc (a parent's archive holds it), else this tree's: the fp32 backward
+    up to 160 tokens took no stats scratch before it ran WB-long's body."""
+    from gsasr_torch.ops import _build
+
+    path = os.path.join(root, "gsasr_torch", "ops", "_build.py")
+    if not os.path.exists(path):
+        return _build.SIGNATURES
+    with open(path) as f:
+        tree = ast.parse(f.read())
+    for node in tree.body:
+        if isinstance(node, ast.Assign) and any(
+                getattr(t, "id", None) == "SIGNATURES" for t in node.targets):
+            return eval(compile(ast.Expression(node.value), path, "eval"))
+    raise RuntimeError(f"no SIGNATURES in {path}")
+
+
+def _entries(out_dir, tags, names, sigs):
+    """{(tag, name): the entry point of tag's build, with tag's argument
+    kinds}."""
+    from gsasr_torch.ops import _build
+
+    out = {}
+    for tag in tags:
+        for name in names:
+            fn = getattr(ctypes.CDLL(os.path.join(
+                out_dir, f"{tag}_{_build.source_of(name)}.so")), name)
+            fn.argtypes = [_build._CTYPES[k] for k in sigs[tag][name]] + [
+                ctypes.c_void_p]
+            fn.restype = ctypes.c_int
+            out[tag, name] = fn
+    return out
+
+
+def _fp32_fwd_ab(cs, out_dir, tags, sigs):
+    """The fp32 window-16 forward from every build in turns (tags +
+    reversed + tags): W-long at the Ultra image's 144 windows and the Ultra
+    step's 128 of 256 x 256 and 256 x 576 (6 heads of 32, no bias),
+    WM-long at the paper HAT's 144 x 256 x 256 x 30 with a bias and the
+    SW-MSA mask of period 9, W4-long at 128 x 6 x 256 x 32 with a bias; and
+    W (up to 160 tokens, the FMA body) at the paper step's 256 x 6 x 144 x
+    30 with a bias beside this tree's W-long on the same operands
+    ("window-16", the 3xTF32 body as W's yardstick). Each held within atol
+    = rtol = 1e-4 of the plain version and to the same bits twice; ms, the
+    speed-up of the change over each other build, the bound (the two
+    products in 3xTF32 at the TF32 peak, or the bytes) and SDPA's
+    forward."""
+    import torch
+
+    from gsasr_torch.models.swinir import swin_attn_mask
+    from gsasr_torch.ops import attention as ta
+
+    names = ("window_attn_fwd", "window_attn_fwd_long",
+             "window_attn_fwd_long_masked", "window_attn_fwd_4d")
+    entries = _entries(out_dir, tags, names, sigs)
+    dev = torch.device("cuda")
+    gen = torch.Generator().manual_seed(41)
+    rnd = lambda *s: torch.randn(*s, generator=gen).to(dev)  # noqa: E731
+    mask9 = swin_attn_mask(48, 48, 16, 8, dev)
+    # (form, case, windows, Tq, Tk, C, heads, bias, mask, head-major)
+    cases = [("W-long", "Ultra image 256x256", 144, 256, 256, 192, 6, False,
+              None, False),
+             ("W-long", "Ultra image OCAB 256x576", 144, 256, 576, 192, 6,
+              False, None, False),
+             ("W-long", "Ultra step 256x256", 128, 256, 256, 192, 6, False,
+              None, False),
+             ("W-long", "Ultra step OCAB 256x576", 128, 256, 576, 192, 6,
+              False, None, False),
+             ("WM-long", "paper HAT 256x256, bias, period 9", 144, 256, 256,
+              180, 6, True, mask9, False),
+             ("W4-long", "4D 256x256, bias", 128, 256, 256, 192, 6, True,
+              None, True),
+             ("W", "paper step 144x144, bias", 256, 144, 144, 180, 6, True,
+              None, False)]
+    rows = []
+    for form, case, b, tq, tk, c, nh, has_bias, mask, hm in cases:
+        q, k, v = rnd(b, tq, c), rnd(b, tk, c), rnd(b, tk, c)
+        bias = 0.5 * rnd(nh, tq, tk) if has_bias else None
+        scale = (c // nh) ** -0.5
+        hd = c // nh
+        nw = 0 if mask is None else mask.shape[0]
+        full = None if bias is None else (
+            bias[None] + (0 if mask is None else mask.repeat(
+                b // nw, 1, 1)[:, None]))
+        lib_f, _, _ = cs._sdpa_ms(q, k, v, full, q, nh, scale)
+        hmaj = lambda x: ta._heads(x, nh).contiguous()  # noqa: E731
+        ops = [hmaj(x) for x in (q, k, v)] if hm else [q, k, v]
+        outs = {}
+
+        def run(tag):
+            src = "change" if tag == "window-16" else tag
+            out = torch.empty_like(ops[0])
+            if tag == "window-16":
+                name, extra = "window_attn_fwd_long", ()
+            elif form == "W":
+                name, extra = "window_attn_fwd", ()
+            elif hm:
+                name, extra = "window_attn_fwd_4d", ()
+            elif mask is None:
+                name, extra = "window_attn_fwd_long", ()
+            else:
+                name, extra = "window_attn_fwd_long_masked", (mask,)
+            err = entries[src, name](*[a.data_ptr() if isinstance(
+                a, torch.Tensor) else a for a in (
+                    *ops, bias, *extra, out, b, tq, tk, c, nh,
+                    *((nw,) if extra else ()), scale)],
+                torch.cuda.current_stream().cuda_stream)
+            if err:
+                raise RuntimeError(f"the {src}'s {name} failed: cudaError "
+                                   f"{err}")
+            outs[tag] = ta._merge(out) if hm else out
+
+        turns = list(tags) + (["window-16"] if form == "W" else [])
+        order = turns + turns[::-1] + turns
+        ms = {tag: [] for tag in turns}
+        for tag in order:
+            ms[tag].append(cs._time_ms(lambda: run(tag), 10))
+        ref = ta.window_attention_packed_plain(q, k, v, bias, scale, nh,
+                                               mask)
+        errs = {}
+        for tag in turns:
+            first = outs[tag]
+            run(tag)
+            if not torch.equal(first, outs[tag]):
+                raise AssertionError(f"{form} {case} {tag}: not the same "
+                                     "bits twice")
+            errs[tag] = cs._compare(first, ref, f"{form} {case} {tag}")
+        nbytes = 4 * (2 * b * tq * c + 2 * b * tk * c) + (
+            4 * nh * tq * tk if has_bias else 0) + 4 * nw * tq * tk
+        bound, by = cs._bound_ms(12.0 * b * nh * tq * tk * hd, nbytes,
+                                 cs.PEAK_TF32)
+        med = {tag: sorted(v)[len(v) // 2] for tag, v in ms.items()}
+        ref_tag = "window-16" if form == "W" else "change"
+        rows.append(dict(form=form, case=case, windows=b, ms=ms,
+                         speedup={t: med[t] / med[ref_tag] for t in turns
+                                  if t != ref_tag},
+                         bound_ms=bound, bound_by=by, library_ms=lib_f,
+                         max_abs_err=errs))
+        speed = ", ".join(f"{med[t] / med[ref_tag]:.2f}x over {t}"
+                          for t in turns if t != ref_tag)
+        print(f"  {form} {case}: " + ", ".join(
+            f"{t} {ms[t]} ms" for t in turns) + f"; {ref_tag} {speed} "
+              f"(bound in 3xTF32 {bound:.4f} by {by}, SDPA {lib_f})",
+              flush=True)
+    return dict(rows=rows)
+
+
+def _fp32_short_bwd_ab(cs, out_dir, tags, sigs):
+    """The fp32 window attention backward up to 160 tokens from every build
+    in turns (tags + reversed + tags): WB at the paper step's 256 x 6 x 144
+    x 30 and SwinIR's 576 x 6 x 64 x 30, WMB at SwinIR's training shape
+    with the mask of period 36, WB4 at 256 x 6 x 144 x 30, with a bias (and
+    WB without one); a build whose WB takes no stats scratch (the FMA body's
+    signature) is called without it. Each build's dq, dk, dv and dbias held
+    within 1e-4 of each one's largest entry of the plain version and to the
+    same bits twice; ms, speed-ups, the bound (the five
+    products in 3xTF32 at the TF32 peak, or the bytes) and SDPA's
+    backward."""
+    import torch
+
+    from gsasr_torch.models.swinir import swin_attn_mask
+    from gsasr_torch.ops import attention as ta
+
+    names = ("window_attn_bwd", "window_attn_bwd_masked",
+             "window_attn_bwd_4d")
+    entries = _entries(out_dir, tags, names, sigs)
+    dev = torch.device("cuda")
+    gen = torch.Generator().manual_seed(43)
+    rnd = lambda *s: torch.randn(*s, generator=gen).to(dev)  # noqa: E731
+    mask36 = swin_attn_mask(48, 48, 8, 4, dev)
+    # (form, case, windows, T, C, bias, mask, head-major)
+    cases = [("WB", "paper step 144x144, bias", 256, 144, 180, True, None,
+              False),
+             ("WB", "paper step 144x144, no bias", 256, 144, 180, False, None,
+              False),
+             ("WB", "SwinIR 64x64, bias", 576, 64, 180, True, None, False),
+             ("WB", "SwinIR 64x64, no bias", 576, 64, 180, False, None,
+              False),
+             ("WMB", "SwinIR 64x64, bias, period 36", 576, 64, 180, True,
+              mask36, False),
+             ("WB4", "4D 144x144, bias", 256, 144, 180, True, None, True)]
+    rows = []
+    for form, case, b, t, c, has_bias, mask, hm in cases:
+        nh, hd = 6, c // 6
+        q, k, v, g = (rnd(b, t, c) for _ in range(4))
+        bias = 0.5 * rnd(nh, t, t) if has_bias else None
+        scale = hd ** -0.5
+        nw = 0 if mask is None else mask.shape[0]
+        full = None if bias is None else bias[None] + (
+            0 if mask is None else mask.repeat(b // nw, 1, 1)[:, None])
+        _, lib_b, _ = cs._sdpa_ms(q, k, v, full, g, nh, scale)
+        stats = torch.empty(b, nh, t, 3, device=dev)
+        ds_w = torch.empty(b, nh, t, t, device=dev)
+        hmaj = lambda x: ta._heads(x, nh).contiguous()  # noqa: E731
+        ops = [hmaj(x) for x in (q, k, v, g)] if hm else [q, k, v, g]
+        name = ("window_attn_bwd_4d" if hm else "window_attn_bwd_masked"
+                if mask is not None else "window_attn_bwd")
+        outs = {}
+
+        def run(tag):
+            dq, dk, dv = (torch.empty_like(x) for x in ops[:3])
+            dbias = torch.empty(nh, t, t, device=dev) if has_bias else None
+            extra = () if mask is None else (mask,)
+            # stats only where the build's entry point takes it
+            np_ = sigs[tag][name].count("p")
+            scratch = (stats, ds_w) if np_ == 11 + len(extra) else (ds_w,)
+            err = entries[tag, name](*[a.data_ptr() if isinstance(
+                a, torch.Tensor) else a for a in (
+                    *ops[:3], bias, *extra, ops[3], dq, dk, dv, *scratch,
+                    dbias, b, t, t, c, nh, *((nw,) if extra else ()),
+                    scale)], torch.cuda.current_stream().cuda_stream)
+            if err:
+                raise RuntimeError(f"the {tag}'s {name} failed: cudaError "
+                                   f"{err}")
+            if hm:
+                dq, dk, dv = (ta._merge(x) for x in (dq, dk, dv))
+            outs[tag] = (dq, dk, dv, dbias)
+
+        order = list(tags) + list(tags)[::-1] + list(tags)
+        ms = {tag: [] for tag in tags}
+        for tag in order:
+            ms[tag].append(cs._time_ms(lambda: run(tag), 10))
+        refs = ta.window_attention_packed_bwd_plain(q, k, v, bias, g, scale,
+                                                    nh, mask)
+        errs = {}
+        for tag in tags:
+            first = outs[tag]
+            run(tag)
+            if not all(torch.equal(a, o) for a, o in zip(first, outs[tag])
+                       if o is not None):
+                raise AssertionError(f"{form} {case} {tag}: not the same "
+                                     "bits twice")
+            errs[tag] = cs._compare_grads(
+                first, refs, ("dq", "dk", "dv", "dbias"),
+                f"{form} {case} {tag}")
+        nbytes = 4 * 7 * b * t * c + 8 * nh * t * t * has_bias + \
+            4 * nw * t * t
+        bound, by = cs._bound_ms(30.0 * b * nh * t * t * hd, nbytes,
+                                 cs.PEAK_TF32)
+        med = {tag: sorted(v)[len(v) // 2] for tag, v in ms.items()}
+        rows.append(dict(form=form, case=case, windows=b, ms=ms,
+                         speedup={tag: med[tag] / med["change"]
+                                  for tag in tags if tag != "change"},
+                         bound_ms=bound, bound_by=by, library_ms=lib_b,
+                         max_abs_err=errs))
+        speed = ", ".join(f"{med[t] / med['change']:.2f}x over {t}"
+                          for t in tags if t != "change")
+        print(f"  {form} {case}: " + ", ".join(
+            f"{t} {ms[t]} ms" for t in tags) + f"; {speed} (bound "
+              f"{bound:.4f} by {by}, SDPA backward {lib_b})", flush=True)
+    return dict(rows=rows)
+
+
 
 def main() -> int:
     ap = argparse.ArgumentParser()
@@ -417,13 +703,15 @@ def main() -> int:
                     "of this tree's sources, say), one per --parent")
     ap.add_argument("--skip-raster", action="store_true",
                     help="time the attention forms only, not kernel R")
-    ap.add_argument("--fp32-long-only", action="store_true",
-                    help="build window_attn_bwd.cu alone and time only the "
-                    "fp32 window-16 backward")
+    ap.add_argument("--fp32-only", action="store_true",
+                    help="build window_attn_fwd.cu and window_attn_bwd.cu "
+                    "alone and time only the fp32 window attentions")
     ap.add_argument("--steps", action="store_true",
-                    help="also time the fp32 Ultra and paper HAT training "
-                    "steps with the first build's and this tree's "
-                    "window_attn_bwd.cu in turns")
+                    help="also time the paths that run the fp32 window "
+                    "attentions (the paper EDSR, SwinIR, fp32 Ultra and "
+                    "paper HAT steps, the fp32 Ultra image) with the first "
+                    "build's and this tree's window_attn_fwd.cu, "
+                    "window_attn_bwd.cu and ln_attn.cu in turns")
     ap.add_argument("--json", help="write the results to this file")
     args = ap.parse_args()
     import torch
@@ -445,15 +733,17 @@ def main() -> int:
     dirs = {tag: os.path.join(d, "gsasr_torch", "ops", "csrc")
             for tag, d in zip(labels, args.parent)}
     dirs["change"] = str(_build.SRC_DIR)
-    sources = ("window_attn_bwd",) if args.fp32_long_only else SOURCES
+    sigs = {tag: _signatures(d) for tag, d in zip(labels, args.parent)}
+    sigs["change"] = _build.SIGNATURES
+    fp32 = ("window_attn_fwd", "window_attn_bwd")
+    sources = fp32 if args.fp32_only else SOURCES
     jobs = [(tag, src, subprocess.Popen(
         [_build._nvcc(), *_build.NVCC_FLAGS, "-o",
          os.path.join(out_dir, f"{tag}_{src}.so"),
          os.path.join(d, f"{src}.cu")], stdout=subprocess.PIPE,
         stderr=subprocess.STDOUT, text=True))
         for tag, d in dirs.items()
-        for src in (sources if tag in (old, "change") else
-                    ("window_attn_bwd",))]
+        for src in (sources if tag in (old, "change") else fp32)]
     regs: dict = {}
     for tag, src, proc in jobs:
         log = proc.communicate()[0]
@@ -468,53 +758,98 @@ def main() -> int:
         print(f"  {key[:120]}: {r.get(old)} -> {r.get('change')}{mark}",
               flush=True)
     times, attn = {}, {}
-    if not (args.skip_raster or args.fp32_long_only):
+    if not (args.skip_raster or args.fp32_only):
         times = _raster_ab(cs, out_dir, {old: dirs[old],
                                          "change": dirs["change"]})
-    if not args.fp32_long_only:
+    if not args.fp32_only:
         attn = _attention_ab(cs, out_dir, regs, (old, "change"))
+    print("the fp32 window-16 forward:", flush=True)
+    fwd_fp32 = _fp32_fwd_ab(cs, out_dir, tuple(dirs), sigs)
+    print("the fp32 backward up to 160 tokens:", flush=True)
+    short_fp32 = _fp32_short_bwd_ab(cs, out_dir, tuple(dirs), sigs)
+    print("the fp32 window-16 backward:", flush=True)
     long_fp32 = _long_fp32_ab(cs, out_dir, regs, tuple(dirs))
-    steps = _steps_ab(cs, out_dir, (old, "change")) if args.steps else {}
+    steps = (_steps_ab(cs, out_dir, (old, "change"), sigs) if args.steps
+             else {})
     if args.json:
         with open(args.json, "w") as f:
             json.dump(dict(card=card, registers=regs, r_ms=times,
-                           attention=attn, long_fp32=long_fp32,
+                           attention=attn, fwd_fp32=fwd_fp32,
+                           short_fp32=short_fp32, long_fp32=long_fp32,
                            steps=steps), f, indent=1)
     return 0
 
 
-def _steps_ab(cs, out_dir, tags):
-    """chip_smoke.py's HAT-L Ultra step at model_dtype float32 and its paper
-    HAT step, with each build's window_attn_bwd.cu in turns: the step
-    medians of every turn by build."""
+def _stats_dropped(fn, masked):
+    """An entry point of WB or WMB from a build whose signature takes no
+    stats scratch (the FMA body's), called with this tree's arguments:
+    stats dropped, and ds_w, which that body always writes, allocated where
+    this tree passes none (no bias)."""
+    import torch
+
+    n_ptr = 12 if masked else 11  # this tree's pointers
+
+    def call(*a):
+        a = list(a)
+        del a[n_ptr - 3]  # stats
+        keep = None
+        if not a[n_ptr - 3]:
+            b, tq, tk, _, nh = a[n_ptr - 1:n_ptr + 4]
+            keep = torch.empty(b * nh * tq * tk, device="cuda")
+            a[n_ptr - 3] = keep.data_ptr()
+        return fn(*a)
+    return call
+
+
+def _steps_ab(cs, out_dir, tags, sigs):
+    """The paths that run the fp32 window attentions, with each build's
+    window_attn_fwd.cu, window_attn_bwd.cu and ln_attn.cu entry points in
+    turns (parent, change, change, parent): chip_smoke.py's paper EDSR
+    module step (WB 38), SwinIR step (WB 56, WMB 18), HAT-L Ultra step at
+    model_dtype float32 (W-long 148, WB-long 148) and paper HAT step
+    (W-long 24, WM-long 18, WB-long 24, WMB-long 18, WB 38): the step
+    medians; and the HAT-L Ultra image in fp32 (W-long 84): the e2e
+    medians."""
     import gc
 
     import torch
 
+    from gsasr_torch.model import make_models
     from gsasr_torch.ops import _build
 
     dev = torch.device("cuda")
     kernels = cs.kernel_wrappers()
     _build.build(list(_build.SIGNATURES))
-    names = [n for n in _build.SIGNATURES
-             if _build.source_of(n) == "window_attn_bwd"]
+    srcs = ("window_attn_fwd", "window_attn_bwd", "ln_attn")
+    names = [n for n in _build.SIGNATURES if _build.source_of(n) in srcs]
     entries = {}
     for tag in tags:
-        lib = ctypes.CDLL(os.path.join(out_dir, f"{tag}_window_attn_bwd.so"))
+        for src in srcs:
+            lib = ctypes.CDLL(os.path.join(out_dir, f"{tag}_{src}.so"))
+            for name in names:
+                if _build.source_of(name) != src:
+                    continue
+                fn = getattr(lib, name)
+                fn.argtypes = [_build._CTYPES[k] for k in sigs[tag][
+                    name]] + [ctypes.c_void_p]
+                fn.restype = ctypes.c_int
+                if sigs[tag][name] != _build.SIGNATURES[name]:
+                    fn = _stats_dropped(fn, "masked" in name)
+                entries[tag, name] = fn
+
+    def swap(tag):
         for name in names:
-            fn = getattr(lib, name)
-            fn.argtypes = [_build._CTYPES[k] for k in _build.SIGNATURES[
-                name]] + [ctypes.c_void_p]
-            fn.restype = ctypes.c_int
-            entries[tag, name] = fn
+            _build._libs[name] = entries[tag, name]
+
     out = {}
-    for label, kw in (("HAT-L Ultra float32 step",
+    for label, kw in (("paper EDSR step", dict(encoder="edsr")),
+                      ("SwinIR float32 step", dict(encoder="swinir")),
+                      ("HAT-L Ultra float32 step",
                        dict(encoder="hat", ultra=torch.float32)),
                       ("paper HAT float32 step", dict(encoder="hat_paper"))):
         ms = {tag: [] for tag in tags}
         for tag in list(tags) + list(tags)[::-1]:
-            for name in names:
-                _build._libs[name] = entries[tag, name]
+            swap(tag)
             res = cs.train_phase(dev, kernels, fused=False, **kw)
             ms[tag].append(res["step_ms_median"])
             gc.collect()
@@ -522,6 +857,19 @@ def _steps_ab(cs, out_dir, tags):
         out[label] = ms
         print(f"  {label}: " + ", ".join(f"{t} {v} ms" for t, v in
                                          ms.items()), flush=True)
+    enc, dec = make_models("hat", "ultra",
+                           generator=torch.Generator().manual_seed(0))
+    enc, dec = enc.to(dev).eval(), dec.to(dev).eval()
+    ms = {tag: [] for tag in tags}
+    for tag in list(tags) + list(tags)[::-1]:
+        swap(tag)
+        res = cs.e2e_phase(enc, dec, dev, label="HAT-L Ultra",
+                           denominator=cs.ULTRA_DENOMINATOR)
+        ms[tag].append(res["e2e_ms_median"])
+    out["HAT-L Ultra image"] = ms
+    print("  HAT-L Ultra image: " + ", ".join(f"{t} {v} ms" for t, v in
+                                              ms.items()), flush=True)
+    swap("change")
     return out
 
 

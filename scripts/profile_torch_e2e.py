@@ -63,17 +63,21 @@ FAMILIES = (
      ("window_attn_bwd_long_mma_q_kernel",)),
     ("WB-long-bf16 window_attn_bwd long mma dk/dv",
      ("window_attn_bwd_long_mma_kv_kernel",)),
-    # the masked forms of the fp32 window-16 kernels (the paper HAT's
-    # shifted windows), a kernel and an instantiation (the 3xTF32 backward
-    # with kMask) of their own, before the unmasked forms' names match them
-    ("WM-long window_attn_fwd long masked",
-     ("window_attn_fwd_long_masked_kernel",)),
+    # the masked forms of the fp32 3xTF32 bodies (the paper HAT's shifted
+    # windows; SwinIR's WMB), instantiations with kMask of their own, before
+    # the unmasked forms' names match them
+    ("WM-long window_attn_fwd long tf32 masked",
+     ("window_attn_fwd_long_tf32_kernel<true",)),
     ("WMB-long window_attn_bwd long tf32 masked",
      ("window_attn_bwd_long_tf32_q_kernel<true",
       "window_attn_bwd_long_tf32_kv_kernel<true")),
-    # the window-16 forms: W-long, and A-long's projections, attention and
-    # (bf16) out-projection
-    ("W-long window_attn_fwd long", ("window_attn_fwd_long_kernel",)),
+    ("WMB window_attn_bwd short tf32 masked",
+     ("window_attn_bwd_short_tf32_kernel<true",)),
+    # the fp32 3xTF32 forward: W-long (W4-long), and A-long's fp32 attention
+    # launch, the same kernel; A-long's projections and (bf16)
+    # out-projection below
+    ("W-long window_attn_fwd long tf32, A-long fp32 attention",
+     ("window_attn_fwd_long_tf32_kernel",)),
     # AB-long's attention backward: the window-16 FMA body's launches on
     # AB's f32 scratch, forming att (kAtt) and, in bf16, rounding as
     # AB-bf16 (kRnd)
@@ -84,10 +88,10 @@ FAMILIES = (
      ("window_attn_bwd_long_q_kernel<float, true, false",
       "window_attn_bwd_long_kv_kernel<float, false")),
     # WB-long (and WB4-long): the 3xTF32 body's dq / row-statistics and
-    # dk / dv launches
+    # dk / dv launches; WB (and WB4) up to 160 tokens: its one launch
     ("WB-long window_attn_bwd long tf32", ("window_attn_bwd_long_tf32",)),
+    ("WB window_attn_bwd short tf32", ("window_attn_bwd_short_tf32",)),
     ("A-long q/k/v projections", ("ln_qkv_kernel",)),
-    ("A-long attention", ("attn_long_kernel",)),
     ("A-long out-proj (bf16)", ("out_proj_kernel<__nv_bfloat16, "
                                 "__nv_bfloat16",)),
     ("RB raster_bwd", ("raster_bwd_kernel",)),
@@ -102,14 +106,12 @@ FAMILIES = (
      ("window_attn_bwd_short_mma_kernel<true",)),
     ("WB-bf16 window_attn_bwd short mma",
      ("window_attn_bwd_short_mma_kernel",)),
-    # WM is a kernel of its own over W's body; WMB an instantiation of WB's
-    # kernel (kMask true)
+    # WM is a kernel of its own over W's body
     ("WM window_attn_fwd masked", ("window_attn_fwd_masked_kernel",)),
     ("W window_attn_fwd", ("window_attn_fwd_kernel",)),
-    ("WMB window_attn_bwd masked", ("window_attn_bwd_kernel<false, true",)),
-    # AB runs WB's device code for its attention backward; the sum of ds
-    # over the windows is every T <= 160 form's dbias
-    ("WB window_attn_bwd, AB attention, dbias sums",
+    # AB's attention backward, the FMA body that WB ran before; the sum of
+    # ds over the windows is every form's dbias
+    ("AB attention, dbias sums",
      ("window_attn_bwd_kernel", "dbias_sum_kernel")),
     ("M ln_mlp", ("ln_mlp_kernel",)),
     ("A ln_attn heads", ("attn_heads_kernel",)),

@@ -196,10 +196,10 @@ def test_each_4d_form_launches_its_entry_point(monkeypatch, bf16, long):
     """W4 and WB4 (and their bf16 forms, up to 160 tokens and beyond) pass
     their entry point the arguments its C signature declares: the sizes (B,
     Tq, Tk, C = nh hd, nh), the bias, and the backward's scratch (each
-    row's statistics only beyond 160 tokens, ds always for WB4's fp32 body
-    up to 160 tokens and otherwise only for dbias: the tensor-core bodies
-    keep ds on the chip); ctypes stands in for the library and CPU tensors
-    for CUDA ones (no card here)."""
+    row's statistics in fp32 and beyond 160 tokens, where WB-long's launches
+    run, ds only for dbias: the tensor-core bodies keep ds on the chip);
+    ctypes stands in for the library and CPU tensors for CUDA ones (no card
+    here)."""
     from gsasr_torch.ops import _build
 
     calls = []
@@ -224,8 +224,8 @@ def test_each_4d_form_launches_its_entry_point(monkeypatch, bf16, long):
             assert args[3] == (None if bias is None else bias.data_ptr())
         _, bargs = calls[1]
         stats, ds, dbias = bargs[8:11]
-        assert (stats is not None) == long
-        assert (ds is not None) == (not (long or bf16) or bias is not None)
+        assert (stats is not None) == (long or not bf16)
+        assert (ds is not None) == (bias is not None)
         assert (dbias is not None) == (bias is not None)
 
 

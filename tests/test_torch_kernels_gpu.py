@@ -161,9 +161,13 @@ def _attn_inputs(cuda, b, tq, tk, c, nh, bias=True, seed=2):
 
 
 # (windows, Tq, Tk, C, heads, bias): the paper decoder's shape with a prime
-# window count, Tq != Tk, no bias, and a head width below 32
+# window count, Tq != Tk, no bias, and a head width below 32; and the edges
+# of WB's 3xTF32 tensor-core tiling: 160 tokens, three keys, and a head
+# width of 24
 ATTN_CASES = [(37, 144, 144, 180, 6, True), (11, 64, 144, 180, 6, True),
-              (13, 144, 100, 180, 6, False), (7, 49, 49, 96, 4, True)]
+              (13, 144, 100, 180, 6, False), (7, 49, 49, 96, 4, True),
+              (9, 160, 160, 192, 6, True), (5, 64, 3, 180, 6, True),
+              (6, 144, 144, 144, 6, True)]
 
 
 @pytest.mark.parametrize("b,tq,tk,c,nh,bias", ATTN_CASES)
@@ -200,9 +204,13 @@ def test_window_attn_bwd_matches_plain_and_repeats(cuda, b, tq, tk, c, nh,
 
 # (windows, mask period nW, T, C, heads, bias): SwinIR's inference shape
 # (one 192x192 image: 576 window classes) cut to 72 windows, its training
-# shape (36 classes repeated), a prime period with r = 3, no bias
+# shape (36 classes repeated), a prime period with r = 3, no bias; and 160
+# tokens (where the bias and mask rows exceed the 3xTF32 body's shared
+# memory and WB-long's launches stand in), three, and a head width of 24
 MASKED_CASES = [(72, 72, 64, 180, 6, True), (144, 36, 64, 180, 6, True),
-                (39, 13, 64, 180, 6, True), (24, 8, 64, 96, 4, False)]
+                (39, 13, 64, 180, 6, True), (24, 8, 64, 96, 4, False),
+                (18, 9, 160, 192, 6, True), (8, 4, 3, 180, 6, True),
+                (24, 8, 64, 144, 6, True)]
 
 
 def _swin_mask(cuda, nw, t, seed=4):
@@ -598,11 +606,15 @@ def test_enhanced_bf16_module_step_through_autograd(cuda):
 # below 32, and bf16 at 256 x 256; and the edges of W-long-bf16's
 # tensor-core tiling: a head width of 30 on packed rows that are not 16-byte
 # aligned (C = 180) with a bias, a head width of 24 with Tk not a multiple
-# of 16, and three keys
+# of 16, and three keys; the fp32 twins of those edges for W-long's
+# 3xTF32 body, and the paper HAT's 256 x 256 with hd 30 and a bias
 LONG_ATTN_CASES = [(7, 256, 256, 192, 6, False, torch.float32),
                    (5, 256, 576, 192, 6, False, torch.float32),
                    (3, 130, 300, 180, 6, True, torch.float32),
                    (4, 200, 161, 96, 4, False, torch.float32),
+                   (4, 256, 256, 180, 6, True, torch.float32),
+                   (3, 170, 203, 72, 3, True, torch.float32),
+                   (2, 161, 3, 64, 2, False, torch.float32),
                    (7, 256, 256, 192, 6, False, torch.bfloat16),
                    (3, 130, 300, 180, 6, True, torch.bfloat16),
                    (4, 200, 161, 96, 4, False, torch.bfloat16),
@@ -782,11 +794,12 @@ def test_window_attn_masked_forms_match_plain_and_repeat(cuda, b, nw, tq, tk,
 
 
 def test_window_attn_bwd_kernels_do_not_spill(cuda):
-    """ptxas's report of WB's source (WB, WMB, WB-bf16 and the window-16
-    forms), and the attention kernels of AB's source (AB's WB body, and
-    AB-long's launches of the window-16 FMA body in their att and
-    bf16-rounding instantiations): no kernel spills a register to local
-    memory."""
+    """ptxas's report of WB's source (the 3xTF32 tensor-core body that WB,
+    WMB, WB4 and their window-16 forms run, and the bf16 bodies), and the
+    attention kernels of AB's source (AB's FMA body, and AB-long's launches
+    of the window-16 FMA body in their att and bf16-rounding
+    instantiations): no kernel spills a register to local memory, and WB's
+    source keeps no instantiation of the FMA body."""
     import re
 
     from gsasr_torch.ops import _build
@@ -808,6 +821,13 @@ def test_window_attn_bwd_kernels_do_not_spill(cuda):
         if key:
             assert sum("window_attn_bwd_long_q_kernelIfLb1E" in k
                        for k in spills) == 2, sorted(spills)
+            assert sum("window_attn_bwd_kernel" in k for k in spills) == 2
+        else:
+            assert not any("window_attn_bwd_kernel" in k or "_bwd_4d_" in k
+                           for k in spills), sorted(spills)
+            assert sum("_long_tf32_" in k for k in spills) == 6, spills
+            # WB, WMB and WB4 up to 160 tokens in their two block sizes
+            assert sum("_short_tf32_" in k for k in spills) == 6, spills
 
 
 @pytest.mark.parametrize("opts,bf16", [("rope_cross", False),
@@ -1039,8 +1059,10 @@ def test_window_attn_4d_matches_plain_and_repeats(cuda, b, nh, tq, tk, hd,
 
 
 def test_exact_and_4d_kernels_do_not_spill(cuda):
-    """ptxas's report: R-exact and the head-major kernels (W4, W4-long, WB4,
-    WB4-long, both types) use no local memory for spills."""
+    """ptxas's report: R-exact and the head-major kernels (W4's FMA body,
+    and the tensor-core bodies' head-major instantiations, kHM: W4-long's
+    and WB4's 3xTF32 bodies, W4-bf16's, WB4-bf16's and their window-16
+    forms') use no local memory for spills."""
     import re
 
     from gsasr_torch.ops import _build
@@ -1048,7 +1070,8 @@ def test_exact_and_4d_kernels_do_not_spill(cuda):
     _build.build(["raster_fwd_exact", "window_attn_fwd_4d",
                   "window_attn_bwd_4d"])
     for src, key in (("raster_fwd", "raster_fwd_exact"),
-                     ("window_attn_fwd", "_4d_"), ("window_attn_bwd", "_4d_")):
+                     ("window_attn_fwd", "Lb0ELb1E"),
+                     ("window_attn_bwd", "Lb0ELb1E")):
         spills, name = {}, None
         for line in _build.ptxas_report(src).splitlines():
             m = re.search(r"Compiling entry function '(\w+)'", line)
@@ -1056,10 +1079,14 @@ def test_exact_and_4d_kernels_do_not_spill(cuda):
                 name = m.group(1)
             sp = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill "
                            r"loads", line)
-            if sp and key in name:
+            if sp and (key in name or "_4d_" in name):
                 spills[name] = sp.groups()
         assert spills and all(v == ("0", "0") for v in spills.values()), \
             spills
+        if src != "raster_fwd":
+            # W4-long's 3xTF32 body; WB4's two launches
+            assert sum("_long_tf32_" in k for k in spills) == \
+                (1 if src.endswith("fwd") else 2), sorted(spills)
 
 
 def test_window16_bf16_mma_kernels_fit(cuda):
@@ -1067,9 +1094,10 @@ def test_window16_bf16_mma_kernels_fit(cuda):
     (W-long-bf16, WM-long-bf16, W4-long-bf16 and A-long-bf16's attention;
     WB-long-bf16's two launches and their masked and head-major forms) use
     at most 128 registers, so four 128-thread blocks fit an SM, and the
-    fp32 backward's 3xTF32 body (WB-long's two launches and their WMB-long
-    and WB4-long forms) at most 168, three blocks; none spills, and no
-    fp32 instantiation of the FMA backward body is left in WB's source."""
+    fp32 3xTF32 bodies (W-long's forward, its WM-long and W4-long forms and
+    A-long's fp32 attention; WB-long's two launches and their WMB-long and
+    WB4-long forms) at most 168, three blocks; none spills, and no fp32
+    instantiation of the FMA bodies is left in W's and WB's sources."""
     import re
 
     from gsasr_torch.ops import _build
@@ -1084,7 +1112,9 @@ def test_window16_bf16_mma_kernels_fit(cuda):
             if m:
                 name = m.group(1)
                 assert "window_attn_bwd_long_q_kernel" not in name and \
-                    "window_attn_bwd_long_kv_kernel" not in name, name
+                    "window_attn_bwd_long_kv_kernel" not in name and \
+                    "window_attn_fwd_long_kernel" not in name and \
+                    "attn_long_kernel" not in name, name
             if not name or ("_long_mma_" not in name
                             and "_long_tf32_" not in name):
                 continue
@@ -1095,9 +1125,9 @@ def test_window16_bf16_mma_kernels_fit(cuda):
             reg = re.search(r"Used (\d+) registers", line)
             if reg and (src, name) in found:
                 found[src, name].append(int(reg.group(1)))
-    # forward: three flag pairs and A-long's; backward, bf16 and fp32: two
-    # launches each of three flag pairs
-    assert len(found) == 16, sorted(found)
+    # forward, bf16 and fp32: three flag pairs and A-long's each; backward,
+    # bf16 and fp32: two launches each of three flag pairs
+    assert len(found) == 20, sorted(found)
     assert all(sp == ("0", "0") and r <= (168 if "_tf32_" in name else 128)
                for (_, name), (sp, r) in found.items()), found
 
