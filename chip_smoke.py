@@ -9,8 +9,12 @@
    among them) from gsasr_torch/ops/csrc, one nvcc per source, in
    parallel.
 2. Kernel phase (TF32 off): R, M and A against their plain PyTorch versions
-   at the inference path's shapes, with their median times, the plain
-   versions' times and their lower bounds on this card.
+   at the inference path's shapes, M and A twice for bitwise
+   repeatability, with their median times, the plain versions' times and
+   their lower bounds on this card (M's and A's products in 3xTF32 at the
+   TF32 peak: they run the tensor-core row-tile product of tile_mma.cuh),
+   and ptxas's registers of M's and A's kernels beside the FMA kernels'
+   they replace.
 3. Path phase: make_models("edsr", "paper") with seeded weights, then
    sr_forward on 180x180 x4 (the main shape), 173x151 x3.3 and a batch of
    two 96x96 x2, checking shapes, finiteness and the kernel launch counts.
@@ -39,7 +43,8 @@
 10. Enhanced kernel phase (TF32 off): M in its zero_base and bf16 forms, A
    in its RoPE (fp32 and bf16) and paper bf16 forms, against their plain
    versions at the Enhanced shapes (225 windows x 144 tokens x 192
-   channels, 6 heads), with times and bounds.
+   channels, 6 heads), each twice for bitwise repeatability, with times
+   and bounds.
 11. Enhanced path phase: make_models("edsr", "enhanced"), then sr_forward
    (bf16 trunk, fp32 heads) on the three requests of phase 3, with the
    same launch counts.
@@ -85,10 +90,12 @@
 22. Ultra kernel phase (TF32 off): the window-16 forms W-long (a HAB's
    144 windows x 256 x 256 and an OCAB's 256 x 576, fp32, on the 3xTF32
    tensor-core body window_attn_long_tf32.cuh, its time beside the FMA
-   body's as recorded; and W-long-bf16) and A-long (RoPE cross- and
+   body's as recorded; and W-long-bf16), A-long (RoPE cross- and
    self-attention at T = 256, bf16 and fp32, whose attention is W-long's
-   body) against their plain versions, each twice for bitwise
-   repeatability, with times, bounds and SDPA as W-long's yardstick.
+   body and whose projections are M's tile product) and M at the Ultra
+   decoder's 144 x 256 x 192 (bf16, the path's trunk, and fp32) against
+   their plain versions, each twice for bitwise repeatability, with times,
+   bounds and SDPA as W-long's yardstick.
 23. HAT-L Ultra: make_models("hat", "ultra"), sr_forward with denominator
    16 on the three requests of phase 3 (84 W-long, 64 A-long, 140 M, no
    A, per forward), a 48x48 request on the card against the CPU (bf16
@@ -436,12 +443,13 @@ SWINIR_FUSED_TRAIN_COUNTS = dict(
        "A-long": 44, "AB-long": 44})
 # ptxas registers of the fp32 window-16 kernels as PERF.md §6 records them
 # (the 3xTF32 forward's W-long and WM-long; A-long's projections in both
-# types and its fp32 attention, W-long's kernel; the dq and dk/dv launches
-# of WB-long, WMB-long and WB4-long, the fp32 backward's 3xTF32 body): the
-# template flags of the masked forms and of AB-long, and the forms' moves
-# to other bodies, must leave them as they were.
+# types, the tensor-core ln_qkv_kernel of tile_mma.cuh, and its
+# fp32 attention, W-long's kernel; the dq and dk/dv launches of WB-long,
+# WMB-long and WB4-long, the fp32 backward's 3xTF32 body): the template
+# flags of the masked forms and of AB-long, and the forms' moves to other
+# bodies, must leave them as they were.
 LONG_REGS_RECORDED = {"W-long": (141,), "WM-long": (146,),
-                      "A-long": (114, 114, 141),
+                      "A-long": (128, 128, 141),
                       "WB-long": (156, 167), "WMB-long": (152, 168),
                       "WB4-long": (152, 166)}
 # AB-long's two launches of the window-16 FMA backward body, in fp32 and
@@ -485,6 +493,16 @@ MMA_REGS_RECORDED = {"W-long-bf16": (94,), "WM-long-bf16": (96,),
 # AB's attention backward (WB's body with att: with AB-bf16's rounding,
 # and in fp32), as ptxas reported them before AB-long joined its source.
 AB_REGS_RECORDED = (99, 105)
+# The kernels of M and A (and A-long's projections) by ptxas's name key:
+# since the tensor-core row-tile product of tile_mma.cuh, ln_mlp_kernel,
+# ln_qkv_kernel and out_proj_kernel, each in fp32 (3xTF32) and bf16; and
+# the registers PERF.md §6 records for the FMA kernels they replaced (M
+# 113 fp32, 109 bf16; A's per-(window, head) attn_heads_kernel 80; the
+# FMA ln_qkv_kernel 114; out_proj_kernel 100-102), printed beside them.
+FUSED_REG_KEYS = ("ln_mlp_kernel", "ln_qkv_kernel", "out_proj_kernel")
+FUSED_REGS_FMA = {"ln_mlp_kernel": (109, 113), "attn_heads_kernel": (80, 80),
+                  "ln_qkv_kernel": (114, 114),
+                  "out_proj_kernel": (100, 100, 102)}
 TRAIN_WARMUP = 2
 TRAIN_STEPS = 5
 
@@ -657,9 +675,10 @@ class _OpFlops(TorchDispatchMode):
 def _e2e_bound_ms(enc, dec, lq, dt, denominator=12):
     """Least time of one sr_forward's arithmetic: the PyTorch products
     (full fp32 or bf16) and convolutions (TF32 by cuDNN's default, or bf16)
-    over their peaks, plus kernels M and A (their operations at their
-    type's peak: 4 rows C^2 and 2 B (2 Tq C^2 + 2 Tk C^2 + 2 Tq Tk C) per
-    launch, at the decoder's T whether A or A-long runs), a SwinIR
+    over their peaks, plus kernels M and A (their operations at the bf16
+    peak, or three TF32 products each at the TF32 peak in fp32 (3xTF32): 4
+    rows C^2 and 2 B (2 Tq C^2 + 2 Tk C^2 + 2 Tq Tk C) per launch, at the
+    decoder's T whether A or A-long runs), a SwinIR
     encoder's W and WM (4 B T^2 C each) and a HAT encoder's (the paper
     HAT's too) W-long and WM-long (4 B Tq Tk C: T^2 in each HAB, ws^2 ows^2
     in each OCAB), at the encoder type's peak. The raster and the glue's
@@ -688,7 +707,7 @@ def _e2e_bound_ms(enc, dec, lq, dt, denominator=12):
               + cross * 2.0 * win * (2 * t * c * c + 2 * ws * ws * c * c
                                      + 2 * t * ws * ws * c)
               + self_ * 2.0 * win * (4 * t * c * c + 2 * t * t * c))
-    kpeak = PEAK_BF16 if dt == torch.bfloat16 else PEAK_FP32
+    kpeak = PEAK_BF16 if dt == torch.bfloat16 else PEAK_TF32 / 3
     flops = {f"{k[0]}_{str(k[1]).replace('torch.', '')}": f
              for k, f in mode.flops.items()}
     flops["kernels_M_A"] = kflops
@@ -757,11 +776,13 @@ def kernel_phase(enc, dec, dev):
         out = fl.ln_mlp_residual(x, **kw)
         ref = fl.ln_mlp_residual_plain(x, **kw)
         err = _compare(out, ref, f"M {name}")
+        _repeatable(lambda: (fl.ln_mlp_residual(x, **kw),), f"M {name}")
         ms = _time_ms(lambda: fl.ln_mlp_residual(x, **kw), 20)
         plain = _time_ms(lambda: fl.ln_mlp_residual_plain(x, **kw), 20)
         nbytes = 4 * (b * t * c * (3 if "resi" in kw else 2) + 2 * c * c
                       + (b * c if "inj" in kw else 0))
-        bound, by = _bound_ms(4.0 * b * t * c * c, nbytes)
+        # the two products in 3xTF32: three TF32 products each
+        bound, by = _bound_ms(3 * 4.0 * b * t * c * c, nbytes, PEAK_TF32)
         rows.append(dict(case=name, per_image=per_image, max_abs_err=err,
                          ms=ms, plain_ms=plain, bound_ms=bound, bound_by=by))
     results["M"] = rows
@@ -784,13 +805,16 @@ def kernel_phase(enc, dec, dev):
         out = fl.ln_attn_proj(x, num_heads=nh, **kw)
         ref = fl.ln_attn_proj_plain(x, num_heads=nh, **kw)
         err = _compare(out, ref, f"A {name}")
+        _repeatable(lambda: (fl.ln_attn_proj(x, num_heads=nh, **kw),),
+                    f"A {name}")
         ms = _time_ms(lambda: fl.ln_attn_proj(x, num_heads=nh, **kw), 10)
         plain = _time_ms(lambda: fl.ln_attn_proj_plain(x, num_heads=nh,
                                                        **kw), 10)
         flops = 2.0 * b * (4 * t * c * c + 2 * t * t * c)
         nbytes = 4 * (b * t * c * (3 if "kv" in kw else 2) + 4 * c * c
                       + nh * t * t + (t * c if "pos" in kw else 0))
-        bound, by = _bound_ms(flops, nbytes)
+        # every product in 3xTF32
+        bound, by = _bound_ms(3 * flops, nbytes, PEAK_TF32)
         rows.append(dict(case=name, per_image=per_image, max_abs_err=err,
                          ms=ms, plain_ms=plain, bound_ms=bound, bound_by=by))
     results["A"] = rows
@@ -830,6 +854,7 @@ def kernel_phase(enc, dec, dev):
         for r in rows:
             print(f"  {k} {r['case']}: {r['ms']:.4f} ms (plain {r['plain_ms']:.4f},"
                   f" bound {r['bound_ms']:.4f} by {r['bound_by']})", flush=True)
+    results["registers"] = fused_registers()
     return results
 
 
@@ -862,10 +887,12 @@ def enhanced_kernel_phase(dec, dev):
             reps):
         err = (_compare_bf16(out, ref, f"{kind} {name}") if dt == bf16
                else _compare(out, ref, f"{kind} {name}"))
+        _repeatable(lambda: (fn(),), f"{kind} {name} {dt}")
         ms = _time_ms(fn, reps)
         plain_ms = _time_ms(plain, reps)
-        bound, by = _bound_ms(flops, nbytes,
-                              PEAK_BF16 if dt == bf16 else PEAK_FP32)
+        # bf16 products at the bf16 peak; fp32 in 3xTF32 at the TF32 peak
+        bound, by = (_bound_ms(flops, nbytes, PEAK_BF16) if dt == bf16 else
+                     _bound_ms(3 * flops, nbytes, PEAK_TF32))
         results[kind].append(dict(
             case=name, dtype=str(dt).replace("torch.", ""),
             per_image=per_image, max_abs_err=err,
@@ -2101,10 +2128,12 @@ def ultra_kernel_phase(dec, dev):
     W-long-bf16 at 256 x 256, with SDPA in the kernel's type as the
     yardstick; A-long in the decoder's RoPE cross- and self-attention forms
     at T = 256, bf16 (the path's trunk) and fp32 (its attention on W-long's
-    body), with the Ultra decoder's weights and tables. W-long and A-long
-    twice each for bitwise repeatability. per_image: launches per Ultra
-    image."""
-    from gsasr_torch.models.fea2gs_fast import _attn, _ln
+    body, its projections on M's tile product), with the Ultra decoder's
+    weights and tables; M in its LN form at the decoder's 144 windows x 256
+    x 192 (the path's 140 launches timed in that form in bf16, and fp32),
+    with the decoder's weights. Each twice for bitwise repeatability.
+    per_image: launches per Ultra image."""
+    from gsasr_torch.models.fea2gs_fast import _attn, _ln, _mlp
     from gsasr_torch.models.fea2gs_rope_fast import rope_tables
     from gsasr_torch.ops import attention as ta
     from gsasr_torch.ops import fused_layers as fl
@@ -2118,7 +2147,7 @@ def ultra_kernel_phase(dec, dev):
     t, hd = ws * ws, c // nh
     b = (192 // ws) ** 2
     scale = hd ** -0.5
-    results = {"W-long": [], "W-long-bf16": [], "A-long": []}
+    results = {"W-long": [], "W-long-bf16": [], "A-long": [], "M": []}
     for name, key, tk, dt, per_image in (
             ("HAB 256x256", "W-long", t, f32, 72),
             ("OCAB 256x576", "W-long", (ws + ws // 2) ** 2, f32, 12),
@@ -2175,19 +2204,36 @@ def ultra_kernel_phase(dec, dev):
         plain = _time_ms(lambda: fl.ln_attn_proj_plain(xd, **kw), 5)
         act = 2 if dt == bf16 else 4
         # the four projections and the attention's two products; in fp32
-        # the projections on the CUDA cores and the attention in 3xTF32,
-        # counted here as operations at the FP32 peak that take as long
-        proj, att = 8.0 * b * t * c * c, 4.0 * b * t * t * c
-        flops = proj + (att if dt == bf16 else 3 * att * PEAK_FP32 / PEAK_TF32)
+        # every product in 3xTF32 (three TF32 products) at the TF32 peak
+        flops = 8.0 * b * t * c * c + 4.0 * b * t * t * c
         nbytes = (act * (b * t * c * (3 if "kv" in kw else 2)
                          + (t * c if "pos" in kw else 0))
                   + 4 * (4 * c * c + 6 * c + 4 * t * c))
-        bound, by = _bound_ms(flops, nbytes,
-                              PEAK_BF16 if dt == bf16 else PEAK_FP32)
+        bound, by = (_bound_ms(flops, nbytes, PEAK_BF16) if dt == bf16 else
+                     _bound_ms(3 * flops, nbytes, PEAK_TF32))
         results["A-long"].append(dict(
             case=name, dtype=str(dt).replace("torch.", ""), windows=b,
             per_image=per_image, max_abs_err=err, ms=ms, plain_ms=plain,
             bound_ms=bound, bound_by=by, library_ms=None))
+    mlp = dict(**_ln(lyr.norm2), **_mlp(lyr.mlp_selfattn))
+    for dt, per_image in ((bf16, ULTRA_PER_FORWARD["M"]), (f32, 0)):
+        xd = x.to(dt)
+        out = fl.ln_mlp_residual(xd, **mlp)
+        ref = fl.ln_mlp_residual_plain(xd, **mlp)
+        err = (_compare_bf16(out, ref, f"M ln {dt}") if dt == bf16
+               else _compare(out, ref, f"M ln {dt}"))
+        _repeatable(lambda: (fl.ln_mlp_residual(xd, **mlp),), f"M ln {dt}")
+        ms = _time_ms(lambda: fl.ln_mlp_residual(xd, **mlp), 20)
+        plain = _time_ms(lambda: fl.ln_mlp_residual_plain(xd, **mlp), 5)
+        act = 2 if dt == bf16 else 4
+        flops = 4.0 * b * t * c * c
+        nbytes = act * 2 * b * t * c + 4 * (2 * c * c + 4 * c)
+        bound, by = (_bound_ms(flops, nbytes, PEAK_BF16) if dt == bf16 else
+                     _bound_ms(3 * flops, nbytes, PEAK_TF32))
+        results["M"].append(dict(
+            case="ln Ultra 144x256x192", dtype=str(dt).replace("torch.", ""),
+            windows=b, per_image=per_image, max_abs_err=err, ms=ms,
+            plain_ms=plain, bound_ms=bound, bound_by=by, library_ms=None))
     for k, rows in results.items():
         for r in rows:
             lib = "null" if r["library_ms"] is None else \
@@ -2259,6 +2305,30 @@ def _raster_rows(geom, col, bbox, h, w, g, per_step, case):
         lambda: rz.raster_bwd_plain(geom, col, bbox, g, h, w), rb_compare,
         RB_OPS_PER_PAIR, 4 * (2 * geom.numel() + 2 * col.numel() + h * w * 3))
     return rows
+
+
+def fused_registers():
+    """ptxas's registers and spills of M's and A's kernels (ln_mlp.cu,
+    ln_attn.cu), printed beside the FMA kernels' they replaced; raises if
+    one is missing or spills."""
+    from gsasr_torch.ops import _build
+
+    regs = {}
+    for src in ("ln_mlp", "ln_attn"):
+        for name, r in _ptxas_kernels(_build.ptxas_report(src), "").items():
+            key = next((k for k in FUSED_REG_KEYS if k in name), None)
+            if key:
+                regs.setdefault(key, []).append(r)
+    for key in FUSED_REG_KEYS:
+        print(f"  ptxas {key}: " + ", ".join(
+            f"{r} registers, {st}/{ld} bytes spilled"
+            for r, st, ld in sorted(regs.get(key, ())))
+            + f" (the FMA kernels': {FUSED_REGS_FMA})", flush=True)
+    if any(len(regs.get(k, ())) != 2 or any(st or ld for _, st, ld in
+                                            regs[k])
+           for k in FUSED_REG_KEYS):
+        raise AssertionError(f"M's or A's kernels missing or spilling: {regs}")
+    return {k: sorted(r for r, _, _ in v) for k, v in regs.items()}
 
 
 def _ptxas_kernels(report, key):
@@ -3626,6 +3696,8 @@ def main() -> int:
             r.update(dtype="float32", decoder="paper")
         for r in ekres[k]:
             r["decoder"] = "Enhanced"
+    for r in ures["M"]:
+        r["decoder"] = "HAT-L Ultra"
     for k in ("MB", "AB"):
         for r in kres[k]:
             r.update(dtype="float32", decoder="paper")
@@ -3642,7 +3714,8 @@ def main() -> int:
               kres["R"], kres["R"] + utres["R"]),
         "M": ("ln_mlp", "gsasr_torch/ops/csrc/ln_mlp.cu",
               "gsasr_tpu/ops/fused_layers.py:122", [], einfer, enhanced,
-              _on_path(ekres["M"], "per_image"), kres["M"] + ekres["M"]),
+              _on_path(ekres["M"], "per_image"),
+              kres["M"] + ekres["M"] + ures["M"]),
         "A": ("ln_attn", "gsasr_torch/ops/csrc/ln_attn.cu",
               "gsasr_tpu/ops/fused_layers.py:336", [], einfer, enhanced,
               _on_path(ekres["A"], "per_image"), kres["A"] + ekres["A"]),

@@ -36,7 +36,7 @@ SIGNATURES = {
     "raster_fwd": "ppppiiii",
     "raster_fwd_exact": "pppppiiii",
     "ln_mlp": "p" * 10 + "iiiiii",
-    "ln_attn": "p" * 20 + "iiiiii" + "f",
+    "ln_attn": "p" * 23 + "iiiiii" + "f",
     "window_attn_fwd": "pppppiiiiif",
     "window_attn_bwd": "p" * 11 + "iiiii" + "f",
     "window_attn_fwd_masked": "ppppppiiiiiif",

@@ -1,7 +1,9 @@
 // Shared pieces of the decoder-layer kernels (ln_mlp.cu, ln_attn.cu and
 // their backward kernels through fused_bwd.cuh): warp reductions, the f32
 // LayerNorm of one row per warp, a 64-row FP32 tile product against a
-// weight streamed through shared memory, and the activation types.
+// weight streamed through shared memory (the backward kernels'; the
+// forward kernels M and A take the tensor-core product of tile_mma.cuh),
+// and the activation types.
 #pragma once
 
 #include <cuda_bf16.h>

@@ -36,10 +36,10 @@ from gsasr_torch.ops import _build
 from gsasr_torch.ops.attention import _heads, _merge
 
 _EPS = 1e-5
-# Kernel A's limits: kMaxT and kMaxHd of csrc/ln_attn.cu (longer windows
-# take A-long and AB-long; a lane holds one head column) and kMaxN = 32
-# kLnPer of csrc/tile_gemm.cuh (the width of the row tile products and LN
-# rows).
+# Kernel A's limits: kMaxT and kMaxHd of csrc/window_attn.cuh (longer
+# windows take A-long and AB-long; the attention bodies hold head widths up
+# to 32) and kMaxN = 32 kLnPer of csrc/tile_gemm.cuh (the width of the row
+# tile products and LN rows).
 _A_MAX_T = 160
 _A_MAX_HD = 32
 _A_MAX_C = 192
@@ -446,6 +446,23 @@ def _ln_attn_args(x, num_heads, kw):
     return b, tq, tk, c, _contig(act=("pos", "kv", "g"), x=x, **kw)
 
 
+def _ln_attn_launch(name, x, num_heads, scale, kw):
+    """A's or A-long's launch on CUDA tensors, with its scratch: q, k, v
+    after RoPE and the heads' output att, in the activation type."""
+    b, tq, tk, c, a = _ln_attn_args(x, num_heads, kw)
+    qs = torch.empty_like(a["x"])
+    ks = torch.empty((b, tk, c), dtype=x.dtype, device=x.device)
+    vs = torch.empty_like(ks)
+    att = torch.empty_like(qs)
+    out = torch.empty_like(qs)
+    _build.launch(name, a["x"], a["pos"], a["kv"], a["ln_w"], a["ln_b"],
+                  a["wq"], a["bq"], a["wk"], a["bk"], a["wv"], a["bv"],
+                  a["wo"], a["bo"], a["bias"], *(a[r] for r in _ROPE), qs,
+                  ks, vs, att, out, b, tq, tk, c, num_heads,
+                  int(x.dtype == torch.bfloat16), float(scale))
+    return out
+
+
 def ln_attn_proj_long(x, *, num_heads, scale=None, **kw):
     """The forward of `ln_attn_proj` for windows of any length: kernel
     A-long on CUDA tensors, the plain version on CPU tensors. `kw`: the
@@ -455,18 +472,7 @@ def ln_attn_proj_long(x, *, num_heads, scale=None, **kw):
     kw = {**dict.fromkeys(("bias", "pos", "kv") + _ROPE), **kw}
     if x.device.type == "cpu":
         return ln_attn_proj_plain(x, num_heads=num_heads, scale=scale, **kw)
-    b, tq, tk, c, a = _ln_attn_args(x, num_heads, kw)
-    # q, k, v after RoPE and att, in the activation type
-    qs = torch.empty_like(a["x"])
-    ks = torch.empty((b, tk, c), dtype=x.dtype, device=x.device)
-    vs = torch.empty_like(ks)
-    att = torch.empty_like(qs)
-    out = torch.empty_like(qs)
-    _build.launch("ln_attn_long", a["x"], a["pos"], a["kv"], a["ln_w"],
-                  a["ln_b"], a["wq"], a["bq"], a["wk"], a["bk"], a["wv"],
-                  a["bv"], a["wo"], a["bo"], a["bias"],
-                  *(a[r] for r in _ROPE), qs, ks, vs, att, out, b, tq, tk, c,
-                  num_heads, int(x.dtype == torch.bfloat16), float(scale))
+    out = _ln_attn_launch("ln_attn_long", x, num_heads, scale, kw)
     ln_attn_proj_long.launches += 1
     return out
 
@@ -481,15 +487,7 @@ def _ln_attn_fwd(x, *, num_heads, scale, **kw):
         return ln_attn_proj_plain(x, num_heads=num_heads, scale=scale, **kw)
     if _a_long(x, kw["kv"]):
         return ln_attn_proj_long(x, num_heads=num_heads, scale=scale, **kw)
-    b, tq, tk, c, a = _ln_attn_args(x, num_heads, kw)
-    # the heads' output, rounded to the activation type but held in f32
-    att = torch.empty(a["x"].shape, dtype=torch.float32, device=x.device)
-    out = torch.empty_like(a["x"])
-    _build.launch("ln_attn", a["x"], a["pos"], a["kv"], a["ln_w"],
-                  a["ln_b"], a["wq"], a["bq"], a["wk"], a["bk"], a["wv"],
-                  a["bv"], a["wo"], a["bo"], a["bias"],
-                  *(a[r] for r in _ROPE), att, out, b, tq, tk, c, num_heads,
-                  int(x.dtype == torch.bfloat16), float(scale))
+    out = _ln_attn_launch("ln_attn", x, num_heads, scale, kw)
     ln_attn_proj.launches += 1
     return out
 

@@ -1,8 +1,9 @@
 #!/usr/bin/env python3
 """Compare the port's CUDA sources of a parent checkout with this tree's on
 one card: ptxas's registers of every kernel of the named sources, kernel
-R's time, the bf16 window attention's up to 160 tokens (W-bf16, WB-bf16
-and their masked forms WM-bf16, WMB-bf16) from both builds in turns
+R's time, kernels M's, A's and A-long's, the bf16 window attention's up
+to 160 tokens (W-bf16, WB-bf16 and their masked forms WM-bf16, WMB-bf16)
+from both builds in turns
 (parent, change, change, parent, ...), with the window-16 routing (this
 tree's W-long-bf16 and WB-long-bf16 on the same operands) beside them, and
 the fp32 window attentions (the window-16 forward W-long, WM-long,
@@ -10,8 +11,8 @@ W4-long; the backward up to 160 tokens WB, WMB, WB4; the window-16
 backward WB-long, WMB-long, WB4-long) from every build in turns.
 
   python3 scripts/ab_torch_sources.py --parent DIR [--label NAME]
-      [--parent DIR2 --label NAME2 ...] [--skip-raster] [--fp32-only]
-      [--steps] [--json PATH]
+      [--parent DIR2 --label NAME2 ...] [--skip-raster]
+      [--fp32-only | --fused-only] [--steps] [--images] [--json PATH]
 
 DIR holds the parent's `gsasr_torch/ops/csrc` (for example
 `git archive <parent> gsasr_torch/ops | tar -x -C DIR`; with the parent's
@@ -46,7 +47,18 @@ period 9), and WB4-long on the head-major layout at 128 x 6 x 256 x 256 x
 version (forward atol = rtol = 1e-4; backward within 1e-4 of each output's
 largest entry) and give the same bits twice. --fp32-only builds
 window_attn_fwd.cu and window_attn_bwd.cu alone and times only the fp32
-sections. --steps then times the paths that run the fp32 window attentions,
+sections. The fused section times kernels M (ln_mlp.cu) and A and A-long
+(ln_attn.cu) from every build in turns at the paper decoder's 225 x 144 x
+180 in fp32, the Enhanced decoder's 225 x 144 x 192 in bf16 and the Ultra
+decoder's 144 x 256 x 192 in bf16 and fp32 (RoPE for A-long), each held
+to its plain version and to the same bits twice, one call a time and ten
+back to back (the card's time without the host's); --fused-only builds
+ln_mlp.cu and ln_attn.cu alone and times only that section, and a parent
+whose ln_attn takes f32 att scratch (the per-(window, head) FMA kernel's)
+is called with its own arguments. --images times the paper fp32, Enhanced
+bf16 and HAT-L Ultra (fp32 and bf16) images with the first build's and
+this tree's ln_mlp.cu and ln_attn.cu in turns. --steps then times the
+paths that run the fp32 window attentions,
 chip_smoke.py's paper EDSR module step (WB 38 a step), SwinIR step (WB 56,
 WMB 18), HAT-L Ultra step at model_dtype float32 (W-long 148, WB-long 148),
 paper HAT step (W-long 24, WM-long 18, WB-long 24, WMB-long 18, WB 38) and
@@ -71,8 +83,10 @@ import sys
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, ROOT)
 
-SOURCES = ("raster_fwd", "window_attn_fwd", "window_attn_bwd", "ln_attn",
-           "ln_attn_bwd")
+SOURCES = ("raster_fwd", "window_attn_fwd", "window_attn_bwd", "ln_mlp",
+           "ln_attn", "ln_attn_bwd")
+# M's and A's sources, which every build compiles
+FUSED = ("ln_mlp", "ln_attn")
 
 
 def _registers(log: str) -> dict:
@@ -712,6 +726,13 @@ def main() -> int:
                     "paper HAT steps, the fp32 Ultra image) with the first "
                     "build's and this tree's window_attn_fwd.cu, "
                     "window_attn_bwd.cu and ln_attn.cu in turns")
+    ap.add_argument("--fused-only", action="store_true",
+                    help="build ln_mlp.cu and ln_attn.cu alone and time "
+                    "only kernels M, A and A-long")
+    ap.add_argument("--images", action="store_true",
+                    help="also time the paper fp32, Enhanced bf16 and HAT-L "
+                    "Ultra (bf16, fp32) images with the first build's and "
+                    "this tree's ln_mlp.cu and ln_attn.cu in turns")
     ap.add_argument("--json", help="write the results to this file")
     args = ap.parse_args()
     import torch
@@ -736,14 +757,19 @@ def main() -> int:
     sigs = {tag: _signatures(d) for tag, d in zip(labels, args.parent)}
     sigs["change"] = _build.SIGNATURES
     fp32 = ("window_attn_fwd", "window_attn_bwd")
-    sources = fp32 if args.fp32_only else SOURCES
+    if args.fused_only:
+        sources = variant = FUSED
+    elif args.fp32_only:
+        sources = variant = fp32
+    else:
+        sources, variant = SOURCES, fp32 + FUSED
     jobs = [(tag, src, subprocess.Popen(
         [_build._nvcc(), *_build.NVCC_FLAGS, "-o",
          os.path.join(out_dir, f"{tag}_{src}.so"),
          os.path.join(d, f"{src}.cu")], stdout=subprocess.PIPE,
         stderr=subprocess.STDOUT, text=True))
         for tag, d in dirs.items()
-        for src in (sources if tag in (old, "change") else fp32)]
+        for src in (sources if tag in (old, "change") else variant)]
     regs: dict = {}
     for tag, src, proc in jobs:
         log = proc.communicate()[0]
@@ -758,26 +784,261 @@ def main() -> int:
         print(f"  {key[:120]}: {r.get(old)} -> {r.get('change')}{mark}",
               flush=True)
     times, attn = {}, {}
-    if not (args.skip_raster or args.fp32_only):
+    fwd_fp32 = short_fp32 = long_fp32 = {}
+    if not (args.skip_raster or args.fp32_only or args.fused_only):
         times = _raster_ab(cs, out_dir, {old: dirs[old],
                                          "change": dirs["change"]})
-    if not args.fp32_only:
+    if not (args.fp32_only or args.fused_only):
         attn = _attention_ab(cs, out_dir, regs, (old, "change"))
-    print("the fp32 window-16 forward:", flush=True)
-    fwd_fp32 = _fp32_fwd_ab(cs, out_dir, tuple(dirs), sigs)
-    print("the fp32 backward up to 160 tokens:", flush=True)
-    short_fp32 = _fp32_short_bwd_ab(cs, out_dir, tuple(dirs), sigs)
-    print("the fp32 window-16 backward:", flush=True)
-    long_fp32 = _long_fp32_ab(cs, out_dir, regs, tuple(dirs))
+    fused = {}
+    if not args.fp32_only:
+        print("kernels M, A and A-long:", flush=True)
+        fused = _fused_fwd_ab(cs, out_dir, regs, tuple(dirs), sigs)
+    if not args.fused_only:
+        print("the fp32 window-16 forward:", flush=True)
+        fwd_fp32 = _fp32_fwd_ab(cs, out_dir, tuple(dirs), sigs)
+        print("the fp32 backward up to 160 tokens:", flush=True)
+        short_fp32 = _fp32_short_bwd_ab(cs, out_dir, tuple(dirs), sigs)
+        print("the fp32 window-16 backward:", flush=True)
+        long_fp32 = _long_fp32_ab(cs, out_dir, regs, tuple(dirs))
     steps = (_steps_ab(cs, out_dir, (old, "change"), sigs) if args.steps
              else {})
+    images = (_images_ab(cs, out_dir, (old, "change"), sigs)
+              if args.images else {})
     if args.json:
         with open(args.json, "w") as f:
             json.dump(dict(card=card, registers=regs, r_ms=times,
-                           attention=attn, fwd_fp32=fwd_fp32,
+                           attention=attn, fused=fused, fwd_fp32=fwd_fp32,
                            short_fp32=short_fp32, long_fp32=long_fp32,
-                           steps=steps), f, indent=1)
+                           steps=steps, images=images), f, indent=1)
     return 0
+
+
+def _ln_attn_old(fn):
+    """Kernel A's entry point from a build whose ln_attn takes the heads'
+    output as f32 scratch and no q, k, v scratch (the per-(window, head)
+    FMA kernel's), called with this tree's arguments: qs, ks and vs dropped,
+    att replaced by f32 scratch of its shape."""
+    import torch
+
+    def call(*a):
+        a = list(a)
+        b, tq, c = a[23], a[24], a[26]
+        keep = torch.empty(b * tq * c, device="cuda")
+        return fn(*a[:18], keep.data_ptr(), *a[22:])
+    return call
+
+
+def _batch_ms(fn, n: int = 10, reps: int = 5) -> float:
+    """Device time of one fn() from n calls back to back between two CUDA
+    events (the launches queue up, so the host's time to launch them hides
+    behind the card's), the median over reps."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    ts = []
+    for _ in range(reps):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        for _ in range(n):
+            fn()
+        b.record()
+        b.synchronize()
+        ts.append(a.elapsed_time(b) / n)
+    return sorted(ts)[len(ts) // 2]
+
+
+def _fused_entries(out_dir, tags, sigs):
+    """{(tag, name): ln_mlp, ln_attn and ln_attn_long of tag's build}, each
+    callable with this tree's arguments."""
+    from gsasr_torch.ops import _build
+
+    names = ("ln_mlp", "ln_attn", "ln_attn_long")
+    out = _entries(out_dir, tags, names, sigs)
+    for tag in tags:
+        if sigs[tag]["ln_attn"] != _build.SIGNATURES["ln_attn"]:
+            out[tag, "ln_attn"] = _ln_attn_old(out[tag, "ln_attn"])
+    return out
+
+
+# The kernels of M and A in ptxas's report (source, name key): the
+# tensor-core row-tile products (ln_mlp_kernel, A's ln_qkv_kernel and
+# out_proj_kernel) and, in a parent's build, the FMA bodies they replace
+# (attn_heads_kernel, gemm_rows inside the same names).
+FUSED_KERNELS = (("ln_mlp", "ln_mlp_kernel"), ("ln_attn", "ln_qkv_kernel"),
+                 ("ln_attn", "out_proj_kernel"),
+                 ("ln_attn", "attn_heads_kernel"))
+
+
+def _fused_fwd_ab(cs, out_dir, regs, tags, sigs):
+    """Kernels M and A (A-long beyond 160 tokens) from every build in turns
+    (tags + reversed + tags), at the main path's shapes with seeded
+    weights: M at the paper decoder's 225 x 144 x 180 in fp32 (ln_inj, ln,
+    resi), the Enhanced decoder's 225 x 144 x 192 in bf16 (ln_inj, ln,
+    zero_base) and the Ultra decoder's 144 x 256 x 192 in bf16 and fp32
+    (ln); A at the paper's 225 x 144 x 180 x 6 heads in fp32 (cross with
+    pos, kv and a bias; self with a bias), the Enhanced decoder's 225 x 144
+    x 192 in bf16 with RoPE (cross with pos and kv of 144 tokens; self);
+    A-long at the Ultra decoder's 144 x 256 x 192 with RoPE, cross and
+    self, in bf16 and fp32. Each build held against the plain version
+    (fp32 atol = rtol = 1e-4; bf16 2^-7 |ref| + 2^-8 max|ref|) and to the
+    same bits twice; ms, the speed-up of the change over each other build,
+    the bound (fp32: the products in 3xTF32 at the TF32 peak; bf16: at the
+    bf16 peak, or the bytes) and the registers of each build's kernels."""
+    import torch
+
+    from gsasr_torch.models.fea2gs_rope_fast import rope_tables
+    from gsasr_torch.ops import fused_layers as fl
+
+    entries = _fused_entries(out_dir, tags, sigs)
+    print("registers of M's and A's kernels:", flush=True)
+    kregs = {}
+    for key, r in sorted(regs.items()):
+        if any(key.startswith(src + " ") and name in key
+               for src, name in FUSED_KERNELS):
+            kregs[key] = r
+            print(f"  {key[:110]}: " + ", ".join(
+                f"{t} {r.get(t)}" for t in tags), flush=True)
+    dev = torch.device("cuda")
+    gen = torch.Generator().manual_seed(51)
+    rnd = lambda *s: torch.randn(*s, generator=gen).to(dev)  # noqa: E731
+    f32, bf16 = torch.float32, torch.bfloat16
+
+    def mlp_case(dt, c, opts):
+        kw = dict(w1=rnd(c, c) / 14, b1=rnd(c), w2=rnd(c, c) / 14,
+                  b2=rnd(c))
+        if opts in ("ln_inj", "ln"):
+            kw.update(ln_w=1 + 0.1 * rnd(c), ln_b=0.1 * rnd(c))
+        return kw
+
+    def attn_case(dt, b, tq, tk, c, nh, opts):
+        kw = {k: rnd(c, c) / 14 if k[0] == "w" else rnd(c)
+              for k in ("wq", "bq", "wk", "bk", "wv", "bv", "wo", "bo")}
+        kw.update(ln_w=1 + 0.1 * rnd(c), ln_b=0.1 * rnd(c), num_heads=nh)
+        if "cross" in opts:
+            kw.update(pos=rnd(tq, c).to(dt), kv=rnd(b, tk, c).to(dt))
+        if opts.startswith("rope"):
+            side = int(round(max(tq, tk) ** 0.5))
+            cos, sin = rope_tables(0.5 * rnd(2, nh, c // nh // 2), side,
+                                   max(tq, tk))
+            kw.update(rope_cos_q=cos[:tq].contiguous(),
+                      rope_sin_q=sin[:tq].contiguous(),
+                      rope_cos_k=cos[:tk].contiguous(),
+                      rope_sin_k=sin[:tk].contiguous())
+        else:
+            kw.update(bias=0.5 * rnd(nh, tq, tk))
+        return kw
+
+    # (kernel, case, type, windows, Tq, Tk, C, options)
+    cases = [("M", "paper", f32, 225, 144, 144, 180, o)
+             for o in ("ln_inj", "ln", "resi")]
+    cases += [("M", "Enhanced", bf16, 225, 144, 144, 192, o)
+              for o in ("ln_inj", "ln", "zero_base")]
+    cases += [("M", "Ultra", dt, 144, 256, 256, 192, "ln")
+              for dt in (bf16, f32)]
+    cases += [("A", "paper", f32, 225, 144, 144, 180, o)
+              for o in ("cross_bias", "self_bias")]
+    cases += [("A", "Enhanced", bf16, 225, 144, 144, 192, o)
+              for o in ("rope_cross", "rope_self")]
+    cases += [("A-long", "Ultra", dt, 144, 256, 256, 192, o)
+              for dt in (bf16, f32) for o in ("rope_cross", "rope_self")]
+    rows = []
+    for kind, case, dt, b, tq, tk, c, opts in cases:
+        x = rnd(b, tq, c).to(dt)
+        is_bf16 = int(dt == bf16)
+        if kind == "M":
+            kw = mlp_case(dt, c, opts)
+            inj = rnd(b, c) if opts == "ln_inj" else None
+            resi = rnd(b, tq, c).to(dt) if opts == "resi" else None
+            zero = opts == "zero_base"
+            pk = dict(kw, inj=inj, resi=resi, zero_base=zero)
+            ref = fl.ln_mlp_residual_plain(x, **pk)
+
+            def launch(tag, out):
+                err = entries[tag, "ln_mlp"](*[
+                    t.data_ptr() if isinstance(t, torch.Tensor) else t
+                    for t in (x, inj, resi, kw.get("ln_w"), kw.get("ln_b"),
+                              kw["w1"], kw["b1"], kw["w2"], kw["b2"], out)],
+                    b * tq, tq, c, c, int(zero), is_bf16,
+                    torch.cuda.current_stream().cuda_stream)
+                if err:
+                    raise RuntimeError(f"the {tag}'s ln_mlp failed: "
+                                       f"cudaError {err}")
+            flops = 4.0 * b * tq * c * c
+            act = 2 if dt == bf16 else 4
+            nbytes = (act * b * tq * c * (3 if resi is not None else 2)
+                      + 8 * c * c)
+        else:
+            nh = 6
+            kw = attn_case(dt, b, tq, tk, c, nh, opts)
+            ref = fl.ln_attn_proj_plain(x, **kw)
+            a = {k: (v.to(dt) if k == "pos" else v) for k, v in kw.items()
+                 if k != "num_heads"}
+            a = {**dict.fromkeys(("bias", "pos", "kv") + fl._ROPE), **a}
+            name = "ln_attn_long" if kind == "A-long" else "ln_attn"
+            scale = (c // nh) ** -0.5
+            scr = [torch.empty(b, t_, c, dtype=dt, device=dev)
+                   for t_ in (tq, tk, tk, tq)]
+
+            def launch(tag, out):
+                err = entries[tag, name](*[
+                    t.data_ptr() if isinstance(t, torch.Tensor) else t
+                    for t in (x, a["pos"], a["kv"], a["ln_w"], a["ln_b"],
+                              a["wq"], a["bq"], a["wk"], a["bk"], a["wv"],
+                              a["bv"], a["wo"], a["bo"], a["bias"],
+                              *(a[r] for r in fl._ROPE), *scr, out)],
+                    b, tq, tk, c, nh, is_bf16, float(scale),
+                    torch.cuda.current_stream().cuda_stream)
+                if err:
+                    raise RuntimeError(f"the {tag}'s {name} failed: "
+                                       f"cudaError {err}")
+            flops = 2.0 * b * (4 * tq * c * c + 2 * tq * tk * c)
+            act = 2 if dt == bf16 else 4
+            nbytes = (act * b * tq * c * (3 if "cross" in opts else 2)
+                      + 16 * c * c + (4 * nh * tq * tk if "bias" in opts
+                                      else 0))
+        outs = {}
+
+        def run(tag):
+            outs[tag] = torch.empty_like(x)
+            launch(tag, outs[tag])
+
+        order = list(tags) + list(tags)[::-1] + list(tags)
+        ms = {tag: [] for tag in tags}
+        dev_ms = {tag: [] for tag in tags}
+        for tag in order:
+            ms[tag].append(cs._time_ms(lambda: run(tag), 10))
+            dev_ms[tag].append(_batch_ms(lambda: run(tag)))
+        errs = {}
+        for tag in tags:
+            first = outs[tag]
+            run(tag)
+            if not torch.equal(first, outs[tag]):
+                raise AssertionError(f"{kind} {case} {opts} {tag}: not the "
+                                     "same bits twice")
+            errs[tag] = (cs._compare_bf16 if dt == bf16 else cs._compare)(
+                first, ref, f"{kind} {case} {opts} {dt} {tag}")
+        bound, by = (cs._bound_ms(flops, nbytes, cs.PEAK_BF16)
+                     if dt == bf16 else
+                     cs._bound_ms(3 * flops, nbytes, cs.PEAK_TF32))
+        med = {tag: sorted(v)[len(v) // 2] for tag, v in ms.items()}
+        dmed = {tag: sorted(v)[len(v) // 2] for tag, v in dev_ms.items()}
+        rows.append(dict(kernel=kind, case=case, options=opts,
+                         dtype=str(dt).replace("torch.", ""), windows=b,
+                         ms=ms, dev_ms=dev_ms,
+                         speedup={t: med[t] / med["change"]
+                                  for t in tags if t != "change"},
+                         bound_ms=bound, bound_by=by, max_abs_err=errs))
+        speed = ", ".join(f"{med[t] / med['change']:.2f}x over {t}"
+                          for t in tags if t != "change")
+        print(f"  {kind} {case} {opts} {rows[-1]['dtype']}: " + ", ".join(
+            f"{t} {[round(v, 4) for v in ms[t]]}" for t in tags)
+            + f" ms; {speed}; back to back " + ", ".join(
+                f"{t} {dmed[t]:.4f}" for t in tags)
+            + f" ms (bound {bound:.4f} by {by})", flush=True)
+    return dict(rows=rows, registers=kregs)
 
 
 def _stats_dropped(fn, masked):
@@ -834,7 +1095,8 @@ def _steps_ab(cs, out_dir, tags, sigs):
                     name]] + [ctypes.c_void_p]
                 fn.restype = ctypes.c_int
                 if sigs[tag][name] != _build.SIGNATURES[name]:
-                    fn = _stats_dropped(fn, "masked" in name)
+                    fn = (_ln_attn_old(fn) if name == "ln_attn" else
+                          _stats_dropped(fn, "masked" in name))
                 entries[tag, name] = fn
 
     def swap(tag):
@@ -869,6 +1131,63 @@ def _steps_ab(cs, out_dir, tags, sigs):
     out["HAT-L Ultra image"] = ms
     print("  HAT-L Ultra image: " + ", ".join(f"{t} {v} ms" for t, v in
                                               ms.items()), flush=True)
+    swap("change")
+    return out
+
+
+def _images_ab(cs, out_dir, tags, sigs):
+    """The images that run kernels M and A (A-long), with each build's
+    ln_mlp.cu and ln_attn.cu entry points in turns (parent, change, change,
+    parent), the rest of the port this tree's: the paper EDSR image in fp32
+    (83 M, 38 A), the Enhanced EDSR image with its bf16 trunk (83 M, 38 A),
+    and the HAT-L Ultra image at model_dtype float32 and bfloat16 (140 M,
+    64 A-long; denominator 16), each the median of 9 runs of
+    chip_smoke.py's 180x180 -> 720x720 x4 sr_forward after 2 warm-ups
+    (chip_smoke.py's e2e metric)."""
+    import gc
+
+    import numpy as np
+    import torch
+
+    from gsasr_torch.model import make_models, sr_forward
+    from gsasr_torch.ops import _build
+
+    dev = torch.device("cuda")
+    _build.build(["ln_mlp", "ln_attn", "ln_attn_long"])
+    entries = _fused_entries(out_dir, tags, sigs)
+
+    def swap(tag):
+        for name in ("ln_mlp", "ln_attn", "ln_attn_long"):
+            _build._libs[name] = entries[tag, name]
+
+    lq = torch.rand(1, 180, 180, 3,
+                    generator=torch.Generator().manual_seed(4)).to(dev)
+    out = {}
+    for label, args, kw, dt, den in (
+            ("paper EDSR fp32 image", ("edsr", "paper"), {}, None, 12),
+            ("Enhanced EDSR bf16 image", ("edsr", "enhanced"), {},
+             torch.bfloat16, 12),
+            ("HAT-L Ultra float32 image", ("hat", "ultra"), {}, None, 16),
+            ("HAT-L Ultra bf16 image", ("hat", "ultra"),
+             dict(dtype=torch.bfloat16), None, 16)):
+        enc, dec = make_models(*args, **kw,
+                               generator=torch.Generator().manual_seed(0))
+        enc, dec = enc.to(dev).eval(), dec.to(dev).eval()
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = True
+        ms = {tag: [] for tag in tags}
+        with torch.no_grad():
+            for tag in list(tags) + list(tags)[::-1]:
+                swap(tag)
+                ms[tag].append(float(np.median(cs._host_ms(
+                    lambda: sr_forward(enc, dec, lq, 4.0, trunk_dtype=dt,
+                                       denominator=den), 9))))
+        out[label] = ms
+        print(f"  {label}: " + ", ".join(f"{t} {v} ms" for t, v in
+                                         ms.items()), flush=True)
+        del enc, dec
+        gc.collect()
+        torch.cuda.empty_cache()
     swap("change")
     return out
 

@@ -73,10 +73,9 @@ FAMILIES = (
       "window_attn_bwd_long_tf32_kv_kernel<true")),
     ("WMB window_attn_bwd short tf32 masked",
      ("window_attn_bwd_short_tf32_kernel<true",)),
-    # the fp32 3xTF32 forward: W-long (W4-long), and A-long's fp32 attention
-    # launch, the same kernel; A-long's projections and (bf16)
-    # out-projection below
-    ("W-long window_attn_fwd long tf32, A-long fp32 attention",
+    # the fp32 3xTF32 forward: W-long (W4-long), and A's and A-long's fp32
+    # attention launch, the same kernel; their projections below
+    ("W-long window_attn_fwd long tf32, A and A-long fp32 attention",
      ("window_attn_fwd_long_tf32_kernel",)),
     # AB-long's attention backward: the window-16 FMA body's launches on
     # AB's f32 scratch, forming att (kAtt) and, in bf16, rounding as
@@ -91,13 +90,13 @@ FAMILIES = (
     # dk / dv launches; WB (and WB4) up to 160 tokens: its one launch
     ("WB-long window_attn_bwd long tf32", ("window_attn_bwd_long_tf32",)),
     ("WB window_attn_bwd short tf32", ("window_attn_bwd_short_tf32",)),
-    ("A-long q/k/v projections", ("ln_qkv_kernel",)),
-    ("A-long out-proj (bf16)", ("out_proj_kernel<__nv_bfloat16, "
-                                "__nv_bfloat16",)),
+    # A's and A-long's projections on the tensor cores (tile_mma.cuh)
+    ("A, A-long q/k/v projections", ("ln_qkv_kernel",)),
+    ("A, A-long out-projection", ("out_proj_kernel",)),
     ("RB raster_bwd", ("raster_bwd_kernel",)),
     # the bf16 forms up to 160 tokens on the tensor cores, by their mask
-    # flag: W-bf16 (and W4-bf16) and WM-bf16, WB-bf16 (and WB4-bf16) and
-    # WMB-bf16
+    # flag: W-bf16 (and W4-bf16, and A's bf16 attention) and WM-bf16,
+    # WB-bf16 (and WB4-bf16) and WMB-bf16
     ("WM-bf16 window_attn_fwd short mma masked",
      ("window_attn_fwd_short_mma_kernel<true",)),
     ("W-bf16 window_attn_fwd short mma",
@@ -114,8 +113,6 @@ FAMILIES = (
     ("AB attention, dbias sums",
      ("window_attn_bwd_kernel", "dbias_sum_kernel")),
     ("M ln_mlp", ("ln_mlp_kernel",)),
-    ("A ln_attn heads", ("attn_heads_kernel",)),
-    ("A ln_attn out-proj", ("out_proj_kernel",)),
     ("MB, AB tile products", ("linear_rows_kernel",)),
     ("MB, AB weight gradients", ("wgrad_partial_kernel",
                                  "wgrad_reduce_kernel")),

@@ -153,6 +153,117 @@ def test_ln_attn_enhanced_forms_match_plain(cuda, opts, bf16):
         torch.testing.assert_close(out, ref, rtol=1e-4, atol=1e-4)
 
 
+@pytest.mark.parametrize("opts,bf16", [("ln_inj", False), ("ln", True),
+                                       ("zero_base", True), ("ln", False),
+                                       ("odd", False), ("odd", True)])
+def test_ln_mlp_ultra_matches_plain_and_repeats(cuda, opts, bf16):
+    """M on the tensor cores at the Ultra decoder's 256 tokens and 192
+    channels (row tiles of 128 across window boundaries), in both types,
+    and at an odd shape (130 channels, a hidden width of 100: the scalar
+    paths and the zero padding of the slabs): against the plain version,
+    and the same bits twice."""
+    from gsasr_torch.ops import fused_layers as tf
+
+    g = torch.Generator(device="cpu").manual_seed(16)
+    b, t, c, hid = 9, 256, 192, 192
+    if opts == "odd":
+        b, t, c, hid = 3, 70, 130, 100
+    r = lambda *s: torch.randn(*s, generator=g).to(cuda)  # noqa: E731
+    dt = torch.bfloat16 if bf16 else torch.float32
+    kw = dict(w1=r(hid, c) / 14, b1=r(hid), w2=r(c, hid) / 10, b2=r(c))
+    if opts != "zero_base":
+        kw.update(ln_w=1 + 0.1 * r(c), ln_b=0.1 * r(c))
+    if opts in ("ln_inj", "odd"):
+        kw.update(inj=r(b, c))
+    if opts == "zero_base":
+        kw.update(zero_base=True)
+    x = r(b, t, c).to(dt)
+    n = tf.ln_mlp_residual.launches
+    out = tf.ln_mlp_residual(x, **kw)
+    assert torch.equal(out, tf.ln_mlp_residual(x, **kw))
+    assert tf.ln_mlp_residual.launches == n + 2
+    ref = tf.ln_mlp_residual_plain(x, **kw)
+    if bf16:
+        _assert_bf16_close(out, ref)
+    else:
+        torch.testing.assert_close(out, ref, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.parametrize("opts,bf16", [("paper_cross", False),
+                                       ("paper_self", False),
+                                       ("rope_cross", True),
+                                       ("rope_self", True),
+                                       ("odd", False)])
+def test_ln_attn_repeats(cuda, opts, bf16):
+    """A at the paper decoder's 180 channels in 6 heads of 30 (cross with
+    pos, kv and a bias; self with a bias; fp32) and the Enhanced decoder's
+    192 with RoPE in bf16, and an odd shape (Tq 100 against Tk 37, 5 heads
+    of 12): the same bits twice, A launched and not A-long, and against
+    the plain version."""
+    from gsasr_torch.models.fea2gs_rope_fast import rope_tables
+    from gsasr_torch.ops import fused_layers as tf
+
+    g = torch.Generator(device="cpu").manual_seed(17)
+    b, tq, tk, c, nh = 7, 144, 144, 180, 6
+    if opts.startswith("rope"):
+        c = 192
+    if opts == "odd":
+        b, tq, tk, c, nh = 5, 100, 37, 60, 5
+    r = lambda *s: torch.randn(*s, generator=g).to(cuda)  # noqa: E731
+    dt = torch.bfloat16 if bf16 else torch.float32
+    kw = {k: r(c, c) / 14 if k[0] == "w" else r(c)
+          for k in ("wq", "bq", "wk", "bk", "wv", "bv", "wo", "bo")}
+    kw.update(ln_w=1 + 0.1 * r(c), ln_b=0.1 * r(c), num_heads=nh)
+    if opts.endswith("cross") or opts == "odd":
+        kw.update(pos=r(tq, c).to(dt), kv=r(b, tk, c).to(dt))
+    if opts.startswith("rope"):
+        cos, sin = rope_tables(0.5 * r(2, nh, c // nh // 2), 12, tq)
+        kw.update(rope_cos_q=cos, rope_sin_q=sin, rope_cos_k=cos,
+                  rope_sin_k=sin)
+    else:
+        kw.update(bias=0.5 * r(nh, tq, tk))
+    x = r(b, tq, c).to(dt)
+    n = (tf.ln_attn_proj.launches, tf.ln_attn_proj_long.launches)
+    out = tf.ln_attn_proj(x, **kw)
+    assert torch.equal(out, tf.ln_attn_proj(x, **kw))
+    assert (tf.ln_attn_proj.launches,
+            tf.ln_attn_proj_long.launches) == (n[0] + 2, n[1])
+    ref = tf.ln_attn_proj_plain(x, **kw)
+    if bf16:
+        _assert_bf16_close(out, ref)
+    else:
+        torch.testing.assert_close(out, ref, rtol=1e-4, atol=1e-4)
+
+
+def test_fused_forward_kernels_fit(cuda):
+    """ptxas's report of ln_mlp.cu and ln_attn.cu: M's and A's tensor-core
+    kernels (ln_mlp_kernel, ln_qkv_kernel, out_proj_kernel), each in fp32
+    and bf16, spill no register, and the per-(window, head) FMA kernel
+    they replaced is gone."""
+    import re
+
+    from gsasr_torch.ops import _build
+
+    _build.build(["ln_mlp", "ln_attn"])
+    found = {}
+    for src in ("ln_mlp", "ln_attn"):
+        name = None
+        for line in _build.ptxas_report(src).splitlines():
+            m = re.search(r"Compiling entry function '(\w+)'", line)
+            if m:
+                name = m.group(1)
+                assert "attn_heads_kernel" not in name, name
+            if not name or not any(k in name for k in (
+                    "ln_mlp_kernel", "ln_qkv_kernel", "out_proj_kernel")):
+                continue
+            sp = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill "
+                           r"loads", line)
+            if sp:
+                found[src, name] = sp.groups()
+    assert len(found) == 6, sorted(found)
+    assert all(sp == ("0", "0") for sp in found.values()), found
+
+
 def _attn_inputs(cuda, b, tq, tk, c, nh, bias=True, seed=2):
     g = torch.Generator(device="cpu").manual_seed(seed)
     r = lambda *s: torch.randn(*s, generator=g).to(cuda)  # noqa: E731
