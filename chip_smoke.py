@@ -9,12 +9,15 @@
    among them) from gsasr_torch/ops/csrc, one nvcc per source, in
    parallel.
 2. Kernel phase (TF32 off): R, M and A against their plain PyTorch versions
-   at the inference path's shapes, M and A twice for bitwise
-   repeatability, with their median times, the plain versions' times and
-   their lower bounds on this card (M's and A's products in 3xTF32 at the
-   TF32 peak: they run the tensor-core row-tile product of tile_mma.cuh),
-   and ptxas's registers of M's and A's kernels beside the FMA kernels'
-   they replace.
+   at the inference path's shapes, each twice for bitwise repeatability,
+   with their median times, the plain versions' times and their lower
+   bounds on this card (M's and A's products in 3xTF32 at the TF32 peak:
+   they run the tensor-core row-tile product of tile_mma.cuh; R's pairs at
+   24 FP32 operations), R's time one call and back to back beside the one
+   recorded before its redesign (RASTER_MS_RECORDED), ptxas's registers of
+   M's and A's kernels beside the FMA kernels' they replace, and of R,
+   R-exact and RB beside the recorded ones (a kernel that spills fails the
+   phase).
 3. Path phase: make_models("edsr", "paper") with seeded weights, then
    sr_forward on 180x180 x4 (the main shape), 173x151 x3.3 and a batch of
    two 96x96 x2, checking shapes, finiteness and the kernel launch counts.
@@ -22,12 +25,13 @@
 5. End-to-end timing of the main shape with PyTorch's default TF32
    settings, its encoder/decoder/render split, peak memory and the sigma
    percentiles of the rendered Gaussians.
-6. Training kernel phase (TF32 off): W, WB and RB against their plain
+6. Training kernel phase (TF32 off): W, WB, R and RB against their plain
    versions at the paper training step's shapes (256 windows of 144 tokens;
-   the 3072x192 slot canvas of 16 samples), WB and RB twice for bitwise
+   the 3072x192 slot canvas of 16 samples), WB, R and RB twice for bitwise
    repeatability, with times, bounds (WB's products in 3xTF32 at the TF32
-   peak: it runs the 3xTF32 tensor-core body window_attn_short_tf32_bwd.cuh)
-   and the SDPA yardstick for W and WB.
+   peak: it runs the 3xTF32 tensor-core body window_attn_short_tf32_bwd.cuh;
+   R's and RB's pairs at 24 and 35 FP32 operations), R's and RB's times
+   beside the recorded ones and the SDPA yardstick for W and WB.
 7. Fused training kernel phase (TF32 off): MB and AB against their plain
    versions at the training step's shapes, for each option set the fused
    decoder uses, and T (the bias-table gradient) for both tables; each
@@ -110,7 +114,7 @@
    256 and 256 x 576, 6 heads of 32; WB-long-bf16 once more with a bias),
    twice each for bitwise repeatability, with SDPA forward and backward as
    the yardstick, bounds and ptxas's registers; R and RB on the 8-slot
-   1024x1024 canvas.
+   1024x1024 canvas, beside the recorded times.
 25. HAT-L Ultra training: Trainer.step of configs/train_hatl_ultra.yml's
    recipe (written out as ULTRA_TRAIN and enhanced_networks("hat"): bf16
    compute on fp32 parameters, DropPath 0.1) at batch 8 of 64x64 LR,
@@ -292,6 +296,21 @@ PAPER_SCALES = (1, 4)
 # (box test, offsets and products, quadratic form, exp argument, three
 # color FMAs, g . col and at, five moment FMAs).
 RB_OPS_PER_PAIR = 35
+# Kernels R, R-exact and RB in ptxas's report: (source, a substring of the
+# kernel's name), and the registers PERF.md records for the forms before
+# R's and RB's redesign (the per-chunk walk of R, one thread a Gaussian in
+# RB).
+RASTER_KERNELS = {"R": ("raster_fwd", "raster_fwd_kernel"),
+                  "R-exact": ("raster_fwd", "raster_fwd_exact_kernel"),
+                  "RB": ("raster_bwd", "raster_bwd_kernel")}
+RASTER_REGS_RECORDED = {"R": 32, "R-exact": 48, "RB": 63}
+# The times PERF.md records for those forms of R and RB by canvas
+# (chip_smoke.py, NVIDIA H100 80GB HBM3 at 700.00 W): the paper image
+# (phase 2), the paper step (phase 6) and the Ultra step (phase 24);
+# printed beside this tree's.
+RASTER_MS_RECORDED = {("R", "720x720"): 4.9716, ("R", "8192x1024"): 14.6766,
+                      ("RB", "3072x192"): 3.1252,
+                      ("RB", "8192x1024"): 25.3484}
 # Gradient tolerance, kernel vs plain and card vs CPU: |d| <= GRAD_TOL *
 # max|ref| (per output and column) + GRAD_TOL * |ref|. Moment sums over
 # thousands of pixels and sums over 256 windows cancel, so an entry's error
@@ -545,6 +564,25 @@ def _host_ms(fn, reps: int, warmup: int = 2):
     return ts
 
 
+def _batch_ms(fn, n: int = 10, reps: int = 5) -> float:
+    """Device time of one fn() from n calls back to back between two CUDA
+    events (the launches queue up, so the host's time to launch them hides
+    behind the card's), the median over reps."""
+    fn()
+    torch.cuda.synchronize()
+    ts = []
+    for _ in range(reps):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        for _ in range(n):
+            fn()
+        b.record()
+        b.synchronize()
+        ts.append(a.elapsed_time(b) / n)
+    return float(np.median(ts))
+
+
 def _compare(out, ref, name):
     err = (out - ref).abs()
     ok = bool((err <= KERNEL_ATOL + KERNEL_RTOL * ref.abs()).all())
@@ -742,14 +780,85 @@ def _bound_ms(flops: float, nbytes: float, peak: float = PEAK_FP32):
 
 
 @torch.no_grad()
+def image_raster_inputs(enc, dec, lq):
+    """Kernel R's arguments for the paper decoder's Gaussians of one
+    180x180 image at x4 (dmax 0.1, as `bench.py` renders): (geom, colors,
+    bbox, 720, 720)."""
+    from gsasr_torch.model import _lat_hw, pad_to_denominator
+    from gsasr_torch.models.fea2gs_fast import fea2gs_apply_fused
+    from gsasr_torch.rendering import raster_inputs
+
+    padded, _ = pad_to_denominator(lq, 12)
+    gs = fea2gs_apply_fused(dec, enc(padded),
+                            torch.full((1,), 4.0, device=lq.device))[0]
+    sr = (4 * lq.shape[1], 4 * lq.shape[2])
+    return (*raster_inputs(sr, gs, 4.0, dmax_mode="fix", dmax=0.1,
+                           lat_hw=_lat_hw(dec, *lq.shape[1:3])), *sr)
+
+
+@torch.no_grad()
+def step_raster_inputs(enc, dec, batch, cfg, dev):
+    """Kernels R's and RB's arguments for a training batch's slot canvas
+    (`Trainer.step`'s render): the decoder's Gaussians of `batch`
+    (`paper_batch`) at the recipe `cfg`'s dmax, one slot of
+    cfg["canvas_hw"] a sample. Returns (geom, colors, bbox, h, w)."""
+    from gsasr_torch.ops import rasterizer as rz
+    from gsasr_torch.rendering import training_batch_geometry
+
+    lq = torch.from_numpy(batch["lq"]).to(dev)
+    sc = torch.from_numpy(batch["scale"]).to(dev)
+    gt_h = torch.from_numpy(batch["gt_h"]).to(dev)
+    gs = dec(enc(lq), sc)
+    geoms, colors = training_batch_geometry(
+        gs, sc, gt_h, gt_h, cfg["canvas_hw"],
+        default_step_size=cfg["default_step_size"], if_dmax=cfg["if_dmax"],
+        dmax_mode=cfg["dmax_mode"], dmax=cfg["dmax"])
+    h, w = len(batch["scale"]) * cfg["canvas_hw"][0], cfg["canvas_hw"][1]
+    return (*rz.chunk_geometry(geoms.reshape(-1, rz.GEOM_COLS),
+                               colors.reshape(-1, 3), (h, w)), h, w)
+
+
+# The workloads on which scripts/ab_torch_sources.py times kernels R and
+# RB, as the phases that time them build them: the paper image (phase 2),
+# the paper step's slot canvas (phase 6), the Ultra step's (phase 24) and
+# phase 37's two regimes.
+RASTER_WORKLOADS = ("paper image 720x720", "paper step 3072x192",
+                    "Ultra step 8192x1024", "exact trained 720x720",
+                    "exact init 720x720")
+
+
+def raster_workload(name, dev):
+    """(geom, colors, bbox, h, w) of one of RASTER_WORKLOADS, with seeded
+    networks (the paper EDSR-GSASR; the Ultra recipe's HAT-L networks) and
+    chip_smoke.py's seeded batches."""
+    from gsasr_torch.model import make_models
+    from gsasr_torch.ops import rasterizer as rz
+
+    if name.startswith("exact"):
+        hw = EXACT_HW
+        sigmas, coords, colors = exact_workload(name.split()[1], dev)
+        geom = rz.pack_geometry(sigmas, coords, (hw, hw), EXACT_DMAX)
+        return (*rz.chunk_geometry(geom, colors, (hw, hw)), hw, hw)
+    if name.startswith("Ultra"):
+        enc, dec = enhanced_networks("hat")
+        batch, cfg = paper_batch(ULTRA_BATCH, seed=16, ultra=True), ULTRA_TRAIN
+    else:
+        enc, dec = make_models("edsr", "paper",
+                               generator=torch.Generator().manual_seed(0))
+        batch, cfg = paper_batch(PAPER_BATCH, seed=6), PAPER_TRAIN
+    enc, dec = enc.to(dev).eval(), dec.to(dev).eval()
+    if name.startswith("paper image"):
+        lq = torch.rand(1, 180, 180, 3,
+                        generator=torch.Generator().manual_seed(1)).to(dev)
+        return image_raster_inputs(enc, dec, lq)
+    return step_raster_inputs(enc, dec, batch, cfg, dev)
+
+
+@torch.no_grad()
 def kernel_phase(enc, dec, dev):
     """Each kernel against its plain version at the main path's shapes."""
-    from gsasr_torch.model import _lat_hw, pad_to_denominator
-    from gsasr_torch.models.fea2gs_fast import (_attn, _mlp, _seq_mlp,
-                                                fea2gs_apply_fused)
+    from gsasr_torch.models.fea2gs_fast import _attn, _mlp, _seq_mlp
     from gsasr_torch.ops import fused_layers as fl
-    from gsasr_torch.ops import rasterizer as rz
-    from gsasr_torch.rendering import raster_inputs
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -821,40 +930,15 @@ def kernel_phase(enc, dec, dev):
 
     # -- R: the 720x720 render of the decoder's output at these weights ------
     lq = torch.rand(1, 180, 180, 3, generator=g).to(dev)
-    padded, _ = pad_to_denominator(lq, 12)
-    with torch.no_grad():
-        gs = fea2gs_apply_fused(dec, enc(padded),
-                                torch.full((1,), 4.0, device=dev))[0]
-    sr = (720, 720)
-    geom, colors, bbox = raster_inputs(sr, gs, 4.0, dmax_mode="fix",
-                                       dmax=0.1, lat_hw=_lat_hw(dec, 180, 180))
-    out = rz.raster_fwd(geom, colors, bbox, *sr)
-    ref = rz.raster_fwd_plain(geom, colors, bbox, *sr)
-    err = _compare(out, ref, "R 720x720")
-    ms = _time_ms(lambda: rz.raster_fwd(geom, colors, bbox, *sr), 10)
-    plain = _time_ms(lambda: rz.raster_fwd_plain(geom, colors, bbox, *sr), 3,
-                     warmup=1)
-    # pairs this run's data needs: the clipped integer pixels of every box
-    nx = (torch.clamp(torch.floor(geom[:, 6]), max=sr[1] - 1)
-          - torch.clamp(torch.ceil(geom[:, 5]), min=0) + 1).clamp(min=0)
-    ny = (torch.clamp(torch.floor(geom[:, 8]), max=sr[0] - 1)
-          - torch.clamp(torch.ceil(geom[:, 7]), min=0) + 1).clamp(min=0)
-    pairs = float((nx.double() * ny.double()).sum())
-    t_ops = pairs * RASTER_OPS_PER_PAIR / PEAK_FP32
-    t_sfu = pairs / PEAK_SFU
-    t_bytes = 4 * (geom.numel() + colors.numel() + sr[0] * sr[1] * 3) / PEAK_HBM
-    bound = max(t_ops, t_sfu, t_bytes) * 1e3
-    results["R"] = [dict(case="720x720", per_image=1, max_abs_err=err, ms=ms,
-                         plain_ms=plain, bound_ms=bound,
-                         bound_by="bytes" if t_bytes > max(t_ops, t_sfu)
-                         else "operations", box_pairs=pairs,
-                         gaussians=int(gs.shape[0]),
-                         chunks=int(bbox.shape[1]))]
-    for k, rows in results.items():
-        for r in rows:
+    geom, colors, bbox, h, w = image_raster_inputs(enc, dec, lq)
+    results["R"] = [_raster_rows(geom, colors, bbox, h, w, None, 1,
+                                 f"{h}x{w}", per="per_image")["R"]]
+    for k in ("M", "A"):
+        for r in results[k]:
             print(f"  {k} {r['case']}: {r['ms']:.4f} ms (plain {r['plain_ms']:.4f},"
                   f" bound {r['bound_ms']:.4f} by {r['bound_by']})", flush=True)
     results["registers"] = fused_registers()
+    results["raster_registers"] = raster_registers()
     return results
 
 
@@ -1142,12 +1226,11 @@ def _sdpa_ms(q, k, v, mask, g, nh, scale):
 
 @torch.no_grad()
 def train_kernel_phase(enc, dec, dev):
-    """W, WB and RB against their plain versions at the training step's
-    shapes, twice each for WB and RB to show the bits repeat."""
-    from gsasr_torch.models.fea2gs_fast import fea2gs_apply_fused
+    """W, WB, R and RB against their plain versions at the training step's
+    shapes (R and RB on the 16-slot 3072x192 canvas of the seeded decoder's
+    Gaussians: "R-step", "RB"), twice each for WB, R and RB to show the bits
+    repeat."""
     from gsasr_torch.ops import attention as ta
-    from gsasr_torch.ops import rasterizer as rz
-    from gsasr_torch.rendering import training_batch_geometry
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -1199,50 +1282,12 @@ def train_kernel_phase(enc, dec, dev):
                                   bound_ms=bound, bound_by=by,
                                   library_ms=lib_b, library_null_reason=why))
 
-    # -- RB on the slot canvas of the seeded decoder's Gaussians -------------
-    cfg = PAPER_TRAIN
-    batch = paper_batch(PAPER_BATCH, seed=6)
-    lq = torch.from_numpy(batch["lq"]).to(dev)
-    sc = torch.from_numpy(batch["scale"]).to(dev)
-    gt_h = torch.from_numpy(batch["gt_h"]).to(dev)
-    gs = fea2gs_apply_fused(dec, enc(lq), sc)
-    geoms, colors = training_batch_geometry(
-        gs, sc, gt_h, gt_h, cfg["canvas_hw"],
-        default_step_size=cfg["default_step_size"], if_dmax=cfg["if_dmax"],
-        dmax_mode=cfg["dmax_mode"], dmax=cfg["dmax"])
-    h, w = PAPER_BATCH * cfg["canvas_hw"][0], cfg["canvas_hw"][1]
-    geom, col, bbox = rz.chunk_geometry(geoms.reshape(-1, rz.GEOM_COLS),
-                                        colors.reshape(-1, 3), (h, w))
-    g = rnd(h, w, 3)
-    outs = rz.raster_bwd(geom, col, bbox, g, h, w)
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    refs = rz.raster_bwd_plain(geom, col, bbox, g, h, w)
-    torch.cuda.synchronize()
-    plain = (time.perf_counter() - t0) * 1e3
-    err = max(_compare_grad(o, r, f"RB {n}") for o, r, n in zip(
-        outs, refs, ("dgeom", "dcol")))
-    if not bool((outs[0][:, 5:] == 0).all()):
-        raise AssertionError("RB: cull-box columns got a gradient")
-    _repeatable(lambda: rz.raster_bwd(geom, col, bbox, g, h, w), "RB")
-    ms = _time_ms(lambda: rz.raster_bwd(geom, col, bbox, g, h, w), 10)
-    nx = (torch.clamp(torch.floor(geom[:, 6]), max=w - 1)
-          - torch.clamp(torch.ceil(geom[:, 5]), min=0) + 1).clamp(min=0)
-    ny = (torch.clamp(torch.floor(geom[:, 8]), max=h - 1)
-          - torch.clamp(torch.ceil(geom[:, 7]), min=0) + 1).clamp(min=0)
-    pairs = float((nx.double() * ny.double()).sum())
-    t_ops = pairs * RB_OPS_PER_PAIR / PEAK_FP32
-    t_sfu = pairs / PEAK_SFU
-    t_bytes = 4 * (2 * geom.numel() + 2 * col.numel() + h * w * 3) / PEAK_HBM
-    results["RB"] = [dict(case=f"{h}x{w}", per_step=1, max_abs_err=err,
-                          ms=ms, plain_ms=plain,
-                          bound_ms=max(t_ops, t_sfu, t_bytes) * 1e3,
-                          bound_by="bytes" if t_bytes > max(t_ops, t_sfu)
-                          else "operations", library_ms=None,
-                          library_null_reason="no PyTorch call computes it",
-                          box_pairs=pairs, gaussians=int(geom.shape[0]),
-                          chunks=int(bbox.shape[1]))]
-    for k in ("W", "WB", "RB"):
+    # -- R and RB on the slot canvas of the seeded decoder's Gaussians -------
+    geom, col, bbox, h, w = step_raster_inputs(enc, dec, paper_batch(
+        PAPER_BATCH, seed=6), PAPER_TRAIN, dev)
+    rows = _raster_rows(geom, col, bbox, h, w, rnd(h, w, 3), 1, f"{h}x{w}")
+    results["R-step"], results["RB"] = [rows["R"]], [rows["RB"]]
+    for k in ("W", "WB"):
         for r in results[k]:
             lib = "null" if r["library_ms"] is None else \
                 f"{r['library_ms']:.4f}"
@@ -2248,19 +2293,28 @@ def ultra_kernel_phase(dec, dev):
     return results
 
 
-def _raster_rows(geom, col, bbox, h, w, g, per_step, case):
-    """R and RB against their plain versions on one canvas,
-    each twice for bitwise repeatability, with their times (the plain
-    versions once) and bounds: the pairs this run's data needs (the clipped
-    integer pixels of every cull box) at their FP32 operations or
-    exponentials per pair, or the bytes. Returns {"R": row, "RB": row}."""
-    from gsasr_torch.ops import rasterizer as rz
-
+def box_pairs(geom, h, w):
+    """The (pixel, Gaussian) pairs geom's inclusive cull boxes hold on an h
+    x w canvas: the work R and RB must do for this data."""
     nx = (torch.clamp(torch.floor(geom[:, 6]), max=w - 1)
           - torch.clamp(torch.ceil(geom[:, 5]), min=0) + 1).clamp(min=0)
     ny = (torch.clamp(torch.floor(geom[:, 8]), max=h - 1)
           - torch.clamp(torch.ceil(geom[:, 7]), min=0) + 1).clamp(min=0)
-    pairs = float((nx.double() * ny.double()).sum())
+    return float((nx.double() * ny.double()).sum())
+
+
+def _raster_rows(geom, col, bbox, h, w, g, launches, case, per="per_step"):
+    """R (and RB unless g is None) against their plain versions on one
+    canvas, each twice for bitwise repeatability, with their times (one
+    call, and ten back to back: the card's time without the host's; the
+    plain versions once) beside the recorded ones (RASTER_MS_RECORDED)
+    and bounds: the pairs this run's data needs (the clipped integer pixels
+    of every cull box) at their FP32 operations or exponentials per pair, or
+    the bytes. `launches`: per image or step (`per`). Returns {"R": row,
+    "RB": row}."""
+    from gsasr_torch.ops import rasterizer as rz
+
+    pairs = box_pairs(geom, h, w)
 
     def row(name, fn, plain_fn, compare, ops_per_pair, nbytes):
         out = fn()
@@ -2273,26 +2327,33 @@ def _raster_rows(geom, col, bbox, h, w, g, per_step, case):
         _repeatable(lambda: (fn(),) if name == "R" else fn(),
                     f"{name} {case}")
         ms = _time_ms(fn, 10)
+        b2b = _batch_ms(fn)
         t_ops = pairs * ops_per_pair / PEAK_FP32
         t_sfu = pairs / PEAK_SFU
         t_bytes = nbytes / PEAK_HBM
-        print(f"  {name} {case}: {ms:.4f} ms (plain {plain:.1f}, bound "
+        was = RASTER_MS_RECORDED.get((name, f"{h}x{w}"))
+        print(f"  {name} {case}: {ms:.4f} ms, back to back {b2b:.4f} "
+              f"(recorded before the redesign: {was if was else 'not timed'};"
+              f" plain {plain:.1f}, bound "
               f"{max(t_ops, t_sfu, t_bytes) * 1e3:.4f}), {pairs:.3e} box "
               f"pairs, {int(geom.shape[0])} Gaussians in "
               f"{int(bbox.shape[1])} chunks", flush=True)
-        return dict(case=case, per_step=per_step, max_abs_err=err, ms=ms,
-                    plain_ms=plain, bound_ms=max(t_ops, t_sfu, t_bytes) * 1e3,
-                    bound_by="bytes" if t_bytes > max(t_ops, t_sfu)
-                    else "operations", library_ms=None,
-                    library_null_reason="no PyTorch call computes it",
-                    box_pairs=pairs, gaussians=int(geom.shape[0]),
-                    chunks=int(bbox.shape[1]))
+        return {"case": case, per: launches, "max_abs_err": err, "ms": ms,
+                "ms_back_to_back": b2b, "plain_ms": plain,
+                "bound_ms": max(t_ops, t_sfu, t_bytes) * 1e3,
+                "bound_by": "bytes" if t_bytes > max(t_ops, t_sfu)
+                else "operations", "library_ms": None,
+                "library_null_reason": "no PyTorch call computes it",
+                "box_pairs": pairs, "gaussians": int(geom.shape[0]),
+                "chunks": int(bbox.shape[1])}
 
     rows = {"R": row(
         "R", lambda: rz.raster_fwd(geom, col, bbox, h, w),
         lambda: rz.raster_fwd_plain(geom, col, bbox, h, w),
         lambda o, r: _compare(o, r, f"R {case}"), RASTER_OPS_PER_PAIR,
         4 * (geom.numel() + col.numel() + h * w * 3))}
+    if g is None:
+        return rows
 
     def rb_compare(outs, refs):
         if not bool((outs[0][:, 5:] == 0).all()):
@@ -2305,6 +2366,25 @@ def _raster_rows(geom, col, bbox, h, w, g, per_step, case):
         lambda: rz.raster_bwd_plain(geom, col, bbox, g, h, w), rb_compare,
         RB_OPS_PER_PAIR, 4 * (2 * geom.numel() + 2 * col.numel() + h * w * 3))
     return rows
+
+
+def raster_registers():
+    """ptxas's registers and spills of R, R-exact and RB, printed beside
+    the ones PERF.md records for their earlier forms (RASTER_REGS_RECORDED);
+    raises if one is missing or spills."""
+    from gsasr_torch.ops import _build
+
+    regs = {}
+    for key, (src, name) in RASTER_KERNELS.items():
+        found = list(_ptxas_kernels(_build.ptxas_report(src),
+                                    name).values())
+        if len(found) != 1 or found[0][1] or found[0][2]:
+            raise AssertionError(f"{key}: missing or spilling {found}")
+        regs[key] = found[0][0]
+        print(f"  ptxas {key}: {regs[key]} registers, no spills (recorded "
+              f"before the redesign: {RASTER_REGS_RECORDED[key]})",
+              flush=True)
+    return regs
 
 
 def fused_registers():
@@ -2368,8 +2448,6 @@ def ultra_train_kernel_phase(enc, dec, dev):
     scales in [1, 16]. per_step: launches per Ultra step of that type."""
     from gsasr_torch.ops import _build
     from gsasr_torch.ops import attention as ta
-    from gsasr_torch.ops import rasterizer as rz
-    from gsasr_torch.rendering import training_batch_geometry
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -2453,20 +2531,9 @@ def ultra_train_kernel_phase(enc, dec, dev):
               flush=True)
 
     # -- R and RB on the Ultra canvas of the seeded networks' Gaussians ------
-    cfg = ULTRA_TRAIN
     batch = paper_batch(ULTRA_BATCH, seed=16, ultra=True)
-    lq = torch.from_numpy(batch["lq"]).to(dev)
-    sc = torch.from_numpy(batch["scale"]).to(dev)
-    gt_h = torch.from_numpy(batch["gt_h"]).to(dev)
-    gs = dec(enc(lq), sc)
-    geoms, colors = training_batch_geometry(
-        gs, sc, gt_h, gt_h, cfg["canvas_hw"],
-        default_step_size=cfg["default_step_size"], if_dmax=cfg["if_dmax"],
-        dmax_mode=cfg["dmax_mode"], dmax=cfg["dmax"])
-    del gs
-    h, w = ULTRA_BATCH * cfg["canvas_hw"][0], cfg["canvas_hw"][1]
-    geom, col, bbox = rz.chunk_geometry(geoms.reshape(-1, rz.GEOM_COLS),
-                                        colors.reshape(-1, 3), (h, w))
+    geom, col, bbox, h, w = step_raster_inputs(enc, dec, batch, ULTRA_TRAIN,
+                                               dev)
     rows = _raster_rows(geom, col, bbox, h, w, rnd(h, w, 3), 1,
                         f"{h}x{w}, scales {batch['scale'].min():.2f}-"
                         f"{batch['scale'].max():.2f}")
@@ -3040,13 +3107,7 @@ def exact_render_phase(dev, kernels):
                 _repeatable(lambda: (walk(),), "R-exact")
                 used = tab % 4 != 0
                 members = int((lists.view(-1, 256)[used] < g.shape[0]).sum())
-                nx = (torch.clamp(torch.floor(g[:, 6]), max=hw - 1)
-                      - torch.clamp(torch.ceil(g[:, 5]), min=0) + 1).clamp(
-                          min=0)
-                ny = (torch.clamp(torch.floor(g[:, 8]), max=hw - 1)
-                      - torch.clamp(torch.ceil(g[:, 7]), min=0) + 1).clamp(
-                          min=0)
-                pairs = float((nx.double() * ny.double()).sum())
+                pairs = box_pairs(g, hw, hw)
                 t_ops = pairs * RASTER_OPS_PER_PAIR / PEAK_FP32
                 t_sfu = pairs / PEAK_SFU
                 t_bytes = 4 * (g.numel() + col.numel() + hw * hw * 3
@@ -3271,8 +3332,8 @@ def attention_4d_phase(dev, kernels):
 
 FORM_KEYS = ("decoder", "case", "dtype", "nW", "windows", "tokens",
              "head_width", "bias", "per_image", "per_step", "per_swinir_step",
-             "max_abs_err", "ms", "window16_ms", "plain_ms", "packed_ms",
-             "bound_ms", "bound_by",
+             "max_abs_err", "ms", "ms_back_to_back", "window16_ms",
+             "plain_ms", "packed_ms", "bound_ms", "bound_by",
              "library_ms", "memberships", "used_chunks", "build_ms")
 
 
@@ -3711,7 +3772,7 @@ def main() -> int:
               "gsasr_tpu/ops/rasterizer.py:334",
               ["gsasr_tpu/ops/rasterizer.py:254",
                "gsasr_tpu/ops/rasterizer.py:126"], infer, "sr_forward",
-              kres["R"], kres["R"] + utres["R"]),
+              kres["R"], kres["R"] + kres["R-step"] + utres["R"]),
         "M": ("ln_mlp", "gsasr_torch/ops/csrc/ln_mlp.cu",
               "gsasr_tpu/ops/fused_layers.py:122", [], einfer, enhanced,
               _on_path(ekres["M"], "per_image"),

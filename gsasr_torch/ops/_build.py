@@ -54,7 +54,7 @@ SIGNATURES = {
     "window_attn_bwd_long_masked": "p" * 12 + "iiiiii" + "f",
     "window_attn_bwd_long_masked_bf16": "p" * 12 + "iiiiii" + "f",
     "ln_attn_long": "p" * 23 + "iiiiii" + "f",
-    "raster_bwd": "ppppppiiii",
+    "raster_bwd": "pppppiii",
     "ln_mlp_bwd": "p" * 16 + "iiiiii",
     "ln_mlp_bwd_bf16": "p" * 16 + "iiiiii",
     "ln_attn_bwd": "p" * 36 + "iiiiii" + "f",

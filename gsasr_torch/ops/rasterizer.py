@@ -218,8 +218,11 @@ def raster_fwd(geom, colors, bbox, h: int, w: int):
         return raster_fwd_plain(geom, colors, bbox, h, w)
     s, kc = _check_raster(geom, colors, bbox)
     out = torch.empty((h, w, 3), dtype=torch.float32, device=geom.device)
-    _build.launch("raster_fwd", geom.contiguous(), colors.contiguous(),
-                  bbox.contiguous(), out, kc, s // kc, h, w)
+    geom = geom.contiguous()
+    if geom.data_ptr() % 16:  # R reads the rows as 16-byte vectors
+        geom = geom.clone()
+    _build.launch("raster_fwd", geom, colors.contiguous(), bbox.contiguous(),
+                  out, kc, s // kc, h, w)
     raster_fwd.launches += 1
     return out
 
@@ -276,10 +279,11 @@ def raster_bwd_plain(geom, colors, bbox, g, h: int, w: int):
 def raster_bwd(geom, colors, bbox, g, h: int, w: int):
     """Gradients of `raster_fwd` for the cotangent g (H, W, C): (dgeom (S,
     16), dcol (S, C)). CPU tensors take `raster_bwd_plain`; CUDA tensors
-    launch kernel RB."""
+    launch kernel RB, whose warps each read one Gaussian's own box (the
+    chunk boxes bbox serve the plain version's walk)."""
     if geom.device.type == "cpu":
         return raster_bwd_plain(geom, colors, bbox, g, h, w)
-    s, kc = _check_raster(geom, colors, bbox)
+    s, _ = _check_raster(geom, colors, bbox)
     _build.check_tensor(g, "g")
     if g.shape != (h, w, 3):
         raise ValueError(f"g {tuple(g.shape)}: expected {(h, w, 3)}")
@@ -287,8 +291,7 @@ def raster_bwd(geom, colors, bbox, g, h: int, w: int):
                         device=geom.device)
     dcol = torch.empty((s, 3), dtype=torch.float32, device=geom.device)
     _build.launch("raster_bwd", geom.contiguous(), colors.contiguous(),
-                  bbox.contiguous(), g.contiguous(), dgeom, dcol, kc,
-                  s // kc, h, w)
+                  g.contiguous(), dgeom, dcol, s, h, w)
     raster_bwd.launches += 1
     return dgeom, dcol
 

@@ -1,9 +1,9 @@
 #!/usr/bin/env python3
 """Compare the port's CUDA sources of a parent checkout with this tree's on
-one card: ptxas's registers of every kernel of the named sources, kernel
-R's time, kernels M's, A's and A-long's, the bf16 window attention's up
-to 160 tokens (W-bf16, WB-bf16 and their masked forms WM-bf16, WMB-bf16)
-from both builds in turns
+one card: ptxas's registers of every kernel of the named sources, kernels
+R's and RB's times, kernels M's, A's and A-long's, the bf16 window
+attention's up to 160 tokens (W-bf16, WB-bf16 and their masked forms
+WM-bf16, WMB-bf16) from both builds in turns
 (parent, change, change, parent, ...), with the window-16 routing (this
 tree's W-long-bf16 and WB-long-bf16 on the same operands) beside them, and
 the fp32 window attentions (the window-16 forward W-long, WM-long,
@@ -12,19 +12,28 @@ backward WB-long, WMB-long, WB4-long) from every build in turns.
 
   python3 scripts/ab_torch_sources.py --parent DIR [--label NAME]
       [--parent DIR2 --label NAME2 ...] [--skip-raster]
-      [--fp32-only | --fused-only] [--steps] [--images] [--json PATH]
+      [--fp32-only | --fused-only | --raster-only] [--steps] [--images]
+      [--turns N] [--json PATH]
 
 DIR holds the parent's `gsasr_torch/ops/csrc` (for example
 `git archive <parent> gsasr_torch/ops | tar -x -C DIR`; with the parent's
-`_build.py` beside it, its entry points are called with its own argument
-kinds), or a variant of this tree's sources, named in the output by
---label; further --parent DIR --label NAME pairs add variants, which only
+`_build.py` beside it, a build whose entry points take other arguments than
+this tree's is refused, save RB's, below), or a variant of this tree's
+sources, named in the output by --label; further --parent DIR --label NAME pairs add variants, which only
 the fp32 sections time (the other sections take the first). All builds
-use `gsasr_torch/ops/_build.py`'s flags and go to build/ab_sources/. R runs
-on chip_smoke.py's exact-render workloads (scripts/bench_exact_render.py's
-720x720 render of 518,400 Gaussians, trained-like and init-like boxes),
-chunked as `gs_render` chunks them for R, and both builds must give the
-same bits (--skip-raster leaves it out). The bf16 attention runs at the
+use `gsasr_torch/ops/_build.py`'s flags and go to build/ab_sources/. R and
+RB run on chip_smoke.RASTER_WORKLOADS: the paper image's 720x720 render,
+the paper step's 3072x192 and the Ultra step's 8192x1024 slot canvases of
+the seeded networks' Gaussians, and chip_smoke.py's exact-render workloads
+(scripts/bench_exact_render.py's 720x720 render of 518,400 Gaussians,
+trained-like and init-like boxes), chunked as `gs_render` chunks them; each
+build's R is held to the plain version within chip_smoke.py's tolerance and
+to the same bits twice, this tree's R to the first build's bits; each
+build's RB within GRAD_TOL of the plain version and to the same bits twice;
+one call and ten back to back (--skip-raster leaves them out;
+--raster-only builds raster_fwd.cu and raster_bwd.cu alone and times them
+from every build). A parent whose RB took the chunk boxes (before this
+tree's) is called with them. The bf16 attention runs at the
 Enhanced training step's shape (256 windows of 144 tokens, 6 heads of 32,
 no bias), at the bf16 SwinIR step's unshifted blocks (576 windows of 64
 tokens, 6 heads of 30, a bias) and at its shifted blocks (the same with the
@@ -53,20 +62,21 @@ sections. The fused section times kernels M (ln_mlp.cu) and A and A-long
 decoder's 144 x 256 x 192 in bf16 and fp32 (RoPE for A-long), each held
 to its plain version and to the same bits twice, one call a time and ten
 back to back (the card's time without the host's); --fused-only builds
-ln_mlp.cu and ln_attn.cu alone and times only that section, and a parent
-whose ln_attn takes f32 att scratch (the per-(window, head) FMA kernel's)
-is called with its own arguments. --images times the paper fp32, Enhanced
+ln_mlp.cu and ln_attn.cu alone and times only that section. --images times the paper fp32, Enhanced
 bf16 and HAT-L Ultra (fp32 and bf16) images with the first build's and
-this tree's ln_mlp.cu and ln_attn.cu in turns. --steps then times the
-paths that run the fp32 window attentions,
+this tree's ln_mlp.cu, ln_attn.cu and raster_fwd.cu (those built) in
+turns. --steps then times the paths that run the fp32 window attentions,
 chip_smoke.py's paper EDSR module step (WB 38 a step), SwinIR step (WB 56,
 WMB 18), HAT-L Ultra step at model_dtype float32 (W-long 148, WB-long 148),
 paper HAT step (W-long 24, WM-long 18, WB-long 24, WMB-long 18, WB 38) and
-the HAT-L Ultra image (W-long 84), with the first build's and this tree's
-window_attn_fwd.cu, window_attn_bwd.cu and ln_attn.cu in turns (parent,
-change, change, parent): their entry points are swapped into the port's
-loaded kernels, and the rest of the port is this tree's. Each kernel's
-registers in every build are printed beside its form.
+the HAT-L Ultra image (W-long 84), or with --raster-only the paper EDSR
+step and the bf16 HAT-L Ultra step (R 1, RB 1 each), with the first
+build's and this tree's built sources in --turns pairs of turns, which
+build goes first alternating (parent, change, change, parent, ...): their
+entry points are swapped into the port's loaded kernels
+(RB through rasterizer.raster_bwd), and the rest of the port is this
+tree's. Each kernel's registers in every build are printed beside its
+form.
 """
 
 from __future__ import annotations
@@ -83,8 +93,21 @@ import sys
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, ROOT)
 
-SOURCES = ("raster_fwd", "window_attn_fwd", "window_attn_bwd", "ln_mlp",
-           "ln_attn", "ln_attn_bwd")
+SOURCES = ("raster_fwd", "raster_bwd", "window_attn_fwd", "window_attn_bwd",
+           "ln_mlp", "ln_attn", "ln_attn_bwd")
+# kernels R's and RB's sources
+RASTER = ("raster_fwd", "raster_bwd")
+# The sources whose entry points --steps and --images swap in turns
+SWAPPED = ("window_attn_fwd", "window_attn_bwd", "ln_mlp", "ln_attn",
+           "raster_fwd", "raster_bwd")
+# chip_smoke.train_phase's arguments of the steps --steps times: the paths
+# of the fp32 window attentions, and with --raster-only the steps R's and
+# RB's share of which moves most (the paper step and the Ultra bf16 step)
+STEPS = {"paper EDSR step": dict(encoder="edsr"),
+         "SwinIR float32 step": dict(encoder="swinir"),
+         "HAT-L Ultra float32 step": dict(encoder="hat", ultra="float32"),
+         "paper HAT float32 step": dict(encoder="hat_paper"),
+         "HAT-L Ultra bf16 step": dict(encoder="hat", ultra="bfloat16")}
 # M's and A's sources, which every build compiles
 FUSED = ("ln_mlp", "ln_attn")
 
@@ -454,8 +477,7 @@ def _long_fp32_ab(cs, out_dir, regs, tags):
 
 def _signatures(root):
     """The entry points' argument kinds of the `_build.py` beside a tree's
-    csrc (a parent's archive holds it), else this tree's: the fp32 backward
-    up to 160 tokens took no stats scratch before it ran WB-long's body."""
+    csrc (a parent's archive holds it), else this tree's."""
     from gsasr_torch.ops import _build
 
     path = os.path.join(root, "gsasr_torch", "ops", "_build.py")
@@ -470,14 +492,20 @@ def _signatures(root):
     raise RuntimeError(f"no SIGNATURES in {path}")
 
 
-def _entries(out_dir, tags, names, sigs):
+def _entries(out_dir, tags, names, sigs, adapted=()):
     """{(tag, name): the entry point of tag's build, with tag's argument
-    kinds}."""
+    kinds}. A build whose entry point takes other arguments than this
+    tree's is refused unless the caller adapts it (`adapted`)."""
     from gsasr_torch.ops import _build
 
     out = {}
     for tag in tags:
         for name in names:
+            if (sigs[tag][name] != _build.SIGNATURES[name]
+                    and name not in adapted):
+                raise RuntimeError(
+                    f"the {tag}'s {name} takes {sigs[tag][name]!r}, this "
+                    f"tree's {_build.SIGNATURES[name]!r}: no adapter")
             fn = getattr(ctypes.CDLL(os.path.join(
                 out_dir, f"{tag}_{_build.source_of(name)}.so")), name)
             fn.argtypes = [_build._CTYPES[k] for k in sigs[tag][name]] + [
@@ -605,8 +633,7 @@ def _fp32_short_bwd_ab(cs, out_dir, tags, sigs):
     in turns (tags + reversed + tags): WB at the paper step's 256 x 6 x 144
     x 30 and SwinIR's 576 x 6 x 64 x 30, WMB at SwinIR's training shape
     with the mask of period 36, WB4 at 256 x 6 x 144 x 30, with a bias (and
-    WB without one); a build whose WB takes no stats scratch (the FMA body's
-    signature) is called without it. Each build's dq, dk, dv and dbias held
+    WB without one). Each build's dq, dk, dv and dbias held
     within 1e-4 of each one's largest entry of the plain version and to the
     same bits twice; ms, speed-ups, the bound (the five
     products in 3xTF32 at the TF32 peak, or the bytes) and SDPA's
@@ -656,12 +683,9 @@ def _fp32_short_bwd_ab(cs, out_dir, tags, sigs):
             dq, dk, dv = (torch.empty_like(x) for x in ops[:3])
             dbias = torch.empty(nh, t, t, device=dev) if has_bias else None
             extra = () if mask is None else (mask,)
-            # stats only where the build's entry point takes it
-            np_ = sigs[tag][name].count("p")
-            scratch = (stats, ds_w) if np_ == 11 + len(extra) else (ds_w,)
             err = entries[tag, name](*[a.data_ptr() if isinstance(
                 a, torch.Tensor) else a for a in (
-                    *ops[:3], bias, *extra, ops[3], dq, dk, dv, *scratch,
+                    *ops[:3], bias, *extra, ops[3], dq, dk, dv, stats, ds_w,
                     dbias, b, t, t, c, nh, *((nw,) if extra else ()),
                     scale)], torch.cuda.current_stream().cuda_stream)
             if err:
@@ -716,23 +740,33 @@ def main() -> int:
                     help="name of the other tree in the output (a variant "
                     "of this tree's sources, say), one per --parent")
     ap.add_argument("--skip-raster", action="store_true",
-                    help="time the attention forms only, not kernel R")
-    ap.add_argument("--fp32-only", action="store_true",
-                    help="build window_attn_fwd.cu and window_attn_bwd.cu "
-                    "alone and time only the fp32 window attentions")
+                    help="time the attention forms only, not kernels R "
+                    "and RB")
+    only = ap.add_mutually_exclusive_group()
+    only.add_argument("--fp32-only", action="store_true",
+                      help="build window_attn_fwd.cu and window_attn_bwd.cu "
+                      "alone and time only the fp32 window attentions")
+    only.add_argument("--fused-only", action="store_true",
+                      help="build ln_mlp.cu and ln_attn.cu alone and time "
+                      "only kernels M, A and A-long")
+    only.add_argument("--raster-only", action="store_true",
+                      help="build raster_fwd.cu and raster_bwd.cu alone and "
+                      "time only kernels R and RB, from every build")
     ap.add_argument("--steps", action="store_true",
-                    help="also time the paths that run the fp32 window "
-                    "attentions (the paper EDSR, SwinIR, fp32 Ultra and "
-                    "paper HAT steps, the fp32 Ultra image) with the first "
-                    "build's and this tree's window_attn_fwd.cu, "
-                    "window_attn_bwd.cu and ln_attn.cu in turns")
-    ap.add_argument("--fused-only", action="store_true",
-                    help="build ln_mlp.cu and ln_attn.cu alone and time "
-                    "only kernels M, A and A-long")
+                    help="also time training steps with the first build's "
+                    "and this tree's built sources in turns: the paper "
+                    "EDSR, SwinIR, fp32 Ultra and paper HAT steps and the "
+                    "fp32 Ultra image, or with --raster-only the paper "
+                    "EDSR step and the bf16 Ultra step")
     ap.add_argument("--images", action="store_true",
                     help="also time the paper fp32, Enhanced bf16 and HAT-L "
                     "Ultra (bf16, fp32) images with the first build's and "
-                    "this tree's ln_mlp.cu and ln_attn.cu in turns")
+                    "this tree's ln_mlp.cu, ln_attn.cu and raster_fwd.cu, "
+                    "where built, in turns")
+    ap.add_argument("--turns", type=int, default=2,
+                    help="pairs of turns of --steps and --images, which "
+                    "build goes first alternating (default 2: parent, "
+                    "change, change, parent)")
     ap.add_argument("--json", help="write the results to this file")
     args = ap.parse_args()
     import torch
@@ -761,6 +795,8 @@ def main() -> int:
         sources = variant = FUSED
     elif args.fp32_only:
         sources = variant = fp32
+    elif args.raster_only:
+        sources = variant = RASTER
     else:
         sources, variant = SOURCES, fp32 + FUSED
     jobs = [(tag, src, subprocess.Popen(
@@ -781,86 +817,50 @@ def main() -> int:
     print(f"card: {card}", flush=True)
     for key, r in sorted(regs.items()):
         mark = "" if r.get(old) == r.get("change") else "  (differs)"
-        print(f"  {key[:120]}: {r.get(old)} -> {r.get('change')}{mark}",
-              flush=True)
-    times, attn = {}, {}
+        rest = "".join(f", {t} {r[t]}" for t in dirs
+                       if t not in (old, "change") and t in r)
+        print(f"  {key[:120]}: {r.get(old)} -> {r.get('change')}{rest}"
+              f"{mark}", flush=True)
+    times, attn, fused = {}, {}, {}
     fwd_fp32 = short_fp32 = long_fp32 = {}
-    if not (args.skip_raster or args.fp32_only or args.fused_only):
-        times = _raster_ab(cs, out_dir, {old: dirs[old],
-                                         "change": dirs["change"]})
-    if not (args.fp32_only or args.fused_only):
+    if args.raster_only:
+        print("kernels R and RB:", flush=True)
+        times = _raster_ab(cs, out_dir, tuple(dirs), sigs)
+    elif not (args.skip_raster or args.fp32_only or args.fused_only):
+        print("kernels R and RB:", flush=True)
+        times = _raster_ab(cs, out_dir, (old, "change"), sigs)
+    if not (args.fp32_only or args.fused_only or args.raster_only):
         attn = _attention_ab(cs, out_dir, regs, (old, "change"))
-    fused = {}
-    if not args.fp32_only:
+    if not (args.fp32_only or args.raster_only):
         print("kernels M, A and A-long:", flush=True)
         fused = _fused_fwd_ab(cs, out_dir, regs, tuple(dirs), sigs)
-    if not args.fused_only:
+    if not (args.fused_only or args.raster_only):
         print("the fp32 window-16 forward:", flush=True)
         fwd_fp32 = _fp32_fwd_ab(cs, out_dir, tuple(dirs), sigs)
         print("the fp32 backward up to 160 tokens:", flush=True)
         short_fp32 = _fp32_short_bwd_ab(cs, out_dir, tuple(dirs), sigs)
         print("the fp32 window-16 backward:", flush=True)
         long_fp32 = _long_fp32_ab(cs, out_dir, regs, tuple(dirs))
-    steps = (_steps_ab(cs, out_dir, (old, "change"), sigs) if args.steps
-             else {})
-    images = (_images_ab(cs, out_dir, (old, "change"), sigs)
-              if args.images else {})
+    swapped = [src for src in SWAPPED if src in sources]
+    steps = images = {}
+    if args.steps:
+        print("steps in turns:", flush=True)
+        steps = _steps_ab(cs, out_dir, (old, "change"), sigs, swapped,
+                          ["paper EDSR step", "HAT-L Ultra bf16 step"]
+                          if args.raster_only else list(STEPS)[:4],
+                          args.turns)
+    if args.images:
+        print("images in turns:", flush=True)
+        images = _images_ab(cs, out_dir, (old, "change"), sigs, [
+            src for src in swapped if src in FUSED + ("raster_fwd",)],
+            args.turns)
     if args.json:
         with open(args.json, "w") as f:
-            json.dump(dict(card=card, registers=regs, r_ms=times,
+            json.dump(dict(card=card, registers=regs, raster=times,
                            attention=attn, fused=fused, fwd_fp32=fwd_fp32,
                            short_fp32=short_fp32, long_fp32=long_fp32,
                            steps=steps, images=images), f, indent=1)
     return 0
-
-
-def _ln_attn_old(fn):
-    """Kernel A's entry point from a build whose ln_attn takes the heads'
-    output as f32 scratch and no q, k, v scratch (the per-(window, head)
-    FMA kernel's), called with this tree's arguments: qs, ks and vs dropped,
-    att replaced by f32 scratch of its shape."""
-    import torch
-
-    def call(*a):
-        a = list(a)
-        b, tq, c = a[23], a[24], a[26]
-        keep = torch.empty(b * tq * c, device="cuda")
-        return fn(*a[:18], keep.data_ptr(), *a[22:])
-    return call
-
-
-def _batch_ms(fn, n: int = 10, reps: int = 5) -> float:
-    """Device time of one fn() from n calls back to back between two CUDA
-    events (the launches queue up, so the host's time to launch them hides
-    behind the card's), the median over reps."""
-    import torch
-
-    fn()
-    torch.cuda.synchronize()
-    ts = []
-    for _ in range(reps):
-        a = torch.cuda.Event(enable_timing=True)
-        b = torch.cuda.Event(enable_timing=True)
-        a.record()
-        for _ in range(n):
-            fn()
-        b.record()
-        b.synchronize()
-        ts.append(a.elapsed_time(b) / n)
-    return sorted(ts)[len(ts) // 2]
-
-
-def _fused_entries(out_dir, tags, sigs):
-    """{(tag, name): ln_mlp, ln_attn and ln_attn_long of tag's build}, each
-    callable with this tree's arguments."""
-    from gsasr_torch.ops import _build
-
-    names = ("ln_mlp", "ln_attn", "ln_attn_long")
-    out = _entries(out_dir, tags, names, sigs)
-    for tag in tags:
-        if sigs[tag]["ln_attn"] != _build.SIGNATURES["ln_attn"]:
-            out[tag, "ln_attn"] = _ln_attn_old(out[tag, "ln_attn"])
-    return out
 
 
 # The kernels of M and A in ptxas's report (source, name key): the
@@ -892,7 +892,8 @@ def _fused_fwd_ab(cs, out_dir, regs, tags, sigs):
     from gsasr_torch.models.fea2gs_rope_fast import rope_tables
     from gsasr_torch.ops import fused_layers as fl
 
-    entries = _fused_entries(out_dir, tags, sigs)
+    entries = _entries(out_dir, tags, ("ln_mlp", "ln_attn", "ln_attn_long"),
+                       sigs)
     print("registers of M's and A's kernels:", flush=True)
     kregs = {}
     for key, r in sorted(regs.items()):
@@ -1010,7 +1011,7 @@ def _fused_fwd_ab(cs, out_dir, regs, tags, sigs):
         dev_ms = {tag: [] for tag in tags}
         for tag in order:
             ms[tag].append(cs._time_ms(lambda: run(tag), 10))
-            dev_ms[tag].append(_batch_ms(lambda: run(tag)))
+            dev_ms[tag].append(cs._batch_ms(lambda: run(tag)))
         errs = {}
         for tag in tags:
             first = outs[tag]
@@ -1041,77 +1042,63 @@ def _fused_fwd_ab(cs, out_dir, regs, tags, sigs):
     return dict(rows=rows, registers=kregs)
 
 
-def _stats_dropped(fn, masked):
-    """An entry point of WB or WMB from a build whose signature takes no
-    stats scratch (the FMA body's), called with this tree's arguments:
-    stats dropped, and ds_w, which that body always writes, allocated where
-    this tree passes none (no bias)."""
-    import torch
+def _swapper(out_dir, tags, sigs, srcs):
+    """swap(tag): the port's kernels of the sources `srcs` (built for every
+    tag in out_dir) replaced by tag's build's entry points, each called with
+    this tree's arguments; RB through rasterizer.raster_bwd (a parent's RB
+    takes the chunk boxes, `_raster_kernels`); the launch counts stay the
+    port wrappers'. swap(None) puts this tree's back."""
+    from gsasr_torch.ops import _build
+    from gsasr_torch.ops import rasterizer as rz
 
-    n_ptr = 12 if masked else 11  # this tree's pointers
+    names = [n for n in _build.SIGNATURES
+             if _build.source_of(n) in srcs and n != "raster_bwd"]
+    _build.build(list(_build.SIGNATURES))
+    mine = {n: _build._libs[n] for n in names}
+    ents = _entries(out_dir, tags, names, sigs)
+    bwd = rz.raster_bwd
+    rb = (_raster_kernels(out_dir, tags, sigs) if "raster_bwd" in srcs
+          else {})
 
-    def call(*a):
-        a = list(a)
-        del a[n_ptr - 3]  # stats
-        keep = None
-        if not a[n_ptr - 3]:
-            b, tq, tk, _, nh = a[n_ptr - 1:n_ptr + 4]
-            keep = torch.empty(b * nh * tq * tk, device="cuda")
-            a[n_ptr - 3] = keep.data_ptr()
-        return fn(*a)
-    return call
+    def swap(tag):
+        for name in names:
+            _build._libs[name] = mine[name] if tag is None else ents[
+                tag, name]
+        if rb:
+            rz.raster_bwd = bwd if tag is None else rb[tag][1]
+    return swap
 
 
-def _steps_ab(cs, out_dir, tags, sigs):
-    """The paths that run the fp32 window attentions, with each build's
-    window_attn_fwd.cu, window_attn_bwd.cu and ln_attn.cu entry points in
-    turns (parent, change, change, parent): chip_smoke.py's paper EDSR
-    module step (WB 38), SwinIR step (WB 56, WMB 18), HAT-L Ultra step at
-    model_dtype float32 (W-long 148, WB-long 148) and paper HAT step
-    (W-long 24, WM-long 18, WB-long 24, WMB-long 18, WB 38): the step
-    medians; and the HAT-L Ultra image in fp32 (W-long 84): the e2e
+def _turns(tags, turns):
+    """`turns` pairs of turns, which build goes first alternating: parent,
+    change, change, parent, parent, change, ..."""
+    return [t for i in range(turns) for t in (tags if i % 2 == 0
+                                              else tags[::-1])]
+
+
+def _steps_ab(cs, out_dir, tags, sigs, srcs, steps, turns):
+    """Training steps with each build's entry points of `srcs` in turns
+    (`_turns`; `_swapper`): the step medians of
+    chip_smoke.py's `steps` (labels of STEPS); with the window attentions'
+    sources also the HAT-L Ultra image in fp32 (W-long 84): the e2e
     medians."""
     import gc
 
     import torch
 
     from gsasr_torch.model import make_models
-    from gsasr_torch.ops import _build
 
     dev = torch.device("cuda")
     kernels = cs.kernel_wrappers()
-    _build.build(list(_build.SIGNATURES))
-    srcs = ("window_attn_fwd", "window_attn_bwd", "ln_attn")
-    names = [n for n in _build.SIGNATURES if _build.source_of(n) in srcs]
-    entries = {}
-    for tag in tags:
-        for src in srcs:
-            lib = ctypes.CDLL(os.path.join(out_dir, f"{tag}_{src}.so"))
-            for name in names:
-                if _build.source_of(name) != src:
-                    continue
-                fn = getattr(lib, name)
-                fn.argtypes = [_build._CTYPES[k] for k in sigs[tag][
-                    name]] + [ctypes.c_void_p]
-                fn.restype = ctypes.c_int
-                if sigs[tag][name] != _build.SIGNATURES[name]:
-                    fn = (_ln_attn_old(fn) if name == "ln_attn" else
-                          _stats_dropped(fn, "masked" in name))
-                entries[tag, name] = fn
-
-    def swap(tag):
-        for name in names:
-            _build._libs[name] = entries[tag, name]
-
+    swap = _swapper(out_dir, tags, sigs, srcs)
     out = {}
-    for label, kw in (("paper EDSR step", dict(encoder="edsr")),
-                      ("SwinIR float32 step", dict(encoder="swinir")),
-                      ("HAT-L Ultra float32 step",
-                       dict(encoder="hat", ultra=torch.float32)),
-                      ("paper HAT float32 step", dict(encoder="hat_paper"))):
+    for label in steps:
         ms = {tag: [] for tag in tags}
-        for tag in list(tags) + list(tags)[::-1]:
+        for tag in _turns(tags, turns):
             swap(tag)
+            kw = dict(STEPS[label])
+            if "ultra" in kw:
+                kw["ultra"] = getattr(torch, kw["ultra"])
             res = cs.train_phase(dev, kernels, fused=False, **kw)
             ms[tag].append(res["step_ms_median"])
             gc.collect()
@@ -1119,29 +1106,30 @@ def _steps_ab(cs, out_dir, tags, sigs):
         out[label] = ms
         print(f"  {label}: " + ", ".join(f"{t} {v} ms" for t, v in
                                          ms.items()), flush=True)
-    enc, dec = make_models("hat", "ultra",
-                           generator=torch.Generator().manual_seed(0))
-    enc, dec = enc.to(dev).eval(), dec.to(dev).eval()
-    ms = {tag: [] for tag in tags}
-    for tag in list(tags) + list(tags)[::-1]:
-        swap(tag)
-        res = cs.e2e_phase(enc, dec, dev, label="HAT-L Ultra",
-                           denominator=cs.ULTRA_DENOMINATOR)
-        ms[tag].append(res["e2e_ms_median"])
-    out["HAT-L Ultra image"] = ms
-    print("  HAT-L Ultra image: " + ", ".join(f"{t} {v} ms" for t, v in
-                                              ms.items()), flush=True)
-    swap("change")
+    if "window_attn_fwd" in srcs:
+        enc, dec = make_models("hat", "ultra",
+                               generator=torch.Generator().manual_seed(0))
+        enc, dec = enc.to(dev).eval(), dec.to(dev).eval()
+        ms = {tag: [] for tag in tags}
+        for tag in _turns(tags, turns):
+            swap(tag)
+            res = cs.e2e_phase(enc, dec, dev, label="HAT-L Ultra",
+                               denominator=cs.ULTRA_DENOMINATOR)
+            ms[tag].append(res["e2e_ms_median"])
+        out["HAT-L Ultra image"] = ms
+        print("  HAT-L Ultra image: " + ", ".join(f"{t} {v} ms" for t, v in
+                                                  ms.items()), flush=True)
+    swap(None)
     return out
 
 
-def _images_ab(cs, out_dir, tags, sigs):
-    """The images that run kernels M and A (A-long), with each build's
-    ln_mlp.cu and ln_attn.cu entry points in turns (parent, change, change,
-    parent), the rest of the port this tree's: the paper EDSR image in fp32
-    (83 M, 38 A), the Enhanced EDSR image with its bf16 trunk (83 M, 38 A),
-    and the HAT-L Ultra image at model_dtype float32 and bfloat16 (140 M,
-    64 A-long; denominator 16), each the median of 9 runs of
+def _images_ab(cs, out_dir, tags, sigs, srcs, turns):
+    """The images, with each build's entry points of `srcs` (M's and A's
+    sources, R's) in turns (`_turns`; `_swapper`),
+    the rest of the port this tree's: the paper EDSR image in fp32 (83 M,
+    38 A, 1 R), the Enhanced EDSR image with its bf16 trunk (83 M, 38 A,
+    1 R), and the HAT-L Ultra image at model_dtype float32 and bfloat16
+    (140 M, 64 A-long, 1 R; denominator 16), each the median of 9 runs of
     chip_smoke.py's 180x180 -> 720x720 x4 sr_forward after 2 warm-ups
     (chip_smoke.py's e2e metric)."""
     import gc
@@ -1150,15 +1138,9 @@ def _images_ab(cs, out_dir, tags, sigs):
     import torch
 
     from gsasr_torch.model import make_models, sr_forward
-    from gsasr_torch.ops import _build
 
     dev = torch.device("cuda")
-    _build.build(["ln_mlp", "ln_attn", "ln_attn_long"])
-    entries = _fused_entries(out_dir, tags, sigs)
-
-    def swap(tag):
-        for name in ("ln_mlp", "ln_attn", "ln_attn_long"):
-            _build._libs[name] = entries[tag, name]
+    swap = _swapper(out_dir, tags, sigs, srcs)
 
     lq = torch.rand(1, 180, 180, 3,
                     generator=torch.Generator().manual_seed(4)).to(dev)
@@ -1177,7 +1159,7 @@ def _images_ab(cs, out_dir, tags, sigs):
         torch.backends.cudnn.allow_tf32 = True
         ms = {tag: [] for tag in tags}
         with torch.no_grad():
-            for tag in list(tags) + list(tags)[::-1]:
+            for tag in _turns(tags, turns):
                 swap(tag)
                 ms[tag].append(float(np.median(cs._host_ms(
                     lambda: sr_forward(enc, dec, lq, 4.0, trunk_dtype=dt,
@@ -1188,56 +1170,132 @@ def _images_ab(cs, out_dir, tags, sigs):
         del enc, dec
         gc.collect()
         torch.cuda.empty_cache()
-    swap("change")
+    swap(None)
     return out
 
 
-def _raster_ab(cs, out_dir, dirs):
-    """Kernel R from both builds in turns on chip_smoke.py's exact-render
-    workloads; both must give the same bits."""
+def _raster_kernels(out_dir, tags, sigs):
+    """{tag: (fwd, bwd)}: kernels R and RB of each build, called as the
+    port's wrappers are (fwd(geom, colors, bbox, h, w), bwd(geom, colors,
+    bbox, g, h, w)), on the current stream; a build whose RB takes the
+    chunk boxes (before this tree's) gets them. bwd adds its launches to
+    the port's RB wrapper's count."""
     import torch
 
     from gsasr_torch.ops import _build
     from gsasr_torch.ops import rasterizer as rz
 
-    old = next(iter(dirs))
-    fns = {}
-    for tag in dirs:
-        fn = ctypes.CDLL(os.path.join(out_dir, f"{tag}_raster_fwd.so")
-                         ).raster_fwd
-        fn.argtypes = [_build._CTYPES[k] for k in _build.SIGNATURES[
-            "raster_fwd"]] + [ctypes.c_void_p]
-        fn.restype = ctypes.c_int
-        fns[tag] = fn
+    ents = _entries(out_dir, tags, RASTER, sigs, adapted=("raster_bwd",))
+    counter = rz.raster_bwd
+
+    def call(tag, name, *args):
+        err = ents[tag, name](*[a.data_ptr() if isinstance(a, torch.Tensor)
+                                else a for a in args],
+                              torch.cuda.current_stream().cuda_stream)
+        if err:
+            raise RuntimeError(f"the {tag}'s {name} failed: cudaError {err}")
+
+    def kernels(tag):
+        def fwd(geom, colors, bbox, h, w):
+            out = torch.empty(h, w, 3, device=geom.device)
+            kc = bbox.shape[1]
+            call(tag, "raster_fwd", geom, colors, bbox, out, kc,
+                 geom.shape[0] // kc, h, w)
+            return out
+
+        def bwd(geom, colors, bbox, g, h, w):
+            s, kc = geom.shape[0], bbox.shape[1]
+            dgeom = torch.empty(s, 16, device=geom.device)
+            dcol = torch.empty(s, 3, device=geom.device)
+            if sigs[tag]["raster_bwd"] == _build.SIGNATURES["raster_bwd"]:
+                call(tag, "raster_bwd", geom, colors, g, dgeom, dcol, s, h, w)
+            else:
+                call(tag, "raster_bwd", geom, colors, bbox, g, dgeom, dcol,
+                     kc, s // kc, h, w)
+            counter.launches += 1
+            return dgeom, dcol
+        return fwd, bwd
+    return {tag: kernels(tag) for tag in tags}
+
+
+def _raster_ab(cs, out_dir, tags, sigs):
+    """Kernels R and RB from every build in turns (tags + reversed + tags)
+    on chip_smoke.RASTER_WORKLOADS: the paper image's 720x720 render, the
+    paper step's 3072x192 and the Ultra step's 8192x1024 slot canvases of
+    the seeded networks' Gaussians, and phase 37's trained-like and
+    init-like 720x720 renders of 518,400 Gaussians. Each build's R is held
+    to the plain version within chip_smoke's KERNEL_ATOL/KERNEL_RTOL and to
+    the same bits twice, and this tree's R to the first build's bits (R's
+    per-pair arithmetic is unchanged); each build's RB to the plain version
+    within GRAD_TOL and to the same bits twice. Times: one call (CUDA
+    events, median of 10) in each turn, and ten back to back; bounds as
+    chip_smoke.py's."""
+    import gc
+
+    import torch
+
+    from gsasr_torch.ops import rasterizer as rz
+
     dev = torch.device("cuda")
-    hw = cs.EXACT_HW
-    times = {}
-    for kind in ("trained", "init"):
-        sigmas, coords, colors = cs.exact_workload(kind, dev)
-        geom = rz.pack_geometry(sigmas, coords, (hw, hw), cs.EXACT_DMAX)
-        g, col, bbox = rz.chunk_geometry(geom, colors, (hw, hw))
-        outs = {}
-
-        def run(tag):
-            out = torch.empty(hw, hw, 3, device=dev)
-            err = fns[tag](g.data_ptr(), col.data_ptr(), bbox.data_ptr(),
-                           out.data_ptr(), bbox.shape[1], g.shape[0]
-                           // bbox.shape[1], hw, hw,
-                           torch.cuda.current_stream().cuda_stream)
-            if err:
-                raise RuntimeError(f"the {tag}'s R failed: cudaError {err}")
-            outs[tag] = out
-
-        ms = {tag: [] for tag in dirs}
-        for tag in (old, "change", "change", old, old, "change"):
-            ms[tag].append(cs._time_ms(lambda: run(tag), 20))
-        same = torch.equal(outs[old], outs["change"])
-        times[kind] = dict(ms, same_bits=same)
-        print(f"  R {kind}: {old} {ms[old]} ms, change {ms['change']} ms; "
-              f"the same bits: {same}", flush=True)
-        if not same:
-            raise AssertionError(f"R {kind}: the two builds differ")
-    return times
+    kern = _raster_kernels(out_dir, tags, sigs)
+    gen = torch.Generator().manual_seed(18)
+    out = {}
+    for name in cs.RASTER_WORKLOADS:
+        geom, col, bbox, h, w = cs.raster_workload(name, dev)
+        g = torch.randn(h, w, 3, generator=gen).to(dev)
+        pairs = cs.box_pairs(geom, h, w)
+        for key, idx, args, ref in (
+                ("R", 0, (geom, col, bbox, h, w),
+                 rz.raster_fwd_plain(geom, col, bbox, h, w)),
+                ("RB", 1, (geom, col, bbox, g, h, w),
+                 rz.raster_bwd_plain(geom, col, bbox, g, h, w))):
+            res, first = {}, {}
+            for tag in tags:
+                fn = kern[tag][idx]
+                a, b = fn(*args), fn(*args)
+                a, b = (a, b) if key == "RB" else ((a,), (b,))
+                if not all(torch.equal(x, y) for x, y in zip(a, b)):
+                    raise AssertionError(f"{key} {name}: the {tag}'s two "
+                                         "launches differ")
+                if key == "R":
+                    err = cs._compare(a[0], ref, f"R {name} {tag}")
+                else:
+                    if not bool((a[0][:, 5:] == 0).all()):
+                        raise AssertionError(f"RB {name} {tag}: cull-box "
+                                             "columns got a gradient")
+                    err = max(cs._compare_grad(o, r, f"RB {name} {tag} {n}")
+                              for o, r, n in zip(a, ref, ("dgeom", "dcol")))
+                first[tag] = a
+                res[tag] = dict(max_abs_err=err, ms=[])
+            same = all(torch.equal(x, y) for x, y in zip(first[tags[0]],
+                                                         first["change"]))
+            if key == "R" and not same:
+                raise AssertionError(f"R {name}: the change's bits differ "
+                                     f"from the {tags[0]}'s")
+            for tag in list(tags) + list(tags)[::-1] + list(tags):
+                res[tag]["ms"].append(round(cs._time_ms(
+                    lambda: kern[tag][idx](*args), 10), 4))
+            for tag in tags:
+                res[tag]["back_to_back_ms"] = round(cs._batch_ms(
+                    lambda: kern[tag][idx](*args)), 4)
+            ops = cs.RASTER_OPS_PER_PAIR if key == "R" else cs.RB_OPS_PER_PAIR
+            bound = max(pairs * ops / cs.PEAK_FP32, pairs / cs.PEAK_SFU) * 1e3
+            out[f"{key} {name}"] = dict(builds=res, box_pairs=pairs,
+                                        bound_ms=bound, same_bits=same)
+            med = {t: sorted(r["ms"])[1] for t, r in res.items()}
+            speed = ", ".join(f"{med[t] / med['change']:.2f}x over {t}"
+                              for t in tags if t != "change")
+            print(f"  {key} {name}: " + ", ".join(
+                f"{t} {r['ms']} ms" for t, r in res.items())
+                + "; back to back " + ", ".join(
+                f"{t} {r['back_to_back_ms']}" for t, r in res.items())
+                + f"; {speed} (bound {bound:.4f} by operations, "
+                f"{pairs:.4e} box pairs); the same bits as the {tags[0]}'s: "
+                f"{same}", flush=True)
+        del geom, col, bbox, g
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out
 
 
 if __name__ == "__main__":

@@ -8,6 +8,8 @@ import numpy as np
 import pytest
 import torch
 
+from raster_cases import CASES, edge_case
+
 pytestmark = pytest.mark.cuda
 
 
@@ -19,24 +21,54 @@ def cuda():
     return torch.device("cuda")
 
 
-def test_raster_fwd_matches_plain(cuda):
+# Kernels R and RB: tests/raster_cases.py's edge cases, a random chunked
+# set (a chunk of 72 repeated Gaussians) and chip_smoke.py's phase 37
+# init-like workload at full size (720 x 720, 518,400 Gaussians, every box
+# at the dmax clamp: the tile cull's worst case)
+RASTER_CASES = ["random", *CASES, "init720"]
+
+
+def _raster_case(cuda, name):
+    """(geom, colors, bbox, h, w) on the card, chunked as gs_render_px
+    chunks them."""
     from gsasr_torch.ops import rasterizer as tr
 
     rng = np.random.default_rng(0)
-    s = 3000
-    sig = rng.random((s, 3), dtype=np.float32)
-    sig[:, :2] = 0.05 * sig[:, :2] + 1e-3
-    sig[:, 2] = 1.9 * sig[:, 2] - 0.95
-    co = (2.4 * rng.random((s, 2)) - 1.2).astype(np.float32)
-    col = rng.random((s, 3), dtype=np.float32)
-    geom = tr.pack_geometry(torch.from_numpy(sig).to(cuda),
-                            torch.from_numpy(co).to(cuda), (100, 150), 0.2)
-    col_t = torch.from_numpy(col).to(cuda)
-    geom = torch.cat([geom, geom[:72]])
-    col_t = torch.cat([col_t, col_t[:72]])
-    bbox = tr._chunk_bboxes(geom, 256)
-    out = tr.raster_fwd(geom, col_t, bbox, 100, 150)
-    ref = tr.raster_fwd_plain(geom, col_t, bbox, 100, 150)
+    if name == "random":
+        s, h, w = 3000, 100, 150
+        sig = rng.random((s, 3), dtype=np.float32)
+        sig[:, :2] = 0.05 * sig[:, :2] + 1e-3
+        sig[:, 2] = 1.9 * sig[:, 2] - 0.95
+        co = (2.4 * rng.random((s, 2)) - 1.2).astype(np.float32)
+        col = torch.from_numpy(rng.random((s, 3), dtype=np.float32)).to(cuda)
+        geom = tr.pack_geometry(torch.from_numpy(sig).to(cuda),
+                                torch.from_numpy(co).to(cuda), (h, w), 0.2)
+        geom = torch.cat([geom, geom[:72]])
+        col = torch.cat([col, col[:72]])
+        return geom, col, tr._chunk_bboxes(geom, 256), h, w
+    if name == "init720":
+        import chip_smoke as cs
+
+        hw = cs.EXACT_HW
+        sigmas, coords, colors = cs.exact_workload("init", cuda)
+        geom = tr.pack_geometry(sigmas, coords, (hw, hw), cs.EXACT_DMAX)
+        return (*tr.chunk_geometry(geom, colors, (hw, hw)), hw, hw)
+    geom, col, (h, w), sort = edge_case(name, rng)
+    return (*tr.chunk_geometry(torch.from_numpy(geom).to(cuda),
+                               torch.from_numpy(col).to(cuda), (h, w),
+                               spatial_sort=sort), h, w)
+
+
+@pytest.mark.parametrize("name", RASTER_CASES)
+def test_raster_fwd_matches_plain(cuda, name):
+    """R against its plain version (1e-5: the same terms in another order)
+    and the same bits twice."""
+    from gsasr_torch.ops import rasterizer as tr
+
+    geom, col, bbox, h, w = _raster_case(cuda, name)
+    out = tr.raster_fwd(geom, col, bbox, h, w)
+    assert torch.equal(out, tr.raster_fwd(geom, col, bbox, h, w))
+    ref = tr.raster_fwd_plain(geom, col, bbox, h, w)
     torch.testing.assert_close(out, ref, rtol=1e-5, atol=1e-5)
 
 
@@ -401,19 +433,25 @@ def test_swinir_block_through_autograd(cuda):
         torch.testing.assert_close(a, r, rtol=1e-4, atol=tol)
 
 
-def test_raster_bwd_matches_plain_and_repeats(cuda):
+@pytest.mark.parametrize("name", ["chunked", *RASTER_CASES])
+def test_raster_bwd_matches_plain_and_repeats(cuda, name):
+    """RB against its plain version and the same bits twice; the cull
+    boxes' and the pad's columns get exactly zero."""
     from gsasr_torch.ops import rasterizer as tr
 
     rng = np.random.default_rng(3)
-    s, h, w = 5000, 3 * 64, 96
-    sig = rng.random((s, 3), dtype=np.float32)
-    sig[:, :2] = 0.04 * sig[:, :2] + 2e-3
-    sig[:, 2] = 1.9 * sig[:, 2] - 0.95
-    co = (2.2 * rng.random((s, 2)) - 1.1).astype(np.float32)
-    geom = tr.pack_geometry(torch.from_numpy(sig).to(cuda),
-                            torch.from_numpy(co).to(cuda), (h, w), 0.25)
-    col = torch.from_numpy(rng.random((s, 3), dtype=np.float32)).to(cuda)
-    geom, col, bbox = tr.chunk_geometry(geom, col, (h, w))
+    if name == "chunked":
+        s, h, w = 5000, 3 * 64, 96
+        sig = rng.random((s, 3), dtype=np.float32)
+        sig[:, :2] = 0.04 * sig[:, :2] + 2e-3
+        sig[:, 2] = 1.9 * sig[:, 2] - 0.95
+        co = (2.2 * rng.random((s, 2)) - 1.1).astype(np.float32)
+        geom = tr.pack_geometry(torch.from_numpy(sig).to(cuda),
+                                torch.from_numpy(co).to(cuda), (h, w), 0.25)
+        col = torch.from_numpy(rng.random((s, 3), dtype=np.float32)).to(cuda)
+        geom, col, bbox = tr.chunk_geometry(geom, col, (h, w))
+    else:
+        geom, col, bbox, h, w = _raster_case(cuda, name)
     g = torch.from_numpy(rng.standard_normal((h, w, 3)).astype(
         np.float32)).to(cuda)
     out = tr.raster_bwd(geom, col, bbox, g, h, w)
