@@ -15,9 +15,11 @@
    they run the tensor-core row-tile product of tile_mma.cuh; R's pairs at
    24 FP32 operations), R's time one call and back to back beside the one
    recorded before its redesign (RASTER_MS_RECORDED), ptxas's registers of
-   M's and A's kernels beside the FMA kernels' they replace, and of R,
-   R-exact and RB beside the recorded ones (a kernel that spills fails the
-   phase).
+   M's and A's kernels beside the FMA kernels' they replace, of MB's and
+   AB's tensor-core kernels beside the FMA kernels' they replaced (a
+   spill, or an FMA product or attention kernel left in their sources,
+   fails the phase), and of R, R-exact and RB beside the recorded ones (a
+   kernel that spills fails the phase).
 3. Path phase: make_models("edsr", "paper") with seeded weights, then
    sr_forward on 180x180 x4 (the main shape), 173x151 x3.3 and a batch of
    two 96x96 x2, checking shapes, finiteness and the kernel launch counts.
@@ -35,7 +37,9 @@
 7. Fused training kernel phase (TF32 off): MB and AB against their plain
    versions at the training step's shapes, for each option set the fused
    decoder uses, and T (the bias-table gradient) for both tables; each
-   twice for bitwise repeatability, with times and bounds.
+   twice for bitwise repeatability, with times beside the ones recorded
+   before MB's and AB's tensor-core redesign (FUSED_BWD_MS_RECORDED) and
+   bounds (MB's and AB's products in 3xTF32 at the TF32 peak).
 8. Training phase: Trainer.step on the paper EDSR-GSASR at full width and
    depth with configs/train_edsr_paper.yml's recipe, 16 samples of 48x48,
    2 warm-up and 5 timed steps, first on the module decoder, then with
@@ -132,8 +136,9 @@
    144) and self-attention (with the four RoPE-table gradients), each in
    bf16 and fp32, against their plain versions at the Enhanced training
    shape (256 windows x 144 tokens x 192 channels, 6 heads of 32), twice
-   each for bitwise repeatability, with times, launches per step, bounds
-   and ptxas's registers.
+   each for bitwise repeatability, with times beside the recorded ones,
+   launches per step, bounds (fp32: 3xTF32 at the TF32 peak) and ptxas's
+   registers.
 28. Enhanced fused training: Trainer.step of configs/train_edsr_amp.yml's
    recipe with fused_decoder=True at batch 16, as phase 8 (M 83, A 38, MB
    83, AB 38, R 1, RB 1 per step, nothing else; two gradients of one batch
@@ -178,10 +183,12 @@
    window-16 form of AB) against their plain versions at the Ultra step's
    shapes (128 windows x 256 tokens x 192 channels, 6 heads of 32, the
    recipe decoder's weights and RoPE tables): RoPE cross-attention (pos,
-   kv) and self-attention in both types and a bias in fp32, twice each for
-   bitwise repeatability, with times, bounds and ptxas's registers (AB's
-   attention and AB-long's launches of the window-16 FMA body beside the
-   recorded ones).
+   kv) and self-attention in both types and a bias in fp32, and MB at the
+   same shapes in the Ultra decoder's option sets (ln_inj, ln, zero_base)
+   in bf16, twice each for bitwise repeatability, with times beside
+   the recorded ones, bounds (fp32: 3xTF32 at the TF32 peak) and ptxas's
+   registers of AB's and AB-long's attention (WB's tensor-core bodies; a
+   spill fails the phase).
 35. HAT-L Ultra on the fused decoder: Trainer.step of
    configs/train_hatl_ultra.yml's recipe with fused_decoder=True at batch 8
    (W-long-bf16 84, WB-long-bf16 84, M 140, MB 140, A-long 64, AB-long 64,
@@ -471,9 +478,6 @@ LONG_REGS_RECORDED = {"W-long": (141,), "WM-long": (146,),
                       "A-long": (128, 128, 141),
                       "WB-long": (156, 167), "WMB-long": (152, 168),
                       "WB4-long": (152, 166)}
-# AB-long's two launches of the window-16 FMA backward body, in fp32 and
-# with AB-long-bf16's rounding, as PERF.md §6 records them.
-AB_LONG_REGS_RECORDED = {"AB-long": (130, 179), "AB-long-bf16": (130, 179)}
 # The times PERF.md §6 records for the fp32 window attentions on their FMA
 # bodies (NVIDIA H100 80GB HBM3 at 700.00 W): the window-16 backward
 # (window_attn_long_bwd.cuh) and forward (W-long's, A-long's attention),
@@ -509,9 +513,52 @@ MMA_REGS_RECORDED = {"W-long-bf16": (94,), "WM-long-bf16": (96,),
                      "W4-long-bf16": (96,), "WB-long-bf16": (125, 126),
                      "WMB-long-bf16": (128, 128),
                      "WB4-long-bf16": (128, 128)}
-# AB's attention backward (WB's body with att: with AB-bf16's rounding,
-# and in fp32), as ptxas reported them before AB-long joined its source.
-AB_REGS_RECORDED = (99, 105)
+# The times PERF.md §6 records for MB, AB and AB-long on their earlier FP32
+# FMA design (tile_gemm.cuh's row products, FMA weight gradients and
+# attention bodies; a chip_smoke.py run on an NVIDIA H100 80GB HBM3 at
+# 700.00 W) by (kernel, case, dtype), printed beside this tree's by phases
+# 7, 27 and 34: the paper step's forms (phase 7, fp32), the Enhanced step's
+# (phase 27) and AB-long's at the Ultra step's shapes (phase 34).
+FUSED_BWD_MS_RECORDED = {
+    ("MB", "ln_inj", "paper"): 1.3984, ("MB", "ln", "paper"): 1.3287,
+    ("MB", "resi", "paper"): 1.2711,
+    ("AB", "cross_pos_kv_bias", "paper"): 4.0530,
+    ("AB", "self_bias", "paper"): 4.0461,
+    ("MB", "ln_inj", "bfloat16"): 1.7397, ("MB", "ln_inj", "float32"): 1.4169,
+    ("MB", "ln", "bfloat16"): 1.6848, ("MB", "ln", "float32"): 1.4279,
+    ("MB", "zero_base", "bfloat16"): 1.6549,
+    ("MB", "zero_base", "float32"): 1.3844,
+    ("AB", "rope_cross", "bfloat16"): 4.9070,
+    ("AB", "rope_cross", "float32"): 4.3390,
+    ("AB", "rope_self", "bfloat16"): 4.8353,
+    ("AB", "rope_self", "float32"): 4.3559,
+    ("AB-long", "rope_cross", "bfloat16"): 6.8001,
+    ("AB-long", "rope_cross", "float32"): 5.6920,
+    ("AB-long", "rope_self", "bfloat16"): 6.6771,
+    ("AB-long", "rope_self", "float32"): 5.6714,
+    ("AB-long", "rope_self, bias", "float32"): 6.0051}
+# The kernels of MB and AB on the tensor cores by ptxas's name key (MB's
+# two row-tile launches, AB's row products with the LN backward, the weight
+# gradients, AB's recompute; the attention bodies are WB's and W's and
+# keep their own keys), and the registers PERF.md §6 records for the FMA
+# kernels they replaced, printed beside them.
+FUSED_BWD_REG_KEYS = ("ln_fc1_kernel", "ln_mlp_bwd_kernel",
+                      "rows_bwd_kernel", "wgrad_mma_kernel", "ln_qkv_kernel")
+FUSED_BWD_REGS_FMA = ("row products 80-92 (the fp32 transposed form spilled "
+                      "8 bytes), weight gradients 73-128, AB's attention "
+                      "99-105, AB-long's 130-179")
+# The FMA kernels that no launch of MB, AB or AB-long reaches any more:
+# none of them may be compiled into ln_mlp_bwd.cu or ln_attn_bwd.cu.
+FUSED_BWD_FMA_KERNELS = ("linear_rows_kernel", "wgrad_partial_kernel",
+                         "window_attn_bwd_kernel",
+                         "window_attn_bwd_long_q_kernel",
+                         "window_attn_bwd_long_kv_kernel")
+
+
+def _recorded_note(kind, case, dtype):
+    """ "; before the redesign t ms" from FUSED_BWD_MS_RECORDED, or "". """
+    was = FUSED_BWD_MS_RECORDED.get((kind, case, dtype))
+    return f"; before the redesign {was:.4f} ms" if was else ""
 # The kernels of M and A (and A-long's projections) by ptxas's name key:
 # since the tensor-core row-tile product of tile_mma.cuh, ln_mlp_kernel,
 # ln_qkv_kernel and out_proj_kernel, each in fp32 (3xTF32) and bf16; and
@@ -1342,7 +1389,8 @@ def fused_kernel_phase(dec, dev):
         nbytes = 4 * (3 * m * c + 4 * c * hid + 2 * hid + 2 * c
                       + (2 * b * c if "inj" in kw else 0)
                       + (4 * c if "ln_w" in kw else 0))
-        bound, by = _bound_ms(10.0 * m * c * hid, nbytes)
+        # in 3xTF32: three TF32 products each, at the TF32 peak
+        bound, by = _bound_ms(3 * 10.0 * m * c * hid, nbytes, PEAK_TF32)
         results["MB"].append(dict(case=name, per_step=per_step,
                                   max_abs_err=err, ms=ms, plain_ms=plain,
                                   bound_ms=bound, bound_by=by,
@@ -1378,7 +1426,7 @@ def fused_kernel_phase(dec, dev):
         flops = 2.0 * b * (11 * t * c * c + 6 * t * t * c)
         nbytes = 4 * (3 * m * c + (2 * m * c + 2 * t * c if cross else 0)
                       + 2 * nh * t * t + 8 * c * c + 11 * c)
-        bound, by = _bound_ms(flops, nbytes)
+        bound, by = _bound_ms(3 * flops, nbytes, PEAK_TF32)
         results["AB"].append(dict(case=name, per_step=per_step,
                                   max_abs_err=err, ms=ms, plain_ms=plain,
                                   bound_ms=bound, bound_by=by,
@@ -1406,8 +1454,8 @@ def fused_kernel_phase(dec, dev):
         for r in rows:
             print(f"  {k} {r['case']}: {r['ms']:.4f} ms (plain "
                   f"{r['plain_ms']:.4f}, bound {r['bound_ms']:.4f} by "
-                  f"{r['bound_by']}, library null) x{r['per_step']} per step",
-                  flush=True)
+                  f"{r['bound_by']}, library null) x{r['per_step']} per step"
+                  + _recorded_note(k, r["case"], "paper"), flush=True)
     return results
 
 
@@ -1662,8 +1710,9 @@ def enhanced_fused_kernel_phase(dec, dev):
         _repeatable(fn, label)
         ms = _time_ms(fn, 10)
         plain_ms = _time_ms(plain, 3)
-        bound, by = _bound_ms(flops, nbytes,
-                              PEAK_BF16 if dt == bf16 else PEAK_FP32)
+        # fp32: three TF32 products a product (3xTF32) at the TF32 peak
+        bound, by = (_bound_ms(flops, nbytes, PEAK_BF16) if dt == bf16 else
+                     _bound_ms(3 * flops, nbytes, PEAK_TF32))
         results[kind].append(dict(
             case=name, dtype=str(dt).replace("torch.", ""),
             decoder="Enhanced", windows=b, per_step=per_step,
@@ -1736,7 +1785,8 @@ def enhanced_fused_kernel_phase(dec, dev):
             print(f"  {k} {r['case']} {r['dtype']}: {r['ms']:.4f} ms (plain "
                   f"{r['plain_ms']:.4f}, bound {r['bound_ms']:.4f} by "
                   f"{r['bound_by']}, library null) x{r['per_step']} per "
-                  f"Enhanced fused step", flush=True)
+                  f"Enhanced fused step"
+                  + _recorded_note(k, r["case"], r["dtype"]), flush=True)
     for name, (r_, st, ld) in sorted(regs.items()):
         print(f"  ptxas {name}: {r_} registers, {st}/{ld} bytes spilled",
               flush=True)
@@ -2389,8 +2439,10 @@ def raster_registers():
 
 def fused_registers():
     """ptxas's registers and spills of M's and A's kernels (ln_mlp.cu,
-    ln_attn.cu), printed beside the FMA kernels' they replaced; raises if
-    one is missing or spills."""
+    ln_attn.cu) and of MB's and AB's tensor-core kernels (ln_mlp_bwd.cu,
+    ln_attn_bwd.cu), printed beside the FMA kernels' they replaced; raises
+    if one is missing or spills, if any kernel of the backward sources
+    spills, or if an FMA product or attention kernel is left in them."""
     from gsasr_torch.ops import _build
 
     regs = {}
@@ -2408,7 +2460,32 @@ def fused_registers():
                                             regs[k])
            for k in FUSED_REG_KEYS):
         raise AssertionError(f"M's or A's kernels missing or spilling: {regs}")
-    return {k: sorted(r for r, _, _ in v) for k, v in regs.items()}
+    out = {k: sorted(r for r, _, _ in v) for k, v in regs.items()}
+    bwd, spilled, fma = {}, {}, []
+    for src in ("ln_mlp_bwd", "ln_attn_bwd"):
+        for name, r in _ptxas_kernels(_build.ptxas_report(src), "").items():
+            if r[1] or r[2]:
+                spilled[name] = r
+            if any(k in name for k in FUSED_BWD_FMA_KERNELS):
+                fma.append(name)
+            key = next((k for k in FUSED_BWD_REG_KEYS if k in name), None)
+            if key:
+                bwd.setdefault(f"{src} {key}", []).append(r)
+    for key, rs in sorted(bwd.items()):
+        print(f"  ptxas {key}: " + ", ".join(
+            f"{r} registers, {st}/{ld} bytes spilled" for r, st, ld in
+            sorted(rs)) + f" (the FMA kernels': {FUSED_BWD_REGS_FMA})",
+            flush=True)
+    want = {"ln_mlp_bwd ln_fc1_kernel", "ln_mlp_bwd ln_mlp_bwd_kernel",
+            "ln_mlp_bwd wgrad_mma_kernel",
+            "ln_attn_bwd rows_bwd_kernel", "ln_attn_bwd wgrad_mma_kernel",
+            "ln_attn_bwd ln_qkv_kernel"}
+    if spilled or fma or set(bwd) != want:
+        raise AssertionError(f"MB's or AB's kernels missing or spilling, or "
+                             f"an FMA kernel left: {sorted(bwd)}, {spilled}, "
+                             f"{fma}")
+    out.update({k: sorted(r for r, _, _ in v) for k, v in bwd.items()})
+    return out
 
 
 def _ptxas_kernels(report, key):
@@ -2677,17 +2754,16 @@ SHORT_REG_KEYS = {
 }
 
 
-# AB's attention (the FMA body of window_attn_bwd.cuh: fp32, and AB-bf16's
-# rounding, (T, kRnd)) and AB-long's two launches of the window-16 FMA body
-# in ptxas's report of ln_attn_bwd.cu: (T, kAtt, kRnd) for the dq launch,
-# (T, kRnd) for the dk/dv launch.
+# AB's and AB-long's attention in ptxas's report of ln_attn_bwd.cu: WB's
+# tensor-core bodies, in fp32 as WB and WB-long instantiate them (the short
+# 3xTF32 body's two block sizes, WB-long's dq and dk/dv launches), in bf16
+# in their AB forms (TO = float: p and ds rounded once, f32 dq, dk, dv):
+# WB-bf16's body in its three chunk counts and WB-long-bf16's launches.
 AB_REG_KEYS = {
-    "AB": [("window_attn_bwd_kernelIfLb0E", ""),
-           ("window_attn_bwd_kernelIfLb1E", "")],
-    "AB-long": [("window_attn_bwd_long_q_kernel", "IfLb1ELb0EE"),
-                ("window_attn_bwd_long_kv_kernel", "IfLb0EE")],
-    "AB-long-bf16": [("window_attn_bwd_long_q_kernel", "IfLb1ELb1EE"),
-                     ("window_attn_bwd_long_kv_kernel", "IfLb1EE")],
+    "AB": [("window_attn_bwd_short_tf32_kernel", "ILb0ELb0E")],
+    "AB-bf16": [("window_attn_bwd_short_mma_kernel", "EfEE")],
+    "AB-long": [("window_attn_bwd_long_tf32_", "ILb0ELb0E")],
+    "AB-long-bf16": [("window_attn_bwd_long_mma_", "ILb0ELb0EfEE")],
 }
 
 
@@ -2884,13 +2960,16 @@ def ab_long_kernel_phase(dec, dev):
     recipe decoder's weights and RoPE tables: RoPE cross-attention (pos,
     kv, Tk = 256) and self-attention (the four table gradients among the
     outputs), each in bf16 and fp32, and the self-attention with a bias in
-    fp32 (dbias, the ordered sum over windows); each twice for bitwise
-    repeatability, with times, bounds (bf16: the operations against the
-    tensor-core peak) and ptxas's registers of AB-long's launches, beside
-    AB's attention and WB-long's as recorded. per_step: launches per Ultra
+    fp32 (dbias, the ordered sum over windows); MB in the Ultra decoder's
+    three option sets (ln_inj, ln, zero_base) at the same shapes in the
+    recipe's bf16; each twice for bitwise repeatability, with times beside the ones
+    recorded before the redesign, bounds (bf16: the operations against the
+    tensor-core peak; fp32: three TF32 products a product at the TF32
+    peak) and ptxas's registers of AB's and AB-long's attention (WB's
+    tensor-core bodies; raises on a spill). per_step: launches per Ultra
     step on the fused decoder at the bf16 recipe (the fp32 and bias rows
     0)."""
-    from gsasr_torch.models.fea2gs_fast import _attn, _ln
+    from gsasr_torch.models.fea2gs_fast import _attn, _ln, _mlp, _seq_mlp
     from gsasr_torch.models.fea2gs_rope_fast import rope_tables
     from gsasr_torch.ops import _build
     from gsasr_torch.ops import fused_layers as fl
@@ -2953,8 +3032,8 @@ def ab_long_kernel_phase(dec, dev):
                                           if "kv" in kw else 0))
                       + 4 * (4 * (t + tk) * c + 8 * c * c + 11 * c
                              + (2 * nh * t * tk if "bias" in kw else 0)))
-            bound, by = _bound_ms(flops, nbytes,
-                                  PEAK_BF16 if dt == bf16 else PEAK_FP32)
+            bound, by = (_bound_ms(flops, nbytes, PEAK_BF16) if dt == bf16
+                         else _bound_ms(3 * flops, nbytes, PEAK_TF32))
             rows.append(dict(
                 case=name, dtype=str(dt).replace("torch.", ""),
                 decoder="HAT-L Ultra", windows=b,
@@ -2965,23 +3044,80 @@ def ab_long_kernel_phase(dec, dev):
             print(f"  {label}: {rows[-1]['ms']:.4f} ms (plain "
                   f"{rows[-1]['plain_ms']:.4f}, bound {bound:.4f} by {by}, "
                   f"library null) x{rows[-1]['per_step']} per Ultra fused "
-                  f"step", flush=True)
+                  f"step" + _recorded_note("AB-long", name, rows[-1]["dtype"]),
+                  flush=True)
+
+    # -- MB at the Ultra decoder's shapes: its three option sets ------------
+    blocks = list(dec.window_crossattn_blocks) + list(dec.gs_selfattn_blocks)
+    layers = sum(len(blk.blocks) for blk in blocks)
+    blk = dec.gs_selfattn_blocks[0]
+    scale_emb = dec.scale_mlp(torch.full((1, 1), 0.0625, device=dev))
+    inj = lyr.gs_cross_attn_scale(scale_emb).expand(b, c).contiguous()
+    names = ("dx", "dresi", "dinj", "dln_w", "dln_b", "dw1", "db1", "dw2",
+             "db2")
+    mb_rows = []
+    for name, kw, per_step in (
+            ("ln_inj", dict(inj=inj, **_ln(lyr.norm4),
+                            **_mlp(lyr.mlp_crossattn)), layers),
+            ("ln", dict(**_ln(lyr.norm2), **_mlp(lyr.mlp_selfattn)), layers),
+            ("zero_base", dict(zero_base=True, **_seq_mlp(blk.mlp)),
+             len(blocks))):
+        # the recipe's bf16 only: in fp32 a pre-activation within float32
+        # rounding of the ReLU's kink may take the other side in the plain
+        # version (its LayerNorm rounds otherwise than the kernel's, as it
+        # did against the FMA kernel before): tests/test_torch_kernels_gpu.py
+        # holds fp32 MB at this shape, and scripts/ab_torch_sources.py
+        # --fused-bwd-only times it (PERF.md §6)
+        for dt in (bf16,):
+            x, g = rnd(b, t, c).to(dt), rnd(b, t, c).to(dt)
+            kwd = dict(kw, inj=inj.to(dt)) if "inj" in kw else kw
+            label = f"MB Ultra {name} {str(dt).replace('torch.', '')}"
+            fn = lambda: fl.ln_mlp_residual_bwd(x, g, **kwd)  # noqa: E731
+            plain = lambda: fl.ln_mlp_residual_bwd_plain(  # noqa: E731
+                x, g, **kwd)
+            err = _compare_grads(fn(), plain(), names, label, None,
+                                 BWD_BF16_TOL if dt == bf16 else GRAD_TOL,
+                                 l2=dt == bf16)
+            _repeatable(fn, label)
+            act = 2 if dt == bf16 else 4
+            hid = kw["w1"].shape[0]
+            # five products (the recomputed fc1, dw2, dz1, dw1 and dh);
+            # bytes as phase 27's
+            flops = 10.0 * m * c * hid
+            nbytes = (act * (3 * m * c + (2 * b * c if "inj" in kw else 0))
+                      + 4 * (4 * c * hid + 2 * hid + 2 * c
+                             + (4 * c if "ln_w" in kw else 0)))
+            bound, by = (_bound_ms(flops, nbytes, PEAK_BF16) if dt == bf16
+                         else _bound_ms(3 * flops, nbytes, PEAK_TF32))
+            mb_rows.append(dict(
+                case=f"Ultra {name}", dtype=str(dt).replace("torch.", ""),
+                decoder="HAT-L Ultra", windows=b,
+                per_step=per_step if dt == bf16 else 0, max_abs_err=err,
+                ms=_time_ms(fn, 10), plain_ms=_time_ms(plain, 3),
+                bound_ms=bound, bound_by=by, library_ms=None,
+                library_null_reason="no PyTorch call computes it"))
+            print(f"  {label}: {mb_rows[-1]['ms']:.4f} ms (plain "
+                  f"{mb_rows[-1]['plain_ms']:.4f}, bound {bound:.4f} by "
+                  f"{by}, library null) x{mb_rows[-1]['per_step']} per "
+                  "Ultra fused step (not timed before the redesign)",
+                  flush=True)
+
     regs = _ptxas_kernels(_build.ptxas_report("ln_attn_bwd"), "")
     kept = {}
-    for form in ("AB", "AB-long", "AB-long-bf16"):
+    for form in AB_REG_KEYS:
         for k, (r_, st, ld) in _form_regs(regs, form, AB_REG_KEYS).items():
             print(f"  ptxas {form} {k}: {r_} registers, {st}/{ld} bytes "
                   "spilled", flush=True)
             kept.setdefault(form, []).append(r_)
-    earlier = {k: tuple(sorted(kept.get(k, ())))
-               for k in ("AB", *AB_LONG_REGS_RECORDED)}
-    recorded = dict(AB=AB_REGS_RECORDED, **AB_LONG_REGS_RECORDED)
-    print(f"  registers of AB's attention and AB-long's FMA launches: "
-          f"{earlier}, {'kept' if earlier == recorded else 'MOVED'} "
-          f"(recorded: {recorded})", flush=True)
-    return {"AB-long": rows,
-            "registers": {k: sorted(v) for k, v in kept.items()},
-            "earlier_registers_kept": earlier == recorded}
+            if st or ld:
+                raise AssertionError(f"{form}'s attention spills: {k}")
+    if set(kept) != set(AB_REG_KEYS):
+        raise AssertionError(f"AB's attention kernels missing: {sorted(kept)}")
+    print(f"  registers of AB's and AB-long's attention (WB's tensor-core "
+          f"bodies): {dict(sorted(kept.items()))}; before the redesign "
+          f"(FMA bodies): AB 99-105, AB-long 130-179", flush=True)
+    return {"AB-long": rows, "MB": mb_rows,
+            "registers": {k: sorted(v) for k, v in kept.items()}}
 
 
 # Phase 37: scripts/bench_exact_render.py's workload, the render of the
@@ -3794,7 +3930,8 @@ def main() -> int:
                kres["RB"], kres["RB"] + utres["RB"]),
         "MB": ("ln_mlp_bwd", "gsasr_torch/ops/csrc/ln_mlp_bwd.cu",
                "gsasr_tpu/ops/fused_layers.py:146", [], efstep, efpath,
-               _on_path(efres["MB"], "per_step"), kres["MB"] + efres["MB"]),
+               _on_path(efres["MB"], "per_step"),
+               kres["MB"] + efres["MB"] + abres["MB"]),
         "AB": ("ln_attn_bwd", "gsasr_torch/ops/csrc/ln_attn_bwd.cu",
                "gsasr_tpu/ops/fused_layers.py:381", [], efstep, efpath,
                _on_path(efres["AB"], "per_step"), kres["AB"] + efres["AB"]),

@@ -32,85 +32,70 @@
 // What bounds it on an H100: eleven products of 2 T C^2 per window (the
 // recomputed q, k, v; dwo, datt, dwq, dwk, dwv, dxq and two for dsrc) and
 // six of 2 T^2 C (scores, p v, dp, dv, dq, dk): 37.7 GFLOP at 256 windows x
-// 144 tokens x 180 channels (43.0 at 192), 0.56-0.64 ms at 67 TFLOP/s FP32;
-// its bytes (x, kv, g, dx, dkv: 133 MB in float32) take a quarter of that
-// at 3.35 TB/s. The bfloat16 forms run the same f32 FMAs; against the bf16
-// tensor-core peak their bound is set by their bytes.
+// 144 tokens x 180 channels (43.0 at 192). In float32 every product runs in
+// 3xTF32, three TF32 products: 113 GFLOP against 495 TFLOP/s, 0.228 ms; its
+// bytes (x, kv, g, dx, dkv: 133 MB in float32) take 0.04 ms at 3.35 TB/s.
+// In bfloat16 the products take 0.043 ms at 989 TFLOP/s.
 //
-// Design. One window's f32 working set (x, q, k, v: 4 x 104 KB) does not
-// fit a block's shared memory, so AB is a short sequence of launches
-// through device-memory scratch: the LN rows and the q, k, v and datt tile
-// products (fused_bwd.cuh); with RoPE a rotation pass q0, k0 -> q, k; the
-// per-(window, head) attention backward of kernel WB (window_attn_bwd.cuh),
-// which also forms att from its p tile and sums dbias over the windows in
-// order; with RoPE a back-rotation pass dq, dk -> dq0, dk0 (in place over
-// q0, k0) that also writes per-group partials of the four table gradients,
-// summed in group order; the four weight gradients as partial sums over 128
-// fixed groups of rows, summed in group order; the dxq / dkv products; the
-// sum of dxq over the windows for dpos; and the LN backward, one warp per
-// row. In bfloat16, x, kv and g are widened to f32 scratch first and dx,
-// dpos and dkv narrowed last. No float atomics, so the result is the same
-// bits from run to run.
+// Design (tile_mma.cuh, tile_mma_bwd.cuh and the attention bodies). A
+// window's q, k, v, g and their gradients do not fit one block's shared
+// memory beside the weights, so AB is a short sequence of launches through
+// device-memory scratch, each on the tensor cores:
+//   1. the weights' transposes (one small launch);
+//   2. the recompute: kernel A's phase 1 (ln_qkv.cuh) forms q, k and v
+//      (rotated and rounded as A forms them) and, for the backward, writes
+//      xq and, with RoPE, the unrotated q0 and k0 (f32);
+//   3. datt = g wo, rounded, on the row product of tile_mma_bwd.cuh;
+//   4. att = p v for dwo: kernel A's attention launch, as the forward runs
+//      it (W-long's 3xTF32 body in fp32, W-bf16's or W-long-bf16's in bf16);
+//   5. the attention backward on WB's tensor-core bodies: in fp32 the 3xTF32
+//      body up to 160 tokens (window_attn_short_tf32_bwd.cuh), WB-long's
+//      launches beyond (AB-long); in bf16 WB-bf16's body (AB) or
+//      WB-long-bf16's (AB-long) in their TO = float form, which rounds p and
+//      ds once to bf16 as the Pallas body does and keeps dq, dk, dv f32;
+//      dbias is the ordered sum of the per-window ds over the windows;
+//   6. with RoPE, a row pass that rotates dq and dk back (over q0, k0) and
+//      writes per-group partials of the four table gradients, summed in
+//      group order;
+//   7. the four weight gradients in one launch of partials over 128 fixed
+//      groups of rows (tile_mma_bwd.cuh) and one of their ordered sums;
+//   8. dxq = dq0 wq (+ dk0 wk + dv wv for self-attention) on the row product
+//      with the LayerNorm backward in the same block (dx, the LN partials,
+//      and dxq itself, f32, where pos needs it), and for cross-attention
+//      dkv = dk0 wk + dv wv;
+//   9. the ordered sums of the LN partials over the row tiles and of dxq
+//      over the windows (dpos).
+// No float atomics, so the result is the same bits from run to run.
 //
 // AB-long (ln_attn_bwd_long, ln_attn_bwd_long_bf16): the same VJP for
-// windows of any Tq and Tk, which replaces _k_ln_attn_bwd beyond WB's 160
+// windows of any Tq and Tk, which replaces _k_ln_attn_bwd beyond 160
 // tokens (reached from _ln_attn_core_bwd, the custom VJP of ln_attn_proj, in
-// the Ultra and SwinIR-Enhanced decoders' windows of 256 seeds). It is AB's
-// sequence above with its attention step swapped for the two launches of
-// the window-16 FMA body (window_attn_long_bwd.cuh): the dq launch keeps
-// each row's (max, sum, D) in a (B, nh, Tq, 3) scratch and, with AB's
-// flags, forms att = p v in its D pass and rounds as AB-bf16 rounds; the
-// dk / dv launch walks the query tiles in order. A bias's gradient is the
-// same ordered sum over windows of a per-window ds, which only a bias
-// needs. Its bound at the Ultra step's 128 windows x 256 tokens x 192
-// channels: the eleven products of 2 T C^2
-// and six of 2 T^2 C per window are 45.9 GFLOP, 0.685 ms at the FP32 peak
-// and 0.046 ms at the bf16 tensor-core peak; its bytes (x, kv, g, dx, dkv)
-// take under 0.02 ms. This first form is the two bodies, already measured,
-// joined: simple and right, with speed left for later (it recomputes the
-// scores five times where the function needs them once).
+// the Ultra and SwinIR-Enhanced decoders' windows of 256 seeds): the same
+// launches with the window-16 attention bodies in steps 4 and 5. Its bound
+// at the Ultra step's 128 windows x 256 tokens x 192 channels: the eleven
+// products of 2 T C^2 and six of 2 T^2 C per window are 45.9 GFLOP, 0.278
+// ms in 3xTF32 at 495 TFLOP/s and 0.046 ms at the bf16 tensor-core peak;
+// its bytes (x, kv, g, dx, dkv) take under 0.02 ms.
 
 #include <cuda_runtime.h>
 
-#include "fused_bwd.cuh"
-#include "window_attn_long_bwd.cuh"
+#include "ln_qkv.cuh"
+#include "tile_mma_bwd.cuh"
+#include "window_attn_long_mma.cuh"
+#include "window_attn_long_mma_bwd.cuh"
+#include "window_attn_long_tf32.cuh"
+#include "window_attn_long_tf32_bwd.cuh"
+#include "window_attn_short_mma.cuh"
+#include "window_attn_short_mma_bwd.cuh"
+#include "window_attn_short_tf32_bwd.cuh"
 
 namespace {
 
-using gsasr::blocks_for;
-using gsasr::kThreads;
-using gsasr::launch_linear;
-using gsasr::launch_wgrad;
-using gsasr::Terms;
+using namespace gsasr;
 
 // The RoPE-table gradients are summed over groups of windows: at most
 // kRopeGroups partials, summed in group order.
 constexpr int kRopeGroups = 32;
-
-// out = x0 cos + shuffle(x0) sin (rounded to bf16 with kRnd) for the
-// (M, C) rows of x0, row r taking table row r % T; one thread per lane
-// pair, products and sum unfused as the plain version forms them.
-template <bool kRnd>
-__global__ void __launch_bounds__(kThreads)
-rope_rows_kernel(const float* __restrict__ x0, const float* __restrict__ cs,
-                 const float* __restrict__ sn, float* __restrict__ out, int M,
-                 int T, int C) {
-  const size_t e = static_cast<size_t>(blockIdx.x) * kThreads + threadIdx.x;
-  const int half = C / 2;
-  if (e >= static_cast<size_t>(M) * half) return;
-  const size_t r = e / half;
-  const size_t o = r * C + 2 * (e - r * half);
-  const size_t t = (r % T) * C + (o - r * C);
-  const float a = x0[o], b = x0[o + 1];
-  float ye = __fadd_rn(__fmul_rn(a, cs[t]), __fmul_rn(-b, sn[t]));
-  float yo = __fadd_rn(__fmul_rn(b, cs[t + 1]), __fmul_rn(a, sn[t + 1]));
-  if (kRnd) {
-    ye = gsasr::rnd<__nv_bfloat16>(ye);
-    yo = gsasr::rnd<__nv_bfloat16>(yo);
-  }
-  out[o] = ye;
-  out[o + 1] = yo;
-}
 
 // The back-rotation of the (B, T, C) dq given x0 (q0): over the windows of
 // group blockIdx.y (per consecutive windows), in ascending order, per lane
@@ -153,16 +138,6 @@ rope_back_kernel(const float* __restrict__ dq, float* __restrict__ x0,
   psn[o + 1] = ps1;
 }
 
-template <bool kRnd>
-cudaError_t launch_rope_rows(const float* x0, const float* cs,
-                             const float* sn, float* out, int M, int T, int C,
-                             cudaStream_t st) {
-  rope_rows_kernel<kRnd>
-      <<<blocks_for(static_cast<size_t>(M) * (C / 2), kThreads), kThreads, 0,
-         st>>>(x0, cs, sn, out, M, T, C);
-  return cudaGetLastError();
-}
-
 // dq0 over x0 in place, and the table gradients dcos, dsin (T, C) from the
 // partials in `part` (2 kRopeGroups T C floats).
 cudaError_t launch_rope_back(const float* dq, float* x0, const float* cs,
@@ -171,26 +146,23 @@ cudaError_t launch_rope_back(const float* dq, float* x0, const float* cs,
                              cudaStream_t st) {
   const int per = (B + kRopeGroups - 1) / kRopeGroups;
   const int G = (B + per - 1) / per;
-  rope_back_kernel<<<dim3(blocks_for(static_cast<size_t>(T) * (C / 2),
-                                     kThreads),
-                          G),
+  rope_back_kernel<<<dim3((T * (C / 2) + kThreads - 1) / kThreads, G),
                      kThreads, 0, st>>>(dq, x0, cs, sn, part, B, T, C, per);
   GSASR_TRY(cudaGetLastError());
   const size_t tc = static_cast<size_t>(T) * C;
-  GSASR_TRY(gsasr::launch_sum_terms(part, dcos, 1, G, T * C, st));
-  return gsasr::launch_sum_terms(part + G * tc, dsin, 1, G, T * C, st);
+  GSASR_TRY(launch_ordered_sum(part, dcos, G, tc, T * C, st));
+  return launch_ordered_sum(part + G * tc, dsin, G, tc, T * C, st);
 }
 
 // Arguments as ln_attn_bwd below, in the activation type Act (float, or
 // __nv_bfloat16 for x, pos, kv, g, dx, dpos and dkv). work holds
-// work_floats floats of scratch: (6 B Tq + 4 B Tk) C for xq, q, datt, att,
-// dq, dxq, k, v, dk, dv, then B nh Tq Tk for the per-window ds (with kLong,
-// AB-long: B nh Tq 3 for the rows' statistics, and B nh Tq Tk for ds only
-// with a bias), kMaxGroups C (C + 1) for the weight-gradient partials,
-// ceil(B Tq / 64) 2 C for the LN partials; with RoPE (B Tq + B Tk) C for q0
-// and k0 and 2 kRopeGroups (Tq + Tk) C for the table partials; in bfloat16
-// (3 B Tq + 2 B Tk) C + Tq C for x, g and kv widened and dx, dkv and dpos
-// in f32.
+// work_floats floats of scratch, in 16-byte pieces: the four transposed
+// weights (4 C^2); q, xq, att, datt (B Tq C each, Act), k, v (B Tk C each,
+// Act); dq (B Tq C), dk, dv (B Tk C each, f32); with RoPE q0 (B Tq C) and
+// k0 (B Tk C, f32); the rows' softmax statistics (B nh Tq 3); with a bias
+// the per-window ds (B nh Tq Tk); the weight-gradient partials (4
+// kMaxGroups C (C + 1)); the LN partials (ceil(B Tq / 128) 2 C); with RoPE
+// the table partials (2 kRopeGroups (Tq + Tk) C); with pos, dxq (B Tq C).
 template <typename Act, bool kLong>
 int ln_attn_bwd_impl(const Act* x, const Act* pos, const Act* kv,
                      const float* ln_w, const float* ln_b, const float* wq,
@@ -211,14 +183,11 @@ int ln_attn_bwd_impl(const Act* x, const Act* pos, const Act* kv,
                         dcos_k && dsin_k;
   const bool no_rope = !sin_q && !cos_k && !sin_k && !dcos_q && !dsin_q &&
                        !dcos_k && !dsin_k;
-  if (B < 1 || nh < 1 || C % nh != 0 || C / nh > kMaxHd ||
-      C > gsasr::kMaxN || C > 32 * gsasr::kLnPer || Tq < 1 || Tk < 1 ||
-      (kLong ? !gsasr::long_shape_ok(B, Tq, Tk, C, nh)
-             : Tq > kMaxT || Tk > kMaxT) ||
-      (!kv && Tk != Tq) ||
+  if (!long_shape_ok(B, Tq, Tk, C, nh) || C > kMaxN || C > 32 * kLnPer ||
+      (!kLong && (Tq > kMaxT || Tk > kMaxT)) || (!kv && Tk != Tq) ||
       (kv == nullptr) != (dkv == nullptr) ||
       (pos == nullptr) != (dpos == nullptr) ||
-      (bias == nullptr) != (dbias == nullptr) ||
+      (bias == nullptr) != (dbias == nullptr) || !ln_w || !ln_b ||
       (rope ? !all_rope || (C / nh) % 2 != 0 : !no_rope) ||
       (kBf16 && (C / nh) % 2 != 0))
     return static_cast<int>(cudaErrorInvalidValue);
@@ -226,107 +195,87 @@ int ln_attn_bwd_impl(const Act* x, const Act* pos, const Act* kv,
   const int Mk = B * Tk;
   const size_t rq = static_cast<size_t>(Mq) * C;
   const size_t rk = static_cast<size_t>(Mk) * C;
-  const size_t n_stats = kLong ? static_cast<size_t>(B) * nh * Tq * 3 : 0;
-  const size_t n_ds = (!kLong || bias) ? static_cast<size_t>(B) * nh * Tq * Tk
-                                       : 0;
-  const size_t n_part = static_cast<size_t>(gsasr::kMaxGroups) * C * (C + 1);
-  const size_t n_ln = static_cast<size_t>(blocks_for(Mq, gsasr::kBM)) * 2 * C;
-  const size_t n_rope =
-      rope ? rq + rk + 2 * static_cast<size_t>(kRopeGroups) * (Tq + Tk) * C
-           : 0;
-  const size_t n_wide =
-      kBf16 ? 3 * rq + 2 * rk + static_cast<size_t>(Tq) * C : 0;
-  if (static_cast<size_t>(work_floats) <
-      6 * rq + 4 * rk + n_stats + n_ds + n_part + n_ln + n_rope + n_wide)
+  const size_t cc = static_cast<size_t>(C) * C;
+  const int tiles = (Mq + kTRows - 1) / kTRows;
+  Carve cv{work};
+  float* wqt = cv.take<float>(cc);
+  float* wkt = cv.take<float>(cc);
+  float* wvt = cv.take<float>(cc);
+  float* wot = cv.take<float>(cc);
+  Act* q = cv.take<Act>(rq);
+  Act* xq = cv.take<Act>(rq);
+  Act* att = cv.take<Act>(rq);
+  Act* datt = cv.take<Act>(rq);
+  Act* k = cv.take<Act>(rk);
+  Act* v = cv.take<Act>(rk);
+  float* dq = cv.take<float>(rq);
+  float* dk = cv.take<float>(rk);
+  float* dv = cv.take<float>(rk);
+  float* q0 = rope ? cv.take<float>(rq) : nullptr;
+  float* k0 = rope ? cv.take<float>(rk) : nullptr;
+  float* stats = cv.take<float>(static_cast<size_t>(B) * nh * Tq * 3);
+  float* ds =
+      bias ? cv.take<float>(static_cast<size_t>(B) * nh * Tq * Tk) : nullptr;
+  float* part = cv.take<float>(4 * static_cast<size_t>(kMaxGroups) * C *
+                               (C + 1));
+  float* lnpart = cv.take<float>(static_cast<size_t>(tiles) * 2 * C);
+  float* rpart =
+      rope ? cv.take<float>(2 * static_cast<size_t>(kRopeGroups) * (Tq + Tk) *
+                            C)
+           : nullptr;
+  float* dxq = pos ? cv.take<float>(rq) : nullptr;
+  if (static_cast<size_t>(work_floats) < cv.used)
     return static_cast<int>(cudaErrorInvalidValue);
-  float* xq = work;
-  float* q = xq + rq;
-  float* datt = q + rq;
-  float* att = datt + rq;
-  float* dq = att + rq;
-  float* dxq = dq + rq;
-  float* k = dxq + rq;
-  float* v = k + rk;
-  float* dk = v + rk;
-  float* dv = dk + rk;
-  float* stats = dv + rk;
-  float* ds = stats + n_stats;
-  float* part = ds + n_ds;
-  float* lnpart = part + n_part;
-  float* q0 = q;  // without RoPE q0 is q, and dq0 is dq
-  float* k0 = k;
-  float* rpart = nullptr;
-  if (rope) {
-    q0 = lnpart + n_ln;
-    k0 = q0 + rq;
-    rpart = k0 + rk;
-  }
-  // f32 views of x, kv and g, and f32 targets of dx, dkv and dpos
-  const float* xf;
-  const float* kvf;
-  const float* gf;
-  float* dxf;
-  float* dkvf;
-  float* dposf;
-  if constexpr (kBf16) {
-    float* wide = lnpart + n_ln + n_rope;
-    xf = wide;
-    gf = wide + rq;
-    dxf = wide + 2 * rq;
-    kvf = kv ? wide + 3 * rq : nullptr;
-    dkvf = kv ? wide + 3 * rq + rk : nullptr;
-    dposf = pos ? wide + 3 * rq + 2 * rk : nullptr;
-    GSASR_TRY_INT(gsasr::launch_convert(x, wide, rq, st));
-    GSASR_TRY_INT(gsasr::launch_convert(g, wide + rq, rq, st));
-    if (kv) GSASR_TRY_INT(gsasr::launch_convert(kv, wide + 3 * rq, rk, st));
-  } else {
-    xf = x;
-    kvf = kv;
-    gf = g;
-    dxf = dx;
-    dkvf = dkv;
-    dposf = dpos;
-  }
-  // pos widens as the LN rows read it: a small (Tq, C) copy in bfloat16
-  const float* posf = nullptr;
-  if (pos) {
-    if constexpr (kBf16) {
-      GSASR_TRY_INT(gsasr::launch_convert(pos, dposf,
-                                          static_cast<size_t>(Tq) * C, st));
-      posf = dposf;
-    } else {
-      posf = pos;
-    }
-  }
 
-  // forward recompute: xq = LN(x) (+ pos); q0, k0, v; with RoPE q, k
-  GSASR_TRY_INT(gsasr::launch_ln_rows<kBf16>(xf, nullptr, ln_w, ln_b, posf,
-                                             xq, Mq, Tq, C, st));
-  const float* src = kv ? kvf : xq;
-  const int rnd_qk = kBf16 && !rope;
-  GSASR_TRY_INT(launch_linear<false, kBf16>(Terms{{xq}, {wq}, 1}, bq, nullptr,
-                                            0, q0, Mq, C, C, st, rnd_qk));
-  GSASR_TRY_INT(launch_linear<false, kBf16>(Terms{{src}, {wk}, 1}, bk,
-                                            nullptr, 0, k0, Mk, C, C, st,
-                                            rnd_qk));
-  GSASR_TRY_INT(launch_linear<false, kBf16>(Terms{{src}, {wv}, 1}, bv,
-                                            nullptr, 0, v, Mk, C, C, st, 1));
-  if (rope) {
-    GSASR_TRY_INT(launch_rope_rows<kBf16>(q0, cos_q, sin_q, q, Mq, Tq, C, st));
-    GSASR_TRY_INT(launch_rope_rows<kBf16>(k0, cos_k, sin_k, k, Mk, Tk, C, st));
+  // 1. the transposed weights
+  WtJobs wt{{wq, wk, wv, wo}, {wqt, wkt, wvt, wot}, {C, C, C, C},
+            {C, C, C, C}};
+  GSASR_TRY_INT(launch_wt(wt, 4, st));
+  // 2. forward recompute: q, k, v (rotated, rounded), xq, q0, k0
+  constexpr size_t smem = tile_smem_bytes<typename TileOf<Act>::type>();
+  GSASR_TRY_INT(tile_prepare(ln_qkv_kernel<Act, true>, smem));
+  const int vec1 = C % 4 == 0 && tile_aligned({kv, bq, bk, bv, cos_q, sin_q,
+                                               cos_k, sin_k, q, k, v, q0,
+                                               k0, xq});
+  ln_qkv_kernel<Act, true>
+      <<<dim3((B * (Tq > Tk ? Tq : Tk) + kTRows - 1) / kTRows, 3), kTThreads,
+         smem, st>>>(x, pos, kv, ln_w, ln_b, wq, bq, wk, bk, wv, bv, cos_q,
+                     sin_q, cos_k, sin_k, q, k, v, B, Tq, Tk, C, vec1, xq, q0,
+                     k0);
+  GSASR_TRY_INT(cudaGetLastError());
+  // 3. datt = g wo, rounded
+  GSASR_TRY_INT(launch_rows_bwd<Act, Act>(RowTerms<Act>{{g}, {wot}, 1}, datt,
+                                          nullptr, nullptr, nullptr, nullptr,
+                                          nullptr, Mq, Tq, C, C, st));
+  // 4. att = p v as kernel A forms it; 5. the attention backward and dbias
+  float* ds_w = bias ? ds : nullptr;
+  if constexpr (kBf16) {
+    if constexpr (kLong) {
+      GSASR_TRY_INT(launch_fwd_long_mma<false, false>(
+          q, k, v, bias, nullptr, att, B, Tq, Tk, C, nh, 1, scale, st));
+      GSASR_TRY_INT((launch_window_attn_bwd_long_mma<false, false, float>(
+          q, k, v, bias, datt, dq, dk, dv, stats, ds_w, dbias, B, Tq, Tk, C,
+          nh, scale, st)));
+    } else {
+      GSASR_TRY_INT(launch_fwd_short_mma<false, false>(
+          q, k, v, bias, nullptr, att, B, Tq, Tk, C, nh, 1, scale, st));
+      GSASR_TRY_INT((launch_bwd_short_mma<false, false, float>(
+          q, k, v, bias, datt, dq, dk, dv, ds_w, dbias, B, Tq, Tk, C, nh,
+          scale, st)));
+    }
+  } else {
+    GSASR_TRY_INT(launch_fwd_long_tf32<false, false>(
+        q, k, v, bias, nullptr, att, B, Tq, Tk, C, nh, 1, scale, st));
+    if constexpr (kLong)
+      GSASR_TRY_INT((launch_window_attn_bwd_long_tf32<false, false>(
+          q, k, v, bias, datt, dq, dk, dv, stats, ds_w, dbias, B, Tq, Tk, C,
+          nh, scale, st)));
+    else
+      GSASR_TRY_INT((launch_window_attn_bwd_short_tf32<false, false>(
+          q, k, v, bias, datt, dq, dk, dv, stats, ds_w, dbias, B, Tq, Tk, C,
+          nh, scale, st)));
   }
-  // out-projection: datt = g wo (rounded); attention backward, att, dbias
-  GSASR_TRY_INT(launch_linear<true, kBf16>(Terms{{gf}, {wo}, 1}, nullptr,
-                                           nullptr, 0, datt, Mq, C, C, st, 1));
-  if constexpr (kLong)
-    GSASR_TRY_INT(launch_window_attn_bwd_long<float, true, kBf16>(
-        q, k, v, bias, datt, dq, dk, dv, stats, bias ? ds : nullptr, dbias, B,
-        Tq, Tk, C, nh, scale, st, att));
-  else
-    GSASR_TRY_INT(launch_window_attn_bwd<float, kBf16>(
-        q, k, v, bias, datt, dq, dk, dv, ds, dbias, att, B, Tq, Tk, C, nh,
-        scale, st));
-  // RoPE: the table gradients, and dq0, dk0 over q0, k0
+  // 6. RoPE: the table gradients, and dq0, dk0 over q0, k0
   if (rope) {
     GSASR_TRY_INT(launch_rope_back(dq, q0, cos_q, sin_q, dcos_q, dsin_q, rpart,
                                    B, Tq, C, st));
@@ -335,33 +284,32 @@ int ln_attn_bwd_impl(const Act* x, const Act* pos, const Act* kv,
   }
   const float* dq0 = rope ? q0 : dq;
   const float* dk0 = rope ? k0 : dk;
-  // weight gradients, one partial buffer in turn (one stream, in order)
-  GSASR_TRY_INT(launch_wgrad<kBf16>(gf, att, part, dwo, dbo, Mq, C, C, st));
-  GSASR_TRY_INT(launch_wgrad<kBf16>(dq0, xq, part, dwq, dbq, Mq, C, C, st));
-  GSASR_TRY_INT(launch_wgrad<kBf16>(dk0, src, part, dwk, dbk, Mk, C, C, st));
-  GSASR_TRY_INT(launch_wgrad<kBf16>(dv, src, part, dwv, dbv, Mk, C, C, st));
-  // dxq (and dkv)
+  const Act* src = kv ? kv : xq;
+  // 7. dwo = g^T att, dwq = dq0^T xq, dwk = dk0^T src, dwv = dv^T src and
+  // their bias sums
+  const size_t np = static_cast<size_t>(kMaxGroups) * C * (C + 1);
+  WgradJobs jobs{};
+  jobs.j[0] = WgradJob{g, att, part, dwo, dbo, Mq, C, C, 0, 0, 1};
+  jobs.j[1] = WgradJob{dq0, xq, part + np, dwq, dbq, Mq, C, C, 0, 0, 0};
+  jobs.j[2] = WgradJob{dk0, src, part + 2 * np, dwk, dbk, Mk, C, C, 0, 0, 0};
+  jobs.j[3] = WgradJob{dv, src, part + 3 * np, dwv, dbv, Mk, C, C, 0, 0, 0};
+  GSASR_TRY_INT(launch_wgrad_mma<Act>(jobs, 4, st));
+  // 8. dxq with the LN backward (dx, its partials, dxq for dpos), and dkv
   if (kv) {
-    GSASR_TRY_INT(launch_linear<true, kBf16>(Terms{{dq0}, {wq}, 1}, nullptr,
-                                             nullptr, 0, dxq, Mq, C, C, st));
-    GSASR_TRY_INT(launch_linear<true, kBf16>(Terms{{dk0, dv}, {wk, wv}, 2},
-                                             nullptr, nullptr, 0, dkvf, Mk, C,
-                                             C, st));
+    GSASR_TRY_INT(launch_rows_bwd<Act, float>(
+        RowTerms<float>{{dq0}, {wqt}, 1}, nullptr, x, ln_w, dx, dxq, lnpart,
+        Mq, Tq, C, C, st));
+    GSASR_TRY_INT(launch_rows_bwd<Act, float>(
+        RowTerms<float>{{dk0, dv}, {wkt, wvt}, 2}, dkv, nullptr, nullptr,
+        nullptr, nullptr, nullptr, Mk, Tk, C, C, st));
   } else {
-    GSASR_TRY_INT(launch_linear<true, kBf16>(
-        Terms{{dq0, dk0, dv}, {wq, wk, wv}, 3}, nullptr, nullptr, 0, dxq, Mq,
-        C, C, st));
+    GSASR_TRY_INT(launch_rows_bwd<Act, float>(
+        RowTerms<float>{{dq0, dk0, dv}, {wqt, wkt, wvt}, 3}, nullptr, x, ln_w,
+        dx, dxq, lnpart, Mq, Tq, C, C, st));
   }
-  if (pos) GSASR_TRY_INT(gsasr::launch_sum_terms(dxq, dposf, 1, B, Tq * C, st));
-  GSASR_TRY_INT(gsasr::launch_ln_bwd(xf, nullptr, ln_w, dxq, nullptr, dxf,
-                                     lnpart, dln, Mq, Tq, C, st));
-  if constexpr (kBf16) {
-    GSASR_TRY_INT(gsasr::launch_convert(dxf, dx, rq, st));
-    if (kv) GSASR_TRY_INT(gsasr::launch_convert(dkvf, dkv, rk, st));
-    if (pos)
-      GSASR_TRY_INT(gsasr::launch_convert(dposf, dpos,
-                                          static_cast<size_t>(Tq) * C, st));
-  }
+  // 9. d ln_w, d ln_b over the row tiles; dpos over the windows
+  GSASR_TRY_INT(launch_ordered_sum(lnpart, dln, tiles, 2 * C, 2 * C, st));
+  if (pos) GSASR_TRY_INT(launch_ordered_sum(dxq, dpos, B, rq / B, Tq * C, st));
   return static_cast<int>(cudaSuccess);
 }
 

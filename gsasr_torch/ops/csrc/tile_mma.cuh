@@ -213,7 +213,8 @@ __device__ __forceinline__ void tile_load_rows(typename P::Row* rows,
 // LN?(x + inj) (+ pos), rounded to Act, of rows [row0, row0 + kTRows) into
 // the row buffer: row g takes inj[g / T] and pos[g % T], each optional;
 // without ln_w the rows are x + inj as they are. The statistics in f32 as
-// load_row_ln forms them (two-pass; lane l holds columns l + 32 q): one
+// the plain version forms them (two-pass; lane l holds columns l + 32
+// q): one
 // warp a row, four rows at a time, so that their loads are in flight
 // together. Rows past M and columns past C are zeros.
 template <class P, typename Act>
@@ -488,10 +489,11 @@ __device__ __forceinline__ void tile_slab(TileBf16,
 // before the call) and W (N, K), f32 in device memory, through the ring of
 // P::kStages raw slabs and the two slabs that follow the rows in `smem`:
 // slab s + kStages - 1 is in flight (cp.async) while slab s is split or
-// rounded into its slab buffer and multiplied. acc is zeroed first; its
-// entries of columns >= N are zeros. Starts and ends with a barrier, so
-// the rows may be written just before and rewritten just after.
-template <class P>
+// rounded into its slab buffer and multiplied. acc is zeroed first (with
+// kAcc the product is added to it); its entries of columns >= N are zeros.
+// Starts and ends with a barrier, so the rows may be written just before
+// and rewritten just after.
+template <class P, bool kAcc = false>
 __device__ __forceinline__ void tile_mma(const typename P::Row* rows,
                                          const float* __restrict__ W, int N,
                                          int K, unsigned char* smem,
@@ -502,9 +504,11 @@ __device__ __forceinline__ void tile_mma(const typename P::Row* rows,
   const int warp = threadIdx.x >> 5;
   const int r0 = 16 * (warp & 7);
   const int c0 = kTWarpCols * (warp >> 3);
+  if (!kAcc) {
 #pragma unroll
-  for (int j = 0; j < kTNT; ++j)
-    acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.f;
+    for (int j = 0; j < kTNT; ++j)
+      acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.f;
+  }
   const int ns = (K + kTK - 1) / kTK;
   const bool vec =
       (K & 3) == 0 && (reinterpret_cast<uintptr_t>(W) & 15) == 0;

@@ -40,8 +40,8 @@
 // shared memory, forms dq and each query row's (max, 1 / sum, D) over the
 // query rows and then dk and dv over the keys; where its shared memory would
 // not fit (a mask beyond about 120 tokens) WB-long's two launches run, with
-// the statistics in the stats scratch. The FMA body of window_attn_bwd.cuh,
-// which WB ran before, stays AB's. With a bias ds goes to ds_w, and dbias, a
+// the statistics in the stats scratch; kernel AB's fp32 attention runs the
+// same body (ln_attn_bwd.cu). With a bias ds goes to ds_w, and dbias, a
 // sum over windows, is summed by another launch in ascending window order: no
 // float atomics, and the result is the same bits from run to run. The mask
 // gets no gradient (a constant at every call site; the JAX VJP returns zeros

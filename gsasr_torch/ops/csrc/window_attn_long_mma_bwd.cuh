@@ -6,7 +6,8 @@
 // 576), of _attn_kernel_packed_masked_bwd (K13b, the paper HAT's shifted
 // windows) and of _attn_kernel_bwd (K14b, the 4D layout) beyond 160 tokens.
 // The fp32 forms run window_attn_long_tf32_bwd.cuh, the same design in
-// 3xTF32, and AB-long keeps window_attn_long_bwd.cuh's FMA body. Per
+// 3xTF32; kernel AB-long-bf16's attention runs this body's TO = float
+// form. Per
 // window w and head h, with the softmax recomputed as the forward forms it:
 //
 //   p = softmax(q_h k_h^T * scale (+ bias[h]) (+ mask[w % nW]))   (f32)
@@ -98,16 +99,18 @@ __device__ __forceinline__ void mma_split(uint32_t (&a)[2][4],
 }
 
 // Launch 1, one block of kMThreads per (head, window, 64 query rows): dq
-// (bf16), each row's (max, sum, D) into stats, and ds into ds_w when it is
-// not null. Layouts and flags as the forward's.
-template <bool kMask, bool kHM>
+// (TO), each row's (max, sum, D) into stats, and ds into ds_w when it is
+// not null. Layouts and flags as the forward's. TO = float is kernel
+// AB-long-bf16's form: ds enters dq's product rounded once to bf16, not as
+// a hi/lo pair, and dq stays f32.
+template <bool kMask, bool kHM, typename TO = __nv_bfloat16>
 __global__ void __launch_bounds__(kMThreads, 4)
 window_attn_bwd_long_mma_q_kernel(const __nv_bfloat16* __restrict__ q,
                                   const __nv_bfloat16* __restrict__ k,
                                   const __nv_bfloat16* __restrict__ v,
                                   const float* __restrict__ bias,
                                   const __nv_bfloat16* __restrict__ g,
-                                  __nv_bfloat16* __restrict__ dq,
+                                  TO* __restrict__ dq,
                                   float* __restrict__ stats,
                                   float* __restrict__ ds_w, int Tq, int Tk,
                                   int C, int nh, float scale,
@@ -233,9 +236,15 @@ window_attn_bwd_long_mma_q_kernel(const __nv_bfloat16* __restrict__ q,
                   ds_w[(srow + 8 * (e >> 1)) * Tk + j] = s[n][e];
               }
           }
-          uint32_t da[2][4];
-          mma_split(da, s[0], s[1]);
-          mma_cols(acc, da, kt, 16 * c);
+          if constexpr (sizeof(TO) == 4) {
+            uint32_t da[1][4];
+            mma_pack(da[0], s[0], s[1]);
+            mma_cols(acc, da, kt, 16 * c);
+          } else {
+            uint32_t da[2][4];
+            mma_split(da, s[0], s[1]);
+            mma_cols(acc, da, kt, 16 * c);
+          }
         }
       }
     }
@@ -246,29 +255,28 @@ window_attn_bwd_long_mma_q_kernel(const __nv_bfloat16* __restrict__ q,
   for (int r = 0; r < 2; ++r) {
     const int row = r0 + gi + 8 * r;
     if (row >= rows) continue;
-    __nv_bfloat16* dst = dq + (wrow * Tq + q0 + row) * ldg + n0;
+    TO* dst = dq + (wrow * Tq + q0 + row) * ldg + n0;
 #pragma unroll
     for (int n = 0; n < 4; ++n)
 #pragma unroll
       for (int e = 0; e < 2; ++e) {
         const int d = 8 * n + 2 * t + e;
-        if (d < hd) dst[d] = __float2bfloat16_rn(acc[n][2 * r + e] * scale);
+        if (d < hd) dst[d] = from_f32<TO>(acc[n][2 * r + e] * scale);
       }
   }
 }
 
 // Launch 2, one block of kMThreads per (head, window, 64 keys): dk and dv
-// (bf16) of its keys, the query tiles walked in order with the statistics
-// launch 1 stored.
-template <bool kMask, bool kHM>
+// (TO) of its keys, the query tiles walked in order with the statistics
+// launch 1 stored; with TO = float, p and ds rounded once to bf16.
+template <bool kMask, bool kHM, typename TO = __nv_bfloat16>
 __global__ void __launch_bounds__(kMThreads, 4)
 window_attn_bwd_long_mma_kv_kernel(const __nv_bfloat16* __restrict__ q,
                                    const __nv_bfloat16* __restrict__ k,
                                    const __nv_bfloat16* __restrict__ v,
                                    const float* __restrict__ bias,
                                    const __nv_bfloat16* __restrict__ g,
-                                   __nv_bfloat16* __restrict__ dk,
-                                   __nv_bfloat16* __restrict__ dv,
+                                   TO* __restrict__ dk, TO* __restrict__ dv,
                                    const float* __restrict__ stats, int Tq,
                                    int Tk, int C, int nh, float scale,
                                    const float* __restrict__ mask, int nW,
@@ -360,11 +368,19 @@ window_attn_bwd_long_mma_kv_kernel(const __nv_bfloat16* __restrict__ q,
           s[n][e] = p;
           dp[n][e] = ds;
         }
-      uint32_t pa[2][4], da[2][4];
-      mma_split(pa, s[0], s[1]);
-      mma_split(da, dp[0], dp[1]);
-      mma_cols(adv, pa, gs[b], 16 * c);
-      mma_cols(adk, da, qs[b], 16 * c);
+      if constexpr (sizeof(TO) == 4) {
+        uint32_t pa[1][4], da[1][4];
+        mma_pack(pa[0], s[0], s[1]);
+        mma_pack(da[0], dp[0], dp[1]);
+        mma_cols(adv, pa, gs[b], 16 * c);
+        mma_cols(adk, da, qs[b], 16 * c);
+      } else {
+        uint32_t pa[2][4], da[2][4];
+        mma_split(pa, s[0], s[1]);
+        mma_split(da, dp[0], dp[1]);
+        mma_cols(adv, pa, gs[b], 16 * c);
+        mma_cols(adk, da, qs[b], 16 * c);
+      }
     }
     __syncthreads();
   }
@@ -380,8 +396,8 @@ window_attn_bwd_long_mma_kv_kernel(const __nv_bfloat16* __restrict__ q,
       for (int e = 0; e < 2; ++e) {
         const int d = 8 * n + 2 * t + e;
         if (d < hd) {
-          dv[o + d] = __float2bfloat16_rn(adv[n][2 * r + e]);
-          dk[o + d] = __float2bfloat16_rn(adk[n][2 * r + e] * scale);
+          dv[o + d] = from_f32<TO>(adv[n][2 * r + e]);
+          dk[o + d] = from_f32<TO>(adk[n][2 * r + e] * scale);
         }
       }
   }
@@ -395,12 +411,13 @@ namespace {
 // Tk), B a multiple of nW), or with kHM WB4-long-bf16 on the head-major
 // layout: dq and the rows' statistics per query tile, then dk and dv per
 // key tile, then (dbias given) the ordered sum of ds_w over the windows.
-// Arguments as launch_window_attn_bwd_long's.
-template <bool kMask, bool kHM>
+// Arguments as launch_window_attn_bwd_long_tf32's; TO = float: kernel
+// AB-long-bf16's form of the body.
+template <bool kMask, bool kHM, typename TO = __nv_bfloat16>
 cudaError_t launch_window_attn_bwd_long_mma(
     const __nv_bfloat16* q, const __nv_bfloat16* k, const __nv_bfloat16* v,
-    const float* bias, const __nv_bfloat16* g, __nv_bfloat16* dq,
-    __nv_bfloat16* dk, __nv_bfloat16* dv, float* stats, float* ds_w,
+    const float* bias, const __nv_bfloat16* g, TO* dq, TO* dk, TO* dv,
+    float* stats, float* ds_w,
     float* dbias, int B, int Tq, int Tk, int C, int nh, float scale,
     cudaStream_t st, const float* mask = nullptr, int nW = 1) {
   if (!gsasr::long_shape_ok(B, Tq, Tk, C, nh) || (dbias && !ds_w) ||
@@ -409,13 +426,13 @@ cudaError_t launch_window_attn_bwd_long_mma(
   const void* ops[] = {q, k, v, g};
   const int vec = gsasr::mma_vec(C / nh, ops, 4);
   constexpr int kR = gsasr::kMRows;
-  gsasr::window_attn_bwd_long_mma_q_kernel<kMask, kHM>
+  gsasr::window_attn_bwd_long_mma_q_kernel<kMask, kHM, TO>
       <<<dim3(nh, B, (Tq + kR - 1) / kR), gsasr::kMThreads, 0, st>>>(
           q, k, v, bias, g, dq, stats, dbias ? ds_w : nullptr, Tq, Tk, C, nh,
           scale, mask, nW, vec);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  gsasr::window_attn_bwd_long_mma_kv_kernel<kMask, kHM>
+  gsasr::window_attn_bwd_long_mma_kv_kernel<kMask, kHM, TO>
       <<<dim3(nh, B, (Tk + kR - 1) / kR), gsasr::kMThreads, 0, st>>>(
           q, k, v, bias, g, dk, dv, stats, Tq, Tk, C, nh, scale, mask, nW,
           vec);

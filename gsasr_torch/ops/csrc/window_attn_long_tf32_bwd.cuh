@@ -8,9 +8,9 @@
 // Up to 160 tokens WB, WMB and WB4 run the same arithmetic fused into one
 // launch (window_attn_short_tf32_bwd.cuh), and these launches only where
 // its shared memory would not fit. The bf16 forms run
-// window_attn_long_mma_bwd.cuh and AB-long keeps window_attn_long_bwd.cuh's
-// FMA body. Per window w and head h, with the
-// softmax recomputed as the forward forms it:
+// window_attn_long_mma_bwd.cuh; AB-long's fp32 attention runs these
+// launches. Per window w and head h, with the softmax recomputed as the
+// forward forms it:
 //
 //   p = softmax(q_h k_h^T * scale (+ bias[h]) (+ mask[w % nW]))   (f32)
 //   dv = p^T g_h      dp = g_h v_h^T      ds = p (dp - D),  D = sum_j p dp

@@ -3,8 +3,8 @@
 // flags WMB-bf16 (kMask) and WB4-bf16 (kHM). It replaces the bf16 operand
 // forms of _attn_kernel_packed_bwd (gsasr_tpu/ops/attention.py, Pallas
 // K12), of _attn_kernel_packed_masked_bwd (K13b) and of _attn_kernel_bwd
-// (K14b) at Tq, Tk <= 160. The fp32 forms, AB and AB-bf16 keep the FMA body
-// of window_attn_bwd.cuh. Per window w and head h, with the softmax
+// (K14b) at Tq, Tk <= 160, and kernel AB-bf16's attention (its TO = float
+// form). The fp32 forms run window_attn_short_tf32_bwd.cuh. Per window w and head h, with the softmax
 // recomputed as the forward forms it:
 //
 //   p = softmax(q_h k_h^T * scale (+ bias[h]) (+ mask[w % nW]))   (f32)
@@ -81,22 +81,25 @@ inline size_t short_bwd_smem_bytes(int Tq, int Tk) {
 }
 
 // The backward, one block of 2 max(short_rows(Tq), short_rows(Tk)) threads
-// per (head, window): dq, dk, dv bf16 in the operands' layout, and ds into
-// ds_w when it is not null. Layouts and flags as the forward's.
-template <bool kMask, bool kHM, int kNC>
+// per (head, window): dq, dk, dv (TO) in the operands' layout, and ds into
+// ds_w when it is not null. Layouts and flags as the forward's. TO = float
+// is kernel AB-bf16's form: p and ds enter their products rounded once to
+// bf16 (as _k_ln_attn_bwd rounds them), not as hi/lo pairs, and dq, dk,
+// dv stay f32 for the RoPE back-rotation and the bias sums.
+template <bool kMask, bool kHM, int kNC, typename TO = __nv_bfloat16>
 __global__ void __launch_bounds__(32 * kNC, kNC == 4 ? 4 : 1)
 window_attn_bwd_short_mma_kernel(const __nv_bfloat16* __restrict__ q,
                                  const __nv_bfloat16* __restrict__ k,
                                  const __nv_bfloat16* __restrict__ v,
                                  const float* __restrict__ bias,
                                  const __nv_bfloat16* __restrict__ g,
-                                 __nv_bfloat16* __restrict__ dq,
-                                 __nv_bfloat16* __restrict__ dk,
-                                 __nv_bfloat16* __restrict__ dv,
+                                 TO* __restrict__ dq, TO* __restrict__ dk,
+                                 TO* __restrict__ dv,
                                  float* __restrict__ ds_w, int Tq, int Tk,
                                  int C, int nh, float scale,
                                  const float* __restrict__ mask, int nW,
                                  int vec) {
+  constexpr bool kOne = sizeof(TO) == 4;
   extern __shared__ __align__(16) unsigned char short_smem[];
   const int tq16 = short_rows(Tq);
   const int tk16 = short_rows(Tk);
@@ -184,22 +187,28 @@ window_attn_bwd_short_mma_kernel(const __nv_bfloat16* __restrict__ q,
             if (ds_w && row < Tq && j < Tk)
               ds_w[(srow0 + row) * Tk + j] = ds[n][e];
           }
-        uint32_t da[2][4];
-        mma_split(da, ds[0], ds[1]);
-        mma_cols(acc, da, ks, 16 * c);
+        if constexpr (kOne) {
+          uint32_t da[1][4];
+          mma_pack(da[0], ds[0], ds[1]);
+          mma_cols(acc, da, ks, 16 * c);
+        } else {
+          uint32_t da[2][4];
+          mma_split(da, ds[0], ds[1]);
+          mma_cols(acc, da, ks, 16 * c);
+        }
       }
     }
 #pragma unroll
     for (int r = 0; r < 2; ++r) {
       const int row = r0 + gi + 8 * r;
       if (row >= Tq) continue;
-      __nv_bfloat16* dst = dq + (wrow * Tq + row) * ldg + n0;
+      TO* dst = dq + (wrow * Tq + row) * ldg + n0;
 #pragma unroll
       for (int n = 0; n < 4; ++n)
 #pragma unroll
         for (int e = 0; e < 2; ++e) {
           const int d = 8 * n + 2 * t + e;
-          if (d < hd) dst[d] = __float2bfloat16_rn(acc[n][2 * r + e] * scale);
+          if (d < hd) dst[d] = from_f32<TO>(acc[n][2 * r + e] * scale);
         }
     }
   }
@@ -244,11 +253,19 @@ window_attn_bwd_short_mma_kernel(const __nv_bfloat16* __restrict__ q,
           s[n][e] = pv;
           dp[n][e] = ds;
         }
-      uint32_t pa[2][4], da[2][4];
-      mma_split(pa, s[0], s[1]);
-      mma_split(da, dp[0], dp[1]);
-      mma_cols(adv, pa, gs, 16 * c);
-      mma_cols(adk, da, qs, 16 * c);
+      if constexpr (kOne) {
+        uint32_t pa[1][4], da[1][4];
+        mma_pack(pa[0], s[0], s[1]);
+        mma_pack(da[0], dp[0], dp[1]);
+        mma_cols(adv, pa, gs, 16 * c);
+        mma_cols(adk, da, qs, 16 * c);
+      } else {
+        uint32_t pa[2][4], da[2][4];
+        mma_split(pa, s[0], s[1]);
+        mma_split(da, dp[0], dp[1]);
+        mma_cols(adv, pa, gs, 16 * c);
+        mma_cols(adk, da, qs, 16 * c);
+      }
     }
 #pragma unroll
     for (int r = 0; r < 2; ++r) {
@@ -261,8 +278,8 @@ window_attn_bwd_short_mma_kernel(const __nv_bfloat16* __restrict__ q,
         for (int e = 0; e < 2; ++e) {
           const int d = 8 * n + 2 * t + e;
           if (d < hd) {
-            dv[o + d] = __float2bfloat16_rn(adv[n][2 * r + e]);
-            dk[o + d] = __float2bfloat16_rn(adk[n][2 * r + e] * scale);
+            dv[o + d] = from_f32<TO>(adv[n][2 * r + e]);
+            dk[o + d] = from_f32<TO>(adk[n][2 * r + e] * scale);
           }
         }
     }
@@ -272,12 +289,12 @@ window_attn_bwd_short_mma_kernel(const __nv_bfloat16* __restrict__ q,
 // The kernel of a flag pair for windows of at most t tokens (max(Tq, Tk)):
 // its kNC bucket, which bounds its threads (32 kNC) and sizes the register
 // array of a query row's scores.
-template <bool kMask, bool kHM>
+template <bool kMask, bool kHM, typename TO = __nv_bfloat16>
 inline auto short_bwd_kernel(int t) {
   const int nc = short_chunks(t);
-  return nc == 4 ? window_attn_bwd_short_mma_kernel<kMask, kHM, 4>
-         : nc == 9 ? window_attn_bwd_short_mma_kernel<kMask, kHM, 9>
-                   : window_attn_bwd_short_mma_kernel<kMask, kHM, 10>;
+  return nc == 4 ? window_attn_bwd_short_mma_kernel<kMask, kHM, 4, TO>
+         : nc == 9 ? window_attn_bwd_short_mma_kernel<kMask, kHM, 9, TO>
+                   : window_attn_bwd_short_mma_kernel<kMask, kHM, 10, TO>;
 }
 
 }  // namespace gsasr
@@ -288,13 +305,13 @@ namespace {
 // multiple of nW), or with kHM WB4-bf16 on the head-major layout, at Tq, Tk
 // <= kMaxT: the body, then (dbias given) the ordered sum of ds_w over the
 // windows. ds_w (B, nh, Tq, Tk) f32 is needed, and written, only with
-// dbias.
-template <bool kMask, bool kHM>
+// dbias. TO = float: kernel AB-bf16's form of the body.
+template <bool kMask, bool kHM, typename TO = __nv_bfloat16>
 cudaError_t launch_bwd_short_mma(const __nv_bfloat16* q,
                                  const __nv_bfloat16* k,
                                  const __nv_bfloat16* v, const float* bias,
-                                 const __nv_bfloat16* g, __nv_bfloat16* dq,
-                                 __nv_bfloat16* dk, __nv_bfloat16* dv,
+                                 const __nv_bfloat16* g, TO* dq, TO* dk,
+                                 TO* dv,
                                  float* ds_w, float* dbias, int B, int Tq,
                                  int Tk, int C, int nh, float scale,
                                  cudaStream_t st, const float* mask = nullptr,
@@ -305,7 +322,8 @@ cudaError_t launch_bwd_short_mma(const __nv_bfloat16* q,
   const void* ops[] = {q, k, v, g};
   const int vec = gsasr::mma_vec(C / nh, ops, 4);
   const size_t smem = gsasr::short_bwd_smem_bytes(Tq, Tk);
-  const auto kernel = gsasr::short_bwd_kernel<kMask, kHM>(Tq > Tk ? Tq : Tk);
+  const auto kernel =
+      gsasr::short_bwd_kernel<kMask, kHM, TO>(Tq > Tk ? Tq : Tk);
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));

@@ -4,10 +4,10 @@
 // _attn_kernel_packed_bwd (gsasr_tpu/ops/attention.py, Pallas K12: the
 // paper decoder's 144-token windows, SwinIR's 64), of
 // _attn_kernel_packed_masked_bwd (K13b, SwinIR's shifted windows) and of
-// _attn_kernel_bwd (K14b, the 4D layout) at Tq, Tk <= 160. The bf16 forms
-// run window_attn_short_mma_bwd.cuh, AB keeps the FMA body of
-// window_attn_bwd.cuh, and beyond 160 tokens WB-long's two launches
-// (window_attn_long_tf32_bwd.cuh) run. Per window w and head h, with the
+// _attn_kernel_bwd (K14b, the 4D layout) at Tq, Tk <= 160, and it is
+// kernel AB's fp32 attention (ln_attn_bwd.cu). The bf16 forms run
+// window_attn_short_mma_bwd.cuh, and beyond 160 tokens WB-long's two
+// launches (window_attn_long_tf32_bwd.cuh) run. Per window w and head h, with the
 // softmax recomputed as the forward forms it:
 //
 //   p = softmax(q_h k_h^T * scale (+ bias[h]) (+ mask[w % nW]))   (f32)

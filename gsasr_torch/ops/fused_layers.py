@@ -43,13 +43,13 @@ _EPS = 1e-5
 _A_MAX_T = 160
 _A_MAX_HD = 32
 _A_MAX_C = 192
-# kMaxGroups of csrc/fused_bwd.cuh: the weight-gradient row groups
+# kMaxGroups of csrc/tile_mma_bwd.cuh: the weight-gradient row groups
 _MAX_GROUPS = 128
 # kRopeGroups of csrc/ln_attn_bwd.cu: the RoPE-table gradient's groups of
 # windows
 _ROPE_GROUPS = 32
-# row tile of csrc/tile_gemm.cuh (kBM)
-_ROW_TILE = 64
+# row tile of csrc/tile_mma.cuh (kTRows)
+_ROW_TILE = 128
 
 
 def _ln_stats(t):
@@ -77,6 +77,12 @@ def _ln_bwd(dh, y, inv, gamma):
 def _wgrad(d, x):
     """(out, in) weight gradient d^T x over all rows."""
     return d.flatten(0, -2).t() @ x.flatten(0, -2)
+
+
+def _piece(n: int, size: int = 4) -> int:
+    """Floats of a scratch piece of n values of `size` bytes: the kernels
+    carve their scratch in 16-byte pieces (Carve, csrc/tile_mma_bwd.cuh)."""
+    return -(-n * size // 16) * 4
 
 
 def _work(floats: int, like: torch.Tensor) -> torch.Tensor:
@@ -234,11 +240,18 @@ def ln_mlp_residual_bwd(x, g, *, w1, b1, w2, b2, ln_w=None, ln_b=None,
     dln = torch.empty((2, c), **f32) if ln_w is not None else None
     dw1, db1 = torch.empty((hid, c), **f32), torch.empty(hid, **f32)
     dw2, db2 = torch.empty((c, hid), **f32), torch.empty(c, **f32)
-    # h, z1, dz1, dh; the weight-gradient partials; the LN partials; in
-    # bfloat16 also x and g widened, dx and dinj in f32
-    floats = (2 * m * (c + hid)
-              + _MAX_GROUPS * max(hid * (c + 1), c * (hid + 1))
-              + -(-m // _ROW_TILE) * 2 * c + (3 * m * c + b * c) * bf16)
+    # the transposed w1 and w2; h and z1 (x's type), dz1 (f32); the two
+    # weight gradients' partials; the LN partials; with inj the partial
+    # window sums of each row tile; the norms of w1's rows; the signs of
+    # z1p, 1024 words a row tile (ln_mlp_bwd_impl)
+    act = x.element_size()
+    tiles = -(-m // _ROW_TILE)
+    slots = (_ROW_TILE - 1 + t - 1) // t + 1
+    floats = (2 * _piece(c * hid) + _piece(m * c, act) + _piece(m * hid, act)
+              + _piece(m * hid) + _piece(_MAX_GROUPS * hid * (c + 1))
+              + _piece(_MAX_GROUPS * c * (hid + 1)) + _piece(tiles * 2 * c)
+              + (_piece(tiles * slots * c) if inj is not None else 0)
+              + _piece(hid) + _piece(tiles * 1024))
     work = _work(floats, x)
     _build.launch("ln_mlp_bwd_bf16" if bf16 else "ln_mlp_bwd", a["x"],
                   a["inj"], a["ln_w"], a["ln_b"], a["w1"], a["b1"], a["w2"],
@@ -559,17 +572,21 @@ def _ln_attn_bwd_launch(x, g, num_heads, scale, kw, long: bool):
     drope = ([torch.empty((n, c), **f32) for n in (tq, tq, tk, tk)] if rope
              else [None] * 4)
     mq, mk = b * tq, b * tk
-    # xq, q, datt, att, dq, dxq, k, v, dk, dv; ds per window (AB-long: each
-    # row's softmax statistics, and ds only for a bias); the weight-gradient
-    # partials; the LN partials; with RoPE q0 and k0 (dq0 and dk0 in place)
-    # and the table partials of up to 32 groups of windows; in bfloat16 also
-    # x, g and kv widened, and dx, dkv and dpos in f32
-    n_ds = b * num_heads * tq * tk
-    floats = ((6 * mq + 4 * mk) * c
-              + (b * num_heads * tq * 3 + n_ds * has_bias if long else n_ds)
-              + _MAX_GROUPS * c * (c + 1) + -(-mq // _ROW_TILE) * 2 * c
-              + ((mq + mk) * c + 2 * _ROPE_GROUPS * (tq + tk) * c) * rope
-              + ((3 * mq + 2 * mk) * c + tq * c) * bf16)
+    act = x.element_size()
+    # the four transposed weights; q, xq, att, datt, k, v (x's type); dq, dk,
+    # dv (f32); with RoPE q0 and k0 (dq0 and dk0 in place); the rows'
+    # softmax statistics; with a bias the per-window ds; the four weight
+    # gradients' partials; the LN partials; with RoPE the table partials of
+    # up to 32 groups of windows; with pos dxq (ln_attn_bwd_impl)
+    floats = (4 * _piece(c * c) + 4 * _piece(mq * c, act)
+              + 2 * _piece(mk * c, act) + _piece(mq * c) + 2 * _piece(mk * c)
+              + (_piece(mq * c) + _piece(mk * c)) * rope
+              + _piece(b * num_heads * tq * 3)
+              + _piece(b * num_heads * tq * tk) * has_bias
+              + _piece(4 * _MAX_GROUPS * c * (c + 1))
+              + _piece(-(-mq // _ROW_TILE) * 2 * c)
+              + _piece(2 * _ROPE_GROUPS * (tq + tk) * c) * rope
+              + _piece(mq * c) * (kw["pos"] is not None))
     work = _work(floats, x)
     name = "ln_attn_bwd" + "_long" * long + "_bf16" * bf16
     _build.launch(name, a["x"], a["pos"], a["kv"], a["ln_w"], a["ln_b"],

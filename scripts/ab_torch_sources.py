@@ -12,8 +12,8 @@ backward WB-long, WMB-long, WB4-long) from every build in turns.
 
   python3 scripts/ab_torch_sources.py --parent DIR [--label NAME]
       [--parent DIR2 --label NAME2 ...] [--skip-raster]
-      [--fp32-only | --fused-only | --raster-only] [--steps] [--images]
-      [--turns N] [--json PATH]
+      [--fp32-only | --fused-only | --fused-bwd-only | --raster-only]
+      [--steps] [--images] [--turns N] [--json PATH]
 
 DIR holds the parent's `gsasr_torch/ops/csrc` (for example
 `git archive <parent> gsasr_torch/ops | tar -x -C DIR`; with the parent's
@@ -77,6 +77,22 @@ entry points are swapped into the port's loaded kernels
 (RB through rasterizer.raster_bwd), and the rest of the port is this
 tree's. Each kernel's registers in every build are printed beside its
 form.
+
+--fused-bwd-only builds ln_mlp_bwd.cu, ln_attn_bwd.cu and window_attn_bwd.cu
+(whose attention bodies AB shares) alone and times, from every build in
+turns, kernels MB, AB and AB-long (`_fused_bwd_ab`: the paper step's 256
+windows of 144 tokens at 180 channels in fp32, the Enhanced step's at 192
+in bf16 and fp32, the Ultra step's 128 windows of 256 tokens at 192), each
+build held to the plain version (GRAD_TOL in fp32, relative L2 2^-7 in
+bf16) and to the same bits twice, one call a time and ten back to back,
+with WB, WMB, WB4 and the window-16 backward (WB-long, WMB-long, WB4-long)
+as the shared bodies' guard and WB-bf16 and WB-long-bf16 beside them; with
+--steps the fused steps (`_fused_steps_ab`: chip_smoke.py's paper EDSR
+step in fp32, Enhanced EDSR step and HAT-L Ultra step at their bf16
+recipes, each with fused_decoder=True) with the first build's and this
+tree's MB, AB and attention sources swapped in, in --turns pairs of
+turns: the wall time of a step (median of three) and the device time of
+one profiled step (the summed kernel time, torch.profiler).
 """
 
 from __future__ import annotations
@@ -89,17 +105,18 @@ import os
 import re
 import subprocess
 import sys
+import time
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, ROOT)
 
 SOURCES = ("raster_fwd", "raster_bwd", "window_attn_fwd", "window_attn_bwd",
-           "ln_mlp", "ln_attn", "ln_attn_bwd")
+           "ln_mlp", "ln_attn", "ln_mlp_bwd", "ln_attn_bwd")
 # kernels R's and RB's sources
 RASTER = ("raster_fwd", "raster_bwd")
 # The sources whose entry points --steps and --images swap in turns
 SWAPPED = ("window_attn_fwd", "window_attn_bwd", "ln_mlp", "ln_attn",
-           "raster_fwd", "raster_bwd")
+           "raster_fwd", "raster_bwd", "ln_mlp_bwd", "ln_attn_bwd")
 # chip_smoke.train_phase's arguments of the steps --steps times: the paths
 # of the fp32 window attentions, and with --raster-only the steps R's and
 # RB's share of which moves most (the paper step and the Ultra bf16 step)
@@ -110,6 +127,8 @@ STEPS = {"paper EDSR step": dict(encoder="edsr"),
          "HAT-L Ultra bf16 step": dict(encoder="hat", ultra="bfloat16")}
 # M's and A's sources, which every build compiles
 FUSED = ("ln_mlp", "ln_attn")
+# MB's and AB's sources, and WB's, whose attention bodies AB runs
+FUSED_BWD = ("ln_mlp_bwd", "ln_attn_bwd", "window_attn_bwd")
 
 
 def _registers(log: str) -> dict:
@@ -749,6 +768,11 @@ def main() -> int:
     only.add_argument("--fused-only", action="store_true",
                       help="build ln_mlp.cu and ln_attn.cu alone and time "
                       "only kernels M, A and A-long")
+    only.add_argument("--fused-bwd-only", action="store_true",
+                      help="build ln_mlp_bwd.cu, ln_attn_bwd.cu and "
+                      "window_attn_bwd.cu alone and time kernels MB, AB and "
+                      "AB-long, and WB's bodies beside them; with --steps "
+                      "the fused paper, Enhanced and Ultra steps")
     only.add_argument("--raster-only", action="store_true",
                       help="build raster_fwd.cu and raster_bwd.cu alone and "
                       "time only kernels R and RB, from every build")
@@ -793,6 +817,8 @@ def main() -> int:
     fp32 = ("window_attn_fwd", "window_attn_bwd")
     if args.fused_only:
         sources = variant = FUSED
+    elif args.fused_bwd_only:
+        sources = variant = FUSED_BWD
     elif args.fp32_only:
         sources = variant = fp32
     elif args.raster_only:
@@ -821,8 +847,30 @@ def main() -> int:
                        if t not in (old, "change") and t in r)
         print(f"  {key[:120]}: {r.get(old)} -> {r.get('change')}{rest}"
               f"{mark}", flush=True)
-    times, attn, fused = {}, {}, {}
+    times, attn, fused, fused_bwd = {}, {}, {}, {}
     fwd_fp32 = short_fp32 = long_fp32 = {}
+    swapped = [src for src in SWAPPED if src in sources]
+    steps = images = {}
+    if args.fused_bwd_only:
+        print("kernels MB, AB and AB-long:", flush=True)
+        fused_bwd = _fused_bwd_ab(cs, out_dir, regs, tuple(dirs))
+        print("the fp32 backward up to 160 tokens (AB's fp32 body):",
+              flush=True)
+        short_fp32 = _fp32_short_bwd_ab(cs, out_dir, tuple(dirs), sigs)
+        print("the fp32 window-16 backward (AB-long's fp32 body):",
+              flush=True)
+        long_fp32 = _long_fp32_ab(cs, out_dir, regs, tuple(dirs))
+        if args.steps:
+            print("fused steps in turns:", flush=True)
+            steps = _fused_steps_ab(cs, out_dir, (old, "change"), sigs,
+                                    swapped, args.turns)
+        if args.json:
+            with open(args.json, "w") as f:
+                json.dump(dict(card=card, registers=regs,
+                               fused_bwd=fused_bwd, short_fp32=short_fp32,
+                               long_fp32=long_fp32, steps=steps), f,
+                          indent=1)
+        return 0
     if args.raster_only:
         print("kernels R and RB:", flush=True)
         times = _raster_ab(cs, out_dir, tuple(dirs), sigs)
@@ -841,8 +889,6 @@ def main() -> int:
         short_fp32 = _fp32_short_bwd_ab(cs, out_dir, tuple(dirs), sigs)
         print("the fp32 window-16 backward:", flush=True)
         long_fp32 = _long_fp32_ab(cs, out_dir, regs, tuple(dirs))
-    swapped = [src for src in SWAPPED if src in sources]
-    steps = images = {}
     if args.steps:
         print("steps in turns:", flush=True)
         steps = _steps_ab(cs, out_dir, (old, "change"), sigs, swapped,
@@ -1040,6 +1086,400 @@ def _fused_fwd_ab(cs, out_dir, regs, tags, sigs):
                 f"{t} {dmed[t]:.4f}" for t in tags)
             + f" ms (bound {bound:.4f} by {by})", flush=True)
     return dict(rows=rows, registers=kregs)
+
+
+# The kernels of MB and AB in ptxas's report: this tree's tensor-core
+# kernels (MB's two row-tile launches, AB's row products and recompute, the
+# weight gradients) and the FMA kernels of a parent's build (its row
+# products, weight-gradient partials and AB's and AB-long's attention).
+FUSED_BWD_KERNELS = ("ln_fc1_kernel", "ln_mlp_bwd_kernel", "rows_bwd_kernel",
+                     "wgrad_mma_kernel", "ln_qkv_kernel",
+                     "window_attn_bwd_short_", "window_attn_bwd_long_",
+                     "linear_rows_kernel", "wgrad_partial_kernel",
+                     "window_attn_bwd_kernel")
+# Floats of scratch passed to every build's MB and AB: enough for the
+# parent's layout and this tree's at every case below (the kernels check
+# the size they are given against what they need).
+BWD_WORK_FLOATS = 160 * 2 ** 20
+
+
+def _fused_bwd_ab(cs, out_dir, regs, tags):
+    """Kernels MB, AB and AB-long from every build in turns (tags +
+    reversed + tags) at the fused steps' shapes with seeded weights: MB at
+    the paper step's 256 x 144 x 180 in fp32 (ln_inj, ln, resi), the
+    Enhanced step's 256 x 144 x 192 in bf16 (ln_inj, ln, zero_base) and
+    fp32 (ln), and the Ultra step's 128 x 256 x 192 in bf16 and fp32 (ln);
+    AB at the paper step's 256 x 144 x 180 x 6 heads in fp32 (cross with
+    pos, kv and a bias; self with a bias) and the Enhanced step's with RoPE
+    (cross with pos and kv, self) in bf16 and fp32 (self), and a bias in
+    bf16; AB-long at the Ultra step's 128 x 256 x 192 with RoPE in bf16
+    (cross, self) and fp32 (self), and a bias in fp32. Each build held to
+    the plain version (chip_smoke.py's GRAD_TOL, or relative L2 2^-7 in
+    bf16) and to the same bits twice; ms one call a time and ten back to
+    back, the speed-up of the change over each other build, the bound (fp32:
+    the products in 3xTF32 at the TF32 peak; bf16 at the bf16 peak) and the
+    registers of each build's kernels."""
+    import torch
+
+    from gsasr_torch.models.fea2gs_rope_fast import rope_tables
+    from gsasr_torch.ops import _build
+    from gsasr_torch.ops import fused_layers as fl
+
+    names = ("ln_mlp_bwd", "ln_mlp_bwd_bf16", "ln_attn_bwd",
+             "ln_attn_bwd_bf16", "ln_attn_bwd_long", "ln_attn_bwd_long_bf16")
+    entries = {}
+    for tag in tags:
+        for name in names:
+            fn = getattr(ctypes.CDLL(os.path.join(
+                out_dir, f"{tag}_{_build.source_of(name)}.so")), name)
+            fn.argtypes = [_build._CTYPES[k] for k in _build.SIGNATURES[
+                name]] + [ctypes.c_void_p]
+            fn.restype = ctypes.c_int
+            entries[tag, name] = fn
+    print("registers of MB's and AB's kernels:", flush=True)
+    kregs = {}
+    for key, r in sorted(regs.items()):
+        if key.split(" ")[0] in FUSED_BWD[:2] and any(
+                k in key for k in FUSED_BWD_KERNELS):
+            kregs[key] = r
+            print(f"  {key[:110]}: " + ", ".join(
+                f"{t} {r.get(t)}" for t in tags), flush=True)
+    dev = torch.device("cuda")
+    gen = torch.Generator().manual_seed(53)
+    rnd = lambda *s: torch.randn(*s, generator=gen).to(dev)  # noqa: E731
+    f32, bf16 = torch.float32, torch.bfloat16
+    work = torch.empty(BWD_WORK_FLOATS, dtype=f32, device=dev)
+
+    def call(tag, name, *args):
+        err = entries[tag, name](*[
+            a.data_ptr() if isinstance(a, torch.Tensor) else a
+            for a in args], torch.cuda.current_stream().cuda_stream)
+        if err:
+            raise RuntimeError(f"the {tag}'s {name} failed: cudaError {err}")
+
+    # (kernel, case, type, windows, Tq, Tk, C, options)
+    cases = [("MB", "paper", f32, 256, 144, 144, 180, o)
+             for o in ("ln_inj", "ln", "resi")]
+    cases += [("MB", "Enhanced", bf16, 256, 144, 144, 192, o)
+              for o in ("ln_inj", "ln", "zero_base")]
+    cases += [("MB", "Enhanced", f32, 256, 144, 144, 192, "ln")]
+    cases += [("MB", "Ultra", dt, 128, 256, 256, 192, "ln")
+              for dt in (bf16, f32)]
+    cases += [("AB", "paper", f32, 256, 144, 144, 180, o)
+              for o in ("cross_bias", "self_bias")]
+    cases += [("AB", "Enhanced", bf16, 256, 144, 144, 192, o)
+              for o in ("rope_cross", "rope_self", "bias_self")]
+    cases += [("AB", "Enhanced", f32, 256, 144, 144, 192, "rope_self")]
+    cases += [("AB-long", "Ultra", bf16, 128, 256, 256, 192, o)
+              for o in ("rope_cross", "rope_self")]
+    cases += [("AB-long", "Ultra", f32, 128, 256, 256, 192, o)
+              for o in ("rope_self", "bias_self")]
+    rows = []
+    for kind, case, dt, b, tq, tk, c, opts in cases:
+        is_bf16 = dt == bf16
+        x, g = rnd(b, tq, c).to(dt), rnd(b, tq, c).to(dt)
+        m = b * tq
+        if kind == "MB":
+            kw = dict(w1=rnd(c, c) / 14, b1=rnd(c), w2=rnd(c, c) / 14,
+                      b2=rnd(c), zero_base=opts == "zero_base")
+            if opts in ("ln_inj", "ln"):
+                kw.update(ln_w=1 + 0.1 * rnd(c), ln_b=0.1 * rnd(c))
+            if opts == "ln_inj":
+                kw.update(inj=rnd(b, c))
+            if opts == "resi":
+                kw.update(resi=rnd(b, tq, c).to(dt))
+            ref = fl.ln_mlp_residual_bwd_plain(x, g, **kw)
+            names_out = ("dx", "dresi", "dinj", "dln_w", "dln_b", "dw1",
+                         "db1", "dw2", "db2")
+            name = "ln_mlp_bwd" + "_bf16" * is_bf16
+            base_is_t = int(opts not in ("resi", "zero_base"))
+
+            def launch(tag, outs):
+                (dx, dinj, dln, dw1, db1, dw2, db2) = outs
+                call(tag, name, x, kw.get("inj"), kw.get("ln_w"),
+                     kw.get("ln_b"), kw["w1"], kw["b1"], kw["w2"], g, dx,
+                     dinj, dln, dw1, db1, dw2, db2, work, BWD_WORK_FLOATS,
+                     m, tq, c, c, base_is_t)
+
+            def new_outs():
+                e = dict(dtype=f32, device=dev)
+                return (torch.empty_like(x),
+                        torch.empty(b, c, dtype=dt, device=dev)
+                        if "inj" in kw else None,
+                        torch.empty(2, c, **e) if "ln_w" in kw else None,
+                        torch.empty(c, c, **e), torch.empty(c, **e),
+                        torch.empty(c, c, **e), torch.empty(c, **e))
+
+            def as_ref(outs):
+                dx, dinj, dln, dw1, db1, dw2, db2 = outs
+                return (dx, g if "resi" in kw else None, dinj,
+                        None if dln is None else dln[0],
+                        None if dln is None else dln[1], dw1, db1, dw2, db2)
+            flops = 10.0 * m * c * c
+            act = 2 if is_bf16 else 4
+            nbytes = act * 3 * m * c + 4 * 4 * c * c
+        else:
+            nh = 6
+            kw = {k: rnd(c, c) / 14 if k[0] == "w" else rnd(c)
+                  for k in ("wq", "bq", "wk", "bk", "wv", "bv", "wo", "bo")}
+            kw.update(ln_w=1 + 0.1 * rnd(c), ln_b=0.1 * rnd(c))
+            if "cross" in opts:
+                kw.update(pos=rnd(tq, c).to(dt), kv=rnd(b, tk, c).to(dt))
+            if opts.startswith("rope"):
+                side = int(round(max(tq, tk) ** 0.5))
+                cos, sin = rope_tables(0.5 * rnd(2, nh, c // nh // 2), side,
+                                       max(tq, tk))
+                kw.update(rope_cos_q=cos[:tq].contiguous(),
+                          rope_sin_q=sin[:tq].contiguous(),
+                          rope_cos_k=cos[:tk].contiguous(),
+                          rope_sin_k=sin[:tk].contiguous())
+            else:
+                kw.update(bias=0.5 * rnd(nh, tq, tk))
+            ref = fl.ln_attn_proj_bwd_plain(x, g, num_heads=nh, **kw)
+            names_out = ("dx", "dpos", "dkv", "dln_w", "dln_b", "dwq", "dbq",
+                         "dwk", "dbk", "dwv", "dbv", "dwo", "dbo", "dbias",
+                         "dcos_q", "dsin_q", "dcos_k", "dsin_k")
+            a = {**dict.fromkeys(("bias", "pos", "kv") + fl._ROPE), **kw}
+            name = ("ln_attn_bwd" + "_long" * (kind == "AB-long")
+                    + "_bf16" * is_bf16)
+            scale = float((c // nh) ** -0.5)
+            rope = a["rope_cos_q"] is not None
+
+            def launch(tag, outs):
+                call(tag, name, x, a["pos"], a["kv"], a["ln_w"], a["ln_b"],
+                     a["wq"], a["bq"], a["wk"], a["bk"], a["wv"], a["bv"],
+                     a["wo"], a["bias"], *(a[r] for r in fl._ROPE), g,
+                     *outs, work, BWD_WORK_FLOATS, b, tq, tk, c, nh, scale)
+
+            def new_outs():
+                e = dict(dtype=f32, device=dev)
+                return (torch.empty_like(x),
+                        torch.empty(b, tk, c, dtype=dt, device=dev)
+                        if a["kv"] is not None else None,
+                        torch.empty(tq, c, dtype=dt, device=dev)
+                        if a["pos"] is not None else None,
+                        torch.empty(2, c, **e),
+                        *[torch.empty(*s, **e) for _ in range(4)
+                          for s in ((c, c), (c,))],
+                        torch.empty(nh, tq, tk, **e)
+                        if a["bias"] is not None else None,
+                        *([torch.empty(n, c, **e) for n in (tq, tq, tk, tk)]
+                          if rope else [None] * 4))
+
+            def as_ref(outs):
+                dx, dkv, dpos, dln = outs[:4]
+                return (dx, dpos, dkv, dln[0], dln[1], *outs[4:])
+            flops = 2.0 * b * (11 * tq * c * c + 6 * tq * tk * c)
+            act = 2 if is_bf16 else 4
+            nbytes = (act * 3 * m * c + 4 * 8 * c * c
+                      + (4 * 2 * nh * tq * tk if "bias" in opts else 0))
+        outs = {}
+
+        def run(tag):
+            outs[tag] = new_outs()
+            launch(tag, outs[tag])
+
+        order = list(tags) + list(tags)[::-1] + list(tags)
+        ms = {tag: [] for tag in tags}
+        dev_ms = {tag: [] for tag in tags}
+        for tag in order:
+            ms[tag].append(cs._time_ms(lambda: run(tag), 10))
+            dev_ms[tag].append(cs._batch_ms(lambda: run(tag)))
+        errs = {}
+        for tag in tags:
+            first = outs[tag]
+            run(tag)
+            if not all(p is None or torch.equal(p, q)
+                       for p, q in zip(first, outs[tag])):
+                raise AssertionError(f"{kind} {case} {opts} {tag}: not the "
+                                     "same bits twice")
+            errs[tag] = cs._compare_grads(
+                as_ref(first), ref, names_out,
+                f"{kind} {case} {opts} {dt} {tag}",
+                {"dbk": "dwk"} if kind != "MB" else None,
+                cs.BWD_BF16_TOL if is_bf16 else cs.GRAD_TOL, l2=is_bf16)
+        bound, by = (cs._bound_ms(flops, nbytes, cs.PEAK_BF16) if is_bf16
+                     else cs._bound_ms(3 * flops, nbytes, cs.PEAK_TF32))
+        med = {tag: sorted(v)[len(v) // 2] for tag, v in ms.items()}
+        dmed = {tag: sorted(v)[len(v) // 2] for tag, v in dev_ms.items()}
+        rows.append(dict(kernel=kind, case=case, options=opts,
+                         dtype=str(dt).replace("torch.", ""), windows=b,
+                         ms=ms, dev_ms=dev_ms,
+                         speedup={t: med[t] / med["change"]
+                                  for t in tags if t != "change"},
+                         bound_ms=bound, bound_by=by, max_abs_err=errs))
+        speed = ", ".join(f"{med[t] / med['change']:.2f}x over {t}"
+                          for t in tags if t != "change")
+        print(f"  {kind} {case} {opts} {rows[-1]['dtype']}: " + ", ".join(
+            f"{t} {[round(v, 4) for v in ms[t]]}" for t in tags)
+            + f" ms; {speed}; back to back " + ", ".join(
+                f"{t} {dmed[t]:.4f}" for t in tags)
+            + f" ms (bound {bound:.4f} by {by})", flush=True)
+    rows += _bf16_bodies_ab(cs, out_dir, tags)
+    return dict(rows=rows, registers=kregs)
+
+
+def _bf16_bodies_ab(cs, out_dir, tags):
+    """WB-bf16 at the Enhanced step's 256 x 6 x 144 x 32 and WB-long-bf16
+    at the Ultra step's 128 x 6 x 256 x 32 (no bias), from every build in
+    turns: the bf16 bodies whose AB form this tree adds, each build the
+    same bits twice and the largest difference from the first build's."""
+    import torch
+
+    from gsasr_torch.ops import _build
+
+    dev = torch.device("cuda")
+    gen = torch.Generator().manual_seed(57)
+    rnd = lambda *s: torch.randn(*s, generator=gen).to(dev)  # noqa: E731
+    rows = []
+    for form, name, b, t in (("WB-bf16", "window_attn_bwd_bf16", 256, 144),
+                             ("WB-long-bf16", "window_attn_bwd_long_bf16",
+                              128, 256)):
+        c, nh = 192, 6
+        ents = {}
+        for tag in tags:
+            fn = getattr(ctypes.CDLL(os.path.join(
+                out_dir, f"{tag}_{_build.source_of(name)}.so")), name)
+            fn.argtypes = [_build._CTYPES[k] for k in _build.SIGNATURES[
+                name]] + [ctypes.c_void_p]
+            fn.restype = ctypes.c_int
+            ents[tag] = fn
+        q, k, v, g = (rnd(b, t, c).to(torch.bfloat16) for _ in range(4))
+        stats = torch.empty(b * nh * t * 3, device=dev)
+        outs = {}
+
+        def run(tag):
+            dq, dk, dv = (torch.empty_like(q) for _ in range(3))
+            args = ((q, k, v, None, g, dq, dk, dv, None, None)
+                    if name == "window_attn_bwd_bf16" else
+                    (q, k, v, None, g, dq, dk, dv, stats, None, None))
+            err = ents[tag](*[a.data_ptr() if isinstance(a, torch.Tensor)
+                              else a for a in args], b, t, t, c, nh,
+                            float((c // nh) ** -0.5),
+                            torch.cuda.current_stream().cuda_stream)
+            if err:
+                raise RuntimeError(f"the {tag}'s {name}: cudaError {err}")
+            outs[tag] = (dq, dk, dv)
+
+        ms = {tag: [] for tag in tags}
+        for tag in list(tags) + list(tags)[::-1] + list(tags):
+            ms[tag].append(cs._time_ms(lambda: run(tag), 10))
+        first = tags[0]
+        diff = {}
+        for tag in tags:
+            was = outs[tag]
+            run(tag)
+            if not all(torch.equal(p, r) for p, r in zip(was, outs[tag])):
+                raise AssertionError(f"{form} {tag}: not the same bits twice")
+            diff[tag] = max(float((p.float() - r.float()).abs().max())
+                            for p, r in zip(outs[tag], outs[first]))
+        rows.append(dict(kernel=form, case=f"{b} x {nh} x {t} x {c // nh}",
+                         options="no bias", dtype="bfloat16", windows=b,
+                         ms=ms, max_diff_from_first=diff))
+        print(f"  {form} {b}x{nh}x{t}x{c // nh}: " + ", ".join(
+            f"{tg} {[round(x_, 4) for x_ in ms[tg]]}" for tg in tags)
+            + f" ms; largest difference from the {first}'s: {diff}",
+            flush=True)
+    return rows
+
+
+# The fused steps --fused-bwd-only --steps times: (networks, recipe, batch)
+FUSED_STEPS = ("paper EDSR fp32 fused step", "Enhanced EDSR bf16 fused step",
+               "HAT-L Ultra bf16 fused step")
+
+
+def _fused_steps_ab(cs, out_dir, tags, sigs, srcs, turns):
+    """The fused steps of FUSED_STEPS with each build's entry points of
+    `srcs` (MB's, AB's and WB's sources) in turns (`_turns`; `_swapper`),
+    the rest of the port this tree's, on one Trainer each (fused_decoder
+    =True): per turn two warm-up steps, the median wall time of three steps
+    (host clock, synchronised), and the device time of one step under
+    torch.profiler (its kernels' summed time), with the launch counts of
+    MB, AB and AB-long per step."""
+    import gc
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from gsasr_torch.model import make_models
+    from gsasr_torch.train import TrainConfig, Trainer
+
+    kernels = cs.kernel_wrappers()
+    swap = _swapper(out_dir, tags, sigs, srcs)
+    work = torch.empty(BWD_WORK_FLOATS, dtype=torch.float32, device="cuda")
+    out = {}
+    for label in FUSED_STEPS:
+        ultra = "Ultra" in label
+        if label.startswith("paper"):
+            enc, dec = make_models("edsr", "paper",
+                                   generator=torch.Generator().manual_seed(0))
+            recipe, ceil = cs.PAPER_TRAIN, False
+        else:
+            enc, dec = cs.enhanced_networks("hat" if ultra else "edsr")
+            recipe = cs.ULTRA_TRAIN if ultra else cs.ENHANCED_TRAIN
+            ceil = not ultra
+        tr = Trainer(enc, dec, TrainConfig(**dict(recipe,
+                                                  fused_decoder=True)))
+        batches = [cs.paper_batch(cs.ULTRA_BATCH if ultra else
+                                  cs.PAPER_BATCH, seed=30 + i, ceil=ceil,
+                                  ultra=ultra) for i in range(3)]
+        res = {tag: dict(wall_ms=[], device_ms=[]) for tag in tags}
+        counts = None
+        for tag in _turns(tags, turns):
+            swap(tag)
+            _big_work(work)
+            for i in range(2):
+                tr.step(batches[i % 3])
+            torch.cuda.synchronize()
+            walls = []
+            for i in range(3):
+                t0 = time.perf_counter()
+                tr.step(batches[i])
+                torch.cuda.synchronize()
+                walls.append((time.perf_counter() - t0) * 1e3)
+            before = {k: f.launches for k, f in kernels.items()}
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                tr.step(batches[0])
+                torch.cuda.synchronize()
+            dev_ms = sum(e.self_device_time_total for e in
+                         prof.key_averages()
+                         if e.device_type == torch.autograd.DeviceType.CUDA
+                         and not getattr(e, "is_user_annotation", False)
+                         ) / 1e3
+            counts = {k: f.launches - before[k] for k, f in kernels.items()
+                      if k in ("MB", "AB", "AB-long")}
+            res[tag]["wall_ms"].append(sorted(walls)[1])
+            res[tag]["device_ms"].append(dev_ms)
+        out[label] = dict(res, launches=counts)
+        print(f"  {label}: " + "; ".join(
+            f"{t} wall {[round(v, 1) for v in r['wall_ms']]} ms, device "
+            f"{[round(v, 1) for v in r['device_ms']]} ms"
+            for t, r in res.items()) + f"; launches {counts}", flush=True)
+        del tr, enc, dec, batches
+        gc.collect()
+        torch.cuda.empty_cache()
+    swap(None)
+    return out
+
+
+def _big_work(work):
+    """The loaded MB and AB entry points (the port's wrappers call them)
+    wrapped to take `work` (BWD_WORK_FLOATS floats) as their scratch: a
+    parent's layout may need more scratch than this tree's wrappers give."""
+    from gsasr_torch.ops import _build
+
+    for name in ("ln_mlp_bwd", "ln_mlp_bwd_bf16", "ln_attn_bwd",
+                 "ln_attn_bwd_bf16", "ln_attn_bwd_long",
+                 "ln_attn_bwd_long_bf16"):
+        fn = _build._libs[name]
+        at = _build.SIGNATURES[name].index("i") - 1  # the work pointer
+
+        def call(*a, fn=fn, at=at):
+            a = list(a)
+            a[at], a[at + 1] = work.data_ptr(), BWD_WORK_FLOATS
+            return fn(*a)
+        _build._libs[name] = call
 
 
 def _swapper(out_dir, tags, sigs, srcs):

@@ -54,6 +54,16 @@ sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
 
 FAMILIES = (
     ("R raster_fwd", ("raster_fwd_kernel",)),
+    # AB-bf16's and AB-long-bf16's attention backward: WB-bf16's and
+    # WB-long-bf16's bodies in their AB form (TO = float), before the WB
+    # forms' names match them
+    ("AB-bf16 attention (WB-bf16's body, AB form)",
+     ("window_attn_bwd_short_mma_kernel<false, false, 4, float",
+      "window_attn_bwd_short_mma_kernel<false, false, 9, float",
+      "window_attn_bwd_short_mma_kernel<false, false, 10, float")),
+    ("AB-long-bf16 attention (WB-long-bf16's launches, AB form)",
+     ("window_attn_bwd_long_mma_q_kernel<false, false, float",
+      "window_attn_bwd_long_mma_kv_kernel<false, false, float")),
     # the bf16 window-16 forms on the tensor cores: W-long-bf16 (with its
     # flags WM-long-bf16, W4-long-bf16, and A-long-bf16's attention) and
     # WB-long-bf16's two launches (WMB-long-bf16, WB4-long-bf16)
@@ -77,19 +87,16 @@ FAMILIES = (
     # attention launch, the same kernel; their projections below
     ("W-long window_attn_fwd long tf32, A and A-long fp32 attention",
      ("window_attn_fwd_long_tf32_kernel",)),
-    # AB-long's attention backward: the window-16 FMA body's launches on
-    # AB's f32 scratch, forming att (kAtt) and, in bf16, rounding as
-    # AB-bf16 (kRnd)
-    ("AB-long attention (bf16)",
-     ("window_attn_bwd_long_q_kernel<float, true, true",
-      "window_attn_bwd_long_kv_kernel<float, true")),
-    ("AB-long attention (fp32)",
-     ("window_attn_bwd_long_q_kernel<float, true, false",
-      "window_attn_bwd_long_kv_kernel<float, false")),
     # WB-long (and WB4-long): the 3xTF32 body's dq / row-statistics and
-    # dk / dv launches; WB (and WB4) up to 160 tokens: its one launch
-    ("WB-long window_attn_bwd long tf32", ("window_attn_bwd_long_tf32",)),
-    ("WB window_attn_bwd short tf32", ("window_attn_bwd_short_tf32",)),
+    # dk / dv launches; WB (and WB4) up to 160 tokens: its one launch; AB's
+    # and AB-long's fp32 attention runs the same kernels
+    ("WB-long window_attn_bwd long tf32 (and AB-long's fp32 attention)",
+     ("window_attn_bwd_long_tf32",)),
+    ("WB window_attn_bwd short tf32 (and AB's fp32 attention)",
+     ("window_attn_bwd_short_tf32",)),
+    # AB's recompute: A's projections with the backward's extra outputs
+    ("AB, AB-long recompute (q/k/v, xq, q0, k0)",
+     ("ln_qkv_kernel<float, true", "ln_qkv_kernel<__nv_bfloat16, true")),
     # A's and A-long's projections on the tensor cores (tile_mma.cuh)
     ("A, A-long q/k/v projections", ("ln_qkv_kernel",)),
     ("A, A-long out-projection", ("out_proj_kernel",)),
@@ -108,20 +115,19 @@ FAMILIES = (
     # WM is a kernel of its own over W's body
     ("WM window_attn_fwd masked", ("window_attn_fwd_masked_kernel",)),
     ("W window_attn_fwd", ("window_attn_fwd_kernel",)),
-    # AB's attention backward, the FMA body that WB ran before; the sum of
-    # ds over the windows is every form's dbias
-    ("AB attention, dbias sums",
-     ("window_attn_bwd_kernel", "dbias_sum_kernel")),
+    # the sum of ds over the windows: every form's dbias
+    ("dbias sums", ("dbias_sum_kernel",)),
     ("M ln_mlp", ("ln_mlp_kernel",)),
-    ("MB, AB tile products", ("linear_rows_kernel",)),
-    ("MB, AB weight gradients", ("wgrad_partial_kernel",
-                                 "wgrad_reduce_kernel")),
-    ("MB, AB LN rows and ordered sums", ("ln_rows_kernel",
-                                         "ln_bwd_rows_kernel",
-                                         "sum_terms_kernel")),
-    ("MB, AB RoPE passes and bf16 conversions", ("rope_rows_kernel",
-                                                 "rope_back_kernel",
-                                                 "gsasr::convert_kernel")),
+    # MB's two row-tile launches and AB's row products with the LN backward
+    # (tile_mma_bwd.cuh)
+    ("MB row tiles (fc1; g w2, dz1 w1, LN backward)",
+     ("ln_fc1_kernel", "ln_mlp_bwd_kernel")),
+    ("AB row products (g wo; dxq, dkv with the LN backward)",
+     ("rows_bwd_kernel",)),
+    ("MB, AB weight gradients", ("wgrad_mma_kernel", "wgrad_sum_kernel")),
+    ("MB, AB ordered sums, transposed weights, RoPE back-rotation",
+     ("ordered_sum_kernel", "inj_sum_kernel", "wt_kernel",
+      "rope_back_kernel")),
     ("T bias_table_bwd", ("bias_table_bwd_kernel",)),
     # before the products: cuDNN's implicit-GEMM kernels also say "gemm"
     ("cuDNN convolutions", ("fprop", "conv", "cudnn", "winograd")),

@@ -945,10 +945,10 @@ def test_window_attn_masked_forms_match_plain_and_repeat(cuda, b, nw, tq, tk,
 def test_window_attn_bwd_kernels_do_not_spill(cuda):
     """ptxas's report of WB's source (the 3xTF32 tensor-core body that WB,
     WMB, WB4 and their window-16 forms run, and the bf16 bodies), and the
-    attention kernels of AB's source (AB's FMA body, and AB-long's launches
-    of the window-16 FMA body in their att and bf16-rounding
-    instantiations): no kernel spills a register to local memory, and WB's
-    source keeps no instantiation of the FMA body."""
+    attention kernels of AB's source (WB's tensor-core bodies: the fp32
+    ones as WB and WB-long instantiate them, the bf16 ones in AB's form,
+    TO = float): no kernel spills a register to local memory, and neither
+    source keeps an FMA attention body."""
     import re
 
     from gsasr_torch.ops import _build
@@ -968,15 +968,94 @@ def test_window_attn_bwd_kernels_do_not_spill(cuda):
         assert spills and all(v == ("0", "0") for v in spills.values()), \
             spills
         if key:
-            assert sum("window_attn_bwd_long_q_kernelIfLb1E" in k
-                       for k in spills) == 2, sorted(spills)
-            assert sum("window_attn_bwd_kernel" in k for k in spills) == 2
+            assert not any("window_attn_bwd_kernel" in k
+                           or "window_attn_bwd_long_q_kernel" in k
+                           or "window_attn_bwd_long_kv_kernel" in k
+                           for k in spills), sorted(spills)
+            # AB: the short 3xTF32 body in its two block sizes, WB-long's
+            # two launches; AB-bf16: WB-bf16's body in its three chunk
+            # counts, AB-long-bf16: WB-long-bf16's two launches (TO = float)
+            assert sum("_short_tf32_" in k for k in spills) == 2, spills
+            assert sum("_long_tf32_q_" in k or "_long_tf32_kv_" in k
+                       for k in spills) == 2, spills
+            assert sum("_short_mma_kernel" in k and "EfEE" in k
+                       for k in spills) == 3, spills
+            assert sum("_long_mma_" in k and "EfEE" in k
+                       for k in spills) == 2, spills
         else:
             assert not any("window_attn_bwd_kernel" in k or "_bwd_4d_" in k
                            for k in spills), sorted(spills)
             assert sum("_long_tf32_" in k for k in spills) == 6, spills
             # WB, WMB and WB4 up to 160 tokens in their two block sizes
             assert sum("_short_tf32_" in k for k in spills) == 6, spills
+
+
+@pytest.mark.parametrize("opts,bf16", [("ln_inj", False), ("ln", True),
+                                       ("zero_base", True), ("ln_inj", True),
+                                       ("zero_base", False)])
+def test_ln_mlp_bwd_ultra_matches_plain_and_repeats(cuda, opts, bf16):
+    """MB at the Ultra decoder's 256 tokens and 192 channels (row tiles of
+    128 inside each window; 9 windows) in both types and the decoder's
+    three option sets: against the plain version, and the same bits
+    twice."""
+    from gsasr_torch.ops import fused_layers as tf
+
+    r = _fused_inputs(cuda, 24)
+    b, t, c = 9, 256, 192
+    dt = torch.bfloat16 if bf16 else torch.float32
+    kw = dict(w1=r(c, c) / 14, b1=r(c), w2=r(c, c) / 14, b2=r(c),
+              zero_base=opts == "zero_base")
+    if opts != "zero_base":
+        kw.update(ln_w=1 + 0.1 * r(c), ln_b=0.1 * r(c))
+    if opts == "ln_inj":
+        kw.update(inj=r(b, c).to(dt))
+    x, g = r(b, t, c).to(dt), r(b, t, c).to(dt)
+    n = tf.ln_mlp_residual_bwd.launches
+    out = tf.ln_mlp_residual_bwd(x, g, **kw)
+    again = tf.ln_mlp_residual_bwd(x, g, **kw)
+    assert tf.ln_mlp_residual_bwd.launches == n + 2
+    ref = tf.ln_mlp_residual_bwd_plain(x, g, **kw)
+    for o, a, rf in zip(out, again, ref):
+        assert (o is None) == (rf is None)
+        if rf is not None:
+            assert torch.equal(o, a)  # bitwise repeatable: no atomics
+            _assert_bwd_close(o, rf, bf16)
+
+
+def test_fused_backward_kernels_fit(cuda):
+    """ptxas's report of ln_mlp_bwd.cu and ln_attn_bwd.cu: no kernel spills
+    a register, MB's and AB's tensor-core kernels are there in fp32 and
+    bf16 (MB's two row-tile launches, AB's row products, the weight
+    gradients, AB's recompute), and no FMA product or FMA attention kernel
+    is left."""
+    import re
+
+    from gsasr_torch.ops import _build
+
+    _build.build(["ln_mlp_bwd", "ln_attn_bwd"])
+    fma = ("linear_rows_kernel", "wgrad_partial_kernel",
+           "window_attn_bwd_kernel", "window_attn_bwd_long_q_kernel",
+           "window_attn_bwd_long_kv_kernel")
+    spills, name = {}, None
+    for src in ("ln_mlp_bwd", "ln_attn_bwd"):
+        for line in _build.ptxas_report(src).splitlines():
+            m = re.search(r"Compiling entry function '(\w+)'", line)
+            if m:
+                name = m.group(1)
+                assert not any(k in name for k in fma), name
+            sp = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill "
+                           r"loads", line)
+            if sp:
+                spills[src, name] = sp.groups()
+    assert spills and all(v == ("0", "0") for v in spills.values()), spills
+    for src, key, n in (("ln_mlp_bwd", "ln_fc1_kernel", 2),
+                        ("ln_mlp_bwd", "ln_mlp_bwd_kernel", 2),
+                        ("ln_mlp_bwd", "wgrad_mma_kernel", 2),
+                        ("ln_attn_bwd", "wgrad_mma_kernel", 2),
+                        ("ln_attn_bwd", "rows_bwd_kernel", 3),
+                        ("ln_attn_bwd", "ln_qkv_kernel", 2)):
+        assert sum(s == src and key in k for s, k in spills) == n, \
+            (src, key, sorted(spills))
 
 
 @pytest.mark.parametrize("opts,bf16", [("rope_cross", False),
