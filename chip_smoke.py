@@ -19,7 +19,9 @@
    AB's tensor-core kernels beside the FMA kernels' they replaced (a
    spill, or an FMA product or attention kernel left in their sources,
    fails the phase), and of R, R-exact and RB beside the recorded ones (a
-   kernel that spills fails the phase).
+   kernel that spills fails the phase), and of A's fp32 attention (W's
+   3xTF32 body up to 160 tokens, window_attn_short_tf32.cuh) beside
+   W-long's, which it ran before; A's times beside the recorded ones.
 3. Path phase: make_models("edsr", "paper") with seeded weights, then
    sr_forward on 180x180 x4 (the main shape), 173x151 x3.3 and a batch of
    two 96x96 x2, checking shapes, finiteness and the kernel launch counts.
@@ -30,9 +32,11 @@
 6. Training kernel phase (TF32 off): W, WB, R and RB against their plain
    versions at the paper training step's shapes (256 windows of 144 tokens;
    the 3072x192 slot canvas of 16 samples), WB, R and RB twice for bitwise
-   repeatability, with times, bounds (WB's products in 3xTF32 at the TF32
-   peak: it runs the 3xTF32 tensor-core body window_attn_short_tf32_bwd.cuh;
-   R's and RB's pairs at 24 and 35 FP32 operations), R's and RB's times
+   repeatability, with times, bounds (W's and WB's products in 3xTF32 at
+   the TF32 peak: they run the 3xTF32 tensor-core bodies
+   window_attn_short_tf32.cuh and window_attn_short_tf32_bwd.cuh; R's and
+   RB's pairs at 24 and 35 FP32 operations), W's times beside its FMA
+   body's and its registers beside the FMA body's 64, R's and RB's times
    beside the recorded ones and the SDPA yardstick for W and WB.
 7. Fused training kernel phase (TF32 off): MB and AB against their plain
    versions at the training step's shapes, for each option set the fused
@@ -63,8 +67,10 @@
    WB) against their plain versions at SwinIR's inference shape (576
    windows x 64 tokens x 180 channels, 6 heads, the SW-MSA mask of a
    192x192 map) and training shape (16 x 36 windows, period 36), WMB twice
-   for bitwise repeatability; W and WB at T = 64; times, bounds and the
-   SDPA yardstick with the bias and mask as a float mask.
+   for bitwise repeatability; W and WB at T = 64; times (W's and WM's
+   beside their FMA body's), bounds (in 3xTF32 at the TF32 peak, or the
+   bytes), WM's registers beside the FMA body's and the SDPA yardstick
+   with the bias and mask as a float mask.
 15. SwinIR path phase: make_models("swinir", "paper"), sr_forward with
    denominator 24 on the three requests of phase 3 (18 W and 18 WM more per
    forward than EDSR), a 48x48 request on the card against the CPU, and
@@ -204,17 +210,20 @@
    A-long 44, AB-long 44, R 1, RB 1 per step and nothing else).
 37. Exact render (TF32 off): gs_render(binning="exact") on
    scripts/bench_exact_render.py's workload (720x720, 518,400 Gaussians,
-   dmax 0.1): trained-like boxes launch R-exact once and nothing else,
-   init-like ones overflow the lists and launch R once; the lists' ok, the
-   build's ms (and its device time by kernel), the path's ms beside
-   binning="auto"'s; R-exact against its plain walk and against R on the
-   same Gaussians, twice for bits, with its ms, bound, memberships and
-   used chunks; one backward against binning="auto"'s gradients.
+   dmax 0.1): trained-like boxes launch the list build XB and R-exact once
+   and nothing else, init-like ones XB and, as the lists overflow, R once;
+   the path runs none of exact_tables' list-building torch ops (a spy and
+   the profiler's host ops); the lists' ok, XB against exact_tables
+   integer for integer and twice for bits, with its host and device ms,
+   the build's ms (sort, pad, XB; and its device time by kernel), the
+   path's ms beside binning="auto"'s; R-exact against its plain walk and
+   against R on the same Gaussians, twice for bits, with its ms, bound,
+   memberships and used chunks; one backward against binning="auto"'s
+   gradients.
 38. 4D window attention (TF32 off): W4 and WB4 (K14, K14b; bf16 forms and
-   the window-16 bodies: in fp32 W's FMA body up to 160 tokens, W-long's
-   3xTF32 tensor-core body beyond, WB's 3xTF32 body up to 160 tokens and
-   WB-long's beyond,
-   their times beside the FMA bodies' as recorded, in bf16 the tensor-core
+   the window-16 bodies: in fp32 W's 3xTF32 body up to 160 tokens, W-long's
+   beyond, WB's 3xTF32 body up to 160 tokens and WB-long's beyond, their
+   times beside the FMA bodies' as recorded, in bf16 the tensor-core
    bodies, all with the head-major flag)
    against their plain versions at the decoder's window (225 and 256
    windows x 6 heads x 144 x 30 fp32, 32 bf16) and HAT's (128 x 6 x 256 x
@@ -334,7 +343,7 @@ TRAIN_COUNTS = {"R": 1, "M": 0, "A": 0, "W": 38, "WB": 38, "RB": 1, "MB": 0,
                 "WB-long": 0, "WB-long-bf16": 0, "WM-bf16": 0,
                 "WMB-bf16": 0, "WM-long": 0, "WMB-long": 0,
                 "WM-long-bf16": 0, "WMB-long-bf16": 0, "AB-long": 0,
-                "R-exact": 0, "W4": 0, "W4-bf16": 0, "WB4": 0,
+                "R-exact": 0, "XB": 0, "W4": 0, "W4-bf16": 0, "WB4": 0,
                 "WB4-bf16": 0}
 FUSED_TRAIN_COUNTS = dict({k: 0 for k in TRAIN_COUNTS}, R=1, M=83, A=38,
                           RB=1, MB=83, AB=38, T=38)
@@ -481,8 +490,10 @@ LONG_REGS_RECORDED = {"W-long": (141,), "WM-long": (146,),
 # The times PERF.md §6 records for the fp32 window attentions on their FMA
 # bodies (NVIDIA H100 80GB HBM3 at 700.00 W): the window-16 backward
 # (window_attn_long_bwd.cuh) and forward (W-long's, A-long's attention),
-# and WB and WMB up to 160 tokens (window_attn_bwd.cuh), printed beside the
-# 3xTF32 bodies' by the phases that time them: by (form, case) as the
+# WB and WMB up to 160 tokens (window_attn_bwd.cuh), and W, WM and W4 up to
+# 160 tokens (W's FMA forward body; one call each, the last chip_smoke.py
+# run before the 3xTF32 body up to 160 tokens), printed beside the 3xTF32
+# bodies' by the phases that time them: by (form, case) as the training,
 # Ultra, Ultra training, SwinIR, masked and 4D attention phases name their
 # rows.
 FMA_MS = {("W-long", "HAB 256x256"): 0.826, ("W-long", "OCAB 256x576"): 1.881,
@@ -490,6 +501,12 @@ FMA_MS = {("W-long", "HAB 256x256"): 0.826, ("W-long", "OCAB 256x576"): 1.881,
           ("A-long", "rope_self float32"): 1.587,
           ("WM-long", "paper HAT training 16x48x48"): 1.092,
           ("WM-long", "paper HAT inference 192x192"): 0.988,
+          ("W", "cross"): 0.4100, ("W", "self"): 0.3962,
+          ("W", "swinir T=64"): 0.2880,
+          ("WM", "inference 192x192"): 0.3501,
+          ("WM", "training 16x48x48"): 0.3074,
+          ("W4", "decoder window, inference 225x6x144x30 float32"): 0.3924,
+          ("W4", "training 256x6x144x30 float32"): 0.4167,
           ("W4", "window 16 128x6x256x32 float32"): 0.7686,
           ("W4", "window 16 128x6x256x32 float32, no bias"): 0.7479,
           ("WB", "swinir T=64"): 0.802,
@@ -502,6 +519,9 @@ FMA_MS = {("W-long", "HAB 256x256"): 0.826, ("W-long", "OCAB 256x576"): 1.881,
               ("WMB-long", "paper HAT inference 192x192"): 4.083,
               ("WB4", "window 16 128x6x256x32 float32"): 3.0148,
               ("WB4", "window 16 128x6x256x32 float32, no bias"): 2.6885}
+# Kernel A (paper fp32, one call) as the same run timed it with its
+# attention on W-long's 3xTF32 body, printed beside this run's by phase 2.
+A_MS_RECORDED = {"cross_pos_kv_bias": 0.6366, "self_bias": 0.6686}
 # The paper HAT fp32 step on the FMA backward (PERF.md's unprofiled
 # median, the same card), printed beside the paper HAT training phase's.
 FMA_HAT_PAPER_STEP_MS = 793.2
@@ -982,9 +1002,14 @@ def kernel_phase(enc, dec, dev):
                                  f"{h}x{w}", per="per_image")["R"]]
     for k in ("M", "A"):
         for r in results[k]:
+            was = A_MS_RECORDED.get(r["case"]) if k == "A" else None
+            was = "" if was is None else (
+                f", with W-long's attention body as recorded {was}")
             print(f"  {k} {r['case']}: {r['ms']:.4f} ms (plain {r['plain_ms']:.4f},"
-                  f" bound {r['bound_ms']:.4f} by {r['bound_by']})", flush=True)
+                  f" bound {r['bound_ms']:.4f} by {r['bound_by']}{was})",
+                  flush=True)
     results["registers"] = fused_registers()
+    results["attention_registers"] = short_tf32_registers(["A"])
     results["raster_registers"] = raster_registers()
     return results
 
@@ -1300,9 +1325,10 @@ def train_kernel_phase(enc, dec, dev):
         ms = _time_ms(lambda: ta.window_attention_packed_fwd(*fargs), 20)
         plain = _time_ms(lambda: ta.window_attention_packed_plain(*fargs), 10)
         lib_f, lib_b, why = _sdpa_ms(q, k, v, bias[None], g, nh, scale)
-        bound, by = _bound_ms(4.0 * b * nh * t * tk * hd,
+        # two products, three TF32 products each on W's 3xTF32 body
+        bound, by = _bound_ms(12.0 * b * nh * t * tk * hd,
                               4 * (2 * b * t * c + 2 * b * tk * c
-                                   + nh * t * tk))
+                                   + nh * t * tk), PEAK_TF32)
         results["W"].append(dict(case=name, per_step=per_step,
                                  max_abs_err=err, ms=ms, plain_ms=plain,
                                  bound_ms=bound, bound_by=by,
@@ -1338,10 +1364,13 @@ def train_kernel_phase(enc, dec, dev):
         for r in results[k]:
             lib = "null" if r["library_ms"] is None else \
                 f"{r['library_ms']:.4f}"
+            fma = FMA_MS.get((k, r["case"]))
+            was = "" if fma is None else f", FMA body as recorded {fma}"
             print(f"  {k} {r['case']}: {r['ms']:.4f} ms (plain "
                   f"{r['plain_ms']:.4f}, bound {r['bound_ms']:.4f} by "
-                  f"{r['bound_by']}, library {lib}) x{r['per_step']} per "
-                  f"step", flush=True)
+                  f"{r['bound_by']}, library {lib}{was}) x{r['per_step']} "
+                  f"per step", flush=True)
+    results["registers"] = short_tf32_registers(["W"])
     return results
 
 
@@ -1467,7 +1496,8 @@ def swinir_kernel_phase(enc, dev):
     show the bits repeat; W and WB at T = 64 beside them (WB and WMB on the
     3xTF32 tensor-core body up to 160 tokens, bound by their products in
     3xTF32 at the TF32 peak or the bytes, their times beside the FMA body's
-    as recorded). The bias is the encoder's first shifted block's table."""
+    as recorded; W and WM likewise on the 3xTF32 forward body, with its
+    registers). The bias is the encoder's first shifted block's table."""
     from gsasr_torch.models.swinir import swin_attn_mask
     from gsasr_torch.ops import attention as ta
 
@@ -1501,8 +1531,9 @@ def swinir_kernel_phase(enc, dev):
             q, k, v, bias, scale, nh, mask), 10)
         lib_f, lib_b, why = _sdpa_ms(q, k, v, full, g, nh, scale)
         act = 4 * b * t * c
-        bound, by = _bound_ms(4.0 * b * nh * t * t * hd,
-                              4 * act + 4 * (nh + nw) * t * t)
+        # two products in 3xTF32 (WM's tensor-core body)
+        bound, by = _bound_ms(12.0 * b * nh * t * t * hd,
+                              4 * act + 4 * (nh + nw) * t * t, PEAK_TF32)
         results["WM"].append(dict(case=name, nW=nw, windows=b,
                                   max_abs_err=err, ms=ms, plain_ms=plain,
                                   bound_ms=bound, bound_by=by,
@@ -1537,7 +1568,8 @@ def swinir_kernel_phase(enc, dev):
     ms = _time_ms(lambda: ta.window_attention_packed_fwd(*fargs), 20)
     plain = _time_ms(lambda: ta.window_attention_packed_plain(*fargs), 10)
     lib_f, lib_b, why = _sdpa_ms(q, k, v, bias[None], g, nh, scale)
-    bound, by = _bound_ms(4.0 * b * nh * t * t * hd, 4 * act + 4 * nh * t * t)
+    bound, by = _bound_ms(12.0 * b * nh * t * t * hd,
+                          4 * act + 4 * nh * t * t, PEAK_TF32)
     results["W"].append(dict(case="swinir T=64", per_image=18, per_step=18,
                              max_abs_err=err, ms=ms, plain_ms=plain,
                              bound_ms=bound, bound_by=by, library_ms=lib_f))
@@ -1562,6 +1594,7 @@ def swinir_kernel_phase(enc, dev):
             print(f"  {k} {r['case']}: {r['ms']:.4f} ms (plain "
                   f"{r['plain_ms']:.4f}, bound {r['bound_ms']:.4f} by "
                   f"{r['bound_by']}, library {lib}{was})", flush=True)
+    results["registers"] = short_tf32_registers(["WM"])
     return results
 
 
@@ -2508,6 +2541,30 @@ def _ptxas_kernels(report, key):
     return {k: tuple(v) for k, v in out.items()}
 
 
+def short_tf32_registers(forms):
+    """ptxas's registers and spills of the 3xTF32 forward body up to 160
+    tokens (window_attn_short_tf32.cuh) for `forms`, keys of
+    SHORT_TF32_KEYS, printed beside what the form ran before; raises if
+    the kernel is missing or spills."""
+    from gsasr_torch.ops import _build
+
+    out = {}
+    for form in forms:
+        src, args = SHORT_TF32_KEYS[form]
+        got = {n: r for n, r in _ptxas_kernels(
+            _build.ptxas_report(src),
+            "window_attn_fwd_short_tf32_kernel").items() if args in n}
+        out[form] = sorted(r for r, _, _ in got.values())
+        spills = sorted({(st, ld) for _, st, ld in got.values()})
+        print(f"  ptxas {form}'s 3xTF32 body ({src}.cu): {out[form]} "
+              f"registers, spill stores/loads {spills} (before: "
+              f"{SHORT_TF32_REGS_BEFORE[form]})", flush=True)
+        if len(got) != 1 or spills != [(0, 0)]:
+            raise AssertionError(f"{form}'s 3xTF32 body missing or "
+                                 f"spilling: {got}")
+    return out
+
+
 @torch.no_grad()
 def ultra_train_kernel_phase(enc, dec, dev):
     """The window-16 kernels of the Ultra training step against their plain
@@ -2727,18 +2784,32 @@ REG_KEYS = {
 }
 # The fp32 T <= 160 forms of W and WB (whose bodies W4 and WB4 share) with
 # their registers as recorded, printed by the 4D attention phase beside the
-# 4D kernels': W's and WM's FMA body, and WB's and WMB's 3xTF32 body in its
-# two block sizes (once 99 and 80 registers on the FMA body). (Their bf16
-# forms, once W-bf16 64 and WB-bf16 99 registers on the FMA body, run the
-# tensor-core bodies of SHORT_REG_KEYS.)
+# 4D kernels': W's and WM's 3xTF32 body (once 64 registers on the FMA
+# body), and WB's and WMB's 3xTF32 body in
+# its two block sizes (once 99 and 80 registers on the FMA body). (Their
+# bf16 forms, once W-bf16 64 and WB-bf16 99 registers on the FMA body, run
+# the tensor-core bodies of SHORT_REG_KEYS.)
 PACKED_REG_KEYS = {
-    "W": [("window_attn_fwd_kernel", "")],
-    "WM": [("window_attn_fwd_masked_kernel", "")],
+    "W": [("window_attn_fwd_short_tf32_kernel", "ILb0ELb0E")],
+    "WM": [("window_attn_fwd_short_tf32_kernel", "ILb1ELb0E")],
     "WB": [("window_attn_bwd_short_tf32_kernel", "ILb0ELb0E")],
     "WMB": [("window_attn_bwd_short_tf32_kernel", "ILb1ELb0E")],
 }
-PACKED_REGS_RECORDED = {"W": (64,), "WM": (64,), "WB": (157, 157),
+PACKED_REGS_RECORDED = {"W": (94,), "WM": (103,), "WB": (157, 157),
                         "WMB": (154, 154)}
+# The registers of W's, WM's and W4's FMA body (64 each), printed beside
+# their 3xTF32 body's (window_attn_short_tf32.cuh, one kernel a flag pair)
+# and A's fp32 attention's (the same body in ln_attn.cu; before it
+# W-long's, 141).
+SHORT_TF32_KEYS = {
+    "W": ("window_attn_fwd", "ILb0ELb0E"),
+    "WM": ("window_attn_fwd", "ILb1ELb0E"),
+    "W4": ("window_attn_fwd", "ILb0ELb1E"),
+    "A": ("ln_attn", "ILb0ELb0E"),
+}
+SHORT_TF32_REGS_BEFORE = {"W": "FMA body 64", "WM": "FMA body 64",
+                          "W4": "FMA body 64",
+                          "A": "W-long's 3xTF32 body 141"}
 # The bf16 forms up to 160 tokens on the tensor cores
 # (window_attn_short_mma.cuh, window_attn_short_mma_bwd.cuh): each flag
 # pair (kMask, kHM) in its three register-array sizes (4, 9 and 10 chunks
@@ -3156,7 +3227,9 @@ def exact_render_phase(dev, kernels):
     """Phase 37: gs_render(binning="exact") at full width (the 720^2 render
     of 518,400 Gaussians, dmax 0.1) on trained-like boxes (the lists fit:
     R-exact once, no R) and init-like ones (they overflow: R once, no
-    R-exact), each call driven with every count from zero. Then, per
+    R-exact), each call driven with every count from zero, the lists from
+    kernel XB (the path may run none of exact_tables' list-building torch
+    ops: a spy and the profiler's host ops say so). Then, per
     regime: the lists' ok, the build's ms (sort, pad, tables), the path's
     host ms beside binning="auto"'s (R) on the same Gaussians and R's
     kernel ms; on the trained-like regime R-exact against its plain walk
@@ -3171,15 +3244,36 @@ def exact_render_phase(dev, kernels):
     hw, dmax = EXACT_HW, EXACT_DMAX
     box = dmax * (hw - 1) + 1
     mr, mc = rz._exact_spans(hw, hw, (box, box))
-    results = {"R-exact": [], "regimes": []}
-    for kind, want in (("trained", {"R-exact": 1}), ("init", {"R": 1})):
+    results = {"R-exact": [], "XB": [], "regimes": []}
+    plain_tables = rz.exact_tables
+
+    def no_plain_tables(*a, **k):
+        raise AssertionError("the exact path ran exact_tables' torch ops")
+
+    for kind, want in (("trained", {"R-exact": 1, "XB": 1}),
+                       ("init", {"R": 1, "XB": 1})):
         sigmas, coords, colors = exact_workload(kind, dev)
         with torch.no_grad():
             _reset(kernels)
-            img = rz.gs_render(sigmas, coords, colors, (hw, hw), dmax,
-                               binning="exact")
-            torch.cuda.synchronize()
+            # the path with the plain lists' torch ops forbidden, under the
+            # profiler: none of their list-building ops may run
+            rz.exact_tables = no_plain_tables
+            try:
+                with torch.profiler.profile(activities=[
+                        torch.profiler.ProfilerActivity.CPU]) as prof:
+                    img = rz.gs_render(sigmas, coords, colors, (hw, hw),
+                                       dmax, binning="exact")
+                    torch.cuda.synchronize()
+            finally:
+                rz.exact_tables = plain_tables
             counts = _counts(kernels)
+            ops = {e.key for e in prof.key_averages()}
+            listing = sorted(ops & EXACT_LIST_OPS)
+            print(f"  exact render {kind}: {len(ops)} distinct host ops on "
+                  f"the path, list-building ones: {listing}", flush=True)
+            if listing:
+                raise AssertionError(f"exact render {kind}: the path ran "
+                                     f"list-building torch ops {listing}")
             print(f"  exact render {kind}: {tuple(img.shape)}, launches "
                   f"{ {k: c for k, c in counts.items() if c} }, range "
                   f"[{float(img.min()):.4f}, {float(img.max()):.4f}]",
@@ -3198,8 +3292,39 @@ def exact_render_phase(dev, kernels):
             g, col, bbox, lists, tab, ok = build()
             ok = bool(ok)
             med = lambda fn, n=5: float(np.median(_host_ms(fn, n)))  # noqa
+            # XB alone against its plain version (exact_tables' torch ops
+            # on the card): the same integers, its device and host ms
+            nt = rz._cdiv(hw, rz._TH_BIN) * rz._cdiv(hw, rz._TW_BIN)
+            xb_args = (g, hw, hw, rz._TH_BIN, rz._TW_BIN, rz._GC_LIST, mr,
+                       mc, tab.numel() * rz._GC_LIST)
+            ref_tables = rz.exact_tables(*xb_args)
+            if not all(torch.equal(a, r) for a, r in zip(
+                    (lists, tab, torch.tensor(ok, device=dev)),
+                    ref_tables)):
+                raise AssertionError(f"XB {kind}: the lists differ from "
+                                     "exact_tables'")
+            print(f"  XB {kind}: list_idx, tab and ok equal to "
+                  f"exact_tables' ({lists.numel()} slots)", flush=True)
+            _repeatable(lambda: rz.exact_build(*xb_args), f"XB {kind}")
+            xb_bytes = 4 * (g.numel() + lists.numel() + tab.numel()) + 1
+            xb_row = dict(
+                case=kind, per_image=1, max_abs_err=0.0,
+                ms=_time_ms(lambda: rz.exact_build(*xb_args), 10),
+                host_ms=med(lambda: rz.exact_build(*xb_args), 9),
+                plain_ms=_time_ms(lambda: rz.exact_tables(*xb_args), 5),
+                bound_ms=xb_bytes / PEAK_HBM * 1e3, bound_by="bytes",
+                library_ms=None,
+                library_null_reason="no PyTorch call computes it",
+                gaussians=int(g.shape[0]), tiles=nt)
+            results["XB"].append(xb_row)
+            print(f"  XB {kind}: {xb_row['ms']:.4f} ms on the card, "
+                  f"{xb_row['host_ms']:.4f} ms host (plain "
+                  f"{xb_row['plain_ms']:.4f}, bound {xb_row['bound_ms']:.4f}"
+                  f" by bytes)", flush=True)
+            del ref_tables
             row = dict(
                 case=kind, ok=ok, span=[mr, mc], build_ms=med(build),
+                xb_ms=xb_row["ms"], xb_host_ms=xb_row["host_ms"],
                 path_ms=med(lambda: rz.gs_render(
                     sigmas, coords, colors, (hw, hw), dmax,
                     binning="exact")),
@@ -3286,6 +3411,14 @@ def exact_render_phase(dev, kernels):
     return results
 
 
+# The torch ops that built the exact lists before kernel XB (exact_tables:
+# prefix sums, searchsorted, scatters, gathers; its index_put_ also builds
+# the pad row, so it does not tell them apart); phase 37's path may run
+# none of them.
+EXACT_LIST_OPS = {"aten::searchsorted", "aten::cumsum", "aten::scatter_add_",
+                  "aten::gather", "aten::repeat_interleave"}
+
+
 # Phase 38: the 4D layout's shapes (windows, Tq = Tk, head width, type,
 # bias, backward): the decoder's window at inference, its training step in
 # fp32 and at the Enhanced width in bf16, and HAT's window of 16 (128
@@ -3299,12 +3432,12 @@ ATTN4_SHAPES = [("decoder window, inference", 225, 144, 30, torch.float32,
                 ("window 16", 128, 256, 32, torch.float32, False, True),
                 ("window 16", 128, 256, 32, torch.bfloat16, True, True),
                 ("window 16", 128, 256, 32, torch.bfloat16, False, True)]
-# The 4D forms' kernels in ptxas's reports: W's FMA body on the head-major
-# layout, and the tensor-core bodies with kHM set (3xTF32 in fp32: W-long's
-# forward beyond 160 tokens, WB's body in its two block sizes up to 160 and
-# WB-long's two launches beyond).
+# The 4D forms' kernels in ptxas's reports: the tensor-core bodies with kHM
+# set (3xTF32 in fp32: W's forward up to 160 tokens and W-long's
+# beyond, WB's body in its two block
+# sizes up to 160 and WB-long's two launches beyond).
 FOURD_REG_KEYS = {
-    "W4": [("window_attn_fwd_4d_kernelIf", ""),
+    "W4": [("window_attn_fwd_short_tf32_kernel", "ILb0ELb1E"),
            ("window_attn_fwd_long_tf32_kernel", "ILb0ELb1E")],
     "W4-bf16": [("window_attn_fwd_short_mma_kernel", "ILb0ELb1E"),
                 ("window_attn_fwd_long_mma_kernel", "ILb0ELb1E")],
@@ -3366,11 +3499,11 @@ def attention_4d_phase(dev, kernels):
         err = (_compare_bf16(out, ref, f"W4{sfx} {label}") if bf
                else _compare(out, ref, f"W4{sfx} {label}"))
         _repeatable(lambda: (fwd(*fargs),), f"W4{sfx} {label}")
-        # W4-long (fp32 beyond 160 tokens): three TF32 products each
-        tf32 = long and not bf
-        bound, by = _bound_ms((12.0 if tf32 else 4.0) * b * nh * t * t * hd,
+        # W4 in fp32 (3xTF32 bodies at every length): three TF32 products
+        # each
+        bound, by = _bound_ms((4.0 if bf else 12.0) * b * nh * t * t * hd,
                               act * 4 * b * nh * t * hd + nbias,
-                              PEAK_TF32 if tf32 else peak)
+                              peak if bf else PEAK_TF32)
         row = dict(case=name, dtype=str(dt)[6:], windows=b, tokens=t,
                    head_width=hd, bias=has_bias, per_step=1,
                    max_abs_err=err, ms=_time_ms(lambda: fwd(*fargs), 10),
@@ -3462,7 +3595,8 @@ def attention_4d_phase(dev, kernels):
           f"{'kept' if same else 'MOVED'} (recorded: "
           f"{PACKED_REGS_RECORDED})", flush=True)
     results.update(path_launches=counts, registers=new,
-                   packed_registers=kept, packed_registers_kept=same)
+                   packed_registers=kept, packed_registers_kept=same,
+                   short_registers=short_tf32_registers(["W4"]))
     return results
 
 
@@ -3470,7 +3604,8 @@ FORM_KEYS = ("decoder", "case", "dtype", "nW", "windows", "tokens",
              "head_width", "bias", "per_image", "per_step", "per_swinir_step",
              "max_abs_err", "ms", "ms_back_to_back", "window16_ms",
              "plain_ms", "packed_ms", "bound_ms", "bound_by",
-             "library_ms", "memberships", "used_chunks", "build_ms")
+             "library_ms", "memberships", "used_chunks", "build_ms",
+             "host_ms")
 
 
 def _on_path(rows, per):
@@ -3525,8 +3660,8 @@ def kernel_wrappers():
                                               ln_attn_proj_long,
                                               ln_mlp_residual,
                                               ln_mlp_residual_bwd)
-    from gsasr_torch.ops.rasterizer import (raster_bwd, raster_fwd,
-                                            raster_fwd_exact)
+    from gsasr_torch.ops.rasterizer import (exact_build, raster_bwd,
+                                            raster_fwd, raster_fwd_exact)
 
     return {"R": raster_fwd, "M": ln_mlp_residual, "A": ln_attn_proj,
             "W": window_attention_packed_fwd,
@@ -3549,7 +3684,8 @@ def kernel_wrappers():
             "WMB-long-bf16":
                 window_attention_packed_long_masked_bf16_bwd,
             "AB-long": ln_attn_proj_bwd_long,
-            "R-exact": raster_fwd_exact, "W4": window_attention_4d_fwd,
+            "R-exact": raster_fwd_exact, "XB": exact_build,
+            "W4": window_attention_4d_fwd,
             "W4-bf16": window_attention_4d_bf16_fwd,
             "WB4": window_attention_4d_bwd,
             "WB4-bf16": window_attention_4d_bf16_bwd}
@@ -3916,7 +4052,8 @@ def main() -> int:
         "A": ("ln_attn", "gsasr_torch/ops/csrc/ln_attn.cu",
               "gsasr_tpu/ops/fused_layers.py:336", [], einfer, enhanced,
               _on_path(ekres["A"], "per_image"), kres["A"] + ekres["A"]),
-        "W": ("window_attn_fwd", "gsasr_torch/ops/csrc/window_attn_fwd.cu",
+        "W": ("window_attn_fwd",
+              "gsasr_torch/ops/csrc/window_attn_short_tf32.cuh",
               "gsasr_tpu/ops/attention.py:338", [], step, "Trainer.step",
               kres["W"], sres["W"]),
         "WB": ("window_attn_bwd",
@@ -3940,7 +4077,7 @@ def main() -> int:
               "(gsasr_tpu/models/fea2gs.py:142,173) is XLA's", [], step,
               "Trainer.step", kres["T"], None),
         "WM": ("window_attn_fwd_masked",
-               "gsasr_torch/ops/csrc/window_attn_fwd.cu",
+               "gsasr_torch/ops/csrc/window_attn_short_tf32.cuh",
                "gsasr_tpu/ops/attention.py:553", [], sinfer,
                "sr_forward (SwinIR)", _on_path(sres["WM"], "per_image"),
                sres["WM"]),
@@ -4035,15 +4172,21 @@ def main() -> int:
                     xres["regimes"][0]["launches"],
                     "exact render (gs_render(binning=\"exact\"), 720x720, "
                     "518,400 Gaussians)", xres["R-exact"], xres["R-exact"]),
+        "XB": ("exact_build", "gsasr_torch/ops/csrc/exact_build.cu",
+               "no Pallas kernel: the exact lists of _exact_tables "
+               "(gsasr_tpu/ops/rasterizer.py:624) are XLA ops", [],
+               xres["regimes"][0]["launches"],
+               "exact render (gs_render(binning=\"exact\"), 720x720, "
+               "518,400 Gaussians)", xres["XB"][:1], xres["XB"]),
     }
     for key, rep in (("W4", "gsasr_tpu/ops/attention.py:87"),
                      ("WB4", "gsasr_tpu/ops/attention.py:109")):
         entry = "window_attn_fwd_4d" if key == "W4" else "window_attn_bwd_4d"
         for sfx in ("", "-bf16"):
-            # the bodies of the first rows (up to 160 tokens): W's FMA body;
-            # WB's 3xTF32 body; in bf16 the tensor-core bodies
+            # the bodies of the first rows (up to 160 tokens): W's and WB's
+            # 3xTF32 bodies; in bf16 the tensor-core bodies
             src = "gsasr_torch/ops/csrc/" + (
-                ("window_attn_fwd.cu" if key == "W4" else
+                ("window_attn_short_tf32.cuh" if key == "W4" else
                  "window_attn_short_tf32_bwd.cuh")
                 if not sfx else "window_attn_short_mma.cuh" if key == "W4"
                 else "window_attn_short_mma_bwd.cuh")

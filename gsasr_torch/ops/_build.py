@@ -7,7 +7,8 @@ of the sources and flags, then loaded with ctypes. Each library exports an
 entry point of the same name and, where `SOURCES` says so, others (the
 masked and bfloat16 forms of W and WB, the window-16 forms of W, WB, WM,
 WMB, A and AB, the bfloat16 forms of MB and AB, the head-major (4D) forms
-of W and WB, and R-exact beside R live in the same sources).
+of W and WB, and R-exact beside R live in the same sources; R-exact's
+lists build in `exact_build.cu`).
 Each entry point's C signature is declared in `SIGNATURES`: it takes its
 pointers and the CUDA stream as `void*` and returns `cudaGetLastError()`
 after its launches; `launch` raises when that is not 0.
@@ -35,6 +36,7 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 SIGNATURES = {
     "raster_fwd": "ppppiiii",
     "raster_fwd_exact": "pppppiiii",
+    "exact_build": "p" * 8 + "i" * 9,
     "ln_mlp": "p" * 10 + "iiiiii",
     "ln_attn": "p" * 23 + "iiiiii" + "f",
     "window_attn_fwd": "pppppiiiiif",

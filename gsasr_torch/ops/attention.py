@@ -10,7 +10,8 @@ Operands keep the projections' packed (B, T, C) layout: head h is columns
     s = q_h k_h^T * scale + bias[h] (+ mask[w % nW]);  p = softmax(s);
     out_h = p v_h
 
-Without a mask the forward is kernel W (`csrc/window_attn_fwd.cu`) and the
+Without a mask the forward is kernel W (`csrc/window_attn_fwd.cu`, the
+3xTF32 tensor-core body of `csrc/window_attn_short_tf32.cuh`) and the
 backward kernel WB (`csrc/window_attn_bwd.cu`); with the (nW, Tq, Tk)
 additive mask of Swin's shifted windows they are kernels WM and WMB, the
 masked forms of the same sources. With bfloat16 q, k, v (the bf16 module
@@ -49,8 +50,8 @@ import torch
 
 from gsasr_torch.ops import _build
 
-# Limits of kernels W and WB (a lane holds 5 keys of a score row and one
-# head column) and of their bf16 forms (a window's q, k, v and g on chip).
+# Limits of kernels W and WB and of their bf16 forms: a window's q, k, v
+# and g on chip.
 _MAX_T = 160
 _MAX_HD = 32
 

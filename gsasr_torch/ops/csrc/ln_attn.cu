@@ -33,11 +33,11 @@
 // and the reads of x happen once per projection, not once per head as in
 // the fused per-(window, head) kernel this replaces. (2) The attention of
 // each (window, head) on that scratch runs an existing tensor-core body:
-// in fp32 W-long's 3xTF32 body (window_attn_long_tf32.cuh) at every
-// length; in bf16 W-bf16's body up to 160 tokens
-// (window_attn_short_mma.cuh) and W-long-bf16's beyond
-// (window_attn_long_mma.cuh), both rounding the normalized p before the PV
-// product and att as it is stored. (3) The out-projection is the same tile
+// up to 160 tokens W's 3xTF32 body in fp32 (window_attn_short_tf32.cuh)
+// and W-bf16's in bf16 (window_attn_short_mma.cuh); beyond, W-long's
+// (window_attn_long_tf32.cuh) and W-long-bf16's (window_attn_long_mma.cuh);
+// the bf16 bodies round the normalized p before the PV product and att as
+// it is stored. (3) The out-projection is the same tile
 // product over the att rows, plus the bias. The rounding points are those
 // of _k_ln_attn.
 
@@ -50,6 +50,7 @@
 #include "window_attn_long_mma.cuh"
 #include "window_attn_long_tf32.cuh"
 #include "window_attn_short_mma.cuh"
+#include "window_attn_short_tf32.cuh"
 
 namespace {
 
@@ -93,8 +94,9 @@ out_proj_kernel(const Act* __restrict__ att, const float* __restrict__ wo,
   }
 }
 
-// The three launches; `short_body` takes W-bf16's body for the bf16
-// attention (A: Tq, Tk <= kMaxT), else W-long-bf16's.
+// The three launches; `short_body` takes W's 3xTF32 body (fp32) or
+// W-bf16's (bf16) for the attention (A: Tq, Tk <= kMaxT), else W-long's or
+// W-long-bf16's.
 template <typename Act>
 int launch(const Act* x, const Act* pos, const Act* kv, const float* ln_w,
            const float* ln_b, const float* wq, const float* bq,
@@ -126,8 +128,13 @@ int launch(const Act* x, const Act* pos, const Act* kv, const float* ln_w,
                                                   att, B, Tq, Tk, C, nh, 1,
                                                   scale, st);
   } else {
-    err = launch_fwd_long_tf32<false, false>(qs, ks, vs, bias, nullptr, att,
-                                             B, Tq, Tk, C, nh, 1, scale, st);
+    err = short_body
+              ? launch_fwd_short_tf32<false, false>(qs, ks, vs, bias, nullptr,
+                                                    att, B, Tq, Tk, C, nh, 1,
+                                                    scale, st)
+              : launch_fwd_long_tf32<false, false>(qs, ks, vs, bias, nullptr,
+                                                   att, B, Tq, Tk, C, nh, 1,
+                                                   scale, st);
   }
   if (err != cudaSuccess) return static_cast<int>(err);
   const int M = B * Tq;

@@ -47,7 +47,8 @@
 //      xq and, with RoPE, the unrotated q0 and k0 (f32);
 //   3. datt = g wo, rounded, on the row product of tile_mma_bwd.cuh;
 //   4. att = p v for dwo: kernel A's attention launch, as the forward runs
-//      it (W-long's 3xTF32 body in fp32, W-bf16's or W-long-bf16's in bf16);
+//      it (W's or W-long's 3xTF32 body in fp32, W-bf16's or W-long-bf16's
+//      in bf16);
 //   5. the attention backward on WB's tensor-core bodies: in fp32 the 3xTF32
 //      body up to 160 tokens (window_attn_short_tf32_bwd.cuh), WB-long's
 //      launches beyond (AB-long); in bf16 WB-bf16's body (AB) or
@@ -87,6 +88,7 @@
 #include "window_attn_long_tf32_bwd.cuh"
 #include "window_attn_short_mma.cuh"
 #include "window_attn_short_mma_bwd.cuh"
+#include "window_attn_short_tf32.cuh"
 #include "window_attn_short_tf32_bwd.cuh"
 
 namespace {
@@ -264,16 +266,19 @@ int ln_attn_bwd_impl(const Act* x, const Act* pos, const Act* kv,
           scale, st)));
     }
   } else {
-    GSASR_TRY_INT(launch_fwd_long_tf32<false, false>(
-        q, k, v, bias, nullptr, att, B, Tq, Tk, C, nh, 1, scale, st));
-    if constexpr (kLong)
+    if constexpr (kLong) {
+      GSASR_TRY_INT(launch_fwd_long_tf32<false, false>(
+          q, k, v, bias, nullptr, att, B, Tq, Tk, C, nh, 1, scale, st));
       GSASR_TRY_INT((launch_window_attn_bwd_long_tf32<false, false>(
           q, k, v, bias, datt, dq, dk, dv, stats, ds_w, dbias, B, Tq, Tk, C,
           nh, scale, st)));
-    else
+    } else {
+      GSASR_TRY_INT(launch_fwd_short_tf32<false, false>(
+          q, k, v, bias, nullptr, att, B, Tq, Tk, C, nh, 1, scale, st));
       GSASR_TRY_INT((launch_window_attn_bwd_short_tf32<false, false>(
           q, k, v, bias, datt, dq, dk, dv, stats, ds_w, dbias, B, Tq, Tk, C,
           nh, scale, st)));
+    }
   }
   // 6. RoPE: the table gradients, and dq0, dk0 over q0, k0
   if (rope) {

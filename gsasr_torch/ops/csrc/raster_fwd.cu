@@ -50,15 +50,24 @@
 // Gaussians sorted by their corner tile (tab[k] = tile * 4 + flag + 1, flag
 // 1 for a segment's first chunk, 0 for the rest, -1 for unused capacity;
 // slots past a tile's members hold the pad index, an empty box). One
-// 256-thread block per list tile, 4 pixels a thread: the block finds its
-// segment by a binary search of tab (tiles never decrease along it), stages
-// each chunk through the list indices (the gather of the Gaussians happens
-// there, so no list-ordered copy of the geometry is written) and evaluates
-// it with R's per-pixel arithmetic. Each warp owns a 16 x 8 sub-rectangle of
-// the tile and skips a Gaussian whose box misses it with a test that is
-// uniform over the warp: a trained box (about 32 px) misses most of a tile's
-// 128 columns. Each pixel sums its segment in slot order in registers and is
-// written once: no atomics, the same bits every launch.
+// 256-thread block per list tile: the block finds its segment by a binary
+// search of tab (tiles never decrease along it) and walks its chunks in
+// order, R's design on exact lists. Each chunk's occupied slots (index
+// below n; pad slots are dropped) go in slot order into R's staging list
+// (a ballot and a prefix over the warps, one barrier a chunk), their
+// coefficients computed once there, and several chunks share one list (up
+// to kStageCap), so the pixel loop and its two barriers run once a list.
+// Each warp owns a 16 x 8 sub-rectangle of the tile, lane l column l % 16
+// and four pixels down it (rows l / 16 + 2 p), and culls 32 staged boxes at
+// once against the sub-rectangle (one ballot), visiting only the hits in
+// ascending order; a pair of rows that the box misses is skipped by the
+// whole warp, and a staged Gaussian's 13 values and its dx are read and
+// computed once for the lane's four pixels (raster_list, shared with R).
+// A Gaussian is skipped for a pixel only where its box misses the pixel,
+// so every pixel adds the same Gaussians in the same slot order, through
+// add_at, as the one-thread-a-pixel walk over every slot did: that walk's
+// bits, no atomics, and the same bits every launch. The lists come from
+// kernel XB (exact_build.cu).
 
 #include <cuda_runtime.h>
 
@@ -117,7 +126,8 @@ __device__ __forceinline__ Coeffs coeffs(float sx, float sy, float rho) {
 // dy), fma(dy^2, w4, .), and fma for the sums), so the bits do not depend
 // on which products the compiler would contract into which FMA: these are
 // the ones it chose for the one-pixel-a-thread walk this kernel replaced,
-// so the image keeps that walk's bits.
+// so the image keeps that walk's bits. R and R-exact share add_at, so both
+// give the bits of one arithmetic.
 __device__ __forceinline__ void add_at(float dx, float dxx, float dy,
                                        float w1, float w2, float c2, float w4,
                                        float r, float g, float b,
@@ -132,35 +142,28 @@ __device__ __forceinline__ void add_at(float dx, float dxx, float dy,
   acc_b = __fmaf_rn(v, b, acc_b);
 }
 
-// The same at pixel (fx, fy) of a Gaussian centered at (cx, cy). R and
-// R-exact share add_at, so both give the bits of one arithmetic.
-__device__ __forceinline__ void add_inside(float cx, float cy, float w1,
-                                           float w2, float c2, float w4,
-                                           float r, float g, float b,
-                                           float fx, float fy, float& acc_r,
-                                           float& acc_g, float& acc_b) {
-  const float dx = __fsub_rn(fx, cx);
-  add_at(dx, __fmul_rn(dx, dx), __fsub_rn(fy, cy), w1, w2, c2, w4, r, g, b,
-         acc_r, acc_g, acc_b);
-}
-
-// R's staging list: per staged Gaussian its inclusive box (xlo, xhi, ylo,
-// yhi), center and first coefficients (cx, cy, w1, w2), the rest and the
-// color (c2, w4, r, g) and blue, each a 16-byte row a lane reads whole.
+// The staging list of R and R-exact: per staged Gaussian its inclusive box
+// (xlo, xhi, ylo, yhi), center and first coefficients (cx, cy, w1, w2),
+// the rest and the color (c2, w4, r, g) and blue, each a 16-byte row a lane
+// reads whole.
 struct Stage {
   float4 box[kStageCap], quad[kStageCap], coef[kStageCap];
   float blue[kStageCap];
 };
 
-// R's pixel loop over the n staged Gaussians, between two barriers (the
-// list is complete before it and not restaged until every warp is done). A
-// warp whose sub-rectangle [rx0, rx1] x [ry0, ry1] lies beyond the canvas
-// (`live` false) has nothing to add.
+// The pixel loop of R and R-exact over the n staged Gaussians, between two
+// barriers (the list is complete before it and not restaged until every
+// warp is done). Each warp owns a sub-rectangle [rx0, rx1] x [ry0, ry1] of
+// kRW columns, lane l column l % kRW and kP pixels down it, rows l / kRW +
+// kLR p with kLR = 32 / kRW; a warp whose sub-rectangle lies beyond the
+// canvas (`live` false) has nothing to add.
+template <int kRW, int kP>
 __device__ __forceinline__ void raster_list(const Stage& s, int n, bool live,
                                             int lane, float rx0, float rx1,
                                             float ry0, float ry1, float fx,
-                                            const float (&fy)[kPix],
-                                            float (&acc)[kPix][3]) {
+                                            const float (&fy)[kP],
+                                            float (&acc)[kP][3]) {
+  constexpr int kLR = 32 / kRW;
   __syncthreads();
   if (live) {
     for (int base = 0; base < n; base += 32) {
@@ -183,11 +186,11 @@ __device__ __forceinline__ void raster_list(const Stage& s, int n, bool live,
         const float dx = __fsub_rn(fx, q.x);
         const float dxx = __fmul_rn(dx, dx);
 #pragma unroll
-        for (int p = 0; p < kPix; ++p) {
+        for (int p = 0; p < kP; ++p) {
           // the rows of pixel p's group of lanes: skipped by the whole
           // warp when the box misses them
-          const float g0 = ry0 + static_cast<float>(kLaneRows * p);
-          if (b.z > g0 + static_cast<float>(kLaneRows - 1) || b.w < g0)
+          const float g0 = ry0 + static_cast<float>(kLR * p);
+          if (b.z > g0 + static_cast<float>(kLR - 1) || b.w < g0)
             continue;
           if (in_x && fy[p] >= b.z && fy[p] <= b.w)
             add_at(dx, dxx, __fsub_rn(fy[p], q.y), q.z, q.w, c.x, c.y, c.z,
@@ -294,7 +297,8 @@ raster_fwd_kernel(const float* __restrict__ geom,
       // read until every thread has passed the next chunk's barrier
       par ^= 1;
       if (n + cnt > kStageCap) {
-        raster_list(s, n, live, lane, rx0, rx1, ry0, ry1, fx, fy, acc);
+        raster_list<kRectW, kPix>(s, n, live, lane, rx0, rx1, ry0, ry1, fx,
+                                  fy, acc);
         n = 0;
       }
 #pragma unroll
@@ -314,7 +318,9 @@ raster_fwd_kernel(const float* __restrict__ geom,
       n += cnt;
     }
   }
-  if (n > 0) raster_list(s, n, live, lane, rx0, rx1, ry0, ry1, fx, fy, acc);
+  if (n > 0)
+    raster_list<kRectW, kPix>(s, n, live, lane, rx0, rx1, ry0, ry1, fx, fy,
+                              acc);
 #pragma unroll
   for (int p = 0; p < kPix; ++p) {
     const int py = ry + lane / kRectW + kLaneRows * p;
@@ -327,53 +333,22 @@ raster_fwd_kernel(const float* __restrict__ geom,
   }
 }
 
-// One staged chunk of R-exact: each Gaussian's quadratic-form coefficients,
-// its inclusive cull box and its color, the coefficients computed once.
-struct Chunk {
-  float cx[kListGc], cy[kListGc], w1[kListGc], w2[kListGc], c2[kListGc],
-      w4[kListGc], xlo[kListGc], xhi[kListGc], ylo[kListGc], yhi[kListGc],
-      r[kListGc], g[kListGc], b[kListGc];
-};
-
-// Stages the geometry row g (16 floats) and color c (3) into slot i.
-__device__ __forceinline__ void stage_gaussian(Chunk& s, int i,
-                                               const float* __restrict__ g,
-                                               const float* __restrict__ c) {
-  const Coeffs cf = coeffs(g[0], g[1], g[2]);
-  s.w1[i] = cf.w1;
-  s.w2[i] = cf.w2;
-  s.c2[i] = cf.c2;
-  s.w4[i] = cf.w4;
-  s.cx[i] = g[3];
-  s.cy[i] = g[4];
-  s.xlo[i] = g[5];
-  s.xhi[i] = g[6];
-  s.ylo[i] = g[7];
-  s.yhi[i] = g[8];
-  s.r[i] = c[0];
-  s.g[i] = c[1];
-  s.b[i] = c[2];
-}
-
-// Stages an empty slot i: the lists' pad index (the JAX package's appended
-// pad column), unit sigmas and an inverted box, so it adds nothing.
-__device__ __forceinline__ void stage_empty(Chunk& s, int i) {
-  s.w1[i] = -0.5f;
-  s.w2[i] = s.w4[i] = 1.f;
-  s.c2[i] = s.cx[i] = s.cy[i] = 0.f;
-  s.xlo[i] = s.ylo[i] = 1e9f;
-  s.xhi[i] = s.yhi[i] = -1e9f;
-  s.r[i] = s.g[i] = s.b[i] = 0.f;
-}
-
-// Adds staged Gaussian i at pixel (fx, fy) to the sums when the pixel lies
-// in its inclusive box.
-__device__ __forceinline__ void add_gaussian(const Chunk& s, int i, float fx,
-                                             float fy, float& acc_r,
-                                             float& acc_g, float& acc_b) {
-  if (fx >= s.xlo[i] && fx <= s.xhi[i] && fy >= s.ylo[i] && fy <= s.yhi[i])
-    add_inside(s.cx[i], s.cy[i], s.w1[i], s.w2[i], s.c2[i], s.w4[i], s.r[i],
-               s.g[i], s.b[i], fx, fy, acc_r, acc_g, acc_b);
+// Stages Gaussian `row` of geom (16 floats, 16-byte aligned) and col (3)
+// into slot i of the staging list: its box, center, coefficients and color.
+__device__ __forceinline__ void stage_row(Stage& s, int i,
+                                          const float* __restrict__ geom,
+                                          const float* __restrict__ col,
+                                          size_t row) {
+  const float4* gr = reinterpret_cast<const float4*>(geom) + row * 4;
+  const float4 a0 = __ldg(gr);
+  const float4 a1 = __ldg(gr + 1);
+  const float4 a2 = __ldg(gr + 2);
+  const Coeffs cf = coeffs(a0.x, a0.y, a0.z);
+  const float* c = col + row * 3;
+  s.box[i] = make_float4(a1.y, a1.z, a1.w, a2.x);
+  s.quad[i] = make_float4(a0.w, a1.x, cf.w1, cf.w2);
+  s.coef[i] = make_float4(cf.c2, cf.w4, __ldg(c), __ldg(c + 1));
+  s.blue[i] = __ldg(c + 2);
 }
 
 __global__ void __launch_bounds__(kThreads)
@@ -382,21 +357,24 @@ raster_fwd_exact_kernel(const float* __restrict__ geom,
                         const int* __restrict__ list_idx,
                         const int* __restrict__ tab, float* __restrict__ out,
                         int n, int nchunks, int h, int w, int n_tw) {
-  __shared__ Chunk s;
+  __shared__ Stage s;
+  __shared__ int s_count[2][kThreads / 32];
 
   const int t = blockIdx.x;
   const int tid = threadIdx.x;
   const int lane = tid & 31;
   const int warp = tid >> 5;
+  const unsigned below = (1u << lane) - 1u;
   const int ti = t / n_tw;
-  // the warp's 16 x 8 sub-rectangle; lane l owns column l % 16 of rows
-  // l / 16 + 2 p
+  // the warp's 16 x 8 sub-rectangle, clipped to the canvas; lane l owns
+  // column l % 16 of rows l / 16 + 2 p
   const int x0 = (t - ti * n_tw) * kListTw + warp * kSubW;
   const int y0 = ti * kListTh;
-  const float wx0 = static_cast<float>(x0);
-  const float wx1 = static_cast<float>(x0 + kSubW - 1);
-  const float wy0 = static_cast<float>(y0);
-  const float wy1 = static_cast<float>(y0 + kListTh - 1);
+  const bool live = x0 < w && y0 < h;
+  const float rx0 = static_cast<float>(x0);
+  const float ry0 = static_cast<float>(y0);
+  const float rx1 = static_cast<float>(min(x0 + kSubW, w) - 1);
+  const float ry1 = static_cast<float>(min(y0 + kListTh, h) - 1);
   const int px = x0 + lane % kSubW;
   const float fx = static_cast<float>(px);
   float fy[kPixPer], acc[kPixPer][3];
@@ -415,24 +393,36 @@ raster_fwd_exact_kernel(const float* __restrict__ geom,
     else
       hi = mid;
   }
-  // its first chunk has flag 1 (code t * 4 + 2), the rest flag 0 (t * 4 + 1)
+  // its first chunk has flag 1 (code t * 4 + 2), the rest flag 0 (t * 4 +
+  // 1); each chunk's occupied slots (index below n) go to the staging list
+  // in slot order, the pad slots are dropped
+  int ns = 0, par = 0;
   for (int k = lo; k < nchunks && tab[k] == t * 4 + (k == lo ? 2 : 1); ++k) {
-    __syncthreads();
     const int idx = list_idx[static_cast<size_t>(k) * kListGc + tid];
-    if (idx >= 0 && idx < n)
-      stage_gaussian(s, tid, geom + static_cast<size_t>(idx) * kGeomCols,
-                     col + static_cast<size_t>(idx) * 3);
-    else
-      stage_empty(s, tid);
+    const bool in = idx >= 0 && idx < n;
+    const unsigned m = __ballot_sync(0xffffffffu, in);
+    if (lane == 0) s_count[par][warp] = __popc(m);
     __syncthreads();
-    for (int i = 0; i < kListGc; ++i) {
-      if (s.xlo[i] > wx1 || s.xhi[i] < wx0 || s.ylo[i] > wy1 || s.yhi[i] < wy0)
-        continue;
-#pragma unroll
-      for (int p = 0; p < kPixPer; ++p)
-        add_gaussian(s, i, fx, fy[p], acc[p][0], acc[p][1], acc[p][2]);
+    int off = 0, cnt = 0;
+    for (int i = 0; i < kThreads / 32; ++i) {
+      const int c = s_count[par][i];
+      if (i < warp) off += c;
+      cnt += c;
     }
+    // the next chunk's counts go to the other buffer: this one is read
+    // until every thread has passed the next chunk's barrier
+    par ^= 1;
+    if (ns + cnt > kStageCap) {
+      raster_list<kSubW, kPixPer>(s, ns, live, lane, rx0, rx1, ry0, ry1, fx,
+                                  fy, acc);
+      ns = 0;
+    }
+    if (in) stage_row(s, ns + off + __popc(m & below), geom, col, idx);
+    ns += cnt;
   }
+  if (ns > 0)
+    raster_list<kSubW, kPixPer>(s, ns, live, lane, rx0, rx1, ry0, ry1, fx,
+                                fy, acc);
 #pragma unroll
   for (int p = 0; p < kPixPer; ++p) {
     const int py = y0 + lane / kSubW + 2 * p;
@@ -467,13 +457,15 @@ extern "C" int raster_fwd(const float* geom, const float* col,
 // Kernel R-exact: geom (n, 16) and col (n, 3) the Gaussians sorted by corner
 // tile; list_idx (nchunks * 256) int32 indices into them (n or more: an
 // empty slot); tab (nchunks) int32 the packed chunk table; out (h, w, 3). All
-// contiguous, on the device.
+// contiguous, on the device, geom 16-byte aligned.
 extern "C" int raster_fwd_exact(const float* geom, const float* col,
                                 const int* list_idx, const int* tab,
                                 float* out, int n, int nchunks, int h, int w,
                                 void* stream) {
   if (n < 0 || nchunks < 1 || h < 1 || w < 1)
     return static_cast<int>(cudaErrorInvalidValue);
+  if (reinterpret_cast<std::uintptr_t>(geom) % 16)
+    return static_cast<int>(cudaErrorMisalignedAddress);
   const int n_th = (h + kListTh - 1) / kListTh;
   const int n_tw = (w + kListTw - 1) / kListTw;
   raster_fwd_exact_kernel<<<n_th * n_tw, kThreads, 0,

@@ -4,8 +4,8 @@
 // _attn_kernel_packed (gsasr_tpu/ops/attention.py, Pallas K11: the Enhanced
 // decoder's 144-token windows, SwinIR's 64), of _attn_kernel_packed_masked
 // (K13, SwinIR's shifted windows at the bf16 recipe) and of _attn_kernel
-// (K14, the 4D layout) at Tq, Tk <= 160. The fp32 forms keep the FMA body
-// of window_attn_fwd.cu. Per window w and head h:
+// (K14, the 4D layout) at Tq, Tk <= 160. The fp32 forms run the 3xTF32
+// body of window_attn_short_tf32.cuh. Per window w and head h:
 //
 //   s = q_h k_h^T * scale (+ bias[h]) (+ mask[w % nW])   (Tq x Tk, f32)
 //   p = exp(s - max) / sum, normalized, then rounded to bf16

@@ -13,8 +13,10 @@ deterministic and needs no atomics.
 
 With binning="exact" (the JAX package's opt-in exact-list forward) the
 Gaussians are sorted by the (8, 128) tile of their cull box's corner,
-`exact_tables` builds each such tile's list of exactly the Gaussians whose
-boxes overlap it, and `raster_fwd_exact` walks the lists: kernel R-exact
+`exact_build` builds each such tile's list of exactly the Gaussians whose
+boxes overlap it (kernel XB, `csrc/exact_build.cu`, on the card;
+`exact_tables`, its plain version, on the CPU), and `raster_fwd_exact`
+walks the lists: kernel R-exact
 (also in `csrc/raster_fwd.cu`) on the card, `raster_fwd_exact_plain` on the
 CPU. When a box spans more tiles than the lists were sized for, or the
 lists overflow their capacity, R renders the same Gaussians instead, as
@@ -423,6 +425,38 @@ def exact_tables(geom, h: int, w: int, th: int, tw: int, gc: int, mr: int,
     return list_idx, (tile_of * 4 + flag + 1).to(torch.int32), ok
 
 
+def exact_build(geom, h: int, w: int, th: int, tw: int, gc: int, mr: int,
+                mc: int, cap: int):
+    """`exact_tables` on the card: kernel XB (`csrc/exact_build.cu`), three
+    launches that give its (list_idx, tab, ok) integer for integer from
+    geom (S, 16) sorted by corner tile. CPU tensors take `exact_tables`,
+    the plain version."""
+    if geom.device.type == "cpu":
+        return exact_tables(geom, h, w, th, tw, gc, mr, mc, cap)
+    _build.check_tensor(geom, "geom")
+    sp = geom.shape[0]
+    if geom.shape[1] != GEOM_COLS or cap % gc or cap < gc:
+        raise ValueError(f"geom {tuple(geom.shape)}, cap {cap}, gc {gc}: "
+                         f"expected (S, 16) and a capacity of whole chunks")
+    nt = _cdiv(h, th) * _cdiv(w, tw)
+    i32 = dict(dtype=torch.int32, device=geom.device)
+    spans = torch.empty(sp, **i32)
+    run_start = torch.empty(nt + 2, **i32)
+    counts = torch.empty(nt, **i32)
+    span_bad = torch.empty(nt, **i32)
+    list_idx = torch.empty(cap, **i32)
+    tab = torch.empty(cap // gc, **i32)
+    ok = torch.empty((), dtype=torch.bool, device=geom.device)
+    _build.launch("exact_build", geom.contiguous(), spans, run_start, counts,
+                  span_bad, list_idx, tab, ok, sp, h, w, th, tw, gc, mr, mc,
+                  cap)
+    exact_build.launches += 1
+    return list_idx, tab, ok
+
+
+exact_build.launches = 0
+
+
 def raster_fwd_exact_plain(geom, colors, list_idx, tab, h: int, w: int):
     """Plain PyTorch version of kernel R-exact: (H, W, C) float32.
 
@@ -561,7 +595,8 @@ def _exact_spans(h: int, w: int, max_box_px):
 def exact_geometry(geom, colors, canvas_hw: Sequence[int], mr: int, mc: int):
     """The host side of the exact-list forward: the Gaussians stably sorted
     by `_corner_tiles`' key, padded to a multiple of 1024, their 256-chunk
-    boxes (RB's and, on overflow, R's) and the lists. Returns (geom,
+    boxes (RB's and, on overflow, R's) and the lists (`exact_build`:
+    kernel XB on the card, `exact_tables` on the CPU). Returns (geom,
     colors, bbox, list_idx, tab, ok); the list capacity is a tile's chunk
     plus 10 memberships a Gaussian (every membership when a box spans at
     most 10 tiles), as the JAX package sizes it."""
@@ -574,8 +609,8 @@ def exact_geometry(geom, colors, canvas_hw: Sequence[int], mr: int, mc: int):
     nt = _cdiv(h, _TH_BIN) * _cdiv(w, _TW_BIN)
     cap = _cdiv(nt * _GC_LIST + min(mr * mc, _LIST_BUDGET) * geom.shape[0],
                 _GC_LIST) * _GC_LIST
-    tables = exact_tables(geom.detach(), h, w, _TH_BIN, _TW_BIN, _GC_LIST,
-                          mr, mc, cap)
+    tables = exact_build(geom.detach(), h, w, _TH_BIN, _TW_BIN, _GC_LIST,
+                         mr, mc, cap)
     return (geom, colors, _chunk_bboxes(geom.detach(), _DEF_GC), *tables)
 
 

@@ -54,9 +54,21 @@ and 256 x 576, 6 heads of 32, no bias), WMB-long at the paper HAT step's
 period 9), and WB4-long on the head-major layout at 128 x 6 x 256 x 256 x
 32 with a bias. Each fp32 build's results must hold against the plain
 version (forward atol = rtol = 1e-4; backward within 1e-4 of each output's
-largest entry) and give the same bits twice. --fp32-only builds
-window_attn_fwd.cu and window_attn_bwd.cu alone and times only the fp32
-sections. The fused section times kernels M (ln_mlp.cu) and A and A-long
+largest entry) and give the same bits twice. The fp32 forward also runs
+the forms up to 160 tokens: W at the paper step's 256 x 6 x 144 x 30
+beside this tree's W-long on the same operands, W at SwinIR's 576 x 6 x 64
+x 30, WM there with the mask of period 36 and W4 at the paper image's 225
+x 6 x 144 x 30, each with a bias, one call and ten back to back.
+--fp32-only builds window_attn_fwd.cu, window_attn_bwd.cu and ln_attn.cu
+alone and times only the fp32 window attentions and kernel A in fp32 at
+the paper decoder's shape (its attention runs W's body up to 160 tokens).
+--raster-only also times the exact render from both builds in turns
+(`_exact_ab`: R-exact's walk on phase 37's trained-like lists, asserted
+the first build's bits, and the whole gs_render(binning="exact") path and
+its list build on both of phase 37's workloads, each build with its own
+R-exact and lists: this tree's kernel XB, or exact_tables' torch ops
+where the build's `_build.py` declares no XB). The fused section times
+kernels M (ln_mlp.cu) and A and A-long
 (ln_attn.cu) from every build in turns at the paper decoder's 225 x 144 x
 180 in fp32, the Enhanced decoder's 225 x 144 x 192 in bf16 and the Ultra
 decoder's 144 x 256 x 192 in bf16 and fp32 (RoPE for A-long), each held
@@ -65,7 +77,7 @@ back to back (the card's time without the host's); --fused-only builds
 ln_mlp.cu and ln_attn.cu alone and times only that section. --images times the paper fp32, Enhanced
 bf16 and HAT-L Ultra (fp32 and bf16) images with the first build's and
 this tree's ln_mlp.cu, ln_attn.cu and raster_fwd.cu (those built) in
-turns. --steps then times the paths that run the fp32 window attentions,
+turns (with --fp32-only, ln_attn.cu alone: A's attention). --steps then times the paths that run the fp32 window attentions,
 chip_smoke.py's paper EDSR module step (WB 38 a step), SwinIR step (WB 56,
 WMB 18), HAT-L Ultra step at model_dtype float32 (W-long 148, WB-long 148),
 paper HAT step (W-long 24, WM-long 18, WB-long 24, WMB-long 18, WB 38) and
@@ -535,30 +547,36 @@ def _entries(out_dir, tags, names, sigs, adapted=()):
 
 
 def _fp32_fwd_ab(cs, out_dir, tags, sigs):
-    """The fp32 window-16 forward from every build in turns (tags +
-    reversed + tags): W-long at the Ultra image's 144 windows and the Ultra
-    step's 128 of 256 x 256 and 256 x 576 (6 heads of 32, no bias),
-    WM-long at the paper HAT's 144 x 256 x 256 x 30 with a bias and the
-    SW-MSA mask of period 9, W4-long at 128 x 6 x 256 x 32 with a bias; and
-    W (up to 160 tokens, the FMA body) at the paper step's 256 x 6 x 144 x
-    30 with a bias beside this tree's W-long on the same operands
-    ("window-16", the 3xTF32 body as W's yardstick). Each held within atol
-    = rtol = 1e-4 of the plain version and to the same bits twice; ms, the
-    speed-up of the change over each other build, the bound (the two
-    products in 3xTF32 at the TF32 peak, or the bytes) and SDPA's
-    forward."""
+    """The fp32 window attention forward from every build in turns (tags +
+    reversed + tags): the window-16 forms, W-long at the Ultra image's 144
+    windows and the Ultra step's 128 of 256 x 256 and 256 x 576 (6 heads of
+    32, no bias), WM-long at the paper HAT's 144 x 256 x 256 x 30 with a
+    bias and the SW-MSA mask of period 9, W4-long at 128 x 6 x 256 x 32
+    with a bias; and the forms up to 160 tokens (this tree's 3xTF32 body,
+    window_attn_short_tf32.cuh; a parent's may be an FMA body): W at the
+    paper step's 256 x 6 x 144 x 30 with a bias, beside this tree's W-long
+    on the same operands ("window-16", the window-16 body as W's
+    yardstick), W at SwinIR's 576 x 6 x 64 x 30 with a bias, WM there with
+    the mask of period 36, and W4 at the paper image's 225 x 6 x 144 x 30
+    with a bias. Each held within atol = rtol = 1e-4 of the plain version
+    and to the same bits twice; ms (one call, CUDA events, median of 10 in
+    each turn) and ten back to back, the speed-up of the change over each
+    other build, the bound (the two products in 3xTF32 at the TF32 peak,
+    or the bytes) and SDPA's forward."""
     import torch
 
     from gsasr_torch.models.swinir import swin_attn_mask
     from gsasr_torch.ops import attention as ta
 
-    names = ("window_attn_fwd", "window_attn_fwd_long",
-             "window_attn_fwd_long_masked", "window_attn_fwd_4d")
+    names = ("window_attn_fwd", "window_attn_fwd_masked",
+             "window_attn_fwd_long", "window_attn_fwd_long_masked",
+             "window_attn_fwd_4d")
     entries = _entries(out_dir, tags, names, sigs)
     dev = torch.device("cuda")
     gen = torch.Generator().manual_seed(41)
     rnd = lambda *s: torch.randn(*s, generator=gen).to(dev)  # noqa: E731
     mask9 = swin_attn_mask(48, 48, 16, 8, dev)
+    mask36 = swin_attn_mask(48, 48, 8, 4, dev)
     # (form, case, windows, Tq, Tk, C, heads, bias, mask, head-major)
     cases = [("W-long", "Ultra image 256x256", 144, 256, 256, 192, 6, False,
               None, False),
@@ -573,7 +591,13 @@ def _fp32_fwd_ab(cs, out_dir, tags, sigs):
              ("W4-long", "4D 256x256, bias", 128, 256, 256, 192, 6, True,
               None, True),
              ("W", "paper step 144x144, bias", 256, 144, 144, 180, 6, True,
-              None, False)]
+              None, False),
+             ("W", "SwinIR 64x64, bias", 576, 64, 64, 180, 6, True, None,
+              False),
+             ("WM", "SwinIR 64x64, bias, period 36", 576, 64, 64, 180, 6,
+              True, mask36, False),
+             ("W4", "paper image 4D 144x144, bias", 225, 144, 144, 180, 6,
+              True, None, True)]
     rows = []
     for form, case, b, tq, tk, c, nh, has_bias, mask, hm in cases:
         q, k, v = rnd(b, tq, c), rnd(b, tk, c), rnd(b, tk, c)
@@ -596,6 +620,8 @@ def _fp32_fwd_ab(cs, out_dir, tags, sigs):
                 name, extra = "window_attn_fwd_long", ()
             elif form == "W":
                 name, extra = "window_attn_fwd", ()
+            elif form == "WM":
+                name, extra = "window_attn_fwd_masked", (mask,)
             elif hm:
                 name, extra = "window_attn_fwd_4d", ()
             elif mask is None:
@@ -612,11 +638,14 @@ def _fp32_fwd_ab(cs, out_dir, tags, sigs):
                                    f"{err}")
             outs[tag] = ta._merge(out) if hm else out
 
-        turns = list(tags) + (["window-16"] if form == "W" else [])
+        turns = list(tags) + (["window-16"] if case.startswith(
+            "paper step") else [])
         order = turns + turns[::-1] + turns
         ms = {tag: [] for tag in turns}
+        dev_ms = {tag: [] for tag in turns}
         for tag in order:
             ms[tag].append(cs._time_ms(lambda: run(tag), 10))
+            dev_ms[tag].append(cs._batch_ms(lambda: run(tag)))
         ref = ta.window_attention_packed_plain(q, k, v, bias, scale, nh,
                                                mask)
         errs = {}
@@ -632,18 +661,21 @@ def _fp32_fwd_ab(cs, out_dir, tags, sigs):
         bound, by = cs._bound_ms(12.0 * b * nh * tq * tk * hd, nbytes,
                                  cs.PEAK_TF32)
         med = {tag: sorted(v)[len(v) // 2] for tag, v in ms.items()}
-        ref_tag = "window-16" if form == "W" else "change"
+        dmed = {tag: sorted(v)[len(v) // 2] for tag, v in dev_ms.items()}
         rows.append(dict(form=form, case=case, windows=b, ms=ms,
-                         speedup={t: med[t] / med[ref_tag] for t in turns
-                                  if t != ref_tag},
+                         dev_ms=dev_ms,
+                         speedup={t: med[t] / med["change"] for t in turns
+                                  if t != "change"},
                          bound_ms=bound, bound_by=by, library_ms=lib_f,
                          max_abs_err=errs))
-        speed = ", ".join(f"{med[t] / med[ref_tag]:.2f}x over {t}"
-                          for t in turns if t != ref_tag)
+        speed = ", ".join(f"{med[t] / med['change']:.2f}x over {t}"
+                          for t in turns if t != "change")
         print(f"  {form} {case}: " + ", ".join(
-            f"{t} {ms[t]} ms" for t in turns) + f"; {ref_tag} {speed} "
-              f"(bound in 3xTF32 {bound:.4f} by {by}, SDPA {lib_f})",
-              flush=True)
+            f"{t} {[round(x, 4) for x in ms[t]]}" for t in turns)
+            + f" ms; change {speed}; back to back " + ", ".join(
+                f"{t} {dmed[t]:.4f}" for t in turns)
+            + f" ms (bound in 3xTF32 {bound:.4f} by {by}, SDPA {lib_f})",
+            flush=True)
     return dict(rows=rows)
 
 
@@ -763,8 +795,9 @@ def main() -> int:
                     "and RB")
     only = ap.add_mutually_exclusive_group()
     only.add_argument("--fp32-only", action="store_true",
-                      help="build window_attn_fwd.cu and window_attn_bwd.cu "
-                      "alone and time only the fp32 window attentions")
+                      help="build window_attn_fwd.cu, window_attn_bwd.cu "
+                      "and ln_attn.cu alone and time only the fp32 window "
+                      "attentions and kernel A in fp32 at the paper's shape")
     only.add_argument("--fused-only", action="store_true",
                       help="build ln_mlp.cu and ln_attn.cu alone and time "
                       "only kernels M, A and A-long")
@@ -775,7 +808,8 @@ def main() -> int:
                       "the fused paper, Enhanced and Ultra steps")
     only.add_argument("--raster-only", action="store_true",
                       help="build raster_fwd.cu and raster_bwd.cu alone and "
-                      "time only kernels R and RB, from every build")
+                      "time only kernels R and RB, R-exact's walk and the "
+                      "exact render's path, from every build")
     ap.add_argument("--steps", action="store_true",
                     help="also time training steps with the first build's "
                     "and this tree's built sources in turns: the paper "
@@ -820,7 +854,7 @@ def main() -> int:
     elif args.fused_bwd_only:
         sources = variant = FUSED_BWD
     elif args.fp32_only:
-        sources = variant = fp32
+        sources = variant = fp32 + ("ln_attn",)
     elif args.raster_only:
         sources = variant = RASTER
     else:
@@ -847,7 +881,7 @@ def main() -> int:
                        if t not in (old, "change") and t in r)
         print(f"  {key[:120]}: {r.get(old)} -> {r.get('change')}{rest}"
               f"{mark}", flush=True)
-    times, attn, fused, fused_bwd = {}, {}, {}, {}
+    times, attn, fused, fused_bwd, exact = {}, {}, {}, {}, {}
     fwd_fp32 = short_fp32 = long_fp32 = {}
     swapped = [src for src in SWAPPED if src in sources]
     steps = images = {}
@@ -874,6 +908,8 @@ def main() -> int:
     if args.raster_only:
         print("kernels R and RB:", flush=True)
         times = _raster_ab(cs, out_dir, tuple(dirs), sigs)
+        print("the exact render: R-exact's walk and the path:", flush=True)
+        exact = _exact_ab(cs, out_dir, (old, "change"), sigs)
     elif not (args.skip_raster or args.fp32_only or args.fused_only):
         print("kernels R and RB:", flush=True)
         times = _raster_ab(cs, out_dir, (old, "change"), sigs)
@@ -882,8 +918,13 @@ def main() -> int:
     if not (args.fp32_only or args.raster_only):
         print("kernels M, A and A-long:", flush=True)
         fused = _fused_fwd_ab(cs, out_dir, regs, tuple(dirs), sigs)
+    elif args.fp32_only:
+        print("kernel A, paper fp32:", flush=True)
+        fused = _fused_fwd_ab(cs, out_dir, regs, tuple(dirs), sigs,
+                              only=("A", "paper"))
     if not (args.fused_only or args.raster_only):
-        print("the fp32 window-16 forward:", flush=True)
+        print("the fp32 forward (up to 160 tokens and window 16):",
+              flush=True)
         fwd_fp32 = _fp32_fwd_ab(cs, out_dir, tuple(dirs), sigs)
         print("the fp32 backward up to 160 tokens:", flush=True)
         short_fp32 = _fp32_short_bwd_ab(cs, out_dir, tuple(dirs), sigs)
@@ -903,6 +944,7 @@ def main() -> int:
     if args.json:
         with open(args.json, "w") as f:
             json.dump(dict(card=card, registers=regs, raster=times,
+                           exact=exact,
                            attention=attn, fused=fused, fwd_fp32=fwd_fp32,
                            short_fp32=short_fp32, long_fp32=long_fp32,
                            steps=steps, images=images), f, indent=1)
@@ -918,7 +960,7 @@ FUSED_KERNELS = (("ln_mlp", "ln_mlp_kernel"), ("ln_attn", "ln_qkv_kernel"),
                  ("ln_attn", "attn_heads_kernel"))
 
 
-def _fused_fwd_ab(cs, out_dir, regs, tags, sigs):
+def _fused_fwd_ab(cs, out_dir, regs, tags, sigs, only=None):
     """Kernels M and A (A-long beyond 160 tokens) from every build in turns
     (tags + reversed + tags), at the main path's shapes with seeded
     weights: M at the paper decoder's 225 x 144 x 180 in fp32 (ln_inj, ln,
@@ -932,14 +974,16 @@ def _fused_fwd_ab(cs, out_dir, regs, tags, sigs):
     (fp32 atol = rtol = 1e-4; bf16 2^-7 |ref| + 2^-8 max|ref|) and to the
     same bits twice; ms, the speed-up of the change over each other build,
     the bound (fp32: the products in 3xTF32 at the TF32 peak; bf16: at the
-    bf16 peak, or the bytes) and the registers of each build's kernels."""
+    bf16 peak, or the bytes) and the registers of each build's kernels.
+    `only` (kernel, case) keeps those cases alone (--fp32-only: A paper).
+    """
     import torch
 
     from gsasr_torch.models.fea2gs_rope_fast import rope_tables
     from gsasr_torch.ops import fused_layers as fl
 
-    entries = _entries(out_dir, tags, ("ln_mlp", "ln_attn", "ln_attn_long"),
-                       sigs)
+    entries = _entries(out_dir, tags, ("ln_attn", "ln_attn_long") + (
+        () if only else ("ln_mlp",)), sigs)
     print("registers of M's and A's kernels:", flush=True)
     kregs = {}
     for key, r in sorted(regs.items()):
@@ -991,6 +1035,8 @@ def _fused_fwd_ab(cs, out_dir, regs, tags, sigs):
               for o in ("rope_cross", "rope_self")]
     cases += [("A-long", "Ultra", dt, 144, 256, 256, 192, o)
               for dt in (bf16, f32) for o in ("rope_cross", "rope_self")]
+    if only:
+        cases = [cs_ for cs_ in cases if cs_[:2] == only]
     rows = []
     for kind, case, dt, b, tq, tk, c, opts in cases:
         x = rnd(b, tq, c).to(dt)
@@ -1735,6 +1781,101 @@ def _raster_ab(cs, out_dir, tags, sigs):
         del geom, col, bbox, g
         gc.collect()
         torch.cuda.empty_cache()
+    return out
+
+
+def _exact_ab(cs, out_dir, tags, sigs):
+    """The exact render (phase 37's 720x720 render of 518,400 Gaussians,
+    dmax 0.1) with each build in turns (tags + reversed + tags): R-exact's
+    walk on the trained-like lists (one call, CUDA events, median of 10,
+    and ten back to back), each build's image the same bits twice and this
+    tree's the first build's bits; then the whole path
+    (gs_render(binning="exact"), host clock, median of 9) on the
+    trained-like and the init-like Gaussians, with each build's R-exact
+    and lists: this tree's CUDA build (kernel XB) where the build's
+    `_build.py` declares it, else `exact_tables` (the torch ops the parent
+    ran); R's path (binning="auto") beside it, and the list build's host
+    and device ms per build."""
+    import numpy as np
+    import torch
+
+    from gsasr_torch.ops import _build
+    from gsasr_torch.ops import rasterizer as rz
+
+    dev = torch.device("cuda")
+    ents = _entries(out_dir, tags, ("raster_fwd_exact",), sigs)
+    _build.build(["raster_fwd_exact", "exact_build"])
+    mine = _build._libs["raster_fwd_exact"]
+    build_cuda = rz.exact_build
+    hw, dmax = cs.EXACT_HW, cs.EXACT_DMAX
+    box = dmax * (hw - 1) + 1
+    mr, mc = rz._exact_spans(hw, hw, (box, box))
+
+    def swap(tag):
+        _build._libs["raster_fwd_exact"] = (mine if tag is None
+                                            else ents[tag, "raster_fwd_exact"])
+        cuda_build = tag is None or "exact_build" in sigs[tag]
+        rz.exact_build = build_cuda if cuda_build else rz.exact_tables
+
+    out = {}
+    for kind in ("trained", "init"):
+        sigmas, coords, colors = cs.exact_workload(kind, dev)
+        geom = rz.pack_geometry(sigmas, coords, (hw, hw), dmax)
+        res = {tag: dict(path_ms=[], build_ms=[]) for tag in tags}
+        if kind == "trained":
+            swap(None)
+            g, col, _, lists, tab, ok = rz.exact_geometry(geom, colors,
+                                                          (hw, hw), mr, mc)
+            assert bool(ok)
+            imgs = {}
+            for tag in tags:
+                swap(tag)
+                a = rz.raster_fwd_exact(g, col, lists, tab, hw, hw)
+                if not torch.equal(a, rz.raster_fwd_exact(g, col, lists, tab,
+                                                          hw, hw)):
+                    raise AssertionError(f"R-exact: the {tag}'s two "
+                                         "launches differ")
+                imgs[tag] = a
+                res[tag].update(walk_ms=[])
+            same = torch.equal(imgs[tags[0]], imgs["change"])
+            if not same:
+                raise AssertionError("R-exact: the change's bits differ "
+                                     f"from the {tags[0]}'s")
+            for tag in list(tags) + list(tags)[::-1] + list(tags):
+                swap(tag)
+                res[tag]["walk_ms"].append(round(cs._time_ms(
+                    lambda: rz.raster_fwd_exact(g, col, lists, tab, hw, hw),
+                    10), 4))
+            for tag in tags:
+                swap(tag)
+                res[tag]["walk_back_to_back_ms"] = round(cs._batch_ms(
+                    lambda: rz.raster_fwd_exact(g, col, lists, tab, hw, hw)),
+                    4)
+            del g, col, lists, tab
+        for tag in list(tags) + list(tags)[::-1] + list(tags):
+            swap(tag)
+            res[tag]["path_ms"].append(round(float(np.median(cs._host_ms(
+                lambda: rz.gs_render(sigmas, coords, colors, (hw, hw), dmax,
+                                     binning="exact"), 9))), 4))
+            res[tag]["build_ms"].append(round(float(np.median(cs._host_ms(
+                lambda: rz.exact_geometry(geom, colors, (hw, hw), mr, mc),
+                9))), 4))
+        for tag in tags:
+            swap(tag)
+            with torch.profiler.profile(activities=[
+                    torch.profiler.ProfilerActivity.CUDA]) as prof:
+                rz.exact_geometry(geom, colors, (hw, hw), mr, mc)
+                torch.cuda.synchronize()
+            res[tag]["build_device_ms"] = round(sum(
+                e.self_device_time_total for e in prof.key_averages()
+                if e.device_type == torch.autograd.DeviceType.CUDA) / 1e3, 4)
+        swap(None)
+        r_path = round(float(np.median(cs._host_ms(lambda: rz.gs_render(
+            sigmas, coords, colors, (hw, hw), dmax), 9))), 4)
+        out[kind] = dict(builds=res, r_path_ms=r_path)
+        print(f"  exact {kind}: " + "; ".join(
+            f"{t} " + ", ".join(f"{k} {v}" for k, v in r.items())
+            for t, r in res.items()) + f"; R's path {r_path} ms", flush=True)
     return out
 
 

@@ -83,10 +83,16 @@ FAMILIES = (
       "window_attn_bwd_long_tf32_kv_kernel<true")),
     ("WMB window_attn_bwd short tf32 masked",
      ("window_attn_bwd_short_tf32_kernel<true",)),
-    # the fp32 3xTF32 forward: W-long (W4-long), and A's and A-long's fp32
-    # attention launch, the same kernel; their projections below
-    ("W-long window_attn_fwd long tf32, A and A-long fp32 attention",
+    # the fp32 3xTF32 forward: W-long (W4-long), and A-long's fp32
+    # attention launch, the same kernel; up to 160 tokens W (W4), WM, and
+    # A's fp32 attention (AB's att) on the short body; their projections
+    # below
+    ("W-long window_attn_fwd long tf32, A-long fp32 attention",
      ("window_attn_fwd_long_tf32_kernel",)),
+    ("WM window_attn_fwd short tf32 masked",
+     ("window_attn_fwd_short_tf32_kernel<true",)),
+    ("W window_attn_fwd short tf32, A fp32 attention",
+     ("window_attn_fwd_short_tf32_kernel",)),
     # WB-long (and WB4-long): the 3xTF32 body's dq / row-statistics and
     # dk / dv launches; WB (and WB4) up to 160 tokens: its one launch; AB's
     # and AB-long's fp32 attention runs the same kernels
@@ -112,9 +118,6 @@ FAMILIES = (
      ("window_attn_bwd_short_mma_kernel<true",)),
     ("WB-bf16 window_attn_bwd short mma",
      ("window_attn_bwd_short_mma_kernel",)),
-    # WM is a kernel of its own over W's body
-    ("WM window_attn_fwd masked", ("window_attn_fwd_masked_kernel",)),
-    ("W window_attn_fwd", ("window_attn_fwd_kernel",)),
     # the sum of ds over the windows: every form's dbias
     ("dbias sums", ("dbias_sum_kernel",)),
     ("M ln_mlp", ("ln_mlp_kernel",)),

@@ -1287,10 +1287,10 @@ def test_window_attn_4d_matches_plain_and_repeats(cuda, b, nh, tq, tk, hd,
 
 
 def test_exact_and_4d_kernels_do_not_spill(cuda):
-    """ptxas's report: R-exact and the head-major kernels (W4's FMA body,
-    and the tensor-core bodies' head-major instantiations, kHM: W4-long's
-    and WB4's 3xTF32 bodies, W4-bf16's, WB4-bf16's and their window-16
-    forms') use no local memory for spills."""
+    """ptxas's report: R-exact and the head-major kernels (the tensor-core
+    bodies' head-major instantiations, kHM: W4's, W4-long's and WB4's
+    3xTF32 bodies, W4-bf16's, WB4-bf16's and their window-16 forms') use no
+    local memory for spills."""
     import re
 
     from gsasr_torch.ops import _build
@@ -1388,4 +1388,161 @@ def test_short_bf16_mma_kernels_fit(cuda):
                 found[src, name] = sp.groups()
     # three flag pairs (plain, mask, head-major) x three sizes, each source
     assert len(found) == 18, sorted(found)
+    assert all(sp == ("0", "0") for sp in found.values()), found
+
+
+# The fp32 forward up to 160 tokens on the tensor cores (3xTF32,
+# window_attn_short_tf32.cuh): (form, windows, Tq, Tk, C, heads, bias, mask
+# period): W at the paper step's 144 tokens with a bias (256 windows, 38 a
+# step), SwinIR's T = 64 with a bias (576 windows) and WM there with the
+# training mask's period 36, 160 x 160, an odd 77 x 100, three keys, a head
+# width of 24, and W4 at 144 with a bias and at 64 x 144 without
+SHORT_FWD_CASES = [("W", 256, 144, 144, 180, 6, True, 0),
+                   ("W", 576, 64, 64, 180, 6, True, 0),
+                   ("WM", 576, 64, 64, 180, 6, True, 36),
+                   ("WM", 54, 144, 144, 180, 6, False, 9),
+                   ("W", 9, 160, 160, 192, 6, True, 0),
+                   ("W", 13, 77, 100, 180, 6, True, 0),
+                   ("W", 5, 64, 3, 180, 6, True, 0),
+                   ("W", 6, 144, 144, 144, 6, True, 0),
+                   ("W4", 225, 144, 144, 180, 6, True, 0),
+                   ("W4", 11, 64, 144, 180, 6, False, 0)]
+
+
+@pytest.mark.parametrize("form,b,tq,tk,c,nh,bias,nw", SHORT_FWD_CASES)
+def test_short_tf32_fwd_matches_plain_and_repeats(cuda, form, b, tq, tk, c,
+                                                  nh, bias, nw):
+    """W, WM and W4 on the 3xTF32 body against their plain versions (1e-4
+    of max|ref|), twice bitwise, one launch each of the form's wrapper."""
+    from gsasr_torch.ops import attention as ta
+
+    q, k, v, bs, _ = _attn_inputs(cuda, b, tq, tk, c, nh, bias, seed=41)
+    scale = (c // nh) ** -0.5
+    if form == "W4":
+        q, k, v = (ta._heads(x, nh).contiguous() for x in (q, k, v))
+        fn, wrap = (lambda: ta.window_attention_4d_fwd(q, k, v, bs, scale),
+                    ta.window_attention_4d_fwd)
+        ref = ta.window_attention_plain(q, k, v, bs, scale)
+    elif form == "WM":
+        mask = _swin_mask(cuda, nw, tq)
+        fn, wrap = (lambda: ta.window_attention_packed_masked_fwd(
+            q, k, v, bs, mask, scale, nh), ta.window_attention_packed_masked_fwd)
+        ref = ta.window_attention_packed_plain(q, k, v, bs, scale, nh, mask)
+    else:
+        fn, wrap = (lambda: ta.window_attention_packed_fwd(q, k, v, bs, scale,
+                                                           nh),
+                    ta.window_attention_packed_fwd)
+        ref = ta.window_attention_packed_plain(q, k, v, bs, scale, nh)
+    n = wrap.launches
+    out = fn()
+    assert torch.equal(out, fn())
+    assert wrap.launches == n + 2
+    torch.testing.assert_close(out, ref, rtol=1e-4,
+                               atol=1e-4 * float(ref.abs().max()))
+
+
+def test_short_tf32_fwd_kernels_fit(cuda):
+    """ptxas's report: the 3xTF32 forward body up to 160 tokens in W's
+    source (W, WM, W4: three flag pairs), in A's (its fp32 attention) and
+    in AB's (att) spills no register, and no FMA forward kernel
+    (window_attn_fwd_kernel, _masked_kernel, _4d_kernel) is left."""
+    import re
+
+    from gsasr_torch.ops import _build
+
+    _build.build(["window_attn_fwd", "ln_attn", "ln_attn_bwd"])
+    fma = ("window_attn_fwd_kernel", "window_attn_fwd_masked_kernel",
+           "window_attn_fwd_4d_kernel")
+    found = {}
+    for src in ("window_attn_fwd", "ln_attn", "ln_attn_bwd"):
+        name = None
+        for line in _build.ptxas_report(src).splitlines():
+            m = re.search(r"Compiling entry function '(\w+)'", line)
+            if m:
+                name = m.group(1)
+                assert not any(k in name for k in fma), name
+            if not name or "_short_tf32_kernel" not in name or \
+                    "fwd" not in name:
+                continue
+            sp = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill "
+                           r"loads", line)
+            if sp:
+                found[src, name] = sp.groups()
+    assert sum(s == "window_attn_fwd" for s, _ in found) == 3, sorted(found)
+    assert sum(s == "ln_attn" for s, _ in found) == 1, sorted(found)
+    assert sum(s == "ln_attn_bwd" for s, _ in found) == 1, sorted(found)
+    assert all(sp == ("0", "0") for sp in found.values()), found
+
+
+def _phase37_workload(cuda, kind, s=518400, hw=720, seed=0):
+    """chip_smoke.py's phase 37 Gaussians (scripts/bench_exact_render.py's):
+    lattice centers with jitter; sigmas trained-like (lognormal around 1.1
+    px) or init-like (300 px); packed at dmax 0.1 on 720 x 720."""
+    from gsasr_torch.ops import rasterizer as tr
+
+    rng = np.random.default_rng(seed)
+    half = (hw - 1) / 2.0
+    sig = (np.clip(np.exp(rng.normal(np.log(1.1), 0.7, (s, 2))).astype(
+        np.float32), 0.3, 60.0) if kind == "trained"
+        else np.full((s, 2), 300.0, np.float32))
+    sigmas = np.concatenate(
+        [sig / half, rng.uniform(-0.6, 0.6, (s, 1)).astype(np.float32)], 1)
+    n = int(np.sqrt(s))
+    gx, gy = np.meshgrid(np.linspace(-1, 1, n), np.linspace(-1, 1, n))
+    coords = np.stack([gx.ravel(), gy.ravel()], 1).astype(np.float32)
+    coords += rng.uniform(-1.0 / n, 1.0 / n, coords.shape).astype(np.float32)
+    return tr.pack_geometry(torch.from_numpy(sigmas).to(cuda),
+                            torch.from_numpy(coords).to(cuda), (hw, hw), 0.1)
+
+
+@pytest.mark.parametrize("kind,want_ok", [("trained", True),
+                                          ("init", False)])
+def test_exact_build_matches_tables(cuda, kind, want_ok):
+    """Kernel XB against exact_tables (the plain version, torch ops on the
+    card) integer for integer on phase 37's two workloads at full size: the
+    trained-like lists fit, the init-like ones overflow; twice the same."""
+    from gsasr_torch.ops import rasterizer as tr
+
+    hw = 720
+    geom = _phase37_workload(cuda, kind)
+    mr, mc = tr._exact_spans(hw, hw, (0.1 * (hw - 1) + 1,) * 2)
+    fy0, fx0, _, _, _ = tr._corner_tiles(geom, hw, hw, tr._TH_BIN,
+                                         tr._TW_BIN)
+    perm = torch.argsort(fy0 * tr._cdiv(hw, tr._TW_BIN) + fx0, stable=True)
+    g, _ = tr._pad(geom[perm], torch.zeros_like(geom[:, :3]), tr._LIST_ALIGN)
+    nt = tr._cdiv(hw, tr._TH_BIN) * tr._cdiv(hw, tr._TW_BIN)
+    cap = tr._cdiv(nt * tr._GC_LIST + min(mr * mc, tr._LIST_BUDGET)
+                   * g.shape[0], tr._GC_LIST) * tr._GC_LIST
+    args = (g, hw, hw, tr._TH_BIN, tr._TW_BIN, tr._GC_LIST, mr, mc, cap)
+    n = tr.exact_build.launches
+    got = tr.exact_build(*args)
+    again = tr.exact_build(*args)
+    assert tr.exact_build.launches == n + 2
+    ref = tr.exact_tables(*args)
+    assert bool(got[2]) == bool(ref[2]) == want_ok
+    for a, b, r in zip(got, again, ref):
+        assert a.dtype == r.dtype and torch.equal(a, b) and torch.equal(a, r)
+
+
+def test_exact_build_kernels_fit(cuda):
+    """ptxas's report of exact_build.cu and R-exact's walk: no spills."""
+    import re
+
+    from gsasr_torch.ops import _build
+
+    _build.build(["exact_build", "raster_fwd_exact"])
+    found = {}
+    for src, keys in (("exact_build", ("corner_kernel", "count_kernel",
+                                       "write_kernel")),
+                      ("raster_fwd", ("raster_fwd_exact_kernel",))):
+        name = None
+        for line in _build.ptxas_report(src).splitlines():
+            m = re.search(r"Compiling entry function '(\w+)'", line)
+            if m:
+                name = m.group(1)
+            sp = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill "
+                           r"loads", line)
+            if sp and name and any(k in name for k in keys):
+                found[name] = sp.groups()
+    assert len(found) == 4, sorted(found)
     assert all(sp == ("0", "0") for sp in found.values()), found
