@@ -232,6 +232,21 @@
    and SDPA; window_attention through autograd once per shape (launches
    asserted); ptxas's registers of the 4D kernels and the packed forms'
    beside the recorded ones.
+39. Windows past 65,535 (TF32 off): every window attention entry point (W,
+   WM, W4, W-long, WM-long; WB, WMB, WB4, WB-long, WMB-long; fp32 and
+   bf16, each with a bias) and kernels A and AB at 66,000 windows, more
+   than CUDA allows on a grid's y dimension: the same bits twice, the same
+   bits as the call split into two launches at window 33,000, the first
+   and last 64 windows against the plain version on those windows alone,
+   and dbias, summed over the windows, against the plain version summed in
+   chunks (AB's row sums printed beside their float64 sum).
+40. Infer CLI: `gsasr_torch.cli.infer.main` on a seeded 180x180 PNG and a
+   seeded reference-format pair of the full-width paper EDSR + Fea2GS
+   (different weights under params and params_ema), untiled x4, tiled x4
+   (tiles of 96 overlapping by 8) and untiled x2.5: each written PNG equals
+   the rounded in-process sr_forward / split_and_joint_image output on the
+   params_ema weights; R, M and A launched by the untiled x4 run; wall
+   times beside the card.
 
 Every training phase also times Trainer.grads, which runs with cuDNN's
 deterministic algorithms, against the same forward and backward under
@@ -3600,6 +3615,430 @@ def attention_4d_phase(dev, kernels):
     return results
 
 
+# Phase 39: the window attention entry points past CUDA's 65,535 blocks on
+# a grid's y dimension, which their launchers cut into pieces of at most
+# 65,535 windows (window_attn_long.cuh, for_window_chunks).
+GRID_WINDOWS = 66000
+GRID_SPLIT = 33000
+GRID_SLICE = 64
+# windows a chunk of the plain versions that sum over all windows
+GRID_CHUNK = 4096
+# AB's weight, LN and pos gradients over GRID_WINDOWS x 64 rows: max|d| /
+# max|ref| from the float64 sum. fp32: each of a row group's 33,008 rows
+# (tile_mma_bwd.cuh's group_rows at 4.2 M rows) adds at most one ulp,
+# 2^-23 of the partial sum, so 33,008 x 2^-23 = 3.9e-3; a row group lost
+# or counted twice moves these sums of random-signed rows by about
+# 128^-0.5, 9%. bf16: the phase's bf16 tolerance, 2^-7 (a sum of terms
+# that one side rounds to bf16 and the other not lands near 2^-9).
+ROWSUM_TOL = {torch.float32: 33008 * 2.0 ** -23,
+              torch.bfloat16: 2.0 ** -7}
+# (label, T, heads, head width, mask period or 0, head-major): W and WB
+# at the paper decoder's 144 tokens, WM and WMB at SwinIR's shifted 64
+# with the mask of a 16x16 map (period 4), the window-16 forms at HAT's
+# 256, W4 and WB4 on the head-major layout; every one with a bias. The
+# labels "<form>/<period>" run WM and WM-long (at 64 tokens, the long body
+# takes any T) with a seeded random mask of GRID_WINDOWS classes, the
+# window count of one untiled SwinIR image of 2112 x 2000 LR pixels, over
+# two such images: the pieces cut each period and start at classes 0 and
+# 65,535.
+GRID_FORMS = (("W", 144, 1, 32, 0, False),
+              ("WM", 64, 2, 16, 4, False),
+              ("W4", 144, 1, 32, 0, True),
+              ("W-long", 256, 1, 16, 0, False),
+              ("WM-long", 256, 1, 16, 4, False),
+              ("WM/66000", 64, 2, 16, GRID_WINDOWS, False),
+              ("WM-long/66000", 64, 2, 16, GRID_WINDOWS, False))
+
+
+def _grid_windows(period):
+    """The windows a GRID_FORMS case runs: two images past 65,535 windows
+    each, or GRID_WINDOWS."""
+    return 2 * period if period > 65535 else GRID_WINDOWS
+
+
+def _grid_mask_of(period, t, dev, gen):
+    """The (period, t, t) mask of a GRID_FORMS case: Swin's shifted-window
+    mask of a map of `period` windows of t tokens (period 4), else 0 or
+    -100 at random, so that every class differs."""
+    if period <= 4:
+        from gsasr_torch.models.swinir import swin_attn_mask
+
+        side = 2 * math.isqrt(t)
+        mask = swin_attn_mask(side, side, math.isqrt(t), math.isqrt(t) // 2,
+                              dev)
+        assert mask.shape[0] == period
+        return mask
+    return torch.where(torch.rand(period, t, t, generator=gen, device=dev)
+                       < 0.4, -100.0, 0.0)
+
+
+def _grid_mask(mask, lo, hi):
+    """The mask of windows [lo, hi) for a call on those windows alone: the
+    mask itself where they are whole periods from a period's start, else
+    their classes, one period of hi - lo."""
+    if mask is None:
+        return None
+    nw = mask.shape[0]
+    if lo % nw == 0 and (hi - lo) % nw == 0:
+        return mask
+    return mask[torch.arange(lo, hi, device=mask.device) % nw]
+
+
+def _grid_wrappers(form, dt):
+    """(forward, backward, plain forward, plain backward) of a form in
+    dtype dt, each taking (q, k, v, bias, mask[, g], scale, heads)."""
+    from gsasr_torch.ops import attention as ta
+
+    b16 = "_bf16" if dt == torch.bfloat16 else ""
+    if form == "W4":
+        f4 = getattr(ta, f"window_attention_4d{b16}_fwd")
+        b4 = getattr(ta, f"window_attention_4d{b16}_bwd")
+        return (lambda q, k, v, b, m, s, nh: f4(q, k, v, b, s),
+                lambda q, k, v, b, m, g, s, nh: b4(q, k, v, b, g, s),
+                lambda q, k, v, b, m, s, nh: ta.window_attention_plain(
+                    q, k, v, b, s),
+                lambda q, k, v, b, m, g, s, nh: ta.window_attention_bwd_plain(
+                    q, k, v, b, g, s))
+    name = "window_attention_packed" + "_long" * form.endswith("-long") + (
+        "_masked" if form.startswith("WM") else "") + b16
+    fwd, bwd = getattr(ta, name + "_fwd"), getattr(ta, name + "_bwd")
+    if form.startswith("WM"):
+        f, b = fwd, bwd
+    else:
+        f = lambda q, k, v, b_, m, s, nh: fwd(q, k, v, b_, s, nh)  # noqa: E731
+        b = lambda q, k, v, b_, m, g, s, nh: bwd(q, k, v, b_, g, s, nh)  # noqa: E731,E501
+    return (f, b,
+            lambda q, k, v, b_, m, s, nh: ta.window_attention_packed_plain(
+                q, k, v, b_, s, nh, m),
+            lambda q, k, v, b_, m, g, s, nh:
+            ta.window_attention_packed_bwd_plain(q, k, v, b_, g, s, nh, m))
+
+
+def _grid_checks(label, call, n, per_window):
+    """call(lo, hi) -> outputs for windows [lo, hi); per_window[i]: output i
+    is stacked by window (else summed over them). Asserts the same bits
+    twice over all n windows, and the per-window outputs the same bits as
+    two calls split at GRID_SPLIT, each of at most 65,535 windows where n is
+    below 2 GRID_SPLIT (each window keeps its owner block and order).
+    Returns the first call's outputs."""
+    full = call(0, n)
+    again = call(0, n)
+    if not all(a is None and b is None or torch.equal(a, b)
+               for a, b in zip(full, again)):
+        raise AssertionError(f"{label}: two launches differ")
+    lo, hi = call(0, GRID_SPLIT), call(GRID_SPLIT, n)
+    for i, (a, x, y) in enumerate(zip(full, lo, hi)):
+        if per_window[i] and not torch.equal(a, torch.cat([x, y])):
+            raise AssertionError(f"{label}: output {i} differs from the same "
+                                 f"call split at window {GRID_SPLIT}")
+    print(f"  {label}: {n} windows, the same bits twice and as two launches "
+          f"split at {GRID_SPLIT}", flush=True)
+    return full
+
+
+def _grid_plain_sum(plain, n, idx):
+    """The outputs `idx` of plain(lo, hi), summed over all n windows in
+    chunks of GRID_CHUNK, in float64."""
+    acc = None
+    for lo in range(0, n, GRID_CHUNK):
+        outs = plain(lo, min(n, lo + GRID_CHUNK))
+        part = [None if outs[i] is None else outs[i].double() for i in idx]
+        acc = part if acc is None else [
+            None if a is None else a + p for a, p in zip(acc, part)]
+    return acc
+
+
+def grid_windows_phase(dev):
+    """Phase 39: every window attention entry point (W, WM, W4, W-long,
+    WM-long and their backward WB, WMB, WB4, WB-long, WMB-long; fp32 and
+    bf16) and kernels A and AB at GRID_WINDOWS windows, past the 65,535
+    that CUDA allows on a grid's y dimension, and WM, WM-long, WMB and
+    WMB-long with a mask period past it too. Each: the same bits twice, the
+    same bits as the call split into two calls at GRID_SPLIT, the first
+    and last GRID_SLICE windows against the plain version on those windows
+    alone (their outputs depend on their own window only), and dbias,
+    summed over the windows, against the plain version summed in chunks
+    (AB's weight, LN and pos gradients, summed over rows: their distance
+    from the float64 sum, ROWSUM_TOL, beside the plain version's). Tolerances: fp32 KERNEL_ATOL/RTOL forward,
+    GRAD_TOL backward; bf16 2^-7 |ref| + 2^-8 max|ref| (AB's dx and dkv in
+    bf16: relative L2 2^-7, as phases 27 and 34)."""
+    from gsasr_torch.ops import fused_layers as fl
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    gen = torch.Generator().manual_seed(39)
+    dgen = torch.Generator(device=dev).manual_seed(39)
+    rows = []
+    for label, t, nh, hd, nw, hm in GRID_FORMS:
+        form, _, period = label.partition("/")
+        n = _grid_windows(nw)
+        ends = ((0, GRID_SLICE), (n - GRID_SLICE, n))
+        c = nh * hd
+        scale = hd ** -0.5
+        bias = (0.5 * torch.randn(nh, t, t, generator=gen)).to(dev)
+        mask = _grid_mask_of(nw, t, dev, dgen) if nw else None
+        for dt in (torch.float32, torch.bfloat16):
+            fwd, bwd, pfwd, pbwd = _grid_wrappers(form, dt)
+            shape = (n, nh, t, hd) if hm else (n, t, c)
+            q, k, v, g = (torch.randn(shape, generator=dgen,
+                                      device=dev).to(dt) for _ in range(4))
+            f = lambda lo, hi: (fwd(q[lo:hi], k[lo:hi], v[lo:hi],  # noqa: E731
+                                    bias, _grid_mask(mask, lo, hi), scale,
+                                    nh),)
+            b = lambda lo, hi: bwd(q[lo:hi], k[lo:hi], v[lo:hi],  # noqa: E731
+                                   bias, _grid_mask(mask, lo, hi), g[lo:hi],
+                                   scale, nh)
+            pb = lambda lo, hi: pbwd(q[lo:hi], k[lo:hi], v[lo:hi],  # noqa: E731
+                                     bias, _grid_mask(mask, lo, hi),
+                                     g[lo:hi], scale, nh)
+            tag = "" if dt == torch.float32 else "-bf16"
+            if period:
+                tag += f" (mask period {period})"
+            bname = ("WMB" + form[2:] if form.startswith("WM")
+                     else "WB" + form[1:])
+            out = _grid_checks(f"{form}{tag}", f, n, (True,))
+            errs = []
+            for lo, hi in ends:
+                ref = pfwd(q[lo:hi], k[lo:hi], v[lo:hi], bias,
+                           _grid_mask(mask, lo, hi), scale, nh)
+                cmp = _compare if dt == torch.float32 else _compare_bf16
+                errs.append(cmp(out[0][lo:hi], ref,
+                                f"{form}{tag} windows {lo}..{hi - 1}"))
+            rows.append(dict(form=form + tag, windows=n, tokens=t,
+                             max_abs_err=max(errs)))
+            del out
+            outs = _grid_checks(f"{bname}{tag}", b, n,
+                                (True, True, True, False))
+            errs = []
+            for lo, hi in ends:
+                refs = pb(lo, hi)
+                for o, r, nm in zip(outs[:3], refs[:3], ("dq", "dk", "dv")):
+                    lab = f"{bname}{tag} windows {lo}..{hi - 1} {nm}"
+                    errs.append(_compare_grad(o[lo:hi], r, lab)
+                                if dt == torch.float32 else
+                                _compare_bf16(o[lo:hi], r, lab))
+            dbias, = _grid_plain_sum(pb, n, (3,))
+            errs.append(_compare_grad(outs[3], dbias.float(),
+                                      f"{bname}{tag} dbias over {n} windows"))
+            rows.append(dict(form=bname + tag, windows=n, tokens=t,
+                             max_abs_err=max(errs)))
+            del outs, q, k, v, g
+            gc.collect()
+            torch.cuda.empty_cache()
+
+    # kernels A and AB: the paper decoder's cross-attention form (pos, kv,
+    # bias) at 64 tokens, one head of 32 channels
+    n = GRID_WINDOWS
+    ends = ((0, GRID_SLICE), (n - GRID_SLICE, n))
+    t, c, nh = 64, 32, 1
+    rnd = lambda *s: torch.randn(*s, generator=gen).to(dev)  # noqa: E731
+    w = dict(wq=0.2 * rnd(c, c), bq=0.1 * rnd(c), wk=0.2 * rnd(c, c),
+             bk=0.1 * rnd(c), wv=0.2 * rnd(c, c), bv=0.1 * rnd(c),
+             wo=0.2 * rnd(c, c), bo=0.1 * rnd(c), ln_w=1 + 0.1 * rnd(c),
+             ln_b=0.1 * rnd(c), bias=0.5 * rnd(nh, t, t))
+    names = ("dx", "dpos", "dkv", "dln_w", "dln_b", "dwq", "dbq", "dwk",
+             "dbk", "dwv", "dbv", "dwo", "dbo", "dbias", "dcos_q", "dsin_q",
+             "dcos_k", "dsin_k")
+    per_window = tuple(nm in ("dx", "dkv") for nm in names)
+    for dt in (torch.float32, torch.bfloat16):
+        tag = "" if dt == torch.float32 else "-bf16"
+        x, kv, g = (torch.randn(n, t, c, generator=dgen,
+                                device=dev).to(dt) for _ in range(3))
+        pos = rnd(t, c).to(dt)
+        kw = dict(w, pos=pos, num_heads=nh)
+        with torch.no_grad():
+            out = _grid_checks(f"A{tag}", lambda lo, hi: (fl.ln_attn_proj(
+                x[lo:hi], kv=kv[lo:hi], **kw),), n, (True,))
+        errs = []
+        for lo, hi in ends:
+            ref = fl.ln_attn_proj_plain(x[lo:hi], kv=kv[lo:hi], **kw)
+            cmp = _compare if dt == torch.float32 else _compare_bf16
+            errs.append(cmp(out[0][lo:hi], ref,
+                            f"A{tag} windows {lo}..{hi - 1}"))
+        rows.append(dict(form="A" + tag, windows=n, tokens=t,
+                         max_abs_err=max(errs)))
+        del out
+        ab = lambda lo, hi: fl.ln_attn_proj_bwd(  # noqa: E731
+            x[lo:hi], g[lo:hi], kv=kv[lo:hi], **kw)
+        pab = lambda lo, hi: fl.ln_attn_proj_bwd_plain(  # noqa: E731
+            x[lo:hi], g[lo:hi], kv=kv[lo:hi], **kw)
+        outs = _grid_checks(f"AB{tag}", ab, n, per_window)
+        errs = []
+        for lo, hi in ends:
+            refs = pab(lo, hi)
+            for i in (0, 2):
+                lab = f"AB{tag} windows {lo}..{hi - 1} {names[i]}"
+                errs.append(_compare_grads([outs[i][lo:hi]], [refs[i]],
+                                           [names[i]], lab)
+                            if dt == torch.float32 else
+                            _compare_grads([outs[i][lo:hi]], [refs[i]],
+                                           [names[i]], lab, tol=2 ** -7,
+                                           l2=True))
+        # dbias sums ds over the windows in window order (the ordered sum
+        # the window attention backward bodies share): held to the plain
+        # version summed in chunks; the weight, LN and pos gradients sum
+        # n t rows in the row groups of tile_mma_bwd.cuh, which the window
+        # index does not reach: f32 sums of 4.2 M rows, whose rounding
+        # passes GRAD_TOL (the steps' shapes hold them to it in phases 7,
+        # 27 and 34). So their distance from the float64 sum is held to
+        # ROWSUM_TOL and printed beside the plain version's own, its f32
+        # sums over all n windows at once (cuBLAS). dbk is printed only:
+        # it is 0 (each window's ds rows sum to 0), so both sides give
+        # rounding alone and max|ref| is no scale
+        sums = [i for i, pw in enumerate(per_window) if not pw]
+        ref_sums = _grid_plain_sum(pab, n, sums)
+        plain = pab(0, n)
+        plain = [plain[i] for i in sums]
+        ib = names.index("dbias")
+        rb = ref_sums[sums.index(ib)].float()
+        errs.append(_compare_grads(
+            [outs[ib]], [rb], ["dbias"], f"AB{tag} over {n} windows",
+            **({} if dt == torch.float32 else dict(tol=2 ** -7, l2=True))))
+        rel, rel_plain = {}, {}
+        for i, r, p in zip(sums, ref_sums, plain):
+            if r is None or i == ib:
+                continue
+            top = r.abs().max()
+            rel[names[i]] = float((outs[i].double() - r).abs().max() / top)
+            rel_plain[names[i]] = float((p.double() - r).abs().max() / top)
+        print(f"  AB{tag} row sums over {n * t} rows, max|d| / max|ref| "
+              f"against the float64 sum (tol {ROWSUM_TOL[dt]:.2e}, dbk not "
+              "held), AB / plain: " + ", ".join(
+                  f"{k} {v:.2e} / {rel_plain[k]:.2e}" for k, v in rel.items()),
+              flush=True)
+        over = [k for k, v in rel.items()
+                if k != "dbk" and v > ROWSUM_TOL[dt]]
+        if over:
+            raise AssertionError(
+                f"AB{tag} row sums over {n * t} rows: {over} more than "
+                f"{ROWSUM_TOL[dt]:.2e} of max|ref| from the float64 sum")
+        rows.append(dict(form="AB" + tag, windows=n, tokens=t,
+                         max_abs_err=max(errs), row_sums_rel_err=rel,
+                         row_sums_rel_err_plain=rel_plain))
+        del outs, plain, x, kv, g
+        gc.collect()
+        torch.cuda.empty_cache()
+    return rows
+
+
+# Phase 40: python -m gsasr_torch.cli.infer on the card (main(argv) in
+# process): a seeded 180x180 PNG and a seeded reference-format checkpoint
+# pair of the full-width paper EDSR + Fea2GS
+INFER_HW = 180
+# (scale, (tile size, overlap) or None)
+INFER_RUNS = ((4.0, None), (4.0, (96, 8)), (2.5, None))
+
+
+def infer_cli_phase(dev, kernels, card):
+    """Phase 40: gsasr_torch.cli.infer reads a reference-format pair
+    ({"params", "params_ema"}, different weights under the two keys) and a
+    PNG, untiled and tiled at x4 and untiled at x2.5, and each written PNG
+    must equal round(clip(out, 0, 1) * 255) of sr_forward /
+    split_and_joint_image called in process on the params_ema weights. The
+    untiled x4 run's launches of R, M and A are counted. Wall times, the
+    CLI's model build and checkpoint load included, beside the card."""
+    import tempfile
+
+    from gsasr_torch.cli import infer
+    from gsasr_torch.model import make_models, sr_forward
+    from gsasr_torch.tiling import split_and_joint_image
+    from gsasr_torch.utils.convert import load_params
+    from gsasr_torch.utils.png import read_png, write_png
+
+    rng = np.random.default_rng(40)
+    img = (rng.random((INFER_HW, INFER_HW, 3)) * 255).astype(np.uint8)
+    pairs = [make_models("edsr", "paper", device="cpu",
+                         generator=torch.Generator().manual_seed(s))
+             for s in (41, 42)]
+    rows = []
+    with tempfile.TemporaryDirectory() as tmp:
+        src = os.path.join(tmp, "lr.png")
+        write_png(src, img)
+        ckpt = {}
+        for i, name in enumerate(("net_g", "net_fea2gs")):
+            ckpt[name] = os.path.join(tmp, f"{name}.pth")
+            torch.save({"params": pairs[0][i].state_dict(),
+                        "params_ema": pairs[1][i].state_dict()},
+                       ckpt[name])
+        enc, dec = (load_params(m, sd) for m, sd in zip(
+            make_models("edsr", "paper", device=dev),
+            (p.state_dict() for p in pairs[1])))
+        lq = img.astype(np.float32)[None] / 255.0
+        for scale, tile in INFER_RUNS:
+            case = (f"untiled x{scale}" if tile is None else
+                    f"tiled x{scale}, tiles of {tile[0]} overlapping by "
+                    f"{tile[1]}")
+            argv = ["--input_img_path", src, "--save_sr_path",
+                    os.path.join(tmp, "out"), "--enc_ckpt", ckpt["net_g"],
+                    "--dec_ckpt", ckpt["net_fea2gs"], "--scale", str(scale)]
+            if tile:
+                argv += ["--tile_process", "--tile_size", str(tile[0]),
+                         "--tile_overlap", str(tile[1])]
+            _reset(kernels)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            path = infer.main(argv)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            launches = _counts(kernels)
+            got = read_png(path)
+            want = (math.floor(INFER_HW * scale),) * 2
+            if tile:
+                out = split_and_joint_image(lq, scale, *tile, enc, dec,
+                                            crop_size=4, dmax=0.1,
+                                            device=dev)
+                out = out[:, :want[0], :want[1]]
+            else:
+                out = sr_forward(enc, dec, lq, scale, denominator=12,
+                                 dmax=0.1, device=dev).cpu().numpy()
+            ref = (np.clip(out[0], 0, 1) * 255).round().astype(np.uint8)
+            if got.shape != (*want, 3) or not np.array_equal(got, ref):
+                raise AssertionError(
+                    f"infer CLI {case}: the PNG {got.shape} differs from "
+                    f"the in-process output {ref.shape} "
+                    f"({int((got != ref).sum())} values)")
+            on_path = {k: v for k, v in launches.items() if v}
+            if (scale, tile) == INFER_RUNS[0] and not all(
+                    launches[k] for k in ("R", "M", "A")):
+                raise AssertionError(f"infer CLI {case}: launches {on_path}")
+            print(f"  infer CLI {case}: {os.path.basename(path)} {got.shape}"
+                  f" equals the in-process output; wall {wall * 1e3:.1f} ms "
+                  f"on {card}; launches {on_path}", flush=True)
+            rows.append(dict(case=case, output=os.path.basename(path),
+                             shape=list(got.shape), wall_ms=wall * 1e3,
+                             launches=on_path))
+        # the untiled x4 request's steps one at a time, as main runs them
+        steps = {}
+
+        def step(name, fn):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn()
+            torch.cuda.synchronize()
+            steps[name] = (time.perf_counter() - t0) * 1e3
+            return out
+
+        from gsasr_torch.cli.infer import build_models
+        from gsasr_torch.utils.checkpoint import load_torch_checkpoint
+        m = step("build models", lambda: build_models("EDSR", "paper",
+                                                      device=dev))
+        step("load checkpoints", lambda: [load_params(
+            mod, load_torch_checkpoint(ckpt[name], kind)) for mod, name, kind
+            in ((m[0], "net_g", "edsr"), (m[1], "net_fea2gs", "fea2gs"))])
+        x = step("read PNG", lambda: read_png(src))
+        y = step("sr_forward", lambda: sr_forward(
+            m[0], m[1], x.astype(np.float32)[None] / 255.0, 4.0,
+            denominator=12, dmax=0.1, device=dev).cpu().numpy())
+        step("write PNG", lambda: write_png(
+            os.path.join(tmp, "step.png"),
+            (np.clip(y[0], 0, 1) * 255).round().astype(np.uint8)))
+        print("  infer CLI untiled x4.0 by step: " + ", ".join(
+            f"{k} {v:.1f}" for k, v in steps.items()) + f" ms on {card}",
+            flush=True)
+        rows.append(dict(case="untiled x4.0 by step", step_ms=steps))
+    return rows
+
+
 FORM_KEYS = ("decoder", "case", "dtype", "nW", "windows", "tokens",
              "head_width", "bias", "per_image", "per_step", "per_swinir_step",
              "max_abs_err", "ms", "ms_back_to_back", "window16_ms",
@@ -4006,6 +4445,14 @@ def main() -> int:
     torch.cuda.empty_cache()
     print("4D window attention phase", flush=True)
     fres = attention_4d_phase(dev, kernels)
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"windows past 65,535 phase ({GRID_WINDOWS} windows)", flush=True)
+    gres = grid_windows_phase(dev)
+    gc.collect()
+    torch.cuda.empty_cache()
+    print("infer CLI phase", flush=True)
+    ires = infer_cli_phase(dev, kernels, card)
     for r in (train, ftrain, strain, etrain, utrain, eftrain, sbtrain,
               htrain, uftrain):
         same = "the same" if r["repeat"]["same_bits"] else "NOT the same"
@@ -4241,6 +4688,7 @@ def main() -> int:
                                train_fp32=uftrain32, card_vs_cpu=ufcvc),
                            swinir_fused_train=sftrain,
                            exact_render=xres, attention_4d=fres,
+                           grid_windows=gres, infer_cli=ires,
                            total_s=time.perf_counter() - t_start), f, indent=1)
     print(f"total {time.perf_counter() - t_start:.1f} s", flush=True)
     print(f"card: {card}", flush=True)

@@ -70,7 +70,7 @@ def pad_to_denominator(img, denom: int):
 
 
 def make_models(encoder: str = "edsr", version: str = "paper", *,
-                dtype=torch.float32,
+                dtype=torch.float32, decoder_kwargs: Optional[dict] = None,
                 generator: Optional[torch.Generator] = None, device=None):
     """Build (encoder, decoder) with seeded reference initializers, in eval
     mode on `device` (default: the CUDA card). encoder: 'edsr', 'rdn',
@@ -79,7 +79,8 @@ def make_models(encoder: str = "edsr", version: str = "paper", *,
     HAT-L's is the Ultra model). dtype: the modules' compute type on float32
     parameters, `gsasr_tpu/model.py`'s keyword; torch.bfloat16 (the
     reference's --AMP_test) is taken by every encoder with the Enhanced /
-    Ultra decoder. Callers pad with `DENOMINATORS[encoder]`
+    Ultra decoder. decoder_kwargs override the decoder's settings (after
+    `ENHANCED_CFG`), as in JAX. Callers pad with `DENOMINATORS[encoder]`
     (`sr_forward(..., denominator=...)`), 16 for the window-16 decoders of
     SwinIR and HAT-L."""
     dev = resolve_device(device)
@@ -104,8 +105,9 @@ def make_models(encoder: str = "edsr", version: str = "paper", *,
     # come from `generator`.
     with torch.random.fork_rng(devices=[]):
         enc = _ENCODERS[encoder](**kw)
-        dec = Fea2GS() if version == "paper" else Fea2GSRopeAMP(
-            **ENHANCED_CFG[encoder], **kw)
+        dkw = dict(decoder_kwargs or {})
+        dec = (Fea2GS(**dkw) if version == "paper" else
+               Fea2GSRopeAMP(**{**ENHANCED_CFG[encoder], **dkw}, **kw))
     init_weights(enc, generator)
     init_weights(dec, generator)
     return enc.to(dev).eval(), dec.to(dev).eval()

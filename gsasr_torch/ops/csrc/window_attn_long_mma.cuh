@@ -43,12 +43,12 @@
 // warp's registers.
 //
 // Shapes: any Tq, Tk >= 1 (rows past Tq are zeros, computed and not
-// stored), a head width up to 32, windows up to 65535 (grid.y), the packed
-// layout or with kHM the head-major (B, nh, T, hd) one. Rows go in as
-// 16-byte copies when every head row starts on 16 bytes (hd a multiple of
-// 8, as at C = 192), as 4-byte copies when on 4 bytes (the paper HAT's C =
-// 180: head h starts at byte 60 h, which neither TMA nor a 16-byte cp.async
-// can address), else element by element.
+// stored), a head width up to 32, any window count (in pieces of
+// for_window_chunks), the packed layout or with kHM the head-major (B, nh, T,
+// hd) one. Rows go in as 16-byte copies when every head row starts on 16
+// bytes (hd a multiple of 8, as at C = 192), as 4-byte copies when on 4
+// bytes (the paper HAT's C = 180: head h starts at byte 60 h, which neither
+// TMA nor a 16-byte cp.async can address), else element by element.
 //
 // Rounding: products of bf16 values are exact in f32, so the scores differ
 // from the plain version's only in the order of their f32 sums; p is
@@ -387,11 +387,16 @@ cudaError_t launch_fwd_long_mma(const __nv_bfloat16* q, const __nv_bfloat16* k,
     return cudaErrorInvalidValue;
   const void* ops[] = {q, k, v};
   const int vec = gsasr::mma_vec(C / nh, ops, 3);
-  gsasr::window_attn_fwd_long_mma_kernel<kMask, kHM>
-      <<<dim3(nh, B, (Tq + gsasr::kMRows - 1) / gsasr::kMRows),
-         gsasr::kMThreads, 0, st>>>(q, k, v, bias, mask, out, Tq, Tk, C, nh,
-                                    nW, scale, vec);
-  return cudaGetLastError();
+  return gsasr::for_window_chunks(B, nW, [&](int w0, int nb, int c0) {
+    const size_t oq = gsasr::window_offset(w0, Tq, C);
+    const size_t ok = gsasr::window_offset(w0, Tk, C);
+    gsasr::window_attn_fwd_long_mma_kernel<kMask, kHM>
+        <<<dim3(nh, nb, (Tq + gsasr::kMRows - 1) / gsasr::kMRows),
+           gsasr::kMThreads, 0, st>>>(
+            q + oq, k + ok, v + ok, bias,
+            gsasr::window_mask_from(mask, c0, Tq, Tk), out + oq, Tq, Tk, C,
+            nh, nW, scale, vec);
+  });
 }
 
 }  // namespace

@@ -426,17 +426,24 @@ cudaError_t launch_window_attn_bwd_long_mma(
   const void* ops[] = {q, k, v, g};
   const int vec = gsasr::mma_vec(C / nh, ops, 4);
   constexpr int kR = gsasr::kMRows;
-  gsasr::window_attn_bwd_long_mma_q_kernel<kMask, kHM, TO>
-      <<<dim3(nh, B, (Tq + kR - 1) / kR), gsasr::kMThreads, 0, st>>>(
-          q, k, v, bias, g, dq, stats, dbias ? ds_w : nullptr, Tq, Tk, C, nh,
-          scale, mask, nW, vec);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
-  gsasr::window_attn_bwd_long_mma_kv_kernel<kMask, kHM, TO>
-      <<<dim3(nh, B, (Tk + kR - 1) / kR), gsasr::kMThreads, 0, st>>>(
-          q, k, v, bias, g, dk, dv, stats, Tq, Tk, C, nh, scale, mask, nW,
-          vec);
-  err = cudaGetLastError();
+  // the q launch of a piece writes the stats that its kv launch reads
+  const cudaError_t err =
+      gsasr::for_window_chunks(B, nW, [&](int w0, int nb, int c0) {
+        const size_t oq = gsasr::window_offset(w0, Tq, C);
+        const size_t ok = gsasr::window_offset(w0, Tk, C);
+        float* st_w = stats + gsasr::window_offset(w0, nh * Tq, 3);
+        const float* m = gsasr::window_mask_from(mask, c0, Tq, Tk);
+        gsasr::window_attn_bwd_long_mma_q_kernel<kMask, kHM, TO>
+            <<<dim3(nh, nb, (Tq + kR - 1) / kR), gsasr::kMThreads, 0, st>>>(
+                q + oq, k + ok, v + ok, bias, g + oq, dq + oq, st_w,
+                dbias ? ds_w + gsasr::window_offset(w0, nh * Tq, Tk)
+                      : nullptr,
+                Tq, Tk, C, nh, scale, m, nW, vec);
+        gsasr::window_attn_bwd_long_mma_kv_kernel<kMask, kHM, TO>
+            <<<dim3(nh, nb, (Tk + kR - 1) / kR), gsasr::kMThreads, 0, st>>>(
+                q + oq, k + ok, v + ok, bias, g + oq, dk + ok, dv + ok, st_w,
+                Tq, Tk, C, nh, scale, m, nW, vec);
+      });
   if (err != cudaSuccess || !dbias) return err;
   const int n = nh * Tq * Tk;
   dbias_sum_kernel<<<(n + kThreads - 1) / kThreads, kThreads, 0, st>>>(

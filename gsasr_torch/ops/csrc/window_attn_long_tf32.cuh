@@ -47,10 +47,10 @@
 // Shapes: any Tq, Tk >= 1 (a warp whose 16 rows all lie past Tq, and the
 // halves past Tk, skip their products, which would add nothing), a head
 // width up to 32 (hd 30 for HAT-L and the paper HAT, padded with zeros),
-// windows up to 65535 (grid.y), the packed layout or with kHM the
-// head-major (B, nh, T, hd) one. Rows go in as 16-byte copies when every
-// head row starts on 16 bytes (hd a multiple of 4), else as 4-byte copies
-// (the paper HAT's C = 180).
+// any window count (in pieces of for_window_chunks), the packed layout or with
+// kHM the head-major (B, nh, T, hd) one. Rows go in as 16-byte copies when
+// every head row starts on 16 bytes (hd a multiple of 4), else as 4-byte
+// copies (the paper HAT's C = 180).
 //
 // Measured against other designs of the same body (scripts/
 // ab_torch_sources.py, builds in turns on one H100): two sweeps (the bf16
@@ -212,11 +212,16 @@ cudaError_t launch_fwd_long_tf32(const float* q, const float* k,
     return cudaErrorInvalidValue;
   const void* ops[] = {q, k, v, out};
   const int vec = gsasr::tf32_vec(C / nh, ops, 4);
-  gsasr::window_attn_fwd_long_tf32_kernel<kMask, kHM>
-      <<<dim3(nh, B, (Tq + gsasr::kMRows - 1) / gsasr::kMRows),
-         gsasr::kMThreads, 0, st>>>(q, k, v, bias, mask, out, Tq, Tk, C, nh,
-                                    nW, scale, vec);
-  return cudaGetLastError();
+  return gsasr::for_window_chunks(B, nW, [&](int w0, int nb, int c0) {
+    const size_t oq = gsasr::window_offset(w0, Tq, C);
+    const size_t ok = gsasr::window_offset(w0, Tk, C);
+    gsasr::window_attn_fwd_long_tf32_kernel<kMask, kHM>
+        <<<dim3(nh, nb, (Tq + gsasr::kMRows - 1) / gsasr::kMRows),
+           gsasr::kMThreads, 0, st>>>(
+            q + oq, k + ok, v + ok, bias,
+            gsasr::window_mask_from(mask, c0, Tq, Tk), out + oq, Tq, Tk, C,
+            nh, nW, scale, vec);
+  });
 }
 
 }  // namespace

@@ -65,11 +65,11 @@
 // columns 8t .. 8t + 7 of its rows. Keys past Tk get -inf scores and
 // queries past Tq zero p.
 //
-// Shapes as the bf16 body's: any Tq, Tk >= 1, a head width up to 32,
-// windows up to 65535 (grid.y), the packed layout or with kHM the
-// head-major (B, nh, T, hd) one. Rows go in as 16-byte copies when every
-// head row starts on 16 bytes (hd a multiple of 4), else as 4-byte copies
-// (the paper HAT's C = 180).
+// Shapes as the bf16 body's: any Tq, Tk >= 1, a head width up to 32, any
+// window count (in pieces of for_window_chunks), the packed layout or with kHM
+// the head-major (B, nh, T, hd) one. Rows go in as 16-byte copies when
+// every head row starts on 16 bytes (hd a multiple of 4), else as 4-byte
+// copies (the paper HAT's C = 180).
 //
 // Measured against other designs of the same body at the Ultra step's 128
 // x 256 x 256 (scripts/ab_torch_sources.py, builds in turns on one H100):
@@ -391,17 +391,24 @@ cudaError_t launch_window_attn_bwd_long_tf32(
   const void* ops[] = {q, k, v, g, dq, dk, dv};
   const int vec = gsasr::tf32_vec(C / nh, ops, 7);
   constexpr int kR = gsasr::kMRows;
-  gsasr::window_attn_bwd_long_tf32_q_kernel<kMask, kHM>
-      <<<dim3(nh, B, (Tq + kR - 1) / kR), gsasr::kMThreads, 0, st>>>(
-          q, k, v, bias, g, dq, stats, dbias ? ds_w : nullptr, Tq, Tk, C, nh,
-          scale, mask, nW, vec);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
-  gsasr::window_attn_bwd_long_tf32_kv_kernel<kMask, kHM>
-      <<<dim3(nh, B, (Tk + kR - 1) / kR), gsasr::kMThreads, 0, st>>>(
-          q, k, v, bias, g, dk, dv, stats, Tq, Tk, C, nh, scale, mask, nW,
-          vec);
-  err = cudaGetLastError();
+  // the q launch of a piece writes the stats that its kv launch reads
+  const cudaError_t err =
+      gsasr::for_window_chunks(B, nW, [&](int w0, int nb, int c0) {
+        const size_t oq = gsasr::window_offset(w0, Tq, C);
+        const size_t ok = gsasr::window_offset(w0, Tk, C);
+        float* st_w = stats + gsasr::window_offset(w0, nh * Tq, 3);
+        const float* m = gsasr::window_mask_from(mask, c0, Tq, Tk);
+        gsasr::window_attn_bwd_long_tf32_q_kernel<kMask, kHM>
+            <<<dim3(nh, nb, (Tq + kR - 1) / kR), gsasr::kMThreads, 0, st>>>(
+                q + oq, k + ok, v + ok, bias, g + oq, dq + oq, st_w,
+                dbias ? ds_w + gsasr::window_offset(w0, nh * Tq, Tk)
+                      : nullptr,
+                Tq, Tk, C, nh, scale, m, nW, vec);
+        gsasr::window_attn_bwd_long_tf32_kv_kernel<kMask, kHM>
+            <<<dim3(nh, nb, (Tk + kR - 1) / kR), gsasr::kMThreads, 0, st>>>(
+                q + oq, k + ok, v + ok, bias, g + oq, dk + ok, dv + ok, st_w,
+                Tq, Tk, C, nh, scale, m, nW, vec);
+      });
   if (err != cudaSuccess || !dbias) return err;
   const int n = nh * Tq * Tk;
   dbias_sum_kernel<<<(n + kThreads - 1) / kThreads, kThreads, 0, st>>>(

@@ -80,9 +80,9 @@ inline int short_chunks(int Tk) {
 }
 
 // What the short bodies take: Tq, Tk in [1, kMaxT], a head width up to
-// kMaxHd, and a window count the grid's y dimension holds.
+// kMaxHd, and any window count (for_window_chunks).
 inline bool short_shape_ok(int B, int Tq, int Tk, int C, int nh, int nW) {
-  return B >= 1 && B <= 65535 && Tq >= 1 && Tk >= 1 && Tq <= kMaxT &&
+  return B >= 1 && Tq >= 1 && Tk >= 1 && Tq <= kMaxT &&
          Tk <= kMaxT && nh >= 1 && C % nh == 0 && C / nh <= kMaxHd &&
          nW >= 1 && B % nW == 0;
 }
@@ -308,7 +308,6 @@ cudaError_t launch_fwd_short_mma(const __nv_bfloat16* q,
   const void* ops[] = {q, k, v};
   const int vec = gsasr::mma_vec(C / nh, ops, 3);
   const int threads = 2 * gsasr::short_rows(Tq);
-  const int units = B * nh;
   // one buffer of q, k and v, or two with the persistent grid
   const bool piped = gsasr::short_pipelined(gsasr::short_chunks(Tk));
   const size_t smem = (piped ? 2 : 1) * sizeof(__nv_bfloat16) *
@@ -319,7 +318,7 @@ cudaError_t launch_fwd_short_mma(const __nv_bfloat16* q,
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
   if (err != cudaSuccess) return err;
-  dim3 grid(nh, B);
+  int most = 0;
   if (piped) {
     // as many blocks as run at once on the card, none idle
     int dev = 0, sms = 0, per_sm = 0;
@@ -330,12 +329,19 @@ cudaError_t launch_fwd_short_mma(const __nv_bfloat16* q,
       err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
                                                           threads, smem);
     if (err != cudaSuccess) return err;
-    const int most = sms * per_sm;
-    grid = dim3(most < 1 ? 1 : units < most ? units : most);
+    most = sms * per_sm < 1 ? 1 : sms * per_sm;
   }
-  kernel<<<grid, threads, smem, st>>>(q, k, v, bias, mask, out, B, Tq, Tk, C,
-                                      nh, nW, scale, vec);
-  return cudaGetLastError();
+  return gsasr::for_window_chunks(B, nW, [&](int w0, int nb, int c0) {
+    const size_t oq = gsasr::window_offset(w0, Tq, C);
+    const size_t ok = gsasr::window_offset(w0, Tk, C);
+    const int units = nb * nh;
+    const dim3 grid = piped ? dim3(units < most ? units : most)
+                            : dim3(nh, nb);
+    kernel<<<grid, threads, smem, st>>>(
+        q + oq, k + ok, v + ok, bias,
+        gsasr::window_mask_from(mask, c0, Tq, Tk), out + oq, nb, Tq, Tk, C,
+        nh, nW, scale, vec);
+  });
 }
 
 }  // namespace

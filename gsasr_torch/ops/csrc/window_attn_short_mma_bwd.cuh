@@ -330,10 +330,15 @@ cudaError_t launch_bwd_short_mma(const __nv_bfloat16* q,
   if (err != cudaSuccess) return err;
   const int threads =
       2 * (Tq > Tk ? gsasr::short_rows(Tq) : gsasr::short_rows(Tk));
-  kernel<<<dim3(nh, B), threads, smem, st>>>(q, k, v, bias, g, dq, dk, dv,
-                                             dbias ? ds_w : nullptr, Tq, Tk,
-                                             C, nh, scale, mask, nW, vec);
-  err = cudaGetLastError();
+  err = gsasr::for_window_chunks(B, nW, [&](int w0, int nb, int c0) {
+    const size_t oq = gsasr::window_offset(w0, Tq, C);
+    const size_t ok = gsasr::window_offset(w0, Tk, C);
+    kernel<<<dim3(nh, nb), threads, smem, st>>>(
+        q + oq, k + ok, v + ok, bias, g + oq, dq + oq, dk + ok, dv + ok,
+        dbias ? ds_w + gsasr::window_offset(w0, nh * Tq, Tk) : nullptr, Tq,
+        Tk, C, nh, scale, gsasr::window_mask_from(mask, c0, Tq, Tk), nW,
+        vec);
+  });
   if (err != cudaSuccess || !dbias) return err;
   const int n = nh * Tq * Tk;
   dbias_sum_kernel<<<(n + kThreads - 1) / kThreads, kThreads, 0, st>>>(

@@ -265,9 +265,14 @@ cudaError_t launch_fwd_short_tf32(const float* q, const float* k,
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
   if (err != cudaSuccess) return err;
-  kernel<<<dim3(nh, B), 2 * gsasr::short_rows(Tq), smem, st>>>(
-      q, k, v, bias, mask, out, Tq, Tk, C, nh, nW, scale, vec);
-  return cudaGetLastError();
+  return gsasr::for_window_chunks(B, nW, [&](int w0, int nb, int c0) {
+    const size_t oq = gsasr::window_offset(w0, Tq, C);
+    const size_t ok = gsasr::window_offset(w0, Tk, C);
+    kernel<<<dim3(nh, nb), 2 * gsasr::short_rows(Tq), smem, st>>>(
+        q + oq, k + ok, v + ok, bias,
+        gsasr::window_mask_from(mask, c0, Tq, Tk), out + oq, Tq, Tk, C, nh,
+        nW, scale, vec);
+  });
 }
 
 }  // namespace

@@ -90,6 +90,19 @@ entry points are swapped into the port's loaded kernels
 tree's. Each kernel's registers in every build are printed beside its
 form.
 
+--grid-bits (beside any section but --fused-bwd-only's and --raster-only's;
+it adds ln_attn_bwd.cu to the built sources) runs every window attention
+entry point (W, WM, W4, W-long, WM-long and their backward, fp32 and bf16)
+and kernels A and AB through the port's wrappers with each build's entry
+points swapped in, on the same operands, and asserts that every build
+gives the first build's bits: at chip_smoke.py's phase-39 shapes at 65,532
+windows (the largest count below 65,536 that the mask period divides) and
+at the models' shapes (the paper step's 256 x 144 x 180 in 6 heads with a
+bias, SwinIR's shifted 576 x 64 x 180 with the mask of period 36, the
+head-major 256 x 6 x 144 x 30, HAT-L's 128 x 256 x 192, the paper HAT's
+shifted 144 x 256 x 180 with the mask of period 9; A and AB at the paper
+decoder's 256 x 144 x 180 cross-attention form).
+
 --fused-bwd-only builds ln_mlp_bwd.cu, ln_attn_bwd.cu and window_attn_bwd.cu
 (whose attention bodies AB shares) alone and times, from every build in
 turns, kernels MB, AB and AB-long (`_fused_bwd_ab`: the paper step's 256
@@ -113,6 +126,7 @@ import argparse
 import ast
 import ctypes
 import json
+import math
 import os
 import re
 import subprocess
@@ -679,6 +693,90 @@ def _fp32_fwd_ab(cs, out_dir, tags, sigs):
     return dict(rows=rows)
 
 
+# The sources --grid-bits swaps: the window attentions' and A's and AB's
+GRID_BITS_SOURCES = ("window_attn_fwd", "window_attn_bwd", "ln_attn",
+                     "ln_attn_bwd")
+
+
+def _grid_bits_ab(cs, out_dir, tags, sigs):
+    """--grid-bits: every window attention form and A and AB through the
+    port's wrappers with each build's entry points swapped in (`_swapper`),
+    on the same seeded operands; asserts each build's outputs are the first
+    build's bits. Returns the cases run."""
+    import torch
+
+    from gsasr_torch.models.swinir import swin_attn_mask
+    from gsasr_torch.ops import fused_layers as fl
+
+    dev = torch.device("cuda")
+    swap = _swapper(out_dir, tags, sigs, GRID_BITS_SOURCES)
+    first = tags[0]
+    # phase 39's forms with Swin's mask (its "<form>/<period>" cases need
+    # more windows than one launch held)
+    narrow = [(form, 65532, t, nh, hd, 2 * math.isqrt(t) if nw else 0, hm)
+              for form, t, nh, hd, nw, hm in cs.GRID_FORMS if "/" not in form]
+    cases = narrow + [("W", 256, 144, 6, 30, 0, False),
+                      ("WM", 576, 64, 6, 30, 48, False),
+                      ("W4", 256, 144, 6, 30, 0, True),
+                      ("W-long", 128, 256, 6, 32, 0, False),
+                      ("WM-long", 144, 256, 6, 30, 48, False)]
+    gen = torch.Generator().manual_seed(61)
+    rnd = lambda *s: torch.randn(*s, generator=gen).to(dev)  # noqa: E731
+    done = []
+
+    def same(label, outs):
+        for tag in tags:
+            if not all(a is None and b is None or torch.equal(a, b)
+                       for a, b in zip(outs[tag], outs[first])):
+                raise AssertionError(f"{label}: the {tag}'s bits differ "
+                                     f"from the {first}'s")
+        print(f"  {label}: the same bits from {', '.join(tags)}",
+              flush=True)
+        done.append(label)
+
+    for form, n, t, nh, hd, side, hm in cases:
+        ws = math.isqrt(t)
+        mask = (swin_attn_mask(side, side, ws, ws // 2, dev) if side
+                else None)
+        bias = 0.5 * rnd(nh, t, t)
+        scale = hd ** -0.5
+        for dt in (torch.float32, torch.bfloat16):
+            fwd, bwd, _, _ = cs._grid_wrappers(form, dt)
+            shape = (n, nh, t, hd) if hm else (n, t, nh * hd)
+            q, k, v, g = (rnd(*shape).to(dt) for _ in range(4))
+            outs = {}
+            for tag in tags:
+                swap(tag)
+                outs[tag] = (fwd(q, k, v, bias, mask, scale, nh),
+                             *bwd(q, k, v, bias, mask, g, scale, nh))
+            swap(None)
+            tag_dt = "" if dt == torch.float32 else "-bf16"
+            same(f"{form}{tag_dt} and its backward, {n} windows of {t} "
+                 f"tokens, {nh} heads of {hd}", outs)
+            del q, k, v, g, outs
+    for n, t, c, nh in ((65532, 64, 32, 1), (256, 144, 180, 6)):
+        kw = dict(wq=0.1 * rnd(c, c), bq=0.1 * rnd(c), wk=0.1 * rnd(c, c),
+                  bk=0.1 * rnd(c), wv=0.1 * rnd(c, c), bv=0.1 * rnd(c),
+                  wo=0.1 * rnd(c, c), bo=0.1 * rnd(c), ln_w=1 + 0.1 * rnd(c),
+                  ln_b=0.1 * rnd(c), bias=0.5 * rnd(nh, t, t), num_heads=nh)
+        for dt in (torch.float32, torch.bfloat16):
+            x, kv, g = (rnd(n, t, c).to(dt) for _ in range(3))
+            pos = rnd(t, c).to(dt)
+            outs = {}
+            for tag in tags:
+                swap(tag)
+                with torch.no_grad():
+                    a = fl.ln_attn_proj(x, kv=kv, pos=pos, **kw)
+                outs[tag] = (a, *fl.ln_attn_proj_bwd(x, g, kv=kv, pos=pos,
+                                                     **kw))
+            swap(None)
+            tag_dt = "" if dt == torch.float32 else "-bf16"
+            same(f"A{tag_dt} and AB{tag_dt}, {n} windows of {t} tokens, "
+                 f"{c} channels in {nh} heads", outs)
+            del x, kv, g, outs
+    return dict(cases=done)
+
+
 def _fp32_short_bwd_ab(cs, out_dir, tags, sigs):
     """The fp32 window attention backward up to 160 tokens from every build
     in turns (tags + reversed + tags): WB at the paper step's 256 x 6 x 144
@@ -825,6 +923,11 @@ def main() -> int:
                     help="pairs of turns of --steps and --images, which "
                     "build goes first alternating (default 2: parent, "
                     "change, change, parent)")
+    ap.add_argument("--grid-bits", action="store_true",
+                    help="also run every window attention entry point and "
+                    "kernels A and AB from every build on the same "
+                    "operands (below 65,536 windows) and assert the same "
+                    "bits")
     ap.add_argument("--json", help="write the results to this file")
     args = ap.parse_args()
     import torch
@@ -859,6 +962,9 @@ def main() -> int:
         sources = variant = RASTER
     else:
         sources, variant = SOURCES, fp32 + FUSED
+    if args.grid_bits:
+        sources = tuple(dict.fromkeys(sources + GRID_BITS_SOURCES))
+        variant = tuple(dict.fromkeys(variant + GRID_BITS_SOURCES))
     jobs = [(tag, src, subprocess.Popen(
         [_build._nvcc(), *_build.NVCC_FLAGS, "-o",
          os.path.join(out_dir, f"{tag}_{src}.so"),
@@ -930,6 +1036,11 @@ def main() -> int:
         short_fp32 = _fp32_short_bwd_ab(cs, out_dir, tuple(dirs), sigs)
         print("the fp32 window-16 backward:", flush=True)
         long_fp32 = _long_fp32_ab(cs, out_dir, regs, tuple(dirs))
+    grid_bits = {}
+    if args.grid_bits:
+        print("every window attention form, A and AB, the same bits from "
+              "every build:", flush=True)
+        grid_bits = _grid_bits_ab(cs, out_dir, tuple(dirs), sigs)
     if args.steps:
         print("steps in turns:", flush=True)
         steps = _steps_ab(cs, out_dir, (old, "change"), sigs, swapped,
@@ -947,7 +1058,8 @@ def main() -> int:
                            exact=exact,
                            attention=attn, fused=fused, fwd_fp32=fwd_fp32,
                            short_fp32=short_fp32, long_fp32=long_fp32,
-                           steps=steps, images=images), f, indent=1)
+                           steps=steps, images=images,
+                           grid_bits=grid_bits), f, indent=1)
     return 0
 
 

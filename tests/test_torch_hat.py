@@ -1,8 +1,8 @@
 """gsasr_torch's HAT-L encoder against gsasr_tpu on the CPU: each module
 (CAB, the RoPE window attention, HAB unshifted and shifted, OCAB and its
 overlapping windows, a tiny HATNOUP, a full-width RHAG), the state_dict
-round trip through the reference converter, the seeded initializers and
-make_models' HAT-L, what stays unported raising, and the backward through
+round trip through the reference converter, the seeded initializers
+(make_models' HAT-L: tests/test_torch_hat_make_models.py), what stays unported raising, and the backward through
 a 256-token window on the CPU.
 
 Weights come from a JAX init (every leaf moved by seeded noise, so biases
@@ -13,7 +13,6 @@ JAX side's window attentions take the JAX package's plain reference
 and 256 x 576 in interpret mode by tests/test_torch_attention.py.
 """
 
-import math
 from pathlib import Path
 
 import jax
@@ -202,62 +201,6 @@ def test_state_dict_roundtrip_through_reference_converter():
     assert set(sd) == set(params) == set(m.state_dict())
     for k, v in sd.items():
         assert torch.equal(v, params[k].detach()), k
-
-
-def test_make_models_hat_ultra_seeded_and_shaped():
-    """make_models("hat", "ultra") at HAT-L's published widths and the Ultra
-    decoder's settings, with HAT's _init_weights (trunc_normal 0.02 Linear
-    weights, zero Linear biases, LayerNorm 1/0, default convs, RoPE
-    frequencies from the generator); "enhanced" builds the same model; the
-    same generator seed gives the same weights."""
-    from gsasr_torch.model import DENOMINATORS, make_models
-
-    enc, dec = make_models("hat", "ultra", device="cpu",
-                           generator=torch.Generator().manual_seed(0))
-    assert DENOMINATORS["hat"] == 16 and not enc.training
-    assert len(enc.layers) == 12 and enc.window_size == 16
-    rg = enc.layers[5].residual_group
-    assert len(rg["blocks"]) == 6
-    blk = rg["blocks"][1]
-    assert blk.shift_size == 8 and blk.conv_scale == 0.01
-    assert blk.attn.qkv.weight.shape == (576, 192)
-    assert blk.attn.rope_freqs.shape == (2, 6, 16)
-    assert blk.conv_block.cab[0].weight.shape == (64, 192, 3, 3)
-    assert blk.conv_block.cab[3].attention[1].weight.shape == (6, 192, 1, 1)
-    assert blk.mlp.fc1.weight.shape == (384, 192)
-    assert rg["overlap_attn"].overlap_win_size == 24
-    assert enc.conv_before_upsample[0].weight.shape == (64, 192, 3, 3)
-    assert dec.channel == 192 and dec.window_size == 16
-    assert dec.gs_embedding.shape == (256, 192)
-    assert len(dec.window_crossattn_blocks) == 4
-    assert len(dec.window_crossattn_blocks[0].blocks) == 4
-    assert len(dec.gs_selfattn_blocks) == 8
-    assert len(dec.gs_selfattn_blocks[0].blocks) == 6
-    linears = [mod for mod in enc.modules() if isinstance(mod,
-                                                          torch.nn.Linear)]
-    w = torch.cat([mod.weight.flatten() for mod in linears]).detach()
-    # truncated at +-2 absolute, as the reference's trunc_normal_
-    assert abs(float(w.std()) - 0.02) < 2e-4 and float(w.abs().max()) <= 2.0
-    assert all(torch.all(mod.bias == 0) for mod in linears)
-    for mod in enc.modules():
-        if isinstance(mod, torch.nn.LayerNorm):
-            assert torch.all(mod.weight == 1) and torch.all(mod.bias == 0)
-    conv = enc.conv_after_body.weight
-    bound = 1 / math.sqrt(192 * 9)
-    assert conv.abs().max() <= bound and conv.abs().max() > 0.9 * bound
-    # |freqs| per pair: 1 / 10^(4 i / 32), one random angle per head
-    for attn in (blk.attn, rg["overlap_attn"]):
-        mag = torch.hypot(attn.rope_freqs[0], attn.rope_freqs[1])
-        want = 1 / 10 ** (torch.arange(0, 32, 4) / 32.0)
-        torch.testing.assert_close(mag, want.repeat(2).expand(6, 16),
-                                   rtol=1e-5, atol=1e-6)
-    assert not torch.equal(blk.attn.rope_freqs,
-                           rg["blocks"][0].attn.rope_freqs)
-    small = [init_weights(hat.HATNOUP(**TINY_HAT),
-                          torch.Generator().manual_seed(3)).state_dict()
-             for _ in range(2)]
-    for k, v in small[0].items():
-        assert torch.equal(v, small[1][k]), k
 
 
 def test_unported_hat_training_raises():

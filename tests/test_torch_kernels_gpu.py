@@ -1546,3 +1546,51 @@ def test_exact_build_kernels_fit(cuda):
                 found[name] = sp.groups()
     assert len(found) == 4, sorted(found)
     assert all(sp == ("0", "0") for sp in found.values()), found
+
+
+# Every window attention entry point past the 65,535 blocks CUDA allows on
+# a grid's y dimension: chip_smoke.py phase 39's forms and shapes, 66,000
+# windows with a bias, and WM and WM-long over two periods of a mask of
+# 66,000 classes, fp32 and bf16
+@pytest.mark.parametrize("form", ["W", "WM", "W4", "W-long", "WM-long",
+                                  "WM/66000", "WM-long/66000"])
+@pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16],
+                         ids=["fp32", "bf16"])
+def test_window_attn_past_grid_y_matches_plain(cuda, form, dt):
+    """The forward and backward past 65,535 windows: the same bits twice
+    and as the call split into two calls at window 33,000, and the first
+    and last 64 windows' outputs against the plain version on those windows
+    alone (fp32: 1e-4 + 1e-4 |ref| forward, 1e-4 of each column's max +
+    1e-4 |ref| backward; bf16: 2^-7 |ref| + 2^-8 max|ref|)."""
+    import chip_smoke as cs
+
+    _, t, nh, hd, nw, hm = next(f for f in cs.GRID_FORMS if f[0] == form)
+    form = form.partition("/")[0]
+    n = cs._grid_windows(nw)
+    gen = torch.Generator(device=cuda).manual_seed(66)
+    shape = (n, nh, t, hd) if hm else (n, t, nh * hd)
+    q, k, v, g = (torch.randn(shape, generator=gen, device=cuda).to(dt)
+                  for _ in range(4))
+    bias = 0.5 * torch.randn(nh, t, t, generator=gen, device=cuda)
+    mask = _swin_mask(cuda, nw, t) if nw else None
+    scale = hd ** -0.5
+    fwd, bwd, pfwd, pbwd = cs._grid_wrappers(form, dt)
+    out, = cs._grid_checks(form, lambda lo, hi: (fwd(
+        q[lo:hi], k[lo:hi], v[lo:hi], bias, cs._grid_mask(mask, lo, hi),
+        scale, nh),), n, (True,))
+    grads = cs._grid_checks(form + " backward", lambda lo, hi: bwd(
+        q[lo:hi], k[lo:hi], v[lo:hi], bias, cs._grid_mask(mask, lo, hi),
+        g[lo:hi], scale, nh), n, (True, True, True, False))
+    for lo, hi in ((0, cs.GRID_SLICE), (n - cs.GRID_SLICE, n)):
+        m = cs._grid_mask(mask, lo, hi)
+        ref = pfwd(q[lo:hi], k[lo:hi], v[lo:hi], bias, m, scale, nh)
+        refs = pbwd(q[lo:hi], k[lo:hi], v[lo:hi], bias, m, g[lo:hi], scale,
+                    nh)
+        if dt == torch.float32:
+            cs._compare(out[lo:hi], ref, f"{form} {lo}..{hi}")
+            for o, r, name in zip(grads, refs, ("dq", "dk", "dv")):
+                cs._compare_grad(o[lo:hi], r, f"{form} {lo}..{hi} {name}")
+        else:
+            cs._compare_bf16(out[lo:hi], ref, f"{form} {lo}..{hi}")
+            for o, r, name in zip(grads, refs, ("dq", "dk", "dv")):
+                cs._compare_bf16(o[lo:hi], r, f"{form} {lo}..{hi} {name}")

@@ -4,7 +4,8 @@ jax.value_and_grad(Trainer._loss_fn), and whole Trainer.steps (Adam, clip,
 EMA, accumulation, SSIM, sparse supervision, the fused decoder) against the
 JAX Trainer from the same weights; the fused step against the module step;
 the options that are not ported raise; and chip_smoke.py's training
-constants equal configs/train_edsr_paper.yml."""
+constants equal configs/train_edsr_paper.yml. The one-batch loss and
+gradients and the three plain steps are in tests/test_torch_trainer_steps.py."""
 
 import copy
 import importlib.util
@@ -133,32 +134,6 @@ def test_schedule_matches_jax(warmup):
 # -- one step's loss and gradients ------------------------------------------
 
 
-def test_loss_and_grads_match_jax():
-    enc, dec, params = _nets(1)
-    batch = _batch(2)
-    jtr, _ = _jax_trainer(params, CFG)
-    (jloss, jmet), jgrads = jax.jit(jax.value_and_grad(
-        jtr._loss_fn, has_aux=True))(
-        params, jax.tree_util.tree_map(jnp.asarray, batch),
-        jax.random.PRNGKey(0))
-    tr = Trainer(enc, dec, TrainConfig(**CFG), device="cpu")
-    loss, met, g_g, g_d = tr.grads(batch)
-    # 1e-5 relative: the render sums Gaussians in another order
-    np.testing.assert_allclose(float(loss), float(jloss), rtol=1e-5)
-    np.testing.assert_allclose(float(met["l_pix"]), float(jmet["l_pix"]),
-                               rtol=1e-5)
-    want_g, want_d = _by_name(jgrads["g"], jgrads["d"])
-    for mod, grads, want in ((enc, g_g, want_g), (dec, g_d, want_d)):
-        for (name, _), got in zip(mod.named_parameters(), grads):
-            ref = want[name]
-            # 1e-3 of the tensor's largest entry: a gradient chain through
-            # the render's moment sums and the decoder, summed in another
-            # order
-            np.testing.assert_allclose(got.numpy(), ref, rtol=1e-3,
-                                       atol=1e-3 * np.abs(ref).max() + 1e-9,
-                                       err_msg=name)
-
-
 # -- whole steps against the JAX Trainer ------------------------------------
 
 
@@ -207,22 +182,6 @@ def _assert_ema_close(tr, state, start):
             ref += np.sum(d_ref ** 2)
         assert ref > 0 and np.sqrt(err) <= 1e-2 * np.sqrt(ref), \
             (i, float(np.sqrt(err / ref)))
-
-
-def test_three_steps_match_jax_trainer():
-    """Default options (clip 5, Adam, warm-up, EMA at STEP_CFG's decay) for
-    three steps from the same weights."""
-    batches = [_batch(s) for s in (4, 5, 6)]
-    tr, state, jm, tm, start = _run_both(STEP_CFG, batches)
-    for j, t in zip(jm, tm):
-        assert set(t) == set(j)
-        for k in j:
-            # 1e-4 relative: losses, norms and the schedule in float32
-            np.testing.assert_allclose(t[k], j[k], rtol=1e-4, err_msg=k)
-    sched = multistep_warmup_schedule(2e-4, (100,), 0.5, 2)
-    assert tr.update_count == 3
-    _assert_params_close(tr, state, sum(sched(n) for n in range(3)))
-    _assert_ema_close(tr, state, start)
 
 
 @pytest.mark.parametrize("opts", [
