@@ -247,6 +247,37 @@
    the rounded in-process sr_forward / split_and_joint_image output on the
    params_ema weights; R, M and A launched by the untiled x4 run; wall
    times beside the card.
+41. The paper decoder in bf16 (configs/train_edsr_paper_bf16_r3.yml's
+   networks and recipe, written out as PAPER_BF16_TRAIN and
+   paper_bf16_networks(): EDSR and Fea2GS at full width, bf16 compute on
+   fp32 parameters, batch 16 of 48x48, canvas 192): W-bf16 and WB-bf16
+   (cross and self, with the bias tables), M, A, MB and AB in bf16 (the
+   paper forms: inject, FFN and tail chains; cross-attention with pos, kv
+   and bias, self-attention with bias) against their plain versions at the
+   step's shapes (256 windows of 144 tokens, 180 channels, 6 heads of 30),
+   twice each for bits, at the bf16 tolerances; 2 warm-up and 5 timed
+   Trainer.steps on the module decoder (W-bf16 38, WB-bf16 38, T 38, R 1,
+   RB 1 per step) and on the fused decoder (M 83, A 38, MB 83, AB 38, T
+   38, R 1, RB 1): median, peak memory; a tiny step of each card vs CPU;
+   make_models("edsr", "paper", dtype=torch.bfloat16)'s path phase (a bf16
+   encoder, the paper decoder's fused trunk in fp32: 83 M, 38 A, 1 R per
+   image) and a 48x48 request card vs CPU.
+42. The training CLI: gsasr_torch.cli.train.main at full width on
+   configs/train_edsr_paper.yml, overridden only in paths, total_iter,
+   print_freq, save_checkpoint_freq and val_freq, on 8 seeded 480x480
+   PNGs of a photograph's neighbour correlation under libpng's adaptive
+   filters, as cv2.imwrite writes DIV2K's sub-images (the native host
+   library asserted built: resize and unfilter in C++), with a 48x48 ->
+   192x192 validation pair: 6 iterations saving and
+   validating at 3 and 6 (the saved step equals the trainer's state bit
+   for bit), a trainer restored from step 6 and the one that saved it take
+   one step to the same bits, DevicePrefetcher's batches equal the host
+   batches bit for bit, --auto_resume to 8 restores step 6 bit for bit,
+   cli.convert of step 8 and cli.infer --ckpt_dir write the PNG that
+   sr_forward writes in process on the EMA weights; then 4 iterations of
+   configs/train_edsr_paper_bf16_r3.yml with fused_decoder true. Wall per
+   iteration, step and data time, the data share and samples per second,
+   beside the card.
 
 Every training phase also times Trainer.grads, which runs with cuDNN's
 deterministic algorithms, against the same forward and backward under
@@ -268,6 +299,7 @@ import math
 import os
 import re
 import subprocess
+import struct
 import sys
 import time
 
@@ -4039,6 +4071,619 @@ def infer_cli_phase(dev, kernels, card):
     return rows
 
 
+# configs/train_edsr_paper_bf16_r3.yml as build_train_config reads it
+# (written out as the other recipes are; tests/test_torch_paper_bf16.py
+# holds it equal to the file): the paper recipe with a 30k-iteration
+# schedule, 16 samples of 48x48 LR, scales in [1, 4], gt = round(s 48),
+# canvas 192, model_dtype bfloat16.
+PAPER_BF16_TRAIN = dict(PAPER_TRAIN, milestones=(15000, 23000, 27000, 29000),
+                        total_iter=30000)
+# Launches per step of the paper decoder in bf16: W-bf16 and WB-bf16 once
+# per attention with its bias (2 cross + 36 self) on the module path, the
+# bf16 forms of M, A, MB and AB on the fused path; T (the bias-table
+# gradients, f32) and R, RB either way.
+PAPER_BF16_TRAIN_COUNTS = dict({k: 0 for k in TRAIN_COUNTS}, R=1, RB=1, T=38,
+                               **{"W-bf16": 38, "WB-bf16": 38})
+PAPER_BF16_FUSED_COUNTS = dict(FUSED_TRAIN_COUNTS)
+# bf16 sub-layers of the tiny paper decoder of the card-vs-CPU step
+# (tests/test_torch_paper_bf16_train.py's DEC_DEPTH)
+PAPER_BF16_TINY_DEPTH = 16
+# Phase 42: seeded PNGs of 480x480 (DIV2K's sub-images are 480x480) and a
+# validation pair at x4
+CLI_IMAGES = 8
+CLI_HW = 480
+CLI_VAL_LR = 48
+
+
+def paper_bf16_networks():
+    """configs/train_edsr_paper_bf16_r3.yml's networks as build_networks
+    builds them (written out: the card has no PyYAML;
+    tests/test_torch_paper_bf16.py holds them equal): EDSR 64 x 16 and the
+    paper Fea2GS at 180 channels, bf16 compute on fp32 parameters, the heads
+    fp32, every weight from a generator seeded with manual_seed 0. On the
+    CPU, in training mode."""
+    from gsasr_torch.models import EDSRNOUP, Fea2GS
+    from gsasr_torch.models.init import init_weights
+
+    g = torch.Generator().manual_seed(0)
+    with torch.random.fork_rng(devices=[]):
+        enc = EDSRNOUP(dtype=torch.bfloat16)
+        dec = Fea2GS(dtype=torch.bfloat16)
+    return init_weights(enc, g), init_weights(dec, g)
+
+
+@torch.no_grad()
+def paper_bf16_kernel_phase(dec, dev):
+    """Phase 41's kernels at the paper bf16 step's shapes (16 samples of
+    48x48: 256 windows of 144 tokens, 180 channels, 6 heads of 30) with the
+    recipe decoder's weights and bias tables: W-bf16 and WB-bf16 (cross and
+    self, each with its table's bias), M (ln_inj, ln, resi), A (cross with
+    pos, kv and bias; self with bias), MB (ln_inj, ln, resi) and AB (the
+    same two) in bf16 against their plain versions, each twice for bits, at
+    the bf16 tolerances (one bf16 step; MB and AB relative L2 2^-7), with
+    times, bounds (bf16 bytes against the bf16 tensor-core peak) and
+    launches per step."""
+    from gsasr_torch.models.fea2gs_fast import _attn, _ln, _mlp, _seq_mlp
+    from gsasr_torch.ops import attention as ta
+    from gsasr_torch.ops import fused_layers as fl
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    gen = torch.Generator().manual_seed(41)
+    bf16 = torch.bfloat16
+    rnd = lambda *s: torch.randn(*s, generator=gen).to(dev)  # noqa: E731
+    b = PAPER_BATCH * (PAPER_LR_SIZE // dec.window_size) ** 2
+    t, c, nh, ws = dec.num_gs_seed, dec.channel, dec.num_heads, \
+        dec.window_size
+    hd, m = c // nh, b * t
+    scale = hd ** -0.5
+    blk = dec.gs_selfattn_blocks[0]
+    lyr = blk.blocks[0]
+    cl = dec.window_crossattn_blocks[0].blocks[0]
+    inj = rnd(b, c)
+    null = "no PyTorch call computes it"
+    res = {k: [] for k in ("W-bf16", "WB-bf16", "M", "A", "MB", "AB")}
+
+    def keep(kind, name, per_fused, per_module, err, fn, plain, reps,
+             flops, nbytes, library=None, why=null):
+        _repeatable(fn, f"{kind} {name} bf16")
+        ms = _time_ms(fn, reps)
+        plain_ms = _time_ms(plain, max(2, reps // 4))
+        bound, by = _bound_ms(flops, nbytes, PEAK_BF16)
+        res[kind].append(dict(
+            case=name, dtype="bfloat16", decoder="paper bf16", windows=b,
+            tokens=t, head_width=hd, bias=True,
+            per_step=per_module or per_fused, max_abs_err=err, ms=ms,
+            plain_ms=plain_ms, bound_ms=bound, bound_by=by,
+            library_ms=library, library_null_reason=None if library else why))
+
+    for name, attn, tk, per_step in (
+            ("cross", cl.window_cross_attn, ws * ws, 2),
+            ("self", lyr.gs_self_attn, t, 36)):
+        bias = attn.bias().contiguous()
+        q, g = rnd(b, t, c).to(bf16), rnd(b, t, c).to(bf16)
+        k, v = rnd(b, tk, c).to(bf16), rnd(b, tk, c).to(bf16)
+        fargs = (q, k, v, bias, scale, nh)
+        err = _compare_bf16(ta.window_attention_packed_bf16_fwd(*fargs),
+                            ta.window_attention_packed_plain(*fargs),
+                            f"W-bf16 paper {name}")
+        lib_f, lib_b, why = _sdpa_ms(q, k, v, bias.to(bf16)[None], g, nh,
+                                     scale)
+        nbias = 4 * nh * t * tk
+        keep("W-bf16", name, 0, per_step, err,
+             lambda: (ta.window_attention_packed_bf16_fwd(*fargs),),
+             lambda: ta.window_attention_packed_plain(*fargs), 20,
+             4.0 * b * nh * t * tk * hd,
+             2 * (2 * b * t * c + 2 * b * tk * c) + nbias, lib_f)
+        bargs = (q, k, v, bias, g, scale, nh)
+        outs = ta.window_attention_packed_bf16_bwd(*bargs)
+        refs = ta.window_attention_packed_bwd_plain(*bargs)
+        err = max(_compare_bf16(o, r, f"WB-bf16 paper {name} {n}")
+                  for o, r, n in zip(outs[:3], refs[:3], ("dq", "dk", "dv")))
+        err = max(err, _compare_grad(outs[3], refs[3],
+                                     f"WB-bf16 paper {name} dbias"))
+        keep("WB-bf16", name, 0, per_step, err,
+             lambda: ta.window_attention_packed_bf16_bwd(*bargs),
+             lambda: ta.window_attention_packed_bwd_plain(*bargs), 10,
+             10.0 * b * nh * t * tk * hd,
+             2 * (3 * b * t * c + 4 * b * tk * c) + 2 * nbias, lib_b,
+             why or null)
+
+    x, g = rnd(b, t, c).to(bf16), rnd(b, t, c).to(bf16)
+    names = ("dx", "dresi", "dinj", "dln_w", "dln_b", "dw1", "db1", "dw2",
+             "db2")
+    for name, kw, per_step in (
+            ("ln_inj", dict(inj=inj.to(bf16), **_ln(lyr.norm4),
+                            **_mlp(lyr.mlp_crossattn)), 38),
+            ("ln", dict(**_ln(lyr.norm2), **_mlp(lyr.mlp_selfattn)), 38),
+            ("resi", dict(resi=rnd(b, t, c).to(bf16), **_seq_mlp(blk.mlp)),
+             7)):
+        hid = kw["w1"].shape[0]
+        err = _compare_bf16(fl.ln_mlp_residual(x, **kw),
+                            fl.ln_mlp_residual_plain(x, **kw),
+                            f"M paper {name} bf16")
+        wbytes = 4 * (2 * c * hid + hid + c + (2 * c if "ln_w" in kw else 0))
+        keep("M", name, per_step, 0, err,
+             lambda: (fl.ln_mlp_residual(x, **kw),),
+             lambda: fl.ln_mlp_residual_plain(x, **kw), 20,
+             4.0 * m * c * hid,
+             2 * (2 * m * c + (b * c if "inj" in kw else 0)
+                  + (m * c if "resi" in kw else 0)) + wbytes)
+        err = _compare_grads(fl.ln_mlp_residual_bwd(x, g, **kw),
+                             fl.ln_mlp_residual_bwd_plain(x, g, **kw), names,
+                             f"MB paper {name} bf16", tol=BWD_BF16_TOL,
+                             l2=True)
+        keep("MB", name, per_step, 0, err,
+             lambda: fl.ln_mlp_residual_bwd(x, g, **kw),
+             lambda: fl.ln_mlp_residual_bwd_plain(x, g, **kw), 10,
+             10.0 * m * c * hid,
+             2 * (3 * m * c + (2 * b * c if "inj" in kw else 0)
+                  + (2 * m * c if "resi" in kw else 0)) + 2 * wbytes)
+
+    names = ("dx", "dpos", "dkv", "dln_w", "dln_b", "dwq", "dbq", "dwk",
+             "dbk", "dwv", "dbv", "dwo", "dbo", "dbias")
+    for name, kw, per_step in (
+            ("cross_pos_kv_bias",
+             dict(pos=dec.pos_embedding.to(bf16),
+                  kv=rnd(b, ws * ws, c).to(bf16),
+                  bias=cl.window_cross_attn.bias(),
+                  **_attn(cl.window_cross_attn), **_ln(cl.norm3)), 2),
+            ("self_bias", dict(bias=lyr.gs_self_attn.bias(),
+                               **_attn(lyr.gs_self_attn), **_ln(lyr.norm1)),
+             36)):
+        kw = dict(kw, num_heads=nh)
+        cross = "kv" in kw
+        err = _compare_bf16(fl.ln_attn_proj(x, **kw),
+                            fl.ln_attn_proj_plain(x, **kw),
+                            f"A paper {name} bf16")
+        act = 2 * (2 * m * c + (m * c + t * c if cross else 0))
+        wbytes = 4 * (4 * c * c + 6 * c + nh * t * t)
+        keep("A", name, per_step, 0, err,
+             lambda: (fl.ln_attn_proj(x, **kw),),
+             lambda: fl.ln_attn_proj_plain(x, **kw), 10,
+             2.0 * b * (4 * t * c * c + 2 * t * t * c), act + wbytes)
+        # dbk's true value is 0 (softmax ignores a per-query constant)
+        err = _compare_grads(fl.ln_attn_proj_bwd(x, g, **kw),
+                             fl.ln_attn_proj_bwd_plain(x, g, **kw), names,
+                             f"AB paper {name} bf16", floor_of={"dbk": "dwk"},
+                             tol=BWD_BF16_TOL, l2=True)
+        keep("AB", name, per_step, 0, err,
+             lambda: fl.ln_attn_proj_bwd(x, g, **kw),
+             lambda: fl.ln_attn_proj_bwd_plain(x, g, **kw), 10,
+             2.0 * b * (11 * t * c * c + 6 * t * t * c),
+             2 * act + m * c * 2 + 2 * wbytes)
+    for k, rows in res.items():
+        for r in rows:
+            lib = ("null" if r["library_ms"] is None else
+                   f"SDPA bf16 {r['library_ms']:.4f}")
+            print(f"  {k} paper {r['case']} bf16: {r['ms']:.4f} ms (plain "
+                  f"{r['plain_ms']:.4f}, bound {r['bound_ms']:.4f} by "
+                  f"{r['bound_by']}, library {lib}) x{r['per_step']} per "
+                  f"paper bf16 {'module' if k.startswith('W') else 'fused'} "
+                  "step", flush=True)
+    return res
+
+
+def paper_bf16_steps(dev, kernels, fused: bool):
+    """2 warm-up and 5 timed Trainer.steps of the paper bf16 recipe at batch
+    16 on the module or the fused decoder: launch counts per step asserted,
+    finite losses, moved parameters and EMA, the step's median wall, its
+    grads and update halves, and the peak memory."""
+    from gsasr_torch.train import TrainConfig, Trainer
+
+    torch.backends.cuda.matmul.allow_tf32 = False  # PyTorch default
+    torch.backends.cudnn.allow_tf32 = True         # PyTorch default
+    enc, dec = paper_bf16_networks()
+    tr = Trainer(enc, dec, TrainConfig(**dict(PAPER_BF16_TRAIN,
+                                              fused_decoder=fused)))
+    want = PAPER_BF16_FUSED_COUNTS if fused else PAPER_BF16_TRAIN_COUNTS
+    label = f"paper bf16 {'fused' if fused else 'module'}"
+    start = [p.detach().clone() for p in tr.params_g + tr.params_d]
+    ema0 = [p.detach().clone() for p in tr.ema_d.parameters()]
+    steps, grads_ms, losses = [], [], []
+    for i in range(TRAIN_WARMUP + TRAIN_STEPS):
+        batch = paper_batch(PAPER_BATCH, seed=410 + i)
+        if i == TRAIN_WARMUP + TRAIN_STEPS - 1:
+            torch.cuda.reset_peak_memory_stats()
+        _reset(kernels)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = tr.grads(batch)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        m = tr.apply(*out)
+        loss = float(m["loss"])
+        t2 = time.perf_counter()
+        c = _counts(kernels)
+        print(f"  {label} step {i}: loss {loss:.6f}, {(t2 - t0) * 1e3:.1f} ms,"
+              f" launches {{{', '.join(f'{k}: {v}' for k, v in c.items() if v)}"
+              "}", flush=True)
+        if c != want or not math.isfinite(loss):
+            raise AssertionError(f"{label} step {i}: launches {c}, loss "
+                                 f"{loss}")
+        losses.append(loss)
+        if i >= TRAIN_WARMUP:
+            steps.append((t2 - t0) * 1e3)
+            grads_ms.append((t1 - t0) * 1e3)
+    peak = torch.cuda.max_memory_allocated()
+    moved = any(not torch.equal(a, p) for a, p in
+                zip(start, tr.params_g + tr.params_d))
+    ema_moved = any(not torch.equal(a, p) for a, p in
+                    zip(ema0, tr.ema_d.parameters()))
+    if not (moved and ema_moved):
+        raise AssertionError(f"{label}: parameters moved {moved}, EMA moved "
+                             f"{ema_moved}")
+    med = float(np.median(steps))
+    print(f"  {label} training step, batch {PAPER_BATCH}: median {med:.1f} ms "
+          f"over {len(steps)} steps (grads {np.median(grads_ms):.1f}, "
+          f"optimizer+EMA {med - np.median(grads_ms):.1f}); peak "
+          f"{peak / 2**30:.2f} GiB", flush=True)
+    return dict(decoder=label, batch=PAPER_BATCH, step_ms_median=med,
+                step_ms=steps, grads_ms=float(np.median(grads_ms)),
+                peak_mem_bytes=int(peak), losses=losses, launches=want)
+
+
+def paper_bf16_card_vs_cpu(dev, fused: bool):
+    """One tiny step of the paper bf16 recipe (tests/test_torch_paper_bf16_
+    train.py's networks: EDSR 16 x 1, the paper Fea2GS at 24 channels, one
+    layer a block; bf16 compute on fp32 parameters; batch 2) on the module
+    or the fused decoder, from the same weights on the card and on the CPU:
+    loss within 2^-8 relative, each network's gradient within relative L2
+    2^-8 times its bf16 depth (the encoder three convs deeper)."""
+    from gsasr_torch.models import EDSRNOUP, Fea2GS
+    from gsasr_torch.models.init import init_weights
+    from gsasr_torch.train import TrainConfig, Trainer
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    bf16 = torch.bfloat16
+    gen = torch.Generator().manual_seed(43)
+    enc = init_weights(EDSRNOUP(num_feat=16, num_block=1, dtype=bf16), gen)
+    dec = init_weights(Fea2GS(inchannel=16, channel=24, num_heads=6,
+                              num_crossattn_blocks=1, num_crossattn_layers=1,
+                              num_selfattn_blocks=1, num_selfattn_layers=1,
+                              num_gs_seed=16, window_size=4, dtype=bf16), gen)
+    cfg = TrainConfig(canvas_hw=(32, 32), warmup_iter=-1, milestones=(100,),
+                      clip_grad_norm=None, fused_decoder=fused)
+    rng = np.random.default_rng(44)
+    scales = (2.0 + 2.0 * rng.random(2)).astype(np.float32)
+    gt = np.round(scales * 8).astype(np.int32)
+    batch = {"lq": rng.random((2, 8, 8, 3), dtype=np.float32),
+             "gt": rng.random((2, 32, 32, 3), dtype=np.float32),
+             "scale": scales, "gt_h": gt, "gt_w": gt}
+    card = Trainer(copy.deepcopy(enc), copy.deepcopy(dec), cfg)
+    cpu = Trainer(enc, dec, cfg, device="cpu")
+    out_card, out_cpu = card.grads(batch), cpu.grads(batch)
+    l_card, l_cpu = float(out_card[0]), float(out_cpu[0])
+    rel = abs(l_card - l_cpu) / abs(l_cpu)
+    dist = []
+    for i, depth in ((2, PAPER_BF16_TINY_DEPTH + 3),
+                     (3, PAPER_BF16_TINY_DEPTH)):
+        num = sum(float(((a.cpu().double() - r.double()) ** 2).sum())
+                  for a, r in zip(out_card[i], out_cpu[i]))
+        den = sum(float((r.double() ** 2).sum()) for r in out_cpu[i])
+        dist.append((math.sqrt(num / den), 2.0 ** -8 * depth))
+    label = "fused" if fused else "module"
+    print(f"  tiny paper bf16 {label} training step card vs CPU: loss "
+          f"{l_card:.7f} vs {l_cpu:.7f} (rel {rel:.2e}, tol {2.0 ** -8:.2e}); "
+          f"gradient rel L2 encoder {dist[0][0]:.2e} (tol {dist[0][1]:.2e}), "
+          f"decoder {dist[1][0]:.2e} (tol {dist[1][1]:.2e})", flush=True)
+    if not rel <= 2.0 ** -8 or any(not d <= t for d, t in dist):
+        raise AssertionError(f"paper bf16 {label} step: card and CPU "
+                             "disagree")
+    return dict(fused_decoder=fused, loss_card=l_card, loss_cpu=l_cpu,
+                loss_rel=rel, grad_rel_l2_enc=dist[0][0],
+                grad_rel_l2_dec=dist[1][0])
+
+
+def paper_bf16_phase(dev, kernels):
+    """Phase 41: the paper decoder in bf16 (train_edsr_paper_bf16_r3.yml)."""
+    enc, dec = paper_bf16_networks()
+    kres = paper_bf16_kernel_phase(dec.to(dev).eval(), dev)
+    del enc, dec
+    gc.collect()
+    torch.cuda.empty_cache()
+    steps = [paper_bf16_steps(dev, kernels, fused) for fused in (False, True)]
+    gc.collect()
+    torch.cuda.empty_cache()
+    cvc = [paper_bf16_card_vs_cpu(dev, fused) for fused in (False, True)]
+    from gsasr_torch.model import make_models
+    enc, dec = make_models("edsr", "paper", dtype=torch.bfloat16,
+                           generator=torch.Generator().manual_seed(0))
+    runs = path_phase(enc, dec, dev, kernels, label="paper, bf16 encoder")
+    icvc = card_vs_cpu(enc, dec, dev, tol=CARD_CPU_ATOL_BF16,
+                       label="paper, bf16 encoder")
+    return dict(kernels=kres, train=steps[0], train_fused=steps[1],
+                card_vs_cpu=cvc, paths=runs, image_card_vs_cpu=icvc)
+
+
+def _state_bits_equal(a, b):
+    """Two Trainer.state_dict()s hold the same keys and bits."""
+    if torch.is_tensor(a):
+        return (torch.is_tensor(b) and a.dtype == b.dtype
+                and a.shape == b.shape
+                and torch.equal(a.reshape(-1).view(torch.uint8),
+                                b.reshape(-1).view(torch.uint8)))
+    if isinstance(a, dict):
+        return list(a) == list(b) and all(_state_bits_equal(a[k], b[k])
+                                          for k in a)
+    if isinstance(a, (list, tuple)):
+        return len(a) == len(b) and all(_state_bits_equal(x, y)
+                                        for x, y in zip(a, b))
+    return a == b
+
+
+def _cli_timing(run, label, card):
+    """Wall per iteration, step and data time, data share and samples per
+    second of a CLI run (print_freq 1: each iteration ends in a sync), its
+    first iteration (the warm-up) left out."""
+    it, data = run["iter_s"][1:], run["data_s"][1:]
+    wall = float(np.median(it)) * 1e3
+    dat = float(np.median(data)) * 1e3
+    share = float(sum(data) / sum(it))
+    out = dict(iterations=len(run["iter_s"]), wall_ms=wall,
+               step_ms=float(np.median(np.subtract(it, data))) * 1e3,
+               data_ms=dat, data_share=share,
+               samples_per_s=PAPER_BATCH / (wall / 1e3),
+               iter_s=run["iter_s"], data_s=run["data_s"])
+    print(f"  {label}: wall {wall:.1f} ms an iteration (median of "
+          f"{len(it)}), step {out['step_ms']:.1f} ms, data wait {dat:.2f} ms "
+          f"({100 * share:.2f}% of the wall), {out['samples_per_s']:.1f} "
+          f"samples/s on {card}", flush=True)
+    return out
+
+
+def _natural_image(rng, hw):
+    """A seeded RGB uint8 image with a photograph's neighbour correlation:
+    a random walk down and across each channel, spread over 0..255."""
+    x = rng.standard_normal((hw, hw, 3)).cumsum(0).cumsum(1)
+    x -= x.min((0, 1))
+    return (x / x.max((0, 1)) * 255).round().astype(np.uint8)
+
+
+def _png_filter_counts(path):
+    """The number of scanlines of an RGB PNG under each filter type."""
+    import zlib
+
+    from gsasr_torch.utils.png import _chunks
+
+    with open(path, "rb") as f:
+        data = f.read()
+    w, h = struct.unpack(">II", data[16:24])
+    idat = b"".join(b for k, b in _chunks(data, path) if k == b"IDAT")
+    rows = np.frombuffer(zlib.decompress(idat), np.uint8).reshape(h, -1)
+    return np.bincount(rows[:, 0], minlength=5)
+
+
+def train_cli_phase(dev, kernels, card):
+    """Phase 42: gsasr_torch.cli.train at full width on
+    configs/train_edsr_paper.yml's recipe, overridden only in paths,
+    total_iter, print_freq, save_checkpoint_freq and val_freq, on
+    CLI_IMAGES seeded 480x480 PNGs (_natural_image under libpng's adaptive
+    filters) with one x4 validation pair: 6
+    iterations saving and validating at 3 and 6, then --auto_resume to 8.
+    Asserted: the restored state equals the saved one bit for bit; one step
+    from a trainer restored from the saved step equals the same step from
+    the trainer that saved it, bit for bit; the prefetched batches equal
+    the host batches bit for bit; cli.convert of the last step and
+    cli.infer --ckpt_dir write the PNG that sr_forward writes in process
+    on the EMA weights. Then 4 iterations of
+    configs/train_edsr_paper_bf16_r3.yml with fused_decoder true. Wall per
+    iteration, step and data time, data share, samples per second."""
+    import tempfile
+
+    from gsasr_torch.cli import convert, infer, train
+    from gsasr_torch.data.datasets import (ContinuousBicubicDataset,
+                                           batch_iterator)
+    from gsasr_torch.data.prefetch import DevicePrefetcher
+    from gsasr_torch.model import sr_forward
+    from gsasr_torch.utils import checkpoint as ck
+    from gsasr_torch import native
+    from gsasr_torch.utils.png import read_png, write_png
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    out = {}
+    # the loader's resize and PNG unfilter in C++, which release the GIL
+    # (the resize would otherwise take its numpy path, which holds it)
+    if native.load() is None:
+        raise AssertionError("train CLI: the native host library did not "
+                             f"build: {native.build_error()}")
+    with tempfile.TemporaryDirectory() as tmp:
+        rng = np.random.default_rng(42)
+        for sub in ("gt", "val/gt", "val/lq"):
+            os.makedirs(os.path.join(tmp, sub))
+        # natural-looking images under libpng's adaptive filters at zlib
+        # level 3, as cv2.imwrite(IMWRITE_PNG_COMPRESSION 3) writes the
+        # DIV2K sub-images in BasicSR's extract_subimages
+        ftypes = np.zeros(5, np.int64)
+        for i in range(CLI_IMAGES):
+            path = os.path.join(tmp, "gt", f"{i:04d}.png")
+            write_png(path, _natural_image(rng, CLI_HW), adaptive=True,
+                      level=3)
+            ftypes += _png_filter_counts(path)
+        lr = CLI_VAL_LR
+        write_png(os.path.join(tmp, "val/gt/0.png"),
+                  _natural_image(rng, 4 * lr), adaptive=True, level=3)
+        write_png(os.path.join(tmp, "val/lq/0.png"),
+                  _natural_image(rng, lr), adaptive=True, level=3)
+        print(f"  training PNGs: {CLI_IMAGES} of {CLI_HW}x{CLI_HW}, rows "
+              f"under None/Sub/Up/Average/Paeth {ftypes.tolist()}; resize "
+              f"and unfilter in C++ ({native.library_path().name})",
+              flush=True)
+
+        def args(yml, exp, total, *extra):
+            return ["-opt", os.path.join(root, "configs", yml),
+                    "--force_yml",
+                    f"datasets:train:all_gt_list=[{tmp}/gt]",
+                    "datasets:val:name=val",
+                    f"datasets:val:dataroot_gt={tmp}/val/gt",
+                    f"datasets:val:dataroot_lq={tmp}/val/lq",
+                    "datasets:val:scale=4", f"path:experiments_root={exp}",
+                    f"train:total_iter={total}", "logger:print_freq=1",
+                    "logger:save_checkpoint_freq=3", "val:val_freq=3",
+                    *extra]
+
+        exp = os.path.join(tmp, "exp")
+        _reset(kernels)
+        t0 = time.perf_counter()
+        run = train.main(args("train_edsr_paper.yml", exp, 6))
+        torch.cuda.synchronize()
+        wall1 = time.perf_counter() - t0
+        launches = {k: v for k, v in _counts(kernels).items() if v}
+        ckpt = os.path.join(exp, "checkpoints")
+        steps = sorted(int(p) for p in os.listdir(ckpt) if p.isdigit())
+        hist = run["history"].history("val", "psnr")
+        print(f"  train CLI, paper recipe, 6 iterations: {wall1:.1f} s "
+              f"(networks, saves and validations included); steps saved "
+              f"{steps}, best -> {os.readlink(os.path.join(ckpt, 'best'))}, "
+              f"validation PSNR {[round(v, 4) for _, v in hist]}, losses "
+              f"{[round(v['loss'], 5) for v in run['logged'].values()]}; "
+              f"launches {launches}", flush=True)
+        if (steps != [3, 6] or len(hist) != 2
+                or not all(math.isfinite(v["loss"])
+                           for v in run["logged"].values())
+                or not all(launches.get(k) for k in ("W", "WB", "T", "R",
+                                                     "RB", "M", "A"))):
+            raise AssertionError("train CLI: saves, validation or launches")
+        out["paper"] = _cli_timing(run, "train CLI paper recipe", card)
+        out["paper"].update(wall_s=wall1, launches=launches,
+                            psnr=[v for _, v in hist])
+        a = run["trainer"]
+        saved = ck.load_step(ckpt, 6)
+        if not _state_bits_equal(a.state_dict(), saved):
+            raise AssertionError("train CLI: the saved state is not the "
+                                 "trainer's")
+
+        # the prefetched batches against the host batches
+        ds_kw = dict(scale_list=(1, 4), lr_size=PAPER_LR_SIZE,
+                     round_mode="round", seed=0)
+        host = batch_iterator(ContinuousBicubicDataset([f"{tmp}/gt"],
+                                                       **ds_kw),
+                              PAPER_BATCH, num_workers=4, enlarge_ratio=10)
+        pf = DevicePrefetcher(batch_iterator(
+            ContinuousBicubicDataset([f"{tmp}/gt"], **ds_kw), PAPER_BATCH,
+            num_workers=4, enlarge_ratio=10))
+        batches = []
+        for hb, db in zip(host, pf):
+            if not all(db[k].is_cuda and np.array_equal(db[k].cpu().numpy(),
+                                                        hb[k]) for k in hb):
+                raise AssertionError("prefetched batch differs from the "
+                                     "host batch")
+            batches.append(hb)
+            if len(batches) == 3:
+                break
+        pf.close()
+        print(f"  DevicePrefetcher: {len(batches)} batches on the card equal "
+              "the host batches bit for bit", flush=True)
+
+        # one step from a trainer restored from step 6 against the trainer
+        # that saved it
+        from gsasr_torch.config import (build_networks, build_train_config,
+                                        load_options)
+        from gsasr_torch.train import Trainer
+        opt = load_options(os.path.join(root, "configs",
+                                        "train_edsr_paper.yml"))
+        b_tr = Trainer(*build_networks(opt, torch.Generator().manual_seed(1)),
+                       build_train_config(opt))
+        ck.restore_checkpoint(ckpt, 6, b_tr)
+        if not _state_bits_equal(b_tr.state_dict(), saved):
+            raise AssertionError("train CLI: restored state differs")
+        ma, mb = a.step(batches[0]), b_tr.step(batches[0])
+        same = (torch.equal(ma["loss"], mb["loss"])
+                and _state_bits_equal(a.state_dict(), b_tr.state_dict()))
+        print(f"  restored trainer: state equal to the saved bits; one step "
+              f"from it and from the trainer that saved: "
+              f"{'the same bits' if same else 'DIFFERENT bits'} (loss "
+              f"{float(ma['loss']):.7f})", flush=True)
+        if not same:
+            raise AssertionError("train CLI: a step from the restored "
+                                 "trainer differs")
+        del a, b_tr, run
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # --auto_resume to 8: the newest step restored bit for bit
+        resumed = {}
+        orig = ck.restore_checkpoint
+
+        def spy(directory, step, trainer):
+            res = orig(directory, step, trainer)
+            resumed[step] = _state_bits_equal(trainer.state_dict(), saved)
+            return res
+
+        ck.restore_checkpoint = spy
+        try:
+            t0 = time.perf_counter()
+            run2 = train.main(args("train_edsr_paper.yml", exp, 8) +
+                              ["--auto_resume"])
+            torch.cuda.synchronize()
+            wall2 = time.perf_counter() - t0
+        finally:
+            ck.restore_checkpoint = orig
+        print(f"  --auto_resume: restored step {list(resumed)} "
+              f"{'bit for bit' if all(resumed.values()) else 'NOT EQUAL'}, "
+              f"ran to {run2['iter']} in {wall2:.1f} s; logged "
+              f"{sorted(run2['logged'])}", flush=True)
+        if resumed != {6: True} or run2["iter"] != 8 or sorted(
+                run2["logged"]) != [7, 8]:
+            raise AssertionError("train CLI: --auto_resume")
+
+        # cli.convert of step 8, then cli.infer --ckpt_dir, against
+        # sr_forward on the EMA weights in process
+        step8 = os.path.join(ckpt, "8")
+        conv = convert.main(["--enc_ckpt", os.path.join(step8, "net_g.pth"),
+                             "--dec_ckpt", os.path.join(step8,
+                                                        "net_fea2gs.pth"),
+                             "--out", os.path.join(tmp, "conv")])
+        lq_png = os.path.join(tmp, "val/lq/0.png")
+        path = infer.main(["--input_img_path", lq_png, "--ckpt_dir", conv,
+                           "--scale", "4", "--save_sr_path",
+                           os.path.join(tmp, "sr")])
+        tr2 = run2["trainer"]
+        lq = read_png(lq_png).astype(np.float32)[None] / 255.0
+        ref = sr_forward(tr2.ema_g, tr2.ema_d, lq, 4.0, denominator=12,
+                         dmax=0.1, device=dev).cpu().numpy()
+        ref = (np.clip(ref[0], 0, 1) * 255).round().astype(np.uint8)
+        got = read_png(path)
+        if got.shape != ref.shape or not np.array_equal(got, ref):
+            raise AssertionError("cli.convert + cli.infer --ckpt_dir: the "
+                                 "PNG differs from sr_forward's")
+        print(f"  cli.convert -> {os.path.basename(conv)}, cli.infer "
+              f"--ckpt_dir: {got.shape} PNG equals sr_forward on the EMA "
+              "weights", flush=True)
+        del run2, tr2
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # the bf16 recipe on the fused decoder
+        _reset(kernels)
+        t0 = time.perf_counter()
+        run3 = train.main(args("train_edsr_paper_bf16_r3.yml",
+                               os.path.join(tmp, "exp_bf16"), 4,
+                               "train:fused_decoder=true"))
+        torch.cuda.synchronize()
+        wall3 = time.perf_counter() - t0
+        launches = {k: v for k, v in _counts(kernels).items() if v}
+        print(f"  train CLI, paper bf16 recipe, fused decoder, 4 iterations: "
+              f"{wall3:.1f} s; losses "
+              f"{[round(v['loss'], 5) for v in run3['logged'].values()]}; "
+              f"launches {launches}", flush=True)
+        if (run3["iter"] != 4 or not all(
+                math.isfinite(v["loss"]) for v in run3["logged"].values())
+                or not all(launches.get(k) for k in ("M", "A", "MB", "AB",
+                                                     "T", "R", "RB"))
+                or launches.get("W-bf16") or launches.get("W")):
+            raise AssertionError("train CLI, bf16 fused: launches or loss")
+        out["paper_bf16_fused"] = _cli_timing(
+            run3, "train CLI paper bf16 recipe, fused decoder", card)
+        out["paper_bf16_fused"].update(wall_s=wall3, launches=launches)
+        out["resume"] = dict(restored_bit_for_bit=True, wall_s=wall2)
+        del run3
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
 FORM_KEYS = ("decoder", "case", "dtype", "nW", "windows", "tokens",
              "head_width", "bias", "per_image", "per_step", "per_swinir_step",
              "max_abs_err", "ms", "ms_back_to_back", "window16_ms",
@@ -4453,6 +5098,19 @@ def main() -> int:
     torch.cuda.empty_cache()
     print("infer CLI phase", flush=True)
     ires = infer_cli_phase(dev, kernels, card)
+    gc.collect()
+    torch.cuda.empty_cache()
+    t41 = time.perf_counter()
+    print("paper bf16 phase", flush=True)
+    pres = paper_bf16_phase(dev, kernels)
+    gc.collect()
+    torch.cuda.empty_cache()
+    t42 = time.perf_counter()
+    print("train CLI phase", flush=True)
+    cres = train_cli_phase(dev, kernels, card)
+    t43 = time.perf_counter()
+    print(f"  phase 41 took {t42 - t41:.1f} s, phase 42 {t43 - t42:.1f} s",
+          flush=True)
     for r in (train, ftrain, strain, etrain, utrain, eftrain, sbtrain,
               htrain, uftrain):
         same = "the same" if r["repeat"]["same_bits"] else "NOT the same"
@@ -4642,9 +5300,26 @@ def main() -> int:
                 fres["path_launches"], "4D window attention "
                 "(window_attention, forward and backward)",
                 fres[key + sfx], fres[key + sfx])
+    # phase 41's rows among the forms of W-bf16, WB-bf16, M, A, MB and AB
+    for k, rows in pres["kernels"].items():
+        meta[k] = meta[k][:7] + ((meta[k][7] or []) + rows,)
     line = [_kernel_entry(name, src, rep, also, counts[k], path, rows, forms)
             for k, (name, src, rep, also, counts, path, rows, forms)
             in meta.items()]
+    # this slice's launches: a step of the paper decoder in bf16 on each
+    # path (phase 41) and the training CLI's runs (phase 42)
+    slice_runs = {
+        "Trainer.step (paper bf16, module)": pres["train"]["launches"],
+        "Trainer.step (paper bf16, fused_decoder=True)":
+            pres["train_fused"]["launches"],
+        "cli.train (paper recipe, 6 iterations)":
+            cres["paper"]["launches"],
+        "cli.train (paper bf16 recipe, fused, 4 iterations)":
+            cres["paper_bf16_fused"]["launches"]}
+    for entry, k in zip(line, meta):
+        got = {run: n[k] for run, n in slice_runs.items() if n.get(k)}
+        if got:
+            entry["launches_this_slice"] = got
     if args.json:
         os.makedirs(os.path.dirname(os.path.abspath(args.json)), exist_ok=True)
         with open(args.json, "w") as f:
@@ -4689,6 +5364,7 @@ def main() -> int:
                            swinir_fused_train=sftrain,
                            exact_render=xres, attention_4d=fres,
                            grid_windows=gres, infer_cli=ires,
+                           paper_bf16=pres, train_cli=cres,
                            total_s=time.perf_counter() - t_start), f, indent=1)
     print(f"total {time.perf_counter() - t_start:.1f} s", flush=True)
     print(f"card: {card}", flush=True)

@@ -6,16 +6,17 @@ Usage:
   python -m gsasr_torch.cli.infer --input_img_path in.png --scale 4 \\
       --save_sr_path out/ [--model EDSR|RDN|SWIN|HATL] \\
       [--version paper|enhanced|ultra] [--bf16] \\
-      [--enc_ckpt net_g.pth --dec_ckpt net_fea2gs.pth] \\
+      [--enc_ckpt net_g.pth --dec_ckpt net_fea2gs.pth | --ckpt_dir DIR] \\
       [--tile_process --tile_size 480 --tile_overlap 8 --crop_size 4] \\
       [--device cuda|cpu]
 
-Loads reference-format .pth checkpoints (--param_key, default params_ema)
-when given; otherwise runs with seeded weights (smoke mode). Reads and
-writes PNG only (`utils/png.py`: the card's machine has neither OpenCV nor
-PIL); the output is named as JAX names it. Not ported: --orbax_ckpt (the
-port has no training-state format yet) and --bf16 with --version paper
-(the paper Fea2GS in bf16), ROADMAP Queue 1 items 4 and 1.
+Loads reference-format .pth checkpoints, or a step directory of the port's
+training-state format (`--ckpt_dir`, the counterpart of JAX's
+`--orbax_ckpt`: a step that `cli/train.py` saved or `cli/convert.py`
+wrote), under --param_key (default params_ema); otherwise runs with seeded
+weights (smoke mode). Reads and writes PNG only (`utils/png.py`: the
+card's machine has neither OpenCV nor PIL); the output is named as JAX
+names it.
 """
 
 from __future__ import annotations
@@ -41,10 +42,6 @@ def build_models(model: str, version: str, bf16: bool = False, *,
     encoder = MODEL_ENCODERS[model]
     if model == "HATL" and version == "paper":
         raise SystemExit("HATL ships only as Enhanced/Ultra")
-    if bf16 and version == "paper":
-        raise SystemExit("--bf16 with --version paper: the paper Fea2GS in "
-                         "bfloat16 is not ported yet (ROADMAP Queue 1, "
-                         "item 1); run it in float32")
     dtype = torch.bfloat16 if bf16 else torch.float32
     enc, dec = make_models(encoder, version, dtype=dtype, device=device)
     dec_kind = "fea2gs" if version == "paper" else "fea2gs_rope"
@@ -74,6 +71,8 @@ def main(argv=None) -> str:
                    help="bf16 inference (`inference_enhenced.py:212`)")
     p.add_argument("--enc_ckpt", default=None)
     p.add_argument("--dec_ckpt", default=None)
+    p.add_argument("--ckpt_dir", default=None,
+                   help="a step directory (cli/train.py, cli/convert.py)")
     p.add_argument("--param_key", default="params_ema",
                    choices=["params", "params_ema"])
     p.add_argument("--denominator", type=int, default=None)
@@ -90,7 +89,8 @@ def main(argv=None) -> str:
 
     from gsasr_torch.model import sr_forward
     from gsasr_torch.tiling import split_and_joint_image
-    from gsasr_torch.utils.checkpoint import load_torch_checkpoint
+    from gsasr_torch.utils.checkpoint import (load_eval_params,
+                                              load_torch_checkpoint)
     from gsasr_torch.utils.convert import load_params
     from gsasr_torch.utils.png import read_png, write_png
 
@@ -100,10 +100,16 @@ def main(argv=None) -> str:
                          "run the plain PyTorch path")
     if (args.enc_ckpt is None) != (args.dec_ckpt is None):
         raise SystemExit("give both --enc_ckpt and --dec_ckpt, or neither")
+    if args.ckpt_dir and args.enc_ckpt:
+        raise SystemExit("give --ckpt_dir or --enc_ckpt/--dec_ckpt, not both")
     enc, dec, enc_kind, dec_kind, denom = build_models(
         args.model, args.version, args.bf16, device=dev)
     denom = args.denominator or denom
-    if args.enc_ckpt:
+    if args.ckpt_dir:
+        for mod, sd in zip((enc, dec),
+                           load_eval_params(args.ckpt_dir, args.param_key)):
+            load_params(mod, sd)
+    elif args.enc_ckpt:
         load_params(enc, load_torch_checkpoint(args.enc_ckpt, enc_kind,
                                                args.param_key))
         load_params(dec, load_torch_checkpoint(args.dec_ckpt, dec_kind,

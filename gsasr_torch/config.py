@@ -3,7 +3,9 @@
 
 Reads the reference's BasicSR-style options (`network_g`,
 `network_fea2gs`, `train`, `datasets`) and `--force_yml`-style dotted
-overrides. PyYAML is imported only where a file or an override is parsed.
+overrides with the port's own YAML reader (`utils/yaml_subset.py`, which
+gives what `yaml.safe_load` gives on the subset that `configs/*.yml` use),
+so the card's machine, which has no PyYAML, reads a file as the CPU does.
 """
 
 from __future__ import annotations
@@ -18,22 +20,19 @@ from gsasr_torch.models import (EDSRNOUP, HATNOUP, RDNNOUP, Fea2GS,
                                 Fea2GSRopeAMP, HATNOUPPaper, SwinIRNOUP)
 from gsasr_torch.models.init import init_weights
 from gsasr_torch.train.trainer import TrainConfig
+from gsasr_torch.utils import yaml_subset
 
 
 def load_options(path) -> Dict[str, Any]:
-    import yaml
-
     with open(path) as f:
-        return yaml.safe_load(f)
+        return yaml_subset.load(f.read())
 
 
 def apply_overrides(opt: Dict[str, Any], overrides: List[str]):
     """`key:sub=value` dotted overrides (reference --force_yml)."""
-    import yaml
-
     for item in overrides or []:
         keys, value = item.split("=", 1)
-        value = yaml.safe_load(value)
+        value = yaml_subset.load(value)
         node = opt
         parts = keys.replace(":", ".").split(".")
         for k in parts[:-1]:
@@ -86,9 +85,10 @@ def build_networks(opt: Dict[str, Any],
     (HATNOUP_ROPE_AMP) and paper HAT (HATNOUP) encoders and both decoders
     are ported in float32; `model_dtype: bfloat16` (the default of
     `model_type: GSASRAMPModel`, as in the JAX package) builds any of the
-    encoders with the Enhanced decoder in bf16 compute on float32
-    parameters (configs/train_hatl_ultra.yml is the Ultra recipe,
-    configs/train_swinir_amp.yml SwinIR's)."""
+    encoders with either decoder in bf16 compute on float32 parameters
+    (configs/train_hatl_ultra.yml is the Ultra recipe,
+    configs/train_swinir_amp.yml SwinIR's,
+    configs/train_edsr_paper_bf16_r3.yml the paper decoder's)."""
     default = "bfloat16" if "AMP" in str(opt.get("model_type", "")) else \
         "float32"
     model_dtype = str(opt.get("model_dtype", default)).lower()
@@ -105,11 +105,6 @@ def build_networks(opt: Dict[str, Any],
             f"{opt['network_g']['type']} / {opt['network_fea2gs']['type']}: "
             f"only {sorted(_ENCODERS)} / {sorted(_DECODERS)} are ported yet")
     if dtype == torch.bfloat16:
-        if dec_cls is Fea2GS:
-            raise NotImplementedError(
-                "the paper Fea2GS in bfloat16 (train_edsr_paper_bf16_r3.yml) "
-                "is not ported yet: its module path needs a test of W-bf16 "
-                "and WB-bf16 with the bias table against JAX")
         g["dtype"] = d["dtype"] = dtype
     if generator is None:
         generator = torch.Generator().manual_seed(

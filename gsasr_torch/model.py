@@ -78,8 +78,9 @@ def make_models(encoder: str = "edsr", version: str = "paper", *,
     'ultra' (Fea2GSRopeAMP with the encoder's settings, `ENHANCED_CFG`;
     HAT-L's is the Ultra model). dtype: the modules' compute type on float32
     parameters, `gsasr_tpu/model.py`'s keyword; torch.bfloat16 (the
-    reference's --AMP_test) is taken by every encoder with the Enhanced /
-    Ultra decoder. decoder_kwargs override the decoder's settings (after
+    reference's --AMP_test) is taken by every encoder and both decoders
+    (inference runs the paper decoder's fused trunk in float32 all the
+    same, `fused_dtype`). decoder_kwargs override the decoder's settings (after
     `ENHANCED_CFG`), as in JAX. Callers pad with `DENOMINATORS[encoder]`
     (`sr_forward(..., denominator=...)`), 16 for the window-16 decoders of
     SwinIR and HAT-L."""
@@ -90,14 +91,7 @@ def make_models(encoder: str = "edsr", version: str = "paper", *,
         raise NotImplementedError(f"version '{version}'")
     if dtype not in (torch.float32, torch.bfloat16):
         raise NotImplementedError(f"dtype {dtype}")
-    kw = {}
-    if dtype == torch.bfloat16:
-        if version == "paper":
-            raise NotImplementedError(
-                f"make_models('{encoder}', 'paper') in bfloat16: the port "
-                "has the bf16 forms of the Enhanced / Ultra decoder only "
-                "(the paper Fea2GS in bf16 is not ported)")
-        kw = dict(dtype=dtype)
+    kw = {} if dtype == torch.float32 else dict(dtype=dtype)
     if generator is None:
         generator = torch.Generator().manual_seed(0)
     # Module constructors draw PyTorch's default init from the global RNG;
@@ -106,7 +100,7 @@ def make_models(encoder: str = "edsr", version: str = "paper", *,
     with torch.random.fork_rng(devices=[]):
         enc = _ENCODERS[encoder](**kw)
         dkw = dict(decoder_kwargs or {})
-        dec = (Fea2GS(**dkw) if version == "paper" else
+        dec = (Fea2GS(**dkw, **kw) if version == "paper" else
                Fea2GSRopeAMP(**{**ENHANCED_CFG[encoder], **dkw}, **kw))
     init_weights(enc, generator)
     init_weights(dec, generator)
@@ -131,7 +125,8 @@ def fused_dtype(dec):
 
 
 @torch.no_grad()
-def sr_forward(enc, dec, lq, scale: float, *, denominator: int = 12,
+def sr_forward(enc, dec, lq, scale: float, *, sr_size=None,
+               denominator: int = 12, dmax_mode: str = "fix",
                dmax: float = 0.1, device=None, trunk_dtype=None):
     """Full-image SR forward of one batch at one scale.
 
@@ -139,8 +134,9 @@ def sr_forward(enc, dec, lq, scale: float, *, denominator: int = 12,
     (default: the CUDA card), where enc and dec must already be. The
     decoder runs on its fused path with its trunk in `trunk_dtype`
     (torch.float32 or torch.bfloat16; default `fused_dtype(dec)`). Renders
-    with the tile rasterizer and a fixed dmax. Returns
-    (B, floor(scale * H), floor(scale * W), 3)."""
+    with the tile rasterizer under `dmax_mode` and `dmax`. Returns
+    (B, H_sr, W_sr, 3), (H_sr, W_sr) = `sr_size`, by default
+    (floor(scale * H), floor(scale * W)), as JAX's."""
     dev = resolve_device(device)
     for mod in (enc, dec):
         p = next(mod.parameters())
@@ -150,7 +146,8 @@ def sr_forward(enc, dec, lq, scale: float, *, denominator: int = 12,
     lq = torch.as_tensor(np.asarray(lq) if not torch.is_tensor(lq) else lq,
                          dtype=torch.float32).to(dev)
     b, h, w, _ = lq.shape
-    sr_size = (math.floor(h * scale), math.floor(w * scale))
+    if sr_size is None:
+        sr_size = (math.floor(h * scale), math.floor(w * scale))
     padded, _ = pad_to_denominator(lq, denominator)
     ph, pw = padded.shape[1], padded.shape[2]
     pad_sr = (math.floor(ph * scale), math.floor(pw * scale))
@@ -162,7 +159,7 @@ def sr_forward(enc, dec, lq, scale: float, *, denominator: int = 12,
     gs = fused(dec, feat, scales, None if dt == torch.float32 else dt)
     lat = _lat_hw(dec, ph, pw)
     img = torch.stack([render_gaussians(pad_sr, gs[i], scale,
-                                        dmax_mode="fix", dmax=dmax,
+                                        dmax_mode=dmax_mode, dmax=dmax,
                                         lat_hw=lat, device=dev)
                        for i in range(b)])
     return img.permute(0, 2, 3, 1)[:, :sr_size[0], :sr_size[1], :]

@@ -11,8 +11,15 @@ convolutions are PyTorch ops and every window attention goes through
 `window_attention_packed` (kernels W and WB on the card). Inference takes
 the fused path of `fea2gs_fast.py` instead, as the JAX package does, and so
 does training with `fused_decoder=True`. The layer classes take a compute
-`dtype` (flax's `dtype=`, see `common.py`), which the Enhanced decoder's
-bf16 module path passes; the paper decoder is float32.
+`dtype` (flax's `dtype=`, see `common.py`). `Fea2GS(dtype=torch.bfloat16)`
+is `configs/train_edsr_paper_bf16_r3.yml`'s module path, as JAX's
+`Fea2GS(dtype=jnp.bfloat16)` computes it: float32 parameters; the seed and
+position embeddings and the residual stream stay float32 (flax adds a
+bf16 sub-layer output to a float32 residual in float32); LayerNorms,
+linears, the scale MLP, the feature projection, the attentions (W-bf16 and
+WB-bf16 with the float32 bias table on the card) and UPNet in bfloat16;
+the heads in float32 with `fp32_heads` (False: in bfloat16, and the output
+too, as JAX's).
 """
 
 from __future__ import annotations
@@ -80,12 +87,15 @@ def conv_nhwc(conv, x, dtype=None):
 
 
 def reference_points(h: int, w: int, dtype=torch.float32, device=None):
-    """Pixel-center anchor grid: (h*w, 2) as (x, y)."""
-    ys = torch.linspace(0.5 / h, 1 - 0.5 / h, h, dtype=dtype, device=device)
-    xs = torch.linspace(0.5 / w, 1 - 0.5 / w, w, dtype=dtype, device=device)
+    """Pixel-center anchor grid: (h*w, 2) as (x, y), computed in float32
+    and rounded to `dtype`."""
+    f32 = torch.float32
+    ys = torch.linspace(0.5 / h, 1 - 0.5 / h, h, dtype=f32, device=device)
+    xs = torch.linspace(0.5 / w, 1 - 0.5 / w, w, dtype=f32, device=device)
     ref_y = ys[:, None].expand(h, w)
     ref_x = xs[None, :].expand(h, w)
-    return torch.stack([ref_x.reshape(-1), ref_y.reshape(-1)], dim=-1)
+    return torch.stack([ref_x.reshape(-1), ref_y.reshape(-1)],
+                       dim=-1).to(dtype)
 
 
 class ScaleInject(nn.Module):
@@ -113,7 +123,7 @@ class _WindowAttnParams(nn.Module):
     """q/k/v heads, out-projection, rel-pos bias table and its index."""
 
     def __init__(self, dim: int, num_heads: int, table_rows: int,
-                 index: np.ndarray):
+                 index: np.ndarray, dtype=torch.float32):
         super().__init__()
         self.num_heads = num_heads
         self.relative_position_bias_table = nn.Parameter(
@@ -121,10 +131,10 @@ class _WindowAttnParams(nn.Module):
         # the index, and its rows listed per table row for the ordered
         # gradient sum, rebuilt when a state_dict loads an index
         register_bias_index(self, index, table_rows)
-        self.qhead = Linear(dim, dim)
-        self.khead = Linear(dim, dim)
-        self.vhead = Linear(dim, dim)
-        self.proj = Linear(dim, dim)
+        self.qhead = Linear(dim, dim, dtype)
+        self.khead = Linear(dim, dim, dtype)
+        self.vhead = Linear(dim, dim, dtype)
+        self.proj = Linear(dim, dim, dtype)
 
     def bias(self):
         """(num_heads, Tq, Tk) bias gathered from the table; its gradient
@@ -144,11 +154,13 @@ class _WindowAttnParams(nn.Module):
 class WindowCrossAttn(_WindowAttnParams):
     """Q = Gaussian seeds, K/V = feature window, rectified rel-pos bias."""
 
-    def __init__(self, dim, num_heads, window_size, num_gs_seed):
+    def __init__(self, dim, num_heads, window_size, num_gs_seed,
+                 dtype=torch.float32):
         gs_sqrt = math.isqrt(num_gs_seed)
         super().__init__(dim, num_heads,
                          (2 * max(gs_sqrt, window_size) - 1) ** 2,
-                         cross_attn_rel_pos_index(gs_sqrt, window_size))
+                         cross_attn_rel_pos_index(gs_sqrt, window_size),
+                         dtype)
 
     def forward(self, gs, feat):
         return self.attend(gs, feat)
@@ -157,9 +169,9 @@ class WindowCrossAttn(_WindowAttnParams):
 class GSSelfAttn(_WindowAttnParams):
     """Windowed self-attention over the seed lattice, Swin rel-pos bias."""
 
-    def __init__(self, dim, num_heads, num_gs_seed_sqrt):
+    def __init__(self, dim, num_heads, num_gs_seed_sqrt, dtype=torch.float32):
         super().__init__(dim, num_heads, (2 * num_gs_seed_sqrt - 1) ** 2,
-                         self_attn_rel_pos_index(num_gs_seed_sqrt))
+                         self_attn_rel_pos_index(num_gs_seed_sqrt), dtype)
 
     def forward(self, gs):
         return self.attend(gs, gs)
@@ -170,7 +182,7 @@ class WindowCrossAttnLayer(nn.Module):
     pre-norm residual. norm1 is dead in the reference topology: its output
     is overwritten, so its parameters get a zero gradient. `attn` replaces
     the rel-pos-bias attention (the Enhanced family's RoPE attention);
-    norms, inject and MLPs compute in `dtype`."""
+    norms, inject, MLPs and the attention compute in `dtype`."""
 
     def __init__(self, dim, num_heads, window_size, num_gs_seed,
                  shift_size: int = 0, attn: nn.Module = None,
@@ -184,7 +196,7 @@ class WindowCrossAttnLayer(nn.Module):
         self.norm4 = LayerNorm(dim, dtype)
         self.gs_cross_attn_scale = ScaleInject(dim, dtype)
         self.window_cross_attn = attn if attn is not None else \
-            WindowCrossAttn(dim, num_heads, window_size, num_gs_seed)
+            WindowCrossAttn(dim, num_heads, window_size, num_gs_seed, dtype)
         self.mlp_crossattn_scale = MLP(dim, dim, dim, dtype=dtype)
         self.mlp_crossattn_feature = MLP(dim, dim, dim, dtype=dtype)
 
@@ -207,8 +219,8 @@ class GSSelfAttnLayer(nn.Module):
     FFN. norm3 is dead in the reference topology (zero gradient). Shifted
     layers roll the whole seed lattice across window boundaries and roll
     the attention output back. `attn` replaces the rel-pos-bias attention
-    (the Enhanced family's RoPE attention); norms, inject and MLPs compute
-    in `dtype`."""
+    (the Enhanced family's RoPE attention); norms, inject, MLPs and the
+    attention compute in `dtype`."""
 
     def __init__(self, dim, num_heads, num_gs_seed_sqrt, shift_size: int = 0,
                  attn: nn.Module = None, dtype=torch.float32):
@@ -221,7 +233,7 @@ class GSSelfAttnLayer(nn.Module):
         self.norm4 = LayerNorm(dim, dtype)
         self.gs_cross_attn_scale = ScaleInject(dim, dtype)
         self.gs_self_attn = attn if attn is not None else \
-            GSSelfAttn(dim, num_heads, num_gs_seed_sqrt)
+            GSSelfAttn(dim, num_heads, num_gs_seed_sqrt, dtype)
         self.mlp_selfattn = MLP(dim, dim, dim, dtype=dtype)
         self.mlp_crossattn = MLP(dim, dim, dim, dtype=dtype)
 
@@ -314,31 +326,36 @@ def _add_tail(m, head_dtype=torch.float32) -> None:
 
 class Fea2GS(nn.Module):
     """Paper decoder: (B, h, w, inchannel) NHWC features with h, w divisible
-    by window_size, and (B,) scales -> (B, N, 9) raw Gaussian parameters."""
+    by window_size, and (B,) scales -> (B, N, 9) raw Gaussian parameters,
+    float32 (bfloat16 with `dtype` bfloat16 and not `fp32_heads`). The
+    module path computes in `dtype` (see the module docstring)."""
 
     def __init__(self, inchannel: int = 64, channel: int = 180,
                  num_heads: int = 6, num_crossattn_blocks: int = 1,
                  num_crossattn_layers: int = 2, num_selfattn_blocks: int = 6,
                  num_selfattn_layers: int = 6, num_gs_seed: int = 144,
                  gs_up_factor: float = 1.0, window_size: int = 12,
-                 shuffle_scale1: int = 2, shuffle_scale2: int = 2):
+                 shuffle_scale1: int = 2, shuffle_scale2: int = 2,
+                 dtype=torch.float32, fp32_heads: bool = True):
         super().__init__()
         ch = channel
         nsq = math.isqrt(num_gs_seed)
         _add_front(self, inchannel, ch, num_heads, num_gs_seed, gs_up_factor,
-                   window_size, shuffle_scale1, shuffle_scale2)
+                   window_size, shuffle_scale1, shuffle_scale2, dtype)
         self.window_crossattn_blocks = nn.ModuleList(
             _Block(ch, [WindowCrossAttnLayer(
                 ch, num_heads, window_size, num_gs_seed,
-                shift_size=0 if i % 2 == 0 else window_size // 2)
-                for i in range(num_crossattn_layers)])
+                shift_size=0 if i % 2 == 0 else window_size // 2,
+                dtype=dtype)
+                for i in range(num_crossattn_layers)], dtype)
             for _ in range(num_crossattn_blocks))
         self.gs_selfattn_blocks = nn.ModuleList(
             _Block(ch, [GSSelfAttnLayer(
-                ch, num_heads, nsq, shift_size=0 if i % 2 == 0 else nsq // 2)
-                for i in range(num_selfattn_layers)])
+                ch, num_heads, nsq, shift_size=0 if i % 2 == 0 else nsq // 2,
+                dtype=dtype)
+                for i in range(num_selfattn_layers)], dtype)
             for _ in range(num_selfattn_blocks))
-        _add_tail(self)
+        _add_tail(self, torch.float32 if fp32_heads else dtype)
 
     def forward(self, srcs, scale):
         """(B, h, w, inchannel) features, (B,) scales -> (B, N, 9)."""
@@ -358,7 +375,13 @@ class Fea2GS(nn.Module):
         resi = query
         for blk in self.gs_selfattn_blocks:
             query = blk(query, h_count, w_count, scale_embedding)
-        return decode_lattice(self, query + resi, b, h_count, w_count)
+        nsq = math.isqrt(self.num_gs_seed)
+        # JAX computes the tail in the heads' type: float32, or bfloat16
+        # without fp32_heads
+        return decode_full_lattice(
+            self, to_lattice(query + resi, b, h_count, w_count, nsq), b,
+            h_count, w_count, self.dtype, self.head_dtype,
+            out_dtype=self.head_dtype)
 
 
 def decode_lattice(m, query, b: int, h_count: int, w_count: int):
@@ -370,13 +393,14 @@ def decode_lattice(m, query, b: int, h_count: int, w_count: int):
 
 
 def decode_full_lattice(m, query, b: int, h_count: int, w_count: int,
-                        dtype=torch.float32, head_dtype=torch.float32):
+                        dtype=torch.float32, head_dtype=torch.float32,
+                        out_dtype=torch.float32):
     """(B, h_count*nsq, w_count*nsq, C) lattice -> UPNet (conv + pixel
     shuffle, twice, in `dtype`) -> the five head MLPs (in `head_dtype`) ->
     means normalized by the lattice size plus the pixel-center grid, in
-    float32. Returns (B, N, 9) float32. The fused paths take the defaults,
-    float32 whatever the module was built with; the module path passes its
-    own types."""
+    `out_dtype`. Returns (B, N, 9) in `out_dtype`. The fused paths take the
+    defaults, float32 whatever the module was built with; the module paths
+    pass their own types."""
     nsq = math.isqrt(m.num_gs_seed)
     query = pixel_shuffle(conv_nhwc(m.UPNet[0], query, dtype),
                           m.shuffle_scale1)
@@ -386,7 +410,8 @@ def decode_full_lattice(m, query, b: int, h_count: int, w_count: int,
     guf = int(m.gs_up_factor)
 
     def head(seq, n):
-        return seq_apply(seq, query, head_dtype).reshape(b, -1, n).float()
+        return seq_apply(seq, query, head_dtype).reshape(b, -1, n).to(
+            out_dtype)
 
     q_sigma = head(m.mlp_block_sigma, 2 * guf)
     q_rho = head(m.mlp_block_rho, guf)
@@ -396,8 +421,8 @@ def decode_full_lattice(m, query, b: int, h_count: int, w_count: int,
 
     lat_h = nsq * h_count * m.shuffle_scale1 * m.shuffle_scale2
     lat_w = nsq * w_count * m.shuffle_scale1 * m.shuffle_scale2
-    q_mean = q_mean / torch.tensor([[lat_w, lat_h]], dtype=torch.float32,
+    q_mean = q_mean / torch.tensor([[lat_w, lat_h]], dtype=out_dtype,
                                    device=q_mean.device)
-    q_mean = q_mean + reference_points(lat_h, lat_w, torch.float32,
+    q_mean = q_mean + reference_points(lat_h, lat_w, out_dtype,
                                        q_mean.device)[None]
     return torch.cat([q_sigma, q_rho, q_alpha, q_rgb, q_mean], dim=-1)

@@ -8,9 +8,11 @@ on the card forward, MB and AB backward). Shifted self-attention layers
 roll the lattice, run the uniform kernel, un-roll its output and then add
 the residual, which is exact because LN commutes with the roll.
 Convolutions, the scale MLP and the heads are plain PyTorch ops. The
-float32 function is differentiable; inference calls it under
-`torch.no_grad()`. dtype=torch.bfloat16 runs the trunk (the layer stack)
-in bf16 and UPNet and the heads in fp32, as the JAX fast path does.
+function is differentiable; inference calls it under `torch.no_grad()`.
+dtype=torch.bfloat16 runs the trunk (the layer stack) in bf16 and UPNet and
+the heads in fp32, as the JAX fast path does, whatever compute type the
+module was built with (training with `fused_decoder=True` passes the
+module's: `configs/train_edsr_paper_bf16_r3.yml`'s bf16 trunk).
 """
 
 from __future__ import annotations
@@ -20,7 +22,8 @@ import math
 import torch
 import torch.nn.functional as F
 
-from gsasr_torch.models.fea2gs import (conv_nhwc, decode_lattice, to_lattice,
+from gsasr_torch.models.common import seq_apply
+from gsasr_torch.models.fea2gs import (decode_lattice, to_lattice,
                                        window_partition)
 from gsasr_torch.ops.fused_layers import ln_attn_proj, ln_mlp_residual
 
@@ -66,11 +69,15 @@ def fea2gs_apply_fused(m, srcs, scale, dtype=None):
 
     query = m.gs_embedding[None].expand(b * nwin, -1, -1).contiguous()
     query_pos = m.pos_embedding
-    se = m.scale_mlp((1.0 / scale)[:, None])
+    # the scale MLP, the feature projection and the inject in f32, whatever
+    # the module's compute type, as the JAX fast path computes them (a bf16
+    # encoder's features are widened: JAX's f32 convolution refuses them)
+    se = seq_apply(m.scale_mlp, (1.0 / scale)[:, None])
     # (B_, C); a plain sum backward, where repeat_interleave's is an
     # index-add (atomics on the card)
     scale_embedding = se[:, None].expand(b, nwin, ch).reshape(b * nwin, ch)
-    feat = conv_nhwc(m.img_feat_proj, srcs)
+    feat = seq_apply(m.img_feat_proj, srcs.permute(0, 3, 1, 2)).permute(
+        0, 2, 3, 1)
     if dtype is not None:
         query, feat = query.to(dtype), feat.to(dtype)
 
@@ -79,7 +86,7 @@ def fea2gs_apply_fused(m, srcs, scale, dtype=None):
         x = _ln_plain(blk.norm, query)
         for li, lyr in enumerate(blk.blocks):
             shift = 0 if li % 2 == 0 else ws // 2
-            inj = lyr.gs_cross_attn_scale(scale_embedding)
+            inj = lyr.gs_cross_attn_scale(scale_embedding, torch.float32)
             x = ln_mlp_residual(x, inj=inj, **_mlp(lyr.mlp_crossattn_scale),
                                 **_ln(lyr.norm2))
             f = feat
@@ -100,7 +107,7 @@ def fea2gs_apply_fused(m, srcs, scale, dtype=None):
         x = _ln_plain(blk.norm, query)
         for li, lyr in enumerate(blk.blocks):
             shift = 0 if li % 2 == 0 else nsq // 2
-            inj = lyr.gs_cross_attn_scale(scale_embedding)
+            inj = lyr.gs_cross_attn_scale(scale_embedding, torch.float32)
             x = ln_mlp_residual(x, inj=inj, **_mlp(lyr.mlp_crossattn),
                                 **_ln(lyr.norm4))
             attn = lyr.gs_self_attn

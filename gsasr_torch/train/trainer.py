@@ -13,11 +13,13 @@ and its fused path with `fused_decoder=True`, as the JAX Trainer's
 `_dec_apply` does: `fea2gs_apply_fused` for Fea2GS, `fea2gs_rope_apply_fused`
 for Fea2GSRopeAMP, either with the trunk in the decoder's compute type
 (bf16 with fp32 UPNet and heads, or fp32). Per step of the paper decoder
-on the card: module path 38 W and 38 WB; fused path 83 M and 38 A forward,
-83 MB and 38 AB backward; either way 1 R, 1 RB and 38 T (the bias-table
-gradients). The Enhanced decoder's fused path launches 83 M, 38 A, 83 MB
-and 38 AB (RDN-Enhanced's two cross blocks 88 and 40 of each), 1 R and 1
-RB per step, and no T; at 256 seeds in windows of 16 its attentions take
+on the card: module path 38 W and 38 WB (38 W-bf16 and 38 WB-bf16 at
+`configs/train_edsr_paper_bf16_r3.yml`'s bf16); fused path 83 M and 38 A
+forward, 83 MB and 38 AB backward (their bf16 forms in bf16); either way
+1 R, 1 RB and 38 T (the bias-table gradients, f32 in bf16 too). The
+Enhanced decoder's fused path launches 83 M, 38 A, 83 MB and 38 AB
+(RDN-Enhanced's two cross blocks 88 and 40 of each), 1 R and 1 RB per
+step, and no T; at 256 seeds in windows of 16 its attentions take
 A-long and AB-long: the HAT-L Ultra decoder 140 M, 140 MB, 64 A-long and
 64 AB-long per step, SwinIR-Enhanced's 96, 96, 44 and 44. A
 SwinIR encoder adds 18 W, 18 WB, 18 WM, 18 WMB and 36 T per step (its
@@ -28,6 +30,8 @@ WB-bf16, 1 R and 1 RB per step, and no T (RoPE has no bias table). No
 GradScaler: bf16 keeps float32's exponent range, and the JAX Trainer uses
 none. The forward and backward run with cuDNN's deterministic algorithms,
 so one state and batch give one gradient, the same bits, as JAX's do.
+`state_dict()` and `load_state_dict()` save and restore the whole training
+state (`utils/checkpoint.py` writes it to disk).
 """
 
 from __future__ import annotations
@@ -150,13 +154,15 @@ class Trainer:
             feat = self.enc(batch["lq"], generator=self.droppath_generator())
         else:
             feat = self.enc(batch["lq"])
-        if cfg.fused_decoder and isinstance(self.dec, Fea2GSRopeAMP):
+        if cfg.fused_decoder:
+            # the trunk in the decoder's compute type, UPNet and the heads
+            # in f32 (JAX's _dec_apply)
             dt = self.dec.dtype
-            gs = fea2gs_rope_apply_fused(
-                self.dec, feat, batch["scale"],
-                dtype=None if dt == torch.float32 else dt)
-        elif cfg.fused_decoder:
-            gs = fea2gs_apply_fused(self.dec, feat, batch["scale"])
+            fused = (fea2gs_rope_apply_fused
+                     if isinstance(self.dec, Fea2GSRopeAMP)
+                     else fea2gs_apply_fused)
+            gs = fused(self.dec, feat, batch["scale"],
+                       dtype=None if dt == torch.float32 else dt)
         else:
             gs = self.dec(feat, batch["scale"])
         out = render_training_batch(
@@ -272,3 +278,42 @@ class Trainer:
     def step(self, batch):
         """One training step on `batch`; returns its metrics."""
         return self.apply(*self.grads(batch))
+
+    def state_dict(self):
+        """The whole training state, JAX's `TrainState`, as CPU tensors in
+        the reference's layout: {"net_g": {"params", "params_ema"},
+        "net_fea2gs": {"params", "params_ema"}, "train_state": Adam's
+        state_dict (moments and step), step_count, update_count and the
+        accumulation's running mean and its mini-step}."""
+        def cpu(sd):
+            return {k: v.detach().cpu().clone() for k, v in sd.items()}
+
+        opt = self.opt.state_dict()
+        opt["state"] = {i: cpu(st) for i, st in opt["state"].items()}
+        return {
+            "net_g": {"params": cpu(self.enc.state_dict()),
+                      "params_ema": cpu(self.ema_g.state_dict())},
+            "net_fea2gs": {"params": cpu(self.dec.state_dict()),
+                           "params_ema": cpu(self.ema_d.state_dict())},
+            "train_state": {
+                "optimizer": opt, "step_count": self.step_count,
+                "update_count": self.update_count,
+                "mini_step": self._mini_step,
+                "acc": (None if self._acc is None else
+                        [a.detach().cpu().clone() for a in self._acc])}}
+
+    def load_state_dict(self, state):
+        """Restore what `state_dict` gave, onto the trainer's device, bit
+        for bit: the next step continues the run, a running accumulation
+        mean included."""
+        for net, ema, key in ((self.enc, self.ema_g, "net_g"),
+                              (self.dec, self.ema_d, "net_fea2gs")):
+            net.load_state_dict(state[key]["params"])
+            ema.load_state_dict(state[key]["params_ema"])
+        ts = state["train_state"]
+        self.opt.load_state_dict(ts["optimizer"])
+        self.step_count = int(ts["step_count"])
+        self.update_count = int(ts["update_count"])
+        self._mini_step = int(ts["mini_step"])
+        self._acc = (None if ts["acc"] is None else
+                     [a.to(self.device) for a in ts["acc"]])

@@ -1,5 +1,5 @@
-"""PNG reading and writing in numpy and zlib, for the inference CLI on a
-machine without OpenCV or PIL.
+"""PNG reading and writing in numpy, zlib and a C++ scanline unfilter, for
+the CLIs and the training data on a machine without OpenCV or PIL.
 
 `read_png(path)` returns what `cv2.imread(path, cv2.IMREAD_COLOR)[:, :,
 ::-1]` returns: RGB uint8 (H, W, 3). It reads every non-interlaced PNG of
@@ -9,10 +9,17 @@ five filters. As OpenCV reads them, gray is repeated into the three
 channels, gray of 1, 2 or 4 bits is scaled to 0..255, a palette index
 takes its PLTE colour, 16-bit samples keep their high byte, and alpha and
 tRNS are dropped without compositing. An interlaced PNG, a file that is
-not a PNG, and a damaged one raise a ValueError.
+not a PNG, and a damaged one raise a ValueError. The scanlines' filters
+are undone in C++ (`gsasr_torch/native/png.cpp`, built with g++ at first
+use; reading raises a RuntimeError where it cannot be built): Average and
+Paeth, which most files on disk carry, are a serial loop along each row.
 
-`write_png(path, rgb)` writes RGB uint8 as an 8-bit PNG (each scanline
-under the Sub filter), which OpenCV reads back bit for bit.
+`write_png(path, rgb)` writes RGB uint8 as an 8-bit PNG, which OpenCV
+reads back bit for bit: each scanline under the Sub filter, as
+`cv2.imwrite` writes by default, or with `adaptive=True` under the filter
+that libpng's heuristic picks (the least sum of absolute bytes), as
+`cv2.imwrite` writes at `IMWRITE_PNG_COMPRESSION` 3, the level at which
+BasicSR's `extract_subimages` writes DIV2K's training sub-images.
 """
 
 from __future__ import annotations
@@ -21,6 +28,8 @@ import struct
 import zlib
 
 import numpy as np
+
+from gsasr_torch.native import png_unfilter
 
 SIGNATURE = b"\x89PNG\r\n\x1a\n"
 _CHANNELS = {0: 1, 2: 3, 3: 1, 4: 2, 6: 4}
@@ -45,46 +54,6 @@ def _chunks(data: bytes, path):
             return
         pos += 12 + n
     raise ValueError(f"{path}: truncated PNG (no IEND)")
-
-
-def _unfilter(raw: np.ndarray, height: int, stride: int, bpp: int,
-              path) -> np.ndarray:
-    """The scanlines of the decompressed stream with their filters undone:
-    (height, stride) uint8. A pixel (bpp bytes, one byte below 8 bits a
-    pixel) depends on its left, upper and upper-left neighbours, so the
-    pixels are undone one anti-diagonal at a time, all rows at once, in a
-    sheared copy where each diagonal is one contiguous slice."""
-    if raw.size != height * (stride + 1):
-        raise ValueError(f"{path}: image data of {raw.size} bytes, "
-                         f"{height * (stride + 1)} expected")
-    rows = raw.reshape(height, stride + 1)
-    ftype = rows[:, 0]
-    if (ftype > 4).any():
-        raise ValueError(f"{path}: unknown PNG filter type")
-    ncol = stride // bpp
-    diags = height + ncol - 1
-    # pixel (r, c) lies at sheared[r + c + 2, r + 1]; the first two
-    # diagonals and row 0 hold the zeros left of and above the image
-    r = np.repeat(np.arange(height), ncol)
-    at = (r + np.tile(np.arange(ncol), height) + 2, r + 1)
-    filt = np.zeros((diags + 2, height + 1, bpp), np.int16)
-    filt[at] = rows[:, 1:].reshape(-1, bpp)
-    kind = [(ftype == k)[:, None].astype(np.int16) for k in range(1, 5)]
-    sheared = np.zeros_like(filt)
-    for d in range(2, diags + 2):
-        r0, r1 = max(0, d - 1 - ncol), min(height, d - 1)
-        left = sheared[d - 1, r0 + 1:r1 + 1]
-        up = sheared[d - 1, r0:r1]
-        upleft = sheared[d - 2, r0:r1]
-        p = left + up - upleft
-        pa, pb, pc = np.abs(p - left), np.abs(p - up), np.abs(p - upleft)
-        paeth = np.where((pa <= pb) & (pa <= pc), left,
-                         np.where(pb <= pc, up, upleft))
-        pred = (kind[0][r0:r1] * left + kind[1][r0:r1] * up
-                + kind[2][r0:r1] * ((left + up) >> 1)
-                + kind[3][r0:r1] * paeth)
-        sheared[d, r0 + 1:r1 + 1] = (filt[d, r0 + 1:r1 + 1] + pred) & 0xFF
-    return sheared[at].reshape(height, stride).astype(np.uint8)
 
 
 def read_png(path) -> np.ndarray:
@@ -114,13 +83,19 @@ def read_png(path) -> np.ndarray:
     if ctype == 3 and palette is None:
         raise ValueError(f"{path}: palette PNG without PLTE")
     try:
-        raw = np.frombuffer(zlib.decompress(b"".join(idat)), np.uint8)
+        raw = zlib.decompress(b"".join(idat))
     except zlib.error as e:
         raise ValueError(f"{path}: damaged PNG image data ({e})") from None
     ch = _CHANNELS[ctype]
     bits = ch * depth
     stride = (width * bits + 7) // 8
-    rows = _unfilter(raw, height, stride, max(1, bits // 8), path)
+    if len(raw) != height * (stride + 1):
+        raise ValueError(f"{path}: image data of {len(raw)} bytes, "
+                         f"{height * (stride + 1)} expected")
+    try:
+        rows = png_unfilter(raw, height, stride, max(1, bits // 8))
+    except ValueError as e:
+        raise ValueError(f"{path}: {e}") from None
     if depth < 8:
         # samples packed from the high bits of each byte, rows padded
         per = 8 // depth
@@ -148,21 +123,49 @@ def _chunk(kind: bytes, body: bytes) -> bytes:
             + struct.pack(">I", zlib.crc32(kind + body)))
 
 
-def write_png(path, rgb) -> None:
-    """Write RGB uint8 (H, W, 3) as an 8-bit PNG."""
+def _filtered(rows: np.ndarray, bpp: int) -> np.ndarray:
+    """(5, H, stride) uint8: the scanlines `rows` under each of the five
+    filters (None, Sub, Up, Average, Paeth)."""
+    x = rows.astype(np.int16)
+    up = np.zeros_like(x)
+    up[1:] = x[:-1]
+    left = np.zeros_like(x)
+    left[:, bpp:] = x[:, :-bpp]
+    upleft = np.zeros_like(x)
+    upleft[1:, bpp:] = x[:-1, :-bpp]
+    p = left + up - upleft
+    pa, pb, pc = np.abs(p - left), np.abs(p - up), np.abs(p - upleft)
+    paeth = np.where((pa <= pb) & (pa <= pc), left,
+                     np.where(pb <= pc, up, upleft))
+    pred = np.stack([np.zeros_like(x), left, up, (left + up) >> 1, paeth])
+    return ((x - pred) & 0xFF).astype(np.uint8)
+
+
+def write_png(path, rgb, *, adaptive: bool = False, level: int = 6) -> None:
+    """Write RGB uint8 (H, W, 3) as an 8-bit PNG, zlib at `level`: each
+    scanline under the Sub filter, or with `adaptive` under the filter of
+    the least sum of min(b, 256 - b) over its bytes, the first on a tie
+    (libpng's choice)."""
     rgb = np.asarray(rgb)
     if rgb.dtype != np.uint8 or rgb.ndim != 3 or rgb.shape[2] != 3:
         raise ValueError(f"write_png takes RGB uint8 (H, W, 3), not "
                          f"{rgb.dtype} {rgb.shape}")
     h, w, _ = rgb.shape
     rows = rgb.reshape(h, 3 * w)
-    # the Sub filter: each byte less the same channel of the pixel before
-    sub = rows.copy()
-    sub[:, 3:] -= rows[:, :-3]
-    scan = np.concatenate([np.ones((h, 1), np.uint8), sub], axis=1)
+    if adaptive:
+        cand = _filtered(rows, 3)
+        cost = np.minimum(cand, 256 - cand.astype(np.int32)).sum(2)
+        ftype = cost.argmin(0).astype(np.uint8)
+        data = cand[ftype, np.arange(h)]
+    else:
+        # Sub: each byte less the same channel of the pixel before
+        ftype = np.ones(h, np.uint8)
+        data = rows.copy()
+        data[:, 3:] -= rows[:, :-3]
+    scan = np.concatenate([ftype[:, None], data], axis=1)
     with open(path, "wb") as f:
         f.write(SIGNATURE
                 + _chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, 2, 0, 0,
                                               0))
-                + _chunk(b"IDAT", zlib.compress(scan.tobytes(), 6))
+                + _chunk(b"IDAT", zlib.compress(scan.tobytes(), level))
                 + _chunk(b"IEND", b""))

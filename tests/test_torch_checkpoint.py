@@ -186,9 +186,9 @@ def test_extra_or_missing_key_raises(fault, tmp_path):
 
 
 def test_pretrained_params_and_kinds(tmp_path):
-    """load_pretrained_params reads a .pth file's key, refuses a directory
-    (the port has no training-state format), returns None for no spec;
-    CONVERTER_KINDS is JAX's; an unknown kind raises."""
+    """load_pretrained_params reads a .pth file's key and a step directory
+    of the port's training-state format (the network by its kind), returns
+    None for no spec; CONVERTER_KINDS is JAX's; an unknown kind raises."""
     from gsasr_tpu.utils.checkpoint import CONVERTER_KINDS as JKINDS
 
     enc = _modules("edsr", 7)[0]
@@ -196,8 +196,16 @@ def test_pretrained_params_and_kinds(tmp_path):
     got = load_pretrained_params(str(tmp_path / "g.pth"), "edsr", "params")
     assert all(_same_bits(v, enc.state_dict()[k]) for k, v in got.items())
     assert load_pretrained_params("", "edsr") is None
-    with pytest.raises(NotImplementedError, match="Queue 1, item 4"):
-        load_pretrained_params(str(tmp_path), "edsr")
+    step = tmp_path / "7"
+    step.mkdir()
+    dec = _modules("edsr", 8)[1]
+    for name, mod in (("net_g", enc), ("net_fea2gs", dec)):
+        torch.save({"params": mod.state_dict(), "params_ema": {}},
+                   step / f"{name}.pth")
+    for kind, mod in (("edsr", enc), ("fea2gs", dec)):
+        got = load_pretrained_params(str(step), kind)
+        assert got.keys() == mod.state_dict().keys()
+        assert all(_same_bits(v, mod.state_dict()[k]) for k, v in got.items())
     with pytest.raises(ValueError, match="unknown checkpoint kind"):
         load_torch_checkpoint(tmp_path / "g.pth", "vgg")
     assert CONVERTER_KINDS == JKINDS

@@ -374,22 +374,30 @@ def test_build_networks_enhanced_recipes(yml, enc_cls, cross):
 
 
 def test_unported_bf16_combinations_raise():
-    """The paper Fea2GS in bf16 raises, naming what it needs (SwinIR in
-    bf16, train_swinir_amp.yml, now builds: tests/test_torch_swinir_bf16.py;
-    so does the paper HAT in bf16 with it); a fused trainer whose decoder
-    has windows of more than 160 tokens (the Ultra and SwinIR-Enhanced
-    decoders' 256 seeds in windows of 16) now constructs, on the fused
-    decoder (AB-long: tests/test_torch_ultra_fused_train.py)."""
+    """No bf16 combination of the recipes raises any more: the paper Fea2GS
+    in bf16 (train_edsr_paper_bf16_r3.yml) builds, with EDSR and with the
+    paper HAT, in bf16 compute on fp32 parameters (its paths against JAX:
+    tests/test_torch_paper_bf16.py); SwinIR in bf16, train_swinir_amp.yml,
+    builds too (tests/test_torch_swinir_bf16.py); and a fused trainer whose
+    decoder has windows of more than 160 tokens (the Ultra and
+    SwinIR-Enhanced decoders' 256 seeds in windows of 16) constructs, on
+    the fused decoder (AB-long: tests/test_torch_ultra_fused_train.py)."""
     from gsasr_torch.config import build_networks, load_options
+    from gsasr_torch.models import Fea2GS, HATNOUPPaper
 
-    with pytest.raises(NotImplementedError, match="paper Fea2GS"):
-        build_networks(load_options(
-            ROOT / "configs" / "train_edsr_paper_bf16_r3.yml"))
     opt = load_options(ROOT / "configs" / "train_edsr_paper_bf16_r3.yml")
+    opt["network_fea2gs"].update(channel=24, num_selfattn_blocks=1)
+    enc, dec = build_networks(opt)
+    assert isinstance(enc, EDSRNOUP) and isinstance(dec, Fea2GS)
+    assert enc.dtype == dec.dtype == BF16
+    assert dec.head_dtype == torch.float32
     opt["network_g"] = {"type": "HATNOUP", "embed_dim": 24, "depths": [2],
                         "num_heads": [6], "squeeze_factor": 4}
-    with pytest.raises(NotImplementedError, match="paper Fea2GS"):
-        build_networks(opt)
+    enc, dec = build_networks(opt)
+    assert isinstance(enc, HATNOUPPaper) and isinstance(dec, Fea2GS)
+    assert enc.dtype == dec.dtype == BF16
+    assert all(p.dtype == torch.float32 for p in
+               list(enc.parameters()) + list(dec.parameters()))
     w16 = dict(DEC_KW, num_gs_seed=256, window_size=16)
     enc, dec = _port(_weights(8, w16), w16, BF16)
     tr = Trainer(enc, dec, TrainConfig(**CFG, fused_decoder=True),

@@ -334,8 +334,9 @@ def test_make_models_dtype():
     """make_models takes JAX's dtype keyword: bf16 HAT-L Ultra (the
     reference's --AMP_test) builds bf16 modules on fp32 parameters, as do
     EDSR and RDN with the Enhanced decoder (SwinIR too:
-    tests/test_torch_swinir_bf16.py); the paper decoder in bf16 raises,
-    naming what the port has."""
+    tests/test_torch_swinir_bf16.py) and EDSR with the paper decoder, as
+    JAX's make_models builds Fea2GS(dtype=dtype); inference runs the paper
+    decoder's fused trunk in fp32 all the same (fused_dtype)."""
     from gsasr_torch.model import make_models
 
     enc, dec = make_models("hat", "ultra", dtype=BF16, device="cpu")
@@ -350,5 +351,11 @@ def test_make_models_dtype():
         assert torch.equal(v, v32), k
     assert make_models("rdn", "enhanced", dtype=BF16,
                        device="cpu")[0].dtype == BF16
-    with pytest.raises(NotImplementedError, match="bf16 forms"):
-        make_models("edsr", "paper", dtype=BF16, device="cpu")
+    from gsasr_torch.model import fused_dtype
+
+    enc, dec = make_models("edsr", "paper", dtype=BF16, device="cpu")
+    assert enc.dtype == dec.dtype == BF16 and not dec.training
+    assert dec.head_dtype == torch.float32
+    assert all(p.dtype == torch.float32 for p in
+               list(enc.parameters()) + list(dec.parameters()))
+    assert fused_dtype(dec) == torch.float32

@@ -145,10 +145,11 @@ def test_split_and_joint_matches_jax(tiny, scale):
 
 
 def _png(path, raw, ctype, depth, *, palette=None, trns=None,
-         interlace=0):
+         interlace=0, filters=5):
     """A PNG of the samples `raw` (H, W, channels) written independently of
     the codec under test: scanlines packed MSB first, row r under filter
-    r % 5 (None, Sub, Up, Average, Paeth), one zlib stream."""
+    r % filters (None, Sub, Up, Average, Paeth; filters=3 the first three
+    only), one zlib stream."""
     h, w, ch = raw.shape
     bits = ch * depth
     bpp = max(1, bits // 8)
@@ -173,7 +174,7 @@ def _png(path, raw, ctype, depth, *, palette=None, trns=None,
         pa, pb, pc = abs(p - left), abs(p - prev), abs(p - ul)
         paeth = np.where((pa <= pb) & (pa <= pc), left,
                          np.where(pb <= pc, prev, ul))
-        f = r % 5
+        f = r % filters
         pred = [0, left, prev, (left + prev) // 2, paeth][f]
         out += bytes([f]) + ((x - pred) % 256).astype(np.uint8).tobytes()
         prev = x
@@ -305,15 +306,18 @@ def test_infer_cli_matches_in_process(cli_files, scale, tile):
 
 
 def test_infer_cli_refuses(cli_files, monkeypatch):
-    """--bf16 with the paper version, HATL with it, and the default device
-    without a card exit; so does a file that is not a PNG."""
+    """--ckpt_dir beside --enc_ckpt, HATL with the paper version, and the
+    default device without a card exit; so does a file that is not a PNG.
+    (--bf16 with the paper version runs since the paper Fea2GS in bf16 is
+    ported.)"""
     from gsasr_torch.cli.infer import main
 
     d, _, _ = cli_files
     base = ["--input_img_path", str(d / "in.png"), "--save_sr_path",
             str(d / "out")]
-    with pytest.raises(SystemExit, match="Queue 1, item 1"):
-        main(base + ["--bf16", "--device", "cpu"])
+    with pytest.raises(SystemExit, match="not both"):
+        main(base + ["--ckpt_dir", str(d), "--enc_ckpt", "g.pth",
+                     "--dec_ckpt", "d.pth", "--device", "cpu"])
     with pytest.raises(SystemExit, match="HATL"):
         main(base + ["--model", "HATL", "--device", "cpu"])
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)

@@ -323,5 +323,10 @@ def test_build_networks_and_overrides():
                      ({"type": "EDSR", "num_feats": 8}, TypeError)):
         with pytest.raises(err):
             build_networks(dict(opt, network_g=bad))
-    with pytest.raises(NotImplementedError, match="bf16"):
-        build_networks(dict(opt, model_dtype="bfloat16"))
+    # the paper decoder in bf16 builds (bf16 compute on fp32 parameters);
+    # a compute type the port has no forms of raises
+    enc, dec = build_networks(dict(opt, model_dtype="bfloat16"))
+    assert enc.dtype == dec.dtype == torch.bfloat16
+    assert all(p.dtype == torch.float32 for p in dec.parameters())
+    with pytest.raises(NotImplementedError, match="model_dtype"):
+        build_networks(dict(opt, model_dtype="float16"))
