@@ -278,6 +278,34 @@
    configs/train_edsr_paper_bf16_r3.yml with fused_decoder true. Wall per
    iteration, step and data time, the data share and samples per second,
    beside the card.
+43. Evaluation, at PyTorch's TF32 defaults (cuDNN in TF32, as a user's
+   process starts): `gsasr_torch.cli.test.main` on four seeded pairs at x4
+   (LR 176x164 once and 180x180 three times, each the MATLAB bicubic of a
+   seeded GT, PNGs under libpng's adaptive filters), phase 40's kind of
+   reference-format pair of the full-width paper EDSR + Fea2GS, and
+   official-layout LPIPS-alex and DISTS files of seeded networks, untiled
+   and in tiles of 96: each image's PSNR, SSIM, LPIPS and DISTS equal the
+   values computed in process from sr_forward / split_and_joint_image on
+   the params_ema weights, and each --save_sr PNG that output's PNG; the
+   untiled run launches R once, M 83 and A 38 times an image and nothing
+   else. LPIPS (AlexNet, VGG16), DISTS and a VGG19's taps at 712x712 on the
+   card (float32, TF32 off) against the CPU (SCORE_TOL, FEATURE_TOL), with
+   how far TF32 on moves each; `cli.metrics` niqe and psnr_ssim, and
+   fid-stats then fid with a seeded TorchScript net, card against CPU;
+   PerceptualLoss forward and backward at batch 16 of 192x192 (conv5_4 L1;
+   the five conv*_2/conv*_4 taps with a style term) card against CPU, loss
+   and input gradient. Seconds per image (the median after the first two),
+   peak memory, the LPIPS and DISTS ms per 712x712 pair and NIQE's host ms
+   per 720x720 image, beside the card.
+44. The demo server, at PyTorch's TF32 defaults:
+   `gsasr_torch.cli.demo.build_server` on the card with
+   phase 43's checkpoints (--tile_threshold 256, tiles of 192), serving
+   from a thread on a free port: GET / serves the form; a 180x180 PNG at
+   x4, a 120x96 at x2.5 and a 300x300 at x2 (tiled) come back as the bytes
+   of the PNG of the in-process result of the same path; a body that is
+   not a PNG gets 400. The latency of each request (the x4 one: the median
+   of 5 after 2 warm-ups) and the launches of R, M and A per untiled
+   request (1, 83, 38 asserted).
 
 Every training phase also times Trainer.grads, which runs with cuDNN's
 deterministic algorithms, against the same forward and backward under
@@ -301,6 +329,7 @@ import re
 import subprocess
 import struct
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -4684,6 +4713,588 @@ def train_cli_phase(dev, kernels, card):
     return out
 
 
+# Phase 43: evaluation. Four seeded pairs at x4 (LR 176x164 once, then
+# 180x180 three times, each the MATLAB bicubic of its GT; the two shapes'
+# first runs are the two times cli.test leaves out), cli.test untiled and
+# in tiles of 96; the metric networks at 712x712 (a 720x720 SR image less
+# the x4 border crop); the perceptual loss at batch 16 of 192x192
+EVAL_LR = ((176, 164),) + ((180, 180),) * 3
+EVAL_SCALE = 4.0
+EVAL_TILE = 96
+METRIC_HW = 712
+# The metric networks run in float32 with TF32 off. Against the CPU their
+# sums differ only in order (cuDNN's and oneDNN's, at most 4,608 products
+# each, 16 layers): about 1e-6 of a feature, averaged away in a score. So a
+# score holds 1e-5 absolute (1e-4 of a score of 0.1) and a feature map
+# relative L2 1e-4; one TF32 rounding of each operand (2^-11) is printed
+# beside them.
+SCORE_TOL = 1e-5
+FEATURE_TOL = 1e-4
+LOSS_BATCH = 16
+LOSS_HW = 192
+# (label, layer weights, style weight): BasicSR's perceptual layers of
+# ESRGAN for the second case
+LOSS_CASES = (("conv5_4, l1", {"conv5_4": 1.0}, 0.0),
+              ("five taps, l1 + style", {"conv1_2": 0.1, "conv2_2": 0.1,
+                                         "conv3_4": 1.0, "conv4_4": 1.0,
+                                         "conv5_4": 1.0}, 1.0))
+# The loss holds 1e-5 relative; its input gradient relative L2 1e-2: an L1
+# term's gradient is the sign of each feature difference, and a difference
+# within rounding of 0 (about 1 in 10^6 of them) takes the other sign on
+# the other device, each such flip moving the gradient by about 2 / sqrt(N)
+# of its norm (N up to 3.8e7 entries a tap)
+LOSS_TOL = 1e-5
+LOSS_GRAD_TOL = 1e-2
+# Phase 44: the demo server's requests (LR h, w, scale); the last is tiled
+# (above --tile_threshold, in tiles of DEMO_TILE)
+DEMO_REQUESTS = ((180, 180, 4.0), (120, 96, 2.5), (300, 300, 2.0))
+DEMO_THRESHOLD = 256
+DEMO_TILE = 192
+
+
+def _seeded(build, seed):
+    """`build()`, made without touching the global RNG, with He-normal
+    weights and biases of 0.01 N(0, 1) from `seed` in every convolution
+    (features keep their scale down the trunk)."""
+    with torch.random.fork_rng(devices=[]):
+        module = build()
+    gen = torch.Generator().manual_seed(seed)
+    for m in module.modules():
+        if isinstance(m, torch.nn.Conv2d):
+            with torch.no_grad():
+                m.weight.copy_(torch.randn(m.weight.shape, generator=gen)
+                               * math.sqrt(2.0 / m.weight[0].numel()))
+                if m.bias is not None:
+                    m.bias.copy_(torch.randn(m.bias.shape, generator=gen)
+                                 * 0.01)
+    return module
+
+
+def _stage(idx, taps):
+    """The official packages' slice (LPIPS) or stage (DISTS) of the
+    torchvision feature `idx`: each ends after a tap."""
+    return 1 + sum(t < idx for t in taps)
+
+
+def lpips_official_state_dict(net: str, seed: int):
+    """A seeded LPIPS in the official `lpips` package's layout: the
+    backbone as `net.slice{s}.{idx}.*`, the nonnegative heads as both
+    `lin{k}.model.1.weight` and `lins.{k}.model.1.weight`, and the scaling
+    layer's buffers."""
+    from gsasr_torch import metrics_perceptual as mp
+
+    model = _seeded(lambda: mp.LPIPS(net), seed)
+    taps = (1, 4, 7, 9, 11) if net == "alex" else mp._VGG16_TAPS
+    sd = {}
+    for key, val in model.state_dict().items():
+        part = key.split(".")
+        if part[0] == "net":
+            idx = int(part[2])
+            sd[f"net.slice{_stage(idx, taps)}.{idx}.{part[3]}"] = val
+        else:
+            sd[f"lin{part[1]}.model.1.weight"] = val.abs()
+            sd[f"lins.{part[1]}.model.1.weight"] = val.abs()
+    sd["scaling_layer.shift"] = torch.tensor(mp.LPIPS_SHIFT).view(1, 3, 1, 1)
+    sd["scaling_layer.scale"] = torch.tensor(mp.LPIPS_SCALE).view(1, 3, 1, 1)
+    return sd
+
+
+def dists_official_state_dict(seed: int):
+    """A seeded DISTS in the DISTS package's layout: the VGG16 trunk as
+    `stage{s}.{idx}.*` with the L2 pools' `filter` buffers, `alpha` and
+    `beta` of shape (1, 1475, 1, 1) drawn N(0.1, 0.01) as the package
+    initialises them, and the normalisation buffers."""
+    from gsasr_torch import metrics_perceptual as mp
+
+    model = _seeded(mp.DISTS, seed)
+    sd = {}
+    for idx, layer in enumerate(model.net.features):
+        s = _stage(idx, mp._VGG16_TAPS)
+        if isinstance(layer, torch.nn.Conv2d):
+            sd[f"stage{s}.{idx}.weight"] = layer.weight.detach().clone()
+            sd[f"stage{s}.{idx}.bias"] = layer.bias.detach().clone()
+        elif isinstance(layer, mp.L2Pool):
+            sd[f"stage{s}.{idx}.filter"] = layer.window.clone()
+    gen = torch.Generator().manual_seed(seed + 1)
+    total = sum(mp.DISTS_CHNS)
+    for name in ("alpha", "beta"):
+        sd[name] = 0.1 + 0.01 * torch.randn(1, total, 1, 1, generator=gen)
+    sd["mean"] = torch.tensor(mp._DISTS_MEAN).view(1, -1, 1, 1)
+    sd["std"] = torch.tensor(mp._DISTS_STD).view(1, -1, 1, 1)
+    return sd
+
+
+def vgg19_torchvision_state_dict(seed: int):
+    """A seeded VGG19 `features` state_dict in torchvision's layout
+    (`features.{idx}.*`)."""
+    from gsasr_torch.models.vgg import NAMES, VGGFeatureExtractor
+
+    names = NAMES["vgg19"]
+    ext = _seeded(lambda: VGGFeatureExtractor(["pool5"]), seed)
+    return {f"features.{names.index(k.split('.')[1])}.{k.split('.')[2]}": v
+            for k, v in ext.state_dict().items()}
+
+
+def _fid_net(seed: int):
+    """A seeded TorchScript feature net for FID: two strided convolutions
+    and a global mean, 3 features an image (4 images give a covariance of
+    full rank)."""
+    net = _seeded(lambda: torch.nn.Sequential(
+        torch.nn.Conv2d(3, 16, 3, stride=2), torch.nn.ReLU(),
+        torch.nn.Conv2d(16, 3, 3, stride=2),
+        torch.nn.AdaptiveAvgPool2d(1), torch.nn.Flatten()), seed)
+    return torch.jit.script(net.eval())
+
+
+def eval_files(tmp, seed: int = 43):
+    """The phase's inputs under `tmp`: the GT and LR folders (PNGs under
+    libpng's adaptive filters), a reference-format net_g.pth /
+    net_fea2gs.pth of the full-width paper EDSR + Fea2GS (other weights
+    under params than under params_ema), official-layout LPIPS-alex,
+    LPIPS-vgg and DISTS files, and a TorchScript FID net. Returns the paths
+    and the params_ema state_dicts."""
+    from gsasr_torch.data.matlab_resize import imresize
+    from gsasr_torch.model import make_models
+    from gsasr_torch.utils.png import write_png
+
+    rng = np.random.default_rng(seed)
+    paths = {k: os.path.join(tmp, k) for k in ("gt", "lq")}
+    for d in paths.values():
+        os.makedirs(d, exist_ok=True)
+    for i, (h, w) in enumerate(EVAL_LR):
+        gt = _natural_image(rng, 4 * max(h, w))[:4 * h, :4 * w]
+        lq = imresize(gt / 255.0, 1 / EVAL_SCALE)
+        lq = (np.clip(lq, 0, 1) * 255).round().astype(np.uint8)
+        write_png(os.path.join(paths["gt"], f"{i:04d}.png"), gt,
+                  adaptive=True)
+        write_png(os.path.join(paths["lq"], f"{i:04d}.png"), lq,
+                  adaptive=True)
+    pairs = [make_models("edsr", "paper", device="cpu",
+                         generator=torch.Generator().manual_seed(s))
+             for s in (seed, seed + 1)]
+    for i, name in enumerate(("net_g", "net_fea2gs")):
+        paths[name] = os.path.join(tmp, f"{name}.pth")
+        torch.save({"params": pairs[0][i].state_dict(),
+                    "params_ema": pairs[1][i].state_dict()}, paths[name])
+    for name, sd in (("lpips_alex", lpips_official_state_dict("alex", seed)),
+                     ("lpips_vgg", lpips_official_state_dict("vgg", seed)),
+                     ("dists", dists_official_state_dict(seed))):
+        paths[name] = os.path.join(tmp, f"{name}.pth")
+        torch.save(sd, paths[name])
+    paths["fid_net"] = os.path.join(tmp, "fid_net.pt")
+    _fid_net(seed).save(paths["fid_net"])
+    return paths, [m.state_dict() for m in pairs[1]]
+
+
+def _score_pair(models, sr255, gt255, crop):
+    """In process, as cli.test scores an image: PSNR, SSIM on Y (RGB);
+    LPIPS and DISTS on BGR, through the protocol wrappers."""
+    from gsasr_torch.metrics import calculate_psnr, calculate_ssim
+    from gsasr_torch.metrics_perceptual import (calculate_dists,
+                                                calculate_lpips)
+
+    return dict(
+        psnr=calculate_psnr(sr255, gt255, crop, test_y_channel=True,
+                            channel_order="rgb"),
+        ssim=calculate_ssim(sr255, gt255, crop, test_y_channel=True,
+                            channel_order="rgb"),
+        lpips=calculate_lpips(sr255[..., ::-1], gt255[..., ::-1], crop,
+                              models["lpips_alex"], net="alex"),
+        dists=calculate_dists(sr255[..., ::-1], gt255[..., ::-1], crop,
+                              models["dists"]))
+
+
+def _metric_nets_card_vs_cpu(paths, dev, card, sr, gt):
+    """LPIPS (both nets), DISTS and the VGG19 features at METRIC_HW on the
+    card (TF32 off, and on for the record) against the CPU on the same
+    images; the protocol wrappers' ms per pair on the card."""
+    from gsasr_torch.metrics_perceptual import (calculate_dists,
+                                                calculate_lpips, fp32_math,
+                                                load_dists, load_lpips)
+    from gsasr_torch.models.vgg import (NAMES, VGGFeatureExtractor,
+                                        load_vgg)
+
+    crop = (sr.shape[0] - METRIC_HW) // 2
+    x = torch.from_numpy(np.ascontiguousarray(
+        sr[crop:crop + METRIC_HW, crop:crop + METRIC_HW].transpose(2, 0, 1)
+        [None], np.float32) / 255.0)
+    y = torch.from_numpy(np.ascontiguousarray(
+        gt[crop:crop + METRIC_HW, crop:crop + METRIC_HW].transpose(2, 0, 1)
+        [None], np.float32) / 255.0)
+    taps = [n for n in NAMES["vgg19"] if n.startswith("relu") and
+            n.endswith(("1_2", "2_2", "3_4", "4_4", "5_4"))]
+    vgg_sd = vgg19_torchvision_state_dict(43)
+
+    def nets(device):
+        return dict(
+            lpips_alex=load_lpips(torch.load(paths["lpips_alex"]), "alex",
+                                  device),
+            lpips_vgg=load_lpips(torch.load(paths["lpips_vgg"]), "vgg",
+                                 device),
+            dists=load_dists(torch.load(paths["dists"]), device),
+            vgg19=load_vgg(VGGFeatureExtractor(taps), vgg_sd).eval()
+            .to(device))
+
+    def run(m, device):
+        a, b = x.to(device), y.to(device)
+        with torch.no_grad():
+            out = {k: m[k](a, b) for k in ("lpips_alex", "lpips_vgg")}
+            out["dists"] = m["dists"](b, a)
+            out["vgg19"] = m["vgg19"](a)
+        return out
+
+    cpu_nets, card_nets = nets("cpu"), nets(dev)
+    with fp32_math():
+        ref, got = run(cpu_nets, "cpu"), run(card_nets, dev)
+    prev = (torch.backends.cudnn.allow_tf32,
+            torch.backends.cuda.matmul.allow_tf32)
+    torch.backends.cudnn.allow_tf32 = True
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        tf32 = run(card_nets, dev)
+    finally:
+        (torch.backends.cudnn.allow_tf32,
+         torch.backends.cuda.matmul.allow_tf32) = prev
+    rows = {}
+    for k in ("lpips_alex", "lpips_vgg", "dists"):
+        r, g, t = (float(o[k][0]) for o in (ref, got, tf32))
+        rows[k] = dict(cpu=r, card=g, card_tf32=t, abs_err=abs(g - r),
+                       tf32_shift=abs(t - g))
+        print(f"  {k} at {METRIC_HW}x{METRIC_HW}: card {g:.7f}, CPU {r:.7f}"
+              f", |d| {abs(g - r):.2e} (tol {SCORE_TOL}); TF32 on moves it "
+              f"by {abs(t - g):.2e}", flush=True)
+        if not abs(g - r) <= SCORE_TOL:
+            raise AssertionError(f"{k}: the card's score leaves the CPU's")
+    for name in taps:
+        _, rel = _l2_err(got["vgg19"][name].cpu(), ref["vgg19"][name])
+        _, rel_t = _l2_err(tf32["vgg19"][name].cpu(),
+                           got["vgg19"][name].cpu())
+        rows[f"vgg19 {name}"] = dict(rel_l2=rel, tf32_rel_l2=rel_t)
+        print(f"  VGG19 {name}: card vs CPU relative L2 {rel:.2e} (tol "
+              f"{FEATURE_TOL}); TF32 on moves it by {rel_t:.2e}", flush=True)
+        if not rel <= FEATURE_TOL:
+            raise AssertionError(f"VGG19 {name}: card leaves the CPU")
+    # the protocol wrappers as cli.test calls them (BGR 0-255 arrays, the
+    # x4 crop; a host copy in, a float out)
+    sr255, gt255 = sr.astype(np.float64), gt.astype(np.float64)
+    for k, fn in (("lpips_alex", lambda: calculate_lpips(
+            sr255[..., ::-1], gt255[..., ::-1], crop,
+            card_nets["lpips_alex"])), ("lpips_vgg", lambda: calculate_lpips(
+                sr255[..., ::-1], gt255[..., ::-1], crop,
+                card_nets["lpips_vgg"], net="vgg")),
+            ("dists", lambda: calculate_dists(
+                sr255[..., ::-1], gt255[..., ::-1], crop,
+                card_nets["dists"]))):
+        rows[k]["ms_per_pair"] = float(np.median(_host_ms(fn, 5)))
+        print(f"  {k}: {rows[k]['ms_per_pair']:.2f} ms per {METRIC_HW}x"
+              f"{METRIC_HW} pair (calculate_{k.split('_')[0]}, median of 5)"
+              f" on {card}", flush=True)
+    return rows
+
+
+def _perceptual_loss_cases(dev, card):
+    """PerceptualLoss forward and backward at LOSS_BATCH x LOSS_HW^2, card
+    (TF32 off) against the CPU: the loss and the input gradient; the
+    card's ms of each case (TF32 off, and at PyTorch's defaults)."""
+    from gsasr_torch.metrics_perceptual import fp32_math
+    from gsasr_torch.models.vgg import PerceptualLoss, load_vgg
+
+    gen = torch.Generator().manual_seed(44)
+    x = torch.rand(LOSS_BATCH, 3, LOSS_HW, LOSS_HW, generator=gen)
+    gt = torch.rand(LOSS_BATCH, 3, LOSS_HW, LOSS_HW, generator=gen)
+    vgg_sd = vgg19_torchvision_state_dict(43)
+    rows = []
+    for label, weights, style in LOSS_CASES:
+        def step(loss_fn, device):
+            xi = x.to(device).detach().requires_grad_(True)
+            p, s = loss_fn(xi, gt.to(device))
+            total = p + (s if s is not None else 0.0)
+            total.backward()
+            return total.detach(), xi.grad
+
+        losses = {}
+        for device in ("cpu", dev):
+            fn = PerceptualLoss(weights, style_weight=style)
+            load_vgg(fn.vgg, vgg_sd)
+            losses[str(device)] = fn.to(device)
+        with fp32_math():
+            ref = step(losses["cpu"], "cpu")
+            got = step(losses[str(dev)], dev)
+            ms = float(np.median(_host_ms(
+                lambda: step(losses[str(dev)], dev), 5)))
+        ms_default = float(np.median(_host_ms(
+            lambda: step(losses[str(dev)], dev), 5)))
+        loss_err = abs(float(got[0]) - float(ref[0])) / abs(float(ref[0]))
+        _, grad_err = _l2_err(got[1].cpu(), ref[1])
+        row = dict(case=label, loss=float(got[0]), loss_rel_err=loss_err,
+                   grad_rel_l2=grad_err, ms=ms, ms_tf32_default=ms_default)
+        rows.append(row)
+        print(f"  PerceptualLoss {label}, batch {LOSS_BATCH} of {LOSS_HW}x"
+              f"{LOSS_HW}: loss {row['loss']:.6f}, card vs CPU relative "
+              f"{loss_err:.2e} (tol {LOSS_TOL}), input gradient relative L2 "
+              f"{grad_err:.2e} (tol {LOSS_GRAD_TOL}); forward + backward "
+              f"{ms:.1f} ms (TF32 off), {ms_default:.1f} ms (PyTorch's "
+              f"defaults: cuDNN in TF32) on {card}", flush=True)
+        if not (loss_err <= LOSS_TOL and grad_err <= LOSS_GRAD_TOL):
+            raise AssertionError(f"PerceptualLoss {label}: card leaves CPU")
+    return rows
+
+
+def eval_phase(dev, kernels, card, paths, ema):
+    """Phase 43: gsasr_torch.cli.test.main on the card, untiled and in
+    tiles of EVAL_TILE, with PSNR, SSIM, LPIPS-alex and DISTS from
+    official-layout files: each per-image value equals the one computed in
+    process from sr_forward / split_and_joint_image on the params_ema
+    weights, and each --save_sr PNG that output's PNG; the untiled run
+    launches R, M and A once, 83 and 38 times an image and nothing else.
+    Then the metric networks card vs CPU, cli.metrics (niqe, psnr_ssim,
+    fid-stats and fid card vs CPU), PerceptualLoss card vs CPU, and the
+    times. `paths`, `ema`: `eval_files`."""
+    from gsasr_torch.cli import metrics as metrics_cli
+    from gsasr_torch.cli import test as test_cli
+    from gsasr_torch.data.datasets import PairedImageDataset
+    from gsasr_torch.metrics import crop_border_for_scale
+    from gsasr_torch.metrics_niqe import calculate_niqe
+    from gsasr_torch.metrics_perceptual import load_dists, load_lpips
+    from gsasr_torch.model import make_models, sr_forward
+    from gsasr_torch.tiling import split_and_joint_image
+    from gsasr_torch.utils.convert import load_params
+    from gsasr_torch.utils.png import read_png
+
+    # as a user's process starts (earlier phases leave TF32 off): cuDNN's
+    # fp32 convolutions in TF32 pick other algorithms, with other times and
+    # workspaces
+    torch.backends.cuda.matmul.allow_tf32 = False  # PyTorch default
+    torch.backends.cudnn.allow_tf32 = True         # PyTorch default
+    out = {}
+    crop = crop_border_for_scale(EVAL_SCALE)
+    tmp = os.path.dirname(paths["gt"])
+    ds = PairedImageDataset(paths["gt"], paths["lq"], EVAL_SCALE)
+    enc, dec = (load_params(m, sd) for m, sd in zip(
+        make_models("edsr", "paper", device=dev), ema))
+    models = dict(lpips_alex=load_lpips(torch.load(paths["lpips_alex"]),
+                                        "alex", dev),
+                  dists=load_dists(torch.load(paths["dists"]), dev))
+    names = [os.path.basename(p) for p, _ in ds.items]
+    for tile in (None, EVAL_TILE):
+        case = "untiled" if tile is None else f"tiles of {tile}"
+        save = os.path.join(tmp, f"sr_{tile or 0}")
+        argv = ["--gt", paths["gt"], "--lq", paths["lq"], "--scale",
+                str(EVAL_SCALE), "--enc_ckpt", paths["net_g"],
+                "--dec_ckpt", paths["net_fea2gs"], "--save_sr", save,
+                "--lpips_weights", paths["lpips_alex"],
+                "--dists_weights", paths["dists"], "--device", dev.type]
+        if tile:
+            argv += ["--tile_size", str(tile)]
+        _reset(kernels)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = test_cli.main(argv)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = {k: v for k, v in _counts(kernels).items() if v}
+        for i, (name, row) in enumerate(zip(names, res["rows"])):
+            item = ds[i]
+            lq, gt = item["lq"][None], item["gt"]
+            want = gt.shape[:2]
+            if tile and min(lq.shape[1:3]) > tile:
+                sr = split_and_joint_image(
+                    lq, EVAL_SCALE, tile, 8, enc, dec, crop_size=4,
+                    dmax=0.1, device=dev)[0, :want[0], :want[1]]
+            else:
+                sr = sr_forward(enc, dec, lq, EVAL_SCALE, sr_size=want,
+                                denominator=12, dmax=0.1,
+                                device=dev).cpu().numpy()[0]
+            sr255 = np.clip(sr, 0, 1) * 255.0
+            ref = _score_pair(models, sr255, gt * 255.0, crop)
+            got = {k: row[k] for k in ref}
+            png = (np.clip(sr, 0, 1) * 255).round().astype(np.uint8)
+            same_png = np.array_equal(read_png(os.path.join(save, name)),
+                                      png)
+            if got != ref or not same_png:
+                raise AssertionError(
+                    f"cli.test {case} {name}: {got} against the in-process "
+                    f"{ref}; the saved PNG equals the output's: {same_png}")
+        want_launches = {"R": len(names),
+                         "M": M_PER_FORWARD * len(names),
+                         "A": A_PER_FORWARD * len(names)}
+        if tile is None and launches != want_launches:
+            raise AssertionError(f"cli.test untiled: launches "
+                                 f"{launches}, not {want_launches}")
+        secs = [r["seconds"] for r in res["rows"]]
+        med = float(np.median(secs[2:]))
+        peak = re.search(r"peak_mem (.*)$", res["summary"])
+        print(f"  cli.test {case}: {len(names)} images equal the "
+              f"in-process values and PNGs; {med * 1e3:.1f} ms an image "
+              f"(median after the first two), peak {peak[1]}, wall "
+              f"{wall:.1f} s with the build and loads, on {card}; "
+              f"launches {launches}", flush=True)
+        out[case] = dict(rows=res["rows"], summary=res["summary"],
+                         s_per_image=med, peak=peak[1], wall_s=wall,
+                         launches=launches)
+    out["launches"] = out["untiled"]["launches"]
+    sr_dir = os.path.join(tmp, "sr_0")
+    # the first 720x720 SR image and its GT
+    sr0 = read_png(os.path.join(sr_dir, names[1]))
+    gt0 = read_png(os.path.join(paths["gt"], names[1]))
+    out["metric_nets"] = _metric_nets_card_vs_cpu(paths, dev, card, sr0,
+                                                  gt0)
+
+    # cli.metrics: NIQE (of the GT images: the seeded networks' SR images
+    # are near flat) and PSNR/SSIM on the host; FID's net card vs CPU
+    t0 = time.perf_counter()
+    niqe = metrics_cli.main(["--metric", "niqe", "--restored", paths["gt"]])
+    niqe_s = time.perf_counter() - t0
+    if not np.isfinite(niqe).all():
+        raise AssertionError(f"cli.metrics niqe: {niqe}")
+    psnr, ssim = metrics_cli.main(["--gt", paths["gt"], "--restored",
+                                   sr_dir, "--test_y_channel"])
+    want = [r["psnr"] for r in out["untiled"]["rows"]]
+    if not np.allclose(psnr, want, rtol=0, atol=1e-9):
+        raise AssertionError(f"cli.metrics psnr {psnr} != {want}")
+    fid = {}
+    for device in (dev.type, "cpu"):
+        stats = os.path.join(tmp, f"fid_{device}.npz")
+        metrics_cli.main(["--metric", "fid-stats", "--restored",
+                          paths["gt"], "--inception_params",
+                          paths["fid_net"], "--out", stats,
+                          "--device", device])
+        fid[device] = metrics_cli.main(
+            ["--metric", "fid", "--restored", sr_dir,
+             "--inception_params", paths["fid_net"], "--fid_stats",
+             stats, "--device", device])
+    fid_err = abs(fid[dev.type] - fid["cpu"])
+    print(f"  cli.metrics: NIQE {np.round(niqe, 4).tolist()} ({niqe_s:.1f}"
+          f" s for {len(niqe)} images); PSNR {np.round(psnr, 4).tolist()}"
+          f" equal cli.test's; FID card {fid[dev.type]:.6f}, CPU "
+          f"{fid['cpu']:.6f}, |d| {fid_err:.2e} (tol {SCORE_TOL} + "
+          f"1e-4 |FID|)", flush=True)
+    if not fid_err <= SCORE_TOL + 1e-4 * abs(fid["cpu"]):
+        raise AssertionError("cli.metrics fid: card leaves the CPU")
+    niqe_ms = float(np.median([
+        _host_ms(lambda: calculate_niqe(gt0, 0, channel_order="rgb"),
+                 1, 0)[0] for _ in range(3)]))
+    print(f"  NIQE {niqe_ms:.1f} ms per {gt0.shape[0]}x{gt0.shape[1]} "
+          f"image on the host (median of 3)", flush=True)
+    out["metrics_cli"] = dict(niqe=niqe, niqe_s=niqe_s, psnr=psnr,
+                              ssim=ssim, fid=fid, fid_abs_err=fid_err,
+                              niqe_ms_per_image=niqe_ms)
+    out["perceptual_loss"] = _perceptual_loss_cases(dev, card)
+    return out
+
+
+def _multipart(fields):
+    """A multipart/form-data body of `fields` ({name: bytes})."""
+    boundary = "GSASRBOUNDARY"
+    body = b"".join(
+        (f"--{boundary}\r\nContent-Disposition: form-data; name=\"{k}\""
+         + ('; filename="in.png"' if k == "image" else "")
+         + "\r\n\r\n").encode() + v + b"\r\n" for k, v in fields.items())
+    return (body + f"--{boundary}--\r\n".encode(),
+            f"multipart/form-data; boundary={boundary}")
+
+
+def _post(port, fields):
+    import urllib.error
+    import urllib.request
+
+    body, ctype = _multipart(fields)
+    req = urllib.request.Request(f"http://127.0.0.1:{port}/sr", data=body,
+                                 headers={"Content-Type": ctype})
+    try:
+        with urllib.request.urlopen(req, timeout=300) as r:
+            return r.status, r.read()
+    except urllib.error.HTTPError as e:
+        return e.code, e.read()
+
+
+def demo_phase(dev, kernels, card, paths, ema):
+    """Phase 44: gsasr_torch.cli.demo serving from a thread on the card
+    (phase 43's checkpoints, --tile_threshold DEMO_THRESHOLD, tiles of
+    DEMO_TILE): the form, then DEMO_REQUESTS, each response the bytes of
+    the in-process result's PNG (sr_forward, or split_and_joint_image for
+    the tiled one), a body that is not a PNG 400; the latency of each
+    request (the first: the median of 5 after 2 warm-ups) and the launches
+    of R, M and A per untiled request. `paths`, `ema`: `eval_files`."""
+    import threading
+    import urllib.request
+
+    from gsasr_torch.cli import demo
+    from gsasr_torch.model import make_models, sr_forward
+    from gsasr_torch.tiling import split_and_joint_image
+    from gsasr_torch.utils.convert import load_params
+    from gsasr_torch.utils.png import encode_png
+
+    torch.backends.cuda.matmul.allow_tf32 = False  # PyTorch default
+    torch.backends.cudnn.allow_tf32 = True         # PyTorch default
+    rows = []
+    enc, dec = (load_params(m, sd) for m, sd in zip(
+        make_models("edsr", "paper", device=dev), ema))
+    server = demo.build_server(
+        ["--port", "0", "--enc_ckpt", paths["net_g"], "--dec_ckpt",
+         paths["net_fea2gs"], "--tile_threshold", str(DEMO_THRESHOLD),
+         "--tile_size", str(DEMO_TILE), "--device", dev.type])
+    port = server.server_address[1]
+    thread = threading.Thread(target=server.serve_forever, daemon=True)
+    thread.start()
+    try:
+        with urllib.request.urlopen(f"http://127.0.0.1:{port}/",
+                                    timeout=60) as r:
+            form = r.read()
+        if b"<form" not in form:
+            raise AssertionError("demo: GET / serves no form")
+        rng = np.random.default_rng(44)
+        for i, (h, w, scale) in enumerate(DEMO_REQUESTS):
+            img = _natural_image(rng, max(h, w))[:h, :w]
+            fields = {"image": encode_png(img),
+                      "scale": str(scale).encode()}
+            lq = img.astype(np.float32)[None] / 255.0
+            want = (math.floor(h * scale), math.floor(w * scale))
+            tiled = max(h, w) > DEMO_THRESHOLD
+            if tiled:
+                sr = split_and_joint_image(
+                    lq, scale, DEMO_TILE, 8, enc, dec, crop_size=4,
+                    dmax=0.1, device=dev)[0, :want[0], :want[1]]
+            else:
+                sr = sr_forward(enc, dec, lq, scale, denominator=12,
+                                dmax=0.1, device=dev).cpu().numpy()[0]
+            ref = encode_png((np.clip(sr, 0, 1) * 255).round().astype(
+                np.uint8))
+            _reset(kernels)
+            status, png = _post(port, fields)
+            launches = {k: v for k, v in _counts(kernels).items() if v}
+            if status != 200 or png != ref:
+                raise AssertionError(
+                    f"demo {h}x{w} x{scale}: status {status}, the PNG "
+                    f"{'equals' if png == ref else 'differs from'} the "
+                    "in-process result's")
+            if not tiled and launches != {"R": 1, "M": M_PER_FORWARD,
+                                          "A": A_PER_FORWARD}:
+                raise AssertionError(f"demo {h}x{w}: launches "
+                                     f"{launches}")
+            ts = [_host_ms(lambda: _post(port, fields), 1, 0)[0]
+                  for _ in range(7 if i == 0 else 1)]
+            ms = float(np.median(ts[2:] if i == 0 else ts))
+            case = (f"{h}x{w} x{scale}" + (f", tiles of {DEMO_TILE}"
+                                          if tiled else ""))
+            print(f"  demo POST {case}: the in-process PNG "
+                  f"({len(png)} bytes); {ms:.1f} ms a request"
+                  f"{' (median of 5 after 2)' if i == 0 else ''} on "
+                  f"{card}; launches {launches}", flush=True)
+            rows.append(dict(case=case, bytes=len(png), ms=ms,
+                             launches=launches))
+        status, _ = _post(port, {"image": b"GIF89a not a png",
+                                 "scale": b"2"})
+        if status != 400:
+            raise AssertionError(f"demo: a GIF body got {status}")
+        print("  demo: a body that is not a PNG gets 400", flush=True)
+    finally:
+        server.shutdown()
+        server.server_close()
+        thread.join(timeout=60)
+    return dict(requests=rows, launches=rows[0]["launches"])
+
+
 FORM_KEYS = ("decoder", "case", "dtype", "nW", "windows", "tokens",
              "head_width", "bias", "per_image", "per_step", "per_swinir_step",
              "max_abs_err", "ms", "ms_back_to_back", "window16_ms",
@@ -5109,7 +5720,18 @@ def main() -> int:
     print("train CLI phase", flush=True)
     cres = train_cli_phase(dev, kernels, card)
     t43 = time.perf_counter()
-    print(f"  phase 41 took {t42 - t41:.1f} s, phase 42 {t43 - t42:.1f} s",
+    gc.collect()
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as tmp:
+        paths, ema = eval_files(tmp)
+        print("evaluation phase", flush=True)
+        vres = eval_phase(dev, kernels, card, paths, ema)
+        t44 = time.perf_counter()
+        print("demo server phase", flush=True)
+        dres = demo_phase(dev, kernels, card, paths, ema)
+    t45 = time.perf_counter()
+    print(f"  phase 41 took {t42 - t41:.1f} s, phase 42 {t43 - t42:.1f} s, "
+          f"phase 43 {t44 - t43:.1f} s, phase 44 {t45 - t44:.1f} s",
           flush=True)
     for r in (train, ftrain, strain, etrain, utrain, eftrain, sbtrain,
               htrain, uftrain):
@@ -5306,8 +5928,9 @@ def main() -> int:
     line = [_kernel_entry(name, src, rep, also, counts[k], path, rows, forms)
             for k, (name, src, rep, also, counts, path, rows, forms)
             in meta.items()]
-    # this slice's launches: a step of the paper decoder in bf16 on each
-    # path (phase 41) and the training CLI's runs (phase 42)
+    # the launches of the last slices: a step of the paper decoder in bf16
+    # on each path (phase 41), the training CLI's runs (phase 42), the test
+    # CLI's untiled run (phase 43) and a demo request (phase 44)
     slice_runs = {
         "Trainer.step (paper bf16, module)": pres["train"]["launches"],
         "Trainer.step (paper bf16, fused_decoder=True)":
@@ -5315,7 +5938,9 @@ def main() -> int:
         "cli.train (paper recipe, 6 iterations)":
             cres["paper"]["launches"],
         "cli.train (paper bf16 recipe, fused, 4 iterations)":
-            cres["paper_bf16_fused"]["launches"]}
+            cres["paper_bf16_fused"]["launches"],
+        "cli.test (untiled, 4 images at x4)": vres["launches"],
+        "cli.demo (a 180x180 request at x4)": dres["launches"]}
     for entry, k in zip(line, meta):
         got = {run: n[k] for run, n in slice_runs.items() if n.get(k)}
         if got:
@@ -5365,6 +5990,7 @@ def main() -> int:
                            exact_render=xres, attention_4d=fres,
                            grid_windows=gres, infer_cli=ires,
                            paper_bf16=pres, train_cli=cres,
+                           evaluation=vres, demo=dres,
                            total_s=time.perf_counter() - t_start), f, indent=1)
     print(f"total {time.perf_counter() - t_start:.1f} s", flush=True)
     print(f"card: {card}", flush=True)

@@ -1,4 +1,5 @@
-"""Evaluation metrics (PSNR / SSIM) matching the reference protocol (a copy
+"""Evaluation metrics (PSNR / SSIM; NIQE, LPIPS and DISTS through
+`calculate_metric`) matching the reference protocol (a copy
 of `gsasr_tpu/metrics.py`, host-only numpy code).
 
 Mirrors `TrainTestGSASR/basicsr/metrics/psnr_ssim.py` and the eval protocol
@@ -118,17 +119,18 @@ def crop_border_for_scale(scale: float) -> int:
 def calculate_metric(data: dict, opt: dict) -> float:
     """Registry-style dispatcher (`basicsr/metrics/__init__.py:13-23`):
     ``opt`` carries a ``type`` key naming the metric function, the rest are
-    its kwargs; ``data`` holds the images. NIQE, LPIPS and DISTS raise
-    (not ported)."""
+    its kwargs; ``data`` holds the images. NIQE/LPIPS/DISTS resolve lazily
+    (they need bundled params / loaded weights)."""
     opt = dict(opt)
     metric_type = opt.pop("type")
     if metric_type == "calculate_psnr":
         return calculate_psnr(**data, **opt)
     if metric_type == "calculate_ssim":
         return calculate_ssim(**data, **opt)
-    if metric_type in ("calculate_niqe", "calculate_lpips",
-                       "calculate_dists"):
-        raise NotImplementedError(
-            f"{metric_type}: the NIQE and perceptual metrics are not ported "
-            "yet (ROADMAP Queue 1, item 5)")
+    if metric_type == "calculate_niqe":
+        from gsasr_torch.metrics_niqe import calculate_niqe
+        return calculate_niqe(**data, **opt)
+    if metric_type in ("calculate_lpips", "calculate_dists"):
+        from gsasr_torch import metrics_perceptual as mp
+        return getattr(mp, metric_type)(**data, **opt)
     raise ValueError(f"unknown metric type {metric_type!r}")

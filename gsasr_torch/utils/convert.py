@@ -1,7 +1,9 @@
 """JAX parameter trees -> the port's state_dicts: the inverse of
 `gsasr_tpu/utils/torch_convert.py`'s `convert_edsr`, `convert_rdn`,
 `convert_swinir`, `convert_hat`, `convert_hat_paper`, `convert_fea2gs` and
-`convert_fea2gs_rope`.
+`convert_fea2gs_rope`, and of the metric networks' converters
+(`gsasr_tpu/metrics_perceptual.py`'s `convert_lpips`, `convert_dists`,
+`gsasr_tpu/models/vgg.py`'s `convert_vgg`).
 
 Trees are nested dicts of arrays. Conv kernels (kH, kW, I, O) become
 weights (O, I, kH, kW); dense kernels (I, O) become (O, I); LayerNorm
@@ -240,6 +242,39 @@ def params_from_jax(enc_params, dec_params):
     left to the module (see `load_params`). The `hat_*` functions convert
     one HAT module's tree under a key prefix."""
     return _encoder(enc_params), _fea2gs(dec_params)
+
+
+def lpips_params_from_jax(params) -> Dict[str, torch.Tensor]:
+    """A `gsasr_tpu.metrics_perceptual.LPIPS` tree (`backbone.conv_{idx}`,
+    `lin_{k}`) -> the port's `LPIPS` state_dict (`net.features.{idx}`,
+    `lins.{k}`), for either backbone."""
+    sd: Dict[str, torch.Tensor] = {}
+    for name, p in params["backbone"].items():
+        _conv(sd, f"net.features.{name.split('_')[1]}", p)
+    for k in range(_count(params, "lin_")):
+        sd[f"lins.{k}.weight"] = _t(
+            np.asarray(params[f"lin_{k}"]["kernel"]).transpose(3, 2, 0, 1))
+    return sd
+
+
+def dists_params_from_jax(params) -> Dict[str, torch.Tensor]:
+    """A `gsasr_tpu.metrics_perceptual.DISTS` tree (`net.conv_{idx}`,
+    `alpha`, `beta`) -> the port's `DISTS` state_dict."""
+    sd: Dict[str, torch.Tensor] = {}
+    for name, p in params["net"].items():
+        _conv(sd, f"net.features.{name.split('_')[1]}", p)
+    sd["alpha"] = _t(params["alpha"])
+    sd["beta"] = _t(params["beta"])
+    return sd
+
+
+def vgg_params_from_jax(params) -> Dict[str, torch.Tensor]:
+    """A `gsasr_tpu.models.vgg.VGGFeatureExtractor` tree (`conv{b}_{i}`)
+    -> the port's state_dict (`vgg_net.conv{b}_{i}`)."""
+    sd: Dict[str, torch.Tensor] = {}
+    for name, p in params.items():
+        _conv(sd, f"vgg_net.{name}", p)
+    return sd
 
 
 def load_params(module: torch.nn.Module, state_dict) -> torch.nn.Module:

@@ -2,24 +2,26 @@
 the CLIs and the training data on a machine without OpenCV or PIL.
 
 `read_png(path)` returns what `cv2.imread(path, cv2.IMREAD_COLOR)[:, :,
-::-1]` returns: RGB uint8 (H, W, 3). It reads every non-interlaced PNG of
-the standard: gray (1, 2, 4, 8, 16 bits), gray with alpha, RGB, RGBA (8,
-16 bits) and palette (1, 2, 4, 8 bits), each scanline under any of the
-five filters. As OpenCV reads them, gray is repeated into the three
-channels, gray of 1, 2 or 4 bits is scaled to 0..255, a palette index
-takes its PLTE colour, 16-bit samples keep their high byte, and alpha and
-tRNS are dropped without compositing. An interlaced PNG, a file that is
-not a PNG, and a damaged one raise a ValueError. The scanlines' filters
-are undone in C++ (`gsasr_torch/native/png.cpp`, built with g++ at first
-use; reading raises a RuntimeError where it cannot be built): Average and
-Paeth, which most files on disk carry, are a serial loop along each row.
+::-1]` returns, and `decode_png(data)` what `cv2.imdecode` returns of the
+file's bytes, channels reversed: RGB uint8 (H, W, 3). It reads every
+non-interlaced PNG of the standard: gray (1, 2, 4, 8, 16 bits), gray with
+alpha, RGB, RGBA (8, 16 bits) and palette (1, 2, 4, 8 bits), each
+scanline under any of the five filters. As OpenCV reads them, gray is
+repeated into the three channels, gray of 1, 2 or 4 bits is scaled to
+0..255, a palette index takes its PLTE colour, 16-bit samples keep their
+high byte, and alpha and tRNS are dropped without compositing. An
+interlaced PNG, a file that is not a PNG, and a damaged one raise a
+ValueError. The scanlines' filters are undone in C++
+(`gsasr_torch/native/png.cpp`, built with g++ at first use; reading raises
+a RuntimeError where it cannot be built): Average and Paeth, which most
+files on disk carry, are a serial loop along each row.
 
-`write_png(path, rgb)` writes RGB uint8 as an 8-bit PNG, which OpenCV
-reads back bit for bit: each scanline under the Sub filter, as
-`cv2.imwrite` writes by default, or with `adaptive=True` under the filter
-that libpng's heuristic picks (the least sum of absolute bytes), as
-`cv2.imwrite` writes at `IMWRITE_PNG_COMPRESSION` 3, the level at which
-BasicSR's `extract_subimages` writes DIV2K's training sub-images.
+`encode_png(rgb)` gives, and `write_png(path, rgb)` writes, RGB uint8 as
+an 8-bit PNG, which OpenCV reads back bit for bit: each scanline under the
+Sub filter, as `cv2.imwrite` writes by default, or with `adaptive=True`
+under the filter that libpng's heuristic picks (the least sum of absolute
+bytes), as `cv2.imwrite` writes at `IMWRITE_PNG_COMPRESSION` 3, the level
+at which BasicSR's `extract_subimages` writes DIV2K's training sub-images.
 """
 
 from __future__ import annotations
@@ -60,7 +62,17 @@ def read_png(path) -> np.ndarray:
     """RGB uint8 (H, W, 3) of the PNG at `path`, as OpenCV's
     `imread(path, IMREAD_COLOR)` reads it, channels reversed."""
     with open(path, "rb") as f:
-        data = f.read()
+        return _decode(f.read(), path)
+
+
+def decode_png(data: bytes) -> np.ndarray:
+    """RGB uint8 (H, W, 3) of the PNG file in `data`, as OpenCV's
+    `imdecode(data, IMREAD_COLOR)` decodes it, channels reversed."""
+    return _decode(data, "PNG data")
+
+
+def _decode(data: bytes, path) -> np.ndarray:
+    """The PNG file in `data`; its errors name `path`."""
     if data[:8] != SIGNATURE:
         raise ValueError(f"{path}: not a PNG file (only PNG is read)")
     header = palette = None
@@ -142,13 +154,20 @@ def _filtered(rows: np.ndarray, bpp: int) -> np.ndarray:
 
 
 def write_png(path, rgb, *, adaptive: bool = False, level: int = 6) -> None:
-    """Write RGB uint8 (H, W, 3) as an 8-bit PNG, zlib at `level`: each
+    """Write `encode_png(rgb, adaptive=adaptive, level=level)` to `path`."""
+    data = encode_png(rgb, adaptive=adaptive, level=level)
+    with open(path, "wb") as f:
+        f.write(data)
+
+
+def encode_png(rgb, *, adaptive: bool = False, level: int = 6) -> bytes:
+    """RGB uint8 (H, W, 3) as an 8-bit PNG file, zlib at `level`: each
     scanline under the Sub filter, or with `adaptive` under the filter of
     the least sum of min(b, 256 - b) over its bytes, the first on a tie
     (libpng's choice)."""
     rgb = np.asarray(rgb)
     if rgb.dtype != np.uint8 or rgb.ndim != 3 or rgb.shape[2] != 3:
-        raise ValueError(f"write_png takes RGB uint8 (H, W, 3), not "
+        raise ValueError(f"encode_png takes RGB uint8 (H, W, 3), not "
                          f"{rgb.dtype} {rgb.shape}")
     h, w, _ = rgb.shape
     rows = rgb.reshape(h, 3 * w)
@@ -163,9 +182,7 @@ def write_png(path, rgb, *, adaptive: bool = False, level: int = 6) -> None:
         data = rows.copy()
         data[:, 3:] -= rows[:, :-3]
     scan = np.concatenate([ftype[:, None], data], axis=1)
-    with open(path, "wb") as f:
-        f.write(SIGNATURE
-                + _chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, 2, 0, 0,
-                                              0))
-                + _chunk(b"IDAT", zlib.compress(scan.tobytes(), level))
-                + _chunk(b"IEND", b""))
+    return (SIGNATURE
+            + _chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, 2, 0, 0, 0))
+            + _chunk(b"IDAT", zlib.compress(scan.tobytes(), level))
+            + _chunk(b"IEND", b""))
